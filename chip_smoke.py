@@ -1,0 +1,354 @@
+#!/usr/bin/env python3
+"""On-card smoke of the PyTorch/H100 port (``paddle_tpu_torch``).
+
+Run from the root of a checkout on a machine with one CUDA card::
+
+    python3 chip_smoke.py
+
+Phases, in order — any failure raises and exits non-zero:
+
+1. device: the card's name and power limit (``nvidia-smi``); TF32 off for
+   matmul and cuDNN, so float32 means float32;
+2. build: every CUDA source of the port with ``nvcc`` for ``sm_90a`` (one
+   process per source, started together), with the build seconds and the
+   assembler's register/shared-memory report;
+3. kernel vs plain: each kernel against its plain PyTorch version on the
+   card at the serving shapes (f32 and bf16, ragged tables, unmapped
+   entries, fully-masked rows);
+4. serve: ``GPTForCausalLM(gpt_small())`` at full GPT-2-small width with
+   seeded random weights behind ``GenerationEngine(paged=True)`` — 16
+   requests, two sharing a prefix; the kernel launch counts are zeroed just
+   before and read just after, and must equal ``num_layers x (admission
+   calls + decode steps)``; tokens of 4 requests are held against the
+   port's uncached greedy ``forward`` on the card (a disagreement must be a
+   near-tie, top-1 margin < 1e-4);
+5. timing: kernel / plain / library-call milliseconds at the decode shapes
+   from CUDA events, beside the bandwidth/compute bound, engine tokens/s,
+   mean request latency and peak device memory.
+
+The line before last is the ``{"kernels": [...]}`` JSON record; the last
+line is ``{"ok": true, "device": {...}}``.  Without a card, or without the
+package beside this file, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+SEED = 0
+DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
+FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+# the serving shapes: gpt_small heads, 16-token pages, batch 8, 1024 ctx
+B, H, HD, PAGE, G = 8, 12, 64, 16, 64
+VERIFY_T = (1, 5, 48)          # decode, 1 + speculative_k, largest bucket
+NUM_REQUESTS = 16
+ENGINE = dict(prompt_buckets=[16, 48], batch_size=8, kv_page_size=16,
+              speculative_k=4, paged=True)
+MARGIN_TIE = 1e-4
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def geometry(torch, T, dtype, gen, n_copies=1):
+    """A ragged paged layout at the serving shapes: slot b holds
+    ``lengths[b]`` tokens on randomly placed physical pages, the rest of
+    its table is unmapped (-1, clipped to page 0 with mask 0); row 0 of
+    slot 1 is fully masked.  ``n_copies`` pool pairs let timing loops
+    rotate past the L2 cache."""
+    dev = DEVICE
+    C = G * PAGE
+    P = B * G
+    lengths = [C - 1 - 97 * b for b in range(B)]
+    perm = torch.randperm(P, generator=gen).tolist()
+    tables = torch.full((B, G), -1, dtype=torch.int32)
+    nxt = 0
+    for b in range(B):
+        for g in range(-(-lengths[b] // PAGE)):
+            tables[b, g] = perm[nxt]
+            nxt += 1
+    kp = torch.arange(C)
+    mask = torch.zeros(B, T, C, dtype=torch.bool)
+    for b in range(B):
+        mapped = (tables[b] >= 0).repeat_interleave(PAGE)
+        for t in range(T):
+            mask[b, t] = mapped & (kp <= lengths[b] - T + t)
+    mask[1, 0] = False
+    q = torch.randn(B, H, T, HD, generator=gen).to(dev, dtype)
+    pools = [(torch.randn(P + 1, H, PAGE, HD, generator=gen).to(dev, dtype),
+              torch.randn(P + 1, H, PAGE, HD, generator=gen).to(dev, dtype))
+             for _ in range(n_copies)]
+    return (q, pools, tables.clamp_min(0).to(dev).contiguous(),
+            mask.to(dev), tables)
+
+
+def bound(q, tables_raw, mask):
+    """Least time the card needs for one call: the larger of the bytes
+    this call must move (valid K/V pages, q, mask, tables in; out) over
+    HBM bandwidth and its flops (QK and PV over the valid keys) over the
+    float32 rate."""
+    Bq, Hq, T, hd = q.shape
+    item = q.element_size()
+    used = mask.reshape(Bq, T, G, PAGE).any(dim=(1, 3))  # [B, G] page read
+    valid_pages = int(used.sum())
+    kv_bytes = valid_pages * Hq * PAGE * hd * item * 2
+    io_bytes = (2 * q.numel() * item + mask.numel()
+                + tables_raw.numel() * 4)
+    nbytes = kv_bytes + io_bytes
+    flops = 4.0 * Hq * T * valid_pages * PAGE * hd
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def time_ms(torch, fn, pools, iters):
+    """Mean ms per call from CUDA events over ``iters`` calls that rotate
+    through ``pools`` (more bytes than the 50 MB L2 holds), after a
+    warm-up."""
+    for i in range(3):
+        fn(*pools[i % len(pools)])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*pools[i % len(pools)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_kernels(torch):
+    """Phase 3: kernel vs plain version at the serving shapes."""
+    from paddle_tpu_torch.ops.paged_attention import (
+        paged_flash_decode, paged_flash_decode_ref)
+    gen = torch.Generator().manual_seed(SEED)
+    max_err = 0.0
+    for dtype, tol in ((torch.float32, dict(rtol=1e-4, atol=2e-5)),
+                       (torch.bfloat16, dict(rtol=2e-2, atol=2e-2))):
+        for T in VERIFY_T:
+            q, pools, tab, mask, _ = geometry(torch, T, dtype, gen)
+            kp, vp = pools[0]
+            out = paged_flash_decode(q, kp, vp, tab, mask)
+            ref = paged_flash_decode_ref(q, kp, vp, tab, mask)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, ref, **tol)
+            dead = ~mask.any(-1)  # [B, T] fully-masked rows
+            assert int(dead.sum()) >= 1
+            assert torch.all(out.permute(0, 2, 1, 3)[dead] == 0), \
+                "fully-masked rows must be exactly 0"
+            err = float((out.float() - ref.float()).abs().max())
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+            log(f"kernel paged_flash_decode {str(dtype)[6:]} T={T}: "
+                f"max_abs_err={err:.3e} vs plain (rtol={tol['rtol']}, "
+                f"atol={tol['atol']}) ok")
+    return max_err
+
+
+def greedy_margin_check(torch, model, prompt, served, vocab):
+    """Hold ``served`` tokens against uncached greedy ``forward`` on the
+    card.  Returns (tokens compared, near-ties); raises on a clear-margin
+    flip."""
+    ids = torch.tensor([list(map(int, prompt))], device=model.device)
+    with torch.no_grad():
+        for j, tok in enumerate(served):
+            logits = model(ids)[0, -1]
+            assert logits.shape == (vocab,) and bool(torch.isfinite(
+                logits).all()), "uncached logits not finite"
+            top2 = torch.topk(logits, 2)
+            ref = int(top2.indices[0])
+            if ref != int(tok):
+                margin = float(top2.values[0] - top2.values[1])
+                assert margin < MARGIN_TIE, (
+                    f"clear-margin flip at token {j}: served {tok}, "
+                    f"greedy {ref}, margin {margin:.3e}")
+                return j, 1
+            ids = torch.cat([ids, top2.indices[:1].view(1, 1)], dim=1)
+    return len(served), 0
+
+
+def requests():
+    """The served workload: 16 seeded requests, prompts of 4-48 tokens,
+    16-64 new tokens; the first and the last share a 20-token system
+    prompt (the last is admitted after the first registered it)."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    system = rng.randint(0, 50257, size=20)
+    reqs = []
+    for i in range(NUM_REQUESTS):
+        if i in (0, NUM_REQUESTS - 1):
+            prompt = np.concatenate([system, rng.randint(0, 50257,
+                                                         size=4 + i % 8)])
+            kw = dict(prefix_key="system", prefix_len=len(system))
+        else:
+            prompt = rng.randint(0, 50257, size=rng.randint(4, 49))
+            kw = {}
+        reqs.append((prompt.astype(np.int32), int(rng.randint(16, 65)), kw))
+    return reqs
+
+
+def serve(torch, gpu):
+    """Phase 4: GPT-2-small-width paged serving through the kernel."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_small
+    from paddle_tpu_torch.ops.paged_attention import paged_flash_decode
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    cfg = gpt_small(dropout=0.0)
+    t0 = time.monotonic()
+    model = GPTForCausalLM(cfg, device=DEVICE,
+                           generator=torch.Generator().manual_seed(SEED))
+    log(f"serve: gpt_small vocab={cfg.vocab_size} hidden={cfg.hidden_size} "
+        f"layers={cfg.num_layers} heads={cfg.num_heads} "
+        f"params={sum(p.numel() for p in model.parameters())} "
+        f"built in {time.monotonic() - t0:.1f}s")
+    reqs = requests()
+    torch.cuda.reset_peak_memory_stats()
+    with GenerationEngine(model, name="chip-smoke", **ENGINE) as eng:
+        t0 = time.monotonic()
+        eng.warmup()
+        log(f"serve: warmup {time.monotonic() - t0:.2f}s")
+        st0 = eng.stats()
+        paged_flash_decode.launches = 0
+        t0 = time.monotonic()
+        futs = [eng.submit(p, n, **kw) for p, n, kw in reqs]
+        outs = [f.result(600) for f in futs]
+        wall = time.monotonic() - t0
+        launches = paged_flash_decode.launches
+        st = eng.stats()
+    calls = ((st["batches"] - st0["batches"])
+             + (st["decode_steps"] - st0["decode_steps"]))
+    log(f"serve: {len(outs)} requests, admission calls "
+        f"{st['batches'] - st0['batches']}, decode steps "
+        f"{st['decode_steps'] - st0['decode_steps']}, kernel launches "
+        f"{launches} (= {cfg.num_layers} x {calls}: "
+        f"{launches == cfg.num_layers * calls})")
+    assert st["completed"] == NUM_REQUESTS and st["errors"] == 0, st
+    assert launches > 0 and launches == cfg.num_layers * calls, \
+        (launches, calls)
+    assert st["kv_pages_leaked"] == 0 and st["prefix_hits"] >= 1, st
+    n_tok = 0
+    for (p, n, _), out in zip(reqs, outs):
+        assert out.shape == (n,) and out.min() >= 0 \
+            and out.max() < cfg.vocab_size, (out.shape, n)
+        n_tok += len(out)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"serve[{gpu}]: {n_tok} tokens in {wall:.3f}s = "
+        f"{n_tok / wall:.1f} tokens/s, mean request latency "
+        f"{st['mean_ms']:.1f} ms (p99 {st['p99_ms']:.1f} ms), "
+        f"spec drafted/accepted {st['spec_drafted']}/{st['spec_accepted']}, "
+        f"cow copies {st['cow_copies']}, peak device memory "
+        f"{peak / 2**20:.0f} MiB")
+    compared = ties = 0
+    for (p, _, _), out in list(zip(reqs, outs))[:4]:
+        c, t = greedy_margin_check(torch, model, p, out.tolist(),
+                                   cfg.vocab_size)
+        compared += c
+        ties += t
+    assert compared >= 20, compared
+    log(f"serve: {compared} tokens of 4 requests agree with uncached "
+        f"greedy on the card ({ties} near-tie divergences, 0 clear-margin "
+        f"flips)")
+    return {"launches": launches, "launches_per_call": launches / calls,
+            "tokens_per_s": n_tok / wall, "mean_ms": st["mean_ms"],
+            "peak_bytes": peak}
+
+
+def timing(torch, gpu):
+    """Phase 5: kernel, plain and library times at the decode shapes."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.paged_attention import (
+        paged_flash_decode, paged_flash_decode_ref)
+
+    def library(q, kp, vp, tab, mask):
+        # yardstick only (never called by the port): gather the pages,
+        # then PyTorch's fused attention with the boolean mask
+        k = kp[tab.long()].permute(0, 2, 1, 3, 4).reshape(B, H, G * PAGE, HD)
+        v = vp[tab.long()].permute(0, 2, 1, 3, 4).reshape(B, H, G * PAGE, HD)
+        return F.scaled_dot_product_attention(q, k, v,
+                                              attn_mask=mask[:, None])
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    rows = {}
+    for T in (1, 5):
+        q, pools, tab, mask, tab_raw = geometry(torch, T, torch.float32,
+                                                gen, n_copies=4)
+        args = [(q, kp, vp, tab, mask) for kp, vp in pools]
+        ms = time_ms(torch, paged_flash_decode, args, 200)
+        plain = time_ms(torch, paged_flash_decode_ref, args, 20)
+        lib = time_ms(torch, library, args, 50)
+        b_ms, b_by, nbytes, flops = bound(q, tab_raw, mask)
+        log(f"timing[{gpu}] paged_flash_decode f32 B={B} H={H} T={T} "
+            f"hd={HD} page={PAGE} G={G}: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, library (gather+sdpa) {lib:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by} ({nbytes} bytes, {flops:.0f} flops)")
+        rows[T] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                       bound_by=b_by)
+    return rows
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card visible", file=sys.stderr)
+        return 2
+    from paddle_tpu_torch.ops import _build
+
+    gpu = gpu_line()
+    log(gpu)  # name, power limit: as nvidia-smi prints them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"device: torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+
+    sources = sorted(p[:-3] for p in os.listdir(_build.CSRC)
+                     if p.endswith(".cu"))
+    t0 = time.monotonic()
+    libs = _build.build(*sources)
+    log(f"build: {sources} with {_build.nvcc()} {' '.join(_build.NVCC_FLAGS)}"
+        f" in {time.monotonic() - t0:.1f}s")
+    for name, so in libs.items():
+        for line in so.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"build[{name}]: {line.strip()}")
+
+    max_err = check_kernels(torch)
+    served = serve(torch, gpu)
+    rows = timing(torch, gpu)
+    log(f"serve[{gpu}]: launches per decode step / admission = "
+        f"{served['launches_per_call']:.0f}")
+    log(json.dumps({"kernels": [{
+        "name": "paged_flash_decode", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "paddle_tpu/ops/paged_attention.py:155",
+        "launches": served["launches"], "max_abs_err": max_err,
+        "ms": rows[1]["ms"], "plain_ms": rows[1]["plain_ms"],
+        "bound_ms": rows[1]["bound_ms"], "bound_by": rows[1]["bound_by"],
+        "library_ms": rows[1]["library_ms"]}]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

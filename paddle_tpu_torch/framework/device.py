@@ -1,0 +1,72 @@
+"""Device selection for the port.
+
+Entry points run on the CUDA card unless the caller asks for the CPU
+explicitly: ``resolve_device(None)`` is ``cuda:0`` (or whatever
+:func:`set_device` chose) and raises :class:`UnavailableError` when no card
+is visible — it never falls back to the CPU quietly.  An explicit
+``"cpu"`` passes through; that is how the tests run.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from .errors import InvalidArgumentError, UnavailableError
+
+__all__ = ["set_device", "get_device", "default_device", "resolve_device"]
+
+#: the device :func:`set_device` chose; None = the card
+_chosen: Optional[torch.device] = None
+
+
+def _parse(device: Union[str, torch.device]) -> torch.device:
+    s = str(device).lower()
+    if s.startswith("gpu"):
+        s = "cuda" + s[3:]
+    try:
+        dev = torch.device(s)
+    except RuntimeError as e:
+        raise InvalidArgumentError(f"unknown device {device!r}") from e
+    if dev.type not in ("cpu", "cuda"):
+        raise InvalidArgumentError(
+            f"device {device!r}: the port runs on 'cuda' or 'cpu'")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise UnavailableError(
+                f"device {device!r} requested but no CUDA card is visible "
+                f"(pass device='cpu' to run on the CPU)")
+        index = 0 if dev.index is None else dev.index
+        if index >= torch.cuda.device_count():
+            raise InvalidArgumentError(
+                f"CUDA device index {index} out of range "
+                f"({torch.cuda.device_count()} visible)")
+        dev = torch.device("cuda", index)
+    return dev
+
+
+def set_device(device: Union[str, torch.device]) -> torch.device:
+    """Parity: ``paddle.set_device('gpu')`` / ``('cpu')`` — the device that
+    entry points called without ``device=`` run on."""
+    global _chosen
+    _chosen = _parse(device)
+    return _chosen
+
+
+def get_device() -> str:
+    """Parity: ``paddle.get_device`` — e.g. ``'cuda:0'``; raises without a
+    card unless :func:`set_device` chose the CPU."""
+    return str(default_device())
+
+
+def default_device() -> torch.device:
+    """The device of an entry point called without ``device=``."""
+    if _chosen is not None:
+        return _chosen
+    return _parse("cuda:0")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → :func:`default_device`; anything else is parsed and
+    checked (``"cpu"`` always passes)."""
+    return default_device() if device is None else _parse(device)

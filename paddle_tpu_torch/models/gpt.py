@@ -1,0 +1,324 @@
+"""GPT — decoder-only transformer LM (port of ``paddle_tpu.models.gpt``).
+
+Same module tree and parameter names as the JAX package
+(``gpt.blocks.0.attn.qkv.weight`` …, Linear weights ``[in, out]``), so
+:func:`paddle_tpu_torch.bridge.load_jax_params` maps JAX weights 1:1.
+
+Ported: the dense causal :meth:`GPTForCausalLM.forward` and the paged-KV
+serving path (:meth:`GPTModel.init_paged_cache` / :meth:`copy_pages` /
+:meth:`forward_paged`), whose attention runs the hand-written
+``paged_flash_decode`` CUDA kernel on the card.  The paged pool is updated
+IN PLACE (JAX returns new arrays): ``forward_paged`` scatters into the
+tensors of ``cache`` and returns the same dict, which saves one pool copy
+per layer per step.  Not ported yet (ROADMAP queue A): the dense-ring
+``forward_cached`` family, quantized KV pools, MoE, LoRA, weight
+quantization, sequence/pipeline parallelism, the training loss.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .. import nn
+from ..distributed.meta_parallel import (
+    ColumnParallelLinear,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+)
+from ..framework.device import resolve_device
+from ..framework.errors import UnimplementedError
+from ..framework.random import default_generator
+from ..ops.paged_attention import paged_flash_decode
+
+__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
+           "gpt_small"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class GPTConfig:
+    def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
+                 num_heads=12, intermediate_size=None, max_position=1024,
+                 dropout=0.1, layer_norm_epsilon=1e-5, dtype="float32",
+                 sequence_parallel=None, moe_experts=0, quantization="none",
+                 lora_capacity=0):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.intermediate_size = intermediate_size or 4 * hidden_size
+        self.max_position = max_position
+        self.dropout = dropout
+        self.layer_norm_epsilon = layer_norm_epsilon
+        self.dtype = dtype
+        # accepted for signature parity; GPTModel rejects non-defaults
+        # until their slices land
+        self.sequence_parallel = sequence_parallel
+        self.moe_experts = moe_experts
+        self.quantization = quantization
+        self.lora_capacity = int(lora_capacity)
+
+
+def gpt_tiny(**kw):
+    cfg = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4,
+               max_position=64, dropout=0.0)
+    cfg.update(kw)
+    return GPTConfig(**cfg)
+
+
+def gpt_small(**kw):
+    """GPT-2 small: vocab 50304, hidden 768, 12 layers x 12 heads."""
+    return GPTConfig(**kw)
+
+
+def _unported(cfg: GPTConfig):
+    for attr, default, item in (
+            ("sequence_parallel", None, "distributed execution"),
+            ("moe_experts", 0, "MoE, LoRA and tenancy"),
+            ("lora_capacity", 0, "MoE, LoRA and tenancy"),
+            ("quantization", "none", "quantized serving")):
+        if getattr(cfg, attr) != default:
+            raise UnimplementedError(
+                f"GPTConfig.{attr}={getattr(cfg, attr)!r} is not ported "
+                f"yet (ROADMAP queue A, {item})")
+    if cfg.dtype not in _DTYPES:
+        raise UnimplementedError(
+            f"GPTConfig.dtype={cfg.dtype!r}: the port runs float32 or "
+            f"bfloat16")
+
+
+class ParallelAttention(torch.nn.Module):
+    """Causal multi-head self-attention (single device: heads unsharded)."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        d, h = cfg.hidden_size, cfg.num_heads
+        if d % h:
+            raise ValueError(f"hidden {d} % heads {h} != 0")
+        self.num_heads = h
+        self.head_dim = d // h
+        self.qkv = ColumnParallelLinear(d, 3 * d)
+        self.out = RowParallelLinear(d, d)
+        self.drop = nn.Dropout(cfg.dropout)
+
+    def _heads(self, x):
+        """qkv projection → per-head ``[B,H,S,hd]`` triples."""
+        B, S, _ = x.shape
+        qkv = self.qkv(x).reshape(B, S, 3, self.num_heads, self.head_dim)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # [B,S,H,hd]
+        return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def forward(self, x, attn_mask=None):
+        """Dense causal attention (the JAX package's einsum path; its
+        Pallas flash kernel engages only on a TPU at S >= 4096)."""
+        B, S, D = x.shape
+        q, k, v = self._heads(x)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(
+            self.head_dim)
+        causal = torch.ones(S, S, dtype=torch.bool,
+                            device=x.device).tril()
+        scores = scores.masked_fill(~causal, torch.finfo(scores.dtype).min)
+        if attn_mask is not None:
+            scores = scores + attn_mask.to(scores.dtype)
+        probs = self.drop(torch.softmax(scores, dim=-1))
+        ctx = torch.einsum("bhqk,bhkd->bhqd", probs, v)
+        return self.out(ctx.transpose(1, 2).reshape(B, S, D))
+
+    def forward_paged(self, x, kv, write_page, write_off, gather_tab, mask):
+        """One attention step over a PAGED KV pool.
+
+        The new tokens' K/V are scattered in place into the shared pool at
+        the host-resolved physical coordinates (``write_page`` /
+        ``write_off``, flattened ``[B*T]``; padding lands in the last,
+        write-drop page), then :func:`paged_flash_decode` walks each slot's
+        page-table row (``gather_tab`` ``[B,G]``, pre-clipped) under
+        ``mask`` ``[B,T,C]``.  Returns ``(out, kv)``."""
+        B, T, D = x.shape
+        H, hd = self.num_heads, self.head_dim
+        q, k, v = self._heads(x)  # [B,H,T,hd]
+        if "k_scale" in kv:
+            raise UnimplementedError(
+                "quantized KV pools are not ported yet (ROADMAP queue A, "
+                "quantized serving)")
+        kv["k"][write_page, :, write_off] = (
+            k.transpose(1, 2).reshape(B * T, H, hd).to(kv["k"].dtype))
+        kv["v"][write_page, :, write_off] = (
+            v.transpose(1, 2).reshape(B * T, H, hd).to(kv["v"].dtype))
+        ctx = paged_flash_decode(q.contiguous(), kv["k"], kv["v"],
+                                 gather_tab, mask)  # [B,H,T,hd]
+        return self.out(ctx.transpose(1, 2).reshape(B, T, D)), kv
+
+
+class ParallelMLP(torch.nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.fc1 = ColumnParallelLinear(cfg.hidden_size,
+                                        cfg.intermediate_size)
+        self.fc2 = RowParallelLinear(cfg.intermediate_size, cfg.hidden_size)
+        self.act = nn.GELU()
+        self.drop = nn.Dropout(cfg.dropout)
+
+    def forward(self, x):
+        return self.drop(self.fc2(self.act(self.fc1(x))))
+
+
+class GPTBlock(torch.nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.ln1 = nn.LayerNorm(cfg.hidden_size,
+                                epsilon=cfg.layer_norm_epsilon)
+        self.attn = ParallelAttention(cfg)
+        self.ln2 = nn.LayerNorm(cfg.hidden_size,
+                                epsilon=cfg.layer_norm_epsilon)
+        self.mlp = ParallelMLP(cfg)
+
+    def forward(self, x, attn_mask=None):
+        x = x + self.attn(self.ln1(x), attn_mask)
+        return x + self.mlp(self.ln2(x))
+
+    def forward_paged(self, x, kv, write_page, write_off, gather_tab, mask):
+        a, kv = self.attn.forward_paged(self.ln1(x), kv, write_page,
+                                        write_off, gather_tab, mask)
+        x = x + a
+        return x + self.mlp(self.ln2(x)), kv
+
+
+class GPTModel(torch.nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        _unported(cfg)
+        self.cfg = cfg
+        self.wte = VocabParallelEmbedding(cfg.vocab_size, cfg.hidden_size)
+        self.wpe = nn.Embedding(cfg.max_position, cfg.hidden_size)
+        self.drop = nn.Dropout(cfg.dropout)
+        self.blocks = torch.nn.ModuleList(
+            [GPTBlock(cfg) for _ in range(cfg.num_layers)])
+        self.ln_f = nn.LayerNorm(cfg.hidden_size,
+                                 epsilon=cfg.layer_norm_epsilon)
+
+    def forward(self, input_ids, attn_mask=None):
+        S = input_ids.shape[1]
+        pos = torch.arange(S, device=input_ids.device)[None, :]
+        x = self.drop(self.wte(input_ids) + self.wpe(pos))
+        for blk in self.blocks:
+            x = blk(x, attn_mask)
+        return self.ln_f(x)
+
+    # -- paged KV cache (vLLM-style PagedAttention; Kwon et al. 2023) -------
+    def init_paged_cache(self, num_pages: int, page_size: int, dtype=None):
+        """Preallocate a paged KV pool: per-layer ``[P+1, H, page, hd]``
+        K/V page tensors shared by ALL slots, on the model's device.  Which
+        physical page holds which slot's tokens is decided per call by a
+        host-owned page table (:meth:`forward_paged`).  Index ``P`` (the
+        last page) is the write-DROP page: padding tokens scatter there
+        and no valid mask entry ever reads it.  Float dtypes only."""
+        cfg = self.cfg
+        dt = _DTYPES.get(str(dtype or cfg.dtype).replace("torch.", ""))
+        if dt is None:
+            raise UnimplementedError(
+                f"init_paged_cache(dtype={dtype!r}): quantized KV pools "
+                f"are not ported yet (ROADMAP queue A, quantized serving)")
+        hd = cfg.hidden_size // cfg.num_heads
+        shape = (int(num_pages) + 1, cfg.num_heads, int(page_size), hd)
+        dev = self.wte.weight.device
+        return {"layers": [
+            {"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev)}
+            for _ in range(cfg.num_layers)]}
+
+    def copy_pages(self, cache, src, dst):
+        """Copy whole pages ``src[i] → dst[i]`` inside the pool, in place —
+        the copy-on-write op.  ``-1`` entries are no-ops (the copy lands in
+        the write-drop page).  Returns ``cache``."""
+        P = cache["layers"][0]["k"].shape[0] - 1
+        dev = cache["layers"][0]["k"].device
+        src = torch.as_tensor(src, dtype=torch.long, device=dev).clamp_min(0)
+        dst = torch.as_tensor(dst, dtype=torch.long, device=dev)
+        dst = torch.where(dst >= 0, dst, torch.full_like(dst, P))
+        for layer in cache["layers"]:
+            for t in layer.values():
+                t[dst] = t[src]
+        return cache
+
+    def forward_paged(self, input_ids, positions, pos_map, table, cache):
+        """Prefill/decode forward over :meth:`init_paged_cache` state.
+
+        ``input_ids`` / ``positions`` are ``[B,T]`` with absolute positions
+        and ``-1`` = padding; ``table`` ``[B,G]`` maps each slot's logical
+        pages to physical pool pages (``-1`` = unmapped); ``pos_map``
+        ``[B,C]`` (``C = G*page``) is the slot→absolute-position map
+        *after this call's writes*.  Returns ``(hidden [B,T,D], cache)``
+        with the pool updated in place.
+        """
+        positions = positions.long()
+        pos_map = pos_map.long()
+        table = table.int()
+        P = cache["layers"][0]["k"].shape[0] - 1
+        page = cache["layers"][0]["k"].shape[2]
+        G = table.shape[1]
+        C = G * page
+        x = self.drop(self.wte(input_ids) + self.wpe(positions.clamp_min(0)))
+        slots = torch.where(positions >= 0, positions % C,
+                            torch.full_like(positions, -1))
+        g = torch.div(slots, page, rounding_mode="floor").clamp(0, G - 1)
+        off = torch.remainder(slots, page).clamp(0, page - 1)
+        phys = torch.take_along_dim(table.long(), g, dim=1)  # [B,T]
+        # padding tokens and unmapped pages write into the drop page P
+        phys = torch.where((slots >= 0) & (phys >= 0), phys,
+                           torch.full_like(phys, P))
+        write_page, write_off = phys.reshape(-1), off.reshape(-1)
+        kp, qp = pos_map[:, None, :], positions[:, :, None]
+        mask = (kp >= 0) & (kp <= qp) & (kp > qp - C)  # [B,T,C]
+        gather_tab = table.clamp_min(0).contiguous()  # unmapped → page 0
+        for blk, kv in zip(self.blocks, cache["layers"]):
+            x, _ = blk.forward_paged(x, kv, write_page, write_off,
+                                     gather_tab, mask)
+        return self.ln_f(x), cache
+
+
+class GPTForCausalLM(torch.nn.Module):
+    """LM head ties the input embedding: ``logits = h @ wte.weight.T``.
+
+    ``device`` — ``None`` runs on the CUDA card (raises
+    ``UnavailableError`` when there is none), ``"cpu"`` on the CPU.
+    ``generator`` — the ``torch.Generator`` the weights are drawn from
+    (default: the one :func:`paddle_tpu_torch.seed` reseeds); weights are
+    drawn on the CPU and moved, so a seed gives the same model on any
+    device.
+    """
+
+    def __init__(self, cfg: GPTConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.gpt = GPTModel(cfg)
+        gen = generator if generator is not None else default_generator()
+        for m in self.modules():
+            if hasattr(m, "reset_parameters"):
+                m.reset_parameters(gen)
+        self.to(device=dev, dtype=_DTYPES[cfg.dtype])
+
+    @property
+    def device(self) -> torch.device:
+        return self.gpt.wte.weight.device
+
+    def _logits(self, h):
+        return torch.matmul(h, self.gpt.wte.weight.t())
+
+    def forward(self, input_ids, attn_mask=None):
+        return self._logits(self.gpt(input_ids, attn_mask))  # [B,S,V]
+
+    def forward_paged(self, input_ids, positions, pos_map, table, cache,
+                      gather_last=None):
+        """Paged KV forward (see :meth:`GPTModel.forward_paged`).  With
+        ``gather_last`` (per-sequence prompt lengths ``[B]``) only the
+        hidden state at ``length-1`` is projected: logits ``[B,V]``
+        instead of ``[B,T,V]``."""
+        h, cache = self.gpt.forward_paged(input_ids, positions, pos_map,
+                                          table, cache)
+        if gather_last is not None:
+            idx = (gather_last.long() - 1).clamp_min(0)
+            h = h[torch.arange(h.shape[0], device=h.device), idx]  # [B,D]
+        return self._logits(h), cache

@@ -1,0 +1,82 @@
+"""Basic layers: Linear (paddle's ``[in, out]`` weight layout), Embedding,
+Dropout — ports of ``paddle_tpu.nn.common``.
+
+Parameters are allocated empty; :meth:`reset_parameters` fills them from
+an explicit ``torch.Generator`` (model constructors call it once, in
+module order, so a seed fixes every weight).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["Linear", "Embedding", "Dropout", "xavier_normal_"]
+
+
+def xavier_normal_(w: torch.Tensor, generator: Optional[torch.Generator]):
+    """paddle's XavierNormal: N(0, 2 / (fan_in + fan_out))."""
+    fan_in, fan_out = w.shape[0], w.shape[1]
+    with torch.no_grad():
+        w.normal_(0.0, math.sqrt(2.0 / (fan_in + fan_out)),
+                  generator=generator)
+
+
+class Linear(torch.nn.Module):
+    """``y = x @ weight + bias`` with ``weight`` ``[in_features,
+    out_features]`` — paddle's layout, so parameter names and shapes match
+    the JAX package 1:1."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = torch.nn.Parameter(torch.empty(in_features,
+                                                     out_features))
+        self.bias = (torch.nn.Parameter(torch.empty(out_features))
+                     if bias else None)
+
+    def reset_parameters(self, generator=None):
+        xavier_normal_(self.weight, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x):
+        y = torch.matmul(x, self.weight)
+        return y if self.bias is None else y + self.bias
+
+
+class Embedding(torch.nn.Module):
+    """Lookup table ``weight`` ``[num_embeddings, embedding_dim]``,
+    initialized N(0, ``std``²) — the GPT tables' N(0, 0.02²)."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 std: float = 0.02):
+        super().__init__()
+        self.num_embeddings = num_embeddings
+        self.std = std
+        self.weight = torch.nn.Parameter(torch.empty(num_embeddings,
+                                                     embedding_dim))
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.weight.normal_(0.0, self.std, generator=generator)
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight)
+
+
+class Dropout(torch.nn.Module):
+    """Upscale-in-train dropout (paddle's default mode); identity in
+    eval mode, which is how serving runs."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x):
+        return F.dropout(x, self.p, training=self.training)

@@ -1,0 +1,94 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each ``ops/csrc/<name>.cu`` has a plain C interface and compiles on first
+use into ``ops/_build/<name>-<hash>.so``, the hash covering the source and
+the flags, so an edited source rebuilds and an unchanged one loads from
+disk.  A file lock serialises concurrent builders (two processes, or two
+threads of one); :func:`build` starts one ``nvcc`` per missing source, all
+at once.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+from ..framework.errors import UnavailableError
+
+__all__ = ["NVCC_FLAGS", "build", "library_path", "load", "nvcc"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+OUT = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``nvcc`` on
+    PATH, or ``/usr/local/cuda/bin/nvcc``."""
+    cands = [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    if os.environ.get("CUDA_HOME"):
+        cands.insert(0, os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    for c in cands:
+        if c and os.access(c, os.X_OK):
+            return c
+    raise UnavailableError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH) — the port's "
+        "CUDA kernels build on first use on a machine with the toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    return OUT / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(*names: str) -> Dict[str, Path]:
+    """Compile every named source whose library is missing — one ``nvcc``
+    process per source, started together — and return the library paths.
+    Each compile's output (``-Xptxas=-v``: registers, shared memory,
+    spills) is kept in ``<library>.log``."""
+    OUT.mkdir(exist_ok=True)
+    with open(OUT / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        jobs = []
+        for name in names:
+            so = library_path(name)
+            if so.exists():
+                continue
+            tmp = so.with_name(so.stem + ".partial.so")
+            with open(so.with_suffix(".log"), "w") as log:
+                proc = subprocess.Popen(
+                    [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                     str(CSRC / f"{name}.cu")],
+                    stdout=log, stderr=subprocess.STDOUT)
+            jobs.append((name, proc, tmp, so))
+        failed = []
+        for name, proc, tmp, so in jobs:
+            if proc.wait() != 0:
+                failed.append(f"{name}.cu: "
+                              + so.with_suffix(".log").read_text()[-4000:])
+            else:
+                os.replace(tmp, so)
+    if failed:
+        raise UnavailableError("nvcc failed:\n" + "\n".join(failed))
+    return {name: library_path(name) for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it first if
+    needed."""
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(str(build(name)[name]))
+        return lib

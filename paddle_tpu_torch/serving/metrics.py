@@ -1,0 +1,122 @@
+"""Serving counters, gauges and latency quantiles (port of
+``paddle_tpu.serving.metrics``).
+
+Every engine owns a :class:`ServingMetrics`; :meth:`~ServingMetrics.snapshot`
+is what ``GenerationEngine.stats()`` returns.  Snapshot keys:
+``requests, completed, shed, expired, errors, bucket_misses, batches,
+tokens, queue_depth, batch_occupancy, mean_ms, p50_ms, p99_ms, queue_p50_ms,
+queue_p99_ms, execute_p50_ms, execute_p99_ms, tokens_per_s`` plus the
+slot-scheduler family (``SLOT_COUNTERS``), the page-accounting family
+(``PAGED_COUNTERS``) and the gauges the decode loop sets
+(``slot_occupancy``, ``slots_free``, ``queue_age_ms``, ``decode_step_ms``,
+``kv_pages_free``, ``kv_pages_shared``, ``kv_pages_leaked``).  Publishing
+snapshots on an event bus and the Prometheus bridge come with the
+observability slice.
+"""
+from __future__ import annotations
+
+import collections
+import math
+from typing import Deque, Dict, Sequence
+
+from ..framework.locking import OrderedLock
+
+__all__ = ["ServingMetrics", "SLOT_COUNTERS", "PAGED_COUNTERS"]
+
+#: counter keys every snapshot carries (zero-initialized)
+_COUNTERS = ("requests", "completed", "shed", "expired", "errors",
+             "bucket_misses", "batches", "tokens", "drain_timeout")
+
+#: slot-scheduler counters (continuous batching; see ``extra_counters``)
+SLOT_COUNTERS = ("admitted", "evicted", "decode_steps", "restarts",
+                 "starved_steps", "starved_steps_after_warm")
+
+#: page-accounting counters (paged KV mode; see ``extra_counters``)
+PAGED_COUNTERS = ("cow_copies", "spec_drafted", "spec_accepted",
+                  "preempted")
+
+
+def _quantile(sorted_vals, q: float) -> float:
+    """Nearest-rank quantile, ceil rank convention (element
+    ``ceil(q*n)``, 1-based)."""
+    n = len(sorted_vals)
+    if not n:
+        return 0.0
+    i = min(max(math.ceil(q * n) - 1, 0), n - 1)
+    return float(sorted_vals[i])
+
+
+class ServingMetrics:
+    """Thread-safe counters, gauges, and a bounded latency reservoir."""
+
+    def __init__(self, name: str = "serving#0", window: int = 512,
+                 extra_counters: Sequence[str] = ()):
+        self.name = name
+        self._lock = OrderedLock("ServingMetrics._lock")
+        self._counters: Dict[str, int] = {
+            k: 0 for k in (*_COUNTERS, *extra_counters)}
+        self._latency_ms: Deque[float] = collections.deque(maxlen=window)
+        self._occupancy: Deque[float] = collections.deque(maxlen=window)
+        self._queue_ms: Deque[float] = collections.deque(maxlen=window)
+        self._execute_ms: Deque[float] = collections.deque(maxlen=window)
+        self._queue_depth = 0
+        self._token_time_s = 0.0
+        self._gauges: Dict[str, float] = {}
+
+    def incr(self, key: str, n: int = 1):
+        with self._lock:
+            self._counters[key] = self._counters.get(key, 0) + n
+
+    def set_counter(self, key: str, value: int):
+        with self._lock:
+            self._counters[key] = int(value)
+
+    def set_queue_depth(self, depth: int):
+        with self._lock:
+            self._queue_depth = int(depth)
+
+    def set_gauge(self, key: str, value: float):
+        """Latest-value gauge folded into every snapshot."""
+        with self._lock:
+            self._gauges[key] = float(value)
+
+    def observe_occupancy(self, frac: float):
+        """One occupancy sample (0..1) for the ``batch_occupancy`` mean."""
+        with self._lock:
+            self._occupancy.append(float(frac))
+
+    def observe_latency_ms(self, ms: float):
+        with self._lock:
+            self._latency_ms.append(float(ms))
+
+    def observe_tokens(self, n: int, seconds: float):
+        with self._lock:
+            self._counters["tokens"] += int(n)
+            self._token_time_s += float(seconds)
+
+    def observe_span(self, queue_ms: float, execute_ms: float):
+        """Per-request breakdown: time queued vs time executing."""
+        with self._lock:
+            self._queue_ms.append(float(queue_ms))
+            self._execute_ms.append(float(execute_ms))
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            lat = sorted(self._latency_ms)
+            occ = list(self._occupancy)
+            qms = sorted(self._queue_ms)
+            xms = sorted(self._execute_ms)
+            snap = dict(self._counters)
+            snap.update(self._gauges)
+            snap["queue_depth"] = self._queue_depth
+            snap["batch_occupancy"] = (sum(occ) / len(occ)) if occ else 0.0
+            snap["mean_ms"] = (sum(lat) / len(lat)) if lat else 0.0
+            snap["p50_ms"] = _quantile(lat, 0.50)
+            snap["p99_ms"] = _quantile(lat, 0.99)
+            snap["queue_p50_ms"] = _quantile(qms, 0.50)
+            snap["queue_p99_ms"] = _quantile(qms, 0.99)
+            snap["execute_p50_ms"] = _quantile(xms, 0.50)
+            snap["execute_p99_ms"] = _quantile(xms, 0.99)
+            snap["tokens_per_s"] = (snap["tokens"] / self._token_time_s
+                                    if self._token_time_s > 0 else 0.0)
+        return snap

@@ -52,6 +52,9 @@ def pytest_configure(config):
         "markers", "fast: quick lane (pytest -m fast, <5 min total)")
     config.addinivalue_line(
         "markers", "slow: heavy tests excluded from the fast lane")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips without one); run on the "
+        "card with python -m pytest -m gpu tests/test_torch_*.py")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Where the device time of the port's paged serving goes, on one card.
+
+    python3 tools/torch_serve_profile.py
+
+Serves ``chip_smoke.py``'s workload (``GPTForCausalLM(gpt_small())``,
+seeded random weights, 16 requests through ``GenerationEngine`` with
+batch 8, buckets 16/48, page 16, speculative_k 4) once to warm up, then
+once more under ``torch.profiler`` (CPU + CUDA activities), and prints:
+
+* the window's wall time and the device-busy share (summed device time of
+  every kernel and copy over the wall time — one stream, so no overlap);
+* device time by kernel, largest first, grouped into the port's
+  ``paged_flash_decode`` kernel, matrix products and everything else.
+
+Numbers under the profiler run slower than ``chip_smoke.py``'s; read the
+shares, not the absolute times.  Exits non-zero without a card.
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def _group(name: str) -> str:
+    if "paged_decode_kernel" in name:
+        return "paged_flash_decode"
+    low = name.lower()
+    if "gemm" in low or "cutlass" in low or "matmul" in low:
+        return "matmul"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "other"
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("torch_serve_profile: no CUDA card visible", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_small
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = cs.gpu_line()
+    model = GPTForCausalLM(gpt_small(dropout=0.0), device="cuda",
+                           generator=torch.Generator().manual_seed(cs.SEED))
+    reqs = cs.requests()
+    with GenerationEngine(model, name="profile", **cs.ENGINE) as eng:
+        eng.warmup()
+        for f in [eng.submit(p, n, **kw) for p, n, kw in reqs]:
+            f.result(600)
+        st0 = eng.stats()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for f in [eng.submit(p, n, **kw) for p, n, kw in reqs]:
+                f.result(600)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        st = eng.stats()
+    steps = st["decode_steps"] - st0["decode_steps"]
+    admits = st["batches"] - st0["batches"]
+    rows = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(e.device_type):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((float(us), e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"profile[{gpu}]: window {wall_us / 1e3:.1f} ms, "
+          f"{admits} admission calls + {steps} decode steps, device busy "
+          f"{busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% of the window")
+    groups = {}
+    for us, n, name in rows:
+        g = groups.setdefault(_group(name), [0.0, 0])
+        g[0] += us
+        g[1] += n
+    for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"profile[{gpu}]: {g:20s} {us / 1e3:9.2f} ms device "
+              f"({100 * us / busy:5.1f}% of busy, "
+              f"{100 * us / wall_us:5.1f}% of window), {n} launches")
+    for us, n, name in rows[:15]:
+        print(f"profile:   {us / 1e3:9.3f} ms  x{n:<6d} {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
