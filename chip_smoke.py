@@ -24,7 +24,31 @@ Phases, in order — any failure raises and exits non-zero:
    near-tie, top-1 margin < 1e-4);
 5. timing: kernel / plain / library-call milliseconds at the decode shapes
    from CUDA events, beside the bandwidth/compute bound, engine tokens/s,
-   mean request latency and peak device memory.
+   mean request latency and peak device memory;
+6. train kernels vs plain: ``layernorm_residual`` and
+   ``softmax_cross_entropy`` against their plain versions at the training
+   path's shapes (BERT-base bf16, GPT-small f32): ``s`` exactly equal,
+   ``y`` / loss / ``lse`` and the gradients through each
+   ``autograd.Function`` within stated tolerances;
+7. BERT-base pretraining, the training main path:
+   ``BertForPretraining(bert_base())`` in bf16 with
+   ``AdamW(1e-4, weight_decay=0.01, multi_precision=True)`` through
+   ``Model.train_batch`` at batch 256 x seq 128 with 20 masked positions
+   (seeded data built as ``bench.py`` builds it), 3 warm-up and 10 timed
+   steps on one batch; the counts are zeroed just before the timed steps
+   and must equal 24 x steps (``layernorm_residual``) and 1 x steps
+   (``softmax_cross_entropy``); losses finite and falling, master slots
+   float32; seq/s and peak device memory;
+8. GPT-small training: ``GPTForCausalLM(gpt_small())`` f32, dropout 0.1,
+   ``AdamW(1e-3, weight_decay=0.01, multi_precision=True)`` at batch 8 x
+   seq 1024, 2 warm-up and 3 timed steps; counts 12 x steps and 1 x
+   steps; tokens/s;
+9. card vs CPU: ``bert_base()`` f32 with dropout 0 from one seeded init,
+   two ``train_batch`` steps on the card (kernels) and on the CPU (plain
+   versions); losses agree at rtol 1e-4;
+10. timing of both training kernels at both shapes: kernel, plain
+    version and library call (``F.layer_norm(x + r)``,
+    ``F.cross_entropy(reduction="none")``) beside the bytes bound.
 
 The line before last is the ``{"kernels": [...]}`` JSON record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -51,6 +75,13 @@ NUM_REQUESTS = 16
 ENGINE = dict(prompt_buckets=[16, 48], batch_size=8, kv_page_size=16,
               speculative_k=4, paged=True)
 MARGIN_TIE = 1e-4
+# the training path: BERT-base pretraining (bench.py's shapes) and
+# GPT-small training (__graft_entry__._dryrun_impl's optimizer)
+BERT_B, BERT_S, BERT_P = 256, 128, 20
+BERT_WARMUP, BERT_STEPS = 3, 10
+GPT_B, GPT_S = 8, 1024
+GPT_WARMUP, GPT_STEPS = 2, 3
+PARITY_B = 4
 
 
 def log(*a):
@@ -164,7 +195,11 @@ def check_kernels(torch):
 def greedy_margin_check(torch, model, prompt, served, vocab):
     """Hold ``served`` tokens against uncached greedy ``forward`` on the
     card.  Returns (tokens compared, near-ties); raises on a clear-margin
-    flip."""
+    flip.  The uncached ``forward`` runs every block's residual add +
+    LayerNorm through the fused ``layernorm_residual`` kernel, while the
+    paged path keeps the unfused ``x + a; ln2(x)``: this yardstick is not
+    plain PyTorch alone, and phase 6 holds that kernel to its plain
+    version separately."""
     ids = torch.tensor([list(map(int, prompt))], device=model.device)
     with torch.no_grad():
         for j, tok in enumerate(served):
@@ -304,6 +339,321 @@ def timing(torch, gpu):
     return rows
 
 
+# -- the training path --------------------------------------------------------
+# (name, dtype, rows, width): the two kernels' shapes on the training path
+LN_SHAPES = (("bert", "bfloat16", BERT_B * BERT_S, 768),
+             ("gpt", "float32", GPT_B * GPT_S, 768))
+SX_SHAPES = (("bert", "bfloat16", BERT_B * BERT_P, 30522),
+             ("gpt", "float32", GPT_B * (GPT_S - 1), 50304))
+
+
+def ln_inputs(torch, dtype, M, D, gen, n_copies=1):
+    dt = getattr(torch, dtype)
+    g = (1 + 0.1 * torch.randn(D, generator=gen)).to(DEVICE, dt)
+    b = (0.1 * torch.randn(D, generator=gen)).to(DEVICE, dt)
+    return [(torch.randn(M, D, generator=gen).to(DEVICE, dt),
+             torch.randn(M, D, generator=gen).to(DEVICE, dt), g, b)
+            for _ in range(n_copies)]
+
+
+def sx_inputs(torch, dtype, M, V, gen, n_copies=1, out_of_range=False):
+    dt = getattr(torch, dtype)
+    out = []
+    for _ in range(n_copies):
+        lab = torch.randint(0, V, (M,), generator=gen)
+        if out_of_range:
+            lab[0], lab[1], lab[2] = 0, V - 1, -1
+        out.append(((3 * torch.randn(M, V, generator=gen)).to(DEVICE, dt),
+                    lab.to(DEVICE)))
+    return out
+
+
+def ln_bound(M, D, item):
+    """Bytes: x, r read and s, y written once, weight and bias read once,
+    mean and rstd written; operations: ~8 per element in float32."""
+    nbytes = 4 * M * D * item + 2 * D * item + 8 * M
+    ops = 8.0 * M * D
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def sx_bound(M, V, item):
+    """Bytes: logits read once, int32 labels read, loss and lse written;
+    operations: ~4 per logit (max, subtract, exp, add) in float32."""
+    nbytes = M * V * item + 12 * M
+    ops = 4.0 * M * V
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def check_train_kernels(torch):
+    """Phase 6: the training kernels against their plain versions at the
+    path's shapes, forward and gradient."""
+    from paddle_tpu_torch.ops import fused_layernorm as fl
+    from paddle_tpu_torch.ops import fused_softmax_xent as sx
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    errs = {}
+    for name, dtype, M, D in LN_SHAPES:
+        tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+               else dict(rtol=2e-2, atol=2e-2))
+        (x, r, g, b), = ln_inputs(torch, dtype, M, D, gen)
+        s, y, mean, rstd = fl._forward_kernel(x, r, g, b, 1e-5)
+        s0, y0, mean0, rstd0 = fl._forward_ref(x, r, g, b, 1e-5)
+        torch.cuda.synchronize()
+        assert torch.equal(s, s0), "layernorm_residual: s differs"
+        torch.testing.assert_close(y, y0, **tol)
+        torch.testing.assert_close(mean, mean0, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(rstd, rstd0, rtol=1e-5, atol=1e-5)
+        dy = torch.randn(M, D, generator=gen).to(DEVICE, y.dtype)
+        outs, grads = [], []
+        for fn in (fl.layernorm_residual, fl.layernorm_residual_ref):
+            args = [t.clone().requires_grad_() for t in (x, r, g, b)]
+            ss, yy = fn(*args)
+            outs.append((ss.detach(), yy.detach()))
+            grads.append(torch.autograd.grad(yy, args, dy))
+        # the public wrapper's own outputs (reshape + dispatch) too
+        (sw, yw), (sp, yp) = outs
+        assert torch.equal(sw, sp), "layernorm_residual wrapper: s differs"
+        torch.testing.assert_close(yw, yp, **tol)
+        gerr = 0.0
+        for a, w in zip(*grads):
+            scale = max(1.0, float(w.float().abs().max()))
+            torch.testing.assert_close(a.float() / scale, w.float() / scale,
+                                       **tol)
+            gerr = max(gerr, float((a.float() - w.float()).abs().max()))
+        err = float((y.float() - y0.float()).abs().max())
+        errs[("layernorm_residual", name)] = err
+        log(f"kernel layernorm_residual {dtype} [{M}, {D}]: s exact, y "
+            f"max_abs_err={err:.3e}, grads max_abs_err={gerr:.3e} vs plain "
+            f"(rtol={tol['rtol']}, atol={tol['atol']}) ok")
+    for name, dtype, M, V in SX_SHAPES:
+        (x, lab), = sx_inputs(torch, dtype, M, V, gen, out_of_range=True)
+        loss, lse = sx._forward_kernel(x, lab)
+        loss0, lse0 = sx._forward_ref(x, lab)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(loss, loss0, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(lse, lse0, rtol=1e-5, atol=1e-4)
+        assert float(loss[2]) == float(lse[2]), "out-of-range label"
+        g = torch.rand(M, generator=gen).to(DEVICE)
+        outs, grads = [], []
+        for fn in (sx.softmax_cross_entropy, sx.softmax_cross_entropy_ref):
+            xx = x.clone().requires_grad_()
+            ll = fn(xx, lab)
+            outs.append(ll.detach())
+            grads.append(torch.autograd.grad(ll, xx, g)[0].float())
+        # the public wrapper's own loss (reshape + dispatch) too
+        torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-4)
+        gtol = (dict(rtol=1e-4, atol=1e-6) if dtype == "float32"
+                else dict(rtol=1e-2, atol=1e-5))
+        torch.testing.assert_close(grads[0], grads[1], **gtol)
+        err = float((loss - loss0).abs().max())
+        errs[("softmax_cross_entropy", name)] = err
+        log(f"kernel softmax_cross_entropy {dtype} [{M}, {V}]: loss "
+            f"max_abs_err={err:.3e}, lse max_abs_err="
+            f"{float((lse - lse0).abs().max()):.3e}, grad max_abs_err="
+            f"{float((grads[0] - grads[1]).abs().max()):.3e} vs plain "
+            f"(loss/lse rtol=1e-5 atol=1e-4; grad rtol={gtol['rtol']} "
+            f"atol={gtol['atol']}) ok")
+    return errs
+
+
+def bert_batch(vocab, B, S, P, seed=SEED):
+    """Seeded MLM+NSP data, built as bench.py builds it."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, size=(B, S)).astype(np.int32)
+    positions = np.stack([np.sort(rng.choice(S, P, replace=False))
+                          for _ in range(B)]).astype(np.int32)
+    inputs = [ids, (rng.uniform(size=(B, S)) < 0.5).astype(np.int32),
+              np.ones((B, S), np.int32), positions]
+    labels = [np.take_along_axis(ids, positions, axis=1),
+              rng.randint(0, 2, size=(B, 1)).astype(np.int32)]
+    return inputs, labels
+
+
+def train_steps(torch, model, inputs, labels, warmup, steps, counters):
+    """``warmup`` + ``steps`` ``train_batch`` calls; the counters are
+    zeroed just before the timed steps and read just after.  Returns
+    (losses, seconds of the timed steps, launches per counter)."""
+    losses = [model.train_batch(inputs, labels)[0] for _ in range(warmup)]
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.monotonic()
+    for _ in range(steps):
+        losses.append(model.train_batch(inputs, labels)[0])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return losses, wall, [c.launches for c in counters]
+
+
+def train_bert(torch, gpu):
+    """Phase 7: BERT-base bf16 pretraining through Model.train_batch."""
+    import math
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import BertForPretraining, bert_base
+    from paddle_tpu_torch.ops import layernorm_residual, softmax_cross_entropy
+
+    cfg = bert_base()
+    t0 = time.monotonic()
+    ptt.seed(SEED)
+    net = BertForPretraining(cfg, device=DEVICE).astype("bfloat16")
+    opt = ptt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                              multi_precision=True)
+    model = ptt.Model(net, ["input_ids", "token_type_ids", "attention_mask",
+                            "masked_positions"],
+                      ["mlm_labels", "nsp_labels"]).prepare(
+        optimizer=opt, loss=net.loss)
+    inputs, labels = bert_batch(cfg.vocab_size, BERT_B, BERT_S, BERT_P)
+    log(f"train[bert]: bert_base bf16 params="
+        f"{sum(p.numel() for p in net.parameters())} layers={cfg.num_layers}"
+        f" batch {BERT_B}x{BERT_S}, {BERT_P} masked, built in "
+        f"{time.monotonic() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall, (ln, sx) = train_steps(
+        torch, model, inputs, labels, BERT_WARMUP, BERT_STEPS,
+        (layernorm_residual, softmax_cross_entropy))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train[bert]: losses {[round(x, 4) for x in losses]}")
+    log(f"train[bert]: kernel launches over {BERT_STEPS} steps: "
+        f"layernorm_residual {ln} (= 24 x {BERT_STEPS}: "
+        f"{ln == 24 * BERT_STEPS}), softmax_cross_entropy {sx} (= "
+        f"{BERT_STEPS}: {sx == BERT_STEPS})")
+    assert ln == 2 * cfg.num_layers * BERT_STEPS, ln
+    assert sx == BERT_STEPS, sx
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], (losses[0], losses[-1])
+    sd = opt.state_dict()
+    masters = [v for k, v in sd.items() if k.endswith(".master")]
+    assert len(masters) == len(list(net.parameters())) and all(
+        m.dtype == torch.float32 for m in masters)
+    sps = BERT_B * BERT_STEPS / wall
+    log(f"train[bert][{gpu}]: {BERT_STEPS} steps in {wall:.3f}s = "
+        f"{wall / BERT_STEPS * 1e3:.1f} ms/step, {sps:.1f} seq/s, peak "
+        f"device memory {peak / 2**20:.0f} MiB, {len(masters)} float32 "
+        f"master slots")
+    del model, opt, net
+    return {"launches": {"layernorm_residual": ln,
+                         "softmax_cross_entropy": sx},
+            "seq_per_s": sps, "step_ms": wall / BERT_STEPS * 1e3,
+            "peak_bytes": peak, "first_loss": losses[0],
+            "last_loss": losses[-1]}
+
+
+def train_gpt(torch, gpu):
+    """Phase 8: GPT-small f32 training through Model.train_batch."""
+    import math
+
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_small
+    from paddle_tpu_torch.ops import layernorm_residual, softmax_cross_entropy
+
+    cfg = gpt_small()
+    ptt.seed(SEED)
+    net = GPTForCausalLM(cfg, device=DEVICE)
+    opt = ptt.optimizer.AdamW(learning_rate=1e-3, weight_decay=0.01,
+                              multi_precision=True)
+    model = ptt.Model(net).prepare(optimizer=opt, loss=net.loss)
+    ids = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, size=(GPT_B, GPT_S)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall, (ln, sx) = train_steps(
+        torch, model, [ids], [ids], GPT_WARMUP, GPT_STEPS,
+        (layernorm_residual, softmax_cross_entropy))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train[gpt]: gpt_small f32 dropout {cfg.dropout}, batch "
+        f"{GPT_B}x{GPT_S}, losses {[round(x, 4) for x in losses]}; "
+        f"launches over {GPT_STEPS} steps: layernorm_residual {ln}, "
+        f"softmax_cross_entropy {sx}")
+    assert ln == cfg.num_layers * GPT_STEPS, ln
+    assert sx == GPT_STEPS, sx
+    assert all(math.isfinite(x) for x in losses), losses
+    tps = GPT_B * GPT_S * GPT_STEPS / wall
+    log(f"train[gpt][{gpu}]: {GPT_STEPS} steps in {wall:.3f}s = "
+        f"{wall / GPT_STEPS * 1e3:.1f} ms/step, {tps:.0f} tokens/s, peak "
+        f"device memory {peak / 2**20:.0f} MiB")
+    del model, opt, net
+    return {"launches": {"layernorm_residual": ln,
+                         "softmax_cross_entropy": sx},
+            "tokens_per_s": tps, "step_ms": wall / GPT_STEPS * 1e3,
+            "peak_bytes": peak}
+
+
+def card_vs_cpu(torch):
+    """Phase 9: two BERT-base f32 train steps on the card (kernels) and
+    on the CPU (plain versions) from one seeded init."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import BertForPretraining, bert_base
+
+    cfg = bert_base(dropout=0.0)
+    inputs, labels = bert_batch(cfg.vocab_size, PARITY_B, BERT_S, BERT_P,
+                                seed=SEED + 3)
+    losses = {}
+    for dev in (DEVICE, "cpu"):
+        net = BertForPretraining(cfg, device=dev,
+                                 generator=torch.Generator().manual_seed(SEED))
+        opt = ptt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                  multi_precision=True)
+        model = ptt.Model(net, [0] * 4, [0] * 2).prepare(optimizer=opt,
+                                                         loss=net.loss)
+        losses[dev] = [model.train_batch(inputs, labels)[0]
+                       for _ in range(2)]
+    log(f"parity: bert_base f32 batch {PARITY_B}x{BERT_S}, 2 train_batch "
+        f"steps: card {losses[DEVICE]} vs cpu {losses['cpu']}")
+    for a, b in zip(losses[DEVICE], losses["cpu"]):
+        assert abs(a - b) <= 1e-4 * abs(b), (a, b)
+    return losses
+
+
+def timing_train(torch, gpu):
+    """Phase 10: kernel, plain and library times of the two training
+    kernels at both path shapes."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import fused_layernorm as fl
+    from paddle_tpu_torch.ops import fused_softmax_xent as sx
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    rows = {}
+    with torch.no_grad():
+        for name, dtype, M, D in LN_SHAPES:
+            args = ln_inputs(torch, dtype, M, D, gen, n_copies=2)
+            ms = time_ms(torch, lambda *a: fl._forward_kernel(*a, 1e-5),
+                         args, 100)
+            plain = time_ms(torch, lambda *a: fl._forward_ref(*a, 1e-5),
+                            args, 20)
+            lib = time_ms(torch, lambda x, r, g, b: F.layer_norm(
+                x + r, (D,), g, b, 1e-5), args, 50)
+            b_ms, b_by = ln_bound(M, D, args[0][0].element_size())
+            rows[("layernorm_residual", name)] = dict(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by)
+            log(f"timing[{gpu}] layernorm_residual {dtype} [{M}, {D}]: "
+                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+                f"(layer_norm(x + r)) {lib:.4f} ms, bound {b_ms:.4f} ms by "
+                f"{b_by}")
+        for name, dtype, M, V in SX_SHAPES:
+            args = sx_inputs(torch, dtype, M, V, gen, n_copies=2)
+            ms = time_ms(torch, sx._forward_kernel, args, 50)
+            plain = time_ms(torch, sx._forward_ref, args, 10)
+            lib = time_ms(torch, lambda x, lab: F.cross_entropy(
+                x, lab, reduction="none"), args, 20)
+            b_ms, b_by = sx_bound(M, V, args[0][0].element_size())
+            rows[("softmax_cross_entropy", name)] = dict(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by)
+            log(f"timing[{gpu}] softmax_cross_entropy {dtype} [{M}, {V}]: "
+                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+                f"(cross_entropy) {lib:.4f} ms, bound {b_ms:.4f} ms by "
+                f"{b_by}")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -336,14 +686,31 @@ def main() -> int:
     rows = timing(torch, gpu)
     log(f"serve[{gpu}]: launches per decode step / admission = "
         f"{served['launches_per_call']:.0f}")
-    log(json.dumps({"kernels": [{
+    errs = check_train_kernels(torch)
+    bert = train_bert(torch, gpu)
+    train_gpt(torch, gpu)
+    card_vs_cpu(torch)
+    trows = timing_train(torch, gpu)
+    kernels = [{
         "name": "paged_flash_decode", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/paged_attention.py:155",
         "launches": served["launches"], "max_abs_err": max_err,
         "ms": rows[1]["ms"], "plain_ms": rows[1]["plain_ms"],
         "bound_ms": rows[1]["bound_ms"], "bound_by": rows[1]["bound_by"],
-        "library_ms": rows[1]["library_ms"]}]}))
+        "library_ms": rows[1]["library_ms"]}]
+    for name, src, replaces in (
+            ("layernorm_residual", "fused_layernorm.cu",
+             "paddle_tpu/ops/fused_layernorm.py:68"),
+            ("softmax_cross_entropy", "fused_softmax_xent.cu",
+             "paddle_tpu/ops/fused_softmax_xent.py:85")):
+        # the main path's numbers: BERT-base pretraining's shapes
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"paddle_tpu_torch/ops/csrc/{src}", replaces=replaces,
+            launches=bert["launches"][name],
+            max_abs_err=errs[(name, "bert")], **trows[(name, "bert")]))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

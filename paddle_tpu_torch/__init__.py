@@ -8,13 +8,23 @@ on a ported path with a kernel written by hand for ``sm_90a``
 (``ops/csrc``).  Entry points run on the CUDA card unless the caller
 passes ``device="cpu"``.
 
-Ported so far: paged-KV generation serving for ``GPTForCausalLM``
-(``serving.GenerationEngine(model, paged=True)``) through the
-``paged_flash_decode`` CUDA kernel.
+Ported so far:
+
+* paged-KV generation serving for ``GPTForCausalLM``
+  (``serving.GenerationEngine(model, paged=True)``) through the
+  ``paged_flash_decode`` CUDA kernel;
+* the training step through ``Model(net).prepare(optimizer, loss)`` /
+  ``train_batch`` for BERT (``models.bert``: pretraining, QA and
+  sequence-classification heads) and ``GPTForCausalLM``, with the
+  ``layernorm_residual`` and ``softmax_cross_entropy`` CUDA kernels and
+  the SGD / Momentum / Adam / AdamW rules of ``optimizer``.
 """
+from . import optimizer, regularizer
 from .framework.device import get_device, set_device
 from .framework.random import seed
+from .hapi import Model
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-__all__ = ["seed", "set_device", "get_device", "__version__"]
+__all__ = ["seed", "set_device", "get_device", "Model", "optimizer",
+           "regularizer", "__version__"]

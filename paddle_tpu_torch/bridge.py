@@ -4,7 +4,9 @@
 ``{k: np.asarray(p.value) for k, p in jax_model.named_parameters()}``
 produces.  The port keeps the JAX names and layouts (Linear weights
 ``[in, out]``), so the mapping is 1:1; any missing name, extra name or
-shape mismatch raises.  Imports no JAX: only numpy crosses the boundary.
+shape mismatch raises.  Each array is copied into the parameter's own
+dtype, so a bf16 model (JAX bf16 arrays arrive as ``ml_dtypes.bfloat16``
+numpy) loads exactly.  Imports no JAX: only numpy crosses the boundary.
 """
 from __future__ import annotations
 

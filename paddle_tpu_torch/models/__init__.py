@@ -1,5 +1,10 @@
 """Models of the port."""
+from .bert import (BertConfig, BertForPretraining, BertForQuestionAnswering,
+                   BertForSequenceClassification, BertModel, bert_base,
+                   bert_tiny)
 from .gpt import GPTConfig, GPTForCausalLM, GPTModel, gpt_small, gpt_tiny
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
-           "gpt_small"]
+           "gpt_small", "BertConfig", "BertModel", "BertForPretraining",
+           "BertForSequenceClassification", "BertForQuestionAnswering",
+           "bert_base", "bert_tiny"]

@@ -4,15 +4,18 @@ Same module tree and parameter names as the JAX package
 (``gpt.blocks.0.attn.qkv.weight`` …, Linear weights ``[in, out]``), so
 :func:`paddle_tpu_torch.bridge.load_jax_params` maps JAX weights 1:1.
 
-Ported: the dense causal :meth:`GPTForCausalLM.forward` and the paged-KV
-serving path (:meth:`GPTModel.init_paged_cache` / :meth:`copy_pages` /
-:meth:`forward_paged`), whose attention runs the hand-written
-``paged_flash_decode`` CUDA kernel on the card.  The paged pool is updated
-IN PLACE (JAX returns new arrays): ``forward_paged`` scatters into the
+Ported: the dense causal :meth:`GPTForCausalLM.forward` with the training
+loss :meth:`GPTForCausalLM.loss`, and the paged-KV serving path
+(:meth:`GPTModel.init_paged_cache` / :meth:`copy_pages` /
+:meth:`forward_paged`).  Three hand-written CUDA kernels run on the card:
+``layernorm_residual`` (the attention residual add + ``ln2`` of every
+block's dense forward), ``softmax_cross_entropy`` (the loss) and
+``paged_flash_decode`` (paged attention).  The paged pool is updated IN
+PLACE (JAX returns new arrays): ``forward_paged`` scatters into the
 tensors of ``cache`` and returns the same dict, which saves one pool copy
 per layer per step.  Not ported yet (ROADMAP queue A): the dense-ring
 ``forward_cached`` family, quantized KV pools, MoE, LoRA, weight
-quantization, sequence/pipeline parallelism, the training loss.
+quantization, sequence/pipeline parallelism, flash attention (S >= 4096).
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ from ..distributed.meta_parallel import (
 from ..framework.device import resolve_device
 from ..framework.errors import UnimplementedError
 from ..framework.random import default_generator
+from ..ops.fused_layernorm import layernorm_residual
+from ..ops.fused_softmax_xent import softmax_cross_entropy
 from ..ops.paged_attention import paged_flash_decode
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
@@ -175,10 +180,16 @@ class GPTBlock(torch.nn.Module):
         self.mlp = ParallelMLP(cfg)
 
     def forward(self, x, attn_mask=None):
-        x = x + self.attn(self.ln1(x), attn_mask)
-        return x + self.mlp(self.ln2(x))
+        # the fused form of the JAX block (models/gpt.py GPTBlock.forward):
+        # the attention residual add and ln2 are one layernorm_residual
+        # call, which returns the residual stream s and the MLP input h
+        a = self.attn(self.ln1(x), attn_mask)
+        s, h = layernorm_residual(a, x, self.ln2.weight, self.ln2.bias,
+                                  epsilon=self.ln2.epsilon)
+        return s + self.mlp(h)
 
     def forward_paged(self, x, kv, write_page, write_off, gather_tab, mask):
+        # unfused, as the JAX serving path is
         a, kv = self.attn.forward_paged(self.ln1(x), kv, write_page,
                                         write_off, gather_tab, mask)
         x = x + a
@@ -278,7 +289,7 @@ class GPTModel(torch.nn.Module):
         return self.ln_f(x), cache
 
 
-class GPTForCausalLM(torch.nn.Module):
+class GPTForCausalLM(nn.Layer):
     """LM head ties the input embedding: ``logits = h @ wte.weight.T``.
 
     ``device`` — ``None`` runs on the CUDA card (raises
@@ -309,6 +320,18 @@ class GPTForCausalLM(torch.nn.Module):
 
     def forward(self, input_ids, attn_mask=None):
         return self._logits(self.gpt(input_ids, attn_mask))  # [B,S,V]
+
+    def loss(self, logits, labels):
+        """Shifted next-token cross entropy (labels = input_ids): the mean
+        of :func:`softmax_cross_entropy` over the ``B·(S-1)`` rows.  The
+        shifted ``[B, S-1, V]`` view is copied to contiguous rows first,
+        as XLA does.  (The JAX loss adds an MoE balance term; MoE is not
+        ported.)"""
+        logits = logits[:, :-1]
+        labels = torch.as_tensor(labels, device=logits.device)[:, 1:]
+        V = logits.shape[-1]
+        return softmax_cross_entropy(logits.reshape(-1, V),
+                                     labels.reshape(-1)).mean()
 
     def forward_paged(self, input_ids, positions, pos_map, table, cache,
                       gather_last=None):

@@ -1,7 +1,7 @@
-"""GELU — port of ``paddle_tpu.nn.activation.GELU``.
+"""Activations — ports of ``paddle_tpu.nn.activation``.
 
-The JAX package's default — the one GPT uses — is the exact (erf) form
-(``jax.nn.gelu(x, approximate=False)``), which is also
+GELU: the JAX package's default — the one GPT and BERT use — is the exact
+(erf) form (``jax.nn.gelu(x, approximate=False)``), which is also
 ``torch.nn.functional.gelu``'s default; the tanh form is not ported.
 """
 from __future__ import annotations
@@ -9,9 +9,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["GELU"]
+__all__ = ["GELU", "Tanh"]
 
 
 class GELU(torch.nn.Module):
     def forward(self, x):
         return F.gelu(x)
+
+
+class Tanh(torch.nn.Module):
+    def forward(self, x):
+        return torch.tanh(x)

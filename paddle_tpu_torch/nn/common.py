@@ -3,7 +3,9 @@ Dropout — ports of ``paddle_tpu.nn.common``.
 
 Parameters are allocated empty; :meth:`reset_parameters` fills them from
 an explicit ``torch.Generator`` (model constructors call it once, in
-module order, so a seed fixes every weight).
+module order, so a seed fixes every weight).  Dropout draws its keep-mask
+from the per-device generator of ``framework.random``, never from torch's
+global RNG.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..framework.random import generator_for
 
 __all__ = ["Linear", "Embedding", "Dropout", "xavier_normal_"]
 
@@ -71,12 +75,22 @@ class Embedding(torch.nn.Module):
 
 
 class Dropout(torch.nn.Module):
-    """Upscale-in-train dropout (paddle's default mode); identity in
-    eval mode, which is how serving runs."""
+    """Upscale-in-train dropout (paddle's default mode): in training each
+    element is kept with probability ``1 - p`` and scaled by
+    ``1 / (1 - p)``, the keep-mask drawn from the generator of the input's
+    device (:func:`~paddle_tpu_torch.framework.random.generator_for`,
+    reseeded by ``seed()``).  Identity in eval mode, which is how serving
+    runs."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = float(p)
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p == 1.0:
+            return torch.zeros_like(x)
+        keep = torch.empty_like(x).bernoulli_(
+            1.0 - self.p, generator=generator_for(x.device))
+        return x * keep / (1.0 - self.p)

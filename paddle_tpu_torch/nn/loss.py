@@ -1,0 +1,22 @@
+"""Loss layers — port of ``paddle_tpu.nn.loss`` (``CrossEntropyLoss``)."""
+from __future__ import annotations
+
+import torch
+
+from .functional.loss import cross_entropy
+
+__all__ = ["CrossEntropyLoss"]
+
+
+class CrossEntropyLoss(torch.nn.Module):
+    """Hard-label cross entropy as a layer: ``loss(input, label)``, usable
+    as ``Model.prepare(loss=CrossEntropyLoss())``."""
+
+    def __init__(self, ignore_index: int = -100, reduction: str = "mean"):
+        super().__init__()
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return cross_entropy(input, label, ignore_index=self.ignore_index,
+                             reduction=self.reduction)

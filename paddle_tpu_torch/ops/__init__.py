@@ -1,5 +1,10 @@
 """Kernels of the port: hand-written CUDA for Hopper (``csrc/``), each
 with a plain PyTorch version beside it, built by ``_build`` on first use."""
+from .fused_layernorm import layernorm_residual, layernorm_residual_ref
+from .fused_softmax_xent import (softmax_cross_entropy,
+                                 softmax_cross_entropy_ref)
 from .paged_attention import paged_flash_decode, paged_flash_decode_ref
 
-__all__ = ["paged_flash_decode", "paged_flash_decode_ref"]
+__all__ = ["paged_flash_decode", "paged_flash_decode_ref",
+           "layernorm_residual", "layernorm_residual_ref",
+           "softmax_cross_entropy", "softmax_cross_entropy_ref"]

@@ -17,11 +17,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict
 
 from ..framework.errors import UnavailableError
 
-__all__ = ["NVCC_FLAGS", "build", "library_path", "load", "nvcc"]
+__all__ = ["NVCC_FLAGS", "build", "entry", "library_path", "load", "nvcc"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 OUT = Path(__file__).resolve().parent / "_build"
@@ -92,3 +92,28 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _loaded[name] = ctypes.CDLL(str(build(name)[name]))
         return lib
+
+
+def entry(name: str, symbol: str, argtypes) -> Callable[..., None]:
+    """A caller of the C entry ``symbol`` of ``csrc/<name>.cu`` (built and
+    loaded on first use).  ``argtypes`` must give ``c_void_p`` for every
+    pointer and the stream: a plain int would cut them to 32 bits.  The
+    entry returns a ``cudaError_t``; the caller raises ``RuntimeError``
+    with CUDA's message (from ``<symbol>_error_string``) when it is not
+    0, since a refused launch never runs and a later synchronise would not
+    report it."""
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    err = getattr(lib, symbol + "_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+
+    def call(*args):
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{symbol}: launch failed: "
+                               f"{err(rc).decode()} (cudaError {rc})")
+
+    return call

@@ -88,22 +88,14 @@ def paged_flash_decode_ref(q, k_pool, v_pool, tables, mask):
 
 
 def _kernel_fn():
-    """The C entry of the built library, argtypes declared (pointers and
-    the stream as ``c_void_p`` — a plain int would cut them to 32 bits)."""
+    """The C entry of the built library (see :func:`_build.entry`)."""
     global _fn
     with _fn_lock:
         if _fn is None:
-            lib = _build.load("paged_attention")
-            fn = lib.paged_flash_decode
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                           + [ctypes.c_int] * 7
-                           + [ctypes.c_float, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            err = lib.paged_flash_decode_error_string
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            fn.error_string = err
-            _fn = fn
+            _fn = _build.entry("paged_attention", "paged_flash_decode",
+                               [ctypes.c_int] + [ctypes.c_void_p] * 6
+                               + [ctypes.c_int] * 7
+                               + [ctypes.c_float, ctypes.c_void_p])
         return _fn
 
 
@@ -160,15 +152,11 @@ def paged_flash_decode(q, k_pool, v_pool, tables, mask):
     fn = _kernel_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(_DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-                v_pool.data_ptr(), tables.data_ptr(),
-                mask.view(torch.uint8).data_ptr(), out.data_ptr(),
-                B, H, T, hd, page, G, k_pool.shape[0],
-                1.0 / math.sqrt(hd), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"paged_flash_decode: launch failed: "
-            f"{fn.error_string(rc).decode()} (cudaError {rc})")
+        fn(_DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+           v_pool.data_ptr(), tables.data_ptr(),
+           mask.view(torch.uint8).data_ptr(), out.data_ptr(),
+           B, H, T, hd, page, G, k_pool.shape[0], 1.0 / math.sqrt(hd),
+           stream)
     paged_flash_decode.launches += 1
     return out
 

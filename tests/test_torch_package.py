@@ -23,7 +23,8 @@ from paddle_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_serve_profile.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_serve_profile.py",
+    ROOT / "tools" / "torch_train_profile.py"]
 
 
 def _forbidden(mod: str) -> bool:
@@ -47,6 +48,9 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
     mods = out.stdout.split()
     assert "paddle_tpu_torch.serving.generation" in mods
     assert "paddle_tpu_torch.ops.paged_attention" in mods
+    assert "paddle_tpu_torch.ops.fused_layernorm" in mods
+    assert "paddle_tpu_torch.ops.fused_softmax_xent" in mods
+    assert "paddle_tpu_torch.hapi.model" in mods
     assert [m for m in mods if _forbidden(m)] == []
 
 

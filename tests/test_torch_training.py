@@ -1,0 +1,272 @@
+"""The training step of the port (``Model.prepare`` / ``train_batch``) held
+against the JAX package's, and the port's dropout.
+
+From the same bridged initialization, with dropout 0, three
+``train_batch`` steps of ``AdamW(multi_precision=True)`` on seeded numpy
+batches must give the same losses (rtol 1e-5) and parameters (atol 1e-4)
+for ``gpt_tiny`` and ``bert_tiny`` in f32.  The parameter tolerance is
+wider than the losses': Adam's normalized step ``m/(sqrt(v)+eps)`` turns
+a rounding-level difference in a near-zero gradient into up to ``lr`` of
+movement.  The key third of every ``qkv.bias`` is the extreme case: its
+gradient is zero in exact arithmetic (a key bias adds the same ``q·b`` to
+every score of a row, which the softmax cancels), so both frameworks move
+it by rounding noise normalized to up to ``lr`` a step.  Those entries
+are held to that bound (within ``STEPS·lr`` of their common start)
+instead of to each other.
+
+``bert_tiny`` in bf16 with float32 masters cannot meet 1e-5/1e-4: the two
+frameworks round bf16 activations at different places (and JAX returns
+the loss in bf16), so gradients differ at bf16 level, and Adam's first
+step, ``lr·sign(g)``, flips wherever a gradient lies within that noise of
+zero.  That case is held to what does survive bf16, with an ``lr`` large
+enough that a skipped or wrong update cannot hide in the tolerance: the
+losses at rtol 1e-2; the float32 ``moment1``/``moment2`` slots against
+JAX's within a tenth of each tensor's largest entry; every bf16
+parameter exactly its master rounded; each master, entry by entry, within
+``2·STEPS·lr`` of JAX's, and on average within a tenth of JAX's movement
+from the start, which is at least ``lr/2`` somewhere in every tensor.
+
+Dropout draws its keep-mask from the per-device generator that
+``paddle_tpu_torch.seed`` reseeds (never torch's global RNG): the keep
+rate and the 1/(1-p) upscale, the same mask from the same seed, and the
+identity in eval mode.
+"""
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as jpt
+import paddle_tpu_torch as tpt
+from paddle_tpu import optimizer as jopt
+from paddle_tpu.models import bert as jbert
+from paddle_tpu.models import gpt as jgpt
+from paddle_tpu_torch.bridge import load_jax_params
+from paddle_tpu_torch.framework.errors import UnimplementedError
+from paddle_tpu_torch.models import bert as tbert
+from paddle_tpu_torch.models import gpt as tgpt
+from paddle_tpu_torch.nn import Dropout
+
+STEPS = 3
+
+
+def _arrays(net):
+    return {k: np.asarray(p.value) for k, p in net.named_parameters()}
+
+
+def _gpt_batches():
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(STEPS):
+        ids = rng.randint(0, 128, size=(2, 16)).astype(np.int32)
+        out.append(([ids], [ids]))
+    return out
+
+
+def _bert_batches():
+    rng = np.random.RandomState(1)
+    B, S, P = 2, 16, 3
+    out = []
+    for _ in range(STEPS):
+        ids = rng.randint(0, 128, size=(B, S)).astype(np.int32)
+        tt = (rng.rand(B, S) < 0.5).astype(np.int32)
+        am = np.ones((B, S), np.int32)
+        am[1, 12:] = 0
+        mp = np.stack([np.sort(rng.choice(S, P, replace=False))
+                       for _ in range(B)]).astype(np.int32)
+        mlm = np.take_along_axis(ids, mp, axis=1)
+        nsp = rng.randint(0, 2, size=(B, 1)).astype(np.int32)
+        out.append(([ids, tt, am, mp], [mlm, nsp]))
+    return out
+
+
+def _key_bias(name, p):
+    """Mask of the key third of an attention ``qkv.bias`` (else None)."""
+    if not name.endswith("attn.qkv.bias"):
+        return None
+    d = p.shape[0] // 3
+    mask = np.zeros(p.shape, bool)
+    mask[d:2 * d] = True
+    return mask
+
+
+def _train(model_cls_j, cfg_j, model_cls_t, cfg_t, batches, dtype,
+           n_inputs, n_labels, lr):
+    jpt.seed(3)
+    jnet = model_cls_j(cfg_j)
+    tnet = model_cls_t(cfg_t, device="cpu")
+    if dtype == "bfloat16":
+        jnet = jnet.astype("bfloat16")
+        tnet = tnet.astype("bfloat16")
+    init = _arrays(jnet)
+    load_jax_params(tnet, init)
+    ins, labs = ["x"] * n_inputs, ["y"] * n_labels
+    jm = jpt.Model(jnet, ins, labs).prepare(
+        optimizer=jopt.AdamW(lr, weight_decay=0.01, multi_precision=True),
+        loss=jnet.loss)
+    topt = tpt.optimizer.AdamW(lr, weight_decay=0.01, multi_precision=True)
+    tm = tpt.Model(tnet, ins, labs).prepare(optimizer=topt, loss=tnet.loss)
+    jl, tl = [], []
+    for inputs, labels in batches:
+        jl.append(jm.train_batch(inputs, labels)[0])
+        tl.append(tm.train_batch(inputs, labels)[0])
+    return (jl, tl, init, _arrays(jnet), dict(tnet.named_parameters()),
+            jm._opt_state["slots"], topt.state_dict())
+
+
+CASES = {
+    "gpt_tiny_f32": (jgpt.GPTForCausalLM, jgpt.gpt_tiny,
+                     tgpt.GPTForCausalLM, tgpt.gpt_tiny, _gpt_batches,
+                     "float32", 1, 1),
+    "bert_tiny_f32": (jbert.BertForPretraining, jbert.bert_tiny,
+                      tbert.BertForPretraining, tbert.bert_tiny,
+                      _bert_batches, "float32", 4, 2),
+    "bert_tiny_bf16_multi_precision": (
+        jbert.BertForPretraining, jbert.bert_tiny, tbert.BertForPretraining,
+        tbert.bert_tiny, _bert_batches, "bfloat16", 4, 2),
+}
+#: per case: f32 holds the rounding-level bound at 1e-3; bf16 takes a
+#: larger step so that an update is well past bf16's rounding noise
+LR = {"float32": 1e-3, "bfloat16": 1e-2}
+
+
+def _check_bf16_update(init, tparams, jslots, tslots, lr):
+    """The bf16 + multi_precision case: moments, masters and parameters
+    (see the module docstring for why these bounds)."""
+    for name, p in tparams.items():
+        for slot in ("moment1", "moment2"):
+            got = tslots[f"{name}.{slot}"]
+            assert got.dtype == torch.float32, (name, slot)
+            want = np.asarray(jslots[name][slot], np.float32)
+            np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                       atol=0.1 * np.abs(want).max(),
+                                       err_msg=f"{name}.{slot}")
+        master = tslots[f"{name}.master"]
+        assert master.dtype == torch.float32, name
+        assert torch.equal(p.detach(), master.to(torch.bfloat16)), name
+        got = master.numpy()
+        want = np.asarray(jslots[name]["master"], np.float32)
+        start = init[name].astype(np.float32)
+        key = _key_bias(name, got)
+        if key is not None:  # zero in exact arithmetic: the lr bound only
+            for moved in (got[key], want[key]):
+                assert np.abs(moved - start[key]).max() <= STEPS * lr * 1.01
+            got, want, start = got[~key], want[~key], start[~key]
+        assert np.abs(want - start).max() >= 0.5 * lr, name  # not vacuous
+        moved = np.abs(want - start).mean()
+        diff = np.abs(got - want)
+        assert diff.max() <= 2 * STEPS * lr, (name, diff.max())
+        assert diff.mean() <= 0.1 * moved, (name, diff.mean(), moved)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_three_train_batch_steps_match_jax(case):
+    jcls, jcfg, tcls, tcfg, batches, dtype, n_in, n_lab = CASES[case]
+    lr = LR[dtype]
+    jl, tl, init, jparams, tparams, jslots, tslots = _train(
+        jcls, jcfg(), tcls, tcfg(), batches(), dtype, n_in, n_lab, lr)
+    assert all(np.isfinite(tl))
+    assert set(tparams) == set(jparams)
+    for name, p in tparams.items():
+        assert p.dtype == getattr(torch, dtype), name
+    if dtype == "bfloat16":
+        np.testing.assert_allclose(tl, jl, rtol=1e-2)
+        _check_bf16_update(init, tparams, jslots, tslots, lr)
+        return
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    for name, p in tparams.items():
+        got = p.detach().numpy()
+        want = jparams[name]
+        key = _key_bias(name, got)
+        if key is not None:
+            start = init[name][key]
+            for moved in (got[key], want[key]):
+                assert np.abs(moved - start).max() <= STEPS * lr * 1.01
+            got, want = got[~key], want[~key]
+        np.testing.assert_allclose(got, want, err_msg=name, rtol=0,
+                                   atol=1e-4)
+
+
+def test_model_binds_optimizer_to_dotted_names_and_keeps_masters():
+    net = tbert.BertForPretraining(tbert.bert_tiny(), device="cpu").astype(
+        "bfloat16")
+    opt = tpt.optimizer.AdamW(1e-3, multi_precision=True)
+    m = tpt.Model(net, ["a"] * 4, ["b"] * 2).prepare(optimizer=opt,
+                                                     loss=net.loss)
+    inputs, labels = _bert_batches()[0]
+    loss, metrics = m.train_batch(inputs, labels)
+    assert isinstance(loss, float) and metrics == []
+    sd = opt.state_dict()
+    assert sd["count"] == 1
+    master = sd["bert.layers.0.attn.qkv.weight.master"]
+    assert master.dtype == torch.float32
+    assert all(p.grad is None for p in net.parameters())
+    eval_loss, _ = m.eval_batch(inputs, labels)
+    assert np.isfinite(eval_loss)
+    mlm, nsp = m.predict_batch(inputs)
+    assert mlm.shape == (2, 3, 128) and nsp.shape == (2, 2)
+
+
+def test_unported_model_features_raise():
+    net = tgpt.GPTForCausalLM(tgpt.gpt_tiny(), device="cpu")
+    m = tpt.Model(net)
+    with pytest.raises(UnimplementedError, match="ROADMAP"):
+        m.prepare(optimizer=tpt.optimizer.SGD(0.1), loss=net.loss,
+                  amp_configs="O1")
+    with pytest.raises(UnimplementedError, match="ROADMAP"):
+        m.prepare(optimizer=tpt.optimizer.SGD(0.1), loss=net.loss,
+                  steps_per_execution=2)
+    m.prepare(optimizer=tpt.optimizer.SGD(0.1), loss=net.loss)
+    with pytest.raises(UnimplementedError, match="ROADMAP"):
+        m.fit(None)
+
+
+def test_dropout_keep_rate_and_upscale():
+    tpt.seed(0)
+    drop = Dropout(0.25)
+    x = torch.ones(200_000)
+    y = drop(x)
+    kept = y != 0
+    assert abs(float(kept.float().mean()) - 0.75) < 0.01
+    torch.testing.assert_close(y[kept], torch.full_like(y[kept], 1 / 0.75))
+    drop.eval()
+    assert drop(x) is x
+
+
+def test_dropout_same_seed_same_mask_and_no_global_rng():
+    drop = Dropout(0.5)
+    x = torch.randn(64, 64)
+    tpt.seed(42)
+    a = drop(x)
+    torch.manual_seed(123)  # the global RNG plays no part
+    tpt.seed(42)
+    b = drop(x)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    c = drop(x)
+    assert not torch.equal(a, c)
+
+
+def test_dropout_in_gpt_training_is_seeded():
+    """GPT-small's default dropout 0.1 in train mode: the same seed gives
+    the same loss, another seed another one."""
+    def loss(seed):
+        net = tgpt.GPTForCausalLM(tgpt.gpt_tiny(dropout=0.1), device="cpu",
+                                  generator=torch.Generator().manual_seed(0))
+        tpt.seed(seed)
+        ids = torch.from_numpy(_gpt_batches()[0][0][0])
+        with torch.no_grad():
+            return float(net.loss(net(ids), ids))
+    assert loss(1) == loss(1) != loss(2)
+
+
+@pytest.mark.gpu
+def test_dropout_on_card_uses_a_cuda_generator():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    drop = Dropout(0.3)
+    x = torch.ones(100_000, device="cuda")
+    tpt.seed(7)
+    a = drop(x)
+    tpt.seed(7)
+    b = drop(x)
+    assert torch.equal(a, b)
+    assert abs(float((a != 0).float().mean()) - 0.7) < 0.01

@@ -1,0 +1,179 @@
+#!/usr/bin/env python3
+"""Where the device time of the port's training step goes, on one card.
+
+    python3 tools/torch_train_profile.py
+
+Builds ``chip_smoke.py``'s two training workloads — BERT-base bf16
+pretraining at batch 256 x 128 with 20 masked positions and
+``AdamW(1e-4, multi_precision=True)``, and GPT-small f32 at batch 8 x
+1024 with ``AdamW(1e-3, multi_precision=True)`` — runs three warm-up
+``Model.train_batch`` steps, then for each model:
+
+* times the step's three phases with CUDA events over ``--steps`` steps:
+  forward + loss, backward, optimizer step (the parts ``train_batch``
+  runs in that order);
+* profiles one more ``train_batch`` under ``torch.profiler`` (CPU + CUDA
+  activities) and prints the window's wall time, the device-busy share
+  (summed kernel and copy time over the wall time — one stream, so no
+  overlap), device time by group — the port's two training kernels,
+  matrix products, attention softmax, the optimizer's ``_foreach``
+  kernels, reductions, copies and the remaining elementwise kernels —
+  and the largest kernels by name.
+
+Numbers under the profiler run slower than ``chip_smoke.py``'s; read the
+shares, not the absolute times.  Exits non-zero without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+GROUPS = (  # (group, substrings of the kernel name), first match wins
+    ("layernorm_residual", ("ln_res_kernel",)),
+    ("softmax_cross_entropy", ("sxent_kernel",)),
+    ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "matmul")),
+    ("softmax", ("softmax",)),
+    ("optimizer (_foreach)", ("multi_tensor_apply", "foreach")),
+    ("reduction", ("reduce_kernel",)),
+    ("copy", ("memcpy", "memset")),
+)
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "elementwise/other"
+
+
+def build(torch, which):
+    """(label, Model, inputs, labels) of one of chip_smoke's training
+    workloads."""
+    import numpy as np
+
+    import chip_smoke as cs
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import (BertForPretraining,
+                                         GPTForCausalLM, bert_base,
+                                         gpt_small)
+
+    ptt.seed(cs.SEED)
+    if which == "bert":
+        net = BertForPretraining(bert_base(), device="cuda").astype(
+            "bfloat16")
+        opt = ptt.optimizer.AdamW(1e-4, weight_decay=0.01,
+                                  multi_precision=True)
+        model = ptt.Model(net, [0] * 4, [0] * 2).prepare(optimizer=opt,
+                                                         loss=net.loss)
+        inputs, labels = cs.bert_batch(30522, cs.BERT_B, cs.BERT_S,
+                                       cs.BERT_P)
+        return (f"bert_base bf16 {cs.BERT_B}x{cs.BERT_S}", model, inputs,
+                labels)
+    net = GPTForCausalLM(gpt_small(), device="cuda")
+    opt = ptt.optimizer.AdamW(1e-3, weight_decay=0.01, multi_precision=True)
+    model = ptt.Model(net).prepare(optimizer=opt, loss=net.loss)
+    ids = np.random.RandomState(cs.SEED).randint(
+        0, 50304, size=(cs.GPT_B, cs.GPT_S)).astype(np.int32)
+    return f"gpt_small f32 {cs.GPT_B}x{cs.GPT_S}", model, [ids], [ids]
+
+
+def phases(torch, model, inputs, labels, steps):
+    """Mean ms of forward+loss, backward and optimizer step from CUDA
+    events, in ``train_batch``'s order."""
+    batch = model._batch(inputs, labels)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    tot = [0.0, 0.0, 0.0]
+    model.network.train()
+    for _ in range(steps):
+        ev[0].record()
+        loss, _ = model._forward_loss(batch)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        model._optimizer.step()
+        model._optimizer.clear_grad()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i in range(3):
+            tot[i] += ev[i].elapsed_time(ev[i + 1])
+    return [t / steps for t in tot]
+
+
+def profile_step(torch, model, inputs, labels):
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.train_batch(inputs, labels)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(e.device_type):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((float(us), e.count, e.key))
+    rows.sort(reverse=True)
+    return wall_us, rows
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=("bert", "gpt", "both"),
+                    default="both")
+    ap.add_argument("--steps", type=int, default=5,
+                    help="steps averaged by the phase timing")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_train_profile: no CUDA card visible", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = cs.gpu_line()
+    for which in (("bert", "gpt") if args.model == "both"
+                  else (args.model,)):
+        label, model, inputs, labels = build(torch, which)
+        for _ in range(3):
+            model.train_batch(inputs, labels)
+        fwd, bwd, opt = phases(torch, model, inputs, labels, args.steps)
+        step = fwd + bwd + opt
+        print(f"phases[{gpu}] {label}: step {step:.2f} ms = forward+loss "
+              f"{fwd:.2f} ({100 * fwd / step:.1f}%) + backward {bwd:.2f} "
+              f"({100 * bwd / step:.1f}%) + optimizer {opt:.2f} "
+              f"({100 * opt / step:.1f}%), mean of {args.steps} steps")
+        wall_us, rows = profile_step(torch, model, inputs, labels)
+        busy = sum(r[0] for r in rows)
+        print(f"profile[{gpu}] {label}: one train_batch under the "
+              f"profiler {wall_us / 1e3:.1f} ms, device busy "
+              f"{busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% of it")
+        groups = {}
+        for us, n, name in rows:
+            g = groups.setdefault(_group(name), [0.0, 0])
+            g[0] += us
+            g[1] += n
+        for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+            print(f"profile[{gpu}] {label}: {g:22s} {us / 1e3:9.2f} ms "
+                  f"device ({100 * us / busy:5.1f}% of busy), {n} launches")
+        for us, n, name in rows[:15]:
+            print(f"profile:   {us / 1e3:9.3f} ms  x{n:<6d} {name[:110]}")
+        del model
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
