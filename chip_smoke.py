@@ -50,12 +50,35 @@ Phases, in order — any failure raises and exits non-zero:
     version and library call (``F.layer_norm(x + r)``,
     ``F.cross_entropy(reduction="none")``) beside the bytes bound.
 
+Quantized serving (run between phases 5 and 6, on the model of phase 4):
+
+Q1. ``quantized_matmul`` kernel vs plain at the path's four ``(K, N)``
+    pairs and M in {8, 40, 384}, int8 and fp8: the int8 accumulator
+    (scale 1, bias 0) and the int8 output bit-equal; fp8 within rtol 1e-4 /
+    atol 1e-4 x max|out| (float32 sums in another order);
+Q2. ``paged_flash_decode`` over int8 and fp8 pools with their scale planes
+    vs the plain version at T = 1, 5, 16, 48, geometry as phase 3;
+Q3. the phase-4 requests through ``GenerationEngine(quantized="int8")`` and
+    again ``"fp8"``, over the SAME float model (checked bit-identical
+    afterwards): every request completes, ``quantized_linear.launches`` =
+    4 x layers x (admission calls + decode steps) and
+    ``paged_flash_decode.launches`` = layers x the same, the pool is
+    int8 / float8_e4m3fn with float32 scale planes; agreement with the
+    float model's teacher-forced top-1 is reported with the margin rule of
+    ``tools/quant_smoke.py`` (tau = 4 x the largest quantized-vs-float
+    logit difference; a flip at a margin above tau fails the run);
+Q4. timing: both kernels, their plain versions and the library calls
+    (``torch._int_mm`` where M > 16, ``torch._scaled_mm``; gather +
+    dequantize + ``scaled_dot_product_attention``) beside the bytes
+    bound, and the float / int8 / fp8 engines side by side.
+
 The line before last is the ``{"kernels": [...]}`` JSON record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a card, or without the
 package beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -68,9 +91,18 @@ SEED = 0
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+TENSOR_8BIT_OPS = 1979e12      # H100 SXM dense int8 / fp8 tensor-core rate
 # the serving shapes: gpt_small heads, 16-token pages, batch 8, 1024 ctx
 B, H, HD, PAGE, G = 8, 12, 64, 16, 64
 VERIFY_T = (1, 5, 48)          # decode, 1 + speculative_k, largest bucket
+QUANT_T = (1, 5, 16, 48)       # ... and the small bucket, quantized pools
+QUANT_MODES = ("int8", "fp8")
+# the quantized linears of a gpt_small block: qkv, out, fc1, fc2 as (K, N);
+# M = B*T: decode, the 1 + k verify step, the largest admission
+QMM_KN = {"qkv": (768, 2304), "out": (768, 768), "fc1": (768, 3072),
+          "fc2": (3072, 768)}
+QMM_M = (8, 40, 384)
+MARGIN_K = 4.0                 # tools/quant_smoke.py's clear-margin factor
 NUM_REQUESTS = 16
 ENGINE = dict(prompt_buckets=[16, 48], batch_size=8, kv_page_size=16,
               speculative_k=4, paged=True)
@@ -128,16 +160,18 @@ def geometry(torch, T, dtype, gen, n_copies=1):
             mask.to(dev), tables)
 
 
-def bound(q, tables_raw, mask):
+def bound(q, tables_raw, mask, quantized=False):
     """Least time the card needs for one call: the larger of the bytes
-    this call must move (valid K/V pages, q, mask, tables in; out) over
-    HBM bandwidth and its flops (QK and PV over the valid keys) over the
-    float32 rate."""
+    this call must move (valid K/V pages — one byte an element plus a
+    float32 scale a key for a quantized pool — q, mask, tables in; out)
+    over HBM bandwidth and its flops (QK and PV over the valid keys) over
+    the float32 rate."""
     Bq, Hq, T, hd = q.shape
     item = q.element_size()
     used = mask.reshape(Bq, T, G, PAGE).any(dim=(1, 3))  # [B, G] page read
     valid_pages = int(used.sum())
-    kv_bytes = valid_pages * Hq * PAGE * hd * item * 2
+    kv_bytes = valid_pages * Hq * PAGE * (hd + 4 if quantized
+                                          else hd * item) * 2
     io_bytes = (2 * q.numel() * item + mask.numel()
                 + tables_raw.numel() * 4)
     nbytes = kv_bytes + io_bytes
@@ -239,11 +273,8 @@ def requests():
     return reqs
 
 
-def serve(torch, gpu):
-    """Phase 4: GPT-2-small-width paged serving through the kernel."""
+def build_serve_model(torch):
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_small
-    from paddle_tpu_torch.ops.paged_attention import paged_flash_decode
-    from paddle_tpu_torch.serving import GenerationEngine
 
     cfg = gpt_small(dropout=0.0)
     t0 = time.monotonic()
@@ -253,30 +284,66 @@ def serve(torch, gpu):
         f"layers={cfg.num_layers} heads={cfg.num_heads} "
         f"params={sum(p.numel() for p in model.parameters())} "
         f"built in {time.monotonic() - t0:.1f}s")
+    return model
+
+
+def fingerprint(torch, model):
+    """Bit-level checksums of every tensor of ``model`` (name, dtype, sum
+    of the raw 32-bit words)."""
+    return [(k, v.dtype, int(v.contiguous().view(torch.int32).sum(
+        dtype=torch.int64))) for k, v in model.state_dict().items()]
+
+
+def serve(torch, gpu, model, quantized=None):
+    """Phases 4 and Q3: GPT-2-small-width paged serving through the
+    kernels, float or (``quantized``) int8 / fp8."""
+    from paddle_tpu_torch.ops.paged_attention import paged_flash_decode
+    from paddle_tpu_torch.ops.quantized_matmul import quantized_linear
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    cfg = model.gpt.cfg
+    tag = f"serve[{quantized or 'float'}]"
     reqs = requests()
+    gc.collect()  # an earlier engine (a reference cycle) frees its model copy
     torch.cuda.reset_peak_memory_stats()
-    with GenerationEngine(model, name="chip-smoke", **ENGINE) as eng:
+    with GenerationEngine(model, name=f"chip-smoke-{quantized or 'float'}",
+                          quantized=quantized, **ENGINE) as eng:
         t0 = time.monotonic()
         eng.warmup()
-        log(f"serve: warmup {time.monotonic() - t0:.2f}s")
+        log(f"{tag}: warmup {time.monotonic() - t0:.2f}s")
+        if quantized is not None:
+            assert eng.quant_active and eng._model is not model
+            pool = eng._new_cache()["layers"][0]
+            want = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[quantized]
+            assert pool["k"].dtype == want and pool["v"].dtype == want, pool
+            assert pool["k_scale"].dtype == torch.float32 and tuple(
+                pool["v_scale"].shape) == tuple(pool["k"].shape[:3])
+            log(f"{tag}: pool {pool['k'].dtype} {tuple(pool['k'].shape)}, "
+                f"scale planes float32 {tuple(pool['k_scale'].shape)}")
+            del pool
         st0 = eng.stats()
         paged_flash_decode.launches = 0
+        quantized_linear.launches = 0
         t0 = time.monotonic()
         futs = [eng.submit(p, n, **kw) for p, n, kw in reqs]
         outs = [f.result(600) for f in futs]
         wall = time.monotonic() - t0
         launches = paged_flash_decode.launches
+        qmm_launches = quantized_linear.launches
         st = eng.stats()
     calls = ((st["batches"] - st0["batches"])
              + (st["decode_steps"] - st0["decode_steps"]))
-    log(f"serve: {len(outs)} requests, admission calls "
+    want_qmm = 4 * cfg.num_layers * calls if quantized else 0
+    log(f"{tag}: {len(outs)} requests, admission calls "
         f"{st['batches'] - st0['batches']}, decode steps "
-        f"{st['decode_steps'] - st0['decode_steps']}, kernel launches "
-        f"{launches} (= {cfg.num_layers} x {calls}: "
-        f"{launches == cfg.num_layers * calls})")
+        f"{st['decode_steps'] - st0['decode_steps']}, paged_flash_decode "
+        f"launches {launches} (= {cfg.num_layers} x {calls}: "
+        f"{launches == cfg.num_layers * calls}), quantized_matmul launches "
+        f"{qmm_launches} (= {want_qmm}: {qmm_launches == want_qmm})")
     assert st["completed"] == NUM_REQUESTS and st["errors"] == 0, st
     assert launches > 0 and launches == cfg.num_layers * calls, \
         (launches, calls)
+    assert qmm_launches == want_qmm, (qmm_launches, want_qmm)
     assert st["kv_pages_leaked"] == 0 and st["prefix_hits"] >= 1, st
     n_tok = 0
     for (p, n, _), out in zip(reqs, outs):
@@ -284,25 +351,65 @@ def serve(torch, gpu):
             and out.max() < cfg.vocab_size, (out.shape, n)
         n_tok += len(out)
     peak = torch.cuda.max_memory_allocated()
-    log(f"serve[{gpu}]: {n_tok} tokens in {wall:.3f}s = "
+    log(f"{tag}[{gpu}]: {n_tok} tokens in {wall:.3f}s = "
         f"{n_tok / wall:.1f} tokens/s, mean request latency "
         f"{st['mean_ms']:.1f} ms (p99 {st['p99_ms']:.1f} ms), "
         f"spec drafted/accepted {st['spec_drafted']}/{st['spec_accepted']}, "
         f"cow copies {st['cow_copies']}, peak device memory "
         f"{peak / 2**20:.0f} MiB")
-    compared = ties = 0
-    for (p, _, _), out in list(zip(reqs, outs))[:4]:
-        c, t = greedy_margin_check(torch, model, p, out.tolist(),
-                                   cfg.vocab_size)
-        compared += c
-        ties += t
-    assert compared >= 20, compared
-    log(f"serve: {compared} tokens of 4 requests agree with uncached "
-        f"greedy on the card ({ties} near-tie divergences, 0 clear-margin "
-        f"flips)")
-    return {"launches": launches, "launches_per_call": launches / calls,
+    if quantized is None:
+        compared = ties = 0
+        for (p, _, _), out in list(zip(reqs, outs))[:4]:
+            c, t = greedy_margin_check(torch, model, p, out.tolist(),
+                                       cfg.vocab_size)
+            compared += c
+            ties += t
+        assert compared >= 20, compared
+        log(f"{tag}: {compared} tokens of 4 requests agree with uncached "
+            f"greedy on the card ({ties} near-tie divergences, 0 "
+            f"clear-margin flips)")
+    else:
+        quant_agreement(torch, model, quantized, reqs, outs)
+    return {"launches": launches, "qmm_launches": qmm_launches,
+            "launches_per_call": launches / calls,
+            "qmm_launches_per_call": qmm_launches / calls,
             "tokens_per_s": n_tok / wall, "mean_ms": st["mean_ms"],
-            "peak_bytes": peak}
+            "p99_ms": st["p99_ms"], "peak_bytes": peak}
+
+
+def quant_agreement(torch, model, mode, reqs, outs):
+    """The margin rule of tools/quant_smoke.py on the served tokens: the
+    float model and a quantized copy are teacher-forced over each served
+    history (one dense forward a request); tau = MARGIN_K x the largest
+    quantized-vs-float logit difference is the calibrated noise; a served
+    token that is not the float top-1 must sit at a float margin <= tau.
+    Agreement is reported; a clear-margin flip raises."""
+    from paddle_tpu_torch import slim
+
+    qmodel = slim.quantize_model(model, mode)
+    delta, margins, agrees = 0.0, [], []
+    with torch.no_grad():
+        for (p, _, _), out in zip(reqs, outs):
+            hist = torch.tensor([[int(t) for t in p] + out.tolist()[:-1]],
+                                device=model.device)
+            lf = model(hist)[0, len(p) - 1:]       # row j predicts out[j]
+            lq = qmodel(hist)[0, len(p) - 1:]
+            assert bool(torch.isfinite(lq).all()), "quantized logits"
+            delta = max(delta, float((lq - lf).abs().max()))
+            top2 = torch.topk(lf, 2, dim=-1)
+            margins += (top2.values[:, 0] - top2.values[:, 1]).tolist()
+            agrees += (top2.indices[:, 0].cpu()
+                       == torch.from_numpy(out).long()).tolist()
+    tau = MARGIN_K * delta
+    clear = [a for m, a in zip(margins, agrees) if m > tau]
+    flips = len(clear) - sum(clear)
+    log(f"serve[{mode}]: agreement with the float model's top-1 "
+        f"{sum(agrees)}/{len(agrees)} = {sum(agrees) / len(agrees):.3f}; "
+        f"largest logit difference {delta:.4f}, tau = {MARGIN_K:g} x that = "
+        f"{tau:.4f}; {len(clear)} tokens at a clear margin, {flips} of "
+        f"them flipped")
+    assert flips == 0, f"{flips} clear-margin flips under {mode}"
+    del qmodel
 
 
 def timing(torch, gpu):
@@ -336,6 +443,205 @@ def timing(torch, gpu):
             f"{b_ms:.4f} ms by {b_by} ({nbytes} bytes, {flops:.0f} flops)")
         rows[T] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                        bound_by=b_by)
+    return rows
+
+
+# -- quantized serving --------------------------------------------------------
+def quantize_pools(torch, kp, vp, qdt):
+    """Quantize float pools as ``forward_paged`` writes them: one scale
+    per stored token per head.  Returns (k, v, k_scale, v_scale)."""
+    from paddle_tpu_torch.models.gpt import _quantize_kv
+
+    P1, Hh, page, hd = kp.shape
+    out = []
+    for pool in (kp, vp):
+        rows = pool.permute(0, 2, 1, 3).reshape(-1, Hh, hd)
+        codes, sc = _quantize_kv(rows, qdt)
+        out += [codes.reshape(P1, page, Hh, hd).permute(0, 2, 1, 3)
+                .contiguous(),
+                sc.reshape(P1, page, Hh).permute(0, 2, 1).contiguous()]
+    return out[0], out[2], out[1], out[3]
+
+
+def qmm_inputs(torch, mode, M, K, N, gen, n_copies=1):
+    """Seeded operands of one quantized linear as the path makes them:
+    activations quantized per tensor, the weight per output channel, the
+    folded scale and a bias — ``(xq, wq, scale, bias)``, the kernel's
+    arguments, then the float ``x`` and the ``weight_scale`` they came
+    from.  ``n_copies`` distinct weights rotate a timing loop past the L2
+    cache."""
+    from paddle_tpu_torch.ops.quantized_matmul import quantize_activations
+    from paddle_tpu_torch.slim.quantization import _quantize_weight
+
+    x = torch.randn(M, K, generator=gen).to(DEVICE)
+    xq, xs = quantize_activations(x, mode)
+    bias = (0.02 * torch.randn(N, generator=gen)).to(DEVICE)
+    out = []
+    for _ in range(n_copies):
+        w = (0.02 * torch.randn(K, N, generator=gen)).to(DEVICE)
+        wq, ws = _quantize_weight(w, mode)
+        out.append((xq, wq, (ws * xs).contiguous(), bias, x, ws))
+    return out
+
+
+def check_quantized_matmul(torch):
+    """Phase Q1: the quantized_matmul kernel against its plain version at
+    the path's shapes.  Returns the largest abs error per mode."""
+    from paddle_tpu_torch.ops.quantized_matmul import (
+        _matmul_kernel, _matmul_ref, quantized_linear, quantized_linear_ref)
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    errs = {}
+    for mode in QUANT_MODES:
+        worst = 0.0
+        for name, (K, N) in QMM_KN.items():
+            for M in QMM_M:
+                (xq, wq, scale, bias, x, ws), = qmm_inputs(torch, mode, M, K,
+                                                           N, gen)
+                out = _matmul_kernel(xq, wq, scale, bias)
+                ref = _matmul_ref(xq, wq, scale, bias)
+                # the public wrapper too (quantize, fold, dispatch, cast)
+                pub = quantized_linear(x, wq, ws, bias)
+                pref = quantized_linear_ref(x, wq, ws, bias)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                if mode == "int8":
+                    one, zero = torch.ones_like(scale), torch.zeros_like(bias)
+                    acc = _matmul_kernel(xq, wq, one, zero)
+                    acc0 = _matmul_ref(xq, wq, one, zero)
+                    assert torch.equal(acc, acc0), \
+                        f"int8 accumulator differs at {name} M={M}"
+                    assert torch.equal(out, ref) and torch.equal(pub, pref), \
+                        f"int8 output differs at {name} M={M}: {err}"
+                else:
+                    tol = dict(rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+                    torch.testing.assert_close(out, ref, **tol)
+                    torch.testing.assert_close(pub, pref, **tol)
+                worst = max(worst, err)
+        errs[mode] = worst
+        log(f"kernel quantized_matmul {mode} at {list(QMM_KN.values())} x M "
+            f"in {QMM_M}: max_abs_err={worst:.3e} vs plain ("
+            + ("accumulator and output bit-equal" if mode == "int8" else
+               "rtol=1e-4, atol=1e-4 x max|out|") + ") ok")
+    return errs
+
+
+def check_kernels_quantized(torch):
+    """Phase Q2: paged_flash_decode over int8 / fp8 pools vs plain."""
+    from paddle_tpu_torch.ops.paged_attention import (
+        paged_flash_decode, paged_flash_decode_ref)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    max_err = 0.0
+    for mode, qdt in zip(QUANT_MODES, (torch.int8, torch.float8_e4m3fn)):
+        for T in QUANT_T:
+            q, pools, tab, mask, _ = geometry(torch, T, torch.float32, gen)
+            k, v, ks, vs = quantize_pools(torch, *pools[0], qdt)
+            out = paged_flash_decode(q, k, v, tab, mask, ks, vs)
+            ref = paged_flash_decode_ref(q, k, v, tab, mask, ks, vs)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=2e-5)
+            dead = ~mask.any(-1)
+            assert int(dead.sum()) >= 1
+            assert torch.all(out.permute(0, 2, 1, 3)[dead] == 0), \
+                "fully-masked rows must be exactly 0"
+            err = float((out - ref).abs().max())
+            max_err = max(max_err, err)
+            log(f"kernel paged_flash_decode {mode} pool, f32 q, T={T}: "
+                f"max_abs_err={err:.3e} vs plain (rtol=1e-4, atol=2e-5) ok")
+    return max_err
+
+
+def timing_quantized(torch, gpu):
+    """Phase Q4: both kernels over quantized operands — kernel, plain and
+    library times beside the bytes bound."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.paged_attention import (
+        paged_flash_decode, paged_flash_decode_ref)
+    from paddle_tpu_torch.ops.quantized_matmul import (_matmul_kernel,
+                                                       _matmul_ref)
+
+    def attn_library(q, k, v, tab, mask, ks, vs):
+        # yardstick only: gather, dequantize, PyTorch's fused attention
+        def view(pool, sc):
+            x = pool[tab.long()].float() * sc[tab.long()][..., None]
+            return x.permute(0, 2, 1, 3, 4).reshape(B, H, G * PAGE, HD)
+        return F.scaled_dot_product_attention(q, view(k, ks), view(v, vs),
+                                              attn_mask=mask[:, None])
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    rows = {}
+    for mode, qdt in zip(QUANT_MODES, (torch.int8, torch.float8_e4m3fn)):
+        for T in (1, 5):
+            q, pools, tab, mask, tab_raw = geometry(torch, T, torch.float32,
+                                                    gen, n_copies=6)
+            args = []
+            for kp, vp in pools:
+                k, v, ks, vs = quantize_pools(torch, kp, vp, qdt)
+                args.append((q, k, v, tab, mask, ks, vs))
+            del pools
+            ms = time_ms(torch, paged_flash_decode, args, 200)
+            plain = time_ms(torch, paged_flash_decode_ref, args, 20)
+            lib = time_ms(torch, attn_library, args, 50)
+            b_ms, b_by, nbytes, flops = bound(q, tab_raw, mask,
+                                              quantized=True)
+            log(f"timing[{gpu}] paged_flash_decode {mode} pool f32 q B={B} "
+                f"H={H} T={T} hd={HD} page={PAGE} G={G}: kernel {ms:.4f} "
+                f"ms, plain {plain:.4f} ms, library (gather+dequantize+"
+                f"sdpa) {lib:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+                f"({nbytes} bytes, {flops:.0f} flops)")
+            rows[("paged", mode, T)] = dict(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by)
+
+    def library_fn(mode, M):
+        # one PyTorch call for the product alone (no epilogue); None where
+        # it does not take the shape
+        if mode == "int8":
+            return (lambda xq, wq, s, b: torch._int_mm(xq, wq)) \
+                if M > 16 else None
+        one = torch.ones((), device=DEVICE)
+        return lambda xq, wq, s, b: torch._scaled_mm(
+            xq, wq, scale_a=one, scale_b=one, out_dtype=torch.float32)
+
+    for mode in QUANT_MODES:
+        for name in ("fc1", "fc2"):
+            K, N = QMM_KN[name]
+            for M in QMM_M:
+                args = [a[:4] for a in qmm_inputs(
+                    torch, mode, M, K, N, gen,
+                    n_copies=-(-64_000_000 // (K * N)))]
+                ms = time_ms(torch, _matmul_kernel, args, 200)
+                plain = time_ms(torch, _matmul_ref, args, 20)
+                lib, why = None, "none: torch._int_mm needs M > 16"
+                fn = library_fn(mode, M)
+                if fn is not None:
+                    if mode == "fp8":  # _scaled_mm wants wq column-major
+                        largs = [(xq, wq.t().contiguous().t(), s_, b_)
+                                 for xq, wq, s_, b_ in args]
+                    else:
+                        largs = args
+                    try:
+                        lib = time_ms(torch, fn, largs, 50)
+                    except RuntimeError as e:  # the yardstick, not the port
+                        why = f"none: {str(e).splitlines()[0][:120]}"
+                    del largs
+                nbytes = M * K + K * N + 8 * N + 4 * M * N
+                ops = 2.0 * M * K * N
+                t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / TENSOR_8BIT_OPS
+                b_ms = max(t_b, t_o) * 1e3
+                b_by = "bytes" if t_b >= t_o else "operations"
+                lib_s = f"{lib:.4f} ms" if lib is not None else why
+                log(f"timing[{gpu}] quantized_matmul {mode} {name} [{M}, "
+                    f"{K}] @ [{K}, {N}]: kernel {ms:.4f} ms, plain "
+                    f"{plain:.4f} ms, library ("
+                    f"{'_int_mm' if mode == 'int8' else '_scaled_mm'}, "
+                    f"product only) {lib_s}, bound {b_ms:.5f} ms by {b_by} "
+                    f"({nbytes} bytes)")
+                rows[("qmm", mode, name, M)] = dict(
+                    ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                    bound_by=b_by)
+                del args
     return rows
 
 
@@ -682,23 +988,44 @@ def main() -> int:
                 log(f"build[{name}]: {line.strip()}")
 
     max_err = check_kernels(torch)
-    served = serve(torch, gpu)
+    model = build_serve_model(torch)
+    before = fingerprint(torch, model)
+    served = serve(torch, gpu, model)
     rows = timing(torch, gpu)
     log(f"serve[{gpu}]: launches per decode step / admission = "
         f"{served['launches_per_call']:.0f}")
+    qmm_errs = check_quantized_matmul(torch)
+    qpaged_err = check_kernels_quantized(torch)
+    qserved = {mode: serve(torch, gpu, model, quantized=mode)
+               for mode in QUANT_MODES}
+    assert fingerprint(torch, model) == before, \
+        "the float model changed under a quantized engine"
+    log("serve: the float model is bit-identical after both quantized "
+        "engines")
+    del model
+    qrows = timing_quantized(torch, gpu)
+    for name, r in (("float", served), *qserved.items()):
+        log(f"engines[{gpu}] {name}: {r['tokens_per_s']:.1f} tokens/s, mean "
+            f"latency {r['mean_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms, peak "
+            f"device memory {r['peak_bytes'] / 2**20:.0f} MiB; launches per "
+            f"call: paged_flash_decode {r['launches_per_call']:.0f}, "
+            f"quantized_matmul {r['qmm_launches_per_call']:.0f}")
     errs = check_train_kernels(torch)
     bert = train_bert(torch, gpu)
     train_gpt(torch, gpu)
     card_vs_cpu(torch)
     trows = timing_train(torch, gpu)
-    kernels = [{
-        "name": "paged_flash_decode", "route": "cuda",
-        "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
-        "replaces": "paddle_tpu/ops/paged_attention.py:155",
-        "launches": served["launches"], "max_abs_err": max_err,
-        "ms": rows[1]["ms"], "plain_ms": rows[1]["plain_ms"],
-        "bound_ms": rows[1]["bound_ms"], "bound_by": rows[1]["bound_by"],
-        "library_ms": rows[1]["library_ms"]}]
+    paged = dict(name="paged_flash_decode", route="cuda",
+                 source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
+                 replaces="paddle_tpu/ops/paged_attention.py:155")
+    # T = 1 decode shape; the quantized branch's numbers are the int8
+    # pool's, its launches those of the int8 and fp8 engines together
+    kernels = [
+        dict(paged, branch="float pools", launches=served["launches"],
+             max_abs_err=max_err, **rows[1]),
+        dict(paged, branch="quantized pools (int8, fp8) with scale planes",
+             launches=sum(r["launches"] for r in qserved.values()),
+             max_abs_err=qpaged_err, **qrows[("paged", "int8", 1)])]
     for name, src, replaces in (
             ("layernorm_residual", "fused_layernorm.cu",
              "paddle_tpu/ops/fused_layernorm.py:68"),
@@ -710,6 +1037,15 @@ def main() -> int:
             source=f"paddle_tpu_torch/ops/csrc/{src}", replaces=replaces,
             launches=bert["launches"][name],
             max_abs_err=errs[(name, "bert")], **trows[(name, "bert")]))
+    # the decode shape of the widest linear (fc1, M = 8), int8; launches
+    # of the int8 and fp8 engines together
+    kernels.append(dict(
+        name="quantized_matmul", route="cuda",
+        source="paddle_tpu_torch/ops/csrc/quantized_matmul.cu",
+        replaces="paddle_tpu/ops/quantized_matmul.py:70",
+        launches=sum(r["qmm_launches"] for r in qserved.values()),
+        max_abs_err=max(qmm_errs.values()),
+        **qrows[("qmm", "int8", "fc1", 8)]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,19 +12,21 @@ Ported so far:
 
 * paged-KV generation serving for ``GPTForCausalLM``
   (``serving.GenerationEngine(model, paged=True)``) through the
-  ``paged_flash_decode`` CUDA kernel;
+  ``paged_flash_decode`` CUDA kernel, also quantized
+  (``quantized="int8" | "fp8"``: ``slim`` weight quantization, int8 / fp8
+  KV pools, the ``quantized_matmul`` CUDA kernel);
 * the training step through ``Model(net).prepare(optimizer, loss)`` /
   ``train_batch`` for BERT (``models.bert``: pretraining, QA and
   sequence-classification heads) and ``GPTForCausalLM``, with the
   ``layernorm_residual`` and ``softmax_cross_entropy`` CUDA kernels and
   the SGD / Momentum / Adam / AdamW rules of ``optimizer``.
 """
-from . import optimizer, regularizer
+from . import optimizer, regularizer, slim
 from .framework.device import get_device, set_device
 from .framework.random import seed
 from .hapi import Model
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = ["seed", "set_device", "get_device", "Model", "optimizer",
-           "regularizer", "__version__"]
+           "regularizer", "slim", "__version__"]

@@ -4,13 +4,22 @@
 ``{k: np.asarray(p.value) for k, p in jax_model.named_parameters()}``
 produces.  The port keeps the JAX names and layouts (Linear weights
 ``[in, out]``), so the mapping is 1:1; any missing name, extra name or
-shape mismatch raises.  Each array is copied into the parameter's own
-dtype, so a bf16 model (JAX bf16 arrays arrive as ``ml_dtypes.bfloat16``
-numpy) loads exactly.  Imports no JAX: only numpy crosses the boundary.
+shape mismatch raises.  Each float array is copied into the parameter's
+own dtype, so a bf16 model (JAX bf16 arrays arrive as
+``ml_dtypes.bfloat16`` numpy) loads exactly.
+
+A JAX QUANTIZED tree (``slim.quantize_model_trees(model, mode)`` as
+numpy) loads the same way: ``arrays`` is its parameter tree, whose
+parallel-linear weights are int8 (numpy ``int8``) or fp8-e4m3 (either
+``ml_dtypes.float8_e4m3fn`` or the raw bits as ``uint8``), and
+``buffers`` its buffer tree, which holds each ``….weight_scale``.  Those
+layers become quantized in the port model (``set_quantized``) with the
+very same codes and scales, so both packages compute from identical
+quantized weights.  Imports no JAX: only numpy crosses the boundary.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -20,21 +29,54 @@ from .framework.errors import InvalidArgumentError
 __all__ = ["load_jax_params"]
 
 
+def _quantized_tensor(a: np.ndarray) -> Optional[torch.Tensor]:
+    """The torch tensor of a quantized numpy weight, ``None`` for a float
+    one."""
+    if a.dtype == np.int8:
+        return torch.from_numpy(np.array(a))  # a writable copy
+    if a.dtype == np.uint8 or a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(np.array(a).view(np.uint8)).view(
+            torch.float8_e4m3fn)
+    return None
+
+
 def load_jax_params(model: torch.nn.Module,
-                    arrays: Mapping[str, np.ndarray]) -> torch.nn.Module:
-    params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(arrays))
-    extra = sorted(set(arrays) - set(params))
+                    arrays: Mapping[str, np.ndarray],
+                    buffers: Optional[Mapping[str, np.ndarray]] = None
+                    ) -> torch.nn.Module:
+    slots = dict(model.named_parameters())
+    # an already-quantized layer holds its weight as a buffer, same name
+    slots.update({n: b for n, b in model.named_buffers()
+                  if n.endswith(".weight")})
+    missing = sorted(set(slots) - set(arrays))
+    extra = sorted(set(arrays) - set(slots))
     if missing or extra:
         raise InvalidArgumentError(
             f"load_jax_params: missing {missing[:8]}, unexpected {extra[:8]}")
-    for name, p in params.items():
+    for name, p in slots.items():
         a = np.asarray(arrays[name])
         if tuple(a.shape) != tuple(p.shape):
             raise InvalidArgumentError(
                 f"load_jax_params: {name} has shape {tuple(a.shape)}, the "
                 f"model expects {tuple(p.shape)}")
     with torch.no_grad():
-        for name, p in params.items():
-            p.copy_(torch.from_numpy(np.array(arrays[name], np.float32)))
+        for name, p in slots.items():
+            a = np.asarray(arrays[name])
+            q = _quantized_tensor(a)
+            if q is None:
+                if not p.is_floating_point() or p.element_size() == 1:
+                    raise InvalidArgumentError(
+                        f"load_jax_params: {name} is quantized "
+                        f"({p.dtype}) in the model but {a.dtype} in arrays")
+                p.copy_(torch.from_numpy(np.array(a, np.float32)))
+                continue
+            layer = model.get_submodule(name.rpartition(".")[0])
+            scale = (buffers or {}).get(f"{name}_scale")
+            if scale is None or not hasattr(layer, "set_quantized"):
+                raise InvalidArgumentError(
+                    f"load_jax_params: {name} arrives quantized ({a.dtype}); "
+                    f"it needs {name}_scale in buffers and a parallel-linear "
+                    f"layer to hold it")
+            layer.set_quantized(
+                q, torch.from_numpy(np.array(scale, np.float32)))
     return model

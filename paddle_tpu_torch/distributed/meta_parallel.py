@@ -5,23 +5,72 @@ On a single card these are the plain layers under the megatron names the
 models use, with the same parameter names and shapes as the JAX package:
 ``ColumnParallelLinear`` / ``RowParallelLinear`` keep the ``[in, out]``
 weight, ``VocabParallelEmbedding`` the ``[vocab, hidden]`` table.
-Sharding over a ``model`` axis (and the quantized and LoRA legs of the
-JAX layers) come with the distributed, quantized-serving and LoRA slices.
+A weight quantized for serving (``slim.quantize_weights``) is int8 or
+float8_e4m3fn and cannot be a float ``nn.Parameter`` with a gradient: it
+is held as a buffer under the same dotted name ``weight``, with its
+per-output-channel float32 ``weight_scale`` buffer beside it, so names map
+1:1 onto the JAX package's quantized trees.  The forward dispatches on
+the weight dtype, as the JAX layers do.  Sharding over a ``model`` axis
+and the LoRA leg of the JAX layers come with the distributed and LoRA
+slices.
 """
 from __future__ import annotations
 
+import torch
+
+from ..framework.errors import InvalidArgumentError
 from ..nn.common import Embedding, Linear
+from ..ops.quantized_matmul import quantized_linear
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding"]
 
+#: weight dtypes the quantized serving path stores (slim.quantize_weights)
+_QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
-class ColumnParallelLinear(Linear):
+
+class _ParallelLinear(Linear):
+    """What Column/RowParallelLinear share on one device: the float
+    ``Linear`` forward, or the quantized leg when the weight arrived
+    int8/fp8."""
+
+    def set_quantized(self, weight_q, weight_scale):
+        """Replace the float ``weight`` parameter by the quantized
+        ``weight_q`` ``[in, out]`` (int8 or float8_e4m3fn) and store its
+        ``weight_scale`` ``[out]`` float32, both as buffers."""
+        if (weight_q.dtype not in _QUANT_DTYPES
+                or tuple(weight_q.shape) != tuple(self.weight.shape)
+                or tuple(weight_scale.shape) != (self.out_features,)):
+            raise InvalidArgumentError(
+                f"{type(self).__name__}.set_quantized: weight "
+                f"{weight_q.dtype} {tuple(weight_q.shape)} / scale "
+                f"{tuple(weight_scale.shape)} do not fit "
+                f"{tuple(self.weight.shape)}")
+        dev = self.weight.device
+        del self.weight  # a parameter or a buffer; re-registered below
+        self.register_buffer("weight", weight_q.detach().to(dev))
+        self.register_buffer("weight_scale",
+                             weight_scale.detach().float().to(dev))
+
+    def forward(self, x):
+        if self.weight.dtype not in _QUANT_DTYPES:
+            return super().forward(x)
+        scale = self._buffers.get("weight_scale")
+        if scale is None:
+            raise InvalidArgumentError(
+                f"{type(self).__name__}: weight is {self.weight.dtype} but "
+                f"no weight_scale buffer is registered — quantize via "
+                f"slim.quantize_weights / slim.quantize_model, not a bare "
+                f"dtype cast")
+        return quantized_linear(x, self.weight, scale, self.bias)
+
+
+class ColumnParallelLinear(_ParallelLinear):
     """Linear whose output features shard over ``model`` (one device:
     unsharded)."""
 
 
-class RowParallelLinear(Linear):
+class RowParallelLinear(_ParallelLinear):
     """Linear whose input features shard over ``model`` (one device:
     unsharded)."""
 

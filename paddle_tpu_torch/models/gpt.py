@@ -7,15 +7,21 @@ Same module tree and parameter names as the JAX package
 Ported: the dense causal :meth:`GPTForCausalLM.forward` with the training
 loss :meth:`GPTForCausalLM.loss`, and the paged-KV serving path
 (:meth:`GPTModel.init_paged_cache` / :meth:`copy_pages` /
-:meth:`forward_paged`).  Three hand-written CUDA kernels run on the card:
-``layernorm_residual`` (the attention residual add + ``ln2`` of every
-block's dense forward), ``softmax_cross_entropy`` (the loss) and
-``paged_flash_decode`` (paged attention).  The paged pool is updated IN
-PLACE (JAX returns new arrays): ``forward_paged`` scatters into the
-tensors of ``cache`` and returns the same dict, which saves one pool copy
-per layer per step.  Not ported yet (ROADMAP queue A): the dense-ring
-``forward_cached`` family, quantized KV pools, MoE, LoRA, weight
-quantization, sequence/pipeline parallelism, flash attention (S >= 4096).
+:meth:`forward_paged`), with int8 / fp8-e4m3 weights
+(``GPTConfig.quantization``, ``slim.quantize_weights``) and int8 / fp8
+KV pools (``init_paged_cache(dtype=)``: quantize on write, one scale per
+written token per head in ``[P+1, H, page]`` float32 planes, dequantize
+in the attention kernel).  Four hand-written CUDA kernels run on the
+card: ``layernorm_residual`` (the attention residual add + ``ln2`` of
+every block's dense forward), ``softmax_cross_entropy`` (the loss),
+``paged_flash_decode`` (paged attention) and ``quantized_matmul`` (every
+quantized ``qkv`` / ``out`` / ``fc1`` / ``fc2``).  The paged pool is
+updated IN PLACE (JAX returns new arrays): ``forward_paged`` scatters into
+the tensors of ``cache`` and returns the same dict, which saves one pool
+copy per layer per step.  Not ported yet (ROADMAP queue A): the
+dense-ring ``forward_cached`` family, the ``gather_pages`` /
+``scatter_pages`` hand-off, MoE, LoRA, sequence/pipeline parallelism,
+flash attention (S >= 4096).
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from ..distributed.meta_parallel import (
     VocabParallelEmbedding,
 )
 from ..framework.device import resolve_device
-from ..framework.errors import UnimplementedError
+from ..framework.errors import InvalidArgumentError, UnimplementedError
 from ..framework.random import default_generator
 from ..ops.fused_layernorm import layernorm_residual
 from ..ops.fused_softmax_xent import softmax_cross_entropy
@@ -41,6 +47,30 @@ __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
            "gpt_small"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: what ``init_paged_cache(dtype=)`` takes: the float dtypes, and the
+#: quantized pool dtypes by torch dtype or by name
+_POOL_DTYPES = dict(_DTYPES, int8=torch.int8,
+                    float8_e4m3fn=torch.float8_e4m3fn)
+_QUANT_POOL_DTYPES = (torch.int8, torch.float8_e4m3fn)
+
+
+def _quantize_kv(t, qdtype):
+    """Quantize-on-write for paged KV: ``t`` float ``[N, H, hd]`` →
+    (quantized values, ``[N, H]`` float32 dequant multipliers), one
+    abs-max scale per written token per head."""
+    tf = t.float()
+    amax = tf.abs().amax(dim=-1).clamp_min(1e-9)  # [N, H]
+    fp8_max = 448.0  # largest finite e4m3fn; clip BEFORE the cast
+    # tensor / tensor: an IEEE division on both devices (a Python scalar
+    # on either side becomes a multiply by a reciprocal, an ulp off)
+    top = torch.full_like(amax, 127.0 if qdtype == torch.int8 else fp8_max)
+    ratio = (top / amax)[..., None]
+    if qdtype == torch.int8:
+        q = torch.clamp(torch.round(tf * ratio), -127, 127).to(torch.int8)
+    else:
+        q = torch.clamp(tf * ratio, -fp8_max, fp8_max).to(
+            torch.float8_e4m3fn)
+    return q, amax / top
 
 
 class GPTConfig:
@@ -62,6 +92,13 @@ class GPTConfig:
         # until their slices land
         self.sequence_parallel = sequence_parallel
         self.moe_experts = moe_experts
+        #: "none" | "int8" | "fp8" — serving weight quantization: the
+        #: parallel-linear weights are quantized in place when
+        #: ``GPTForCausalLM`` is built (``slim.quantize_weights``)
+        if quantization not in ("none", "int8", "fp8"):
+            raise ValueError(
+                f"quantization must be 'none', 'int8' or 'fp8', got "
+                f"{quantization!r}")
         self.quantization = quantization
         self.lora_capacity = int(lora_capacity)
 
@@ -82,8 +119,7 @@ def _unported(cfg: GPTConfig):
     for attr, default, item in (
             ("sequence_parallel", None, "distributed execution"),
             ("moe_experts", 0, "MoE, LoRA and tenancy"),
-            ("lora_capacity", 0, "MoE, LoRA and tenancy"),
-            ("quantization", "none", "quantized serving")):
+            ("lora_capacity", 0, "MoE, LoRA and tenancy")):
         if getattr(cfg, attr) != default:
             raise UnimplementedError(
                 f"GPTConfig.{attr}={getattr(cfg, attr)!r} is not ported "
@@ -139,20 +175,25 @@ class ParallelAttention(torch.nn.Module):
         ``write_off``, flattened ``[B*T]``; padding lands in the last,
         write-drop page), then :func:`paged_flash_decode` walks each slot's
         page-table row (``gather_tab`` ``[B,G]``, pre-clipped) under
-        ``mask`` ``[B,T,C]``.  Returns ``(out, kv)``."""
+        ``mask`` ``[B,T,C]``.  A quantized pool (``k_scale`` in ``kv``)
+        quantizes on write — one scale per written token per head into the
+        scale planes — and the kernel dequantizes per page; the write-drop
+        page's scales are never read unmasked.  Returns ``(out, kv)``."""
         B, T, D = x.shape
         H, hd = self.num_heads, self.head_dim
         q, k, v = self._heads(x)  # [B,H,T,hd]
+        kw = k.transpose(1, 2).reshape(B * T, H, hd)
+        vw = v.transpose(1, 2).reshape(B * T, H, hd)
         if "k_scale" in kv:
-            raise UnimplementedError(
-                "quantized KV pools are not ported yet (ROADMAP queue A, "
-                "quantized serving)")
-        kv["k"][write_page, :, write_off] = (
-            k.transpose(1, 2).reshape(B * T, H, hd).to(kv["k"].dtype))
-        kv["v"][write_page, :, write_off] = (
-            v.transpose(1, 2).reshape(B * T, H, hd).to(kv["v"].dtype))
+            kw, ks = _quantize_kv(kw, kv["k"].dtype)
+            vw, vs = _quantize_kv(vw, kv["v"].dtype)
+            kv["k_scale"][write_page, :, write_off] = ks
+            kv["v_scale"][write_page, :, write_off] = vs
+        kv["k"][write_page, :, write_off] = kw.to(kv["k"].dtype)
+        kv["v"][write_page, :, write_off] = vw.to(kv["v"].dtype)
         ctx = paged_flash_decode(q.contiguous(), kv["k"], kv["v"],
-                                 gather_tab, mask)  # [B,H,T,hd]
+                                 gather_tab, mask, kv.get("k_scale"),
+                                 kv.get("v_scale"))  # [B,H,T,hd]
         return self.out(ctx.transpose(1, 2).reshape(B, T, D)), kv
 
 
@@ -224,25 +265,43 @@ class GPTModel(torch.nn.Module):
         physical page holds which slot's tokens is decided per call by a
         host-owned page table (:meth:`forward_paged`).  Index ``P`` (the
         last page) is the write-DROP page: padding tokens scatter there
-        and no valid mask entry ever reads it.  Float dtypes only."""
+        and no valid mask entry ever reads it.
+
+        ``dtype=torch.int8`` (or ``torch.float8_e4m3fn``) switches the
+        pool to QUANTIZED KV pages: each layer additionally holds
+        ``k_scale`` / ``v_scale`` ``[P+1, H, page]`` float32 planes (one
+        scale per written token per head); K/V quantize on write in
+        :meth:`forward_paged` and dequantize inside the attention kernel.
+        The host-side page table and copy-on-write machinery is
+        dtype-blind."""
         cfg = self.cfg
-        dt = _DTYPES.get(str(dtype or cfg.dtype).replace("torch.", ""))
+        dt = _POOL_DTYPES.get(str(dtype or cfg.dtype).replace("torch.", ""))
         if dt is None:
-            raise UnimplementedError(
-                f"init_paged_cache(dtype={dtype!r}): quantized KV pools "
-                f"are not ported yet (ROADMAP queue A, quantized serving)")
+            raise InvalidArgumentError(
+                f"init_paged_cache(dtype={dtype!r}): the pool is float32, "
+                f"bfloat16, int8 or float8_e4m3fn")
         hd = cfg.hidden_size // cfg.num_heads
         shape = (int(num_pages) + 1, cfg.num_heads, int(page_size), hd)
         dev = self.wte.weight.device
-        return {"layers": [
-            {"k": torch.zeros(shape, dtype=dt, device=dev),
-             "v": torch.zeros(shape, dtype=dt, device=dev)}
-            for _ in range(cfg.num_layers)]}
+
+        def layer():
+            l = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                 "v": torch.zeros(shape, dtype=dt, device=dev)}
+            if dt in _QUANT_POOL_DTYPES:
+                l["k_scale"] = torch.zeros(shape[:3], dtype=torch.float32,
+                                           device=dev)
+                l["v_scale"] = torch.zeros(shape[:3], dtype=torch.float32,
+                                           device=dev)
+            return l
+
+        return {"layers": [layer() for _ in range(cfg.num_layers)]}
 
     def copy_pages(self, cache, src, dst):
         """Copy whole pages ``src[i] → dst[i]`` inside the pool, in place —
         the copy-on-write op.  ``-1`` entries are no-ops (the copy lands in
-        the write-drop page).  Returns ``cache``."""
+        the write-drop page).  Every per-layer tensor is page-major, so a
+        quantized pool's ``k_scale`` / ``v_scale`` planes move with their
+        pages.  Returns ``cache``."""
         P = cache["layers"][0]["k"].shape[0] - 1
         dev = cache["layers"][0]["k"].device
         src = torch.as_tensor(src, dtype=torch.long, device=dev).clamp_min(0)
@@ -310,6 +369,11 @@ class GPTForCausalLM(nn.Layer):
             if hasattr(m, "reset_parameters"):
                 m.reset_parameters(gen)
         self.to(device=dev, dtype=_DTYPES[cfg.dtype])
+        if cfg.quantization != "none":
+            # lazy import: slim imports the layers this module builds on
+            from ..slim.quantization import quantize_weights
+
+            quantize_weights(self, cfg.quantization)
 
     @property
     def device(self) -> torch.device:

@@ -4,7 +4,12 @@ from .fused_layernorm import layernorm_residual, layernorm_residual_ref
 from .fused_softmax_xent import (softmax_cross_entropy,
                                  softmax_cross_entropy_ref)
 from .paged_attention import paged_flash_decode, paged_flash_decode_ref
+from .quantized_matmul import (fp8_matmul, quantize_activations,
+                               quantized_linear, quantized_linear_ref,
+                               quantized_matmul)
 
 __all__ = ["paged_flash_decode", "paged_flash_decode_ref",
            "layernorm_residual", "layernorm_residual_ref",
-           "softmax_cross_entropy", "softmax_cross_entropy_ref"]
+           "softmax_cross_entropy", "softmax_cross_entropy_ref",
+           "quantized_linear", "quantized_linear_ref", "quantized_matmul",
+           "fp8_matmul", "quantize_activations"]

@@ -2,16 +2,21 @@
 // happens inside the kernel.
 //
 // Replaces: the Pallas TPU kernel paddle_tpu/ops/paged_attention.py
-// (_kernel / _paged_decode, public entry paged_flash_decode), float pools.
+// (_kernel / _paged_decode, public entry paged_flash_decode), float pools
+// and the quantized (int8 / fp8-e4m3) pools with their scale planes.
 // It computes the same function, not a block-by-block copy:
 //   for each (b, h, t):  s_j = (q . k_j) * (1/sqrt(hd)) over the G*page keys
 //   of slot b, key j living on page tables[b, j / page] at offset j % page;
 //   masked keys are filled with -1e30; p = exp(s - m) * mask, so a masked key
 //   contributes exactly 0 even before any valid key was seen; f32
 //   accumulation; out = l > 0 ? acc / l : 0, written in q's dtype.
+//   Quantized pools: key j of page p, head h is k_pool[p, h, j, :] as float32
+//   times k_scale[p, h, j] (v likewise), multiplied as the page is staged
+//   into shared memory, so a float K/V view never exists in device memory.
 //
 // What bounds it on an H100: bytes.  Each (b, h) reads its slot's K and V
-// pages once (page * hd elements each, per page), a few flops per byte, far
+// pages once (page * hd elements each, per page; one byte an element plus
+// 4 bytes a key of scale for a quantized pool), a few flops per byte, far
 // below the ~295 flop/byte ridge of the card; at decode T = 1 the work is a
 // pure stream of the KV pages.
 //
@@ -31,6 +36,7 @@
 // bound with ctypes.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,6 +51,8 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
@@ -63,14 +71,20 @@ __device__ __forceinline__ float warp_sum(float v) {
 // spreads over all four warps.  Per page and per 32-key chunk, lane j scores
 // key j; the online-softmax update then broadcasts each p_j with a shuffle
 // while lanes own the head_dim columns of the accumulator.
-template <typename T, int NC>
+// T: q / out element type; KV: pool element type — T itself, or a one-byte
+// quantized type (int8_t, __nv_fp8_e4m3), whose rows are multiplied by
+// k_scale / v_scale [P1, H, page] while they are staged.
+template <typename T, typename KV, int NC>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool,
+paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
+                    const KV* __restrict__ v_pool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int32_t* __restrict__ tables,
                     const uint8_t* __restrict__ mask, T* __restrict__ out,
                     int H, int Tq, int hd, int page, int G, int P1,
                     float sm_scale) {
+  constexpr bool kQuant = sizeof(KV) == 1;
   extern __shared__ float smem[];
   const int ks = hd + 1;
   float* k_s = smem;              // [page, hd + 1]
@@ -102,13 +116,19 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     // unmapped entries arrive clipped to a valid page and fully masked;
     // clamp anyway so a bad table can never read outside the pool
     const int p = min(max(tables[(size_t)b * G + g], 0), P1 - 1);
-    const T* kp = k_pool + ((size_t)p * H + h) * page_elems;
-    const T* vp = v_pool + ((size_t)p * H + h) * page_elems;
+    const KV* kp = k_pool + ((size_t)p * H + h) * page_elems;
+    const KV* vp = v_pool + ((size_t)p * H + h) * page_elems;
+    const size_t srow = ((size_t)p * H + h) * page;  // scale row of the page
     __syncthreads();  // previous page fully consumed (and q_s staged)
     for (int i = threadIdx.x; i < page * hd; i += kThreads) {
       const int j = i / hd, d = i - j * hd;
-      k_s[j * ks + d] = to_f32(kp[i]);
-      v_s[j * ks + d] = to_f32(vp[i]);
+      if constexpr (kQuant) {
+        k_s[j * ks + d] = to_f32(kp[i]) * k_scale[srow + j];
+        v_s[j * ks + d] = to_f32(vp[i]) * v_scale[srow + j];
+      } else {
+        k_s[j * ks + d] = to_f32(kp[i]);
+        v_s[j * ks + d] = to_f32(vp[i]);
+      }
     }
     __syncthreads();
 
@@ -164,57 +184,83 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T, int NC>
+template <typename T, typename KV, int NC>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int32_t* tables, const uint8_t* mask, void* out,
-                   int B, int H, int Tq, int hd, int page, int G, int P1,
-                   float sm_scale, cudaStream_t stream) {
+                   const float* ksc, const float* vsc, const int32_t* tables,
+                   const uint8_t* mask, void* out, int B, int H, int Tq,
+                   int hd, int page, int G, int P1, float sm_scale,
+                   cudaStream_t stream) {
   const size_t smem = (2 * (size_t)page * (hd + 1) + (size_t)kRowsPerBlock * hd)
                       * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel<T, NC>,
+        paged_decode_kernel<T, KV, NC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((Tq + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
-  paged_decode_kernel<T, NC><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), tables, mask, static_cast<T*>(out), H, Tq,
-      hd, page, G, P1, sm_scale);
+  paged_decode_kernel<T, KV, NC><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), ksc, vsc, tables, mask, static_cast<T*>(out),
+      H, Tq, hd, page, G, P1, sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v,
+                        const float* ksc, const float* vsc,
                         const int32_t* tables, const uint8_t* mask, void* out,
                         int B, int H, int Tq, int hd, int page, int G, int P1,
                         float sm_scale, cudaStream_t s) {
-  if (hd <= 32) return launch<T, 1>(q, k, v, tables, mask, out, B, H, Tq, hd, page, G, P1, sm_scale, s);
-  if (hd <= 64) return launch<T, 2>(q, k, v, tables, mask, out, B, H, Tq, hd, page, G, P1, sm_scale, s);
-  if (hd <= 128) return launch<T, 4>(q, k, v, tables, mask, out, B, H, Tq, hd, page, G, P1, sm_scale, s);
-  if (hd <= 256) return launch<T, 8>(q, k, v, tables, mask, out, B, H, Tq, hd, page, G, P1, sm_scale, s);
+  if (hd <= 32) return launch<T, KV, 1>(q, k, v, ksc, vsc, tables, mask, out, B, H, Tq, hd, page, G, P1, sm_scale, s);
+  if (hd <= 64) return launch<T, KV, 2>(q, k, v, ksc, vsc, tables, mask, out, B, H, Tq, hd, page, G, P1, sm_scale, s);
+  if (hd <= 128) return launch<T, KV, 4>(q, k, v, ksc, vsc, tables, mask, out, B, H, Tq, hd, page, G, P1, sm_scale, s);
+  if (hd <= 256) return launch<T, KV, 8>(q, k, v, ksc, vsc, tables, mask, out, B, H, Tq, hd, page, G, P1, sm_scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// A float pool shares q's type; a quantized pool needs both scale planes.
+template <typename T>
+cudaError_t dispatch_pool(int pool_dtype, int q_dtype, const void* q,
+                          const void* k, const void* v, const float* ksc,
+                          const float* vsc, const int32_t* tables,
+                          const uint8_t* mask, void* out, int B, int H,
+                          int Tq, int hd, int page, int G, int P1,
+                          float sm_scale, cudaStream_t s) {
+  if (pool_dtype == q_dtype)
+    return dispatch_hd<T, T>(q, k, v, nullptr, nullptr, tables, mask, out, B, H, Tq, hd, page, G, P1, sm_scale, s);
+  if (ksc == nullptr || vsc == nullptr) return cudaErrorInvalidValue;
+  if (pool_dtype == 2)
+    return dispatch_hd<T, int8_t>(q, k, v, ksc, vsc, tables, mask, out, B, H, Tq, hd, page, G, P1, sm_scale, s);
+  if (pool_dtype == 3)
+    return dispatch_hd<T, __nv_fp8_e4m3>(q, k, v, ksc, vsc, tables, mask, out, B, H, Tq, hd, page, G, P1, sm_scale, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, both pools and out share it).
+// dtype (q and out): 0 = float32, 1 = bfloat16.  pool_dtype (both pools):
+// q's own code, or 2 = int8, 3 = float8_e4m3fn with k_scale / v_scale
+// [P1, H, page] float32 (null for a float pool).
 // Layouts (all contiguous): q/out [B, H, Tq, hd]; k/v pools [P1, H, page, hd];
 // tables [B, G] int32; mask [B, Tq, G*page] uint8.  Launches on `stream`,
 // does not synchronise, returns the launch's cudaError_t.
-extern "C" int paged_flash_decode(int dtype, const void* q, const void* k_pool,
-                                  const void* v_pool, const void* tables,
-                                  const void* mask, void* out, int B, int H,
-                                  int Tq, int hd, int page, int G, int P1,
-                                  float sm_scale, void* stream) {
+extern "C" int paged_flash_decode(int dtype, int pool_dtype, const void* q,
+                                  const void* k_pool, const void* v_pool,
+                                  const void* k_scale, const void* v_scale,
+                                  const void* tables, const void* mask,
+                                  void* out, int B, int H, int Tq, int hd,
+                                  int page, int G, int P1, float sm_scale,
+                                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* tab = static_cast<const int32_t*>(tables);
   const uint8_t* msk = static_cast<const uint8_t*>(mask);
+  const float* ksc = static_cast<const float*>(k_scale);
+  const float* vsc = static_cast<const float*>(v_scale);
   if (dtype == 0)
-    return dispatch_hd<float>(q, k_pool, v_pool, tab, msk, out, B, H, Tq, hd, page, G, P1, sm_scale, s);
+    return dispatch_pool<float>(pool_dtype, dtype, q, k_pool, v_pool, ksc, vsc, tab, msk, out, B, H, Tq, hd, page, G, P1, sm_scale, s);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k_pool, v_pool, tab, msk, out, B, H, Tq, hd, page, G, P1, sm_scale, s);
+    return dispatch_pool<__nv_bfloat16>(pool_dtype, dtype, q, k_pool, v_pool, ksc, vsc, tab, msk, out, B, H, Tq, hd, page, G, P1, sm_scale, s);
   return cudaErrorInvalidValue;
 }
 

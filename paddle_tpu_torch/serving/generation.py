@@ -24,11 +24,22 @@ zero-accept verifies.
 
 Every admission and every step runs ``num_layers`` launches of the
 ``paged_flash_decode`` CUDA kernel on the card.  The engine follows the
-model's device (``device="cpu"`` models serve through the kernel's plain
-version).  Not ported yet (ROADMAP queue A): the dense-ring and legacy
-run-to-completion modes, prefill/decode hand-off roles, quantized serving,
-tenancy/LoRA/MoE, ``swap_weights``, tracing spans, ``from_tuned``, and a
-CUDA-graph analog of the JAX engine's closed compile set.
+model's device (``device="cpu"`` models serve through the kernels' plain
+versions).
+
+``quantized="int8" | "fp8"`` serves from a quantized copy of the model
+(``slim.quantize_model``: int8 / fp8-e4m3 parallel-linear weights with
+per-channel scales; the caller's model keeps its float weights) over an
+int8 / float8_e4m3fn KV pool with float32 scale planes: four
+``quantized_matmul`` kernel launches per layer per call on top of the
+attention kernel's one.
+
+Not ported yet (ROADMAP queue A): the dense-ring and legacy
+run-to-completion modes, prefill/decode hand-off roles (and the hand-off
+of quantized ``(pages, scales)`` pairs), tenancy/LoRA/MoE,
+``swap_weights`` / ``reload_weights``, tracing spans and the event-bus
+snapshots, ``from_tuned``, and a CUDA-graph analog of the JAX engine's
+closed compile set.
 """
 from __future__ import annotations
 
@@ -77,7 +88,9 @@ class GenerationEngine:
     ``FLAGS_kv_page_size`` / ``FLAGS_speculative_k``.  ``paged`` /
     ``continuous`` default to ``FLAGS_paged_kv`` /
     ``FLAGS_continuous_batching``; only ``paged=True`` with continuous
-    batching is ported.
+    batching is ported.  ``quantized`` — ``None``, ``"int8"`` or
+    ``"fp8"``: weights and KV pages at that precision (see the module
+    docstring); ``model`` itself is left untouched.
     """
 
     def __init__(self, model, *, prompt_buckets: Sequence[int],
@@ -107,8 +120,10 @@ class GenerationEngine:
         if role != "any":
             raise _unported(f"role={role!r} (prefill/decode hand-off)",
                             "generation serving")
-        if quantized is not None:
-            raise _unported(f"quantized={quantized!r}", "quantized serving")
+        if quantized is not None and quantized not in ("int8", "fp8"):
+            raise InvalidArgumentError(
+                f"quantized must be None, 'int8' or 'fp8', got "
+                f"{quantized!r}")
         if tenancy is not None:
             raise _unported("tenancy", "MoE, LoRA and tenancy")
         # MoE / LoRA configs never get here: GPTModel rejects them
@@ -117,8 +132,15 @@ class GenerationEngine:
             _gen_counter[0] += 1
             name = f"generate#{_gen_counter[0]}"
         self.name = name
-        self._model = model
         model.eval()
+        self._quantized = quantized
+        if quantized is not None:
+            # quantize once at construction, into the engine's own copy —
+            # the caller's model keeps its float weights (training, other
+            # engines untouched)
+            from ..slim.quantization import quantize_model
+            model = quantize_model(model, quantized)
+        self._model = model
         self._device = model.device
         self._buckets = sorted({int(b) for b in prompt_buckets})
         if not self._buckets or self._buckets[0] < 1:
@@ -160,7 +182,29 @@ class GenerationEngine:
             self._device)
 
     def _new_cache(self):
-        return self._model.gpt.init_paged_cache(self._kv_pages, self._page)
+        return self._model.gpt.init_paged_cache(
+            self._kv_pages, self._page, dtype=self._kv_qdtype())
+
+    # -- quantized serving ---------------------------------------------------
+    @property
+    def quant_active(self) -> bool:
+        """True iff the model this engine serves from carries any
+        int8/fp8 weight — its Linear forwards take the quantized leg
+        exactly when this holds."""
+        from ..slim.quantization import _is_quantized_dtype
+        return any(_is_quantized_dtype(t.dtype)
+                   for t in self._model.state_dict().values())
+
+    def _kv_qdtype(self):
+        """Page-pool storage dtype for this engine's quantization mode
+        (``None`` = the model's float dtype)."""
+        return {"int8": torch.int8,
+                "fp8": torch.float8_e4m3fn}.get(self._quantized)
+
+    def swap_weights(self, *_args, **_kw):
+        raise _unported("swap_weights / reload_weights (and "
+                        "slim.export_quantized artifacts)",
+                        "generation serving")
 
     def _padmit(self, ids, positions, pos_map, table, lens, cache):
         """Admission prefill straight into the pool: each slot writes only
@@ -719,6 +763,7 @@ class GenerationEngine:
         snap = self.metrics.snapshot()
         snap["buckets"] = len(self._buckets)
         snap["paged"] = True
+        snap["quantization"] = self._quantized or "none"
         snap.update(self._pool.stats())
         return snap
 

@@ -181,7 +181,7 @@ def test_seeded_init_is_reproducible_and_configs_match_jax():
 
 
 @pytest.mark.parametrize("kw", [dict(moe_experts=2), dict(lora_capacity=2),
-                                dict(quantization="int8")])
+                                dict(sequence_parallel="ring")])
 def test_unported_configs_raise(kw):
     with pytest.raises(UnimplementedError, match="ROADMAP"):
         GPTForCausalLM(GPTConfig(**TINY, **kw), device="cpu")

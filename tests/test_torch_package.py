@@ -50,6 +50,8 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
     assert "paddle_tpu_torch.ops.paged_attention" in mods
     assert "paddle_tpu_torch.ops.fused_layernorm" in mods
     assert "paddle_tpu_torch.ops.fused_softmax_xent" in mods
+    assert "paddle_tpu_torch.ops.quantized_matmul" in mods
+    assert "paddle_tpu_torch.slim.quantization" in mods
     assert "paddle_tpu_torch.hapi.model" in mods
     assert [m for m in mods if _forbidden(m)] == []
 

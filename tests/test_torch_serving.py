@@ -197,9 +197,14 @@ def test_mode_validation_names_the_roadmap(models):
     with pytest.raises(UnimplementedError, match="ROADMAP"):
         GenerationEngine(tm, prompt_buckets=[8])
     for kw in (dict(continuous=False), dict(role="prefill"),
-               dict(quantized="int8"), dict(tenancy=object())):
+               dict(quantized="int8", role="decode"),
+               dict(tenancy=object())):
         with pytest.raises(UnimplementedError, match="ROADMAP"):
             GenerationEngine(tm, prompt_buckets=[8], paged=True, **kw)
+    # quantized= is ported: only an unknown mode is rejected
+    with pytest.raises(InvalidArgumentError, match="int4"):
+        GenerationEngine(tm, prompt_buckets=[8], paged=True,
+                         quantized="int4")
     with pytest.raises(InvalidArgumentError):
         GenerationEngine(tm, prompt_buckets=[128], paged=True)
     with GenerationEngine(tm, prompt_buckets=[8], paged=True,

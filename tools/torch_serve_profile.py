@@ -1,23 +1,25 @@
 #!/usr/bin/env python3
 """Where the device time of the port's paged serving goes, on one card.
 
-    python3 tools/torch_serve_profile.py
+    python3 tools/torch_serve_profile.py [--quantized int8|fp8]
 
 Serves ``chip_smoke.py``'s workload (``GPTForCausalLM(gpt_small())``,
 seeded random weights, 16 requests through ``GenerationEngine`` with
-batch 8, buckets 16/48, page 16, speculative_k 4) once to warm up, then
-once more under ``torch.profiler`` (CPU + CUDA activities), and prints:
+batch 8, buckets 16/48, page 16, speculative_k 4; with ``--quantized``
+through the int8 or fp8 engine) once to warm up, then once more under ``torch.profiler`` (CPU + CUDA activities), and prints:
 
 * the window's wall time and the device-busy share (summed device time of
   every kernel and copy over the wall time — one stream, so no overlap);
 * device time by kernel, largest first, grouped into the port's
-  ``paged_flash_decode`` kernel, matrix products and everything else.
+  ``paged_flash_decode`` and ``quantized_matmul`` kernels, matrix
+  products and everything else.
 
 Numbers under the profiler run slower than ``chip_smoke.py``'s; read the
 shares, not the absolute times.  Exits non-zero without a card.
 """
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import time
@@ -29,6 +31,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 def _group(name: str) -> str:
     if "paged_decode_kernel" in name:
         return "paged_flash_decode"
+    if "qmm_kernel" in name:
+        return "quantized_matmul"
     low = name.lower()
     if "gemm" in low or "cutlass" in low or "matmul" in low:
         return "matmul"
@@ -38,6 +42,10 @@ def _group(name: str) -> str:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--quantized", choices=("int8", "fp8"), default=None,
+                    help="profile the int8 or fp8 engine (default: float)")
+    opts = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -54,7 +62,8 @@ def main() -> int:
     model = GPTForCausalLM(gpt_small(dropout=0.0), device="cuda",
                            generator=torch.Generator().manual_seed(cs.SEED))
     reqs = cs.requests()
-    with GenerationEngine(model, name="profile", **cs.ENGINE) as eng:
+    with GenerationEngine(model, name="profile", quantized=opts.quantized,
+                          **cs.ENGINE) as eng:
         eng.warmup()
         for f in [eng.submit(p, n, **kw) for p, n, kw in reqs]:
             f.result(600)
@@ -80,7 +89,8 @@ def main() -> int:
         rows.append((float(us), e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile[{gpu}]: window {wall_us / 1e3:.1f} ms, "
+    print(f"profile[{gpu}]: engine {opts.quantized or 'float'}, window "
+          f"{wall_us / 1e3:.1f} ms, "
           f"{admits} admission calls + {steps} decode steps, device busy "
           f"{busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% of the window")
     groups = {}
