@@ -72,6 +72,36 @@ Q4. timing: both kernels, their plain versions and the library calls
     dequantize + ``scaled_dot_product_attention``) beside the bytes
     bound, and the float / int8 / fp8 engines side by side.
 
+ResNet-50 training, ``bench.py``'s config 2 (after phase 10):
+
+R1. ``conv1x1_bn_stats`` and ``bn_apply_relu`` against their plain
+    versions at the four conv3 shapes of ResNet-50 at batch 128 (bf16),
+    layer3's in float32, and ragged M, K, N: y within a bf16 ulp (f32:
+    rtol 1e-5), the column sums within 3e-5 x sum|y|, two runs bit-equal;
+    ``bn_apply_relu`` bit-equal with and without the residual;
+R2. the fused tail's ``autograd.Function`` against autograd of its plain
+    version at layer3's shape, float32 (1e-4) and bf16 (2e-2 of each
+    tensor's largest entry): output, running mean and variance, dx, dw,
+    dgamma, dbeta, dresidual;
+R3. ``resnet50(data_format="NHWC", stem_space_to_depth=True)`` in bf16
+    with ``Momentum(0.1, 0.9, multi_precision=True, weight_decay=1e-4)``
+    and cross entropy on float32 logits through ``Model.train_batch`` at
+    batch 128 x 224 x 224 (seeded uniform(-1, 1) images, labels in
+    [0, 1000)), 3 warm-up and 10 timed steps; the counts are zeroed just
+    before the timed steps and must equal 16 x steps for each kernel;
+    losses finite; every bn3 buffer moved and is still bf16; img/s,
+    ms/step, peak device memory;
+R4. card vs CPU: ResNet-50 float32 at 64 x 64, batch 4, one seeded model
+    bridged to the card, 3 ``train_batch`` steps each (the card through
+    the fused tail, 16 launches a step; the CPU through the plain tail);
+    the step-1 loss at rtol 1e-4 and the step-1 parameter update within
+    10% (L2) — the float32 gradient of this network at initialization is
+    too ill-conditioned for the later losses to agree at 1e-4 between any
+    two float32 implementations (see the phase's docstring);
+R5. timing of both kernels at the four conv3 shapes: kernel, plain
+    version and ``torch.mm`` (the product alone) from CUDA events,
+    median (min-max) of 3 runs, beside the bound.
+
 The line before last is the ``{"kernels": [...]}`` JSON record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a card, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -960,6 +990,354 @@ def timing_train(torch, gpu):
     return rows
 
 
+# -- ResNet-50 training (bench.py config 2) -----------------------------------
+# (layer, M, K, N): the conv3 tail of each stage at batch 128, 224 x 224
+RESNET_B, RESNET_HW = 128, 224
+RESNET_TAILS = (("layer1", 401408, 64, 256), ("layer2", 100352, 128, 512),
+                ("layer3", 25088, 256, 1024), ("layer4", 6272, 512, 2048))
+RESNET_BLOCKS = 16             # bottleneck blocks of ResNet-50: 3 + 4 + 6 + 3
+RESNET_WARMUP, RESNET_STEPS = 3, 10
+RESNET_PARITY = dict(B=4, HW=64, steps=3)
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
+TIMING_RUNS = 3
+
+
+def resnet_tail_inputs(torch, dtype, M, K, N, gen, residual=True):
+    """Seeded operands of one conv3 tail: x [M, K] (the bn2 -> relu
+    output, so non-negative), w [K, N] ~ N(0, 2 / K), gamma, beta, the
+    residual [M, N]."""
+    dt = getattr(torch, dtype)
+    x = torch.randn(M, K, generator=gen).relu_().to(DEVICE, dt)
+    w = (torch.randn(K, N, generator=gen) * (2.0 / K) ** 0.5).to(DEVICE, dt)
+    gamma = (1 + 0.1 * torch.randn(N, generator=gen)).to(DEVICE, dt)
+    beta = (0.1 * torch.randn(N, generator=gen)).to(DEVICE, dt)
+    res = (torch.randn(M, N, generator=gen).to(DEVICE, dt) if residual
+           else None)
+    return x, w, gamma, beta, res
+
+
+def stats_tolerance(torch, y, y0, s, s0, q, q0, yf_abs, dtype):
+    """Kernel 7 against its plain version.  y: within one bf16 ulp
+    (rtol 2**-7; the f32 sums differ in order, so a value near a rounding
+    boundary may round the other way) or rtol 1e-5 in float32, atol 1e-5 x
+    max|y|.  Column sums: |s - s0| <= 3e-5 x sum|y| of the column (the
+    float32 summation-order bound at these M), |q - q0| <= 3e-5 x q0.
+    Returns the largest abs error of y and the scaled errors of s, q."""
+    top = float(y0.float().abs().max())
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
+    torch.testing.assert_close(y.float(), y0.float(), rtol=rtol,
+                               atol=1e-5 * top)
+    s_err = float(((s - s0).abs() / yf_abs.clamp_min(1e-30)).max())
+    q_err = float(((q - q0).abs() / q0.clamp_min(1e-30)).max())
+    assert s_err <= 3e-5 and q_err <= 3e-5, (s_err, q_err)
+    return float((y.float() - y0.float()).abs().max()), s_err, q_err
+
+
+def check_resnet_kernels(torch):
+    """Phase R1: conv1x1_bn_stats and bn_apply_relu against their plain
+    versions at the four conv3 shapes (bf16), layer3's in float32, and
+    ragged shapes (M = 77, N = 200; K = 100 and N = 130 take the
+    unvectorized loads and stores);
+    kernel 7 twice for bit-identical (deterministic) results, kernel 8
+    bit-equal to its plain version with and without the residual."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fcb
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    cases = [(name, "bfloat16", M, K, N) for name, M, K, N in RESNET_TAILS]
+    cases += [("layer3", "float32", 25088, 256, 1024),
+              ("ragged", "bfloat16", 77, 64, 200),
+              ("ragged", "float32", 77, 64, 200),
+              ("ragged K, N", "bfloat16", 300, 100, 130),
+              ("ragged K, N", "float32", 300, 100, 130)]
+    errs = {}
+    for name, dtype, M, K, N in cases:
+        x, w, gamma, beta, res = resnet_tail_inputs(torch, dtype, M, K, N,
+                                                    gen)
+        y, s, q = fcb.conv1x1_bn_stats(x, w)
+        y2, s2, q2 = fcb.conv1x1_bn_stats(x, w)
+        yf = x.float() @ w.float()
+        y0, s0, q0 = fcb.conv1x1_bn_stats_ref(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2) and torch.equal(s, s2) \
+            and torch.equal(q, q2), f"conv1x1_bn_stats not deterministic " \
+                                    f"at {name} {dtype}"
+        y_err, s_err, q_err = stats_tolerance(
+            torch, y, y0, s, s0, q, q0, yf.abs().sum(0), dtype)
+        mean, var, inv, scale, shift = fcb._fold(s, q, M, gamma, beta,
+                                                 1e-5, y.dtype)
+        for r in (res, None):
+            out = fcb.bn_apply_relu(y, scale, shift, r)
+            out0 = fcb.bn_apply_relu_ref(y, scale, shift, r)
+            torch.cuda.synchronize()
+            assert torch.equal(out, out0), (
+                f"bn_apply_relu differs from plain at {name} {dtype} "
+                f"residual={r is not None}: "
+                f"{float((out.float() - out0.float()).abs().max())}")
+        errs[(name, dtype)] = y_err
+        log(f"kernel conv1x1_bn_stats {dtype} {name} [{M}, {K}] @ [{K}, "
+            f"{N}]: deterministic; y max_abs_err={y_err:.3e} (rtol "
+            f"{2.0 ** -7 if dtype == 'bfloat16' else 1e-5:g}, atol 1e-5 x "
+            f"max|y|), sum err {s_err:.2e} x sum|y|, sumsq err {q_err:.2e} "
+            f"x sumsq (<= 3e-5); bn_apply_relu bit-equal with and without "
+            f"the residual ok")
+        del x, w, res, y, y2, y0, yf
+    return errs
+
+
+def check_resnet_tail_grads(torch):
+    """Phase R2: the fused tail (autograd.Function: kernels forward,
+    closed-form backward) against autograd through the plain version at
+    layer3's shape, float32 and bf16: the output, both running stats, dx,
+    dw, dgamma, dbeta and dresidual (bf16: the cotangent zeroed where the
+    two ReLU masks differ, at most 1e-4 of the entries)."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fcb
+
+    _, M, K, N = RESNET_TAILS[2]
+    gen = torch.Generator().manual_seed(SEED + 9)
+    worst = {}
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        ins = resnet_tail_inputs(torch, dtype, M, K, N, gen)
+        dout = torch.randn(M, N, generator=gen).to(DEVICE, ins[0].dtype)
+        rm0 = (0.1 * torch.randn(N, generator=gen)).to(DEVICE)
+        rv0 = (1 + 0.1 * torch.rand(N, generator=gen)).to(DEVICE)
+        runs = []
+        for fn in (fcb.conv1x1_bn_relu, fcb.conv1x1_bn_relu_ref):
+            args = [t.clone().requires_grad_() for t in ins]
+            out, rm, rv = fn(*args[:4], residual=args[4], running_mean=rm0,
+                             running_var=rv0)
+            runs.append((out, rm, rv, args))
+        # bf16: the two forwards round y apart by an ulp here and there, so
+        # a few outputs sit on opposite sides of 0 and their ReLU masks
+        # differ; the flips are counted and the cotangent is zeroed there,
+        # so no gradient sees them
+        agree = (runs[0][0] > 0) == (runs[1][0] > 0)
+        flips = int((~agree).sum())
+        assert flips <= 1e-4 * agree.numel(), f"{flips} ReLU-mask flips"
+        got = [[out.detach(), rm, rv,
+                *torch.autograd.grad(out, args, dout * agree)]
+               for out, rm, rv, args in runs]
+        del runs
+        torch.cuda.synchronize()
+        names = ("out", "running_mean", "running_var", "dx", "dw", "dgamma",
+                 "dbeta", "dresidual")
+        errs = []
+        for nm, a, b in zip(names, *got):
+            a, b = a.float(), b.float()
+            scale = max(float(b.abs().max()), 1e-30)
+            err = float((a - b).abs().max()) / scale
+            assert err <= tol, f"fused tail {dtype} {nm}: {err:.3e} > {tol}"
+            errs.append(f"{nm} {err:.1e}")
+        errs.append(f"{flips} ReLU-mask flips")
+        worst[dtype] = errs
+        log(f"tail grads {dtype} [{M}, {K}] @ [{K}, {N}]: fused vs plain "
+            f"autograd, max|diff| / max|plain| (<= {tol:g}): "
+            + ", ".join(errs) + " ok")
+    return worst
+
+
+def resnet_model(torch, dtype, device, generator=None, num_classes=1000):
+    import paddle_tpu_torch as ptt
+
+    net = ptt.vision.models.resnet50(
+        data_format="NHWC", stem_space_to_depth=True,
+        num_classes=num_classes, device=device, generator=generator)
+    return net.astype(dtype)
+
+
+def resnet_trainer(torch, net, lr=0.1):
+    """bench.py config 2's optimizer and loss around ``net``."""
+    import paddle_tpu_torch as ptt
+
+    opt = ptt.optimizer.Momentum(learning_rate=lr, momentum=0.9,
+                                 multi_precision=True, weight_decay=1e-4)
+    xent = ptt.nn.CrossEntropyLoss()
+    return ptt.Model(net, inputs=1, labels=1).prepare(
+        optimizer=opt, loss=lambda logits, y: xent(logits.float(), y))
+
+
+def train_resnet(torch, gpu):
+    """Phase R3: bench.py's config 2 through Model.train_batch: ResNet-50
+    NHWC, space-to-depth stem, bf16, batch 128 at 224 x 224,
+    Momentum(0.1, 0.9, multi_precision, weight_decay 1e-4)."""
+    import math
+
+    import numpy as np
+
+    from paddle_tpu_torch.ops import bn_apply_relu, conv1x1_bn_stats
+
+    t0 = time.monotonic()
+    net = resnet_model(torch, "bfloat16", DEVICE,
+                       torch.Generator().manual_seed(SEED))
+    model = resnet_trainer(torch, net)
+    rng = np.random.RandomState(SEED)
+    images = torch.from_numpy(rng.uniform(
+        -1, 1, (RESNET_B, RESNET_HW, RESNET_HW, 3)).astype(np.float32)).to(
+        DEVICE, torch.bfloat16)
+    labels = torch.from_numpy(rng.randint(0, 1000, (RESNET_B, 1)).astype(
+        np.int32)).to(DEVICE)
+    bn3 = {n: b.clone() for n, b in net.named_buffers() if ".bn3." in n}
+    log(f"train[resnet50]: NHWC s2d-stem bf16 params="
+        f"{sum(p.numel() for p in net.parameters())} batch {RESNET_B}x"
+        f"{RESNET_HW}x{RESNET_HW}, {len(bn3)} bn3 buffers, built in "
+        f"{time.monotonic() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall, (k7, k8) = train_steps(
+        torch, model, [images], [labels], RESNET_WARMUP, RESNET_STEPS,
+        (conv1x1_bn_stats, bn_apply_relu))
+    peak = torch.cuda.max_memory_allocated()
+    want = RESNET_BLOCKS * RESNET_STEPS
+    log(f"train[resnet50]: losses {[round(x, 4) for x in losses]}")
+    log(f"train[resnet50]: kernel launches over {RESNET_STEPS} steps: "
+        f"conv1x1_bn_stats {k7}, bn_apply_relu {k8} (= {RESNET_BLOCKS} x "
+        f"{RESNET_STEPS}: {k7 == want and k8 == want})")
+    assert k7 == want and k8 == want, (k7, k8, want)
+    assert all(math.isfinite(x) for x in losses), losses
+    for n, b in net.named_buffers():
+        if n in bn3:
+            assert b.dtype == torch.bfloat16, (n, b.dtype)
+            assert not torch.equal(b, bn3[n]), f"{n} did not change"
+    ips = RESNET_B * RESNET_STEPS / wall
+    log(f"train[resnet50][{gpu}]: {RESNET_STEPS} steps in {wall:.3f}s = "
+        f"{wall / RESNET_STEPS * 1e3:.2f} ms/step, {ips:.1f} img/s, peak "
+        f"device memory {peak / 2**20:.0f} MiB; every bn3 buffer moved and "
+        f"is bfloat16")
+    del model, net, images
+    return {"launches": {"conv1x1_bn_stats": k7, "bn_apply_relu": k8},
+            "img_per_s": ips, "step_ms": wall / RESNET_STEPS * 1e3,
+            "peak_bytes": peak}
+
+
+def resnet_card_vs_cpu(torch):
+    """Phase R4: ResNet-50 float32 at 64 x 64, batch 4, parameters and
+    buffers bridged from one seeded CPU model to the card; 3 train_batch
+    steps of config 2's optimizer on each (the card through the fused tail
+    and its float32 kernels, 16 launches a step; the CPU through the plain
+    tail).  Gates: the step-1 loss (the forward) at rtol 1e-4; the step-1
+    update (lr x (gradient + decay), all parameters as one vector) within
+    10% in L2 of the CPU's; every loss finite.  The float32 gradient of
+    this network at initialization is ill-conditioned — two float32 runs
+    on the CPU whose inputs differ by 1e-7 differ by up to 50% in a tensor,
+    and the CPU's float32 gradient sits 3.6% (L2) from float64's — so the
+    losses of steps 2-3 are printed, not held to 1e-4."""
+    import math
+
+    import numpy as np
+
+    from paddle_tpu_torch.bridge import load_jax_params
+    from paddle_tpu_torch.ops import bn_apply_relu, conv1x1_bn_stats
+
+    B, HW, steps = (RESNET_PARITY[k] for k in ("B", "HW", "steps"))
+    rng = np.random.RandomState(SEED + 10)
+    images = rng.uniform(-1, 1, (B, HW, HW, 3)).astype(np.float32)
+    labels = rng.randint(0, 1000, (B, 1)).astype(np.int32)
+    cpu_net = resnet_model(torch, "float32", "cpu",
+                           torch.Generator().manual_seed(SEED))
+    card_net = resnet_model(torch, "float32", DEVICE)
+    load_jax_params(card_net,
+                    {k: v.detach().numpy()
+                     for k, v in cpu_net.named_parameters()},
+                    {k: v.numpy() for k, v in cpu_net.named_buffers()})
+    losses, updates = {}, {}
+    for dev, net in ((DEVICE, card_net), ("cpu", cpu_net)):
+        model = resnet_trainer(torch, net)
+        conv1x1_bn_stats.launches = bn_apply_relu.launches = 0
+        before = torch.cat([p.detach().flatten().cpu()
+                            for p in net.parameters()])
+        losses[dev] = [model.train_batch([images], [labels])[0]]
+        updates[dev] = torch.cat([p.detach().flatten().cpu()
+                                  for p in net.parameters()]) - before
+        losses[dev] += [model.train_batch([images], [labels])[0]
+                        for _ in range(steps - 1)]
+        launches = (conv1x1_bn_stats.launches, bn_apply_relu.launches)
+        want = RESNET_BLOCKS * steps if dev == DEVICE else 0
+        assert launches == (want, want), (dev, launches)
+    rel = float((updates[DEVICE] - updates["cpu"]).norm()
+                / updates["cpu"].norm())
+    log(f"parity: resnet50 f32 {B}x{HW}x{HW}, {steps} train_batch steps: "
+        f"card {losses[DEVICE]} (fused tail, {RESNET_BLOCKS} launches a "
+        f"step) vs cpu {losses['cpu']} (plain tail); step-1 loss rel diff "
+        f"{abs(losses[DEVICE][0] - losses['cpu'][0]) / losses['cpu'][0]:.2e}"
+        f" (<= 1e-4), step-1 update rel L2 diff {rel:.2e} (<= 0.1)")
+    assert abs(losses[DEVICE][0] - losses["cpu"][0]) \
+        <= 1e-4 * abs(losses["cpu"][0]), losses
+    assert rel <= 0.1, rel
+    assert all(math.isfinite(x) for v in losses.values() for x in v), losses
+    return losses, rel
+
+
+def runs_ms(torch, fn, args, iters):
+    """Median, min and max ms per call over TIMING_RUNS runs of
+    :func:`time_ms`."""
+    vals = sorted(time_ms(torch, fn, args, iters) for _ in range(TIMING_RUNS))
+    return vals[len(vals) // 2], vals[0], vals[-1]
+
+
+def timing_resnet(torch, gpu):
+    """Phase R5: both kernels at the four conv3 shapes (bf16): kernel,
+    plain version and library call, median (min-max) of 3 runs from CUDA
+    events, inputs rotated past the 50 MB L2, beside the bound."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fcb
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    rows = {}
+    with torch.no_grad():
+        for name, M, K, N in RESNET_TAILS:
+            per_call = 2 * (M * K + K * N + M * N)
+            n_copies = max(2, -(-120_000_000 // per_call))
+            ins = [resnet_tail_inputs(torch, "bfloat16", M, K, N, gen)
+                   for _ in range(n_copies)]
+            k7_args = [(x, w) for x, w, _, _, _ in ins]
+            iters = max(10, min(200, int(4e10 // (M * N))))
+            ms = runs_ms(torch, fcb._stats_kernel, k7_args, iters)
+            plain = runs_ms(torch, fcb.conv1x1_bn_stats_ref, k7_args,
+                            max(3, iters // 10))
+            lib = runs_ms(torch, torch.mm, k7_args, iters)
+            nbytes = 2 * M * K + 2 * K * N + 2 * M * N + 8 * N
+            t_b, t_o = nbytes / HBM_BYTES_PER_S, 2.0 * M * K * N / BF16_FLOPS
+            rows[("conv1x1_bn_stats", name)] = dict(
+                ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
+                bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations",
+                spread=(ms, plain, lib))
+            log(f"timing[{gpu}] conv1x1_bn_stats bf16 {name} [{M}, {K}] @ "
+                f"[{K}, {N}]: kernel {ms[0]:.4f} ({ms[1]:.4f}-{ms[2]:.4f}) "
+                f"ms, plain {plain[0]:.4f} ({plain[1]:.4f}-{plain[2]:.4f}) "
+                f"ms, library (torch.mm, product only) {lib[0]:.4f} "
+                f"({lib[1]:.4f}-{lib[2]:.4f}) ms, bound "
+                f"{max(t_b, t_o) * 1e3:.4f} ms by "
+                f"{'bytes' if t_b >= t_o else 'operations'} ({nbytes} "
+                f"bytes, {2 * M * K * N} flops)")
+            k8_args = []
+            for x, w, gamma, beta, res in ins:
+                y, s, q = fcb._stats_kernel(x, w)
+                _, _, _, scale, shift = fcb._fold(s, q, M, gamma, beta, 1e-5,
+                                                  y.dtype)
+                k8_args.append((y, scale, shift, res))
+            del ins, k7_args
+            ms = runs_ms(torch, fcb._apply_kernel, k8_args, iters)
+            plain = runs_ms(torch, fcb.bn_apply_relu_ref, k8_args,
+                            max(3, iters // 10))
+            nbytes = 6 * M * N + 8 * N
+            t_b, t_o = nbytes / HBM_BYTES_PER_S, 4.0 * M * N / FP32_FLOPS
+            rows[("bn_apply_relu", name)] = dict(
+                ms=ms[0], plain_ms=plain[0], library_ms=None,
+                bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations",
+                spread=(ms, plain, None))
+            log(f"timing[{gpu}] bn_apply_relu bf16 {name} [{M}, {N}] + "
+                f"residual: kernel {ms[0]:.4f} ({ms[1]:.4f}-{ms[2]:.4f}) ms, "
+                f"plain {plain[0]:.4f} ({plain[1]:.4f}-{plain[2]:.4f}) ms, "
+                f"library none (no single PyTorch call), bound "
+                f"{max(t_b, t_o) * 1e3:.4f} ms by "
+                f"{'bytes' if t_b >= t_o else 'operations'} ({nbytes} bytes)")
+            del k8_args
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1015,6 +1393,11 @@ def main() -> int:
     train_gpt(torch, gpu)
     card_vs_cpu(torch)
     trows = timing_train(torch, gpu)
+    rerrs = check_resnet_kernels(torch)
+    check_resnet_tail_grads(torch)
+    resnet = train_resnet(torch, gpu)
+    resnet_card_vs_cpu(torch)
+    rrows = timing_resnet(torch, gpu)
     paged = dict(name="paged_flash_decode", route="cuda",
                  source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
                  replaces="paddle_tpu/ops/paged_attention.py:155")
@@ -1046,6 +1429,19 @@ def main() -> int:
         launches=sum(r["qmm_launches"] for r in qserved.values()),
         max_abs_err=max(qmm_errs.values()),
         **qrows[("qmm", "int8", "fc1", 8)]))
+    # ResNet-50 config 2: launches of the timed training steps, numbers at
+    # layer1's conv3 shape (the largest), bf16
+    k7_err = max(e for (_, dt), e in rerrs.items() if dt == "bfloat16")
+    for name, line, err in (("conv1x1_bn_stats", 107, k7_err),
+                            ("bn_apply_relu", 203, 0.0)):
+        r = rrows[(name, "layer1")]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/ops/csrc/fused_conv1x1_bn.cu",
+            replaces=f"paddle_tpu/ops/fused_conv1x1_bn.py:{line}",
+            launches=resnet["launches"][name], max_abs_err=err,
+            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,14 +19,18 @@ Ported so far:
   ``train_batch`` for BERT (``models.bert``: pretraining, QA and
   sequence-classification heads) and ``GPTForCausalLM``, with the
   ``layernorm_residual`` and ``softmax_cross_entropy`` CUDA kernels and
-  the SGD / Momentum / Adam / AdamW rules of ``optimizer``.
+  the SGD / Momentum / Adam / AdamW rules of ``optimizer``;
+* ResNet training (``vision.models.resnet50(data_format="NHWC",
+  stem_space_to_depth=True)``, bf16, through ``Model.train_batch``) with
+  the ``conv1x1_bn_stats`` and ``bn_apply_relu`` CUDA kernels in the
+  conv3 → bn3 → +identity → relu tail of every bottleneck block.
 """
-from . import optimizer, regularizer, slim
+from . import optimizer, regularizer, slim, vision
 from .framework.device import get_device, set_device
 from .framework.random import seed
 from .hapi import Model
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 __all__ = ["seed", "set_device", "get_device", "Model", "optimizer",
-           "regularizer", "slim", "__version__"]
+           "regularizer", "slim", "vision", "__version__"]

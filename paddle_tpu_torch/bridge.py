@@ -8,6 +8,13 @@ shape mismatch raises.  Each float array is copied into the parameter's
 own dtype, so a bf16 model (JAX bf16 arrays arrive as
 ``ml_dtypes.bfloat16`` numpy) loads exactly.
 
+``buffers`` maps JAX dotted buffer names to numpy arrays —
+``{k: np.asarray(b.value) for k, b in jax_model.named_buffers()}``.  A
+name that is a float buffer of the port model (BatchNorm's ``_mean`` and
+``_variance``) is copied into that buffer, in the buffer's own dtype, with
+a shape check; a name that is neither such a buffer nor the
+``…weight_scale`` of a quantized weight in ``arrays`` raises.
+
 A JAX QUANTIZED tree (``slim.quantize_model_trees(model, mode)`` as
 numpy) loads the same way: ``arrays`` is its parameter tree, whose
 parallel-linear weights are int8 (numpy ``int8``) or fp8-e4m3 (either
@@ -48,18 +55,32 @@ def load_jax_params(model: torch.nn.Module,
     # an already-quantized layer holds its weight as a buffer, same name
     slots.update({n: b for n, b in model.named_buffers()
                   if n.endswith(".weight")})
+    buffers = buffers or {}
     missing = sorted(set(slots) - set(arrays))
     extra = sorted(set(arrays) - set(slots))
     if missing or extra:
         raise InvalidArgumentError(
             f"load_jax_params: missing {missing[:8]}, unexpected {extra[:8]}")
-    for name, p in slots.items():
-        a = np.asarray(arrays[name])
+    scales = {f"{n}_scale" for n in arrays
+              if _quantized_tensor(np.asarray(arrays[n])) is not None}
+    own = {n: b for n, b in model.named_buffers() if n not in slots}
+    floats = {n: own[n] for n in buffers if n in own and n not in scales}
+    unknown = sorted(n for n in buffers if n not in floats and n not in scales)
+    if unknown:
+        raise InvalidArgumentError(
+            f"load_jax_params: buffers {unknown[:8]} are neither buffers of "
+            f"the model nor scales of quantized weights in arrays")
+    checks = [(n, arrays[n], p) for n, p in slots.items()]
+    checks += [(n, buffers[n], b) for n, b in floats.items()]
+    for name, a, p in checks:
+        a = np.asarray(a)
         if tuple(a.shape) != tuple(p.shape):
             raise InvalidArgumentError(
                 f"load_jax_params: {name} has shape {tuple(a.shape)}, the "
                 f"model expects {tuple(p.shape)}")
     with torch.no_grad():
+        for name, b in floats.items():
+            b.copy_(torch.from_numpy(np.array(buffers[name], np.float32)))
         for name, p in slots.items():
             a = np.asarray(arrays[name])
             q = _quantized_tensor(a)
@@ -71,7 +92,7 @@ def load_jax_params(model: torch.nn.Module,
                 p.copy_(torch.from_numpy(np.array(a, np.float32)))
                 continue
             layer = model.get_submodule(name.rpartition(".")[0])
-            scale = (buffers or {}).get(f"{name}_scale")
+            scale = buffers.get(f"{name}_scale")
             if scale is None or not hasattr(layer, "set_quantized"):
                 raise InvalidArgumentError(
                     f"load_jax_params: {name} arrives quantized ({a.dtype}); "

@@ -3,8 +3,9 @@
 ``Model(network, inputs=None, labels=None)``; ``prepare(optimizer, loss)``
 binds an optimizer built without ``parameters=`` to the network's
 dotted-name parameters; ``train_batch(inputs, labels)`` moves numpy
-arrays or tensors onto the network's device and runs one step in train
-mode — forward, loss, backward, optimizer step, grads dropped — and
+arrays (``ml_dtypes.bfloat16`` ones included) or tensors onto the
+network's device and runs one step in train mode — forward, loss,
+backward, optimizer step, grads dropped — and
 returns ``(float(loss), [])``.  ``eval_batch`` and ``predict_batch`` run in
 eval mode without gradients.  Where the JAX package compiles the step
 into one XLA executable, the port runs it eagerly; the kernels on the
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..framework.errors import InvalidArgumentError, UnimplementedError
@@ -32,6 +34,17 @@ _QUEUE = "ROADMAP queue A, training step"
 
 def _tuplize(x):
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def _as_tensor(b, device) -> torch.Tensor:
+    """A batch entry on ``device``.  numpy ``ml_dtypes.bfloat16`` arrays
+    (what the JAX package's ``train_batch`` takes, ``bench.py`` feeds bf16
+    images) are recognized by dtype name and reinterpreted bit for bit as
+    ``torch.bfloat16``, without importing ``ml_dtypes``."""
+    if isinstance(b, np.ndarray) and b.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(b).view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(b, device=device)
 
 
 def _unported(what: str):
@@ -83,7 +96,7 @@ class Model:
         dev = self.device
         batch = _tuplize(inputs) + (_tuplize(labels) if labels is not None
                                     else ())
-        return tuple(torch.as_tensor(b, device=dev) for b in batch)
+        return tuple(_as_tensor(b, dev) for b in batch)
 
     def _split_batch(self, batch):
         n_in = self._n_inputs

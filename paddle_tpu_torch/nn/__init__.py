@@ -1,11 +1,17 @@
 """Layers of the port (``torch.nn.Module``\\ s with the JAX package's
 parameter names and layouts)."""
 from . import functional
-from .activation import GELU, Tanh
+from .activation import GELU, ReLU, Tanh
 from .common import Dropout, Embedding, Linear
+from .container import Sequential
+from .conv import Conv2D
 from .layer import Layer
 from .loss import CrossEntropyLoss
-from .norm import LayerNorm
+from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
+                   LayerNorm)
+from .pooling import AdaptiveAvgPool2D, MaxPool2D
 
 __all__ = ["Layer", "Linear", "Embedding", "Dropout", "LayerNorm", "GELU",
-           "Tanh", "CrossEntropyLoss", "functional"]
+           "Tanh", "ReLU", "CrossEntropyLoss", "Conv2D", "MaxPool2D",
+           "AdaptiveAvgPool2D", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
+           "BatchNorm3D", "Sequential", "functional"]

@@ -1,4 +1,4 @@
-"""Activations — ports of ``paddle_tpu.nn.activation``.
+"""Activations — ports of ``paddle_tpu.nn.activation`` (GELU, Tanh, ReLU).
 
 GELU: the JAX package's default — the one GPT and BERT use — is the exact
 (erf) form (``jax.nn.gelu(x, approximate=False)``), which is also
@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["GELU", "Tanh"]
+__all__ = ["GELU", "Tanh", "ReLU"]
 
 
 class GELU(torch.nn.Module):
@@ -20,3 +20,8 @@ class GELU(torch.nn.Module):
 class Tanh(torch.nn.Module):
     def forward(self, x):
         return torch.tanh(x)
+
+
+class ReLU(torch.nn.Module):
+    def forward(self, x):
+        return torch.relu(x)

@@ -1,0 +1,5 @@
+"""Vision of the port: ``vision.models`` (the ResNet family so far; the
+other models, transforms and datasets wait in ROADMAP queue A3)."""
+from . import models
+
+__all__ = ["models"]

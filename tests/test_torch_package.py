@@ -24,7 +24,8 @@ from paddle_tpu_torch.ops import _build
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_serve_profile.py",
-    ROOT / "tools" / "torch_train_profile.py"]
+    ROOT / "tools" / "torch_train_profile.py",
+    ROOT / "tools" / "torch_resnet_conditioning.py"]
 
 
 def _forbidden(mod: str) -> bool:

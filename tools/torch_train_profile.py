@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the device time of the port's training step goes, on one card.
 
-    python3 tools/torch_train_profile.py
+    python3 tools/torch_train_profile.py [--model bert|gpt|both|resnet50]
 
-Builds ``chip_smoke.py``'s two training workloads — BERT-base bf16
+Builds ``chip_smoke.py``'s training workloads — BERT-base bf16
 pretraining at batch 256 x 128 with 20 masked positions and
-``AdamW(1e-4, multi_precision=True)``, and GPT-small f32 at batch 8 x
-1024 with ``AdamW(1e-3, multi_precision=True)`` — runs three warm-up
-``Model.train_batch`` steps, then for each model:
+``AdamW(1e-4, multi_precision=True)``, GPT-small f32 at batch 8 x 1024
+with ``AdamW(1e-3, multi_precision=True)`` (``both``, the default), or
+ResNet-50 (``bench.py``'s config 2: NHWC, space-to-depth stem, bf16, batch
+128 x 224 x 224, ``Momentum(0.1, 0.9, multi_precision=True,
+weight_decay=1e-4)``) — runs three warm-up ``Model.train_batch`` steps,
+then for each model:
 
 * times the step's three phases with CUDA events over ``--steps`` steps:
   forward + loss, backward, optimizer step (the parts ``train_batch``
@@ -15,10 +18,13 @@ pretraining at batch 256 x 128 with 20 masked positions and
 * profiles one more ``train_batch`` under ``torch.profiler`` (CPU + CUDA
   activities) and prints the window's wall time, the device-busy share
   (summed kernel and copy time over the wall time — one stream, so no
-  overlap), device time by group — the port's two training kernels,
-  matrix products, attention softmax, the optimizer's ``_foreach``
-  kernels, reductions, copies and the remaining elementwise kernels —
-  and the largest kernels by name.
+  overlap), device time by group — the port's kernels on the path
+  (``layernorm_residual``, ``softmax_cross_entropy``; for ResNet
+  ``conv1x1_bn_stats`` with its partial-sum reduction and
+  ``bn_apply_relu``), cuDNN convolutions, matrix products, attention
+  softmax, the optimizer's ``_foreach`` kernels, reductions (the plain
+  BatchNorm statistics among them), copies and the remaining elementwise
+  kernels — and the largest kernels by name.
 
 Numbers under the profiler run slower than ``chip_smoke.py``'s; read the
 shares, not the absolute times.  Exits non-zero without a card.
@@ -36,6 +42,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("layernorm_residual", ("ln_res_kernel",)),
     ("softmax_cross_entropy", ("sxent_kernel",)),
+    ("conv1x1_bn_stats", ("stats_bf16_kernel", "stats_f32_kernel",
+                          "reduce_partials_kernel")),
+    ("bn_apply_relu", ("bn_apply_kernel",)),
+    ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                             "cudnn")),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "matmul")),
     ("softmax", ("softmax",)),
     ("optimizer (_foreach)", ("multi_tensor_apply", "foreach")),
@@ -64,6 +75,17 @@ def build(torch, which):
                                          gpt_small)
 
     ptt.seed(cs.SEED)
+    if which == "resnet50":
+        net = cs.resnet_model(torch, "bfloat16", "cuda")
+        model = cs.resnet_trainer(torch, net)
+        rng = np.random.RandomState(cs.SEED)
+        images = torch.from_numpy(rng.uniform(
+            -1, 1, (cs.RESNET_B, cs.RESNET_HW, cs.RESNET_HW, 3)).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        labels = torch.from_numpy(rng.randint(
+            0, 1000, (cs.RESNET_B, 1)).astype(np.int32)).to("cuda")
+        return (f"resnet50 bf16 NHWC {cs.RESNET_B}x{cs.RESNET_HW}x"
+                f"{cs.RESNET_HW}", model, [images], [labels])
     if which == "bert":
         net = BertForPretraining(bert_base(), device="cuda").astype(
             "bfloat16")
@@ -131,7 +153,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("bert", "gpt", "both"),
+    ap.add_argument("--model", choices=("bert", "gpt", "both", "resnet50"),
                     default="both")
     ap.add_argument("--steps", type=int, default=5,
                     help="steps averaged by the phase timing")
