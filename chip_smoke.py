@@ -102,6 +102,44 @@ R5. timing of both kernels at the four conv3 shapes: kernel, plain
     version and ``torch.mm`` (the product alone) from CUDA events,
     median (min-max) of 3 runs, beside the bound.
 
+Long-context GPT inference (after R5):
+
+L1. ``flash_attention`` (kernel 4) against its plain version at head_dim
+    64, 128 and 256, float32 and bf16, causal and not, ragged S and K,
+    K > S, a non-aligned and a negative ``q_position_offset`` (rows with
+    no valid key exactly 0 / lse -inf): out within rtol 1e-5 / atol 2e-5
+    (float32) or, bf16 (P is rounded to bf16 for the P.V product), within
+    2e-2 of the element plus 2e-2 of its reference row's RMS; lse within
+    1e-5 (float32) / 1e-3 (bf16); then at the slice's shape;
+L2. ``GPTForCausalLM(gpt_small(max_position=8192, dropout=0.0))`` in bf16
+    (12 layers x 12 heads, head_dim 64, seeded random weights) through
+    ``Model.eval_batch`` (twice) and ``predict_batch`` (once) at batch 2 x
+    8192; the counts are zeroed just before and must equal 12 x forwards
+    (``flash_attention``, ``layernorm_residual``) and 1 x eval_batch
+    (``softmax_cross_entropy``); the loss finite, the logits finite and
+    ``[2, 8192, 50304]`` bf16; tokens/s and peak device memory, then the
+    same model with the flash gate closed (the dense einsum): its peak
+    memory must be the larger, its loss within 1e-2;
+L3. card vs CPU: a 2-layer gpt_small-width model in float32 at 1 x 4096,
+    one seeded init; the card through the kernel (2 launches a forward),
+    the CPU through the dense path; eval_batch losses at rtol 1e-4,
+    predict_batch logits within rtol 1e-4 / atol 1e-4;
+L4. timing, bf16 causal, at the slice's shape and at bench.py's op shape
+    (B 1, H 8, S 32768, hd 128): kernel, plain version and
+    ``F.scaled_dot_product_attention`` from CUDA events, median (min-max)
+    of 3 runs, beside the bound (the causal pairs' operations at 989
+    TFLOP/s);
+W.  the width repairs: ``layernorm_residual``'s wide variant (D > 768)
+    against its plain version at the hidden-1024 GPT's shape [2048, 1024],
+    float32 and bf16, as phase 6 holds the narrow one (``s`` exact, ``y``,
+    mean, rstd and the wrapper's gradients), and its kernel / plain /
+    ``F.layer_norm(x + r)`` times beside the bytes bound;
+    ``gpt_small(hidden_size=1024, num_heads=16)`` takes one
+    ``train_batch`` (12 launches of the wide variant);
+    ``paged_flash_decode`` at head_dim 320 and at page 1024 (staged in row
+    chunks), each over float32 and bf16 q and float, int8 and fp8 pools,
+    against its plain version.
+
 The line before last is the ``{"kernels": [...]}`` JSON record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a card, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -722,6 +760,64 @@ def sx_bound(M, V, item):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def check_ln(torch, fl, dtype, M, D, gen):
+    """``layernorm_residual``'s kernel against its plain version at [M, D]:
+    ``s`` exact, ``y``, mean and rstd within tolerance, and the public
+    wrapper's outputs and gradients against the plain autograd's.  Returns
+    y's largest abs error."""
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+           else dict(rtol=2e-2, atol=2e-2))
+    (x, r, g, b), = ln_inputs(torch, dtype, M, D, gen)
+    s, y, mean, rstd = fl._forward_kernel(x, r, g, b, 1e-5)
+    s0, y0, mean0, rstd0 = fl._forward_ref(x, r, g, b, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(s, s0), "layernorm_residual: s differs"
+    torch.testing.assert_close(y, y0, **tol)
+    torch.testing.assert_close(mean, mean0, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rstd0, rtol=1e-5, atol=1e-5)
+    dy = torch.randn(M, D, generator=gen).to(DEVICE, y.dtype)
+    outs, grads = [], []
+    for fn in (fl.layernorm_residual, fl.layernorm_residual_ref):
+        args = [t.clone().requires_grad_() for t in (x, r, g, b)]
+        ss, yy = fn(*args)
+        outs.append((ss.detach(), yy.detach()))
+        grads.append(torch.autograd.grad(yy, args, dy))
+    # the public wrapper's own outputs (reshape + dispatch) too
+    (sw, yw), (sp, yp) = outs
+    assert torch.equal(sw, sp), "layernorm_residual wrapper: s differs"
+    torch.testing.assert_close(yw, yp, **tol)
+    gerr = 0.0
+    for a, w in zip(*grads):
+        scale = max(1.0, float(w.float().abs().max()))
+        torch.testing.assert_close(a.float() / scale, w.float() / scale,
+                                   **tol)
+        gerr = max(gerr, float((a.float() - w.float()).abs().max()))
+    err = float((y.float() - y0.float()).abs().max())
+    log(f"kernel layernorm_residual {dtype} [{M}, {D}]: s exact, y "
+        f"max_abs_err={err:.3e}, grads max_abs_err={gerr:.3e} vs plain "
+        f"(rtol={tol['rtol']}, atol={tol['atol']}) ok")
+    return err
+
+
+def time_ln(torch, fl, gpu, dtype, M, D, gen):
+    """``layernorm_residual``'s kernel, plain version and
+    ``F.layer_norm(x + r)`` at [M, D] from CUDA events, inputs rotated
+    past the L2, beside the bound."""
+    import torch.nn.functional as F
+
+    args = ln_inputs(torch, dtype, M, D, gen, n_copies=2)
+    ms = time_ms(torch, lambda *a: fl._forward_kernel(*a, 1e-5), args, 100)
+    plain = time_ms(torch, lambda *a: fl._forward_ref(*a, 1e-5), args, 20)
+    lib = time_ms(torch, lambda x, r, g, b: F.layer_norm(
+        x + r, (D,), g, b, 1e-5), args, 50)
+    b_ms, b_by = ln_bound(M, D, args[0][0].element_size())
+    log(f"timing[{gpu}] layernorm_residual {dtype} [{M}, {D}]: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, library (layer_norm(x + r)) "
+        f"{lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by)
+
+
 def check_train_kernels(torch):
     """Phase 6: the training kernels against their plain versions at the
     path's shapes, forward and gradient."""
@@ -731,38 +827,8 @@ def check_train_kernels(torch):
     gen = torch.Generator().manual_seed(SEED + 2)
     errs = {}
     for name, dtype, M, D in LN_SHAPES:
-        tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
-               else dict(rtol=2e-2, atol=2e-2))
-        (x, r, g, b), = ln_inputs(torch, dtype, M, D, gen)
-        s, y, mean, rstd = fl._forward_kernel(x, r, g, b, 1e-5)
-        s0, y0, mean0, rstd0 = fl._forward_ref(x, r, g, b, 1e-5)
-        torch.cuda.synchronize()
-        assert torch.equal(s, s0), "layernorm_residual: s differs"
-        torch.testing.assert_close(y, y0, **tol)
-        torch.testing.assert_close(mean, mean0, rtol=1e-5, atol=1e-5)
-        torch.testing.assert_close(rstd, rstd0, rtol=1e-5, atol=1e-5)
-        dy = torch.randn(M, D, generator=gen).to(DEVICE, y.dtype)
-        outs, grads = [], []
-        for fn in (fl.layernorm_residual, fl.layernorm_residual_ref):
-            args = [t.clone().requires_grad_() for t in (x, r, g, b)]
-            ss, yy = fn(*args)
-            outs.append((ss.detach(), yy.detach()))
-            grads.append(torch.autograd.grad(yy, args, dy))
-        # the public wrapper's own outputs (reshape + dispatch) too
-        (sw, yw), (sp, yp) = outs
-        assert torch.equal(sw, sp), "layernorm_residual wrapper: s differs"
-        torch.testing.assert_close(yw, yp, **tol)
-        gerr = 0.0
-        for a, w in zip(*grads):
-            scale = max(1.0, float(w.float().abs().max()))
-            torch.testing.assert_close(a.float() / scale, w.float() / scale,
-                                       **tol)
-            gerr = max(gerr, float((a.float() - w.float()).abs().max()))
-        err = float((y.float() - y0.float()).abs().max())
-        errs[("layernorm_residual", name)] = err
-        log(f"kernel layernorm_residual {dtype} [{M}, {D}]: s exact, y "
-            f"max_abs_err={err:.3e}, grads max_abs_err={gerr:.3e} vs plain "
-            f"(rtol={tol['rtol']}, atol={tol['atol']}) ok")
+        errs[("layernorm_residual", name)] = check_ln(torch, fl, dtype, M, D,
+                                                      gen)
     for name, dtype, M, V in SX_SHAPES:
         (x, lab), = sx_inputs(torch, dtype, M, V, gen, out_of_range=True)
         loss, lse = sx._forward_kernel(x, lab)
@@ -958,21 +1024,8 @@ def timing_train(torch, gpu):
     rows = {}
     with torch.no_grad():
         for name, dtype, M, D in LN_SHAPES:
-            args = ln_inputs(torch, dtype, M, D, gen, n_copies=2)
-            ms = time_ms(torch, lambda *a: fl._forward_kernel(*a, 1e-5),
-                         args, 100)
-            plain = time_ms(torch, lambda *a: fl._forward_ref(*a, 1e-5),
-                            args, 20)
-            lib = time_ms(torch, lambda x, r, g, b: F.layer_norm(
-                x + r, (D,), g, b, 1e-5), args, 50)
-            b_ms, b_by = ln_bound(M, D, args[0][0].element_size())
-            rows[("layernorm_residual", name)] = dict(
-                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by)
-            log(f"timing[{gpu}] layernorm_residual {dtype} [{M}, {D}]: "
-                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-                f"(layer_norm(x + r)) {lib:.4f} ms, bound {b_ms:.4f} ms by "
-                f"{b_by}")
+            rows[("layernorm_residual", name)] = time_ln(torch, fl, gpu,
+                                                         dtype, M, D, gen)
         for name, dtype, M, V in SX_SHAPES:
             args = sx_inputs(torch, dtype, M, V, gen, n_copies=2)
             ms = time_ms(torch, sx._forward_kernel, args, 50)
@@ -1338,6 +1391,395 @@ def timing_resnet(torch, gpu):
     return rows
 
 
+# -- long-context GPT inference (flash attention) -----------------------------
+# the slice: gpt_small width and depth at 2 x 8192 in bf16 through
+# eval_batch / predict_batch; bench.py:397-433's op shape (B, H, S, hd)
+LC_B, LC_S = 2, 8192
+LC_EVALS, LC_PREDICTS = 2, 1
+LC_PARITY = dict(B=1, S=4096, layers=2)
+BENCH_OP = (1, 8, 32768, 128)
+# (S, K, causal, q_position_offset): ragged S and K, K > S, an offset that
+# is not block-aligned, a negative one (rows with no valid key)
+FLASH_CASES = ((1000, 1000, True, 0), (777, 1290, False, 0),
+               (700, 1300, True, 517), (513, 400, True, -130))
+# the kernel against its plain version: float32 sums in another order;
+# bf16 rounds P to bf16 for the P.V product (the plain version keeps it
+# float32) and the output to bf16.  A long row averages thousands of values,
+# so its outputs are small (~0.02 at S = 8192): bf16 is held element-wise
+# to rtol 2e-2 (one output ulp) plus 2e-2 of the reference row's RMS (P's
+# rounding, ~0.007 of it in an emulation of the kernel's arithmetic), not
+# to a fixed atol that large rows would hide a fault under
+FLASH_TOL = {"float32": dict(rtol=1e-5, atol=2e-5),
+             "bfloat16": dict(rtol=2e-2, row_rms=2e-2)}
+FLASH_LSE_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+                 "bfloat16": dict(rtol=1e-5, atol=1e-3)}
+
+
+def flash_out_close(torch, out, ref, dtype_name):
+    """Assert out within FLASH_TOL of ref; returns (largest abs error, the
+    largest error over its element's allowance: <= 1 passes)."""
+    tol = FLASH_TOL[dtype_name]
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    if "atol" in tol:
+        allow = tol["atol"] + tol["rtol"] * r.abs()
+    else:
+        rms = r.pow(2).mean(-1, keepdim=True).sqrt()
+        allow = tol["rtol"] * r.abs() + tol["row_rms"] * rms
+    ratio = float(torch.where(err > 0, err / allow, torch.zeros_like(err))
+                  .max()) if err.numel() else 0.0
+    assert ratio <= 1.0, (f"flash_attention {dtype_name}: error "
+                          f"{float(err.max()):.3e} exceeds {tol} by "
+                          f"{ratio:.3f}x")
+    return float(err.max()) if err.numel() else 0.0, ratio
+
+
+def flash_inputs(torch, B, H, S, K, hd, dtype, gen):
+    return tuple(torch.randn(B, H, n, hd, generator=gen).to(DEVICE, dtype)
+                 for n in (S, K, K))
+
+
+def flash_check(torch, fa, q, k, v, causal, off, dtype_name):
+    """One kernel call against the plain version: out and lse within the
+    stated tolerances, rows with no valid key exactly 0 / -inf.  Returns
+    out's largest abs error, its largest share of the tolerance and the
+    count of rows with no valid key."""
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, causal,
+                                          q_position_offset=off)
+    ref, ref_lse = fa.flash_attention_fwd_lse_ref(q, k, v, causal,
+                                                  q_position_offset=off)
+    torch.cuda.synchronize()
+    err, ratio = flash_out_close(torch, out, ref, dtype_name)
+    dead = torch.isneginf(ref_lse)
+    assert torch.equal(torch.isneginf(lse), dead)
+    assert bool(torch.all(out[dead] == 0))
+    torch.testing.assert_close(lse[~dead], ref_lse[~dead],
+                               **FLASH_LSE_TOL[dtype_name])
+    return err, ratio, int(dead.sum())
+
+
+def check_flash_kernel(torch):
+    """Phase L1: the flash-attention kernel against its plain version at
+    head_dim 64, 128 and 256, float32 and bf16, causal and not, ragged S
+    and K, K > S, offsets; then at the slice's own shape.  Returns the
+    largest abs error at the slice's shape (bf16, causal)."""
+    import importlib
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    gen = torch.Generator().manual_seed(SEED + 20)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for hd in fa.HEAD_DIMS:
+            for S, K, causal, off in FLASH_CASES:
+                q, k, v = flash_inputs(torch, 2, 3, S, K, hd, dtype, gen)
+                err, ratio, dead = flash_check(torch, fa, q, k, v, causal,
+                                               off, name)
+                log(f"kernel flash_attention {name} hd={hd} S={S} K={K} "
+                    f"causal={causal} offset={off}: max_abs_err={err:.3e} "
+                    f"vs plain ({FLASH_TOL[name]}; {ratio:.3f} of it at "
+                    f"most), {dead} rows with no valid key exactly 0 / "
+                    f"-inf; ok")
+    q, k, v = flash_inputs(torch, LC_B, 12, LC_S, LC_S, 64, torch.bfloat16,
+                           gen)
+    err, ratio, _ = flash_check(torch, fa, q, k, v, True, 0, "bfloat16")
+    ref = fa.flash_attention_ref(q, k, v, True).float()
+    log(f"kernel flash_attention bfloat16 at the slice's shape "
+        f"[{LC_B}, 12, {LC_S}, 64] causal: max_abs_err={err:.3e}, "
+        f"{ratio:.3f} of the tolerance ({FLASH_TOL['bfloat16']}; median "
+        f"|out| {float(ref.abs().median()):.3e}, median row RMS "
+        f"{float(ref.pow(2).mean(-1).sqrt().median()):.3e}); ok")
+    return err
+
+
+def long_context_model(torch, dtype, layers=12, S=LC_S, device=DEVICE):
+    """GPTForCausalLM(gpt_small(max_position=S, dropout=0.0)) with seeded
+    random weights (drawn on the CPU, so any device gets the same
+    model)."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_small
+
+    net = GPTForCausalLM(
+        gpt_small(max_position=S, dropout=0.0, num_layers=layers),
+        device=device, generator=torch.Generator().manual_seed(SEED))
+    return net.astype(dtype) if dtype != "float32" else net
+
+
+def long_context_inference(torch, gpu):
+    """Phase L2: the slice model in bf16 at 2 x 8192 through
+    ``eval_batch`` (loss, perplexity) and ``predict_batch`` (logits), the
+    counts zeroed just before and read just after; then the same model
+    with the flash gate closed (the dense einsum) for peak memory."""
+    import math
+
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.gpt import ParallelAttention
+    from paddle_tpu_torch.ops import (flash_attention, layernorm_residual,
+                                      softmax_cross_entropy)
+
+    net = long_context_model(torch, "bfloat16")
+    layers = net.gpt.cfg.num_layers
+    model = ptt.Model(net).prepare(loss=net.loss)
+    ids = np.random.RandomState(SEED + 21).randint(
+        0, net.gpt.cfg.vocab_size, size=(LC_B, LC_S)).astype(np.int32)
+    model.eval_batch([ids], [ids])  # warm-up: cuBLAS plans, allocator
+    torch.cuda.synchronize()
+    counters = (flash_attention, layernorm_residual, softmax_cross_entropy)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t0 = time.monotonic()
+    losses = [model.eval_batch([ids], [ids])[0] for _ in range(LC_EVALS)]
+    torch.cuda.synchronize()
+    t_eval = (time.monotonic() - t0) / LC_EVALS
+    t0 = time.monotonic()
+    for _ in range(LC_PREDICTS):
+        logits = model.predict_batch([ids])
+    torch.cuda.synchronize()
+    t_pred = (time.monotonic() - t0) / LC_PREDICTS
+    fa, ln, sx = (c.launches for c in counters)
+    peak = torch.cuda.max_memory_allocated()
+    forwards = LC_EVALS + LC_PREDICTS
+    log(f"long[{gpu}]: gpt_small(max_position={LC_S}, dropout=0.0) bf16, "
+        f"{layers} layers, batch {LC_B}x{LC_S}: eval_batch losses "
+        f"{losses} (perplexity {math.exp(losses[-1]):.1f}); launches over "
+        f"{LC_EVALS} eval_batch + {LC_PREDICTS} predict_batch: "
+        f"flash_attention {fa} (= {layers} x {forwards}: "
+        f"{fa == layers * forwards}), layernorm_residual {ln}, "
+        f"softmax_cross_entropy {sx}")
+    assert fa == layers * forwards, fa
+    assert ln == layers * forwards, ln
+    assert sx == LC_EVALS, sx
+    assert all(math.isfinite(x) for x in losses), losses
+    assert tuple(logits.shape) == (LC_B, LC_S, net.gpt.cfg.vocab_size)
+    assert logits.dtype == torch.bfloat16
+    assert bool(torch.isfinite(logits).all())
+    del logits
+    tok = LC_B * LC_S
+    log(f"long[{gpu}]: flash: eval_batch {t_eval * 1e3:.1f} ms "
+        f"({tok / t_eval:.0f} tokens/s), predict_batch {t_pred * 1e3:.1f} "
+        f"ms ({tok / t_pred:.0f} tokens/s), peak device memory "
+        f"{peak / 2**20:.0f} MiB")
+
+    flash_use = ParallelAttention._use_flash
+    ParallelAttention._use_flash = lambda self, S, attn_mask, x: False
+    try:
+        model.eval_batch([ids], [ids])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        t0 = time.monotonic()
+        dense_loss = model.eval_batch([ids], [ids])[0]
+        torch.cuda.synchronize()
+        t_dense = time.monotonic() - t0
+        dense_peak = torch.cuda.max_memory_allocated()
+        assert flash_attention.launches == 0
+    finally:
+        ParallelAttention._use_flash = flash_use
+    rel = abs(dense_loss - losses[-1]) / abs(dense_loss)
+    log(f"long[{gpu}]: dense (gate closed): eval_batch {t_dense * 1e3:.1f} "
+        f"ms ({tok / t_dense:.0f} tokens/s), loss {dense_loss} (flash "
+        f"{losses[-1]}, rel diff {rel:.2e} <= 1e-2: the dense path keeps "
+        f"bf16 scores), peak device memory {dense_peak / 2**20:.0f} MiB "
+        f"vs flash {peak / 2**20:.0f} MiB")
+    assert peak < dense_peak, (peak, dense_peak)
+    assert rel <= 1e-2, rel
+    del model, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": fa, "loss": losses[-1], "eval_ms": t_eval * 1e3,
+            "predict_ms": t_pred * 1e3, "dense_ms": t_dense * 1e3,
+            "peak_bytes": peak, "dense_peak_bytes": dense_peak}
+
+
+def long_context_card_vs_cpu(torch):
+    """Phase L3: a 2-layer gpt_small-width model in float32 at S 4096,
+    one seeded init on both devices: the card through the flash kernel,
+    the CPU through the dense path (its gate is closed off the card).
+    eval_batch losses at rtol 1e-4; predict_batch logits within rtol 1e-4
+    / atol 1e-4 (float32 sums in other orders, 2 layers)."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import flash_attention
+
+    B, S, layers = LC_PARITY["B"], LC_PARITY["S"], LC_PARITY["layers"]
+    ids = np.random.RandomState(SEED + 22).randint(
+        0, 50304, size=(B, S)).astype(np.int32)
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        net = long_context_model(torch, "float32", layers, S, dev)
+        model = ptt.Model(net).prepare(loss=net.loss)
+        flash_attention.launches = 0
+        loss = model.eval_batch([ids], [ids])[0]
+        logits = model.predict_batch([ids]).cpu()
+        got[dev] = (loss, logits, flash_attention.launches)
+        del model, net
+    (lc, xc, nc), (lh, xh, nh) = got[DEVICE], got["cpu"]
+    err = float((xc - xh).abs().max())
+    log(f"long parity: gpt_small width, {layers} layers, f32, {B}x{S}: "
+        f"eval_batch loss card {lc} (flash, {nc} launches) vs cpu {lh} "
+        f"(dense), rel diff {abs(lc - lh) / abs(lh):.2e} (<= 1e-4); logits "
+        f"max abs diff {err:.3e} (rtol 1e-4, atol 1e-4)")
+    assert nc == 2 * layers and nh == 0, (nc, nh)
+    assert abs(lc - lh) <= 1e-4 * abs(lh), (lc, lh)
+    torch.testing.assert_close(xc, xh, rtol=1e-4, atol=1e-4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err
+
+
+def timing_flash(torch, gpu):
+    """Phase L4: the kernel, its plain version and
+    ``torch.nn.functional.scaled_dot_product_attention(is_causal=True)``
+    (the library yardstick; the port never calls it) at the slice's shape
+    and at bench.py's op shape, bf16, causal, median (min-max) of 3 runs
+    from CUDA events, beside the bound: the operations of the causal
+    pairs, 4 * B*H * S(S+1)/2 * hd, at 989 TFLOP/s, or the bytes (q, k,
+    v read, out and lse written) at 3.35 TB/s where larger."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    gen = torch.Generator().manual_seed(SEED + 23)
+    rows = {}
+    with torch.no_grad():
+        for name, (Bq, Hq, S, hd) in (("slice", (LC_B, 12, LC_S, 64)),
+                                      ("bench_op", BENCH_OP)):
+            args = [flash_inputs(torch, Bq, Hq, S, S, hd, torch.bfloat16,
+                                 gen)]
+            flops = 4.0 * Bq * Hq * (S * (S + 1) // 2) * hd
+            iters = max(3, int(2e13 // flops))
+            ms = runs_ms(torch, lambda q, k, v: fa.flash_attention_fwd_lse(
+                q, k, v, True), args, iters)
+            plain = runs_ms(torch, lambda q, k, v:
+                            fa.flash_attention_fwd_lse_ref(q, k, v, True),
+                            args, max(2, iters // 10))
+            lib = runs_ms(torch, lambda q, k, v:
+                          F.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=True),
+                          args, iters)
+            nbytes = 4 * Bq * Hq * S * hd * 2 + Bq * Hq * S * 4
+            t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+            rows[name] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
+                              bound_ms=max(t_b, t_o) * 1e3,
+                              bound_by="bytes" if t_b >= t_o
+                              else "operations")
+            log(f"timing[{gpu}] flash_attention bf16 causal {name} "
+                f"[{Bq}, {Hq}, {S}, {hd}]: kernel {ms[0]:.4f} "
+                f"({ms[1]:.4f}-{ms[2]:.4f}) ms = "
+                f"{flops / ms[0] / 1e9:.1f} TFLOP/s, plain {plain[0]:.4f} "
+                f"({plain[1]:.4f}-{plain[2]:.4f}) ms, library "
+                f"(F.scaled_dot_product_attention) {lib[0]:.4f} "
+                f"({lib[1]:.4f}-{lib[2]:.4f}) ms, bound "
+                f"{max(t_b, t_o) * 1e3:.4f} ms by "
+                f"{rows[name]['bound_by']} ({flops:.4g} flops, {nbytes} "
+                f"bytes)")
+            del args
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows
+
+
+WIDE_LN = (2 * 1024, 1024)     # the hidden-1024 GPT's rows x width below
+# (q dtype, pool) pairs of the paged kernel's chunked instance
+PAGED_WIDE_DTYPES = (("float32", None), ("float32", "int8"),
+                     ("float32", "fp8"), ("bfloat16", None),
+                     ("bfloat16", "int8"), ("bfloat16", "fp8"))
+
+
+def check_width_repairs(torch, gpu):
+    """Phase W: the port at widths it used to refuse on the card.
+    ``layernorm_residual``'s wide variant against its plain version (and
+    timed) at the hidden-1024 GPT's shape, float32 and bf16; that GPT
+    (gpt_small(hidden_size=1024, num_heads=16), float32, 12 layers) takes
+    one train_batch, its 12 layernorm_residual launches through the wide
+    variant; paged_flash_decode at head_dim 320 and at page 1024 (staged in
+    row chunks), each over every q dtype and pool kind, against its plain
+    version.  Returns the wide variant's errors and times by dtype."""
+    import math
+
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_small
+    from paddle_tpu_torch.ops import fused_layernorm as fl
+    from paddle_tpu_torch.ops import layernorm_residual
+    from paddle_tpu_torch.ops.paged_attention import (
+        paged_flash_decode, paged_flash_decode_ref)
+
+    M, D = WIDE_LN
+    assert D > fl.MAX_FEATURES
+    gen = torch.Generator().manual_seed(SEED + 26)
+    wide = {}
+    for dtype in ("float32", "bfloat16"):
+        err = check_ln(torch, fl, dtype, M, D, gen)
+        with torch.no_grad():
+            wide[dtype] = dict(max_abs_err=err,
+                               **time_ln(torch, fl, gpu, dtype, M, D, gen))
+    net = GPTForCausalLM(gpt_small(hidden_size=1024, num_heads=16),
+                         device=DEVICE,
+                         generator=torch.Generator().manual_seed(SEED))
+    model = ptt.Model(net).prepare(
+        optimizer=ptt.optimizer.AdamW(learning_rate=1e-4,
+                                      multi_precision=True), loss=net.loss)
+    ids = np.random.RandomState(SEED + 24).randint(
+        0, 50304, size=(2, 1024)).astype(np.int32)
+    assert ids.size == M
+    layernorm_residual.launches = 0
+    loss = model.train_batch([ids], [ids])[0]
+    torch.cuda.synchronize()
+    ln = layernorm_residual.launches
+    log(f"wide[{gpu}]: gpt_small(hidden_size=1024, num_heads=16) f32, "
+        f"batch 2x1024: train_batch loss {loss}, layernorm_residual "
+        f"launches {ln} (= 12)")
+    assert math.isfinite(loss) and ln == 12, (loss, ln)
+    wide["launches_train_batch_hidden_1024"] = ln
+    del model, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(SEED + 25)
+    for hd, page, G in ((320, 16, 16), (64, 1024, 2)):
+        Bp, Hp, T = 4, 4, 5
+        P = Bp * G
+        tables = torch.randperm(P, generator=gen).reshape(Bp, G)
+        lengths = torch.tensor([G * page - 1 - 50 * b for b in range(Bp)])
+        kp = torch.arange(G * page)
+        mask = (kp[None, None, :] <= (lengths[:, None, None] - T
+                                      + torch.arange(T)[None, :, None]))
+        mask[1, 0] = False
+        q = torch.randn(Bp, Hp, T, hd, generator=gen).to(DEVICE)
+        pools = [torch.randn(P + 1, Hp, page, hd, generator=gen).to(DEVICE)
+                 for _ in range(2)]
+        for qdt, pool in PAGED_WIDE_DTYPES:
+            dt = getattr(torch, qdt)
+            if pool is None:
+                kv = (pools[0].to(dt), pools[1].to(dt), None, None)
+            else:
+                kv = quantize_pools(torch, *pools, dict(
+                    int8=torch.int8, fp8=torch.float8_e4m3fn)[pool])
+            args = (q.to(dt), kv[0], kv[1], tables.int().to(DEVICE),
+                    mask.to(DEVICE), kv[2], kv[3])
+            before = paged_flash_decode.launches
+            out = paged_flash_decode(*args)
+            ref = paged_flash_decode_ref(*args)
+            torch.cuda.synchronize()
+            assert paged_flash_decode.launches == before + 1
+            # bf16: the same float32 arithmetic, both outputs rounded to
+            # bf16 once (one ulp apart at most)
+            tol = (dict(rtol=1e-4, atol=2e-5) if qdt == "float32"
+                   else dict(rtol=1e-2, atol=1e-5))
+            torch.testing.assert_close(out, ref, **tol)
+            assert bool(torch.all(out.permute(0, 2, 1, 3)[1, 0] == 0)), \
+                "a fully-masked row must be exactly 0"
+            err = float((out.float() - ref.float()).abs().max())
+            log(f"wide: paged_flash_decode {qdt} q, {pool or qdt} pool, "
+                f"hd={hd} page={page} G={G} T={T}: max_abs_err={err:.3e} "
+                f"vs plain (rtol {tol['rtol']}, atol {tol['atol']}) ok")
+    return wide
+
+
 def main() -> int:
     import torch
 
@@ -1398,6 +1840,11 @@ def main() -> int:
     resnet = train_resnet(torch, gpu)
     resnet_card_vs_cpu(torch)
     rrows = timing_resnet(torch, gpu)
+    flash_err = check_flash_kernel(torch)
+    long = long_context_inference(torch, gpu)
+    long_context_card_vs_cpu(torch)
+    frows = timing_flash(torch, gpu)
+    wide = check_width_repairs(torch, gpu)
     paged = dict(name="paged_flash_decode", route="cuda",
                  source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
                  replaces="paddle_tpu/ops/paged_attention.py:155")
@@ -1414,12 +1861,15 @@ def main() -> int:
              "paddle_tpu/ops/fused_layernorm.py:68"),
             ("softmax_cross_entropy", "fused_softmax_xent.cu",
              "paddle_tpu/ops/fused_softmax_xent.py:85")):
-        # the main path's numbers: BERT-base pretraining's shapes
+        # the main path's numbers: BERT-base pretraining's shapes; the
+        # wide variant's (D > 768, phase W) beside them
         kernels.append(dict(
             name=name, route="cuda",
             source=f"paddle_tpu_torch/ops/csrc/{src}", replaces=replaces,
             launches=bert["launches"][name],
-            max_abs_err=errs[(name, "bert")], **trows[(name, "bert")]))
+            max_abs_err=errs[(name, "bert")], **trows[(name, "bert")],
+            **({"wide_variant": wide} if name == "layernorm_residual"
+               else {})))
     # the decode shape of the widest linear (fc1, M = 8), int8; launches
     # of the int8 and fp8 engines together
     kernels.append(dict(
@@ -1442,6 +1892,14 @@ def main() -> int:
             launches=resnet["launches"][name], max_abs_err=err,
             **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}))
+    # the long-context inference slice: launches of its eval_batch and
+    # predict_batch calls, numbers at its shape, bf16, causal
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="paddle_tpu_torch/ops/csrc/flash_attention.cu",
+        replaces="paddle_tpu/ops/flash_attention.py:193",
+        launches=long["launches"], max_abs_err=flash_err,
+        **frows["slice"]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,9 +53,18 @@ class _ParallelLinear(Linear):
                              weight_scale.detach().float().to(dev))
 
     def forward(self, x):
-        if self.weight.dtype not in _QUANT_DTYPES:
-            return super().forward(x)
         scale = self._buffers.get("weight_scale")
+        if self.weight.dtype not in _QUANT_DTYPES:
+            if scale is not None:
+                # a dtype cast (Module.to) turned fp8 codes into floats:
+                # computing with them would ignore their scales
+                raise InvalidArgumentError(
+                    f"{type(self).__name__}: a weight_scale buffer sits "
+                    f"beside a {self.weight.dtype} weight — the quantized "
+                    f"codes were cast to a float dtype (Module.to(dtype) "
+                    f"after slim.quantize_weights); quantize a float model "
+                    f"after the cast instead")
+            return super().forward(x)
         if scale is None:
             raise InvalidArgumentError(
                 f"{type(self).__name__}: weight is {self.weight.dtype} but "

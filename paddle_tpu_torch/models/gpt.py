@@ -11,17 +11,20 @@ loss :meth:`GPTForCausalLM.loss`, and the paged-KV serving path
 (``GPTConfig.quantization``, ``slim.quantize_weights``) and int8 / fp8
 KV pools (``init_paged_cache(dtype=)``: quantize on write, one scale per
 written token per head in ``[P+1, H, page]`` float32 planes, dequantize
-in the attention kernel).  Four hand-written CUDA kernels run on the
+in the attention kernel).  Five hand-written CUDA kernels run on the
 card: ``layernorm_residual`` (the attention residual add + ``ln2`` of
 every block's dense forward), ``softmax_cross_entropy`` (the loss),
-``paged_flash_decode`` (paged attention) and ``quantized_matmul`` (every
+``flash_attention`` (the dense forward's attention at S >= 4096 without
+a gradient, :meth:`ParallelAttention._use_flash`), ``paged_flash_decode``
+(paged attention, behind ``paged_flash_eligible`` as in the JAX package;
+off it the gather-then-attend path) and ``quantized_matmul`` (every
 quantized ``qkv`` / ``out`` / ``fc1`` / ``fc2``).  The paged pool is
 updated IN PLACE (JAX returns new arrays): ``forward_paged`` scatters into
 the tensors of ``cache`` and returns the same dict, which saves one pool
 copy per layer per step.  Not ported yet (ROADMAP queue A): the
 dense-ring ``forward_cached`` family, the ``gather_pages`` /
 ``scatter_pages`` hand-off, MoE, LoRA, sequence/pipeline parallelism,
-flash attention (S >= 4096).
+the flash backward (training at S >= 4096 takes the dense einsum).
 """
 from __future__ import annotations
 
@@ -41,7 +44,9 @@ from ..framework.errors import InvalidArgumentError, UnimplementedError
 from ..framework.random import default_generator
 from ..ops.fused_layernorm import layernorm_residual
 from ..ops.fused_softmax_xent import softmax_cross_entropy
-from ..ops.paged_attention import paged_flash_decode
+from ..ops.flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS
+from ..ops.flash_attention import flash_attention
+from ..ops.paged_attention import paged_flash_decode, paged_flash_eligible
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
            "gpt_small"]
@@ -130,6 +135,35 @@ def _unported(cfg: GPTConfig):
             f"bfloat16")
 
 
+def _gather_attend(q, kv, gather_tab, mask):
+    """Gather-then-attend over a paged pool — the JAX ``forward_paged``
+    path off ``paged_flash_eligible`` (``paddle_tpu/models/gpt.py``):
+    each slot's pages gathered into a ``[B, H, G*page, hd]`` view
+    (a quantized pool's rows times their scales, cast to q's dtype),
+    scores in q's dtype filled with ``finfo.min`` where masked, softmax,
+    the product with the view.  A fully masked row gets a uniform softmax
+    there, as in the JAX package (ROADMAP §C)."""
+    B, H, T, hd = q.shape
+    tab = gather_tab.long()
+    G, page = tab.shape[1], kv["k"].shape[2]
+
+    def view(name):
+        x = kv[name][tab]                                # [B,G,H,page,hd]
+        x = x.permute(0, 2, 1, 3, 4).reshape(B, H, G * page, hd)
+        scale = kv.get(name + "_scale")
+        if scale is not None:
+            sc = scale[tab].permute(0, 2, 1, 3).reshape(B, H, G * page)
+            x = x.float() * sc[..., None]
+        return x.to(q.dtype)
+
+    kview, vview = view("k"), view("v")
+    scores = torch.einsum("bhqd,bhcd->bhqc", q, kview) / math.sqrt(hd)
+    scores = scores.masked_fill(~mask.bool()[:, None],
+                                torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqc,bhcd->bhqd", probs, vview)
+
+
 class ParallelAttention(torch.nn.Module):
     """Causal multi-head self-attention (single device: heads unsharded)."""
 
@@ -152,20 +186,42 @@ class ParallelAttention(torch.nn.Module):
         return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
     def forward(self, x, attn_mask=None):
-        """Dense causal attention (the JAX package's einsum path; its
-        Pallas flash kernel engages only on a TPU at S >= 4096)."""
+        """Causal attention: the flash kernel where :meth:`_use_flash`
+        admits it (long context on the card), else the dense einsum path
+        of the JAX package."""
         B, S, D = x.shape
         q, k, v = self._heads(x)
-        scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(
-            self.head_dim)
-        causal = torch.ones(S, S, dtype=torch.bool,
-                            device=x.device).tril()
-        scores = scores.masked_fill(~causal, torch.finfo(scores.dtype).min)
-        if attn_mask is not None:
-            scores = scores + attn_mask.to(scores.dtype)
-        probs = self.drop(torch.softmax(scores, dim=-1))
-        ctx = torch.einsum("bhqk,bhkd->bhqd", probs, v)
+        if self._use_flash(S, attn_mask, x):
+            # O(S) attention memory: the [B, H, S, S] scores never exist
+            ctx = flash_attention(q, k, v, causal=True)
+        else:
+            scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(
+                self.head_dim)
+            causal = torch.ones(S, S, dtype=torch.bool,
+                                device=x.device).tril()
+            scores = scores.masked_fill(~causal,
+                                        torch.finfo(scores.dtype).min)
+            if attn_mask is not None:
+                scores = scores + attn_mask.to(scores.dtype)
+            probs = self.drop(torch.softmax(scores, dim=-1))
+            ctx = torch.einsum("bhqk,bhkd->bhqd", probs, v)
         return self.out(ctx.transpose(1, 2).reshape(B, S, D))
+
+    def _use_flash(self, S, attn_mask, x) -> bool:
+        """The JAX gate (``paddle_tpu/models/gpt.py`` ``_use_flash``) with
+        "the activation is on CUDA" for "the backend is TPU": no extra
+        mask, S >= 4096, S % 128 == 0, head_dim in {64, 128, 256}, no
+        probs-dropout in effect (p 0 or eval mode).  Until the backward
+        kernels are ported, also no gradient required: training at
+        S >= 4096 keeps the dense einsum, with the same values and
+        O(S²) memory (ROADMAP queue A, long-context attention)."""
+        needs_grad = torch.is_grad_enabled() and (
+            x.requires_grad
+            or any(p.requires_grad for p in self.qkv.parameters()))
+        return (attn_mask is None and S >= 4096 and S % 128 == 0
+                and self.head_dim in FLASH_HEAD_DIMS
+                and (self.drop.p == 0.0 or not self.training)
+                and x.device.type == "cuda" and not needs_grad)
 
     def forward_paged(self, x, kv, write_page, write_off, gather_tab, mask):
         """One attention step over a PAGED KV pool.
@@ -175,10 +231,13 @@ class ParallelAttention(torch.nn.Module):
         ``write_off``, flattened ``[B*T]``; padding lands in the last,
         write-drop page), then :func:`paged_flash_decode` walks each slot's
         page-table row (``gather_tab`` ``[B,G]``, pre-clipped) under
-        ``mask`` ``[B,T,C]``.  A quantized pool (``k_scale`` in ``kv``)
-        quantizes on write — one scale per written token per head into the
-        scale planes — and the kernel dequantizes per page; the write-drop
-        page's scales are never read unmasked.  Returns ``(out, kv)``."""
+        ``mask`` ``[B,T,C]`` — where ``paged_flash_eligible`` admits the
+        head_dim and page size, as in the JAX package; off it the
+        gather-then-attend path (:func:`_gather_attend`) runs instead.  A
+        quantized pool (``k_scale`` in ``kv``) quantizes on write — one
+        scale per written token per head into the scale planes — and the
+        kernel dequantizes per page; the write-drop page's scales are
+        never read unmasked.  Returns ``(out, kv)``."""
         B, T, D = x.shape
         H, hd = self.num_heads, self.head_dim
         q, k, v = self._heads(x)  # [B,H,T,hd]
@@ -191,9 +250,12 @@ class ParallelAttention(torch.nn.Module):
             kv["v_scale"][write_page, :, write_off] = vs
         kv["k"][write_page, :, write_off] = kw.to(kv["k"].dtype)
         kv["v"][write_page, :, write_off] = vw.to(kv["v"].dtype)
-        ctx = paged_flash_decode(q.contiguous(), kv["k"], kv["v"],
-                                 gather_tab, mask, kv.get("k_scale"),
-                                 kv.get("v_scale"))  # [B,H,T,hd]
+        if paged_flash_eligible(hd, kv["k"].shape[2]):
+            ctx = paged_flash_decode(q.contiguous(), kv["k"], kv["v"],
+                                     gather_tab, mask, kv.get("k_scale"),
+                                     kv.get("v_scale"))  # [B,H,T,hd]
+        else:
+            ctx = _gather_attend(q, kv, gather_tab, mask)
         return self.out(ctx.transpose(1, 2).reshape(B, T, D)), kv
 
 

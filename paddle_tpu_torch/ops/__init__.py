@@ -1,5 +1,8 @@
 """Kernels of the port: hand-written CUDA for Hopper (``csrc/``), each
 with a plain PyTorch version beside it, built by ``_build`` on first use."""
+from .flash_attention import (flash_attention, flash_attention_fwd_lse,
+                              flash_attention_fwd_lse_ref,
+                              flash_attention_ref)
 from .fused_conv1x1_bn import (bn_apply_relu, bn_apply_relu_ref,
                                conv1x1_bn_relu, conv1x1_bn_relu_ref,
                                conv1x1_bn_stats, conv1x1_bn_stats_ref)
@@ -17,4 +20,6 @@ __all__ = ["paged_flash_decode", "paged_flash_decode_ref",
            "quantized_linear", "quantized_linear_ref", "quantized_matmul",
            "fp8_matmul", "quantize_activations", "conv1x1_bn_stats",
            "conv1x1_bn_stats_ref", "bn_apply_relu", "bn_apply_relu_ref",
-           "conv1x1_bn_relu", "conv1x1_bn_relu_ref"]
+           "conv1x1_bn_relu", "conv1x1_bn_relu_ref", "flash_attention",
+           "flash_attention_ref", "flash_attention_fwd_lse",
+           "flash_attention_fwd_lse_ref"]

@@ -4,8 +4,10 @@ Every transformer sublayer boundary runs ``s = x + sublayer_out`` and a
 LayerNorm of ``s``.  :func:`layernorm_residual` does both in one pass over
 the rows: on the card that is the hand-written CUDA kernel
 ``ops/csrc/fused_layernorm.cu`` (``sm_90a``, built with nvcc on first use,
-bound with ctypes), one warp per row with the row in registers, so ``x``
-and ``r`` are read once and ``s`` and ``y`` written once.
+bound with ctypes): for ``D <= MAX_FEATURES`` one warp per row with the
+row in registers, for wider rows (up to ``MAX_WIDE_FEATURES``) one block
+per row with the row in shared memory; either way ``x`` and ``r`` are
+read once and ``s`` and ``y`` written once.
 
 Semantics (both paths): ``s`` is the sum rounded to the activation dtype,
 and it is that ROUNDED sum which is normalized; statistics are float32,
@@ -33,12 +35,15 @@ import torch
 from ..framework.errors import InvalidArgumentError
 from . import _build
 
-__all__ = ["layernorm_residual", "layernorm_residual_ref", "MAX_FEATURES"]
+__all__ = ["layernorm_residual", "layernorm_residual_ref", "MAX_FEATURES",
+           "MAX_WIDE_FEATURES"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the largest feature dim the kernel holds in registers (32 lanes x 24)
+#: the largest feature dim the narrow variant holds in registers (32 x 24)
 MAX_FEATURES = 768
-_fn = None
+#: the largest feature dim the wide variant stages in shared memory
+MAX_WIDE_FEATURES = 49152
+_fns = {}
 _fn_lock = threading.Lock()
 
 
@@ -77,15 +82,15 @@ def layernorm_residual_ref(x, residual, weight, bias, *,
     return s.reshape(x.shape), y.reshape(x.shape)
 
 
-def _kernel_fn():
-    global _fn
+def _kernel_fn(symbol):
     with _fn_lock:
-        if _fn is None:
-            _fn = _build.entry("fused_layernorm", "layernorm_residual_fwd",
-                               [ctypes.c_int] + [ctypes.c_void_p] * 8
-                               + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                  ctypes.c_void_p])
-        return _fn
+        if symbol not in _fns:
+            _fns[symbol] = _build.entry(
+                "fused_layernorm", symbol,
+                [ctypes.c_int] + [ctypes.c_void_p] * 8
+                + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_void_p])
+        return _fns[symbol]
 
 
 def _forward_kernel(x2, r2, weight, bias, epsilon):
@@ -109,17 +114,18 @@ def _forward_kernel(x2, r2, weight, bias, epsilon):
         if not t.is_contiguous():
             raise InvalidArgumentError(
                 f"layernorm_residual: {name} must be contiguous")
-    if not 0 < D <= MAX_FEATURES:
+    if not 0 < D <= MAX_WIDE_FEATURES:
         raise InvalidArgumentError(
             f"layernorm_residual: feature dim {D} outside the kernel's "
-            f"1..{MAX_FEATURES}")
+            f"1..{MAX_WIDE_FEATURES}")
     s = torch.empty_like(x2)
     y = torch.empty_like(x2)
     mean = torch.empty(M, dtype=torch.float32, device=x2.device)
     rstd = torch.empty(M, dtype=torch.float32, device=x2.device)
     if M == 0:
         return s, y, mean, rstd
-    fn = _kernel_fn()
+    fn = _kernel_fn("layernorm_residual_fwd" if D <= MAX_FEATURES
+                    else "layernorm_residual_fwd_wide")
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         fn(_DTYPES[x2.dtype], x2.data_ptr(), r2.data_ptr(), weight.data_ptr(),
@@ -172,9 +178,9 @@ def layernorm_residual(x, residual, weight, bias, *, epsilon: float = 1e-5):
     Returns ``(s, y)`` in x's dtype.  Differentiable in x, residual,
     weight and bias.  CPU tensors take :func:`layernorm_residual_ref`'s
     arithmetic; CUDA tensors launch the kernel (float32 or bfloat16, all
-    four tensors one dtype, contiguous, ``D <= MAX_FEATURES``) on the
-    current stream and add one to ``layernorm_residual.launches``;
-    anything else raises.
+    four tensors one dtype, contiguous, ``D <= MAX_WIDE_FEATURES``; the
+    variant picked by D) on the current stream and add one to
+    ``layernorm_residual.launches``; anything else raises.
     """
     D = _check(x, residual, weight, bias)
     s, y = _LayerNormResidual.apply(x.reshape(-1, D),

@@ -36,15 +36,35 @@ import torch
 from ..framework.errors import InvalidArgumentError
 from . import _build
 
-__all__ = ["paged_flash_decode", "paged_flash_decode_ref"]
+__all__ = ["paged_flash_decode", "paged_flash_decode_ref",
+           "paged_flash_eligible", "MAX_HEAD_DIM"]
 
 _NEG = -1e30  # mask fill; exp(_NEG - m) underflows to exactly 0.0 in f32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _QUANT_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}  # pool-only codes
 _ROWS_PER_BLOCK = 16          # query rows per block, as in the .cu source
 _MAX_SMEM = 232448            # bytes of shared memory one block may use
+#: the widest head the kernel holds in registers (32 lanes x 16 values)
+MAX_HEAD_DIM = 512
 _fn = None
 _fn_lock = threading.Lock()
+
+
+def paged_flash_eligible(head_dim: int, page_size: int) -> bool:
+    """Should ``forward_paged`` take :func:`paged_flash_decode`?  The
+    JAX gate's shape test (``paddle_tpu/ops/paged_attention.py``
+    ``paged_flash_eligible``): head_dim and page size multiples of 8.
+    Off it, ``forward_paged`` takes the gather-then-attend path, as the
+    JAX package does."""
+    return head_dim % 8 == 0 and page_size % 8 == 0
+
+
+def _page_chunk(page: int, hd: int) -> int:
+    """Rows of a page the kernel stages in shared memory at once: the
+    whole page when its K and V fit beside the q tile, else the most rows
+    that do, rounded down to a multiple of 32 (one key a lane)."""
+    rows = (_MAX_SMEM // 4 - _ROWS_PER_BLOCK * hd) // (2 * (hd + 1))
+    return page if page <= rows else max(32, rows // 32 * 32)
 
 
 def _check(q, k_pool, v_pool, tables, mask, k_scale, v_scale):
@@ -126,7 +146,7 @@ def _kernel_fn():
         if _fn is None:
             _fn = _build.entry("paged_attention", "paged_flash_decode",
                                [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-                               + [ctypes.c_int] * 7
+                               + [ctypes.c_int] * 8
                                + [ctypes.c_float, ctypes.c_void_p])
         return _fn
 
@@ -148,7 +168,9 @@ def paged_flash_decode(q, k_pool, v_pool, tables, mask,
     CPU tensors take :func:`paged_flash_decode_ref`.  CUDA tensors launch
     the kernel on the current stream (it does not synchronise) and add one
     to ``paged_flash_decode.launches``; anything the kernel does not take
-    (dtype, layout, device) raises instead of falling back.
+    (dtype, layout, device, head_dim > ``MAX_HEAD_DIM``) raises instead of
+    falling back.  Any page size is taken: a page too large for shared
+    memory is staged in row chunks.
     """
     if q.device.type == "cpu":
         return paged_flash_decode_ref(q, k_pool, v_pool, tables, mask,
@@ -182,11 +204,10 @@ def paged_flash_decode(q, k_pool, v_pool, tables, mask,
     if mask.dtype not in (torch.bool, torch.uint8):
         raise InvalidArgumentError(
             f"paged_flash_decode: mask must be bool, got {mask.dtype}")
-    smem = (2 * page * (hd + 1) + _ROWS_PER_BLOCK * hd) * 4
-    if hd > 256 or smem > _MAX_SMEM:
+    if hd > MAX_HEAD_DIM:
         raise InvalidArgumentError(
-            f"paged_flash_decode: head_dim {hd} / page {page} exceed the "
-            f"kernel's limits (hd <= 256, {smem} > {_MAX_SMEM} smem bytes)")
+            f"paged_flash_decode: head_dim {hd} exceeds the kernel's "
+            f"{MAX_HEAD_DIM}")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -199,8 +220,8 @@ def paged_flash_decode(q, k_pool, v_pool, tables, mask,
            None if v_scale is None else v_scale.data_ptr(),
            tables.data_ptr(), mask.view(torch.uint8).data_ptr(),
            out.data_ptr(),
-           B, H, T, hd, page, G, k_pool.shape[0], 1.0 / math.sqrt(hd),
-           stream)
+           B, H, T, hd, page, _page_chunk(page, hd), G, k_pool.shape[0],
+           1.0 / math.sqrt(hd), stream)
     paged_flash_decode.launches += 1
     return out
 

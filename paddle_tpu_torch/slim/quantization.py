@@ -105,7 +105,13 @@ def quantize_weights(model, mode="int8"):
     (or fp8-e4m3) tensor plus a per-output-channel ``weight_scale``
     buffer, both under their float names (``….weight``,
     ``….weight_scale``).  Idempotent: already-quantized layers are left
-    alone.  Returns the model."""
+    alone.  Returns the model.
+
+    Cast the model to its float dtype BEFORE quantizing it:
+    ``Module.to(dtype)`` casts float8_e4m3fn buffers too (an int8 one it
+    leaves), and a parallel linear whose ``weight_scale`` then sits beside
+    a float weight raises ``InvalidArgumentError`` in its forward rather
+    than compute with unscaled codes."""
     _check_mode(mode)
     for _, layer in _serving_targets(model):
         if _is_quantized_dtype(layer.weight.dtype):

@@ -185,8 +185,9 @@ def test_kernel_matches_plain_on_card(dtype, M, D):
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take():
     dev = _card()
-    x = torch.randn(4, 2048, device=dev)
-    g = torch.ones(2048, device=dev)
+    D = fl.MAX_WIDE_FEATURES + 8
+    x = torch.randn(4, D, device=dev)
+    g = torch.ones(D, device=dev)
     with pytest.raises(InvalidArgumentError, match="feature dim"):
         layernorm_residual(x, x, g, g)
     x = torch.randn(4, 64, device=dev)

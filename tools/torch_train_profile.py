@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the device time of the port's training step goes, on one card.
 
-    python3 tools/torch_train_profile.py [--model bert|gpt|both|resnet50]
+    python3 tools/torch_train_profile.py \
+        [--model bert|gpt|both|resnet50|gpt_long]
 
 Builds ``chip_smoke.py``'s training workloads — BERT-base bf16
 pretraining at batch 256 x 128 with 20 masked positions and
@@ -26,6 +27,12 @@ then for each model:
   BatchNorm statistics among them), copies and the remaining elementwise
   kernels — and the largest kernels by name.
 
+``gpt_long`` is the long-context inference path instead: ``gpt_small(
+max_position=8192, dropout=0.0)`` in bf16 scoring 2 x 8192 tokens through
+``Model.eval_batch`` (its attention through ``flash_attention``): the
+mean ``eval_batch`` time over ``--steps`` calls from CUDA events, then one
+``eval_batch`` under the profiler, grouped the same way.
+
 Numbers under the profiler run slower than ``chip_smoke.py``'s; read the
 shares, not the absolute times.  Exits non-zero without a card.
 """
@@ -40,7 +47,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
-    ("layernorm_residual", ("ln_res_kernel",)),
+    ("flash_attention", ("flash_fwd_",)),
+    ("layernorm_residual", ("ln_res_kernel", "ln_res_wide_kernel")),
     ("softmax_cross_entropy", ("sxent_kernel",)),
     ("conv1x1_bn_stats", ("stats_bf16_kernel", "stats_f32_kernel",
                           "reduce_partials_kernel")),
@@ -75,6 +83,13 @@ def build(torch, which):
                                          gpt_small)
 
     ptt.seed(cs.SEED)
+    if which == "gpt_long":
+        net = cs.long_context_model(torch, "bfloat16")
+        model = ptt.Model(net).prepare(loss=net.loss)
+        ids = np.random.RandomState(cs.SEED + 21).randint(
+            0, 50304, size=(cs.LC_B, cs.LC_S)).astype(np.int32)
+        return (f"gpt_small bf16 eval {cs.LC_B}x{cs.LC_S}", model, [ids],
+                [ids])
     if which == "resnet50":
         net = cs.resnet_model(torch, "bfloat16", "cuda")
         model = cs.resnet_trainer(torch, net)
@@ -127,14 +142,25 @@ def phases(torch, model, inputs, labels, steps):
     return [t / steps for t in tot]
 
 
-def profile_step(torch, model, inputs, labels):
+def eval_ms(torch, model, inputs, labels, steps):
+    """Mean ms of ``eval_batch`` from CUDA events."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(steps):
+        model.eval_batch(inputs, labels)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / steps
+
+
+def profile_step(torch, run, inputs, labels):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.train_batch(inputs, labels)
+        run(inputs, labels)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -153,8 +179,8 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("bert", "gpt", "both", "resnet50"),
-                    default="both")
+    ap.add_argument("--model", choices=("bert", "gpt", "both", "resnet50",
+                                        "gpt_long"), default="both")
     ap.add_argument("--steps", type=int, default=5,
                     help="steps averaged by the phase timing")
     args = ap.parse_args()
@@ -169,17 +195,25 @@ def main() -> int:
     for which in (("bert", "gpt") if args.model == "both"
                   else (args.model,)):
         label, model, inputs, labels = build(torch, which)
+        run = (model.eval_batch if which == "gpt_long"
+               else model.train_batch)
         for _ in range(3):
-            model.train_batch(inputs, labels)
-        fwd, bwd, opt = phases(torch, model, inputs, labels, args.steps)
-        step = fwd + bwd + opt
-        print(f"phases[{gpu}] {label}: step {step:.2f} ms = forward+loss "
-              f"{fwd:.2f} ({100 * fwd / step:.1f}%) + backward {bwd:.2f} "
-              f"({100 * bwd / step:.1f}%) + optimizer {opt:.2f} "
-              f"({100 * opt / step:.1f}%), mean of {args.steps} steps")
-        wall_us, rows = profile_step(torch, model, inputs, labels)
+            run(inputs, labels)
+        if which == "gpt_long":
+            ms = eval_ms(torch, model, inputs, labels, args.steps)
+            print(f"phases[{gpu}] {label}: eval_batch {ms:.2f} ms, mean of "
+                  f"{args.steps} calls")
+        else:
+            fwd, bwd, opt = phases(torch, model, inputs, labels, args.steps)
+            step = fwd + bwd + opt
+            print(f"phases[{gpu}] {label}: step {step:.2f} ms = "
+                  f"forward+loss {fwd:.2f} ({100 * fwd / step:.1f}%) + "
+                  f"backward {bwd:.2f} ({100 * bwd / step:.1f}%) + "
+                  f"optimizer {opt:.2f} ({100 * opt / step:.1f}%), mean "
+                  f"of {args.steps} steps")
+        wall_us, rows = profile_step(torch, run, inputs, labels)
         busy = sum(r[0] for r in rows)
-        print(f"profile[{gpu}] {label}: one train_batch under the "
+        print(f"profile[{gpu}] {label}: one {run.__name__} under the "
               f"profiler {wall_us / 1e3:.1f} ms, device busy "
               f"{busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% of it")
         groups = {}
