@@ -140,6 +140,38 @@ W.  the width repairs: ``layernorm_residual``'s wide variant (D > 768)
     chunks), each over float32 and bf16 q and float, int8 and fp8 pools,
     against its plain version.
 
+Long-context GPT training (after W):
+
+LT1. the flash backward kernels (dq, kernel 5; dk / dv, kernel 6) through
+     ``flash_attention_bwd_chunk`` against the plain backward at head_dim
+     64, 128 and 256, float32 and bf16, S = K and S != K ragged, causal and
+     not, offsets 0, 37, K - S and -64 (keyless rows: dq exactly 0): dq,
+     dk, dv within rtol |ref| + row_rms rms(ref row) + tensor_rms rms(ref)
+     (``FLASH_BWD_TOL``: bf16 2e-2 / 2e-2 / 1e-3, float32 1e-4 each); then
+     bf16 causal at the slice's shape and at bench.py's op shape, two runs
+     bit-equal; then a ring step over two kv chunks whose partials sum to
+     the full gradient;
+LT2. the slice model in bf16 with ``AdamW(1e-4, weight_decay=0.01,
+     multi_precision=True)`` through ``Model.train_batch`` at 2 x 8192, the
+     same seeded batch, 2 warm-up and 5 timed steps; the counts are zeroed
+     just before the timed steps and must equal 12 x steps
+     (``flash_attention``, ``flash_attention_bwd_dq``,
+     ``flash_attention_bwd_dkv``, ``layernorm_residual``) and 1 x steps
+     (``softmax_cross_entropy``); losses finite and falling, f32 master
+     slots; tokens/s, ms/step, peak device memory; then the same model at
+     1 x 8192 through the flash route and with the gate closed (the dense
+     einsum): step time and peak memory, the flash peak the smaller;
+LT3. card vs CPU: a 2-layer gpt_small-width model in float32 at 1 x 4096,
+     one seeded init, two ``train_batch`` steps each (the card through
+     kernels 4-6, the CPU through the dense path): both losses at rtol
+     1e-4, every parameter's step-1 gradient within 1e-4 of its L2 norm;
+LT4. timing, bf16 causal, at the slice's and bench.py's op shapes: each
+     backward kernel beside its bound (6 and 8 flops a causal pair a head
+     dim at 989 TFLOP/s), the port's backward call, the plain backward and
+     the library's (``F.scaled_dot_product_attention`` backward through
+     ``torch.autograd.grad``), median (min-max) of 3 runs; the port's
+     forward + backward of bench.py's op beside the library's.
+
 The line before last is the ``{"kernels": [...]}`` JSON record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a card, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -1409,6 +1441,12 @@ FLASH_CASES = ((1000, 1000, True, 0), (777, 1290, False, 0),
 # to rtol 2e-2 (one output ulp) plus 2e-2 of the reference row's RMS (P's
 # rounding, ~0.007 of it in an emulation of the kernel's arithmetic), not
 # to a fixed atol that large rows would hide a fault under
+# LT1's small cases for the backward kernels (S, K, causal, offset): S = K
+# (ragged against the 64-row tiles), S != K both ways, offsets 0, 37, K - S
+# and -64 (its first 64 rows see no key: their dq must be exactly 0)
+FLASH_BWD_CASES = ((1000, 1000, True, 0), (1000, 1000, False, 0),
+                   (100, 300, False, 0), (100, 300, True, 37),
+                   (100, 300, True, 200), (300, 100, True, -64))
 FLASH_TOL = {"float32": dict(rtol=1e-5, atol=2e-5),
              "bfloat16": dict(rtol=2e-2, row_rms=2e-2)}
 FLASH_LSE_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
@@ -1432,6 +1470,39 @@ def flash_out_close(torch, out, ref, dtype_name):
                           f"{float(err.max()):.3e} exceeds {tol} by "
                           f"{ratio:.3f}x")
     return float(err.max()) if err.numel() else 0.0, ratio
+
+
+# the backward kernels against the plain backward, per element of dq, dk,
+# dv: |err| <= rtol |ref| + row_rms * rms(ref row over head_dim) +
+# tensor_rms * rms(ref).  bf16: the kernels round p and ds to bf16 where
+# they enter mma (the plain version keeps them float32), and both round the
+# gradients to bf16 once; a CPU emulation of that rounding
+# (tools/torch_flash_bwd_rounding.py) needs row_rms 0.0088 at LT1's cases
+# and a head each of the slice's and the bench shapes.  The tensor_rms
+# floor covers rows whose exact gradient is 0 (a row that sees one key:
+# ds = p (dp - delta) cancels), where both sides hold only float32
+# rounding noise, ~1e-7 of the tensor's scale.
+FLASH_BWD_TOL = {"float32": dict(rtol=1e-4, row_rms=1e-4, tensor_rms=1e-4),
+                 "bfloat16": dict(rtol=2e-2, row_rms=2e-2, tensor_rms=1e-3)}
+
+
+def grad_close(torch, got, ref, dtype_name):
+    """Assert a gradient within FLASH_BWD_TOL of the plain one; returns
+    (largest abs error, its largest share of the allowance: <= 1 passes)."""
+    tol = FLASH_BWD_TOL[dtype_name]
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    if not err.numel():
+        return 0.0, 0.0
+    allow = (tol["rtol"] * r.abs()
+             + tol["row_rms"] * r.pow(2).mean(-1, keepdim=True).sqrt()
+             + tol["tensor_rms"] * r.pow(2).mean().sqrt())
+    ratio = float(torch.where(err > 0, err / allow, torch.zeros_like(err))
+                  .max())
+    assert ratio <= 1.0 and bool(torch.isfinite(g).all()), (
+        f"flash backward {dtype_name}: error {float(err.max()):.3e} exceeds "
+        f"{tol} by {ratio:.3f}x")
+    return float(err.max()), ratio
 
 
 def flash_inputs(torch, B, H, S, K, hd, dtype, gen):
@@ -1780,6 +1851,373 @@ def check_width_repairs(torch, gpu):
     return wide
 
 
+# -- long-context GPT training (flash attention backward) ---------------------
+LT_WARMUP, LT_STEPS = 2, 5
+LT_PARITY = dict(B=1, S=4096, layers=2)
+# LT3: every parameter's step-1 gradient, card (kernels 4-6) against the
+# CPU (dense), within this share of its L2 norm; float32 on both sides,
+# summed in other orders (the port's plain flash route and its dense route
+# differ by ~1e-6 in L2 on the CPU at hidden 256)
+LT_GRAD_RTOL = 1e-4
+LT_LOSS_RTOL = 1e-4
+
+
+def bwd_inputs(torch, fa, B, H, S, K, hd, dtype, gen, causal=True, off=0):
+    """q, k, v, dO from a seed, and the forward kernel's out and lse."""
+    q, k, v, do = (torch.randn(B, H, n, hd, generator=gen).to(DEVICE, dtype)
+                   for n in (S, K, K, S))
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, causal,
+                                          q_position_offset=off)
+    return q, k, v, do, out, lse
+
+
+def flash_bwd_check(torch, fa, args, causal, off, dtype_name):
+    """One backward (both kernels, through flash_attention_bwd_chunk)
+    against the plain backward: dq, dk, dv within FLASH_BWD_TOL, dq of rows
+    with no valid key exactly 0.  Returns ({"dq": err, "dk": ..., "dv":
+    ...}, largest share of the tolerance, rows with no valid key, the
+    kernels' gradients)."""
+    q, k, v, do, out, lse = args
+    got = fa.flash_attention_bwd_chunk(q, k, v, out, lse, do, causal,
+                                       q_position_offset=off)
+    ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                     q_position_offset=off)
+    torch.cuda.synchronize()
+    errs, worst = {}, 0.0
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        errs[name], ratio = grad_close(torch, g, r, dtype_name)
+        worst = max(worst, ratio)
+    dead = torch.isneginf(lse)
+    assert bool(torch.all(got[0][dead] == 0)), "keyless rows: dq must be 0"
+    return errs, worst, int(dead.sum()), got
+
+
+def check_flash_bwd_kernels(torch):
+    """Phase LT1: the dq and dk / dv kernels against the plain backward at
+    head_dim 64, 128 and 256, float32 and bf16, LT1's cases (S = K, S != K
+    ragged, causal and not, offsets 0, 37, K - S, -64 with keyless rows);
+    then bf16 causal at the slice's shape (twice: bit-equal) and at
+    bench.py's op shape; then flash_attention_bwd_chunk over two kv chunks
+    of a ring step, whose partials must sum to the full gradient.  Returns
+    the largest abs errors at the slice's shape: {"dq": ..., "dkv": ...}."""
+    import importlib
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    gen = torch.Generator().manual_seed(SEED + 30)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for hd in fa.HEAD_DIMS:
+            for S, K, causal, off in FLASH_BWD_CASES:
+                args = bwd_inputs(torch, fa, 2, 3, S, K, hd, dtype, gen,
+                                  causal, off)
+                errs, worst, dead, _ = flash_bwd_check(torch, fa, args,
+                                                       causal, off, name)
+                log(f"kernel flash_attention_bwd {name} hd={hd} S={S} K={K} "
+                    f"causal={causal} offset={off}: max_abs_err dq "
+                    f"{errs['dq']:.3e} dk {errs['dk']:.3e} dv "
+                    f"{errs['dv']:.3e} vs plain ({FLASH_BWD_TOL[name]}; "
+                    f"{worst:.3f} of it at most), {dead} keyless rows with "
+                    f"dq exactly 0; ok")
+    out = {}
+    for label, (B, H, S, hd) in (("slice", (LC_B, 12, LC_S, 64)),
+                                 ("bench_op", BENCH_OP)):
+        args = bwd_inputs(torch, fa, B, H, S, S, hd, torch.bfloat16, gen)
+        errs, worst, _, got = flash_bwd_check(torch, fa, args, True, 0,
+                                              "bfloat16")
+        q, k, v, do, o, lse = args
+        again = fa.flash_attention_bwd_chunk(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        assert same, "two runs of the backward kernels differ"
+        log(f"kernel flash_attention_bwd bfloat16 causal at the {label} "
+            f"shape [{B}, {H}, {S}, {hd}]: max_abs_err dq {errs['dq']:.3e} "
+            f"dk {errs['dk']:.3e} dv {errs['dv']:.3e}, {worst:.3f} of the "
+            f"tolerance ({FLASH_BWD_TOL['bfloat16']}); two runs bit-equal")
+        if label == "slice":
+            out = {"dq": errs["dq"], "dkv": max(errs["dk"], errs["dv"])}
+        del args, got, again, q, k, v, do, o, lse
+        gc.collect()
+        torch.cuda.empty_cache()
+    # a ring step: q rows at global positions 1024.., keys 0..2047 in two
+    # chunks, the merged out / lse of the full forward
+    q, k, v, do, o, lse = bwd_inputs(torch, fa, 2, 4, 1024, 2048, 64,
+                                     torch.float32, gen, True, 1024)
+    full = fa.flash_attention_bwd_chunk(q, k, v, o, lse, do, True,
+                                        q_position_offset=1024)
+    delta = (do * o).sum(-1)
+    parts = [fa.flash_attention_bwd_chunk(
+        q, k[:, :, a:b], v[:, :, a:b], None, lse, do, True,
+        q_position_offset=1024 - a, delta=delta)
+        for a, b in ((0, 1024), (1024, 2048))]
+    torch.cuda.synchronize()
+    e_q = grad_close(torch, parts[0][0] + parts[1][0], full[0], "float32")
+    e_k = [grad_close(torch, torch.cat([p[i] for p in parts], 2), full[i],
+                      "float32") for i in (1, 2)]
+    log(f"kernel flash_attention_bwd_chunk float32, two kv chunks of a ring "
+        f"step (q at 1024.., keys 0..2047): partials sum to the full "
+        f"gradient, max_abs_err dq {e_q[0]:.3e} dk {e_k[0][0]:.3e} dv "
+        f"{e_k[1][0]:.3e}; ok")
+    return out
+
+
+def long_context_training(torch, gpu):
+    """Phase LT2: the slice model in bf16 with AdamW(multi_precision)
+    through Model.train_batch at 2 x 8192, the same seeded batch every
+    step, LT_WARMUP + LT_STEPS steps, the counts zeroed just before the
+    timed steps; then the same model at 1 x 8192 through the flash route
+    and with the gate closed (the dense einsum), for step time and peak
+    memory."""
+    import math
+
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.gpt import ParallelAttention
+    from paddle_tpu_torch.ops import (flash_attention, layernorm_residual,
+                                      softmax_cross_entropy)
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq)
+
+    net = long_context_model(torch, "bfloat16")
+    layers = net.gpt.cfg.num_layers
+    opt = ptt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                              multi_precision=True)
+    model = ptt.Model(net).prepare(optimizer=opt, loss=net.loss)
+    ids = np.random.RandomState(SEED + 31).randint(
+        0, net.gpt.cfg.vocab_size, size=(LC_B, LC_S)).astype(np.int32)
+    counters = (flash_attention, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv, layernorm_residual,
+                softmax_cross_entropy)
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall, (fa, dq, dkv, ln, sx) = train_steps(
+        torch, model, [ids], [ids], LT_WARMUP, LT_STEPS, counters)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train_long: gpt_small(max_position={LC_S}, dropout=0.0) bf16, "
+        f"{layers} layers, batch {LC_B}x{LC_S}, AdamW(1e-4, wd 0.01, "
+        f"multi_precision): losses {[round(x, 4) for x in losses]}; "
+        f"launches over {LT_STEPS} steps: flash_attention {fa}, "
+        f"flash_attention_bwd_dq {dq}, flash_attention_bwd_dkv {dkv} (each "
+        f"= {layers} x {LT_STEPS}: "
+        f"{fa == dq == dkv == layers * LT_STEPS}), layernorm_residual {ln}, "
+        f"softmax_cross_entropy {sx}")
+    for c in (fa, dq, dkv, ln):
+        assert c == layers * LT_STEPS, (fa, dq, dkv, ln)
+    assert sx == LT_STEPS, sx
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], (losses[0], losses[-1])
+    sd = opt.state_dict()
+    masters = [v for k, v in sd.items() if k.endswith(".master")]
+    assert len(masters) == len(list(net.parameters())) and all(
+        m.dtype == torch.float32 for m in masters)
+    tok = LC_B * LC_S
+    step_ms = wall / LT_STEPS * 1e3
+    log(f"train_long[{gpu}]: {LT_STEPS} steps in {wall:.3f}s = "
+        f"{step_ms:.1f} ms/step, {tok * LT_STEPS / wall:.0f} tokens/s, peak "
+        f"device memory {peak / 2**20:.0f} MiB, {len(masters)} float32 "
+        f"master slots")
+
+    one = ids[:1]
+    routes = {}
+    flash_use = ParallelAttention._use_flash
+    for route in ("flash", "dense"):
+        if route == "dense":
+            ParallelAttention._use_flash = lambda self, S, attn_mask, x: False
+        try:
+            model.train_batch([one], [one])  # warm-up at this shape
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.launches = 0
+            t0 = time.monotonic()
+            rl = [model.train_batch([one], [one])[0] for _ in range(2)]
+            torch.cuda.synchronize()
+            routes[route] = dict(step_ms=(time.monotonic() - t0) / 2 * 1e3,
+                                 peak=torch.cuda.max_memory_allocated(),
+                                 loss=rl[-1],
+                                 launches=flash_attention.launches)
+        finally:
+            ParallelAttention._use_flash = flash_use
+    f, d = routes["flash"], routes["dense"]
+    log(f"train_long[{gpu}]: 1x{LC_S}: flash {f['step_ms']:.1f} ms/step, "
+        f"peak {f['peak'] / 2**20:.0f} MiB ({f['launches']} forward "
+        f"launches in 2 steps); dense (gate closed) {d['step_ms']:.1f} "
+        f"ms/step, peak {d['peak'] / 2**20:.0f} MiB ({d['launches']}); "
+        f"losses {f['loss']} / {d['loss']}")
+    assert f["launches"] == 2 * layers and d["launches"] == 0
+    assert f["peak"] < d["peak"], (f["peak"], d["peak"])
+    assert math.isfinite(d["loss"])
+    del model, opt, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {"flash_attention": fa,
+                         "flash_attention_bwd_dq": dq,
+                         "flash_attention_bwd_dkv": dkv},
+            "step_ms": step_ms, "tokens_per_s": tok * LT_STEPS / wall,
+            "peak_bytes": peak, "first_loss": losses[0],
+            "last_loss": losses[-1], "one_seq": routes}
+
+
+def long_context_train_card_vs_cpu(torch):
+    """Phase LT3: a 2-layer gpt_small-width model in float32 at 1 x 4096,
+    one seeded init on both devices, two train_batch steps each: the card
+    through kernels 4-6 (2 launches each a step), the CPU through the
+    dense path (its gate is closed off the card).  The step-1 loss at rtol
+    LT_LOSS_RTOL; every parameter's step-1 gradient, taken just before the
+    optimizer steps, within LT_GRAD_RTOL of its L2 norm; the step-2 loss at
+    LT_LOSS_RTOL."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import flash_attention
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq)
+
+    B, S, layers = LT_PARITY["B"], LT_PARITY["S"], LT_PARITY["layers"]
+    ids = np.random.RandomState(SEED + 32).randint(
+        0, 50304, size=(B, S)).astype(np.int32)
+    counters = (flash_attention, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv)
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        net = long_context_model(torch, "float32", layers, S, dev)
+        opt = ptt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                  multi_precision=True)
+        model = ptt.Model(net).prepare(optimizer=opt, loss=net.loss)
+        grads = {}
+        step = opt.step
+
+        def step_after_recording(net=net, grads=grads, step=step):
+            if not grads:  # step 1: the gradients before the update
+                grads.update({n: p.grad.detach().cpu().clone()
+                              for n, p in net.named_parameters()})
+            step()
+
+        opt.step = step_after_recording
+        for c in counters:
+            c.launches = 0
+        losses = [model.train_batch([ids], [ids])[0] for _ in range(2)]
+        got[dev] = (losses, grads, [c.launches for c in counters])
+        del model, opt, net
+    (lc, gc_, nc), (lh, gh, nh) = got[DEVICE], got["cpu"]
+    worst = max((float((gc_[n] - gh[n]).norm() / gh[n].norm()), n)
+                for n in gh)
+    log(f"train_long parity: gpt_small width, {layers} layers, f32, {B}x{S}, "
+        f"2 train_batch steps: losses card {lc} (launches flash / dq / dkv "
+        f"{nc}) vs cpu {lh} (dense), rel diff "
+        f"{[abs(a - b) / abs(b) for a, b in zip(lc, lh)]} (<= "
+        f"{LT_LOSS_RTOL}); step-1 gradients: largest L2 share "
+        f"{worst[0]:.2e} ({worst[1]}; <= {LT_GRAD_RTOL})")
+    assert nc == [2 * layers] * 3 and nh == [0] * 3, (nc, nh)
+    for a, b in zip(lc, lh):
+        assert abs(a - b) <= LT_LOSS_RTOL * abs(b), (a, b)
+    assert set(gc_) == set(gh) and worst[0] <= LT_GRAD_RTOL, worst
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst[0]
+
+
+def timing_flash_bwd(torch, gpu):
+    """Phase LT4, bf16 causal at the slice's and bench.py's op shapes: the
+    dq and dk / dv kernels, the port's whole backward call (delta + both
+    kernels), the plain backward and the library's backward
+    (F.scaled_dot_product_attention(is_causal=True) through
+    torch.autograd.grad with the graph kept: dq, dk, dv together), from
+    CUDA events over inputs rotated past the L2, median (min-max) of 3 runs;
+    beside each kernel's bound (operations: 6 and 8 flops a causal pair a
+    head dim at 989 TFLOP/s, or its bytes at 3.35 TB/s where larger).  Then
+    the port's forward + backward of bench.py's op against the library's."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    gen = torch.Generator().manual_seed(SEED + 33)
+    rows = {}
+    for label, (B, H, S, hd) in (("slice", (LC_B, 12, LC_S, 64)),
+                                 ("bench_op", BENCH_OP)):
+        scale = 1.0 / hd ** 0.5
+        copies = []
+        for _ in range(2):
+            q, k, v, do, out, lse = bwd_inputs(torch, fa, B, H, S, S, hd,
+                                               torch.bfloat16, gen)
+            delta = (do.float() * out.float()).sum(-1)
+            copies.append((q, k, v, do, out, lse, delta))
+        pairs = B * H * (S * (S + 1) // 2)
+        n_qkv = B * H * S * hd * 2  # one bf16 [B, H, S, hd] tensor
+        stats = 2 * B * H * S * 4   # lse and delta
+        iters = max(3, int(3e13 // (14.0 * pairs * hd)))
+        with torch.no_grad():
+            dq_ms = runs_ms(torch, lambda q, k, v, do, o, l, d:
+                            fa.flash_attention_bwd_dq(q, k, v, do, l, d, True,
+                                                      scale, 0),
+                            copies, iters)
+            dkv_ms = runs_ms(torch, lambda q, k, v, do, o, l, d:
+                             fa.flash_attention_bwd_dkv(q, k, v, do, l, d,
+                                                        True, scale, 0),
+                             copies, iters)
+            bwd_ms = runs_ms(torch, lambda q, k, v, do, o, l, d:
+                             fa.flash_attention_bwd_chunk(q, k, v, o, l, do,
+                                                          True),
+                             copies, iters)
+            plain = runs_ms(torch, lambda q, k, v, do, o, l, d:
+                            fa.flash_attention_bwd_ref(q, k, v, o, l, do,
+                                                       True, delta=d),
+                            copies, max(2, iters // 20))
+        graphs = []
+        for q, k, v, do, *_ in copies:
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            graphs.append((F.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=True), (qg, kg, vg), do))
+        lib = runs_ms(torch, lambda o, ins, do: torch.autograd.grad(
+            o, ins, do, retain_graph=True), graphs, iters)
+        del graphs
+        row = {}
+        for key, ms, flops, nbytes in (
+                ("dq", dq_ms, 6.0 * pairs * hd, 5 * n_qkv + stats),
+                ("dkv", dkv_ms, 8.0 * pairs * hd, 6 * n_qkv + stats)):
+            t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+            row[key] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
+                            bound_ms=max(t_b, t_o) * 1e3,
+                            bound_by="bytes" if t_b >= t_o
+                            else "operations")
+            log(f"timing[{gpu}] flash_attention_bwd_{key} bf16 causal {label} "
+                f"[{B}, {H}, {S}, {hd}]: kernel {ms[0]:.4f} ({ms[1]:.4f}-"
+                f"{ms[2]:.4f}) ms = {flops / ms[0] / 1e9:.1f} TFLOP/s, bound "
+                f"{row[key]['bound_ms']:.4f} ms by {row[key]['bound_by']} "
+                f"({flops:.4g} flops, {nbytes} bytes)")
+        row["bwd_ms"], row["plain_ms"], row["library_ms"] = (
+            bwd_ms[0], plain[0], lib[0])
+        log(f"timing[{gpu}] flash backward bf16 causal {label}: the port's "
+            f"backward call (delta + dq + dk/dv) {bwd_ms[0]:.4f} "
+            f"({bwd_ms[1]:.4f}-{bwd_ms[2]:.4f}) ms, plain "
+            f"{plain[0]:.4f} ({plain[1]:.4f}-{plain[2]:.4f}) ms, library "
+            f"(F.scaled_dot_product_attention backward: dq, dk, dv) "
+            f"{lib[0]:.4f} ({lib[1]:.4f}-{lib[2]:.4f}) ms")
+        if label == "bench_op":
+            def port(q, k, v, do, *_):
+                ins = tuple(t.detach().requires_grad_() for t in (q, k, v))
+                return torch.autograd.grad(
+                    fa.flash_attention(*ins, causal=True), ins, do)
+
+            def library(q, k, v, do, *_):
+                ins = tuple(t.detach().requires_grad_() for t in (q, k, v))
+                return torch.autograd.grad(F.scaled_dot_product_attention(
+                    *ins, is_causal=True), ins, do)
+
+            fb = runs_ms(torch, port, copies, iters)
+            lfb = runs_ms(torch, library, copies, iters)
+            row["fwd_bwd_ms"], row["library_fwd_bwd_ms"] = fb[0], lfb[0]
+            log(f"timing[{gpu}] flash_attention forward + backward bf16 "
+                f"causal {label} [{B}, {H}, {S}, {hd}] (bench.py's op): port "
+                f"{fb[0]:.4f} ({fb[1]:.4f}-{fb[2]:.4f}) ms, library "
+                f"{lfb[0]:.4f} ({lfb[1]:.4f}-{lfb[2]:.4f}) ms")
+        rows[label] = row
+        del copies
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1845,6 +2283,10 @@ def main() -> int:
     long_context_card_vs_cpu(torch)
     frows = timing_flash(torch, gpu)
     wide = check_width_repairs(torch, gpu)
+    bwd_errs = check_flash_bwd_kernels(torch)
+    train_long = long_context_training(torch, gpu)
+    long_context_train_card_vs_cpu(torch)
+    brows = timing_flash_bwd(torch, gpu)
     paged = dict(name="paged_flash_decode", route="cuda",
                  source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
                  replaces="paddle_tpu/ops/paged_attention.py:155")
@@ -1900,6 +2342,18 @@ def main() -> int:
         replaces="paddle_tpu/ops/flash_attention.py:193",
         launches=long["launches"], max_abs_err=flash_err,
         **frows["slice"]))
+    # the long-context training slice: launches of its timed train_batch
+    # steps, numbers at its shape, bf16, causal; plain_ms and library_ms
+    # are whole backwards (dq, dk and dv together), for both kernels
+    for name, key, line in (("flash_attention_bwd_dq", "dq", 387),
+                            ("flash_attention_bwd_dkv", "dkv", 463)):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            replaces=f"paddle_tpu/ops/flash_attention.py:{line}",
+            launches=train_long["launches"][name],
+            max_abs_err=bwd_errs[key], **brows["slice"][key],
+            whole_backward_ms=brows["slice"]["bwd_ms"]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

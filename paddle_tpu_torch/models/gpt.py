@@ -14,8 +14,10 @@ written token per head in ``[P+1, H, page]`` float32 planes, dequantize
 in the attention kernel).  Five hand-written CUDA kernels run on the
 card: ``layernorm_residual`` (the attention residual add + ``ln2`` of
 every block's dense forward), ``softmax_cross_entropy`` (the loss),
-``flash_attention`` (the dense forward's attention at S >= 4096 without
-a gradient, :meth:`ParallelAttention._use_flash`), ``paged_flash_decode``
+``flash_attention`` (the dense forward's attention at S >= 4096,
+:meth:`ParallelAttention._use_flash`; its backward is the dq and dk / dv
+kernels, so ``train_batch`` at long context never builds ``[B, H, S, S]``
+scores), ``paged_flash_decode``
 (paged attention, behind ``paged_flash_eligible`` as in the JAX package;
 off it the gather-then-attend path) and ``quantized_matmul`` (every
 quantized ``qkv`` / ``out`` / ``fc1`` / ``fc2``).  The paged pool is
@@ -23,8 +25,7 @@ updated IN PLACE (JAX returns new arrays): ``forward_paged`` scatters into
 the tensors of ``cache`` and returns the same dict, which saves one pool
 copy per layer per step.  Not ported yet (ROADMAP queue A): the
 dense-ring ``forward_cached`` family, the ``gather_pages`` /
-``scatter_pages`` hand-off, MoE, LoRA, sequence/pipeline parallelism,
-the flash backward (training at S >= 4096 takes the dense einsum).
+``scatter_pages`` hand-off, MoE, LoRA, sequence/pipeline parallelism.
 """
 from __future__ import annotations
 
@@ -211,17 +212,12 @@ class ParallelAttention(torch.nn.Module):
         """The JAX gate (``paddle_tpu/models/gpt.py`` ``_use_flash``) with
         "the activation is on CUDA" for "the backend is TPU": no extra
         mask, S >= 4096, S % 128 == 0, head_dim in {64, 128, 256}, no
-        probs-dropout in effect (p 0 or eval mode).  Until the backward
-        kernels are ported, also no gradient required: training at
-        S >= 4096 keeps the dense einsum, with the same values and
-        O(S²) memory (ROADMAP queue A, long-context attention)."""
-        needs_grad = torch.is_grad_enabled() and (
-            x.requires_grad
-            or any(p.requires_grad for p in self.qkv.parameters()))
+        probs-dropout in effect (p 0 or eval mode).  Training takes it
+        too: the flash backward kernels are the VJP."""
         return (attn_mask is None and S >= 4096 and S % 128 == 0
                 and self.head_dim in FLASH_HEAD_DIMS
                 and (self.drop.p == 0.0 or not self.training)
-                and x.device.type == "cuda" and not needs_grad)
+                and x.device.type == "cuda")
 
     def forward_paged(self, x, kv, write_page, write_off, gather_tab, mask):
         """One attention step over a PAGED KV pool.

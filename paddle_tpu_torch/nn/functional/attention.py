@@ -1,9 +1,10 @@
 """Attention ops — port of ``paddle_tpu/nn/functional/attention.py``.
 
 ``scaled_dot_product_attention`` takes paddle's ``[B, S, H, hd]`` layout.
-Long sequences on the card go to the hand-written flash-attention kernel
-(:func:`paddle_tpu_torch.ops.flash_attention`); everything else takes the
-dense path with the JAX arithmetic.  The two routes align a causal mask
+Long sequences on the card go to the hand-written flash-attention kernels
+(:func:`paddle_tpu_torch.ops.flash_attention`: the forward kernel, and the
+dq and dk / dv kernels as its backward); everything else takes the dense
+path with the JAX arithmetic.  The two routes align a causal mask
 differently when the lengths differ, as in the JAX package: the dense
 route bottom-right (``tril(k = s_k - s_q)``), the flash route top-left
 (``row >= key``).
@@ -26,14 +27,11 @@ def flash_eligible(query, key, attn_mask=None, dropout_p=0.0) -> bool:
     """Should :func:`scaled_dot_product_attention` take the flash kernel?
     The JAX gate with "the tensor is on CUDA" for "the backend is TPU":
     no mask, no dropout, S_q >= 4096, both lengths multiples of 128,
-    head_dim in {64, 128, 256}; and, until the backward kernels are
-    ported, no input that needs a gradient."""
-    needs_grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (query, key))
+    head_dim in {64, 128, 256}.  The flash route is differentiable."""
     return (query.device.type == "cuda" and attn_mask is None
             and dropout_p == 0.0 and query.shape[1] >= 4096
             and query.shape[1] % 128 == 0 and key.shape[1] % 128 == 0
-            and query.shape[-1] in HEAD_DIMS and not needs_grad)
+            and query.shape[-1] in HEAD_DIMS)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

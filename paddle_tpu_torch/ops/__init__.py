@@ -1,6 +1,8 @@
 """Kernels of the port: hand-written CUDA for Hopper (``csrc/``), each
 with a plain PyTorch version beside it, built by ``_build`` on first use."""
-from .flash_attention import (flash_attention, flash_attention_fwd_lse,
+from .flash_attention import (flash_attention, flash_attention_bwd_chunk,
+                              flash_attention_bwd_ref,
+                              flash_attention_fwd_lse,
                               flash_attention_fwd_lse_ref,
                               flash_attention_ref)
 from .fused_conv1x1_bn import (bn_apply_relu, bn_apply_relu_ref,
@@ -22,4 +24,5 @@ __all__ = ["paged_flash_decode", "paged_flash_decode_ref",
            "conv1x1_bn_stats_ref", "bn_apply_relu", "bn_apply_relu_ref",
            "conv1x1_bn_relu", "conv1x1_bn_relu_ref", "flash_attention",
            "flash_attention_ref", "flash_attention_fwd_lse",
-           "flash_attention_fwd_lse_ref"]
+           "flash_attention_fwd_lse_ref", "flash_attention_bwd_chunk",
+           "flash_attention_bwd_ref"]

@@ -1,9 +1,11 @@
-"""Long-context inference on the port, and the width / dtype repairs.
+"""Long-context inference and training on the port, and the width / dtype
+repairs.
 
 ``scaled_dot_product_attention`` (both routes) and a narrow GPT whose
-attention goes through the flash route are held against the JAX package
-on the CPU: the port runs its plain flash version, JAX its Pallas kernel
-in interpret mode.  Inputs and weights (``load_jax_params``) are numpy
+attention goes through the flash route — forward, ``eval_batch`` and two
+``train_batch`` steps — are held against the JAX package on the CPU: the
+port runs its plain flash versions (forward and backward), JAX its Pallas
+kernels in interpret mode.  Inputs and weights (``load_jax_params``) are numpy
 from a seed.  Tolerances: the flash routes at JAX's own rtol 2e-4 / atol
 2e-5 (online softmax reassociates); the dense route and the models at
 rtol 2e-4 / atol 1e-5 (XLA's CPU exp is an approximation; see the verify
@@ -37,8 +39,7 @@ from paddle_tpu.ops.paged_attention import (
     paged_flash_eligible as jax_paged_flash_eligible)
 import paddle_tpu_torch as tpt
 from paddle_tpu_torch.bridge import load_jax_params
-from paddle_tpu_torch.framework.errors import (InvalidArgumentError,
-                                               UnimplementedError)
+from paddle_tpu_torch.framework.errors import InvalidArgumentError
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 from paddle_tpu_torch.nn.functional.attention import flash_eligible
@@ -170,7 +171,8 @@ SDPA_GATE = [
     (("cuda", 4096, 4096, 512, None, 0.0, False), False),
     (("cuda", 4096, 4096, 64, "mask", 0.0, False), False),
     (("cuda", 4096, 4096, 64, None, 0.1, False), False),
-    (("cuda", 4096, 4096, 64, None, 0.0, True), False),
+    # a gradient changes nothing: the flash route is differentiable
+    (("cuda", 4096, 4096, 64, None, 0.0, True), True),
 ]
 
 
@@ -181,8 +183,8 @@ def test_sdpa_gate_decision_table(args, want):
     k = _t(dev, (1, s_k, 2, hd))
     assert flash_eligible(q, k, mask, p) is want
     if grad:
-        with torch.no_grad():  # no gradient is recorded: the gate opens
-            assert flash_eligible(q, k, mask, p) is True
+        with torch.no_grad():  # nor does recording none
+            assert flash_eligible(q, k, mask, p) is want
 
 
 def test_sdpa_gate_is_closed_for_cpu_tensors():
@@ -212,9 +214,10 @@ GPT_GATE = [
     ((128, 2, 0.1, False, 4096, None, "cuda", False, True), True),
     ((128, 2, 0.1, True, 4096, None, "cuda", False, True), False),
     ((128, 2, 0.0, True, 4096, None, "cuda", False, True), True),
-    # grad enabled: the parameters need a gradient (training)
-    ((128, 2, 0.0, True, 4096, None, "cuda", False, False), False),
-    ((128, 2, 0.0, False, 4096, None, "cuda", True, False), False),
+    # grad enabled: the parameters need a gradient (training); the flash
+    # route is differentiable, so the gate opens as in JAX
+    ((128, 2, 0.0, True, 4096, None, "cuda", False, False), True),
+    ((128, 2, 0.0, False, 4096, None, "cuda", True, False), True),
 ]
 
 
@@ -307,11 +310,77 @@ def test_flash_and_dense_routes_agree_in_the_port(narrow_pair, gates_open):
     torch.testing.assert_close(flash, dense, rtol=1e-4, atol=1e-5)
 
 
-def test_training_with_the_gate_forced_open_raises(narrow_pair, gates_open):
-    _, tm, ids = narrow_pair
-    tm.train()
-    with pytest.raises(UnimplementedError, match="long-context attention"):
-        tm(torch.from_numpy(ids))
+TRAIN_STEPS, TRAIN_LR = 2, 1e-3
+
+
+def _key_bias(name, p):
+    """Mask of the key third of an attention ``qkv.bias`` (else None): its
+    gradient is zero in exact arithmetic (the softmax cancels a bias shared
+    by a row's scores), so Adam moves it by rounding noise normalized to up
+    to lr a step, in both frameworks alike."""
+    if not name.endswith("attn.qkv.bias"):
+        return None
+    d = p.shape[0] // 3
+    mask = np.zeros(p.shape, bool)
+    mask[d:2 * d] = True
+    return mask
+
+
+def test_narrow_gpt_train_batch_through_flash_matches_jax(gates_open,
+                                                          monkeypatch):
+    """Two ``train_batch`` steps of ``AdamW(1e-3, weight_decay=0.01,
+    multi_precision=True)`` with both gates open: JAX through its Pallas
+    forward and backward kernels (interpret mode), the port through the
+    plain flash forward and ``flash_attention_bwd_ref`` (each counted).
+    Losses at rtol 1e-5; every parameter after step 2 within 1e-4 (f32
+    gradients summed in other orders, normalized by Adam), the key bias
+    within its lr bound (see ``_key_bias``)."""
+    from paddle_tpu import optimizer as jopt
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    bwd_ref = fa.flash_attention_bwd_ref
+    bwd_calls = []
+
+    def counted_bwd(*a, **kw):
+        bwd_calls.append(tuple(a[0].shape))
+        return bwd_ref(*a, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention_bwd_ref", counted_bwd)
+    jpt.seed(7)
+    jm = jgpt.GPTForCausalLM(jgpt.gpt_tiny(**NARROW))
+    init = {k: np.asarray(p.value) for k, p in jm.named_parameters()}
+    tm = tgpt.GPTForCausalLM(tgpt.gpt_tiny(**NARROW), device="cpu")
+    load_jax_params(tm, init)
+    jmodel = jpt.Model(jm, ["x"], ["y"]).prepare(
+        optimizer=jopt.AdamW(TRAIN_LR, weight_decay=0.01,
+                             multi_precision=True), loss=jm.loss)
+    tmodel = tpt.Model(tm, ["x"], ["y"]).prepare(
+        optimizer=tpt.optimizer.AdamW(TRAIN_LR, weight_decay=0.01,
+                                      multi_precision=True), loss=tm.loss)
+    rng = np.random.RandomState(12)
+    jl, tl = [], []
+    for _ in range(TRAIN_STEPS):
+        ids = rng.randint(0, 97, size=(2, 256))
+        jl.append(jmodel.train_batch([ids], [ids])[0])
+        tl.append(tmodel.train_batch([ids], [ids])[0])
+    calls = TRAIN_STEPS * NARROW["num_layers"]
+    assert gates_open == [(2, 2, 256, 64)] * calls
+    assert bwd_calls == [(2, 2, 256, 64)] * calls
+    assert all(np.isfinite(tl))
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert tl[1] != tl[0]
+    jparams = {k: np.asarray(p.value) for k, p in jm.named_parameters()}
+    for name, p in tm.named_parameters():
+        got, want = p.detach().numpy(), jparams[name]
+        key = _key_bias(name, got)
+        if key is not None:
+            start = init[name][key]
+            for moved in (got[key], want[key]):
+                assert np.abs(moved - start).max() <= \
+                    TRAIN_STEPS * TRAIN_LR * 1.01
+            got, want = got[~key], want[~key]
+        np.testing.assert_allclose(got, want, err_msg=name, rtol=0,
+                                   atol=1e-4)
 
 
 # -- layernorm_residual at any width -----------------------------------------

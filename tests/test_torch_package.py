@@ -25,7 +25,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_serve_profile.py",
     ROOT / "tools" / "torch_train_profile.py",
-    ROOT / "tools" / "torch_resnet_conditioning.py"]
+    ROOT / "tools" / "torch_resnet_conditioning.py",
+    ROOT / "tools" / "torch_flash_bwd_rounding.py"]
 
 
 def _forbidden(mod: str) -> bool:

@@ -2,7 +2,7 @@
 """Where the device time of the port's training step goes, on one card.
 
     python3 tools/torch_train_profile.py \
-        [--model bert|gpt|both|resnet50|gpt_long]
+        [--model bert|gpt|both|resnet50|gpt_long|gpt_long_train]
 
 Builds ``chip_smoke.py``'s training workloads — BERT-base bf16
 pretraining at batch 256 x 128 with 20 masked positions and
@@ -32,6 +32,10 @@ max_position=8192, dropout=0.0)`` in bf16 scoring 2 x 8192 tokens through
 ``Model.eval_batch`` (its attention through ``flash_attention``): the
 mean ``eval_batch`` time over ``--steps`` calls from CUDA events, then one
 ``eval_batch`` under the profiler, grouped the same way.
+``gpt_long_train`` is ``chip_smoke.py`` phase LT2's step: the same model
+trained at 2 x 8192 with ``AdamW(1e-4, weight_decay=0.01,
+multi_precision=True)``, its attention through the flash forward and the
+dq and dk / dv backward kernels; phases and profile as for training.
 
 Numbers under the profiler run slower than ``chip_smoke.py``'s; read the
 shares, not the absolute times.  Exits non-zero without a card.
@@ -48,6 +52,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("flash_attention", ("flash_fwd_",)),
+    ("flash_attention_bwd_dq", ("flash_bwd_dq_",)),
+    ("flash_attention_bwd_dkv", ("flash_bwd_dkv_",)),
     ("layernorm_residual", ("ln_res_kernel", "ln_res_wide_kernel")),
     ("softmax_cross_entropy", ("sxent_kernel",)),
     ("conv1x1_bn_stats", ("stats_bf16_kernel", "stats_f32_kernel",
@@ -83,6 +89,15 @@ def build(torch, which):
                                          gpt_small)
 
     ptt.seed(cs.SEED)
+    if which == "gpt_long_train":
+        net = cs.long_context_model(torch, "bfloat16")
+        opt = ptt.optimizer.AdamW(1e-4, weight_decay=0.01,
+                                  multi_precision=True)
+        model = ptt.Model(net).prepare(optimizer=opt, loss=net.loss)
+        ids = np.random.RandomState(cs.SEED + 31).randint(
+            0, 50304, size=(cs.LC_B, cs.LC_S)).astype(np.int32)
+        return (f"gpt_small bf16 train {cs.LC_B}x{cs.LC_S}", model, [ids],
+                [ids])
     if which == "gpt_long":
         net = cs.long_context_model(torch, "bfloat16")
         model = ptt.Model(net).prepare(loss=net.loss)
@@ -180,7 +195,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=("bert", "gpt", "both", "resnet50",
-                                        "gpt_long"), default="both")
+                                        "gpt_long", "gpt_long_train"),
+                    default="both")
     ap.add_argument("--steps", type=int, default=5,
                     help="steps averaged by the phase timing")
     args = ap.parse_args()
