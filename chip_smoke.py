@@ -172,6 +172,53 @@ LT4. timing, bf16 causal, at the slice's and bench.py's op shapes: each
      ``torch.autograd.grad``), median (min-max) of 3 runs; the port's
      forward + backward of bench.py's op beside the library's.
 
+MoE GPT training and paged serving (after LT4):
+
+M1. ``grouped_matmul`` (kernel 10) against its plain version: the slice's
+    fc1 ``[8, 2560, 768] x [8, 768, 3072]`` and fc2 ``[8, 2560, 3072] x
+    [8, 3072, 768]`` in bf16 with the group sizes of a real routing (a
+    gpt_small-width ``MoELayer`` routing 8192 seeded rows) and with 0, C,
+    > C, negative and non-tile-multiple sizes; float32 at the serving
+    shapes (C = 16 and 80); the JAX test's ragged shape (E 3, C 80, D 16,
+    F 160, gs [80, 37, 0]) and one with D not a multiple of 8, both
+    dtypes.  Padding rows hold NaN and must come out exactly 0; two
+    launches bit-equal; every element within ``GMM_TOL`` (float32 1e-5
+    |ref| + 1e-5 rms(ref); bf16 one bf16 step, 2^-7 |ref| + 1e-3
+    rms(ref)); a wrong shape raises;
+M2. the slice, ``GPTForCausalLM(gpt_small(moe_experts=8, moe_top_k=2,
+    dropout=0.0))`` in bf16 (every MLP an 8-expert top-2 ``MoELayer``,
+    capacity factor 1.25, jitter 0.01, balance weight 0.01) with
+    ``AdamW(1e-4, weight_decay=0.01, multi_precision=True)`` through
+    ``Model.train_batch`` at 8 x 1024 tokens, 2 warm-up and 5 timed steps;
+    the counts are zeroed just before the timed steps and must equal 24 x
+    steps (``grouped_matmul``), 12 x steps (``layernorm_residual``) and
+    steps (``softmax_cross_entropy``); losses finite and falling; the aux
+    loss finite and printed; every expert's float32 master moved; bf16
+    parameters equal to their masters rounded; ms/step, tokens/s, peak
+    device memory and the overflow fraction after the last step;
+M3. card vs CPU: a 2-layer float32 MoE (hidden 256, FFN 1024, 8 experts,
+    top-2, capacity factor 1.25, jitter 0) at 2 x 512, one seeded init,
+    two ``train_batch`` steps each (the card through the kernel, the CPU
+    through the masked einsum): step-1 routing identical (a differing
+    decision must be a near-tie, margin < 1e-5, and is printed), both
+    losses at rtol 1e-4, every step-1 gradient within 1e-4 of its L2 norm;
+M4. MoE paged serving: the same model in float32 with capacity factor 8
+    (= E: no token is ever dropped) behind ``GenerationEngine(paged=True)``
+    with phase 4's 16 requests: every request completes,
+    ``paged_flash_decode`` launches as in phase 4, ``grouped_matmul``
+    launches = 24 x (admission calls + decode steps), tokens of 4
+    requests equal the uncached greedy except near-ties, no dropped token,
+    ``moe_routed_tokens`` = layers x top_k x batch x the step widths of
+    the decode steps; tokens/s, mean / p99 latency and peak memory beside
+    the dense float engine of phase 4;
+M5. timing of kernel 10 at M1's slice shapes (bf16) and at the decode
+    shapes (float32, a real routing of 8 and 40 rows: T = 1 and 5) from
+    CUDA events over two input copies, median (min-max) of 3 runs, beside
+    the plain version, ``torch.bmm`` over the full buffers (the library's
+    product alone) and the bound (2 sum(gs) D F operations at the dtype's
+    peak, or the valid x rows, the weights of experts with rows, the whole
+    output at 3.35 TB/s).
+
 The line before last is the ``{"kernels": [...]}`` JSON record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a card, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -180,6 +227,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -395,22 +443,37 @@ def fingerprint(torch, model):
 
 
 def serve(torch, gpu, model, quantized=None):
-    """Phases 4 and Q3: GPT-2-small-width paged serving through the
-    kernels, float or (``quantized``) int8 / fp8."""
+    """Phases 4, Q3 and M4: GPT-2-small-width paged serving through the
+    kernels, float, (``quantized``) int8 / fp8, or an MoE model (its
+    expert FFNs through ``grouped_matmul``, 2 launches a layer a call, and
+    its routed-token counter held to the rows the decode steps routed)."""
+    from paddle_tpu_torch.ops import grouped_matmul
     from paddle_tpu_torch.ops.paged_attention import paged_flash_decode
     from paddle_tpu_torch.ops.quantized_matmul import quantized_linear
     from paddle_tpu_torch.serving import GenerationEngine
 
     cfg = model.gpt.cfg
-    tag = f"serve[{quantized or 'float'}]"
+    moe = bool(cfg.moe_experts)
+    kind = quantized or ("moe" if moe else "float")
+    tag = f"serve[{kind}]"
     reqs = requests()
     gc.collect()  # an earlier engine (a reference cycle) frees its model copy
     torch.cuda.reset_peak_memory_stats()
-    with GenerationEngine(model, name=f"chip-smoke-{quantized or 'float'}",
+    with GenerationEngine(model, name=f"chip-smoke-{kind}",
                           quantized=quantized, **ENGINE) as eng:
         t0 = time.monotonic()
         eng.warmup()
         log(f"{tag}: warmup {time.monotonic() - t0:.2f}s")
+        widths = []  # the step width T of every decode step
+        if moe:
+            step = eng._step
+
+            def counted_step(packed, cache):
+                G = eng._C // eng._page
+                widths.append((packed.shape[1] - eng._C - G) // 2)
+                return step(packed, cache)
+
+            eng._step = counted_step
         if quantized is not None:
             assert eng.quant_active and eng._model is not model
             pool = eng._new_cache()["layers"][0]
@@ -424,16 +487,36 @@ def serve(torch, gpu, model, quantized=None):
         st0 = eng.stats()
         paged_flash_decode.launches = 0
         quantized_linear.launches = 0
+        grouped_matmul.launches = 0
         t0 = time.monotonic()
         futs = [eng.submit(p, n, **kw) for p, n, kw in reqs]
         outs = [f.result(600) for f in futs]
         wall = time.monotonic() - t0
         launches = paged_flash_decode.launches
         qmm_launches = quantized_linear.launches
+        gmm_launches = grouped_matmul.launches
         st = eng.stats()
     calls = ((st["batches"] - st0["batches"])
              + (st["decode_steps"] - st0["decode_steps"]))
     want_qmm = 4 * cfg.num_layers * calls if quantized else 0
+    want_gmm = 2 * cfg.num_layers * calls if moe else 0
+    log(f"{tag}: grouped_matmul launches {gmm_launches} (= {want_gmm}: "
+        f"{gmm_launches == want_gmm})")
+    assert gmm_launches == want_gmm, (gmm_launches, want_gmm)
+    if moe:
+        # capacity factor E: C = k x N, so every routed row is kept; the
+        # counter is each post-warm step's routed rows summed over layers
+        routed = st["moe_routed_tokens"] - st0["moe_routed_tokens"]
+        want = sum(cfg.num_layers * cfg.moe_top_k * ENGINE["batch_size"] * w
+                   for w in widths)
+        log(f"{tag}: moe_routed_tokens {routed} (= layers x top_k x batch "
+            f"x step width over {len(widths)} decode steps: {want}), "
+            f"moe_dropped_tokens {st['moe_dropped_tokens']}, overflow "
+            f"fraction {st['moe_overflow_frac']}, dead experts "
+            f"{st['moe_dead_experts']}")
+        assert len(widths) == st["decode_steps"] - st0["decode_steps"]
+        assert routed == want and st["moe_dropped_tokens"] == 0, st
+        assert st["moe_sampled_steps_after_warm"] == len(widths), st
     log(f"{tag}: {len(outs)} requests, admission calls "
         f"{st['batches'] - st0['batches']}, decode steps "
         f"{st['decode_steps'] - st0['decode_steps']}, paged_flash_decode "
@@ -457,7 +540,7 @@ def serve(torch, gpu, model, quantized=None):
         f"spec drafted/accepted {st['spec_drafted']}/{st['spec_accepted']}, "
         f"cow copies {st['cow_copies']}, peak device memory "
         f"{peak / 2**20:.0f} MiB")
-    if quantized is None:
+    if quantized is None:  # float and MoE models
         compared = ties = 0
         for (p, _, _), out in list(zip(reqs, outs))[:4]:
             c, t = greedy_margin_check(torch, model, p, out.tolist(),
@@ -471,6 +554,8 @@ def serve(torch, gpu, model, quantized=None):
     else:
         quant_agreement(torch, model, quantized, reqs, outs)
     return {"launches": launches, "qmm_launches": qmm_launches,
+            "gmm_launches": gmm_launches,
+            "gmm_launches_per_call": gmm_launches / calls,
             "launches_per_call": launches / calls,
             "qmm_launches_per_call": qmm_launches / calls,
             "tokens_per_s": n_tok / wall, "mean_ms": st["mean_ms"],
@@ -2218,6 +2303,407 @@ def timing_flash_bwd(torch, gpu):
     return rows
 
 
+# -- MoE GPT: training and paged serving (grouped matmul, kernel 10) ----------
+# the slice: gpt_small width and depth, every block's MLP an 8-expert top-2
+# MoELayer (GShard top-2 routing at capacity factor 1.25; Switch-Base-8's
+# expert width), bf16, AdamW(multi_precision), 8 x 1024 tokens a step: N =
+# 8192 routed rows a layer, C = ceil(2 x 8192 x 1.25 / 8) = 2560 slots
+MOE_E, MOE_K = 8, 2
+MOE_B, MOE_S = 8, 1024
+MOE_WARMUP, MOE_STEPS = 2, 5
+# serving: capacity factor = E, so C = k x N and no token is ever dropped
+# (tools/moe_smoke.py's condition): routing in the padded batch is then
+# per-token independent and the tokens must equal the uncached greedy
+MOE_SERVE_CF = 8.0
+# M3: a 2-layer float32 MoE, card (kernel 10) against CPU (masked einsum)
+MOE_PARITY = dict(B=2, S=512, layers=2, hidden=256, heads=4, ffn=1024)
+MOE_GRAD_RTOL = 1e-4
+MOE_LOSS_RTOL = 1e-4
+MOE_TIE = 1e-5                 # a routing margin below this is a near-tie
+# kernel 10 against its plain version, per element: |y - ref| <= rel |ref| +
+# floor rms(ref).  Both round one float32 sum once (bf16: one bf16 step)
+GMM_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-3)}
+
+
+def moe_capacity():
+    """Slots an expert at the slice: ceil(k N 1.25 / E) = 2560."""
+    return math.ceil(MOE_K * MOE_B * MOE_S * 1.25 / MOE_E)
+
+
+def moe_model(torch, dtype, device=DEVICE, **kw):
+    """GPTForCausalLM(gpt_small(moe_experts=8, moe_top_k=2, dropout=0.0,
+    **kw)) with seeded random weights drawn on the CPU."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_small
+
+    cfg = dict(moe_experts=MOE_E, moe_top_k=MOE_K, dropout=0.0)
+    cfg.update(kw)
+    net = GPTForCausalLM(gpt_small(**cfg), device=device,
+                         generator=torch.Generator().manual_seed(SEED))
+    return net.astype(dtype) if dtype != "float32" else net
+
+
+def routed_group_sizes(torch, N, dtype, cf, seed):
+    """Group sizes of a real routing: a gpt_small-width MoELayer with
+    seeded weights routes N seeded rows on the card.  Returns (routed rows
+    an expert [E] int32 on the card, C)."""
+    from paddle_tpu_torch.models import gpt_small
+    from paddle_tpu_torch.moe import MoELayer, stats
+
+    layer = MoELayer(gpt_small(moe_experts=MOE_E, moe_top_k=MOE_K,
+                               moe_capacity_factor=cf))
+    layer.reset_parameters(torch.Generator().manual_seed(seed))
+    layer = layer.to(DEVICE, dtype).eval()
+    x = torch.randn(N, layer.gate.shape[0],
+                    generator=torch.Generator().manual_seed(seed + 1))
+    with torch.no_grad(), stats.collect() as ms:
+        layer(x.to(DEVICE, dtype))
+    return ms.counts(MOE_E)[0], layer.capacity(N)
+
+
+def gmm_inputs(torch, E, C, D, F, gs, dtype, gen):
+    x = torch.randn(E, C, D, generator=gen).to(DEVICE, dtype)
+    w = (torch.randn(E, D, F, generator=gen) / D ** 0.5).to(DEVICE, dtype)
+    return x, w, torch.as_tensor(gs).to(DEVICE)
+
+
+def gmm_check(torch, gmm, x, w, gs, dtype_name):
+    """Kernel 10 on one case, its padding rows NaN: two launches bit-equal,
+    padding rows exactly 0, every element within GMM_TOL of the plain
+    version.  Returns (max abs error, the largest share of the tolerance
+    used)."""
+    C = x.shape[1]
+    valid = (torch.arange(C, device=DEVICE)[None, :]
+             < gs.clamp(0, C)[:, None])
+    x = x.clone()
+    x[~valid] = float("nan")
+    y = gmm.grouped_matmul(x, w, gs)
+    y2 = gmm.grouped_matmul(x, w, gs)
+    ref = gmm.grouped_matmul_ref(x, w, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2), "two launches differ"
+    assert not bool(y[~valid].any()), "padding rows must be exactly 0"
+    rel, floor = GMM_TOL[dtype_name]
+    yf, rf = y.float(), ref.float()
+    err = (yf - rf).abs()
+    allowed = rel * rf.abs() + floor * float(rf.pow(2).mean().sqrt())
+    assert bool((err <= allowed).all()), float(err.max())
+    share = float((err / allowed.clamp_min(1e-30)).max())
+    return float(err.max()), share
+
+
+def check_grouped_matmul(torch):
+    """Phase M1: kernel 10 against its plain version — the slice's fc1 /
+    fc2 in bf16 with the group sizes of a real routing and with 0, C, > C,
+    negative and sizes that are not tile multiples; float32 at the serving
+    shapes: decode and verify (C = 16 and 80) and admission (C = 256 and
+    768, with a real routing's group sizes and with the edge sizes); the
+    JAX test's ragged shape and one with D not a multiple of 8.  Padding rows hold NaN.  Returns the largest error at
+    the slice's shapes and the real group sizes."""
+    import importlib
+
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+
+    gmm = importlib.import_module("paddle_tpu_torch.ops.grouped_matmul")
+    gs_train, C = routed_group_sizes(torch, MOE_B * MOE_S, torch.bfloat16,
+                                     1.25, SEED + 40)
+    assert C == moe_capacity(), C
+    log(f"kernel grouped_matmul: a real routing of {MOE_B * MOE_S} rows at "
+        f"capacity factor 1.25 fills the {MOE_E} experts' {C} slots with "
+        f"{gs_train.tolist()} rows")
+    edges = [0, C, C + 40, -3, 1, 127, 129, 2047]
+    # serving's admission calls: prompt buckets 16 and 48 at batch 8 route
+    # N = 128 / 384 rows at capacity factor E, so C = 256 / 768 (> 128: the
+    # 64 x 64 float32 tile, not the small-C one of decode)
+    admit = []
+    for n in (128, 384):
+        gs_a, Ca = routed_group_sizes(torch, n, torch.float32, MOE_SERVE_CF,
+                                      SEED + 44 + n)
+        assert Ca == 2 * n, Ca
+        admit += [("admission fc1 routed", MOE_E, Ca, 768, 3072, gs_a),
+                  ("admission fc2 routed", MOE_E, Ca, 3072, 768, gs_a)]
+    for Ca in (256, 768):
+        edges_a = [0, Ca, Ca + 40, -3, 1, 63, 65, Ca - 1]
+        admit += [("admission fc1 edges", MOE_E, Ca, 768, 3072, edges_a),
+                  ("admission fc2 edges", MOE_E, Ca, 3072, 768, edges_a)]
+    cases = [("fc1 routed", MOE_E, C, 768, 3072, gs_train, "bfloat16"),
+             ("fc2 routed", MOE_E, C, 3072, 768, gs_train, "bfloat16"),
+             ("fc1 edges", MOE_E, C, 768, 3072, edges, "bfloat16"),
+             ("fc2 edges", MOE_E, C, 3072, 768, edges, "bfloat16"),
+             ("decode fc1", MOE_E, 16, 768, 3072, [16, 3, 0, 5, 1, 16, 2, 1],
+              "float32"),
+             ("verify fc2", MOE_E, 80, 3072, 768,
+              [40, 20, 0, 80, 5, 7, 33, 80], "float32"),
+             *[c + ("float32",) for c in admit],
+             ("ragged", 3, 80, 16, 160, [80, 37, 0], "float32"),
+             ("ragged", 3, 80, 16, 160, [80, 37, 0], "bfloat16"),
+             ("D % 8 != 0", 3, 77, 13, 50, [77, 20, 1], "float32"),
+             ("D % 8 != 0", 3, 77, 13, 50, [77, 20, 1], "bfloat16")]
+    gen = torch.Generator().manual_seed(SEED + 43)
+    slice_err = 0.0
+    for name, E, Cc, D, F, gs, dt in cases:
+        x, w, tgs = gmm_inputs(torch, E, Cc, D, F, gs, getattr(torch, dt),
+                               gen)
+        err, share = gmm_check(torch, gmm, x, w, tgs, dt)
+        if "routed" in name or "edges" in name:
+            slice_err = max(slice_err, err)
+        log(f"kernel grouped_matmul {dt} {name} [{E}, {Cc}, {D}] x [{E}, "
+            f"{D}, {F}] gs={tgs.tolist()}: max_abs_err={err:.3e}, "
+            f"{share:.3f} of the tolerance (rel {GMM_TOL[dt][0]:.3g}, rms "
+            f"{GMM_TOL[dt][1]:.3g}); padding rows (NaN in) exactly 0; two "
+            f"launches bit-equal; ok")
+        del x, w
+    x, w, tgs = gmm_inputs(torch, 3, 80, 16, 160, [80, 37, 0], torch.float32,
+                           gen)
+    for bad in ((x, w[:, :8], tgs), (x[0], w, tgs), (x, w, tgs[:2]),
+                (x, w, tgs.float())):
+        try:
+            gmm.grouped_matmul(*bad)
+        except InvalidArgumentError:
+            continue
+        raise AssertionError("a wrong shape or dtype did not raise")
+    log("kernel grouped_matmul: wrong shapes and a float group_sizes raise "
+        "InvalidArgumentError; ok")
+    return slice_err, gs_train
+
+
+def train_moe(torch, gpu):
+    """Phase M2, the slice's main path: the MoE GPT in bf16 with
+    AdamW(1e-4, weight_decay=0.01, multi_precision=True) through
+    Model.train_batch at 8 x 1024 tokens, one seeded batch, MOE_WARMUP +
+    MOE_STEPS steps, the counts zeroed just before the timed steps and read
+    just after; then one forward without gradient in train mode for the
+    routing health and the aux loss after the last step."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.moe import stats
+    from paddle_tpu_torch.ops import (grouped_matmul, layernorm_residual,
+                                      softmax_cross_entropy)
+
+    t0 = time.monotonic()
+    net = moe_model(torch, "bfloat16")
+    cfg = net.gpt.cfg
+    layers = cfg.num_layers
+    n_all = sum(p.numel() for p in net.parameters())
+    n_exp = sum(p.numel() for n, p in net.named_parameters()
+                if ".mlp.expert_" in n)
+    log(f"train_moe: gpt_small(moe_experts={cfg.moe_experts}, moe_top_k="
+        f"{cfg.moe_top_k}, dropout=0.0) bf16: hidden {cfg.hidden_size}, ffn "
+        f"{cfg.intermediate_size}, {layers} layers, capacity factor "
+        f"{cfg.moe_capacity_factor}, jitter {cfg.moe_jitter}, balance weight "
+        f"{cfg.moe_balance_weight}; {n_all} parameters ({n_exp} in experts); "
+        f"built in {time.monotonic() - t0:.1f}s")
+    start = {n: p.detach().clone() for n, p in net.named_parameters()
+             if n.endswith(("expert_fc1", "expert_fc2"))}
+    opt = ptt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                              multi_precision=True)
+    model = ptt.Model(net).prepare(optimizer=opt, loss=net.loss)
+    ids = np.random.RandomState(SEED + 41).randint(
+        0, cfg.vocab_size, size=(MOE_B, MOE_S)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall, (gm, ln, sx) = train_steps(
+        torch, model, [ids], [ids], MOE_WARMUP, MOE_STEPS,
+        (grouped_matmul, layernorm_residual, softmax_cross_entropy))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train_moe: batch {MOE_B}x{MOE_S}, losses "
+        f"{[round(x, 4) for x in losses]}; launches over {MOE_STEPS} steps: "
+        f"grouped_matmul {gm} (= 2 x {layers} x {MOE_STEPS}: "
+        f"{gm == 2 * layers * MOE_STEPS}), layernorm_residual {ln}, "
+        f"softmax_cross_entropy {sx}")
+    assert gm == 2 * layers * MOE_STEPS, gm
+    assert ln == layers * MOE_STEPS and sx == MOE_STEPS, (ln, sx)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], (losses[0], losses[-1])
+    net.train()
+    with torch.no_grad(), stats.collect() as ms:
+        net.gpt(torch.from_numpy(ids).long().to(DEVICE))
+    counts = ms.counts(MOE_E).cpu()
+    aux = float(ms.total_aux()) / layers
+    routed, dropped = int(counts[0].sum()), int(counts[1].sum())
+    assert routed + dropped == layers * MOE_B * MOE_S * MOE_K
+    assert math.isfinite(aux), aux
+    sd = opt.state_dict()
+    for n, p in net.named_parameters():
+        master = sd[f"{n}.master"]
+        assert master.dtype == torch.float32 and torch.equal(
+            p.detach(), master.to(p.dtype)), n
+    for n, p0 in start.items():
+        moved = (sd[f"{n}.master"] - p0.float()).abs().amax(dim=(1, 2))
+        assert bool((moved > 0).all()), (n, moved.tolist())
+    tok = MOE_B * MOE_S
+    step_ms = wall / MOE_STEPS * 1e3
+    log(f"train_moe: after the last step, aux loss {aux:.4f} a layer (1 when "
+        f"balanced), routed rows an expert over the layers "
+        f"{counts[0].tolist()}, dropped {counts[1].tolist()}: overflow "
+        f"fraction {dropped / (routed + dropped):.4f}; every expert's float32 "
+        f"master moved ({len(start)} expert tensors x {MOE_E}); bf16 "
+        f"parameters equal to their masters rounded")
+    log(f"train_moe[{gpu}]: {MOE_STEPS} steps in {wall:.3f}s = "
+        f"{step_ms:.1f} ms/step, {tok * MOE_STEPS / wall:.0f} tokens/s, peak "
+        f"device memory {peak / 2**20:.0f} MiB")
+    del model, opt, net, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {"grouped_matmul": gm}, "step_ms": step_ms,
+            "tokens_per_s": tok * MOE_STEPS / wall, "peak_bytes": peak,
+            "first_loss": losses[0], "last_loss": losses[-1], "aux": aux,
+            "overflow": dropped / (routed + dropped)}
+
+
+def routing_margins(probs, k):
+    """Per row, the smallest gap between neighbouring probabilities among
+    the k + 1 largest: how far the row is from a different top-k."""
+    top = probs.sort(dim=-1, descending=True).values[:, :k + 1]
+    return (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+
+
+def moe_card_vs_cpu(torch):
+    """Phase M3: a 2-layer float32 MoE (hidden 256, FFN 1024, so the card
+    runs kernel 10; 8 experts, top-2, capacity factor 1.25,
+    jitter 0) at 2 x 512, one seeded init on both devices, two
+    train_batch steps each: the card through the kernel, the CPU through
+    the masked einsum.  Step-1 routing identical (a differing decision
+    must be a near-tie, margin below MOE_TIE, and is printed); both losses
+    at rtol MOE_LOSS_RTOL; every step-1 gradient, taken just before the
+    optimizer steps, within MOE_GRAD_RTOL of its L2 norm."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.moe import MoELayer
+    from paddle_tpu_torch.ops import grouped_matmul
+
+    p = MOE_PARITY
+    ids = np.random.RandomState(SEED + 42).randint(
+        0, 50304, size=(p["B"], p["S"])).astype(np.int32)
+    route = MoELayer._route
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        net = moe_model(torch, "float32", dev, hidden_size=p["hidden"],
+                        num_heads=p["heads"], intermediate_size=p["ffn"],
+                        num_layers=p["layers"], moe_jitter=0.0)
+        opt = ptt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                  multi_precision=True)
+        model = ptt.Model(net).prepare(optimizer=opt, loss=net.loss)
+        grads, routes = {}, []
+        step = opt.step
+
+        def step_after_recording(net=net, grads=grads, step=step):
+            if not grads:  # step 1: the gradients before the update
+                grads.update({n: q.grad.detach().cpu().clone()
+                              for n, q in net.named_parameters()})
+            step()
+
+        def recording_route(self, xf, C, routes=routes):
+            out = route(self, xf, C)
+            if len(routes) < p["layers"]:  # step 1's forward
+                routes.append([t.detach().cpu() for t in out])
+            return out
+
+        opt.step = step_after_recording
+        MoELayer._route = recording_route
+        grouped_matmul.launches = 0
+        try:
+            losses = [model.train_batch([ids], [ids])[0] for _ in range(2)]
+        finally:
+            MoELayer._route = route
+        got[dev] = (losses, grads, routes, grouped_matmul.launches)
+        del model, opt, net
+    (lc, gc_, rc, nc), (lh, gh, rh, nh) = got[DEVICE], got["cpu"]
+    differ, margins = 0, []
+    for layer, (a, b) in enumerate(zip(rc, rh)):
+        probs, top_e, slot, kept = b[0], b[2], b[3], b[4]
+        rows = (a[2] != top_e).any(-1)
+        if bool(rows.any()):
+            m = routing_margins(probs, top_e.shape[1])[rows]
+            differ += int(rows.sum())
+            margins += m.tolist()
+            log(f"moe parity: layer {layer}: {int(rows.sum())} rows route "
+                f"to other experts on the card; their margins {m.tolist()}")
+        else:
+            assert torch.equal(a[3], slot) and torch.equal(a[4], kept), layer
+    assert all(m < MOE_TIE for m in margins), margins
+    worst = max((float((gc_[n] - gh[n]).norm() / gh[n].norm()), n)
+                for n in gh)
+    smallest = min(float(routing_margins(b[0], b[2].shape[1]).min())
+                   for b in rh)
+    log(f"moe parity: 2-layer MoE f32 (hidden {p['hidden']}, ffn {p['ffn']}, "
+        f"{MOE_E} experts, top-{MOE_K}), {p['B']}x{p['S']}, 2 train_batch "
+        f"steps: step-1 routing {'identical' if not differ else 'differs'} "
+        f"({differ} rows; smallest routing margin on the CPU "
+        f"{smallest:.3e}); losses card {lc} (grouped_matmul launches {nc}) "
+        f"vs cpu {lh} (einsum, {nh}), rel diff "
+        f"{[abs(a - b) / abs(b) for a, b in zip(lc, lh)]} (<= "
+        f"{MOE_LOSS_RTOL}); step-1 gradients: largest L2 share "
+        f"{worst[0]:.2e} ({worst[1]}; <= {MOE_GRAD_RTOL})")
+    assert nc == 2 * p["layers"] * 2 and nh == 0, (nc, nh)
+    for a, b in zip(lc, lh):
+        assert abs(a - b) <= MOE_LOSS_RTOL * abs(b), (a, b)
+    assert set(gc_) == set(gh) and worst[0] <= MOE_GRAD_RTOL, worst
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst[0]
+
+
+def gmm_bound(gs, E, C, D, F, dtype):
+    """Least time for one call: 2 sum(gs) D F operations at the dtype's
+    peak, or the bytes — the valid x rows, w of the experts that have rows,
+    the whole output, gs — at 3.35 TB/s, whichever is larger."""
+    g = gs.clamp(0, C)
+    item = 2 if dtype == "bfloat16" else 4
+    rows, active = int(g.sum()), int((g > 0).sum())
+    nbytes = rows * D * item + active * D * F * item + E * C * F * item + 4 * E
+    flops = 2.0 * rows * D * F
+    peak = BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            nbytes, flops)
+
+
+def timing_gmm(torch, gpu, gs_train):
+    """Phase M5: kernel 10 at the slice's fc1 / fc2 (bf16, the group sizes
+    of M1's real routing) and at the decode shapes (float32, a real
+    routing of 8 and 40 rows at capacity factor 8: T = 1 and 5), from CUDA
+    events over two input copies (past the 50 MB L2), median (min-max) of
+    3 runs; beside the plain version, torch.bmm over the full buffers (the
+    library's product alone, no masking) and the bound."""
+    import importlib
+
+    gmm = importlib.import_module("paddle_tpu_torch.ops.grouped_matmul")
+    gen = torch.Generator().manual_seed(SEED + 44)
+    cases = [("train_fc1", 768, 3072, gs_train, moe_capacity(), "bfloat16"),
+             ("train_fc2", 3072, 768, gs_train, moe_capacity(), "bfloat16")]
+    for T in (1, 5):
+        gs, C = routed_group_sizes(torch, B * T, torch.float32, MOE_SERVE_CF,
+                                   SEED + 45 + T)
+        cases += [(f"decode_fc1_T{T}", 768, 3072, gs, C, "float32"),
+                  (f"decode_fc2_T{T}", 3072, 768, gs, C, "float32")]
+    rows = {}
+    with torch.no_grad():
+        for name, D, F, gs, C, dt in cases:
+            args = [gmm_inputs(torch, MOE_E, C, D, F, gs, getattr(torch, dt),
+                               gen) for _ in range(2)]
+            b_ms, b_by, nbytes, flops = gmm_bound(gs, MOE_E, C, D, F, dt)
+            iters = max(20, min(400, int(2.0 / max(b_ms, 1e-3))))
+            ms = runs_ms(torch, gmm._forward_kernel, args, iters)
+            plain = runs_ms(torch, gmm.grouped_matmul_ref, args,
+                            max(5, iters // 4))
+            lib = runs_ms(torch, lambda x, w, g: torch.bmm(x, w), args, iters)
+            rows[name] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
+                              bound_ms=b_ms, bound_by=b_by)
+            log(f"timing[{gpu}] grouped_matmul {dt} {name} [{MOE_E}, {C}, "
+                f"{D}] x [{MOE_E}, {D}, {F}] gs={gs.tolist()}: kernel "
+                f"{ms[0]:.4f} ({ms[1]:.4f}-{ms[2]:.4f}) ms = "
+                f"{flops / ms[0] / 1e9:.1f} TFLOP/s, plain {plain[0]:.4f} "
+                f"({plain[1]:.4f}-{plain[2]:.4f}) ms, library (torch.bmm, "
+                f"full buffers, product only) {lib[0]:.4f} ({lib[1]:.4f}-"
+                f"{lib[2]:.4f}) ms, bound {b_ms:.4f} ms by {b_by} "
+                f"({flops:.4g} flops, {nbytes} bytes)")
+            del args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2287,6 +2773,18 @@ def main() -> int:
     train_long = long_context_training(torch, gpu)
     long_context_train_card_vs_cpu(torch)
     brows = timing_flash_bwd(torch, gpu)
+    gmm_err, gs_train = check_grouped_matmul(torch)
+    moe_train = train_moe(torch, gpu)
+    moe_card_vs_cpu(torch)
+    moe_served = serve(torch, gpu, moe_model(
+        torch, "float32", moe_capacity_factor=MOE_SERVE_CF))
+    for name, r in (("float", served), ("moe", moe_served)):
+        log(f"engines[{gpu}] {name}: {r['tokens_per_s']:.1f} tokens/s, mean "
+            f"latency {r['mean_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms, peak "
+            f"device memory {r['peak_bytes'] / 2**20:.0f} MiB; launches per "
+            f"call: paged_flash_decode {r['launches_per_call']:.0f}, "
+            f"grouped_matmul {r['gmm_launches_per_call']:.0f}")
+    mrows = timing_gmm(torch, gpu, gs_train)
     paged = dict(name="paged_flash_decode", route="cuda",
                  source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
                  replaces="paddle_tpu/ops/paged_attention.py:155")
@@ -2354,6 +2852,17 @@ def main() -> int:
             launches=train_long["launches"][name],
             max_abs_err=bwd_errs[key], **brows["slice"][key],
             whole_backward_ms=brows["slice"]["bwd_ms"]))
+    # the MoE slice: launches of its timed train_batch steps, numbers at the
+    # slice's fc1 shape (bf16, a real routing); fc2 and the serving decode
+    # shapes (float32) beside them
+    kernels.append(dict(
+        name="grouped_matmul", route="cuda",
+        source="paddle_tpu_torch/ops/csrc/grouped_matmul.cu",
+        replaces="paddle_tpu/ops/grouped_matmul.py:62",
+        launches=moe_train["launches"]["grouped_matmul"],
+        max_abs_err=gmm_err, **mrows["train_fc1"],
+        other_shapes={k: v for k, v in mrows.items() if k != "train_fc1"},
+        serving_launches=moe_served["gmm_launches"]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

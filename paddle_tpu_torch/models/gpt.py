@@ -11,9 +11,13 @@ loss :meth:`GPTForCausalLM.loss`, and the paged-KV serving path
 (``GPTConfig.quantization``, ``slim.quantize_weights``) and int8 / fp8
 KV pools (``init_paged_cache(dtype=)``: quantize on write, one scale per
 written token per head in ``[P+1, H, page]`` float32 planes, dequantize
-in the attention kernel).  Five hand-written CUDA kernels run on the
-card: ``layernorm_residual`` (the attention residual add + ``ln2`` of
-every block's dense forward), ``softmax_cross_entropy`` (the loss),
+in the attention kernel), and mixture-of-experts blocks
+(``GPTConfig.moe_experts``: every block's MLP a ``moe.MoELayer``, its
+load-balance loss added by :meth:`GPTForCausalLM.loss`).  The
+hand-written CUDA kernels on the card: ``layernorm_residual`` (the
+attention residual add + ``ln2`` of every block's dense forward),
+``softmax_cross_entropy`` (the loss), ``grouped_matmul`` (both expert
+matmuls of every MoE block),
 ``flash_attention`` (the dense forward's attention at S >= 4096,
 :meth:`ParallelAttention._use_flash`; its backward is the dq and dk / dv
 kernels, so ``train_batch`` at long context never builds ``[B, H, S, S]``
@@ -25,7 +29,7 @@ updated IN PLACE (JAX returns new arrays): ``forward_paged`` scatters into
 the tensors of ``cache`` and returns the same dict, which saves one pool
 copy per layer per step.  Not ported yet (ROADMAP queue A): the
 dense-ring ``forward_cached`` family, the ``gather_pages`` /
-``scatter_pages`` hand-off, MoE, LoRA, sequence/pipeline parallelism.
+``scatter_pages`` hand-off, LoRA, sequence/pipeline parallelism.
 """
 from __future__ import annotations
 
@@ -43,6 +47,8 @@ from ..distributed.meta_parallel import (
 from ..framework.device import resolve_device
 from ..framework.errors import InvalidArgumentError, UnimplementedError
 from ..framework.random import default_generator
+from ..moe import MoELayer
+from ..moe import stats as moe_stats
 from ..ops.fused_layernorm import layernorm_residual
 from ..ops.fused_softmax_xent import softmax_cross_entropy
 from ..ops.flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS
@@ -83,7 +89,9 @@ class GPTConfig:
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, intermediate_size=None, max_position=1024,
                  dropout=0.1, layer_norm_epsilon=1e-5, dtype="float32",
-                 sequence_parallel=None, moe_experts=0, quantization="none",
+                 sequence_parallel=None, moe_experts=0, moe_top_k=2,
+                 moe_capacity_factor=1.25, moe_jitter=0.01,
+                 moe_balance_weight=0.01, quantization="none",
                  lora_capacity=0):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -97,7 +105,17 @@ class GPTConfig:
         # accepted for signature parity; GPTModel rejects non-defaults
         # until their slices land
         self.sequence_parallel = sequence_parallel
+        #: > 0 swaps every block's dense ParallelMLP for a
+        #: ``moe.MoELayer`` with that many experts (top ``moe_top_k``
+        #: routing, ``moe_capacity_factor`` slots, ``moe_jitter`` on the
+        #: gate input in training)
         self.moe_experts = moe_experts
+        self.moe_top_k = moe_top_k
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_jitter = moe_jitter
+        #: multiplier on the summed per-layer load-balance loss added to
+        #: :meth:`GPTForCausalLM.loss`
+        self.moe_balance_weight = moe_balance_weight
         #: "none" | "int8" | "fp8" — serving weight quantization: the
         #: parallel-linear weights are quantized in place when
         #: ``GPTForCausalLM`` is built (``slim.quantize_weights``)
@@ -124,12 +142,15 @@ def gpt_small(**kw):
 def _unported(cfg: GPTConfig):
     for attr, default, item in (
             ("sequence_parallel", None, "distributed execution"),
-            ("moe_experts", 0, "MoE, LoRA and tenancy"),
             ("lora_capacity", 0, "MoE, LoRA and tenancy")):
         if getattr(cfg, attr) != default:
             raise UnimplementedError(
                 f"GPTConfig.{attr}={getattr(cfg, attr)!r} is not ported "
                 f"yet (ROADMAP queue A, {item})")
+    if cfg.moe_experts and cfg.quantization != "none":
+        raise UnimplementedError(
+            f"GPTConfig.quantization={cfg.quantization!r} with moe_experts "
+            f"is not ported yet (ROADMAP queue A, MoE, LoRA and tenancy)")
     if cfg.dtype not in _DTYPES:
         raise UnimplementedError(
             f"GPTConfig.dtype={cfg.dtype!r}: the port runs float32 or "
@@ -276,7 +297,10 @@ class GPTBlock(torch.nn.Module):
         self.attn = ParallelAttention(cfg)
         self.ln2 = nn.LayerNorm(cfg.hidden_size,
                                 epsilon=cfg.layer_norm_epsilon)
-        self.mlp = ParallelMLP(cfg)
+        if cfg.moe_experts:
+            self.mlp = MoELayer(cfg)
+        else:
+            self.mlp = ParallelMLP(cfg)
 
     def forward(self, x, attn_mask=None):
         # the fused form of the JAX block (models/gpt.py GPTBlock.forward):
@@ -422,6 +446,7 @@ class GPTForCausalLM(nn.Layer):
         super().__init__()
         dev = resolve_device(device)
         self.gpt = GPTModel(cfg)
+        self._moe_aux = None
         gen = generator if generator is not None else default_generator()
         for m in self.modules():
             if hasattr(m, "reset_parameters"):
@@ -441,19 +466,30 @@ class GPTForCausalLM(nn.Layer):
         return torch.matmul(h, self.gpt.wte.weight.t())
 
     def forward(self, input_ids, attn_mask=None):
-        return self._logits(self.gpt(input_ids, attn_mask))  # [B,S,V]
+        # the MoE blocks' load-balance losses (None for a dense model);
+        # loss() consumes the stash (Model.train_batch calls forward, then
+        # loss)
+        with moe_stats.collect() as ms:
+            h = self.gpt(input_ids, attn_mask)  # [B,S,D]
+        self._moe_aux = ms.total_aux()
+        return self._logits(h)  # [B,S,V]
 
     def loss(self, logits, labels):
         """Shifted next-token cross entropy (labels = input_ids): the mean
-        of :func:`softmax_cross_entropy` over the ``B·(S-1)`` rows.  The
+        of :func:`softmax_cross_entropy` over the ``B·(S-1)`` rows, plus
+        ``moe_balance_weight ×`` the summed load-balance loss the MoE
+        blocks recorded in the last :meth:`forward` (consumed here).  The
         shifted ``[B, S-1, V]`` view is copied to contiguous rows first,
-        as XLA does.  (The JAX loss adds an MoE balance term; MoE is not
-        ported.)"""
+        as XLA does."""
         logits = logits[:, :-1]
         labels = torch.as_tensor(labels, device=logits.device)[:, 1:]
         V = logits.shape[-1]
-        return softmax_cross_entropy(logits.reshape(-1, V),
-                                     labels.reshape(-1)).mean()
+        out = softmax_cross_entropy(logits.reshape(-1, V),
+                                    labels.reshape(-1)).mean()
+        aux, self._moe_aux = self._moe_aux, None  # consume: never leak
+        if aux is not None:  # the loss is float32, so is the weight
+            out = out + float(self.gpt.cfg.moe_balance_weight) * aux
+        return out
 
     def forward_paged(self, input_ids, positions, pos_map, table, cache,
                       gather_last=None):

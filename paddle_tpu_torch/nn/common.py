@@ -20,9 +20,15 @@ from ..framework.random import generator_for
 __all__ = ["Linear", "Embedding", "Dropout", "xavier_normal_"]
 
 
-def xavier_normal_(w: torch.Tensor, generator: Optional[torch.Generator]):
-    """paddle's XavierNormal: N(0, 2 / (fan_in + fan_out))."""
-    fan_in, fan_out = w.shape[0], w.shape[1]
+def xavier_normal_(w: torch.Tensor, generator: Optional[torch.Generator],
+                   fan_in: Optional[int] = None,
+                   fan_out: Optional[int] = None):
+    """paddle's XavierNormal: N(0, 2 / (fan_in + fan_out)).  The fans
+    default to ``w``'s first two dims; stacked weights (MoE experts,
+    ``[E, D, F]``) pass them explicitly, as ``XavierNormal(fan_in=,
+    fan_out=)`` does in the JAX package."""
+    fan_in = w.shape[0] if fan_in is None else fan_in
+    fan_out = w.shape[1] if fan_out is None else fan_out
     with torch.no_grad():
         w.normal_(0.0, math.sqrt(2.0 / (fan_in + fan_out)),
                   generator=generator)

@@ -34,9 +34,22 @@ int8 / float8_e4m3fn KV pool with float32 scale planes: four
 ``quantized_matmul`` kernel launches per layer per call on top of the
 attention kernel's one.
 
+A mixture-of-experts model (``GPTConfig.moe_experts > 0``) serves the
+same way, with every block's expert FFN through two ``grouped_matmul``
+kernel launches per call, and reports its routing health: each decode /
+verify step runs inside ``moe.stats.collect()`` and folds its ``[2, E]``
+routed / dropped counts into ``MOE_COUNTERS`` and the
+``moe_overflow_frac`` / ``moe_dead_experts`` gauges (admissions are not
+counted, as in the JAX package).  The JAX engine harvests each step's
+counts one step late, so that reading them never stalls its
+double-buffered loop; this loop already waits for every step's argmax,
+so it reads the current step's counts right after it.  Warm-up steps
+(dummy data) are not counted.
+
 Not ported yet (ROADMAP queue A): the dense-ring and legacy
 run-to-completion modes, prefill/decode hand-off roles (and the hand-off
-of quantized ``(pages, scales)`` pairs), tenancy/LoRA/MoE,
+of quantized ``(pages, scales)`` pairs), tenancy/LoRA, quantized MoE
+engines,
 ``swap_weights`` / ``reload_weights``, tracing spans and the event-bus
 snapshots, ``from_tuned``, and a CUDA-graph analog of the JAX engine's
 closed compile set.
@@ -61,8 +74,10 @@ from ..framework.errors import (
 from ..framework.flags import flag
 from ..resilience import CircuitBreaker, mark_warm
 from ..resilience.faults import fault_point
+from ..moe import stats as moe_stats
 from .batcher import MicroBatcher, Request
-from .metrics import PAGED_COUNTERS, SLOT_COUNTERS, ServingMetrics
+from .metrics import (MOE_COUNTERS, PAGED_COUNTERS, SLOT_COUNTERS,
+                      ServingMetrics)
 from .paging import PagePool
 
 __all__ = ["GenerationEngine"]
@@ -126,8 +141,14 @@ class GenerationEngine:
                 f"{quantized!r}")
         if tenancy is not None:
             raise _unported("tenancy", "MoE, LoRA and tenancy")
-        # MoE / LoRA configs never get here: GPTModel rejects them
+        # LoRA configs never get here: GPTModel rejects them
         cfg = model.gpt.cfg
+        self._moe_experts = int(cfg.moe_experts or 0)
+        if self._moe_experts and quantized is not None:
+            raise _unported(f"quantized={quantized!r} for an MoE model",
+                            "MoE, LoRA and tenancy")
+        # per-expert routed totals since warm-up (the dead-expert gauge)
+        self._moe_routed_cum = np.zeros(max(self._moe_experts, 1), np.int64)
         if name is None:
             _gen_counter[0] += 1
             name = f"generate#{_gen_counter[0]}"
@@ -165,8 +186,10 @@ class GenerationEngine:
         self._warm = False
         self._it_fast0: Optional[float] = None
         self._it_wide0: Optional[float] = None
-        self.metrics = ServingMetrics(
-            name, extra_counters=SLOT_COUNTERS + PAGED_COUNTERS)
+        extra = SLOT_COUNTERS + PAGED_COUNTERS
+        if self._moe_experts:
+            extra = extra + MOE_COUNTERS
+        self.metrics = ServingMetrics(name, extra_counters=extra)
         self.breaker = CircuitBreaker(name) if circuit_breaker else None
         self._retry_transient = bool(retry_transient)
         self._batcher = MicroBatcher(self._route,
@@ -224,10 +247,33 @@ class GenerationEngine:
         G = C // self._page
         Tp = (packed.shape[1] - C - G) // 2
         pk = self._to_dev(packed)
-        logits, cache = self._model.forward_paged(
-            pk[:, :Tp], pk[:, Tp:2 * Tp], pk[:, 2 * Tp:2 * Tp + C],
-            pk[:, 2 * Tp + C:], cache)
-        return logits.argmax(-1).cpu().numpy(), cache
+        with moe_stats.collect() as ms:
+            logits, cache = self._model.forward_paged(
+                pk[:, :Tp], pk[:, Tp:2 * Tp], pk[:, 2 * Tp:2 * Tp + C],
+                pk[:, 2 * Tp + C:], cache)
+        host = logits.argmax(-1).cpu().numpy()
+        # an MoE model's routing counts; warm-up's dummy data is not counted
+        if self._moe_experts and self._warm:
+            self._moe_harvest(ms.counts(self._moe_experts).cpu().numpy())
+        return host, cache
+
+    def _moe_harvest(self, counts: np.ndarray):
+        """Fold one step's ``[2, E]`` (routed, dropped) counts into the
+        metrics: token totals, the post-warm sampled / overflow step
+        counters and the overflow-fraction / dead-expert gauges."""
+        routed, dropped = int(counts[0].sum()), int(counts[1].sum())
+        self._moe_routed_cum += counts[0].astype(np.int64)
+        m = self.metrics
+        m.incr("moe_routed_tokens", routed)
+        m.incr("moe_dropped_tokens", dropped)
+        m.incr("moe_sampled_steps_after_warm")
+        if dropped > 0:
+            m.incr("moe_overflow_steps_after_warm")
+        total = routed + dropped
+        m.set_gauge("moe_overflow_frac", (dropped / total) if total else 0.0)
+        if int(self._moe_routed_cum.sum()) > 0:
+            m.set_gauge("moe_dead_experts",
+                        int((self._moe_routed_cum == 0).sum()))
 
     def _cow(self, cache, src: np.ndarray, dst: np.ndarray):
         return self._model.gpt.copy_pages(cache, self._to_dev(src),

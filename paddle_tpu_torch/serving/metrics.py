@@ -9,9 +9,12 @@ queue_p99_ms, execute_p50_ms, execute_p99_ms, tokens_per_s`` plus the
 slot-scheduler family (``SLOT_COUNTERS``), the page-accounting family
 (``PAGED_COUNTERS``) and the gauges the decode loop sets
 (``slot_occupancy``, ``slots_free``, ``queue_age_ms``, ``decode_step_ms``,
-``kv_pages_free``, ``kv_pages_shared``, ``kv_pages_leaked``).  Publishing
-snapshots on an event bus and the Prometheus bridge come with the
-observability slice.
+``kv_pages_free``, ``kv_pages_shared``, ``kv_pages_leaked``).  Engines
+serving MoE models (``GPTConfig.moe_experts > 0``) add the expert-routing
+family (``MOE_COUNTERS`` + the ``moe_overflow_frac`` /
+``moe_dead_experts`` gauges); a dense engine publishes no ``moe_*`` key.
+Publishing snapshots on an event bus and the Prometheus bridge come with
+the observability slice.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ from typing import Deque, Dict, Sequence
 
 from ..framework.locking import OrderedLock
 
-__all__ = ["ServingMetrics", "SLOT_COUNTERS", "PAGED_COUNTERS"]
+__all__ = ["ServingMetrics", "SLOT_COUNTERS", "PAGED_COUNTERS",
+           "MOE_COUNTERS"]
 
 #: counter keys every snapshot carries (zero-initialized)
 _COUNTERS = ("requests", "completed", "shed", "expired", "errors",
@@ -34,6 +38,15 @@ SLOT_COUNTERS = ("admitted", "evicted", "decode_steps", "restarts",
 #: page-accounting counters (paged KV mode; see ``extra_counters``)
 PAGED_COUNTERS = ("cow_copies", "spec_drafted", "spec_accepted",
                   "preempted")
+
+#: expert-routing counters (MoE models; see ``extra_counters``): routed /
+#: capacity-dropped token totals plus post-warmup sampled / overflow step
+#: counts.  With the ``moe_overflow_frac`` and ``moe_dead_experts`` gauges
+#: they are the signal of sustained expert overflow or of experts that
+#: never receive a token (the JAX package's rule S606 reads them).
+MOE_COUNTERS = ("moe_routed_tokens", "moe_dropped_tokens",
+                "moe_sampled_steps_after_warm",
+                "moe_overflow_steps_after_warm")
 
 
 def _quantile(sorted_vals, q: float) -> float:

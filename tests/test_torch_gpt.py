@@ -183,5 +183,13 @@ def test_seeded_init_is_reproducible_and_configs_match_jax():
 @pytest.mark.parametrize("kw", [dict(moe_experts=2), dict(lora_capacity=2),
                                 dict(sequence_parallel="ring")])
 def test_unported_configs_raise(kw):
+    if "moe_experts" in kw:
+        # ported since the MoE slice: the config builds MoELayer blocks
+        from paddle_tpu_torch.moe import MoELayer
+
+        net = GPTForCausalLM(GPTConfig(**TINY, **kw), device="cpu")
+        assert all(isinstance(b.mlp, MoELayer) for b in net.gpt.blocks)
+        assert net.gpt.blocks[0].mlp.num_experts == 2
+        return
     with pytest.raises(UnimplementedError, match="ROADMAP"):
         GPTForCausalLM(GPTConfig(**TINY, **kw), device="cpu")

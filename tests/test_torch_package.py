@@ -57,6 +57,9 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
     assert "paddle_tpu_torch.hapi.model" in mods
     assert "paddle_tpu_torch.ops.flash_attention" in mods
     assert "paddle_tpu_torch.nn.functional.attention" in mods
+    assert "paddle_tpu_torch.ops.grouped_matmul" in mods
+    assert "paddle_tpu_torch.moe.layer" in mods
+    assert "paddle_tpu_torch.moe.stats" in mods
     assert [m for m in mods if _forbidden(m)] == []
 
 

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Where the device time of the port's paged serving goes, on one card.
 
-    python3 tools/torch_serve_profile.py [--quantized int8|fp8]
+    python3 tools/torch_serve_profile.py [--quantized int8|fp8 | --moe]
 
 Serves ``chip_smoke.py``'s workload (``GPTForCausalLM(gpt_small())``,
 seeded random weights, 16 requests through ``GenerationEngine`` with
 batch 8, buckets 16/48, page 16, speculative_k 4; with ``--quantized``
-through the int8 or fp8 engine) once to warm up, then once more under ``torch.profiler`` (CPU + CUDA activities), and prints:
+through the int8 or fp8 engine; with ``--moe`` the MoE model of phase M4,
+``gpt_small(moe_experts=8, moe_top_k=2, moe_capacity_factor=8.0)``)
+once to warm up, then once more under ``torch.profiler`` (CPU + CUDA
+activities), and prints:
 
 * the window's wall time and the device-busy share (summed device time of
   every kernel and copy over the wall time — one stream, so no overlap);
 * device time by kernel, largest first, grouped into the port's
-  ``paged_flash_decode`` and ``quantized_matmul`` kernels, matrix
-  products and everything else.
+  ``paged_flash_decode``, ``quantized_matmul`` and ``grouped_matmul``
+  kernels, matrix products and everything else.
 
 Numbers under the profiler run slower than ``chip_smoke.py``'s; read the
 shares, not the absolute times.  Exits non-zero without a card.
@@ -33,6 +36,9 @@ def _group(name: str) -> str:
         return "paged_flash_decode"
     if "qmm_kernel" in name:
         return "quantized_matmul"
+    if any(k in name for k in ("gmm_bf16_kernel", "gmm_f32_kernel",
+                               "gmm_f32_small_kernel")):
+        return "grouped_matmul"
     low = name.lower()
     if "gemm" in low or "cutlass" in low or "matmul" in low:
         return "matmul"
@@ -43,8 +49,12 @@ def _group(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--quantized", choices=("int8", "fp8"), default=None,
-                    help="profile the int8 or fp8 engine (default: float)")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--quantized", choices=("int8", "fp8"), default=None,
+                       help="profile the int8 or fp8 engine (default: "
+                       "float)")
+    which.add_argument("--moe", action="store_true",
+                       help="profile the MoE model's engine")
     opts = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -59,8 +69,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu = cs.gpu_line()
-    model = GPTForCausalLM(gpt_small(dropout=0.0), device="cuda",
-                           generator=torch.Generator().manual_seed(cs.SEED))
+    if opts.moe:
+        model = cs.moe_model(torch, "float32",
+                             moe_capacity_factor=cs.MOE_SERVE_CF)
+    else:
+        model = GPTForCausalLM(gpt_small(dropout=0.0), device="cuda",
+                               generator=torch.Generator().manual_seed(
+                                   cs.SEED))
     reqs = cs.requests()
     with GenerationEngine(model, name="profile", quantized=opts.quantized,
                           **cs.ENGINE) as eng:
@@ -89,7 +104,8 @@ def main() -> int:
         rows.append((float(us), e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile[{gpu}]: engine {opts.quantized or 'float'}, window "
+    kind = "moe" if opts.moe else opts.quantized or "float"
+    print(f"profile[{gpu}]: engine {kind}, window "
           f"{wall_us / 1e3:.1f} ms, "
           f"{admits} admission calls + {steps} decode steps, device busy "
           f"{busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% of the window")

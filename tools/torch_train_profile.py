@@ -2,7 +2,7 @@
 """Where the device time of the port's training step goes, on one card.
 
     python3 tools/torch_train_profile.py \
-        [--model bert|gpt|both|resnet50|gpt_long|gpt_long_train]
+        [--model bert|gpt|both|resnet50|gpt_long|gpt_long_train|gpt_moe]
 
 Builds ``chip_smoke.py``'s training workloads — BERT-base bf16
 pretraining at batch 256 x 128 with 20 masked positions and
@@ -36,6 +36,16 @@ mean ``eval_batch`` time over ``--steps`` calls from CUDA events, then one
 trained at 2 x 8192 with ``AdamW(1e-4, weight_decay=0.01,
 multi_precision=True)``, its attention through the flash forward and the
 dq and dk / dv backward kernels; phases and profile as for training.
+``gpt_moe`` is ``chip_smoke.py`` phase M2's step: ``gpt_small(
+moe_experts=8, moe_top_k=2, dropout=0.0)`` in bf16 at 8 x 1024 with the
+same optimizer, every expert FFN through ``grouped_matmul``; besides the
+groups by kernel name it prints the device time by step of the model: the
+tool wraps the MoE layer's router, dispatch, expert FFN and combine and
+the attention forward in ``torch.profiler.record_function`` ranges (the
+model itself carries none) and charges each backward kernel to the range
+of the forward op its autograd node came from (the profiler's sequence
+numbers); the expert matmuls' backward (``_GroupedMatmulBackward``, the
+two masked products in plain PyTorch) and AdamW are groups of their own.
 
 Numbers under the profiler run slower than ``chip_smoke.py``'s; read the
 shares, not the absolute times.  Exits non-zero without a card.
@@ -51,6 +61,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
+    ("grouped_matmul", ("gmm_bf16_kernel", "gmm_f32_kernel",
+                        "gmm_f32_small_kernel")),
     ("flash_attention", ("flash_fwd_",)),
     ("flash_attention_bwd_dq", ("flash_bwd_dq_",)),
     ("flash_attention_bwd_dkv", ("flash_bwd_dkv_",)),
@@ -89,6 +101,15 @@ def build(torch, which):
                                          gpt_small)
 
     ptt.seed(cs.SEED)
+    if which == "gpt_moe":
+        net = cs.moe_model(torch, "bfloat16")
+        opt = ptt.optimizer.AdamW(1e-4, weight_decay=0.01,
+                                  multi_precision=True)
+        model = ptt.Model(net).prepare(optimizer=opt, loss=net.loss)
+        ids = np.random.RandomState(cs.SEED + 41).randint(
+            0, 50304, size=(cs.MOE_B, cs.MOE_S)).astype(np.int32)
+        return (f"gpt_small moe {cs.MOE_E} experts top-{cs.MOE_K} bf16 train "
+                f"{cs.MOE_B}x{cs.MOE_S}", model, [ids], [ids])
     if which == "gpt_long_train":
         net = cs.long_context_model(torch, "bfloat16")
         opt = ptt.optimizer.AdamW(1e-4, weight_decay=0.01,
@@ -168,7 +189,80 @@ def eval_ms(torch, model, inputs, labels, steps):
     return ev[0].elapsed_time(ev[1]) / steps
 
 
-def profile_step(torch, run, inputs, labels):
+#: the tool's record_function ranges over the MoE model's steps
+RANGES = (("MoELayer", "_route", "moe: router"),
+          ("MoELayer", "_dispatch", "moe: dispatch (one-hot products)"),
+          ("MoELayer", "_expert_ffn", "moe: expert FFN (bias, GELU)"),
+          ("MoELayer", "_combine", "moe: combine (one-hot product)"),
+          ("ParallelAttention", "forward", "attention"))
+_BWD = "autograd::engine::evaluate_function: "
+
+
+def label_ranges():
+    """Wrap each of RANGES in a ``record_function`` of its label."""
+    from torch.profiler import record_function
+
+    from paddle_tpu_torch.models.gpt import ParallelAttention
+    from paddle_tpu_torch.moe import MoELayer
+
+    owners = {"MoELayer": MoELayer, "ParallelAttention": ParallelAttention}
+    for owner, name, label in RANGES:
+        cls = owners[owner]
+        fn = getattr(cls, name)
+
+        def wrapped(*a, _fn=fn, _label=label, **k):
+            with record_function(_label):
+                return _fn(*a, **k)
+
+        setattr(cls, name, wrapped)
+
+
+def by_range(events):
+    """Device ms by model step: each kernel goes to the innermost labelled
+    range around the op that launched it; a backward kernel to its
+    autograd node's forward range (by sequence number), ``grouped_matmul``
+    backward and AdamW to groups of their own, the port's kernels to
+    their names; the rest to "other"."""
+    labels = {label for _, _, label in RANGES}
+
+    def chain(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    seq_label = {}
+    for e in events:
+        if getattr(e, "sequence_nr", -1) >= 0 and not e.name.startswith(
+                _BWD):
+            lab = next((a.name for a in chain(e) if a.name in labels), None)
+            if lab is not None:
+                seq_label.setdefault(e.sequence_nr, lab)
+    out = {}
+    for e in events:
+        for k in e.kernels:
+            if k.name in labels:  # the range itself on the device timeline
+                continue
+            group = _group(k.name)
+            if group in ("elementwise/other", "matmul", "softmax",
+                         "reduction", "copy"):
+                group = "other"
+                for a in chain(e):
+                    if a.name in labels:
+                        group = a.name
+                        break
+                    if a.name.startswith(_BWD):
+                        if "_GroupedMatmulBackward" in a.name:
+                            group = "grouped_matmul backward (masked products)"
+                        elif a.sequence_nr in seq_label:
+                            group = seq_label[a.sequence_nr] + " backward"
+                        break
+            g = out.setdefault(group, [0.0, 0])
+            g[0] += k.duration
+            g[1] += 1
+    return out
+
+
+def profile_step(torch, run, inputs, labels, ranges=False):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -178,16 +272,18 @@ def profile_step(torch, run, inputs, labels):
         run(inputs, labels)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    ranges_on_device = {label for _, _, label in RANGES}
     rows = []
     for e in prof.key_averages():
-        if "CUDA" not in str(e.device_type):
+        if ("CUDA" not in str(e.device_type)
+                or e.key in ranges_on_device):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
         rows.append((float(us), e.count, e.key))
     rows.sort(reverse=True)
-    return wall_us, rows
+    return wall_us, rows, by_range(prof.events()) if ranges else None
 
 
 def main() -> int:
@@ -195,7 +291,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=("bert", "gpt", "both", "resnet50",
-                                        "gpt_long", "gpt_long_train"),
+                                        "gpt_long", "gpt_long_train",
+                                        "gpt_moe"),
                     default="both")
     ap.add_argument("--steps", type=int, default=5,
                     help="steps averaged by the phase timing")
@@ -227,7 +324,10 @@ def main() -> int:
                   f"backward {bwd:.2f} ({100 * bwd / step:.1f}%) + "
                   f"optimizer {opt:.2f} ({100 * opt / step:.1f}%), mean "
                   f"of {args.steps} steps")
-        wall_us, rows = profile_step(torch, run, inputs, labels)
+        if which == "gpt_moe":
+            label_ranges()
+        wall_us, rows, steps = profile_step(torch, run, inputs, labels,
+                                            ranges=which == "gpt_moe")
         busy = sum(r[0] for r in rows)
         print(f"profile[{gpu}] {label}: one {run.__name__} under the "
               f"profiler {wall_us / 1e3:.1f} ms, device busy "
@@ -240,6 +340,11 @@ def main() -> int:
         for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
             print(f"profile[{gpu}] {label}: {g:22s} {us / 1e3:9.2f} ms "
                   f"device ({100 * us / busy:5.1f}% of busy), {n} launches")
+        for g, (us, n) in sorted((steps or {}).items(),
+                                 key=lambda kv: -kv[1][0]):
+            print(f"profile[{gpu}] {label}: by step: {g:42s} "
+                  f"{us / 1e3:9.2f} ms device ({100 * us / busy:5.1f}% of "
+                  f"busy), {n} launches")
         for us, n, name in rows[:15]:
             print(f"profile:   {us / 1e3:9.3f} ms  x{n:<6d} {name[:110]}")
         del model
