@@ -55,7 +55,8 @@ Quantized serving (run between phases 5 and 6, on the model of phase 4):
 Q1. ``quantized_matmul`` kernel vs plain at the path's four ``(K, N)``
     pairs and M in {8, 40, 384}, int8 and fp8: the int8 accumulator
     (scale 1, bias 0) and the int8 output bit-equal; fp8 within rtol 1e-4 /
-    atol 1e-4 x max|out| (float32 sums in another order);
+    atol 1e-4 x max|out| (float32 sums in another order), each fp8
+    shape's error printed as its share of that tolerance;
 Q2. ``paged_flash_decode`` over int8 and fp8 pools with their scale planes
     vs the plain version at T = 1, 5, 16, 48, geometry as phase 3;
 Q3. the phase-4 requests through ``GenerationEngine(quantized="int8")`` and
@@ -69,8 +70,12 @@ Q3. the phase-4 requests through ``GenerationEngine(quantized="int8")`` and
     logit difference; a flip at a margin above tau fails the run);
 Q4. timing: both kernels, their plain versions and the library calls
     (``torch._int_mm`` where M > 16, ``torch._scaled_mm``; gather +
-    dequantize + ``scaled_dot_product_attention``) beside the bytes
-    bound, and the float / int8 / fp8 engines side by side.
+    dequantize + ``scaled_dot_product_attention``) beside the bound, and
+    the float / int8 / fp8 engines side by side; ``quantized_matmul`` at
+    all four linears x M in {8, 40, 384} x both modes, its time and the
+    library's the device time of a CUDA graph of the calls (the eager
+    call, bounded by its Python, beside it), with the achieved GB/s and
+    TOP/s.
 
 ResNet-50 training, ``bench.py``'s config 2 (after phase 10):
 
@@ -107,7 +112,8 @@ Long-context GPT inference (after R5):
 L1. ``flash_attention`` (kernel 4) against its plain version at head_dim
     64, 128 and 256, float32 and bf16, causal and not, ragged S and K,
     K > S, a non-aligned and a negative ``q_position_offset`` (rows with
-    no valid key exactly 0 / lse -inf): out within rtol 1e-5 / atol 2e-5
+    no valid key exactly 0 / lse -inf), S = 127 and 129 against the bf16
+    kernel's 128-row q tile: out within rtol 1e-5 / atol 2e-5
     (float32) or, bf16 (P is rounded to bf16 for the P.V product), within
     2e-2 of the element plus 2e-2 of its reference row's RMS; lse within
     1e-5 (float32) / 1e-3 (bf16); then at the slice's shape;
@@ -344,6 +350,45 @@ def time_ms(torch, fn, pools, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_GRAPH_STREAM = None
+
+
+def graph_ms(torch, fn, pools, iters):
+    """Mean device ms per call: ``iters`` calls rotating through ``pools``,
+    captured once in a CUDA graph and replayed three times between CUDA
+    events.  The host's per-call work (argument checks, allocation, the
+    ctypes call) is left out: what the call costs the card, where
+    :func:`time_ms` is bounded below by the Python that launches it
+    (~0.017 ms a call for ``quantized_matmul``)."""
+    global _GRAPH_STREAM
+    if _GRAPH_STREAM is None:
+        # one capture stream for every call: cuBLAS keeps a workspace per
+        # stream it ran on (the library yardsticks), so a new stream per
+        # call would leave ~30 MiB allocated each time
+        _GRAPH_STREAM = torch.cuda.Stream()
+    side = _GRAPH_STREAM
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(*pools[i % len(pools)])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for i in range(iters):
+            fn(*pools[i % len(pools)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * iters)
 
 
 def check_kernels(torch):
@@ -702,6 +747,12 @@ def check_quantized_matmul(torch):
                     tol = dict(rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
                     torch.testing.assert_close(out, ref, **tol)
                     torch.testing.assert_close(pub, pref, **tol)
+                    share = float(((out - ref).abs() / (
+                        tol["atol"] + tol["rtol"] * ref.abs())).max())
+                    log(f"kernel quantized_matmul fp8 {name} [{M}, {K}] @ "
+                        f"[{K}, {N}]: max_abs_err={err:.3e}, {share:.3f} of "
+                        f"the tolerance (rtol=1e-4, atol=1e-4 x max|out| = "
+                        f"{tol['atol']:.3e})")
                 worst = max(worst, err)
         errs[mode] = worst
         log(f"kernel quantized_matmul {mode} at {list(QMM_KN.values())} x M "
@@ -738,7 +789,9 @@ def check_kernels_quantized(torch):
 
 def timing_quantized(torch, gpu):
     """Phase Q4: both kernels over quantized operands — kernel, plain and
-    library times beside the bytes bound."""
+    library times beside the bound; ``quantized_matmul`` at all four
+    linears of the path x M in QMM_M, both modes, with the achieved bytes
+    and operation rates."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.paged_attention import (
@@ -756,6 +809,7 @@ def timing_quantized(torch, gpu):
 
     gen = torch.Generator().manual_seed(SEED + 7)
     rows = {}
+    before = torch.cuda.memory_allocated()
     for mode, qdt in zip(QUANT_MODES, (torch.int8, torch.float8_e4m3fn)):
         for T in (1, 5):
             q, pools, tab, mask, tab_raw = geometry(torch, T, torch.float32,
@@ -790,13 +844,16 @@ def timing_quantized(torch, gpu):
             xq, wq, scale_a=one, scale_b=one, out_dtype=torch.float32)
 
     for mode in QUANT_MODES:
-        for name in ("fc1", "fc2"):
+        for name in QMM_KN:
             K, N = QMM_KN[name]
             for M in QMM_M:
                 args = [a[:4] for a in qmm_inputs(
                     torch, mode, M, K, N, gen,
                     n_copies=-(-64_000_000 // (K * N)))]
-                ms = time_ms(torch, _matmul_kernel, args, 200)
+                # device time from a CUDA graph; the eager call, bounded
+                # below by its Python, beside it
+                ms = graph_ms(torch, _matmul_kernel, args, 100)
+                call = time_ms(torch, _matmul_kernel, args, 200)
                 plain = time_ms(torch, _matmul_ref, args, 20)
                 lib, why = None, "none: torch._int_mm needs M > 16"
                 fn = library_fn(mode, M)
@@ -807,7 +864,7 @@ def timing_quantized(torch, gpu):
                     else:
                         largs = args
                     try:
-                        lib = time_ms(torch, fn, largs, 50)
+                        lib = graph_ms(torch, fn, largs, 50)
                     except RuntimeError as e:  # the yardstick, not the port
                         why = f"none: {str(e).splitlines()[0][:120]}"
                     del largs
@@ -818,15 +875,25 @@ def timing_quantized(torch, gpu):
                 b_by = "bytes" if t_b >= t_o else "operations"
                 lib_s = f"{lib:.4f} ms" if lib is not None else why
                 log(f"timing[{gpu}] quantized_matmul {mode} {name} [{M}, "
-                    f"{K}] @ [{K}, {N}]: kernel {ms:.4f} ms, plain "
+                    f"{K}] @ [{K}, {N}]: kernel {ms:.4f} ms (graph; eager "
+                    f"call {call:.4f} ms) = "
+                    f"{nbytes / ms / 1e6:.1f} GB/s and {ops / ms / 1e9:.2f} "
+                    f"TOP/s (bound: {HBM_BYTES_PER_S / 1e9:.0f} GB/s, "
+                    f"{TENSOR_8BIT_OPS / 1e12:.0f} TOP/s), plain "
                     f"{plain:.4f} ms, library ("
                     f"{'_int_mm' if mode == 'int8' else '_scaled_mm'}, "
                     f"product only) {lib_s}, bound {b_ms:.5f} ms by {b_by} "
-                    f"({nbytes} bytes)")
+                    f"({nbytes} bytes, {ops:.4g} ops)")
                 rows[("qmm", mode, name, M)] = dict(
-                    ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                    bound_by=b_by)
+                    ms=ms, call_ms=call, plain_ms=plain, library_ms=lib,
+                    bound_ms=b_ms, bound_by=b_by)
                 del args
+    # the yardsticks' cuBLAS workspaces would otherwise stay allocated and
+    # count in every later phase's peak device memory
+    torch.cuda.synchronize()
+    getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+    log(f"timing_quantized: device memory allocated {before} bytes "
+        f"before, {torch.cuda.memory_allocated()} after")
     return rows
 
 
@@ -1516,9 +1583,11 @@ LC_EVALS, LC_PREDICTS = 2, 1
 LC_PARITY = dict(B=1, S=4096, layers=2)
 BENCH_OP = (1, 8, 32768, 128)
 # (S, K, causal, q_position_offset): ragged S and K, K > S, an offset that
-# is not block-aligned, a negative one (rows with no valid key)
+# is not block-aligned, a negative one (rows with no valid key); S below
+# the bf16 kernel's 128-row q tile, and one row past it
 FLASH_CASES = ((1000, 1000, True, 0), (777, 1290, False, 0),
-               (700, 1300, True, 517), (513, 400, True, -130))
+               (700, 1300, True, 517), (513, 400, True, -130),
+               (127, 127, True, 0), (129, 257, True, 128))
 # the kernel against its plain version: float32 sums in another order;
 # bf16 rounds P to bf16 for the P.V product (the plain version keeps it
 # float32) and the output to bf16.  A long row averages thousands of values,
@@ -2811,14 +2880,20 @@ def main() -> int:
             **({"wide_variant": wide} if name == "layernorm_residual"
                else {})))
     # the decode shape of the widest linear (fc1, M = 8), int8; launches
-    # of the int8 and fp8 engines together
+    # of the int8 and fp8 engines together; fp8 and fc2's decode and
+    # admission shapes beside them
     kernels.append(dict(
         name="quantized_matmul", route="cuda",
         source="paddle_tpu_torch/ops/csrc/quantized_matmul.cu",
         replaces="paddle_tpu/ops/quantized_matmul.py:70",
         launches=sum(r["qmm_launches"] for r in qserved.values()),
         max_abs_err=max(qmm_errs.values()),
-        **qrows[("qmm", "int8", "fc1", 8)]))
+        **qrows[("qmm", "int8", "fc1", 8)],
+        other_shapes={f"{mode} {name} M={M}": qrows[("qmm", mode, name, M)]
+                      for mode, name, M in (
+                          ("fp8", "fc1", 8), ("fp8", "fc2", 8),
+                          ("fp8", "fc2", 384), ("int8", "fc2", 8),
+                          ("int8", "fc2", 384))}))
     # ResNet-50 config 2: launches of the timed training steps, numbers at
     # layer1's conv3 shape (the largest), bf16
     k7_err = max(e for (_, dt), e in rerrs.items() if dt == "bfloat16")

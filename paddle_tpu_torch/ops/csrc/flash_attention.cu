@@ -16,30 +16,63 @@
 // What bounds it on an H100: operations.  A call does 4 * (valid q-k pairs)
 // * hd flops on 2 * hd * (S + 2K) bytes of q, k, v, out: at S = K = 8192,
 // hd 64 that is ~4000 flops a byte, far above the card's ~295 flop/byte
-// ridge in bf16.  The [S, K] score matrix never exists in device memory.
+// ridge in bf16, so the goal is the tensor cores' rate: 989 TFLOP/s bf16,
+// reached only through wgmma.  The [S, K] score matrix never exists in
+// device memory.
 //
-// What this first design does about it: one 128-thread block per
-// (batch x head, 64-row q tile).  The q tile is staged in shared memory
-// once; k and v stream through shared memory one BK-key tile at a time,
-// and each tile's scores, the online softmax (running max and sum per row,
-// one rescale of the accumulator per tile) and the P.V product stay in
-// registers.  bf16: both products on the tensor cores with mma.sync
-// m16n8k16 (bf16 in, float32 accumulators), each warp owning 16 q rows;
-// the float32 probabilities are rounded to bf16 for the P.V product (the
-// TPU kernel multiplies them in float32), v's fragments come transposed
-// by ldmatrix.trans.  float32: FMAs on the CUDA cores (TF32 is off by the
-// port's rule), each thread owning 4 rows x (BK/8 keys, hd/8 columns).
-// Causal tiles wholly above the diagonal are never visited, and the
+// What the design does about it.  bf16 (the long-context path):
+//   * one block per (batch x head, 128-row q tile): two consumer
+//     warpgroups of 64 q rows share every k / v tile, so each byte of k
+//     and v read serves 128 rows;
+//   * k / v reach shared memory through a ring of stages filled by TMA
+//     (cp.async.bulk.tensor, one tensor map per operand and call, built on
+//     the host with libcuda's cuTensorMapEncodeTiled) from one thread
+//     of a producer warpgroup, with a full / empty mbarrier pair a stage:
+//     tile j + 1 lands while tile j is multiplied, and the consumers issue
+//     no load;
+//   * s = q . k^T is a wgmma with both operands in shared memory (K-major,
+//     as hd is contiguous) and o += p . v a wgmma with p from registers
+//     (the float32 probabilities rounded to bf16, as the first design did;
+//     the TPU kernel multiplies them in float32) and v in shared memory,
+//     MN-major through the transpose bit.  The shared layouts are TMA's
+//     128-byte swizzle, which the wgmma descriptors name: [hd / 64] atoms
+//     of 64 columns, 128-byte rows, 8-row groups 1024 bytes apart;
+//   * the online softmax (running max and sum per row, one rescale of the
+//     accumulator per tile) stays in registers, in wgmma's accumulator
+//     layout, and is software-pipelined as in FlashAttention-3: tile
+//     j + 1's s = q . k^T is issued before tile j's o += p . v, and its
+//     softmax runs while that product is still in flight;
+//   * exponentials on the SFU's ex2.approx.ftz (a p below 2^-126 of its
+//     row's largest is 0; exp2f's subnormal handling cost 15% at hd 64,
+//     where the SFU's rate, not the tensor cores', bounds the softmax);
+//   * setmaxnreg moves registers from the producer warpgroup (40 a
+//     thread) to the consumers (232): o, s and p of a 64-row warpgroup;
+//   * key tiles (shared memory of 227 KB): 128 keys at hd 64 (q 16 KB,
+//     3 stages of 32 KB) and hd 128 (q 32 KB, 2 stages of 64 KB); 32 keys
+//     at hd 256 (q 64 KB, 3 stages of 32 KB), where o alone is 128
+//     registers a thread.
+// Built in steps, each timed at the slice's shape [2, 12, 8192, 64] bf16
+// causal on an H100 in one call (tools/torch_kernel_ab.py; PERF.md
+// section 6): the first design (64-row tiles, 4 warps, synchronous
+// staging, mma.sync m16n8k16) 1.35 ms; 128-row tiles on a two-stage
+// cp.async ring, still mma.sync, 1.24 ms; wgmma on the TMA ring with the
+// register hand-over 0.77 ms; the pipelined softmax 0.72 ms;
+// ex2.approx.ftz 0.60 ms.
+// float32 (the parity route): one 128-thread block per 64-row q tile, k
+// and v staged through padded shared rows, FMAs on the CUDA cores (TF32 is
+// off by the port's rule), each thread owning 4 rows x (BK / 8 keys,
+// hd / 8 columns).
+// Both: causal tiles wholly above the diagonal are never visited, and the
 // blocks of the longest rows start first: the card's analog of the TPU's
-// triangle grid, which is a schedule, not semantics.  Shared rows are
-// padded so fragment loads hit distinct banks.  Not done yet (later
-// work): wgmma, TMA and a producer warp double-buffering k / v, a
-// persistent schedule.
+// triangle grid, which is a schedule, not semantics.  Not done yet (later
+// work): a persistent schedule, 192-row tiles at hd 64.  The warpgroups
+// do not take turns to issue (named-barrier ping-pong measured slower).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (paddle_tpu_torch/ops/_build.py); plain C entry,
 // bound with ctypes.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,8 +80,9 @@
 
 namespace {
 
-constexpr int kBQ = 64;                 // q rows per block
-constexpr int kThreads = 128;
+constexpr int kBQ = 64;                 // q rows per block, float32
+constexpr int kThreads = 128;           // threads per block, float32
+constexpr int kBQ16 = 128;              // q rows per block, bf16
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -67,10 +101,11 @@ struct Params {
 
 // Key tiles the q tile starting at row q0 visits: all of them, or, causal,
 // those not wholly above the diagonal of its last real row.
-__device__ __forceinline__ int key_tiles(const Params& p, int q0, int bk) {
+__device__ __forceinline__ int key_tiles(const Params& p, int q0, int bq,
+                                         int bk) {
   int n = (p.K + bk - 1) / bk;
   if (p.causal) {
-    const long long last = p.q_off + min(q0 + kBQ, p.S) - 1;
+    const long long last = p.q_off + min(q0 + bq, p.S) - 1;
     if (last < 0) return 0;
     const long long t = last / bk + 1;
     if (t < n) n = (int)t;
@@ -84,10 +119,25 @@ __device__ __forceinline__ bool key_ok(const Params& p, long long qpos,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma on a TMA ring
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+constexpr int kConsumers = 2 * 128;          // two warpgroups of 64 q rows
+constexpr int kThreadsWg = kConsumers + 128;  // + the producer warpgroup
+// registers a thread after setmaxnreg: the producer gives its share to the
+// consumers (40 x 128 + 232 x 256 <= 65536)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 2^x on the SFU, subnormal results flushed to 0 (p values below 2^-126
+// of the row's largest add nothing a bf16 P.V product can keep)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -95,158 +145,363 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d += a (16x16, row-major) . b (16x8, column-major); bf16 in, f32 out.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
 }
 
-// Two transposed 8x8 bf16 tiles: lanes 0-7 address the rows of the first,
-// lanes 8-15 those of the second.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
-// Copy rows [r0, r0 + rows) of a [n, HD] bf16 slab into shared rows of
-// stride LD, 16 bytes a thread; rows at or past n are zero.
-template <int HD, int LD>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src, int r0,
-                                           int rows, int n) {
-  constexpr int CH = HD / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += kThreads) {
-    const int r = i / CH, c = (i - r * CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * HD + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
   }
 }
 
-// Each warp owns 16 q rows: thread (g = lane / 4, t = lane % 4) holds rows
-// g and g + 8 of them, columns 2t, 2t + 1 of every 8-wide accumulator tile
-// (the m16n8 fragment layout).
-template <int HD, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(Params p) {
-  constexpr int LD = HD + 8;  // +16 bytes: fragment loads hit distinct banks
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kBQ * LD;
-  __nv_bfloat16* Vs = Ks + BK * LD;
+// One box of a 3-D tensor map ({column, row, batch x head}) into shared
+// memory, completing on `bar`; rows past the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
 
+// A wgmma shared-memory descriptor for the 128-byte swizzle: 8-row groups
+// of 128-byte rows `sbo` bytes apart; `lbo`: the stride between 64-column
+// atoms of an MN-major operand (unused for K-major).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Until at most N committed wgmma groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers a wgmma owns
+// across its issue or its wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// d (+)= a . b^T over one k16 step: a = 64 q rows, b = 32 k rows, both
+// K-major in shared memory; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a . b^T over one k16 step: a = 64 q rows, b = 128 k rows, both
+// K-major in shared memory; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += a . b over one k16 step: a = p's bf16 fragments in registers,
+// b = 16 keys x 64 columns of v, MN-major in shared memory (transposed).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += a . b over one k16 step: a = p's bf16 fragments in registers,
+// b = 16 keys x 128 columns of v, MN-major in shared memory (transposed).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
+      "}, {%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 128) wgmma_ss_n128(d, da, db, scale_d);
+  else wgmma_ss_n32(d, da, db, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n64(d, a, db);
+}
+
+// The consumer warpgroups of flash_fwd_bf16_kernel: q0's 128 rows against
+// the n_kt key tiles of the ring, software-pipelined as FlashAttention-3
+// does within a warpgroup: tile j + 1's s = q . k^T is issued, o is
+// rescaled for tile j and tile j's o += p . v issued; tile j + 1's softmax
+// runs once its scores land, while p . v is still in flight, and its p is
+// packed once p . v is done.
+template <int HD, int BK, int ST>
+__device__ __forceinline__ void consume(const Params& p,
+                                        const unsigned char* Qs,
+                                        const unsigned char* Ring,
+                                        uint64_t* full, uint64_t* empty,
+                                        uint64_t* qbar, int q0, int n_kt) {
+  constexpr int KV_BYTES = BK * HD * 2;     // one of k, v in a stage
+  constexpr int ON = HD > 128 ? 128 : HD;   // columns of one P.V wgmma
+  constexpr int OH = HD / ON;
   const int bh = blockIdx.y;
-  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * kBQ;
+  const int wg = threadIdx.x >> 7;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* q =
-      static_cast<const __nv_bfloat16*>(p.q) + (size_t)bh * p.S * HD;
-  const __nv_bfloat16* k =
-      static_cast<const __nv_bfloat16*>(p.k) + (size_t)bh * p.K * HD;
-  const __nv_bfloat16* v =
-      static_cast<const __nv_bfloat16*>(p.v) + (size_t)bh * p.K * HD;
-
-  stage_bf16<HD, LD>(Qs, q, q0, kBQ, p.S);
-
   const int row0 = warp * 16 + g;  // tile rows row0 and row0 + 8
   const long long qpos[2] = {p.q_off + q0 + row0, p.q_off + q0 + row0 + 8};
-  float o[HD / 8][4];
+  float o[OH][ON / 2];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int h = 0; h < OH; ++h)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    for (int i = 0; i < ON / 2; ++i) o[h][i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const unsigned char* qa = Qs + wg * 64 * 128;  // this warpgroup's rows
 
-  const int n_kt = key_tiles(p, q0, BK);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile is consumed
-    stage_bf16<HD, LD>(Ks, k, k0, BK, p.K);
-    stage_bf16<HD, LD>(Vs, v, k0, BK, p.K);
-    __syncthreads();
+  // s = q . k^T for tile j: hd / 16 k-steps, each 32 bytes further into an
+  // atom; issued, not waited for
+  float s[BK / 2];
+  auto issue_s = [&](int j) {
+    const unsigned char* kb = Ring + (j % ST) * 2 * KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<BK>(s,
+                   sw128_desc(qa + (kk >> 2) * kBQ16 * 128 + (kk & 3) * 32,
+                              16, 1024),
+                   sw128_desc(kb + (kk >> 2) * BK * 128 + (kk & 3) * 32, 16,
+                              1024),
+                   kk > 0);
+  };
 
-    float s[BK / 8][4];
+  // tile j's softmax on s: mask (key k0 + c is valid for row r when
+  // c < lim[r]: before K and, causal, at or before the row's position),
+  // scale to base 2, running max and sum, p = exp2 in place; alpha
+  // rescales o
+  float alpha[2];
+  auto softmax = [&](int j) {
+    const int k0 = j * BK;
+    int lim[2];
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const __nv_bfloat16* qa = Qs + row0 * LD + kk * 16 + 2 * t;
-      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * LD), ld32(qa + 8),
-                             ld32(qa + 8 * LD + 8)};
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        const __nv_bfloat16* kb = Ks + (n * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_bf16(s[n], a, ld32(kb), ld32(kb + 8));
-      }
+    for (int r = 0; r < 2; ++r) {
+      long long L = p.K - k0;
+      if (p.causal && qpos[r] - k0 + 1 < L) L = qpos[r] - k0 + 1;
+      lim[r] = (int)(L < 0 ? 0 : L > BK ? BK : L);
     }
-
-    // mask, scale to base 2, row max over the 4 threads of a quad
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * t + (e & 1);
-        s[n][e] = key_ok(p, qpos[e >> 1], key) ? s[n][e] * p.scale_log2
-                                               : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        float& x = s[4 * n + e];
+        x = n * 8 + 2 * t + (e & 1) < lim[e >> 1] ? x * p.scale_log2
+                                                   : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-    float msafe[2], alpha[2];
+    float msafe[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
       const float m_new = fmaxf(m[r], mx[r]);
       msafe[r] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[r] = m[r] == -INFINITY ? 0.f : exp2f(m[r] - msafe[r]);
+      alpha[r] = m[r] == -INFINITY ? 0.f : ex2(m[r] - msafe[r]);
       m[r] = m_new;
     }
     float ls[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f(s[n][e] - msafe[e >> 1]);
-        ls[e >> 1] += s[n][e];
-      }
+    for (int i = 0; i < BK / 2; ++i) {
+      s[i] = ex2(s[i] - msafe[(i >> 1) & 1]);
+      ls[(i >> 1) & 1] += s[i];
+    }
     // per-thread partial row sums; the quad's are added at the end
     l[0] = l[0] * alpha[0] + ls[0];
     l[1] = l[1] * alpha[1] + ls[1];
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
+  };
 
-    // o += P . V: two adjacent score tiles are one A fragment
+  // p of the tile whose p . v is next, the register A operand (two
+  // adjacent 8-key blocks a k-step)
+  uint32_t pf[BK / 16][4];
+  auto pack = [&]() {
 #pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t a[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                             pack_bf16(s[2 * j][2], s[2 * j][3]),
-                             pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                             pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const __nv_bfloat16* vrow = Vs + (j * 16 + (lane & 15)) * LD;
+    for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, vrow + n * 8);
-        mma_bf16(o[n], a, b0, b1);
-      }
-    }
+      for (int e = 0; e < 4; ++e)
+        pf[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+  };
+  mbar_wait(qbar, 0);
+  if (n_kt > 0) {
+    mbar_wait(&full[0], 0);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    softmax(0);
+    pack();
+  }
+  // o += p . v for tile j: v MN-major, 16 keys (2048 bytes) a k-step, ON
+  // columns (ON / 64 atoms, BK * 128 bytes apart) a wgmma; o is rescaled
+  // for the tile first
+  auto issue_pv = [&](int j) {
+#pragma unroll
+    for (int h = 0; h < OH; ++h)
+#pragma unroll
+      for (int i = 0; i < ON / 2; ++i) o[h][i] *= alpha[(i >> 1) & 1];
+    const unsigned char* vb = Ring + (j % ST) * 2 * KV_BYTES + KV_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int h = 0; h < OH; ++h)
+        wgmma_rs<ON>(o[h], pf[kk],
+                     sw128_desc(vb + h * (ON / 64) * BK * 128 + kk * 2048,
+                                BK * 128, 1024));
+    wgmma_commit();
+  };
+  auto retire_pv = [&](int j) {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < OH; ++h) reg_fence(o[h]);
+    reg_fence(pf);
+    mbar_arrive(&empty[j % ST]);  // this thread is done with tile j's stage
+  };
+  // the steady state, every tile but the last: no branch between a
+  // product's issue and its wait, so the compiler can keep both in flight
+  for (int j = 0; j + 1 < n_kt; ++j) {
+    mbar_wait(&full[(j + 1) % ST], ((j + 1) / ST) & 1);
+    wgmma_fence();
+    issue_s(j + 1);
+    wgmma_commit();
+    issue_pv(j);
+    wgmma_wait<1>();  // tile j + 1's scores; tile j's p . v may still run
+    reg_fence(s);
+    softmax(j + 1);
+    retire_pv(j);
+    pack();
+  }
+  if (n_kt > 0) {
+    issue_pv(n_kt - 1);
+    retire_pv(n_kt - 1);
   }
 
   __nv_bfloat16* out =
@@ -259,12 +514,77 @@ flash_fwd_bf16_kernel(Params p) {
     if (row >= p.S) continue;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<uint32_t*>(out + (size_t)row * HD + n * 8 + 2 * t) =
-          pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    for (int h = 0; h < OH; ++h)
+#pragma unroll
+      for (int n = 0; n < ON / 8; ++n)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row * HD + h * ON + n * 8 +
+                                     2 * t) =
+            pack_bf16(o[h][4 * n + 2 * r] * inv, o[h][4 * n + 2 * r + 1] * inv);
     if (t == 0)
       p.lse[(size_t)bh * p.S + row] =
           l[r] > 0.f ? m[r] * kLn2 + logf(l[r]) : -INFINITY;
+  }
+}
+
+// Shared memory (1024-byte aligned, the swizzle's period): q as
+// [HD / 64][128 rows][64] (a 64-column atom of 128-byte rows, as TMA's
+// 128-byte swizzle writes it), then ST stages of k and v, each
+// [HD / 64][BK][64], then the barriers.  Warps 0-7 are two consumer
+// warpgroups of 64 q rows; warpgroup 2 is the producer: one thread keeps
+// the ring full with TMA, and the warpgroup hands its registers to the
+// consumers (setmaxnreg).  A consumer thread (g = lane / 4, t = lane % 4) of
+// warp w holds rows 16 w + g and + 8, columns 8 j + 2 t, + 1 of every
+// accumulator (wgmma's m64nN layout, one warp's 16 rows the m16n8 one).
+template <int HD, int BK, int ST>
+__global__ void __launch_bounds__(kThreadsWg, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, Params p) {
+  constexpr int NA = HD / 64;               // 128-byte atoms along hd
+  constexpr int Q_BYTES = kBQ16 * HD * 2;
+  constexpr int KV_BYTES = BK * HD * 2;     // one of k, v in a stage
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Ring = Qs + Q_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ring + ST * 2 * KV_BYTES);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
+
+  const int bh = blockIdx.y;
+  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * kBQ16;
+  const int n_kt = key_tiles(p, q0, kBQ16, BK);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumers);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(qbar, Q_BYTES);
+      for (int a = 0; a < NA; ++a)
+        tma_load(Qs + a * kBQ16 * 128, &tq, qbar, 64 * a, q0, bh);
+      for (int j = 0; j < n_kt; ++j) {
+        const int st = j % ST;
+        if (j >= ST) mbar_wait(&empty[st], (j / ST - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * KV_BYTES);
+        unsigned char* kd = Ring + st * 2 * KV_BYTES;
+        for (int a = 0; a < NA; ++a) {
+          tma_load(kd + a * BK * 128, &tk, &full[st], 64 * a, j * BK, bh);
+          tma_load(kd + KV_BYTES + a * BK * 128, &tv, &full[st], 64 * a,
+                   j * BK, bh);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    consume<HD, BK, ST>(p, Qs, Ring, full, empty, qbar, q0, n_kt);
   }
 }
 
@@ -324,7 +644,7 @@ flash_fwd_f32_kernel(Params p) {
     for (int j = 0; j < ND; ++j) o[i][j] = 0.f;
   }
 
-  const int n_kt = key_tiles(p, q0, BK);
+  const int n_kt = key_tiles(p, q0, kBQ, BK);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
@@ -413,29 +733,95 @@ flash_fwd_f32_kernel(Params p) {
 }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, const Params& p, int BH,
-                   cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, size_t smem, int bq, int threads,
+                   const Params& p, int BH, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((p.S + kBQ - 1) / kBQ, BH);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid((p.S + bq - 1) / bq, BH);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int HD, int BK>
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (this
+// library is not linked against libcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult r;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                         cudaEnableDefault,
+                                         &r) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &r) != cudaSuccess)
+      return nullptr;
+#endif
+    return r == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                            : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 [BH, rows, HD] slab as a 3-D tensor map of {64, box_rows, 1} boxes
+// under the 128-byte swizzle; rows past `rows` read as zeros.
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int BH, int rows,
+                       int HD, int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)rows,
+                              (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)HD * 2,
+                                 (cuuint64_t)rows * HD * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int HD, int BK, int ST>
 cudaError_t launch_bf16(const Params& p, int BH, cudaStream_t s) {
-  const size_t smem = (size_t)(kBQ + 2 * BK) * (HD + 8) * 2;
-  return launch(flash_fwd_bf16_kernel<HD, BK>, smem, p, BH, s);
+  CUtensorMap tq, tk, tv;
+  // no key: the k / v maps are never read, but must describe real memory
+  const bool keys = p.K > 0;
+  cudaError_t e = tensor_map(&tq, p.q, BH, p.S, HD, kBQ16);
+  if (e == cudaSuccess)
+    e = tensor_map(&tk, keys ? p.k : p.q, BH, keys ? p.K : p.S, HD, BK);
+  if (e == cudaSuccess)
+    e = tensor_map(&tv, keys ? p.v : p.q, BH, keys ? p.K : p.S, HD, BK);
+  if (e != cudaSuccess) return e;
+  const size_t smem = 1024 + (size_t)kBQ16 * HD * 2 +
+                      (size_t)ST * 2 * BK * HD * 2 + (2 * ST + 1) * 8;
+  auto kernel = flash_fwd_bf16_kernel<HD, BK, ST>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.S + kBQ16 - 1) / kBQ16, BH);
+  kernel<<<grid, kThreadsWg, smem, s>>>(tq, tk, tv, p);
+  return cudaGetLastError();
 }
 
 template <int HD, int BK>
 cudaError_t launch_f32(const Params& p, int BH, cudaStream_t s) {
   const size_t smem = ((size_t)kBQ * (HD + 1) + (size_t)BK * (HD + 1) +
                        (size_t)BK * HD + (size_t)kBQ * (BK + 2)) * 4;
-  return launch(flash_fwd_f32_kernel<HD, BK>, smem, p, BH, s);
+  return launch(flash_fwd_f32_kernel<HD, BK>, smem, kBQ, kThreads, p, BH,
+                s);
 }
 
 }  // namespace
@@ -455,9 +841,9 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
   Params p{q, k, v, out, static_cast<float*>(lse), S, K, q_off,
            causal ? 1 : 0, sm_scale * kLog2e};
   if (dtype == 1) {
-    if (hd == 64) return launch_bf16<64, 64>(p, BH, st);
-    if (hd == 128) return launch_bf16<128, 64>(p, BH, st);
-    if (hd == 256) return launch_bf16<256, 32>(p, BH, st);
+    if (hd == 64) return launch_bf16<64, 128, 3>(p, BH, st);
+    if (hd == 128) return launch_bf16<128, 128, 2>(p, BH, st);
+    if (hd == 256) return launch_bf16<256, 32, 3>(p, BH, st);
   } else if (dtype == 0) {
     if (hd == 64) return launch_f32<64, 64>(p, BH, st);
     if (hd == 128) return launch_f32<128, 64>(p, BH, st);

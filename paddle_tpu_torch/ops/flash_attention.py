@@ -4,13 +4,14 @@
 Attention over ``[B, H, S, hd]`` q and ``[B, H, K, hd]`` k / v without the
 ``[S, K]`` score matrix in device memory, in both directions.  On the card
 the forward is the hand-written CUDA kernel ``ops/csrc/flash_attention.cu``
-(``sm_90a``, built with nvcc on first use, bound with ctypes) — one block
-per (batch x head, 64-row q tile), k / v streamed through shared memory,
-the online softmax in registers, tensor cores for bf16 — and the backward
-is the two kernels of ``ops/csrc/flash_attention_bwd.cu``: dq (a block owns
-a q tile and streams k / v) and dk / dv (a block owns a kv tile and
-streams q / dO), each owning its output tile, so there are no atomics and
-two runs give the same bits.
+(``sm_90a``, built with nvcc on first use, bound with ctypes) — in bf16
+one block per (batch x head, 128-row q tile), k / v streamed by TMA
+through a ring of shared-memory stages, both products on wgmma, the online
+softmax in registers; in float32 64-row tiles on the CUDA cores — and the
+backward is the two kernels of ``ops/csrc/flash_attention_bwd.cu``: dq (a
+block owns a q tile and streams k / v) and dk / dv (a block owns a kv tile
+and streams q / dO), each owning its output tile, so there are no atomics
+and two runs give the same bits.
 
 Semantics (both paths), those of the JAX kernels: scores are float32, from
 upcast q and k, times ``sm_scale`` (default ``1/sqrt(hd)``); keys at or
@@ -342,7 +343,8 @@ def flash_attention_fwd_lse(q, k, v, causal: bool = False, sm_scale=None,
     """Forward-only run returning ``(out, lse)``: out ``[B, H, S, hd]`` in
     q's dtype, lse float32 ``[B, H, S]``.  ``block_q`` / ``block_k`` keep
     the JAX signature; they only schedule the TPU grid, and the card uses
-    the kernel's own tile (64 q rows, 64 keys; 32 at head_dim 256).
+    the kernel's own tiles (bf16: 128 q rows, 128 keys at head_dim 64, 64
+    at 128 and 256; float32: 64 q rows, 64 keys, 32 at head_dim 256).
 
     CPU tensors take :func:`flash_attention_fwd_lse_ref`.  CUDA tensors
     (float32 or bfloat16, head_dim 64, 128 or 256) launch the kernel on the

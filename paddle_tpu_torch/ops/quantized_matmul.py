@@ -15,7 +15,10 @@ low-precision operands and ONE fused epilogue applies the combined
 
 On the card the product and the epilogue are the hand-written CUDA kernel
 ``ops/csrc/quantized_matmul.cu`` (``sm_90a``, built with nvcc on first
-use, bound with ctypes); the activation quantization, the scale folding
+use, bound with ctypes): mma.sync tensor-core products for both branches,
+a 4-stage cp.async ring of 128-deep K tiles, and at small M a split over K
+across a thread-block cluster whose partial sums are added in a fixed
+order (so two runs give the same bits in fp8 too); the activation quantization, the scale folding
 and the cast back to ``x.dtype`` stay PyTorch ops, as they sit outside
 the kernel in the JAX package too.  :func:`quantized_linear_ref` is the
 plain PyTorch version of the same function — the CPU path and the

@@ -271,3 +271,30 @@ def test_kernel_is_deterministic_and_takes_strided_views():
                         causal=True)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# the bf16 kernel's 128-row q tiles (two warpgroups of 64): S below, at
+# one row past, and ragged against the tile, at every head dim, with the
+# causal offsets a chunked or decoding caller passes (0, the end-aligned
+# K - S, a negative one whose first rows see no key)
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("S", [1, 127, 129, 1000])
+@pytest.mark.parametrize("off", ["zero", "end", "negative"])
+def test_kernel_128_row_tile_edges_on_card(hd, S, off):
+    dev = _card()
+    K = S + 37
+    q_off = {"zero": 0, "end": K - S, "negative": -5}[off]
+    gen = torch.Generator().manual_seed(hd + S)
+    q, k, v = (torch.randn(2, 3, n, hd, generator=gen).to(dev, torch.bfloat16)
+               for n in (S, K, K))
+    out, lse = flash_attention_fwd_lse(q, k, v, True, q_position_offset=q_off)
+    ref, ref_lse = flash_attention_fwd_lse_ref(q, k, v, True,
+                                               q_position_offset=q_off)
+    torch.cuda.synchronize()
+    _assert_card_close(out, ref, "bfloat16")
+    dead = torch.isneginf(ref_lse)
+    assert torch.equal(torch.isneginf(lse), dead)
+    assert torch.all(out[dead] == 0)
+    torch.testing.assert_close(lse[~dead], ref_lse[~dead],
+                               **LSE_TOL["bfloat16"])

@@ -291,3 +291,31 @@ def test_kernel_matches_plain_on_card_ragged(mode, M, K, N):
         torch.testing.assert_close(
             out, ref, rtol=1e-4,
             atol=1e-4 * max(float(ref.abs().max()), 1e-6))
+
+
+# the kernel splits K across a thread-block cluster where M is small (fc2's
+# K = 3072 at decode: M = 1, 8, and 13, which takes two n8 tiles) and adds
+# the partial sums in a fixed order, so two launches give the same bits in
+# both modes; M = 384 splits K over the 64 x 64 tiles too
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("M", [1, 8, 13, 384])
+def test_kernel_split_k_matches_plain_and_repeats_bit_equal(mode, M):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    K, N = 3072, 768
+    x, w, b = _inputs(7 * M, M, K, N)
+    tx, tw, tb = (torch.from_numpy(a).cuda() for a in (x, w, b))
+    wq, ws = tslim._quantize_weight(tw, mode)
+    xq, xs = tqm.quantize_activations(tx, mode)
+    scale = ws * xs
+    out = tqm._matmul_kernel(xq, wq, scale, tb)
+    again = tqm._matmul_kernel(xq, wq, scale, tb)
+    ref = tqm._matmul_ref(xq, wq, scale, tb)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    if mode == "int8":
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(
+            out, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
