@@ -1,11 +1,12 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each ``ops/csrc/<name>.cu`` has a plain C interface and compiles on first
-use into ``ops/_build/<name>-<hash>.so``, the hash covering the source and
-the flags, so an edited source rebuilds and an unchanged one loads from
-disk.  A file lock serialises concurrent builders (two processes, or two
-threads of one); :func:`build` starts one ``nvcc`` per missing source, all
-at once.  Nothing here runs at import time.
+use into ``ops/_build/<name>-<hash>.so``, the hash covering the source,
+every shared header ``ops/csrc/*.cuh`` and the flags, so an edited source
+or header rebuilds and an unchanged one loads from disk.  A file lock
+serialises concurrent builders (two processes, or two threads of one);
+:func:`build` starts one ``nvcc`` per missing source, all at once.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -47,8 +48,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu``'s library is built: keyed by the source,
+    the headers it may include (every ``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return OUT / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

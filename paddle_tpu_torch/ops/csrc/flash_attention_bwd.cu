@@ -16,63 +16,90 @@
 // Each kernel owns its output tile outright — the dq kernel a q tile, the
 // dk / dv kernel a kv tile — as the TPU kernels do: no atomics, every sum
 // in a fixed order, so two runs give the same bits.  Ragged S and K are
-// masked here (zero-filled shared rows, the masks above); the host never
-// pads.
+// masked here (TMA's zero rows past the tensor, zero-filled shared rows,
+// the masks above); the host never pads.
 //
 // What bounds them on an H100: operations.  Per valid (q, key) pair the dq
 // kernel does 6 * hd flops (q.k^T, dO.v^T, ds.k) and the dk / dv kernel
-// 8 * hd (q.k^T, dO.v^T, p^T.dO, ds^T.q); at S = K = 8192, hd 64, causal
+// 8 * hd (k.q^T, v.dO^T, p^T.dO, ds^T.q); at S = K = 8192, hd 64, causal
 // that is ~4000 flops a byte of q, k, v, dO, dq / dk / dv, far above the
-// card's ~295 flop/byte ridge in bf16.  The score matrix never exists in
-// device memory.
+// card's ~295 flop/byte ridge in bf16, so the goal is the tensor cores'
+// 989 TFLOP/s, reached only through wgmma.  The score matrix never exists
+// in device memory.  Two kernels recompute s and dp: 14 * hd flops a pair
+// against a fused backward's 10 * hd, whose dq needs atomics.
 //
-// What this first design does about it (simple and right before fast):
-// * dq: one 128-thread block per (batch x head, 64-row q tile); q and dO
-//   are staged in shared memory once, lse and delta held in registers; k
-//   and v stream through shared memory one BK-key tile at a time, up to
-//   the causal bound (kernel 4's); the blocks of the longest rows start
-//   first.  bf16: all three products on the tensor cores (mma.sync
-//   m16n8k16, bf16 in, float32 accumulators), each warp owning 16 q rows;
-//   ds never leaves registers — the m16n8 accumulator layout of two score
-//   tiles is the A-operand layout of the ds . k product — and k, [key][d]
-//   in shared memory, feeds that product through ldmatrix.trans as v does
-//   kernel 4's P . v.
-// * dk / dv: one block per (batch x head, 64-key tile); k and v are staged
-//   once; q, dO, lse and delta stream through shared memory one BQ-row
-//   tile at a time, from the first tile that holds a row that sees a key
-//   of the block (causal: row >= key - q_off).  bf16: the block computes
-//   s^T = k . q^T and dp^T = v . dO^T directly, so a warp's accumulator
-//   rows are its 16 keys and p^T and ds^T are A operands straight from
-//   registers (nothing staged through shared memory); q and dO feed the
-//   two products through ldmatrix.trans.  The float32 dk and dv
-//   accumulators take 2 * hd floats a key: at hd 256 one warp's 16 keys
-//   would need 256 registers a thread, so there two warps share each 16
-//   keys, each accumulating half of the columns (256 threads; the two
-//   recompute the same s^T and dp^T).  Causal, the first kv tiles carry
-//   the most q tiles, and they are launched first.
-// * float32 inputs take a SIMT path on the CUDA cores (TF32 is off by the
-//   port's rule): per-thread register tiles, ds (and p) staged in shared
-//   memory rows that only the owning warp reads.
+// What the design does about it.  bf16, kernel 4's machinery
+// (hopper_sm90.cuh): a block of two consumer warpgroups of 64 rows and a
+// producer warpgroup (setmaxnreg 40 / 232), one thread of which fills a
+// ring of shared-memory stages by TMA under the 128-byte swizzle, with a
+// full / empty mbarrier pair a stage.
+// * dq (every head dim): one block per (batch x head, 128-row q tile), the
+//   longest rows first; q and dO of the 128 rows resident, k / v tiles of
+//   BK keys streamed up to the causal bound; lse and delta of a thread's
+//   two rows in registers.  s = q . k^T and dp = dO . v^T are wgmma with
+//   both operands in shared memory (K-major); p and ds are computed in the
+//   accumulator registers; dq += ds . k is a wgmma with ds from registers
+//   (kernel 4's p hand-over) and k MN-major through the transpose bit (the
+//   same stage as s's K-major k).  At hd 128 pipelined as kernel 4: tile
+//   j + 1's two score products are issued before tile j's ds . k, whose p
+//   and ds run under it, the last tile peeled so the loop has no branch
+//   between a product's issue and its wait; at hd 64 and 256 one tile at
+//   a time, which measured as fast or faster there.  BK: 128 keys at hd
+//   64 (3 stages), 64 at hd 128 (3), 32 at hd 256 (3: q and dO take 128
+//   KB).
+// * dk / dv (hd 64 and 128): one block per (batch x head, 128-key tile),
+//   the first key tiles (the most q tiles, causal) first; k and v
+//   resident, q / dO tiles of BQ rows streamed from the first tile
+//   holding a row that sees a key of the block: 128 rows at hd 64 (2
+//   stages), 64 at hd 128 (3).  s^T = k . q^T and dp^T = v . dO^T are
+//   two wgmma commit groups (K-major); p^T is computed while dp^T's
+//   product runs, then ds^T; dv += p^T . dO and dk += ds^T . q take p^T
+//   and ds^T from registers and dO, q MN-major: nothing is staged through
+//   shared memory.  An accumulator column is a q row, so lse and
+//   delta are read per column from the stage; they are float32 rows of S
+//   floats, not 16-byte aligned for ragged S, so a second producer warp
+//   fills them with plain loads and its 32 lanes arrive on the stage's
+//   full barrier beside the TMA thread.
+// * exponentials on the SFU's ex2.approx.ftz (p below 2^-126 is 0).
+// Built in steps, each timed in one call (tools/torch_kernel_ab.py; PERF.md
+// section 6) at the slice's shape [2, 12, 8192, 64] bf16 causal on an H100,
+// dq / dk-dv: the first design (64-row / 64-key tiles of 4 warps,
+// synchronous staging, mma.sync m16n8k16) 1.77 / 2.60 ms; wgmma on the TMA
+// ring, no overlap, exp2f 0.89 / 1.00; ex2.approx.ftz 0.69 / 0.91; the
+// overlaps above 0.65 / 0.84.
 // Where bf16 rounds: the TPU multiplies in float32; here p and ds are
-// rounded to bf16 where they enter mma, and the outputs to bf16 once.
-// Shared rows are padded so fragment loads hit distinct banks.  Not done
-// yet (later work): cp.async / TMA double-buffering, wgmma, a persistent
-// schedule.
+// rounded to bf16 where they enter the tensor cores, and the outputs to
+// bf16 once.
+// What stays on the first design: bf16 dk / dv at hd 256 — dk and
+// dv alone would take 256 float32 registers a thread in a 64-key
+// warpgroup — keeps mma.sync m16n8k16 with synchronous staging: 64-key
+// blocks of 256 threads, two warps on each 16 keys, each accumulating half
+// of the columns (both recompute s^T and dp^T).  float32 inputs take a
+// SIMT path on the CUDA cores (TF32 is off by the port's rule): per-thread
+// register tiles, ds (and p) staged in shared memory rows that only the
+// owning warp reads.
+// Not done yet (later work): a persistent schedule; the fused single
+// backward, which needs ordered dq accumulation to stay deterministic.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (paddle_tpu_torch/ops/_build.py); plain C
 // entries, bound with ctypes.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_sm90.cuh"
+
 namespace {
 
+using namespace sm90;
+
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBQ = 64;  // q rows of a dq block
-constexpr int kBK = 64;  // keys of a dk / dv block (bf16)
+constexpr int kBQ = 64;  // q rows of a dq block, float32
+constexpr int kBK = 64;  // keys of a dk / dv block, bf16 at hd 256
 
 struct Params {
   const void* q;
@@ -135,15 +162,507 @@ __device__ __forceinline__ int first_q_tile(const Params& p, int k0, int bq,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma on a TMA ring (dq at every head dim, dk / dv at 64 and 128)
+// ---------------------------------------------------------------------------
+constexpr int kRows = 128;  // q rows of a dq block, keys of a dk / dv block
+
+// The consumer warpgroups of flash_bwd_dq_wgmma_kernel: q0's 128 rows (64
+// a warpgroup) against the n_kt key tiles of the ring.  Per tile: s = q .
+// k^T and dp = dO . v^T (both operands K-major in shared memory), p and ds
+// in the accumulator registers, dq += ds . k (ds from registers, k
+// MN-major: the same stage read through the transpose bit).  PIPE: as
+// kernel 4, tile j + 1's two score products are issued before tile j's
+// ds . k, and tile j + 1's p and ds are computed while that product runs
+// (faster at hd 128, slower at hd 64, even at hd 256: PERF.md section 6).
+template <int HD, int BK, int ST, bool PIPE>
+__device__ __forceinline__ void dq_consume(const Params& p,
+                                           const unsigned char* Qs,
+                                           const unsigned char* Os,
+                                           const unsigned char* Ring,
+                                           uint64_t* full, uint64_t* empty,
+                                           uint64_t* qbar, int q0, int n_kt) {
+  constexpr int KV_BYTES = BK * HD * 2;    // one of k, v in a stage
+  constexpr int ON = HD > 128 ? 128 : HD;  // columns of one ds . k wgmma
+  constexpr int OH = HD / ON;
+  const int bh = blockIdx.y;
+  const int wg = threadIdx.x >> 7;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16 + g;  // tile rows row0 and row0 + 8
+  const int rows[2] = {q0 + row0, q0 + row0 + 8};
+  const float* lse = p.lse + (size_t)bh * p.S;
+  const float* delta = p.delta + (size_t)bh * p.S;
+  const float l2[2] = {lse2_of(p, lse, rows[0]), lse2_of(p, lse, rows[1])};
+  const float dl[2] = {delta_of(p, delta, rows[0]),
+                       delta_of(p, delta, rows[1])};
+  float dq[OH][ON / 2];
+#pragma unroll
+  for (int h = 0; h < OH; ++h)
+#pragma unroll
+    for (int i = 0; i < ON / 2; ++i) dq[h][i] = 0.f;
+  const unsigned char* qa = Qs + wg * 64 * 128;  // this warpgroup's rows
+  const unsigned char* oa = Os + wg * 64 * 128;
+
+  // s = q . k^T and dp = dO . v^T for tile j, one commit group: hd / 16
+  // k-steps each, 32 bytes further into an atom a step
+  float s[BK / 2], dp[BK / 2];
+  auto issue_sdp = [&](int j) {
+    const unsigned char* kb = Ring + (j % ST) * 2 * KV_BYTES;
+    const unsigned char* vb = kb + KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<BK>(s,
+                   sw128_desc(qa + (kk >> 2) * kRows * 128 + (kk & 3) * 32,
+                              16, 1024),
+                   sw128_desc(kb + (kk >> 2) * BK * 128 + (kk & 3) * 32, 16,
+                              1024),
+                   kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<BK>(dp,
+                   sw128_desc(oa + (kk >> 2) * kRows * 128 + (kk & 3) * 32,
+                              16, 1024),
+                   sw128_desc(vb + (kk >> 2) * BK * 128 + (kk & 3) * 32, 16,
+                              1024),
+                   kk > 0);
+  };
+
+  // tile j's p = 2^(s scale_log2 - lse2) on the valid pairs (key k0 + c is
+  // valid for row r when c < lim[r]: a real row, a key before K and,
+  // causal, at or before the row's position) and ds = p (dp - delta)
+  // sm_scale, in place in s
+  auto grad = [&](int j) {
+    const int k0 = j * BK;
+    int lim[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      long long L = p.K - k0;
+      const long long d = p.q_off + rows[r] - k0 + 1;
+      if (p.causal && d < L) L = d;
+      if (rows[r] >= p.S) L = 0;
+      lim[r] = (int)(L < 0 ? 0 : L > BK ? BK : L);
+    }
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * n + e, r = e >> 1;
+        const float pv = n * 8 + 2 * t + (e & 1) < lim[r]
+                             ? ex2(s[i] * p.scale_log2 - l2[r])
+                             : 0.f;
+        s[i] = pv * (dp[i] - dl[r]) * p.scale;
+      }
+  };
+
+  // ds of the tile whose ds . k is next, the register A operand (two
+  // adjacent 8-key blocks a k-step), rounded to bf16
+  uint32_t df[BK / 16][4];
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        df[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+  };
+  // dq += ds . k for tile j: k MN-major, 16 keys (2048 bytes) a k-step, ON
+  // columns (ON / 64 atoms, BK * 128 bytes apart) a wgmma
+  auto issue_dq = [&](int j) {
+    const unsigned char* kb = Ring + (j % ST) * 2 * KV_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int h = 0; h < OH; ++h)
+        wgmma_rs<ON>(dq[h], df[kk],
+                     sw128_desc(kb + h * (ON / 64) * BK * 128 + kk * 2048,
+                                BK * 128, 1024));
+    wgmma_commit();
+  };
+  auto retire_dq = [&](int j) {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < OH; ++h) reg_fence(dq[h]);
+    reg_fence(df);
+    mbar_arrive(&empty[j % ST]);  // this thread is done with tile j's stage
+  };
+
+  mbar_wait(qbar, 0);
+  if constexpr (!PIPE) {
+    for (int j = 0; j < n_kt; ++j) {
+      mbar_wait(&full[j % ST], (j / ST) & 1);
+      wgmma_fence();
+      issue_sdp(j);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(s);
+      reg_fence(dp);
+      grad(j);
+      pack();
+      issue_dq(j);
+      retire_dq(j);
+    }
+  } else {
+    if (n_kt > 0) {
+      mbar_wait(&full[0], 0);
+      wgmma_fence();
+      issue_sdp(0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(s);
+      reg_fence(dp);
+      grad(0);
+      pack();
+    }
+    // the steady state, every tile but the last: no branch between a
+    // product's issue and its wait
+    for (int j = 0; j + 1 < n_kt; ++j) {
+      mbar_wait(&full[(j + 1) % ST], ((j + 1) / ST) & 1);
+      wgmma_fence();
+      issue_sdp(j + 1);
+      wgmma_commit();
+      issue_dq(j);
+      wgmma_wait<1>();  // tile j + 1's scores; tile j's ds . k may still run
+      reg_fence(s);
+      reg_fence(dp);
+      grad(j + 1);
+      retire_dq(j);
+      pack();
+    }
+    if (n_kt > 0) {
+      issue_dq(n_kt - 1);
+      retire_dq(n_kt - 1);
+    }
+  }
+
+  __nv_bfloat16* out =
+      static_cast<__nv_bfloat16*>(p.dq) + (size_t)bh * p.S * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= p.S) continue;
+#pragma unroll
+    for (int h = 0; h < OH; ++h)
+#pragma unroll
+      for (int n = 0; n < ON / 8; ++n)
+        *reinterpret_cast<uint32_t*>(out + (size_t)rows[r] * HD + h * ON +
+                                     n * 8 + 2 * t) =
+            pack_bf16(dq[h][4 * n + 2 * r], dq[h][4 * n + 2 * r + 1]);
+  }
+}
+
+// dq, bf16.  Shared memory (1024-byte aligned): q and dO of the block's
+// 128 rows, each [HD / 64][128][64] as TMA's 128-byte swizzle writes it,
+// then ST stages of k and v, each [HD / 64][BK][64], then the barriers.
+// Warps 0-7 are two consumer warpgroups of 64 q rows; warpgroup 2 is the
+// producer: one thread loads q and dO once and keeps the k / v ring full.
+template <int HD, int BK, int ST, bool PIPE>
+__global__ void __launch_bounds__(kThreadsWg, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, Params p) {
+  constexpr int NA = HD / 64;  // 128-byte atoms along hd
+  constexpr int Q_BYTES = kRows * HD * 2;
+  constexpr int KV_BYTES = BK * HD * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = smem_1024(smem_raw);
+  unsigned char* Os = Qs + Q_BYTES;
+  unsigned char* Ring = Os + Q_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ring + ST * 2 * KV_BYTES);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
+
+  const int bh = blockIdx.y;
+  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * kRows;
+  const int n_kt = key_tiles(p, q0, kRows, BK);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumers);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    producer_regs();
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(qbar, 2 * Q_BYTES);
+      for (int a = 0; a < NA; ++a) {
+        tma_load(Qs + a * kRows * 128, &tq, qbar, 64 * a, q0, bh);
+        tma_load(Os + a * kRows * 128, &tdo, qbar, 64 * a, q0, bh);
+      }
+      for (int j = 0; j < n_kt; ++j) {
+        const int st = j % ST;
+        if (j >= ST) mbar_wait(&empty[st], (j / ST - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * KV_BYTES);
+        unsigned char* kd = Ring + st * 2 * KV_BYTES;
+        for (int a = 0; a < NA; ++a) {
+          tma_load(kd + a * BK * 128, &tk, &full[st], 64 * a, j * BK, bh);
+          tma_load(kd + KV_BYTES + a * BK * 128, &tv, &full[st], 64 * a,
+                   j * BK, bh);
+        }
+      }
+    }
+  } else {
+    consumer_regs();
+    dq_consume<HD, BK, ST, PIPE>(p, Qs, Os, Ring, full, empty, qbar, q0,
+                                 n_kt);
+  }
+}
+
+// The consumer warpgroups of flash_bwd_dkv_wgmma_kernel: the block's 128
+// keys (64 a warpgroup) against the n_qt streamed q tiles from tile qt0.
+// Per tile: s^T = k . q^T and dp^T = v . dO^T (both operands K-major) in
+// two commit groups, p^T computed while dp^T's product runs, then ds^T;
+// dv += p^T . dO and dk += ds^T . q with p^T and ds^T from registers and
+// dO, q MN-major.  An accumulator column is a q row: its lse (base 2) and
+// delta come from the stage.  (Issuing tile j + 1's score products before
+// tile j's dv / dk products, as dq does, measured no faster at hd 64 and
+// slower at hd 128, where ptxas serializes it for want of registers.)
+template <int HD, int BQ, int ST>
+__device__ __forceinline__ void dkv_consume(const Params& p,
+                                            const unsigned char* Ks,
+                                            const unsigned char* Vs,
+                                            const unsigned char* Ring,
+                                            const float* Stats,
+                                            uint64_t* full, uint64_t* empty,
+                                            uint64_t* kvbar, int k0, int qt0,
+                                            int n_qt) {
+  constexpr int Q_BYTES = BQ * HD * 2;  // one of q, dO in a stage
+  const int bh = blockIdx.y;
+  const int wg = threadIdx.x >> 7;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  const unsigned char* ka = Ks + wg * 64 * 128;  // this warpgroup's keys
+  const unsigned char* va = Vs + wg * 64 * 128;
+  float s[BQ / 2], dp[BQ / 2];
+  uint32_t pf[BQ / 16][4], df[BQ / 16][4];
+
+  auto issue_s = [&](int j) {
+    const unsigned char* qb = Ring + (j % ST) * 2 * Q_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<BQ>(s,
+                   sw128_desc(ka + (kk >> 2) * kRows * 128 + (kk & 3) * 32,
+                              16, 1024),
+                   sw128_desc(qb + (kk >> 2) * BQ * 128 + (kk & 3) * 32, 16,
+                              1024),
+                   kk > 0);
+  };
+  auto issue_dp = [&](int j) {
+    const unsigned char* ob = Ring + (j % ST) * 2 * Q_BYTES + Q_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<BQ>(dp,
+                   sw128_desc(va + (kk >> 2) * kRows * 128 + (kk & 3) * 32,
+                              16, 1024),
+                   sw128_desc(ob + (kk >> 2) * BQ * 128 + (kk & 3) * 32, 16,
+                              1024),
+                   kk > 0);
+  };
+  // p^T in place in s: column c (q row r0 + c) is valid for key r when
+  // lo[r] <= c < hi: a real row, a real key and, causal, a row at or after
+  // the key
+  auto grad_p = [&](int j) {
+    const float* L2s = Stats + (j % ST) * 2 * BQ;
+    const int r0 = (qt0 + j) * BQ;
+    const int hi = p.S - r0 < BQ ? p.S - r0 : BQ;
+    int lo[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      long long L = p.causal ? (long long)keys[r] - p.q_off - r0 : 0;
+      if (keys[r] >= p.K) L = BQ;
+      lo[r] = (int)(L < 0 ? 0 : L > BQ ? BQ : L);
+    }
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(L2s + n * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + 2 * t + (e & 1);
+        const float x = s[4 * n + e] * p.scale_log2 - ((e & 1) ? l2.y : l2.x);
+        s[4 * n + e] = c >= lo[e >> 1] && c < hi ? ex2(x) : 0.f;
+      }
+    }
+  };
+  // ds^T = p^T (dp^T - delta) sm_scale in place in dp
+  auto grad_ds = [&](int j) {
+    const float* Ds = Stats + (j % ST) * 2 * BQ + BQ;
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+      const float2 d = *reinterpret_cast<const float2*>(Ds + n * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * n + e;
+        dp[i] = s[i] * (dp[i] - ((e & 1) ? d.y : d.x)) * p.scale;
+      }
+    }
+  };
+  // the register A operands of the next dv / dk products, rounded to bf16
+  auto pack = [&](uint32_t (&f)[BQ / 16][4], const float (&x)[BQ / 2]) {
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        f[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+  };
+  // dv += p^T . dO, dk += ds^T . q: 16 q rows (2048 bytes) a k-step, HD
+  // columns (HD / 64 atoms, BQ * 128 bytes apart) a wgmma; one group
+  auto issue_kv = [&](int j) {
+    const unsigned char* qb = Ring + (j % ST) * 2 * Q_BYTES;
+    const unsigned char* ob = qb + Q_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<HD>(dv, pf[kk], sw128_desc(ob + kk * 2048, BQ * 128, 1024));
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<HD>(dk, df[kk], sw128_desc(qb + kk * 2048, BQ * 128, 1024));
+    wgmma_commit();
+  };
+  auto retire_kv = [&](int j) {
+    wgmma_wait<0>();
+    reg_fence(dv);
+    reg_fence(dk);
+    reg_fence(pf);
+    reg_fence(df);
+    mbar_arrive(&empty[j % ST]);  // this thread is done with the stage
+  };
+
+  mbar_wait(kvbar, 0);
+  for (int j = 0; j < n_qt; ++j) {
+    mbar_wait(&full[j % ST], (j / ST) & 1);
+    wgmma_fence();
+    issue_s(j);
+    wgmma_commit();
+    issue_dp(j);
+    wgmma_commit();
+    wgmma_wait<1>();  // s^T landed; dp^T's product may still run
+    reg_fence(s);
+    grad_p(j);
+    pack(pf, s);
+    wgmma_wait<0>();
+    reg_fence(dp);
+    grad_ds(j);
+    pack(df, dp);
+    issue_kv(j);
+    retire_kv(j);
+  }
+
+  __nv_bfloat16* dkp =
+      static_cast<__nv_bfloat16*>(p.dk) + (size_t)bh * p.K * HD;
+  __nv_bfloat16* dvp =
+      static_cast<__nv_bfloat16*>(p.dv) + (size_t)bh * p.K * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] >= p.K) continue;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const size_t o = (size_t)keys[r] * HD + n * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(dkp + o) =
+          pack_bf16(dk[4 * n + 2 * r], dk[4 * n + 2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dvp + o) =
+          pack_bf16(dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
+    }
+  }
+}
+
+// dk / dv, bf16.  Shared memory (1024-byte aligned): k and v of the
+// block's 128 keys, each [HD / 64][128][64], then ST stages of q and dO,
+// each [HD / 64][BQ][64], then ST stages of the rows' lse (base 2) and
+// delta, [2][BQ] floats, then the barriers.  Warps 0-7 are two consumer
+// warpgroups of 64 keys; in the producer warpgroup one thread loads k and
+// v once and keeps the q / dO ring full by TMA, and warp 1 fills each
+// stage's lse and delta with plain loads (a row of S floats is not 16-byte
+// aligned for ragged S, so TMA cannot take it): a stage's full barrier
+// waits for that thread and the warp's 32 lanes.
+template <int HD, int BQ, int ST>
+__global__ void __launch_bounds__(kThreadsWg, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, Params p) {
+  constexpr int NA = HD / 64;
+  constexpr int KV_BYTES = kRows * HD * 2;
+  constexpr int Q_BYTES = BQ * HD * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = smem_1024(smem_raw);
+  unsigned char* Vs = Ks + KV_BYTES;
+  unsigned char* Ring = Vs + KV_BYTES;
+  float* Stats = reinterpret_cast<float*>(Ring + ST * 2 * Q_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(Stats + ST * 2 * BQ);
+  uint64_t* empty = full + ST;
+  uint64_t* kvbar = empty + ST;
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kRows;
+  const int n_all = (p.S + BQ - 1) / BQ;
+  const int qt0 = first_q_tile(p, k0, BQ, n_all);
+  const int n_qt = n_all - qt0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1 + 32);
+      mbar_init(&empty[i], kConsumers);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    producer_regs();
+    const int pw = (threadIdx.x - kConsumers) >> 5, lane = threadIdx.x & 31;
+    if (pw == 0 && lane == 0) {
+      mbar_expect_tx(kvbar, 2 * KV_BYTES);
+      for (int a = 0; a < NA; ++a) {
+        tma_load(Ks + a * kRows * 128, &tk, kvbar, 64 * a, k0, bh);
+        tma_load(Vs + a * kRows * 128, &tv, kvbar, 64 * a, k0, bh);
+      }
+      for (int j = 0; j < n_qt; ++j) {
+        const int st = j % ST;
+        if (j >= ST) mbar_wait(&empty[st], (j / ST - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * Q_BYTES);
+        unsigned char* qd = Ring + st * 2 * Q_BYTES;
+        const int r0 = (qt0 + j) * BQ;
+        for (int a = 0; a < NA; ++a) {
+          tma_load(qd + a * BQ * 128, &tq, &full[st], 64 * a, r0, bh);
+          tma_load(qd + Q_BYTES + a * BQ * 128, &tdo, &full[st], 64 * a, r0,
+                   bh);
+        }
+      }
+    } else if (pw == 1) {
+      const float* lse = p.lse + (size_t)bh * p.S;
+      const float* delta = p.delta + (size_t)bh * p.S;
+      for (int j = 0; j < n_qt; ++j) {
+        const int st = j % ST;
+        if (j >= ST) mbar_wait(&empty[st], (j / ST - 1) & 1);
+        float* l2 = Stats + st * 2 * BQ;
+        const int r0 = (qt0 + j) * BQ;
+        for (int i = lane; i < BQ; i += 32) {
+          l2[i] = lse2_of(p, lse, r0 + i);
+          l2[BQ + i] = delta_of(p, delta, r0 + i);
+        }
+        mbar_arrive(&full[st]);
+      }
+    }
+  } else {
+    consumer_regs();
+    dkv_consume<HD, BQ, ST>(p, Ks, Vs, Ring, Stats, full, empty, kvbar, k0,
+                            qt0, n_qt);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dk / dv at hd 256: mma.sync
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // d += a (16x16, row-major) . b (16x8, column-major); bf16 in, f32 out.
@@ -203,112 +722,6 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
     if (r0 + r < n)
       val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * HD + c);
     *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// dq.  Each warp owns 16 q rows: thread (g = lane / 4, t = lane % 4) holds
-// rows g and g + 8 of them, columns 2t, 2t + 1 of every 8-wide accumulator
-// tile (the m16n8 fragment layout).
-template <int HD, int BK>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_bf16_kernel(Params p) {
-  constexpr int LD = HD + 8;  // +16 bytes: fragment loads hit distinct banks
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Os = Qs + kBQ * LD;  // dO
-  __nv_bfloat16* Ks = Os + kBQ * LD;
-  __nv_bfloat16* Vs = Ks + BK * LD;
-
-  const int bh = blockIdx.y;
-  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * kBQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qoff = (size_t)bh * p.S * HD, koff = (size_t)bh * p.K * HD;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + koff;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + koff;
-  const float* lse = p.lse + (size_t)bh * p.S;
-  const float* delta = p.delta + (size_t)bh * p.S;
-
-  stage_bf16<HD, LD, 128>(
-      Qs, static_cast<const __nv_bfloat16*>(p.q) + qoff, q0, kBQ, p.S);
-  stage_bf16<HD, LD, 128>(
-      Os, static_cast<const __nv_bfloat16*>(p.dout) + qoff, q0, kBQ, p.S);
-
-  const int row0 = warp * 16 + g;  // tile rows row0 and row0 + 8
-  const int rows[2] = {q0 + row0, q0 + row0 + 8};
-  const float l2[2] = {lse2_of(p, lse, rows[0]), lse2_of(p, lse, rows[1])};
-  const float dl[2] = {delta_of(p, delta, rows[0]),
-                       delta_of(p, delta, rows[1])};
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int n_kt = key_tiles(p, q0, kBQ, BK);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile is consumed
-    stage_bf16<HD, LD, 128>(Ks, k, k0, BK, p.K);
-    stage_bf16<HD, LD, 128>(Vs, v, k0, BK, p.K);
-    __syncthreads();
-
-    // s = q . k^T and dp = dO . v^T for this warp's 16 rows x BK keys
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t qa[4], oa[4];
-      frag_a<LD>(qa, Qs + row0 * LD + kk * 16 + 2 * t);
-      frag_a<LD>(oa, Os + row0 * LD + kk * 16 + 2 * t);
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        const int off = (n * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_bf16(s[n], qa, ld32(Ks + off), ld32(Ks + off + 8));
-        mma_bf16(dp[n], oa, ld32(Vs + off), ld32(Vs + off + 8));
-      }
-    }
-
-    // p = exp(s - lse) on the valid pairs, ds = p (dp - delta) sm_scale
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, key = k0 + n * 8 + 2 * t + (e & 1);
-        const float pv = pair_ok(p, rows[r], key)
-                             ? exp2f(s[n][e] * p.scale_log2 - l2[r])
-                             : 0.f;
-        s[n][e] = pv * (dp[n][e] - dl[r]) * p.scale;
-      }
-
-    // dq += ds . k: two adjacent ds tiles are one A fragment
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      uint32_t a[4];
-      acc_to_a<BK / 8>(a, s, j);
-      const __nv_bfloat16* krow = Ks + (j * 16 + (lane & 15)) * LD;
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, krow + n * 8);
-        mma_bf16(acc[n], a, b0, b1);
-      }
-    }
-  }
-
-  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(p.dq) + qoff;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= p.S) continue;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dq + (size_t)rows[r] * HD + n * 8 +
-                                   2 * t) =
-          pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
   }
 }
 
@@ -698,11 +1111,43 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <int HD, int BK>
-cudaError_t dq_bf16(const Params& p, int BH, cudaStream_t s) {
-  const size_t smem = (size_t)(2 * kBQ + 2 * BK) * (HD + 8) * 2;
-  return launch(flash_bwd_dq_bf16_kernel<HD, BK>,
-                dim3((p.S + kBQ - 1) / kBQ, BH), 128, smem, p, s);
+// The four tensor maps of a wgmma kernel: q and dO in boxes of q_box rows,
+// k and v in boxes of k_box.  An empty side (K = 0 for dq, S = 0 for dk /
+// dv) is never read, but its maps must describe real memory: the other
+// side's.
+cudaError_t bwd_maps(CUtensorMap (&m)[4], const Params& p, int BH, int HD,
+                     int q_box, int k_box) {
+  const bool rows = p.S > 0, keys = p.K > 0;
+  const void* qs[2] = {rows ? p.q : p.k, rows ? p.dout : p.v};
+  const void* ks[2] = {keys ? p.k : p.q, keys ? p.v : p.dout};
+  cudaError_t e = cudaSuccess;
+  for (int i = 0; i < 2 && e == cudaSuccess; ++i)
+    e = tensor_map(&m[i], qs[i], BH, rows ? p.S : p.K, HD, q_box);
+  for (int i = 0; i < 2 && e == cudaSuccess; ++i)
+    e = tensor_map(&m[2 + i], ks[i], BH, keys ? p.K : p.S, HD, k_box);
+  return e;
+}
+
+template <typename Kernel>
+cudaError_t launch_wgmma(Kernel kernel, dim3 grid, size_t smem,
+                         const CUtensorMap (&m)[4], const Params& p,
+                         cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreadsWg, smem, stream>>>(m[0], m[1], m[2], m[3], p);
+  return cudaGetLastError();
+}
+
+template <int HD, int BK, int ST, bool PIPE>
+cudaError_t dq_wgmma(const Params& p, int BH, cudaStream_t s) {
+  CUtensorMap m[4];
+  const cudaError_t e = bwd_maps(m, p, BH, HD, kRows, BK);
+  if (e != cudaSuccess) return e;
+  const size_t smem = 1024 + (size_t)2 * kRows * HD * 2 +
+                      (size_t)ST * 2 * BK * HD * 2 + (2 * ST + 1) * 8;
+  return launch_wgmma(flash_bwd_dq_wgmma_kernel<HD, BK, ST, PIPE>,
+                      dim3((p.S + kRows - 1) / kRows, BH), smem, m, p, s);
 }
 
 template <int HD, int BK>
@@ -719,6 +1164,18 @@ cudaError_t dkv_bf16(const Params& p, int BH, cudaStream_t s) {
                       (size_t)2 * BQ * 4;
   return launch(flash_bwd_dkv_bf16_kernel<HD, BQ, SPLIT>,
                 dim3((p.K + kBK - 1) / kBK, BH), 128 * SPLIT, smem, p, s);
+}
+
+template <int HD, int BQ, int ST>
+cudaError_t dkv_wgmma(const Params& p, int BH, cudaStream_t s) {
+  CUtensorMap m[4];
+  const cudaError_t e = bwd_maps(m, p, BH, HD, BQ, kRows);
+  if (e != cudaSuccess) return e;
+  const size_t smem = 1024 + (size_t)2 * kRows * HD * 2 +
+                      (size_t)ST * 2 * BQ * HD * 2 + (size_t)ST * 2 * BQ * 4 +
+                      (2 * ST + 1) * 8;
+  return launch_wgmma(flash_bwd_dkv_wgmma_kernel<HD, BQ, ST>,
+                      dim3((p.K + kRows - 1) / kRows, BH), smem, m, p, s);
 }
 
 template <int HD, int BK, int BQ>
@@ -759,9 +1216,9 @@ extern "C" int flash_attention_bwd_dq(int dtype, const void* q, const void* k,
   const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr,
                                nullptr, S, K, q_off, causal, sm_scale);
   if (dtype == 1) {
-    if (hd == 64) return dq_bf16<64, 64>(p, BH, st);
-    if (hd == 128) return dq_bf16<128, 64>(p, BH, st);
-    if (hd == 256) return dq_bf16<256, 32>(p, BH, st);
+    if (hd == 64) return dq_wgmma<64, 128, 3, false>(p, BH, st);
+    if (hd == 128) return dq_wgmma<128, 64, 3, true>(p, BH, st);
+    if (hd == 256) return dq_wgmma<256, 32, 3, false>(p, BH, st);
   } else if (dtype == 0) {
     if (hd == 64) return dq_f32<64, 64>(p, BH, st);
     if (hd == 128) return dq_f32<128, 64>(p, BH, st);
@@ -787,8 +1244,8 @@ extern "C" int flash_attention_bwd_dkv(int dtype, const void* q,
   const Params p = make_params(q, k, v, dout, lse, delta, nullptr, dk, dv, S,
                                K, q_off, causal, sm_scale);
   if (dtype == 1) {
-    if (hd == 64) return dkv_bf16<64, 64, 1>(p, BH, st);
-    if (hd == 128) return dkv_bf16<128, 32, 1>(p, BH, st);
+    if (hd == 64) return dkv_wgmma<64, 128, 2>(p, BH, st);
+    if (hd == 128) return dkv_wgmma<128, 64, 3>(p, BH, st);
     if (hd == 256) return dkv_bf16<256, 32, 2>(p, BH, st);
   } else if (dtype == 0) {
     if (hd == 64) return dkv_f32<64, 64, 64>(p, BH, st);

@@ -11,7 +11,10 @@ softmax in registers; in float32 64-row tiles on the CUDA cores — and the
 backward is the two kernels of ``ops/csrc/flash_attention_bwd.cu``: dq (a
 block owns a q tile and streams k / v) and dk / dv (a block owns a kv tile
 and streams q / dO), each owning its output tile, so there are no atomics
-and two runs give the same bits.
+and two runs give the same bits.  In bf16 both run on the forward's
+machinery (``ops/csrc/hopper_sm90.cuh``: a TMA ring filled by a producer
+warpgroup, every product on wgmma), except dk / dv at head_dim 256, which
+stays on mma.sync.
 
 Semantics (both paths), those of the JAX kernels: scores are float32, from
 upcast q and k, times ``sm_scale`` (default ``1/sqrt(hd)``); keys at or

@@ -284,6 +284,12 @@ def _assert_grad_close(got, ref, dtype):
     chip_smoke.grad_close(torch, got, ref, dtype)
 
 
+def _bwd_tol(key):
+    import chip_smoke
+
+    return chip_smoke.FLASH_BWD_TOL["bfloat16"][key]
+
+
 def _card_case(dev, dt, hd, S, K, seed, B=2, H=3):
     gen = torch.Generator().manual_seed(seed)
     return tuple(torch.randn(B, H, n, hd, generator=gen).to(dev, dt)
@@ -320,6 +326,52 @@ def test_kernels_match_plain_on_card(dtype, hd, S, K, causal, off):
         _assert_grad_close(a, w, dtype)
     dead = torch.isneginf(lse)
     assert torch.all(got[0][dead] == 0)
+
+
+# The bf16 kernels' tile edges: 128-row q tiles (dq), 128-key blocks (dk /
+# dv), 32-128-row stream tiles: S and K at 1, 127, 129 and 1000, K = S + 37
+# and K < S; causal at offset 0, K - S and a negative one (the first rows
+# see no key), and not causal.
+EDGE_SK = [(1, 38), (1, 1), (127, 164), (127, 1), (129, 166), (129, 127),
+           (1000, 1037), (1000, 129)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("S,K", EDGE_SK)
+@pytest.mark.parametrize("mode", ["zero", "k_minus_s", "negative",
+                                  "not_causal"])
+def test_bf16_kernels_at_tile_edges(hd, S, K, mode):
+    dev = _card()
+    causal = mode != "not_causal"
+    off = {"k_minus_s": K - S, "negative": -(S // 2 + 1)}.get(mode, 0)
+    q, k, v, do = _card_case(dev, torch.bfloat16, hd, S, K,
+                             7 * hd + 3 * S + K)
+    out, lse = flash_attention_fwd_lse(q, k, v, causal,
+                                       q_position_offset=off)
+    runs = [flash_attention_bwd_chunk(q, k, v, out, lse, do, causal,
+                                      q_position_offset=off)
+            for _ in range(2)]
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                   q_position_offset=off)
+    torch.cuda.synchronize()
+    # every row seeing at most one key makes dq and dk exactly 0 (ds = p
+    # (dp - delta) cancels): both sides then hold float32 noise alone, so
+    # they are held to FLASH_BWD_TOL's tensor_rms share of dv's scale
+    single = K == 1 or (S == 1 and mode == "zero")
+    dv_rms = float(want[2].float().pow(2).mean().sqrt())
+    for name, a, b, w in zip(("dq", "dk", "dv"), *runs, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        assert torch.equal(a, b), "two launches differ"
+        if single and name != "dv":
+            floor = _bwd_tol("tensor_rms") * dv_rms
+            assert float(a.float().abs().max()) <= floor, name
+            assert float(w.float().abs().max()) <= floor, name
+        else:
+            _assert_grad_close(a, w, "bfloat16")
+    dead = torch.isneginf(lse)
+    assert mode != "negative" or bool(dead.any())
+    assert torch.all(runs[0][0][dead] == 0)
 
 
 @pytest.mark.gpu

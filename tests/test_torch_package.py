@@ -26,7 +26,8 @@ PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_serve_profile.py",
     ROOT / "tools" / "torch_train_profile.py",
     ROOT / "tools" / "torch_resnet_conditioning.py",
-    ROOT / "tools" / "torch_flash_bwd_rounding.py"]
+    ROOT / "tools" / "torch_flash_bwd_rounding.py",
+    ROOT / "tools" / "torch_kernel_ab.py"]
 
 
 def _forbidden(mod: str) -> bool:
@@ -108,3 +109,19 @@ def test_kernel_build_is_lazy_and_keyed_by_source_and_flags():
               os.environ.get("PATH", "").split(os.pathsep)))):
         with pytest.raises(UnavailableError, match="nvcc"):
             _build.nvcc()
+
+
+def test_library_path_changes_with_a_shared_header(tmp_path, monkeypatch):
+    """A source that includes a csrc/*.cuh must rebuild when the header
+    changes, or a stale library would load."""
+    src = '#include "h.cuh"\nint f() { return %sg(); }\n'
+    (tmp_path / "k.cu").write_text(src % "")
+    (tmp_path / "h.cuh").write_text("inline int g() { return 1; }\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("inline int g() { return 2; }\n")
+    second = _build.library_path("k")
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "k.cu").write_text(src % "-")
+    assert _build.library_path("k") not in (first, second)

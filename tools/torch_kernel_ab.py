@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Time the port's flash-attention forward or quantized_matmul against other
-builds of the same C entry, in one process on one card.
+"""Time the port's flash-attention forward or backward or quantized_matmul
+against other builds of the same C entries, in one process on one card.
 
     python3 tools/torch_kernel_ab.py flash_attention OTHER.cu [OTHER.cu ...]
+    python3 tools/torch_kernel_ab.py flash_attention_bwd OTHER.cu [...]
     python3 tools/torch_kernel_ab.py quantized_matmul OTHER.cu [OTHER.cu ...]
 
 ``OTHER.cu`` is another version of ``paddle_tpu_torch/ops/csrc/<kernel>.cu``
 with the same C entry, for example an earlier commit's
 (``git show <commit>:paddle_tpu_torch/ops/csrc/flash_attention.cu >
-old.cu``).  Each is built with the port's ``nvcc`` flags beside the
-package's own build ("repo") and loaded with ctypes.  Every build is first
+old.cu``).  Each is built with the port's ``nvcc`` flags (and the
+package's ``csrc`` on the include path, for its shared headers) beside the
+package's own build ("repo"), all at once, and loaded with ctypes.  Every build is first
 held against the plain PyTorch version (bf16 flash at head_dim 64 / 128 /
 256, ragged S and K, offsets, with ``chip_smoke.py``'s ``FLASH_TOL``;
 ``quantized_matmul`` int8 bit-equal, fp8 at rtol 1e-4 / atol 1e-4 x
@@ -19,6 +21,14 @@ max|out|), then timed in turns (repo, others, others reversed, repo):
   bench.py's op [1, 8, 32768, 128] and [1, 8, 8192, 256], median of 3
   runs of CUDA events (``chip_smoke.runs_ms``), beside
   ``F.scaled_dot_product_attention``;
+* flash_attention_bwd: first each build's dq and dk / dv (bf16) against
+  ``flash_attention_bwd_ref`` under ``chip_smoke.py``'s ``FLASH_BWD_TOL``
+  at its LT1 cases (``FLASH_BWD_CASES``) and head_dim 64 / 128 / 256, dq of
+  keyless rows exactly 0; then at the same three shapes the dq kernel,
+  the dk / dv kernel and the whole backward call (delta + both kernels),
+  over two input copies (past the L2), beside the library's backward
+  (``F.scaled_dot_product_attention`` through ``torch.autograd.grad``:
+  dq, dk and dv together);
 * quantized_matmul: the four linears of a gpt_small block at M = 1, 8,
   13, 40, 384, both modes, device time from a CUDA graph
   (``chip_smoke.graph_ms``), inputs rotated past the L2; then the int8
@@ -37,6 +47,7 @@ from __future__ import annotations
 import ctypes
 import importlib
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -53,19 +64,50 @@ FLASH_SHAPES = (("slice", (2, 12, 8192, 64)),
 QMM_M = (1, 8, 13, 40, 384)
 
 
-def build(src, workdir):
-    """nvcc ``src`` with the port's flags; returns (CDLL, ptxas lines)."""
+def kernel_name(mangled):
+    """``name<template args>`` of a mangled ``..._kernel<int, ...>``."""
+    for m in re.finditer(r"\d+", mangled):
+        name = mangled[m.end():m.end() + int(m.group())]
+        rest = mangled[m.end() + len(name):]
+        if name.endswith("_kernel") and rest.startswith("I"):
+            args = re.match(r"I((?:Li-?\d+E)*)", rest).group(1)
+            return f"{name}<{', '.join(re.findall(r'Li(-?\d+)E', args))}>"
+    return mangled
+
+
+def ptxas_lines(text):
+    """The register, spill and wgmma-serialization lines of a build log,
+    each after the kernel it is about."""
+    out = []
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            out.append(kernel_name(m.group(1)))
+        elif "registers" in ln or "spill" in ln or "C75" in ln:
+            out.append("  " + ln.strip())
+    return out
+
+
+def build(srcs, workdir):
+    """nvcc every source in ``srcs`` with the port's flags, all at once;
+    returns {basename: (CDLL, ptxas lines)}."""
     from paddle_tpu_torch.ops import _build
 
-    so = os.path.join(workdir, os.path.basename(src)[:-3] + ".so")
-    r = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
-                       capture_output=True, text=True)
-    log = (r.stdout + r.stderr).splitlines()
-    if r.returncode:
-        raise SystemExit(f"{src}: nvcc failed\n" + "\n".join(log[-40:]))
-    keep = [ln.strip() for ln in log
-            if "registers" in ln or "spill" in ln or "C75" in ln]
-    return ctypes.CDLL(so), keep
+    procs = {}
+    for src in srcs:
+        so = os.path.join(workdir, os.path.basename(src)[:-3] + ".so")
+        procs[src] = (so, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o",
+             so, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    out = {}
+    for src, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"{src}: nvcc failed\n"
+                             + "\n".join(log.splitlines()[-40:]))
+        out[os.path.basename(src)] = (ctypes.CDLL(so), ptxas_lines(log))
+    return out
 
 
 def flash_runner(lib, torch):
@@ -87,6 +129,108 @@ def flash_runner(lib, torch):
             raise RuntimeError(f"flash_attention_fwd: cudaError {rc}")
         return out, lse
     return run
+
+
+def bwd_runner(lib, torch):
+    """(dq, dkv) callers of a build's two backward entries, bf16."""
+    tail = ([ctypes.c_int] * 4
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+               ctypes.c_void_p])
+    fq, fkv = lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv
+    fq.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + tail
+    fkv.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + tail
+    fq.restype = fkv.restype = ctypes.c_int
+
+    def dq(q, k, v, do, lse, delta, causal=True, off=0):
+        B, H, S, hd = q.shape
+        out = torch.empty_like(q)
+        rc = fq(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), out.data_ptr(), B * H, S,
+                k.shape[2], hd, off, int(causal), hd ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"flash_attention_bwd_dq: cudaError {rc}")
+        return out
+
+    def dkv(q, k, v, do, lse, delta, causal=True, off=0):
+        B, H, S, hd = q.shape
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        rc = fkv(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), B * H, S, k.shape[2], hd, off, int(causal),
+                 hd ** -0.5, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"flash_attention_bwd_dkv: cudaError {rc}")
+        return dk, dv
+    return dq, dkv
+
+
+def bwd_calls(dq, dkv):
+    """What is timed for one build, on a (q, k, v, do, out, lse, delta)
+    copy: the dq kernel, the dk / dv kernel, the whole backward call."""
+    def call(q, k, v, do, o, lse, _):
+        delta = (do.float() * o.float()).sum(-1)
+        return dq(q, k, v, do, lse, delta), dkv(q, k, v, do, lse, delta)
+
+    return (lambda q, k, v, do, o, lse, d: dq(q, k, v, do, lse, d),
+            lambda q, k, v, do, o, lse, d: dkv(q, k, v, do, lse, d), call)
+
+
+def flash_bwd(torch, cs, runs):
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    gen = torch.Generator().manual_seed(cs.SEED + 42)
+    for tag, (dq, dkv) in runs.items():
+        for hd in (64, 128, 256):
+            for S, K, causal, off in cs.FLASH_BWD_CASES:
+                q, k, v, do, out, lse = cs.bwd_inputs(
+                    torch, fa, 2, 3, S, K, hd, torch.bfloat16, gen, causal,
+                    off)
+                delta = (do.float() * out.float()).sum(-1)
+                got = (dq(q, k, v, do, lse, delta, causal, off),
+                       *dkv(q, k, v, do, lse, delta, causal, off))
+                ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                 causal, q_position_offset=off)
+                torch.cuda.synchronize()
+                shares = [cs.grad_close(torch, g, r, "bfloat16")[1]
+                          for g, r in zip(got, ref)]
+                assert bool(torch.all(got[0][torch.isneginf(lse)] == 0))
+                print(f"check {tag} bwd bf16 hd={hd} S={S} K={K} causal="
+                      f"{causal} offset={off}: dq / dk / dv "
+                      f"{' / '.join(f'{x:.3f}' for x in shares)} of the "
+                      f"tolerance; ok", flush=True)
+    order = list(runs) + list(runs)[::-1]
+    for name, (B, H, S, hd) in FLASH_SHAPES:
+        copies = []
+        for _ in range(2):
+            q, k, v, do, out, lse = cs.bwd_inputs(torch, fa, B, H, S, S, hd,
+                                                  torch.bfloat16, gen)
+            copies.append((q, k, v, do, out, lse,
+                           (do.float() * out.float()).sum(-1)))
+        pairs = B * H * (S * (S + 1) // 2)
+        iters = max(3, int(3e13 // (14.0 * pairs * hd)))
+        got = {}
+        for tag in order:
+            got.setdefault(tag, []).append(tuple(
+                cs.runs_ms(torch, fn, copies, iters)[0]
+                for fn in bwd_calls(*runs[tag])))
+        graphs = []
+        for q, k, v, do, *_ in copies:
+            ins = tuple(t.detach().requires_grad_() for t in (q, k, v))
+            graphs.append((F.scaled_dot_product_attention(
+                *ins, is_causal=True), ins, do))
+        lib = cs.runs_ms(torch, lambda o, ins, do: torch.autograd.grad(
+            o, ins, do, retain_graph=True), graphs, iters)[0]
+        for tag, ms in got.items():
+            print(f"time flash bwd bf16 causal {name} [{B}, {H}, {S}, {hd}] "
+                  f"{tag}: dq {' / '.join(f'{t[0]:.4f}' for t in ms)} ms "
+                  f"({6.0 * pairs * hd / min(t[0] for t in ms) / 1e9:.1f} "
+                  f"TFLOP/s), dk/dv {' / '.join(f'{t[1]:.4f}' for t in ms)} "
+                  f"ms ({8.0 * pairs * hd / min(t[1] for t in ms) / 1e9:.1f}"
+                  f" TFLOP/s), call {' / '.join(f'{t[2]:.4f}' for t in ms)} "
+                  f"ms (SDPA backward {lib:.4f} ms)", flush=True)
+        del copies, graphs
 
 
 def qmm_entry(lib):
@@ -222,7 +366,8 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available() or len(sys.argv) < 3 or \
-            sys.argv[1] not in ("flash_attention", "quantized_matmul"):
+            sys.argv[1] not in ("flash_attention", "flash_attention_bwd",
+                                "quantized_matmul"):
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
     import chip_smoke as cs
@@ -230,19 +375,19 @@ def main() -> int:
 
     kernel, others = sys.argv[1], sys.argv[2:]
     print(cs.gpu_line(), flush=True)
-    libs = {"repo": (_build.load(kernel), [
-        ln.strip() for ln in _build.library_path(kernel).with_suffix(
-            ".log").read_text().splitlines()
-        if "registers" in ln or "spill" in ln or "C75" in ln])}
+    libs = {"repo": (_build.load(kernel), ptxas_lines(
+        _build.library_path(kernel).with_suffix(".log").read_text()))}
     with tempfile.TemporaryDirectory() as tmp:
-        for src in others:
-            libs[os.path.basename(src)] = build(src, tmp)
+        libs.update(build(others, tmp))
         for tag, (_, ptxas) in libs.items():
             for ln in ptxas:
                 print(f"ptxas {tag}: {ln}")
         if kernel == "flash_attention":
             flash(torch, cs, {tag: flash_runner(lib, torch)
                               for tag, (lib, _) in libs.items()})
+        elif kernel == "flash_attention_bwd":
+            flash_bwd(torch, cs, {tag: bwd_runner(lib, torch)
+                                  for tag, (lib, _) in libs.items()})
         else:
             qm = importlib.import_module(
                 "paddle_tpu_torch.ops.quantized_matmul")
