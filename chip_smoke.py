@@ -14,7 +14,9 @@ Phases, in order — any failure raises and exits non-zero:
    assembler's register/shared-memory report;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card at the serving shapes (f32 and bf16, ragged tables, unmapped
-   entries, fully-masked rows);
+   entries, fully-masked rows), and the paged kernel's split design at its
+   edges (a slot with no valid page, one whose split holds shares with no
+   valid key; two calls bit-equal);
 4. serve: ``GPTForCausalLM(gpt_small())`` at full GPT-2-small width with
    seeded random weights behind ``GenerationEngine(paged=True)`` — 16
    requests, two sharing a prefix; the kernel launch counts are zeroed just
@@ -24,7 +26,9 @@ Phases, in order — any failure raises and exits non-zero:
    near-tie, top-1 margin < 1e-4);
 5. timing: kernel / plain / library-call milliseconds at the decode shapes
    from CUDA events, beside the bandwidth/compute bound, engine tokens/s,
-   mean request latency and peak device memory;
+   mean request latency and peak device memory; the paged kernel's and the
+   gather + SDPA yardstick's device time from a CUDA graph (their eager
+   calls, which Python bounds, beside them);
 6. train kernels vs plain: ``layernorm_residual`` and
    ``softmax_cross_entropy`` against their plain versions at the training
    path's shapes (BERT-base bf16, GPT-small f32): ``s`` exactly equal,
@@ -58,7 +62,8 @@ Q1. ``quantized_matmul`` kernel vs plain at the path's four ``(K, N)``
     atol 1e-4 x max|out| (float32 sums in another order), each fp8
     shape's error printed as its share of that tolerance;
 Q2. ``paged_flash_decode`` over int8 and fp8 pools with their scale planes
-    vs the plain version at T = 1, 5, 16, 48, geometry as phase 3;
+    vs the plain version at T = 1, 5, 16, 48, geometry as phase 3, and the
+    split design's edges as phase 3's at T = 1 and 5;
 Q3. the phase-4 requests through ``GenerationEngine(quantized="int8")`` and
     again ``"fp8"``, over the SAME float model (checked bit-identical
     afterwards): every request completes, ``quantized_linear.launches`` =
@@ -70,7 +75,8 @@ Q3. the phase-4 requests through ``GenerationEngine(quantized="int8")`` and
     logit difference; a flip at a margin above tau fails the run);
 Q4. timing: both kernels, their plain versions and the library calls
     (``torch._int_mm`` where M > 16, ``torch._scaled_mm``; gather +
-    dequantize + ``scaled_dot_product_attention``) beside the bound, and
+    dequantize + ``scaled_dot_product_attention``) beside the bound (the
+    paged kernel and its yardstick timed as in phase 5), and
     the float / int8 / fp8 engines side by side; ``quantized_matmul`` at
     all four linears x M in {8, 40, 384} x both modes, its time and the
     library's the device time of a CUDA graph of the calls (the eager
@@ -172,7 +178,8 @@ LT3. card vs CPU: a 2-layer gpt_small-width model in float32 at 1 x 4096,
      one seeded init, two ``train_batch`` steps each (the card through
      kernels 4-6, the CPU through the dense path): both losses at rtol
      1e-4, every parameter's step-1 gradient within 1e-4 of its L2 norm;
-LT4. timing, bf16 causal, at the slice's and bench.py's op shapes: each
+LT4. timing, bf16 causal, at the slice's and bench.py's op shapes and at
+     [1, 8, 8192, 256]: each
      backward kernel beside its bound (6 and 8 flops a causal pair a head
      dim at 989 TFLOP/s), the port's backward call, the plain backward and
      the library's (``F.scaled_dot_product_attention`` backward through
@@ -185,10 +192,12 @@ M1. ``grouped_matmul`` (kernel 10) against its plain version: the slice's
     fc1 ``[8, 2560, 768] x [8, 768, 3072]`` and fc2 ``[8, 2560, 3072] x
     [8, 3072, 768]`` in bf16 with the group sizes of a real routing (a
     gpt_small-width ``MoELayer`` routing 8192 seeded rows) and with 0, C,
-    > C, negative and non-tile-multiple sizes; float32 at the serving
-    shapes (C = 16 and 80); the JAX test's ragged shape (E 3, C 80, D 16,
-    F 160, gs [80, 37, 0]) and one with D not a multiple of 8, both
-    dtypes.  Padding rows hold NaN and must come out exactly 0; two
+    > C, negative and non-tile-multiple sizes, and the 128-row tile's edges
+    (0, 1, 127, 128, 129, C - 1, C); float32 at the serving shapes (C = 16
+    and 80); the JAX test's ragged shape (E 3, C 80, D 16, F 160, gs [80,
+    37, 0]) and one with D not a multiple of 8, both dtypes, and one with F
+    not a multiple of 8 in bf16 (the first design's instance; each line
+    names the design that served it).  Padding rows hold NaN and must come out exactly 0; two
     launches bit-equal; every element within ``GMM_TOL`` (float32 1e-5
     |ref| + 1e-5 rms(ref); bf16 one bf16 step, 2^-7 |ref| + 1e-3
     rms(ref)); a wrong shape raises;
@@ -417,7 +426,40 @@ def check_kernels(torch):
             log(f"kernel paged_flash_decode {str(dtype)[6:]} T={T}: "
                 f"max_abs_err={err:.3e} vs plain (rtol={tol['rtol']}, "
                 f"atol={tol['atol']}) ok")
+        for T in (1, 5):
+            q, pools, tab, mask, _ = geometry(torch, T, dtype, gen)
+            paged_edges(torch, (q, *pools[0], tab, mask), tol,
+                        f"{str(dtype)[6:]} T={T}")
     return max_err
+
+
+def paged_edges(torch, args, tol, label):
+    """The split design's edges at the serving shapes: slot 7 with no valid
+    page, slot 6 with one (so every share of its split but one holds no
+    valid key), row 0 of slot 1 masked everywhere; against the plain
+    version, the dead rows exactly 0, two calls bit-equal."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, tab, mask = args[:5]
+    mask = mask.clone()
+    mask[7] = False
+    mask[6, :, PAGE:] = False
+    args = (q, k, v, tab, mask, *args[5:])
+    plan = pa._plan(B, H, q.shape[2], HD, PAGE, G, k.element_size(),
+                    pa._sm_count(q.device))
+    assert plan[0] == "split", plan
+    out = pa.paged_flash_decode(*args)
+    out2 = pa.paged_flash_decode(*args)
+    ref = pa.paged_flash_decode_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **tol)
+    assert torch.equal(out, out2), "two calls differ"
+    assert not bool(out[7].any()) and not bool(out[1, :, 0].any())
+    log(f"kernel paged_flash_decode {label} edges (plan {plan}: a slot with "
+        f"no valid page, a slot with one, so shares of its split hold no "
+        f"valid key; G = {G} pages over a split of {plan[1]}): "
+        f"max_abs_err={float((out.float() - ref.float()).abs().max()):.3e} "
+        f"vs plain, dead rows exactly 0, two calls bit-equal; ok")
 
 
 def greedy_margin_check(torch, model, prompt, served, vocab):
@@ -643,12 +685,32 @@ def quant_agreement(torch, model, mode, reqs, outs):
     del qmodel
 
 
-def timing(torch, gpu):
-    """Phase 5: kernel, plain and library times at the decode shapes."""
-    import torch.nn.functional as F
-
+def time_paged(torch, gpu, label, args, library, lib_name, bound_row):
+    """Kernel 1 at one serving shape: device time (CUDA graph) and the
+    eager call of the kernel and of the library's gather + attention, the
+    plain version's eager time."""
     from paddle_tpu_torch.ops.paged_attention import (
         paged_flash_decode, paged_flash_decode_ref)
+
+    ms = graph_ms(torch, paged_flash_decode, args, 50)
+    call = time_ms(torch, paged_flash_decode, args, 200)
+    plain = time_ms(torch, paged_flash_decode_ref, args, 20)
+    lib = graph_ms(torch, library, args, 20)
+    lib_call = time_ms(torch, library, args, 50)
+    b_ms, b_by, nbytes, flops = bound_row
+    log(f"timing[{gpu}] paged_flash_decode {label}: kernel {ms:.4f} ms "
+        f"(graph; eager call {call:.4f} ms), plain {plain:.4f} ms, library "
+        f"({lib_name}) {lib:.4f} ms "
+        f"(graph; eager {lib_call:.4f} ms), bound {b_ms:.4f} ms by {b_by} "
+        f"({nbytes} bytes, {flops:.0f} flops)")
+    return dict(ms=ms, call_ms=call, plain_ms=plain, library_ms=lib,
+                library_call_ms=lib_call, bound_ms=b_ms, bound_by=b_by)
+
+
+def timing(torch, gpu):
+    """Phase 5: kernel, plain and library times at the decode shapes
+    (float32 q and pools)."""
+    import torch.nn.functional as F
 
     def library(q, kp, vp, tab, mask):
         # yardstick only (never called by the port): gather the pages,
@@ -664,16 +726,9 @@ def timing(torch, gpu):
         q, pools, tab, mask, tab_raw = geometry(torch, T, torch.float32,
                                                 gen, n_copies=4)
         args = [(q, kp, vp, tab, mask) for kp, vp in pools]
-        ms = time_ms(torch, paged_flash_decode, args, 200)
-        plain = time_ms(torch, paged_flash_decode_ref, args, 20)
-        lib = time_ms(torch, library, args, 50)
-        b_ms, b_by, nbytes, flops = bound(q, tab_raw, mask)
-        log(f"timing[{gpu}] paged_flash_decode f32 B={B} H={H} T={T} "
-            f"hd={HD} page={PAGE} G={G}: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, library (gather+sdpa) {lib:.4f} ms, bound "
-            f"{b_ms:.4f} ms by {b_by} ({nbytes} bytes, {flops:.0f} flops)")
-        rows[T] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                       bound_by=b_by)
+        rows[T] = time_paged(
+            torch, gpu, f"f32 B={B} H={H} T={T} hd={HD} page={PAGE} G={G}",
+            args, library, "gather+sdpa", bound(q, tab_raw, mask))
     return rows
 
 
@@ -785,6 +840,9 @@ def check_kernels_quantized(torch):
             max_err = max(max_err, err)
             log(f"kernel paged_flash_decode {mode} pool, f32 q, T={T}: "
                 f"max_abs_err={err:.3e} vs plain (rtol=1e-4, atol=2e-5) ok")
+            if T in (1, 5):
+                paged_edges(torch, (q, k, v, tab, mask, ks, vs),
+                            dict(rtol=1e-4, atol=2e-5), f"{mode} pool T={T}")
     return max_err
 
 
@@ -795,8 +853,6 @@ def timing_quantized(torch, gpu):
     and operation rates."""
     import torch.nn.functional as F
 
-    from paddle_tpu_torch.ops.paged_attention import (
-        paged_flash_decode, paged_flash_decode_ref)
     from paddle_tpu_torch.ops.quantized_matmul import (_matmul_kernel,
                                                        _matmul_ref)
 
@@ -820,19 +876,11 @@ def timing_quantized(torch, gpu):
                 k, v, ks, vs = quantize_pools(torch, kp, vp, qdt)
                 args.append((q, k, v, tab, mask, ks, vs))
             del pools
-            ms = time_ms(torch, paged_flash_decode, args, 200)
-            plain = time_ms(torch, paged_flash_decode_ref, args, 20)
-            lib = time_ms(torch, attn_library, args, 50)
-            b_ms, b_by, nbytes, flops = bound(q, tab_raw, mask,
-                                              quantized=True)
-            log(f"timing[{gpu}] paged_flash_decode {mode} pool f32 q B={B} "
-                f"H={H} T={T} hd={HD} page={PAGE} G={G}: kernel {ms:.4f} "
-                f"ms, plain {plain:.4f} ms, library (gather+dequantize+"
-                f"sdpa) {lib:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
-                f"({nbytes} bytes, {flops:.0f} flops)")
-            rows[("paged", mode, T)] = dict(
-                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by)
+            rows[("paged", mode, T)] = time_paged(
+                torch, gpu, f"{mode} pool f32 q B={B} H={H} T={T} hd={HD} "
+                f"page={PAGE} G={G}", args, attn_library,
+                "gather+dequantize+sdpa",
+                bound(q, tab_raw, mask, quantized=True))
 
     def library_fn(mode, M):
         # one PyTorch call for the product alone (no epilogue); None where
@@ -2276,7 +2324,8 @@ def long_context_train_card_vs_cpu(torch):
 
 
 def timing_flash_bwd(torch, gpu):
-    """Phase LT4, bf16 causal at the slice's and bench.py's op shapes: the
+    """Phase LT4, bf16 causal at the slice's and bench.py's op shapes and
+    at [1, 8, 8192, 256] (where kernel 6 keeps its first design): the
     dq and dk / dv kernels, the port's whole backward call (delta + both
     kernels), the plain backward and the library's backward
     (F.scaled_dot_product_attention(is_causal=True) through
@@ -2293,7 +2342,8 @@ def timing_flash_bwd(torch, gpu):
     gen = torch.Generator().manual_seed(SEED + 33)
     rows = {}
     for label, (B, H, S, hd) in (("slice", (LC_B, 12, LC_S, 64)),
-                                 ("bench_op", BENCH_OP)):
+                                 ("bench_op", BENCH_OP),
+                                 ("hd256", (1, 8, 8192, 256))):
         scale = 1.0 / hd ** 0.5
         copies = []
         for _ in range(2):
@@ -2485,6 +2535,7 @@ def check_grouped_matmul(torch):
         f"capacity factor 1.25 fills the {MOE_E} experts' {C} slots with "
         f"{gs_train.tolist()} rows")
     edges = [0, C, C + 40, -3, 1, 127, 129, 2047]
+    tile_edges = [0, 1, 127, 128, 129, C, C - 1, 256]
     # serving's admission calls: prompt buckets 16 and 48 at batch 8 route
     # N = 128 / 384 rows at capacity factor E, so C = 256 / 768 (> 128: the
     # 64 x 64 float32 tile, not the small-C one of decode)
@@ -2503,6 +2554,12 @@ def check_grouped_matmul(torch):
              ("fc2 routed", MOE_E, C, 3072, 768, gs_train, "bfloat16"),
              ("fc1 edges", MOE_E, C, 768, 3072, edges, "bfloat16"),
              ("fc2 edges", MOE_E, C, 3072, 768, edges, "bfloat16"),
+             # the 128-row tile's edges: empty, one row, one short of, at
+             # and one past a tile, full, one short of full
+             ("fc1 tile edges", MOE_E, C, 768, 3072, tile_edges,
+              "bfloat16"),
+             ("fc2 tile edges", MOE_E, C, 3072, 768, tile_edges,
+              "bfloat16"),
              ("decode fc1", MOE_E, 16, 768, 3072, [16, 3, 0, 5, 1, 16, 2, 1],
               "float32"),
              ("verify fc2", MOE_E, 80, 3072, 768,
@@ -2511,7 +2568,8 @@ def check_grouped_matmul(torch):
              ("ragged", 3, 80, 16, 160, [80, 37, 0], "float32"),
              ("ragged", 3, 80, 16, 160, [80, 37, 0], "bfloat16"),
              ("D % 8 != 0", 3, 77, 13, 50, [77, 20, 1], "float32"),
-             ("D % 8 != 0", 3, 77, 13, 50, [77, 20, 1], "bfloat16")]
+             ("D % 8 != 0", 3, 77, 13, 50, [77, 20, 1], "bfloat16"),
+             ("F % 8 != 0", 3, 80, 16, 50, [80, 37, 0], "bfloat16")]
     gen = torch.Generator().manual_seed(SEED + 43)
     slice_err = 0.0
     for name, E, Cc, D, F, gs, dt in cases:
@@ -2520,8 +2578,10 @@ def check_grouped_matmul(torch):
         err, share = gmm_check(torch, gmm, x, w, tgs, dt)
         if "routed" in name or "edges" in name:
             slice_err = max(slice_err, err)
+        design = ("wgmma" if gmm._use_wgmma(x.dtype, D, F, True)
+                  else "first design")
         log(f"kernel grouped_matmul {dt} {name} [{E}, {Cc}, {D}] x [{E}, "
-            f"{D}, {F}] gs={tgs.tolist()}: max_abs_err={err:.3e}, "
+            f"{D}, {F}] ({design}) gs={tgs.tolist()}: max_abs_err={err:.3e}, "
             f"{share:.3f} of the tolerance (rel {GMM_TOL[dt][0]:.3g}, rms "
             f"{GMM_TOL[dt][1]:.3g}); padding rows (NaN in) exactly 0; two "
             f"launches bit-equal; ok")

@@ -16,36 +16,65 @@
 // of the slice (8 experts, C = 2560, D = 768, F = 3072, bf16) does
 // 2 * sum(gs) * D * F ~ 77 GFLOP on ~45 MB of valid rows, weights and
 // output, ~1700 flops a byte, far above the card's ~295 flop/byte bf16
-// ridge.  At decode (C = 16, f32) the weights dominate and it is bytes.
+// ridge: the goal is the tensor cores' rate, 989 TFLOP/s bf16, reached
+// only through wgmma.  At decode (C = 16, f32) the weights dominate and it
+// is bytes.
 //
-// What this first design does about it: one block per (output tile,
-// expert).  A block reads gs[e]; a tile whose first row is at or past it
-// stores zeros and does no product, so padding rows cost only their zero
-// store (the point of the TPU kernel, which masks them in VMEM).  Rows of
-// the padding inside a partial tile are loaded as zeros and stored as
-// zeros in the epilogue.  bf16: a 128 x 128 tile, 8 warps of 32 x 64,
-// mma.sync m16n8k16 (bf16 in, float32 accumulators: bf16 products are
-// exact in float32, so this is the TPU's "upcast, then float32 dot" up to
-// the order of summation); x and w stream through shared memory in
-// 32-deep k tiles, double-buffered through registers, and w's [D, F]-major
-// fragments come transposed by ldmatrix.trans.  float32: FMAs on the CUDA
-// cores (TF32 is off by the port's rule), a 64 x 64 tile of 4 x 4 outputs
-// a thread; at C <= 128 (serving's decode and verify steps, bound by the
-// bytes of w) a 16 x 64 tile whose D loop four thread groups share, their
-// partial sums added in a fixed order.  Any C, D and F: edges are checked,
-// and 16-byte loads are used where the widths allow.  No split-K across
-// blocks and no atomics: two runs give the same bits.  Not done yet (later
-// work):
-// cp.async / TMA with an mbarrier pipeline, wgmma, a persistent schedule
-// over the valid tiles only.
+// bf16 with D and F multiples of 8 and 16-byte-aligned bases, what TMA
+// takes (gmm_bf16_wgmma_kernel, entry grouped_matmul_wgmma; the wrapper
+// chooses it by shape, up front):
+//   * flash_attention.cu's warp-specialised block (hopper_sm90.cuh): a
+//     producer warpgroup, one thread of which keeps a ring of stages full
+//     by TMA (x as 128-row x 64-k boxes of a [E, C, D] tensor map, w as
+//     64-k x 64-column boxes of a [E, D, F] one, 128-byte swizzled), and
+//     two consumer warpgroups of 64 rows that run wgmma m64n128k16 with
+//     both operands in shared memory: x K-major, w MN-major through the
+//     transpose bit, so w is never transposed in memory.  128 x 128 tiles
+//     (128 x 256 measured no faster at fc1 and 10% slower at fc2, whose
+//     F = 768 then leaves 3 column tiles), 5 stages;
+//   * persistent: one block per SM walks the tiles, each block taking
+//     every gridDim-th; first the tiles that hold some row below gs[e]
+//     (expert by expert; counted on the device from gs, no host sync),
+//     then the tiles wholly past their group, whose only cost is a zero
+//     store by the consumers (no load, no product).  The producer runs
+//     ahead across tiles, so a tile's epilogue overlaps the next tile's
+//     loads;
+//   * epilogue: the float32 sums rounded to bf16 once, rows at or past
+//     gs[e] of a partial tile stored as 0 (output row r depends on x's row
+//     r alone, so a NaN in padding reaches no valid row), written to
+//     shared memory in TMA's swizzled layout and stored by TMA, so the
+//     consumers start the next tile while the store runs (stored from
+//     registers, 4 bytes a thread, the epilogue took as long as fc1's
+//     short k loop).  No split-K and no atomics: two runs give the same
+//     bits.
+//
+// The first design (gmm_bf16_kernel / gmm_f32_kernel / gmm_f32_small_kernel,
+// entry grouped_matmul), kept for float32 and for bf16 off TMA's grid: one
+// block per (output tile, expert); a tile whose first row is at or past
+// gs[e] stores zeros and does no product.  Rows of the padding inside a
+// partial tile are loaded as zeros and stored as zeros in the epilogue.
+// bf16: a 128 x 128 tile, 8 warps of 32 x 64, mma.sync m16n8k16 (bf16 in,
+// float32 accumulators: bf16 products are exact in float32, so this is the
+// TPU's "upcast, then float32 dot" up to the order of summation); x and w
+// stream through shared memory in 32-deep k tiles, double-buffered through
+// registers, and w's [D, F]-major fragments come transposed by
+// ldmatrix.trans.  float32: FMAs on the CUDA cores (TF32 is off by the
+// port's rule), a 64 x 64 tile of 4 x 4 outputs a thread; at C <= 128
+// (serving's decode and verify steps, bound by the bytes of w) a 16 x 64
+// tile whose D loop four thread groups share, their partial sums added in a
+// fixed order.  Any C, D and F: edges are checked, and 16-byte loads are
+// used where the widths allow.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC (paddle_tpu_torch/ops/_build.py); plain C entry,
+//        -Xcompiler -fPIC (paddle_tpu_torch/ops/_build.py); plain C entries,
 // bound with ctypes.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_sm90.cuh"
 
 namespace {
 
@@ -452,6 +481,241 @@ __global__ void __launch_bounds__(kSThreads) gmm_f32_small_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on Hopper: a persistent walk over the tiles, a TMA ring, wgmma
+// ---------------------------------------------------------------------------
+constexpr int kWM = 128;  // rows a tile: two consumer warpgroups of 64
+constexpr int kWN = 128;  // columns a tile: two 64-column atoms of w
+constexpr int kWK = 64;   // k a stage: one 128-byte swizzle atom of x
+constexpr int kWStages = 5;
+
+struct WParams {
+  const int* gs;
+  __nv_bfloat16* y;
+  int E, C, D, F, tiles_m, tiles_n;
+};
+
+__device__ __forceinline__ int wgroup_rows(const WParams& p, int e) {
+  const int g = p.gs[e];
+  return g < 0 ? 0 : (g > p.C ? p.C : g);
+}
+
+// Row tiles of expert e that hold a valid row.
+__device__ __forceinline__ int valid_row_tiles(const WParams& p, int e) {
+  return (wgroup_rows(p, e) + kWM - 1) / kWM;
+}
+
+// The tiles of the walk in order: index i < n_valid is a tile with valid
+// rows (expert by expert, then row tile, then column tile), the rest are
+// tiles wholly past their group.  A block visits increasing i, so the
+// expert cursor only moves forward.
+struct TileWalk {
+  int e = 0, base = 0;
+  __device__ __forceinline__ void valid(const WParams& p, int i, int& ex,
+                                        int& mt, int& nt) {
+    const int u = i / p.tiles_n;
+    nt = i - u * p.tiles_n;
+    for (int v = valid_row_tiles(p, e); u >= base + v;
+         v = valid_row_tiles(p, e)) {
+      base += v;
+      ++e;
+    }
+    ex = e;
+    mt = u - base;
+  }
+  __device__ __forceinline__ void past(const WParams& p, int z, int& ex,
+                                       int& mt, int& nt) {
+    const int u = z / p.tiles_n;
+    nt = z - u * p.tiles_n;
+    for (int v = p.tiles_m - valid_row_tiles(p, e); u >= base + v;
+         v = p.tiles_m - valid_row_tiles(p, e)) {
+      base += v;
+      ++e;
+    }
+    ex = e;
+    mt = valid_row_tiles(p, e) + u - base;
+  }
+};
+
+// Shared memory (1024-byte aligned, the swizzle's period): kWStages stages
+// of x [128 rows][64 k] (one atom) and w [2 atoms][64 k][64 columns], each
+// consumer warpgroup's output staging [2 atoms][64 rows][64 columns]
+// (swizzled as TMA stores it), then the barriers.  Warps 0-7 are two
+// consumer warpgroups of 64 rows; warpgroup 2 is the producer.  A consumer
+// thread (g = lane / 4, t = lane % 4) of warp w holds rows 16 w + g and + 8,
+// columns 8 j + 2 t, + 1 of its m64n128 accumulator.
+constexpr int kWXBytes = kWM * kWK * 2;
+constexpr int kWStage = kWXBytes + kWK * kWN * 2;
+constexpr int kWYBytes = 64 * kWN * 2;  // a warpgroup's staged output
+constexpr int kWSmem = 1024 + kWStages * kWStage + 2 * kWYBytes +
+                       2 * kWStages * 8;
+
+__global__ void __launch_bounds__(sm90::kThreadsWg, 1)
+gmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap tw,
+                      const __grid_constant__ CUtensorMap ty, WParams p) {
+  constexpr int BN = kWN, ST = kWStages, STAGE = kWStage;
+  constexpr int X_BYTES = kWXBytes, Y_BYTES = kWYBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = sm90::smem_1024(smem_raw);
+  unsigned char* stage_out = ring + ST * STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage_out + 2 * Y_BYTES);
+  uint64_t* empty = full + ST;
+
+  int vt = 0;
+  for (int e = 0; e < p.E; ++e) vt += valid_row_tiles(p, e);
+  const int n_valid = vt * p.tiles_n;
+  const int n_tiles = p.E * p.tiles_m * p.tiles_n;
+  const int n_kt = (p.D + kWK - 1) / kWK;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      sm90::mbar_init(&full[i], 1);
+      sm90::mbar_init(&empty[i], sm90::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= sm90::kConsumers) {  // the producer warpgroup
+    sm90::producer_regs();
+    if (threadIdx.x == sm90::kConsumers) {
+      TileWalk walk;
+      int it = 0;  // stages filled so far, across tiles
+      for (int i = blockIdx.x; i < n_valid; i += gridDim.x) {
+        int e, mt, nt;
+        walk.valid(p, i, e, mt, nt);
+        for (int kt = 0; kt < n_kt; ++kt, ++it) {
+          const int st = it % ST;
+          if (it >= ST) sm90::mbar_wait(&empty[st], (it / ST - 1) & 1);
+          sm90::mbar_expect_tx(&full[st], STAGE);
+          unsigned char* xs = ring + st * STAGE;
+          sm90::tma_load(xs, &tx, &full[st], kt * kWK, mt * kWM, e);
+#pragma unroll
+          for (int a = 0; a < BN / 64; ++a)
+            sm90::tma_load(xs + X_BYTES + a * kWK * 128, &tw, &full[st],
+                           nt * BN + 64 * a, kt * kWK, e);
+        }
+      }
+    }
+    return;
+  }
+  sm90::consumer_regs();
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  TileWalk walk, past;
+  int it = 0;  // stages consumed so far, across tiles
+  float acc[BN / 2];
+  int i = blockIdx.x;
+  for (; i < n_valid; i += gridDim.x) {
+    int e, mt, nt;
+    walk.valid(p, i, e, mt, nt);
+#pragma unroll
+    for (int v = 0; v < BN / 2; ++v) acc[v] = 0.f;
+    // each stage's four k16 products are committed as one group; the
+    // stage before is released once at most that group is in flight
+    for (int kt = 0; kt < n_kt; ++kt, ++it) {
+      const int st = it % ST;
+      sm90::mbar_wait(&full[st], (it / ST) & 1);
+      const unsigned char* xs = ring + st * STAGE + wg * 64 * 128;
+      const unsigned char* ws = ring + st * STAGE + X_BYTES;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWK / 16; ++kk)
+        sm90::wgmma_ss_tb_n128(acc, sm90::sw128_desc(xs + kk * 32, 16, 1024),
+                               sm90::sw128_desc(ws + kk * 2048, kWK * 128,
+                                                1024),
+                               1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      if (kt > 0) sm90::mbar_arrive(&empty[(it - 1) % ST]);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::reg_fence(acc);
+    if (n_kt > 0) sm90::mbar_arrive(&empty[(it - 1) % ST]);
+
+    // epilogue: valid rows rounded to bf16 once, padding rows 0, staged
+    // in shared memory and stored by TMA (rows past C and columns past F
+    // are clipped); the warpgroup's next tile starts while the store runs
+    const int rows = wgroup_rows(p, e);
+    unsigned char* out = stage_out + wg * Y_BYTES;
+    if (threadIdx.x % 128 == 0) sm90::bulk_wait_read<0>();  // out is free
+    sm90::named_sync(1 + wg, 128);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int rl = warp * 16 + g + 8 * rr;  // row in the warpgroup's 64
+      const bool ok = mt * kWM + wg * 64 + rl < rows;
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+        *reinterpret_cast<uint32_t*>(
+            out + (n >> 3) * 64 * 128 + rl * 128 +
+            (((n & 7) ^ (rl & 7)) << 4) + 4 * t) =
+            ok ? sm90::pack_bf16(acc[4 * n + 2 * rr], acc[4 * n + 2 * rr + 1])
+               : 0u;
+    }
+    sm90::fence_async_smem();
+    sm90::named_sync(1 + wg, 128);
+    if (threadIdx.x % 128 == 0) {
+#pragma unroll
+      for (int a = 0; a < BN / 64; ++a)
+        sm90::tma_store(&ty, out + a * 64 * 128, nt * BN + 64 * a,
+                        mt * kWM + wg * 64, e);
+      sm90::bulk_commit();
+    }
+  }
+  // then the tiles wholly past their group: zeros, 16 bytes a store
+  for (; i < n_tiles; i += gridDim.x) {
+    int e, mt, nt;
+    past.past(p, i - n_valid, e, mt, nt);
+    __nv_bfloat16* y = p.y + (size_t)e * p.C * p.F + nt * BN;
+    const int chunks = min(BN, p.F - nt * BN) / 8;  // 8 columns a chunk
+    for (int o = threadIdx.x; o < kWM * (BN / 8); o += sm90::kConsumers) {
+      const int r = mt * kWM + o / (BN / 8), c = o % (BN / 8);
+      if (r < p.C && c < chunks)
+        *reinterpret_cast<uint4*>(y + (size_t)r * p.F + 8 * c) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  if (threadIdx.x % 128 == 0) sm90::bulk_wait<0>();  // the last stores
+}
+
+cudaError_t launch_wgmma(const void* x, const void* w, const int* gs,
+                         void* y, int E, int C, int D, int F,
+                         cudaStream_t stream) {
+  CUtensorMap tx, tw, ty;
+  cudaError_t e = sm90::tensor_map(&tx, x, E, C, D, kWM);
+  if (e == cudaSuccess) e = sm90::tensor_map(&tw, w, E, D, F, kWK);
+  if (e == cudaSuccess) e = sm90::tensor_map(&ty, y, E, C, F, 64);
+  if (e != cudaSuccess) return e;
+  // per device, on its first call: the SM count, and the kernel's shared
+  // memory allowed (outside any CUDA graph capture)
+  static int sms_of[64] = {0};
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (sms_of[dev] == 0) {
+    e = cudaDeviceGetAttribute(&sms_of[dev],
+                               cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(gmm_bf16_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kWSmem);
+    if (e != cudaSuccess) {
+      sms_of[dev] = 0;
+      return e;
+    }
+  }
+  const WParams p{gs, static_cast<__nv_bfloat16*>(y), E, C, D, F,
+                  (C + kWM - 1) / kWM, (F + kWN - 1) / kWN};
+  const long long tiles = (long long)E * p.tiles_m * p.tiles_n;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms_of[dev] ? tiles : sms_of[dev]);
+  gmm_bf16_wgmma_kernel<<<grid, sm90::kThreadsWg, kWSmem, stream>>>(tx, tw,
+                                                                     ty, p);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
 }
@@ -498,5 +762,23 @@ extern "C" int grouped_matmul(int dtype, const void* x, const void* w,
 }
 
 extern "C" const char* grouped_matmul_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// bf16 on the TMA ring and wgmma.  Layouts as grouped_matmul's (bfloat16
+// only).  It takes D and F multiples of 8 (D >= 8) and 16-byte-aligned x,
+// w, y, what TMA needs (grouped_matmul.py's choice); anything else returns
+// cudaErrorInvalidValue.
+extern "C" int grouped_matmul_wgmma(const void* x, const void* w,
+                                    const void* gs, void* y, int E, int C,
+                                    int D, int F, void* stream) {
+  if (E <= 0 || E > 65535 || C <= 0 || D < 8 || D % 8 != 0 || F < 8 ||
+      F % 8 != 0 || !aligned16(x) || !aligned16(w) || !aligned16(y))
+    return cudaErrorInvalidValue;
+  return launch_wgmma(x, w, static_cast<const int*>(gs), y, E, C, D, F,
+                      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" const char* grouped_matmul_wgmma_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

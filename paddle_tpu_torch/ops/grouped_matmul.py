@@ -12,12 +12,20 @@ in one launch, with every row at or past ``group_sizes[e]`` exactly 0 —
 downstream combine sums can trust the padding without re-masking.  The
 product is float32 from upcast operands; the result is in ``x``'s dtype.
 
-On the card the forward is the hand-written CUDA kernel
+On the card the forward is a hand-written CUDA kernel of
 ``ops/csrc/grouped_matmul.cu`` (``sm_90a``, built with nvcc on first use,
-bound with ctypes): one block per (output tile, expert); a tile wholly
-past the group stores zeros and does no product; bf16 on the tensor cores
-(mma.sync), float32 on FMAs; no split-K across blocks and no atomics, so
-two runs give the same bits.  :func:`grouped_matmul_ref` is the plain
+bound with ctypes), chosen by :func:`_use_wgmma` from the shape, up
+front: bf16 with D and F multiples of 8 and 16-byte-aligned x and w (what
+TMA needs; every MoE shape the port runs) takes the Hopper design
+(``grouped_matmul_wgmma``): one persistent block per SM walks the tiles
+that hold valid rows (counted from ``group_sizes`` on the device), a
+producer warpgroup keeps a TMA ring full and two consumer warpgroups run
+wgmma; tiles wholly past their group cost only a zero store.  Everything
+else — float32 (FMAs on the CUDA cores) and bf16 off that grid
+(mma.sync) — takes the first design (``grouped_matmul``): one block per
+(output tile, expert), a tile wholly past the group storing zeros.  No
+split-K across blocks and no atomics in either, so two runs give the same
+bits.  :func:`grouped_matmul_ref` is the plain
 PyTorch version of the same function — the CPU path and the yardstick the
 kernel is held to on the card; the public op takes it only for tensors
 that lie on the CPU.  A CUDA tensor always goes to the kernel: a build or
@@ -45,7 +53,16 @@ __all__ = ["grouped_matmul", "grouped_matmul_ref"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
+_wgmma_fn = None
 _fn_lock = threading.Lock()
+
+
+def _use_wgmma(dtype, D: int, F: int, aligned: bool) -> bool:
+    """Does a call take the Hopper design?  bf16 with D and F multiples of
+    8 (D >= 8: TMA's 16-byte row strides) and 16-byte-aligned x, w and y
+    (``aligned``); everything else takes the first design."""
+    return (dtype == torch.bfloat16 and aligned and D >= 8 and D % 8 == 0
+            and F % 8 == 0)
 
 
 def _check(x, w, group_sizes):
@@ -95,7 +112,7 @@ def grouped_matmul_ref(x, w, group_sizes, *, block_m: Optional[int] = None,
 
 
 def _kernel_fn():
-    """The C entry of the built library (see :func:`_build.entry`)."""
+    """The first design's C entry (see :func:`_build.entry`)."""
     global _fn
     with _fn_lock:
         if _fn is None:
@@ -103,6 +120,17 @@ def _kernel_fn():
                                [ctypes.c_int] + [ctypes.c_void_p] * 4
                                + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         return _fn
+
+
+def _wgmma_kernel_fn():
+    """The Hopper design's C entry (bf16)."""
+    global _wgmma_fn
+    with _fn_lock:
+        if _wgmma_fn is None:
+            _wgmma_fn = _build.entry("grouped_matmul", "grouped_matmul_wgmma",
+                                     [ctypes.c_void_p] * 4
+                                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        return _wgmma_fn
 
 
 def _forward_kernel(x, w, group_sizes):
@@ -129,11 +157,16 @@ def _forward_kernel(x, w, group_sizes):
         return y
     # int32 on the device: a host round trip would sync the step
     gs = group_sizes.to(torch.int32).contiguous()
-    fn = _kernel_fn()
+    wgmma = _use_wgmma(x.dtype, D, F, all(t.data_ptr() % 16 == 0
+                                          for t in (x, w, y)))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        fn(_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), gs.data_ptr(),
-           y.data_ptr(), E, C, D, F, stream)
+        if wgmma:
+            _wgmma_kernel_fn()(x.data_ptr(), w.data_ptr(), gs.data_ptr(),
+                               y.data_ptr(), E, C, D, F, stream)
+        else:
+            _kernel_fn()(_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
+                         gs.data_ptr(), y.data_ptr(), E, C, D, F, stream)
     grouped_matmul.launches += 1
     return y
 
@@ -178,7 +211,8 @@ def grouped_matmul(x, w, group_sizes, *, block_m: Optional[int] = None,
     ``w``; ``group_sizes`` gets no gradient.  ``block_m`` / ``block_n``
     are kept only so that callers written for the JAX op (whose tiles
     the autotuner picks) run unchanged; they are ignored, and no caller
-    in the port passes them: the kernel's tiles are fixed by dtype.
+    in the port passes them: the kernels' tiles are fixed by dtype and
+    shape (:func:`_use_wgmma`).
 
     CPU tensors take :func:`grouped_matmul_ref`'s arithmetic.  CUDA
     tensors launch the kernel on the current stream (it does not

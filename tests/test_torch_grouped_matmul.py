@@ -9,9 +9,12 @@ and with group sizes past C and negative.  float32 at rtol / atol 1e-5
 (``tests/test_moe.py``'s tolerance); bf16 within one bf16 step: both
 round one float32 sum once.  Padding rows are exactly 0, NaN padding
 included; ``group_sizes`` gets no gradient; the argument errors are the
-JAX op's.  On the card (``gpu``), the CUDA kernel against the plain
-version at the MoE slice's shapes.
+JAX op's; the wrapper's choice between the Hopper (wgmma) design and the
+first design is a decision table.  On the card (``gpu``), the CUDA kernels
+against the plain version at the MoE slice's shapes, the group-size edges
+of the 128-row tile and widths off the 8 grid.
 """
+import importlib
 import types
 
 import jax
@@ -27,6 +30,7 @@ from paddle_tpu_torch.moe import MoELayer
 from paddle_tpu_torch.ops.grouped_matmul import (grouped_matmul,
                                                  grouped_matmul_ref)
 
+gmm_mod = importlib.import_module("paddle_tpu_torch.ops.grouped_matmul")
 E, C, D, F = 3, 80, 16, 160
 BLOCKS = dict(block_m=32, block_n=128)
 GROUPS = {"jax_test": [80, 37, 0], "past_c_and_negative": [100, 37, -5],
@@ -216,3 +220,68 @@ def test_kernel_matches_plain_on_card(case):
     _close(y, ref, dtype)
     with pytest.raises(InvalidArgumentError):
         grouped_matmul(x, w[:, :-1], tgs)
+
+
+def test_wgmma_decision_table():
+    """``_use_wgmma``: the Hopper design or the first design, by dtype, D,
+    F and alignment, decided before the launch."""
+    bf, f32 = torch.bfloat16, torch.float32
+    table = [
+        ((bf, 768, 3072, True), True),     # the slice's fc1
+        ((bf, 3072, 768, True), True),     # fc2
+        ((bf, 16, 160, True), True),       # the JAX test's shape
+        ((bf, 8, 8, True), True),
+        ((bf, 13, 50, True), False),       # D % 8 != 0
+        ((bf, 16, 50, True), False),       # F % 8 != 0
+        ((bf, 0, 64, True), False),        # no k: nothing for TMA to load
+        ((bf, 768, 3072, False), False),   # unaligned base
+        ((f32, 768, 3072, True), False),   # float32 stays SIMT
+    ]
+    for args, want in table:
+        assert gmm_mod._use_wgmma(*args) is want, (args, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(768, 3072), (3072, 768)],
+                         ids=["fc1", "fc2"])
+def test_wgmma_group_size_edges_on_card(dims):
+    """The slice's shapes through the Hopper design with group sizes 0, 1,
+    127, 128, 129 and C (tiles empty, of one row, one short of, exactly at
+    and one past the 128-row tile, full); padding rows NaN in, exactly 0
+    out; two calls bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    D_, F_ = dims
+    gs = [0, 1, 127, 128, 129, 2560, 2047, 640]
+    x, w, tgs = _card_case(8, 2560, D_, F_, gs, torch.bfloat16, D_ + 7)
+    assert gmm_mod._use_wgmma(x.dtype, D_, F_, True)
+    valid = (torch.arange(2560, device="cuda")[None, :]
+             < tgs.clamp(0, 2560)[:, None])
+    x[~valid] = float("nan")
+    y, y2 = grouped_matmul(x, w, tgs), grouped_matmul(x, w, tgs)
+    ref = grouped_matmul_ref(x, w, tgs)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    assert not bool(y[~valid].any()) and not bool(torch.isnan(y).any())
+    _close(y, ref, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (3, 77, 13, 50, [77, 20, 1]),     # D and F off the 8 grid
+    (3, 80, 16, 50, [80, 37, 0]),     # F off it
+    (2, 130, 24, 40, [130, 129]),     # D, F on it, ragged C: wgmma
+])
+def test_bf16_designs_at_ragged_widths_on_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    E_, C_, D_, F_, gs = case
+    x, w, tgs = _card_case(E_, C_, D_, F_, gs, torch.bfloat16, sum(case[:4]))
+    valid = (torch.arange(C_, device="cuda")[None, :]
+             < tgs.clamp(0, C_)[:, None])
+    x[~valid] = float("nan")
+    y, y2 = grouped_matmul(x, w, tgs), grouped_matmul(x, w, tgs)
+    ref = grouped_matmul_ref(x, w, tgs)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and not bool(y[~valid].any())
+    _close(y, ref, torch.bfloat16)

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time the port's flash-attention forward or backward or quantized_matmul
-against other builds of the same C entries, in one process on one card.
+"""Time the port's kernels against other builds of the same C entries, in
+one process on one card.
 
     python3 tools/torch_kernel_ab.py flash_attention OTHER.cu [OTHER.cu ...]
     python3 tools/torch_kernel_ab.py flash_attention_bwd OTHER.cu [...]
     python3 tools/torch_kernel_ab.py quantized_matmul OTHER.cu [OTHER.cu ...]
+    python3 tools/torch_kernel_ab.py paged_attention OTHER.cu [...]
+    python3 tools/torch_kernel_ab.py grouped_matmul OTHER.cu [...]
 
 ``OTHER.cu`` is another version of ``paddle_tpu_torch/ops/csrc/<kernel>.cu``
-with the same C entry, for example an earlier commit's
+with the same C entries, for example an earlier commit's
 (``git show <commit>:paddle_tpu_torch/ops/csrc/flash_attention.cu >
 old.cu``).  Each is built with the port's ``nvcc`` flags (and the
 package's ``csrc`` on the include path, for its shared headers) beside the
@@ -36,7 +38,24 @@ max|out|), then timed in turns (repo, others, others reversed, repo):
   in turn behind ``quantized_linear``, four times (tokens/s and mean
   latency; the phase's launch and agreement checks run every time).  The
   kernel lines add the eager call's time (``chip_smoke.time_ms``), which
-  the host's per-call work bounds.
+  the host's per-call work bounds;
+* paged_attention: every design a build holds — the first design's entry
+  ``paged_flash_decode`` and, where the build has it, the split design's
+  ``paged_flash_decode_split`` at splits 1, 2, 4 and 8 — against ``paged_flash_decode_ref`` at ``chip_smoke``'s
+  serving geometry (T = 1, 5, 16, 48; float32 q over float, int8 and fp8
+  pools; rtol 1e-4 / atol 2e-5, fully masked rows exactly 0), then timed
+  at the same shapes: device time of a CUDA graph of the calls, inputs
+  rotated past the L2, beside the gather + SDPA yardstick of phases 5 /
+  Q4; then the float, int8, fp8 and MoE engines of phases 4, Q3 and M4,
+  each build in turn behind ``paged_flash_decode``, four times (tokens/s,
+  mean and p99 latency; the phases' launch and token checks run every
+  time);
+* grouped_matmul: the bf16 first design (entry ``grouped_matmul``) and,
+  where the build has it, ``grouped_matmul_wgmma``, against ``grouped_matmul_ref`` at phase M1's slice cases (a real
+  routing's group sizes and the 0 / 1 / 127 / 128 / 129 / C edges, padding
+  rows NaN: exactly 0 out, two launches bit-equal, ``GMM_TOL``), then timed
+  at the slice's fc1 / fc2 with the real routing (CUDA events over two
+  input copies, median of 3 runs), beside ``torch.bmm``.
 
 Prints one line per check and per timing, each build's ptxas register and
 spill report, and the card's name and power limit first.  Exits non-zero
@@ -362,12 +381,273 @@ def qmm_engines(torch, cs, entries):
         qm._fn = own
 
 
+def paged_runners(lib, torch):
+    """{design: caller} of a build's paged entries (the wrapper's
+    arguments): the first design, and the split design at several splits
+    and ring depths where the build has it."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    tail = [ctypes.c_float, ctypes.c_void_p]
+    first = lib.paged_flash_decode
+    first.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                      + [ctypes.c_int] * 8 + tail)
+    first.restype = ctypes.c_int
+
+    def head(q, k, v, tab, mask, ks, vs):
+        B, H, T, hd = q.shape
+        out = torch.empty_like(q)
+        codes = (pa._DTYPES[q.dtype],
+                 pa._QUANT_DTYPES.get(k.dtype, pa._DTYPES.get(k.dtype)))
+        return out, (*codes, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     None if ks is None else ks.data_ptr(),
+                     None if vs is None else vs.data_ptr(), tab.data_ptr(),
+                     mask.view(torch.uint8).data_ptr(), out.data_ptr(), B,
+                     H, T, hd, k.shape[2])
+
+    def call_first(q, k, v, tab, mask, ks=None, vs=None):
+        out, args = head(q, k, v, tab, mask, ks, vs)
+        rc = first(*args, k.shape[2], tab.shape[1], k.shape[0],
+                   q.shape[3] ** -0.5,
+                   torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"paged_flash_decode: cudaError {rc}")
+        return out
+
+    runs = {"first design": call_first}
+    if not hasattr(lib, "paged_flash_decode_split"):
+        return runs
+    split = lib.paged_flash_decode_split
+    split.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                      + [ctypes.c_int] * 7 + [ctypes.c_float]
+                      + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    split.restype = ctypes.c_int
+
+    def split_run(S):
+        def run(q, k, v, tab, mask, ks=None, vs=None):
+            out, args = head(q, k, v, tab, mask, ks, vs)
+            rc = split(*args, tab.shape[1], k.shape[0], q.shape[3] ** -0.5,
+                       S, pa._tile_rows(q.shape[2], q.shape[3]),
+                       torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"paged_flash_decode_split: cudaError "
+                                   f"{rc}")
+            return out
+        return run
+
+    for S in (1, 2, 4, 8):
+        runs[f"split {S}"] = split_run(S)
+    return runs
+
+
+def paged(torch, cs, runs):
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    def library(q, k, v, tab, mask, ks=None, vs=None):
+        # chip_smoke's phase 5 / Q4 yardstick: gather (and dequantize),
+        # then PyTorch's fused attention
+        def view(pool, sc):
+            x = pool[tab.long()]
+            if sc is not None:
+                x = x.float() * sc[tab.long()][..., None]
+            return x.permute(0, 2, 1, 3, 4).reshape(cs.B, cs.H,
+                                                    cs.G * cs.PAGE, cs.HD)
+        return F.scaled_dot_product_attention(
+            q, view(k, ks), view(v, vs), attn_mask=mask[:, None])
+
+    gen = torch.Generator().manual_seed(cs.SEED + 50)
+    pools = {"float": None, "int8": torch.int8, "fp8": torch.float8_e4m3fn}
+    for pool, qdt in pools.items():
+        for T in (1, 5, 16, 48):
+            q, kv, tab, mask, _ = cs.geometry(torch, T, torch.float32, gen,
+                                              n_copies=4)
+            args = []
+            for kp, vp in kv:
+                extra = (() if qdt is None else
+                         cs.quantize_pools(torch, kp, vp, qdt))
+                args.append((q, *(extra[:2] or (kp, vp)), tab, mask,
+                             *extra[2:]))
+            del kv
+            ref = pa.paged_flash_decode_ref(*args[0])
+            dead = ~mask.any(-1)
+            for tag, designs in runs.items():
+                for name, fn in designs.items():
+                    out = fn(*args[0])
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(out, ref, rtol=1e-4,
+                                               atol=2e-5)
+                    assert not bool(out.permute(0, 2, 1, 3)[dead].any())
+            got = {}
+            for tag in list(runs) + list(runs)[::-1]:
+                for name, fn in runs[tag].items():
+                    got.setdefault((tag, name), []).append(
+                        cs.graph_ms(torch, fn, args, 50))
+            lib = cs.graph_ms(torch, library, args, 20)
+            for (tag, name), ms in got.items():
+                print(f"time paged_flash_decode {pool} pool, f32 q, T={T} "
+                      f"(checked) {tag} {name}: "
+                      f"{' / '.join(f'{t:.4f}' for t in ms)} ms (gather + "
+                      f"SDPA {lib:.4f} ms)", flush=True)
+            del args
+
+
+def paged_engines(torch, cs, libs):
+    """Phase 4's float engine, phase Q3's int8 / fp8 engines and phase M4's
+    MoE engine, each build in turn behind ``paged_flash_decode`` (the
+    repo's as the wrapper plans it; another build through its split entry
+    where it has one, else its first design), four turns a build: how much
+    of the kernel's time reaches tokens/s."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    def entry(lib, symbol, argtypes):
+        fn = getattr(lib, symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+
+        def call(*args):
+            rc = fn(*args)
+            if rc:
+                raise RuntimeError(f"{symbol}: cudaError {rc}")
+        return call
+
+    first_types = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+    split_types = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 7 + [ctypes.c_float]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    gpu = cs.gpu_line()
+    own = (pa._kernel_fn(), pa._split_kernel_fn(), pa._plan)
+    swaps = {"repo": own}
+    for tag, lib in libs.items():
+        if tag == "repo":
+            continue
+        if hasattr(lib, "paged_flash_decode_split"):
+            swaps[tag] = (entry(lib, "paged_flash_decode", first_types),
+                          entry(lib, "paged_flash_decode_split",
+                                split_types), pa._plan)
+        else:
+            swaps[tag] = (entry(lib, "paged_flash_decode", first_types),
+                          None, lambda B, H, T, hd, page, *_:
+                          ("first", pa._page_chunk(page, hd)))
+    order = (list(swaps) + list(swaps)[::-1]) * 2
+    model = cs.build_serve_model(torch)
+    try:
+        for name in ("float", "int8", "fp8", "moe"):
+            if name == "moe":  # the dense model is no longer needed
+                del model
+                model = cs.moe_model(torch, "float32",
+                                     moe_capacity_factor=cs.MOE_SERVE_CF)
+            got = {}
+            for tag in order:
+                pa._fn, pa._split_fn, pa._plan = swaps[tag]
+                r = cs.serve(torch, gpu, model,
+                             quantized=name if name in ("int8", "fp8")
+                             else None)
+                got.setdefault(tag, []).append(
+                    (r["tokens_per_s"], r["mean_ms"], r["p99_ms"]))
+            for tag, vals in got.items():
+                print(f"serve {name} {tag}: " + " / ".join(
+                    f"{tps:.1f} tokens/s ({ms:.1f} ms mean, {p99:.1f} ms "
+                    f"p99)" for tps, ms, p99 in vals), flush=True)
+    finally:
+        pa._fn, pa._split_fn, pa._plan = own
+
+
+def gmm_runners(lib, torch):
+    """{design: caller} of a build's bf16 grouped-matmul entries."""
+    first = lib.grouped_matmul
+    first.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                      + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    first.restype = ctypes.c_int
+
+    def out_of(x, w):
+        return torch.empty(x.shape[0], x.shape[1], w.shape[2],
+                           dtype=x.dtype, device=x.device)
+
+    def call_first(x, w, gs):
+        y = out_of(x, w)
+        rc = first(1, x.data_ptr(), w.data_ptr(), gs.data_ptr(),
+                   y.data_ptr(), *x.shape, w.shape[2],
+                   torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"grouped_matmul: cudaError {rc}")
+        return y
+
+    runs = {"first design": call_first}
+    if not hasattr(lib, "grouped_matmul_wgmma"):
+        return runs
+    wg = lib.grouped_matmul_wgmma
+    wg.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    wg.restype = ctypes.c_int
+
+    def wgmma(x, w, gs):
+        y = out_of(x, w)
+        rc = wg(x.data_ptr(), w.data_ptr(), gs.data_ptr(), y.data_ptr(),
+                *x.shape, w.shape[2], torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"grouped_matmul_wgmma: cudaError {rc}")
+        return y
+
+    runs["wgmma"] = wgmma
+    return runs
+
+def gmm(torch, cs, runs):
+    from paddle_tpu_torch.ops.grouped_matmul import grouped_matmul_ref
+
+    gen = torch.Generator().manual_seed(cs.SEED + 51)
+    gs_train, C = cs.routed_group_sizes(torch, cs.MOE_B * cs.MOE_S,
+                                        torch.bfloat16, 1.25, cs.SEED + 40)
+    edges = torch.tensor([0, 1, 127, 128, 129, C, C - 1, 2047],
+                         dtype=torch.int32, device="cuda")
+    for name, D, F in (("fc1", 768, 3072), ("fc2", 3072, 768)):
+        for gs in (gs_train.int(), edges):
+            x, w, g = cs.gmm_inputs(torch, cs.MOE_E, C, D, F, gs,
+                                    torch.bfloat16, gen)
+            valid = (torch.arange(C, device="cuda")[None, :]
+                     < g.clamp(0, C)[:, None])
+            x[~valid] = float("nan")
+            ref = grouped_matmul_ref(x, w, g)
+            rel, floor = cs.GMM_TOL["bfloat16"]
+            allowed = rel * ref.float().abs() + floor * float(
+                ref.float().pow(2).mean().sqrt())
+            for tag, designs in runs.items():
+                for dname, fn in designs.items():
+                    y, y2 = fn(x, w, g), fn(x, w, g)
+                    torch.cuda.synchronize()
+                    assert torch.equal(y, y2), (tag, dname)
+                    assert not bool(y[~valid].any()), (tag, dname)
+                    err = (y.float() - ref.float()).abs()
+                    assert bool((err <= allowed).all()), (tag, dname)
+                    print(f"check {tag} {dname} {name} gs={g.tolist()}: "
+                          f"max_abs_err={float(err.max()):.3e}; padding "
+                          f"rows 0, two launches bit-equal; ok", flush=True)
+            del x, w
+        args = [cs.gmm_inputs(torch, cs.MOE_E, C, D, F, gs_train.int(),
+                              torch.bfloat16, gen) for _ in range(2)]
+        flops = 2.0 * float(gs_train.clamp(0, C).sum()) * D * F
+        got = {}
+        for tag in list(runs) + list(runs)[::-1]:
+            for dname, fn in runs[tag].items():
+                got.setdefault((tag, dname), []).append(
+                    cs.runs_ms(torch, fn, args, 50)[0])
+        lib = cs.runs_ms(torch, lambda x, w, g: torch.bmm(x, w), args, 50)[0]
+        for (tag, dname), ms in got.items():
+            print(f"time grouped_matmul bf16 {name} [{cs.MOE_E}, {C}, {D}] x "
+                  f"[{cs.MOE_E}, {D}, {F}] (checked) {tag} {dname}: "
+                  f"{' / '.join(f'{t:.4f}' for t in ms)} ms = "
+                  f"{flops / min(ms) / 1e9:.1f} TFLOP/s (torch.bmm "
+                  f"{lib:.4f} ms)", flush=True)
+        del args
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available() or len(sys.argv) < 3 or \
             sys.argv[1] not in ("flash_attention", "flash_attention_bwd",
-                                "quantized_matmul"):
+                                "quantized_matmul", "paged_attention",
+                                "grouped_matmul"):
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
     import chip_smoke as cs
@@ -388,6 +668,14 @@ def main() -> int:
         elif kernel == "flash_attention_bwd":
             flash_bwd(torch, cs, {tag: bwd_runner(lib, torch)
                                   for tag, (lib, _) in libs.items()})
+        elif kernel == "paged_attention":
+            paged(torch, cs, {tag: paged_runners(lib, torch)
+                              for tag, (lib, _) in libs.items()})
+            paged_engines(torch, cs, {tag: lib
+                                      for tag, (lib, _) in libs.items()})
+        elif kernel == "grouped_matmul":
+            gmm(torch, cs, {tag: gmm_runners(lib, torch)
+                            for tag, (lib, _) in libs.items()})
         else:
             qm = importlib.import_module(
                 "paddle_tpu_torch.ops.quantized_matmul")

@@ -32,12 +32,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 def _group(name: str) -> str:
-    if "paged_decode_kernel" in name:
+    if "paged_decode_kernel" in name or "paged_split_kernel" in name:
         return "paged_flash_decode"
     if "qmm_kernel" in name:
         return "quantized_matmul"
-    if any(k in name for k in ("gmm_bf16_kernel", "gmm_f32_kernel",
-                               "gmm_f32_small_kernel")):
+    if any(k in name for k in ("gmm_bf16_kernel", "gmm_bf16_wgmma_kernel",
+                               "gmm_f32_kernel", "gmm_f32_small_kernel")):
         return "grouped_matmul"
     low = name.lower()
     if "gemm" in low or "cutlass" in low or "matmul" in low:

@@ -61,8 +61,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
-    ("grouped_matmul", ("gmm_bf16_kernel", "gmm_f32_kernel",
-                        "gmm_f32_small_kernel")),
+    ("grouped_matmul", ("gmm_bf16_kernel", "gmm_bf16_wgmma_kernel",
+                        "gmm_f32_kernel", "gmm_f32_small_kernel")),
     ("flash_attention", ("flash_fwd_",)),
     ("flash_attention_bwd_dq", ("flash_bwd_dq_",)),
     ("flash_attention_bwd_dkv", ("flash_bwd_dkv_",)),
