@@ -86,10 +86,15 @@ Q4. timing: both kernels, their plain versions and the library calls
 ResNet-50 training, ``bench.py``'s config 2 (after phase 10):
 
 R1. ``conv1x1_bn_stats`` and ``bn_apply_relu`` against their plain
-    versions at the four conv3 shapes of ResNet-50 at batch 128 (bf16),
-    layer3's in float32, and ragged M, K, N: y within a bf16 ulp (f32:
-    rtol 1e-5), the column sums within 3e-5 x sum|y|, two runs bit-equal;
-    ``bn_apply_relu`` bit-equal with and without the residual;
+    versions in both designs of each: the Hopper designs (kernel 7 on the
+    TMA ring with wgmma, w K-major as ResNet passes it and MN-major, the two
+    bit-equal; kernel 8 with resident scales) at the four conv3 shapes of
+    ResNet-50 at batch 128 (bf16) and at 1000 x 64 x 136 (M and N off the
+    tiles), the first designs at the same conv3 shapes (forced), layer3's
+    in float32 and ragged M, K, N (where the wrappers pick them): y within
+    a bf16 ulp (f32: rtol 1e-5), the column sums within 3e-5 x sum|y|, two
+    runs bit-equal; ``bn_apply_relu`` bit-equal with and without the
+    residual; each line names the design that served it;
 R2. the fused tail's ``autograd.Function`` against autograd of its plain
     version at layer3's shape, float32 (1e-4) and bf16 (2e-2 of each
     tensor's largest entry): output, running mean and variance, dx, dw,
@@ -109,9 +114,11 @@ R4. card vs CPU: ResNet-50 float32 at 64 x 64, batch 4, one seeded model
     10% (L2) — the float32 gradient of this network at initialization is
     too ill-conditioned for the later losses to agree at 1e-4 between any
     two float32 implementations (see the phase's docstring);
-R5. timing of both kernels at the four conv3 shapes: kernel, plain
-    version and ``torch.mm`` (the product alone) from CUDA events,
-    median (min-max) of 3 runs, beside the bound.
+R5. timing of both kernels at the four conv3 shapes: the Hopper design,
+    the first design, the plain version and ``torch.mm`` (the product
+    alone), median (min-max) of 3 runs, beside the bound; the designs' and
+    ``torch.mm``'s device time from a CUDA graph of the calls (the eager
+    call, which the wrapper's Python bounds at layers 3-4, beside it).
 
 Long-context GPT inference (after R5):
 
@@ -1319,54 +1326,99 @@ def stats_tolerance(torch, y, y0, s, s0, q, q0, yf_abs, dtype):
     return float((y.float() - y0.float()).abs().max()), s_err, q_err
 
 
+def check_stats_design(torch, fcb, x, w, dtype, label, design=None,
+                       ref=None):
+    """Kernel 7 in one design against its plain version: two calls
+    bit-equal, the tolerances of :func:`stats_tolerance`.  Returns (y, s,
+    q) and the errors."""
+    y, s, q = fcb._stats_kernel(x, w, design=design)
+    y2, s2, q2 = fcb._stats_kernel(x, w, design=design)
+    y0, s0, q0 = ref if ref is not None else fcb.conv1x1_bn_stats_ref(x, w)
+    yf_abs = (x.float() @ w.float()).abs().sum(0)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(s, s2) \
+        and torch.equal(q, q2), f"conv1x1_bn_stats not deterministic at " \
+                                f"{label}"
+    return (y, s, q), stats_tolerance(torch, y, y0, s, s0, q, q0, yf_abs,
+                                      dtype)
+
+
 def check_resnet_kernels(torch):
     """Phase R1: conv1x1_bn_stats and bn_apply_relu against their plain
-    versions at the four conv3 shapes (bf16), layer3's in float32, and
-    ragged shapes (M = 77, N = 200; K = 100 and N = 130 take the
-    unvectorized loads and stores);
-    kernel 7 twice for bit-identical (deterministic) results, kernel 8
-    bit-equal to its plain version with and without the residual."""
+    versions in both designs of each.  The Hopper designs at the four conv3
+    shapes (bf16; kernel 7 with w as ResNet passes it, the .t() view of a
+    contiguous [N, K] weight read K-major, and a contiguous [K, N] read
+    MN-major: bit-equal) and at 1000 x 64 x 136; the first designs forced
+    at the conv3 shapes and picked by the wrappers at layer3's float32
+    shape and the ragged ones (M = 77, N = 196; K = 100, N = 130: the
+    unvectorized loads and stores; M = 77, N = 200 takes the Hopper stats
+    design).  Kernel 7 twice for bit-identical results; kernel 8 bit-equal
+    to its plain version with and without the residual."""
     from paddle_tpu_torch.ops import fused_conv1x1_bn as fcb
 
     gen = torch.Generator().manual_seed(SEED + 8)
     cases = [(name, "bfloat16", M, K, N) for name, M, K, N in RESNET_TAILS]
-    cases += [("layer3", "float32", 25088, 256, 1024),
+    cases += [("edge", "bfloat16", 1000, 64, 136),
+              ("layer3", "float32", 25088, 256, 1024),
               ("ragged", "bfloat16", 77, 64, 200),
               ("ragged", "float32", 77, 64, 200),
+              ("ragged N", "bfloat16", 77, 64, 196),
               ("ragged K, N", "bfloat16", 300, 100, 130),
               ("ragged K, N", "float32", 300, 100, 130)]
     errs = {}
     for name, dtype, M, K, N in cases:
         x, w, gamma, beta, res = resnet_tail_inputs(torch, dtype, M, K, N,
                                                     gen)
-        y, s, q = fcb.conv1x1_bn_stats(x, w)
-        y2, s2, q2 = fcb.conv1x1_bn_stats(x, w)
-        yf = x.float() @ w.float()
-        y0, s0, q0 = fcb.conv1x1_bn_stats_ref(x, w)
-        torch.cuda.synchronize()
-        assert torch.equal(y, y2) and torch.equal(s, s2) \
-            and torch.equal(q, q2), f"conv1x1_bn_stats not deterministic " \
-                                    f"at {name} {dtype}"
-        y_err, s_err, q_err = stats_tolerance(
-            torch, y, y0, s, s0, q, q0, yf.abs().sum(0), dtype)
+        wk = w.t().contiguous().t()  # ResNet's conv3 weight: [N, K] storage
+        ref = fcb.conv1x1_bn_stats_ref(x, w)
+        runs = [(wk, None)]
+        if fcb._stats_plan(x, wk)[0] == "wgmma":  # also MN-major, and the
+            runs += [(w, None)]                    # first design forced at
+            if name.startswith("layer"):           # the conv3 shapes
+                runs += [(w, "first")]
+        got = {}
+        for ww, design in runs:
+            plan, layout = fcb._stats_plan(x, ww)
+            served = design or plan
+            label = (f"{served} (w {layout})" if served == "wgmma"
+                     else "first design")
+            if served == "wgmma":
+                label += f", {fcb._stats_tile(N)}-column tiles"
+            (y, s, q), (y_err, s_err, q_err) = check_stats_design(
+                torch, fcb, x, ww, dtype, f"{name} {dtype} {label}", design,
+                ref)
+            got[(served, layout)] = (y, s, q)
+            errs[(name, dtype, served)] = y_err
+            log(f"kernel conv1x1_bn_stats {dtype} {name} [{M}, {K}] @ [{K}, "
+                f"{N}] {label}: deterministic; y max_abs_err={y_err:.3e} "
+                f"(rtol {2.0 ** -7 if dtype == 'bfloat16' else 1e-5:g}, atol "
+                f"1e-5 x max|y|), sum err {s_err:.2e} x sum|y|, sumsq err "
+                f"{q_err:.2e} x sumsq (<= 3e-5)")
+        if ("wgmma", "k-major") in got and ("wgmma", "mn-major") in got:
+            assert all(torch.equal(a, b) for a, b in zip(
+                got[("wgmma", "k-major")], got[("wgmma", "mn-major")])), \
+                f"w layouts differ at {name}"
+            log(f"kernel conv1x1_bn_stats {dtype} {name}: w K-major and "
+                f"MN-major bit-equal; ok")
+        y, s, q = next(iter(got.values()))
         mean, var, inv, scale, shift = fcb._fold(s, q, M, gamma, beta,
                                                  1e-5, y.dtype)
-        for r in (res, None):
-            out = fcb.bn_apply_relu(y, scale, shift, r)
-            out0 = fcb.bn_apply_relu_ref(y, scale, shift, r)
-            torch.cuda.synchronize()
-            assert torch.equal(out, out0), (
-                f"bn_apply_relu differs from plain at {name} {dtype} "
-                f"residual={r is not None}: "
-                f"{float((out.float() - out0.float()).abs().max())}")
-        errs[(name, dtype)] = y_err
-        log(f"kernel conv1x1_bn_stats {dtype} {name} [{M}, {K}] @ [{K}, "
-            f"{N}]: deterministic; y max_abs_err={y_err:.3e} (rtol "
-            f"{2.0 ** -7 if dtype == 'bfloat16' else 1e-5:g}, atol 1e-5 x "
-            f"max|y|), sum err {s_err:.2e} x sum|y|, sumsq err {q_err:.2e} "
-            f"x sumsq (<= 3e-5); bn_apply_relu bit-equal with and without "
-            f"the residual ok")
-        del x, w, res, y, y2, y0, yf
+        vec = all(t.data_ptr() % 16 == 0 for t in (y, res))
+        plan = fcb._apply_plan(y.dtype, N, vec)
+        for design in ([None, "first"] if plan == "resident" else [None]):
+            for r in (res, None):
+                out = fcb._apply_kernel(y, scale, shift, r, design=design)
+                out0 = fcb.bn_apply_relu_ref(y, scale, shift, r)
+                torch.cuda.synchronize()
+                assert torch.equal(out, out0), (
+                    f"bn_apply_relu ({design or plan}) differs from plain at "
+                    f"{name} {dtype} residual={r is not None}: "
+                    f"{float((out.float() - out0.float()).abs().max())}")
+            served = "first design" if (design or plan) == "first" \
+                else "resident"
+            log(f"kernel bn_apply_relu {dtype} {name} [{M}, {N}] {served}: "
+                f"bit-equal with and without the residual; ok")
+        del x, w, wk, res, y, ref, got
     return errs
 
 
@@ -1560,10 +1612,26 @@ def runs_ms(torch, fn, args, iters):
     return vals[len(vals) // 2], vals[0], vals[-1]
 
 
+def graph_runs_ms(torch, fn, args, iters):
+    """Median, min and max device ms per call over TIMING_RUNS runs of
+    :func:`graph_ms`."""
+    vals = sorted(graph_ms(torch, fn, args, iters)
+                  for _ in range(TIMING_RUNS))
+    return vals[len(vals) // 2], vals[0], vals[-1]
+
+
+def _spread(t):
+    return f"{t[0]:.4f} ({t[1]:.4f}-{t[2]:.4f})"
+
+
 def timing_resnet(torch, gpu):
-    """Phase R5: both kernels at the four conv3 shapes (bf16): kernel,
-    plain version and library call, median (min-max) of 3 runs from CUDA
-    events, inputs rotated past the 50 MB L2, beside the bound."""
+    """Phase R5: both kernels at the four conv3 shapes (bf16), w as ResNet
+    passes it: the Hopper design and the first design (device time from a
+    CUDA graph of the calls, the eager call beside it), the plain version
+    and the library call (``torch.mm``, the product alone), median
+    (min-max) of 3 runs, inputs rotated past the 50 MB L2, beside the
+    bound.  ``ms`` is the Hopper design's device time: at layers 3-4 the
+    eager call is bounded by the wrapper's Python."""
     from paddle_tpu_torch.ops import fused_conv1x1_bn as fcb
 
     gen = torch.Generator().manual_seed(SEED + 11)
@@ -1574,26 +1642,42 @@ def timing_resnet(torch, gpu):
             n_copies = max(2, -(-120_000_000 // per_call))
             ins = [resnet_tail_inputs(torch, "bfloat16", M, K, N, gen)
                    for _ in range(n_copies)]
-            k7_args = [(x, w) for x, w, _, _, _ in ins]
+            k7_args = [(x, w.t().contiguous().t()) for x, w, _, _, _ in ins]
             iters = max(10, min(200, int(4e10 // (M * N))))
-            ms = runs_ms(torch, fcb._stats_kernel, k7_args, iters)
+
+            # the first design and the library on a contiguous [K, N] w (the
+            # first design would copy ResNet's .t() view first)
+            mm_args = [(x, w) for x, w, _, _, _ in ins]
+
+            def first7(x, w):
+                return fcb._stats_kernel(x, w, design="first")
+            ms = graph_runs_ms(torch, fcb._stats_kernel, k7_args, iters)
+            eager = runs_ms(torch, fcb._stats_kernel, k7_args, iters)
+            first = graph_runs_ms(torch, first7, mm_args, iters)
+            first_eager = runs_ms(torch, first7, mm_args, iters)
             plain = runs_ms(torch, fcb.conv1x1_bn_stats_ref, k7_args,
                             max(3, iters // 10))
-            lib = runs_ms(torch, torch.mm, k7_args, iters)
+            lib = graph_runs_ms(torch, torch.mm, mm_args, iters)
+            lib_eager = runs_ms(torch, torch.mm, mm_args, iters)
             nbytes = 2 * M * K + 2 * K * N + 2 * M * N + 8 * N
             t_b, t_o = nbytes / HBM_BYTES_PER_S, 2.0 * M * K * N / BF16_FLOPS
             rows[("conv1x1_bn_stats", name)] = dict(
                 ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
                 bound_ms=max(t_b, t_o) * 1e3,
                 bound_by="bytes" if t_b >= t_o else "operations",
-                spread=(ms, plain, lib))
+                eager_ms=eager[0], first_design_ms=first[0],
+                first_design_eager_ms=first_eager[0],
+                library_eager_ms=lib_eager[0])
             log(f"timing[{gpu}] conv1x1_bn_stats bf16 {name} [{M}, {K}] @ "
-                f"[{K}, {N}]: kernel {ms[0]:.4f} ({ms[1]:.4f}-{ms[2]:.4f}) "
-                f"ms, plain {plain[0]:.4f} ({plain[1]:.4f}-{plain[2]:.4f}) "
-                f"ms, library (torch.mm, product only) {lib[0]:.4f} "
-                f"({lib[1]:.4f}-{lib[2]:.4f}) ms, bound "
-                f"{max(t_b, t_o) * 1e3:.4f} ms by "
-                f"{'bytes' if t_b >= t_o else 'operations'} ({nbytes} "
+                f"[{K}, {N}] (w K-major, {fcb._stats_tile(N)}-column tiles): "
+                f"kernel {_spread(ms)} ms device time (eager "
+                f"{_spread(eager)}), first design on a contiguous w "
+                f"{_spread(first)} (eager "
+                f"{_spread(first_eager)}), plain {_spread(plain)} ms, "
+                f"library (torch.mm, product only) {_spread(lib)} (eager "
+                f"{_spread(lib_eager)}) ms: kernel / torch.mm = "
+                f"{ms[0] / lib[0]:.2f}; bound {max(t_b, t_o) * 1e3:.4f} ms "
+                f"by {'bytes' if t_b >= t_o else 'operations'} ({nbytes} "
                 f"bytes, {2 * M * K * N} flops)")
             k8_args = []
             for x, w, gamma, beta, res in ins:
@@ -1601,8 +1685,14 @@ def timing_resnet(torch, gpu):
                 _, _, _, scale, shift = fcb._fold(s, q, M, gamma, beta, 1e-5,
                                                   y.dtype)
                 k8_args.append((y, scale, shift, res))
-            del ins, k7_args
-            ms = runs_ms(torch, fcb._apply_kernel, k8_args, iters)
+            del ins, k7_args, mm_args
+
+            def first8(*a):
+                return fcb._apply_kernel(*a, design="first")
+            ms = graph_runs_ms(torch, fcb._apply_kernel, k8_args, iters)
+            eager = runs_ms(torch, fcb._apply_kernel, k8_args, iters)
+            first = graph_runs_ms(torch, first8, k8_args, iters)
+            first_eager = runs_ms(torch, first8, k8_args, iters)
             plain = runs_ms(torch, fcb.bn_apply_relu_ref, k8_args,
                             max(3, iters // 10))
             nbytes = 6 * M * N + 8 * N
@@ -1611,13 +1701,16 @@ def timing_resnet(torch, gpu):
                 ms=ms[0], plain_ms=plain[0], library_ms=None,
                 bound_ms=max(t_b, t_o) * 1e3,
                 bound_by="bytes" if t_b >= t_o else "operations",
-                spread=(ms, plain, None))
+                eager_ms=eager[0], first_design_ms=first[0],
+                first_design_eager_ms=first_eager[0])
             log(f"timing[{gpu}] bn_apply_relu bf16 {name} [{M}, {N}] + "
-                f"residual: kernel {ms[0]:.4f} ({ms[1]:.4f}-{ms[2]:.4f}) ms, "
-                f"plain {plain[0]:.4f} ({plain[1]:.4f}-{plain[2]:.4f}) ms, "
-                f"library none (no single PyTorch call), bound "
+                f"residual: kernel {_spread(ms)} ms device time (eager "
+                f"{_spread(eager)}), first design {_spread(first)} (eager "
+                f"{_spread(first_eager)}), plain {_spread(plain)} ms, "
+                f"library none (no single PyTorch call); bound "
                 f"{max(t_b, t_o) * 1e3:.4f} ms by "
-                f"{'bytes' if t_b >= t_o else 'operations'} ({nbytes} bytes)")
+                f"{'bytes' if t_b >= t_o else 'operations'} ({nbytes} bytes):"
+                f" {max(t_b, t_o) * 1e3 / ms[0]:.0%} of it")
             del k8_args
             gc.collect()
             torch.cuda.empty_cache()
@@ -2961,18 +3054,20 @@ def main() -> int:
                           ("fp8", "fc2", 384), ("int8", "fc2", 8),
                           ("int8", "fc2", 384))}))
     # ResNet-50 config 2: launches of the timed training steps, numbers at
-    # layer1's conv3 shape (the largest), bf16
-    k7_err = max(e for (_, dt), e in rerrs.items() if dt == "bfloat16")
+    # layer1's conv3 shape (the largest), bf16, the Hopper designs' device
+    # time; the other conv3 shapes beside them
+    k7_err = max(e for (_, dt, design), e in rerrs.items()
+                 if dt == "bfloat16" and design == "wgmma")
     for name, line, err in (("conv1x1_bn_stats", 107, k7_err),
                             ("bn_apply_relu", 203, 0.0)):
-        r = rrows[(name, "layer1")]
         kernels.append(dict(
             name=name, route="cuda",
             source="paddle_tpu_torch/ops/csrc/fused_conv1x1_bn.cu",
             replaces=f"paddle_tpu/ops/fused_conv1x1_bn.py:{line}",
             launches=resnet["launches"][name], max_abs_err=err,
-            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")}))
+            **rrows[(name, "layer1")],
+            other_shapes={layer: rrows[(name, layer)]
+                          for layer, _, _, _ in RESNET_TAILS[1:]}))
     # the long-context inference slice: launches of its eval_batch and
     # predict_batch calls, numbers at its shape, bf16, causal
     kernels.append(dict(

@@ -12,13 +12,64 @@
 // ResNet-50 runs the pair in the conv3 -> bn3 -> +identity -> relu tail of
 // every bottleneck block during training (16 launches of each a step).
 //
-// What bounds them on an H100: bytes.  conv1x1_bn_stats at ResNet-50's B=128
-// shapes does 2*M*K*N flops on 2*M*K + 2*K*N + 2*M*N bytes (bf16): 32 to 128
-// flops a byte, far under the card's ~295 bf16 flops-per-byte ridge (layer1:
-// 13.2 GFLOP in 13 us at 989 TFLOP/s against 257 MB in 77 us at 3.35 TB/s).
+// What bounds them on an H100.  conv1x1_bn_stats at ResNet-50's B=128
+// shapes does 2*M*K*N flops on 2*M*K + 2*K*N + 2*M*N bytes (bf16): 51, 102
+// and 203 flops a byte at layers 1-3, under the card's ~295 bf16
+// flops-per-byte ridge, so bytes (layer1: 13.2 GFLOP in 13 us at 989
+// TFLOP/s against 257 MB in 77 us at 3.35 TB/s); 384 at layer4, so
+// operations there (13.2 GFLOP in 13 us against 34 MB in 10 us).
 // bn_apply_relu is elementwise: 6*M*N bytes with the residual.
 //
-// What this first design does about it:
+// The Hopper designs (the wrapper, ops/fused_conv1x1_bn.py, picks one by
+// shape before the launch; everything else takes the first design below):
+//   * conv1x1_bn_stats, bf16 with K and N multiples of 8 and 16-byte-aligned
+//     x, w, y (what TMA takes; stats_bf16_wgmma_kernel, entry
+//     conv1x1_bn_stats_wgmma): grouped_matmul.cu's persistent block
+//     (hopper_sm90.cuh) with one group.  One block an SM; a producer
+//     warpgroup, one thread of which keeps a ring of 128-byte-swizzled
+//     TMA boxes full (x as 128-row x 64-k boxes, w as 64-k x 64- or
+//     128-column boxes), two consumer warpgroups on wgmma m64n128k16 with
+//     both operands in shared memory.  Tiles are 128 x 256 where N is a
+//     multiple of 256 (each consumer warpgroup takes 128 columns of all
+//     128 rows; 3 stages; 3-11% faster than 128 x 128 at ResNet's conv3
+//     shapes), else 128 x 128 (each takes 64 rows; 5 stages).  w is read
+//     in the layout it comes in, with no copy: a contiguous [K, N] w is
+//     the MN-major B operand (the transpose bit); the .t() view of a
+//     contiguous [N, K] weight, which is what ResNet passes, is the
+//     K-major one.  The epilogue rounds the float32 sums to bf16 once,
+//     stages them in shared memory in TMA's swizzle and stores them by
+//     TMA, so the next tile's products start while the store runs.  x and
+//     w are loaded with the L2's evict-last policy (other column tiles
+//     read them again), y stored with evict-first (written once).  Rows
+//     past M arrive as zeros (they add 0 to the sums) and the TMA store
+//     does not write them.
+//     The column statistics come from the float32 accumulators, before
+//     the rounding: a consumer thread holds columns 8j + 2t and + 1 of its
+//     rows (two a 64-row half), and keeps a running sum and sum of
+//     squares of its 32 columns in registers over the M tiles its block
+//     walks within one column tile.  The block walks a contiguous run of
+//     the tiles in column-tile-major order (fixed by the grid and the
+//     shape), so it touches few column tiles; when it leaves one it adds
+//     its lanes (a fixed shuffle tree) and the warps that hold the same
+//     columns (in order, through shared memory) and writes one partial
+//     row for that column tile into the [blocks, N] workspace.
+//     reduce_partials_kernel then adds, for each column, the rows of the
+//     blocks that touched its column tile, in a fixed order.  No float
+//     atomics: two calls give the same bits.
+//   * bn_apply_relu with N a multiple of 16 bytes' worth of elements and
+//     16-byte-aligned y, residual, out (bn_apply_resident_kernel, entry
+//     bn_apply_relu_resident): each thread owns one 16-byte chunk of
+//     columns for the whole call, loads that chunk's scale and shift into
+//     registers once (in the dtype they come in: the bf16 ones the tail
+//     folds need no float32 copy, which took two more launches), then
+//     walks rows with a stride, 8 rows a turn, so 16 16-byte loads of y
+//     and the residual are in flight.  Plain loads: the evict-first hint
+//     (ld.global.cs) measured 4-5% slower at ResNet's layers 1-3 (13 of
+//     the 16 launches a step) and 7% faster at layer4.  The
+//     arithmetic and its order are the first design's: bit-equal to the
+//     plain version.
+//
+// The first design:
 //   * stats kernel (bf16): 128x128 output tiles, 8 warps each computing 32x64
 //     with WMMA 16x16x16 bf16 tensor-core products into float32
 //     accumulators; K walked in 32-wide slices staged in shared memory, the
@@ -39,16 +90,18 @@
 //     read per column (they stay in L1/L2); __fmul_rn / __fadd_rn in the
 //     order the plain version runs them, (y*sc + sh) + r, so the result is
 //     bit-equal to it: no FMA contraction.
-// Not done yet (later work): wgmma, TMA, a persistent schedule, cp.async.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (paddle_tpu_torch/ops/_build.py); plain C entries,
 // bound with ctypes.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper_sm90.cuh"
 
 namespace {
 
@@ -364,19 +417,40 @@ stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   write_partials<kFBN>(run_s, run_q, red, psum, psq, n0, N);
 }
 
+// The Hopper stats kernel's walk: block b of `blocks` takes tiles
+// [b * tiles / blocks, (b + 1) * tiles / blocks) of the column-tile-major
+// order (tile i: column tile i / tiles_m, row tile i % tiles_m).
+__device__ __forceinline__ int walk_start(int b, int blocks, int tiles) {
+  return (int)((long long)b * tiles / blocks);
+}
+
+// The block whose run holds tile i.
+__device__ __forceinline__ int walk_block(int i, int blocks, int tiles) {
+  return (int)(((long long)(i + 1) * blocks - 1) / tiles);
+}
+
 // Adds the [splits, N] partial rows in a fixed order: 32 columns x 8 row
-// lanes a block, each lane summing rows lane, lane + 8, ...; then lane 0
-// adds the 8 lane sums in order.
+// lanes a block, each lane summing rows lo + lane, lo + lane + 8, ... below
+// hi; then lane 0 adds the 8 lane sums in order.  tiles_m == 0: every row
+// (the first design); otherwise the rows of the blocks of the Hopper walk
+// that touched the column's tile (tile_n columns wide).
 __global__ void __launch_bounds__(kThreads)
 reduce_partials_kernel(const float* __restrict__ psum,
                        const float* __restrict__ psq, int splits, int N,
-                       float* __restrict__ sum, float* __restrict__ sumsq) {
+                       float* __restrict__ sum, float* __restrict__ sumsq,
+                       int tile_n, int tiles_m, int tiles) {
   __shared__ float red[2][8][32];
   const int col = blockIdx.x * 32 + threadIdx.x;
   const int lane = threadIdx.y;
   float s = 0.f, q = 0.f;
   if (col < N) {
-    for (int r = lane; r < splits; r += 8) {
+    int lo = 0, hi = splits;
+    if (tiles_m > 0) {
+      const int nt = col / tile_n;
+      lo = walk_block(nt * tiles_m, splits, tiles);
+      hi = walk_block((nt + 1) * tiles_m - 1, splits, tiles) + 1;
+    }
+    for (int r = lo + lane; r < hi; r += 8) {
       s += psum[(size_t)r * N + col];
       q += psq[(size_t)r * N + col];
     }
@@ -438,6 +512,80 @@ bn_apply_kernel(const T* __restrict__ y, const float* __restrict__ scale,
   }
 }
 
+// The resident design: thread gt owns 16-byte column chunk gt % cpr of
+// every row lane, lane + lanes, ... (lane = gt / cpr), its scale and shift
+// (S: float or bf16, read as they are: bf16 to float is exact) in
+// registers, loaded once, after the first turn's loads are issued; 8 rows
+// a turn, all loads of a turn issued before any use.
+constexpr int kApplyRows = 8;
+
+template <typename T, typename S, bool HAS_RES>
+__global__ void __launch_bounds__(kThreads)
+bn_apply_resident_kernel(const T* __restrict__ y, const S* __restrict__ scale,
+                         const S* __restrict__ shift,
+                         const T* __restrict__ res, T* __restrict__ out,
+                         int M, int N) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  const int cpr = N / VEC;  // 16-byte chunks a row
+  const int gt = blockIdx.x * kThreads + threadIdx.x;
+  const int lanes = gridDim.x * kThreads / cpr;
+  if (gt >= lanes * cpr) return;
+  const int c = gt % cpr, lane = gt / cpr;
+  const uint4* yv = reinterpret_cast<const uint4*>(y) + c;
+  const uint4* rv = reinterpret_cast<const uint4*>(res) + c;
+  uint4* ov = reinterpret_cast<uint4*>(out) + c;
+  float sc[VEC], sh[VEC];
+  for (int r0 = lane; r0 < M; r0 += kApplyRows * lanes) {
+    uint4 a[kApplyRows], b[kApplyRows];
+#pragma unroll
+    for (int u = 0; u < kApplyRows; ++u) {
+      const int r = r0 + u * lanes;
+      if (r < M) {
+        a[u] = yv[(size_t)r * cpr];
+        if (HAS_RES) b[u] = rv[(size_t)r * cpr];
+      }
+    }
+    if (r0 == lane) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        sc[j] = to_f32(scale[c * VEC + j]);
+        sh[j] = to_f32(shift[c * VEC + j]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kApplyRows; ++u) {
+      const int r = r0 + u * lanes;
+      if (r < M) {
+        const T* ye = reinterpret_cast<const T*>(&a[u]);
+        const T* re = reinterpret_cast<const T*>(HAS_RES ? &b[u] : &a[u]);
+        uint4 o;
+        T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          oe[j] = apply_one<T, HAS_RES>(ye[j], sc[j], sh[j], re[j]);
+        ov[(size_t)r * cpr] = o;
+      }
+    }
+  }
+}
+
+template <typename T, typename S>
+cudaError_t launch_resident(const void* y, const void* sc, const void* sh,
+                            const void* r, void* out, int M, int N,
+                            int blocks, cudaStream_t st) {
+  const S* scale = static_cast<const S*>(sc);
+  const S* shift = static_cast<const S*>(sh);
+  if (r != nullptr)
+    bn_apply_resident_kernel<T, S, true><<<blocks, kThreads, 0, st>>>(
+        static_cast<const T*>(y), scale, shift, static_cast<const T*>(r),
+        static_cast<T*>(out), M, N);
+  else
+    bn_apply_resident_kernel<T, S, false><<<blocks, kThreads, 0, st>>>(
+        static_cast<const T*>(y), scale, shift, nullptr,
+        static_cast<T*>(out), M, N);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_apply(const void* y, const float* sc, const float* sh,
                          const void* r, void* out, int64_t total, int N,
@@ -450,6 +598,351 @@ cudaError_t launch_apply(const void* y, const float* sc, const float* sh,
     bn_apply_kernel<T, false><<<blocks, kThreads, 0, st>>>(
         static_cast<const T*>(y), sc, sh, nullptr, static_cast<T*>(out),
         total, N, vec);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on Hopper: a persistent walk over the tiles, a TMA ring, wgmma, the
+// column statistics in the epilogue
+// ---------------------------------------------------------------------------
+constexpr int kHM = 128;  // rows a tile
+constexpr int kHK = 64;   // k a stage: one 128-byte swizzle atom of x
+constexpr int kHXBytes = kHM * kHK * 2;
+constexpr int kHRedBytes = 2 * 8 * 128 * 4;
+
+// L2 policies of the TMA traffic: x and w are read again by other column
+// tiles (evict last), y is written once (evict first).  Measured at
+// ResNet's conv3 shapes: 3.5% faster at layer1, 9% at layer2, the same at
+// layers 3-4.
+__device__ __forceinline__ uint64_t l2_policy(bool keep) {
+  uint64_t p;
+  if (keep)
+    asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+                 : "=l"(p));
+  else
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+                 : "=l"(p));
+  return p;
+}
+
+// sm90::tma_load / tma_store with an L2 cache policy.
+__device__ __forceinline__ void tma_load_hint(void* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int c0, int c1,
+                                              uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(
+          sm90::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(sm90::smem_u32(bar)),
+      "r"(c0), "r"(c1), "r"(0), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_hint(const CUtensorMap* map,
+                                               const void* src, int c0,
+                                               int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3, %4}], [%1], %5;\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(sm90::smem_u32(src)), "r"(c0), "r"(c1), "r"(0), "l"(policy)
+      : "memory");
+}
+
+// A tile is 128 rows x BN columns (128 or 256).  Each consumer warpgroup
+// computes H = BN / 128 halves of 64 rows x 128 columns (m64n128k16 each):
+// BN 128 splits the rows (warpgroup wg: rows 64 wg.., every column), BN 256
+// the columns (warpgroup wg: columns 128 wg.., every row), so a thread
+// always holds 32 columns (8j + 2t and + 1) and its statistics stay 64
+// registers beside the 64 H accumulators.
+// Shared memory (1024-byte aligned, the swizzle's period): STAGES stages of
+// x [128 rows][64 k] (one atom) and w (K-major: [BN columns][64 k], one
+// atom; MN-major: [BN / 64 atoms][64 k][64 columns]), each consumer
+// warpgroup's output staging [H][2 atoms][64 rows][64 columns] (swizzled as
+// TMA stores it), the 8 consumer warps' column sums and sums of squares,
+// then the barriers.  Warps 0-7 are the two consumer warpgroups; warpgroup
+// 2 is the producer.
+template <int BN>
+struct HTile {
+  static constexpr int H = BN / 128;
+  static constexpr int STAGES = BN == 128 ? 5 : 3;
+  static constexpr int STAGE = kHXBytes + kHK * BN * 2;
+  static constexpr int Y_BYTES = H * 64 * 128 * 2;
+  static constexpr int SMEM =
+      1024 + STAGES * STAGE + 2 * Y_BYTES + kHRedBytes + 2 * STAGES * 8;
+};
+
+struct HParams {
+  float* psum;  // [blocks, N]: the block's partial row of each column tile
+  float* psq;
+  int N, tiles_m, tiles, n_kt;
+};
+
+// Leaving column tile nt: the 256 consumer threads add their running sums
+// over the lanes that share their columns (g, a fixed shuffle tree), then
+// over the warps that hold the same columns in order (8 at BN 128, the
+// warpgroup's 4 at BN 256), and write the block's partial row.
+template <int BN>
+__device__ __forceinline__ void flush_stats(float (&rs)[32], float (&rq)[32],
+                                            float* red, const HParams& p,
+                                            int nt) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int warp = threadIdx.x >> 5;  // 0-7 over both warpgroups
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      rs[j] += __shfl_xor_sync(0xffffffffu, rs[j], off);
+      rq[j] += __shfl_xor_sync(0xffffffffu, rq[j], off);
+    }
+  if (lane < 4) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red[warp * 128 + 8 * n + 2 * t + e] = rs[2 * n + e];
+        red[(8 + warp) * 128 + 8 * n + 2 * t + e] = rq[2 * n + e];
+      }
+  }
+  sm90::named_sync(3, sm90::kConsumers);
+  if constexpr (BN == 128) {  // thread: column tid % 128, sums or squares
+    const int c = threadIdx.x % 128, sq = threadIdx.x / 128;
+    const float* src = red + sq * 8 * 128 + c;
+    float v = 0.f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) v += src[r * 128];
+    const int n = nt * BN + c;
+    if (n < p.N) (sq ? p.psq : p.psum)[(size_t)blockIdx.x * p.N + n] = v;
+  } else {  // thread: column tid of the tile, in its warpgroup's 4 warps
+    const int c = threadIdx.x, wg = c / 128;
+    const int n = nt * BN + c;
+#pragma unroll
+    for (int sq = 0; sq < 2; ++sq) {
+      const float* src = red + (sq * 8 + wg * 4) * 128 + c % 128;
+      float v = 0.f;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v += src[r * 128];
+      if (n < p.N) (sq ? p.psq : p.psum)[(size_t)blockIdx.x * p.N + n] = v;
+    }
+  }
+  sm90::named_sync(3, sm90::kConsumers);  // red is free again
+}
+
+template <int BN, bool W_KMAJOR>
+__global__ void __launch_bounds__(sm90::kThreadsWg, 1)
+stats_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap tw,
+                        const __grid_constant__ CUtensorMap ty, HParams p) {
+  using T = HTile<BN>;
+  constexpr int ST = T::STAGES, STAGE = T::STAGE, H = T::H;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = sm90::smem_1024(smem_raw);
+  unsigned char* stage_out = ring + ST * STAGE;
+  float* red = reinterpret_cast<float*>(stage_out + 2 * T::Y_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 2 * 8 * 128);
+  uint64_t* empty = full + ST;
+  const int first = walk_start(blockIdx.x, gridDim.x, p.tiles);
+  const int last = walk_start(blockIdx.x + 1, gridDim.x, p.tiles);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      sm90::mbar_init(&full[i], 1);
+      sm90::mbar_init(&empty[i], sm90::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= sm90::kConsumers) {  // the producer warpgroup
+    sm90::producer_regs();
+    if (threadIdx.x == sm90::kConsumers) {
+      const uint64_t keep = l2_policy(true);
+      int it = 0;  // stages filled so far, across tiles
+      for (int i = first; i < last; ++i) {
+        const int nt = i / p.tiles_m, mt = i - nt * p.tiles_m;
+        for (int kt = 0; kt < p.n_kt; ++kt, ++it) {
+          const int st = it % ST;
+          if (it >= ST) sm90::mbar_wait(&empty[st], (it / ST - 1) & 1);
+          sm90::mbar_expect_tx(&full[st], STAGE);
+          unsigned char* xs = ring + st * STAGE;
+          tma_load_hint(xs, &tx, &full[st], kt * kHK, mt * kHM, keep);
+          if constexpr (W_KMAJOR) {  // 128-column boxes of [N, K]
+#pragma unroll
+            for (int b = 0; b < BN / 128; ++b)
+              tma_load_hint(xs + kHXBytes + b * 128 * 128, &tw, &full[st],
+                            kt * kHK, nt * BN + 128 * b, keep);
+          } else {  // 64-column boxes of [K, N]
+#pragma unroll
+            for (int a = 0; a < BN / 64; ++a)
+              tma_load_hint(xs + kHXBytes + a * kHK * 128, &tw, &full[st],
+                            nt * BN + 64 * a, kt * kHK, keep);
+          }
+        }
+      }
+    }
+    return;
+  }
+  sm90::consumer_regs();
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = BN == 128 ? 64 * wg : 0;   // the warpgroup's first row
+  const int col0 = BN == 128 ? 0 : 128 * wg;  // and its 128 columns
+  float acc[H][64], rs[32], rq[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) rs[j] = rq[j] = 0.f;
+  int it = 0;  // stages consumed so far, across tiles
+  int cur = first / p.tiles_m;  // the column tile the sums belong to
+  for (int i = first; i < last; ++i) {
+    const int nt = i / p.tiles_m, mt = i - nt * p.tiles_m;
+    if (nt != cur) {
+      flush_stats<BN>(rs, rq, red, p, cur);
+      cur = nt;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) rs[j] = rq[j] = 0.f;
+    }
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int v = 0; v < 64; ++v) acc[h][v] = 0.f;
+    // each stage's k16 products are committed as one group; the stage
+    // before is released once at most that group is in flight
+    for (int kt = 0; kt < p.n_kt; ++kt, ++it) {
+      const int st = it % ST;
+      sm90::mbar_wait(&full[st], (it / ST) & 1);
+      const unsigned char* xs = ring + st * STAGE + row0 * 128;
+      const unsigned char* ws = ring + st * STAGE + kHXBytes;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kHK / 16; ++kk) {
+        const uint64_t db =
+            W_KMAJOR ? sm90::sw128_desc(ws + col0 * 128 + kk * 32, 16, 1024)
+                     : sm90::sw128_desc(ws + (col0 / 64) * kHK * 128 +
+                                            kk * 2048,
+                                        kHK * 128, 1024);
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const uint64_t da =
+              sm90::sw128_desc(xs + h * 64 * 128 + kk * 32, 16, 1024);
+          if constexpr (W_KMAJOR)
+            sm90::wgmma_ss_n128(acc[h], da, db, 1);
+          else
+            sm90::wgmma_ss_tb_n128(acc[h], da, db, 1);
+        }
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      if (kt > 0) sm90::mbar_arrive(&empty[(it - 1) % ST]);
+    }
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < H; ++h) sm90::reg_fence(acc[h]);
+    sm90::mbar_arrive(&empty[(it - 1) % ST]);  // n_kt >= 1: K >= 8
+
+    // the statistics from the float32 sums, before the rounding (rows
+    // past M hold 0)
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = acc[h][4 * n + 2 * rr + e];
+            rs[2 * n + e] += v;
+            rq[2 * n + e] += v * v;
+          }
+    // y rounded to bf16 once, staged in shared memory and stored by TMA
+    // (rows past M and columns past N are clipped); the warpgroup's next
+    // tile starts while the store runs
+    unsigned char* out = stage_out + wg * T::Y_BYTES;
+    if (threadIdx.x % 128 == 0) sm90::bulk_wait_read<0>();  // out is free
+    sm90::named_sync(1 + wg, 128);
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int rl = warp * 16 + g + 8 * rr;  // row in the half's 64
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+          *reinterpret_cast<uint32_t*>(
+              out + (2 * h + (n >> 3)) * 64 * 128 + rl * 128 +
+              (((n & 7) ^ (rl & 7)) << 4) + 4 * t) =
+              sm90::pack_bf16(acc[h][4 * n + 2 * rr],
+                              acc[h][4 * n + 2 * rr + 1]);
+      }
+    sm90::fence_async_smem();
+    sm90::named_sync(1 + wg, 128);
+    if (threadIdx.x % 128 == 0) {
+      const uint64_t once = l2_policy(false);
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+          if (nt * BN + col0 + 64 * a < p.N)
+            tma_store_hint(&ty, out + (2 * h + a) * 64 * 128,
+                           nt * BN + col0 + 64 * a, mt * kHM + row0 + 64 * h,
+                           once);
+      sm90::bulk_commit();
+    }
+  }
+  if (first < last) flush_stats<BN>(rs, rq, red, p, cur);
+  if (threadIdx.x % 128 == 0) sm90::bulk_wait<0>();  // the last stores
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
+}
+
+template <int BN, bool W_KMAJOR>
+cudaError_t launch_stats_tile(const CUtensorMap& tx, const CUtensorMap& tw,
+                              const CUtensorMap& ty, const HParams& p,
+                              int blocks, cudaStream_t st) {
+  // the shared memory allowed: per device, on its first call (outside any
+  // CUDA graph capture)
+  static bool allowed[64] = {false};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev >= 64) e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess && !allowed[dev]) {
+    e = cudaFuncSetAttribute(stats_bf16_wgmma_kernel<BN, W_KMAJOR>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             HTile<BN>::SMEM);
+    allowed[dev] = e == cudaSuccess;
+  }
+  if (e != cudaSuccess) return e;
+  stats_bf16_wgmma_kernel<BN, W_KMAJOR>
+      <<<blocks, sm90::kThreadsWg, HTile<BN>::SMEM, st>>>(tx, tw, ty, p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_stats_wgmma(const void* x, const void* w, bool w_kmajor,
+                               void* y, float* ps, float* pq, float* sum,
+                               float* sumsq, int M, int K, int N, int tile_n,
+                               int blocks, cudaStream_t st) {
+  if (tile_n != 128 && tile_n != 256) return cudaErrorInvalidValue;
+  const int tiles_m = (M + kHM - 1) / kHM;
+  const long long tiles = (long long)tiles_m * ((N + tile_n - 1) / tile_n);
+  if (tiles > 0x7fffffffLL || blocks < 1 || blocks > tiles)
+    return cudaErrorInvalidValue;
+  CUtensorMap tx, tw, ty;
+  cudaError_t e = sm90::tensor_map(&tx, x, 1, M, K, kHM);
+  if (e == cudaSuccess)
+    e = w_kmajor ? sm90::tensor_map(&tw, w, 1, N, K, 128)   // [N, K]
+                 : sm90::tensor_map(&tw, w, 1, K, N, kHK);  // [K, N]
+  if (e == cudaSuccess) e = sm90::tensor_map(&ty, y, 1, M, N, 64);
+  if (e != cudaSuccess) return e;
+  const HParams p{ps, pq, N, tiles_m, (int)tiles, (K + kHK - 1) / kHK};
+  if (tile_n == 128)
+    e = w_kmajor ? launch_stats_tile<128, true>(tx, tw, ty, p, blocks, st)
+                 : launch_stats_tile<128, false>(tx, tw, ty, p, blocks, st);
+  else
+    e = w_kmajor ? launch_stats_tile<256, true>(tx, tw, ty, p, blocks, st)
+                 : launch_stats_tile<256, false>(tx, tw, ty, p, blocks, st);
+  if (e != cudaSuccess) return e;
+  reduce_partials_kernel<<<(N + 31) / 32, dim3(32, 8), 0, st>>>(
+      ps, pq, blocks, N, sum, sumsq, tile_n, tiles_m, (int)tiles);
   return cudaGetLastError();
 }
 
@@ -478,10 +971,18 @@ extern "C" int conv1x1_bn_stats_fwd(int dtype, const void* x, const void* w,
   float* ps = static_cast<float*>(psum);
   float* pq = static_cast<float*>(psq);
   if (dtype == 1) {
-    // above 48 KB of dynamic shared memory only when asked for (per device)
-    const cudaError_t e = cudaFuncSetAttribute(
-        stats_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBf16);
+    // above 48 KB of dynamic shared memory only when asked for: per
+    // device, on its first call (outside any CUDA graph capture)
+    static bool allowed[64] = {false};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess && dev >= 64) e = cudaErrorInvalidDevice;
+    if (e == cudaSuccess && !allowed[dev]) {
+      e = cudaFuncSetAttribute(stats_bf16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBf16);
+      allowed[dev] = e == cudaSuccess;
+    }
     if (e != cudaSuccess) return e;
     const dim3 grid((N + kBN - 1) / kBN, splits);
     stats_bf16_kernel<<<grid, kThreads, kSmemBf16, st>>>(
@@ -499,7 +1000,8 @@ extern "C" int conv1x1_bn_stats_fwd(int dtype, const void* x, const void* w,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   reduce_partials_kernel<<<(N + 31) / 32, dim3(32, 8), 0, st>>>(
-      ps, pq, splits, N, static_cast<float*>(sum), static_cast<float*>(sumsq));
+      ps, pq, splits, N, static_cast<float*>(sum), static_cast<float*>(sumsq),
+      0, 0, 0);
   return cudaGetLastError();
 }
 
@@ -530,5 +1032,68 @@ extern "C" int bn_apply_relu_fwd(int dtype, const void* y, const void* scale,
 }
 
 extern "C" const char* bn_apply_relu_fwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// bf16 on the TMA ring and wgmma (stats_bf16_wgmma_kernel).  x [M, K], y
+// [M, N] contiguous; w [K, N] contiguous (w_kmajor 0) or the storage of a
+// contiguous [N, K] weight (w_kmajor 1: the .t() view ResNet passes).
+// psum, psq [blocks, N] float32 workspace; sum, sumsq [N] float32.  Tiles
+// are 128 rows x tile_n (128 or 256) columns; `blocks` (1 to the number of
+// tiles; one an SM) is the grid.  It takes K and N multiples of 8 and
+// 16-byte-aligned x, w, y, what TMA needs (the wrapper's choice); anything
+// else returns cudaErrorInvalidValue.  Two launches on `stream`, no
+// synchronisation.
+extern "C" int conv1x1_bn_stats_wgmma(const void* x, const void* w,
+                                      int w_kmajor, void* y, void* psum,
+                                      void* psq, void* sum, void* sumsq,
+                                      int M, int K, int N, int tile_n,
+                                      int blocks, void* stream) {
+  if (M <= 0 || K < 8 || K % 8 != 0 || N < 8 || N % 8 != 0 ||
+      !aligned16(x) || !aligned16(w) || !aligned16(y))
+    return cudaErrorInvalidValue;
+  return launch_stats_wgmma(x, w, w_kmajor != 0, y, static_cast<float*>(psum),
+                            static_cast<float*>(psq),
+                            static_cast<float*>(sum),
+                            static_cast<float*>(sumsq), M, K, N, tile_n,
+                            blocks, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" const char* conv1x1_bn_stats_wgmma_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The resident design (bn_apply_resident_kernel).  Layouts as
+// bn_apply_relu_fwd's, but scale and shift [N] in sdtype (0 = float32, 1 =
+// bfloat16).  It takes N a multiple of 16 bytes' worth of elements,
+// 16-byte-aligned y, out and residual, M below 2^30, and a grid of at least
+// one thread a 16-byte column chunk (blocks x 256 >= N / vector) and below
+// 2^27 threads; anything else returns cudaErrorInvalidValue.
+extern "C" int bn_apply_relu_resident(int dtype, int sdtype, const void* y,
+                                      const void* scale, const void* shift,
+                                      const void* residual, void* out,
+                                      long long M, int N, int blocks,
+                                      void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec = dtype == 1 ? 8 : 4;
+  if ((dtype != 0 && dtype != 1) || (sdtype != 0 && sdtype != 1) || M <= 0 ||
+      M >= (1ll << 30) || N <= 0 || N % vec != 0 || blocks <= 0 ||
+      (long long)blocks * kThreads < N / vec ||
+      (long long)blocks * kThreads >= (1ll << 27) || !aligned16(y) ||
+      !aligned16(out) || (residual != nullptr && !aligned16(residual)))
+    return cudaErrorInvalidValue;
+  const int m = (int)M;
+  if (dtype == 0)
+    return sdtype == 0 ? launch_resident<float, float>(
+                             y, scale, shift, residual, out, m, N, blocks, st)
+                       : launch_resident<float, __nv_bfloat16>(
+                             y, scale, shift, residual, out, m, N, blocks, st);
+  return sdtype == 0 ? launch_resident<__nv_bfloat16, float>(
+                           y, scale, shift, residual, out, m, N, blocks, st)
+                     : launch_resident<__nv_bfloat16, __nv_bfloat16>(
+                           y, scale, shift, residual, out, m, N, blocks, st);
+}
+
+extern "C" const char* bn_apply_relu_resident_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

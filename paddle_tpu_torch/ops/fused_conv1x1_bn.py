@@ -10,7 +10,13 @@ to the activation dtype; :func:`bn_apply_relu` then normalizes, adds the
 residual and applies the ReLU in one pass.  On the card each is the
 hand-written CUDA kernel of ``ops/csrc/fused_conv1x1_bn.cu`` (``sm_90a``,
 built with nvcc on first use, bound with ctypes; bf16 products on the
-tensor cores, float32 on SIMT FMAs, deterministic column sums).
+tensor cores, float32 on SIMT FMAs, deterministic column sums).  Each
+kernel has two designs, and the wrapper picks one by shape before the
+launch (:func:`_stats_plan`, :func:`_apply_plan`): the Hopper design
+(kernel 7: persistent, a TMA ring, wgmma, the statistics in the epilogue,
+``w`` read in the layout it comes in; kernel 8: each thread's scale and
+shift resident in registers, 8 rows in flight) where it applies, the
+first design elsewhere.
 
 :func:`conv1x1_bn_relu` is the tail as a ``torch.autograd.Function`` with
 the JAX body's forward arithmetic — ``mean = Σ/M``, ``var = max(Σ²/M −
@@ -42,14 +48,21 @@ __all__ = ["conv1x1_bn_stats", "conv1x1_bn_stats_ref", "bn_apply_relu",
            "fused_epilogues_eligible"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: output tile edge of the stats kernel, by dtype (csrc: kBM / kFBM)
+#: output tile edge of the stats kernel's first design, by dtype (csrc: kBM /
+#: kFBM) and of its Hopper design (kHM x kHN)
 _TILE = {torch.float32: 64, torch.bfloat16: 128}
-#: blocks the stats kernel aims for: six per SM of an H100
+_HOPPER_ROWS = 128
+#: blocks the stats kernel's first design aims for: six per SM of an H100
 _TARGET_BLOCKS = 6 * 132
+#: the resident bn_apply design: rows a thread takes a turn (csrc:
+#: kApplyRows), and at most this many 256-thread blocks an SM
+_APPLY_ROWS = 8
+_APPLY_BLOCKS_PER_SM = 32
 #: the channel multiple of the fused-tail gate (the JAX package's LANE)
 LANE = 128
 _fns = {}
 _fns_lock = threading.Lock()
+_sms = {}
 
 
 def fused_epilogues_eligible(feature_dim: int, x: torch.Tensor) -> bool:
@@ -62,12 +75,26 @@ def fused_epilogues_eligible(feature_dim: int, x: torch.Tensor) -> bool:
     return x.device.type == "cuda" and feature_dim % LANE == 0
 
 
-def _entry(symbol, argtypes):
+#: the C entries of ``csrc/fused_conv1x1_bn.cu`` and their ctypes argtypes
+_ARGTYPES = {
+    "conv1x1_bn_stats_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 7
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "conv1x1_bn_stats_wgmma": [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_int] + [ctypes.c_void_p] * 5
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "bn_apply_relu_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 5
+    + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "bn_apply_relu_resident": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+    + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+}
+
+
+def _entry(symbol):
     with _fns_lock:
         fn = _fns.get(symbol)
         if fn is None:
             fn = _fns[symbol] = _build.entry("fused_conv1x1_bn", symbol,
-                                             argtypes)
+                                             _ARGTYPES[symbol])
         return fn
 
 
@@ -87,6 +114,18 @@ def _device_check(name, tensors, dtype_of):
     if dev.type not in ("cpu", "cuda"):
         raise InvalidArgumentError(f"{name}: tensors on {dev} (cpu or cuda)")
     return dev
+
+
+def _sm_count(device) -> int:
+    """Streaming multiprocessors of ``device``'s card (cached)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    n = _sms.get(index)
+    if n is None:
+        n = _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
 
 
 def _vec_ok(widths, tensors, itemsize):
@@ -123,27 +162,87 @@ def _splits(M, N, dtype):
     return per, -(-m_tiles // per)
 
 
-def _stats_kernel(x, w):
+def _stats_plan(x, w):
+    """``(design, w_layout)`` of a call on contiguous ``x``: the Hopper
+    design ``"wgmma"`` for bf16 with K and N multiples of 8 (TMA's 16-byte
+    row strides) and a 16-byte-aligned x, else ``"first"``; ``w`` read as
+    it is, ``"mn-major"`` (a contiguous ``[K, N]``) or ``"k-major"`` (the
+    ``.t()`` view of a contiguous ``[N, K]`` weight: the Hopper design only),
+    or ``"copy"`` (``w.contiguous()`` first, then MN-major)."""
+    K, N = w.shape
+    aligned_w = w.data_ptr() % 16 == 0
+    if (x.dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0
+            and x.data_ptr() % 16 == 0):
+        if w.is_contiguous() and aligned_w:
+            return "wgmma", "mn-major"
+        if w.t().is_contiguous() and aligned_w:
+            return "wgmma", "k-major"
+        return "wgmma", "copy"
+    return "first", "mn-major" if w.is_contiguous() else "copy"
+
+
+def _stats_tile(N):
+    """The Hopper design's tile width: 256 columns where N is a multiple of
+    256 (every ResNet conv3: 3-11% faster than 128 at the four shapes),
+    else 128."""
+    return 256 if N % 256 == 0 else 128
+
+
+def _stats_blocks(M, N, tile_n, sms):
+    """The Hopper design's grid: one block an SM, at most one a tile of
+    128 rows x ``tile_n`` columns."""
+    tiles = -(-M // _HOPPER_ROWS) * -(-N // tile_n)
+    return max(1, min(tiles, sms))
+
+
+def _stats_kernel(x, w, design=None, tile_n=None):
     """Launch the CUDA stats kernel (two launches: the tiles and the fixed-
-    order reduction of their partial sums).  Adds one to
-    ``conv1x1_bn_stats.launches``."""
+    order reduction of their partial sums) in the design
+    :func:`_stats_plan` picks, or ``design="first"``; the Hopper design's
+    tile width from :func:`_stats_tile` or ``tile_n`` (128 or 256).  Adds
+    one to ``conv1x1_bn_stats.launches``."""
     M, K = x.shape
     N = w.shape[1]
-    x, w = x.contiguous(), w.contiguous()
+    x = x.contiguous()
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
     s = torch.empty(N, dtype=torch.float32, device=x.device)
     q = torch.empty(N, dtype=torch.float32, device=x.device)
     if M * K * N == 0:
         return y.zero_(), s.zero_(), q.zero_()
+    plan, layout = _stats_plan(x, w)
+    if design is not None:
+        if design not in ("wgmma", "first") or (design == "wgmma"
+                                                 and plan != "wgmma"):
+            raise InvalidArgumentError(
+                f"conv1x1_bn_stats: design {design!r} does not take "
+                f"{x.dtype} [{M}, {K}] @ [{K}, {N}]")
+        plan = design
+    if plan == "wgmma":
+        if layout == "copy":
+            w = w.contiguous()
+        tile_n = tile_n or _stats_tile(N)
+        if tile_n not in (128, 256):
+            raise InvalidArgumentError(
+                f"conv1x1_bn_stats: tile_n {tile_n} (128 or 256)")
+        blocks = _stats_blocks(M, N, tile_n, _sm_count(x.device))
+        part = torch.empty(2, blocks, N, dtype=torch.float32,
+                           device=x.device)
+        fn = _entry("conv1x1_bn_stats_wgmma")
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            fn(x.data_ptr(), w.data_ptr(), int(layout == "k-major"),
+               y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+               s.data_ptr(), q.data_ptr(), M, K, N, tile_n, blocks, stream)
+        conv1x1_bn_stats.launches += 1
+        return y, s, q
+    w = w.contiguous()
     per, splits = _splits(M, N, x.dtype)
     if splits > 65535:
         raise InvalidArgumentError(
             f"conv1x1_bn_stats: M = {M} needs {splits} row blocks, more "
             f"than the grid's 65535")
     part = torch.empty(2, splits, N, dtype=torch.float32, device=x.device)
-    fn = _entry("conv1x1_bn_stats_fwd",
-                [ctypes.c_int] + [ctypes.c_void_p] * 7
-                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn = _entry("conv1x1_bn_stats_fwd")
     vec = _vec_ok((K, N), (x, w, y), x.element_size())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -210,23 +309,67 @@ def bn_apply_relu_ref(y, scale, shift, residual=None):
     return torch.relu(out).to(y.dtype)
 
 
-def _apply_kernel(y, scale, shift, residual):
+def _apply_plan(dtype, N, aligned):
+    """The design of a bn_apply launch: ``"resident"`` where rows are whole
+    16-byte vectors (N a multiple of 16 bytes' worth of ``dtype``) and y,
+    the residual and out are 16-byte aligned (``aligned``), else
+    ``"first"`` (its scalar loop)."""
+    per = 16 // (torch.finfo(dtype).bits // 8)
+    return "resident" if aligned and N % per == 0 else "first"
+
+
+def _apply_blocks(M, N, itemsize, sms):
+    """The resident design's grid: enough 256-thread blocks that each
+    thread takes one turn of ``_APPLY_ROWS`` rows, at most
+    ``_APPLY_BLOCKS_PER_SM`` an SM and at least one thread a column
+    chunk."""
+    chunks = N * itemsize // 16
+    want = -(-(-(-M // _APPLY_ROWS) * chunks) // 256)
+    return max(-(-chunks // 256), min(want, sms * _APPLY_BLOCKS_PER_SM))
+
+
+def _apply_kernel(y, scale, shift, residual, design=None):
+    """Launch the CUDA bn_apply kernel in the design :func:`_apply_plan`
+    picks, or ``design="first"``.  Adds one to ``bn_apply_relu.launches``."""
     M, N = y.shape
     y = y.contiguous()
     res = residual.contiguous() if residual is not None else None
-    sc = scale.float().contiguous()
-    sh = shift.float().contiguous()
     out = torch.empty_like(y)
     if M == 0 or N == 0:
         return out
     tensors = (y, out) + ((res,) if res is not None else ())
     vec = _vec_ok((N,), tensors, y.element_size())
+    plan = _apply_plan(y.dtype, N, all(t.data_ptr() % 16 == 0
+                                       for t in tensors))
+    if design is not None:
+        if design not in ("resident", "first") or (design == "resident"
+                                                    and plan != "resident"):
+            raise InvalidArgumentError(
+                f"bn_apply_relu: design {design!r} does not take {y.dtype} "
+                f"[{M}, {N}]")
+        plan = design
+    if plan == "resident":
+        # scale and shift as they come when both are float32 or bf16 (the
+        # kernel widens bf16 exactly), else as float32
+        if scale.dtype == shift.dtype and scale.dtype in _DTYPES:
+            sc, sh = scale.contiguous(), shift.contiguous()
+        else:
+            sc, sh = scale.float().contiguous(), shift.float().contiguous()
+        fn = _entry("bn_apply_relu_resident")
+        blocks = _apply_blocks(M, N, y.element_size(), _sm_count(y.device))
+        with torch.cuda.device(y.device):
+            stream = torch.cuda.current_stream(y.device).cuda_stream
+            fn(_DTYPES[y.dtype], _DTYPES[sc.dtype], y.data_ptr(),
+               sc.data_ptr(), sh.data_ptr(),
+               res.data_ptr() if res is not None else None, out.data_ptr(),
+               M, N, blocks, stream)
+        bn_apply_relu.launches += 1
+        return out
+    sc = scale.float().contiguous()
+    sh = shift.float().contiguous()
     n_vec = -(-M * N * y.element_size() // 16)
     blocks = max(1, min(-(-n_vec // 256), 132 * 16))
-    fn = _entry("bn_apply_relu_fwd",
-                [ctypes.c_int] + [ctypes.c_void_p] * 5
-                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p])
+    fn = _entry("bn_apply_relu_fwd")
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         fn(_DTYPES[y.dtype], y.data_ptr(), sc.data_ptr(), sh.data_ptr(),

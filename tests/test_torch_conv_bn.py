@@ -23,8 +23,12 @@ its port:
   have no VJP — in float32 at rtol 1e-4 (one-pass against two-pass
   variance, and other summation orders).
 
-The CUDA kernels are held against the plain versions only where a card is
-present (``gpu`` marker): the four conv3 shapes of ResNet-50 at batch 128.
+The wrappers' plan functions (which design a shape, dtype and weight
+layout takes; that ResNet's transposed weight reaches the Hopper design
+with no copy) are checked on the CPU.  The CUDA kernels are held against
+the plain versions only where a card is present (``gpu`` marker): the four
+conv3 shapes of ResNet-50 at batch 128, in both designs of each kernel, and
+the Hopper stats design at ragged M and N, in both weight layouts.
 """
 import jax
 import jax.numpy as jnp
@@ -414,9 +418,132 @@ def test_gate_opens_only_for_cuda_activations_and_lane_channels():
         assert not fcb.fused_epilogues_eligible(200, card)
 
 
-# -- on the card ---------------------------------------------------------------
+# -- which design a call takes ------------------------------------------------
 RESNET_TAILS = [(401408, 64, 256), (100352, 128, 512), (25088, 256, 1024),
                 (6272, 512, 2048)]
+
+
+def _weight(K, N, dtype, form):
+    """A [K, N] weight as the caller holds it: ``"kn"`` contiguous, ``"t"``
+    the .t() view of a contiguous [N, K] (ResNet's conv3 weight),
+    ``"sliced"`` a column slice of a wider contiguous weight."""
+    if form == "kn":
+        return torch.zeros(K, N, dtype=dtype)
+    if form == "t":
+        return torch.zeros(N, K, dtype=dtype).t()
+    return torch.zeros(K, N + 8, dtype=dtype)[:, :N]
+
+
+@pytest.mark.parametrize("dtype,K,N,form,want", [
+    *[("bfloat16", K, N, "t", ("wgmma", "k-major"))
+      for _, K, N in RESNET_TAILS],
+    *[("bfloat16", K, N, "kn", ("wgmma", "mn-major"))
+      for _, K, N in RESNET_TAILS],
+    ("bfloat16", 64, 136, "t", ("wgmma", "k-major")),    # N % 128 != 0
+    ("bfloat16", 64, 200, "kn", ("wgmma", "mn-major")),  # R1's ragged N
+    ("bfloat16", 256, 1024, "sliced", ("wgmma", "copy")),
+    ("bfloat16", 100, 130, "kn", ("first", "mn-major")),  # K, N % 8 != 0
+    ("bfloat16", 64, 196, "t", ("first", "copy")),        # N % 8 != 0
+    ("bfloat16", 100, 256, "t", ("first", "copy")),       # K % 8 != 0
+    ("float32", 256, 1024, "kn", ("first", "mn-major")),
+    ("float32", 256, 1024, "t", ("first", "copy")),
+])
+def test_stats_plan_picks_the_design_by_shape_dtype_and_layout(dtype, K, N,
+                                                               form, want):
+    dt = getattr(torch, dtype)
+    x = torch.zeros(8, K, dtype=dt)
+    assert fcb._stats_plan(x, _weight(K, N, dt, form)) == want
+
+
+def test_stats_plan_sends_an_unaligned_x_to_the_first_design():
+    flat = torch.zeros(8 * 64 + 8, dtype=torch.bfloat16)
+    x = flat[1:1 + 8 * 64].view(8, 64)   # 2 bytes past a 16-byte boundary
+    assert fcb._stats_plan(x, _weight(64, 256, torch.bfloat16, "t")) == (
+        "first", "copy")
+
+
+def test_resnet_conv3_weight_reaches_the_kernel_k_major_with_no_copy(
+        monkeypatch):
+    """The bottleneck's fused tail hands conv1x1_bn_relu the .t() view of
+    conv3's [Cout, Cin] weight: the Hopper design reads that storage as the
+    K-major operand as it is, so the weight is never copied."""
+    from paddle_tpu_torch.vision.models import resnet as tres
+
+    blk = tres.BottleneckBlock(256, 64, data_format="NHWC").astype(
+        "bfloat16")
+    blk.train()
+    seen = []
+    tail = fcb.conv1x1_bn_relu
+
+    def spy(x, w, *a, **kw):
+        seen.append((x, w))
+        return tail(x, w, *a, **kw)
+
+    monkeypatch.setattr(fcb, "conv1x1_bn_relu", spy)
+    monkeypatch.setattr(fcb, "fused_epilogues_eligible",
+                        lambda feature_dim, x: True)
+    blk(torch.randn(2, 4, 4, 256).to(torch.bfloat16))
+    (x, w), = seen
+    assert tuple(w.shape) == (64, 256)
+    assert w.data_ptr() == blk.conv3.weight.data_ptr()
+    assert fcb._stats_plan(x.contiguous(), w) == ("wgmma", "k-major")
+
+
+def test_forcing_a_design_the_shape_does_not_take_raises():
+    x = torch.zeros(16, 100, dtype=torch.bfloat16)
+    with pytest.raises(InvalidArgumentError, match="design"):
+        fcb._stats_kernel(x, torch.zeros(100, 128, dtype=torch.bfloat16),
+                          design="wgmma")
+    y = torch.zeros(16, 130, dtype=torch.bfloat16)
+    with pytest.raises(InvalidArgumentError, match="design"):
+        fcb._apply_kernel(y, torch.ones(130), torch.zeros(130), None,
+                          design="resident")
+
+
+@pytest.mark.parametrize("N,want", [
+    *[(N, 256) for _, _, N in RESNET_TAILS], (768, 256), (136, 128),
+    (200, 128), (384, 128), (128, 128)])
+def test_stats_tile_is_256_columns_where_n_divides(N, want):
+    assert fcb._stats_tile(N) == want
+
+
+@pytest.mark.parametrize("M,N,tile_n,sms,want", [
+    (401408, 256, 128, 132, 132), (6272, 2048, 256, 132, 132),
+    (1000, 136, 128, 132, 16),   # 8 x 2 tiles: one block a tile
+    (1000, 136, 256, 132, 8),
+    (77, 200, 128, 132, 2), (1, 8, 128, 132, 1)])
+def test_stats_blocks_one_an_sm_at_most_one_a_tile(M, N, tile_n, sms, want):
+    assert fcb._stats_blocks(M, N, tile_n, sms) == want
+
+
+@pytest.mark.parametrize("dtype,N,aligned,want", [
+    *[("bfloat16", N, True, "resident") for _, _, N in RESNET_TAILS],
+    ("bfloat16", 200, True, "resident"),
+    ("bfloat16", 130, True, "first"),     # rows not whole 16-byte vectors
+    ("bfloat16", 256, False, "first"),
+    ("float32", 1024, True, "resident"),
+    ("float32", 130, True, "first"),
+    ("float32", 200, True, "resident"),
+])
+def test_apply_plan_picks_the_design(dtype, N, aligned, want):
+    assert fcb._apply_plan(getattr(torch, dtype), N, aligned) == want
+
+
+@pytest.mark.parametrize("M,N,itemsize,want", [
+    (401408, 256, 2, 132 * 32),  # capped at 32 blocks an SM
+    (100352, 512, 2, 3136),      # one turn of 8 rows a thread
+    (25088, 1024, 2, 1568), (6272, 2048, 2, 784),
+    (1000, 136, 2, 9),           # 125 turns of 17 chunks: 9 blocks
+    (4, 8 * 4096, 2, 16),        # at least one thread a column chunk
+])
+def test_apply_blocks_fill_the_card_and_cover_every_chunk(M, N, itemsize,
+                                                          want):
+    blocks = fcb._apply_blocks(M, N, itemsize, 132)
+    assert blocks == want
+    assert blocks * 256 >= N * itemsize // 16
+
+
+# -- on the card ---------------------------------------------------------------
 
 
 def _card():
@@ -499,3 +626,86 @@ def test_tail_grads_match_plain_autograd_on_card(dtype, tol):
     for i, (a, b) in enumerate(zip(*got)):
         a, b = a.float(), b.float()
         assert float((a - b).abs().max()) <= tol * float(b.abs().max()), i
+
+
+def _stats_check(x, w, y, s, q):
+    """The Hopper stats kernel's tolerances against the plain version."""
+    y0, s0, q0 = fcb.conv1x1_bn_stats_ref(x, w)
+    yf = x.float() @ w.float()
+    top = float(y0.float().abs().max())
+    torch.testing.assert_close(y.float(), y0.float(), rtol=2.0 ** -7,
+                               atol=1e-5 * top)
+    assert float(((s - s0).abs() / yf.abs().sum(0).clamp_min(1e-30)).max()) \
+        <= 3e-5
+    assert float(((q - q0).abs() / q0.clamp_min(1e-30)).max()) <= 3e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_n", [128, 256])
+@pytest.mark.parametrize("M,K,N", RESNET_TAILS + [(1000, 64, 136),
+                                                  (1000, 512, 136),
+                                                  (77, 64, 200)])
+def test_hopper_stats_kernel_matches_plain_in_both_layouts_on_card(M, K, N,
+                                                                   tile_n):
+    """bf16, tiles of 128 x 128 and 128 x 256: the conv3 shapes, an M that
+    is not a multiple of the 128-row tile and an N that is a multiple of 8
+    but not of 128.  The .t() view of a contiguous [N, K] weight (K-major,
+    no copy) and a contiguous [K, N] one (MN-major) give bit-equal results,
+    two calls give the same bits, and each is within the plain version's
+    tolerances."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=gen).relu_().to(dev, torch.bfloat16)
+    wt = (torch.randn(N, K, generator=gen) * (2.0 / K) ** 0.5).to(
+        dev, torch.bfloat16)
+    w_k, w_mn = wt.t(), wt.t().contiguous()
+    assert fcb._stats_plan(x, w_k) == ("wgmma", "k-major")
+    assert fcb._stats_plan(x, w_mn) == ("wgmma", "mn-major")
+    before = fcb.conv1x1_bn_stats.launches
+    got = [fcb._stats_kernel(x, w, tile_n=tile_n) for w in (w_k, w_k, w_mn)]
+    torch.cuda.synchronize()
+    assert fcb.conv1x1_bn_stats.launches == before + 3
+    for other in got[1:]:
+        for a, b in zip(got[0], other):
+            assert torch.equal(a, b)
+    _stats_check(x, w_mn, *got[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [RESNET_TAILS[2], (300, 64, 136)])
+def test_first_stats_design_is_still_reachable_and_right_on_card(M, K, N):
+    """bf16 through the first design (``design="first"``) at layer3's conv3
+    shape and a ragged one: deterministic and within the tolerances."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(M + N)
+    x = torch.randn(M, K, generator=gen).relu_().to(dev, torch.bfloat16)
+    w = (torch.randn(K, N, generator=gen) * (2.0 / K) ** 0.5).to(
+        dev, torch.bfloat16)
+    a = fcb._stats_kernel(x, w, design="first")
+    b = fcb._stats_kernel(x, w, design="first")
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    _stats_check(x, w, *a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("M,N", [(M, N) for M, _, N in RESNET_TAILS]
+                         + [(1000, 136)])
+def test_both_apply_designs_bit_equal_to_plain_on_card(M, N, residual):
+    dev = _card()
+    gen = torch.Generator().manual_seed(M + N + residual)
+    y = torch.randn(M, N, generator=gen).to(dev, torch.bfloat16)
+    scale = (1 + 0.1 * torch.randn(N, generator=gen)).to(dev, torch.bfloat16)
+    shift = (0.1 * torch.randn(N, generator=gen)).to(dev, torch.bfloat16)
+    r = (torch.randn(M, N, generator=gen).to(dev, torch.bfloat16)
+         if residual else None)
+    assert fcb._apply_plan(y.dtype, N, True) == "resident"
+    want = fcb.bn_apply_relu_ref(y, scale, shift, r)
+    # scale / shift in bf16 (as the tail folds them) and in float32
+    for design, sc, sh in ((None, scale, shift),
+                           (None, scale.float(), shift.float()),
+                           ("first", scale, shift)):
+        got = fcb._apply_kernel(y, sc, sh, r, design=design)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (design, sc.dtype)

@@ -7,8 +7,10 @@ one process on one card.
     python3 tools/torch_kernel_ab.py quantized_matmul OTHER.cu [OTHER.cu ...]
     python3 tools/torch_kernel_ab.py paged_attention OTHER.cu [...]
     python3 tools/torch_kernel_ab.py grouped_matmul OTHER.cu [...]
+    python3 tools/torch_kernel_ab.py conv1x1_bn OTHER.cu [...]
 
 ``OTHER.cu`` is another version of ``paddle_tpu_torch/ops/csrc/<kernel>.cu``
+(``fused_conv1x1_bn.cu`` for ``conv1x1_bn``)
 with the same C entries, for example an earlier commit's
 (``git show <commit>:paddle_tpu_torch/ops/csrc/flash_attention.cu >
 old.cu``).  Each is built with the port's ``nvcc`` flags (and the
@@ -55,7 +57,23 @@ max|out|), then timed in turns (repo, others, others reversed, repo):
   routing's group sizes and the 0 / 1 / 127 / 128 / 129 / C edges, padding
   rows NaN: exactly 0 out, two launches bit-equal, ``GMM_TOL``), then timed
   at the slice's fc1 / fc2 with the real routing (CUDA events over two
-  input copies, median of 3 runs), beside ``torch.bmm``.
+  input copies, median of 3 runs), beside ``torch.bmm``;
+* conv1x1_bn: kernels 7 and 8 of every build, through the package's
+  wrapper with the build's C entries swapped in, in every design the build
+  holds (kernel 7: ``conv1x1_bn_stats_wgmma`` with w K-major and MN-major
+  and tiles of 128 and 256 columns where the build has it, and the first
+  design; kernel 8:
+  ``bn_apply_relu_resident`` where the build has it, and the first
+  design): held against the plain versions at ResNet-50's four conv3
+  shapes (bf16) and at 1000 x 64 x 136 (``chip_smoke.stats_tolerance``,
+  two calls bit-equal, both w layouts bit-equal, kernel 8 bit-equal with
+  and without the residual), then timed at the four shapes by CUDA graph
+  (``chip_smoke.graph_ms``, inputs rotated past the L2; the eager call,
+  bounded by the wrapper's Python at layers 3-4, beside it) beside
+  ``torch.mm`` (the product alone) and the bound; then ``chip_smoke.py``
+  phase R3's ResNet-50 step with each build in turn behind the wrapper,
+  four turns a build (ms a step, img/s; the phase's launch checks run
+  every time).
 
 Prints one line per check and per timing, each build's ptxas register and
 spill report, and the card's name and power limit first.  Exits non-zero
@@ -641,22 +659,202 @@ def gmm(torch, cs, runs):
         del args
 
 
+def conv_bn_entries(lib):
+    """{C entry: caller} of the build's entries that the wrapper calls."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fcb
+
+    out = {}
+    for symbol, argtypes in fcb._ARGTYPES.items():
+        if not hasattr(lib, symbol):
+            continue
+        fn = getattr(lib, symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+
+        def call(*args, fn=fn, symbol=symbol):
+            rc = fn(*args)
+            if rc:
+                raise RuntimeError(f"{symbol}: cudaError {rc}")
+        out[symbol] = call
+    return out
+
+
+def conv_bn(torch, cs, libs):
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fcb
+
+    swaps = {tag: conv_bn_entries(lib) for tag, lib in libs.items()}
+    own = (dict(fcb._fns), fcb._stats_plan, fcb._apply_plan)
+
+    def first_stats(x, w):
+        return "first", "mn-major" if w.is_contiguous() else "copy"
+
+    def use(tag):
+        """The wrapper on ``tag``'s build: the build's entries, and the
+        first designs alone where it has no Hopper entry."""
+        fcb._fns.clear()
+        fcb._fns.update(swaps[tag])
+        fcb._stats_plan = (own[1] if "conv1x1_bn_stats_wgmma" in swaps[tag]
+                           else first_stats)
+        fcb._apply_plan = (own[2] if "bn_apply_relu_resident" in swaps[tag]
+                           else lambda *a: "first")
+
+    def designs(tag):
+        """([(name, w K-major?, design, tile_n)], [bn_apply designs])"""
+        k7 = ([(f"wgmma {layout} {tile}", layout == "k-major", None, tile)
+               for tile in (128, 256) for layout in ("k-major", "mn-major")]
+              if "conv1x1_bn_stats_wgmma" in swaps[tag] else [])
+        k8 = ["resident"] if "bn_apply_relu_resident" in swaps[tag] else []
+        return k7 + [("first", False, "first", None)], k8 + ["first"]
+
+    def graph_ms(fn, args, iters):
+        # the first design of an older build sets its shared-memory limit
+        # on every launch, which a CUDA graph capture may refuse
+        try:
+            return cs.graph_ms(torch, fn, args, iters)
+        except RuntimeError as err:
+            print(f"graph capture failed ({str(err)[:120]})", flush=True)
+            torch.cuda.synchronize()
+            return float("nan")
+
+    gpu = cs.gpu_line()
+    gen = torch.Generator().manual_seed(cs.SEED + 61)
+    try:
+        for name, M, K, N in cs.RESNET_TAILS + (("edge", 1000, 64, 136),):
+            x, w, gamma, beta, res = cs.resnet_tail_inputs(
+                torch, "bfloat16", M, K, N, gen)
+            wk = w.t().contiguous().t()  # ResNet's layout: [N, K] storage
+            y0, s0, q0 = fcb.conv1x1_bn_stats_ref(x, w)
+            yf_abs = (x.float() @ w.float()).abs().sum(0)
+            _, _, _, scale, shift = fcb._fold(s0, q0, M, gamma, beta, 1e-5,
+                                              y0.dtype)
+            for tag in swaps:
+                use(tag)
+                k7, k8 = designs(tag)
+                got = {}
+                for dname, kmajor, design, tile in k7:
+                    ww = wk if kmajor else w
+                    a = fcb._stats_kernel(x, ww, design=design, tile_n=tile)
+                    b = fcb._stats_kernel(x, ww, design=design, tile_n=tile)
+                    torch.cuda.synchronize()
+                    assert all(torch.equal(u, v) for u, v in zip(a, b)), \
+                        (tag, dname, name)
+                    e = cs.stats_tolerance(torch, a[0], y0, a[1], s0, a[2],
+                                           q0, yf_abs, "bfloat16")
+                    got[dname] = a
+                    print(f"check {tag} conv1x1_bn_stats {dname} {name}: y "
+                          f"max_abs_err={e[0]:.3e}, sum {e[1]:.2e}, sumsq "
+                          f"{e[2]:.2e}; two calls bit-equal; ok", flush=True)
+                for tile in (128, 256):
+                    if f"wgmma k-major {tile}" in got:
+                        assert all(torch.equal(u, v) for u, v in zip(
+                            got[f"wgmma k-major {tile}"],
+                            got[f"wgmma mn-major {tile}"])), (tag, name)
+                        print(f"check {tag} conv1x1_bn_stats {name}: "
+                              f"{tile}-column tiles, w K-major and MN-major "
+                              f"bit-equal; ok", flush=True)
+                for design in k8:
+                    for r in (res, None):
+                        out = fcb._apply_kernel(y0, scale, shift, r,
+                                                design=design)
+                        want = fcb.bn_apply_relu_ref(y0, scale, shift, r)
+                        torch.cuda.synchronize()
+                        assert torch.equal(out, want), (tag, design, name)
+                    print(f"check {tag} bn_apply_relu {design} {name}: "
+                          f"bit-equal to plain with and without the "
+                          f"residual; ok", flush=True)
+                del got
+            del x, w, wk, res, y0, yf_abs
+
+        order = list(swaps) + list(swaps)[::-1]
+        with torch.no_grad():
+            for name, M, K, N in cs.RESNET_TAILS:
+                per_call = 2 * (M * K + K * N + M * N)
+                n_copies = max(2, -(-120_000_000 // per_call))
+                ins = [cs.resnet_tail_inputs(torch, "bfloat16", M, K, N, gen)
+                       for _ in range(n_copies)]
+                iters = max(10, min(100, int(2e10 // (M * N))))
+                b7 = max(per_call / cs.HBM_BYTES_PER_S,
+                         2.0 * M * K * N / cs.BF16_FLOPS) * 1e3
+                b8 = (6 * M * N + 8 * N) / cs.HBM_BYTES_PER_S * 1e3
+                k8_args = []
+                for x, w, gamma, beta, res in ins:
+                    y, s, q = fcb.conv1x1_bn_stats_ref(x, w)
+                    _, _, _, scale, shift = fcb._fold(s, q, M, gamma, beta,
+                                                      1e-5, y.dtype)
+                    k8_args.append((y, scale, shift, res))
+                got = {}
+                for tag in order:
+                    use(tag)
+                    k7, k8 = designs(tag)
+                    for dname, kmajor, design, tile in k7:
+                        args = [(x, w.t().contiguous().t() if kmajor else w)
+                                for x, w, _, _, _ in ins]
+
+                        def call(x, w, design=design, tile=tile):
+                            return fcb._stats_kernel(x, w, design=design,
+                                                     tile_n=tile)
+                        got.setdefault(("conv1x1_bn_stats", tag, dname),
+                                       []).append((
+                                           graph_ms(call, args, iters),
+                                           cs.time_ms(torch, call, args,
+                                                      iters)))
+                        del args
+                    for design in k8:
+                        def call(*a, design=design):
+                            return fcb._apply_kernel(*a, design=design)
+                        got.setdefault(("bn_apply_relu", tag, design),
+                                       []).append((
+                                           graph_ms(call, k8_args, iters),
+                                           cs.time_ms(torch, call, k8_args,
+                                                      iters)))
+                mm_args = [(x, w) for x, w, _, _, _ in ins]
+                mm = (graph_ms(torch.mm, mm_args, iters),
+                      cs.time_ms(torch, torch.mm, mm_args, iters))
+                for (kernel, tag, dname), vals in got.items():
+                    bound = b7 if kernel == "conv1x1_bn_stats" else b8
+                    print(f"time {kernel} bf16 {name} [{M}, {K}] @ [{K}, "
+                          f"{N}] (checked) {tag} {dname}: graph "
+                          f"{' / '.join(f'{g:.4f}' for g, _ in vals)} ms, "
+                          f"eager {' / '.join(f'{e:.4f}' for _, e in vals)} "
+                          f"ms (bound {bound:.4f}"
+                          + (f"; torch.mm graph {mm[0]:.4f}, eager "
+                             f"{mm[1]:.4f}" if kernel == "conv1x1_bn_stats"
+                             else "") + ")", flush=True)
+                del ins, k8_args, mm_args
+                torch.cuda.empty_cache()
+
+        steps = {}
+        for tag in order * 2:
+            use(tag)
+            r = cs.train_resnet(torch, gpu)
+            steps.setdefault(tag, []).append((r["step_ms"], r["img_per_s"]))
+            torch.cuda.empty_cache()
+        for tag, vals in steps.items():
+            print(f"resnet50 step (R3) {tag}: " + " / ".join(
+                f"{ms:.2f} ms ({ips:.1f} img/s)" for ms, ips in vals),
+                flush=True)
+    finally:
+        fcb._fns.clear()
+        fcb._fns.update(own[0])
+        fcb._stats_plan, fcb._apply_plan = own[1], own[2]
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available() or len(sys.argv) < 3 or \
             sys.argv[1] not in ("flash_attention", "flash_attention_bwd",
                                 "quantized_matmul", "paged_attention",
-                                "grouped_matmul"):
+                                "grouped_matmul", "conv1x1_bn"):
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
     import chip_smoke as cs
     from paddle_tpu_torch.ops import _build
 
     kernel, others = sys.argv[1], sys.argv[2:]
+    source = "fused_conv1x1_bn" if kernel == "conv1x1_bn" else kernel
     print(cs.gpu_line(), flush=True)
-    libs = {"repo": (_build.load(kernel), ptxas_lines(
-        _build.library_path(kernel).with_suffix(".log").read_text()))}
+    libs = {"repo": (_build.load(source), ptxas_lines(
+        _build.library_path(source).with_suffix(".log").read_text()))}
     with tempfile.TemporaryDirectory() as tmp:
         libs.update(build(others, tmp))
         for tag, (_, ptxas) in libs.items():
@@ -676,6 +874,8 @@ def main() -> int:
         elif kernel == "grouped_matmul":
             gmm(torch, cs, {tag: gmm_runners(lib, torch)
                             for tag, (lib, _) in libs.items()})
+        elif kernel == "conv1x1_bn":
+            conv_bn(torch, cs, {tag: lib for tag, (lib, _) in libs.items()})
         else:
             qm = importlib.import_module(
                 "paddle_tpu_torch.ops.quantized_matmul")

@@ -68,9 +68,9 @@ GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("flash_attention_bwd_dkv", ("flash_bwd_dkv_",)),
     ("layernorm_residual", ("ln_res_kernel", "ln_res_wide_kernel")),
     ("softmax_cross_entropy", ("sxent_kernel",)),
-    ("conv1x1_bn_stats", ("stats_bf16_kernel", "stats_f32_kernel",
-                          "reduce_partials_kernel")),
-    ("bn_apply_relu", ("bn_apply_kernel",)),
+    ("conv1x1_bn_stats", ("stats_bf16_kernel", "stats_bf16_wgmma_kernel",
+                          "stats_f32_kernel", "reduce_partials_kernel")),
+    ("bn_apply_relu", ("bn_apply_kernel", "bn_apply_resident_kernel")),
     ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit",
                              "cudnn")),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "matmul")),
