@@ -31,28 +31,39 @@ Phases, in order — any failure raises and exits non-zero:
    calls, which Python bounds, beside them);
 6. train kernels vs plain: ``layernorm_residual`` and
    ``softmax_cross_entropy`` against their plain versions at the training
-   path's shapes (BERT-base bf16, GPT-small f32): ``s`` exactly equal,
-   ``y`` / loss / ``lse`` and the gradients through each
-   ``autograd.Function`` within stated tolerances;
+   path's shapes (BERT-base bf16, GPT-small f32; ``layernorm_residual``
+   also at the long-context slice's [16384, 768] bf16): ``s`` exactly
+   equal, ``y`` / loss / ``lse`` and the gradients through each
+   ``autograd.Function`` within stated tolerances; ``layernorm_residual``'s
+   forward in the design its plan picks and in its first design, its
+   backward kernel with and without the s cotangent in the design its plan
+   picks and in its element layout, against ``_backward_ref``: ds within
+   the forward's tolerance, dg / db within it after scaling by their
+   largest magnitude, two calls bit-equal;
 7. BERT-base pretraining, the training main path:
    ``BertForPretraining(bert_base())`` in bf16 with
    ``AdamW(1e-4, weight_decay=0.01, multi_precision=True)`` through
    ``Model.train_batch`` at batch 256 x seq 128 with 20 masked positions
    (seeded data built as ``bench.py`` builds it), 3 warm-up and 10 timed
    steps on one batch; the counts are zeroed just before the timed steps
-   and must equal 24 x steps (``layernorm_residual``) and 1 x steps
-   (``softmax_cross_entropy``); losses finite and falling, master slots
-   float32; seq/s and peak device memory;
+   and must equal 24 x steps (``layernorm_residual``, forward and
+   backward) and 1 x steps (``softmax_cross_entropy``); losses finite and
+   falling, master slots float32; seq/s and peak device memory;
 8. GPT-small training: ``GPTForCausalLM(gpt_small())`` f32, dropout 0.1,
    ``AdamW(1e-3, weight_decay=0.01, multi_precision=True)`` at batch 8 x
-   seq 1024, 2 warm-up and 3 timed steps; counts 12 x steps and 1 x
-   steps; tokens/s;
+   seq 1024, 2 warm-up and 3 timed steps; counts 12 x steps (forward and
+   backward) and 1 x steps; tokens/s;
 9. card vs CPU: ``bert_base()`` f32 with dropout 0 from one seeded init,
    two ``train_batch`` steps on the card (kernels) and on the CPU (plain
    versions); losses agree at rtol 1e-4;
-10. timing of both training kernels at both shapes: kernel, plain
+10. timing of both training kernels at their shapes: kernel, plain
     version and library call (``F.layer_norm(x + r)``,
-    ``F.cross_entropy(reduction="none")``) beside the bytes bound.
+    ``F.cross_entropy(reduction="none")``) beside the bytes bound;
+    ``layernorm_residual``'s forward and backward by CUDA graph (device
+    time, the eager call beside it, the first forward design, the plain
+    versions and the library calls — the backward's
+    ``native_layer_norm_backward``, plus the s cotangent's add where the
+    path has one — by the same method, inputs rotated past the L2).
 
 Quantized serving (run between phases 5 and 6, on the model of phase 4):
 
@@ -148,13 +159,12 @@ L4. timing, bf16 causal, at the slice's shape and at bench.py's op shape
     ``F.scaled_dot_product_attention`` from CUDA events, median (min-max)
     of 3 runs, beside the bound (the causal pairs' operations at 989
     TFLOP/s);
-W.  the width repairs: ``layernorm_residual``'s wide variant (D > 768)
-    against its plain version at the hidden-1024 GPT's shape [2048, 1024],
-    float32 and bf16, as phase 6 holds the narrow one (``s`` exact, ``y``,
-    mean, rstd and the wrapper's gradients), and its kernel / plain /
-    ``F.layer_norm(x + r)`` times beside the bytes bound;
+W.  the width repairs: ``layernorm_residual`` at the hidden-1024 GPT's
+    shape [2048, 1024], float32 and bf16, held and timed as phases 6 and
+    10 hold and time the narrow shapes (the Hopper design, and the first
+    design's wide variant; the backward with the s cotangent);
     ``gpt_small(hidden_size=1024, num_heads=16)`` takes one
-    ``train_batch`` (12 launches of the wide variant);
+    ``train_batch`` (12 forward and 12 backward launches);
     ``paged_flash_decode`` at head_dim 320 and at page 1024 (staged in row
     chunks), each over float32 and bf16 q and float, int8 and fp8 pools,
     against its plain version.
@@ -176,7 +186,8 @@ LT2. the slice model in bf16 with ``AdamW(1e-4, weight_decay=0.01,
      same seeded batch, 2 warm-up and 5 timed steps; the counts are zeroed
      just before the timed steps and must equal 12 x steps
      (``flash_attention``, ``flash_attention_bwd_dq``,
-     ``flash_attention_bwd_dkv``, ``layernorm_residual``) and 1 x steps
+     ``flash_attention_bwd_dkv``, ``layernorm_residual`` forward and
+     backward) and 1 x steps
      (``softmax_cross_entropy``); losses finite and falling, f32 master
      slots; tokens/s, ms/step, peak device memory; then the same model at
      1 x 8192 through the flash route and with the gate closed (the dense
@@ -214,8 +225,9 @@ M2. the slice, ``GPTForCausalLM(gpt_small(moe_experts=8, moe_top_k=2,
     ``AdamW(1e-4, weight_decay=0.01, multi_precision=True)`` through
     ``Model.train_batch`` at 8 x 1024 tokens, 2 warm-up and 5 timed steps;
     the counts are zeroed just before the timed steps and must equal 24 x
-    steps (``grouped_matmul``), 12 x steps (``layernorm_residual``) and
-    steps (``softmax_cross_entropy``); losses finite and falling; the aux
+    steps (``grouped_matmul``), 12 x steps (``layernorm_residual``,
+    forward and backward) and steps (``softmax_cross_entropy``); losses
+    finite and falling; the aux
     loss finite and printed; every expert's float32 master moved; bf16
     parameters equal to their masters rounded; ms/step, tokens/s, peak
     device memory and the overflow fraction after the last step;
@@ -242,9 +254,12 @@ M5. timing of kernel 10 at M1's slice shapes (bf16) and at the decode
     peak, or the valid x rows, the weights of experts with rows, the whole
     output at 3.35 TB/s).
 
-The line before last is the ``{"kernels": [...]}`` JSON record; the last
-line is ``{"ok": true, "device": {...}}``.  Without a card, or without the
-package beside this file, it exits non-zero and prints no result.
+The line before last is the ``{"kernels": [...]}`` JSON record
+(``layernorm_residual``'s entry carries its backward kernel's numbers
+under ``backward``: launches in phase 7, max_abs_err, ms, bound, plain and
+library); the last line is ``{"ok": true, "device": {...}}``.  Without a
+card, or without the package beside this file, it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -445,6 +460,7 @@ def paged_edges(torch, args, tol, label):
     page, slot 6 with one (so every share of its split but one holds no
     valid key), row 0 of slot 1 masked everywhere; against the plain
     version, the dead rows exactly 0, two calls bit-equal."""
+    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import paged_attention as pa
 
     q, k, v, tab, mask = args[:5]
@@ -453,7 +469,7 @@ def paged_edges(torch, args, tol, label):
     mask[6, :, PAGE:] = False
     args = (q, k, v, tab, mask, *args[5:])
     plan = pa._plan(B, H, q.shape[2], HD, PAGE, G, k.element_size(),
-                    pa._sm_count(q.device))
+                    _build.sm_count(q.device))
     assert plan[0] == "split", plan
     out = pa.paged_flash_decode(*args)
     out2 = pa.paged_flash_decode(*args)
@@ -954,9 +970,13 @@ def timing_quantized(torch, gpu):
 
 
 # -- the training path --------------------------------------------------------
-# (name, dtype, rows, width): the two kernels' shapes on the training path
-LN_SHAPES = (("bert", "bfloat16", BERT_B * BERT_S, 768),
-             ("gpt", "float32", GPT_B * GPT_S, 768))
+# (name, dtype, rows, width[, s cotangent]): the two kernels' shapes on the
+# training path; layernorm_residual's also at the long-context slice's 2 x
+# 8192 rows (phase LT2), and whether its backward gets the s cotangent
+# (pre-LN GPT: yes; post-LN BERT: y alone)
+LN_SHAPES = (("bert", "bfloat16", BERT_B * BERT_S, 768, False),
+             ("gpt", "float32", GPT_B * GPT_S, 768, True),
+             ("long", "bfloat16", 2 * 8192, 768, True))
 SX_SHAPES = (("bert", "bfloat16", BERT_B * BERT_P, 30522),
              ("gpt", "float32", GPT_B * (GPT_S - 1), 50304))
 
@@ -991,6 +1011,16 @@ def ln_bound(M, D, item):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def ln_bwd_bound(M, D, item, has_ds):
+    """Bytes: s, dy (and ds_out) read and ds written once, mean and rstd
+    read, weight read and dg, db written; operations: ~12 per element in
+    float32."""
+    nbytes = (3 + has_ds) * M * D * item + 8 * M + 3 * D * item
+    ops = 12.0 * M * D
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
 def sx_bound(M, V, item):
     """Bytes: logits read once, int32 labels read, loss and lse written;
     operations: ~4 per logit (max, subtract, exp, add) in float32."""
@@ -1000,22 +1030,81 @@ def sx_bound(M, V, item):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def check_ln(torch, fl, dtype, M, D, gen):
-    """``layernorm_residual``'s kernel against its plain version at [M, D]:
-    ``s`` exact, ``y``, mean and rstd within tolerance, and the public
-    wrapper's outputs and gradients against the plain autograd's.  Returns
-    y's largest abs error."""
-    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
-           else dict(rtol=2e-2, atol=2e-2))
-    (x, r, g, b), = ln_inputs(torch, dtype, M, D, gen)
-    s, y, mean, rstd = fl._forward_kernel(x, r, g, b, 1e-5)
-    s0, y0, mean0, rstd0 = fl._forward_ref(x, r, g, b, 1e-5)
+def ln_tol(dtype):
+    """float32: the same arithmetic summed in another order; bf16: outputs
+    rounded to 8 mantissa bits, one bf16 step apart at most."""
+    return (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+            else dict(rtol=2e-2, atol=2e-2))
+
+
+def check_ln_bwd(torch, fl, s, mean, rstd, g, dy, ds_out, tol, design=None):
+    """``layernorm_residual``'s backward kernel against ``_backward_ref``
+    on the same card tensors: ds within ``tol``, dg and db scaled by their
+    largest magnitude, a second call bit-equal, one count a call.  Returns
+    ds's largest abs error."""
+    before = fl.layernorm_residual.backward_launches
+    got = fl._backward_kernel(s, mean, rstd, g, ds_out, dy, design=design)
+    again = fl._backward_kernel(s, mean, rstd, g, ds_out, dy, design=design)
+    want = fl._backward_ref(s, mean, rstd, g, ds_out, dy)
     torch.cuda.synchronize()
-    assert torch.equal(s, s0), "layernorm_residual: s differs"
-    torch.testing.assert_close(y, y0, **tol)
-    torch.testing.assert_close(mean, mean0, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(rstd, rstd0, rtol=1e-5, atol=1e-5)
-    dy = torch.randn(M, D, generator=gen).to(DEVICE, y.dtype)
+    assert fl.layernorm_residual.backward_launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "layernorm_residual backward: two calls differ"
+    torch.testing.assert_close(got[0], want[0], **tol)
+    for a, w in zip(got[1:], want[1:]):
+        scale = max(1.0, float(w.float().abs().max()))
+        torch.testing.assert_close(a.float() / scale, w.float() / scale,
+                                   **tol)
+    return float((got[0].float() - want[0].float()).abs().max())
+
+
+def check_ln(torch, fl, dtype, M, D, gen):
+    """``layernorm_residual``'s kernels against their plain versions at
+    [M, D]: the forward in the design the plan picks and in the first
+    design (``s`` exact, ``y``, mean and rstd within tolerance); the
+    backward kernel with and without the s cotangent, in the design the
+    plan picks and in its element layout (``check_ln_bwd``); and the public
+    wrapper's outputs and gradients against the plain autograd's.  Returns
+    (y's, ds's largest abs error) of the planned designs."""
+    tol = ln_tol(dtype)
+    (x, r, g, b), = ln_inputs(torch, dtype, M, D, gen)
+    fplan = fl._forward_plan(x.dtype, D, True)
+    bplan = fl._backward_plan(x.dtype, D, True)
+    s0, y0, mean0, rstd0 = fl._forward_ref(x, r, g, b, 1e-5)
+    err = None
+    for design in dict.fromkeys((None, "first")):
+        s, y, mean, rstd = fl._forward_kernel(x, r, g, b, 1e-5,
+                                              design=design)
+        torch.cuda.synchronize()
+        assert torch.equal(s, s0), ("layernorm_residual: s differs", design)
+        torch.testing.assert_close(y, y0, **tol)
+        torch.testing.assert_close(mean, mean0, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(rstd, rstd0, rtol=1e-5, atol=1e-5)
+        e = float((y.float() - y0.float()).abs().max())
+        err = e if err is None else err
+        log(f"kernel layernorm_residual {dtype} [{M}, {D}] forward "
+            f"{design or fplan}: s exact, y max_abs_err={e:.3e} vs plain "
+            f"(rtol={tol['rtol']}, atol={tol['atol']}) ok")
+    dy, ds = (torch.randn(M, D, generator=gen).to(DEVICE, y.dtype)
+              for _ in range(2))
+    s, y, mean, rstd = fl._forward_kernel(x, r, g, b, 1e-5)
+    bwd_err = 0.0
+    # a build without the backward kernel (tools/torch_kernel_ab.py) plans
+    # "plain" everywhere: nothing to hold
+    bwd_designs = (() if bplan == "plain" else dict.fromkeys((None,
+                                                              "scalar")))
+    for design in bwd_designs:
+        for ds_out in (ds, None):
+            e = check_ln_bwd(torch, fl, s, mean, rstd, g, dy, ds_out, tol,
+                             design=design)
+            if design is None:
+                bwd_err = max(bwd_err, e)
+            log(f"kernel layernorm_residual {dtype} [{M}, {D}] backward "
+                f"{design or bplan}, "
+                f"{'with' if ds_out is not None else 'without'} the s "
+                f"cotangent: ds max_abs_err={e:.3e}, dg / db within "
+                f"(rtol={tol['rtol']}, atol={tol['atol']}) of their largest "
+                f"magnitude; two calls bit-equal; ok")
     outs, grads = [], []
     for fn in (fl.layernorm_residual, fl.layernorm_residual_ref):
         args = [t.clone().requires_grad_() for t in (x, r, g, b)]
@@ -1032,30 +1121,84 @@ def check_ln(torch, fl, dtype, M, D, gen):
         torch.testing.assert_close(a.float() / scale, w.float() / scale,
                                    **tol)
         gerr = max(gerr, float((a.float() - w.float()).abs().max()))
-    err = float((y.float() - y0.float()).abs().max())
-    log(f"kernel layernorm_residual {dtype} [{M}, {D}]: s exact, y "
-        f"max_abs_err={err:.3e}, grads max_abs_err={gerr:.3e} vs plain "
-        f"(rtol={tol['rtol']}, atol={tol['atol']}) ok")
-    return err
+    log(f"kernel layernorm_residual {dtype} [{M}, {D}]: the wrapper's s "
+        f"exact, y and grads (max_abs_err={gerr:.3e}) vs plain autograd ok")
+    return err, bwd_err
 
 
-def time_ln(torch, fl, gpu, dtype, M, D, gen):
-    """``layernorm_residual``'s kernel, plain version and
-    ``F.layer_norm(x + r)`` at [M, D] from CUDA events, inputs rotated
-    past the L2, beside the bound."""
+def ln_copies(M, D, item):
+    """Input copies a timing rotates through: x and r of all of them hold
+    more than twice the 50 MB L2."""
+    return max(2, -(-120_000_000 // (2 * M * D * item)))
+
+
+def ln_library_bwd(torch, s, g, b, dy, ds_out):
+    """The one PyTorch call that computes the same gradient:
+    ``native_layer_norm_backward`` over ``s`` with the library's own saved
+    statistics (plus the s cotangent where there is one)."""
+    D = s.shape[-1]
+    _, mean, rstd = torch.native_layer_norm(s, [D], g, b, 1e-5)
+
+    def call(dy, ds_out):
+        ds, dg, db = torch.ops.aten.native_layer_norm_backward(
+            dy, s, [D], mean, rstd, g, b, [True, True, True])
+        return (ds + ds_out if ds_out is not None else ds), dg, db
+    return call, (dy, ds_out)
+
+
+def time_ln(torch, fl, gpu, dtype, M, D, has_ds, gen):
+    """``layernorm_residual``'s forward and backward at [M, D]: the
+    kernels' device time from a CUDA graph (``graph_ms``) with the eager
+    call beside it, the forward's first design, the plain versions and the
+    library calls (``F.layer_norm(x + r)``; ``native_layer_norm_backward``
+    plus the s cotangent's add where ``has_ds``) by the same graph method,
+    inputs rotated past the L2, beside the bounds."""
     import torch.nn.functional as F
 
-    args = ln_inputs(torch, dtype, M, D, gen, n_copies=2)
-    ms = time_ms(torch, lambda *a: fl._forward_kernel(*a, 1e-5), args, 100)
-    plain = time_ms(torch, lambda *a: fl._forward_ref(*a, 1e-5), args, 20)
-    lib = time_ms(torch, lambda x, r, g, b: F.layer_norm(
+    item = torch.finfo(getattr(torch, dtype)).bits // 8
+    args = ln_inputs(torch, dtype, M, D, gen, n_copies=ln_copies(M, D, item))
+    fwd = lambda *a: fl._forward_kernel(*a, 1e-5)  # noqa: E731
+    ms = graph_ms(torch, fwd, args, 100)
+    eager = time_ms(torch, fwd, args, 100)
+    first = graph_ms(torch, lambda *a: fl._forward_kernel(
+        *a, 1e-5, design="first"), args, 100)
+    plain = graph_ms(torch, lambda *a: fl._forward_ref(*a, 1e-5), args, 20)
+    lib = graph_ms(torch, lambda x, r, g, b: F.layer_norm(
         x + r, (D,), g, b, 1e-5), args, 50)
-    b_ms, b_by = ln_bound(M, D, args[0][0].element_size())
-    log(f"timing[{gpu}] layernorm_residual {dtype} [{M}, {D}]: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, library (layer_norm(x + r)) "
-        f"{lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by)
+    b_ms, b_by = ln_bound(M, D, item)
+    bargs, largs = [], []
+    for x, r, g, b in args:
+        s, _, mean, rstd = fl._forward_kernel(x, r, g, b, 1e-5)
+        dy = torch.randn(M, D, generator=gen).to(DEVICE, s.dtype)
+        ds_out = (torch.randn(M, D, generator=gen).to(DEVICE, s.dtype)
+                  if has_ds else None)
+        bargs.append((s, mean, rstd, g, ds_out, dy))
+        largs.append(ln_library_bwd(torch, s, g, b, dy, ds_out))
+    del args
+    bms = graph_ms(torch, fl._backward_kernel, bargs, 50)
+    beager = time_ms(torch, fl._backward_kernel, bargs, 50)
+    bplain = graph_ms(torch, fl._backward_ref, bargs, 10)
+    # each copy's library call closes over its own s and statistics
+    blib = graph_ms(torch, lambda i: largs[i][0](*largs[i][1]),
+                    [(i,) for i in range(len(largs))], 50)
+    bb_ms, bb_by = ln_bwd_bound(M, D, item, has_ds)
+    log(f"timing[{gpu}] layernorm_residual {dtype} [{M}, {D}] forward "
+        f"({fl._forward_plan(getattr(torch, dtype), D, True)}): device "
+        f"{ms:.4f} ms ({100 * b_ms / ms:.0f}% of the bound; eager "
+        f"{eager:.4f}), first design {first:.4f}, plain {plain:.4f}, library "
+        f"(layer_norm(x + r)) {lib:.4f}, bound {b_ms:.4f} ms by {b_by}")
+    log(f"timing[{gpu}] layernorm_residual {dtype} [{M}, {D}] backward "
+        f"({fl._backward_plan(getattr(torch, dtype), D, True)}, "
+        f"{'with' if has_ds else 'without'} the s cotangent): device "
+        f"{bms:.4f} ms ({100 * bb_ms / bms:.0f}% of the bound; eager "
+        f"{beager:.4f}), plain {bplain:.4f}, library "
+        f"(native_layer_norm_backward{' + add' if has_ds else ''}) "
+        f"{blib:.4f}, bound {bb_ms:.4f} ms by {bb_by}")
+    return dict(ms=ms, eager_ms=eager, first_design_ms=first,
+                plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                backward=dict(ms=bms, eager_ms=beager, plain_ms=bplain,
+                              library_ms=blib, bound_ms=bb_ms,
+                              bound_by=bb_by, s_cotangent=has_ds))
 
 
 def check_train_kernels(torch):
@@ -1066,9 +1209,10 @@ def check_train_kernels(torch):
 
     gen = torch.Generator().manual_seed(SEED + 2)
     errs = {}
-    for name, dtype, M, D in LN_SHAPES:
-        errs[("layernorm_residual", name)] = check_ln(torch, fl, dtype, M, D,
-                                                      gen)
+    for name, dtype, M, D, _ in LN_SHAPES:
+        (errs[("layernorm_residual", name)],
+         errs[("layernorm_residual_backward", name)]) = check_ln(
+            torch, fl, dtype, M, D, gen)
     for name, dtype, M, V in SX_SHAPES:
         (x, lab), = sx_inputs(torch, dtype, M, V, gen, out_of_range=True)
         loss, lse = sx._forward_kernel(x, lab)
@@ -1116,13 +1260,16 @@ def bert_batch(vocab, B, S, P, seed=SEED):
 
 
 def train_steps(torch, model, inputs, labels, warmup, steps, counters):
-    """``warmup`` + ``steps`` ``train_batch`` calls; the counters are
-    zeroed just before the timed steps and read just after.  Returns
-    (losses, seconds of the timed steps, launches per counter)."""
+    """``warmup`` + ``steps`` ``train_batch`` calls; the counters (and
+    ``layernorm_residual.backward_launches``) are zeroed just before the
+    timed steps and read just after.  Returns (losses, seconds of the
+    timed steps, launches per counter)."""
     losses = [model.train_batch(inputs, labels)[0] for _ in range(warmup)]
     torch.cuda.synchronize()
     for c in counters:
         c.launches = 0
+        if hasattr(c, "backward_launches"):  # layernorm_residual's
+            c.backward_launches = 0
     t0 = time.monotonic()
     for _ in range(steps):
         losses.append(model.train_batch(inputs, labels)[0])
@@ -1131,8 +1278,22 @@ def train_steps(torch, model, inputs, labels, warmup, steps, counters):
     return losses, wall, [c.launches for c in counters]
 
 
-def train_bert(torch, gpu):
-    """Phase 7: BERT-base bf16 pretraining through Model.train_batch."""
+def ln_backward_gate(layernorm_residual, ln, tag, kernel=True):
+    """The backward kernel ran once for every forward launch of the timed
+    steps (``kernel=False``: a build without it, whose backward is the
+    plain arithmetic: none).  Returns the backward count."""
+    lnb = layernorm_residual.backward_launches
+    want = ln if kernel else 0
+    log(f"{tag}: layernorm_residual backward launches {lnb} (= {want}: "
+        f"{lnb == want})")
+    assert lnb == want, (tag, lnb, want)
+    return lnb
+
+
+def train_bert(torch, gpu, ln_backward_kernel=True):
+    """Phase 7: BERT-base bf16 pretraining through Model.train_batch
+    (``ln_backward_kernel=False``: the layernorm backward is expected to
+    be the plain arithmetic, as behind a build that lacks the kernel)."""
     import math
 
     import paddle_tpu_torch as ptt
@@ -1165,6 +1326,8 @@ def train_bert(torch, gpu):
         f"{ln == 24 * BERT_STEPS}), softmax_cross_entropy {sx} (= "
         f"{BERT_STEPS}: {sx == BERT_STEPS})")
     assert ln == 2 * cfg.num_layers * BERT_STEPS, ln
+    lnb = ln_backward_gate(layernorm_residual, ln, "train[bert]",
+                           ln_backward_kernel)
     assert sx == BERT_STEPS, sx
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < losses[0], (losses[0], losses[-1])
@@ -1179,6 +1342,7 @@ def train_bert(torch, gpu):
         f"master slots")
     del model, opt, net
     return {"launches": {"layernorm_residual": ln,
+                         "layernorm_residual_backward": lnb,
                          "softmax_cross_entropy": sx},
             "seq_per_s": sps, "step_ms": wall / BERT_STEPS * 1e3,
             "peak_bytes": peak, "first_loss": losses[0],
@@ -1213,6 +1377,7 @@ def train_gpt(torch, gpu):
         f"launches over {GPT_STEPS} steps: layernorm_residual {ln}, "
         f"softmax_cross_entropy {sx}")
     assert ln == cfg.num_layers * GPT_STEPS, ln
+    ln_backward_gate(layernorm_residual, ln, "train[gpt]")
     assert sx == GPT_STEPS, sx
     assert all(math.isfinite(x) for x in losses), losses
     tps = GPT_B * GPT_S * GPT_STEPS / wall
@@ -1263,9 +1428,9 @@ def timing_train(torch, gpu):
     gen = torch.Generator().manual_seed(SEED + 4)
     rows = {}
     with torch.no_grad():
-        for name, dtype, M, D in LN_SHAPES:
-            rows[("layernorm_residual", name)] = time_ln(torch, fl, gpu,
-                                                         dtype, M, D, gen)
+        for name, dtype, M, D, has_ds in LN_SHAPES:
+            rows[("layernorm_residual", name)] = time_ln(
+                torch, fl, gpu, dtype, M, D, has_ds, gen)
         for name, dtype, M, V in SX_SHAPES:
             args = sx_inputs(torch, dtype, M, V, gen, n_copies=2)
             ms = time_ms(torch, sx._forward_kernel, args, 50)
@@ -1898,6 +2063,8 @@ def long_context_inference(torch, gpu):
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
+        if hasattr(c, "backward_launches"):  # layernorm_residual's
+            c.backward_launches = 0
     t0 = time.monotonic()
     losses = [model.eval_batch([ids], [ids])[0] for _ in range(LC_EVALS)]
     torch.cuda.synchronize()
@@ -2080,14 +2247,15 @@ def check_width_repairs(torch, gpu):
         paged_flash_decode, paged_flash_decode_ref)
 
     M, D = WIDE_LN
-    assert D > fl.MAX_FEATURES
+    assert fl.MAX_FEATURES < D <= fl.MAX_REGISTER_FEATURES
     gen = torch.Generator().manual_seed(SEED + 26)
     wide = {}
     for dtype in ("float32", "bfloat16"):
-        err = check_ln(torch, fl, dtype, M, D, gen)
+        err, bwd_err = check_ln(torch, fl, dtype, M, D, gen)
         with torch.no_grad():
-            wide[dtype] = dict(max_abs_err=err,
-                               **time_ln(torch, fl, gpu, dtype, M, D, gen))
+            wide[dtype] = time_ln(torch, fl, gpu, dtype, M, D, True, gen)
+        wide[dtype]["max_abs_err"] = err
+        wide[dtype]["backward"]["max_abs_err"] = bwd_err
     net = GPTForCausalLM(gpt_small(hidden_size=1024, num_heads=16),
                          device=DEVICE,
                          generator=torch.Generator().manual_seed(SEED))
@@ -2097,15 +2265,16 @@ def check_width_repairs(torch, gpu):
     ids = np.random.RandomState(SEED + 24).randint(
         0, 50304, size=(2, 1024)).astype(np.int32)
     assert ids.size == M
-    layernorm_residual.launches = 0
+    layernorm_residual.launches = layernorm_residual.backward_launches = 0
     loss = model.train_batch([ids], [ids])[0]
     torch.cuda.synchronize()
-    ln = layernorm_residual.launches
+    ln, lnb = layernorm_residual.launches, layernorm_residual.backward_launches
     log(f"wide[{gpu}]: gpt_small(hidden_size=1024, num_heads=16) f32, "
         f"batch 2x1024: train_batch loss {loss}, layernorm_residual "
-        f"launches {ln} (= 12)")
-    assert math.isfinite(loss) and ln == 12, (loss, ln)
+        f"launches {ln} (= 12), backward {lnb} (= 12)")
+    assert math.isfinite(loss) and ln == lnb == 12, (loss, ln, lnb)
     wide["launches_train_batch_hidden_1024"] = ln
+    wide["backward_launches_train_batch_hidden_1024"] = lnb
     del model, net
     gc.collect()
     torch.cuda.empty_cache()
@@ -2261,13 +2430,13 @@ def check_flash_bwd_kernels(torch):
     return out
 
 
-def long_context_training(torch, gpu):
+def long_context_training(torch, gpu, ln_backward_kernel=True):
     """Phase LT2: the slice model in bf16 with AdamW(multi_precision)
     through Model.train_batch at 2 x 8192, the same seeded batch every
     step, LT_WARMUP + LT_STEPS steps, the counts zeroed just before the
     timed steps; then the same model at 1 x 8192 through the flash route
     and with the gate closed (the dense einsum), for step time and peak
-    memory."""
+    memory.  ``ln_backward_kernel`` as for :func:`train_bert`."""
     import math
 
     import numpy as np
@@ -2303,6 +2472,8 @@ def long_context_training(torch, gpu):
         f"softmax_cross_entropy {sx}")
     for c in (fa, dq, dkv, ln):
         assert c == layers * LT_STEPS, (fa, dq, dkv, ln)
+    ln_backward_gate(layernorm_residual, ln, "train_long",
+                     ln_backward_kernel)
     assert sx == LT_STEPS, sx
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < losses[0], (losses[0], losses[-1])
@@ -2739,6 +2910,7 @@ def train_moe(torch, gpu):
         f"softmax_cross_entropy {sx}")
     assert gm == 2 * layers * MOE_STEPS, gm
     assert ln == layers * MOE_STEPS and sx == MOE_STEPS, (ln, sx)
+    ln_backward_gate(layernorm_residual, ln, "train_moe")
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < losses[0], (losses[0], losses[-1])
     net.train()
@@ -3024,20 +3196,39 @@ def main() -> int:
         dict(paged, branch="quantized pools (int8, fp8) with scale planes",
              launches=sum(r["launches"] for r in qserved.values()),
              max_abs_err=qpaged_err, **qrows[("paged", "int8", 1)])]
-    for name, src, replaces in (
-            ("layernorm_residual", "fused_layernorm.cu",
-             "paddle_tpu/ops/fused_layernorm.py:68"),
-            ("softmax_cross_entropy", "fused_softmax_xent.cu",
-             "paddle_tpu/ops/fused_softmax_xent.py:85")):
-        # the main path's numbers: BERT-base pretraining's shapes; the
-        # wide variant's (D > 768, phase W) beside them
-        kernels.append(dict(
-            name=name, route="cuda",
-            source=f"paddle_tpu_torch/ops/csrc/{src}", replaces=replaces,
-            launches=bert["launches"][name],
-            max_abs_err=errs[(name, "bert")], **trows[(name, "bert")],
-            **({"wide_variant": wide} if name == "layernorm_residual"
-               else {})))
+    # the main path's numbers: BERT-base pretraining's shapes, device time
+    # of the forward and (under "backward") of the backward kernel; the
+    # GPT, long-context and phase W shapes beside them
+    ln_rows = {k: dict(v) for k, v in trows.items()
+               if k[0] == "layernorm_residual"}
+    for (_, name), row in ln_rows.items():
+        row["max_abs_err"] = errs[("layernorm_residual", name)]
+        row["backward"] = dict(
+            row["backward"],
+            max_abs_err=errs[("layernorm_residual_backward", name)])
+    ln_bert = ln_rows.pop(("layernorm_residual", "bert"))
+    ln_bert["backward"]["launches"] = bert["launches"][
+        "layernorm_residual_backward"]
+    kernels.append(dict(
+        name="layernorm_residual", route="cuda",
+        source="paddle_tpu_torch/ops/csrc/fused_layernorm.cu",
+        replaces="paddle_tpu/ops/fused_layernorm.py:68",
+        launches=bert["launches"]["layernorm_residual"], **ln_bert,
+        other_shapes={
+            **{f"{dtype} [{M}, {D}]": ln_rows[("layernorm_residual", name)]
+               for name, dtype, M, D, _ in LN_SHAPES[1:]},
+            **{f"{dtype} {list(WIDE_LN)} (phase W)": wide[dtype]
+               for dtype in ("float32", "bfloat16")}},
+        train_batch_hidden_1024={
+            k: v for k, v in wide.items() if k.startswith(
+                ("launches", "backward_launches"))}))
+    kernels.append(dict(
+        name="softmax_cross_entropy", route="cuda",
+        source="paddle_tpu_torch/ops/csrc/fused_softmax_xent.cu",
+        replaces="paddle_tpu/ops/fused_softmax_xent.py:85",
+        launches=bert["launches"]["softmax_cross_entropy"],
+        max_abs_err=errs[("softmax_cross_entropy", "bert")],
+        **trows[("softmax_cross_entropy", "bert")]))
     # the decode shape of the widest linear (fc1, M = 8), int8; launches
     # of the int8 and fp8 engines together; fp8 and fc2's decode and
     # admission shapes beside them

@@ -22,7 +22,8 @@ from typing import Callable, Dict
 
 from ..framework.errors import UnavailableError
 
-__all__ = ["NVCC_FLAGS", "build", "entry", "library_path", "load", "nvcc"]
+__all__ = ["NVCC_FLAGS", "build", "entry", "library_path", "load", "nvcc",
+           "sm_count"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 OUT = Path(__file__).resolve().parent / "_build"
@@ -31,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
+_sms: Dict[int, int] = {}
 
 
 def nvcc() -> str:
@@ -122,3 +124,18 @@ def entry(name: str, symbol: str, argtypes) -> Callable[..., None]:
                                f"{err(rc).decode()} (cudaError {rc})")
 
     return call
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device``'s card (cached): what the
+    kernels' persistent grids are sized by."""
+    import torch
+
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    n = _sms.get(index)
+    if n is None:
+        n = _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n

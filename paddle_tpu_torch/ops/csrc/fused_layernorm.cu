@@ -1,4 +1,4 @@
-// Fused residual add + LayerNorm forward for Hopper (sm_90a).
+// Fused residual add + LayerNorm for Hopper (sm_90a): forward and backward.
 //
 // Replaces: the Pallas TPU kernel paddle_tpu/ops/fused_layernorm.py
 // (_kernel / _ln_res_pallas, public entry layernorm_residual).  It computes
@@ -13,23 +13,47 @@
 // normalized, as the TPU kernel does: that is what an unfused x + r then
 // LayerNorm sees.
 //
-// What bounds it on an H100: bytes.  Each row reads x and r and writes s and
-// y once (4 * D * itemsize bytes) plus 8 bytes of statistics, for a handful
-// of flops per element, far below the card's flop/byte ridge.  BERT-base
-// pretraining's [32768, 768] bf16 call moves 201.6 MB: ~60 us at 3.35 TB/s.
+// The backward is the same module's _ln_res_bwd, the closed-form LayerNorm
+// VJP that XLA fuses into one pass on a TPU; here it is one pass too:
+//   xhat = (f32(s) - mean) * rstd;  dxhat = f32(dy) * f32(g)
+//   m1 = sum(dxhat) / D;  m2 = sum(dxhat * xhat) / D
+//   ds = round_to_T(rstd * (dxhat - m1 - xhat * m2) [+ f32(ds_out)])
+//   dg = sum over rows of f32(dy) * xhat;  db = sum over rows of f32(dy)
 //
-// What this first design does about it: for D <= 768, one warp per row,
-// the row held in registers (D <= 32 * VPT, VPT values per lane), so x and
-// r are read once and s and y written once; the sum and the centred sum of
-// squares are warp shuffles, with no shared memory and no barrier.  Four
-// rows per 128-thread block.  Wider rows take the wide variant below: one
-// block per row, the row in shared memory.  Neighbouring lanes touch
-// neighbouring elements, so every load and store is coalesced.  Not done
-// yet (later work): 16-byte vector loads and several rows per warp for
-// small D.
+// What bounds both on an H100: bytes.  The forward reads x and r and writes
+// s and y once (4 * D * itemsize bytes a row, plus 8 bytes of statistics);
+// the backward reads s, dy (and ds_out) and writes ds once.  A handful of
+// flops an element, far below the card's flop/byte ridge.  BERT-base
+// pretraining's [32768, 768] bf16 forward moves 201.6 MB (~60 us at 3.35
+// TB/s), its backward 151 MB (~45 us).
+//
+// The Hopper design (ln_res_vec_kernel, ln_bwd_kernel), for D <= 1024 (32
+// lanes x VPL <= 32 values, VPL a multiple of 8): one warp a row with the
+// row in registers, so nothing passes through shared memory and no block
+// barrier is taken per row; every access is a 16-byte vector (8 bf16 or 4
+// f32: lane l holds vectors l, l + 32, ...) where D * itemsize is a multiple
+// of 16 and the pointers are 16-byte aligned (the wrapper's plan); a
+// persistent grid (about SMs x occupancy blocks) in which each warp walks
+// rows with a fixed stride, keeping g and b in registers (forward) and its
+// columns' dg / db partial sums in registers (backward) for every row it
+// takes; the forward issues the next row's loads before the current row's
+// shuffles, so a warp has two rows in flight (a ring of 2 or 4 rows staged
+// by 1-D bulk copies measured no faster; the backward keeps one row: its
+// column sums take the registers a second row would need).  The backward's
+// dg / db sums use no float atomics: each block adds its warps' partials in
+// warp order through shared memory and writes one partial row, and a
+// second short launch (ln_bwd_reduce_kernel) adds the blocks' rows per
+// column in block order, so two calls are bit-equal.  The backward also
+// runs with element loads (VEC = false, lane l holds columns l, l + 32,
+// ...) for rows that are not whole vectors or not aligned.
+//
+// The first design (ln_res_kernel, ln_res_wide_kernel) stays for the
+// forward's other shapes: for D <= 768 one warp per row with scalar loads,
+// four rows per 128-thread block; for 768 < D <= 49152 one block per row
+// with the row in shared memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC (paddle_tpu_torch/ops/_build.py); plain C entry,
+//        -Xcompiler -fPIC (paddle_tpu_torch/ops/_build.py); plain C entries,
 // bound with ctypes.
 
 #include <cuda_bf16.h>
@@ -206,6 +230,333 @@ cudaError_t launch_wide(const void* x, const void* r, const void* g,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The Hopper design.  A lane's share of a row is VPL values: in the vector
+// layout NV = VPL / E 16-byte vectors (vector i of lane l holds columns
+// (l + 32 i) E .. + E), in the element layout VPL scalars (column l + 32 k).
+// Slot k of a lane is column col(k); a slot past D holds 0 and is masked.
+
+constexpr int kMaxVPL = 32;  // D <= 32 x 32 = 1024
+
+template <typename T>
+struct Elems;
+template <>
+struct Elems<float> {
+  static constexpr int E = 4;
+};
+template <>
+struct Elems<__nv_bfloat16> {
+  static constexpr int E = 8;
+};
+
+__device__ __forceinline__ void unpack(const uint4& v, float* a, float) {
+  a[0] = __uint_as_float(v.x);
+  a[1] = __uint_as_float(v.y);
+  a[2] = __uint_as_float(v.z);
+  a[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void unpack(const uint4& v, float* a,
+                                       __nv_bfloat16) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a[2 * j] = __uint_as_float(w[j] << 16);
+    a[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ uint4 pack(const float* a, float) {
+  return make_uint4(__float_as_uint(a[0]), __float_as_uint(a[1]),
+                    __float_as_uint(a[2]), __float_as_uint(a[3]));
+}
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ uint4 pack(const float* a, __nv_bfloat16) {
+  return make_uint4(pack2(a[0], a[1]), pack2(a[2], a[3]), pack2(a[4], a[5]),
+                    pack2(a[6], a[7]));
+}
+
+template <typename T, int VPL, bool VEC>
+struct Row;
+
+// The vector layout: NV raw 16-byte vectors, unpacked to float on use.
+template <typename T, int VPL>
+struct Row<T, VPL, true> {
+  static constexpr int E = Elems<T>::E;
+  static constexpr int NV = VPL / E;
+  static_assert(VPL % E == 0, "VPL must be whole vectors");
+  uint4 v[NV];
+
+  __device__ __forceinline__ static int col(int k, int lane) {
+    return (lane + 32 * (k / E)) * E + k % E;
+  }
+  __device__ __forceinline__ void load(const T* p, int D, int lane) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = (lane + 32 * i) * E;
+      v[i] = c < D ? __ldg(reinterpret_cast<const uint4*>(p + c))
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  __device__ __forceinline__ void get(float (&a)[VPL]) const {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) unpack(v[i], a + i * E, T());
+  }
+  __device__ __forceinline__ static void store(T* p, int D, int lane,
+                                               const float (&a)[VPL]) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = (lane + 32 * i) * E;
+      if (c < D) *reinterpret_cast<uint4*>(p + c) = pack(a + i * E, T());
+    }
+  }
+};
+
+// The element layout: any D, any alignment.
+template <typename T, int VPL>
+struct Row<T, VPL, false> {
+  T v[VPL];
+
+  __device__ __forceinline__ static int col(int k, int lane) {
+    return lane + 32 * k;
+  }
+  __device__ __forceinline__ void load(const T* p, int D, int lane) {
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int c = lane + 32 * k;
+      v[k] = c < D ? p[c] : from_f32<T>(0.f);
+    }
+  }
+  __device__ __forceinline__ void get(float (&a)[VPL]) const {
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) a[k] = to_f32(v[k]);
+  }
+  __device__ __forceinline__ static void store(T* p, int D, int lane,
+                                               const float (&a)[VPL]) {
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int c = lane + 32 * k;
+      if (c < D) p[c] = from_f32<T>(a[k]);
+    }
+  }
+};
+
+// Forward, vector layout: warp w of W takes rows w, w + W, ...
+template <typename T, int VPL>
+__global__ void __launch_bounds__(kThreads)
+ln_res_vec_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                  const T* __restrict__ g, const T* __restrict__ b,
+                  T* __restrict__ s, T* __restrict__ y,
+                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                  int M, int D, float eps) {
+  using R = Row<T, VPL, true>;
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * kWarps;
+  int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  R gr, br, xn, rn;  // g and b stay resident for every row of the warp
+  gr.load(g, D, lane);
+  br.load(b, D, lane);
+  if (row < M) {
+    xn.load(x + (size_t)row * D, D, lane);
+    rn.load(r + (size_t)row * D, D, lane);
+  }
+  for (; row < M; row += stride) {
+    const size_t base = (size_t)row * D;
+    float v[VPL], t[VPL];
+    xn.get(v);
+    rn.get(t);
+    const int next = row + stride;
+    if (next < M) {  // in flight under this row's shuffles
+      xn.load(x + (size_t)next * D, D, lane);
+      rn.load(r + (size_t)next * D, D, lane);
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      v[k] = to_f32(from_f32<T>(v[k] + t[k]));  // slots past D: 0
+      sum += v[k];
+    }
+    R::store(s + base, D, lane, v);  // exact: v holds T values
+    const float mean = warp_sum(sum) / (float)D;
+    float sq = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      v[k] = R::col(k, lane) < D ? v[k] - mean : 0.f;
+      sq += v[k] * v[k];
+    }
+    const float var = warp_sum(sq) / (float)D;
+    const float rstd = 1.f / sqrtf(var + eps);
+    float gf[VPL], bf[VPL];
+    gr.get(gf);
+    br.get(bf);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const float yn = v[k] * rstd;
+      v[k] = yn * gf[k] + bf[k];
+    }
+    R::store(y + base, D, lane, v);
+    if (lane == 0) {
+      mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+  }
+}
+
+// Backward, one row a warp as the forward walks them, in either layout.
+// Each lane keeps its VPL columns' dg / db partial sums in registers; at
+// the end the block adds its warps' sums in warp order (shared memory) and
+// writes partial row blockIdx.x of part[0] (dg) and part[1] (db), each
+// [gridDim.x, D].  No row is loaded ahead: with two sums a value held, the
+// registers a second row would need cost more occupancy than they bring
+// (measured 0-7% slower at the paths' shapes).
+template <typename T, int VPL, bool VEC, bool HAS_DS>
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_kernel(const T* __restrict__ s, const T* __restrict__ dy,
+              const T* __restrict__ ds_out, const float* __restrict__ mean,
+              const float* __restrict__ rstd, const T* __restrict__ g,
+              T* __restrict__ ds, float* __restrict__ part, int M, int D) {
+  using R = Row<T, VPL, VEC>;
+  __shared__ float red[kWarps][2][32 * VPL];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int stride = gridDim.x * kWarps;
+  float acc_g[VPL], acc_b[VPL];
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) acc_g[k] = acc_b[k] = 0.f;
+  for (int row = blockIdx.x * kWarps + warp; row < M; row += stride) {
+    const size_t base = (size_t)row * D;
+    R sr, dr, gr, dso;
+    sr.load(s + base, D, lane);
+    dr.load(dy + base, D, lane);
+    gr.load(g, D, lane);  // from L1 after the first row
+    if (HAS_DS) dso.load(ds_out + base, D, lane);  // used after the shuffles
+    const float m = mean[row], rr = rstd[row];
+    float xh[VPL], d[VPL], gf[VPL];
+    sr.get(xh);
+    dr.get(d);
+    gr.get(gf);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      xh[k] = R::col(k, lane) < D ? (xh[k] - m) * rr : 0.f;
+      acc_g[k] += d[k] * xh[k];
+      acc_b[k] += d[k];
+      d[k] *= gf[k];  // dxhat
+      s1 += d[k];
+      s2 += d[k] * xh[k];
+    }
+    const float m1 = warp_sum(s1) / (float)D;
+    const float m2 = warp_sum(s2) / (float)D;
+    float o[VPL];
+    if (HAS_DS) dso.get(o);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const float v = rr * (d[k] - m1 - xh[k] * m2);
+      o[k] = HAS_DS ? v + o[k] : v;
+    }
+    R::store(ds + base, D, lane, o);
+  }
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    const int c = R::col(k, lane);
+    if (c < D) {
+      red[warp][0][c] = acc_g[k];
+      red[warp][1][c] = acc_b[k];
+    }
+  }
+  __syncthreads();
+  const size_t rows = gridDim.x;
+  for (int c = threadIdx.x; c < D; c += kThreads) {
+    float a = 0.f, t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      a += red[w][0][c];
+      t += red[w][1][c];
+    }
+    part[(size_t)blockIdx.x * D + c] = a;
+    part[(rows + blockIdx.x) * D + c] = t;
+  }
+}
+
+// dg, db [D] in T: part[0], part[1] summed over their B rows, per column in
+// row order within kRedGroups interleaved groups, then the groups in order.
+constexpr int kRedGroups = 16;
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kRedGroups)
+ln_bwd_reduce_kernel(const float* __restrict__ part, int B, int D,
+                     T* __restrict__ dg, T* __restrict__ db) {
+  __shared__ float red[kRedGroups][33];
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  const float* p = part + (size_t)blockIdx.y * B * D;
+  float a = 0.f;
+  if (c < D)
+    for (int i = threadIdx.y; i < B; i += kRedGroups)
+      a += p[(size_t)i * D + c];
+  red[threadIdx.y][threadIdx.x] = a;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < D) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < kRedGroups; ++i) t += red[i][threadIdx.x];
+    (blockIdx.y ? db : dg)[c] = from_f32<T>(t);
+  }
+}
+
+// The kernel of a (dtype, VPL[, layout, ds_out]) case, or nullptr.
+template <typename T>
+const void* fwd_kernel_t(int vpl) {
+  switch (vpl) {
+    case 8: return (const void*)ln_res_vec_kernel<T, 8>;
+    case 16: return (const void*)ln_res_vec_kernel<T, 16>;
+    case 24: return (const void*)ln_res_vec_kernel<T, 24>;
+    case 32: return (const void*)ln_res_vec_kernel<T, 32>;
+  }
+  return nullptr;
+}
+
+const void* fwd_kernel(int dtype, int vpl) {
+  if (dtype == 0) return fwd_kernel_t<float>(vpl);
+  if (dtype == 1) return fwd_kernel_t<__nv_bfloat16>(vpl);
+  return nullptr;
+}
+
+template <typename T, bool VEC>
+const void* bwd_kernel_l(int vpl, int has_ds) {
+  if constexpr (!VEC) {  // one width: the element layout is the rare case
+    if (vpl != kMaxVPL) return nullptr;
+    return has_ds ? (const void*)ln_bwd_kernel<T, kMaxVPL, false, true>
+                  : (const void*)ln_bwd_kernel<T, kMaxVPL, false, false>;
+  } else {
+    switch (vpl * 2 + (has_ds ? 1 : 0)) {
+      case 16: return (const void*)ln_bwd_kernel<T, 8, true, false>;
+      case 17: return (const void*)ln_bwd_kernel<T, 8, true, true>;
+      case 32: return (const void*)ln_bwd_kernel<T, 16, true, false>;
+      case 33: return (const void*)ln_bwd_kernel<T, 16, true, true>;
+      case 48: return (const void*)ln_bwd_kernel<T, 24, true, false>;
+      case 49: return (const void*)ln_bwd_kernel<T, 24, true, true>;
+      case 64: return (const void*)ln_bwd_kernel<T, 32, true, false>;
+      case 65: return (const void*)ln_bwd_kernel<T, 32, true, true>;
+    }
+    return nullptr;
+  }
+}
+
+const void* bwd_kernel(int dtype, int vpl, int vec, int has_ds) {
+  if (dtype == 0)
+    return vec ? bwd_kernel_l<float, true>(vpl, has_ds)
+               : bwd_kernel_l<float, false>(vpl, has_ds);
+  if (dtype == 1)
+    return vec ? bwd_kernel_l<__nv_bfloat16, true>(vpl, has_ds)
+               : bwd_kernel_l<__nv_bfloat16, false>(vpl, has_ds);
+  return nullptr;
+}
+
+bool vpl_fits(int vpl, int D) {
+  return vpl % 8 == 0 && vpl <= kMaxVPL && D > 0 && D <= 32 * vpl;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, r, g, b, s and y share it).
@@ -247,5 +598,80 @@ extern "C" int layernorm_residual_fwd_wide(int dtype, const void* x,
 }
 
 extern "C" const char* layernorm_residual_fwd_wide_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Resident blocks an SM of a Hopper-design kernel (`which` 0: the forward,
+// 1: the backward's row kernel), written to *out; the wrapper sizes its
+// persistent grids (and the backward's partial rows) from it.
+extern "C" int layernorm_residual_occupancy(int which, int dtype, int vpl,
+                                            int vec, int has_ds, int* out) {
+  const void* fn = which == 0 ? (vec ? fwd_kernel(dtype, vpl) : nullptr)
+                              : bwd_kernel(dtype, vpl, vec, has_ds);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, kThreads, 0);
+}
+
+extern "C" const char* layernorm_residual_occupancy_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The Hopper forward: as layernorm_residual_fwd, for D <= 32 * vpl <= 1024,
+// D * itemsize a multiple of 16 and every pointer 16-byte aligned, on a
+// persistent grid of `blocks` 128-thread blocks.
+extern "C" int layernorm_residual_fwd_vec(int dtype, int vpl, const void* x,
+                                          const void* r, const void* g,
+                                          const void* b, void* s, void* y,
+                                          void* mean, void* rstd, int M,
+                                          int D, float eps, int blocks,
+                                          void* stream) {
+  const void* fn = fwd_kernel(dtype, vpl);
+  if (fn == nullptr || M <= 0 || blocks <= 0 || !vpl_fits(vpl, D) ||
+      D % (dtype == 0 ? 4 : 8) != 0)
+    return cudaErrorInvalidValue;
+  void* args[] = {&x, &r, &g, &b, &s, &y, &mean, &rstd, &M, &D, &eps};
+  return cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args, 0,
+                          static_cast<cudaStream_t>(stream));
+}
+
+extern "C" const char* layernorm_residual_fwd_vec_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The backward: ds [M, D] (T), dg and db [D] (T) from s, dy, ds_out (or
+// null), g [D] (T) and mean, rstd [M] (f32), all contiguous.  D <= 32 * vpl
+// <= 1024; vec = 1 takes the vector layout (D * itemsize a multiple of 16,
+// pointers 16-byte aligned), vec = 0 the element layout (vpl = 32).  part
+// is float32 workspace [2, blocks, D].  Two launches on `stream`: the rows
+// on `blocks` persistent blocks, then the column sums.
+extern "C" int layernorm_residual_bwd(int dtype, int vpl, int vec,
+                                      const void* s, const void* dy,
+                                      const void* ds_out, const void* mean,
+                                      const void* rstd, const void* g,
+                                      void* ds, void* part, void* dg,
+                                      void* db, int M, int D, int blocks,
+                                      void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* fn = bwd_kernel(dtype, vpl, vec, ds_out != nullptr);
+  if (fn == nullptr || M <= 0 || blocks <= 0 || !vpl_fits(vpl, D) ||
+      (vec && D % (dtype == 0 ? 4 : 8) != 0))
+    return cudaErrorInvalidValue;
+  void* args[] = {&s, &dy, &ds_out, &mean, &rstd, &g, &ds, &part, &M, &D};
+  cudaError_t e = cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args, 0,
+                                   st);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((D + 31) / 32, 2), block(32, kRedGroups);
+  const float* p = static_cast<const float*>(part);
+  if (dtype == 0)
+    ln_bwd_reduce_kernel<float><<<grid, block, 0, st>>>(
+        p, blocks, D, static_cast<float*>(dg), static_cast<float*>(db));
+  else
+    ln_bwd_reduce_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
+        p, blocks, D, static_cast<__nv_bfloat16*>(dg),
+        static_cast<__nv_bfloat16*>(db));
+  return cudaGetLastError();
+}
+
+extern "C" const char* layernorm_residual_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

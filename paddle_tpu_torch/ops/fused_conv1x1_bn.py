@@ -62,7 +62,6 @@ _APPLY_BLOCKS_PER_SM = 32
 LANE = 128
 _fns = {}
 _fns_lock = threading.Lock()
-_sms = {}
 
 
 def fused_epilogues_eligible(feature_dim: int, x: torch.Tensor) -> bool:
@@ -114,18 +113,6 @@ def _device_check(name, tensors, dtype_of):
     if dev.type not in ("cpu", "cuda"):
         raise InvalidArgumentError(f"{name}: tensors on {dev} (cpu or cuda)")
     return dev
-
-
-def _sm_count(device) -> int:
-    """Streaming multiprocessors of ``device``'s card (cached)."""
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    n = _sms.get(index)
-    if n is None:
-        n = _sms[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return n
 
 
 def _vec_ok(widths, tensors, itemsize):
@@ -224,7 +211,7 @@ def _stats_kernel(x, w, design=None, tile_n=None):
         if tile_n not in (128, 256):
             raise InvalidArgumentError(
                 f"conv1x1_bn_stats: tile_n {tile_n} (128 or 256)")
-        blocks = _stats_blocks(M, N, tile_n, _sm_count(x.device))
+        blocks = _stats_blocks(M, N, tile_n, _build.sm_count(x.device))
         part = torch.empty(2, blocks, N, dtype=torch.float32,
                            device=x.device)
         fn = _entry("conv1x1_bn_stats_wgmma")
@@ -356,7 +343,8 @@ def _apply_kernel(y, scale, shift, residual, design=None):
         else:
             sc, sh = scale.float().contiguous(), shift.float().contiguous()
         fn = _entry("bn_apply_relu_resident")
-        blocks = _apply_blocks(M, N, y.element_size(), _sm_count(y.device))
+        blocks = _apply_blocks(M, N, y.element_size(),
+                               _build.sm_count(y.device))
         with torch.cuda.device(y.device):
             stream = torch.cuda.current_stream(y.device).cuda_stream
             fn(_DTYPES[y.dtype], _DTYPES[sc.dtype], y.data_ptr(),

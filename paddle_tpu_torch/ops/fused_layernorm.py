@@ -4,10 +4,15 @@ Every transformer sublayer boundary runs ``s = x + sublayer_out`` and a
 LayerNorm of ``s``.  :func:`layernorm_residual` does both in one pass over
 the rows: on the card that is the hand-written CUDA kernel
 ``ops/csrc/fused_layernorm.cu`` (``sm_90a``, built with nvcc on first use,
-bound with ctypes): for ``D <= MAX_FEATURES`` one warp per row with the
-row in registers, for wider rows (up to ``MAX_WIDE_FEATURES``) one block
-per row with the row in shared memory; either way ``x`` and ``r`` are
-read once and ``s`` and ``y`` written once.
+bound with ctypes).  It holds two designs, and :func:`_forward_plan` picks
+one by shape before the launch: the Hopper design (``"vector"``) for
+``D <= MAX_REGISTER_FEATURES`` with whole 16-byte rows and aligned
+tensors — one warp a row in registers, 16-byte loads and stores, a
+persistent grid whose warps keep ``g`` and ``b`` in registers — and the
+first design (``"first"``) elsewhere: for ``D <= MAX_FEATURES`` one warp
+per row with scalar loads, for wider rows (up to ``MAX_WIDE_FEATURES``)
+one block per row with the row in shared memory.  Either way ``x`` and
+``r`` are read once and ``s`` and ``y`` written once.
 
 Semantics (both paths): ``s`` is the sum rounded to the activation dtype,
 and it is that ROUNDED sum which is normalized; statistics are float32,
@@ -17,13 +22,21 @@ dtype.  Pre-LN blocks (GPT) use both ``s`` and ``y``, post-LN blocks (BERT)
 ``y``.
 
 The gradient is a ``torch.autograd.Function`` whose backward is the
-closed-form LayerNorm VJP of the JAX package (``_ln_res_bwd``) in plain
-PyTorch ops: the JAX package has no backward kernel for this op either.
+closed-form LayerNorm VJP of the JAX package (``_ln_res_bwd``, which XLA
+fuses into one pass on a TPU).  On the card it is one deterministic CUDA
+pass of the same kernel source (two launches: the rows, then a fixed-order
+sum of the column partials; no float atomics) for ``D <=
+MAX_REGISTER_FEATURES`` (:func:`_backward_plan`: 16-byte vectors where the
+rows are whole vectors and aligned, element loads elsewhere), counted in
+``layernorm_residual.backward_launches``.  Wider rows (``D >
+MAX_REGISTER_FEATURES``, plan ``"plain"``) take :func:`_backward_ref`'s
+arithmetic on the card, with no launch counted.
 
 :func:`layernorm_residual_ref` is the plain PyTorch version, differentiable
-by autograd.  It is the CPU path and the yardstick the kernel is held to
-on the card; a CUDA tensor always goes to the kernel, and what the kernel
-does not take raises.
+by autograd, and :func:`_backward_ref` the plain backward.  They are the
+CPU path and the yardsticks the kernels are held to on the card; a CUDA
+tensor always goes to a kernel where the plan says so, and what the
+kernel does not take raises.
 """
 from __future__ import annotations
 
@@ -36,15 +49,39 @@ from ..framework.errors import InvalidArgumentError
 from . import _build
 
 __all__ = ["layernorm_residual", "layernorm_residual_ref", "MAX_FEATURES",
-           "MAX_WIDE_FEATURES"]
+           "MAX_REGISTER_FEATURES", "MAX_WIDE_FEATURES"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the largest feature dim the narrow variant holds in registers (32 x 24)
+#: the largest feature dim the first design's narrow variant holds in
+#: registers (32 x 24)
 MAX_FEATURES = 768
-#: the largest feature dim the wide variant stages in shared memory
+#: the largest feature dim the Hopper designs (forward and backward) hold
+#: in registers: 32 lanes x 32 values (csrc: kMaxVPL).  The backward keeps
+#: two column sums a value beside the row, so wider rows would spill.
+MAX_REGISTER_FEATURES = 1024
+#: the largest feature dim the first design's wide variant stages in shared
+#: memory
 MAX_WIDE_FEATURES = 49152
+#: threads of a Hopper-design block (csrc: kThreads): four warps, a row each
+_WARPS = 4
 _fns = {}
 _fn_lock = threading.Lock()
+_occupancy = {}
+
+#: the C entries of ``csrc/fused_layernorm.cu`` and their ctypes argtypes
+_ARGTYPES = {
+    "layernorm_residual_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 8
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+    "layernorm_residual_fwd_wide": [ctypes.c_int] + [ctypes.c_void_p] * 8
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+    "layernorm_residual_fwd_vec": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+       ctypes.c_void_p],
+    "layernorm_residual_bwd": [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "layernorm_residual_occupancy": [ctypes.c_int] * 5
+    + [ctypes.POINTER(ctypes.c_int)],
+}
 
 
 def _check(x, residual, weight, bias):
@@ -82,19 +119,70 @@ def layernorm_residual_ref(x, residual, weight, bias, *,
     return s.reshape(x.shape), y.reshape(x.shape)
 
 
-def _kernel_fn(symbol):
+def _entry(symbol):
     with _fn_lock:
         if symbol not in _fns:
-            _fns[symbol] = _build.entry(
-                "fused_layernorm", symbol,
-                [ctypes.c_int] + [ctypes.c_void_p] * 8
-                + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p])
+            _fns[symbol] = _build.entry("fused_layernorm", symbol,
+                                        _ARGTYPES[symbol])
         return _fns[symbol]
 
 
-def _forward_kernel(x2, r2, weight, bias, epsilon):
-    """Launch the CUDA kernel on ``[M, D]`` rows; same outputs as
+def _per_vector(dtype) -> int:
+    """Values of ``dtype`` in a 16-byte vector."""
+    return 16 // (torch.finfo(dtype).bits // 8)
+
+
+def _vpl(D: int) -> int:
+    """Values a lane holds in the Hopper designs: the multiple of 8 that
+    covers D over 32 lanes (8, 16, 24 or 32)."""
+    return 8 * -(-D // 256)
+
+
+def _forward_plan(dtype, D: int, aligned: bool) -> str:
+    """The forward's design: ``"vector"`` (the Hopper design) where the
+    row fits its registers (``D <= MAX_REGISTER_FEATURES``), is whole
+    16-byte vectors of ``dtype`` and every tensor is 16-byte aligned
+    (``aligned``); else ``"first"`` (the first design's narrow variant for
+    ``D <= MAX_FEATURES``, its wide one above)."""
+    if D <= MAX_REGISTER_FEATURES and D % _per_vector(dtype) == 0 and aligned:
+        return "vector"
+    return "first"
+
+
+def _backward_plan(dtype, D: int, aligned: bool) -> str:
+    """The backward's design: for ``D <= MAX_REGISTER_FEATURES`` the CUDA
+    pass, ``"vector"`` (16-byte accesses) where the rows are whole vectors
+    of ``dtype`` and every tensor is 16-byte aligned, else ``"scalar"``
+    (element accesses); wider rows ``"plain"``: :func:`_backward_ref`'s
+    arithmetic on the card, no launch."""
+    if D > MAX_REGISTER_FEATURES:
+        return "plain"
+    if D % _per_vector(dtype) == 0 and aligned:
+        return "vector"
+    return "scalar"
+
+
+def _blocks(which, dtype, vpl, vec, has_ds, M, device) -> int:
+    """A Hopper-design grid: the blocks the card holds at once (SMs x the
+    kernel's occupancy, cached), at most one a ``_WARPS`` rows."""
+    key = (which, dtype, vpl, vec, has_ds)
+    occ = _occupancy.get(key)
+    if occ is None:
+        out = ctypes.c_int(0)
+        _entry("layernorm_residual_occupancy")(which, _DTYPES[dtype], vpl,
+                                               int(vec), int(has_ds),
+                                               ctypes.byref(out))
+        occ = _occupancy[key] = max(1, out.value)
+    return max(1, min(-(-M // _WARPS), _build.sm_count(device) * occ))
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _forward_kernel(x2, r2, weight, bias, epsilon, design=None):
+    """Launch the CUDA kernel on ``[M, D]`` rows in the design
+    :func:`_forward_plan` picks, or ``design="first"``; same outputs as
     :func:`_forward_ref`.  Adds one to ``layernorm_residual.launches``."""
     M, D = x2.shape
     for name, t in (("residual", r2), ("weight", weight), ("bias", bias)):
@@ -124,15 +212,105 @@ def _forward_kernel(x2, r2, weight, bias, epsilon):
     rstd = torch.empty(M, dtype=torch.float32, device=x2.device)
     if M == 0:
         return s, y, mean, rstd
-    fn = _kernel_fn("layernorm_residual_fwd" if D <= MAX_FEATURES
-                    else "layernorm_residual_fwd_wide")
+    plan = _forward_plan(x2.dtype, D, _aligned(x2, r2, weight, bias, s, y))
+    if design is not None:
+        if design not in ("vector", "first") or (design == "vector"
+                                                  and plan != "vector"):
+            raise InvalidArgumentError(
+                f"layernorm_residual: design {design!r} does not take "
+                f"{x2.dtype} [{M}, {D}]")
+        plan = design
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
-        fn(_DTYPES[x2.dtype], x2.data_ptr(), r2.data_ptr(), weight.data_ptr(),
-           bias.data_ptr(), s.data_ptr(), y.data_ptr(), mean.data_ptr(),
-           rstd.data_ptr(), M, D, epsilon, stream)
+        ptrs = (x2.data_ptr(), r2.data_ptr(), weight.data_ptr(),
+                bias.data_ptr(), s.data_ptr(), y.data_ptr(), mean.data_ptr(),
+                rstd.data_ptr())
+        if plan == "vector":
+            vpl = _vpl(D)
+            _entry("layernorm_residual_fwd_vec")(
+                _DTYPES[x2.dtype], vpl, *ptrs, M, D, epsilon,
+                _blocks(0, x2.dtype, vpl, True, False, M, x2.device), stream)
+        else:
+            _entry("layernorm_residual_fwd" if D <= MAX_FEATURES
+                   else "layernorm_residual_fwd_wide")(
+                _DTYPES[x2.dtype], *ptrs, M, D, epsilon, stream)
     layernorm_residual.launches += 1
     return s, y, mean, rstd
+
+
+def _backward_ref(s, mean, rstd, weight, ds_out, dy):
+    """Plain backward (``_ln_res_bwd``) on ``[M, D]`` rows: ``(ds, dg,
+    db)`` from the saved ``s`` / ``mean`` / ``rstd`` / ``weight`` and the
+    cotangents (``ds_out`` may be None: only ``y`` was used)."""
+    mean, rstd = mean[:, None], rstd[:, None]
+    xhat = (s.float() - mean) * rstd
+    dyf = dy.float()
+    dxhat = dyf * weight.float()
+    # the closed-form LayerNorm VJP (_ln_res_bwd): three row reductions
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    ds = rstd * (dxhat - m1 - xhat * m2)
+    if ds_out is not None:
+        ds = ds + ds_out.float()
+    ds = ds.to(s.dtype)
+    dg = (dyf * xhat).sum(0).to(weight.dtype)
+    db = dyf.sum(0).to(weight.dtype)
+    return ds, dg, db
+
+
+def _backward_kernel(s, mean, rstd, weight, ds_out, dy, design=None):
+    """:func:`_backward_ref` on the card, in the design
+    :func:`_backward_plan` picks (or ``design="vector"`` / ``"scalar"``):
+    the CUDA pass, which adds one to ``layernorm_residual.backward_launches``
+    (its two launches together); plan ``"plain"`` (``D >
+    MAX_REGISTER_FEATURES``) runs the plain arithmetic and counts
+    nothing."""
+    M, D = s.shape
+    dy = dy.contiguous()
+    ds_out = ds_out.contiguous() if ds_out is not None else None
+    for name, t in (("dy", dy), ("ds_out", ds_out), ("weight", weight)):
+        if t is not None and (t.dtype != s.dtype or t.device != s.device
+                              or tuple(t.shape) != ((D,) if name == "weight"
+                                                    else (M, D))):
+            raise InvalidArgumentError(
+                f"layernorm_residual backward: {name} {t.dtype} "
+                f"{tuple(t.shape)} on {t.device} does not match s {s.dtype} "
+                f"{tuple(s.shape)} on {s.device}")
+    if s.dtype not in _DTYPES or not (s.is_contiguous()
+                                      and weight.is_contiguous()):
+        raise InvalidArgumentError(
+            f"layernorm_residual backward: the kernel takes contiguous "
+            f"float32 or bfloat16, got {s.dtype}")
+    ds = torch.empty_like(s)
+    tensors = (s, dy, ds, weight) + ((ds_out,) if ds_out is not None else ())
+    plan = _backward_plan(s.dtype, D, _aligned(*tensors))
+    if design is not None:
+        if design not in ("vector", "scalar") or plan == "plain" or (
+                design == "vector" and plan != "vector"):
+            raise InvalidArgumentError(
+                f"layernorm_residual backward: design {design!r} does not "
+                f"take {s.dtype} [{M}, {D}]")
+        plan = design
+    if plan == "plain":
+        return _backward_ref(s, mean, rstd, weight, ds_out, dy)
+    dg = torch.empty(D, dtype=weight.dtype, device=s.device)
+    db = torch.empty_like(dg)
+    if M == 0:
+        return ds, dg.zero_(), db.zero_()
+    vec = plan == "vector"
+    vpl = _vpl(D) if vec else MAX_REGISTER_FEATURES // 32
+    blocks = _blocks(1, s.dtype, vpl, vec, ds_out is not None, M, s.device)
+    part = torch.empty(2, blocks, D, dtype=torch.float32, device=s.device)
+    with torch.cuda.device(s.device):
+        stream = torch.cuda.current_stream(s.device).cuda_stream
+        _entry("layernorm_residual_bwd")(
+            _DTYPES[s.dtype], vpl, int(vec), s.data_ptr(), dy.data_ptr(),
+            ds_out.data_ptr() if ds_out is not None else None,
+            mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(),
+            ds.data_ptr(), part.data_ptr(), dg.data_ptr(), db.data_ptr(), M,
+            D, blocks, stream)
+    layernorm_residual.backward_launches += 1
+    return ds, dg, db
 
 
 class _LayerNormResidual(torch.autograd.Function):
@@ -155,19 +333,10 @@ class _LayerNormResidual(torch.autograd.Function):
         s, mean, rstd, weight = ctx.saved_tensors
         if dy is None:  # only the residual stream was used
             return ds_out, ds_out, None, None, None
-        mean, rstd = mean[:, None], rstd[:, None]
-        xhat = (s.float() - mean) * rstd
-        dyf = dy.float()
-        dxhat = dyf * weight.float()
-        # the closed-form LayerNorm VJP (_ln_res_bwd): three row reductions
-        m1 = dxhat.mean(-1, keepdim=True)
-        m2 = (dxhat * xhat).mean(-1, keepdim=True)
-        ds = rstd * (dxhat - m1 - xhat * m2)
-        if ds_out is not None:
-            ds = ds + ds_out.float()
-        ds = ds.to(s.dtype)
-        dg = (dyf * xhat).sum(0).to(weight.dtype)
-        db = dyf.sum(0).to(weight.dtype)
+        if s.device.type == "cpu":
+            ds, dg, db = _backward_ref(s, mean, rstd, weight, ds_out, dy)
+        else:
+            ds, dg, db = _backward_kernel(s, mean, rstd, weight, ds_out, dy)
         return ds, ds, dg, db, None
 
 
@@ -177,10 +346,13 @@ def layernorm_residual(x, residual, weight, bias, *, epsilon: float = 1e-5):
     x/residual: ``[..., D]`` (same shape and dtype), weight/bias: ``[D]``.
     Returns ``(s, y)`` in x's dtype.  Differentiable in x, residual,
     weight and bias.  CPU tensors take :func:`layernorm_residual_ref`'s
-    arithmetic; CUDA tensors launch the kernel (float32 or bfloat16, all
-    four tensors one dtype, contiguous, ``D <= MAX_WIDE_FEATURES``; the
-    variant picked by D) on the current stream and add one to
-    ``layernorm_residual.launches``; anything else raises.
+    arithmetic, forward and backward; CUDA tensors launch the kernel
+    (float32 or bfloat16, all four tensors one dtype, contiguous, ``D <=
+    MAX_WIDE_FEATURES``; the design picked by :func:`_forward_plan`) on the
+    current stream and add one to ``layernorm_residual.launches``, and
+    their backward launches the backward kernel (``D <=
+    MAX_REGISTER_FEATURES``; :func:`_backward_plan`) and adds one to
+    ``layernorm_residual.backward_launches``; anything else raises.
     """
     D = _check(x, residual, weight, bias)
     s, y = _LayerNormResidual.apply(x.reshape(-1, D),
@@ -189,5 +361,10 @@ def layernorm_residual(x, residual, weight, bias, *, epsilon: float = 1e-5):
     return s.reshape(x.shape), y.reshape(x.shape)
 
 
-#: kernel launches so far (CUDA tensors only; the CPU path never counts)
+#: forward kernel launches so far (CUDA tensors only; the CPU path never
+#: counts)
 layernorm_residual.launches = 0
+#: backward kernel calls so far (each one call of the CUDA pass: its row and
+#: column-sum launches together; neither the CPU path nor the plain
+#: backward of rows wider than ``MAX_REGISTER_FEATURES`` counts)
+layernorm_residual.backward_launches = 0

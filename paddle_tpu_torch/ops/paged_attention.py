@@ -74,7 +74,6 @@ _BLOCKS_PER_SM = 5            # the most blocks a split puts on an SM
 _fn = None
 _split_fn = None
 _fn_lock = threading.Lock()
-_sms = {}
 
 
 def paged_flash_eligible(head_dim: int, page_size: int) -> bool:
@@ -317,14 +316,6 @@ def _split_kernel_fn():
         return _split_fn
 
 
-def _sm_count(device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _sms:
-        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sms[idx]
-
-
 def paged_flash_decode(q, k_pool, v_pool, tables, mask,
                        k_scale=None, v_scale=None):
     """Flash decode over a paged KV pool, page walk in-kernel.
@@ -390,7 +381,7 @@ def paged_flash_decode(q, k_pool, v_pool, tables, mask,
     ptrs = [t.data_ptr() for _, t in named if t is not tables] \
         + [out.data_ptr()]
     plan = _plan(B, H, T, hd, page, G, k_pool.element_size(),
-                 _sm_count(q.device), all(p % 16 == 0 for p in ptrs))
+                 _build.sm_count(q.device), all(p % 16 == 0 for p in ptrs))
     args = (_DTYPES[q.dtype], pool_code, q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(),
             None if k_scale is None else k_scale.data_ptr(),

@@ -5,11 +5,15 @@ takes the plain arithmetic) and ``layernorm_residual_ref`` are held
 against the JAX package's ``layernorm_residual``, whose Pallas kernel runs
 in interpret mode on the CPU with an explicit ``block_m`` as
 tests/test_autotune.py runs it: the forward ``(s, y)`` and the VJP
-(dx, dr, dg, db through ``jax.vjp`` against ``torch.autograd.grad``).
-Inputs are numpy arrays from a seed.  f32 at rtol/atol 1e-5 (both sides
-take float32 statistics; they differ only in summation order); bf16 at
-2e-2 (outputs round to 8 mantissa bits).  The CUDA kernel is compared
-with the plain version only where a card is present (``gpu`` marker).
+(dx, dr, dg, db through ``jax.vjp`` against ``torch.autograd.grad``), and
+the plain backward ``_backward_ref`` alone against ``jax.vjp`` in both
+cotangent cases.  Inputs are numpy arrays from a seed.  f32 at rtol/atol
+1e-5 (both sides take float32 statistics; they differ only in summation
+order); bf16 at 2e-2 (outputs round to 8 mantissa bits), gradients
+scaled by their largest magnitude.  The designs' plan tables are checked
+here; the CUDA kernels (the Hopper forward and backward, the first
+designs) are compared with the plain versions only where a card is
+present (``gpu`` marker).
 """
 import jax
 import jax.numpy as jnp
@@ -139,10 +143,208 @@ def test_rejects_mismatched_shapes():
         layernorm_residual(xt, rt, gt[:5], bt)
 
 
+@pytest.mark.parametrize("case", ["s_and_y", "y_only"])
+@pytest.mark.parametrize("eps", [1e-5, 1e-12])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_ref_matches_jax_vjp(dtype, eps, case):
+    """``_backward_ref`` (the CPU path and the kernel's yardstick) against
+    ``jax.vjp`` of the JAX op: ds against dx (= dr), dg, db; with the s
+    cotangent (pre-LN, GPT) and without it (post-LN, BERT: JAX sees
+    zeros)."""
+    x, r, g, b, ds_np, dy_np = _inputs(7, shape=(5, 13, 64))
+    if case == "y_only":
+        ds_np = np.zeros_like(ds_np)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    _, _, dx, dr, dg, db = _jax(x, r, g, b, ds_np, dy_np, jdt, eps)
+    x2, r2 = (torch.tensor(a, dtype=tdt).reshape(-1, 64) for a in (x, r))
+    gt, bt = torch.tensor(g, dtype=tdt), torch.tensor(b, dtype=tdt)
+    s, _, mean, rstd = fl._forward_ref(x2, r2, gt, bt, eps)
+    ds_out = (None if case == "y_only"
+              else torch.tensor(ds_np, dtype=tdt).reshape(-1, 64))
+    got = fl._backward_ref(s, mean, rstd, gt, ds_out,
+                           torch.tensor(dy_np, dtype=tdt).reshape(-1, 64))
+    np.testing.assert_array_equal(dx, dr)
+    for name, a, w in zip(("ds", "dg", "db"), got,
+                          (dx.reshape(-1, 64), dg, db)):
+        assert a.dtype == tdt, name
+        a = a.float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(a, w, err_msg=name, **F32)
+        else:
+            scale = max(1.0, float(np.abs(w).max()))
+            np.testing.assert_allclose(a / scale, w / scale, err_msg=name,
+                                       **BF16)
+
+
+@pytest.mark.parametrize("dtype,D,aligned,want", [
+    ("bfloat16", 768, True, "vector"),     # BERT-base, long context
+    ("float32", 768, True, "vector"),      # GPT-small
+    ("float32", 1024, True, "vector"),     # phase W's hidden-1024 GPT
+    ("bfloat16", 1024, True, "vector"),
+    ("bfloat16", 8, True, "vector"),
+    ("float32", 100, True, "vector"),      # 25 vectors
+    ("bfloat16", 100, True, "first"),      # not whole 8-value vectors
+    ("float32", 769, True, "first"),
+    ("float32", 768, False, "first"),      # a misaligned tensor
+    ("bfloat16", 1032, True, "first"),     # past the registers: wide
+    ("float32", 1536, True, "first"),
+])
+def test_forward_plan_table(dtype, D, aligned, want):
+    assert fl._forward_plan(getattr(torch, dtype), D, aligned) == want
+
+
+@pytest.mark.parametrize("dtype,D,aligned,want", [
+    ("bfloat16", 768, True, "vector"),
+    ("float32", 768, True, "vector"),
+    ("float32", 1024, True, "vector"),
+    ("bfloat16", 1024, True, "vector"),
+    ("float32", 100, True, "vector"),
+    ("bfloat16", 100, True, "scalar"),
+    ("float32", 769, True, "scalar"),
+    ("bfloat16", 768, False, "scalar"),
+    ("float32", 1, True, "scalar"),
+    ("bfloat16", 1032, True, "plain"),     # no launch: the plain arithmetic
+    ("float32", 8192, True, "plain"),
+])
+def test_backward_plan_table(dtype, D, aligned, want):
+    assert fl._backward_plan(getattr(torch, dtype), D, aligned) == want
+
+
+@pytest.mark.parametrize("D,want", [(1, 8), (256, 8), (257, 16), (512, 16),
+                                    (768, 24), (769, 32), (1024, 32)])
+def test_values_a_lane_cover_the_row(D, want):
+    assert fl._vpl(D) == want and 32 * want >= D
+
+
+@pytest.mark.parametrize("case", ["s_and_y", "y_only", "s_only"])
+def test_cpu_tensors_never_count_forward_or_backward_launches(case):
+    x, r, g, b, ds, dy = _inputs(8)
+    before = (layernorm_residual.launches,
+              layernorm_residual.backward_launches)
+    args = [torch.tensor(a, requires_grad=True) for a in (x, r, g, b)]
+    s, y = layernorm_residual(*args)
+    outs, cts = {"s_and_y": ([s, y], [ds, dy]), "y_only": ([y], [dy]),
+                 "s_only": ([s], [ds])}[case]
+    torch.autograd.grad(outs, args, [torch.from_numpy(c) for c in cts],
+                        allow_unused=True)
+    assert (layernorm_residual.launches,
+            layernorm_residual.backward_launches) == before
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def _card_inputs(dev, dtype, M, D, seed):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(seed)
+    x, r, dy, ds = (torch.randn(M, D, generator=gen).to(dev, dt)
+                    for _ in range(4))
+    g = (1 + 0.1 * torch.randn(D, generator=gen)).to(dev, dt)
+    b = (0.1 * torch.randn(D, generator=gen)).to(dev, dt)
+    return x, r, g, b, dy, ds
+
+
+def _hold_backward(s, mean, rstd, g, ds_out, dy, tol, design=None):
+    """The backward kernel against ``_backward_ref`` on the same card
+    tensors: ds within ``tol``, dg / db scaled by their largest magnitude;
+    a second call bit-equal; one launch counted a call."""
+    before = layernorm_residual.backward_launches
+    got = fl._backward_kernel(s, mean, rstd, g, ds_out, dy, design=design)
+    again = fl._backward_kernel(s, mean, rstd, g, ds_out, dy, design=design)
+    want = fl._backward_ref(s, mean, rstd, g, ds_out, dy)
+    torch.cuda.synchronize()
+    assert layernorm_residual.backward_launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b), "two backward calls differ"
+    torch.testing.assert_close(got[0], want[0], **tol)
+    for a, w in zip(got[1:], want[1:]):
+        assert a.dtype == w.dtype
+        scale = max(1.0, float(w.float().abs().max()))
+        torch.testing.assert_close(a.float() / scale, w.float() / scale,
+                                   **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,M,D", [("bfloat16", 32768, 768),   # BERT
+                                       ("float32", 8192, 768),     # GPT
+                                       ("bfloat16", 16384, 768),   # long
+                                       ("float32", 2048, 1024),    # W
+                                       ("bfloat16", 2048, 1024)])
+def test_hopper_designs_match_plain_on_card(dtype, M, D):
+    """The Hopper forward (s exact, y / mean / rstd within tolerance) and
+    the backward with and without the s cotangent, at the main paths'
+    shapes (chip_smoke.py phases 6 and W)."""
+    dev = _card()
+    x, r, g, b, dy, ds = _card_inputs(dev, dtype, M, D, M + D)
+    assert fl._forward_plan(x.dtype, D, True) == "vector"
+    got = fl._forward_kernel(x, r, g, b, 1e-5)
+    want = fl._forward_ref(x, r, g, b, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+           else dict(rtol=2e-2, atol=2e-2))
+    torch.testing.assert_close(got[1], want[1], **tol)
+    for a, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    s, _, mean, rstd = got
+    for ds_out in (ds, None):
+        _hold_backward(s, mean, rstd, g, ds_out, dy, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,M,D,offset", [
+    ("bfloat16", 1000, 100, 0),    # D not whole vectors: first / scalar
+    ("float32", 1000, 769, 0),
+    ("float32", 999, 768, 1),      # misaligned by one element
+    ("bfloat16", 333, 1024, 3),
+    ("float32", 5, 1, 0)])
+def test_first_designs_take_odd_and_misaligned_rows_on_card(dtype, M, D,
+                                                            offset):
+    dev = _card()
+    x, r, g, b, dy, ds = _card_inputs(dev, dtype, M, D, 7 * M + D)
+    if offset:  # contiguous views that start off the 16-byte grid
+        x, r, dy, ds = (torch.cat([t.new_zeros(offset), t.flatten()])[
+            offset:].view(M, D) for t in (x, r, dy, ds))
+        assert x.data_ptr() % 16 != 0
+    aligned = offset == 0
+    assert fl._forward_plan(x.dtype, D, aligned) == "first"
+    assert fl._backward_plan(x.dtype, D, aligned) == "scalar"
+    got = fl._forward_kernel(x, r, g, b, 1e-5)
+    want = fl._forward_ref(x, r, g, b, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+           else dict(rtol=2e-2, atol=2e-2))
+    torch.testing.assert_close(got[1], want[1], **tol)
+    s, _, mean, rstd = want
+    for ds_out in (ds, None):
+        _hold_backward(s, mean, rstd, g, ds_out, dy, tol)
+    # the Hopper forward refuses what its plan does not give it
+    with pytest.raises(InvalidArgumentError, match="design"):
+        fl._forward_kernel(x, r, g, b, 1e-5, design="vector")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,M,D", [("bfloat16", 32768, 768),
+                                       ("float32", 8192, 768),
+                                       ("float32", 2048, 1024)])
+def test_forced_first_and_scalar_designs_match_plain_on_card(dtype, M, D):
+    """The first forward design and the backward's element layout, forced
+    at shapes the plan gives the Hopper design."""
+    dev = _card()
+    x, r, g, b, dy, ds = _card_inputs(dev, dtype, M, D, 3 * M + D)
+    got = fl._forward_kernel(x, r, g, b, 1e-5, design="first")
+    want = fl._forward_ref(x, r, g, b, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+           else dict(rtol=2e-2, atol=2e-2))
+    torch.testing.assert_close(got[1], want[1], **tol)
+    s, _, mean, rstd = want
+    _hold_backward(s, mean, rstd, g, ds, dy, tol, design="scalar")
 
 
 @pytest.mark.gpu

@@ -406,10 +406,73 @@ def test_wide_layernorm_residual_matches_jax(D, fn):
                                    rtol=1e-5, atol=1e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [1024, 1536])
+def test_wide_layernorm_backward_ref_matches_jax(D, dtype):
+    """The plain backward at the wide widths (D = 1024: the backward
+    kernel's widest row; 1536: past it, where the card runs this
+    arithmetic) against ``jax.vjp`` of the JAX op."""
+    rng = np.random.RandomState(D + 1)
+    x, r, ds, dy = (rng.randn(10, D).astype(np.float32) for _ in range(4))
+    g = (1 + 0.1 * rng.randn(D)).astype(np.float32)
+    b = (0.1 * rng.randn(D)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(lambda *a: jax_layernorm_residual(*a, block_m=8),
+                     *(jnp.asarray(a, jdt) for a in (x, r, g, b)))
+    jdx, _, jdg, jdb = (np.asarray(t, np.float32) for t in vjp(
+        (jnp.asarray(ds, jdt), jnp.asarray(dy, jdt))))
+    gt, bt = torch.tensor(g, dtype=tdt), torch.tensor(b, dtype=tdt)
+    s, _, mean, rstd = fl._forward_ref(torch.tensor(x, dtype=tdt),
+                                       torch.tensor(r, dtype=tdt), gt, bt,
+                                       1e-5)
+    got = fl._backward_ref(s, mean, rstd, gt, torch.tensor(ds, dtype=tdt),
+                           torch.tensor(dy, dtype=tdt))
+    assert fl._backward_plan(tdt, D, True) == ("vector" if D <= 1024
+                                               else "plain")
+    for name, a, w in zip(("ds", "dg", "db"), got, (jdx, jdg, jdb)):
+        scale = 1.0 if dtype == "float32" else max(1.0, float(
+            np.abs(w).max()))
+        tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+               else dict(rtol=2e-2, atol=2e-2))
+        np.testing.assert_allclose(a.float().numpy() / scale, w / scale,
+                                   err_msg=name, **tol)
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [1024, 1536])
+def test_wide_layernorm_backward_on_card(dtype, D):
+    """Phase W's [2048, 1024] through the backward kernel (one count, two
+    calls bit-equal); D = 1536 through the plain arithmetic on the card,
+    counting nothing."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(D + 2)
+    x, r, dy, ds = (torch.randn(2048, D, generator=gen).to(dev, dt)
+                    for _ in range(4))
+    g = (1 + 0.1 * torch.randn(D, generator=gen)).to(dev, dt)
+    b = (0.1 * torch.randn(D, generator=gen)).to(dev, dt)
+    s, _, mean, rstd = fl._forward_kernel(x, r, g, b, 1e-5)
+    before = layernorm_residual.backward_launches
+    got = fl._backward_kernel(s, mean, rstd, g, ds, dy)
+    again = fl._backward_kernel(s, mean, rstd, g, ds, dy)
+    want = fl._backward_ref(s, mean, rstd, g, ds, dy)
+    torch.cuda.synchronize()
+    assert layernorm_residual.backward_launches == before + (
+        2 if D <= fl.MAX_REGISTER_FEATURES else 0)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+           else dict(rtol=2e-2, atol=2e-2))
+    for a, a2, w in zip(got, again, want):
+        assert torch.equal(a, a2)
+        scale = max(1.0, float(w.float().abs().max()))
+        torch.testing.assert_close(a.float() / scale, w.float() / scale,
+                                   **tol)
 
 
 @pytest.mark.gpu

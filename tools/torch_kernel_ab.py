@@ -8,9 +8,11 @@ one process on one card.
     python3 tools/torch_kernel_ab.py paged_attention OTHER.cu [...]
     python3 tools/torch_kernel_ab.py grouped_matmul OTHER.cu [...]
     python3 tools/torch_kernel_ab.py conv1x1_bn OTHER.cu [...]
+    python3 tools/torch_kernel_ab.py layernorm_residual OTHER.cu [...]
 
 ``OTHER.cu`` is another version of ``paddle_tpu_torch/ops/csrc/<kernel>.cu``
-(``fused_conv1x1_bn.cu`` for ``conv1x1_bn``)
+(``fused_conv1x1_bn.cu`` for ``conv1x1_bn``, ``fused_layernorm.cu`` for
+``layernorm_residual``)
 with the same C entries, for example an earlier commit's
 (``git show <commit>:paddle_tpu_torch/ops/csrc/flash_attention.cu >
 old.cu``).  Each is built with the port's ``nvcc`` flags (and the
@@ -73,7 +75,25 @@ max|out|), then timed in turns (repo, others, others reversed, repo):
   ``torch.mm`` (the product alone) and the bound; then ``chip_smoke.py``
   phase R3's ResNet-50 step with each build in turn behind the wrapper,
   four turns a build (ms a step, img/s; the phase's launch checks run
-  every time).
+  every time);
+* layernorm_residual: kernel 2's forward and backward in every build,
+  through the package's wrapper with the build's C entries swapped in, in
+  every design the build holds (forward: ``layernorm_residual_fwd_vec``
+  where the build has it, and the first design; backward:
+  ``layernorm_residual_bwd`` in its vector and element layouts where the
+  build has it, else the plain arithmetic on the card): held against the
+  plain versions (``chip_smoke.check_ln``: s exact, y / mean / rstd and
+  ds / dg / db within ``chip_smoke.ln_tol``, two backward calls
+  bit-equal) at BERT's, GPT's and the long-context shapes and phase W's
+  [2048, 1024] in float32 and bf16, then timed there by CUDA graph
+  (``chip_smoke.graph_ms``, inputs rotated past the L2; the eager call
+  beside it) beside the plain versions, the library calls
+  (``F.layer_norm(x + r)``; ``native_layer_norm_backward``, plus the s
+  cotangent's add where the path has one) and the bounds; then
+  ``chip_smoke.py`` phase 7's BERT-base step and phase LT2's long-context
+  step with each build in turn behind the wrapper, two turns a build (ms a
+  step; the phases' launch checks run every time, the backward count
+  expected 0 behind a build without the backward kernel).
 
 Prints one line per check and per timing, each build's ptxas register and
 spill report, and the card's name and power limit first.  Exits non-zero
@@ -102,14 +122,30 @@ QMM_M = (1, 8, 13, 40, 384)
 
 
 def kernel_name(mangled):
-    """``name<template args>`` of a mangled ``..._kernel<int, ...>``."""
-    for m in re.finditer(r"\d+", mangled):
-        name = mangled[m.end():m.end() + int(m.group())]
-        rest = mangled[m.end() + len(name):]
-        if name.endswith("_kernel") and rest.startswith("I"):
-            args = re.match(r"I((?:Li-?\d+E)*)", rest).group(1)
-            return f"{name}<{', '.join(re.findall(r'Li(-?\d+)E', args))}>"
-    return mangled
+    """``name<template args>`` of a mangled ``..._kernel<...>`` whose
+    arguments are ints, bools, ``float`` or named types."""
+    at = mangled.find("_kernelI")
+    if at < 0:
+        return mangled
+    end = at + len("_kernel")
+    # the name is preceded by its length, glued to what comes before
+    start = next((j for j in range(at, 0, -1)
+                  if mangled[:j].endswith(str(end - j))), None)
+    if start is None:
+        return mangled
+    rest, out = mangled[end + 1:], []
+    while rest and rest[0] != "E":
+        m = re.match(r"L[ib](-?\d+)E|f|(\d+)", rest)
+        if m is None:
+            break
+        if m.group(2):
+            n = int(m.group(2))
+            out.append(rest[m.end():m.end() + n])
+            rest = rest[m.end() + n:]
+        else:
+            out.append(m.group(1) if m.group(1) is not None else "float")
+            rest = rest[m.end():]
+    return f"{mangled[start:end]}<{', '.join(out)}>"
 
 
 def ptxas_lines(text):
@@ -838,20 +874,160 @@ def conv_bn(torch, cs, libs):
         fcb._stats_plan, fcb._apply_plan = own[1], own[2]
 
 
+def ln_entries(lib):
+    """{C entry: caller} of the build's entries that the wrapper calls."""
+    from paddle_tpu_torch.ops import fused_layernorm as fl
+
+    out = {}
+    for symbol, argtypes in fl._ARGTYPES.items():
+        if not hasattr(lib, symbol):
+            continue
+        fn = getattr(lib, symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+
+        def call(*args, fn=fn, symbol=symbol):
+            rc = fn(*args)
+            if rc:
+                raise RuntimeError(f"{symbol}: cudaError {rc}")
+        out[symbol] = call
+    return out
+
+
+def layernorm(torch, cs, libs):
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import fused_layernorm as fl
+
+    swaps = {tag: ln_entries(lib) for tag, lib in libs.items()}
+    own = (dict(fl._fns), fl._forward_plan, fl._backward_plan)
+
+    def use(tag):
+        """The wrapper on ``tag``'s build: its entries, the first forward
+        design alone where it has no Hopper entry, the plain backward where
+        it has no backward kernel; occupancies asked of this build."""
+        fl._fns.clear()
+        fl._fns.update(swaps[tag])
+        fl._occupancy.clear()
+        fl._forward_plan = (own[1] if "layernorm_residual_fwd_vec"
+                            in swaps[tag] else lambda *a: "first")
+        fl._backward_plan = (own[2] if "layernorm_residual_bwd" in swaps[tag]
+                             else lambda *a: "plain")
+
+    def designs(tag):
+        fwd = (["vector"] if "layernorm_residual_fwd_vec" in swaps[tag]
+               else []) + ["first"]
+        bwd = (["vector", "scalar"] if "layernorm_residual_bwd" in swaps[tag]
+               else [])
+        return fwd, bwd
+
+    gpu = cs.gpu_line()
+    shapes = [(name, dtype, M, D, has) for name, dtype, M, D, has
+              in cs.LN_SHAPES] + [("wide", dtype, *cs.WIDE_LN, True)
+                                  for dtype in ("float32", "bfloat16")]
+    order = list(swaps) + list(swaps)[::-1]
+    try:
+        for name, dtype, M, D, _ in shapes:
+            for tag in swaps:
+                use(tag)
+                print(f"check {tag} {name}:", flush=True)
+                cs.check_ln(torch, fl, dtype, M, D,
+                            torch.Generator().manual_seed(cs.SEED + 71))
+        with torch.no_grad():
+            for name, dtype, M, D, has_ds in shapes:
+                gen = torch.Generator().manual_seed(cs.SEED + 72)
+                item = torch.finfo(getattr(torch, dtype)).bits // 8
+                args = cs.ln_inputs(torch, dtype, M, D, gen,
+                                    n_copies=cs.ln_copies(M, D, item))
+                bargs, largs = [], []
+                for x, r, g, b in args:
+                    s, _, mean, rstd = fl._forward_ref(x, r, g, b, 1e-5)
+                    dy, ds = (torch.randn(M, D, generator=gen).to(
+                        "cuda", s.dtype) for _ in range(2))
+                    ds_out = ds if has_ds else None
+                    bargs.append((s, mean, rstd, g, ds_out, dy))
+                    largs.append(cs.ln_library_bwd(torch, s, g, b, dy,
+                                                   ds_out))
+                got = {}
+                for tag in order:
+                    use(tag)
+                    fwd, bwd = designs(tag)
+                    for design in fwd:
+                        def call(*a, design=design):
+                            return fl._forward_kernel(*a, 1e-5,
+                                                      design=design)
+                        got.setdefault(("forward", tag, design), []).append(
+                            (cs.graph_ms(torch, call, args, 100),
+                             cs.time_ms(torch, call, args, 100)))
+                    for design in bwd:
+                        def call(*a, design=design):
+                            return fl._backward_kernel(*a, design=design)
+                        got.setdefault(("backward", tag, design), []).append(
+                            (cs.graph_ms(torch, call, bargs, 50),
+                             cs.time_ms(torch, call, bargs, 50)))
+                use("repo")
+                plain = (cs.graph_ms(torch, lambda *a: fl._forward_ref(
+                    *a, 1e-5), args, 20),
+                    cs.graph_ms(torch, fl._backward_ref, bargs, 10))
+                lib = (cs.graph_ms(torch, lambda x, r, g, b: F.layer_norm(
+                    x + r, (D,), g, b, 1e-5), args, 50),
+                    cs.graph_ms(torch, lambda i: largs[i][0](*largs[i][1]),
+                                [(i,) for i in range(len(largs))], 50))
+                bound = (cs.ln_bound(M, D, item)[0],
+                         cs.ln_bwd_bound(M, D, item, has_ds)[0])
+                for (way, tag, design), vals in got.items():
+                    k = way == "backward"
+                    print(f"time layernorm_residual {way} {name} {dtype} "
+                          f"[{M}, {D}]"
+                          f"{' with the s cotangent' if k and has_ds else ''}"
+                          f" (checked) {tag} {design}: graph "
+                          f"{' / '.join(f'{g:.4f}' for g, _ in vals)} ms, "
+                          f"eager {' / '.join(f'{e:.4f}' for _, e in vals)} "
+                          f"ms ({100 * bound[k] / min(g for g, _ in vals):.0f}"
+                          f"% of the bound {bound[k]:.4f}; plain graph "
+                          f"{plain[k]:.4f}, library graph {lib[k]:.4f})",
+                          flush=True)
+                del args, bargs, largs
+                torch.cuda.empty_cache()
+
+        steps = {}
+        for tag in order:
+            use(tag)
+            kernel = "layernorm_residual_bwd" in swaps[tag]
+            bert = cs.train_bert(torch, gpu, ln_backward_kernel=kernel)
+            torch.cuda.empty_cache()
+            long = cs.long_context_training(torch, gpu,
+                                            ln_backward_kernel=kernel)
+            torch.cuda.empty_cache()
+            steps.setdefault(tag, []).append((bert["step_ms"],
+                                              long["step_ms"]))
+        for tag, vals in steps.items():
+            print(f"steps {tag}: BERT (phase 7) " + " / ".join(
+                f"{b:.2f}" for b, _ in vals) + " ms, long context (LT2) "
+                + " / ".join(f"{t:.2f}" for _, t in vals) + " ms a step",
+                flush=True)
+    finally:
+        fl._fns.clear()
+        fl._fns.update(own[0])
+        fl._occupancy.clear()
+        fl._forward_plan, fl._backward_plan = own[1], own[2]
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available() or len(sys.argv) < 3 or \
             sys.argv[1] not in ("flash_attention", "flash_attention_bwd",
                                 "quantized_matmul", "paged_attention",
-                                "grouped_matmul", "conv1x1_bn"):
+                                "grouped_matmul", "conv1x1_bn",
+                                "layernorm_residual"):
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
     import chip_smoke as cs
     from paddle_tpu_torch.ops import _build
 
     kernel, others = sys.argv[1], sys.argv[2:]
-    source = "fused_conv1x1_bn" if kernel == "conv1x1_bn" else kernel
+    source = {"conv1x1_bn": "fused_conv1x1_bn",
+              "layernorm_residual": "fused_layernorm"}.get(kernel, kernel)
     print(cs.gpu_line(), flush=True)
     libs = {"repo": (_build.load(source), ptxas_lines(
         _build.library_path(source).with_suffix(".log").read_text()))}
@@ -876,6 +1052,8 @@ def main() -> int:
                             for tag, (lib, _) in libs.items()})
         elif kernel == "conv1x1_bn":
             conv_bn(torch, cs, {tag: lib for tag, (lib, _) in libs.items()})
+        elif kernel == "layernorm_residual":
+            layernorm(torch, cs, {tag: lib for tag, (lib, _) in libs.items()})
         else:
             qm = importlib.import_module(
                 "paddle_tpu_torch.ops.quantized_matmul")

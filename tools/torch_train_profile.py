@@ -20,7 +20,8 @@ then for each model:
   activities) and prints the window's wall time, the device-busy share
   (summed kernel and copy time over the wall time — one stream, so no
   overlap), device time by group — the port's kernels on the path
-  (``layernorm_residual``, ``softmax_cross_entropy``; for ResNet
+  (``layernorm_residual``, its backward, ``softmax_cross_entropy``; for
+  ResNet
   ``conv1x1_bn_stats`` with its partial-sum reduction and
   ``bn_apply_relu``), cuDNN convolutions, matrix products, attention
   softmax, the optimizer's ``_foreach`` kernels, reductions (the plain
@@ -66,7 +67,10 @@ GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("flash_attention", ("flash_fwd_",)),
     ("flash_attention_bwd_dq", ("flash_bwd_dq_",)),
     ("flash_attention_bwd_dkv", ("flash_bwd_dkv_",)),
-    ("layernorm_residual", ("ln_res_kernel", "ln_res_wide_kernel")),
+    ("layernorm_residual", ("ln_res_kernel", "ln_res_wide_kernel",
+                            "ln_res_vec_kernel")),
+    ("layernorm_residual backward", ("ln_bwd_kernel",
+                                     "ln_bwd_reduce_kernel")),
     ("softmax_cross_entropy", ("sxent_kernel",)),
     ("conv1x1_bn_stats", ("stats_bf16_kernel", "stats_bf16_wgmma_kernel",
                           "stats_f32_kernel", "reduce_partials_kernel")),
