@@ -32,7 +32,9 @@ Phases, in order — any failure raises and exits non-zero:
 6. train kernels vs plain: ``layernorm_residual`` and
    ``softmax_cross_entropy`` against their plain versions at the training
    path's shapes (BERT-base bf16, GPT-small f32; ``layernorm_residual``
-   also at the long-context slice's [16384, 768] bf16): ``s`` exactly
+   also at the long-context slice's [16384, 768] bf16,
+   ``softmax_cross_entropy`` also at BERT-base's float32 [5120, 30522]
+   logits under amp O1, phase F2's): ``s`` exactly
    equal, ``y`` / loss / ``lse`` and the gradients through each
    ``autograd.Function`` within stated tolerances; ``layernorm_residual``'s
    forward in the design its plan picks and in its first design, its
@@ -254,10 +256,51 @@ M5. timing of kernel 10 at M1's slice shapes (bf16) and at the decode
     peak, or the valid x rows, the weights of experts with rows, the whole
     output at 3.35 TB/s).
 
+The training loop under amp (after M5):
+
+F1. ``layernorm_residual`` at the mixed dtypes amp hands it, BERT-base's
+    [32768, 768]: (bf16, f32, f32) and (bf16, bf16, f32) — what O1 gives
+    layer 1's first LayerNorm and the other 23 — and (f16, f32, f32),
+    (f16, f16, f32) (x, residual, weight / bias): both forward designs (s
+    exact, y within phase 6's tolerance of x's dtype — float16's 2e-3,
+    which y rounded through bf16 must fail — two calls bit-equal), both
+    backward layouts with and without the s cotangent (ds within it, dg /
+    db in the weight's dtype and scaled, two calls bit-equal); each mix
+    timed by CUDA graph past the L2 beside the plain versions, the bytes
+    bound with each operand at its own width, and ``F.layer_norm(x + r)``
+    on the same dtypes where torch takes them;
+F2. the slice's main path: ``BertForPretraining(bert_base())`` with
+    float32 parameters and dropout 0.1, ``Model.prepare(AdamW(1e-4,
+    weight_decay=0.01), net.loss, amp_configs="O1")``, ``fit`` over 4
+    seeded batches of 256 x 128 (20 masked; built as ``bench.py`` builds
+    them) for 2 epochs, shuffled, evaluating on a fifth batch after each,
+    with ``ModelCheckpoint`` and ``LRScheduler``; the counts are zeroed
+    when epoch 2 begins and read when fit ends: ``layernorm_residual`` 24
+    x (4 + 1) forward and 24 x 4 backward, ``softmax_cross_entropy`` 4 +
+    1; losses finite, epoch 2's mean below epoch 1's; the checkpoint files
+    present; the final checkpoint loaded into a fresh model and optimizer
+    on the card evaluates to the trained model's loss bit for bit;
+    ``predict``'s MLM logits float32 [32, 20, 30522]; seq/s of fit's
+    second epoch beside ``train_batch`` over the same batches, save / load
+    seconds, checkpoint size, peak device memory;
+F3. card vs CPU under O1: ``bert_base()`` f32 with dropout 0 from one
+    seeded init on each; the first 4 x 128 batch's gradient through the
+    model's O1 forward and loss, by its relative L2 difference over all
+    parameters and over kernel 2's 24 LayerNorms (``FIT_PARITY_GRAD_RTOL``),
+    then two ``fit`` steps unshuffled, the losses at ``FIT_PARITY_RTOL``
+    (bf16 products round in other places on the two; both limits a few
+    times the card's readings);
+F4. a custom float16 loop: BERT-base under ``auto_cast(dtype="float16")``
+    with ``GradScaler`` for 4 steps (kernel 2 in float16, 24 launches a
+    step each way); step 3 gets an inf gradient: skipped (parameters and
+    the optimizer's count unchanged) and the loss scale halves.
+
 The line before last is the ``{"kernels": [...]}`` JSON record
 (``layernorm_residual``'s entry carries its backward kernel's numbers
 under ``backward``: launches in phase 7, max_abs_err, ms, bound, plain and
-library); the last line is ``{"ok": true, "device": {...}}``.  Without a
+library; its mixed-dtype numbers under ``mixed_dtypes``, and F2's and F4's
+launches beside phase 7's); the last line is ``{"ok": true, "device":
+{...}}``.  Without a
 card, or without the package beside this file, it exits non-zero and
 prints no result.
 """
@@ -973,12 +1016,15 @@ def timing_quantized(torch, gpu):
 # (name, dtype, rows, width[, s cotangent]): the two kernels' shapes on the
 # training path; layernorm_residual's also at the long-context slice's 2 x
 # 8192 rows (phase LT2), and whether its backward gets the s cotangent
-# (pre-LN GPT: yes; post-LN BERT: y alone)
+# (pre-LN GPT: yes; post-LN BERT: y alone); softmax_cross_entropy's also
+# at BERT's float32 logits under amp O1 (phase F2: the tied MLM decoder
+# runs in float32)
 LN_SHAPES = (("bert", "bfloat16", BERT_B * BERT_S, 768, False),
              ("gpt", "float32", GPT_B * GPT_S, 768, True),
              ("long", "bfloat16", 2 * 8192, 768, True))
 SX_SHAPES = (("bert", "bfloat16", BERT_B * BERT_P, 30522),
-             ("gpt", "float32", GPT_B * (GPT_S - 1), 50304))
+             ("gpt", "float32", GPT_B * (GPT_S - 1), 50304),
+             ("bert_o1", "float32", BERT_B * BERT_P, 30522))
 
 
 def ln_inputs(torch, dtype, M, D, gen, n_copies=1):
@@ -1031,10 +1077,13 @@ def sx_bound(M, V, item):
 
 
 def ln_tol(dtype):
-    """float32: the same arithmetic summed in another order; bf16: outputs
-    rounded to 8 mantissa bits, one bf16 step apart at most."""
-    return (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
-            else dict(rtol=2e-2, atol=2e-2))
+    """float32: the same arithmetic summed in another order; bf16 / float16:
+    outputs rounded once from float32, one step of the dtype apart at most
+    (bf16 2^-7 of the value, float16 2^-10: 2e-3 holds two float16 steps
+    and fails a float16 output rounded through bf16)."""
+    return {"float32": dict(rtol=1e-5, atol=1e-5),
+            "float16": dict(rtol=2e-3, atol=2e-3)}.get(
+                dtype, dict(rtol=2e-2, atol=2e-2))
 
 
 def check_ln_bwd(torch, fl, s, mean, rstd, g, dy, ds_out, tol, design=None):
@@ -3103,6 +3152,518 @@ def timing_gmm(torch, gpu, gs_train):
     return rows
 
 
+# -- the training loop under amp O1 (Model.fit) -------------------------------
+# F1: layernorm_residual at the mixed dtypes amp hands it, BERT-base's rows:
+# (x, residual, weight / bias); O1 in bf16 gives the first two (layer 1's
+# first LayerNorm takes the float32 embedding output as its residual, the
+# other 23 a bf16 one), auto_cast(dtype="float16") the last two
+LN_MIXES = (("bfloat16", "float32", "float32"),
+            ("bfloat16", "bfloat16", "float32"),
+            ("float16", "float32", "float32"),
+            ("float16", "float16", "float32"))
+LN_MIX_M, LN_MIX_D = BERT_B * BERT_S, 768
+# F2: BERT-base pretraining through Model.fit under amp O1: 4 training
+# batches and 1 evaluation batch of bench.py's shape, 2 epochs
+FIT_BATCHES, FIT_EPOCHS = 4, 2
+# F3: card vs CPU under O1, the first batch's gradient and two fit steps
+# of PARITY_B rows: bf16 products round to 8 mantissa bits in other places
+# on the two devices.  The limits are a few times the card's readings
+# (PERF.md, PR 14): losses 3.6e-4 and 2.7e-5 apart, the gradient 1.65e-2
+# (all parameters) and 1.59e-2 (kernel 2's LayerNorms) by relative L2
+FIT_PARITY_RTOL = 2e-3
+FIT_PARITY_GRAD_RTOL = 5e-2
+# F4: a custom float16 loop with GradScaler; the step that gets an inf
+F16_STEPS, F16_INF_STEP = 4, 2
+
+
+def item_size(torch, dtype):
+    return torch.finfo(getattr(torch, dtype)).bits // 8
+
+
+def ln_mix_bound(torch, M, D, mix):
+    """The forward's least time: x read (T), r read at its own width, s and
+    y written (T), weight and bias read at their width, mean and rstd
+    written, over the card's memory rate (operations as ``ln_bound``)."""
+    tx, tr, tw = (item_size(torch, d) for d in mix)
+    nbytes = M * D * (3 * tx + tr) + 2 * D * tw + 8 * M
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, 8.0 * M * D / FP32_FLOPS
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def ln_mix_bwd_bound(torch, M, D, mix, has_ds):
+    """The backward's least time: s, dy (and ds_out) read and ds written in
+    T, mean and rstd read, weight read and dg, db written at their width
+    (it reads no residual)."""
+    tx, tw = item_size(torch, mix[0]), item_size(torch, mix[2])
+    nbytes = (3 + has_ds) * M * D * tx + 8 * M + 3 * D * tw
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, 12.0 * M * D / FP32_FLOPS
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def ln_mix_inputs(torch, mix, M, D, gen, n_copies=1):
+    dt = [getattr(torch, d) for d in mix]
+    g = (1 + 0.1 * torch.randn(D, generator=gen)).to(DEVICE, dt[2])
+    b = (0.1 * torch.randn(D, generator=gen)).to(DEVICE, dt[2])
+    return [(torch.randn(M, D, generator=gen).to(DEVICE, dt[0]),
+             torch.randn(M, D, generator=gen).to(DEVICE, dt[1]), g, b)
+            for _ in range(n_copies)]
+
+
+def check_ln_mixed(torch, gpu):
+    """Phase F1: ``layernorm_residual`` at each mix of LN_MIXES, BERT-base's
+    [32768, 768]: both forward designs (s exact, y within phase 6's
+    tolerance of x's dtype, two calls bit-equal) and both backward layouts
+    with and without the s cotangent (``check_ln_bwd``: ds within the
+    tolerance, dg / db scaled, in the weight's dtype, two calls
+    bit-equal); then each mix's forward and backward device time by CUDA
+    graph, inputs rotated past the L2, beside the plain versions, the
+    bytes bounds (each operand at its own width) and
+    ``F.layer_norm(x + r, (D,), g, b)`` on the same dtypes where torch
+    takes them (not a bf16 / f16 sum beside float32 g / b).  Returns
+    ``{mix: row}`` for the kernels record."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import fused_layernorm as fl
+
+    gen = torch.Generator().manual_seed(SEED + 140)
+    M, D = LN_MIX_M, LN_MIX_D
+    rows = {}
+    for mix in LN_MIXES:
+        name = "/".join(mix)
+        tol = ln_tol(mix[0])
+        (x, r, g, b), = ln_mix_inputs(torch, mix, M, D, gen)
+        dts = tuple(t.dtype for t in (x, r, g))
+        fplan = fl._forward_plan(dts, D, True)
+        bplan = fl._backward_plan((dts[0], dts[2]), D, True)
+        assert (fplan, bplan) == ("vector", "vector"), (mix, fplan, bplan)
+        s0, y0, mean0, rstd0 = fl._forward_ref(x, r, g, b, 1e-12)
+        if mix[0] == "float16":
+            # the tolerance must catch y rounded through bf16 on its way
+            try:
+                torch.testing.assert_close(
+                    y0.to(torch.bfloat16).to(y0.dtype), y0, **tol)
+            except AssertionError:
+                pass
+            else:
+                raise AssertionError(f"{mix}: float16's tolerance passes "
+                                     f"a y rounded through bf16")
+        err = None
+        for design in ("vector", "first"):
+            got = fl._forward_kernel(x, r, g, b, 1e-12, design=design)
+            again = fl._forward_kernel(x, r, g, b, 1e-12, design=design)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, c) for a, c in zip(got, again)), \
+                ("layernorm_residual: two calls differ", mix, design)
+            assert torch.equal(got[0], s0), ("s differs", mix, design)
+            assert got[0].dtype == got[1].dtype == dts[0]
+            torch.testing.assert_close(got[1], y0, **tol)
+            torch.testing.assert_close(got[2], mean0, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(got[3], rstd0, rtol=1e-5, atol=1e-5)
+            e = float((got[1].float() - y0.float()).abs().max())
+            err = e if err is None else err
+            log(f"F1 layernorm_residual {name} [{M}, {D}] forward {design}: "
+                f"s exact, y max_abs_err={e:.3e} (rtol={tol['rtol']}, "
+                f"atol={tol['atol']}), two calls bit-equal; ok")
+        dy, ds = (torch.randn(M, D, generator=gen).to(DEVICE, dts[0])
+                  for _ in range(2))
+        bwd_err = 0.0
+        for design in ("vector", "scalar"):
+            for ds_out in (ds, None):
+                e = check_ln_bwd(torch, fl, s0, mean0, rstd0, g, dy, ds_out,
+                                 tol, design=design)
+                bwd_err = max(bwd_err, e) if design == "vector" else bwd_err
+                log(f"F1 layernorm_residual {name} [{M}, {D}] backward "
+                    f"{design}, {'with' if ds_out is not None else 'without'}"
+                    f" the s cotangent: ds max_abs_err={e:.3e}, dg / db "
+                    f"{g.dtype} within the tolerance of their largest "
+                    f"magnitude; two calls bit-equal; ok")
+        del x, r, dy, ds, s0, y0
+        # timing, as phase 10 times row 2
+        args = ln_mix_inputs(torch, mix, M, D, gen, n_copies=ln_copies(
+            M, D, 2))
+        fwd = lambda *a: fl._forward_kernel(*a, 1e-12)  # noqa: E731
+        with torch.no_grad():
+            ms = graph_ms(torch, fwd, args, 100)
+            first = graph_ms(torch, lambda *a: fl._forward_kernel(
+                *a, 1e-12, design="first"), args, 100)
+            plain = graph_ms(torch, lambda *a: fl._forward_ref(*a, 1e-12),
+                             args, 20)
+            # torch's layer_norm takes its weight in its input's dtype only:
+            # no library call for a bf16 / f16 sum beside float32 g / b
+            lib = (graph_ms(torch, lambda x, r, g, b: F.layer_norm(
+                x + r, (D,), g, b, 1e-12), args, 50)
+                if torch.promote_types(dts[0], dts[1]) == dts[2] else None)
+            bargs = []
+            for x, r, g, b in args:
+                s, _, mean, rstd = fl._forward_kernel(x, r, g, b, 1e-12)
+                bargs.append((s, mean, rstd, g, None, torch.randn(
+                    M, D, generator=gen).to(DEVICE, s.dtype)))
+            del args
+            bms = graph_ms(torch, fl._backward_kernel, bargs, 50)
+            bplain = graph_ms(torch, fl._backward_ref, bargs, 10)
+            del bargs
+        b_ms, b_by = ln_mix_bound(torch, M, D, mix)
+        bb_ms, bb_by = ln_mix_bwd_bound(torch, M, D, mix, False)
+        lib_text = ("none (torch takes no float32 weight beside a bf16 / "
+                    "f16 input)" if lib is None else f"{lib:.4f}")
+        log(f"timing[{gpu}] F1 layernorm_residual {name} [{M}, {D}] forward"
+            f" (vector): device {ms:.4f} ms ({100 * b_ms / ms:.0f}% of the "
+            f"bound), first design {first:.4f}, plain {plain:.4f}, library "
+            f"(layer_norm(x + r) on these dtypes) {lib_text}, bound "
+            f"{b_ms:.4f} ms by {b_by}")
+        log(f"timing[{gpu}] F1 layernorm_residual {name} [{M}, {D}] backward"
+            f" (vector, without the s cotangent, as BERT runs it): device "
+            f"{bms:.4f} ms ({100 * bb_ms / bms:.0f}% of the bound), plain "
+            f"{bplain:.4f}, bound {bb_ms:.4f} ms by {bb_by}")
+        rows[name] = dict(ms=ms, first_design_ms=first, plain_ms=plain,
+                          library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                          max_abs_err=err, backward=dict(
+                              ms=bms, plain_ms=bplain, library_ms=None,
+                              bound_ms=bb_ms, bound_by=bb_by,
+                              max_abs_err=bwd_err))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fit_data(torch, io, cfg, n_batches, B, seed):
+    """``n_batches`` x ``B`` rows of ``bert_batch`` data as one
+    ``io.TensorDataset`` (inputs, then labels)."""
+    inputs, labels = bert_batch(cfg.vocab_size, n_batches * B, BERT_S,
+                                BERT_P, seed=seed)
+    return io.TensorDataset(inputs + labels), inputs, labels
+
+
+def bert_fit_model(torch, ptt, device, cfg, seed_or_gen):
+    from paddle_tpu_torch.models import BertForPretraining
+
+    if isinstance(seed_or_gen, int):
+        ptt.seed(seed_or_gen)
+        net = BertForPretraining(cfg, device=device)
+    else:
+        net = BertForPretraining(cfg, device=device, generator=seed_or_gen)
+    model = ptt.Model(net, ["input_ids", "token_type_ids", "attention_mask",
+                            "masked_positions"],
+                      ["mlm_labels", "nsp_labels"]).prepare(
+        optimizer=ptt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01),
+        loss=net.loss, amp_configs="O1")
+    return model, net
+
+
+class _FitProbe:
+    """Zeroes the kernel counts and starts the clock when epoch 1 begins,
+    stops the clock when its training ends, reads the counts when fit
+    ends (after epoch 1's evaluation); keeps every training loss (a 0-d
+    device tensor, read after fit)."""
+
+    def __init__(self, torch, counters):
+        self.torch, self.counters = torch, counters
+        self.losses, self.t0, self.t1, self.counts = [], None, None, None
+
+    def set_model(self, model):
+        self.model = model
+
+    def set_params(self, params):
+        self.params = params
+
+    def on_epoch_begin(self, epoch, logs=None):
+        if epoch == FIT_EPOCHS - 1:
+            self.torch.cuda.synchronize()
+            for c in self.counters:
+                c.launches = 0
+                if hasattr(c, "backward_launches"):
+                    c.backward_launches = 0
+            self.t0 = time.monotonic()
+
+    def on_train_batch_end(self, step, logs=None):
+        self.losses.append(logs["loss"])
+
+    def on_epoch_end(self, epoch, logs=None):
+        if epoch == FIT_EPOCHS - 1:
+            self.torch.cuda.synchronize()
+            self.t1 = time.monotonic()
+
+    def on_train_end(self, logs=None):
+        self.torch.cuda.synchronize()
+        if self.counters:
+            self.counts = [c.launches for c in self.counters] + [
+                self.counters[0].backward_launches]
+
+    def __getattr__(self, name):
+        if name.startswith("on_"):
+            return lambda *a, **k: None
+        raise AttributeError(name)
+
+
+def fit_bert(torch, gpu):
+    """Phase F2, this slice's main path: ``BertForPretraining(bert_base())``
+    with float32 parameters and dropout 0.1, ``prepare(AdamW(1e-4,
+    weight_decay=0.01), net.loss, amp_configs="O1")``, ``fit`` over 4
+    seeded batches of 256 x 128 (20 masked) for 2 epochs, shuffled,
+    evaluating on a fifth batch after each epoch, with ``ModelCheckpoint``
+    and ``LRScheduler``; the counts are zeroed when epoch 2 begins and read
+    when fit ends: ``layernorm_residual`` 24 x (train steps + eval
+    batches) forward, 24 x train steps backward, ``softmax_cross_entropy``
+    train steps + eval batches.  Losses finite, epoch 2's mean below epoch
+    1's; the checkpoint files present; the checkpoint loaded into a fresh
+    model and optimizer on the card gives ``evaluate`` a loss bit-equal to
+    the trained model's, and ``predict`` MLM logits in float32 of the
+    right shapes.  Prints seq/s of fit's second epoch beside
+    ``train_batch`` over the same batches (the loop's host cost is the
+    difference), checkpoint save / load seconds and size, and peak device
+    memory."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.hapi.callbacks import LRScheduler, ModelCheckpoint
+    from paddle_tpu_torch.models import bert_base
+    from paddle_tpu_torch.ops import layernorm_residual, softmax_cross_entropy
+
+    cfg = bert_base()
+    t0 = time.monotonic()
+    model, net = bert_fit_model(torch, ptt, DEVICE, cfg, SEED)
+    train, tin, tlab = fit_data(torch, io, cfg, FIT_BATCHES, BERT_B,
+                                SEED + 150)
+    evald, ein, elab = fit_data(torch, io, cfg, 1, BERT_B, SEED + 151)
+    log(f"F2 fit[bert]: bert_base f32 parameters, dropout {cfg.dropout}, "
+        f"amp O1, {FIT_BATCHES} x {BERT_B}x{BERT_S} training rows "
+        f"({BERT_P} masked), 1 evaluation batch, built in "
+        f"{time.monotonic() - t0:.1f}s")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    try:
+        probe = _FitProbe(torch, (layernorm_residual,
+                                  softmax_cross_entropy))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        model.fit(train, eval_data=evald, batch_size=BERT_B,
+                  epochs=FIT_EPOCHS, shuffle=True, verbose=0,
+                  callbacks=[probe, ModelCheckpoint(save_dir=ckpt),
+                             LRScheduler()])
+        fit_s = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v) for v in probe.losses]
+        ln, sx, lnb = probe.counts
+        log(f"F2 fit[bert]: losses {[round(v, 4) for v in losses]}")
+        log(f"F2 fit[bert]: launches over epoch {FIT_EPOCHS} and its "
+            f"evaluation: layernorm_residual {ln} (= 24 x ({FIT_BATCHES} + "
+            f"1): {ln == 24 * (FIT_BATCHES + 1)}), backward {lnb} (= 24 x "
+            f"{FIT_BATCHES}: {lnb == 24 * FIT_BATCHES}), "
+            f"softmax_cross_entropy {sx} (= {FIT_BATCHES} + 1: "
+            f"{sx == FIT_BATCHES + 1})")
+        assert ln == 2 * cfg.num_layers * (FIT_BATCHES + 1), ln
+        assert lnb == 2 * cfg.num_layers * FIT_BATCHES, lnb
+        assert sx == FIT_BATCHES + 1, sx
+        assert len(losses) == FIT_EPOCHS * FIT_BATCHES
+        assert all(math.isfinite(v) for v in losses), losses
+        e1 = sum(losses[:FIT_BATCHES]) / FIT_BATCHES
+        e2 = sum(losses[FIT_BATCHES:]) / FIT_BATCHES
+        assert e2 < e1, (e1, e2)
+        files = sorted(os.listdir(ckpt))
+        want = sorted(f"{t}.{ext}" for t in [*map(str, range(FIT_EPOCHS)),
+                                             "final"]
+                      for ext in ("pdparams", "pdopt"))
+        assert files == want, files
+        epoch_s = probe.t1 - probe.t0
+        fit_sps = FIT_BATCHES * BERT_B / epoch_s
+        trained = model.evaluate(evald, batch_size=BERT_B, verbose=0)
+        # the same batches through train_batch (a wait for the card each
+        # step), after one untimed step
+        model.train_batch([a[:BERT_B] for a in tin],
+                          [a[:BERT_B] for a in tlab])
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for i in range(FIT_BATCHES):
+            sl = slice(i * BERT_B, (i + 1) * BERT_B)
+            model.train_batch([a[sl] for a in tin], [a[sl] for a in tlab])
+        torch.cuda.synchronize()
+        tb_sps = FIT_BATCHES * BERT_B / (time.monotonic() - t0)
+        path = os.path.join(ckpt, "again")
+        t0 = time.monotonic()
+        model.save(path)
+        save_s = time.monotonic() - t0
+        size = sum(os.path.getsize(path + ext)
+                   for ext in (".pdparams", ".pdopt"))
+        # the final checkpoint in a fresh model and optimizer on the card
+        fresh, fnet = bert_fit_model(torch, ptt, DEVICE, cfg, SEED + 1)
+        t0 = time.monotonic()
+        fresh.load(os.path.join(ckpt, "final"))
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        reloaded = fresh.evaluate(evald, batch_size=BERT_B, verbose=0)
+        log(f"F2 fit[bert]: evaluate loss trained {trained['loss']!r} vs "
+            f"reloaded {reloaded['loss']!r} (bit-equal: "
+            f"{trained['loss'] == reloaded['loss']})")
+        assert reloaded["loss"] == trained["loss"], (trained, reloaded)
+        assert fresh._optimizer.state_dict()["count"] == \
+            FIT_EPOCHS * FIT_BATCHES
+        n_pred = min(32, BERT_B)
+        out = fresh.predict(io.TensorDataset([a[:n_pred] for a in ein]),
+                            batch_size=n_pred)
+        (mlm, nsp), = out
+        assert mlm.shape == (n_pred, BERT_P, cfg.vocab_size) and \
+            mlm.dtype == np.float32, (mlm.shape, mlm.dtype)
+        assert nsp.shape == (n_pred, 2) and np.isfinite(mlm).all()
+        log(f"F2 predict: mlm logits {mlm.shape} {mlm.dtype}, nsp "
+            f"{nsp.shape} {nsp.dtype}; ok")
+        log(f"F2 fit[bert][{gpu}]: epoch {FIT_EPOCHS} trained in "
+            f"{epoch_s:.3f}s = {epoch_s / FIT_BATCHES * 1e3:.1f} ms/step, "
+            f"{fit_sps:.1f} seq/s through fit; train_batch over the same "
+            f"batches {tb_sps:.1f} seq/s ({BERT_B / tb_sps * 1e3:.1f} "
+            f"ms/step); the whole fit {fit_s:.1f}s with 3 checkpoints; "
+            f"save {save_s:.2f}s, load {load_s:.2f}s, checkpoint "
+            f"{size / 2**20:.0f} MiB (.pdparams + .pdopt); peak device "
+            f"memory {peak / 2**20:.0f} MiB")
+        del fresh, fnet
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del model, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {"layernorm_residual": ln,
+                         "layernorm_residual_backward": lnb,
+                         "softmax_cross_entropy": sx},
+            "fit_seq_per_s": fit_sps, "train_batch_seq_per_s": tb_sps,
+            "save_s": save_s, "load_s": load_s, "checkpoint_bytes": size,
+            "peak_bytes": peak}
+
+
+def fit_card_vs_cpu(torch, cfg=None):
+    """Phase F3: ``bert_base()`` f32 with dropout 0 from one seeded init,
+    on the card (kernels) and on the CPU (plain versions), under amp O1:
+    first the gradient of the first batch through the model's own O1
+    forward and loss, held by its relative L2 difference over all
+    parameters and over the 24 LayerNorms kernel 2 runs (its dg / db; a
+    wrong ds shows in every parameter below it) against
+    FIT_PARITY_GRAD_RTOL; then two ``fit`` steps of PARITY_B rows with
+    ``shuffle=False``, the losses at FIT_PARITY_RTOL."""
+    import re
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.models import bert_base
+
+    cfg = cfg or bert_base(dropout=0.0)
+    train, tin, tlab = fit_data(torch, io, cfg, 2, PARITY_B, SEED + 152)
+    losses, grads = {}, {}
+    for dev in (DEVICE, "cpu"):
+        model, net = bert_fit_model(torch, ptt, dev, cfg,
+                                    torch.Generator().manual_seed(SEED))
+        net.train()
+        loss, _, _ = model._forward_loss(model._batch(
+            [a[:PARITY_B] for a in tin], [a[:PARITY_B] for a in tlab]))
+        loss.backward()
+        grads[dev] = {n: p.grad.detach().double().cpu()
+                      for n, p in net.named_parameters()
+                      if p.grad is not None}
+        model._optimizer.clear_grad()
+        probe = _FitProbe(torch, ())
+        model.fit(train, batch_size=PARITY_B, epochs=1, shuffle=False,
+                  verbose=0, callbacks=[probe])
+        losses[dev] = [float(v) for v in probe.losses]
+        del model, net
+    assert grads[DEVICE].keys() == grads["cpu"].keys()
+    ln = [n for n in grads["cpu"] if re.search(r"\.ln[12]\.", n)]
+    assert len(ln) == 4 * cfg.num_layers, ln
+    rel = {}
+    for group, names in (("all", list(grads["cpu"])), ("kernel 2", ln)):
+        got = torch.cat([grads[DEVICE][n].flatten() for n in names])
+        want = torch.cat([grads["cpu"][n].flatten() for n in names])
+        rel[group] = float((got - want).norm() / want.norm())
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses[DEVICE],
+                                                 losses["cpu"])]
+    log(f"F3 parity: bert_base f32 parameters under amp O1, batch "
+        f"{PARITY_B}x{BERT_S}: the first batch's gradient card vs cpu, "
+        f"relative L2 difference {rel['all']:.3e} over all parameters, "
+        f"{rel['kernel 2']:.3e} over the {len(ln)} LayerNorm weights / "
+        f"biases of kernel 2 (<= {FIT_PARITY_GRAD_RTOL}); 2 fit steps: "
+        f"card {losses[DEVICE]} vs cpu {losses['cpu']}, rel diff {gaps} "
+        f"(<= {FIT_PARITY_RTOL})")
+    assert all(v <= FIT_PARITY_GRAD_RTOL for v in rel.values()), rel
+    assert len(losses[DEVICE]) == len(losses["cpu"]) == 2
+    for a, b in zip(losses[DEVICE], losses["cpu"]):
+        assert abs(a - b) <= FIT_PARITY_RTOL * abs(b), (a, b)
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return losses, rel
+
+
+def f16_scaler_loop(torch, gpu):
+    """Phase F4: a custom loop — BERT-base with float32 parameters under
+    ``amp.auto_cast(dtype="float16")`` with ``amp.GradScaler(
+    init_loss_scaling=2**15, decr_every_n_nan_or_inf=1)``, AdamW, 4 steps
+    on F2's batches; kernel 2 runs in float16 ((f16, f32, f32) and (f16,
+    f16, f32)), 24 launches a step forward and backward.  Step 3's
+    gradients get an inf: the step is skipped (every parameter
+    bit-equal, the optimizer's count unchanged) and the scale halves
+    (2**15 → 2**14, counters reset), as the state machine says; the other
+    steps' losses are finite."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import BertForPretraining, bert_base
+    from paddle_tpu_torch.ops import layernorm_residual
+
+    cfg = bert_base()
+    ptt.seed(SEED)
+    net = BertForPretraining(cfg, device=DEVICE)
+    opt = ptt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                              parameters=dict(net.named_parameters()))
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15,
+                            decr_every_n_nan_or_inf=1)
+    inputs, labels = bert_batch(cfg.vocab_size, F16_STEPS * BERT_B, BERT_S,
+                                BERT_P, seed=SEED + 150)
+    layernorm_residual.launches = 0
+    layernorm_residual.backward_launches = 0
+    scales, losses = [], []
+    net.train()
+    for step in range(F16_STEPS):
+        sl = slice(step * BERT_B, (step + 1) * BERT_B)
+        batch = [torch.as_tensor(a[sl], device=DEVICE) for a in inputs]
+        labs = [torch.as_tensor(a[sl], device=DEVICE) for a in labels]
+        with amp.auto_cast(level="O1", dtype="float16"):
+            out = net(*batch)
+            loss = net.loss(*out, *labs)
+        assert out[0].dtype == torch.float32  # the black-listed ln: f32
+        scaler.scale(loss).backward()
+        if step == F16_INF_STEP:
+            p = net.bert.layers[0].attn.qkv.weight
+            p.grad[0, 0] = float("inf")
+            before = [q.detach().clone() for q in net.parameters()]
+            count = opt.state_dict()["count"]
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        if step == F16_INF_STEP:
+            assert all(torch.equal(a, q) for a, q in zip(
+                before, net.parameters())), "the inf step updated"
+            assert opt.state_dict()["count"] == count
+            del before
+        scales.append(scaler.get_loss_scaling())
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    ln, lnb = (layernorm_residual.launches,
+               layernorm_residual.backward_launches)
+    log(f"F4 float16 loop[{gpu}]: losses {[round(v, 4) for v in losses]}, "
+        f"loss scale after each step {scales}, skipped steps "
+        f"{scaler._skipped_steps}; layernorm_residual launches {ln} / "
+        f"backward {lnb} (= 24 x {F16_STEPS}: "
+        f"{ln == lnb == 24 * F16_STEPS})")
+    assert scales == [2.0 ** 15] * F16_INF_STEP + [2.0 ** 14] * (
+        F16_STEPS - F16_INF_STEP), scales
+    assert scaler._skipped_steps == 1
+    assert int(scaler.state_dict()["bad_steps"]) == 0
+    assert all(math.isfinite(v) for v in losses), losses
+    assert ln == lnb == 2 * cfg.num_layers * F16_STEPS, (ln, lnb)
+    del net, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": ln, "backward_launches": lnb, "scales": scales}
+
+
 def main() -> int:
     import torch
 
@@ -3185,6 +3746,10 @@ def main() -> int:
             f"call: paged_flash_decode {r['launches_per_call']:.0f}, "
             f"grouped_matmul {r['gmm_launches_per_call']:.0f}")
     mrows = timing_gmm(torch, gpu, gs_train)
+    ln_mixed = check_ln_mixed(torch, gpu)
+    fit = fit_bert(torch, gpu)
+    fit_card_vs_cpu(torch)
+    f16 = f16_scaler_loop(torch, gpu)
     paged = dict(name="paged_flash_decode", route="cuda",
                  source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
                  replaces="paddle_tpu/ops/paged_attention.py:155")
@@ -3221,14 +3786,29 @@ def main() -> int:
                for dtype in ("float32", "bfloat16")}},
         train_batch_hidden_1024={
             k: v for k, v in wide.items() if k.startswith(
-                ("launches", "backward_launches"))}))
+                ("launches", "backward_launches"))},
+        # the mixed dtypes amp hands it (phase F1) and the launches of the
+        # training-loop slice (F2: Model.fit under O1; F4: float16)
+        mixed_dtypes=ln_mixed,
+        fit_o1_launches=fit["launches"]["layernorm_residual"],
+        fit_o1_backward_launches=fit["launches"][
+            "layernorm_residual_backward"],
+        float16_loop_launches=f16["launches"]))
     kernels.append(dict(
         name="softmax_cross_entropy", route="cuda",
         source="paddle_tpu_torch/ops/csrc/fused_softmax_xent.cu",
         replaces="paddle_tpu/ops/fused_softmax_xent.py:85",
         launches=bert["launches"]["softmax_cross_entropy"],
         max_abs_err=errs[("softmax_cross_entropy", "bert")],
-        **trows[("softmax_cross_entropy", "bert")]))
+        **trows[("softmax_cross_entropy", "bert")],
+        # GPT's float32 logits, and BERT's float32 ones under amp O1 (F2)
+        other_shapes={
+            f"{dtype} [{M}, {V}]" + (" (amp O1, phase F2)"
+                                     if name == "bert_o1" else ""):
+            dict(trows[("softmax_cross_entropy", name)],
+                 max_abs_err=errs[("softmax_cross_entropy", name)])
+            for name, dtype, M, V in SX_SHAPES[1:]},
+        fit_o1_launches=fit["launches"]["softmax_cross_entropy"]))
     # the decode shape of the widest linear (fc1, M = 8), int8; launches
     # of the int8 and fp8 engines together; fp8 and fc2's decode and
     # admission shapes beside them

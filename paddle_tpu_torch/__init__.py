@@ -23,14 +23,25 @@ Ported so far:
 * ResNet training (``vision.models.resnet50(data_format="NHWC",
   stem_space_to_depth=True)``, bf16, through ``Model.train_batch``) with
   the ``conv1x1_bn_stats`` and ``bn_apply_relu`` CUDA kernels in the
-  conv3 → bn3 → +identity → relu tail of every bottleneck block.
+  conv3 → bn3 → +identity → relu tail of every bottleneck block;
+* long-context GPT inference and training (the flash-attention kernels)
+  and MoE GPT training and serving (the ``grouped_matmul`` kernel);
+* the training loop around the step: ``Model.fit`` / ``evaluate`` /
+  ``predict`` with ``hapi.callbacks`` and ``metric``, ``io.DataLoader``
+  (worker processes, device staging on a side stream, exact resume),
+  ``save`` / ``load`` (the JAX package's checkpoint format, both ways),
+  ``Model.save`` / ``load``, and ``amp`` (the per-layer ``auto_cast``
+  policy, ``decorate``, ``GradScaler``; ``prepare(amp_configs="O1")``),
+  for which ``layernorm_residual`` takes the mixed dtypes amp hands it.
 """
-from . import optimizer, regularizer, slim, vision
+from . import amp, io, metric, nn, optimizer, regularizer, slim, vision
 from .framework.device import get_device, set_device
 from .framework.random import seed
+from .framework.serialization import load, save
 from .hapi import Model
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
-__all__ = ["seed", "set_device", "get_device", "Model", "optimizer",
-           "regularizer", "slim", "vision", "__version__"]
+__all__ = ["seed", "set_device", "get_device", "Model", "save", "load",
+           "amp", "io", "metric", "nn", "optimizer", "regularizer", "slim",
+           "vision", "__version__"]

@@ -5,11 +5,13 @@ passes through.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .errors import InvalidArgumentError
 
-__all__ = ["convert_dtype", "is_low_precision"]
+__all__ = ["convert_dtype", "is_low_precision", "numpy_to_tensor",
+           "to_numpy", "promote"]
 
 _NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -31,3 +33,49 @@ def is_low_precision(x) -> bool:
     master copy."""
     dt = x if isinstance(x, torch.dtype) else x.dtype
     return dt in (torch.bfloat16, torch.float16)
+
+
+def numpy_to_tensor(a, device=None) -> torch.Tensor:
+    """A numpy array (or scalar) as a tensor on ``device``.  An
+    ``ml_dtypes.bfloat16`` array — what the JAX package hands out for a
+    bf16 value — is recognised by its dtype name and reinterpreted bit for
+    bit as ``torch.bfloat16``, without importing ``ml_dtypes``.  Tensors
+    pass through (moved to ``device`` if one is given)."""
+    if isinstance(a, torch.Tensor):
+        return a if device is None else a.to(device)
+    a = np.asarray(a)
+    if not a.flags.writeable:  # torch tensors may not alias read-only data
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+    return t if device is None else t.to(device)
+
+
+#: tensors of these dtypes have no numpy dtype without ``ml_dtypes``:
+#: ``to_numpy`` widens them to float32, which holds each value exactly
+_WIDEN = {torch.bfloat16, getattr(torch, "float8_e4m3fn", None),
+          getattr(torch, "float8_e5m2", None)} - {None}
+
+
+def to_numpy(x) -> np.ndarray:
+    """The inverse of :func:`numpy_to_tensor`: a tensor as a host numpy
+    array (a bf16 or float8 one widened to float32, exactly); anything
+    else through ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach()
+        return (t.float() if t.dtype in _WIDEN else t).cpu().numpy()
+    return np.asarray(x)
+
+
+def promote(*tensors):
+    """``tensors`` cast to their promoted dtype (float32 for bf16 beside
+    float32, or bf16 beside fp16), as ``jnp.matmul`` / ``jnp.einsum``
+    promote mixed operands where a torch product raises.  Amp O1 hands a
+    product such operands: a bf16 activation beside a float32 weight."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t if t.dtype == dt else t.to(dt) for t in tensors)

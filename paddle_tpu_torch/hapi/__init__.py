@@ -1,4 +1,5 @@
-"""High-level API of the port (``paddle.Model``)."""
+"""High-level API of the port (``paddle.Model`` and its callbacks)."""
+from . import callbacks
 from .model import Model
 
-__all__ = ["Model"]
+__all__ = ["Model", "callbacks"]

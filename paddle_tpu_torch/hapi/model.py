@@ -1,58 +1,73 @@
-"""paddle.Model — port of ``paddle_tpu.hapi.model`` (the batch-level API).
+"""paddle.Model — port of ``paddle_tpu.hapi.model``: the high-level
+train / evaluate / predict API.
 
-``Model(network, inputs=None, labels=None)``; ``prepare(optimizer, loss)``
-binds an optimizer built without ``parameters=`` to the network's
-dotted-name parameters; ``train_batch(inputs, labels)`` moves numpy
-arrays (``ml_dtypes.bfloat16`` ones included) or tensors onto the
-network's device and runs one step in train mode — forward, loss,
-backward, optimizer step, grads dropped — and
-returns ``(float(loss), [])``.  ``eval_batch`` and ``predict_batch`` run in
-eval mode without gradients.  Where the JAX package compiles the step
-into one XLA executable, the port runs it eagerly; the kernels on the
-path are the hand-written ones of ``paddle_tpu_torch.ops``.
+``Model(network, inputs=None, labels=None)``; ``prepare(optimizer, loss,
+metrics=, amp_configs=)`` binds an optimizer built without
+``parameters=`` to the network's dotted-name parameters.  Batch level:
+``train_batch`` runs one step in train mode (forward, loss, backward,
+optimizer step, grads dropped) and returns ``(float(loss), metrics)``;
+``eval_batch`` / ``predict_batch`` run in eval mode without gradients.
+Inputs may be numpy arrays (``ml_dtypes.bfloat16`` ones included) or
+tensors; they are moved to the network's device.  Loops, as the JAX
+package's: ``fit`` (epochs over a ``Dataset`` or ``DataLoader``, with
+callbacks, metrics and periodic evaluation), ``evaluate`` and
+``predict``; ``save`` / ``load`` write and read ``<path>.pdparams`` and
+``<path>.pdopt`` in the JAX package's format, so a checkpoint resumes in
+either package.
 
-Not ported yet (ROADMAP queue A, training step): the ``fit`` /
-``evaluate`` / ``predict`` loops and callbacks, metrics, ``amp_configs``,
-``steps_per_execution``, fleet (distributed) optimizers, save/load;
-``fit``, ``evaluate`` and those ``prepare`` arguments raise
-``UnimplementedError``.
+Where the JAX package compiles a step into one XLA executable, the port
+runs it eagerly; the kernels on the path are the hand-written ones of
+``paddle_tpu_torch.ops``.  ``fit`` and ``evaluate`` keep each loss a 0-d
+device tensor: the loop does not wait for the card until a callback reads
+a loss (``ProgBarLogger`` every ``log_freq`` steps) or a metric updates
+(metrics are host numpy, as in the JAX package).  ``amp_configs`` (a
+level string such as ``"O1"``, or a dict of ``auto_cast`` arguments;
+GradScaler keys are dropped, as in the JAX package) runs the forward and
+the loss under :func:`paddle_tpu_torch.amp.auto_cast`.
+
+Not ported yet, each raising ``UnimplementedError``:
+``steps_per_execution > 1`` (the JAX package scans k steps in one
+executable; ROADMAP queue A, training step: a CUDA-graph item), fleet
+(distributed) optimizers (queue A, distributed execution) and
+``save(training=False)``, the inference export (queue A, static graph and
+the long tail).
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import os
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..amp.auto_cast import auto_cast
+from ..framework import serialization
+from ..framework.dtype import numpy_to_tensor
 from ..framework.errors import InvalidArgumentError, UnimplementedError
+from ..metric import Metric
 from ..optimizer.optimizer import Optimizer
+from . import callbacks as _callbacks_mod
 
 __all__ = ["Model"]
 
-_QUEUE = "ROADMAP queue A, training step"
+#: the auto_cast arguments ``amp_configs`` may carry (the rest — a
+#: GradScaler's — are dropped, as in the JAX package)
+_AMP_KEYS = {"enable", "custom_white_list", "custom_black_list", "level",
+             "dtype"}
 
 
 def _tuplize(x):
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
 
-def _as_tensor(b, device) -> torch.Tensor:
-    """A batch entry on ``device``.  numpy ``ml_dtypes.bfloat16`` arrays
-    (what the JAX package's ``train_batch`` takes, ``bench.py`` feeds bf16
-    images) are recognized by dtype name and reinterpreted bit for bit as
-    ``torch.bfloat16``, without importing ``ml_dtypes``."""
-    if isinstance(b, np.ndarray) and b.dtype.name == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(b).view(np.uint16)).view(
-            torch.bfloat16).to(device)
-    return torch.as_tensor(b, device=device)
-
-
-def _unported(what: str):
-    raise UnimplementedError(f"Model: {what} is not ported yet ({_QUEUE})")
+def _unported(what: str, item: str):
+    raise UnimplementedError(
+        f"Model: {what} is not ported yet (ROADMAP queue A, {item})")
 
 
 class Model:
-    """Wrap a network with train/eval/predict conveniences.
+    """Wrap a network with train / eval / predict conveniences.
 
     ``inputs`` / ``labels`` may be specs (lists); only their count matters
     here: it says how a batch splits into network inputs and loss
@@ -67,20 +82,35 @@ class Model:
                           else 1)
         self._optimizer: Optional[Optimizer] = None
         self._loss = None
+        self._metrics: List[Metric] = []
+        self._amp: Dict[str, Any] = {}
         self._prepared = False
+        self.stop_training = False
+        self._save_dir = None
 
+    # -- setup ---------------------------------------------------------------
     def prepare(self, optimizer: Optional[Optimizer] = None, loss=None,
-                metrics=None, amp_configs=None, steps_per_execution: int = 1):
+                metrics: Optional[Sequence[Metric]] = None, amp_configs=None,
+                steps_per_execution: int = 1):
         if loss is not None and not callable(loss):
             raise InvalidArgumentError("loss must be a Layer or callable")
-        if metrics:
-            _unported("metrics")
-        if amp_configs:
-            _unported("amp_configs")
-        if int(steps_per_execution) != 1:
-            _unported("steps_per_execution > 1")
+        steps_per_execution = int(steps_per_execution)
+        if steps_per_execution < 1:
+            raise InvalidArgumentError("steps_per_execution must be >= 1")
+        if steps_per_execution > 1:
+            _unported("steps_per_execution > 1", "training step")
         if getattr(optimizer, "_fleet_strategy", None) is not None:
-            _unported("a fleet distributed optimizer")
+            _unported("a fleet distributed optimizer",
+                      "distributed execution")
+        self._metrics = list(metrics or [])
+        for m in self._metrics:
+            if not isinstance(m, Metric):
+                raise InvalidArgumentError(f"metric {m!r} is not a Metric")
+        if isinstance(amp_configs, str):  # amp_configs="O1"
+            amp_configs = {"level": amp_configs}
+        amp = {k: v for k, v in dict(amp_configs or {}).items()
+               if k in _AMP_KEYS}
+        self._amp = amp if amp and amp.get("level", "O1") != "O0" else {}
         if optimizer is not None and optimizer._params is None:
             optimizer._bind(self.network.named_parameters())
         self._optimizer = optimizer
@@ -92,11 +122,17 @@ class Model:
     def device(self) -> torch.device:
         return next(self.network.parameters()).device
 
+    def _amp_ctx(self):
+        return auto_cast(**self._amp) if self._amp \
+            else contextlib.nullcontext()
+
     def _batch(self, inputs, labels):
         dev = self.device
         batch = _tuplize(inputs) + (_tuplize(labels) if labels is not None
                                     else ())
-        return tuple(_as_tensor(b, dev) for b in batch)
+        return tuple(numpy_to_tensor(b, dev) if isinstance(
+            b, (np.ndarray, np.generic, torch.Tensor))
+            else torch.as_tensor(b, device=dev) for b in batch)
 
     def _split_batch(self, batch):
         n_in = self._n_inputs
@@ -106,45 +142,272 @@ class Model:
 
     def _forward_loss(self, batch):
         inputs, labels = self._split_batch(batch)
-        out = self.network(*inputs)
-        loss = None
-        if self._loss is not None:
-            loss = self._loss(*(_tuplize(out) + tuple(labels)))
-        return loss, out
+        with self._amp_ctx():  # loss layers are black-listed: float32
+            out = self.network(*inputs)
+            loss = None
+            if self._loss is not None:
+                loss = self._loss(*(_tuplize(out) + tuple(labels)))
+        return loss, out, labels
+
+    def _update_metrics(self, out, labels):
+        results = []
+        outs = _tuplize(out)
+        for m in self._metrics:
+            computed = m.compute(outs[0], *labels)
+            results.append(m.update(*computed) if isinstance(computed, tuple)
+                           else m.update(computed))
+        return results
 
     # -- batch-level API -----------------------------------------------------
     def train_batch(self, inputs, labels=None):
         """One optimization step; returns ``(loss, metrics_results)``."""
+        loss, metrics = self._train_batch_device(inputs, labels)
+        return float(loss), metrics
+
+    def _train_batch_device(self, inputs, labels=None):
+        """``train_batch`` with the loss left a 0-d device tensor: no wait
+        for the card (but where a metric updates)."""
         if not self._prepared or self._optimizer is None \
                 or self._loss is None:
             raise InvalidArgumentError(
                 "call prepare(optimizer=..., loss=...) first")
         batch = self._batch(inputs, labels)
         self.network.train()
-        loss, _ = self._forward_loss(batch)
+        loss, out, labels = self._forward_loss(batch)
         loss.backward()
         self._optimizer.step()
         self._optimizer.clear_grad()
-        return float(loss.detach()), []
+        return loss.detach(), self._update_metrics(out, labels)
 
     def eval_batch(self, inputs, labels=None):
+        loss, metrics = self._eval_batch_device(inputs, labels)
+        return float(loss), metrics
+
+    def _eval_batch_device(self, inputs, labels=None):
         if not self._prepared or self._loss is None:
             raise InvalidArgumentError("call prepare(loss=...) first")
         batch = self._batch(inputs, labels)
         self.network.eval()
         with torch.no_grad():
-            loss, _ = self._forward_loss(batch)
-        return float(loss), []
+            loss, out, labels = self._forward_loss(batch)
+        return loss, self._update_metrics(out, labels)
 
     def predict_batch(self, inputs):
+        """The network's outputs in eval mode, without gradients (and, as
+        in the JAX package, without the amp policy)."""
         batch = self._batch(inputs, None)
         self.network.eval()
         with torch.no_grad():
             return self.network(*batch)
 
-    # -- not ported yet ------------------------------------------------------
-    def fit(self, *args, **kwargs):
-        _unported("fit() (loops, callbacks, data loaders)")
+    # -- loops ---------------------------------------------------------------
+    def _as_loader(self, data, batch_size, shuffle, drop_last, num_workers):
+        """A Dataset becomes a DataLoader that stages batches onto the
+        network's device; a DataLoader or any iterable of batches is used
+        as it is."""
+        from ..io import DataLoader, Dataset
 
-    def evaluate(self, *args, **kwargs):
-        _unported("evaluate()")
+        if isinstance(data, Dataset):
+            return DataLoader(data, batch_size=batch_size, shuffle=shuffle,
+                              drop_last=drop_last, num_workers=num_workers,
+                              places=self.device)
+        return data
+
+    def _split(self, batch, with_labels=True):
+        batch = _tuplize(batch)
+        n_in = (self._n_inputs if self._n_inputs is not None
+                else max(len(batch) - self._n_labels, 1) if with_labels
+                else len(batch))
+        return batch[:n_in], batch[n_in:]
+
+    def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
+            eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=2,
+            drop_last=False, shuffle=True, num_workers=0, callbacks=None):
+        """Train over ``train_data`` for ``epochs``, evaluating on
+        ``eval_data`` every ``eval_freq`` epochs; callbacks as the JAX
+        package's (``config_callbacks`` adds ``ProgBarLogger`` when
+        ``verbose``, ``ModelCheckpoint`` and ``LRScheduler``)."""
+        train_loader = self._as_loader(train_data, batch_size, shuffle,
+                                       drop_last, num_workers)
+        eval_loader = self._as_loader(eval_data, batch_size, False, False,
+                                      num_workers)
+        if epochs > 1 and hasattr(train_loader, "__next__"):
+            raise InvalidArgumentError(
+                "train_data is a one-shot iterator but epochs > 1: epochs "
+                "after the first would train on zero batches.  Pass a "
+                "Dataset/DataLoader (re-iterable) or epochs=1.")
+        self._save_dir = save_dir
+        try:
+            steps = len(train_loader)
+        except TypeError:
+            steps = None
+        cbks = _callbacks_mod.config_callbacks(
+            callbacks, model=self, epochs=epochs, steps=steps,
+            log_freq=log_freq, verbose=verbose, save_freq=save_freq,
+            save_dir=save_dir, metrics=self._metrics_names())
+        self.stop_training = False
+        cbks.on_train_begin()
+        logs: Dict[str, Any] = {}
+        for epoch in range(epochs):
+            cbks.on_epoch_begin(epoch)
+            for m in self._metrics:
+                m.reset()
+            logs = {}
+            for step, batch in enumerate(train_loader):
+                cbks.on_train_batch_begin(step)
+                inputs, labels = self._split(batch)
+                loss, metrics = self._train_batch_device(inputs, labels)
+                logs = {"loss": loss}  # a device scalar: callbacks pull it
+                # multi-output metric results (Accuracy topk=(1, 5)) pair
+                # 1:1 with the flattened names
+                flat = [r for res in metrics for r in _tuplize(res)]
+                logs.update(zip(self._metrics_names(), flat))
+                logs["batch_size"] = int(inputs[0].shape[0])
+                cbks.on_train_batch_end(step, logs)
+                if self.stop_training:
+                    break
+            for m in self._metrics:  # epoch-end logs: accumulated values
+                logs.update(zip(_tuplize(m.name()),
+                                _tuplize(m.accumulate())))
+            cbks.on_epoch_end(epoch, logs)
+            if eval_loader is not None and (epoch + 1) % eval_freq == 0:
+                self.evaluate(eval_loader, batch_size=batch_size,
+                              verbose=verbose, callbacks=cbks, _inner=True)
+            if self.stop_training:
+                break
+        cbks.on_train_end(logs)
+        return self
+
+    def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
+                 num_workers=0, callbacks=None, _inner=False):
+        """The mean loss over ``eval_data``'s batches and the accumulated
+        metrics, as ``{"loss": float, <metric name>: value}``."""
+        loader = self._as_loader(eval_data, batch_size, False, False,
+                                 num_workers)
+        cbks = callbacks if _inner else _callbacks_mod.config_callbacks(
+            callbacks, model=self, verbose=verbose,
+            metrics=self._metrics_names())
+        for m in self._metrics:
+            m.reset()
+        cbks.on_eval_begin()
+        batch_losses = []  # device scalars: one wait, at the end
+        for step, batch in enumerate(loader):
+            cbks.on_eval_batch_begin(step)
+            inputs, labels = self._split(batch)
+            loss, _ = self._eval_batch_device(inputs, labels)
+            batch_losses.append(loss)
+            cbks.on_eval_batch_end(step, {"loss": loss})
+        n_batches = len(batch_losses)
+        total = float(torch.stack(batch_losses).sum()) if n_batches else 0.0
+        if n_batches == 0:
+            import warnings
+
+            warnings.warn("evaluate() saw zero batches: metrics are "
+                          "meaningless", RuntimeWarning)
+        logs = {"loss": total / max(n_batches, 1)}
+        for m in self._metrics:
+            logs.update(zip(_tuplize(m.name()), _tuplize(m.accumulate())))
+        cbks.on_eval_end(logs)
+        return logs
+
+    def predict(self, test_data, batch_size=1, num_workers=0,
+                stack_outputs=False, verbose=1, callbacks=None):
+        """The network's outputs over ``test_data``: a list with one entry a
+        batch (numpy; bf16 outputs as float32), or with
+        ``stack_outputs=True`` the batches concatenated along axis 0."""
+        loader = self._as_loader(test_data, batch_size, False, False,
+                                 num_workers)
+        outputs = []
+        for batch in loader:
+            inputs, _ = self._split(batch, with_labels=False)
+            outputs.append(serialization._to_host(
+                self.predict_batch(inputs)))
+        if stack_outputs and outputs:
+            first = outputs[0]
+            if isinstance(first, (tuple, list)):
+                outputs = type(first)(
+                    np.concatenate(xs, axis=0) for xs in zip(*outputs))
+            else:
+                outputs = np.concatenate(outputs, axis=0)
+        return outputs
+
+    # -- persistence ---------------------------------------------------------
+    def save(self, path: str, training: bool = True, input_spec=None):
+        """``training=True``: write ``path.pdparams`` (the network's state
+        dict) and, with an optimizer, ``path.pdopt`` (``{"state": {"count",
+        "slots": {param: {slot: array}}}, "LR_Scheduler" | "lr"}``, the JAX
+        package's layout).  Parent directories are created."""
+        if not training:
+            _unported("save(training=False), the inference export",
+                      "static graph and the long tail")
+        serialization.save(self.network.state_dict(), path + ".pdparams")
+        if self._optimizer is not None:
+            st = self._optimizer._state
+            opt_state: Dict[str, Any] = (
+                {"state": {"count": np.asarray(st["count"], np.int32),
+                           "slots": st["slots"]}} if st is not None else {})
+            sched = self._optimizer.lr_scheduler
+            if sched is not None:
+                opt_state["LR_Scheduler"] = sched.state_dict()
+            else:
+                opt_state["lr"] = self._optimizer.get_lr()
+            serialization.save(opt_state, path + ".pdopt")
+
+    def load(self, path: str, skip_mismatch: bool = False,
+             reset_optimizer: bool = False):
+        """Read ``path.pdparams`` into the network (each value cast to its
+        parameter's dtype and device) and, unless ``reset_optimizer``,
+        ``path.pdopt`` into the prepared optimizer (slots, count, and the
+        scheduler or learning rate)."""
+        state = serialization.load(path + ".pdparams")
+        missing = self.network.set_state_dict(state)
+        if missing and not skip_mismatch:
+            raise InvalidArgumentError(
+                f"unmatched keys in checkpoint: {missing[:5]}")
+        if not reset_optimizer and os.path.exists(path + ".pdopt"):
+            opt_state = serialization.load(path + ".pdopt")
+            opt = self._optimizer
+            if opt is not None:
+                flat: Dict[str, Any] = {}
+                if "state" in opt_state:
+                    st = opt_state["state"]
+                    flat["count"] = st["count"]
+                    for pname, slots in st["slots"].items():
+                        for sname, v in slots.items():
+                            flat[f"{pname}.{sname}"] = v
+                sched = opt.lr_scheduler
+                if sched is not None and "LR_Scheduler" in opt_state:
+                    flat["LR_Scheduler"] = opt_state["LR_Scheduler"]
+                elif sched is None and "lr" in opt_state:
+                    opt.set_lr(float(opt_state["lr"]))
+                opt.set_state_dict(flat)
+        return self
+
+    # -- misc ----------------------------------------------------------------
+    def parameters(self):
+        return list(self.network.parameters())
+
+    def _metrics_names(self):
+        names = []
+        for m in self._metrics:
+            names.extend(_tuplize(m.name()))
+        return names
+
+    def summary(self, input_size=None, dtype=None):
+        """Print each parameter's dotted name, shape and size, and the
+        totals; returns ``{"total_params", "trainable_params"}``."""
+        rows = []
+        total = trainable = 0
+        for name, p in self.network.named_parameters():
+            n = int(p.numel())
+            total += n
+            if p.requires_grad:
+                trainable += n
+            rows.append((name, tuple(p.shape), n))
+        width = max([len(r[0]) for r in rows], default=10) + 2
+        lines = [f"{'Layer':<{width}}{'Shape':<20}{'Params':>12}"]
+        lines += [f"{n:<{width}}{str(s):<20}{c:>12,}" for n, s, c in rows]
+        lines.append(f"Total params: {total:,}")
+        lines.append(f"Trainable params: {trainable:,}")
+        print("\n".join(lines))
+        return {"total_params": total, "trainable_params": trainable}

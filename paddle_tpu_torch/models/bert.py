@@ -26,7 +26,7 @@ from ..distributed.meta_parallel import (
     VocabParallelEmbedding,
 )
 from ..framework.device import resolve_device
-from ..framework.dtype import convert_dtype
+from ..framework.dtype import convert_dtype, promote
 from ..framework.errors import UnimplementedError
 from ..framework.random import default_generator
 from ..nn.functional import cross_entropy
@@ -100,7 +100,7 @@ def _materialize(model: torch.nn.Module, cfg: BertConfig, device,
     model.to(device=dev, dtype=convert_dtype(cfg.dtype))
 
 
-class BertSelfAttention(torch.nn.Module):
+class BertSelfAttention(nn.Layer):
     """Bidirectional multi-head attention (single device: heads
     unsharded)."""
 
@@ -128,7 +128,7 @@ class BertSelfAttention(torch.nn.Module):
         return self.out(ctx.transpose(1, 2).reshape(B, S, D))
 
 
-class BertLayer(torch.nn.Module):
+class BertLayer(nn.Layer):
     def __init__(self, cfg: BertConfig):
         super().__init__()
         gcfg = GPTConfig(hidden_size=cfg.hidden_size,
@@ -154,7 +154,7 @@ class BertLayer(torch.nn.Module):
         return x
 
 
-class BertEmbeddings(torch.nn.Module):
+class BertEmbeddings(nn.Layer):
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.word = VocabParallelEmbedding(cfg.vocab_size, cfg.hidden_size)
@@ -246,7 +246,10 @@ class BertForPretraining(nn.Layer):
             idx = _as_ids(masked_positions, seq.device)
             seq = torch.take_along_dim(seq, idx[..., None], dim=1)  # [B,P,D]
         h = self.ln(self.act(self.transform(seq)))
-        mlm_logits = torch.matmul(h, self.bert.embeddings.word.weight.t())
+        # the tied decoder: under amp O2 the table is bf16 beside the
+        # black-listed LayerNorm's float32 h; jnp.einsum promotes
+        mlm_logits = torch.matmul(*promote(
+            h, self.bert.embeddings.word.weight.t()))
         return mlm_logits, self.nsp(pooled)
 
     def loss(self, mlm_logits, nsp_logits, mlm_labels, nsp_labels,

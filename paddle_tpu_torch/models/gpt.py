@@ -45,6 +45,7 @@ from ..distributed.meta_parallel import (
     VocabParallelEmbedding,
 )
 from ..framework.device import resolve_device
+from ..framework.dtype import promote
 from ..framework.errors import InvalidArgumentError, UnimplementedError
 from ..framework.random import default_generator
 from ..moe import MoELayer
@@ -186,7 +187,7 @@ def _gather_attend(q, kv, gather_tab, mask):
     return torch.einsum("bhqc,bhcd->bhqd", probs, vview)
 
 
-class ParallelAttention(torch.nn.Module):
+class ParallelAttention(nn.Layer):
     """Causal multi-head self-attention (single device: heads unsharded)."""
 
     def __init__(self, cfg: GPTConfig):
@@ -276,7 +277,7 @@ class ParallelAttention(torch.nn.Module):
         return self.out(ctx.transpose(1, 2).reshape(B, T, D)), kv
 
 
-class ParallelMLP(torch.nn.Module):
+class ParallelMLP(nn.Layer):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         self.fc1 = ColumnParallelLinear(cfg.hidden_size,
@@ -289,7 +290,7 @@ class ParallelMLP(torch.nn.Module):
         return self.drop(self.fc2(self.act(self.fc1(x))))
 
 
-class GPTBlock(torch.nn.Module):
+class GPTBlock(nn.Layer):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         self.ln1 = nn.LayerNorm(cfg.hidden_size,
@@ -319,7 +320,7 @@ class GPTBlock(torch.nn.Module):
         return x + self.mlp(self.ln2(x)), kv
 
 
-class GPTModel(torch.nn.Module):
+class GPTModel(nn.Layer):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         _unported(cfg)
@@ -463,7 +464,9 @@ class GPTForCausalLM(nn.Layer):
         return self.gpt.wte.weight.device
 
     def _logits(self, h):
-        return torch.matmul(h, self.gpt.wte.weight.t())
+        # jnp.einsum promotes: under amp O2 the table is bf16 beside ln_f's
+        # float32 output
+        return torch.matmul(*promote(h, self.gpt.wte.weight.t()))
 
     def forward(self, input_ids, attn_mask=None):
         # the MoE blocks' load-balance losses (None for a dense model);

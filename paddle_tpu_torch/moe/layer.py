@@ -50,6 +50,7 @@ import math
 import torch
 
 from .. import nn
+from ..framework.dtype import promote
 from ..framework.random import generator_for
 from ..nn.common import xavier_normal_
 from ..ops.grouped_matmul import grouped_matmul
@@ -58,7 +59,7 @@ from . import stats as moe_stats
 __all__ = ["MoELayer"]
 
 
-class MoELayer(torch.nn.Module):
+class MoELayer(nn.Layer):
     """Top-k routed expert FFN; config knobs: ``moe_experts`` (E),
     ``moe_top_k``, ``moe_capacity_factor``, ``moe_jitter`` plus the dense
     MLP's ``hidden_size`` / ``intermediate_size`` / ``dropout``."""
@@ -105,15 +106,18 @@ class MoELayer(torch.nn.Module):
         the bias path — combine's one-hot weights never read them."""
         w1, w2 = self.expert_fc1, self.expert_fc2
         b1, b2 = self.expert_b1, self.expert_b2
+        # a bf16 activation beside float32 experts (amp O1) is promoted, as
+        # jnp.einsum promotes it
         if self._use_kernel(xe):
             # the bias after the product, in x's dtype: the kernel rounds
             # the product to x's dtype first, as the TPU kernel does
-            h = grouped_matmul(xe, w1, group_sizes) + b1[:, None, :]
+            h = grouped_matmul(*promote(xe, w1), group_sizes) + b1[:, None, :]
             h = self.act(h)
-            return grouped_matmul(h, w2, group_sizes) + b2[:, None, :]
-        h = torch.matmul(xe, w1) + b1[:, None, :]
+            return (grouped_matmul(*promote(h, w2), group_sizes)
+                    + b2[:, None, :])
+        h = torch.matmul(*promote(xe, w1)) + b1[:, None, :]
         h = self.act(h)
-        return torch.matmul(h, w2) + b2[:, None, :]
+        return torch.matmul(*promote(h, w2)) + b2[:, None, :]
 
     def _use_kernel(self, xe) -> bool:
         """The JAX gate with "the activation is on CUDA" for "TPU".  The
@@ -134,7 +138,7 @@ class MoELayer(torch.nn.Module):
             noise = torch.empty_like(xf).uniform_(
                 1.0 - eps, 1.0 + eps, generator=generator_for(xf.device))
             gate_in = xf * noise
-        logits = torch.matmul(gate_in, self.gate)
+        logits = torch.matmul(*promote(gate_in, self.gate))
         probs = torch.softmax(logits.float(), dim=-1)
         # jax.lax.top_k: ties go to the lower expert index
         sorted_p, order = torch.sort(probs, dim=-1, descending=True,

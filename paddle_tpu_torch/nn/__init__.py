@@ -1,5 +1,6 @@
-"""Layers of the port (``torch.nn.Module``\\ s with the JAX package's
-parameter names and layouts)."""
+"""Layers of the port: ``nn.Layer`` subclasses (``torch.nn.Module``\\ s
+whose call applies the amp policy) with the JAX package's class names,
+parameter names and layouts."""
 from . import functional
 from .activation import GELU, ReLU, Tanh
 from .common import Dropout, Embedding, Linear

@@ -9,19 +9,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .layer import Layer
+
 __all__ = ["GELU", "Tanh", "ReLU"]
 
 
-class GELU(torch.nn.Module):
+class GELU(Layer):
     def forward(self, x):
         return F.gelu(x)
 
 
-class Tanh(torch.nn.Module):
+class Tanh(Layer):
     def forward(self, x):
         return torch.tanh(x)
 
 
-class ReLU(torch.nn.Module):
+class ReLU(Layer):
     def forward(self, x):
         return torch.relu(x)

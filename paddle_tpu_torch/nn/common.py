@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..framework.random import generator_for
+from .layer import Layer
 
 __all__ = ["Linear", "Embedding", "Dropout", "xavier_normal_"]
 
@@ -34,7 +35,7 @@ def xavier_normal_(w: torch.Tensor, generator: Optional[torch.Generator],
                   generator=generator)
 
 
-class Linear(torch.nn.Module):
+class Linear(Layer):
     """``y = x @ weight + bias`` with ``weight`` ``[in_features,
     out_features]`` — paddle's layout, so parameter names and shapes match
     the JAX package 1:1."""
@@ -60,7 +61,7 @@ class Linear(torch.nn.Module):
         return y if self.bias is None else y + self.bias
 
 
-class Embedding(torch.nn.Module):
+class Embedding(Layer):
     """Lookup table ``weight`` ``[num_embeddings, embedding_dim]``,
     initialized N(0, ``std``²) — the GPT tables' N(0, 0.02²)."""
 
@@ -80,7 +81,7 @@ class Embedding(torch.nn.Module):
         return F.embedding(ids, self.weight)
 
 
-class Dropout(torch.nn.Module):
+class Dropout(Layer):
     """Upscale-in-train dropout (paddle's default mode): in training each
     element is kept with probability ``1 - p`` and scaled by
     ``1 / (1 - p)``, the keep-mask drawn from the generator of the input's

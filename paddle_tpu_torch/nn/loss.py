@@ -1,14 +1,13 @@
 """Loss layers — port of ``paddle_tpu.nn.loss`` (``CrossEntropyLoss``)."""
 from __future__ import annotations
 
-import torch
-
 from .functional.loss import cross_entropy
+from .layer import Layer
 
 __all__ = ["CrossEntropyLoss"]
 
 
-class CrossEntropyLoss(torch.nn.Module):
+class CrossEntropyLoss(Layer):
     """Hard-label cross entropy as a layer: ``loss(input, label)``, usable
     as ``Model.prepare(loss=CrossEntropyLoss())``."""
 

@@ -23,7 +23,7 @@ __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
            "BatchNorm3D"]
 
 
-class LayerNorm(torch.nn.Module):
+class LayerNorm(Layer):
     """Normalizes over the last dim; ``weight`` ones, ``bias`` zeros."""
 
     def __init__(self, normalized_shape: int, epsilon: float = 1e-5):

@@ -13,6 +13,15 @@
 // normalized, as the TPU kernel does: that is what an unfused x + r then
 // LayerNorm sees.
 //
+// Dtypes, as the TPU kernel takes them: T (x, s, y, and the backward's dy,
+// ds_out and ds) is float32, bfloat16 or float16; the residual r is T or
+// float32; g and b are one dtype, T or float32, and dg, db come out in it.
+// A float32 T takes float32 for all.  Mixed operands are what mixed
+// precision (amp O1) hands the kernel: a bf16 sublayer output with an f32
+// residual stream and f32 LayerNorm parameters.  Each operand is read at
+// its own width: where T's 16-byte vector holds E values, a float32 operand
+// is read as two 16-byte vectors of the same E columns.
+//
 // The backward is the same module's _ln_res_bwd, the closed-form LayerNorm
 // VJP that XLA fuses into one pass on a TPU; here it is one pass too:
 //   xhat = (f32(s) - mean) * rstd;  dxhat = f32(dy) * f32(g)
@@ -25,7 +34,8 @@
 // the backward reads s, dy (and ds_out) and writes ds once.  A handful of
 // flops an element, far below the card's flop/byte ridge.  BERT-base
 // pretraining's [32768, 768] bf16 forward moves 201.6 MB (~60 us at 3.35
-// TB/s), its backward 151 MB (~45 us).
+// TB/s), its backward 151 MB (~45 us); under amp O1 an f32 residual adds
+// 50 MB to the forward.
 //
 // The Hopper design (ln_res_vec_kernel, ln_bwd_kernel), for D <= 1024 (32
 // lanes x VPL <= 32 values, VPL a multiple of 8): one warp a row with the
@@ -57,6 +67,7 @@
 // bound with ctypes.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,6 +79,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -77,16 +89,21 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
-template <typename T, int VPT>
+// T: x, s, y; TR: r; TW: g, b.
+template <typename T, typename TR, typename TW, int VPT>
 __global__ void __launch_bounds__(kThreads)
-ln_res_kernel(const T* __restrict__ x, const T* __restrict__ r,
-              const T* __restrict__ g, const T* __restrict__ b,
+ln_res_kernel(const T* __restrict__ x, const TR* __restrict__ r,
+              const TW* __restrict__ g, const TW* __restrict__ b,
               T* __restrict__ s, T* __restrict__ y,
               float* __restrict__ mean_out, float* __restrict__ rstd_out,
               int M, int D, float eps) {
@@ -135,18 +152,6 @@ ln_res_kernel(const T* __restrict__ x, const T* __restrict__ r,
   }
 }
 
-template <typename T, int VPT>
-cudaError_t launch(const void* x, const void* r, const void* g, const void* b,
-                   void* s, void* y, float* mean, float* rstd, int M, int D,
-                   float eps, cudaStream_t stream) {
-  const int blocks = (M + kWarps - 1) / kWarps;
-  ln_res_kernel<T, VPT><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r),
-      static_cast<const T*>(g), static_cast<const T*>(b), static_cast<T*>(s),
-      static_cast<T*>(y), mean, rstd, M, D, eps);
-  return cudaGetLastError();
-}
-
 // Registers per lane: 24 values cover D <= 768 (BERT-base, GPT-small).
 constexpr int kVPT = 24;
 constexpr int kMaxD = 32 * kVPT;
@@ -172,10 +177,10 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-template <typename T>
+template <typename T, typename TR, typename TW>
 __global__ void __launch_bounds__(kWideThreads)
-ln_res_wide_kernel(const T* __restrict__ x, const T* __restrict__ r,
-                   const T* __restrict__ g, const T* __restrict__ b,
+ln_res_wide_kernel(const T* __restrict__ x, const TR* __restrict__ r,
+                   const TW* __restrict__ g, const TW* __restrict__ b,
                    T* __restrict__ s, T* __restrict__ y,
                    float* __restrict__ mean_out, float* __restrict__ rstd_out,
                    int D, float eps) {
@@ -211,42 +216,19 @@ ln_res_wide_kernel(const T* __restrict__ x, const T* __restrict__ r,
   }
 }
 
-template <typename T>
-cudaError_t launch_wide(const void* x, const void* r, const void* g,
-                        const void* b, void* s, void* y, float* mean,
-                        float* rstd, int M, int D, float eps,
-                        cudaStream_t stream) {
-  const size_t smem = (size_t)D * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ln_res_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  ln_res_wide_kernel<T><<<M, kWideThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r),
-      static_cast<const T*>(g), static_cast<const T*>(b), static_cast<T*>(s),
-      static_cast<T*>(y), mean, rstd, D, eps);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // The Hopper design.  A lane's share of a row is VPL values: in the vector
-// layout NV = VPL / E 16-byte vectors (vector i of lane l holds columns
-// (l + 32 i) E .. + E), in the element layout VPL scalars (column l + 32 k).
-// Slot k of a lane is column col(k); a slot past D holds 0 and is masked.
+// layout VPL / E groups of E columns, E the values of T in a 16-byte vector
+// (group i of lane l holds columns (l + 32 i) E .. + E), each group one
+// 16-byte vector of an operand in T and two of a float32 operand beside a
+// 16-bit T; in the element layout VPL scalars (column l + 32 k).  Slot k of
+// a lane is column col(k); a slot past D holds 0 and is masked.
 
 constexpr int kMaxVPL = 32;  // D <= 32 x 32 = 1024
 
 template <typename T>
-struct Elems;
-template <>
-struct Elems<float> {
-  static constexpr int E = 4;
-};
-template <>
-struct Elems<__nv_bfloat16> {
-  static constexpr int E = 8;
+struct Elems {
+  static constexpr int E = 16 / sizeof(T);  // 4 float32, 8 bf16 / fp16
 };
 
 __device__ __forceinline__ void unpack(const uint4& v, float* a, float) {
@@ -264,97 +246,127 @@ __device__ __forceinline__ void unpack(const uint4& v, float* a,
     a[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
   }
 }
+__device__ __forceinline__ void unpack(const uint4& v, float* a, __half) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[j]));
+    a[2 * j] = f.x;
+    a[2 * j + 1] = f.y;
+  }
+}
 __device__ __forceinline__ uint4 pack(const float* a, float) {
   return make_uint4(__float_as_uint(a[0]), __float_as_uint(a[1]),
                     __float_as_uint(a[2]), __float_as_uint(a[3]));
 }
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+__device__ __forceinline__ uint32_t pack2(float lo, float hi, __nv_bfloat16) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
-__device__ __forceinline__ uint4 pack(const float* a, __nv_bfloat16) {
-  return make_uint4(pack2(a[0], a[1]), pack2(a[2], a[3]), pack2(a[4], a[5]),
-                    pack2(a[6], a[7]));
+__device__ __forceinline__ uint32_t pack2(float lo, float hi, __half) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+template <typename H>
+__device__ __forceinline__ uint4 pack(const float* a, H) {
+  return make_uint4(pack2(a[0], a[1], H()), pack2(a[2], a[3], H()),
+                    pack2(a[4], a[5], H()), pack2(a[6], a[7], H()));
 }
 
-template <typename T, int VPL, bool VEC>
+// An operand of storage type TS laid out by the columns of T.
+template <typename TS, typename T, int VPL, bool VEC>
 struct Row;
 
-// The vector layout: NV raw 16-byte vectors, unpacked to float on use.
-template <typename T, int VPL>
-struct Row<T, VPL, true> {
+// The vector layout: NG groups of NU raw 16-byte vectors, unpacked to
+// float on use.
+template <typename TS, typename T, int VPL>
+struct Row<TS, T, VPL, true> {
   static constexpr int E = Elems<T>::E;
-  static constexpr int NV = VPL / E;
-  static_assert(VPL % E == 0, "VPL must be whole vectors");
-  uint4 v[NV];
+  static constexpr int PER = Elems<TS>::E;  // values of TS a vector
+  static constexpr int NU = E / PER;        // vectors a group: 1 or 2
+  static constexpr int NG = VPL / E;
+  static_assert(VPL % E == 0, "VPL must be whole groups");
+  static_assert(E % PER == 0, "an operand is T or wider");
+  uint4 v[NG * NU];
 
   __device__ __forceinline__ static int col(int k, int lane) {
     return (lane + 32 * (k / E)) * E + k % E;
   }
-  __device__ __forceinline__ void load(const T* p, int D, int lane) {
+  __device__ __forceinline__ void load(const TS* p, int D, int lane) {
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
+    for (int i = 0; i < NG; ++i) {
       const int c = (lane + 32 * i) * E;
-      v[i] = c < D ? __ldg(reinterpret_cast<const uint4*>(p + c))
-                   : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int u = 0; u < NU; ++u)
+        v[i * NU + u] =
+            c < D ? __ldg(reinterpret_cast<const uint4*>(p + c) + u)
+                  : make_uint4(0u, 0u, 0u, 0u);
     }
   }
   __device__ __forceinline__ void get(float (&a)[VPL]) const {
 #pragma unroll
-    for (int i = 0; i < NV; ++i) unpack(v[i], a + i * E, T());
+    for (int i = 0; i < NG * NU; ++i) unpack(v[i], a + i * PER, TS());
   }
-  __device__ __forceinline__ static void store(T* p, int D, int lane,
+  __device__ __forceinline__ static void store(TS* p, int D, int lane,
                                                const float (&a)[VPL]) {
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
+    for (int i = 0; i < NG; ++i) {
       const int c = (lane + 32 * i) * E;
-      if (c < D) *reinterpret_cast<uint4*>(p + c) = pack(a + i * E, T());
+      if (c < D) {
+#pragma unroll
+        for (int u = 0; u < NU; ++u)
+          reinterpret_cast<uint4*>(p + c)[u] = pack(a + (i * NU + u) * PER,
+                                                    TS());
+      }
     }
   }
 };
 
 // The element layout: any D, any alignment.
-template <typename T, int VPL>
-struct Row<T, VPL, false> {
-  T v[VPL];
+template <typename TS, typename T, int VPL>
+struct Row<TS, T, VPL, false> {
+  TS v[VPL];
 
   __device__ __forceinline__ static int col(int k, int lane) {
     return lane + 32 * k;
   }
-  __device__ __forceinline__ void load(const T* p, int D, int lane) {
+  __device__ __forceinline__ void load(const TS* p, int D, int lane) {
 #pragma unroll
     for (int k = 0; k < VPL; ++k) {
       const int c = lane + 32 * k;
-      v[k] = c < D ? p[c] : from_f32<T>(0.f);
+      v[k] = c < D ? p[c] : from_f32<TS>(0.f);
     }
   }
   __device__ __forceinline__ void get(float (&a)[VPL]) const {
 #pragma unroll
     for (int k = 0; k < VPL; ++k) a[k] = to_f32(v[k]);
   }
-  __device__ __forceinline__ static void store(T* p, int D, int lane,
+  __device__ __forceinline__ static void store(TS* p, int D, int lane,
                                                const float (&a)[VPL]) {
 #pragma unroll
     for (int k = 0; k < VPL; ++k) {
       const int c = lane + 32 * k;
-      if (c < D) p[c] = from_f32<T>(a[k]);
+      if (c < D) p[c] = from_f32<TS>(a[k]);
     }
   }
 };
 
 // Forward, vector layout: warp w of W takes rows w, w + W, ...
-template <typename T, int VPL>
+template <typename T, typename TR, typename TW, int VPL>
 __global__ void __launch_bounds__(kThreads)
-ln_res_vec_kernel(const T* __restrict__ x, const T* __restrict__ r,
-                  const T* __restrict__ g, const T* __restrict__ b,
+ln_res_vec_kernel(const T* __restrict__ x, const TR* __restrict__ r,
+                  const TW* __restrict__ g, const TW* __restrict__ b,
                   T* __restrict__ s, T* __restrict__ y,
                   float* __restrict__ mean_out, float* __restrict__ rstd_out,
                   int M, int D, float eps) {
-  using R = Row<T, VPL, true>;
+  using R = Row<T, T, VPL, true>;
   const int lane = threadIdx.x & 31;
   const int stride = gridDim.x * kWarps;
   int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  R gr, br, xn, rn;  // g and b stay resident for every row of the warp
+  // g and b stay resident, at their own width, for every row of the warp
+  Row<TW, T, VPL, true> gr, br;
+  R xn;
+  Row<TR, T, VPL, true> rn;
   gr.load(g, D, lane);
   br.load(b, D, lane);
   if (row < M) {
@@ -409,14 +421,15 @@ ln_res_vec_kernel(const T* __restrict__ x, const T* __restrict__ r,
 // writes partial row blockIdx.x of part[0] (dg) and part[1] (db), each
 // [gridDim.x, D].  No row is loaded ahead: with two sums a value held, the
 // registers a second row would need cost more occupancy than they bring
-// (measured 0-7% slower at the paths' shapes).
-template <typename T, int VPL, bool VEC, bool HAS_DS>
+// (measured 0-7% slower at the paths' shapes).  s, dy, ds_out and ds are
+// T; g is TW.
+template <typename T, typename TW, int VPL, bool VEC, bool HAS_DS>
 __global__ void __launch_bounds__(kThreads)
 ln_bwd_kernel(const T* __restrict__ s, const T* __restrict__ dy,
               const T* __restrict__ ds_out, const float* __restrict__ mean,
-              const float* __restrict__ rstd, const T* __restrict__ g,
+              const float* __restrict__ rstd, const TW* __restrict__ g,
               T* __restrict__ ds, float* __restrict__ part, int M, int D) {
-  using R = Row<T, VPL, VEC>;
+  using R = Row<T, T, VPL, VEC>;
   __shared__ float red[kWarps][2][32 * VPL];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -426,7 +439,8 @@ ln_bwd_kernel(const T* __restrict__ s, const T* __restrict__ dy,
   for (int k = 0; k < VPL; ++k) acc_g[k] = acc_b[k] = 0.f;
   for (int row = blockIdx.x * kWarps + warp; row < M; row += stride) {
     const size_t base = (size_t)row * D;
-    R sr, dr, gr, dso;
+    R sr, dr, dso;
+    Row<TW, T, VPL, VEC> gr;
     sr.load(s + base, D, lane);
     dr.load(dy + base, D, lane);
     gr.load(g, D, lane);  // from L1 after the first row
@@ -479,14 +493,15 @@ ln_bwd_kernel(const T* __restrict__ s, const T* __restrict__ dy,
   }
 }
 
-// dg, db [D] in T: part[0], part[1] summed over their B rows, per column in
-// row order within kRedGroups interleaved groups, then the groups in order.
+// dg, db [D] in TW: part[0], part[1] summed over their B rows, per column
+// in row order within kRedGroups interleaved groups, then the groups in
+// order.
 constexpr int kRedGroups = 16;
 
-template <typename T>
+template <typename TW>
 __global__ void __launch_bounds__(32 * kRedGroups)
 ln_bwd_reduce_kernel(const float* __restrict__ part, int B, int D,
-                     T* __restrict__ dg, T* __restrict__ db) {
+                     TW* __restrict__ dg, TW* __restrict__ db) {
   __shared__ float red[kRedGroups][33];
   const int c = blockIdx.x * 32 + threadIdx.x;
   const float* p = part + (size_t)blockIdx.y * B * D;
@@ -500,56 +515,103 @@ ln_bwd_reduce_kernel(const float* __restrict__ part, int B, int D,
     float t = 0.f;
 #pragma unroll
     for (int i = 0; i < kRedGroups; ++i) t += red[i][threadIdx.x];
-    (blockIdx.y ? db : dg)[c] = from_f32<T>(t);
+    (blockIdx.y ? db : dg)[c] = from_f32<TW>(t);
   }
 }
 
-// The kernel of a (dtype, VPL[, layout, ds_out]) case, or nullptr.
+// ---------------------------------------------------------------------------
+// Dtype dispatch.  Codes: 0 float32, 1 bfloat16, 2 float16.  with_types
+// calls fn(Tag<T>, Tag<TR>, Tag<TW>) for the (x, r, g / b) codes the kernels
+// take, and returns nullptr for any other mix.
+
 template <typename T>
-const void* fwd_kernel_t(int vpl) {
-  switch (vpl) {
-    case 8: return (const void*)ln_res_vec_kernel<T, 8>;
-    case 16: return (const void*)ln_res_vec_kernel<T, 16>;
-    case 24: return (const void*)ln_res_vec_kernel<T, 24>;
-    case 32: return (const void*)ln_res_vec_kernel<T, 32>;
-  }
+struct Tag {
+  using type = T;
+};
+
+template <typename T, typename Fn>
+const void* with_rw(int code, int rdt, int wdt, Fn fn) {
+  if (rdt == code && wdt == code) return fn(Tag<T>(), Tag<T>(), Tag<T>());
+  if (rdt == code && wdt == 0) return fn(Tag<T>(), Tag<T>(), Tag<float>());
+  if (rdt == 0 && wdt == code) return fn(Tag<T>(), Tag<float>(), Tag<T>());
+  if (rdt == 0 && wdt == 0) return fn(Tag<T>(), Tag<float>(), Tag<float>());
   return nullptr;
 }
 
-const void* fwd_kernel(int dtype, int vpl) {
-  if (dtype == 0) return fwd_kernel_t<float>(vpl);
-  if (dtype == 1) return fwd_kernel_t<__nv_bfloat16>(vpl);
+template <typename Fn>
+const void* with_types(int dt, int rdt, int wdt, Fn fn) {
+  if (dt == 0)
+    return rdt == 0 && wdt == 0
+               ? fn(Tag<float>(), Tag<float>(), Tag<float>())
+               : nullptr;
+  if (dt == 1) return with_rw<__nv_bfloat16>(1, rdt, wdt, fn);
+  if (dt == 2) return with_rw<__half>(2, rdt, wdt, fn);
   return nullptr;
 }
 
-template <typename T, bool VEC>
+#define LN_TYPES(a, b, c)                  \
+  using T = typename decltype(a)::type;    \
+  using TR = typename decltype(b)::type;   \
+  using TW = typename decltype(c)::type;   \
+  (void)sizeof(TR);                        \
+  (void)sizeof(TW)
+
+// The kernel of a (dtypes, VPL[, layout, ds_out]) case, or nullptr.
+const void* fwd_vec_kernel(int dt, int rdt, int wdt, int vpl) {
+  return with_types(dt, rdt, wdt, [vpl](auto a, auto b, auto c) -> const void* {
+    LN_TYPES(a, b, c);
+    switch (vpl) {
+      case 8: return (const void*)ln_res_vec_kernel<T, TR, TW, 8>;
+      case 16: return (const void*)ln_res_vec_kernel<T, TR, TW, 16>;
+      case 24: return (const void*)ln_res_vec_kernel<T, TR, TW, 24>;
+      case 32: return (const void*)ln_res_vec_kernel<T, TR, TW, 32>;
+    }
+    return nullptr;
+  });
+}
+
+const void* fwd_first_kernel(int dt, int rdt, int wdt, bool wide) {
+  return with_types(dt, rdt, wdt, [wide](auto a, auto b, auto c) -> const void* {
+    LN_TYPES(a, b, c);
+    return wide ? (const void*)ln_res_wide_kernel<T, TR, TW>
+                : (const void*)ln_res_kernel<T, TR, TW, kVPT>;
+  });
+}
+
+template <typename T, typename TW, bool VEC>
 const void* bwd_kernel_l(int vpl, int has_ds) {
   if constexpr (!VEC) {  // one width: the element layout is the rare case
     if (vpl != kMaxVPL) return nullptr;
-    return has_ds ? (const void*)ln_bwd_kernel<T, kMaxVPL, false, true>
-                  : (const void*)ln_bwd_kernel<T, kMaxVPL, false, false>;
+    return has_ds ? (const void*)ln_bwd_kernel<T, TW, kMaxVPL, false, true>
+                  : (const void*)ln_bwd_kernel<T, TW, kMaxVPL, false, false>;
   } else {
     switch (vpl * 2 + (has_ds ? 1 : 0)) {
-      case 16: return (const void*)ln_bwd_kernel<T, 8, true, false>;
-      case 17: return (const void*)ln_bwd_kernel<T, 8, true, true>;
-      case 32: return (const void*)ln_bwd_kernel<T, 16, true, false>;
-      case 33: return (const void*)ln_bwd_kernel<T, 16, true, true>;
-      case 48: return (const void*)ln_bwd_kernel<T, 24, true, false>;
-      case 49: return (const void*)ln_bwd_kernel<T, 24, true, true>;
-      case 64: return (const void*)ln_bwd_kernel<T, 32, true, false>;
-      case 65: return (const void*)ln_bwd_kernel<T, 32, true, true>;
+      case 16: return (const void*)ln_bwd_kernel<T, TW, 8, true, false>;
+      case 17: return (const void*)ln_bwd_kernel<T, TW, 8, true, true>;
+      case 32: return (const void*)ln_bwd_kernel<T, TW, 16, true, false>;
+      case 33: return (const void*)ln_bwd_kernel<T, TW, 16, true, true>;
+      case 48: return (const void*)ln_bwd_kernel<T, TW, 24, true, false>;
+      case 49: return (const void*)ln_bwd_kernel<T, TW, 24, true, true>;
+      case 64: return (const void*)ln_bwd_kernel<T, TW, 32, true, false>;
+      case 65: return (const void*)ln_bwd_kernel<T, TW, 32, true, true>;
     }
     return nullptr;
   }
 }
 
-const void* bwd_kernel(int dtype, int vpl, int vec, int has_ds) {
-  if (dtype == 0)
-    return vec ? bwd_kernel_l<float, true>(vpl, has_ds)
-               : bwd_kernel_l<float, false>(vpl, has_ds);
-  if (dtype == 1)
-    return vec ? bwd_kernel_l<__nv_bfloat16, true>(vpl, has_ds)
-               : bwd_kernel_l<__nv_bfloat16, false>(vpl, has_ds);
+// The backward reads no residual: its cases are (T, TW).
+const void* bwd_kernel(int dt, int wdt, int vpl, int vec, int has_ds) {
+  return with_types(dt, dt, wdt, [=](auto a, auto b, auto c) -> const void* {
+    LN_TYPES(a, b, c);
+    return vec ? bwd_kernel_l<T, TW, true>(vpl, has_ds)
+               : bwd_kernel_l<T, TW, false>(vpl, has_ds);
+  });
+}
+
+const void* bwd_reduce_kernel(int wdt) {
+  if (wdt == 0) return (const void*)ln_bwd_reduce_kernel<float>;
+  if (wdt == 1) return (const void*)ln_bwd_reduce_kernel<__nv_bfloat16>;
+  if (wdt == 2) return (const void*)ln_bwd_reduce_kernel<__half>;
   return nullptr;
 }
 
@@ -557,24 +619,45 @@ bool vpl_fits(int vpl, int D) {
   return vpl % 8 == 0 && vpl <= kMaxVPL && D > 0 && D <= 32 * vpl;
 }
 
+int per_vector(int dt) { return dt == 0 ? 4 : 8; }
+
+cudaError_t launch_first(int dt, int rdt, int wdt, bool wide, const void* x,
+                         const void* r, const void* g, const void* b,
+                         void* s, void* y, void* mean, void* rstd, int M,
+                         int D, float eps, cudaStream_t st) {
+  const void* fn = fwd_first_kernel(dt, rdt, wdt, wide);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  if (!wide) {
+    void* args[] = {&x, &r, &g, &b, &s, &y, &mean, &rstd, &M, &D, &eps};
+    return cudaLaunchKernel(fn, dim3((M + kWarps - 1) / kWarps),
+                            dim3(kThreads), args, 0, st);
+  }
+  const size_t smem = (size_t)D * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  void* args[] = {&x, &r, &g, &b, &s, &y, &mean, &rstd, &D, &eps};
+  return cudaLaunchKernel(fn, dim3(M), dim3(kWideThreads), args, smem, st);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, r, g, b, s and y share it).
+// dtype / rdtype / wdtype: the codes of x (and s, y), of r, and of g and b
+// (0 = float32, 1 = bfloat16, 2 = float16): x one of the three, r and g / b
+// each x's or float32 (all float32 for a float32 x).
 // Layouts (all contiguous): x, r, s, y [M, D]; g, b [D]; mean, rstd [M] f32.
 // 1 <= D <= 768.  Launches on `stream`, does not synchronise, returns the
 // launch's cudaError_t.
-extern "C" int layernorm_residual_fwd(int dtype, const void* x, const void* r,
+extern "C" int layernorm_residual_fwd(int dtype, int rdtype, int wdtype,
+                                      const void* x, const void* r,
                                       const void* g, const void* b, void* s,
                                       void* y, void* mean, void* rstd, int M,
                                       int D, float eps, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* mu = static_cast<float*>(mean);
-  float* rs = static_cast<float*>(rstd);
   if (M <= 0 || D <= 0 || D > kMaxD) return cudaErrorInvalidValue;
-  if (dtype == 0) return launch<float, kVPT>(x, r, g, b, s, y, mu, rs, M, D, eps, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, kVPT>(x, r, g, b, s, y, mu, rs, M, D, eps, st);
-  return cudaErrorInvalidValue;
+  return launch_first(dtype, rdtype, wdtype, false, x, r, g, b, s, y, mean,
+                      rstd, M, D, eps, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* layernorm_residual_fwd_error_string(int code) {
@@ -582,19 +665,15 @@ extern "C" const char* layernorm_residual_fwd_error_string(int code) {
 }
 
 // The wide variant: as layernorm_residual_fwd, for 768 < D <= 49152.
-extern "C" int layernorm_residual_fwd_wide(int dtype, const void* x,
-                                           const void* r, const void* g,
-                                           const void* b, void* s, void* y,
-                                           void* mean, void* rstd, int M,
-                                           int D, float eps, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* mu = static_cast<float*>(mean);
-  float* rs = static_cast<float*>(rstd);
+extern "C" int layernorm_residual_fwd_wide(int dtype, int rdtype, int wdtype,
+                                           const void* x, const void* r,
+                                           const void* g, const void* b,
+                                           void* s, void* y, void* mean,
+                                           void* rstd, int M, int D,
+                                           float eps, void* stream) {
   if (M <= 0 || D <= kMaxD || D > kMaxWideD) return cudaErrorInvalidValue;
-  if (dtype == 0) return launch_wide<float>(x, r, g, b, s, y, mu, rs, M, D, eps, st);
-  if (dtype == 1)
-    return launch_wide<__nv_bfloat16>(x, r, g, b, s, y, mu, rs, M, D, eps, st);
-  return cudaErrorInvalidValue;
+  return launch_first(dtype, rdtype, wdtype, true, x, r, g, b, s, y, mean,
+                      rstd, M, D, eps, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* layernorm_residual_fwd_wide_error_string(int code) {
@@ -604,10 +683,12 @@ extern "C" const char* layernorm_residual_fwd_wide_error_string(int code) {
 // Resident blocks an SM of a Hopper-design kernel (`which` 0: the forward,
 // 1: the backward's row kernel), written to *out; the wrapper sizes its
 // persistent grids (and the backward's partial rows) from it.
-extern "C" int layernorm_residual_occupancy(int which, int dtype, int vpl,
-                                            int vec, int has_ds, int* out) {
-  const void* fn = which == 0 ? (vec ? fwd_kernel(dtype, vpl) : nullptr)
-                              : bwd_kernel(dtype, vpl, vec, has_ds);
+extern "C" int layernorm_residual_occupancy(int which, int dtype, int rdtype,
+                                            int wdtype, int vpl, int vec,
+                                            int has_ds, int* out) {
+  const void* fn =
+      which == 0 ? (vec ? fwd_vec_kernel(dtype, rdtype, wdtype, vpl) : nullptr)
+                 : bwd_kernel(dtype, wdtype, vpl, vec, has_ds);
   if (fn == nullptr) return cudaErrorInvalidValue;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, kThreads, 0);
 }
@@ -617,17 +698,18 @@ extern "C" const char* layernorm_residual_occupancy_error_string(int code) {
 }
 
 // The Hopper forward: as layernorm_residual_fwd, for D <= 32 * vpl <= 1024,
-// D * itemsize a multiple of 16 and every pointer 16-byte aligned, on a
+// D * itemsize of x a multiple of 16 and every pointer 16-byte aligned, on a
 // persistent grid of `blocks` 128-thread blocks.
-extern "C" int layernorm_residual_fwd_vec(int dtype, int vpl, const void* x,
+extern "C" int layernorm_residual_fwd_vec(int dtype, int rdtype, int wdtype,
+                                          int vpl, const void* x,
                                           const void* r, const void* g,
                                           const void* b, void* s, void* y,
                                           void* mean, void* rstd, int M,
                                           int D, float eps, int blocks,
                                           void* stream) {
-  const void* fn = fwd_kernel(dtype, vpl);
+  const void* fn = fwd_vec_kernel(dtype, rdtype, wdtype, vpl);
   if (fn == nullptr || M <= 0 || blocks <= 0 || !vpl_fits(vpl, D) ||
-      D % (dtype == 0 ? 4 : 8) != 0)
+      D % per_vector(dtype) != 0)
     return cudaErrorInvalidValue;
   void* args[] = {&x, &r, &g, &b, &s, &y, &mean, &rstd, &M, &D, &eps};
   return cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args, 0,
@@ -638,38 +720,33 @@ extern "C" const char* layernorm_residual_fwd_vec_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The backward: ds [M, D] (T), dg and db [D] (T) from s, dy, ds_out (or
-// null), g [D] (T) and mean, rstd [M] (f32), all contiguous.  D <= 32 * vpl
-// <= 1024; vec = 1 takes the vector layout (D * itemsize a multiple of 16,
-// pointers 16-byte aligned), vec = 0 the element layout (vpl = 32).  part
-// is float32 workspace [2, blocks, D].  Two launches on `stream`: the rows
-// on `blocks` persistent blocks, then the column sums.
-extern "C" int layernorm_residual_bwd(int dtype, int vpl, int vec,
-                                      const void* s, const void* dy,
+// The backward: ds [M, D] (dtype), dg and db [D] (wdtype) from s, dy,
+// ds_out (or null; all dtype), g [D] (wdtype) and mean, rstd [M] (f32), all
+// contiguous.  D <= 32 * vpl <= 1024; vec = 1 takes the vector layout (D *
+// itemsize a multiple of 16, pointers 16-byte aligned), vec = 0 the element
+// layout (vpl = 32).  part is float32 workspace [2, blocks, D].  Two
+// launches on `stream`: the rows on `blocks` persistent blocks, then the
+// column sums.
+extern "C" int layernorm_residual_bwd(int dtype, int wdtype, int vpl,
+                                      int vec, const void* s, const void* dy,
                                       const void* ds_out, const void* mean,
                                       const void* rstd, const void* g,
                                       void* ds, void* part, void* dg,
                                       void* db, int M, int D, int blocks,
                                       void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const void* fn = bwd_kernel(dtype, vpl, vec, ds_out != nullptr);
-  if (fn == nullptr || M <= 0 || blocks <= 0 || !vpl_fits(vpl, D) ||
-      (vec && D % (dtype == 0 ? 4 : 8) != 0))
+  const void* fn = bwd_kernel(dtype, wdtype, vpl, vec, ds_out != nullptr);
+  const void* red = bwd_reduce_kernel(wdtype);
+  if (fn == nullptr || red == nullptr || M <= 0 || blocks <= 0 ||
+      !vpl_fits(vpl, D) || (vec && D % per_vector(dtype) != 0))
     return cudaErrorInvalidValue;
   void* args[] = {&s, &dy, &ds_out, &mean, &rstd, &g, &ds, &part, &M, &D};
   cudaError_t e = cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args, 0,
                                    st);
   if (e != cudaSuccess) return e;
-  const dim3 grid((D + 31) / 32, 2), block(32, kRedGroups);
-  const float* p = static_cast<const float*>(part);
-  if (dtype == 0)
-    ln_bwd_reduce_kernel<float><<<grid, block, 0, st>>>(
-        p, blocks, D, static_cast<float*>(dg), static_cast<float*>(db));
-  else
-    ln_bwd_reduce_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-        p, blocks, D, static_cast<__nv_bfloat16*>(dg),
-        static_cast<__nv_bfloat16*>(db));
-  return cudaGetLastError();
+  void* rargs[] = {&part, &blocks, &D, &dg, &db};
+  return cudaLaunchKernel(red, dim3((D + 31) / 32, 2), dim3(32, kRedGroups),
+                          rargs, 0, st);
 }
 
 extern "C" const char* layernorm_residual_bwd_error_string(int code) {

@@ -14,6 +14,14 @@ per row with scalar loads, for wider rows (up to ``MAX_WIDE_FEATURES``)
 one block per row with the row in shared memory.  Either way ``x`` and
 ``r`` are read once and ``s`` and ``y`` written once.
 
+Dtypes, the JAX kernel's own contract: the activation dtype ``T`` (x, and
+the outputs ``s`` and ``y``) is float32, bfloat16 or float16; ``residual``
+is ``T`` or float32; ``weight`` and ``bias`` are one dtype, ``T`` or
+float32 (a float32 ``T`` takes float32 for all four).  Mixed operands are
+what amp O1 hands the kernel: a bf16 sublayer output beside a float32
+residual stream and float32 LayerNorm parameters.  The kernels read each
+operand at its own width; any other mix raises ``InvalidArgumentError``.
+
 Semantics (both paths): ``s`` is the sum rounded to the activation dtype,
 and it is that ROUNDED sum which is normalized; statistics are float32,
 two-pass (mean, then the mean of the centred squares); ``rstd =
@@ -51,7 +59,8 @@ from . import _build
 __all__ = ["layernorm_residual", "layernorm_residual_ref", "MAX_FEATURES",
            "MAX_REGISTER_FEATURES", "MAX_WIDE_FEATURES"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels' dtype codes (csrc: 0 float32, 1 bfloat16, 2 float16)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the largest feature dim the first design's narrow variant holds in
 #: registers (32 x 24)
 MAX_FEATURES = 768
@@ -70,18 +79,43 @@ _occupancy = {}
 
 #: the C entries of ``csrc/fused_layernorm.cu`` and their ctypes argtypes
 _ARGTYPES = {
-    "layernorm_residual_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 8
+    "layernorm_residual_fwd": [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
-    "layernorm_residual_fwd_wide": [ctypes.c_int] + [ctypes.c_void_p] * 8
+    "layernorm_residual_fwd_wide": [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 8
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
-    "layernorm_residual_fwd_vec": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+    "layernorm_residual_fwd_vec": [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
        ctypes.c_void_p],
-    "layernorm_residual_bwd": [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
+    "layernorm_residual_bwd": [ctypes.c_int] * 4 + [ctypes.c_void_p] * 10
     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    "layernorm_residual_occupancy": [ctypes.c_int] * 5
+    "layernorm_residual_occupancy": [ctypes.c_int] * 7
     + [ctypes.POINTER(ctypes.c_int)],
 }
+
+
+def _codes(x_dtype, residual_dtype, weight_dtype):
+    """The kernels' dtype codes of (x, residual, weight / bias), or
+    ``InvalidArgumentError`` for a mix they do not take: x float32,
+    bfloat16 or float16; residual and weight each x's dtype or float32."""
+    if x_dtype not in _DTYPES:
+        raise InvalidArgumentError(
+            f"layernorm_residual: the kernel takes float32, bfloat16 or "
+            f"float16 activations, got {x_dtype}")
+    for name, dt in (("residual", residual_dtype), ("weight", weight_dtype)):
+        if dt not in (x_dtype, torch.float32):
+            raise InvalidArgumentError(
+                f"layernorm_residual: {name} is {dt}, x is {x_dtype} (the "
+                f"kernel takes x's dtype or float32)")
+    return _DTYPES[x_dtype], _DTYPES[residual_dtype], _DTYPES[weight_dtype]
+
+
+def _dtype_triple(dtypes):
+    """``dtypes`` as (x, residual, weight): one dtype stands for all
+    three."""
+    if isinstance(dtypes, torch.dtype):
+        return dtypes, dtypes, dtypes
+    return tuple(dtypes)
 
 
 def _check(x, residual, weight, bias):
@@ -138,39 +172,52 @@ def _vpl(D: int) -> int:
     return 8 * -(-D // 256)
 
 
-def _forward_plan(dtype, D: int, aligned: bool) -> str:
-    """The forward's design: ``"vector"`` (the Hopper design) where the
+def _forward_plan(dtypes, D: int, aligned: bool) -> str:
+    """The forward's design for ``dtypes`` — x's dtype, or the (x,
+    residual, weight) dtypes: ``"vector"`` (the Hopper design) where the
     row fits its registers (``D <= MAX_REGISTER_FEATURES``), is whole
-    16-byte vectors of ``dtype`` and every tensor is 16-byte aligned
-    (``aligned``); else ``"first"`` (the first design's narrow variant for
-    ``D <= MAX_FEATURES``, its wide one above)."""
-    if D <= MAX_REGISTER_FEATURES and D % _per_vector(dtype) == 0 and aligned:
+    16-byte vectors of x's dtype (a float32 residual or weight is then
+    whole vectors too) and every tensor is 16-byte aligned (``aligned``);
+    else ``"first"`` (the first design's narrow variant for ``D <=
+    MAX_FEATURES``, its wide one above).  Raises ``InvalidArgumentError``
+    for a dtype mix the kernels do not take."""
+    x_dt, r_dt, w_dt = _dtype_triple(dtypes)
+    _codes(x_dt, r_dt, w_dt)
+    if D <= MAX_REGISTER_FEATURES and D % _per_vector(x_dt) == 0 and aligned:
         return "vector"
     return "first"
 
 
-def _backward_plan(dtype, D: int, aligned: bool) -> str:
-    """The backward's design: for ``D <= MAX_REGISTER_FEATURES`` the CUDA
-    pass, ``"vector"`` (16-byte accesses) where the rows are whole vectors
-    of ``dtype`` and every tensor is 16-byte aligned, else ``"scalar"``
-    (element accesses); wider rows ``"plain"``: :func:`_backward_ref`'s
-    arithmetic on the card, no launch."""
+def _backward_plan(dtypes, D: int, aligned: bool) -> str:
+    """The backward's design for ``dtypes`` — s's dtype, or the (s,
+    weight) dtypes (it reads no residual): for ``D <=
+    MAX_REGISTER_FEATURES`` the CUDA pass, ``"vector"`` (16-byte accesses)
+    where the rows are whole vectors of s's dtype and every tensor is
+    16-byte aligned, else ``"scalar"`` (element accesses); wider rows
+    ``"plain"``: :func:`_backward_ref`'s arithmetic on the card, no
+    launch.  Raises ``InvalidArgumentError`` for a mix the kernel does not
+    take."""
+    if isinstance(dtypes, torch.dtype):
+        dtypes = (dtypes, dtypes)
+    s_dt, w_dt = dtypes
+    _codes(s_dt, s_dt, w_dt)
     if D > MAX_REGISTER_FEATURES:
         return "plain"
-    if D % _per_vector(dtype) == 0 and aligned:
+    if D % _per_vector(s_dt) == 0 and aligned:
         return "vector"
     return "scalar"
 
 
-def _blocks(which, dtype, vpl, vec, has_ds, M, device) -> int:
+def _blocks(which, codes, vpl, vec, has_ds, M, device) -> int:
     """A Hopper-design grid: the blocks the card holds at once (SMs x the
-    kernel's occupancy, cached), at most one a ``_WARPS`` rows."""
-    key = (which, dtype, vpl, vec, has_ds)
+    kernel's occupancy, cached), at most one a ``_WARPS`` rows.  ``codes``:
+    the (x, residual, weight) dtype codes."""
+    key = (which, codes, vpl, vec, has_ds)
     occ = _occupancy.get(key)
     if occ is None:
         out = ctypes.c_int(0)
-        _entry("layernorm_residual_occupancy")(which, _DTYPES[dtype], vpl,
-                                               int(vec), int(has_ds),
+        _entry("layernorm_residual_occupancy")(which, *codes, vpl, int(vec),
+                                               int(has_ds),
                                                ctypes.byref(out))
         occ = _occupancy[key] = max(1, out.value)
     return max(1, min(-(-M // _WARPS), _build.sm_count(device) * occ))
@@ -189,14 +236,11 @@ def _forward_kernel(x2, r2, weight, bias, epsilon, design=None):
         if t.device != x2.device:
             raise InvalidArgumentError(
                 f"layernorm_residual: {name} on {t.device}, x on {x2.device}")
-        if t.dtype != x2.dtype:
-            raise InvalidArgumentError(
-                f"layernorm_residual: {name} is {t.dtype}, x is {x2.dtype} "
-                f"(the kernel takes one dtype for all four)")
-    if x2.dtype not in _DTYPES:
+    if bias.dtype != weight.dtype:
         raise InvalidArgumentError(
-            f"layernorm_residual: the kernel takes float32 or bfloat16, got "
-            f"{x2.dtype}")
+            f"layernorm_residual: bias is {bias.dtype}, weight is "
+            f"{weight.dtype} (the kernel takes one dtype for both)")
+    codes = _codes(x2.dtype, r2.dtype, weight.dtype)
     for name, t in (("x", x2), ("residual", r2), ("weight", weight),
                     ("bias", bias)):
         if not t.is_contiguous():
@@ -212,7 +256,8 @@ def _forward_kernel(x2, r2, weight, bias, epsilon, design=None):
     rstd = torch.empty(M, dtype=torch.float32, device=x2.device)
     if M == 0:
         return s, y, mean, rstd
-    plan = _forward_plan(x2.dtype, D, _aligned(x2, r2, weight, bias, s, y))
+    plan = _forward_plan((x2.dtype, r2.dtype, weight.dtype), D,
+                         _aligned(x2, r2, weight, bias, s, y))
     if design is not None:
         if design not in ("vector", "first") or (design == "vector"
                                                   and plan != "vector"):
@@ -228,12 +273,12 @@ def _forward_kernel(x2, r2, weight, bias, epsilon, design=None):
         if plan == "vector":
             vpl = _vpl(D)
             _entry("layernorm_residual_fwd_vec")(
-                _DTYPES[x2.dtype], vpl, *ptrs, M, D, epsilon,
-                _blocks(0, x2.dtype, vpl, True, False, M, x2.device), stream)
+                *codes, vpl, *ptrs, M, D, epsilon,
+                _blocks(0, codes, vpl, True, False, M, x2.device), stream)
         else:
             _entry("layernorm_residual_fwd" if D <= MAX_FEATURES
                    else "layernorm_residual_fwd_wide")(
-                _DTYPES[x2.dtype], *ptrs, M, D, epsilon, stream)
+                *codes, *ptrs, M, D, epsilon, stream)
     layernorm_residual.launches += 1
     return s, y, mean, rstd
 
@@ -269,21 +314,22 @@ def _backward_kernel(s, mean, rstd, weight, ds_out, dy, design=None):
     dy = dy.contiguous()
     ds_out = ds_out.contiguous() if ds_out is not None else None
     for name, t in (("dy", dy), ("ds_out", ds_out), ("weight", weight)):
-        if t is not None and (t.dtype != s.dtype or t.device != s.device
+        if t is not None and ((t.dtype != s.dtype and name != "weight")
+                              or t.device != s.device
                               or tuple(t.shape) != ((D,) if name == "weight"
                                                     else (M, D))):
             raise InvalidArgumentError(
                 f"layernorm_residual backward: {name} {t.dtype} "
                 f"{tuple(t.shape)} on {t.device} does not match s {s.dtype} "
                 f"{tuple(s.shape)} on {s.device}")
-    if s.dtype not in _DTYPES or not (s.is_contiguous()
-                                      and weight.is_contiguous()):
+    codes = _codes(s.dtype, s.dtype, weight.dtype)
+    if not (s.is_contiguous() and weight.is_contiguous()):
         raise InvalidArgumentError(
-            f"layernorm_residual backward: the kernel takes contiguous "
-            f"float32 or bfloat16, got {s.dtype}")
+            "layernorm_residual backward: the kernel takes contiguous s "
+            "and weight")
     ds = torch.empty_like(s)
     tensors = (s, dy, ds, weight) + ((ds_out,) if ds_out is not None else ())
-    plan = _backward_plan(s.dtype, D, _aligned(*tensors))
+    plan = _backward_plan((s.dtype, weight.dtype), D, _aligned(*tensors))
     if design is not None:
         if design not in ("vector", "scalar") or plan == "plain" or (
                 design == "vector" and plan != "vector"):
@@ -299,12 +345,12 @@ def _backward_kernel(s, mean, rstd, weight, ds_out, dy, design=None):
         return ds, dg.zero_(), db.zero_()
     vec = plan == "vector"
     vpl = _vpl(D) if vec else MAX_REGISTER_FEATURES // 32
-    blocks = _blocks(1, s.dtype, vpl, vec, ds_out is not None, M, s.device)
+    blocks = _blocks(1, codes, vpl, vec, ds_out is not None, M, s.device)
     part = torch.empty(2, blocks, D, dtype=torch.float32, device=s.device)
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream(s.device).cuda_stream
         _entry("layernorm_residual_bwd")(
-            _DTYPES[s.dtype], vpl, int(vec), s.data_ptr(), dy.data_ptr(),
+            codes[0], codes[2], vpl, int(vec), s.data_ptr(), dy.data_ptr(),
             ds_out.data_ptr() if ds_out is not None else None,
             mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(),
             ds.data_ptr(), part.data_ptr(), dg.data_ptr(), db.data_ptr(), M,
@@ -343,11 +389,14 @@ class _LayerNormResidual(torch.autograd.Function):
 def layernorm_residual(x, residual, weight, bias, *, epsilon: float = 1e-5):
     """``s = x + residual;  y = LayerNorm(s)·weight + bias`` in one pass.
 
-    x/residual: ``[..., D]`` (same shape and dtype), weight/bias: ``[D]``.
-    Returns ``(s, y)`` in x's dtype.  Differentiable in x, residual,
-    weight and bias.  CPU tensors take :func:`layernorm_residual_ref`'s
-    arithmetic, forward and backward; CUDA tensors launch the kernel
-    (float32 or bfloat16, all four tensors one dtype, contiguous, ``D <=
+    x/residual: ``[..., D]`` (same shape), weight/bias: ``[D]``.  Returns
+    ``(s, y)`` in x's dtype.  Differentiable in x, residual, weight and
+    bias: x and residual both get ``ds`` rounded to x's dtype (a float32
+    residual gets that rounded value in float32, as JAX hands it), weight
+    and bias their gradients in their own dtype.  CPU tensors take
+    :func:`layernorm_residual_ref`'s arithmetic, forward and backward; CUDA
+    tensors launch the kernel (x float32, bfloat16 or float16, residual and
+    weight / bias each x's dtype or float32, contiguous, ``D <=
     MAX_WIDE_FEATURES``; the design picked by :func:`_forward_plan`) on the
     current stream and add one to ``layernorm_residual.launches``, and
     their backward launches the backward kernel (``D <=

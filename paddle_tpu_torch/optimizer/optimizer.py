@@ -17,8 +17,11 @@ The rules are the JAX package's, not ``torch.optim``'s:
   applied AFTER the Adam step, ``new = new - lr·coeff·new`` (on the master
   where there is one), filtered by ``apply_decay_param_fun(dotted_name)``;
 * ``grad_clip`` runs on the whole grad dict before the count advances;
-* ``state_dict`` uses JAX's slot names (``moment1``, ``moment2``,
-  ``master``, ``velocity``).
+* ``state_dict`` / ``set_state_dict`` use JAX's flat layout and slot
+  names (``count``, ``"<param>.moment1"``, ``moment2``, ``master``,
+  ``velocity``, ``LR_Scheduler``), so optimizer state moves between the
+  packages (``Model.save`` / ``load`` write the nested ``{"count",
+  "slots"}`` form of the same state).
 
 Where the JAX package runs a bf16 parameter without a master through
 bf16 arithmetic, the port computes the rule in float32 and rounds once
@@ -41,7 +44,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..framework.dtype import is_low_precision
+from ..framework.dtype import is_low_precision, numpy_to_tensor
 from ..framework.errors import InvalidArgumentError, UnimplementedError
 from ..regularizer import L2Decay, WeightDecayRegularizer
 from .lr import LRScheduler
@@ -264,6 +267,45 @@ class Optimizer:
         if isinstance(self._learning_rate, LRScheduler):
             d["LR_Scheduler"] = self._learning_rate.state_dict()
         return d
+
+    def set_state_dict(self, state: Mapping[str, Any]):
+        """The inverse of :meth:`state_dict`: ``count``, one
+        ``"<param>.<slot>"`` entry a slot (tensors, or the numpy leaves
+        ``paddle_tpu_torch.load`` returns — the JAX package's layout, so
+        its checkpoints resume here) and ``LR_Scheduler``.  The bound
+        parameters' slots are built first where the optimizer has not
+        stepped yet; each value is cast onto its slot's dtype and device
+        (a slot the state has and this optimizer lacks is added in the
+        value's dtype, as the JAX package adds it)."""
+        state = dict(state)
+        lr_state = state.pop("LR_Scheduler", None)
+        if lr_state and isinstance(self._learning_rate, LRScheduler):
+            self._learning_rate.set_state_dict(lr_state)
+        count = state.pop("count", None)
+        if self._params is None:
+            if state or count is not None:
+                raise InvalidArgumentError(
+                    "set_state_dict on an optimizer without bound "
+                    "parameters would drop its slot state; pass "
+                    "parameters= (or Model.prepare it) first")
+            return
+        params = self._bound()
+        if self._state is None:
+            self._state = self.init(params)
+        if count is not None:
+            self._state["count"] = int(np.asarray(count))
+        with torch.no_grad():
+            for key, v in state.items():
+                pname, _, sname = key.rpartition(".")
+                slots = self._state["slots"].get(pname)
+                if slots is None:
+                    continue
+                v = numpy_to_tensor(v)
+                cur = slots.get(sname)
+                if cur is not None:
+                    cur.copy_(v.to(device=cur.device, dtype=cur.dtype))
+                else:
+                    slots[sname] = v.to(params[pname].device).clone()
 
     def __repr__(self):
         return f"{type(self).__name__}(lr={self.get_lr()})"

@@ -14,6 +14,16 @@ scaled by their largest magnitude.  The designs' plan tables are checked
 here; the CUDA kernels (the Hopper forward and backward, the first
 designs) are compared with the plain versions only where a card is
 present (``gpu`` marker).
+
+Mixed dtypes (what amp hands the op): x in bf16 or fp16 with the residual
+and weight / bias each in x's dtype or float32.  The plain version and the
+autograd Function are held against the JAX op in interpret mode: s
+exactly, y and the gradients at the bf16 tolerance (fp16: 1e-2, its
+rounding); x's and the residual's cotangents are ``ds`` rounded to x's
+dtype in both packages (JAX hands a float32 residual that bf16 value,
+autograd the same value in float32 — pinned exactly), the weight's and
+bias's come back in their own dtype.  Any other mix raises, on the CPU
+plan tables too.
 """
 import jax
 import jax.numpy as jnp
@@ -30,6 +40,10 @@ from paddle_tpu_torch.ops.fused_layernorm import (layernorm_residual,
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
+# the card's kernel against the plain version on the same float16 inputs:
+# both round float32 arithmetic once, one float16 step (2^-10 of the value)
+# apart at most; 2e-3 holds two and fails a y rounded through bf16
+F16_CARD = dict(rtol=2e-3, atol=2e-3)
 
 
 def _inputs(seed, shape=(3, 7, 32), dtype=np.float32):
@@ -397,3 +411,160 @@ def test_kernel_rejects_what_it_does_not_take():
         layernorm_residual(x, x, torch.ones(64, device=dev,
                                             dtype=torch.bfloat16),
                            torch.zeros(64, device=dev))
+
+
+# (x, residual, weight / bias) dtypes amp hands the op
+MIXES = [("bfloat16", "float32", "float32"), ("bfloat16", "bfloat16",
+                                              "float32"),
+         ("bfloat16", "float32", "bfloat16"), ("float16", "float32",
+                                               "float32"),
+         ("float16", "float16", "float32"), ("float16", "float16",
+                                             "float16")]
+
+
+def _mixed_jax(x, r, g, b, ds, dy, dts, eps):
+    jdt = [getattr(jnp, d) for d in dts]
+    args = [jnp.asarray(x, jdt[0]), jnp.asarray(r, jdt[1]),
+            jnp.asarray(g, jdt[2]), jnp.asarray(b, jdt[2])]
+    (s, y), vjp = jax.vjp(
+        lambda *a: jax_layernorm_residual(*a, epsilon=eps, block_m=8), *args)
+    grads = vjp((jnp.asarray(ds, jdt[0]), jnp.asarray(dy, jdt[0])))
+    return (s, y, *grads)
+
+
+@pytest.mark.parametrize("fn", [layernorm_residual, layernorm_residual_ref],
+                         ids=["autograd_function", "plain"])
+@pytest.mark.parametrize("dts", MIXES, ids=["-".join(m) for m in MIXES])
+def test_mixed_dtypes_match_jax(fn, dts):
+    x, r, g, b, ds, dy = _inputs(9, shape=(5, 13, 64))
+    want = _mixed_jax(x, r, g, b, ds, dy, dts, 1e-12)
+    tdt = [getattr(torch, d) for d in dts]
+    args = [torch.tensor(a, dtype=dt, requires_grad=True)
+            for a, dt in zip((x, r, g, b), tdt[:2] + [tdt[2]] * 2)]
+    s, y = fn(*args, epsilon=1e-12)
+    grads = torch.autograd.grad([s, y], args,
+                                [torch.tensor(ds, dtype=tdt[0]),
+                                 torch.tensor(dy, dtype=tdt[0])])
+    got = (s, y, *grads)
+    # output dtypes: s, y and dx in x's; dr in r's; dg, db in weight's
+    want_dt = [tdt[0], tdt[0], tdt[0], tdt[1], tdt[2], tdt[2]]
+    assert [t.dtype for t in got] == want_dt
+    assert str(want[3].dtype) == dts[0]  # JAX: dr in x's dtype
+    # the residual's cotangent is x's, exactly (upcast where r is f32)
+    assert torch.equal(grads[1], grads[0].to(tdt[1]))
+    np.testing.assert_array_equal(s.detach().float().numpy(),
+                                  np.asarray(want[0], np.float32))
+    tol = BF16 if dts[0] == "bfloat16" else dict(rtol=1e-2, atol=1e-2)
+    for name, a, w in zip(("y", "dx", "dr", "dg", "db"), got[1:], want[1:]):
+        a = a.detach().float().numpy()
+        w = np.asarray(w, np.float32)
+        scale = max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(a / scale, w / scale, err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("dts,D,aligned,want", [
+    (("bfloat16", "float32", "float32"), 768, True, "vector"),   # amp O1
+    (("bfloat16", "bfloat16", "float32"), 768, True, "vector"),
+    (("float16", "float32", "float32"), 768, True, "vector"),
+    (("float16", "float16", "float16"), 1024, True, "vector"),
+    (("bfloat16", "float32", "float32"), 768, False, "first"),
+    (("float16", "float32", "float32"), 100, True, "first"),
+    (("bfloat16", "float32", "bfloat16"), 1536, True, "first"),
+])
+def test_forward_plan_table_mixed(dts, D, aligned, want):
+    assert fl._forward_plan(tuple(getattr(torch, d) for d in dts), D,
+                            aligned) == want
+
+
+@pytest.mark.parametrize("dts,D,aligned,want", [
+    (("bfloat16", "float32"), 768, True, "vector"),
+    (("float16", "float32"), 768, True, "vector"),
+    (("float16", "float16"), 768, True, "vector"),
+    (("bfloat16", "float32"), 100, True, "scalar"),
+    (("float16", "float32"), 768, False, "scalar"),
+    (("bfloat16", "float32"), 1032, True, "plain"),
+])
+def test_backward_plan_table_mixed(dts, D, aligned, want):
+    assert fl._backward_plan(tuple(getattr(torch, d) for d in dts), D,
+                             aligned) == want
+
+
+@pytest.mark.parametrize("dts", [
+    ("float32", "bfloat16", "float32"),    # an f32 x takes f32 only
+    ("float32", "float32", "float16"),
+    ("bfloat16", "float16", "float32"),    # residual neither x's nor f32
+    ("float16", "float16", "bfloat16"),
+    ("float64", "float64", "float64"),
+])
+def test_plans_refuse_other_mixes(dts):
+    dt = tuple(getattr(torch, d) for d in dts)
+    with pytest.raises(InvalidArgumentError, match="layernorm_residual"):
+        fl._forward_plan(dt, 768, True)
+    if dts[2] in (dts[0], "float32") and dts[0] != "float64":
+        return  # the backward reads no residual: (x, weight) is a mix it takes
+    with pytest.raises(InvalidArgumentError, match="layernorm_residual"):
+        fl._backward_plan((dt[0], dt[2]), 768, True)
+
+
+def _mixed_card_inputs(dev, dts, M, D, seed):
+    x, r, g, b, dy, ds = _card_inputs(dev, "float32", M, D, seed)
+    dt = [getattr(torch, d) for d in dts]
+    return (x.to(dt[0]), r.to(dt[1]), g.to(dt[2]), b.to(dt[2]),
+            dy.to(dt[0]), ds.to(dt[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,D", [(32768, 768), (1000, 100), (333, 1024),
+                                 (64, 1536)])
+@pytest.mark.parametrize("dts", MIXES, ids=["-".join(m) for m in MIXES])
+def test_mixed_dtype_kernels_match_plain_on_card(dts, M, D):
+    """Every design of the forward (the planned one and the first one)
+    and of the backward (the planned layout and the element layout, with
+    and without the s cotangent) at each mix: s exact, y within the x
+    dtype's tolerance, ds / dg / db as in the single-dtype tests."""
+    dev = _card()
+    x, r, g, b, dy, ds = _mixed_card_inputs(dev, dts, M, D, M + D)
+    want = fl._forward_ref(x, r, g, b, 1e-12)
+    tol = BF16 if dts[0] == "bfloat16" else F16_CARD
+    for design in (None, "first"):
+        got = fl._forward_kernel(x, r, g, b, 1e-12, design=design)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), design
+        torch.testing.assert_close(got[1], want[1], **tol)
+        for a, w in zip(got[2:], want[2:]):
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    s, _, mean, rstd = want
+    # rows wider than the registers: the plain backward, nothing to hold
+    plan = fl._backward_plan((s.dtype, g.dtype), D, True)
+    for design in (() if plan == "plain" else (None, "scalar")):
+        for ds_out in (ds, None):
+            _hold_backward(s, mean, rstd, g, ds_out, dy, tol, design=design)
+
+
+@pytest.mark.parametrize("dts", [m for m in MIXES if m[0] == "float16"],
+                         ids=lambda m: "-".join(m))
+def test_float16_card_tolerance_holds_one_step_and_fails_bf16_rounding(dts):
+    """The float16 tolerance that chip_smoke.py's phase F1 and the card
+    tests hold the kernel to: y computed in float64 and rounded once
+    (one float16 step from the plain version's float32 arithmetic) passes
+    it, the plain version's y rounded through bf16 fails it."""
+    import chip_smoke
+
+    assert chip_smoke.ln_tol("float16") == F16_CARD
+    rng = np.random.RandomState(14)
+    M, D = 4096, 768
+    dt = [getattr(torch, d) for d in dts]
+    x, r = (torch.tensor(rng.randn(M, D).astype(np.float32)) for _ in "xr")
+    g = torch.tensor((1 + 0.1 * rng.randn(D)).astype(np.float32))
+    b = torch.tensor((0.1 * rng.randn(D)).astype(np.float32))
+    x, r, g, b = x.to(dt[0]), r.to(dt[1]), g.to(dt[2]), b.to(dt[2])
+    s, y, _, _ = fl._forward_ref(x, r, g, b, 1e-12)
+    sd = s.double()
+    c = sd - sd.mean(-1, keepdim=True)
+    y64 = (c * torch.rsqrt((c * c).mean(-1, keepdim=True) + 1e-12)
+           * g.double() + b.double()).to(y.dtype)
+    assert not torch.equal(y64, y)  # some elements one step apart
+    torch.testing.assert_close(y64, y, **F16_CARD)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(y.to(torch.bfloat16).to(y.dtype), y,
+                                   **F16_CARD)

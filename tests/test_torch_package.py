@@ -27,7 +27,8 @@ PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / "torch_train_profile.py",
     ROOT / "tools" / "torch_resnet_conditioning.py",
     ROOT / "tools" / "torch_flash_bwd_rounding.py",
-    ROOT / "tools" / "torch_kernel_ab.py"]
+    ROOT / "tools" / "torch_kernel_ab.py",
+    ROOT / "tools" / "torch_serve_train_ab.py"]
 
 
 def _forbidden(mod: str) -> bool:
