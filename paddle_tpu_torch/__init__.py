@@ -32,7 +32,13 @@ Ported so far:
   ``save`` / ``load`` (the JAX package's checkpoint format, both ways),
   ``Model.save`` / ``load``, and ``amp`` (the per-layer ``auto_cast``
   policy, ``decorate``, ``GradScaler``; ``prepare(amp_configs="O1")``),
-  for which ``layernorm_residual`` takes the mixed dtypes amp hands it.
+  for which ``layernorm_residual`` takes the mixed dtypes amp hands it;
+* sparse CTR training: SelectedRows gradients from
+  ``Embedding(sparse=True)`` inside ``Model.train_batch``
+  (``framework.selected_rows``), every optimizer of the JAX package with
+  its sparse rule (``Adam(lazy_mode=True)`` updates touched rows only),
+  ``models.WideDeep`` and the native ``io.InMemoryDataset``; plain
+  PyTorch, as the JAX path is plain XLA.
 """
 from . import amp, io, metric, nn, optimizer, regularizer, slim, vision
 from .framework.device import get_device, set_device

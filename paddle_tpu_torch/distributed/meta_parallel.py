@@ -86,4 +86,11 @@ class RowParallelLinear(_ParallelLinear):
 
 class VocabParallelEmbedding(Embedding):
     """Embedding whose vocabulary shards over ``model`` (one device:
-    unsharded); N(0, 0.02²) init as in the JAX package."""
+    unsharded); N(0, 0.02²) init as in the JAX package.  ``sparse=True``
+    gives the table SelectedRows gradients inside a sparse-aware train
+    step, as ``nn.Embedding(sparse=True)`` does."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 weight_attr=None, sparse: bool = False, name=None):
+        super().__init__(num_embeddings, embedding_dim, sparse=sparse,
+                         weight_attr=weight_attr, std=0.02)

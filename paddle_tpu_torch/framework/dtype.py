@@ -51,6 +51,7 @@ def numpy_to_tensor(a, device=None) -> torch.Tensor:
             torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(a))
+    t = t.reshape(a.shape)  # ascontiguousarray makes a 0-d array 1-d
     return t if device is None else t.to(device)
 
 

@@ -110,3 +110,7 @@ define_flag("speculative_k", 4,
             "proposer (prompt-lookup) drafts up to k tokens per slot and "
             "one batched verify step accepts the longest matching prefix "
             "— token-identical to plain greedy. 0 disables speculation.")
+define_flag("paddle_num_threads", 1,
+            "Host-side worker threads for data feeding: the default "
+            "thread count of InMemoryDataset.load_into_memory "
+            "(ref: FLAGS_paddle_num_threads).")

@@ -23,7 +23,11 @@ a loss (``ProgBarLogger`` every ``log_freq`` steps) or a metric updates
 (metrics are host numpy, as in the JAX package).  ``amp_configs`` (a
 level string such as ``"O1"``, or a dict of ``auto_cast`` arguments;
 GradScaler keys are dropped, as in the JAX package) runs the forward and
-the loss under :func:`paddle_tpu_torch.amp.auto_cast`.
+the loss under :func:`paddle_tpu_torch.amp.auto_cast`.  A network with
+sparse tables (``Embedding(sparse=True)``) trains through the JAX
+package's sparse step (``framework.selected_rows.build_sparse_step``):
+the tables get SelectedRows gradients from their lookups only, which the
+optimizer's rule updates row by row (``Adam(lazy_mode=True)`` …).
 
 Not ported yet, each raising ``UnimplementedError``:
 ``steps_per_execution > 1`` (the JAX package scans k steps in one
@@ -45,6 +49,7 @@ from ..amp.auto_cast import auto_cast
 from ..framework import serialization
 from ..framework.dtype import numpy_to_tensor
 from ..framework.errors import InvalidArgumentError, UnimplementedError
+from ..framework.selected_rows import build_sparse_step, sparse_param_names
 from ..metric import Metric
 from ..optimizer.optimizer import Optimizer
 from . import callbacks as _callbacks_mod
@@ -59,6 +64,14 @@ _AMP_KEYS = {"enable", "custom_white_list", "custom_black_list", "level",
 
 def _tuplize(x):
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def _state_tree(tree):
+    """An optimizer state as the JAX package pickles it: the step counts
+    as int32 scalars."""
+    if isinstance(tree, dict):
+        return {k: _state_tree(v) for k, v in tree.items()}
+    return np.asarray(tree, np.int32) if isinstance(tree, int) else tree
 
 
 def _unported(what: str, item: str):
@@ -84,6 +97,7 @@ class Model:
         self._loss = None
         self._metrics: List[Metric] = []
         self._amp: Dict[str, Any] = {}
+        self._sparse: Dict[int, str] = {}
         self._prepared = False
         self.stop_training = False
         self._save_dir = None
@@ -113,6 +127,7 @@ class Model:
         self._amp = amp if amp and amp.get("level", "O1") != "O0" else {}
         if optimizer is not None and optimizer._params is None:
             optimizer._bind(self.network.named_parameters())
+        self._sparse = sparse_param_names(self.network)
         self._optimizer = optimizer
         self._loss = loss
         self._prepared = True
@@ -173,11 +188,34 @@ class Model:
                 "call prepare(optimizer=..., loss=...) first")
         batch = self._batch(inputs, labels)
         self.network.train()
-        loss, out, labels = self._forward_loss(batch)
-        loss.backward()
-        self._optimizer.step()
+        if self._sparse:
+            loss, out, labels = self._sparse_step(batch)
+        else:
+            loss, out, labels = self._forward_loss(batch)
+            loss.backward()
+            self._optimizer.step()
         self._optimizer.clear_grad()
         return loss.detach(), self._update_metrics(out, labels)
+
+    def _sparse_step(self, batch):
+        """The step of a network with sparse tables: gradients from
+        ``build_sparse_step`` (SelectedRows for the tables), handed to the
+        optimizer by the names it is bound to."""
+        opt = self._optimizer
+        bound = opt._bound()
+        params = dict(self.network.named_parameters())
+        shapes = {n: tuple(params[n].shape) for n in self._sparse.values()
+                  if params[n].requires_grad}
+
+        def forward_loss(_params):
+            loss, out, labels = self._forward_loss(batch)
+            return loss, (out, labels)
+
+        (loss, (out, labels)), grads = build_sparse_step(
+            forward_loss, self._sparse, shapes)(params)
+        by_id = {id(params[n]): g for n, g in grads.items()}
+        opt.step({n: by_id.get(id(p)) for n, p in bound.items()})
+        return loss, out, labels
 
     def eval_batch(self, inputs, labels=None):
         loss, metrics = self._eval_batch_device(inputs, labels)
@@ -336,7 +374,8 @@ class Model:
         """``training=True``: write ``path.pdparams`` (the network's state
         dict) and, with an optimizer, ``path.pdopt`` (``{"state": {"count",
         "slots": {param: {slot: array}}}, "LR_Scheduler" | "lr"}``, the JAX
-        package's layout).  Parent directories are created."""
+        package's layout; a ``Lookahead``'s state is its ``{"inner",
+        "slow", "count"}`` tree).  Parent directories are created."""
         if not training:
             _unported("save(training=False), the inference export",
                       "static graph and the long tail")
@@ -344,8 +383,7 @@ class Model:
         if self._optimizer is not None:
             st = self._optimizer._state
             opt_state: Dict[str, Any] = (
-                {"state": {"count": np.asarray(st["count"], np.int32),
-                           "slots": st["slots"]}} if st is not None else {})
+                {"state": _state_tree(st)} if st is not None else {})
             sched = self._optimizer.lr_scheduler
             if sched is not None:
                 opt_state["LR_Scheduler"] = sched.state_dict()
@@ -370,11 +408,7 @@ class Model:
             if opt is not None:
                 flat: Dict[str, Any] = {}
                 if "state" in opt_state:
-                    st = opt_state["state"]
-                    flat["count"] = st["count"]
-                    for pname, slots in st["slots"].items():
-                        for sname, v in slots.items():
-                            flat[f"{pname}.{sname}"] = v
+                    flat = opt._state_dict_of(opt_state["state"])
                 sched = opt.lr_scheduler
                 if sched is not None and "LR_Scheduler" in opt_state:
                     flat["LR_Scheduler"] = opt_state["LR_Scheduler"]

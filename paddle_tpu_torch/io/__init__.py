@@ -1,7 +1,6 @@
 """paddle_tpu_torch.io — datasets, samplers and the DataLoader (port of
-``paddle_tpu.io``).  ``InMemoryDataset`` / ``MultiSlotInMemoryDataset``
-raise ``UnimplementedError``: they go with bench config 5 (ROADMAP queue
-A, training step)."""
+``paddle_tpu.io``), and the native ``InMemoryDataset`` /
+``MultiSlotInMemoryDataset``."""
 from .dataloader import (DataLoader, WorkerInfo, default_collate_fn,
                          default_convert_fn, get_worker_info)
 from .dataset import (ChainDataset, ComposeDataset, ConcatDataset, Dataset,

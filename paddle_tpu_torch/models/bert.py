@@ -158,8 +158,10 @@ class BertEmbeddings(nn.Layer):
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.word = VocabParallelEmbedding(cfg.vocab_size, cfg.hidden_size)
-        self.position = nn.Embedding(cfg.max_position, cfg.hidden_size)
-        self.token_type = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
+        self.position = nn.Embedding(cfg.max_position, cfg.hidden_size,
+                                     std=0.02)
+        self.token_type = nn.Embedding(cfg.type_vocab_size,
+                                       cfg.hidden_size, std=0.02)
         self.ln = nn.LayerNorm(cfg.hidden_size,
                                epsilon=cfg.layer_norm_epsilon)
         self.drop = nn.Dropout(cfg.dropout)

@@ -326,7 +326,8 @@ class GPTModel(nn.Layer):
         _unported(cfg)
         self.cfg = cfg
         self.wte = VocabParallelEmbedding(cfg.vocab_size, cfg.hidden_size)
-        self.wpe = nn.Embedding(cfg.max_position, cfg.hidden_size)
+        self.wpe = nn.Embedding(cfg.max_position, cfg.hidden_size,
+                                std=0.02)
         self.drop = nn.Dropout(cfg.dropout)
         self.blocks = torch.nn.ModuleList(
             [GPTBlock(cfg) for _ in range(cfg.num_layers)])

@@ -13,9 +13,11 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
+from ..framework.errors import UnimplementedError
 from ..framework.random import generator_for
+from ..framework.selected_rows import tap_lookup
+from .functional.common import embedding
 from .layer import Layer
 
 __all__ = ["Linear", "Embedding", "Dropout", "xavier_normal_"]
@@ -62,23 +64,55 @@ class Linear(Layer):
 
 
 class Embedding(Layer):
-    """Lookup table ``weight`` ``[num_embeddings, embedding_dim]``,
-    initialized N(0, ``std``²) — the GPT tables' N(0, 0.02²)."""
+    """Lookup table ``weight`` ``[num_embeddings, embedding_dim]``, drawn
+    N(0, ``std``²) — N(0, 1) by default, as the JAX layer's
+    ``Normal(0, 1)``; the models ask for 0.02 where the JAX ones pass it
+    through ``weight_attr`` (``ParamAttr`` initializers are not ported:
+    ``std`` stands in for them).  The ``padding_idx`` row is zeroed at
+    build, gives zeros in the forward and gets no gradient.
+
+    ``sparse=True`` flags the table for SelectedRows gradients: inside a
+    sparse-aware train step (``hapi.Model`` builds one) the forward goes
+    through :func:`~paddle_tpu_torch.framework.selected_rows.tap_lookup`
+    and the table gets an O(touched-rows) ``(ids, rows)`` gradient; the
+    row-mode optimizers (``Adam(lazy_mode=True)`` …) update only those
+    rows.  Outside such a step the flag is inert and gradients are dense.
+    CONTRACT: a sparse table gets gradients only through this lookup; any
+    other read of ``weight`` (a tied head, a regularization term) trains
+    it as a constant — keep ``sparse=False`` for tied tables."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 std: float = 0.02):
+                 padding_idx: Optional[int] = None, sparse: bool = False,
+                 weight_attr=None, name=None, *, std: float = 1.0):
         super().__init__()
+        if weight_attr is not None:
+            raise UnimplementedError(
+                "Embedding: ParamAttr initializers are not ported yet "
+                "(ROADMAP queue A, training step: nn/initializer.py); pass "
+                "std= for a normal initializer")
         self.num_embeddings = num_embeddings
+        self.embedding_dim = embedding_dim
+        self.padding_idx = padding_idx
+        self.sparse = bool(sparse)
         self.std = std
         self.weight = torch.nn.Parameter(torch.empty(num_embeddings,
                                                      embedding_dim))
+        self.weight.sparse = self.sparse
 
     def reset_parameters(self, generator=None):
         with torch.no_grad():
             self.weight.normal_(0.0, self.std, generator=generator)
+            if self.padding_idx is not None:
+                self.weight[self.padding_idx] = 0.0
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight)
+        if self.sparse:
+            rows = tap_lookup(self.weight, self.weight, ids,
+                              self.num_embeddings,
+                              padding_idx=self.padding_idx)
+            if rows is not None:
+                return rows
+        return embedding(ids, self.weight, padding_idx=self.padding_idx)
 
 
 class Dropout(Layer):

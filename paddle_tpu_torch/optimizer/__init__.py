@@ -1,9 +1,18 @@
-"""paddle_tpu_torch.optimizer — optimizers, lr schedulers and gradient
-clipping (port of ``paddle_tpu.optimizer``; see optimizer.py for the
-rules)."""
+"""paddle_tpu_torch.optimizer — optimizers, weight averaging, lr
+schedulers and gradient clipping (port of ``paddle_tpu.optimizer``; see
+optimizer.py for the rules and their SelectedRows modes).
+``GradientMergeOptimizer`` is in ``optimizer.gradient_merge``, as in the
+JAX package; ``DGCMomentum`` raises ``UnimplementedError`` (distributed
+execution)."""
 from . import lr
+from .averaging import ExponentialMovingAverage, Lookahead, ModelAverage
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
-from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer
+from .dgc import DGCMomentum
+from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Ftrl,
+                        Lamb, Lars, Momentum, Optimizer, RMSProp)
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "lr",
-           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adam", "AdamW",
+           "Adamax", "RMSProp", "Adadelta", "Ftrl", "Lamb", "Lars",
+           "ExponentialMovingAverage", "Lookahead", "ModelAverage",
+           "DGCMomentum", "lr", "ClipGradByValue", "ClipGradByNorm",
+           "ClipGradByGlobalNorm"]

@@ -4,22 +4,40 @@ Parity: paddle.nn.ClipGradByValue / ClipGradByNorm / ClipGradByGlobalNorm
 (reference: python/paddle/fluid/clip.py).  Each is a function from a
 ``{name: grad}`` dict to a new one; the optimizer calls it on the whole
 dict before its step count advances.  Norms are taken in float32 whatever
-the grad dtype, and the scale stays a device tensor (no host sync).
-Dense gradients only.
+the grad dtype, and the scale stays a device tensor (no host sync).  A
+SelectedRows gradient (a sparse table's) is merged first — its duplicate
+ids summed — so a norm counts each row once and a clamp acts on the
+summed row; the clips return it merged.
 """
 from __future__ import annotations
 
 import torch
 
+from ..framework.selected_rows import SelectedRows
+
 __all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
 
 
 def _sq_norm(g):
+    if isinstance(g, SelectedRows):
+        return g.merged().l2_norm_sq()
     return g.float().square().sum()
 
 
 def _scaled(g, scale):
+    if isinstance(g, SelectedRows):
+        g = g.merged()
+        return SelectedRows(g.ids, (g.values.float() * scale).to(g.dtype),
+                            g.height, _merged=True)
     return (g.float() * scale).to(g.dtype)
+
+
+def _clamped(g, lo, hi):
+    if isinstance(g, SelectedRows):
+        g = g.merged()  # clamp the summed row gradient, not its parts
+        return SelectedRows(g.ids, g.values.clamp(lo, hi), g.height,
+                            _merged=True)
+    return g.clamp(lo, hi)
 
 
 class ClipGradByValue:
@@ -30,7 +48,8 @@ class ClipGradByValue:
         self.min = float(min) if min is not None else -float(max)
 
     def __call__(self, grads):
-        return {k: g.clamp(self.min, self.max) for k, g in grads.items()}
+        return {k: _clamped(g, self.min, self.max)
+                for k, g in grads.items()}
 
     def __repr__(self):
         return f"ClipGradByValue(min={self.min}, max={self.max})"

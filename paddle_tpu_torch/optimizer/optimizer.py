@@ -1,5 +1,6 @@
 """Optimizers — port of ``paddle_tpu.optimizer.optimizer`` (the Optimizer
-base, SGD, Momentum, Adam, AdamW).
+base, SGD, Momentum, Adagrad, Adam, AdamW, Adamax, Ftrl, RMSProp,
+Adadelta, Lamb, Lars).
 
 The rules are the JAX package's, not ``torch.optim``'s:
 
@@ -33,8 +34,22 @@ and the eager ``step()`` over the parameters bound by ``parameters=`` or
 by ``hapi.Model.prepare``, reading each parameter's ``.grad`` and
 updating in place.  The per-parameter updates are grouped by device and
 dtype into ``torch._foreach_*`` calls (plain PyTorch, a few launches per
-group instead of ~10 per parameter).  Not ported yet (ROADMAP queue A):
-the other optimizers, SelectedRows/``lazy_mode``, DGC.
+group instead of ~10 per parameter; the rules that are rarely on a hot
+path loop over the parameters).
+
+A :class:`~paddle_tpu_torch.framework.selected_rows.SelectedRows`
+gradient (an ``Embedding(sparse=True)`` table inside a sparse-aware train
+step) goes by the rule's ``_sparse_mode``, as in the JAX package:
+``"row"`` (SGD, Momentum, Adagrad, Ftrl) updates only the touched rows —
+gather the rows of the parameter, the master and every slot, run the same
+rule on them, scatter back, O(k·D) whatever the table's height;
+``"lazy_flag"`` (Adam, AdamW) does so with ``lazy_mode=True`` and
+densifies otherwise (every row's moments decay, the reference's non-lazy
+sparse Adam); ``"dense"`` (Adamax, RMSProp, Adadelta, Lamb, Lars)
+densifies.  Duplicate ids are summed first, in a fixed order; padding and
+out-of-range ids update nothing (``selected_rows.safe_rows``).  Lazy AdamW
+decays the touched rows only.  The JAX Lamb and Lars raise ``TypeError`` on
+a SelectedRows gradient; here they densify, as their sparse mode says.
 """
 from __future__ import annotations
 
@@ -45,11 +60,25 @@ import numpy as np
 import torch
 
 from ..framework.dtype import is_low_precision, numpy_to_tensor
-from ..framework.errors import InvalidArgumentError, UnimplementedError
+from ..framework.errors import InvalidArgumentError
+from ..framework.selected_rows import SelectedRows, safe_rows
 from ..regularizer import L2Decay, WeightDecayRegularizer
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adam", "AdamW",
+           "Adamax", "Ftrl", "RMSProp", "Adadelta", "Lamb", "Lars"]
+
+
+def _clone_tree(tree):
+    """A copy of a state tree: nested dicts, tensors cloned."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _bias_correction(beta: float, count: int) -> float:
+    """``1 - beta^t`` in float32, as the JAX rules compute it."""
+    return float(np.float32(1) - np.float32(beta) ** np.float32(count))
 
 
 def _named(parameters) -> "OrderedDict[str, torch.Tensor]":
@@ -92,6 +121,10 @@ class Optimizer:
 
     #: slots the rule keeps per parameter (besides ``master``)
     _slot_names: Sequence[str] = ()
+    #: how the rule takes a SelectedRows gradient: "row", "lazy_flag" or
+    #: "dense" (the module docstring)
+    _sparse_mode = "dense"
+    _lazy_mode = False
 
     def __init__(self, learning_rate: Union[float, LRScheduler] = 0.001,
                  parameters=None, weight_decay=None,
@@ -147,15 +180,18 @@ class Optimizer:
             slots[s] = torch.zeros_like(acc, dtype=dt)
         return slots
 
+    def _rows_only(self) -> bool:
+        """Whether a SelectedRows gradient updates its rows only."""
+        return self._sparse_mode == "row" or (
+            self._sparse_mode == "lazy_flag" and self._lazy_mode)
+
     def update(self, grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
                params: Mapping[str, torch.Tensor], lr: Optional[float] = None):
         """Pure update (the JAX package's signature): returns
         ``(new_params, new_state)`` and leaves the inputs as they were.
         ``lr`` defaults to :meth:`get_lr`."""
         new_params = {k: p.detach().clone() for k, p in params.items()}
-        new_state = {"count": state["count"],
-                     "slots": {k: {s: t.clone() for s, t in v.items()}
-                               for k, v in state["slots"].items()}}
+        new_state = _clone_tree(state)
         self._apply(grads, new_state, new_params, lr)
         return new_params, new_state
 
@@ -173,6 +209,12 @@ class Optimizer:
                 g = grads.get(name)
                 if g is None:
                     continue
+                if isinstance(g, SelectedRows):
+                    if self._rows_only():
+                        self._sparse_row_rule(p, g, state["slots"][name], lr,
+                                              state["count"], name)
+                        continue
+                    g = g.to_dense()
                 it = _Item(name, p, g, state["slots"][name])
                 groups.setdefault((it.w.device, it.w.dtype), []).append(it)
             for items in groups.values():
@@ -205,9 +247,56 @@ class Optimizer:
     def _use_l2_decay(self, name: str) -> bool:
         return True
 
+    def _sparse_row_rule(self, p, g: SelectedRows, slots, lr, count, name):
+        """Touched-rows-only update, in place: gather the k merged rows of
+        the parameter (or its master) and of every slot, run ``_update`` on
+        them, scatter back.  Padding and out-of-range slots copy a valid
+        slot (same id, same value: the same bits written twice); a
+        gradient with no valid slot writes back what it read."""
+        g = g.merged()
+        if g.ids.shape[0] == 0:
+            return
+        ids, values, keep = safe_rows(g)
+        master = slots.get("master")
+        src = master if master is not None else p
+        w_rows = src.index_select(0, ids)
+        if master is None and is_low_precision(p):
+            w_rows = w_rows.float()  # the working copy, as in _Item
+        g_rows = values.to(w_rows.dtype)
+        if self._use_l2_decay(name):
+            if self._regularizer is not None:
+                g_rows = g_rows + self._regularizer(w_rows).to(w_rows.dtype)
+            elif self._weight_decay:
+                g_rows = g_rows + self._weight_decay * w_rows
+        old = {s: slots[s].index_select(0, ids) for s in self._slot_names}
+        new = {s: v.clone() for s, v in old.items()}
+        new_w = w_rows.clone()
+        self._update([new_w], [g_rows], {s: [v] for s, v in new.items()},
+                     lr, count)
+        new_w = self._finish_rows(new_w, name, lr, master is not None,
+                                  p.dtype)
+        for s in self._slot_names:
+            slots[s].index_copy_(0, ids, torch.where(keep, new[s], old[s]))
+        new_w = torch.where(keep, new_w, w_rows)
+        if master is not None:
+            master.index_copy_(0, ids, new_w)
+        p.index_copy_(0, ids, new_w.to(p.dtype))
+
+    def _finish_rows(self, rows, name, lr, has_master, p_dtype):
+        """The updated rows before they are written back (lazy AdamW
+        decays them here)."""
+        return rows
+
     def _update(self, ws, gs, slots, lr, count):
         """The rule over lists: update ``ws`` and the ``slots`` lists in
-        place."""
+        place (by default :meth:`_update_one` on each parameter)."""
+        for i, (w, g) in enumerate(zip(ws, gs)):
+            self._update_one(w, g, {s: v[i] for s, v in slots.items()},
+                             lr, count)
+
+    def _update_one(self, w, g, slots, lr, count):
+        """The rule on one parameter: update ``w`` and ``slots`` (``{name:
+        tensor}``) in place."""
         raise NotImplementedError
 
     # -- eager API -----------------------------------------------------------
@@ -307,12 +396,25 @@ class Optimizer:
                 else:
                     slots[sname] = v.to(params[pname].device).clone()
 
+    @staticmethod
+    def _state_dict_of(tree) -> Dict[str, Any]:
+        """The flat :meth:`state_dict` form of a ``{"count", "slots"}``
+        state tree (what ``Model.save`` writes)."""
+        flat: Dict[str, Any] = {"count": tree["count"]}
+        for pname, slots in tree["slots"].items():
+            for sname, v in slots.items():
+                flat[f"{pname}.{sname}"] = v
+        return flat
+
     def __repr__(self):
         return f"{type(self).__name__}(lr={self.get_lr()})"
 
 
 class SGD(Optimizer):
-    """param -= lr * grad."""
+    """param -= lr * grad; a SelectedRows gradient updates its rows only
+    (the reference's sparse sgd kernel)."""
+
+    _sparse_mode = "row"
 
     def _update(self, ws, gs, slots, lr, count):
         torch._foreach_add_(ws, gs, alpha=-lr)
@@ -320,9 +422,11 @@ class SGD(Optimizer):
 
 class Momentum(Optimizer):
     """Heavy-ball / Nesterov momentum: velocity = mu·velocity + grad;
-    param -= lr·velocity (nesterov: param -= (grad + mu·velocity)·lr)."""
+    param -= lr·velocity (nesterov: param -= (grad + mu·velocity)·lr); a
+    SelectedRows gradient updates its rows only."""
 
     _slot_names = ("velocity",)
+    _sparse_mode = "row"
 
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
@@ -347,24 +451,25 @@ class Momentum(Optimizer):
 class Adam(Optimizer):
     """Adam with bias correction from the shared step count:
     ``m = b1·m + (1-b1)·g``, ``v = b2·v + (1-b2)·g²``,
-    ``w -= lr·(m/(1-b1^t)) / (sqrt(v/(1-b2^t)) + eps)``."""
+    ``w -= lr·(m/(1-b1^t)) / (sqrt(v/(1-b2^t)) + eps)``.
+
+    ``lazy_mode=True``: a SelectedRows gradient updates only the touched
+    rows' parameters AND moments; otherwise it is densified and every
+    row's moments decay."""
 
     _slot_names = ("moment1", "moment2")
+    _sparse_mode = "lazy_flag"
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False,
                  name=None):
-        if lazy_mode:
-            raise UnimplementedError(
-                "Adam(lazy_mode=True) updates SelectedRows rows only; "
-                "sparse gradients are not ported yet (ROADMAP queue A, "
-                "training step)")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, multi_precision)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
+        self._lazy_mode = bool(lazy_mode)
 
     def _update(self, ws, gs, slots, lr, count):
         b1, b2 = self._beta1, self._beta2
@@ -376,9 +481,8 @@ class Adam(Optimizer):
         torch._foreach_mul_(v, b2)
         torch._foreach_add_(v, sq)
         # bias corrections in float32, as the JAX rule computes them
-        t = np.float32(count)
-        bc1 = float(np.float32(1) - np.float32(b1) ** t)
-        bc2 = float(np.float32(1) - np.float32(b2) ** t)
+        bc1 = _bias_correction(b1, count)
+        bc2 = _bias_correction(b2, count)
         mhat = torch._foreach_div(m, bc1)
         den = torch._foreach_div(v, bc2)
         torch._foreach_sqrt_(den)
@@ -392,7 +496,9 @@ class AdamW(Adam):
     """Adam with decoupled weight decay, applied to the parameter after
     the Adam step (``torch.optim.AdamW`` decays before it).
     ``apply_decay_param_fun(name) -> bool`` picks the decayed parameters
-    by dotted name."""
+    by dotted name.  With ``lazy_mode=True`` a SelectedRows gradient
+    decays the touched rows only: rows absent from the batch are left
+    entirely as they were."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
@@ -414,9 +520,21 @@ class AdamW(Adam):
     def _use_l2_decay(self, name):
         return False
 
+    def _decays(self, name) -> bool:
+        return bool(self._coeff) and (self._decay_fn is None
+                                      or self._decay_fn(name))
+
+    def _finish_rows(self, rows, name, lr, has_master, p_dtype):
+        if not self._decays(name):
+            return rows
+        factor = 1.0 - lr * self._coeff
+        if has_master or not is_low_precision(p_dtype):
+            return rows * factor
+        # the JAX rule decays the parameter as stored (rounded), in f32
+        return rows.to(p_dtype).float() * factor
+
     def _finish(self, items, lr):
-        decayed = [it for it in items if self._coeff and (
-            self._decay_fn is None or self._decay_fn(it.name))]
+        decayed = [it for it in items if self._decays(it.name)]
         masters = [it.master for it in decayed if it.master is not None]
         if masters:  # new = new - lr·coeff·new, on the master
             torch._foreach_add_(masters, masters, alpha=-lr * self._coeff)
@@ -424,3 +542,225 @@ class AdamW(Adam):
         plain = [it.p for it in decayed if it.master is None]
         if plain:  # on the parameter as stored (rounded), in float32 math
             torch._foreach_mul_(plain, 1.0 - lr * self._coeff)
+
+
+class Adagrad(Optimizer):
+    """``moment += g²; w -= lr·g / (sqrt(moment) + eps)``; the moment is
+    float32 whatever the parameter's dtype and starts at
+    ``initial_accumulator_value``.  A SelectedRows gradient updates its
+    rows only."""
+
+    _slot_names = ("moment",)
+    _sparse_mode = "row"
+
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 initial_accumulator_value=0.0, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _init_slots(self, p):
+        slots = super()._init_slots(p)
+        slots["moment"] = torch.full_like(slots["moment"], self._init_acc,
+                                          dtype=torch.float32)
+        return slots
+
+    def _update_one(self, w, g, slots, lr, count):
+        m = slots["moment"]
+        m.add_(g.square())
+        w.sub_(lr * g / (m.sqrt() + self._epsilon))
+
+
+class Ftrl(Optimizer):
+    """FTRL-proximal: a squared-gradient and a linear accumulator with an
+    L1 soft threshold (``lr_power=-0.5`` is McMahan et al.'s schedule).  A
+    SelectedRows gradient updates its rows only (the CTR optimizer of the
+    reference's parameter servers)."""
+
+    _slot_names = ("squared", "linear")
+    _sparse_mode = "row"
+
+    def __init__(self, learning_rate=0.001, l1=0.0, l2=0.0, lr_power=-0.5,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._l1 = l1
+        self._l2 = l2
+        self._lr_power = lr_power
+
+    def _update_one(self, w, g, slots, lr, count):
+        sq, lin = slots["squared"], slots["linear"]
+        g = g.to(sq.dtype)
+        wf = w.to(g.dtype)
+        new_sq = sq + g.square()
+        if self._lr_power == -0.5:
+            sigma = (new_sq.sqrt() - sq.sqrt()) / lr
+            y = new_sq.sqrt() / lr + 2.0 * self._l2
+        else:
+            p = -self._lr_power
+            sigma = (new_sq.pow(p) - sq.pow(p)) / lr
+            y = new_sq.pow(p) / lr + 2.0 * self._l2
+        lin.add_(g - sigma * wf)
+        x = torch.sign(lin) * self._l1 - lin
+        new_w = torch.where(lin.abs() > self._l1, x / y,
+                            torch.zeros_like(wf))
+        sq.copy_(new_sq)
+        w.copy_(new_w)
+
+
+class Adamax(Optimizer):
+    """The infinity-norm Adam: ``m = b1·m + (1-b1)·g``,
+    ``u = max(b2·u, |g|)``, ``w -= (lr / (1-b1^t))·m / (u + eps)``."""
+
+    _slot_names = ("moment", "inf_norm")
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _update_one(self, w, g, slots, lr, count):
+        m, u = slots["moment"], slots["inf_norm"]
+        m.mul_(self._beta1).add_((1 - self._beta1) * g)
+        torch.maximum(self._beta2 * u, g.abs(), out=u)
+        step = lr / _bias_correction(self._beta1, count)
+        w.sub_(step * m / (u + self._epsilon))
+
+
+class RMSProp(Optimizer):
+    """RMSProp with optional centering and momentum:
+    ``ms = rho·ms + (1-rho)·g²``, ``mom = momentum·mom + lr·g /
+    sqrt(ms [- mg²] + eps)``, ``w -= mom``."""
+
+    _slot_names = ("mean_square", "momentum_acc")
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+        if centered:
+            self._slot_names = ("mean_square", "momentum_acc", "mean_grad")
+
+    def _update_one(self, w, g, slots, lr, count):
+        rho = self._rho
+        ms = slots["mean_square"]
+        ms.mul_(rho).add_((1 - rho) * g.square())
+        if self._centered:
+            mg = slots["mean_grad"]
+            mg.mul_(rho).add_((1 - rho) * g)
+            denom = (ms - mg.square() + self._epsilon).sqrt()
+        else:
+            denom = (ms + self._epsilon).sqrt()
+        mom = slots["momentum_acc"]
+        mom.mul_(self._momentum).add_(lr * g / denom)
+        w.sub_(mom)
+
+
+class Adadelta(Optimizer):
+    """``asg = rho·asg + (1-rho)·g²``, ``upd = g·sqrt(asu + eps) /
+    sqrt(asg + eps)``, ``asu = rho·asu + (1-rho)·upd²``,
+    ``w -= lr·upd``."""
+
+    _slot_names = ("avg_squared_grad", "avg_squared_update")
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._rho, self._epsilon = rho, epsilon
+
+    def _update_one(self, w, g, slots, lr, count):
+        rho, eps = self._rho, self._epsilon
+        asg, asu = slots["avg_squared_grad"], slots["avg_squared_update"]
+        asg.mul_(rho).add_((1 - rho) * g.square())
+        upd = g * (asu + eps).sqrt() / (asg + eps).sqrt()
+        asu.mul_(rho).add_((1 - rho) * upd.square())
+        w.sub_(lr * upd)
+
+
+class Lamb(Optimizer):
+    """LAMB: the Adam step ``r`` scaled per parameter by the trust ratio
+    ``||w|| / ||r + wd·w||``; ``exclude_from_weight_decay_fn(name)`` exempts
+    parameters from ``lamb_weight_decay``.  Whole-parameter norms: a
+    SelectedRows gradient is densified."""
+
+    _slot_names = ("moment1", "moment2")
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, None, grad_clip, name,
+                         multi_precision)
+        self._wd = lamb_weight_decay
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _step_group(self, items, lr, count):
+        for it in items:
+            wd = 0.0 if (self._exclude_fn and self._exclude_fn(it.name)) \
+                else self._wd
+            self._update_one(it.w, it.g, it.slots, lr, count, wd)
+        self._finish(items, lr)
+
+    def _update_one(self, w, g, slots, lr, count, wd=None):
+        b1, b2 = self._beta1, self._beta2
+        m, v = slots["moment1"], slots["moment2"]
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g.square())
+        mhat = m / _bias_correction(b1, count)
+        vhat = v / _bias_correction(b2, count)
+        upd = mhat / (vhat.sqrt() + self._epsilon) + \
+            (self._wd if wd is None else wd) * w
+        w_norm = w.square().sum().sqrt()
+        u_norm = upd.square().sum().sqrt()
+        trust = torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm,
+                            torch.ones_like(w_norm))
+        w.sub_(lr * trust * upd)
+
+
+class Lars(Momentum):
+    """LARS on top of momentum: ``local_lr = coeff·||w|| / (||g|| +
+    decay·||w|| + eps)``, ``v = mu·v + lr·local_lr·(g + decay·w)``,
+    ``w -= v``; a parameter whose name contains a pattern of
+    ``exclude_from_weight_decay`` gets no decay.  Whole-parameter norms: a
+    SelectedRows gradient is densified."""
+
+    _sparse_mode = "dense"
+
+    def __init__(self, learning_rate=0.001, momentum=0.9,
+                 lars_coeff=0.001, lars_weight_decay=0.0005,
+                 parameters=None, grad_clip=None, name=None,
+                 exclude_from_weight_decay=None, epsilon=0,
+                 multi_precision=False):
+        super().__init__(learning_rate, momentum, parameters, False,
+                         None, grad_clip, multi_precision, name)
+        self._lars_coeff = lars_coeff
+        self._lars_wd = lars_weight_decay
+        self._exclude = exclude_from_weight_decay or []
+        self._lars_eps = epsilon
+
+    def _step_group(self, items, lr, count):
+        for it in items:
+            decay = 0.0 if any(pat in it.name for pat in self._exclude) \
+                else self._lars_wd
+            w, g, v = it.w, it.g, it.slots["velocity"]
+            w_norm = w.square().sum().sqrt()
+            g_norm = g.square().sum().sqrt()
+            local_lr = torch.where(
+                (w_norm > 0) & (g_norm > 0),
+                self._lars_coeff * w_norm
+                / (g_norm + decay * w_norm + self._lars_eps),
+                torch.ones_like(w_norm))
+            v.mul_(self._momentum).add_(lr * local_lr * (g + decay * w))
+            w.sub_(v)
+        self._finish(items, lr)

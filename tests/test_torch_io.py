@@ -313,6 +313,14 @@ def test_exact_resume_mid_epoch(shuffle, superbatch):
 @pytest.mark.parametrize("name", ["InMemoryDataset",
                                   "MultiSlotInMemoryDataset"])
 def test_in_memory_datasets_raise_citing_the_roadmap(name):
+    """Ported since the sparse CTR slice (tests/test_torch_in_memory_
+    dataset.py holds them against JAX's): both packages refuse a dataset
+    without slots the same way."""
     assert hasattr(jio, name)
-    with pytest.raises(UnimplementedError, match="ROADMAP.*bench config 5"):
-        getattr(tio, name)()
+    from paddle_tpu.framework.errors import InvalidArgumentError as JErr
+
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+    with pytest.raises(JErr, match="at least one slot"):
+        getattr(jio, name)(slots=[])
+    with pytest.raises(InvalidArgumentError, match="at least one slot"):
+        getattr(tio, name)(slots=[])

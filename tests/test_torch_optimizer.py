@@ -1,6 +1,10 @@
 """Port of the optimizers, regularizers, clips and lr schedulers
 (paddle_tpu_torch/optimizer, paddle_tpu_torch/regularizer.py) held
-against the JAX package's functional ``opt.init`` / ``opt.update``.
+against the JAX package's functional ``opt.init`` / ``opt.update``: every
+rule (SGD, Momentum, Adam, AdamW, and since the sparse slice Adagrad,
+Ftrl, Adamax, RMSProp, Adadelta, Lamb, Lars), the weight averaging
+(EMA, ModelAverage, Lookahead) and gradient merge over four steps, and a
+JAX optimizer state loaded into the port and stepped once more.
 
 Three steps on numpy parameters and gradients from a seed, with the
 learning rate passed as the JAX training step passes it (a float32
@@ -53,6 +57,22 @@ CASES = {
         apply_decay_param_fun=lambda n: not n.endswith("weight"), **k),
     "adamw_scheduler": lambda o, r, s, **k: o.AdamW(
         s.StepDecay(1e-2, step_size=1, gamma=0.5), weight_decay=0.01, **k),
+    "adagrad": lambda o, r, s, **k: o.Adagrad(0.1, **k),
+    "adagrad_init_acc_l2": lambda o, r, s, **k: o.Adagrad(
+        0.1, initial_accumulator_value=0.1, weight_decay=0.01, **k),
+    "ftrl": lambda o, r, s, **k: o.Ftrl(0.1, l1=1e-3, l2=0.01, **k),
+    "ftrl_lr_power": lambda o, r, s, **k: o.Ftrl(0.1, lr_power=-0.7, **k),
+    "adamax": lambda o, r, s, **k: o.Adamax(1e-2, **k),
+    "rmsprop": lambda o, r, s, **k: o.RMSProp(1e-2, **k),
+    "rmsprop_centered_momentum": lambda o, r, s, **k: o.RMSProp(
+        1e-2, centered=True, momentum=0.9, **k),
+    "adadelta": lambda o, r, s, **k: o.Adadelta(1.0, **k),
+    "lamb": lambda o, r, s, **k: o.Lamb(1e-2, lamb_weight_decay=0.01, **k),
+    "lamb_exclude_fn": lambda o, r, s, **k: o.Lamb(
+        1e-2, exclude_from_weight_decay_fn=lambda n: n == "b", **k),
+    "lars": lambda o, r, s, **k: o.Lars(0.1, lars_coeff=0.01, **k),
+    "lars_exclude": lambda o, r, s, **k: o.Lars(
+        0.1, exclude_from_weight_decay=["ln"], **k),
 }
 DTYPES = {"float32": (np.float32, False), "float32_mp": (np.float32, True),
           "bfloat16": ("bfloat16", False), "bfloat16_mp": ("bfloat16", True)}
@@ -229,3 +249,218 @@ def test_reduce_on_plateau_matches_jax_over_20_steps():
         ts.step(m)
         assert ts() == js()
     assert ts() < 0.1
+
+
+# -- weight averaging and gradient merge, four steps --------------------------
+AVG_STEPS = 4
+
+
+def _grads_list(seed):
+    _, grads = _data(seed)
+    rng = np.random.RandomState(seed + 100)
+    grads.append({k: rng.randn(*s).astype(np.float32)
+                  for k, s in SHAPES.items()})
+    return grads
+
+
+def _jax_params(params):
+    return {k: jnp.asarray(v) for k, v in params.items()}
+
+
+def _torch_params(params):
+    return {k: torch.tensor(v) for k, v in params.items()}
+
+
+def _assert_tree(t, j, path=""):
+    if isinstance(t, dict):
+        assert set(t) == set(j), (path, set(t), set(j))
+        for k in t:
+            _assert_tree(t[k], j[k], f"{path}.{k}")
+    else:
+        np.testing.assert_allclose(_f32(t), _f32(j), rtol=1e-5, atol=1e-6,
+                                   err_msg=path)
+
+
+@pytest.mark.parametrize("inner", ["sgd", "adam", "adamw_mp_bf16"])
+def test_lookahead_four_steps_match_jax(inner):
+    make = {"sgd": lambda o: o.SGD(0.1),
+            "adam": lambda o: o.Adam(1e-2),
+            "adamw_mp_bf16": lambda o: o.AdamW(
+                1e-2, weight_decay=0.05, multi_precision=True)}[inner]
+    bf16 = inner.endswith("bf16")
+    params, _ = _data(7)
+    grads = _grads_list(7)
+    jl = jopt.Lookahead(make(jopt), alpha=0.5, k=2)
+    tl = topt.Lookahead(make(topt), alpha=0.5, k=2)
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if bf16
+                else (jnp.float32, torch.float32))
+    jp = {k: jnp.asarray(v, jdt) for k, v in params.items()}
+    tp = {k: torch.tensor(v, dtype=tdt) for k, v in params.items()}
+    js, ts = jl.init(jp), tl.init(tp)
+    for g in grads:
+        jp, js = jl.update({k: jnp.asarray(v, jdt) for k, v in g.items()},
+                           js, jp, lr=jnp.asarray(jl.get_lr(), jnp.float32))
+        tp, ts = tl.update({k: torch.tensor(v, dtype=tdt)
+                            for k, v in g.items()}, ts, tp)
+    assert ts["count"] == int(js["count"]) == AVG_STEPS
+    tol = dict(rtol=1e-2, atol=1e-2) if bf16 else dict(rtol=1e-5, atol=1e-6)
+    for k in SHAPES:
+        np.testing.assert_allclose(_f32(tp[k]), _f32(jp[k]), err_msg=k,
+                                   **tol)
+        np.testing.assert_allclose(_f32(ts["slow"][k]), _f32(js["slow"][k]),
+                                   err_msg=k, rtol=1e-5, atol=1e-6)
+    sd = topt.Lookahead(make(topt), k=2)
+    assert sd.state_dict() == {}
+
+
+@pytest.mark.parametrize("k_steps,avg", [(2, True), (4, False), (1, True)])
+def test_gradient_merge_four_steps_matches_jax(k_steps, avg):
+    from paddle_tpu.optimizer.gradient_merge import \
+        GradientMergeOptimizer as JGM
+    from paddle_tpu_torch.optimizer.gradient_merge import \
+        GradientMergeOptimizer as TGM
+
+    params, _ = _data(8)
+    grads = _grads_list(8)
+    jg = JGM(jopt.Adam(1e-2), k_steps=k_steps, avg=avg)
+    tg = TGM(topt.Adam(1e-2), k_steps=k_steps, avg=avg)
+    jp, tp = _jax_params(params), _torch_params(params)
+    js, ts = jg.init(jp), tg.init(tp)
+    for g in grads:
+        jp, js = jg.update(_jax_params(g), js, jp,
+                           lr=jnp.asarray(1e-2, jnp.float32))
+        tp, ts = tg.update(_torch_params(g), ts, tp)
+    assert ts["count"] == int(js["count"]) == AVG_STEPS // k_steps
+    _assert_tree(tp, jp)
+    _assert_tree(ts["slots"], js["slots"])
+
+
+def _layer_pair(seed):
+    import paddle_tpu as jpt
+    from paddle_tpu import nn as jnn
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.bridge import load_jax_params
+
+    jpt.seed(seed)
+    jnet = jnn.Linear(5, 3)
+    tnet = tnn.Linear(5, 3)
+    load_jax_params(tnet, {k: np.asarray(p.value)
+                           for k, p in jnet.named_parameters()})
+    return jnet, tnet
+
+
+@pytest.mark.parametrize("which", ["ema", "ema_thres", "model_average"])
+def test_ema_and_model_average_four_steps_match_jax(which):
+    make = {"ema": lambda o, n: o.ExponentialMovingAverage(n, decay=0.9),
+            "ema_thres": lambda o, n: o.ExponentialMovingAverage(
+                n, decay=0.99, thres_steps=True),
+            "model_average": lambda o, n: o.ModelAverage(
+                n, average_window_rate=0.5, min_average_window=2,
+                max_average_window=3)}[which]
+    jnet, tnet = _layer_pair(9)
+    jo = jopt.SGD(0.1, parameters=jnet.parameters())
+    to = topt.SGD(0.1, parameters=list(tnet.parameters()))
+    ja, ta = make(jopt, jnet), make(topt, tnet)
+    rng = np.random.RandomState(9)
+    for _ in range(AVG_STEPS):
+        g = [rng.randn(5, 3).astype(np.float32),
+             rng.randn(3).astype(np.float32)]
+        jo.step([jnp.asarray(x) for x in g])
+        to.step([torch.tensor(x) for x in g])
+        ja.update()
+        ta.update()
+    trained = {k: p.detach().clone() for k, p in tnet.named_parameters()}
+    with ja.apply(), ta.apply():
+        for k, p in tnet.named_parameters():
+            np.testing.assert_allclose(
+                p.detach().numpy(),
+                np.asarray(dict(jnet.named_parameters())[k].value),
+                rtol=1e-5, atol=1e-6, err_msg=k)
+            assert not torch.equal(p, trained[k])
+    for k, p in tnet.named_parameters():  # restored
+        assert torch.equal(p.detach(), trained[k])
+
+
+# -- a JAX optimizer state resumes in the port --------------------------------
+RESUME = {
+    "momentum": lambda o: o.Momentum(0.1, momentum=0.9),
+    "adam": lambda o: o.Adam(1e-2),
+    "adamw_mp": lambda o: o.AdamW(1e-2, weight_decay=0.05,
+                                  multi_precision=True),
+    "adagrad": lambda o: o.Adagrad(0.1, initial_accumulator_value=0.1),
+    "ftrl": lambda o: o.Ftrl(0.1, l1=1e-3, l2=0.01),
+    "rmsprop_centered": lambda o: o.RMSProp(1e-2, centered=True,
+                                            momentum=0.9),
+    "adadelta": lambda o: o.Adadelta(1.0),
+    "lamb": lambda o: o.Lamb(1e-2),
+    "lars": lambda o: o.Lars(0.1, lars_coeff=0.01),
+}
+
+
+@pytest.mark.parametrize("case", list(RESUME))
+def test_jax_state_dict_resumes_in_the_port(case):
+    """Two JAX steps, the state as ``state_dict`` keys (``count``,
+    ``<param>.<slot>``, numpy leaves) into a port optimizer bound to the
+    same parameters, one eager port step: equal to JAX's third step."""
+    params, grads = _data(11)
+    jo = RESUME[case](jopt)
+    jp = _jax_params(params)
+    js = jo.init(jp)
+    for g in grads[:2]:
+        jp, js = jo.update(_jax_params(g), js, jp,
+                           lr=jnp.asarray(jo.get_lr(), jnp.float32))
+    flat = {"count": np.asarray(js["count"])}
+    for pname, slots in js["slots"].items():
+        for sname, v in slots.items():
+            flat[f"{pname}.{sname}"] = np.asarray(v)
+    bound = {k: torch.tensor(np.asarray(v), requires_grad=True)
+             for k, v in jp.items()}
+    to = RESUME[case](topt)
+    to._bind(bound)
+    to.set_state_dict(flat)
+    to.step({k: torch.tensor(v) for k, v in grads[2].items()})
+    jp, js = jo.update(_jax_params(grads[2]), js, jp,
+                       lr=jnp.asarray(jo.get_lr(), jnp.float32))
+    assert to.state_dict()["count"] == int(js["count"]) == 3
+    for k in SHAPES:
+        np.testing.assert_allclose(bound[k].detach().numpy(),
+                                   np.asarray(jp[k]), rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+    _assert_tree(to._state["slots"], js["slots"])
+
+
+@pytest.mark.parametrize("wrapper", ["lookahead", "gradient_merge"])
+def test_wrapped_optimizer_state_survives_model_save_and_load(tmp_path,
+                                                              wrapper):
+    """``Model.save`` writes a wrapper's whole state tree (Lookahead's
+    ``{"inner", "slow", "count"}``, gradient merge's slots with their
+    ``gm_acc`` and micro-step) and ``Model.load`` restores it, so a
+    resumed run steps exactly as the uninterrupted one."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.optimizer.gradient_merge import \
+        GradientMergeOptimizer
+
+    def make():
+        net = tnn.Linear(5, 3)
+        net.reset_parameters(torch.Generator().manual_seed(0))
+        inner = topt.Adam(1e-2)
+        opt = (topt.Lookahead(inner, alpha=0.5, k=2) if wrapper == "lookahead"
+               else GradientMergeOptimizer(inner, k_steps=2))
+        return net, tpt.Model(net, inputs=1, labels=1).prepare(
+            optimizer=opt, loss=lambda o, y: ((o - y) ** 2).mean())
+
+    rng = np.random.RandomState(0)
+    batches = [(rng.randn(4, 5).astype(np.float32),
+                rng.randn(4, 3).astype(np.float32)) for _ in range(5)]
+    net, m = make()
+    for x, y in batches[:3]:
+        m.train_batch([x], [y])
+    m.save(str(tmp_path / "ckpt"))
+    twin, m2 = make()
+    m2.load(str(tmp_path / "ckpt"))
+    for x, y in batches[3:]:
+        m.train_batch([x], [y])
+        m2.train_batch([x], [y])
+    for (k, a), b in zip(net.named_parameters(), twin.parameters()):
+        torch.testing.assert_close(b, a, rtol=0, atol=0, msg=k)

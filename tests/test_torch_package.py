@@ -28,7 +28,8 @@ PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / "torch_resnet_conditioning.py",
     ROOT / "tools" / "torch_flash_bwd_rounding.py",
     ROOT / "tools" / "torch_kernel_ab.py",
-    ROOT / "tools" / "torch_serve_train_ab.py"]
+    ROOT / "tools" / "torch_serve_train_ab.py",
+    ROOT / "tools" / "torch_sparse_step_ab.py"]
 
 
 def _forbidden(mod: str) -> bool:
@@ -62,6 +63,11 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
     assert "paddle_tpu_torch.ops.grouped_matmul" in mods
     assert "paddle_tpu_torch.moe.layer" in mods
     assert "paddle_tpu_torch.moe.stats" in mods
+    for mod in ("framework.selected_rows", "models.wide_deep", "native",
+                "io.in_memory_dataset", "optimizer.averaging",
+                "optimizer.gradient_merge", "optimizer.dgc",
+                "nn.functional.common"):
+        assert f"paddle_tpu_torch.{mod}" in mods, mod
     assert [m for m in mods if _forbidden(m)] == []
 
 
@@ -126,3 +132,26 @@ def test_library_path_changes_with_a_shared_header(tmp_path, monkeypatch):
     assert second != first and second.name.startswith("k-")
     (tmp_path / "k.cu").write_text(src % "-")
     assert _build.library_path("k") not in (first, second)
+
+
+def test_native_ingest_is_built_lazily_inside_the_checkout():
+    """The ingest engine is the port's own copy of the C++ source, built
+    with g++ into the package's gitignored ``native/_build`` on first use
+    (never at import), keyed by the source and the flags."""
+    from paddle_tpu_torch import native
+
+    code = ("import paddle_tpu_torch.native as n, paddle_tpu_torch.io\n"
+            "print(n._lib is None)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.split() == ["True"], out.stderr
+    path = native.library_path()
+    assert path.parent == ROOT / "paddle_tpu_torch" / "native" / "_build"
+    assert native.SRC == ROOT / "paddle_tpu_torch" / "native" / "ingest.cc"
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert "paddle_tpu_torch/native/_build/" in ignored
+    jax_src = (ROOT / "paddle_tpu" / "native" / "ingest.cc").read_text()
+    port_src = native.SRC.read_text()
+    body = "#include <atomic>"
+    assert port_src[port_src.index(body):] == jax_src[jax_src.index(body):]

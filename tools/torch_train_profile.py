@@ -2,7 +2,8 @@
 """Where the device time of the port's training step goes, on one card.
 
     python3 tools/torch_train_profile.py \
-        [--model bert|gpt|both|resnet50|gpt_long|gpt_long_train|gpt_moe]
+        [--model bert|gpt|both|resnet50|gpt_long|gpt_long_train|gpt_moe|
+                 wide_deep]
 
 Builds ``chip_smoke.py``'s training workloads — BERT-base bf16
 pretraining at batch 256 x 128 with 20 masked positions and
@@ -47,6 +48,15 @@ model itself carries none) and charges each backward kernel to the range
 of the forward op its autograd node came from (the profiler's sequence
 numbers); the expert matmuls' backward (``_GroupedMatmulBackward``, the
 two masked products in plain PyTorch) and AdamW are groups of their own.
+
+``wide_deep`` is ``chip_smoke.py`` phase S2's step: ``WideDeep`` at a
+million ids (8 fields, dim 32, dense 8, MLP 64-32) with sparse tables and
+``Adam(1e-3, lazy_mode=True)`` at batch 256 (numpy batches, as the ingest
+hands them over).  Its step is bound by the host, so the phases are host
+milliseconds around synchronized calls — the sparse gradient (the tape's
+forward and backward, ``build_sparse_step``) and the optimizer step (the
+tables' row rules and the dense layers' foreach Adam) — and the profile
+adds the launches of the step and the ops with the most host time.
 
 Numbers under the profiler run slower than ``chip_smoke.py``'s; read the
 shares, not the absolute times.  Exits non-zero without a card.
@@ -105,6 +115,23 @@ def build(torch, which):
                                          gpt_small)
 
     ptt.seed(cs.SEED)
+    if which == "wide_deep":
+        from paddle_tpu_torch.models import WideDeep
+
+        net = WideDeep(num_fields=cs.S2_FIELDS, vocab_size=cs.CTR_VOCAB,
+                       embed_dim=cs.S2_EMBED, dense_dim=cs.S2_DENSE,
+                       hidden_sizes=cs.S2_HIDDEN, sparse=True)
+        model = ptt.Model(net, inputs=["sparse", "dense"],
+                          labels=["label"])
+        model.prepare(optimizer=ptt.optimizer.Adam(1e-3, lazy_mode=True),
+                      loss=net.loss)
+        rng = np.random.RandomState(cs.SEED + 400)
+        table = rng.randn(cs.CTR_VOCAB)
+        w_dense = rng.randn(cs.S2_DENSE) * 0.5
+        ids, xd, y = cs._ctr_clicks(np, cs.S2_B, rng, table, w_dense,
+                                    cs.S2_FIELDS, cs.S2_DENSE)
+        return (f"wide_deep 1M x {cs.S2_EMBED} sparse lazy-Adam "
+                f"batch {cs.S2_B}", model, [ids, xd], [y])
     if which == "gpt_moe":
         net = cs.moe_model(torch, "bfloat16")
         opt = ptt.optimizer.AdamW(1e-4, weight_decay=0.01,
@@ -179,6 +206,34 @@ def phases(torch, model, inputs, labels, steps):
         torch.cuda.synchronize()
         for i in range(3):
             tot[i] += ev[i].elapsed_time(ev[i + 1])
+    return [t / steps for t in tot]
+
+
+def sparse_phases(torch, model, inputs, labels, steps):
+    """Mean host ms, each part synchronized, of the sparse step's batch
+    staging, gradient (``build_sparse_step``) and optimizer step."""
+    from paddle_tpu_torch.framework.selected_rows import build_sparse_step
+
+    tot = [0.0, 0.0, 0.0]
+    model.network.train()
+    params = dict(model.network.named_parameters())
+    shapes = {n: tuple(params[n].shape) for n in model._sparse.values()}
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = model._batch(inputs, labels)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fl = lambda _p: (model._forward_loss(batch)[0], None)
+        _, grads = build_sparse_step(fl, model._sparse, shapes)(params)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        model._optimizer.step(grads)
+        model._optimizer.clear_grad()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for i, (a, b) in enumerate(((t0, t1), (t1, t2), (t2, t3))):
+            tot[i] += (b - a) * 1e3
     return [t / steps for t in tot]
 
 
@@ -287,7 +342,10 @@ def profile_step(torch, run, inputs, labels, ranges=False):
             us = e.self_cuda_time_total
         rows.append((float(us), e.count, e.key))
     rows.sort(reverse=True)
-    return wall_us, rows, by_range(prof.events()) if ranges else None
+    host_ops = sorted(((float(e.self_cpu_time_total), e.count, e.key)
+                       for e in prof.key_averages()), reverse=True)
+    return (wall_us, rows, by_range(prof.events()) if ranges else None,
+            host_ops)
 
 
 def main() -> int:
@@ -296,7 +354,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=("bert", "gpt", "both", "resnet50",
                                         "gpt_long", "gpt_long_train",
-                                        "gpt_moe"),
+                                        "gpt_moe", "wide_deep"),
                     default="both")
     ap.add_argument("--steps", type=int, default=5,
                     help="steps averaged by the phase timing")
@@ -320,6 +378,14 @@ def main() -> int:
             ms = eval_ms(torch, model, inputs, labels, args.steps)
             print(f"phases[{gpu}] {label}: eval_batch {ms:.2f} ms, mean of "
                   f"{args.steps} calls")
+        elif which == "wide_deep":
+            stage, grad, opt = sparse_phases(torch, model, inputs, labels,
+                                             args.steps)
+            step = stage + grad + opt
+            print(f"phases[{gpu}] {label}: host step {step:.3f} ms = batch "
+                  f"to the card {stage:.3f} + sparse gradient {grad:.3f} + "
+                  f"optimizer {opt:.3f} (each synchronized), mean of "
+                  f"{args.steps} steps")
         else:
             fwd, bwd, opt = phases(torch, model, inputs, labels, args.steps)
             step = fwd + bwd + opt
@@ -330,8 +396,8 @@ def main() -> int:
                   f"of {args.steps} steps")
         if which == "gpt_moe":
             label_ranges()
-        wall_us, rows, steps = profile_step(torch, run, inputs, labels,
-                                            ranges=which == "gpt_moe")
+        wall_us, rows, steps, host_ops = profile_step(
+            torch, run, inputs, labels, ranges=which == "gpt_moe")
         busy = sum(r[0] for r in rows)
         print(f"profile[{gpu}] {label}: one {run.__name__} under the "
               f"profiler {wall_us / 1e3:.1f} ms, device busy "
@@ -351,6 +417,13 @@ def main() -> int:
                   f"busy), {n} launches")
         for us, n, name in rows[:15]:
             print(f"profile:   {us / 1e3:9.3f} ms  x{n:<6d} {name[:110]}")
+        if which == "wide_deep":
+            launches = sum(n for _, n, _ in rows)
+            print(f"profile[{gpu}] {label}: {launches} device kernels and "
+                  f"copies in the step; host ops by self CPU time:")
+            for us, n, name in host_ops[:15]:
+                print(f"profile:   host {us / 1e3:8.3f} ms  x{n:<5d} "
+                      f"{name[:100]}")
         del model
         torch.cuda.empty_cache()
     return 0
