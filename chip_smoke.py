@@ -333,6 +333,34 @@ S4. ``tools/bench_sparse_embedding.py``'s net (dim 64, batch 256 x 4, Adam
     time < 2.0 (the tool's rule); the dense path's times and every run's
     peak device memory beside them.  A ``{"sparse_ctr": ...}`` line
     carries S2's and S4's numbers.
+K1. ``steps_per_execution``: each model built twice from one seed, graph
+    (k = 4, every execution after the first one CUDA graph replay)
+    against eager (k = 1) over 3 executions: a bf16 MLP under
+    ``AdamW(multi_precision=True)`` with kernel 3 as its loss, ``WideDeep``
+    at 20,000 ids with lazy Adam (the sparse branch; its replay under
+    CUDA's sync check), ``Lookahead(k=5)``, ``GradientMergeOptimizer(
+    k_steps=3)``, an MLP with dropout 0.1: parameters, buffers and
+    optimizer state bit-equal (else within 1e-6 relative, printed), the
+    launch counts equal, 12 distinct dropout masks over 3 executions;
+K2. the main path of the k-step slice: S2's configuration through
+    ``Model.fit(steps_per_execution=8)`` over S2's rows (``InMemoryDataset``
+    into an ``io.TensorDataset``, batch 256, 25 executions): S2's gates;
+    step ms (median execution 3-25 / 8), samples/s, host ms per execution
+    and peak memory beside S2's;
+K3. bench.py config 2 (R3's ResNet-50) through ``fit(steps_per_execution=
+    4)``, 3 executions: kernels 7 and 8 16 a step each per replay, losses
+    finite, bn3 buffers moved; step ms beside R3's;
+K4. phase 7's BERT-base bf16 through ``fit(steps_per_execution=4)``, 3
+    executions: kernel 2 24 + 24 and kernel 3 1 a step per replay, losses
+    finite; step ms beside phase 7's;
+K5. ``examples/train_resnet_nhwc.py`` line for line in the port (resnet18
+    NHWC bf16, k = 4, 3 epochs): losses finite, callbacks once an
+    execution;
+T1. every name of the tensor API on the card against the CPU
+    (``tools/torch_tensor_cases.py``), creation without a device on
+    ``cuda:0``.  A ``{"steps_per_execution": ...}`` line carries K1-K5's
+    and T1's numbers; the kernels line's entries of kernels 2, 3, 7 and 8
+    carry ``graph_launches`` (one replayed execution's).
 
 The line before last is the ``{"kernels": [...]}`` JSON record
 (``layernorm_residual``'s entry carries its backward kernel's numbers
@@ -3891,27 +3919,16 @@ def _ctr_clicks(np, n, rng, table, w_dense, fields, dense):
     return ids, xd, y[:, None]
 
 
-def ctr_main_path(torch, gpu):
-    """Phase S2, the slice's main path: ``WideDeep(num_fields=8,
-    vocab_size=1_000_000, embed_dim=32, dense_dim=8, hidden_sizes=(64,
-    32), sparse=True)`` with ``Model.prepare(Adam(1e-3, lazy_mode=True),
-    net.loss)``, fed by ``InMemoryDataset`` from 8 seeded text files
-    (51,200 rows: 8 id slots in [0, 1M), 8 dense features, a click) loaded
-    by 8 threads, ``global_shuffle(seed)``, ``batch_iter(256)`` into
-    ``train_batch`` for 200 steps.  Gates: losses finite, the mean of the
-    last 50 below the first 50's; every row of both tables whose id was
-    never drawn bit-equal to its init; ``predict_batch`` on 4096 held-out
-    rows gives probabilities in (0, 1).  Prints the load seconds, the
-    median step over steps 20-200 (each synchronized by its loss), samples/s
-    and peak device memory."""
+def ctr_dataset(np):
+    """S2's data: 51,200 seeded clicks (8 id slots in [0, 1M), 8 dense
+    features, a click) written to 8 text files and loaded by
+    ``InMemoryDataset`` with 8 threads, then ``global_shuffle(seed)``; and
+    4096 held-out rows.  Returns (dataset, held-out arrays, rows loaded,
+    load seconds)."""
     import shutil
     import tempfile
 
-    import numpy as np
-
-    import paddle_tpu_torch as ptt
     from paddle_tpu_torch.io import InMemoryDataset
-    from paddle_tpu_torch.models import WideDeep
 
     rng = np.random.RandomState(SEED + 400)
     table = rng.randn(CTR_VOCAB)
@@ -3939,6 +3956,28 @@ def ctr_main_path(torch, gpu):
         shutil.rmtree(tmp, ignore_errors=True)
     assert n == S2_ROWS, n
     ds.global_shuffle(seed=SEED)
+    return ds, held, n, load_s
+
+
+def ctr_main_path(torch, gpu):
+    """Phase S2, the slice's main path: ``WideDeep(num_fields=8,
+    vocab_size=1_000_000, embed_dim=32, dense_dim=8, hidden_sizes=(64,
+    32), sparse=True)`` with ``Model.prepare(Adam(1e-3, lazy_mode=True),
+    net.loss)``, fed by ``InMemoryDataset`` from 8 seeded text files
+    (51,200 rows: 8 id slots in [0, 1M), 8 dense features, a click) loaded
+    by 8 threads, ``global_shuffle(seed)``, ``batch_iter(256)`` into
+    ``train_batch`` for 200 steps.  Gates: losses finite, the mean of the
+    last 50 below the first 50's; every row of both tables whose id was
+    never drawn bit-equal to its init; ``predict_batch`` on 4096 held-out
+    rows gives probabilities in (0, 1).  Prints the load seconds, the
+    median step over steps 20-200 (each synchronized by its loss), samples/s
+    and peak device memory."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import WideDeep
+
+    ds, held, n, load_s = ctr_dataset(np)
     ptt.seed(SEED)
     net = WideDeep(num_fields=S2_FIELDS, vocab_size=CTR_VOCAB,
                    embed_dim=S2_EMBED, dense_dim=S2_DENSE,
@@ -4104,6 +4143,602 @@ def vocab_independence(torch, gpu):
     return {"rows": rows, "ratio": ratio}
 
 
+# -- k steps per execution as one CUDA graph (steps_per_execution) -----------
+# K1's small models (graph k = 4 against k = 1 over 3 executions, 12 steps)
+K1_K, K1_EXECUTIONS, K1_B = 4, 3, 32
+K1_CTR_VOCAB = 20_000
+K1_REL_TOL = 1e-6   # the bound if a cuBLAS product differs under capture
+# K2: S2's configuration through fit; K3 / K4: the R and 7 phases' configs
+K2_K = 8
+K3_K, K3_EXECUTIONS = 4, 3
+K4_K, K4_EXECUTIONS = 4, 3
+# K5: examples/train_resnet_nhwc.py
+K5_N, K5_HW, K5_B, K5_EPOCHS, K5_K = 256, 64, 32, 3, 4
+
+
+class ExecutionTimer:
+    """A ``fit`` callback: the host seconds of each execution (begin to
+    the return of the step, nothing waited for) and its wall seconds to
+    the card's end (``synchronize`` at the batch end); the losses, read
+    after the wait."""
+
+    def __init__(self, torch):
+        from paddle_tpu_torch.hapi.callbacks import Callback
+
+        timer = self
+
+        class _Cb(Callback):
+            def on_train_batch_begin(self, step, logs=None):
+                timer.t0 = time.perf_counter()
+
+            def on_train_batch_end(self, step, logs=None):
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                timer.host.append(t1 - timer.t0)
+                timer.wall.append(t2 - timer.t0)
+                timer.losses.append(float(logs["loss"]))
+                timer.sizes.append(int(logs["batch_size"]))
+
+        self.callback = _Cb()
+        self.host, self.wall, self.losses, self.sizes = [], [], [], []
+        self.t0 = 0.0
+
+
+def _state_tensors(opt):
+    """An optimizer's state dict as ``{dotted key: tensor}`` (Lookahead's
+    nested one flattened) and its count."""
+    flat = {}
+
+    def walk(prefix, d):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(f"{prefix}{k}.", v)
+            elif hasattr(v, "dtype"):
+                flat[prefix + k] = v
+    sd = opt.state_dict()
+    walk("", sd)
+    return flat, sd.get("count")
+
+
+def _k1_pair(torch, build, make_opt, loss, spe_graph=K1_K):
+    """Two models from one seed: eager (k = 1) and graph (k = 4)."""
+    import paddle_tpu_torch as ptt
+
+    out = []
+    for spe in (1, spe_graph):
+        ptt.seed(SEED)
+        net = build()
+        m = ptt.Model(net, inputs=1, labels=1)
+        m.prepare(optimizer=make_opt(), loss=loss, steps_per_execution=spe)
+        out.append((net, m))
+    return out
+
+
+def _k1_compare(torch, tag, eager, graph):
+    """Parameters, buffers and optimizer state after the runs: bit-equal,
+    else the largest relative difference must be within K1_REL_TOL."""
+    (en, em), (gn, gm) = eager, graph
+    worst = 0.0
+    pairs = list(zip(en.state_dict().items(), gn.state_dict().items()))
+    es, ec = _state_tensors(em._optimizer)
+    gs, gc_ = _state_tensors(gm._optimizer)
+    assert ec == gc_ and es.keys() == gs.keys(), (tag, ec, gc_)
+    pairs += [((k, es[k]), (k, gs[k])) for k in es]
+    unequal = 0
+    for (k, a), (k2, b) in pairs:
+        assert k == k2
+        if torch.equal(a, b):
+            continue
+        unequal += 1
+        d = ((a.double() - b.double()).abs().max()
+             / a.double().abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, d)
+    log(f"K1[{tag}]: graph vs eager over {len(pairs)} tensors (parameters, "
+        f"buffers, optimizer slots; count {gc_}): {unequal} not bit-equal, "
+        f"max relative difference {worst:.3e}")
+    assert worst <= K1_REL_TOL, (tag, worst)
+    return unequal, worst
+
+
+def graph_vs_eager(torch, gpu):
+    """Phase K1: graph (k = 4) against eager (k = 1) on the card over 3
+    executions (12 steps) of the same batches, each model built twice
+    from one seed: a bf16 MLP with a cross-entropy head under
+    ``AdamW(multi_precision=True)`` (kernel 3 in the step); ``WideDeep`` at
+    20,000 ids with ``Adam(lazy_mode=True)`` (the sparse branch);
+    ``Lookahead(k=5)`` and ``GradientMergeOptimizer(k_steps=3)``; an MLP
+    with dropout 0.1.  Gates: parameters, buffers and optimizer state
+    bit-equal (else within ``K1_REL_TOL``, printed); the launch counts
+    equal after both runs; the dropout masks of one execution all differ
+    and a later execution's differ from an earlier one's; the sparse
+    step captures (a capture admits no host sync) and replays with CUDA's
+    sync check on."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models import WideDeep
+    from paddle_tpu_torch.ops import softmax_cross_entropy
+    from paddle_tpu_torch.optimizer.gradient_merge import \
+        GradientMergeOptimizer
+
+    rng = np.random.RandomState(SEED + 500)
+    steps = K1_K * K1_EXECUTIONS
+
+    def mlp(dtype="float32", dropout=0.0, out=1):
+        with torch.device(DEVICE):
+            layers = [nn.Linear(64, 256), nn.ReLU()]
+            if dropout:
+                layers.append(nn.Dropout(dropout))
+            net = nn.Sequential(*layers, nn.Linear(256, out))
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        for m in net.modules():
+            if hasattr(m, "reset_parameters"):
+                m.reset_parameters(gen)
+        return net.astype(dtype)
+
+    x = rng.randn(steps, K1_B, 64).astype(np.float32)
+    cls = rng.randint(0, 16, (steps, K1_B, 1)).astype(np.int64)
+    reg = rng.randn(steps, K1_B, 1).astype(np.float32)
+
+    def run(pair, batches, counter=None):
+        """Eager steps, then the graph's executions; the counter's
+        launches in each run."""
+        (en, em), (gn, gm) = pair
+        counts = []
+        for m in (em, gm):
+            if counter is not None:
+                counter.launches = 0
+            if m._graph_steps is None:
+                for b in batches:
+                    m._train_batch_device(list(b[:-1]), [b[-1]])
+            else:
+                for e in range(K1_EXECUTIONS):
+                    m._train_batches_device(
+                        batches[e * K1_K:(e + 1) * K1_K])
+            torch.cuda.synchronize()
+            counts.append(counter.launches if counter is not None else 0)
+        g = gm._graph_steps
+        assert g.executions == K1_EXECUTIONS and g.captures >= 1, (
+            g.executions, g.captures)
+        return counts
+
+    out = {}
+    # bf16 MLP, AdamW with float32 masters, kernel 3 as the loss
+    pair = _k1_pair(
+        torch, lambda: mlp("bfloat16", out=16),
+        lambda: ptt.optimizer.AdamW(1e-3, multi_precision=True),
+        lambda logits, y: softmax_cross_entropy(
+            logits.float(), y.squeeze(-1)).mean())
+    batches = [(torch.from_numpy(x[i]).to(DEVICE, torch.bfloat16),
+                torch.from_numpy(cls[i]).to(DEVICE)) for i in range(steps)]
+    counts = run(pair, batches, softmax_cross_entropy)
+    log(f"K1[adamw_bf16_mp]: softmax_cross_entropy launches eager "
+        f"{counts[0]}, graph {counts[1]} (= {steps}: "
+        f"{counts == [steps, steps]})")
+    assert counts == [steps, steps], counts
+    out["adamw_bf16_mp"] = _k1_compare(torch, "adamw_bf16_mp", *pair)
+    # the sparse branch: WideDeep at 20,000 ids, lazy Adam, sync check on
+    ids = rng.randint(0, K1_CTR_VOCAB, (steps, K1_B, S2_FIELDS))
+    dense = rng.randn(steps, K1_B, S2_DENSE).astype(np.float32)
+    click = (rng.uniform(size=(steps, K1_B, 1)) < 0.3).astype(np.float32)
+    pair = []
+    for spe in (1, K1_K):
+        ptt.seed(SEED)
+        net = WideDeep(num_fields=S2_FIELDS, vocab_size=K1_CTR_VOCAB,
+                       embed_dim=S2_EMBED, dense_dim=S2_DENSE,
+                       hidden_sizes=S2_HIDDEN, sparse=True)
+        m = ptt.Model(net, inputs=["sparse", "dense"], labels=["label"])
+        m.prepare(optimizer=ptt.optimizer.Adam(1e-3, lazy_mode=True),
+                  loss=net.loss, steps_per_execution=spe)
+        pair.append((net, m))
+    sb = [(torch.from_numpy(ids[i]).to(DEVICE),
+           torch.from_numpy(dense[i]).to(DEVICE),
+           torch.from_numpy(click[i]).to(DEVICE)) for i in range(steps)]
+    (en, em), (gn, gm) = pair
+    for b in sb:
+        em._train_batch_device(list(b[:2]), [b[2]])
+    # execution 2 captures (a capture fails on any host sync in the
+    # step), execution 3 replays under CUDA's sync check
+    gm._train_batches_device(sb[:K1_K])
+    gm._train_batches_device(sb[K1_K:2 * K1_K])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gm._train_batches_device(sb[2 * K1_K:])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out["wide_deep_lazy_adam"] = _k1_compare(torch, "wide_deep_lazy_adam",
+                                             *pair)
+    # the optimizers that branch on the step count
+    rb = [(torch.from_numpy(x[i]).to(DEVICE),
+           torch.from_numpy(reg[i]).to(DEVICE)) for i in range(steps)]
+    for tag, make in (
+            ("lookahead_k5", lambda: ptt.optimizer.Lookahead(
+                ptt.optimizer.Momentum(0.01, 0.9), alpha=0.5, k=5)),
+            ("gradient_merge_k3", lambda: GradientMergeOptimizer(
+                ptt.optimizer.Adam(1e-3), k_steps=3))):
+        pair = _k1_pair(torch, mlp, make, _mse)
+        run(pair, rb)
+        log(f"K1[{tag}]: {pair[1][1]._graph_steps.captures} captured "
+            f"graphs over {K1_EXECUTIONS} executions")
+        out[tag] = _k1_compare(torch, tag, *pair)
+    # dropout: the same masks as eager, different ones at every step
+    pair = _k1_pair(torch, lambda: mlp(dropout=0.1), lambda:
+                    ptt.optimizer.SGD(0.01), _mse)
+    (en, em), (gn, gm) = pair
+    ptt.seed(SEED + 1)
+    el = [em._train_batch_device([b[0]], [b[1]])[0] for b in rb]
+    ptt.seed(SEED + 1)
+    gl = torch.cat([gm._train_batches_device(rb[e * K1_K:(e + 1) * K1_K])
+                    for e in range(K1_EXECUTIONS)])
+    assert torch.equal(torch.stack(el), gl), "K1: dropout losses differ"
+    out["dropout_0.1"] = _k1_compare(torch, "dropout_0.1", *pair)
+    ptt.seed(SEED + 2)
+    probe = _k1_pair(torch, lambda: mlp(dropout=0.1),
+                     lambda: ptt.optimizer.SGD(0.0), _mse)[1][1]
+    same = [rb[0]] * K1_K
+    losses = torch.cat([probe._train_batches_device(same)
+                        for _ in range(K1_EXECUTIONS)]).tolist()
+    distinct = len(set(losses))
+    log(f"K1[dropout_0.1]: one batch at lr 0 through {K1_EXECUTIONS} "
+        f"executions: {distinct} distinct losses of {len(losses)} (the "
+        f"masks of every step differ, within and across replays)")
+    assert distinct == len(losses), losses
+    return out
+
+
+def ctr_graph_main_path(torch, gpu, eager):
+    """Phase K2, the main path of the k-step slice: S2's configuration
+    (``WideDeep`` at 1M ids, ``Adam(1e-3, lazy_mode=True)``) through
+    ``Model.fit(steps_per_execution=8)`` on S2's 51,200 rows, loaded by
+    ``InMemoryDataset`` as S2 loads them and fed through an
+    ``io.TensorDataset`` at batch 256: 200 steps, 25 executions, each
+    after the first one CUDA graph replay.  Gates (S2's): losses finite,
+    the mean of the last 50 steps below the first 50's, never-drawn rows
+    bit-equal to their init, ``predict`` probabilities in (0, 1).  Prints
+    the step time (median execution of 3-25, synchronized, over 8),
+    samples/s beside S2's eager number, host ms per execution and the
+    peak device memory beside S2's."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import WideDeep
+
+    ds, held, n, _ = ctr_dataset(np)
+    cols = [np.concatenate(c) for c in zip(*ds.batch_iter(S2_B))]
+    ptt.seed(SEED)
+    net = WideDeep(num_fields=S2_FIELDS, vocab_size=CTR_VOCAB,
+                   embed_dim=S2_EMBED, dense_dim=S2_DENSE,
+                   hidden_sizes=S2_HIDDEN, sparse=True)
+    model = ptt.Model(net, inputs=["sparse", "dense"], labels=["label"])
+    model.prepare(optimizer=ptt.optimizer.Adam(1e-3, lazy_mode=True),
+                  loss=net.loss, steps_per_execution=K2_K)
+    w0 = {k: getattr(net, k).weight.detach().clone()
+          for k in ("embedding", "wide")}
+    timer = ExecutionTimer(torch)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    model.fit(ptt.io.TensorDataset(cols), batch_size=S2_B, epochs=1,
+              shuffle=False, verbose=0, callbacks=[timer.callback])
+    peak = torch.cuda.max_memory_allocated()
+    ex = len(timer.wall)
+    assert ex == S2_ROWS // S2_B // K2_K, ex
+    assert set(timer.sizes) == {S2_B * K2_K}, timer.sizes
+    g = model._graph_steps
+    assert g.executions == ex and g.captures == 1, (g.executions,
+                                                    g.captures)
+    losses = timer.losses  # per execution: the mean of its 8 steps
+    assert all(math.isfinite(v) for v in losses), losses
+    k50 = 50 // K2_K + 1   # the executions holding the first / last 50
+    first, last = np.mean(losses[:k50]), np.mean(losses[-k50:])
+    assert last < first, (first, last)
+    seen = torch.zeros(CTR_VOCAB, dtype=torch.bool, device=DEVICE)
+    seen[torch.from_numpy(np.unique(cols[0])).to(DEVICE)] = True
+    for k, w in w0.items():
+        now = getattr(net, k).weight.detach()
+        assert torch.equal(now[~seen], w[~seen]), f"K2: {k} rows moved"
+        assert not torch.equal(now[seen], w[seen]), f"K2: {k} untrained"
+    prob = net.predict_proba(torch.from_numpy(np.concatenate(
+        model.predict(ptt.io.TensorDataset([held[0], held[1]]),
+                      batch_size=S2_HELDOUT))))
+    assert prob.shape == (S2_HELDOUT, 1)
+    assert bool(((prob > 0) & (prob < 1)).all()), "K2: probabilities"
+    med = float(np.median(timer.wall[2:])) / K2_K
+    host = float(np.median(timer.host[2:]))
+    out = {"k": K2_K, "executions": ex, "step_ms": med * 1e3,
+           "samples_per_s": S2_B / med, "host_ms_per_execution": host * 1e3,
+           "first_execution_ms": timer.wall[0] * 1e3,
+           "capture_execution_ms": timer.wall[1] * 1e3,
+           "peak_bytes": peak, "eager_step_ms": eager["step_ms"],
+           "eager_samples_per_s": eager["samples_per_s"],
+           "eager_peak_bytes": eager["peak_bytes"],
+           "first": float(first), "last": float(last)}
+    log(f"K2 sparse CTR through fit(steps_per_execution={K2_K})[{gpu}]: "
+        f"{ex} executions of {K2_K} steps, 1 graph; step {med * 1e3:.3f} ms "
+        f"(median of executions 3-{ex} / {K2_K}), {S2_B / med:.0f} samples/s "
+        f"(S2 eager: {eager['step_ms']:.3f} ms, "
+        f"{eager['samples_per_s']:.0f} samples/s); host "
+        f"{host * 1e3:.3f} ms per execution; execution 1 (eager) "
+        f"{timer.wall[0] * 1e3:.1f} ms, 2 (capture + replay) "
+        f"{timer.wall[1] * 1e3:.1f} ms; loss first {first:.4f} -> last "
+        f"{last:.4f}; never-drawn rows bit-equal; peak device memory "
+        f"{peak / 2 ** 20:.0f} MiB (S2 eager "
+        f"{eager['peak_bytes'] / 2 ** 20:.0f} MiB)")
+    del net, model, w0, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _counts_per_execution(counters):
+    """A callback zeroing ``counters`` at each execution's begin and
+    recording their values at its end."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    seen = []
+
+    class _Cb(Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            for obj, attr in counters:
+                setattr(obj, attr, 0)
+
+        def on_train_batch_end(self, step, logs=None):
+            seen.append(tuple(getattr(obj, a) for obj, a in counters))
+
+    return _Cb(), seen
+
+
+def resnet_graph(torch, gpu, eager):
+    """Phase K3: bench.py's config 2 (phase R3's model and optimizer)
+    through ``Model.fit(steps_per_execution=4)`` over 4 seeded batches of
+    128 x 224 x 224 on the card, 3 executions (12 steps): kernels 7 and 8
+    inside the graph.  Gates: losses finite; every bn3 buffer moved; the
+    launches of each execution (counted per replay) = 16 a step each, as
+    R3's eager steps.  Prints the replayed execution's step time beside
+    R3's eager step, and the peak device memory beside R3's."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops import bn_apply_relu, conv1x1_bn_stats
+
+    net = resnet_model(torch, "bfloat16", DEVICE,
+                       torch.Generator().manual_seed(SEED))
+    model = resnet_trainer(torch, net)
+    model.prepare(optimizer=model._optimizer, loss=model._loss,
+                  steps_per_execution=K3_K)
+    rng = np.random.RandomState(SEED + 600)
+    data = [(torch.from_numpy(rng.uniform(
+        -1, 1, (RESNET_B, RESNET_HW, RESNET_HW, 3)).astype(np.float32)).to(
+        DEVICE, torch.bfloat16), torch.from_numpy(rng.randint(
+            0, 1000, (RESNET_B, 1)).astype(np.int32)).to(DEVICE))
+        for _ in range(K3_K)]
+    bn3 = {n: b.clone() for n, b in net.named_buffers() if ".bn3." in n}
+    timer = ExecutionTimer(torch)
+    counts_cb, counts = _counts_per_execution(
+        [(conv1x1_bn_stats, "launches"), (bn_apply_relu, "launches")])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model.fit(data * K3_EXECUTIONS, epochs=1, verbose=0,
+              callbacks=[counts_cb, timer.callback])
+    peak = torch.cuda.max_memory_allocated()
+    want = RESNET_BLOCKS * K3_K
+    log(f"K3[resnet50]: execution losses {timer.losses}; launches per "
+        f"execution (conv1x1_bn_stats, bn_apply_relu) {counts} (= {want} "
+        f"each: 16 a step x {K3_K})")
+    assert len(counts) == K3_EXECUTIONS
+    assert all(c == (want, want) for c in counts), counts
+    assert all(math.isfinite(v) for v in timer.losses), timer.losses
+    for n, b in net.named_buffers():
+        if n in bn3:
+            assert not torch.equal(b, bn3[n]), f"K3: {n} did not change"
+    step = timer.wall[-1] / K3_K
+    out = {"k": K3_K, "step_ms": step * 1e3,
+           "host_ms_per_execution": timer.host[-1] * 1e3,
+           "eager_step_ms": eager["step_ms"], "peak_bytes": peak,
+           "eager_peak_bytes": eager["peak_bytes"],
+           "graph_launches": {"conv1x1_bn_stats": counts[-1][0],
+                              "bn_apply_relu": counts[-1][1]}}
+    log(f"K3 ResNet-50 through fit(steps_per_execution={K3_K})[{gpu}]: "
+        f"replayed execution {timer.wall[-1] * 1e3:.2f} ms = "
+        f"{step * 1e3:.2f} ms/step (R3 eager {eager['step_ms']:.2f} "
+        f"ms/step), host {timer.host[-1] * 1e3:.2f} ms per execution; "
+        f"every bn3 buffer moved; peak device memory "
+        f"{peak / 2 ** 20:.0f} MiB (R3 eager "
+        f"{eager['peak_bytes'] / 2 ** 20:.0f} MiB)")
+    del model, net, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def bert_graph(torch, gpu, eager):
+    """Phase K4: phase 7's BERT-base bf16 pretraining (dropout 0.1,
+    ``AdamW(multi_precision=True)``) through
+    ``Model.fit(steps_per_execution=4)`` over 4 seeded batches, 3
+    executions: kernels 2 (24 forward and 24 backward launches a step) and
+    3 (1 a step) inside the graph with the registered dropout generator.
+    Gates: losses finite, the counts of each execution.  Prints the
+    replayed execution's step time beside phase 7's."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import BertForPretraining, bert_base
+    from paddle_tpu_torch.ops import layernorm_residual, softmax_cross_entropy
+
+    cfg = bert_base()
+    ptt.seed(SEED)
+    net = BertForPretraining(cfg, device=DEVICE).astype("bfloat16")
+    opt = ptt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                              multi_precision=True)
+    model = ptt.Model(net, ["input_ids", "token_type_ids", "attention_mask",
+                            "masked_positions"],
+                      ["mlm_labels", "nsp_labels"]).prepare(
+        optimizer=opt, loss=net.loss, steps_per_execution=K4_K)
+    data = []
+    for i in range(K4_K):
+        inputs, labels = bert_batch(cfg.vocab_size, BERT_B, BERT_S, BERT_P,
+                                    seed=SEED + 700 + i)
+        data.append(tuple(torch.from_numpy(a).to(DEVICE)
+                          for a in inputs + labels))
+    timer = ExecutionTimer(torch)
+    counters = [(layernorm_residual, "launches"),
+                (layernorm_residual, "backward_launches"),
+                (softmax_cross_entropy, "launches")]
+    counts_cb, counts = _counts_per_execution(counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model.fit(data * K4_EXECUTIONS, epochs=1, verbose=0,
+              callbacks=[counts_cb, timer.callback])
+    peak = torch.cuda.max_memory_allocated()
+    want = (2 * cfg.num_layers * K4_K, 2 * cfg.num_layers * K4_K, K4_K)
+    log(f"K4[bert]: execution losses {timer.losses}; launches per "
+        f"execution (layernorm_residual, its backward, "
+        f"softmax_cross_entropy) {counts} (= {want})")
+    assert all(c == want for c in counts), counts
+    assert all(math.isfinite(v) for v in timer.losses), timer.losses
+    step = timer.wall[-1] / K4_K
+    out = {"k": K4_K, "step_ms": step * 1e3,
+           "host_ms_per_execution": timer.host[-1] * 1e3,
+           "eager_step_ms": eager["step_ms"], "peak_bytes": peak,
+           "eager_peak_bytes": eager["peak_bytes"],
+           "graph_launches": {"layernorm_residual": counts[-1][0],
+                              "layernorm_residual_backward": counts[-1][1],
+                              "softmax_cross_entropy": counts[-1][2]}}
+    log(f"K4 BERT-base bf16 through fit(steps_per_execution={K4_K})[{gpu}]:"
+        f" replayed execution {timer.wall[-1] * 1e3:.2f} ms = "
+        f"{step * 1e3:.2f} ms/step (phase 7 eager {eager['step_ms']:.2f} "
+        f"ms/step), host {timer.host[-1] * 1e3:.2f} ms per execution; peak "
+        f"device memory {peak / 2 ** 20:.0f} MiB (phase 7 eager "
+        f"{eager['peak_bytes'] / 2 ** 20:.0f} MiB)")
+    del model, net, opt, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet18_example(torch, gpu):
+    """Phase K5: ``examples/train_resnet_nhwc.py`` line for line in the
+    port: ``resnet18(num_classes=10, data_format="NHWC")`` in bf16,
+    ``Momentum(0.05, 0.9, multi_precision=True, weight_decay=1e-4)``,
+    ``steps_per_execution=4``, a ``TensorDataset`` of 256 x 64 x 64 x 3,
+    batch 32, 3 epochs (no hand kernel on this path: BasicBlocks have no
+    1x1 tail).  Gates: losses finite; callbacks fired once per execution
+    (2 an epoch)."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.vision.models import resnet18
+
+    paddle.seed(0)
+    net = resnet18(num_classes=10, data_format="NHWC").astype("bfloat16")
+    opt = popt.Momentum(learning_rate=0.05, momentum=0.9,
+                        multi_precision=True, weight_decay=1e-4)
+    model = paddle.Model(net, inputs=["image"], labels=["label"])
+    model.prepare(optimizer=opt, loss=nn.CrossEntropyLoss(),
+                  steps_per_execution=K5_K)
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (K5_N, K5_HW, K5_HW, 3)).astype(np.float32)
+    y = rng.randint(0, 10, (K5_N, 1)).astype(np.int64)
+    timer = ExecutionTimer(torch)
+    t0 = time.perf_counter()
+    model.fit(paddle.io.TensorDataset([x, y]), batch_size=K5_B,
+              epochs=K5_EPOCHS, verbose=0, callbacks=[timer.callback])
+    wall = time.perf_counter() - t0
+    per_epoch = K5_N // K5_B // K5_K
+    assert len(timer.wall) == per_epoch * K5_EPOCHS, len(timer.wall)
+    assert set(timer.sizes) == {K5_B * K5_K}, timer.sizes
+    assert all(math.isfinite(v) for v in timer.losses), timer.losses
+    log(f"K5 examples/train_resnet_nhwc.py in the port[{gpu}]: "
+        f"{len(timer.wall)} executions ({per_epoch} an epoch, callbacks "
+        f"once each), execution losses {[round(v, 4) for v in timer.losses]}"
+        f", {wall:.2f}s")
+    return {"executions": len(timer.wall), "losses": timer.losses}
+
+
+def tensor_api_card(torch, gpu):
+    """Phase T1: the tensor API on the card.  Every exported name of
+    ``paddle_tpu_torch.tensor`` (``tools/torch_tensor_cases.py``'s one
+    call each) run on CUDA inputs against the same call on CPU inputs, at
+    ``CARD_TOL`` by class (exact; float32 elementwise rtol / atol 1e-5;
+    special functions 1e-4 / 1e-5; factorizations 1e-3 / 1e-4 in
+    sign-free forms); every tensor result on ``cuda:0``; creation
+    functions called without a device land on ``cuda:0``; the random
+    functions' shapes and dtypes equal the CPU's, their draws on the card
+    and within their moments."""
+    import importlib.util
+
+    import numpy as np
+
+    import paddle_tpu_torch.tensor as tt
+    from paddle_tpu_torch.framework import device as dv
+    from paddle_tpu_torch.framework.dtype import numpy_to_tensor, to_numpy
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_tensor_cases", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tools",
+            "torch_tensor_cases.py"))
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    card = torch.device("cuda", 0)
+
+    def run(name, make, device):
+        dv._chosen = torch.device("cpu") if device == "cpu" else None
+        try:
+            args, kwargs = make(np.random.RandomState(0))
+
+            def to(a):
+                return numpy_to_tensor(a, device)
+            out = getattr(tt, name)(*cases.convert(args, to),
+                                    **cases.convert(kwargs, to))
+        finally:
+            dv._chosen = None
+        leaves = out if isinstance(out, (list, tuple)) else [out]
+        return [x for x in leaves if isinstance(x, torch.Tensor)], \
+            cases.to_host(out, to_numpy)
+
+    failed, n = [], 0
+    for name, (make, kind) in sorted(cases.CASES.items()):
+        n += 1
+        try:
+            tensors, got = run(name, make, "cuda")
+            assert all(x.device == card for x in tensors), name
+            _, want = run(name, make, "cpu")
+            cases.compare(kind, got, want, cases.CARD_TOL)
+        except Exception as e:  # noqa: BLE001 — collected, raised below
+            failed.append(f"{name}: {type(e).__name__}: {str(e)[:200]}")
+    for name, make in sorted(cases.RANDOM.items()):
+        n += 1
+        try:
+            tensors, got = run(name, make, "cuda")
+            assert all(x.device == card for x in tensors), name
+            _, want = run(name, make, "cpu")
+            got, want = np.asarray(got), np.asarray(want)
+            assert got.shape == want.shape and got.dtype == want.dtype, (
+                got.shape, want.shape, got.dtype, want.dtype)
+            mean, std = cases.MOMENTS[name]
+            spread = std if std is not None else float(np.std(got)) or 1.0
+            assert abs(float(got.mean()) - mean) < 5 * spread / np.sqrt(
+                got.size), (float(got.mean()), mean)
+        except Exception as e:  # noqa: BLE001
+            failed.append(f"{name}: {type(e).__name__}: {str(e)[:200]}")
+    made = [getattr(tt, f)([2, 3]) for f in ("zeros", "ones", "empty",
+                                            "rand", "randn")] + [
+        tt.full([2], 1.0), tt.arange(4), tt.eye(2), tt.linspace(0, 1, 3),
+        tt.to_tensor([1.0, 2.0])]
+    assert all(x.device == card for x in made), [x.device for x in made]
+    log(f"T1 tensor API[{gpu}]: {n} calls on the card against the CPU, "
+        f"{n - len(failed)} agree; creation without a device lands on "
+        f"{card}")
+    for line in failed:
+        log(f"T1 FAILED {line}")
+    assert not failed, failed
+    return {"calls": n, "failed": len(failed)}
+
+
 def main() -> int:
     import torch
 
@@ -4198,6 +4833,18 @@ def main() -> int:
     vocab = vocab_independence(torch, gpu)
     log(json.dumps({"sparse_ctr": {
         "device": gpu, "main_path": ctr, "vocab_independence": vocab}}))
+    # k training steps an execution as one CUDA graph
+    # (steps_per_execution), then the tensor API
+    k1 = graph_vs_eager(torch, gpu)
+    k2 = ctr_graph_main_path(torch, gpu, ctr)
+    k3 = resnet_graph(torch, gpu, resnet)
+    k4 = bert_graph(torch, gpu, bert)
+    k5 = resnet18_example(torch, gpu)
+    t1 = tensor_api_card(torch, gpu)
+    log(json.dumps({"steps_per_execution": {
+        "device": gpu, "graph_vs_eager": k1, "sparse_ctr": k2,
+        "resnet50": k3, "bert_base": k4, "resnet18_example": k5,
+        "tensor_api": t1}}))
     paged = dict(name="paged_flash_decode", route="cuda",
                  source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
                  replaces="paddle_tpu/ops/paged_attention.py:155")
@@ -4241,7 +4888,12 @@ def main() -> int:
         fit_o1_launches=fit["launches"]["layernorm_residual"],
         fit_o1_backward_launches=fit["launches"][
             "layernorm_residual_backward"],
-        float16_loop_launches=f16["launches"]))
+        float16_loop_launches=f16["launches"],
+        # a replayed K4 execution (4 steps): 24 forward and 24 backward a
+        # step, counted per replay
+        graph_launches=k4["graph_launches"]["layernorm_residual"],
+        graph_backward_launches=k4["graph_launches"][
+            "layernorm_residual_backward"]))
     kernels.append(dict(
         name="softmax_cross_entropy", route="cuda",
         source="paddle_tpu_torch/ops/csrc/fused_softmax_xent.cu",
@@ -4256,7 +4908,8 @@ def main() -> int:
             dict(trows[("softmax_cross_entropy", name)],
                  max_abs_err=errs[("softmax_cross_entropy", name)])
             for name, dtype, M, V in SX_SHAPES[1:]},
-        fit_o1_launches=fit["launches"]["softmax_cross_entropy"]))
+        fit_o1_launches=fit["launches"]["softmax_cross_entropy"],
+        graph_launches=k4["graph_launches"]["softmax_cross_entropy"]))
     # the decode shape of the widest linear (fc1, M = 8), int8; launches
     # of the int8 and fp8 engines together; fp8 and fc2's decode and
     # admission shapes beside them
@@ -4284,6 +4937,7 @@ def main() -> int:
             source="paddle_tpu_torch/ops/csrc/fused_conv1x1_bn.cu",
             replaces=f"paddle_tpu/ops/fused_conv1x1_bn.py:{line}",
             launches=resnet["launches"][name], max_abs_err=err,
+            graph_launches=k3["graph_launches"][name],
             **rrows[(name, "layer1")],
             other_shapes={layer: rrows[(name, layer)]
                           for layer, _, _, _ in RESNET_TAILS[1:]}))

@@ -40,14 +40,18 @@ Ported so far:
   ``models.WideDeep`` and the native ``io.InMemoryDataset``; plain
   PyTorch, as the JAX path is plain XLA.
 """
+from .tensor import *  # noqa: F401,F403  (the tensor functions, as JAX's)
+from . import tensor  # noqa: F401
 from . import amp, io, metric, nn, optimizer, regularizer, slim, vision
 from .framework.device import get_device, set_device
 from .framework.random import seed
 from .framework.serialization import load, save
 from .hapi import Model
+from .nn import ParamAttr
 
 __version__ = "0.5.0"
 
-__all__ = ["seed", "set_device", "get_device", "Model", "save", "load",
+__all__ = ["seed", "set_device", "get_device", "Model", "ParamAttr", "save",
+           "load",
            "amp", "io", "metric", "nn", "optimizer", "regularizer", "slim",
            "vision", "__version__"]

@@ -14,17 +14,28 @@ __all__ = ["convert_dtype", "is_low_precision", "numpy_to_tensor",
            "to_numpy", "promote"]
 
 _NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float16": torch.float16}
+          "float16": torch.float16, "float64": torch.float64,
+          "int8": torch.int8, "uint8": torch.uint8, "int16": torch.int16,
+          "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
+          "complex64": torch.complex64, "complex128": torch.complex128}
+_PY = {float: torch.float32, int: torch.int64, bool: torch.bool}
 
 
 def convert_dtype(d) -> torch.dtype:
-    """A paddle dtype name (``"float32"``, ``"bfloat16"``, ``"float16"``)
-    or a torch dtype → torch dtype."""
+    """A paddle dtype name (``"float32"``, ``"bfloat16"``, ``"int64"``,
+    ``"bool"`` …), a numpy dtype, a Python type or a torch dtype → torch
+    dtype."""
     if isinstance(d, torch.dtype):
         return d
-    if d not in _NAMES:
+    if d in _PY:
+        return _PY[d]
+    try:
+        name = d if isinstance(d, str) else np.dtype(d).name
+    except TypeError:
+        name = None
+    if name not in _NAMES:
         raise InvalidArgumentError(f"unsupported dtype {d!r}")
-    return _NAMES[d]
+    return _NAMES[name]
 
 
 def is_low_precision(x) -> bool:

@@ -24,9 +24,10 @@ sentinel is ``height`` itself.  A :class:`SelectedRows` stores a wrapped id
 as ``id + height`` (JAX keeps it negative), so it merges with its twin
 instead of writing the same row twice.  :meth:`SelectedRows.merged` keeps
 the JAX layout — k slots, the unique ids ascending, the tail padded with
-the sentinel — and sums duplicates in a fixed order (a stable sort, then a
-float64 prefix sum differenced at the segment bounds), so two runs on the
-card are bit-equal where an ``index_add_`` would add in atomic order.
+the sentinel — and sums duplicates in a fixed order (a stable sort, then
+``torch.segment_reduce`` in float64, each segment from its head, rounded
+once), so two runs on the card are bit-equal where an ``index_add_`` would
+add in atomic order.
 CUDA has no drop-out-of-range scatter mode (an out-of-range index is a
 device assert), so :func:`safe_rows` maps every sentinel or out-of-range
 slot onto a copy of a valid slot — same id, same value, so the duplicate
@@ -148,14 +149,13 @@ class SelectedRows:
         slots = torch.arange(k, device=ids.device)
         lo = torch.searchsorted(seg, slots)               # segment starts
         hi = torch.searchsorted(seg, slots, right=True)   # ... and ends
-        # prefix sums in float64, differenced at the segment bounds: a
-        # fixed order (no atomics), exact to float32 rounding of the sum;
-        # an empty segment (lo = hi = k) sums to exactly 0
-        csum = torch.cat([
-            torch.zeros((1, values.shape[1]), dtype=torch.float64,
-                        device=values.device),
-            torch.cumsum(values[order].double(), 0)])
-        summed = (csum[hi] - csum[lo]).to(values.dtype)
+        # each segment summed on its own, in order from its head, in
+        # float64 and rounded once: a one-row segment is its own value, bit
+        # for bit, whatever precedes it; an empty slot (lo = hi = k) sums
+        # to 0.  unsafe: the safe mode reads the lengths' sum back (a sync)
+        summed = torch.segment_reduce(
+            values[order].double(), "sum", lengths=hi - lo, axis=0,
+            unsafe=True).to(values.dtype)
         uniq = torch.where(lo < k, sid[lo.clamp(max=k - 1)],
                            torch.full_like(sid, self.height))
         return SelectedRows(uniq, summed, self.height, _merged=True)

@@ -29,10 +29,17 @@ package's sparse step (``framework.selected_rows.build_sparse_step``):
 the tables get SelectedRows gradients from their lookups only, which the
 optimizer's rule updates row by row (``Adam(lazy_mode=True)`` …).
 
-Not ported yet, each raising ``UnimplementedError``:
-``steps_per_execution > 1`` (the JAX package scans k steps in one
-executable; ROADMAP queue A, training step: a CUDA-graph item), fleet
-(distributed) optimizers (queue A, distributed execution) and
+``prepare(steps_per_execution=k)`` runs k train steps per execution, as
+the JAX package's ``lax.scan`` of k steps does, with its rules: no
+metrics, the learning rate read once per execution (an ``LRScheduler``
+warns), per-step losses returned as one ``[k]`` tensor, ``fit`` grouping
+full groups of equal batches and running ragged tails as single steps.
+On a CUDA device an execution after the first is one CUDA graph replay
+(``hapi/_graph_step.py``); on the CPU the k steps run eagerly in a loop
+with the same semantics.  ``train_batch`` stays one step.
+
+Not ported yet, each raising ``UnimplementedError``: fleet (distributed)
+optimizers (ROADMAP queue A, distributed execution) and
 ``save(training=False)``, the inference export (queue A, static graph and
 the long tail).
 """
@@ -40,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import warnings
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -53,6 +61,7 @@ from ..framework.selected_rows import build_sparse_step, sparse_param_names
 from ..metric import Metric
 from ..optimizer.optimizer import Optimizer
 from . import callbacks as _callbacks_mod
+from ._graph_step import GraphSteps
 
 __all__ = ["Model"]
 
@@ -72,6 +81,34 @@ def _state_tree(tree):
     if isinstance(tree, dict):
         return {k: _state_tree(v) for k, v in tree.items()}
     return np.asarray(tree, np.int32) if isinstance(tree, int) else tree
+
+
+def _grouped(loader, spe: int):
+    """``steps_per_execution`` batching, as the JAX ``fit``'s: yield
+    ``("multi", [k batches])`` for full groups of equal batch size and
+    ``("single", batch)`` for the rest — a short group at the end of an
+    epoch and the batches around a smaller one, flushed in step order
+    (everything when ``spe == 1``)."""
+    pending: list = []
+    group_bs = None
+    for b in loader:
+        if spe == 1:
+            yield "single", b
+            continue
+        b = _tuplize(b)
+        bs = int(np.shape(b[0])[0])
+        if pending and bs != group_bs:
+            for p in pending:
+                yield "single", p
+            pending = []
+        if not pending:
+            group_bs = bs
+        pending.append(b)
+        if len(pending) == spe:
+            yield "multi", pending
+            pending = []
+    for b in pending:
+        yield "single", b
 
 
 def _unported(what: str, item: str):
@@ -98,6 +135,8 @@ class Model:
         self._metrics: List[Metric] = []
         self._amp: Dict[str, Any] = {}
         self._sparse: Dict[int, str] = {}
+        self._steps_per_execution = 1
+        self._graph_steps: Optional[GraphSteps] = None
         self._prepared = False
         self.stop_training = False
         self._save_dir = None
@@ -111,11 +150,24 @@ class Model:
         steps_per_execution = int(steps_per_execution)
         if steps_per_execution < 1:
             raise InvalidArgumentError("steps_per_execution must be >= 1")
-        if steps_per_execution > 1:
-            _unported("steps_per_execution > 1", "training step")
+        if steps_per_execution > 1 and metrics:
+            raise InvalidArgumentError(
+                "steps_per_execution > 1 cannot update host-side metrics "
+                "per inner step; drop metrics or keep it at 1")
+        if steps_per_execution > 1 and optimizer is not None and \
+                optimizer.lr_scheduler is not None:
+            warnings.warn(
+                "steps_per_execution > 1: the learning rate is read once per "
+                "execution, so an LRScheduler advances per execution (every "
+                f"{steps_per_execution} optimizer steps), not per step — "
+                "matching Keras. Scale the scheduler's step granularity "
+                "accordingly.", UserWarning)
         if getattr(optimizer, "_fleet_strategy", None) is not None:
             _unported("a fleet distributed optimizer",
                       "distributed execution")
+        self._steps_per_execution = steps_per_execution
+        self._graph_steps = (GraphSteps(self, steps_per_execution)
+                             if steps_per_execution > 1 else None)
         self._metrics = list(metrics or [])
         for m in self._metrics:
             if not isinstance(m, Metric):
@@ -179,25 +231,45 @@ class Model:
         loss, metrics = self._train_batch_device(inputs, labels)
         return float(loss), metrics
 
-    def _train_batch_device(self, inputs, labels=None):
-        """``train_batch`` with the loss left a 0-d device tensor: no wait
-        for the card (but where a metric updates)."""
+    def _check_trainable(self):
         if not self._prepared or self._optimizer is None \
                 or self._loss is None:
             raise InvalidArgumentError(
                 "call prepare(optimizer=..., loss=...) first")
-        batch = self._batch(inputs, labels)
+
+    def _train_batch_device(self, inputs, labels=None):
+        """``train_batch`` with the loss left a 0-d device tensor: no wait
+        for the card (but where a metric updates)."""
+        self._check_trainable()
+        loss, out, labels = self._train_step(self._batch(inputs, labels))
+        return loss, self._update_metrics(out, labels)
+
+    def _train_step(self, batch, plan=None):
+        """One step on ``batch`` (device tensors); ``plan``: the
+        optimizer step's host half, taken beforehand (a k-step
+        execution's).  Returns the detached loss, the outputs and the
+        labels."""
         self.network.train()
         if self._sparse:
-            loss, out, labels = self._sparse_step(batch)
+            loss, out, labels = self._sparse_step(batch, plan)
         else:
             loss, out, labels = self._forward_loss(batch)
             loss.backward()
-            self._optimizer.step()
+            self._step_optimizer(None, plan)
         self._optimizer.clear_grad()
-        return loss.detach(), self._update_metrics(out, labels)
+        return loss.detach(), out, labels
 
-    def _sparse_step(self, batch):
+    def _step_optimizer(self, grads, plan):
+        """``optimizer.step(grads)``, with the step's host half where one
+        was taken beforehand (a plain call otherwise, so a wrapped
+        ``step`` keeps working for ``train_batch``)."""
+        args = () if grads is None else (grads,)
+        if plan is None:
+            self._optimizer.step(*args)
+        else:
+            self._optimizer.step(*args, _plan=plan)
+
+    def _sparse_step(self, batch, plan=None):
         """The step of a network with sparse tables: gradients from
         ``build_sparse_step`` (SelectedRows for the tables), handed to the
         optimizer by the names it is bound to."""
@@ -214,8 +286,40 @@ class Model:
         (loss, (out, labels)), grads = build_sparse_step(
             forward_loss, self._sparse, shapes)(params)
         by_id = {id(params[n]): g for n, g in grads.items()}
-        opt.step({n: by_id.get(id(p)) for n, p in bound.items()})
+        self._step_optimizer({n: by_id.get(id(p)) for n, p in bound.items()},
+                             plan)
         return loss, out, labels
+
+    def _train_batches_device(self, batches):
+        """Run ``len(batches) == steps_per_execution`` train steps in one
+        execution (each batch a tuple of inputs and labels); returns the
+        per-step losses as one ``[k]`` device tensor.  The learning rate
+        is read once.  On a CUDA device the execution is a CUDA graph
+        replay after the first; on the CPU the steps run eagerly."""
+        self._check_trainable()
+        if self._graph_steps is None:
+            raise InvalidArgumentError(
+                "call prepare(optimizer=..., loss=..., "
+                "steps_per_execution=k) with k > 1 first")
+        batches = [self._batch(*self._split(b)) for b in batches]
+        lr = self._optimizer.get_lr()
+        if self.device.type == "cuda":
+            return self._graph_steps.run(batches, lr)
+        if len(batches) != self._steps_per_execution:
+            raise InvalidArgumentError(
+                f"an execution takes {self._steps_per_execution} batches, "
+                f"got {len(batches)}")
+        return self._train_steps_eager(batches, lr)
+
+    def _train_steps_eager(self, batches, lr):
+        """The k steps one by one at one learning rate; the losses
+        stacked."""
+        opt = self._optimizer
+        losses = []
+        for batch in batches:
+            plan = opt._plan(opt._ensure_state(), lr)
+            losses.append(self._train_step(batch, plan)[0])
+        return torch.stack(losses)
 
     def eval_batch(self, inputs, labels=None):
         loss, metrics = self._eval_batch_device(inputs, labels)
@@ -275,9 +379,15 @@ class Model:
                 "after the first would train on zero batches.  Pass a "
                 "Dataset/DataLoader (re-iterable) or epochs=1.")
         self._save_dir = save_dir
+        spe = self._steps_per_execution
         try:
             steps = len(train_loader)
         except TypeError:
+            steps = None
+        if spe > 1:
+            # callbacks fire once per execution, and how many executions
+            # an epoch has depends on batch sizes the loader reveals only
+            # while iterating: report an unknown length, as the JAX fit
             steps = None
         cbks = _callbacks_mod.config_callbacks(
             callbacks, model=self, epochs=epochs, steps=steps,
@@ -291,8 +401,18 @@ class Model:
             for m in self._metrics:
                 m.reset()
             logs = {}
-            for step, batch in enumerate(train_loader):
+            for step, (kind, batch) in enumerate(
+                    _grouped(train_loader, spe)):
                 cbks.on_train_batch_begin(step)
+                if kind == "multi":
+                    losses = self._train_batches_device(batch)
+                    logs = {"loss": losses.mean(),
+                            "batch_size": sum(int(b[0].shape[0])
+                                              for b in batch)}
+                    cbks.on_train_batch_end(step, logs)
+                    if self.stop_training:
+                        break
+                    continue
                 inputs, labels = self._split(batch)
                 loss, metrics = self._train_batch_device(inputs, labels)
                 logs = {"loss": loss}  # a device scalar: callbacks pull it

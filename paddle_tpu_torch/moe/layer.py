@@ -52,7 +52,7 @@ import torch
 from .. import nn
 from ..framework.dtype import promote
 from ..framework.random import generator_for
-from ..nn.common import xavier_normal_
+from ..nn.initializer import XavierNormal
 from ..ops.grouped_matmul import grouped_matmul
 from . import stats as moe_stats
 
@@ -89,9 +89,9 @@ class MoELayer(nn.Layer):
         one ``[D, F]`` / ``[F, D]`` layer (the JAX package passes them
         explicitly); zero biases."""
         D, F = self.expert_fc1.shape[1:]
-        xavier_normal_(self.gate, generator)
-        xavier_normal_(self.expert_fc1, generator, fan_in=D, fan_out=F)
-        xavier_normal_(self.expert_fc2, generator, fan_in=F, fan_out=D)
+        XavierNormal().init_(self.gate, generator)
+        XavierNormal(fan_in=D, fan_out=F).init_(self.expert_fc1, generator)
+        XavierNormal(fan_in=F, fan_out=D).init_(self.expert_fc2, generator)
         with torch.no_grad():
             self.expert_b1.zero_()
             self.expert_b2.zero_()

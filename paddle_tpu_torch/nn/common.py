@@ -9,54 +9,41 @@ global RNG.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 
-from ..framework.errors import UnimplementedError
 from ..framework.random import generator_for
 from ..framework.selected_rows import tap_lookup
 from .functional.common import embedding
+from .initializer import (Constant, Normal, XavierNormal, create_parameter,
+                          init_parameter)
 from .layer import Layer
 
-__all__ = ["Linear", "Embedding", "Dropout", "xavier_normal_"]
-
-
-def xavier_normal_(w: torch.Tensor, generator: Optional[torch.Generator],
-                   fan_in: Optional[int] = None,
-                   fan_out: Optional[int] = None):
-    """paddle's XavierNormal: N(0, 2 / (fan_in + fan_out)).  The fans
-    default to ``w``'s first two dims; stacked weights (MoE experts,
-    ``[E, D, F]``) pass them explicitly, as ``XavierNormal(fan_in=,
-    fan_out=)`` does in the JAX package."""
-    fan_in = w.shape[0] if fan_in is None else fan_in
-    fan_out = w.shape[1] if fan_out is None else fan_out
-    with torch.no_grad():
-        w.normal_(0.0, math.sqrt(2.0 / (fan_in + fan_out)),
-                  generator=generator)
+__all__ = ["Linear", "Embedding", "Dropout"]
 
 
 class Linear(Layer):
     """``y = x @ weight + bias`` with ``weight`` ``[in_features,
     out_features]`` — paddle's layout, so parameter names and shapes match
-    the JAX package 1:1."""
+    the JAX package 1:1.  ``weight_attr`` / ``bias_attr``: ``ParamAttr``
+    (initializer, trainable, name); ``bias_attr=False``: no bias.  The
+    defaults are XavierNormal and zeros."""
 
     def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True):
+                 weight_attr=None, bias_attr=None, name=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = torch.nn.Parameter(torch.empty(in_features,
-                                                     out_features))
-        self.bias = (torch.nn.Parameter(torch.empty(out_features))
-                     if bias else None)
+        self._attrs = (weight_attr, bias_attr)
+        self.weight = create_parameter((in_features, out_features),
+                                       weight_attr)
+        self.bias = create_parameter((out_features,), bias_attr)
 
     def reset_parameters(self, generator=None):
-        xavier_normal_(self.weight, generator)
-        if self.bias is not None:
-            with torch.no_grad():
-                self.bias.zero_()
+        init_parameter(self.weight, self._attrs[0], XavierNormal(),
+                       generator)
+        init_parameter(self.bias, self._attrs[1], Constant(0.0), generator)
 
     def forward(self, x):
         y = torch.matmul(x, self.weight)
@@ -67,8 +54,8 @@ class Embedding(Layer):
     """Lookup table ``weight`` ``[num_embeddings, embedding_dim]``, drawn
     N(0, ``std``²) — N(0, 1) by default, as the JAX layer's
     ``Normal(0, 1)``; the models ask for 0.02 where the JAX ones pass it
-    through ``weight_attr`` (``ParamAttr`` initializers are not ported:
-    ``std`` stands in for them).  The ``padding_idx`` row is zeroed at
+    through ``weight_attr`` (a ``ParamAttr``'s initializer takes
+    precedence over ``std``).  The ``padding_idx`` row is zeroed at
     build, gives zeros in the forward and gets no gradient.
 
     ``sparse=True`` flags the table for SelectedRows gradients: inside a
@@ -85,24 +72,21 @@ class Embedding(Layer):
                  padding_idx: Optional[int] = None, sparse: bool = False,
                  weight_attr=None, name=None, *, std: float = 1.0):
         super().__init__()
-        if weight_attr is not None:
-            raise UnimplementedError(
-                "Embedding: ParamAttr initializers are not ported yet "
-                "(ROADMAP queue A, training step: nn/initializer.py); pass "
-                "std= for a normal initializer")
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.padding_idx = padding_idx
         self.sparse = bool(sparse)
         self.std = std
-        self.weight = torch.nn.Parameter(torch.empty(num_embeddings,
-                                                     embedding_dim))
+        self._weight_attr = weight_attr
+        self.weight = create_parameter((num_embeddings, embedding_dim),
+                                       weight_attr)
         self.weight.sparse = self.sparse
 
     def reset_parameters(self, generator=None):
-        with torch.no_grad():
-            self.weight.normal_(0.0, self.std, generator=generator)
-            if self.padding_idx is not None:
+        init_parameter(self.weight, self._weight_attr, Normal(0.0, self.std),
+                       generator)
+        if self.padding_idx is not None:
+            with torch.no_grad():
                 self.weight[self.padding_idx] = 0.0
 
     def forward(self, ids):

@@ -3,16 +3,17 @@
 OIHW ``weight`` ``[Cout, Cin/groups, kh, kw]`` (torch's layout too) drawn
 from N(0, 2 / fan_in) by :meth:`reset_parameters` (at construction from
 the default generator; models redraw from their explicit one), and an
-optional ``bias`` (zeros); ``bias_attr=False`` means no bias.  The parameter names are the JAX package's.
+optional ``bias`` (zeros); ``weight_attr`` / ``bias_attr`` are
+``ParamAttr`` objects (initializer, trainable, name), ``bias_attr=False`` means
+no bias.  The parameter names are the JAX package's.
 """
 from __future__ import annotations
 
 import math
 
-import torch
-
 from ..framework.errors import UnimplementedError
 from . import functional as F
+from .initializer import Constant, Normal, create_parameter, init_parameter
 from .layer import Layer
 
 __all__ = ["Conv2D"]
@@ -32,10 +33,6 @@ class Conv2D(Layer):
             raise UnimplementedError(
                 f"Conv2D(padding_mode={padding_mode!r}) is not ported yet "
                 f"(ROADMAP queue A, vision)")
-        if weight_attr is not None or bias_attr not in (None, False):
-            raise UnimplementedError(
-                "Conv2D: ParamAttr initializers are not ported yet (ROADMAP "
-                "queue A, vision); pass None, or bias_attr=False")
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.kernel_size = _ntuple(kernel_size, 2)
@@ -44,19 +41,19 @@ class Conv2D(Layer):
         self.dilation = dilation
         self.groups = groups
         self.data_format = data_format
-        self.weight = torch.nn.Parameter(torch.empty(
-            (out_channels, in_channels // groups) + self.kernel_size))
-        self.bias = (torch.nn.Parameter(torch.empty(out_channels))
-                     if bias_attr is not False else None)
+        self._attrs = (weight_attr, bias_attr)
+        self.weight = create_parameter(
+            (out_channels, in_channels // groups) + self.kernel_size,
+            weight_attr)
+        self.bias = create_parameter((out_channels,), bias_attr)
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
         fan_in = self.in_channels // self.groups * math.prod(self.kernel_size)
-        with torch.no_grad():
-            self.weight.normal_(0.0, math.sqrt(2.0 / max(fan_in, 1)),
-                                generator=generator)
-            if self.bias is not None:
-                self.bias.zero_()
+        init_parameter(self.weight, self._attrs[0],
+                       Normal(0.0, math.sqrt(2.0 / max(fan_in, 1))),
+                       generator)
+        init_parameter(self.bias, self._attrs[1], Constant(0.0), generator)
 
     def forward(self, x):
         return F.conv2d(x, self.weight, self.bias, self.stride, self.padding,

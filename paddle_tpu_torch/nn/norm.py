@@ -7,8 +7,9 @@ float32 until ``astype`` casts them, as in the JAX package, so the bridge
 maps them 1:1.  In training the layer writes the statistics that
 :func:`~paddle_tpu_torch.nn.functional.batch_norm` returns back into its
 buffers in place (rounded to the buffers' dtype); the JAX package assigns
-them functionally.  ``SyncBatchNorm`` is not ported yet (ROADMAP queue
-A6, distributed execution).
+them functionally.  ``weight_attr`` / ``bias_attr`` are ``ParamAttr`` objects
+(initializer, trainable, name), ``False`` for none.  ``SyncBatchNorm`` is
+not ported yet (ROADMAP queue A, distributed execution).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 
 from ..framework.errors import UnimplementedError
 from . import functional as PF
+from .initializer import Constant, create_parameter, init_parameter
 from .layer import Layer
 
 __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
@@ -24,19 +26,23 @@ __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
 
 
 class LayerNorm(Layer):
-    """Normalizes over the last dim; ``weight`` ones, ``bias`` zeros."""
+    """Normalizes over the trailing ``normalized_shape`` dims; ``weight``
+    ones, ``bias`` zeros (either ``False``: none)."""
 
-    def __init__(self, normalized_shape: int, epsilon: float = 1e-5):
+    def __init__(self, normalized_shape, epsilon: float = 1e-5,
+                 weight_attr=None, bias_attr=None, name=None):
         super().__init__()
-        self.normalized_shape = (int(normalized_shape),)
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(int(d) for d in normalized_shape)
         self.epsilon = float(epsilon)
-        self.weight = torch.nn.Parameter(torch.empty(self.normalized_shape))
-        self.bias = torch.nn.Parameter(torch.empty(self.normalized_shape))
+        self._attrs = (weight_attr, bias_attr)
+        self.weight = create_parameter(self.normalized_shape, weight_attr)
+        self.bias = create_parameter(self.normalized_shape, bias_attr)
 
     def reset_parameters(self, generator=None):
-        with torch.no_grad():
-            self.weight.fill_(1.0)
-            self.bias.zero_()
+        init_parameter(self.weight, self._attrs[0], Constant(1.0), generator)
+        init_parameter(self.bias, self._attrs[1], Constant(0.0), generator)
 
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight,
@@ -48,29 +54,22 @@ class _BatchNormBase(Layer):
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None):
         super().__init__()
-        if weight_attr not in (None, False) or bias_attr not in (None, False):
-            raise UnimplementedError(
-                "BatchNorm: ParamAttr initializers are not ported yet "
-                "(ROADMAP queue A, vision); pass None, or False for none")
         self.num_features = num_features
         self.momentum = momentum
         self.epsilon = epsilon
         self.data_format = data_format
         self.use_global_stats = use_global_stats
-        self.weight = (torch.nn.Parameter(torch.empty(num_features))
-                       if weight_attr is not False else None)
-        self.bias = (torch.nn.Parameter(torch.empty(num_features))
-                     if bias_attr is not False else None)
+        self._attrs = (weight_attr, bias_attr)
+        self.weight = create_parameter((num_features,), weight_attr)
+        self.bias = create_parameter((num_features,), bias_attr)
         self.register_buffer("_mean", torch.zeros(num_features))
         self.register_buffer("_variance", torch.ones(num_features))
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
+        init_parameter(self.weight, self._attrs[0], Constant(1.0), generator)
+        init_parameter(self.bias, self._attrs[1], Constant(0.0), generator)
         with torch.no_grad():
-            if self.weight is not None:
-                self.weight.fill_(1.0)
-            if self.bias is not None:
-                self.bias.zero_()
             self._mean.zero_()
             self._variance.fill_(1.0)
 
@@ -93,8 +92,10 @@ class BatchNorm(_BatchNormBase):
     ``"relu"``)."""
 
     def __init__(self, num_channels, act=None, momentum=0.9, epsilon=1e-5,
-                 data_format="NCHW", **kwargs):
+                 data_format="NCHW", weight_attr=None, bias_attr=None,
+                 **kwargs):
         super().__init__(num_channels, momentum=momentum, epsilon=epsilon,
+                         weight_attr=weight_attr, bias_attr=bias_attr,
                          data_format=data_format)
         if act not in (None, "relu"):
             raise UnimplementedError(

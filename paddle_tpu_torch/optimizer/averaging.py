@@ -200,10 +200,15 @@ class Lookahead(Optimizer):
                          for n, p in params.items()},
                 "count": 0}
 
-    def _apply(self, grads, state, params, lr=None):
-        self.inner._apply(grads, state["inner"], params, lr)
+    def _host_step(self, state, lr, plan):
+        self.inner._host_step(state["inner"], lr, plan)
         state["count"] += 1
-        if state["count"] % self.k:
+        # the sync step is a branch of the plan: a captured graph holds it
+        plan.branch(self, state["count"] % self.k == 0)
+
+    def _run(self, grads, state, params, plan):
+        self.inner._run(grads, state["inner"], params, plan)
+        if not plan.taken(self):
             return
         with torch.no_grad():
             for n, p in params.items():

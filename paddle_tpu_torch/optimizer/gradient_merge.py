@@ -58,10 +58,17 @@ class GradientMergeOptimizer(Optimizer):
         slots[_GM_KEY] = {"step": torch.zeros((), dtype=torch.int32)}
         return {"count": state["count"], "slots": slots}
 
-    def _apply(self, grads, state, params, lr=None):
-        slots = state["slots"]
-        step = slots[_GM_KEY]["step"]
+    def _host_step(self, state, lr, plan):
+        step = state["slots"][_GM_KEY]["step"]  # a host tensor
         step += 1
+        # the apply step is a branch of the plan: a captured graph holds it
+        if plan.branch(self, int(step) % self._k == 0):
+            inner = {"count": state["count"]}
+            self._inner._host_step(inner, lr, plan)
+            state["count"] = inner["count"]
+
+    def _run(self, grads, state, params, plan):
+        slots = state["slots"]
         stepped = [n for n in params if grads.get(n) is not None]
         with torch.no_grad():
             for name in stepped:
@@ -72,7 +79,7 @@ class GradientMergeOptimizer(Optimizer):
                         f"gradient (Embedding(sparse=True)); accumulate "
                         f"dense gradients (sparse=False)")
                 slots[name]["gm_acc"].add_(g.float())
-        if int(step) % self._k:
+        if not plan.taken(self):
             return
         scale = 1.0 / self._k if self._avg else 1.0
         # the parameters with a gradient this step, as the JAX rule
@@ -80,8 +87,7 @@ class GradientMergeOptimizer(Optimizer):
         inner = {"count": state["count"],
                  "slots": {n: {s: v for s, v in slots[n].items()
                                if s != "gm_acc"} for n in params}}
-        self._inner._apply(merged, inner, params, lr)
-        state["count"] = inner["count"]
+        self._inner._run(merged, inner, params, plan)
         for n in params:
             slots[n]["gm_acc"].zero_()
 

@@ -28,6 +28,17 @@ Where the JAX package runs a bf16 parameter without a master through
 bf16 arithmetic, the port computes the rule in float32 and rounds once
 (the same result up to bf16 rounding of intermediates).
 
+A step has a host half and a device half.  The host half
+(:meth:`Optimizer._plan`) advances the step counts and computes, in the
+JAX package's host arithmetic (float32 bias corrections ``1 - beta^t``,
+``1 - lr·coeff`` in double), every scalar the rule reads, and the branch
+it takes (a ``Lookahead`` sync step, a gradient-merge apply step): a
+:class:`StepPlan`.  The device half reads those scalars as 0-d tensors on
+the parameters' device, never as Python numbers, so a CUDA graph that
+captures it replays with the scalars of each new step written into its
+table (``hapi/_graph_step.py``), and an eager step and a replayed one run
+the same kernels on the same values.
+
 Two surfaces, one rule: the functional ``init`` / ``update(grads, state,
 params, lr=)`` of the JAX package (pure: returns new params and state),
 and the eager ``step()`` over the parameters bound by ``parameters=`` or
@@ -65,8 +76,14 @@ from ..framework.selected_rows import SelectedRows, safe_rows
 from ..regularizer import L2Decay, WeightDecayRegularizer
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adam", "AdamW",
+__all__ = ["Optimizer", "StepPlan", "SGD", "Momentum", "Adagrad", "Adam", "AdamW",
            "Adamax", "Ftrl", "RMSProp", "Adadelta", "Lamb", "Lars"]
+
+
+def _device_of(params) -> torch.device:
+    for p in params.values():
+        return p.device
+    return torch.device("cpu")
 
 
 def _clone_tree(tree):
@@ -79,6 +96,68 @@ def _clone_tree(tree):
 def _bias_correction(beta: float, count: int) -> float:
     """``1 - beta^t`` in float32, as the JAX rules compute it."""
     return float(np.float32(1) - np.float32(beta) ** np.float32(count))
+
+
+class StepPlan:
+    """The host half of one optimizer step: the scalars the rule reads,
+    by name, and the branch decisions of the step (``key``).
+
+    The device half reads a scalar with :meth:`get` as a 0-d tensor: an
+    element of the plan's row, a float64 vector on the parameters'
+    device (copied from the host for an eager step, a row of a captured
+    graph's table when the step is captured), cast to the dtype of the
+    tensor it meets — what a Python number becomes in a float32 op."""
+
+    __slots__ = ("names", "values", "_branches", "_row", "_cache")
+
+    def __init__(self):
+        self.names: Dict[str, int] = {}
+        self.values: list = []
+        self._branches: Dict[int, bool] = {}
+        self._row: Optional[torch.Tensor] = None
+        self._cache: Dict[tuple, torch.Tensor] = {}
+
+    def put(self, name: str, value: float):
+        self.names[name] = len(self.values)
+        self.values.append(float(value))
+
+    def branch(self, owner, taken: bool) -> bool:
+        """Record the branch ``owner`` (an optimizer) takes this step."""
+        self._branches[id(owner)] = bool(taken)
+        return bool(taken)
+
+    def taken(self, owner) -> bool:
+        return self._branches[id(owner)]
+
+    @property
+    def key(self) -> tuple:
+        """The step's branch decisions and scalar names: steps with equal
+        keys run the same kernels."""
+        return tuple(self._branches.values()), tuple(self.names)
+
+    def bind(self, row: torch.Tensor):
+        """Read the scalars from ``row`` (a float64 vector on the device
+        with this plan's values at its indices)."""
+        self._row = row
+        self._cache = {}
+
+    def materialize(self, device):
+        """Copy the values to ``device`` as the row (an eager step): from
+        pinned memory and without a wait on the card."""
+        if self._row is not None:
+            return
+        host = torch.tensor(self.values or [0.0], dtype=torch.float64)
+        device = torch.device(device)
+        if device.type == "cuda":
+            host = host.pin_memory()
+        self.bind(host.to(device, non_blocking=True))
+
+    def get(self, name: str, dtype=torch.float32) -> torch.Tensor:
+        key = (name, dtype)
+        t = self._cache.get(key)
+        if t is None:
+            t = self._cache[key] = self._row[self.names[name]].to(dtype)
+        return t
 
 
 def _named(parameters) -> "OrderedDict[str, torch.Tensor]":
@@ -195,14 +274,39 @@ class Optimizer:
         self._apply(grads, new_state, new_params, lr)
         return new_params, new_state
 
-    def _apply(self, grads, state, params, lr=None):
+    def _apply(self, grads, state, params, lr=None,
+               plan: Optional[StepPlan] = None):
         """One step IN PLACE on ``params`` and ``state``.  Parameters with
-        no gradient (``None`` or absent) are left as they are."""
-        lr = self.get_lr() if lr is None else float(lr)
+        no gradient (``None`` or absent) are left as they are.  ``plan``:
+        the step's host half, already taken (a captured step's); else it
+        is taken here with ``lr`` (default :meth:`get_lr`)."""
+        if plan is None:
+            lr = self.get_lr() if lr is None else float(lr)
+            plan = self._plan(state, lr)
+        plan.materialize(_device_of(params))
+        self._run(grads, state, params, plan)
+
+    def _plan(self, state, lr: float) -> StepPlan:
+        """The host half of one step on ``state``: advance its counts,
+        compute its scalars."""
+        plan = StepPlan()
+        self._host_step(state, lr, plan)
+        return plan
+
+    def _host_step(self, state, lr: float, plan: StepPlan):
+        state["count"] += 1
+        self._put_scalars(plan, lr, state["count"])
+
+    def _put_scalars(self, plan: StepPlan, lr: float, count: int):
+        """The scalars the rule reads at step ``count`` (the JAX rules'
+        host arithmetic)."""
+        plan.put("lr", lr)
+
+    def _run(self, grads, state, params, plan: StepPlan):
+        """The device half of a step."""
         grads = {k: g for k, g in grads.items() if g is not None}
         if self._grad_clip is not None:
             grads = self._grad_clip(grads)
-        state["count"] += 1
         groups: Dict[tuple, list] = {}
         with torch.no_grad():
             for name, p in params.items():
@@ -211,16 +315,16 @@ class Optimizer:
                     continue
                 if isinstance(g, SelectedRows):
                     if self._rows_only():
-                        self._sparse_row_rule(p, g, state["slots"][name], lr,
-                                              state["count"], name)
+                        self._sparse_row_rule(p, g, state["slots"][name],
+                                              plan, name)
                         continue
                     g = g.to_dense()
                 it = _Item(name, p, g, state["slots"][name])
                 groups.setdefault((it.w.device, it.w.dtype), []).append(it)
             for items in groups.values():
-                self._step_group(items, lr, state["count"])
+                self._step_group(items, plan)
 
-    def _step_group(self, items, lr, count):
+    def _step_group(self, items, plan):
         ws = [it.w for it in items]
         gs = [it.g for it in items]
         decay = [i for i, it in enumerate(items)
@@ -234,10 +338,10 @@ class Optimizer:
                        else self._weight_decay * w)
                 gs[i] = gs[i] + pen
         slots = {s: [it.slots[s] for it in items] for s in self._slot_names}
-        self._update(ws, gs, slots, lr, count)
-        self._finish(items, lr)
+        self._update(ws, gs, slots, plan)
+        self._finish(items, plan)
 
-    def _finish(self, items, lr):
+    def _finish(self, items, plan):
         """Write each updated ``w`` back into its parameter (the master
         and the working copy are rounded to the parameter's dtype)."""
         back = [it for it in items if it.w is not it.p]
@@ -247,7 +351,7 @@ class Optimizer:
     def _use_l2_decay(self, name: str) -> bool:
         return True
 
-    def _sparse_row_rule(self, p, g: SelectedRows, slots, lr, count, name):
+    def _sparse_row_rule(self, p, g: SelectedRows, slots, plan, name):
         """Touched-rows-only update, in place: gather the k merged rows of
         the parameter (or its master) and of every slot, run ``_update`` on
         them, scatter back.  Padding and out-of-range slots copy a valid
@@ -272,8 +376,8 @@ class Optimizer:
         new = {s: v.clone() for s, v in old.items()}
         new_w = w_rows.clone()
         self._update([new_w], [g_rows], {s: [v] for s, v in new.items()},
-                     lr, count)
-        new_w = self._finish_rows(new_w, name, lr, master is not None,
+                     plan)
+        new_w = self._finish_rows(new_w, name, plan, master is not None,
                                   p.dtype)
         for s in self._slot_names:
             slots[s].index_copy_(0, ids, torch.where(keep, new[s], old[s]))
@@ -282,19 +386,19 @@ class Optimizer:
             master.index_copy_(0, ids, new_w)
         p.index_copy_(0, ids, new_w.to(p.dtype))
 
-    def _finish_rows(self, rows, name, lr, has_master, p_dtype):
+    def _finish_rows(self, rows, name, plan, has_master, p_dtype):
         """The updated rows before they are written back (lazy AdamW
         decays them here)."""
         return rows
 
-    def _update(self, ws, gs, slots, lr, count):
+    def _update(self, ws, gs, slots, plan):
         """The rule over lists: update ``ws`` and the ``slots`` lists in
         place (by default :meth:`_update_one` on each parameter)."""
         for i, (w, g) in enumerate(zip(ws, gs)):
             self._update_one(w, g, {s: v[i] for s, v in slots.items()},
-                             lr, count)
+                             plan)
 
-    def _update_one(self, w, g, slots, lr, count):
+    def _update_one(self, w, g, slots, plan):
         """The rule on one parameter: update ``w`` and ``slots`` (``{name:
         tensor}``) in place."""
         raise NotImplementedError
@@ -314,11 +418,12 @@ class Optimizer:
         return OrderedDict((n, p) for n, p in self._params.items()
                            if p.requires_grad)
 
-    def step(self, grads=None):
+    def step(self, grads=None, _plan: Optional[StepPlan] = None):
         """Apply gradients to the bound parameters in place: their
         ``.grad`` (after ``loss.backward()``), or ``grads`` — a
         ``{name: grad}`` dict or a sequence aligned with the trainable
-        parameters."""
+        parameters.  (``_plan``: the step's host half, taken beforehand by
+        a graph runner.)"""
         params = self._bound()
         if grads is None:
             grads = {n: p.grad for n, p in params.items()}
@@ -334,9 +439,13 @@ class Optimizer:
             if unknown:
                 raise InvalidArgumentError(
                     f"grads for unknown parameters: {unknown[:5]}")
+        self._apply(grads, self._ensure_state(), params, plan=_plan)
+
+    def _ensure_state(self) -> Dict[str, Any]:
+        """The state of the bound parameters, built on first use."""
         if self._state is None:
-            self._state = self.init(params)
-        self._apply(grads, self._state, params)
+            self._state = self.init(self._bound())
+        return self._state
 
     def clear_grad(self):
         """Drop the bound parameters' ``.grad``."""
@@ -416,8 +525,9 @@ class SGD(Optimizer):
 
     _sparse_mode = "row"
 
-    def _update(self, ws, gs, slots, lr, count):
-        torch._foreach_add_(ws, gs, alpha=-lr)
+    def _update(self, ws, gs, slots, plan):
+        torch._foreach_sub_(ws, torch._foreach_mul(gs, plan.get(
+            "lr", ws[0].dtype)))
 
 
 class Momentum(Optimizer):
@@ -436,16 +546,17 @@ class Momentum(Optimizer):
         self._momentum = momentum
         self._nesterov = use_nesterov
 
-    def _update(self, ws, gs, slots, lr, count):
+    def _update(self, ws, gs, slots, plan):
         vs = slots["velocity"]
+        lr = plan.get("lr", ws[0].dtype)
         torch._foreach_mul_(vs, self._momentum)
         torch._foreach_add_(vs, gs)
         if self._nesterov:
             step = torch._foreach_add(gs, vs, alpha=self._momentum)
             torch._foreach_mul_(step, lr)
-            torch._foreach_sub_(ws, step)
         else:
-            torch._foreach_add_(ws, vs, alpha=-lr)
+            step = torch._foreach_mul(vs, lr)
+        torch._foreach_sub_(ws, step)
 
 
 class Adam(Optimizer):
@@ -471,8 +582,15 @@ class Adam(Optimizer):
         self._epsilon = epsilon
         self._lazy_mode = bool(lazy_mode)
 
-    def _update(self, ws, gs, slots, lr, count):
+    def _put_scalars(self, plan, lr, count):
+        plan.put("lr", lr)
+        # bias corrections in float32, as the JAX rule computes them
+        plan.put("bc1", _bias_correction(self._beta1, count))
+        plan.put("bc2", _bias_correction(self._beta2, count))
+
+    def _update(self, ws, gs, slots, plan):
         b1, b2 = self._beta1, self._beta2
+        dt = ws[0].dtype
         m, v = slots["moment1"], slots["moment2"]
         torch._foreach_mul_(m, b1)
         torch._foreach_add_(m, torch._foreach_mul(gs, 1 - b1))
@@ -480,14 +598,11 @@ class Adam(Optimizer):
         torch._foreach_mul_(sq, 1 - b2)
         torch._foreach_mul_(v, b2)
         torch._foreach_add_(v, sq)
-        # bias corrections in float32, as the JAX rule computes them
-        bc1 = _bias_correction(b1, count)
-        bc2 = _bias_correction(b2, count)
-        mhat = torch._foreach_div(m, bc1)
-        den = torch._foreach_div(v, bc2)
+        mhat = torch._foreach_div(m, plan.get("bc1", dt))
+        den = torch._foreach_div(v, plan.get("bc2", dt))
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self._epsilon)
-        torch._foreach_mul_(mhat, lr)
+        torch._foreach_mul_(mhat, plan.get("lr", dt))
         torch._foreach_div_(mhat, den)
         torch._foreach_sub_(ws, mhat)
 
@@ -524,24 +639,38 @@ class AdamW(Adam):
         return bool(self._coeff) and (self._decay_fn is None
                                       or self._decay_fn(name))
 
-    def _finish_rows(self, rows, name, lr, has_master, p_dtype):
+    def _put_scalars(self, plan, lr, count):
+        super()._put_scalars(plan, lr, count)
+        plan.put("lr_coeff", lr * self._coeff)
+        plan.put("decay", 1.0 - lr * self._coeff)
+
+    def _finish_rows(self, rows, name, plan, has_master, p_dtype):
         if not self._decays(name):
             return rows
-        factor = 1.0 - lr * self._coeff
         if has_master or not is_low_precision(p_dtype):
-            return rows * factor
+            return rows * plan.get("decay", rows.dtype)
         # the JAX rule decays the parameter as stored (rounded), in f32
-        return rows.to(p_dtype).float() * factor
+        return rows.to(p_dtype).float() * plan.get("decay")
 
-    def _finish(self, items, lr):
+    def _finish(self, items, plan):
         decayed = [it for it in items if self._decays(it.name)]
         masters = [it.master for it in decayed if it.master is not None]
         if masters:  # new = new - lr·coeff·new, on the master
-            torch._foreach_add_(masters, masters, alpha=-lr * self._coeff)
-        super()._finish(items, lr)
+            torch._foreach_sub_(masters, torch._foreach_mul(
+                masters, plan.get("lr_coeff", masters[0].dtype)))
+        super()._finish(items, plan)
         plain = [it.p for it in decayed if it.master is None]
-        if plain:  # on the parameter as stored (rounded), in float32 math
-            torch._foreach_mul_(plain, 1.0 - lr * self._coeff)
+        by_dtype: Dict[torch.dtype, list] = {}
+        for p in plain:
+            by_dtype.setdefault(p.dtype, []).append(p)
+        for dt, ps in by_dtype.items():
+            if is_low_precision(dt):
+                # on the parameter as stored (rounded), in float32 math
+                work = [p.float() for p in ps]
+                torch._foreach_mul_(work, plan.get("decay"))
+                torch._foreach_copy_(ps, work)
+            else:
+                torch._foreach_mul_(ps, plan.get("decay", dt))
 
 
 class Adagrad(Optimizer):
@@ -567,10 +696,10 @@ class Adagrad(Optimizer):
                                           dtype=torch.float32)
         return slots
 
-    def _update_one(self, w, g, slots, lr, count):
+    def _update_one(self, w, g, slots, plan):
         m = slots["moment"]
         m.add_(g.square())
-        w.sub_(lr * g / (m.sqrt() + self._epsilon))
+        w.sub_(plan.get("lr", w.dtype) * g / (m.sqrt() + self._epsilon))
 
 
 class Ftrl(Optimizer):
@@ -591,9 +720,10 @@ class Ftrl(Optimizer):
         self._l2 = l2
         self._lr_power = lr_power
 
-    def _update_one(self, w, g, slots, lr, count):
+    def _update_one(self, w, g, slots, plan):
         sq, lin = slots["squared"], slots["linear"]
         g = g.to(sq.dtype)
+        lr = plan.get("lr", g.dtype)
         wf = w.to(g.dtype)
         new_sq = sq + g.square()
         if self._lr_power == -0.5:
@@ -624,12 +754,14 @@ class Adamax(Optimizer):
                          name, multi_precision)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
-    def _update_one(self, w, g, slots, lr, count):
+    def _put_scalars(self, plan, lr, count):
+        plan.put("step", lr / _bias_correction(self._beta1, count))
+
+    def _update_one(self, w, g, slots, plan):
         m, u = slots["moment"], slots["inf_norm"]
         m.mul_(self._beta1).add_((1 - self._beta1) * g)
         torch.maximum(self._beta2 * u, g.abs(), out=u)
-        step = lr / _bias_correction(self._beta1, count)
-        w.sub_(step * m / (u + self._epsilon))
+        w.sub_(plan.get("step", w.dtype) * m / (u + self._epsilon))
 
 
 class RMSProp(Optimizer):
@@ -649,7 +781,7 @@ class RMSProp(Optimizer):
         if centered:
             self._slot_names = ("mean_square", "momentum_acc", "mean_grad")
 
-    def _update_one(self, w, g, slots, lr, count):
+    def _update_one(self, w, g, slots, plan):
         rho = self._rho
         ms = slots["mean_square"]
         ms.mul_(rho).add_((1 - rho) * g.square())
@@ -660,7 +792,7 @@ class RMSProp(Optimizer):
         else:
             denom = (ms + self._epsilon).sqrt()
         mom = slots["momentum_acc"]
-        mom.mul_(self._momentum).add_(lr * g / denom)
+        mom.mul_(self._momentum).add_(plan.get("lr", w.dtype) * g / denom)
         w.sub_(mom)
 
 
@@ -678,13 +810,13 @@ class Adadelta(Optimizer):
                          name, multi_precision)
         self._rho, self._epsilon = rho, epsilon
 
-    def _update_one(self, w, g, slots, lr, count):
+    def _update_one(self, w, g, slots, plan):
         rho, eps = self._rho, self._epsilon
         asg, asu = slots["avg_squared_grad"], slots["avg_squared_update"]
         asg.mul_(rho).add_((1 - rho) * g.square())
         upd = g * (asu + eps).sqrt() / (asg + eps).sqrt()
         asu.mul_(rho).add_((1 - rho) * upd.square())
-        w.sub_(lr * upd)
+        w.sub_(plan.get("lr", w.dtype) * upd)
 
 
 class Lamb(Optimizer):
@@ -705,27 +837,29 @@ class Lamb(Optimizer):
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._exclude_fn = exclude_from_weight_decay_fn
 
-    def _step_group(self, items, lr, count):
+    _put_scalars = Adam._put_scalars
+
+    def _step_group(self, items, plan):
         for it in items:
             wd = 0.0 if (self._exclude_fn and self._exclude_fn(it.name)) \
                 else self._wd
-            self._update_one(it.w, it.g, it.slots, lr, count, wd)
-        self._finish(items, lr)
+            self._update_one(it.w, it.g, it.slots, plan, wd)
+        self._finish(items, plan)
 
-    def _update_one(self, w, g, slots, lr, count, wd=None):
+    def _update_one(self, w, g, slots, plan, wd=None):
         b1, b2 = self._beta1, self._beta2
         m, v = slots["moment1"], slots["moment2"]
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g.square())
-        mhat = m / _bias_correction(b1, count)
-        vhat = v / _bias_correction(b2, count)
+        mhat = m / plan.get("bc1", w.dtype)
+        vhat = v / plan.get("bc2", w.dtype)
         upd = mhat / (vhat.sqrt() + self._epsilon) + \
             (self._wd if wd is None else wd) * w
         w_norm = w.square().sum().sqrt()
         u_norm = upd.square().sum().sqrt()
         trust = torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm,
                             torch.ones_like(w_norm))
-        w.sub_(lr * trust * upd)
+        w.sub_(plan.get("lr", w.dtype) * trust * upd)
 
 
 class Lars(Momentum):
@@ -749,7 +883,7 @@ class Lars(Momentum):
         self._exclude = exclude_from_weight_decay or []
         self._lars_eps = epsilon
 
-    def _step_group(self, items, lr, count):
+    def _step_group(self, items, plan):
         for it in items:
             decay = 0.0 if any(pat in it.name for pat in self._exclude) \
                 else self._lars_wd
@@ -761,6 +895,7 @@ class Lars(Momentum):
                 self._lars_coeff * w_norm
                 / (g_norm + decay * w_norm + self._lars_eps),
                 torch.ones_like(w_norm))
-            v.mul_(self._momentum).add_(lr * local_lr * (g + decay * w))
+            v.mul_(self._momentum).add_(
+                plan.get("lr", w.dtype) * local_lr * (g + decay * w))
             w.sub_(v)
-        self._finish(items, lr)
+        self._finish(items, plan)

@@ -1,5 +1,6 @@
 """Vision of the port: ``vision.models`` (the ResNet family so far; the
-other models, transforms and datasets wait in ROADMAP queue A3)."""
+other models, transforms and datasets wait in ROADMAP queue A,
+vision)."""
 from . import models
 
 __all__ = ["models"]

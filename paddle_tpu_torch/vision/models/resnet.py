@@ -298,9 +298,9 @@ def _resnet(arch, Block, depth, pretrained, **kwargs):
     if pretrained:
         if isinstance(pretrained, str):
             raise UnimplementedError(
-                f"{arch}(pretrained={pretrained!r}): loading a .pdparams "
-                f"file needs serialization, which is not ported yet "
-                f"(ROADMAP queue A, training step: save/load)")
+                f"{arch}(pretrained={pretrained!r}): loading a local "
+                f".pdparams file into the model is not ported yet (ROADMAP "
+                f"queue A, vision: pretrained=<path>)")
         raise InvalidArgumentError(
             "no pretrained-weight download in this environment: pass a "
             "local .pdparams path as `pretrained`")

@@ -295,7 +295,8 @@ def test_momentum_decays_bf16_batchnorm_params_through_f32_masters():
 
 
 def test_model_surface():
-    with pytest.raises(UnimplementedError, match="serialization"):
+    # serialization is ported: the message cites vision's own item
+    with pytest.raises(UnimplementedError, match="vision: pretrained=<path>"):
         tres.resnet50(pretrained="/nonexistent.pdparams", device="cpu")
     with pytest.raises(InvalidArgumentError):
         tres.resnet50(pretrained=True, device="cpu")

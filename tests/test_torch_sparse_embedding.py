@@ -507,8 +507,12 @@ def test_distributed_names_raise_citing_distributed_execution():
                             "data")
     with pytest.raises(UnimplementedError, match="distributed execution"):
         topt.DGCMomentum(0.1)
-    with pytest.raises(UnimplementedError, match="ParamAttr"):
-        tnn.Embedding(4, 2, weight_attr=object())
+    # ParamAttr is ported (the k-step slice): an Embedding honors its
+    # initializer instead of raising
+    emb = tnn.Embedding(4, 2, sparse=True, weight_attr=tnn.ParamAttr(
+        initializer=tnn.initializer.Constant(0.5)))
+    emb.reset_parameters()
+    assert bool((emb.weight == 0.5).all()) and emb.weight.sparse
 
 
 def test_sparse_param_names_survive_deepcopy():

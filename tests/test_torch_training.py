@@ -209,12 +209,11 @@ def test_model_binds_optimizer_to_dotted_names_and_keeps_masters():
 def test_unported_model_features_raise(tmp_path):
     """What the port does not have yet raises, citing its ROADMAP item
     (``amp_configs`` and ``fit`` are ported since the training-loop
-    slice: tests/test_torch_hapi.py and test_torch_amp.py)."""
+    slice: tests/test_torch_hapi.py and test_torch_amp.py;
+    ``steps_per_execution > 1`` since the k-step slice:
+    tests/test_torch_steps_per_execution.py)."""
     net = tgpt.GPTForCausalLM(tgpt.gpt_tiny(), device="cpu")
     m = tpt.Model(net)
-    with pytest.raises(UnimplementedError, match="ROADMAP.*training step"):
-        m.prepare(optimizer=tpt.optimizer.SGD(0.1), loss=net.loss,
-                  steps_per_execution=2)
     fleet = tpt.optimizer.SGD(0.1)
     fleet._fleet_strategy = object()
     with pytest.raises(UnimplementedError,

@@ -3,7 +3,7 @@
 
     python3 tools/torch_train_profile.py \
         [--model bert|gpt|both|resnet50|gpt_long|gpt_long_train|gpt_moe|
-                 wide_deep]
+                 wide_deep] [--steps-per-execution K]
 
 Builds ``chip_smoke.py``'s training workloads — BERT-base bf16
 pretraining at batch 256 x 128 with 20 masked positions and
@@ -57,6 +57,15 @@ milliseconds around synchronized calls — the sparse gradient (the tape's
 forward and backward, ``build_sparse_step``) and the optimizer step (the
 tables' row rules and the dense layers' foreach Adam) — and the profile
 adds the launches of the step and the ops with the most host time.
+
+``--steps-per-execution K`` (K > 1, the training models) prepares the
+model with ``steps_per_execution=K`` and drives
+``Model._train_batches_device`` with K copies of the batch: the first
+execution runs eagerly, the second captures the K steps as one CUDA
+graph, later ones replay it.  After three executions the tool prints the
+mean synchronized execution time over ``--steps`` executions (and per
+step), then profiles one replayed execution: its device-busy share beside
+the eager step's, the groups and kernels as above.
 
 Numbers under the profiler run slower than ``chip_smoke.py``'s; read the
 shares, not the absolute times.  Exits non-zero without a card.
@@ -196,7 +205,7 @@ def phases(torch, model, inputs, labels, steps):
     model.network.train()
     for _ in range(steps):
         ev[0].record()
-        loss, _ = model._forward_loss(batch)
+        loss = model._forward_loss(batch)[0]
         ev[1].record()
         loss.backward()
         ev[2].record()
@@ -255,6 +264,16 @@ RANGES = (("MoELayer", "_route", "moe: router"),
           ("MoELayer", "_combine", "moe: combine (one-hot product)"),
           ("ParallelAttention", "forward", "attention"))
 _BWD = "autograd::engine::evaluate_function: "
+
+
+def execution_ms(torch, run, inputs, labels, steps):
+    """The mean wall ms of ``steps`` synchronized calls of ``run``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        run(inputs, labels)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
 
 
 def label_ranges():
@@ -358,7 +377,13 @@ def main() -> int:
                     default="both")
     ap.add_argument("--steps", type=int, default=5,
                     help="steps averaged by the phase timing")
+    ap.add_argument("--steps-per-execution", type=int, default=1,
+                    help="k > 1: time and profile executions of k steps "
+                         "(each after the second a CUDA graph replay)")
     args = ap.parse_args()
+    k = args.steps_per_execution
+    if k > 1 and args.model == "gpt_long":
+        ap.error("--steps-per-execution needs a training model")
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA card visible", file=sys.stderr)
         return 2
@@ -372,9 +397,23 @@ def main() -> int:
         label, model, inputs, labels = build(torch, which)
         run = (model.eval_batch if which == "gpt_long"
                else model.train_batch)
+        if k > 1:
+            model.prepare(optimizer=model._optimizer, loss=model._loss,
+                          steps_per_execution=k)
+            batch = tuple(inputs) + tuple(labels)
+
+            def run(_inputs, _labels, _batch=batch):
+                return model._train_batches_device([_batch] * k)
+            run.__name__ = f"execution of {k} steps"
+            label = f"{label} steps_per_execution={k}"
         for _ in range(3):
             run(inputs, labels)
-        if which == "gpt_long":
+        if k > 1:
+            ms = execution_ms(torch, run, inputs, labels, args.steps)
+            print(f"phases[{gpu}] {label}: execution {ms:.2f} ms = "
+                  f"{ms / k:.3f} ms a step (one CUDA graph replay), mean "
+                  f"of {args.steps} synchronized executions")
+        elif which == "gpt_long":
             ms = eval_ms(torch, model, inputs, labels, args.steps)
             print(f"phases[{gpu}] {label}: eval_batch {ms:.2f} ms, mean of "
                   f"{args.steps} calls")
