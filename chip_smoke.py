@@ -96,6 +96,37 @@ Q4. timing: both kernels, their plain versions and the library calls
     call, bounded by its Python, beside it), with the achieved GB/s and
     TOP/s.
 
+The default serving engines, the hand-off and weight swaps (after Q4, on
+the model of phase 4 where it serves):
+
+D1. ``GenerationEngine(model, prompt_buckets=[16, 48], batch_size=8)``
+    with default flags — dense-ring continuous batching — on phase 4's
+    requests: every request completes, no kernel of ``ops/`` launches
+    (the dense float path has none), 4 requests' tokens against uncached
+    greedy (near-ties only, as phase 4); tokens/s, mean / p99 latency,
+    peak device memory, the ring's bytes, and the device-busy share of a
+    second pass under ``torch.profiler``;
+D2. the same with ``continuous=False`` (the legacy scheduler): tokens
+    equal D1's (a difference must be a near-tie of uncached greedy);
+D3. ``bench.py``'s ``bench_gpt_generate`` with ``paddle_tpu_torch`` for
+    ``paddle_tpu``: its ``GPTConfig`` (vocab 8192, hidden 256, 4 layers, 8
+    heads, max_position 512), ``RequestTrace.synthetic()`` replayed through
+    the legacy, continuous and paged engines at ``max_queue_delay_ms=1.0``;
+    a line under bench.py's names; the paged run's kernel-1 launches; the
+    trace's tokens of legacy and paged against continuous (near-ties
+    only);
+D4. prefill/decode hand-off at phase 4's shape, float and int8
+    (``speculative_k=0``, one request at a time): tokens bit-identical to
+    a co-located paged engine, kernel 1 (and 9) launches counted on the
+    prefill and the decode engine against their calls, payload bytes and
+    ms per export / import;
+D5. hot swaps at ``gpt_small`` width: an ``export_quantized`` int8 artifact
+    into a quantized dense engine (kernel 9's launches there counted) and
+    a float side-file into a float dense engine; outputs equal an engine
+    built over the donor; seconds a swap.
+A ``{"serving_engines": ...}`` line carries D1-D5's numbers; the kernels
+line's kernel 1 and 9 entries gain their launches there.
+
 ResNet-50 training, ``bench.py``'s config 2 (after phase 10):
 
 R1. ``conv1x1_bn_stats`` and ``bn_apply_relu`` against their plain
@@ -362,8 +393,11 @@ T1. every name of the tensor API on the card against the CPU
     and T1's numbers; the kernels line's entries of kernels 2, 3, 7 and 8
     carry ``graph_launches`` (one replayed execution's).
 
-The line before last is the ``{"kernels": [...]}`` JSON record
-(``layernorm_residual``'s entry carries its backward kernel's numbers
+The line before last is the ``{"kernels": [...]}`` JSON record (kernel
+1's entries carry D4's launches by engine under ``handoff_launches`` and
+D3's paged run's under ``bench_paged_launches``, kernel 9's D5's quantized
+dense engine's under ``dense_engine_launches`` and D4's int8 ones;
+``layernorm_residual``'s entry carries its backward kernel's numbers
 under ``backward``: launches in phase 7, max_abs_err, ms, bound, plain and
 library; its mixed-dtype numbers under ``mixed_dtypes``, and F2's and F4's
 launches beside phase 7's); the last line is ``{"ok": true, "device":
@@ -373,6 +407,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -400,6 +435,7 @@ QMM_KN = {"qkv": (768, 2304), "out": (768, 768), "fc1": (768, 3072),
 QMM_M = (8, 40, 384)
 MARGIN_K = 4.0                 # tools/quant_smoke.py's clear-margin factor
 NUM_REQUESTS = 16
+D_PASSES = 5                   # timed passes of the requests in D1 / D2
 ENGINE = dict(prompt_buckets=[16, 48], batch_size=8, kv_page_size=16,
               speculative_k=4, paged=True)
 MARGIN_TIE = 1e-4
@@ -424,36 +460,38 @@ def gpu_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def geometry(torch, T, dtype, gen, n_copies=1):
+def geometry(torch, T, dtype, gen, n_copies=1, dims=None):
     """A ragged paged layout at the serving shapes: slot b holds
     ``lengths[b]`` tokens on randomly placed physical pages, the rest of
     its table is unmapped (-1, clipped to page 0 with mask 0); row 0 of
     slot 1 is fully masked.  ``n_copies`` pool pairs let timing loops
-    rotate past the L2 cache."""
-    dev = DEVICE
-    C = G * PAGE
-    P = B * G
-    lengths = [C - 1 - 97 * b for b in range(B)]
-    perm = torch.randperm(P, generator=gen).tolist()
-    tables = torch.full((B, G), -1, dtype=torch.int32)
+    rotate past the L2 cache.  ``dims`` = (batch, heads, head_dim, page,
+    pages a slot, pool pages without the drop page) replaces the serving
+    shapes."""
+    nb, nh, hd, page, ng, npool = dims or (B, H, HD, PAGE, G, B * G)
+    assert nb * ng <= npool, dims
+    C = ng * page
+    step = min(97, (C - T - 1) // max(nb - 1, 1))
+    lengths = [C - 1 - step * b for b in range(nb)]
+    perm = torch.randperm(npool, generator=gen).tolist()
+    tables = torch.full((nb, ng), -1, dtype=torch.int32)
     nxt = 0
-    for b in range(B):
-        for g in range(-(-lengths[b] // PAGE)):
+    for b in range(nb):
+        for g in range(-(-lengths[b] // page)):
             tables[b, g] = perm[nxt]
             nxt += 1
     kp = torch.arange(C)
-    mask = torch.zeros(B, T, C, dtype=torch.bool)
-    for b in range(B):
-        mapped = (tables[b] >= 0).repeat_interleave(PAGE)
+    mask = torch.zeros(nb, T, C, dtype=torch.bool)
+    for b in range(nb):
+        mapped = (tables[b] >= 0).repeat_interleave(page)
         for t in range(T):
             mask[b, t] = mapped & (kp <= lengths[b] - T + t)
-    mask[1, 0] = False
-    q = torch.randn(B, H, T, HD, generator=gen).to(dev, dtype)
-    pools = [(torch.randn(P + 1, H, PAGE, HD, generator=gen).to(dev, dtype),
-              torch.randn(P + 1, H, PAGE, HD, generator=gen).to(dev, dtype))
-             for _ in range(n_copies)]
-    return (q, pools, tables.clamp_min(0).to(dev).contiguous(),
-            mask.to(dev), tables)
+    mask[min(1, nb - 1), 0] = False
+    q = torch.randn(nb, nh, T, hd, generator=gen).to(DEVICE, dtype)
+    pools = [tuple(torch.randn(npool + 1, nh, page, hd, generator=gen).to(
+        DEVICE, dtype) for _ in range(2)) for _ in range(n_copies)]
+    return (q, pools, tables.clamp_min(0).to(DEVICE).contiguous(),
+            mask.to(DEVICE), tables)
 
 
 def bound(q, tables_raw, mask, quantized=False):
@@ -818,6 +856,463 @@ def quant_agreement(torch, model, mode, reqs, outs):
     del qmodel
 
 
+# -- the default serving engines (D1-D5) -------------------------------------
+def busy_share(torch, run):
+    """Run ``run()`` under ``torch.profiler`` and return (device-busy ms,
+    window ms): the summed device time of every kernel and copy (one
+    stream) over the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = 0.0
+    for e in prof.key_averages():
+        if "CUDA" in str(e.device_type):
+            us = getattr(e, "self_device_time_total", None)
+            busy += float(e.self_cuda_time_total if us is None else us)
+    return busy / 1e3, wall
+
+
+@contextlib.contextmanager
+def path_shapes():
+    """Record the shapes the serving path hands kernels 1 and 9: a
+    pass-through around the two names the model calls them by
+    (``models/gpt.py``'s ``paged_flash_decode``, the quantized Linear's
+    ``quantized_linear``).  It launches and counts nothing itself, so the
+    launch counters read as they would without it."""
+    from paddle_tpu_torch.distributed import meta_parallel
+    from paddle_tpu_torch.models import gpt
+
+    seen = {"paged": set(), "qmm": set()}
+    paged, qlin = gpt.paged_flash_decode, meta_parallel.quantized_linear
+
+    def rec_paged(q, k, v, tab, mask, k_scale=None, v_scale=None):
+        seen["paged"].add((tuple(q.shape), tuple(k.shape), q.dtype, k.dtype,
+                           tuple(tab.shape)))
+        return paged(q, k, v, tab, mask, k_scale, v_scale)
+
+    def rec_qlin(x, w, scale, bias=None):
+        seen["qmm"].add((x.numel() // x.shape[-1], *w.shape, w.dtype))
+        return qlin(x, w, scale, bias)
+
+    gpt.paged_flash_decode = rec_paged
+    meta_parallel.quantized_linear = rec_qlin
+    try:
+        yield seen
+    finally:
+        gpt.paged_flash_decode = paged
+        meta_parallel.quantized_linear = qlin
+
+
+def check_path_kernels(torch, seen, label):
+    """Kernels 1 and 9 against their plain versions at every shape a
+    phase's engines handed them (``path_shapes``), on seeded inputs:
+    kernel 1 on a ragged layout at that batch, heads, step width,
+    head_dim, page, table width and pool size, the pools quantized as
+    the path's are, at phase 3's / Q2's tolerance (float32 q: rtol 1e-4,
+    atol 2e-5), fully-masked rows exactly 0; kernel 9 as in Q1.  Returns
+    {kernel: {"shapes": [...], "max_abs_err": x}}."""
+    from paddle_tpu_torch.ops.paged_attention import (
+        paged_flash_decode, paged_flash_decode_ref)
+
+    gen = torch.Generator().manual_seed(SEED + 17)
+    out = {}
+    qtypes = (torch.int8, torch.float8_e4m3fn)
+    if seen["paged"]:
+        worst, shapes = 0.0, []
+        for qs, ks, qdt, kdt, ts in sorted(seen["paged"], key=str):
+            nb, nh, T, hd = qs
+            q, pools, tab, mask, _ = geometry(
+                torch, T, qdt, gen, dims=(nb, nh, hd, ks[2], ts[1],
+                                          ks[0] - 1))
+            args = (q, *pools[0], tab, mask)
+            if kdt in qtypes:
+                k, v, ksc, vsc = quantize_pools(torch, *pools[0], kdt)
+                args = (q, k, v, tab, mask, ksc, vsc)
+            tol = (dict(rtol=2e-2, atol=2e-2) if qdt == torch.bfloat16
+                   else dict(rtol=1e-4, atol=2e-5))
+            got = paged_flash_decode(*args)
+            ref = paged_flash_decode_ref(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref, **tol)
+            dead = ~mask.any(-1)
+            assert int(dead.sum()) >= 1 and torch.all(
+                got.permute(0, 2, 1, 3)[dead] == 0), "dead rows must be 0"
+            err = float((got.float() - ref.float()).abs().max())
+            worst = max(worst, err)
+            shape = (f"q {list(qs)} {str(qdt)[6:]}, pool {list(ks)} "
+                     f"{str(kdt)[6:]}, table {list(ts)}")
+            shapes.append(shape)
+            log(f"{label}: kernel paged_flash_decode at the path's {shape}: "
+                f"max_abs_err={err:.3e} vs plain (rtol={tol['rtol']}, "
+                f"atol={tol['atol']}), dead rows 0; ok")
+            del q, pools, tab, mask, args, got, ref
+        out["paged_flash_decode"] = {"shapes": shapes, "max_abs_err": worst}
+    if seen["qmm"]:
+        worst, shapes = 0.0, []
+        for M, K, N, wdt in sorted(seen["qmm"], key=str):
+            mode = "int8" if wdt == torch.int8 else "fp8"
+            err = qmm_check(torch, mode, M, K, N, gen, label)
+            worst = max(worst, err)
+            shapes.append(f"{mode} [{M}, {K}] @ [{K}, {N}]")
+        log(f"{label}: kernel quantized_matmul at the path's {shapes}: "
+            f"max_abs_err={worst:.3e} vs plain (int8 bit-equal, fp8 rtol "
+            f"1e-4, atol 1e-4 x max|out|); ok")
+        out["quantized_matmul"] = {"shapes": shapes, "max_abs_err": worst}
+    return out
+
+
+def serve_dense(torch, gpu, model, continuous=True, d1_outs=None):
+    """Phases D1 (``continuous``) and D2 (legacy): the default engine
+    over phase 4's model and requests, ``D_PASSES`` timed passes of them
+    (tokens/s as the median and the range of the passes)."""
+    from paddle_tpu_torch.ops.paged_attention import paged_flash_decode
+    from paddle_tpu_torch.ops.quantized_matmul import quantized_linear
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    tag = "D1" if continuous else "D2"
+    cfg = model.gpt.cfg
+    reqs = requests()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    kw = {} if continuous else dict(continuous=False)
+    with GenerationEngine(model, prompt_buckets=[16, 48], batch_size=8,
+                          name=f"chip-smoke-{tag}", **kw) as eng:
+        st = eng.stats()
+        assert st["continuous"] == continuous and not st["paged"], st
+        t0 = time.monotonic()
+        eng.warmup()
+        ring = eng._ring()
+        ring_bytes = sum(t.numel() * t.element_size() for l in ring["layers"]
+                         for t in l.values())
+        log(f"{tag}: warmup {time.monotonic() - t0:.2f}s, ring "
+            f"{tuple(ring['layers'][0]['k'].shape)} x 2 x {cfg.num_layers} "
+            f"{ring['layers'][0]['k'].dtype} = {ring_bytes} bytes")
+        st0 = eng.stats()
+        paged_flash_decode.launches = 0
+        quantized_linear.launches = 0
+        walls, passes = [], []
+        for _ in range(D_PASSES):
+            t0 = time.monotonic()
+            futs = [eng.submit(p, n) for p, n, _ in reqs]
+            passes.append([f.result(600) for f in futs])
+            walls.append(time.monotonic() - t0)
+        launches = (paged_flash_decode.launches, quantized_linear.launches)
+        st = eng.stats()
+        peak = torch.cuda.max_memory_allocated()
+        busy, window = busy_share(torch, lambda: [
+            f.result(600) for f in [eng.submit(p, n) for p, n, _ in reqs]])
+    assert st["completed"] - st0["completed"] == NUM_REQUESTS * D_PASSES, st
+    assert st["errors"] == 0, st
+    assert launches == (0, 0), launches
+    outs = passes[0]
+    n_tok = 0
+    for (p, n, _), out in zip(reqs, outs):
+        assert out.shape == (n,) and out.min() >= 0 \
+            and out.max() < cfg.vocab_size, (out.shape, n)
+        n_tok += n
+    steps = st["decode_steps"] - st0["decode_steps"]
+    calls = st["batches"] - st0["batches"]
+    if d1_outs is None:
+        compared = ties = 0
+        for (p, _, _), out in list(zip(reqs, outs))[:4]:
+            c, t = greedy_margin_check(torch, model, p, out.tolist(),
+                                       cfg.vocab_size)
+            compared += c
+            ties += t
+        assert compared >= 20, compared
+        log(f"{tag}: {compared} tokens of 4 requests agree with uncached "
+            f"greedy on the card ({ties} near-tie divergences)")
+        same = None
+    else:
+        same = sum(a.tolist() == b.tolist() for a, b in zip(outs, d1_outs))
+        for (p, _, _), a, b in zip(reqs, outs, d1_outs):
+            if a.tolist() != b.tolist():  # then it must be a near-tie
+                greedy_margin_check(torch, model, p, a.tolist(),
+                                    cfg.vocab_size)
+        log(f"{tag}: tokens equal D1's in {same} of {NUM_REQUESTS} "
+            f"requests (the others diverge at a near-tie of greedy)")
+    # the later passes against the first (a batch of another make-up may
+    # round differently: a divergence must be a near-tie)
+    repeat = 0
+    for later in passes[1:]:
+        for (p, _, _), a, b in zip(reqs, later, outs):
+            if a.tolist() == b.tolist():
+                repeat += 1
+            else:
+                greedy_margin_check(torch, model, p, a.tolist(),
+                                    cfg.vocab_size)
+    rates = sorted(n_tok / w for w in walls)
+    median = rates[len(rates) // 2]
+    r = {"tokens_per_s": median, "tokens_per_s_passes": [
+        n_tok / w for w in walls], "passes": D_PASSES,
+         "mean_ms": st["mean_ms"], "p99_ms": st["p99_ms"],
+         "peak_bytes": peak, "ring_bytes": ring_bytes,
+         "decode_steps": steps,
+         "admission_calls" if continuous else "batches": calls,
+         "busy_ms": busy, "window_ms": window,
+         "busy_share": busy / window,
+         "later_passes_equal_to_first": repeat}
+    if same is not None:
+        r["requests_equal_to_d1"] = same
+    log(f"{tag}[{gpu}]: {n_tok} tokens a pass, {D_PASSES} passes: median "
+        f"{median:.1f} tokens/s (range {rates[0]:.1f}-{rates[-1]:.1f}), "
+        f"mean request latency {st['mean_ms']:.1f} ms (p99 "
+        f"{st['p99_ms']:.1f} ms), {steps} decode steps, {calls} "
+        f"{'admissions' if continuous else 'batches'}, later passes equal "
+        f"to the first in {repeat} of {NUM_REQUESTS * (D_PASSES - 1)} "
+        f"requests, peak device memory {peak / 2**20:.0f} MiB; device busy "
+        f"{busy:.1f} ms of a {window:.1f} ms profiled pass = "
+        f"{100 * busy / window:.1f}%")
+    return r, outs
+
+
+def bench_generate(torch, gpu):
+    """Phase D3: bench.py's ``bench_gpt_generate`` body in the port."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops.paged_attention import paged_flash_decode
+    from paddle_tpu_torch.serving import GenerationEngine
+    from paddle_tpu_torch.tuning import RequestTrace, replay
+
+    paddle.seed(1234)
+    cfg = GPTConfig(vocab_size=8192, hidden_size=256, num_layers=4,
+                    num_heads=8, max_position=512, dropout=0.0)
+    model = GPTForCausalLM(cfg)
+    model.eval()
+    trace = RequestTrace.synthetic()
+
+    def run(continuous, paged=False):
+        kind = "paged" if paged else "cont" if continuous else "legacy"
+        with GenerationEngine(
+                model, prompt_buckets=[16, 48], batch_size=8,
+                max_queue_delay_ms=1.0, continuous=continuous, paged=paged,
+                name=f"bench-gen-{kind}") as eng:
+            eng.warmup()
+            paged_flash_decode.launches = 0
+            stats = replay(eng, trace)
+            launches = paged_flash_decode.launches
+            outs = [f.result(600).tolist()
+                    for f in [eng.submit(p, n) for p, n in trace]]
+            return stats, eng.stats(), launches, outs
+
+    with path_shapes() as seen:
+        legacy, lsnap, l_launches, l_outs = run(False)
+        cont, csnap, c_launches, c_outs = run(True)
+        paged, psnap, p_launches, p_outs = run(True, paged=True)
+    assert l_launches == c_launches == 0, (l_launches, c_launches)
+    assert p_launches > 0 and p_launches % cfg.num_layers == 0, p_launches
+    assert seen["paged"] and not seen["qmm"], seen
+    checked = check_path_kernels(torch, seen, "D3")
+    # the headline engine's own tokens: every request against uncached
+    # greedy (a divergence must be a near-tie), then the others against it
+    compared = ties = 0
+    for (prompt, _), out in zip(trace, c_outs):
+        c, t = greedy_margin_check(torch, model, prompt, out,
+                                   cfg.vocab_size)
+        compared += c
+        ties += t
+    assert compared >= 0.9 * trace.total_new_tokens, compared
+    log(f"D3: continuous engine {compared} of {trace.total_new_tokens} "
+        f"tokens of {len(trace)} requests agree with uncached greedy on "
+        f"the card ({ties} near-tie divergences)")
+    for name, outs in (("legacy", l_outs), ("paged", p_outs)):
+        diff = [i for i, (a, b) in enumerate(zip(outs, c_outs)) if a != b]
+        for i in diff:  # a divergence must be a near-tie of greedy
+            greedy_margin_check(torch, model, trace.entries[i][0], outs[i],
+                                cfg.vocab_size)
+        log(f"D3: {name} tokens equal continuous in "
+            f"{len(outs) - len(diff)} of {len(outs)} requests")
+    line = {"metric": "gpt_generate_tokens_per_sec",
+            "value": round(cont["tokens_per_sec"], 1), "unit": "tok/s",
+            "vs_baseline": round(cont["tokens_per_sec"]
+                                 / legacy["tokens_per_sec"], 3),
+            "legacy_tokens_per_sec": round(legacy["tokens_per_sec"], 1),
+            "paged_tokens_per_sec": round(paged["tokens_per_sec"], 1),
+            "mean_latency_ms": round(cont["mean_ms"], 1),
+            "legacy_mean_latency_ms": round(legacy["mean_ms"], 1),
+            "paged_mean_latency_ms": round(paged["mean_ms"], 1),
+            "requests": len(trace), "new_tokens": trace.total_new_tokens,
+            "method": "continuous_batching_vs_legacy", "device": gpu}
+    log(json.dumps(line))
+    del model
+    # steps over the replay and the check pass together
+    return dict(line, paged_launches=p_launches, path_checks=checked,
+                greedy_tokens_compared=compared,
+                decode_steps={"legacy": lsnap["decode_steps"],
+                              "continuous": csnap["decode_steps"],
+                              "paged": psnap["decode_steps"]},
+                p99_ms={"legacy": legacy["p99_ms"], "continuous":
+                        cont["p99_ms"], "paged": paged["p99_ms"]},
+                paged_spec_drafted=psnap["spec_drafted"],
+                paged_spec_accepted=psnap["spec_accepted"])
+
+
+def handoff(torch, gpu, model, quantized=None):
+    """Phase D4: prefill-role → decode-role engines against one
+    co-located paged engine, at phase 4's shape."""
+    from paddle_tpu_torch.ops.paged_attention import paged_flash_decode
+    from paddle_tpu_torch.ops.quantized_matmul import quantized_linear
+    from paddle_tpu_torch.serving import GenerationEngine, KVHandoff
+
+    import numpy as np
+
+    tag = f"D4[{quantized or 'float'}]"
+    L = model.gpt.cfg.num_layers
+    reqs = requests()
+    kw = dict(ENGINE, speculative_k=0, quantized=quantized)
+    # one request at a time on every engine: the same shapes for the same
+    # request (and, quantized, the same rows under each per-tensor
+    # activation scale), so the tokens can be held bit for bit
+    with GenerationEngine(model, name="chip-smoke-co", **kw) as co:
+        co.warmup()
+        want = [co.generate(p, n, timeout=600).tolist() for p, n, _ in reqs]
+    with path_shapes() as seen, \
+            GenerationEngine(model, role="prefill", name="chip-smoke-pre",
+                             **kw) as pre, \
+            GenerationEngine(model, role="decode", name="chip-smoke-dec",
+                             **kw) as dec:
+        pre.warmup()
+        dec.warmup()
+        counts = {}
+        for eng, name in ((pre, "prefill"), (dec, "decode")):
+            st0 = eng.stats()
+            paged_flash_decode.launches = 0
+            quantized_linear.launches = 0
+            if name == "prefill":
+                hands = [pre.submit(p, n, handoff=True).result(600)
+                         for p, n, _ in reqs]
+            else:
+                got = [dec.submit(p, n, handoff=h).result(600).tolist()
+                       for (p, n, _), h in zip(reqs, hands)]
+            st = eng.stats()
+            calls = ((st["batches"] - st0["batches"])
+                     + (st["decode_steps"] - st0["decode_steps"]))
+            counts[name] = {"paged_flash_decode": paged_flash_decode.launches,
+                            "quantized_matmul": quantized_linear.launches,
+                            "calls": calls}
+            assert paged_flash_decode.launches == L * calls > 0, counts
+            assert quantized_linear.launches == (
+                4 * L * calls if quantized else 0), counts
+        assert pre.stats()["handoffs_out"] == NUM_REQUESTS
+        assert dec.stats()["handoffs_in"] == NUM_REQUESTS
+        assert pre.stats()["decode_steps"] == 0
+        # the transfers at the payload's full width (largest bucket)
+        cache = pre._new_cache()
+        idx = np.arange(pre._Gh, dtype=np.int32)
+        payload = pre._export(cache, idx)
+        nbytes = sum(a.nbytes for a in (payload if quantized
+                                        else (payload,)))
+        n = 20
+        t0 = time.perf_counter()
+        for _ in range(n):
+            payload = pre._export(cache, idx)  # returns host arrays
+        export_ms = (time.perf_counter() - t0) * 1e3 / n
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            dec._import(cache, payload, idx)
+            torch.cuda.synchronize()
+        import_ms = (time.perf_counter() - t0) * 1e3 / n
+        del cache
+    assert seen["paged"] and bool(seen["qmm"]) == bool(quantized), seen
+    checked = check_path_kernels(torch, seen, tag)
+    assert all(isinstance(h, KVHandoff) for h in hands)
+    assert got == want, [i for i, (a, b) in enumerate(zip(got, want))
+                         if a != b]
+    log(f"{tag}[{gpu}]: {NUM_REQUESTS} hand-offs, tokens bit-identical to "
+        f"the co-located engine; launches prefill {counts['prefill']}, "
+        f"decode {counts['decode']}; payload {nbytes} bytes, export "
+        f"{export_ms:.3f} ms, import {import_ms:.3f} ms")
+    return {"launches": counts, "payload_bytes": nbytes,
+            "export_ms": export_ms, "import_ms": import_ms,
+            "path_checks": checked}
+
+
+def weight_swaps(torch, gpu):
+    """Phase D5: an int8 ``export_quantized`` artifact into a quantized
+    dense engine, then a float side-file into a float one."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import slim
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_small
+    from paddle_tpu_torch.ops.quantized_matmul import quantized_linear
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    def build(seed):
+        return GPTForCausalLM(gpt_small(dropout=0.0), device=DEVICE,
+                              generator=torch.Generator().manual_seed(seed))
+
+    served, donor = build(SEED + 10), build(SEED + 11)
+    L = served.gpt.cfg.num_layers
+    reqs = requests()[:4]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_swap_")
+    out = {}
+    try:
+        t0 = time.monotonic()
+        art = slim.export_quantized(donor, os.path.join(tmp, "donor"),
+                                    mode="int8")
+        export_s = time.monotonic() - t0
+        side = os.path.join(tmp, "donor_float.pdiparams")
+        ptt.save({"params": dict(donor.named_parameters()), "buffers": {}},
+                 side)
+        # batch 1: a quantized linear's per-tensor activation scale sees
+        # every row of a call, and a free row carries its slot's history
+        kw = dict(prompt_buckets=[16, 48], batch_size=1)
+        for mode, path in (("int8", art), (None, side)):
+            with path_shapes() as seen:
+                with GenerationEngine(donor, quantized=mode,
+                                      name="chip-smoke-donor", **kw) as ref:
+                    want = [ref.generate(p, n, timeout=600).tolist()
+                            for p, n, _ in reqs]
+                with GenerationEngine(served, quantized=mode,
+                                      name="chip-smoke-swap", **kw) as eng:
+                    eng.warmup()
+                    before = eng.generate(reqs[0][0], reqs[0][1],
+                                          timeout=600).tolist()
+                    torch.cuda.synchronize()
+                    t0 = time.monotonic()
+                    eng.swap_weights(path)
+                    torch.cuda.synchronize()
+                    swap_s = time.monotonic() - t0
+                    st0 = eng.stats()
+                    quantized_linear.launches = 0
+                    got = [eng.generate(p, n, timeout=600).tolist()
+                           for p, n, _ in reqs]
+                    launches = quantized_linear.launches
+                    st = eng.stats()
+            calls = ((st["batches"] - st0["batches"])
+                     + (st["decode_steps"] - st0["decode_steps"]))
+            assert got == want and before != want[0], (got, want)
+            assert st["weight_swaps"] == 1, st
+            assert launches == (4 * L * calls if mode else 0), (launches,
+                                                                calls)
+            assert not seen["paged"] and bool(seen["qmm"]) == bool(mode)
+            name = mode or "float"
+            out[name] = {"swap_s": swap_s,
+                         "file_bytes": os.path.getsize(path),
+                         "quantized_matmul_launches": launches,
+                         "calls": calls,
+                         "path_checks": check_path_kernels(
+                             torch, seen, f"D5[{name}]")}
+            log(f"D5[{gpu}] {name}: swap of {os.path.getsize(path)} bytes "
+                f"in {swap_s:.3f}s; 4 requests now equal the donor "
+                f"engine's tokens; {calls} calls, quantized_matmul "
+                f"launches {launches}")
+        out["int8"]["export_s"] = export_s
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del served, donor
+    return out
+
+
 def time_paged(torch, gpu, label, args, library, lib_name, bound_row):
     """Kernel 1 at one serving shape: device time (CUDA graph) and the
     eager call of the kernel and of the library's gather + attention, the
@@ -903,46 +1398,53 @@ def qmm_inputs(torch, mode, M, K, N, gen, n_copies=1):
     return out
 
 
-def check_quantized_matmul(torch):
-    """Phase Q1: the quantized_matmul kernel against its plain version at
-    the path's shapes.  Returns the largest abs error per mode."""
+def qmm_check(torch, mode, M, K, N, gen, label):
+    """quantized_matmul against its plain version on seeded operands at
+    one shape: int8 accumulator and output bit-equal, fp8 within rtol
+    1e-4, atol 1e-4 x max|out|; the public wrapper too (quantize, fold,
+    dispatch, cast).  Returns the largest abs error."""
     from paddle_tpu_torch.ops.quantized_matmul import (
         _matmul_kernel, _matmul_ref, quantized_linear, quantized_linear_ref)
 
+    (xq, wq, scale, bias, x, ws), = qmm_inputs(torch, mode, M, K, N, gen)
+    out = _matmul_kernel(xq, wq, scale, bias)
+    ref = _matmul_ref(xq, wq, scale, bias)
+    pub = quantized_linear(x, wq, ws, bias)
+    pref = quantized_linear_ref(x, wq, ws, bias)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if mode == "int8":
+        one, zero = torch.ones_like(scale), torch.zeros_like(bias)
+        acc = _matmul_kernel(xq, wq, one, zero)
+        acc0 = _matmul_ref(xq, wq, one, zero)
+        assert torch.equal(acc, acc0), \
+            f"int8 accumulator differs at {label} M={M}"
+        assert torch.equal(out, ref) and torch.equal(pub, pref), \
+            f"int8 output differs at {label} M={M}: {err}"
+    else:
+        tol = dict(rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+        torch.testing.assert_close(out, ref, **tol)
+        torch.testing.assert_close(pub, pref, **tol)
+        share = float(((out - ref).abs() / (
+            tol["atol"] + tol["rtol"] * ref.abs())).max())
+        log(f"kernel quantized_matmul fp8 {label} [{M}, {K}] @ "
+            f"[{K}, {N}]: max_abs_err={err:.3e}, {share:.3f} of "
+            f"the tolerance (rtol=1e-4, atol=1e-4 x max|out| = "
+            f"{tol['atol']:.3e})")
+    return err
+
+
+def check_quantized_matmul(torch):
+    """Phase Q1: the quantized_matmul kernel against its plain version at
+    the path's shapes.  Returns the largest abs error per mode."""
     gen = torch.Generator().manual_seed(SEED + 5)
     errs = {}
     for mode in QUANT_MODES:
         worst = 0.0
         for name, (K, N) in QMM_KN.items():
             for M in QMM_M:
-                (xq, wq, scale, bias, x, ws), = qmm_inputs(torch, mode, M, K,
-                                                           N, gen)
-                out = _matmul_kernel(xq, wq, scale, bias)
-                ref = _matmul_ref(xq, wq, scale, bias)
-                # the public wrapper too (quantize, fold, dispatch, cast)
-                pub = quantized_linear(x, wq, ws, bias)
-                pref = quantized_linear_ref(x, wq, ws, bias)
-                torch.cuda.synchronize()
-                err = float((out - ref).abs().max())
-                if mode == "int8":
-                    one, zero = torch.ones_like(scale), torch.zeros_like(bias)
-                    acc = _matmul_kernel(xq, wq, one, zero)
-                    acc0 = _matmul_ref(xq, wq, one, zero)
-                    assert torch.equal(acc, acc0), \
-                        f"int8 accumulator differs at {name} M={M}"
-                    assert torch.equal(out, ref) and torch.equal(pub, pref), \
-                        f"int8 output differs at {name} M={M}: {err}"
-                else:
-                    tol = dict(rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
-                    torch.testing.assert_close(out, ref, **tol)
-                    torch.testing.assert_close(pub, pref, **tol)
-                    share = float(((out - ref).abs() / (
-                        tol["atol"] + tol["rtol"] * ref.abs())).max())
-                    log(f"kernel quantized_matmul fp8 {name} [{M}, {K}] @ "
-                        f"[{K}, {N}]: max_abs_err={err:.3e}, {share:.3f} of "
-                        f"the tolerance (rtol=1e-4, atol=1e-4 x max|out| = "
-                        f"{tol['atol']:.3e})")
-                worst = max(worst, err)
+                worst = max(worst, qmm_check(torch, mode, M, K, N, gen,
+                                             name))
         errs[mode] = worst
         log(f"kernel quantized_matmul {mode} at {list(QMM_KN.values())} x M "
             f"in {QMM_M}: max_abs_err={worst:.3e} vs plain ("
@@ -4782,6 +5284,17 @@ def main() -> int:
         "the float model changed under a quantized engine"
     log("serve: the float model is bit-identical after both quantized "
         "engines")
+    # the default serving engines, the hand-off and the swaps
+    d1, d1_outs = serve_dense(torch, gpu, model)
+    d2, _ = serve_dense(torch, gpu, model, continuous=False,
+                        d1_outs=d1_outs)
+    d3 = bench_generate(torch, gpu)
+    d4 = {mode or "float": handoff(torch, gpu, model, quantized=mode)
+          for mode in (None, "int8")}
+    d5 = weight_swaps(torch, gpu)
+    log(json.dumps({"serving_engines": {
+        "device": gpu, "dense_continuous": d1, "legacy": d2,
+        "bench_gpt_generate": d3, "handoff": d4, "weight_swaps": d5}}))
     del model
     qrows = timing_quantized(torch, gpu)
     for name, r in (("float", served), *qserved.items()):
@@ -4850,12 +5363,26 @@ def main() -> int:
                  replaces="paddle_tpu/ops/paged_attention.py:155")
     # T = 1 decode shape; the quantized branch's numbers are the int8
     # pool's, its launches those of the int8 and fp8 engines together
+    # (since the serving-engines slice) the launches of the hand-off's
+    # prefill and decode engines (D4) and of bench.py's paged run (D3)
     kernels = [
         dict(paged, branch="float pools", launches=served["launches"],
-             max_abs_err=max_err, **rows[1]),
+             max_abs_err=max_err, **rows[1],
+             handoff_launches={k: v["paged_flash_decode"] for k, v in
+                               d4["float"]["launches"].items()},
+             bench_paged_launches=d3["paged_launches"],
+             # held to the plain version at the shapes D3 and D4 ran
+             path_checks={
+                 "D3": d3["path_checks"]["paged_flash_decode"],
+                 "D4[float]": d4["float"]["path_checks"][
+                     "paged_flash_decode"]}),
         dict(paged, branch="quantized pools (int8, fp8) with scale planes",
              launches=sum(r["launches"] for r in qserved.values()),
-             max_abs_err=qpaged_err, **qrows[("paged", "int8", 1)])]
+             max_abs_err=qpaged_err, **qrows[("paged", "int8", 1)],
+             handoff_launches={k: v["paged_flash_decode"] for k, v in
+                               d4["int8"]["launches"].items()},
+             path_checks={"D4[int8]": d4["int8"]["path_checks"][
+                 "paged_flash_decode"]})]
     # the main path's numbers: BERT-base pretraining's shapes, device time
     # of the forward and (under "backward") of the backward kernel; the
     # GPT, long-context and phase W shapes beside them
@@ -4920,6 +5447,14 @@ def main() -> int:
         launches=sum(r["qmm_launches"] for r in qserved.values()),
         max_abs_err=max(qmm_errs.values()),
         **qrows[("qmm", "int8", "fc1", 8)],
+        # the quantized dense engine (D5) and the int8 hand-off (D4)
+        dense_engine_launches=d5["int8"]["quantized_matmul_launches"],
+        handoff_launches={k: v["quantized_matmul"] for k, v in
+                          d4["int8"]["launches"].items()},
+        # held to the plain version at the shapes D4 and D5 ran
+        path_checks={"D4[int8]": d4["int8"]["path_checks"][
+            "quantized_matmul"], "D5[int8]": d5["int8"]["path_checks"][
+                "quantized_matmul"]},
         other_shapes={f"{mode} {name} M={M}": qrows[("qmm", mode, name, M)]
                       for mode, name, M in (
                           ("fp8", "fc1", 8), ("fp8", "fc2", 8),

@@ -10,11 +10,16 @@ passes ``device="cpu"``.
 
 Ported so far:
 
-* paged-KV generation serving for ``GPTForCausalLM``
-  (``serving.GenerationEngine(model, paged=True)``) through the
-  ``paged_flash_decode`` CUDA kernel, also quantized
-  (``quantized="int8" | "fp8"``: ``slim`` weight quantization, int8 / fp8
-  KV pools, the ``quantized_matmul`` CUDA kernel);
+* generation serving for ``GPTForCausalLM``
+  (``serving.GenerationEngine``): the default dense-ring continuous
+  batching engine, the legacy run-batch-to-completion scheduler
+  (``continuous=False``) and the paged-KV engine (``paged=True``, the
+  ``paged_flash_decode`` CUDA kernel) with prefill/decode KV hand-off
+  (``role=``), hot weight swaps (``swap_weights`` / ``reload_weights``),
+  also quantized (``quantized="int8" | "fp8"``: ``slim`` weight
+  quantization and ``export_quantized``, int8 / fp8 KV pools, the
+  ``quantized_matmul`` CUDA kernel); ``tuning.RequestTrace`` / ``replay``
+  drive bench.py's serving workload;
 * the training step through ``Model(net).prepare(optimizer, loss)`` /
   ``train_batch`` for BERT (``models.bert``: pretraining, QA and
   sequence-classification heads) and ``GPTForCausalLM``, with the
@@ -42,7 +47,8 @@ Ported so far:
 """
 from .tensor import *  # noqa: F401,F403  (the tensor functions, as JAX's)
 from . import tensor  # noqa: F401
-from . import amp, io, metric, nn, optimizer, regularizer, slim, vision
+from . import (amp, io, metric, nn, optimizer, regularizer, slim, tuning,
+               vision)
 from .framework.device import get_device, set_device
 from .framework.random import seed
 from .framework.serialization import load, save
@@ -54,4 +60,4 @@ __version__ = "0.5.0"
 __all__ = ["seed", "set_device", "get_device", "Model", "ParamAttr", "save",
            "load",
            "amp", "io", "metric", "nn", "optimizer", "regularizer", "slim",
-           "vision", "__version__"]
+           "tuning", "vision", "__version__"]

@@ -10,11 +10,13 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from .errors import InvalidArgumentError, UnavailableError
 
-__all__ = ["set_device", "get_device", "default_device", "resolve_device"]
+__all__ = ["set_device", "get_device", "default_device", "resolve_device",
+           "upload"]
 
 #: the device :func:`set_device` chose; None = the card
 _chosen: Optional[torch.device] = None
@@ -70,3 +72,21 @@ def resolve_device(device=None) -> torch.device:
     """``None`` → :func:`default_device`; anything else is parsed and
     checked (``"cpu"`` always passes)."""
     return default_device() if device is None else _parse(device)
+
+
+def upload(a, device: torch.device) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) on ``device``, copied without
+    stalling the host: to a card through pinned memory and a non-blocking
+    copy, so kernels already queued keep running while the host goes on
+    (the caching host allocator holds the pinned block until the copy has
+    run).  On the CPU: a copy, so the caller may reuse its array.  A
+    tensor already on a card is moved as ``Tensor.to`` moves it."""
+    if isinstance(a, torch.Tensor) and a.device.type != "cpu":
+        return a.to(device)
+    if not isinstance(a, torch.Tensor):
+        a = np.ascontiguousarray(a)
+        # torch wants a writable buffer (a JAX array's view is read-only)
+        a = torch.from_numpy(a if a.flags.writeable else a.copy())
+    if device.type == "cuda":
+        return a.pin_memory().to(device, non_blocking=True)
+    return a.clone()

@@ -11,7 +11,7 @@ import torch
 from .errors import InvalidArgumentError
 
 __all__ = ["convert_dtype", "is_low_precision", "numpy_to_tensor",
-           "to_numpy", "promote"]
+           "to_numpy", "promote", "RAW_BITS"]
 
 _NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16, "float64": torch.float64,
@@ -68,6 +68,12 @@ def numpy_to_tensor(a, device=None) -> torch.Tensor:
 
 #: tensors of these dtypes have no numpy dtype without ``ml_dtypes``:
 #: ``to_numpy`` widens them to float32, which holds each value exactly
+#: numpy has no float8 / bfloat16: host arrays that must keep such a
+#: tensor's bits (a KV hand-off payload) carry them in these integer dtypes
+#: (torch dtype, numpy dtype)
+RAW_BITS = {torch.float8_e4m3fn: (torch.uint8, np.uint8),
+            torch.bfloat16: (torch.int16, np.int16)}
+
 _WIDEN = {torch.bfloat16, getattr(torch, "float8_e4m3fn", None),
           getattr(torch, "float8_e5m2", None)} - {None}
 

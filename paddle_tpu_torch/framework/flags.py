@@ -99,9 +99,9 @@ define_flag("paged_kv", False,
             "GenerationEngine KV-cache layout: on, the decode loop stores "
             "KV in fixed-size pages behind a slot->page-table indirection "
             "(vLLM-style PagedAttention), shared copy-on-write across "
-            "slots with a common prefix. The port serves paged mode only; "
-            "the dense ring layout this flag's default selects is not "
-            "ported yet. Per-engine override: GenerationEngine(paged=...).")
+            "slots with a common prefix; off (default), one dense ring "
+            "KV cache of batch_size x cache_len slots. Per-engine "
+            "override: GenerationEngine(paged=...).")
 define_flag("kv_page_size", 16,
             "Tokens per KV page in paged mode; must divide the engine's "
             "max_len.")

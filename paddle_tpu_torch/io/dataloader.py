@@ -33,7 +33,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..framework.device import resolve_device
+from ..framework.device import resolve_device, upload
 from ..framework.dtype import numpy_to_tensor, to_numpy
 from ..framework.errors import InvalidArgumentError
 from .dataset import Dataset, IterableDataset
@@ -96,9 +96,7 @@ def _to_device(a, device, pinned=False):
     if not isinstance(a, (np.ndarray, np.generic, torch.Tensor)):
         return a
     t = numpy_to_tensor(a)
-    if pinned:
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    return upload(t, device) if pinned else t.to(device)
 
 
 # -- worker-process globals (set once per worker by the pool initializer) ----

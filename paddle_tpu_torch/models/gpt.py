@@ -27,15 +27,24 @@ off it the gather-then-attend path) and ``quantized_matmul`` (every
 quantized ``qkv`` / ``out`` / ``fc1`` / ``fc2``).  The paged pool is
 updated IN PLACE (JAX returns new arrays): ``forward_paged`` scatters into
 the tensors of ``cache`` and returns the same dict, which saves one pool
-copy per layer per step.  Not ported yet (ROADMAP queue A): the
-dense-ring ``forward_cached`` family, the ``gather_pages`` /
-``scatter_pages`` hand-off, LoRA, sequence/pipeline parallelism.
+copy per layer per step.  The dense ring KV cache of the default serving
+engine (:meth:`GPTModel.init_cache` / :meth:`~GPTModel.reset_slots` /
+:meth:`~GPTModel.write_slots` and ``forward_cached`` at every level) is
+updated in place the same way: the new tokens' K/V are written by index
+(``positions % C``, ``-1`` skipped) where JAX multiplies a one-hot ``hit``
+into the whole ring and merges with ``jnp.where`` — the same values, since
+a one-hot product with 1.0 is exact.  Its attention is the JAX einsum /
+softmax (no kernel: it is plain XLA in JAX too).  The prefill→decode
+hand-off moves pages through :meth:`GPTModel.gather_pages` /
+:meth:`~GPTModel.scatter_pages` as one host array.  Not ported yet
+(ROADMAP queue A): LoRA, sequence/pipeline parallelism.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import nn
@@ -44,8 +53,8 @@ from ..distributed.meta_parallel import (
     RowParallelLinear,
     VocabParallelEmbedding,
 )
-from ..framework.device import resolve_device
-from ..framework.dtype import promote
+from ..framework.device import resolve_device, upload
+from ..framework.dtype import RAW_BITS, promote
 from ..framework.errors import InvalidArgumentError, UnimplementedError
 from ..framework.random import default_generator
 from ..moe import MoELayer
@@ -84,6 +93,33 @@ def _quantize_kv(t, qdtype):
         q = torch.clamp(tf * ratio, -fp8_max, fp8_max).to(
             torch.float8_e4m3fn)
     return q, amax / top
+
+
+def _host_ints(a) -> np.ndarray:
+    """``a`` (numpy, a list or a tensor on any device) as host int64 —
+    the engines pass host arrays, so only a caller handing over a card
+    tensor pays a device sync here."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a).astype(np.int64)
+
+
+def _host_bool(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, bool).reshape(-1)
+
+
+def _from_host(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """A hand-off payload array on ``device`` as ``dtype``: raw bits
+    (``RAW_BITS``, as :meth:`GPTModel.gather_pages` exports fp8 / bf16)
+    are reinterpreted, bit for bit; any other array is cast, as JAX's
+    ``astype`` casts it."""
+    t = upload(a, device)
+    raw = RAW_BITS.get(dtype)
+    if raw is not None and t.dtype == raw[0]:
+        return t.view(dtype)
+    return t.to(dtype)
 
 
 class GPTConfig:
@@ -241,6 +277,35 @@ class ParallelAttention(nn.Layer):
                 and (self.drop.p == 0.0 or not self.training)
                 and x.device.type == "cuda")
 
+    def forward_cached(self, x, kv, write, mask):
+        """One attention step over a ring KV cache (``GPTModel.init_cache``)
+        — the default serving engine's prefill / decode step.
+
+        ``write`` is ``(b, t, c)``: the ``[N]`` batch rows, token columns
+        and ring slots of the tokens this call writes (``positions % C``,
+        padding ``-1`` left out; resolved on the host by
+        :meth:`GPTModel.forward_cached`).  Their K/V are written into the
+        ``[B,H,C,hd]`` buffers of ``kv`` in place (JAX scatters a one-hot
+        ``hit`` through an einsum; with 1.0 the product is exact, so the
+        ring holds the same values), then attention runs over the WHOLE
+        ring under ``mask`` ``[B,T,C]``: scores filled with ``finfo.min``
+        where masked, softmax, the product with V — the JAX einsums.  A
+        row that sees no key (a free slot) gets a uniform softmax, as in
+        JAX.  Returns ``(out, kv)``."""
+        B, T, D = x.shape
+        q, k, v = self._heads(x)  # [B,H,T,hd]
+        b, t, c = write
+        if b.numel():
+            kv["k"][b, :, c] = k[b, :, t].to(kv["k"].dtype)
+            kv["v"][b, :, c] = v[b, :, t].to(kv["v"].dtype)
+        scores = torch.einsum("bhqd,bhcd->bhqc", q, kv["k"]) / math.sqrt(
+            self.head_dim)
+        scores = scores.masked_fill(~mask[:, None],
+                                    torch.finfo(scores.dtype).min)
+        probs = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhqc,bhcd->bhqd", probs, kv["v"])
+        return self.out(ctx.transpose(1, 2).reshape(B, T, D)), kv
+
     def forward_paged(self, x, kv, write_page, write_off, gather_tab, mask):
         """One attention step over a PAGED KV pool.
 
@@ -312,6 +377,12 @@ class GPTBlock(nn.Layer):
                                   epsilon=self.ln2.epsilon)
         return s + self.mlp(h)
 
+    def forward_cached(self, x, kv, write, mask):
+        # unfused, as the JAX serving path is (gpt.py GPTBlock.forward_cached)
+        a, kv = self.attn.forward_cached(self.ln1(x), kv, write, mask)
+        x = x + a
+        return x + self.mlp(self.ln2(x)), kv
+
     def forward_paged(self, x, kv, write_page, write_off, gather_tab, mask):
         # unfused, as the JAX serving path is
         a, kv = self.attn.forward_paged(self.ln1(x), kv, write_page,
@@ -341,6 +412,108 @@ class GPTModel(nn.Layer):
         for blk in self.blocks:
             x = blk(x, attn_mask)
         return self.ln_f(x)
+
+    # -- ring KV cache (the default serving engine) ----------------------
+    def init_cache(self, batch_size: int, cache_len: Optional[int] = None,
+                   dtype=None):
+        """Preallocate a ring KV cache on the model's device: per-layer
+        ``[B,H,C,hd]`` K/V buffers in the model's float dtype (a quantized
+        model's ring stays float, as in JAX) and one shared ``[B,C]`` int32
+        slot→absolute-position map (``-1`` = empty).  While a row's
+        position stays below ``C`` attention is exact; past it the ring
+        overwrites the oldest entries (sliding-window decode)."""
+        cfg = self.cfg
+        C = int(cache_len or cfg.max_position)
+        dt = _DTYPES.get(str(dtype or cfg.dtype).replace("torch.", ""))
+        if dt is None:
+            raise InvalidArgumentError(
+                f"init_cache(dtype={dtype!r}): the ring is float32 or "
+                f"bfloat16")
+        hd = cfg.hidden_size // cfg.num_heads
+        dev = self.wte.weight.device
+        shape = (int(batch_size), cfg.num_heads, C, hd)
+        return {
+            "pos": torch.full((int(batch_size), C), -1, dtype=torch.int32,
+                              device=dev),
+            "layers": [{"k": torch.zeros(shape, dtype=dt, device=dev),
+                        "v": torch.zeros(shape, dtype=dt, device=dev)}
+                       for _ in range(cfg.num_layers)],
+        }
+
+    @staticmethod
+    def reset_slots(cache, slot_mask):
+        """Evict batch slots, in place: the position-map rows of masked
+        slots become ``-1`` (nothing attends to them); K/V payloads stay,
+        as in JAX — visibility is decided by ``pos`` alone.  Unmasked rows
+        are not touched.  ``slot_mask``: ``[B]`` bool (host or device).
+        Returns ``cache``."""
+        pos = cache["pos"]
+        m = slot_mask if isinstance(slot_mask, torch.Tensor) else upload(
+            np.asarray(slot_mask, bool).reshape(-1), pos.device)
+        pos.masked_fill_(m.to(pos.device, torch.bool)[:, None], -1)
+        return cache
+
+    @staticmethod
+    def write_slots(cache, src, slot_mask):
+        """Copy whole cache rows of ``src`` (a cache of the same shapes)
+        into ``cache`` where ``slot_mask`` (``[B]`` bool) is set, in place —
+        JAX's admission merge.  Only the masked rows are written; the
+        others stay bit-identical.  Returns ``cache``."""
+        m = _host_bool(slot_mask)
+        if m.shape != (cache["pos"].shape[0],) or (
+                src["pos"].shape != cache["pos"].shape):
+            raise InvalidArgumentError(
+                f"write_slots: a {m.shape[0]}-entry mask and a "
+                f"{tuple(src['pos'].shape)} source for a "
+                f"{tuple(cache['pos'].shape)} cache")
+        rows = np.nonzero(m)[0]
+        if not len(rows):
+            return cache
+        r = upload(rows.astype(np.int64), cache["pos"].device)
+        cache["pos"].index_copy_(0, r, src["pos"].index_select(0, r))
+        for d, s_ in zip(cache["layers"], src["layers"]):
+            for key in ("k", "v"):
+                d[key].index_copy_(0, r, s_[key].index_select(0, r))
+        return cache
+
+    def forward_cached(self, input_ids, positions, cache):
+        """Prefill/decode forward over :meth:`init_cache` state.
+
+        ``input_ids`` / ``positions`` are ``[B,T]``: ``T`` is the prompt
+        bucket for a prefill, 1 for a decode step; positions are ABSOLUTE
+        per sequence, ``-1`` = padding (writes nothing, attends to
+        nothing).  ``positions`` is read on the host (pass numpy, as the
+        engines do, to keep the card's queue running; a card tensor costs
+        a sync): the ring slots each token writes are resolved there and
+        go to the card in one copy with the positions.  A call writes at
+        most ``C`` tokens a row.  The ring is updated in place.  Returns
+        ``(hidden [B,T,D], cache)``."""
+        pos = _host_ints(positions)
+        B, T = pos.shape
+        C = cache["pos"].shape[1]
+        if T > C:
+            raise InvalidArgumentError(
+                f"forward_cached: {T} tokens a row exceed the ring's {C} "
+                f"slots")
+        b, t = np.nonzero(pos >= 0)
+        dev = cache["pos"].device
+        packed = upload(np.concatenate(
+            [pos.reshape(-1), b, t, pos[b, t] % C]).astype(np.int64), dev)
+        qp = packed[:B * T].view(B, T)
+        write = packed[B * T:].view(3, -1).unbind(0)
+        if not isinstance(input_ids, torch.Tensor):
+            input_ids = upload(np.asarray(input_ids, np.int64), dev)
+        x = self.drop(self.wte(input_ids) + self.wpe(qp.clamp_min(0)))
+        if len(b):
+            cache["pos"][write[0], write[2]] = qp[write[0], write[1]].to(
+                torch.int32)
+        # a key is visible iff its slot holds a real token, causally
+        # before (or at) the query, and not yet overwritten by the ring
+        kp, q = cache["pos"][:, None, :], qp[:, :, None]
+        mask = (kp >= 0) & (kp <= q) & (kp > q - C)  # [B,T,C]
+        for blk, kv in zip(self.blocks, cache["layers"]):
+            x, _ = blk.forward_cached(x, kv, write, mask)
+        return self.ln_f(x), cache
 
     # -- paged KV cache (vLLM-style PagedAttention; Kwon et al. 2023) -------
     def init_paged_cache(self, num_pages: int, page_size: int, dtype=None):
@@ -394,6 +567,78 @@ class GPTModel(nn.Layer):
         for layer in cache["layers"]:
             for t in layer.values():
                 t[dst] = t[src]
+        return cache
+
+    @staticmethod
+    def gather_pages(cache, idx):
+        """Read whole pages out of the pool — the export half of the
+        prefill→decode KV hand-off.  ``idx``: ``[K]`` physical page
+        numbers (``-1`` reads the write-drop page P).  Returns ONE host
+        array ``[L, 2, K, H, page, hd]`` (layer-major, k / v interleaved),
+        a single copy off the card.
+
+        Quantized pools return ``(pages, scales)``: the quantized stack
+        plus its ``[L, 2, K, H, page]`` float32 scale stack, so a hand-off
+        never round-trips through float.  numpy has no float8: an fp8
+        pool's pages travel as their raw bits in ``uint8`` (and a bf16
+        pool's in ``int16``); :meth:`scatter_pages` reinterprets them, so
+        the adopting pool holds the donor's bits exactly."""
+        layers = cache["layers"]
+        P = layers[0]["k"].shape[0] - 1
+        i = _host_ints(idx).reshape(-1)
+        i = upload(np.where(i >= 0, i, P), layers[0]["k"].device)
+        dt = layers[0]["k"].dtype
+        raw = RAW_BITS.get(dt, (dt,))[0]  # fp8 / bf16 moved as raw bits
+        pages = torch.stack([torch.stack([l["k"].view(raw)[i],
+                                          l["v"].view(raw)[i]])
+                             for l in layers]).cpu().numpy()
+        if "k_scale" not in layers[0]:
+            return pages
+        scales = torch.stack([torch.stack([l["k_scale"][i],
+                                           l["v_scale"][i]])
+                              for l in layers])
+        return pages, scales.cpu().numpy()
+
+    @staticmethod
+    def scatter_pages(cache, kv, dst):
+        """Write a :meth:`gather_pages` payload into the pool, in place —
+        the import half of the hand-off.  ``dst``: the ``[K]`` target
+        pages the adopting host allocated (distinct); ``-1`` entries land
+        in the write-drop page P.  Several ``-1`` entries write P in the
+        JAX package's order, the last one kept (on CUDA an indexed copy
+        with repeated targets has no defined order, so P is written once,
+        from the last such entry).  A quantized pool takes the ``(pages,
+        scales)`` pair.  Returns ``cache``."""
+        scales = None
+        if isinstance(kv, (tuple, list)):
+            kv, scales = kv
+        layers = cache["layers"]
+        if "k_scale" in layers[0] and scales is None:
+            raise InvalidArgumentError(
+                "scatter_pages: quantized pool needs the (pages, scales) "
+                "pair gather_pages exported")
+        P = layers[0]["k"].shape[0] - 1
+        d = _host_ints(dst).reshape(-1)
+        keep = np.nonzero(d >= 0)[0]
+        drop = np.nonzero(d < 0)[0][-1:]  # the last -1 entry wins
+        src = np.concatenate([keep, drop])
+        to = np.concatenate([d[keep], np.full(len(drop), P, np.int64)])
+        if not len(src):
+            return cache
+        dev = layers[0]["k"].device
+        src_d, to_d = upload(src, dev), upload(to, dev)
+        dt = layers[0]["k"].dtype
+        raw = RAW_BITS.get(dt, (dt,))[0]  # index_copy_ has no float8
+        pages = _from_host(kv, dt, dev).view(raw)
+        sc = (None if scales is None or "k_scale" not in layers[0]
+              else _from_host(scales, torch.float32, dev))
+        for i, l in enumerate(layers):
+            for j, key in enumerate(("k", "v")):
+                l[key].view(raw).index_copy_(
+                    0, to_d, pages[i, j].index_select(0, src_d))
+                if sc is not None:
+                    l[key + "_scale"].index_copy_(
+                        0, to_d, sc[i, j].index_select(0, src_d))
         return cache
 
     def forward_paged(self, input_ids, positions, pos_map, table, cache):
@@ -494,6 +739,18 @@ class GPTForCausalLM(nn.Layer):
         if aux is not None:  # the loss is float32, so is the weight
             out = out + float(self.gpt.cfg.moe_balance_weight) * aux
         return out
+
+    def forward_cached(self, input_ids, positions, cache, gather_last=None):
+        """Ring KV forward (see :meth:`GPTModel.forward_cached`).  With
+        ``gather_last`` (per-sequence prompt lengths ``[B]``) only the
+        hidden state at ``length-1`` is projected: logits ``[B,V]``
+        instead of ``[B,T,V]``."""
+        h, cache = self.gpt.forward_cached(input_ids, positions, cache)
+        if gather_last is not None:
+            idx = (upload(_host_ints(gather_last).reshape(-1), h.device)
+                   - 1).clamp_min(0)
+            h = h[torch.arange(h.shape[0], device=h.device), idx]  # [B,D]
+        return self._logits(h), cache
 
     def forward_paged(self, input_ids, positions, pos_map, table, cache,
                       gather_last=None):

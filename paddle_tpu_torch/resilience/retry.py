@@ -47,7 +47,8 @@ class RetryPolicy:
                  max_backoff_ms: Optional[float] = None, jitter: float = 0.25,
                  seed: int = 0, deadline_ms: Optional[float] = None,
                  sleep: Callable[[float], None] = time.sleep,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 name: str = "retry"):
         self.max_attempts = int(max_attempts if max_attempts is not None
                                 else flag("transient_max_retries"))
         if self.max_attempts < 1:
@@ -65,6 +66,13 @@ class RetryPolicy:
         self._sleep = sleep
         self._clock = clock
         self._rng = Random(int(seed))
+        self.name = name
+
+    @classmethod
+    def from_flags(cls, name: str = "retry", **overrides) -> "RetryPolicy":
+        """The flag-configured default policy (the legacy serving
+        scheduler's runner retries through one)."""
+        return cls(name=name, **overrides)
 
     def delay_s(self, retry_index: int) -> float:
         """Backoff before the ``retry_index``-th retry (0-based), in
@@ -78,8 +86,25 @@ class RetryPolicy:
         """Run ``fn(*args, **kwargs)``, retrying transient failures; raises
         the last error when attempts, the deadline or the classifier say
         stop."""
-        deadline = (self._clock() + self.deadline_ms / 1e3
-                    if self.deadline_ms is not None else None)
+        return self._call(self.deadline_ms, fn, args, kwargs)
+
+    def call_deadline(self, deadline_ms: Optional[float], fn: Callable,
+                      *args, **kwargs):
+        """:meth:`call` bounded also by a caller's latency budget (the
+        tightest request deadline of a serving batch): the tighter of
+        ``deadline_ms`` and the policy's own deadline holds."""
+        if deadline_ms is None:
+            effective = self.deadline_ms
+        elif self.deadline_ms is None:
+            effective = float(deadline_ms)
+        else:
+            effective = min(float(deadline_ms), self.deadline_ms)
+        return self._call(effective, fn, args, kwargs)
+
+    def _call(self, deadline_ms: Optional[float], fn: Callable, args,
+              kwargs):
+        deadline = (self._clock() + deadline_ms / 1e3
+                    if deadline_ms is not None else None)
         attempt = 0
         while True:
             attempt += 1

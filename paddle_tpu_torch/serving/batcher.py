@@ -1,23 +1,37 @@
-"""Request queue for a slot-granular consumer (port of the pull mode of
+"""Request queue + micro-batcher (port of
 ``paddle_tpu.serving.batcher.MicroBatcher``).
 
 Callers :meth:`~MicroBatcher.submit` requests and get
-``concurrent.futures.Future``\\ s back; a consumer loop that owns the
-device (the paged decode loop) :meth:`~MicroBatcher.poll`\\ s them FCFS.
+``concurrent.futures.Future``\\ s back.  Two modes:
 
-Robustness contract:
+* **worker mode** (a ``runner``): one worker thread owns the device and
+  groups same-bucket requests into batches of up to ``max_batch_size``
+  (``capacity(bucket)`` when given), waiting at most
+  ``max_queue_delay_ms`` past the oldest request's arrival — the legacy
+  run-batch-to-completion generation scheduler runs under it;
+* **pull mode** (no runner): no thread; a consumer loop that owns the
+  device (the continuous decode loops) :meth:`~MicroBatcher.poll`\\ s
+  requests FCFS across buckets.
+
+Robustness contract, both modes:
 
 * **bounded queue** — past ``max_queue_depth`` pending requests, submit
   sheds the load immediately (``UnavailableError``);
 * **deadlines** — a request whose ``deadline_ms`` elapses while queued
-  fails with ``ExecutionTimeoutError`` before it takes a slot; ``poll``
-  and ``sweep`` enforce them even while no slot frees up;
-* **graceful drain** — ``close(drain=True)`` stops admissions and waits
-  for the consumer to serve everything queued; ``drain=False`` fails the
-  queue instead.
+  fails with ``ExecutionTimeoutError`` before it takes a slot; the worker
+  (or ``poll`` / ``sweep``) enforces them even with no new traffic;
+* **graceful drain** — ``close(drain=True)`` stops admissions and serves
+  everything queued; ``drain=False`` fails the queue instead;
+* a runner exception fails only that batch's futures, never the worker;
+* **transient retry** — an optional ``resilience.RetryPolicy`` re-runs a
+  batch whose runner failed transiently, its backoff bounded by the
+  batch's tightest deadline;
+* **circuit breaking** — an optional per-bucket
+  ``resilience.CircuitBreaker``: while a bucket's circuit is open its
+  batches shed with ``UnavailableError`` (``circuit_shed``).
 
-The JAX package's worker mode (bucket-grouped batches run by a batcher
-thread) serves its non-generation engines and is not ported yet.
+The JAX batcher's tracing spans and event-bus snapshots come with the
+observability slice.
 """
 from __future__ import annotations
 
@@ -25,10 +39,11 @@ import threading
 import time
 from collections import OrderedDict, deque
 from concurrent.futures import Future
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from ..framework.errors import ExecutionTimeoutError, UnavailableError
 from ..framework.locking import OrderedCondition
+from ..resilience.faults import fault_point
 from .metrics import ServingMetrics
 
 __all__ = ["Request", "MicroBatcher"]
@@ -52,23 +67,41 @@ class Request:
 
 
 class MicroBatcher:
-    """Pull-mode request queue.
+    """Bucket-grouping batcher.
 
     ``router(inputs) -> int`` assigns a bucket key (raise to reject at
-    submit time).  The consumer calls :meth:`poll` to take requests
-    oldest-first across buckets, :meth:`sweep` to enforce deadlines while
-    its slots are full, and :meth:`consumer_done` when it exits so
-    :meth:`close` can return.
+    submit time); ``runner(bucket, requests) -> list`` executes one batch
+    and returns one result per request, in order; ``capacity(bucket) ->
+    int`` bounds the batch size per bucket (default: ``max_batch_size``).
+    Without a runner (or with ``pull=True``) no worker runs: the consumer
+    calls :meth:`poll` to take requests oldest-first across buckets,
+    :meth:`sweep` to enforce deadlines while its slots are full, and
+    :meth:`consumer_done` when it exits so :meth:`close` can return.
     """
 
-    def __init__(self, router: Callable[[Sequence], int], *,
+    def __init__(self, router: Callable[[Sequence], int],
+                 runner: Optional[Callable[[int, List[Request]],
+                                           List[Any]]] = None,
+                 *, max_batch_size: int = 8, max_queue_delay_ms: float = 5.0,
                  max_queue_depth: int = 256,
+                 capacity: Optional[Callable[[int], int]] = None,
                  metrics: Optional[ServingMetrics] = None,
+                 breaker=None, retry=None, pull: Optional[bool] = None,
                  name: str = "serving#0"):
-        if max_queue_depth < 1:
-            raise UnavailableError("max_queue_depth must be >= 1")
+        if max_batch_size < 1 or max_queue_depth < 1:
+            raise UnavailableError(
+                "max_batch_size and max_queue_depth must be >= 1")
+        pull = runner is None if pull is None else bool(pull)
+        if runner is None and not pull:
+            raise UnavailableError("worker mode needs a runner")
         self._router = router
+        self._runner = runner
+        self._max_batch = int(max_batch_size)
+        self._delay_s = float(max_queue_delay_ms) / 1e3
         self._max_depth = int(max_queue_depth)
+        self._capacity = capacity or (lambda bucket: self._max_batch)
+        self._breaker = breaker  # resilience.CircuitBreaker, keyed by bucket
+        self._retry = retry      # resilience.RetryPolicy for the runner
         self.metrics = metrics or ServingMetrics(name)
         self._cv = OrderedCondition(name="MicroBatcher._cv")
         # bucket → FIFO of requests
@@ -77,6 +110,12 @@ class MicroBatcher:
         self._closing = False
         self._drain = True
         self._pull_done = threading.Event()
+        if pull:
+            self._worker = None
+        else:
+            self._worker = threading.Thread(
+                target=self._loop, name=f"{name}-batcher", daemon=True)
+            self._worker.start()
 
     # -- admission -----------------------------------------------------------
     def submit(self, inputs: Sequence, deadline_ms: Optional[float] = None,
@@ -214,18 +253,127 @@ class MicroBatcher:
                 f"{self.metrics.name}: deadline exceeded after "
                 f"{(now - r.enqueue_t) * 1e3:.1f}ms in queue"))
 
+    # -- worker mode ---------------------------------------------------------
+    def _loop(self):
+        while True:
+            batch = None
+            with self._cv:
+                expired = self._take_expired_locked()
+                if self._depth == 0 and self._closing and not expired:
+                    return
+                if self._depth == 0:
+                    if not expired and not self._closing:
+                        self._cv.wait(0.05)
+                else:
+                    bucket = self._oldest_bucket()
+                    dq = self._pending[bucket]
+                    cap = max(1, int(self._capacity(bucket)))
+                    wait = ((dq[0].enqueue_t + self._delay_s)
+                            - time.monotonic())
+                    if len(dq) < cap and wait > 0 and not self._closing:
+                        self._cv.wait(min(wait, 0.05))
+                    else:
+                        batch = [dq.popleft()
+                                 for _ in range(min(cap, len(dq)))]
+                        if not dq:
+                            del self._pending[bucket]
+                        self._depth -= len(batch)
+                        depth = self._depth
+                        drain = self._drain
+            self._fail_expired(expired)
+            if batch is None:
+                continue
+            if self._closing and not drain:
+                for r in batch:
+                    r.future.set_exception(
+                        UnavailableError(f"{self.metrics.name}: dropped at "
+                                         "shutdown (drain=False)"))
+                continue
+            self._dispatch(bucket, batch, cap, depth)
+
+    def _dispatch(self, bucket: int, batch: List[Request], cap: int,
+                  depth: int):
+        now = time.monotonic()
+        live = []
+        for r in batch:
+            if r.deadline_t is not None and now > r.deadline_t:
+                self.metrics.incr("expired")
+                r.future.set_exception(ExecutionTimeoutError(
+                    f"{self.metrics.name}: deadline exceeded after "
+                    f"{(now - r.enqueue_t) * 1e3:.1f}ms in queue"))
+            else:
+                live.append(r)
+        if not live:
+            return
+        if self._breaker is not None and not self._breaker.allow(bucket):
+            # open circuit: shed without burning a device slot
+            self.metrics.incr("circuit_shed", len(live))
+            err = UnavailableError(
+                f"{self.metrics.name}: circuit open for bucket {bucket} — "
+                f"load shed (retry with backoff)")
+            for r in live:
+                r.future.set_exception(err)
+            return
+
+        def _run_once():
+            fault_point("serving.runner")
+            results = self._runner(bucket, live)
+            if len(results) != len(live):
+                raise UnavailableError(
+                    f"runner returned {len(results)} results for "
+                    f"{len(live)} requests")
+            return results
+
+        t_exec = time.monotonic()
+        try:
+            if self._retry is not None:
+                # backoff never blows through the batch's tightest deadline
+                dls = [r.deadline_t for r in live if r.deadline_t is not None]
+                if dls:
+                    remaining_ms = max((min(dls) - t_exec) * 1e3, 0.0)
+                    results = self._retry.call_deadline(remaining_ms,
+                                                        _run_once)
+                else:
+                    results = self._retry.call(_run_once)
+            else:
+                results = _run_once()
+        except Exception as e:  # fail the batch, keep the worker alive
+            if self._breaker is not None:
+                self._breaker.record_failure(bucket)
+            self.metrics.incr("errors", len(live))
+            for r in live:
+                if not r.future.done():
+                    r.future.set_exception(e)
+            return
+        if self._breaker is not None:
+            self._breaker.record_success(bucket)
+        done = time.monotonic()
+        execute_ms = (done - t_exec) * 1e3
+        for r, res in zip(live, results):
+            self.metrics.observe_latency_ms((done - r.enqueue_t) * 1e3)
+            self.metrics.observe_span((t_exec - r.enqueue_t) * 1e3,
+                                      execute_ms)
+            if not r.future.done():  # a timed-out drain may have failed it
+                r.future.set_result(res)
+        self.metrics.observe_batch(len(live), cap, depth)
+
     # -- shutdown ------------------------------------------------------------
     def close(self, drain: bool = True, timeout: Optional[float] = None):
-        """Stop admissions; let the consumer serve (``drain=True``) or
-        fail (``False``) everything still queued and wait for its
-        :meth:`consumer_done`.  If that wait times out, everything STILL
-        QUEUED fails with ``UnavailableError`` instead of leaking pending
-        futures."""
+        """Stop admissions; serve (``drain=True``) or fail (``False``)
+        everything still queued, then join the worker (pull mode: wait for
+        the consumer's :meth:`consumer_done`).  If that wait times out,
+        everything STILL QUEUED fails with ``UnavailableError`` instead of
+        leaking pending futures (``drain_timeout`` counts these closes)."""
         with self._cv:
             self._closing = True
             self._drain = drain
             self._cv.notify_all()
-        if self._pull_done.wait(timeout):
+        if self._worker is None:
+            finished = self._pull_done.wait(timeout)
+        else:
+            self._worker.join(timeout)
+            finished = not self._worker.is_alive()
+        if finished:
             return
         with self._cv:
             stranded = [r for dq in self._pending.values() for r in dq]
@@ -239,3 +387,9 @@ class MicroBatcher:
         for r in stranded:
             if not r.future.done():
                 r.future.set_exception(err)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

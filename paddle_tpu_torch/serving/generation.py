@@ -1,69 +1,82 @@
-"""Paged-KV continuous-batching greedy generation for
-``models.GPTForCausalLM`` (port of the paged mode of
+"""Batched greedy generation for ``models.GPTForCausalLM`` (port of
 ``paddle_tpu.serving.generation.GenerationEngine``).
 
-A persistent decode loop owns the ``B``-slot batch and ONE shared KV page
-pool (``GPTModel.init_paged_cache``) behind a host-owned slot→page-table
-indirection (``serving/paging.py``) — vLLM-style PagedAttention.  Each
-iteration admits queued requests FCFS while the free list covers their
-pages (prefill lands straight in the pool; pages of a shared
-``prefix_key`` come mapped copy-on-write instead of recomputed), then runs
-one unified decode/verify step for every live slot: column 0 is the plain
-greedy token, columns ``1..k`` verify drafts from an n-gram proposer
-(prompt lookup), and the longest draft prefix matching the model's own
-argmax is accepted — token-identical to plain greedy, up to ``k+1``
-tokens per step when text repeats.  When the pool runs dry mid-decode the
-newest slot is preempted and requeued (greedy decode is deterministic, so
-regeneration is bit-identical); eviction is a pure host table edit.
+Three schedulers, chosen as in the JAX package by ``continuous`` /
+``paged`` (defaults ``FLAGS_continuous_batching`` = True,
+``FLAGS_paged_kv`` = False):
 
-Steps where no slot drafts run a ``[B, 1]`` step instead of the wide
-``[B, 1+k]`` verify step, and the wide step is gated by a cost model: the
-loop times both and drafts only when the predicted accepted tokens out-earn
-the wide step's extra cost, with per-slot exponential backoff after
-zero-accept verifies.
+**Dense-ring continuous batching** (the default): a persistent decode loop
+owns the ``B``-slot batch and ONE ring KV cache (``GPTModel.init_cache``,
+``[B,H,C,hd]`` per layer, allocated once).  Each iteration admits queued
+requests FCFS into free slots — the admitted rows are cleared (positions
+``-1``, K/V zeros: what JAX merges in from the fresh cache it prefills)
+and the group is prefilled straight into their ring rows, padded to its
+largest prompt bucket, every other row at position ``-1`` (writes
+nothing, so live rows stay bit-identical) —
+dispatches the next ``[B, 1]`` decode step, then harvests the OLDER
+in-flight step: its tokens come back through a pinned non-blocking copy
+and a CUDA event, so one step is always queued on the card while the host
+books the previous one.  Per-slot generation counters discard the (at
+most one) token a finished slot's in-flight step still produces.
+Because every row's computation depends only on its own row, tokens equal
+the legacy scheduler's and uncached greedy.
 
-Every admission and every step runs ``num_layers`` launches of the
-``paged_flash_decode`` CUDA kernel on the card.  The engine follows the
-model's device (``device="cpu"`` models serve through the kernels' plain
-versions).
+**Legacy run-batch-to-completion** (``continuous=False``): the
+worker-mode ``MicroBatcher`` groups same-bucket requests (up to
+``batch_size``, waiting at most ``max_queue_delay_ms``), and each batch is
+prefilled into the ring (cleared first) and decoded until its
+last request ends — head-of-line blocking included.  The batch runs under
+the circuit breaker and ``RetryPolicy.from_flags``.
+
+**Paged KV** (``paged=True``): one shared page pool
+(``GPTModel.init_paged_cache``) behind a host-owned slot→page-table
+indirection (``serving/paging.py``) — vLLM-style PagedAttention, with
+copy-on-write prefix sharing, n-gram speculative verify steps and
+preemption of the newest slot when the pool runs dry.  Every admission
+and every step runs ``num_layers`` launches of the ``paged_flash_decode``
+CUDA kernel on the card.  ``role="prefill"`` / ``"decode"`` split it in
+two (prefill/decode disaggregation): a prefill engine answers
+``submit(..., handoff=True)`` with a :class:`KVHandoff` (the prompt's
+pages as one host array, plus the first token) and a decode engine
+adopts one (``PagePool.adopt`` + ``GPTModel.scatter_pages``) and decodes
+on, token-identical to a co-located engine.
 
 ``quantized="int8" | "fp8"`` serves from a quantized copy of the model
-(``slim.quantize_model``: int8 / fp8-e4m3 parallel-linear weights with
-per-channel scales; the caller's model keeps its float weights) over an
-int8 / float8_e4m3fn KV pool with float32 scale planes: four
-``quantized_matmul`` kernel launches per layer per call on top of the
-attention kernel's one.
+(``slim.quantize_model``; the caller's model keeps its float weights):
+four ``quantized_matmul`` kernel launches per layer per call; a paged
+engine stores int8 / float8_e4m3fn KV pages with float32 scale planes,
+the dense ring stays float (``cfg.dtype``), as in JAX.  A mixture-of-
+experts model serves in the paged mode, its expert FFNs through
+``grouped_matmul``, and reports its routing health (``MOE_COUNTERS``).
 
-A mixture-of-experts model (``GPTConfig.moe_experts > 0``) serves the
-same way, with every block's expert FFN through two ``grouped_matmul``
-kernel launches per call, and reports its routing health: each decode /
-verify step runs inside ``moe.stats.collect()`` and folds its ``[2, E]``
-routed / dropped counts into ``MOE_COUNTERS`` and the
-``moe_overflow_frac`` / ``moe_dead_experts`` gauges (admissions are not
-counted, as in the JAX package).  The JAX engine harvests each step's
-counts one step late, so that reading them never stalls its
-double-buffered loop; this loop already waits for every step's argmax,
-so it reads the current step's counts right after it.  Warm-up steps
-(dummy data) are not counted.
+:meth:`GenerationEngine.swap_weights` hot-swaps a ``.pdiparams`` side-file
+(e.g. a ``slim.export_quantized`` artifact) into the served tensors IN
+PLACE, between device calls; :meth:`~GenerationEngine.reload_weights`
+re-reads (and, quantized, re-quantizes) the caller's model.  Every
+engine serves its own copy of the model's tensors (as the JAX engine
+binds its own snapshot), so a swap reaches only the engine it is made
+on: the caller's model and other engines over it are untouched.
 
-Not ported yet (ROADMAP queue A): the dense-ring and legacy
-run-to-completion modes, prefill/decode hand-off roles (and the hand-off
-of quantized ``(pages, scales)`` pairs), tenancy/LoRA, quantized MoE
-engines,
-``swap_weights`` / ``reload_weights``, tracing spans and the event-bus
-snapshots, ``from_tuned``, and a CUDA-graph analog of the JAX engine's
-closed compile set.
+Engines follow the model's device: a model built on the card (the
+default) serves there, a ``device="cpu"`` model through the kernels'
+plain versions.  Not ported yet (ROADMAP queue A): tenancy / LoRA,
+quantized MoE engines, tracing spans and the event-bus snapshots,
+``from_tuned``, and a CUDA-graph decode step.
 """
 from __future__ import annotations
 
+import copy
 import threading
 import time
+from collections import deque
 from concurrent.futures import Future
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..framework.device import upload
+from ..framework.dtype import RAW_BITS
 from ..framework.errors import (
     ExecutionTimeoutError,
     InvalidArgumentError,
@@ -72,15 +85,15 @@ from ..framework.errors import (
     is_transient,
 )
 from ..framework.flags import flag
-from ..resilience import CircuitBreaker, mark_warm
+from ..resilience import CircuitBreaker, RetryPolicy, mark_warm
 from ..resilience.faults import fault_point
 from ..moe import stats as moe_stats
 from .batcher import MicroBatcher, Request
-from .metrics import (MOE_COUNTERS, PAGED_COUNTERS, SLOT_COUNTERS,
-                      ServingMetrics)
+from .metrics import (HANDOFF_COUNTERS, MOE_COUNTERS, PAGED_COUNTERS,
+                      SLOT_COUNTERS, ServingMetrics)
 from .paging import PagePool
 
-__all__ = ["GenerationEngine"]
+__all__ = ["GenerationEngine", "KVHandoff"]
 
 _gen_counter = [0]
 
@@ -91,26 +104,105 @@ def _unported(what: str, item: str):
         f"{item})")
 
 
+class KVHandoff(NamedTuple):
+    """The prefill→decode hand-off payload (disaggregated serving).
+
+    A ``role="prefill"`` engine resolves a ``submit(..., handoff=True)``
+    future with one of these instead of a token array: the prompt's KV
+    pages exported as ONE host array (``GPTModel.gather_pages``) plus the
+    first generated token.  A ``role="decode"`` engine accepts it via
+    ``submit(prompt, ..., handoff=<KVHandoff>)``, adopts the pages into
+    its own pool and resumes at position ``length`` exactly as if it had
+    prefilled locally.  ``done`` short-circuits the decode leg (budget of
+    1, or EOS on the first token)."""
+
+    prompt: np.ndarray    # [length] int32 prompt tokens
+    first_token: int      # greedy token from the prompt's last logit
+    kv: object            # [layers, 2, K, heads, page, hd] host array, or
+    #                       a (pages, scales) pair from a quantized pool
+    #                       (fp8 pages as their uint8 bits); both engines
+    #                       must share the same `quantized` mode
+    length: int           # resident KV covers positions 0..length-1
+    done: bool            # True: no decode needed (budget 1 / EOS)
+
+
+class _Readback:
+    """A step's ``[B]`` token tensor on its way to the host.  On the card:
+    a non-blocking copy into pinned memory and a CUDA event recorded
+    after it, so the host can queue the next step before this one ends
+    and wait only when it needs the tokens.  On the CPU: a copy."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, tok: torch.Tensor):
+        if tok.is_cuda:
+            self.host = torch.empty(tok.shape, dtype=tok.dtype,
+                                    pin_memory=True)
+            self.host.copy_(tok, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = tok.clone()
+            self.event = None
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+def _swap_tensor(name: str, a, served: torch.Tensor) -> torch.Tensor:
+    """Side-file array ``a`` as a tensor of ``served``'s dtype and shape,
+    or ``InvalidArgumentError``.  Accepted: the same dtype (an
+    ``ml_dtypes`` bfloat16 / float8 array, as the JAX package writes,
+    bit for bit), or float32 for a bf16 / fp8 tensor when every value
+    converts exactly (the port's ``save`` widens those dtypes)."""
+    a = np.asarray(a)
+    if tuple(a.shape) != tuple(served.shape):
+        raise InvalidArgumentError(
+            f"swap_weights: {name} has shape {tuple(a.shape)}, the served "
+            f"model {tuple(served.shape)}")
+    raw = RAW_BITS.get(served.dtype)
+    if raw is not None and a.dtype.name == str(served.dtype).replace(
+            "torch.", ""):
+        # an ml_dtypes array (bfloat16, float8_e4m3fn), as JAX writes it
+        return torch.from_numpy(np.ascontiguousarray(a).view(raw[1])).view(
+            served.dtype)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if t.dtype == served.dtype:
+        return t
+    if raw is not None and t.dtype == torch.float32:
+        c = t.to(served.dtype)
+        if torch.equal(c.float(), t):
+            return c
+    raise InvalidArgumentError(
+        f"swap_weights: {name} is {a.dtype}, the served model holds "
+        f"{served.dtype}")
+
+
 class GenerationEngine:
-    """Dynamic-batching greedy decoder over a ``GPTForCausalLM``, paged KV.
+    """Dynamic-batching greedy decoder over a ``GPTForCausalLM``.
 
     ``prompt_buckets`` — prompt lengths requests are padded up to;
     ``batch_size`` — the decode batch width (free slots run as inert
     ``-1``-position rows); ``cache_len`` — per-slot KV capacity (default
-    ``cfg.max_position``; generation past it slides the window).
-    ``kv_pages`` sizes the shared pool (default ``batch_size * cache_len /
-    kv_page_size``); ``kv_page_size`` / ``speculative_k`` default to
-    ``FLAGS_kv_page_size`` / ``FLAGS_speculative_k``.  ``paged`` /
-    ``continuous`` default to ``FLAGS_paged_kv`` /
-    ``FLAGS_continuous_batching``; only ``paged=True`` with continuous
-    batching is ported.  ``quantized`` — ``None``, ``"int8"`` or
-    ``"fp8"``: weights and KV pages at that precision (see the module
-    docstring); ``model`` itself is left untouched.
+    ``cfg.max_position``; generation past it slides the window);
+    ``max_queue_delay_ms`` — the legacy scheduler's batching delay (the
+    continuous loops admit at once and only store it).  ``continuous`` /
+    ``paged`` default to ``FLAGS_continuous_batching`` /
+    ``FLAGS_paged_kv``; ``paged`` needs ``continuous``.  Paged only:
+    ``kv_pages`` sizes the shared pool (default ``batch_size * cache_len
+    / kv_page_size``), ``kv_page_size`` / ``speculative_k`` default to
+    ``FLAGS_kv_page_size`` / ``FLAGS_speculative_k``, and ``role`` is
+    ``"any"`` (co-located), ``"prefill"`` or ``"decode"`` (see
+    :class:`KVHandoff`).  ``quantized`` — ``None``, ``"int8"`` or
+    ``"fp8"`` (see the module docstring); ``model`` itself is left
+    untouched.
     """
 
     def __init__(self, model, *, prompt_buckets: Sequence[int],
                  batch_size: int = 4, cache_len: Optional[int] = None,
-                 max_queue_depth: int = 256,
+                 max_queue_delay_ms: float = 5.0, max_queue_depth: int = 256,
                  eos_token_id: Optional[int] = None,
                  circuit_breaker: bool = True,
                  retry_transient: bool = True,
@@ -123,18 +215,21 @@ class GenerationEngine:
                  quantized: Optional[str] = None,
                  tenancy=None,
                  name: Optional[str] = None):
-        continuous = bool(flag("continuous_batching")
-                          if continuous is None else continuous)
-        paged = bool(flag("paged_kv") if paged is None else paged)
-        if not continuous:
-            raise _unported("the legacy run-batch-to-completion scheduler "
-                            "(continuous=False)", "generation serving")
-        if not paged:
-            raise _unported("the dense ring KV mode (paged=False)",
-                            "generation serving")
-        if role != "any":
-            raise _unported(f"role={role!r} (prefill/decode hand-off)",
-                            "generation serving")
+        self._continuous = bool(flag("continuous_batching")
+                                if continuous is None else continuous)
+        self._paged = bool(flag("paged_kv") if paged is None else paged)
+        if self._paged and not self._continuous:
+            raise InvalidArgumentError(
+                "paged_kv requires continuous batching (the legacy "
+                "run-batch path owns no persistent device state to page)")
+        if role not in ("any", "prefill", "decode"):
+            raise InvalidArgumentError(
+                f"role must be 'any', 'prefill' or 'decode', got {role!r}")
+        if role != "any" and not self._paged:
+            raise InvalidArgumentError(
+                f"role={role!r} requires paged KV (the hand-off moves "
+                f"pages, not dense ring regions)")
+        self._role = role
         if quantized is not None and quantized not in ("int8", "fp8"):
             raise InvalidArgumentError(
                 f"quantized must be None, 'int8' or 'fp8', got "
@@ -147,6 +242,9 @@ class GenerationEngine:
         if self._moe_experts and quantized is not None:
             raise _unported(f"quantized={quantized!r} for an MoE model",
                             "MoE, LoRA and tenancy")
+        if self._moe_experts and not self._paged:
+            raise _unported("an MoE model in the dense ring mode "
+                            "(paged=False)", "MoE, LoRA and tenancy")
         # per-expert routed totals since warm-up (the dead-expert gauge)
         self._moe_routed_cum = np.zeros(max(self._moe_experts, 1), np.int64)
         if name is None:
@@ -154,13 +252,16 @@ class GenerationEngine:
             name = f"generate#{_gen_counter[0]}"
         self.name = name
         model.eval()
+        self._source = model  # what reload_weights re-reads
         self._quantized = quantized
+        # the engine serves its own copy (JAX binds a snapshot): a swap
+        # writes into this engine alone, never into the caller's model or
+        # another engine's step; quantized, the copy is quantized once here
         if quantized is not None:
-            # quantize once at construction, into the engine's own copy —
-            # the caller's model keeps its float weights (training, other
-            # engines untouched)
             from ..slim.quantization import quantize_model
             model = quantize_model(model, quantized)
+        else:
+            model = copy.deepcopy(model)
         self._model = model
         self._device = model.device
         self._buckets = sorted({int(b) for b in prompt_buckets})
@@ -171,42 +272,154 @@ class GenerationEngine:
         self._batch = int(batch_size)
         self._eos = eos_token_id
         self._C = int(cache_len or cfg.max_position)
-        self._page = int(flag("kv_page_size")
-                         if kv_page_size is None else kv_page_size)
-        self._spec_k = max(int(flag("speculative_k")
-                               if speculative_k is None else speculative_k),
-                           0)
         if self._buckets[-1] > self._C:
             raise InvalidArgumentError(
                 f"largest prompt bucket ({self._buckets[-1]}) exceeds "
-                f"cache_len ({self._C}) — paged admission cannot map it")
-        self._kv_pages = (int(kv_pages) if kv_pages is not None
-                          else self._batch * (self._C // self._page))
-        self._pool = self._new_pool()  # validates the page geometry
+                f"cache_len ({self._C}) — a prompt must fit the cache")
+        self._pool: Optional[PagePool] = None
+        if self._paged:
+            self._page = int(flag("kv_page_size")
+                             if kv_page_size is None else kv_page_size)
+            self._spec_k = max(int(flag("speculative_k")
+                                   if speculative_k is None
+                                   else speculative_k), 0)
+            self._kv_pages = (int(kv_pages) if kv_pages is not None
+                              else self._batch * (self._C // self._page))
+            self._pool = self._new_pool()  # validates the page geometry
+            # hand-off payloads carry whole prompt pages at ONE width:
+            # enough pages for the largest prompt bucket, padded with -1
+            # (the write-drop page)
+            self._Gh = -(-self._buckets[-1] // self._page)
+        self._ring_cache = None              # the dense ring, made once
+        self._ring_lock = threading.Lock()
+        # swaps land between device calls, never inside one
+        self._weights_lock = threading.Lock()
         self._warm = False
         self._it_fast0: Optional[float] = None
         self._it_wide0: Optional[float] = None
-        extra = SLOT_COUNTERS + PAGED_COUNTERS
+        extra = (SLOT_COUNTERS + PAGED_COUNTERS + HANDOFF_COUNTERS
+                 if self._paged else SLOT_COUNTERS)
         if self._moe_experts:
             extra = extra + MOE_COUNTERS
         self.metrics = ServingMetrics(name, extra_counters=extra)
         self.breaker = CircuitBreaker(name) if circuit_breaker else None
         self._retry_transient = bool(retry_transient)
-        self._batcher = MicroBatcher(self._route,
-                                     max_queue_depth=max_queue_depth,
-                                     metrics=self.metrics, name=name)
-        self._thread = threading.Thread(target=self._paged_loop,
-                                        name=f"{name}-decode", daemon=True)
-        self._thread.start()
+        self._thread: Optional[threading.Thread] = None
+        if self._continuous:
+            # pull mode: the decode loop is the consumer, taking requests
+            # slot by slot (FCFS across buckets)
+            self._batcher = MicroBatcher(
+                self._route, None, pull=True, max_batch_size=batch_size,
+                max_queue_delay_ms=max_queue_delay_ms,
+                max_queue_depth=max_queue_depth, metrics=self.metrics,
+                name=name)
+            self._thread = threading.Thread(
+                target=self._paged_loop if self._paged else self._slot_loop,
+                name=f"{name}-decode", daemon=True)
+            self._thread.start()
+        else:
+            self._batcher = MicroBatcher(
+                self._route, self._run_batch, max_batch_size=batch_size,
+                max_queue_delay_ms=max_queue_delay_ms,
+                max_queue_depth=max_queue_depth, metrics=self.metrics,
+                breaker=self.breaker,
+                retry=(RetryPolicy.from_flags(name=f"{name}.runner")
+                       if retry_transient else None),
+                name=name)
 
     # -- device calls --------------------------------------------------------
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
-            self._device)
+        return upload(np.asarray(a, np.int32), self._device)
 
     def _new_cache(self):
         return self._model.gpt.init_paged_cache(
             self._kv_pages, self._page, dtype=self._kv_qdtype())
+
+    def _ring(self):
+        """The dense ring KV cache, allocated on first use and kept for the
+        engine's life (``[B,H,C,hd]`` per layer: ~604 MB at gpt_small
+        width, B = 8, C = 1024, float32)."""
+        with self._ring_lock:
+            if self._ring_cache is None:
+                self._ring_cache = self._model.gpt.init_cache(self._batch,
+                                                              self._C)
+            return self._ring_cache
+
+    def _prefill(self, ids, positions, lens, cache):
+        """Prefill ``[B, Sb]`` prompts (``-1`` positions inert) into the
+        ring; returns the ``[B]`` int32 greedy first tokens (on the
+        device) and the ring."""
+        with self._weights_lock:
+            logits, cache = self._model.forward_cached(
+                ids, positions, cache, gather_last=lens)
+            return logits.argmax(-1).to(torch.int32), cache
+
+    def _decode(self, tok, pos, cache):
+        """One ``[B, 1]`` decode step: ``tok`` the device tokens of the
+        last step, ``pos`` the host positions (``-1`` = free slot)."""
+        with self._weights_lock:
+            logits, cache = self._model.forward_cached(
+                tok[:, None], np.asarray(pos)[:, None], cache)
+            return logits[:, 0].argmax(-1).to(torch.int32), cache
+
+    def _clear_rows(self, cache, rows):
+        """Ring rows ``rows`` (host indices) as a fresh cache holds them:
+        positions ``-1``, K/V zeros — what JAX's admission merges in from
+        the fresh cache it prefills (``write_slots``), written in place
+        for just these rows."""
+        if not len(rows):
+            return
+        m = np.zeros(cache["pos"].shape[0], bool)
+        m[rows] = True
+        self._model.gpt.reset_slots(cache, m)
+        r = upload(np.asarray(rows, np.int64), self._device)
+        for layer in cache["layers"]:
+            for t in layer.values():
+                t.index_fill_(0, r, 0)
+
+    def _admit(self, ids, positions, lens, mask, cache, tok):
+        """Slot admission: clear the masked rows (positions -1, K/V zeros,
+        as in a fresh cache), prefill the group straight into their ring
+        rows (the other rows at ``-1``: nothing of theirs is written, so
+        live slots stay bit-identical), and take the admitted rows' first
+        tokens."""
+        self._clear_rows(cache, np.nonzero(mask)[0])
+        first, cache = self._prefill(ids, positions, lens, cache)
+        m = upload(np.asarray(mask, bool), self._device)
+        return torch.where(m, first, tok), cache
+
+    def _evict(self, tok, cache, mask):
+        m = upload(np.asarray(mask, bool), self._device)
+        self._model.gpt.reset_slots(cache, m)
+        return tok.masked_fill(m, 0), cache
+
+    def _export(self, cache, idx):
+        """Hand-off export: the pages ``idx`` (``-1`` = drop page) as one
+        host payload (see :meth:`GPTModel.gather_pages`)."""
+        return self._model.gpt.gather_pages(cache, idx)
+
+    def _import(self, cache, kv, dst):
+        """Hand-off import: a payload into the pages ``dst``."""
+        return self._model.gpt.scatter_pages(cache, kv, dst)
+
+    def _handoff_shape(self):
+        """Shape of a :class:`KVHandoff` payload: whole pages for the
+        largest prompt bucket, every layer's k and v in one array."""
+        cfg = self._model.gpt.cfg
+        hd = cfg.hidden_size // cfg.num_heads
+        return (cfg.num_layers, 2, self._Gh, cfg.num_heads, self._page, hd)
+
+    def _handoff_zero(self):
+        """An all-zeros payload shaped and typed as :meth:`_export`'s (a
+        ``(pages, scales)`` pair for quantized pools; fp8 pages as
+        ``uint8`` bits, bf16 as ``int16``)."""
+        shape = self._handoff_shape()
+        host = {"int8": np.int8, "fp8": np.uint8}.get(self._quantized)
+        if host is None:
+            return np.zeros(shape, {"float32": np.float32,
+                                    "bfloat16": np.int16}[
+                self._model.gpt.cfg.dtype])
+        return np.zeros(shape, host), np.zeros(shape[:-1], np.float32)
 
     # -- quantized serving ---------------------------------------------------
     @property
@@ -224,19 +437,437 @@ class GenerationEngine:
         return {"int8": torch.int8,
                 "fp8": torch.float8_e4m3fn}.get(self._quantized)
 
-    def swap_weights(self, *_args, **_kw):
-        raise _unported("swap_weights / reload_weights (and "
-                        "slim.export_quantized artifacts)",
-                        "generation serving")
+    # -- hot weight swaps ----------------------------------------------------
+    def swap_weights(self, params_file: str) -> None:
+        """Hot-swap the served weights from a ``.pdiparams`` side-file
+        (``{"params", "buffers"[, "quantization"]}`` by dotted name — e.g.
+        a ``slim.export_quantized`` artifact, from either package).  The
+        tree, every shape and dtype, and the quantization tag must match
+        the served tensors, or nothing is touched and
+        ``InvalidArgumentError`` is raised; then every tensor is copied
+        into the served one IN PLACE, between two device calls of the
+        loop, so a later CUDA graph of the step would stay valid."""
+        from ..framework import serialization
+        from ..slim.quantization import weight_trees
 
+        state = serialization.load(params_file)
+        if not isinstance(state, dict) or "params" not in state:
+            raise InvalidArgumentError(
+                f"{params_file} is not a params side-file")
+        tag = state.get("quantization")
+        if tag is not None and tag != (self._quantized or "none"):
+            raise InvalidArgumentError(
+                f"{self.name}: {params_file} is a {tag!r}-quantized "
+                f"artifact but this engine serves "
+                f"{self._quantized or 'none'!r}")
+        pairs = []
+        for part, served, new in zip(
+                ("params", "buffers"), weight_trees(self._model),
+                (state["params"], state.get("buffers") or {})):
+            if not isinstance(new, dict) or set(new) != set(served):
+                raise InvalidArgumentError(
+                    f"swap_weights: {params_file} {part} do not match the "
+                    f"served model (different tree structure)")
+            pairs += [(served[n], _swap_tensor(n, new[n], served[n]))
+                      for n in sorted(served)]
+        with self._weights_lock, torch.no_grad():
+            for dst, src in pairs:
+                dst.copy_(src)
+        self.metrics.incr("weight_swaps")
+
+    def reload_weights(self) -> None:
+        """Re-read the weights of the model the engine was built over
+        (e.g. after ``paddle_tpu_torch.load`` into it) into the engine's
+        own copy, in place, between two device calls; a quantized engine
+        re-quantizes them on the way in.  Counted in ``weight_swaps``."""
+        targets = set()
+        if self._quantized:
+            from ..slim.quantization import (_is_quantized_dtype,
+                                             _quantize_weight,
+                                             _serving_targets)
+            targets = {n for n, _ in _serving_targets(self._model)}
+        served = self._model.state_dict()
+        src = self._source.state_dict()
+        with self._weights_lock, torch.no_grad():
+            for name, t in served.items():
+                layer, _, leaf = name.rpartition(".")
+                if layer in targets and leaf == "weight":
+                    w = src[name]
+                    if _is_quantized_dtype(w.dtype):  # already codes
+                        q, sc = w, src[f"{layer}.weight_scale"]
+                    else:
+                        q, sc = _quantize_weight(w, self._quantized)
+                    t.copy_(q)
+                    served[f"{layer}.weight_scale"].copy_(sc)
+                elif not (layer in targets and leaf == "weight_scale"):
+                    t.copy_(src[name])
+        self.metrics.incr("weight_swaps")
+
+    # -- routing -------------------------------------------------------------
+    def _route(self, inputs: Sequence) -> int:
+        n = len(np.asarray(inputs[0]).reshape(-1))
+        for i, b in enumerate(self._buckets):
+            if n <= b:
+                return i
+        self.metrics.incr("bucket_misses")
+        raise InvalidArgumentError(
+            f"{self.name}: prompt length {n} exceeds the largest bucket "
+            f"({self._buckets[-1]}) — add a bucket or truncate the prompt")
+
+    def warmup(self) -> None:
+        """Run every device path once on inert data so the kernels are
+        built and the card initialized before live traffic.  Dense modes:
+        the ring is allocated (once, for the engine's life), then one inert
+        admission per prompt bucket and one inert decode step run on it
+        (every position ``-1``: nothing is written).  Paged mode: one
+        admission per bucket, the ``[B, 1+k]`` and ``[B, 1]`` steps (the
+        best of two timed calls of each seeds the loop's wide-vs-fast cost
+        model), the page-copy op, and the role's hand-off op."""
+        with torch.no_grad():
+            if self._paged:
+                self._warmup_paged()
+            else:
+                self._warmup_dense()
+        mark_warm()  # circuit re-opens from here on are hot-path flaps
+        self._warm = True
+
+    def _warmup_dense(self):
+        B = self._batch
+        cache = self._ring()
+        tok = torch.zeros(B, dtype=torch.int32, device=self._device)
+        none = np.zeros((B,), bool)
+        for sb in self._buckets:
+            tok, _ = self._admit(np.zeros((B, sb), np.int32),
+                                 np.full((B, sb), -1, np.int32),
+                                 np.ones((B,), np.int32), none, cache, tok)
+        tok, _ = self._decode(tok, np.full((B,), -1, np.int64), cache)
+        _Readback(tok).numpy()
+
+    def _warmup_paged(self):
+        B, C = self._batch, self._C
+        G = C // self._page
+        pm0 = np.full((B, C), -1, np.int32)
+        tb0 = np.full((B, G), -1, np.int32)
+        cache = self._new_cache()
+        for sb in self._buckets:
+            pos = np.broadcast_to(np.arange(sb, dtype=np.int32), (B, sb))
+            _, cache = self._padmit(np.zeros((B, sb), np.int32), pos,
+                                    pm0, tb0, np.full((B,), sb, np.int32),
+                                    cache)
+        timed = {}
+        for key, Tt in (("wide", 1 + self._spec_k), ("fast", 1)):
+            pk = self._pack_step(np.zeros((B, Tt), np.int32),
+                                 np.full((B, Tt), -1, np.int32))
+            best = None
+            for _ in range(3):  # first call is the untimed warm-up
+                t0 = time.monotonic()
+                _, cache = self._step(pk, cache)
+                ms = (time.monotonic() - t0) * 1e3
+                best = ms if best is None else min(best, ms)
+            timed[key] = best
+        if self._spec_k:
+            self._it_wide0, self._it_fast0 = timed["wide"], timed["fast"]
+        neg = np.full((B,), -1, np.int32)
+        self._cow(cache, neg, neg)
+        # the role's hand-off op, on inert -1 pages (the drop page only)
+        idx0 = np.full((self._Gh,), -1, np.int32)
+        if self._role == "prefill":
+            self._export(cache, idx0)
+        elif self._role == "decode":
+            self._import(cache, self._handoff_zero(), idx0)
+
+    # -- shared slot bookkeeping ---------------------------------------------
+    def _expire_carry(self, carry: List[tuple]) -> List[tuple]:
+        """Deadline sweep for requests held outside the queue
+        (breaker-deferred admissions, restart re-admissions)."""
+        now = time.monotonic()
+        keep: List[tuple] = []
+        for r, n in carry:
+            if r.deadline_t is not None and now > r.deadline_t:
+                self.metrics.incr("expired")
+                if not r.future.done():
+                    r.future.set_exception(ExecutionTimeoutError(
+                        f"{self.name}: deadline exceeded after "
+                        f"{(now - r.enqueue_t) * 1e3:.1f}ms awaiting a "
+                        f"decode slot"))
+            else:
+                keep.append((r, n))
+        return keep
+
+    def _finish(self, s: dict, now: float):
+        """Resolve one completed slot: future (its tokens, or the
+        :class:`KVHandoff` a prefill-role slot produced), latency / token
+        metrics, breaker success."""
+        r: Request = s["req"]
+        self.metrics.incr("completed")
+        self.metrics.observe_latency_ms((now - r.enqueue_t) * 1e3)
+        self.metrics.observe_span((s["t0"] - r.enqueue_t) * 1e3,
+                                  (now - s["t0"]) * 1e3)
+        self.metrics.observe_tokens(len(s["out"]), max(now - s["t0"], 1e-9))
+        if self.breaker is not None:
+            self.breaker.record_success(0)
+        if not r.future.done():
+            res = s.get("result")
+            r.future.set_result(res if res is not None
+                                else np.asarray(s["out"], np.int32))
+
+    def _fail_all(self, slots, carry, err):
+        """``close(drain=False)``: fail every slot's and carried request."""
+        for i, s in enumerate(slots):
+            if s is not None and not s["req"].future.done():
+                s["req"].future.set_exception(err)
+            slots[i] = None
+        for r, _ in carry:
+            if not r.future.done():
+                r.future.set_exception(err)
+
+    def _restart(self, e: Exception, slots) -> List[tuple]:
+        """A device failure mid-flight: transient errors requeue the
+        in-flight requests (bounded per request: greedy decode is
+        deterministic, so they regenerate the same tokens), others fail
+        them.  Returns the survivors to re-admit."""
+        if self.breaker is not None:
+            self.breaker.record_failure(0)
+        max_restarts = (max(int(flag("transient_max_retries")) - 1, 0)
+                        if self._retry_transient else 0)
+        survivors: List[tuple] = []
+        for i, s in enumerate(slots):
+            slots[i] = None
+            if s is None:
+                continue
+            if is_transient(e) and s["restarts"] < max_restarts:
+                survivors.append((s["req"], s["restarts"] + 1))
+            else:
+                self.metrics.incr("errors")
+                if not s["req"].future.done():
+                    s["req"].future.set_exception(e)
+        if survivors:
+            self.metrics.incr("restarts")
+        return survivors
+
+    def _poll_admissions(self, free, carry, idle_wait: bool):
+        """FCFS candidates for the free slots: carried requests first, then
+        the queue (blocking up to 50 ms when the loop is idle).  An open
+        circuit DEFERS admission (the requests wait in carry under the
+        deadline sweep), never sheds.  Returns ``(take, carry,
+        blocked_wait)``."""
+        q = self._batcher
+        take = carry[:len(free)]
+        carry = carry[len(take):]
+        want = len(free) - len(take)
+        blocked_wait = False
+        if want > 0:
+            wait = 0.05 if idle_wait and not take else 0.0
+            blocked_wait = wait > 0
+            take += [(r, 0) for r in q.poll(want, wait_s=wait)]
+        if take and self.breaker is not None and not self.breaker.allow(0):
+            carry = take + carry
+            take = []
+            q.sweep()
+        return take, carry, blocked_wait
+
+    # -- the dense continuous loop -------------------------------------------
+    def _slot_loop(self):
+        with torch.no_grad():
+            self._slot_loop_body()
+
+    def _slot_loop_body(self):
+        """The persistent decode loop — sole owner of the ring.
+
+        Per iteration: admit queued requests into free slots (one
+        admission for the group, padded to its largest bucket), dispatch
+        the next decode step for the live slots, then harvest the OLDEST
+        in-flight step — so one step is always queued on the card while
+        the host books the previous one.  Free slots ride along as
+        position ``-1`` rows: they write nothing, attend to nothing, and
+        their argmax is never harvested."""
+        q = self._batcher
+        B = self._batch
+        slots: List[Optional[dict]] = [None] * B
+        gens = [0] * B                       # guards stale in-flight tokens
+        pos = np.full((B,), -1, np.int64)    # next decode position (-1 free)
+        cache = tok = None                   # the ring and the last tokens
+        pending: deque = deque()             # in-flight steps, oldest first
+        carry: List[tuple] = []              # (Request, n_restarts)
+        last_gauges = 0.0
+        try:
+            while True:
+                try:
+                    closing = q.closing
+                    if closing and not q.drain_on_close:
+                        self._fail_all(slots, carry, UnavailableError(
+                            f"{self.name}: dropped at shutdown "
+                            f"(drain=False)"))
+                        pending.clear()
+                        q.poll(B, 0.0)  # fails everything still queued
+                        return
+                    live = [i for i in range(B) if slots[i] is not None]
+                    free = [i for i in range(B) if slots[i] is None]
+                    if (closing and not live and not pending and not carry
+                            and q.queue_depth == 0):
+                        return
+
+                    # ---- admission: FCFS into the free slots
+                    take: List[tuple] = []
+                    blocked_wait = False
+                    if carry:
+                        carry = self._expire_carry(carry)
+                    if free:
+                        take, carry, blocked_wait = self._poll_admissions(
+                            free, carry, idle_wait=not live and not pending)
+                    if take:
+                        if cache is None:
+                            cache = self._ring()
+                            self._clear_rows(cache, np.arange(B))  # fresh
+                            tok = torch.zeros(B, dtype=torch.int32,
+                                              device=self._device)
+                        Sb = self._buckets[max(r.bucket for r, _ in take)]
+                        ids = np.zeros((B, Sb), np.int32)
+                        pp = np.full((B, Sb), -1, np.int32)
+                        lens = np.ones((B,), np.int32)
+                        mask = np.zeros((B,), bool)
+                        targets = []
+                        now = time.monotonic()
+                        for (r, nre), i in zip(take, free):
+                            prompt = np.asarray(r.inputs[0],
+                                                np.int32).reshape(-1)
+                            L = len(prompt)
+                            ids[i, :L] = prompt
+                            pp[i, :L] = np.arange(L)
+                            lens[i] = L
+                            mask[i] = True
+                            gens[i] += 1
+                            pos[i] = L
+                            slots[i] = {"req": r, "budget": int(r.meta[0]),
+                                        "out": [], "t0": now,
+                                        "restarts": nre}
+                            targets.append((i, gens[i]))
+                        fault_point("serving.decode")
+                        tok, cache = self._admit(ids, pp, lens, mask, cache,
+                                                 tok)
+                        pending.append((_Readback(tok), targets))
+                        self.metrics.incr("admitted", len(take))
+                        self.metrics.incr("batches")
+                        live = [i for i in range(B) if slots[i] is not None]
+                    elif (free and not closing
+                          and (carry or q.queue_depth > 0)):
+                        # free slots + waiting requests + nothing admitted
+                        self.metrics.incr("starved_steps")
+                        if self._warm:
+                            self.metrics.incr("starved_steps_after_warm")
+
+                    # ---- decode dispatch (at most 2 steps in flight) ----
+                    dispatched = bool(take)
+                    if live and len(pending) < 2:
+                        tok, cache = self._decode(tok, pos, cache)
+                        pending.append((_Readback(tok),
+                                        [(i, gens[i]) for i in live]))
+                        for i in live:
+                            pos[i] += 1
+                        self.metrics.incr("decode_steps")
+                        self.metrics.observe_occupancy(len(live) / B)
+                        dispatched = True
+
+                    # ---- harvest the oldest in-flight step ----
+                    if pending and (len(pending) >= 2 or not dispatched):
+                        rb, targets = pending.popleft()
+                        host = rb.numpy()  # the one wait for the card
+                        finished = np.zeros((B,), bool)
+                        now = time.monotonic()
+                        for i, g in targets:
+                            s = slots[i]
+                            if s is None or gens[i] != g:
+                                continue  # a finished slot's stale token
+                            t = int(host[i])
+                            s["out"].append(t)
+                            if (len(s["out"]) >= s["budget"]
+                                    or (self._eos is not None
+                                        and t == self._eos)):
+                                finished[i] = True
+                                self._finish(s, now)
+                                slots[i] = None
+                                pos[i] = -1
+                        if finished.any():
+                            tok, cache = self._evict(tok, cache, finished)
+                            self.metrics.incr("evicted",
+                                              int(finished.sum()))
+                        dispatched = True
+
+                    if not dispatched and not blocked_wait:
+                        time.sleep(0.002)  # deferred/idle: don't spin hot
+
+                    now = time.monotonic()
+                    if now - last_gauges >= 0.1:
+                        last_gauges = now
+                        self._update_gauges(slots, carry)
+                except Exception as e:
+                    carry = self._restart(e, slots) + carry
+                    pos[:] = -1
+                    pending.clear()
+                    cache = tok = None
+        finally:
+            self._update_gauges(slots, carry)
+            q.consumer_done()
+
+    # -- legacy batch execution ----------------------------------------------
+    def _run_batch(self, bucket: int, requests: List[Request]
+                   ) -> List[np.ndarray]:
+        """One legacy batch, run to completion: prefill every request into
+        the ring (cleared first, as JAX's fresh cache), then ``[B, 1]``
+        decode steps, reading each step's tokens back, until the last
+        request ends.
+        Dummy rows (past ``len(requests)``) decode garbage nobody reads,
+        as in JAX."""
+        with torch.no_grad():
+            B, Sb = self._batch, self._buckets[bucket]
+            ids = np.zeros((B, Sb), np.int32)
+            positions = np.full((B, Sb), -1, np.int32)
+            lens = np.ones((B,), np.int32)  # dummy rows: 1 unread slot
+            budgets = np.zeros((B,), np.int64)
+            for i, r in enumerate(requests):
+                prompt = np.asarray(r.inputs[0], np.int32).reshape(-1)
+                ids[i, :len(prompt)] = prompt
+                positions[i, :len(prompt)] = np.arange(len(prompt))
+                lens[i] = len(prompt)
+                budgets[i] = int(r.meta[0])
+            t0 = time.monotonic()
+            cache = self._ring()
+            self._clear_rows(cache, np.arange(B))  # a fresh cache, as JAX's
+            tok, cache = self._prefill(ids, positions, lens, cache)
+            out: List[List[int]] = [[] for _ in range(B)]
+            done = np.array([i >= len(requests) for i in range(B)])
+            n_tokens = 0
+            n_step = 0  # decode offset past the prompt
+            while True:
+                host_tok = _Readback(tok).numpy()
+                for i in range(len(requests)):
+                    if done[i]:
+                        continue
+                    out[i].append(int(host_tok[i]))
+                    n_tokens += 1
+                    if (len(out[i]) >= budgets[i]
+                            or (self._eos is not None
+                                and host_tok[i] == self._eos)):
+                        done[i] = True
+                if done.all():
+                    break
+                tok, cache = self._decode(tok, lens + n_step, cache)
+                self.metrics.incr("decode_steps")
+                n_step += 1
+            self.metrics.observe_tokens(n_tokens, time.monotonic() - t0)
+            return [np.asarray(o, np.int32) for o in out[:len(requests)]]
+
+    # -- the paged loop ------------------------------------------------------
     def _padmit(self, ids, positions, pos_map, table, lens, cache):
         """Admission prefill straight into the pool: each slot writes only
         its own pages (padding rows land in the write-drop page).  Returns
         the first greedy token per slot (host) and the pool."""
-        logits, cache = self._model.forward_paged(
-            self._to_dev(ids), self._to_dev(positions), self._to_dev(pos_map),
-            self._to_dev(table), cache, gather_last=self._to_dev(lens))
-        return logits.argmax(-1).cpu().numpy(), cache
+        with self._weights_lock:
+            logits, cache = self._model.forward_paged(
+                self._to_dev(ids), self._to_dev(positions),
+                self._to_dev(pos_map), self._to_dev(table), cache,
+                gather_last=self._to_dev(lens))
+            return logits.argmax(-1).cpu().numpy(), cache
 
     def _step(self, packed: np.ndarray, cache):
         """The unified decode/verify step over a ``[B, 2T + C + G]`` int32
@@ -247,11 +878,11 @@ class GenerationEngine:
         G = C // self._page
         Tp = (packed.shape[1] - C - G) // 2
         pk = self._to_dev(packed)
-        with moe_stats.collect() as ms:
+        with self._weights_lock, moe_stats.collect() as ms:
             logits, cache = self._model.forward_paged(
                 pk[:, :Tp], pk[:, Tp:2 * Tp], pk[:, 2 * Tp:2 * Tp + C],
                 pk[:, 2 * Tp + C:], cache)
-        host = logits.argmax(-1).cpu().numpy()
+            host = logits.argmax(-1).cpu().numpy()
         # an MoE model's routing counts; warm-up's dummy data is not counted
         if self._moe_experts and self._warm:
             self._moe_harvest(ms.counts(self._moe_experts).cpu().numpy())
@@ -278,84 +909,6 @@ class GenerationEngine:
     def _cow(self, cache, src: np.ndarray, dst: np.ndarray):
         return self._model.gpt.copy_pages(cache, self._to_dev(src),
                                           self._to_dev(dst))
-
-    # -- routing -------------------------------------------------------------
-    def _route(self, inputs: Sequence) -> int:
-        n = len(np.asarray(inputs[0]).reshape(-1))
-        for i, b in enumerate(self._buckets):
-            if n <= b:
-                return i
-        self.metrics.incr("bucket_misses")
-        raise InvalidArgumentError(
-            f"{self.name}: prompt length {n} exceeds the largest bucket "
-            f"({self._buckets[-1]}) — add a bucket or truncate the prompt")
-
-    def warmup(self) -> None:
-        """Run every device path once on dummy data — one admission per
-        prompt bucket, the ``[B, 1+k]`` and ``[B, 1]`` steps, the page-copy
-        op — so the kernel is built and the card initialized before live
-        traffic, and seed the loop's wide-vs-fast cost model with the best
-        of two timed (synchronized) calls of each step width."""
-        B, C = self._batch, self._C
-        G = C // self._page
-        pm0 = np.full((B, C), -1, np.int32)
-        tb0 = np.full((B, G), -1, np.int32)
-        with torch.no_grad():
-            cache = self._new_cache()
-            for sb in self._buckets:
-                pos = np.broadcast_to(np.arange(sb, dtype=np.int32), (B, sb))
-                _, cache = self._padmit(np.zeros((B, sb), np.int32), pos,
-                                        pm0, tb0,
-                                        np.full((B,), sb, np.int32), cache)
-            timed = {}
-            for key, Tt in (("wide", 1 + self._spec_k), ("fast", 1)):
-                pk = self._pack_step(np.zeros((B, Tt), np.int32),
-                                     np.full((B, Tt), -1, np.int32))
-                best = None
-                for _ in range(3):  # first call is the untimed warm-up
-                    t0 = time.monotonic()
-                    _, cache = self._step(pk, cache)
-                    ms = (time.monotonic() - t0) * 1e3
-                    best = ms if best is None else min(best, ms)
-                timed[key] = best
-            if self._spec_k:
-                self._it_wide0, self._it_fast0 = timed["wide"], timed["fast"]
-            neg = np.full((B,), -1, np.int32)
-            self._cow(cache, neg, neg)
-        mark_warm()  # circuit re-opens from here on are hot-path flaps
-        self._warm = True
-
-    # -- slot bookkeeping ----------------------------------------------------
-    def _expire_carry(self, carry: List[tuple]) -> List[tuple]:
-        """Deadline sweep for requests held outside the queue
-        (breaker-deferred admissions, restart re-admissions)."""
-        now = time.monotonic()
-        keep: List[tuple] = []
-        for r, n in carry:
-            if r.deadline_t is not None and now > r.deadline_t:
-                self.metrics.incr("expired")
-                if not r.future.done():
-                    r.future.set_exception(ExecutionTimeoutError(
-                        f"{self.name}: deadline exceeded after "
-                        f"{(now - r.enqueue_t) * 1e3:.1f}ms awaiting a "
-                        f"decode slot"))
-            else:
-                keep.append((r, n))
-        return keep
-
-    def _finish(self, s: dict, now: float):
-        """Resolve one completed slot: future, latency/token metrics,
-        breaker success."""
-        r: Request = s["req"]
-        self.metrics.incr("completed")
-        self.metrics.observe_latency_ms((now - r.enqueue_t) * 1e3)
-        self.metrics.observe_span((s["t0"] - r.enqueue_t) * 1e3,
-                                  (now - s["t0"]) * 1e3)
-        self.metrics.observe_tokens(len(s["out"]), max(now - s["t0"], 1e-9))
-        if self.breaker is not None:
-            self.breaker.record_success(0)
-        if not r.future.done():
-            r.future.set_result(np.asarray(s["out"], np.int32))
 
     def _new_pool(self) -> PagePool:
         return PagePool(self._batch, self._kv_pages, self._page, self._C)
@@ -393,12 +946,14 @@ class GenerationEngine:
 
     @staticmethod
     def _unpack_paged(r: Request):
-        """Request meta: ``(prompt, prefix_key, prefix_len, budget)``."""
-        budget, key, plen = r.meta
+        """Request meta: ``(prompt, prefix_key, prefix_len, budget,
+        handoff)`` — ``handoff`` is ``None`` for a plain request, ``True``
+        to produce a :class:`KVHandoff`, or one to adopt."""
+        budget, key, plen, hand = r.meta
         prompt = np.asarray(r.inputs[0], np.int32).reshape(-1)
-        return prompt, key, min(int(plen), len(prompt)), int(budget)
+        return (prompt, key, min(int(plen), len(prompt)), int(budget),
+                hand)
 
-    # -- the decode loop -----------------------------------------------------
     def _paged_loop(self):
         with torch.no_grad():
             self._paged_loop_body()
@@ -412,18 +967,19 @@ class GenerationEngine:
         all live slots with n-gram drafts in the extra columns, then
         immediate harvest — accept the longest draft prefix matching the
         model's own argmax, invalidate the rest via the position map.
-        CoW page copies from admission / first-divergent-write are
-        dispatched before the step they protect.  Pool exhaustion
-        mid-decode preempts the NEWEST slot.  The loop is serialized
-        because drafting and page accounting need the previous step's
-        tokens before the next dispatch.
+        Hand-off adoptions map fresh pages and import the donor's KV
+        instead of prefilling; a prefill-role slot exports its prompt's
+        pages right after its prefill and turns over.  CoW page copies
+        from admission / first-divergent-write are dispatched before the
+        step they protect.  Pool exhaustion mid-decode preempts the
+        NEWEST slot.  The loop is serialized because drafting and page
+        accounting need the previous step's tokens before the next
+        dispatch.
         """
         q = self._batcher
         B, C, page = self._batch, self._C, self._page
         k_max, eos = self._spec_k, self._eos
         T = 1 + k_max
-        max_restarts = (max(int(flag("transient_max_retries")) - 1, 0)
-                        if self._retry_transient else 0)
         slots: List[Optional[dict]] = [None] * B
         pos = np.full((B,), -1, np.int64)  # next write position (-1 = free)
         pool = self._pool
@@ -472,17 +1028,9 @@ class GenerationEngine:
                 try:
                     closing = q.closing
                     if closing and not q.drain_on_close:
-                        err = UnavailableError(
+                        self._fail_all(slots, carry, UnavailableError(
                             f"{self.name}: dropped at shutdown "
-                            f"(drain=False)")
-                        for i in range(B):
-                            s = slots[i]
-                            if s is not None and not s["req"].future.done():
-                                s["req"].future.set_exception(err)
-                            slots[i] = None
-                        for r, _ in carry:
-                            if not r.future.done():
-                                r.future.set_exception(err)
+                            f"(drain=False)"))
                         q.poll(B, 0.0)  # fails everything still queued
                         return
                     live = [i for i in range(B) if slots[i] is not None]
@@ -499,48 +1047,79 @@ class GenerationEngine:
                     if carry:
                         carry = self._expire_carry(carry)
                     if free:
-                        cand = carry[:len(free)]
-                        carry = carry[len(cand):]
-                        want = len(free) - len(cand)
-                        if want > 0:
-                            wait = 0.05 if not live and not cand else 0.0
-                            blocked_wait = wait > 0
-                            cand += [(r, 0)
-                                     for r in q.poll(want, wait_s=wait)]
-                        if (cand and self.breaker is not None
-                                and not self.breaker.allow(0)):
-                            carry = cand + carry
-                            cand = []
-                            q.sweep()
+                        cand, carry, blocked_wait = self._poll_admissions(
+                            free, carry, idle_wait=not live)
                         budget_pages = pool.free_pages
                         for ci, (r, nre) in enumerate(cand):
-                            prompt, key, _, _ = self._unpack_paged(r)
-                            need = pool.pages_needed(prompt, key)
+                            prompt, key, _, _, hand = self._unpack_paged(r)
+                            if isinstance(hand, KVHandoff):
+                                # adoption maps fresh private pages only
+                                need = -(-hand.length // page)
+                            else:
+                                need = pool.pages_needed(prompt, key)
                             if need > budget_pages and ci == 0 and not live:
                                 # nothing left to preempt: reclaim every
                                 # registered prefix before giving up
                                 pool.drop_all_prefixes()
                                 budget_pages = pool.free_pages
-                                need = pool.pages_needed(prompt, key)
+                                if not isinstance(hand, KVHandoff):
+                                    need = pool.pages_needed(prompt, key)
                             if need > budget_pages:
                                 # head-of-line blocks: keep FCFS order
                                 carry = cand[ci:] + carry
                                 break
                             take.append((r, nre))
                             budget_pages -= need
+                    pre: List[tuple] = []  # (request, slot) to prefill
                     if take:
                         if cache is None:
                             cache = self._new_cache()
                         now = time.monotonic()
-                        Sb = self._buckets[max(r.bucket for r, _ in take)]
+                        # hand-off adoptions first: no prefill at all — map
+                        # fresh pages, import the donor's KV, seed the slot
+                        # with the donor's first token; decode resumes at
+                        # position `length` as if prefilled here
+                        n_adopted = n_done = 0
+                        for (r, nre), i in zip(take, free):
+                            prompt, _, _, budget, hand = \
+                                self._unpack_paged(r)
+                            if not isinstance(hand, KVHandoff):
+                                pre.append(((r, nre), i))
+                                continue
+                            pool.adopt(i, hand.length)
+                            npg = -(-hand.length // page)
+                            dst = np.full((self._Gh,), -1, np.int32)
+                            dst[:npg] = pool.table[i, :npg]
+                            cache = self._import(cache, hand.kv, dst)
+                            t = int(hand.first_token)
+                            slots[i] = {"req": r, "budget": budget,
+                                        "out": [t], "t0": now,
+                                        "restarts": nre,
+                                        "hist": [int(x) for x in prompt]
+                                        + [t]}
+                            pos[i] = hand.length
+                            n_adopted += 1
+                            if (hand.done or budget <= 1
+                                    or (eos is not None and t == eos)):
+                                evict(i, time.monotonic())
+                                n_done += 1
+                        if n_adopted:
+                            self.metrics.incr("handoffs_in", n_adopted)
+                            self.metrics.incr("admitted", n_adopted)
+                        if n_done:
+                            self.metrics.incr("evicted", n_done)
+                    if pre:
+                        Sb = self._buckets[max(r.bucket
+                                               for (r, _), _ in pre)]
                         ids = np.zeros((B, Sb), np.int32)
                         pp = np.full((B, Sb), -1, np.int32)
                         lens = np.ones((B,), np.int32)
                         cow_pairs: List[tuple] = []
                         to_register: List[tuple] = []
                         admitted: List[int] = []
-                        for (r, nre), i in zip(take, free):
-                            prompt, key, plen, budget = self._unpack_paged(r)
+                        for (r, nre), i in pre:
+                            prompt, key, plen, budget, hand = \
+                                self._unpack_paged(r)
                             pairs, shared = pool.admit(i, prompt, key)
                             cow_pairs += [(s_, d_, i) for s_, d_ in pairs]
                             L = len(prompt)
@@ -551,6 +1130,7 @@ class GenerationEngine:
                             slots[i] = {"req": r, "budget": budget,
                                         "out": [], "t0": now,
                                         "restarts": nre,
+                                        "handoff": hand is True,
                                         "hist": [int(t) for t in prompt]}
                             admitted.append(i)
                             if key is not None and plen > 0:
@@ -571,6 +1151,24 @@ class GenerationEngine:
                             s = slots[i]
                             t = int(host_first[i])
                             s["out"].append(t)
+                            if s["handoff"]:
+                                # produce: export the prompt's pages while
+                                # they are still mapped and resolve with the
+                                # KVHandoff (the first token rides along);
+                                # the slot turns over at once
+                                L = len(s["hist"])
+                                npg = -(-L // page)
+                                idx = np.full((self._Gh,), -1, np.int32)
+                                idx[:npg] = pool.table[i, :npg]
+                                s["result"] = KVHandoff(
+                                    np.asarray(s["hist"], np.int32), t,
+                                    self._export(cache, idx), L,
+                                    bool(s["budget"] <= 1
+                                         or (eos is not None and t == eos)))
+                                self.metrics.incr("handoffs_out")
+                                evict(i, now)
+                                n_evicted += 1
+                                continue
                             s["hist"].append(t)
                             if (len(s["out"]) >= s["budget"]
                                     or (eos is not None and t == eos)):
@@ -580,6 +1178,7 @@ class GenerationEngine:
                         self.metrics.incr("batches")
                         if n_evicted:
                             self.metrics.incr("evicted", n_evicted)
+                    if take:
                         live = [i for i in range(B) if slots[i] is not None]
                     elif (free and not closing
                           and (carry or q.queue_depth > 0)):
@@ -735,34 +1334,17 @@ class GenerationEngine:
                         last_gauges = now
                         self._update_gauges(slots, carry, pool)
                 except Exception as e:
-                    # Device failure mid-flight: transient errors restart
-                    # the in-flight requests (bounded per request) on a
-                    # fresh pool + fresh page accounting; others fail them
-                    if self.breaker is not None:
-                        self.breaker.record_failure(0)
-                    survivors: List[tuple] = []
-                    for i in range(B):
-                        s = slots[i]
-                        slots[i] = None
-                        if s is None:
-                            continue
-                        if is_transient(e) and s["restarts"] < max_restarts:
-                            survivors.append((s["req"], s["restarts"] + 1))
-                        else:
-                            self.metrics.incr("errors")
-                            if not s["req"].future.done():
-                                s["req"].future.set_exception(e)
+                    # a device failure mid-flight: a fresh pool and fresh
+                    # page accounting for the requeued requests
+                    carry = self._restart(e, slots) + carry
                     pos[:] = -1
                     cache = None
                     pool = self._pool = self._new_pool()
-                    carry = survivors + carry
-                    if survivors:
-                        self.metrics.incr("restarts")
         finally:
             self._update_gauges(slots, carry, pool)
             q.consumer_done()
 
-    def _update_gauges(self, slots, carry, pool: PagePool):
+    def _update_gauges(self, slots, carry, pool: Optional[PagePool] = None):
         q = self._batcher
         B = self._batch
         nlive = sum(1 for s in slots if s is not None)
@@ -773,32 +1355,72 @@ class GenerationEngine:
         m.set_gauge("slot_occupancy", nlive / B)
         m.set_gauge("slots_free", B - nlive)
         m.set_gauge("queue_age_ms", age)
-        ps = pool.stats()
-        m.set_gauge("kv_pages_free", ps["kv_pages_free"])
-        m.set_gauge("kv_pages_shared", ps["kv_pages_shared"])
-        m.set_gauge("kv_pages_leaked", ps["kv_pages_leaked"])
-        m.set_counter("cow_copies", ps["cow_copies"])
+        if pool is not None:
+            ps = pool.stats()
+            m.set_gauge("kv_pages_free", ps["kv_pages_free"])
+            m.set_gauge("kv_pages_shared", ps["kv_pages_shared"])
+            m.set_gauge("kv_pages_leaked", ps["kv_pages_leaked"])
+            m.set_counter("cow_copies", ps["cow_copies"])
         m.set_queue_depth(q.queue_depth + len(carry))
 
     # -- public API ----------------------------------------------------------
+    def synthetic_inputs(self) -> np.ndarray:
+        """A one-token prompt — a router's health probe decodes one token
+        through the real admission + decode path."""
+        return np.zeros((1,), np.int32)
+
     def submit(self, prompt_ids, max_new_tokens: int = 32,
                deadline_ms: Optional[float] = None,
                prefix_key: Optional[str] = None,
-               prefix_len: int = 0) -> Future:
+               prefix_len: int = 0, handoff=None) -> Future:
         """Async generation; resolves to the ``[<=max_new_tokens]`` int32
         array of greedily decoded tokens (stops after ``eos_token_id``).
 
-        ``prefix_key`` + ``prefix_len`` declare ``prompt_ids[:prefix_len]``
-        a shareable prefix (e.g. a system prompt): the first such request
-        prefills it once and registers its pages; later requests with the
-        same key (and the same leading tokens — verified, divergence falls
-        back to a cold admission) map those pages copy-on-write."""
+        Paged mode only: ``prefix_key`` + ``prefix_len`` declare
+        ``prompt_ids[:prefix_len]`` a shareable prefix (e.g. a system
+        prompt): the first such request prefills it once and registers
+        its pages; later requests with the same key (and the same leading
+        tokens — verified, divergence falls back to a cold admission) map
+        those pages copy-on-write.  Ignored by the dense modes.
+
+        ``handoff`` (paged only) is the prefill/decode seam:
+        ``handoff=True`` on a ``role="prefill"`` engine resolves the
+        future with a :class:`KVHandoff` instead of decoding; passing
+        that :class:`KVHandoff` (with the same ``prompt_ids``) to a
+        ``role="decode"`` engine adopts its pages and decodes the
+        remaining ``max_new_tokens - 1`` tokens, bit-identical to a
+        co-located engine.  Plain submits work on every role."""
         if max_new_tokens < 1:
             raise InvalidArgumentError("max_new_tokens must be >= 1")
+        if handoff is not None:
+            if not self._paged:
+                raise InvalidArgumentError(
+                    f"{self.name}: handoff requires paged KV")
+            if handoff is True:
+                if self._role != "prefill":
+                    raise InvalidArgumentError(
+                        f"{self.name}: handoff=True (produce) requires "
+                        f"role='prefill', this engine is "
+                        f"role={self._role!r}")
+            elif isinstance(handoff, KVHandoff):
+                if self._role != "decode":
+                    raise InvalidArgumentError(
+                        f"{self.name}: adopting a KVHandoff requires "
+                        f"role='decode', this engine is "
+                        f"role={self._role!r}")
+                if int(handoff.length) > self._C:
+                    raise InvalidArgumentError(
+                        f"{self.name}: handoff length {handoff.length} "
+                        f"exceeds cache_len ({self._C})")
+            else:
+                raise InvalidArgumentError(
+                    f"handoff must be None, True, or a KVHandoff, got "
+                    f"{type(handoff).__name__}")
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
-        return self._batcher.submit(
-            (prompt,), deadline_ms=deadline_ms,
-            meta=(int(max_new_tokens), prefix_key, int(prefix_len)))
+        meta = ((int(max_new_tokens), prefix_key, int(prefix_len), handoff)
+                if self._paged else (int(max_new_tokens),))
+        return self._batcher.submit((prompt,), deadline_ms=deadline_ms,
+                                    meta=meta)
 
     def generate(self, prompt_ids, max_new_tokens: int = 32,
                  timeout: Optional[float] = None, **kw) -> np.ndarray:
@@ -808,14 +1430,18 @@ class GenerationEngine:
     def stats(self) -> dict:
         snap = self.metrics.snapshot()
         snap["buckets"] = len(self._buckets)
-        snap["paged"] = True
+        snap["continuous"] = self._continuous
+        snap["paged"] = self._paged
+        snap["role"] = self._role
         snap["quantization"] = self._quantized or "none"
-        snap.update(self._pool.stats())
+        if self._pool is not None:
+            snap.update(self._pool.stats())
         return snap
 
     def close(self, drain: bool = True, timeout: Optional[float] = None):
         self._batcher.close(drain=drain, timeout=timeout)
-        self._thread.join(timeout)
+        if self._thread is not None:
+            self._thread.join(timeout)
 
     def __enter__(self):
         return self

@@ -13,6 +13,10 @@ slot-scheduler family (``SLOT_COUNTERS``), the page-accounting family
 serving MoE models (``GPTConfig.moe_experts > 0``) add the expert-routing
 family (``MOE_COUNTERS`` + the ``moe_overflow_frac`` /
 ``moe_dead_experts`` gauges); a dense engine publishes no ``moe_*`` key.
+Paged engines add the hand-off family (``HANDOFF_COUNTERS``), and every
+engine counts ``weight_swaps`` (``swap_weights`` / ``reload_weights``).
+The worker-mode batcher (legacy scheduler) records each batch through
+:meth:`~ServingMetrics.observe_batch` and counts ``circuit_shed``.
 Publishing snapshots on an event bus and the Prometheus bridge come with
 the observability slice.
 """
@@ -25,11 +29,12 @@ from typing import Deque, Dict, Sequence
 from ..framework.locking import OrderedLock
 
 __all__ = ["ServingMetrics", "SLOT_COUNTERS", "PAGED_COUNTERS",
-           "MOE_COUNTERS"]
+           "HANDOFF_COUNTERS", "MOE_COUNTERS"]
 
 #: counter keys every snapshot carries (zero-initialized)
 _COUNTERS = ("requests", "completed", "shed", "expired", "errors",
-             "bucket_misses", "batches", "tokens", "drain_timeout")
+             "bucket_misses", "batches", "tokens", "circuit_shed",
+             "drain_timeout", "weight_swaps")
 
 #: slot-scheduler counters (continuous batching; see ``extra_counters``)
 SLOT_COUNTERS = ("admitted", "evicted", "decode_steps", "restarts",
@@ -38,6 +43,11 @@ SLOT_COUNTERS = ("admitted", "evicted", "decode_steps", "restarts",
 #: page-accounting counters (paged KV mode; see ``extra_counters``)
 PAGED_COUNTERS = ("cow_copies", "spec_drafted", "spec_accepted",
                   "preempted")
+
+#: prefill/decode hand-off counters (paged KV mode): hand-offs a
+#: prefill-role engine exported (``handoffs_out``) and a decode-role engine
+#: adopted (``handoffs_in``)
+HANDOFF_COUNTERS = ("handoffs_out", "handoffs_in")
 
 #: expert-routing counters (MoE models; see ``extra_counters``): routed /
 #: capacity-dropped token totals plus post-warmup sampled / overflow step
@@ -97,6 +107,15 @@ class ServingMetrics:
         """One occupancy sample (0..1) for the ``batch_occupancy`` mean."""
         with self._lock:
             self._occupancy.append(float(frac))
+
+    def observe_batch(self, size: int, capacity: int, queue_depth: int):
+        """One batch of the worker-mode batcher: ``size`` requests
+        completed in a batch of ``capacity`` rows."""
+        with self._lock:
+            self._counters["batches"] += 1
+            self._counters["completed"] += size
+            self._occupancy.append(size / max(capacity, 1))
+            self._queue_depth = int(queue_depth)
 
     def observe_latency_ms(self, ms: float):
         with self._lock:

@@ -1,6 +1,5 @@
 """Host-side KV page accounting for the paged decode path (a copy of
-``paddle_tpu/serving/paging.py`` without the KV hand-off ``adopt``; the
-module is pure numpy).
+``paddle_tpu/serving/paging.py``; the module is pure numpy).
 
 vLLM-style PagedAttention bookkeeping (Kwon et al., SOSP 2023): the
 device holds one flat page pool per layer (``GPTModel.init_paged_cache``
@@ -68,6 +67,7 @@ class PagePool:
         self._prefixes: Dict[str, Tuple[List[int], np.ndarray]] = {}
         self.cow_copies = 0
         self.prefix_hits = 0  # admissions that mapped shared prefix pages
+        self.adoptions = 0    # slots mapped via KV hand-off (adopt())
 
     # -- allocation ---------------------------------------------------------
     def alloc(self) -> Optional[int]:
@@ -166,6 +166,28 @@ class PagePool:
         self.pos_map[slot, :length] = np.arange(length)
         return copy_pairs, shared
 
+    def adopt(self, slot: int, length: int) -> List[int]:
+        """Map ``slot`` for an externally-prefilled sequence of ``length``
+        tokens — the import half of the prefill→decode KV hand-off.  The
+        page *payload* arrives separately through
+        ``GPTModel.scatter_pages``; this is only the host accounting:
+        fresh private pages (hand-offs never share — the donor replica's
+        prefix registry does not travel), positions ``0..length-1``
+        marked resident.  Raises ``MemoryError`` on exhaustion with the
+        slot rolled back, same contract as :meth:`admit`."""
+        assert (self.table[slot] < 0).all(), f"slot {slot} already mapped"
+        pages: List[int] = []
+        for g in range(-(-int(length) // self.page_size)):
+            p = self.alloc()
+            if p is None:
+                self._rollback(slot)
+                raise MemoryError("page pool exhausted (adoption)")
+            self.table[slot, g] = p
+            pages.append(p)
+        self.pos_map[slot, :length] = np.arange(length)
+        self.adoptions += 1
+        return pages
+
     def _rollback(self, slot: int):
         for g in range(self.pages_per_slot):
             p = self.table[slot, g]
@@ -258,5 +280,6 @@ class PagePool:
             "kv_pages_shared": self.shared_pages,
             "cow_copies": self.cow_copies,
             "prefix_hits": self.prefix_hits,
+            "kv_adoptions": self.adoptions,
             "kv_pages_leaked": self.leaked_pages(),
         }

@@ -15,20 +15,26 @@ The expressions keep the JAX package's order of operations (``w / scale *
 127``, ``scale`` floored at 1e-9, round half to even, fp8 clipped to
 +-448 BEFORE the cast — e4m3fn has no inf, an overflowing cast is NaN),
 so both packages produce the same codes and scales from the same weights.
-Not ported yet (ROADMAP queue A, quantized serving): the QAT fake-quant
-layers, ``Int8Linear`` / ``Int8Conv2D``, ``PostTrainingQuantization`` and
-``export_quantized``.
+``export_quantized(model, path, mode)`` writes the JAX package's
+quantized weight artifact (``<path>.pdiparams`` plus its sha256 manifest)
+for ``GenerationEngine.swap_weights``.  Not ported yet (ROADMAP queue A,
+quantized serving): the QAT fake-quant layers, ``Int8Linear`` /
+``Int8Conv2D`` and ``PostTrainingQuantization``.
 """
 from __future__ import annotations
 
 import copy
+import hashlib
+import json
+import os
 
 import torch
 
 from ..framework.errors import InvalidArgumentError
 
 __all__ = ["QUANT_MODES", "FP8_E4M3_MAX", "quantize_to_int8",
-           "quantize_to_fp8", "quantize_weights", "quantize_model"]
+           "quantize_to_fp8", "quantize_weights", "quantize_model",
+           "export_quantized"]
 
 QUANT_MODES = ("int8", "fp8")
 #: largest finite float8_e4m3fn
@@ -127,3 +133,66 @@ def quantize_model(model, mode="int8"):
     ``quantize_model_trees``, which returns quantized trees to bind.)"""
     _check_mode(mode)
     return quantize_weights(copy.deepcopy(model), mode)
+
+
+def weight_trees(model, float_params=None):
+    """``(params, buffers)``: ``model``'s tensors by dotted name, split as
+    the JAX package's ``param_pytree`` / ``buffer_pytree`` split them.  A
+    quantized weight is a buffer in a port model but a parameter in a JAX
+    tree, so ``params`` holds the names of ``float_params`` (default: the
+    parameters of ``model``, plus every quantized ``….weight``)."""
+    state = dict(model.state_dict(keep_vars=False))
+    if float_params is None:
+        float_params = {n for n, _ in model.named_parameters()}
+        float_params |= {n for n, t in state.items() if n.endswith(".weight")
+                         and _is_quantized_dtype(t.dtype)}
+    params = {n: t for n, t in state.items() if n in float_params}
+    buffers = {n: t for n, t in state.items() if n not in float_params}
+    return params, buffers
+
+
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def export_quantized(model, path, mode="int8"):
+    """Write a quantized weight artifact in the JAX package's format:
+    ``<path>.pdiparams`` holding ``{"params", "buffers", "quantization"}``
+    (the quantized parameter tree, the ``….weight_scale`` buffers, the
+    mode tag) and a ``<path>.pdiparams.manifest.json`` sidecar with the
+    artifact's sha256.  ``model`` keeps its float weights.  The artifact
+    swaps into an engine built with the matching ``quantized=`` mode
+    (``GenerationEngine.swap_weights``).  As every file the port writes
+    (``framework.serialization``), fp8 codes are stored widened to
+    float32, exactly; int8 codes as int8.  Returns the ``.pdiparams``
+    path."""
+    from ..framework import serialization
+
+    _check_mode(mode)
+    names = {n for n, _ in model.named_parameters()}
+    params, buffers = weight_trees(quantize_model(model, mode), names)
+    path = os.fspath(path)
+    prefix = (path[: -len(".pdiparams")]
+              if path.endswith(".pdiparams") else path)
+    artifact = prefix + ".pdiparams"
+    serialization.save(
+        {"params": params, "buffers": buffers, "quantization": mode},
+        artifact)
+    manifest = {
+        "format": "paddle_tpu.quantized_weights.v1",
+        "quantization": mode,
+        "file": os.path.basename(artifact),
+        "sha256": _sha256(artifact),
+        "num_params": len(params),
+        "num_buffers": len(buffers),
+    }
+    mpath = artifact + ".manifest.json"
+    tmp = mpath + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(manifest, f, indent=2, sort_keys=True)
+    os.replace(tmp, mpath)
+    return artifact

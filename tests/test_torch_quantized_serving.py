@@ -31,6 +31,7 @@ from paddle_tpu.serving import GenerationEngine as JaxGenerationEngine
 from paddle_tpu_torch import slim
 from paddle_tpu_torch.bridge import load_jax_params
 from paddle_tpu_torch.framework.errors import (InvalidArgumentError,
+                                               NotFoundError,
                                                UnimplementedError)
 from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
                                          _quantize_kv)
@@ -284,7 +285,7 @@ def test_float_model_unchanged_and_engines_isolated(mode):
                           **kw) as qe, \
             GenerationEngine(fm, name=f"ptq-iso-f-{mode}", **kw) as fe:
         assert qe.quant_active and not fe.quant_active
-        assert qe._model is not fm and fe._model is fm
+        assert qe._model is not fm and fe._model is not fm  # own copies
         pool = qe._new_cache()["layers"][0]
         assert pool["k"].dtype == QDT[mode]
         assert pool["k_scale"].dtype == torch.float32
@@ -368,11 +369,16 @@ def test_config_quantization_quantizes_at_build(mode):
 
 def test_unported_parts_keep_raising():
     fm = _float_model()
+    # swaps and the hand-off roles are ported: a missing artifact is a
+    # plain not-found error, a quantized prefill engine builds
     with GenerationEngine(fm, prompt_buckets=[16], batch_size=2,
                           cache_len=CACHE, paged=True, quantized="int8",
                           name="ptq-unported") as eng:
-        with pytest.raises(UnimplementedError, match="ROADMAP"):
-            eng.swap_weights("artifact.pdiparams")
+        with pytest.raises(NotFoundError):
+            eng.swap_weights("no-such-artifact.pdiparams")
+    GenerationEngine(fm, prompt_buckets=[16], paged=True, quantized="int8",
+                     role="prefill").close()
+    # tenancy is not ported yet
     with pytest.raises(UnimplementedError, match="ROADMAP"):
         GenerationEngine(fm, prompt_buckets=[16], paged=True,
-                         quantized="int8", role="prefill")
+                         quantized="int8", tenancy=object())

@@ -191,16 +191,20 @@ def test_fatal_failure_fails_the_request(models):
 
 def test_mode_validation_names_the_roadmap(models):
     _, tm = models
+    # the dense ring (FLAGS_paged_kv's default), the legacy scheduler and
+    # the hand-off roles are ported: they build (and close) cleanly
+    for kw in (dict(), dict(paged=False), dict(continuous=False),
+               dict(paged=True, role="prefill"),
+               dict(paged=True, quantized="int8", role="decode")):
+        GenerationEngine(tm, prompt_buckets=[8], **kw).close()
+    # the JAX rules: paged needs continuous, roles need paged
+    for kw in (dict(paged=True, continuous=False), dict(role="decode"),
+               dict(paged=True, role="both")):
+        with pytest.raises(InvalidArgumentError):
+            GenerationEngine(tm, prompt_buckets=[8], **kw)
     with pytest.raises(UnimplementedError, match="ROADMAP"):
-        GenerationEngine(tm, prompt_buckets=[8], paged=False)
-    # FLAGS_paged_kv defaults to False: the dense ring, not ported yet
-    with pytest.raises(UnimplementedError, match="ROADMAP"):
-        GenerationEngine(tm, prompt_buckets=[8])
-    for kw in (dict(continuous=False), dict(role="prefill"),
-               dict(quantized="int8", role="decode"),
-               dict(tenancy=object())):
-        with pytest.raises(UnimplementedError, match="ROADMAP"):
-            GenerationEngine(tm, prompt_buckets=[8], paged=True, **kw)
+        GenerationEngine(tm, prompt_buckets=[8], paged=True,
+                         tenancy=object())
     # quantized= is ported: only an unknown mode is rejected
     with pytest.raises(InvalidArgumentError, match="int4"):
         GenerationEngine(tm, prompt_buckets=[8], paged=True,

@@ -2,14 +2,17 @@
 """Where the device time of the port's paged serving goes, on one card.
 
     python3 tools/torch_serve_profile.py [--quantized int8|fp8 | --moe]
+                                         [--dense | --legacy]
 
 Serves ``chip_smoke.py``'s workload (``GPTForCausalLM(gpt_small())``,
 seeded random weights, 16 requests through ``GenerationEngine`` with
 batch 8, buckets 16/48, page 16, speculative_k 4; with ``--quantized``
 through the int8 or fp8 engine; with ``--moe`` the MoE model of phase M4,
-``gpt_small(moe_experts=8, moe_top_k=2, moe_capacity_factor=8.0)``)
-once to warm up, then once more under ``torch.profiler`` (CPU + CUDA
-activities), and prints:
+``gpt_small(moe_experts=8, moe_top_k=2, moe_capacity_factor=8.0)``; with
+``--dense`` through the default engine, dense-ring continuous batching,
+as phase D1 builds it, with ``--legacy`` through the legacy scheduler as
+D2 does) once to warm up, then once more under ``torch.profiler`` (CPU +
+CUDA activities), and prints:
 
 * the window's wall time and the device-busy share (summed device time of
   every kernel and copy over the wall time — one stream, so no overlap);
@@ -55,7 +58,14 @@ def main() -> int:
                        "float)")
     which.add_argument("--moe", action="store_true",
                        help="profile the MoE model's engine")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--dense", action="store_true",
+                      help="the default engine (dense ring, continuous)")
+    mode.add_argument("--legacy", action="store_true",
+                      help="the legacy run-batch-to-completion scheduler")
     opts = ap.parse_args()
+    if opts.moe and (opts.dense or opts.legacy):
+        ap.error("an MoE model serves in the paged mode only")
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -77,8 +87,15 @@ def main() -> int:
                                generator=torch.Generator().manual_seed(
                                    cs.SEED))
     reqs = cs.requests()
+    engine = dict(cs.ENGINE)
+    if opts.dense or opts.legacy:
+        engine = dict(prompt_buckets=engine["prompt_buckets"],
+                      batch_size=engine["batch_size"])
+        if opts.legacy:
+            engine["continuous"] = False
+        reqs = [(p, n, {}) for p, n, _ in reqs]  # no shared prefixes
     with GenerationEngine(model, name="profile", quantized=opts.quantized,
-                          **cs.ENGINE) as eng:
+                          **engine) as eng:
         eng.warmup()
         for f in [eng.submit(p, n, **kw) for p, n, kw in reqs]:
             f.result(600)
@@ -94,6 +111,8 @@ def main() -> int:
         st = eng.stats()
     steps = st["decode_steps"] - st0["decode_steps"]
     admits = st["batches"] - st0["batches"]
+    layout = ("legacy" if opts.legacy else "dense" if opts.dense
+              else "paged")
     rows = []
     for e in prof.key_averages():
         if "CUDA" not in str(e.device_type):
@@ -105,9 +124,10 @@ def main() -> int:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     kind = "moe" if opts.moe else opts.quantized or "float"
-    print(f"profile[{gpu}]: engine {kind}, window "
+    print(f"profile[{gpu}]: engine {kind} {layout}, window "
           f"{wall_us / 1e3:.1f} ms, "
-          f"{admits} admission calls + {steps} decode steps, device busy "
+          f"{admits} {'batches' if opts.legacy else 'admission calls'} + "
+          f"{steps} decode steps, device busy "
           f"{busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% of the window")
     groups = {}
     for us, n, name in rows:
