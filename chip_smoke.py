@@ -393,6 +393,56 @@ T1. every name of the tensor API on the card against the CPU
     and T1's numbers; the kernels line's entries of kernels 2, 3, 7 and 8
     carry ``graph_launches`` (one replayed execution's).
 
+Batched multi-LoRA and multi-tenant serving (after T1; kernel 10 on both
+low-rank hops of every adapted linear, two launches a site a call):
+
+A1. ``grouped_matmul`` against ``grouped_matmul_ref`` at every hop shape
+    the A phases run (``lora_hop_shapes``: rank 8 as the output width and
+    as the inner width, caps 1 / 4 / 16, N = 8 / 40 / 128 / 384,
+    gpt_small's and bench.py's 4 x 256 widths) with random ids, float32;
+    all rows dead and all rows in one group at gpt_small's decode and
+    admission shapes; bf16 cases of both hops; padding rows NaN in and 0
+    out, two launches bit-equal, ``GMM_TOL``.  Every shape A2-A5 hand the
+    kernel is recorded (``lora_path_shapes``) and must be one A1 held (one
+    it did not list is held after the phase);
+A2. ``gpt_small(lora_capacity=16, lora_rank=8)`` f32 with a seeded adapter
+    in slot 0: a [4, 32] batch's logits under ids 0 against the
+    dense-merged model (``merge_adapter``; ``LORA_MERGE_TOL`` x max|ref|,
+    the adapter moving them by more than 10x that), ids -1 bitwise the
+    unscoped model, a mixed batch's base rows bitwise; kernel 10 96
+    launches a forward;
+A3. the paged engine at phase 4's settings over that model with 16
+    adapters installed: 34 requests round-robin over the base and the 16
+    slots, all in flight (kernel 10 96 and kernel 1 12 launches a call),
+    every request's tokens bit-identical to the same engine serving it
+    alone, 8 requests against uncached greedy of the merged model
+    (near-ties only), hot installs and a removal with 16 requests in
+    flight (no error; the removed slot then serves the base tokens);
+A4. a ``TenantScheduler`` (gold weight 2, free, a metered tenant with a
+    50-token budget refilled at 500/s) on that model: the metered request,
+    preempted mid-decode by an emptied budget, regenerates its uncontended
+    tokens bit for bit beside the weighted tenants' requests (= serial),
+    ``tenant_preempted`` >= 1, no page leaked; the dense-ring and legacy
+    engines with adapters give the tokens they give one request at a time
+    (kernel 10 96 a call, kernel 1 none); an int8 LoRA engine at batch 1
+    runs kernels 9, 10 and 1 (48, 96 and 12 a call);
+A5. ``bench.py``'s ``bench_gpt_generate_multilora`` in the port: its
+    ``GPTConfig`` at caps 0, 1, 4 and 16 after ``paddle_tpu_torch.seed(
+    1234)``, its engine (buckets 16 / 48, batch 8, ``max_queue_delay_ms=
+    1.0``, continuous, paged) with ``random_adapter(..., rank=8, seed=100 +
+    s)`` installed, ``RequestTrace.synthetic()`` round-robin over the
+    slots, ``A_PASSES`` passes a cap: tokens/s and the worst tenant's p99
+    as the median and range of the passes, kernel 10 32 and kernel 1 4
+    launches a call, the 16-adapter engine's tokens bit-identical to the
+    same engine serving each request alone, its busy share under
+    ``torch.profiler``, ``adapter_gather_ms`` (``lora_delta`` at [8, 256],
+    16 slots, CUDA events) beside ``base_matmul_ms``; a line under
+    bench.py's names.  Then kernel 10 timed at the LoRA hops' decode and
+    admission shapes (CUDA graph) beside its plain version, ``torch.bmm``
+    and the bound.  A ``{"multilora": ...}`` line carries A1-A5; the
+    kernels line's kernel-10 entry gains ``lora_launches``,
+    ``lora_path_checks`` and ``lora_shapes``.
+
 The line before last is the ``{"kernels": [...]}`` JSON record (kernel
 1's entries carry D4's launches by engine under ``handoff_launches`` and
 D3's paged run's under ``bench_paged_launches``, kernel 9's D5's quantized
@@ -5241,6 +5291,716 @@ def tensor_api_card(torch, gpu):
     return {"calls": n, "failed": len(failed)}
 
 
+# -- batched multi-LoRA and multi-tenant serving (A1-A5) ----------------------
+LORA_CAP, LORA_RANK = 16, 8
+LORA_SITES = ("qkv", "out", "fc1", "fc2")  # two kernel-10 hops a site a call
+A_REQUESTS = 34                # two a slot: the base (-1) and 16 adapters
+A_SAMPLE = 8                   # requests held against the merged model
+A_PASSES = 3                   # timed passes of the trace a capacity in A5
+A_CAPS = (0, 1, 4, 16)
+LORA_BENCH = dict(vocab_size=8192, hidden_size=256, num_layers=4,
+                  num_heads=8, max_position=512, dropout=0.0)
+# A2: the batched logits against the dense-merged model, per element:
+# |got - ref| <= LORA_MERGE_TOL x max|ref| (float32 products associated
+# differently: x (W + A B) against x W + (x A) B)
+LORA_MERGE_TOL = 1e-4
+
+
+def lora_hop_shapes():
+    """(cap, N, D, F) of both hops of every adapted linear the A phases
+    run: gpt_small (cap 16: A2-A4) and bench.py's 4 x 256 config (cap 1,
+    4, 16: A5), N = 8 (decode), 40 (the 1 + 4 verify step), 128 / 384
+    (admission at buckets 16 / 48; A2's 4 x 32 rows), and at gpt_small the
+    batch-1 engine's 1 / 5 / 16 / 48 (A4)."""
+    out = set()
+    for cap, dims, rows in (
+            (LORA_CAP, gpt_site_dims(768, 3072),
+             (1, 5, 8, 16, 40, 48, 128, 384)),
+            *((c, gpt_site_dims(256, 1024), (8, 40, 128, 384))
+              for c in (1, 4, 16))):
+        for n in rows:
+            for din, dout in dims:
+                out.add((cap, n, din, LORA_RANK))
+                out.add((cap, n, LORA_RANK, dout))
+    return sorted(out)
+
+
+def gpt_site_dims(hidden, ffn):
+    """(in, out) of qkv, out, fc1, fc2."""
+    return ((hidden, 3 * hidden), (hidden, hidden), (hidden, ffn),
+            (ffn, hidden))
+
+
+@contextlib.contextmanager
+def lora_path_shapes():
+    """Record the shapes the LoRA path hands kernel 10: a pass-through
+    around ``lora/batched.py``'s ``grouped_matmul`` (both hops call it by
+    that name) that launches and counts nothing itself."""
+    from paddle_tpu_torch.lora import batched
+
+    seen = set()
+    gmm = batched.grouped_matmul
+
+    def rec(x, w, gs):
+        seen.add((int(x.shape[0]), int(x.shape[1]), int(x.shape[2]),
+                  int(w.shape[2]), str(x.dtype)[6:]))
+        return gmm(x, w, gs)
+
+    batched.grouped_matmul = rec
+    try:
+        yield seen
+    finally:
+        batched.grouped_matmul = gmm
+
+
+def lora_counts(torch, cap, n, gen, kind="random"):
+    """Group sizes of ``n`` rows over ``cap`` slots as the dispatch gives
+    them: ``random`` ids in [-1, cap), ``dead`` all -1, ``one`` all in the
+    last slot."""
+    if kind == "dead":
+        ids = torch.full((n,), -1)
+    elif kind == "one":
+        ids = torch.full((n,), cap - 1)
+    else:
+        ids = torch.randint(-1, cap, (n,), generator=gen)
+    return torch.stack([(ids == g).sum() for g in range(cap)]).to(
+        DEVICE, torch.int32)
+
+
+def check_lora_gmm(torch, shapes, label, dtype="float32", kinds=("random",)):
+    """Kernel 10 against ``grouped_matmul_ref`` at LoRA hop shapes (padding
+    rows NaN; two launches bit-equal; GMM_TOL).  Returns the largest
+    error."""
+    import importlib
+
+    gmm = importlib.import_module("paddle_tpu_torch.ops.grouped_matmul")
+    gen = torch.Generator().manual_seed(SEED + 61)
+    worst, worst_share = 0.0, 0.0
+    with torch.no_grad():
+        for cap, n, D, F in shapes:
+            for kind in kinds:
+                gs = lora_counts(torch, cap, n, gen, kind)
+                x, w, gs = gmm_inputs(torch, cap, n, D, F, gs.cpu(),
+                                      getattr(torch, dtype), gen)
+                err, share = gmm_check(torch, gmm, x, w, gs, dtype)
+                worst, worst_share = max(worst, err), max(worst_share, share)
+    log(f"{label}: kernel grouped_matmul at {len(shapes)} LoRA hop shapes "
+        f"x {list(kinds)} {dtype}: max_abs_err={worst:.3e}, largest share of "
+        f"the tolerance {worst_share:.3f}; two launches bit-equal, padding "
+        f"rows 0; ok")
+    return worst
+
+
+def check_lora_kernel(torch):
+    """Phase A1: kernel 10 against its plain version at every hop shape
+    the A phases run (``lora_hop_shapes``: ranks 8 as the output and as the
+    inner width, caps 1 / 4 / 16, N = 8 / 40 / 128 / 384, gpt_small's and
+    bench.py's widths) with random ids, float32; all rows dead and all
+    rows in one group at gpt_small's decode and admission shapes; a bf16
+    case of both hops."""
+    shapes = lora_hop_shapes()
+    errs = {"float32": check_lora_gmm(torch, shapes, "A1")}
+    edges = [s for s in shapes if s[0] == LORA_CAP and s[1] in (8, 384)
+             and 768 in (s[2], s[3])]
+    errs["edges"] = check_lora_gmm(torch, edges, "A1[edges]",
+                                   kinds=("dead", "one"))
+    errs["bfloat16"] = check_lora_gmm(
+        torch, [(LORA_CAP, 8, 768, 8), (LORA_CAP, 8, 8, 2304),
+                (4, 384, 768, 8), (4, 384, 8, 3072)], "A1[bf16]",
+        dtype="bfloat16", kinds=("random", "one"))
+    return {"shapes": len(shapes), "edge_shapes": len(edges),
+            "max_abs_err": errs}
+
+
+def check_lora_path(torch, seen, held, label):
+    """Every shape a phase handed kernel 10 is one A1 held; a shape A1 did
+    not list is held now.  Returns the shapes as strings."""
+    extra = sorted((c, n, d, f) for c, n, d, f, dt in seen
+                   if dt != "float32" or (c, n, d, f) not in held)
+    if extra:
+        check_lora_gmm(torch, extra, f"{label}[not in A1]")
+    assert all(dt == "float32" for *_, dt in seen), seen
+    return [f"[{c}, {n}, {d}] x [{c}, {d}, {f}]" for c, n, d, f, _ in
+            sorted(seen)]
+
+
+def lora_model(torch, cap=LORA_CAP, **kw):
+    """``GPTForCausalLM(gpt_small(lora_capacity=cap, lora_rank=8))`` f32,
+    seeded random weights."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_small
+
+    return GPTForCausalLM(
+        gpt_small(dropout=0.0, lora_capacity=cap, lora_rank=LORA_RANK, **kw),
+        device=DEVICE, generator=torch.Generator().manual_seed(SEED)).eval()
+
+
+def lora_adapters(model, n, std, seed0):
+    from paddle_tpu_torch.lora import random_adapter
+
+    return [random_adapter(model, f"a{s}", rank=LORA_RANK, seed=seed0 + s,
+                           std=std) for s in range(n)]
+
+
+class MergedModel:
+    """``model`` called with ``merge_adapter``'s parameters bound
+    (``torch.func.functional_call``): the dense-merged single-adapter
+    reference."""
+
+    def __init__(self, torch, model, adapter):
+        from paddle_tpu_torch.lora import merge_adapter
+
+        self._torch, self._model = torch, model
+        self._params = (None if adapter is None
+                        else merge_adapter(model, adapter))
+        self.device = model.device
+
+    def __call__(self, ids):
+        if self._params is None:
+            return self._model(ids)
+        return self._torch.func.functional_call(self._model, self._params,
+                                                (ids,))
+
+
+def lora_math(torch, gpu, model):
+    """Phase A2: ``model`` (``lora_model``: gpt_small(lora_capacity=16,
+    lora_rank=8) f32) with a seeded adapter written into its slot 0 (and
+    cleared after): logits of a [4, 32] batch under ids [0] x 4 against
+    the merged model (``LORA_MERGE_TOL``); ids -1 bitwise the unscoped
+    model; a mixed batch's base rows bitwise; kernel 10 96 launches a
+    forward (4 sites x 12 layers x 2 hops)."""
+    from paddle_tpu_torch.lora import adapter_scope
+    from paddle_tpu_torch.lora.batched import _clear_slot, _write_slot
+    from paddle_tpu_torch.ops import grouped_matmul
+
+    cfg = model.gpt.cfg
+    adp = lora_adapters(model, 1, 0.05, SEED + 60)[0]
+    tables = dict(model.named_buffers())
+    with torch.no_grad():
+        _write_slot(tables, 0, adp)
+    ids = torch.randint(0, cfg.vocab_size, (4, 32),
+                        generator=torch.Generator().manual_seed(SEED + 62)
+                        ).to(DEVICE)
+    with torch.no_grad():
+        base = model(ids)
+        grouped_matmul.launches = 0
+        with adapter_scope(torch.zeros(4, dtype=torch.int32, device=DEVICE)):
+            got = model(ids)
+        with adapter_scope([-1] * 4):
+            dead = model(ids)
+        with adapter_scope([0, -1, 0, -1]):
+            mixed = model(ids)
+        torch.cuda.synchronize()
+        launches = grouped_matmul.launches
+        ref = MergedModel(torch, model, adp)(ids)
+    per_call = 2 * len(LORA_SITES) * cfg.num_layers
+    assert launches == 3 * per_call, (launches, per_call)
+    err = float((got - ref).abs().max())
+    allowed = LORA_MERGE_TOL * float(ref.abs().max())
+    moved = float((got - base).abs().max())
+    log(f"A2[{gpu}]: gpt_small(lora_capacity={cfg.lora_capacity}, "
+        f"lora_rank={cfg.lora_rank}) f32, adapter in slot 0: logits under "
+        f"ids 0 vs the merged model max_abs_err={err:.3e} (allowed "
+        f"{allowed:.3e} = {LORA_MERGE_TOL:g} x max|ref|), the adapter moved "
+        f"them by {moved:.3e}; ids -1 bitwise the unscoped model: "
+        f"{bool(torch.equal(dead, base))}; a mixed batch's base rows "
+        f"bitwise: {bool(torch.equal(mixed[1::2], base[1::2]))}; "
+        f"grouped_matmul launches {launches} = {per_call} x 3 forwards")
+    assert err <= allowed and moved > 10 * allowed, (err, allowed, moved)
+    assert torch.equal(dead, base) and torch.equal(mixed[1::2], base[1::2])
+    assert torch.allclose(mixed[0::2], got[0::2], rtol=0, atol=allowed)
+    with torch.no_grad():
+        _clear_slot(tables, 0)
+    return {"max_abs_err": err, "allowed": allowed, "moved": moved,
+            "launches": launches, "launches_per_forward": per_call}
+
+
+def lora_requests(vocab, n=A_REQUESTS, seed=SEED + 63, new=(8, 17)):
+    """``n`` seeded requests (prompts of 4-48 tokens, ``new`` tokens),
+    round-robin over the slots -1, 0, ..., 15."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, vocab, size=rng.randint(4, 49)).astype(np.int32),
+             int(rng.randint(*new)), (i % (LORA_CAP + 1)) - 1)
+            for i in range(n)]
+
+
+def engine_counts(st, st0, per_call, layers):
+    calls = ((st["batches"] - st0["batches"])
+             + (st["decode_steps"] - st0["decode_steps"]))
+    return calls, per_call * calls, layers * calls
+
+
+def lora_engine(torch, gpu, model):
+    """Phase A3: the multi-tenant paged engine over ``model`` (gpt_small
+    width, phase 4's engine settings) with 16 adapters installed: 34
+    requests
+    round-robin over the base and the 16 slots, all in flight; kernel 10
+    96 and kernel 1 12 launches a call; every request's tokens bit-equal
+    to the same engine serving it alone; 8 requests against uncached
+    greedy of the merged model (near-ties only); hot installs and a
+    removal while requests are in flight, the removed slot then serving
+    the base tokens."""
+    from paddle_tpu_torch.ops import grouped_matmul
+    from paddle_tpu_torch.ops.paged_attention import paged_flash_decode
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    cfg = model.gpt.cfg
+    adps = lora_adapters(model, LORA_CAP, 0.05, SEED + 100)
+    reqs = lora_requests(cfg.vocab_size)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    with GenerationEngine(model, name="chip-smoke-A3", **ENGINE) as eng:
+        for s, a in enumerate(adps):
+            eng.install_adapter(s, a)
+        t0 = time.monotonic()
+        eng.warmup()
+        log(f"A3: {LORA_CAP} adapters installed, warmup "
+            f"{time.monotonic() - t0:.2f}s")
+        st0 = eng.stats()
+        grouped_matmul.launches = paged_flash_decode.launches = 0
+        t0 = time.monotonic()
+        futs = [eng.submit(p, n, adapter_id=a) for p, n, a in reqs]
+        outs = [f.result(600).tolist() for f in futs]
+        wall = time.monotonic() - t0
+        launches = (grouped_matmul.launches, paged_flash_decode.launches)
+        st = eng.stats()
+        calls, want_gmm, want_paged = engine_counts(
+            st, st0, 2 * len(LORA_SITES) * cfg.num_layers, cfg.num_layers)
+        log(f"A3[{gpu}]: {len(reqs)} requests over {LORA_CAP + 1} slots, "
+            f"{sum(map(len, outs))} tokens in {wall:.3f}s = "
+            f"{sum(map(len, outs)) / wall:.1f} tokens/s, {calls} calls; "
+            f"grouped_matmul launches {launches[0]} (= "
+            f"{2 * len(LORA_SITES) * cfg.num_layers} x calls: "
+            f"{launches[0] == want_gmm}), paged_flash_decode {launches[1]} "
+            f"(= {cfg.num_layers} x calls: {launches[1] == want_paged})")
+        assert launches == (want_gmm, want_paged), (launches, calls)
+        assert st["completed"] - st0["completed"] == len(reqs), st
+        # each request alone, on the same engine
+        serial = [eng.generate(p, n, timeout=600, adapter_id=a).tolist()
+                  for p, n, a in reqs]
+        same = sum(a == b for a, b in zip(outs, serial))
+        log(f"A3: {same} of {len(reqs)} requests bit-identical to the same "
+            f"engine serving them alone")
+        assert same == len(reqs)
+        base_of = {i: eng.generate(p, n, timeout=600).tolist()
+                   for i, (p, n, a) in enumerate(reqs[:A_SAMPLE + 1])
+                   if a >= 0}
+        moved = sum(outs[i] != b for i, b in base_of.items())
+        log(f"A3: the adapters change the tokens of {moved} of "
+            f"{len(base_of)} adapted requests")
+        # hot edits while requests are in flight
+        live = [eng.submit(p, n, adapter_id=a) for p, n, a in reqs[:16]]
+        eng.install_adapter(LORA_CAP - 1, adps[0])
+        eng.remove_adapter(LORA_CAP - 2)
+        eng.install_adapter(LORA_CAP - 3, adps[1])
+        hot = [f.result(600) for f in live]
+        p, n, _ = reqs[1]
+        removed = eng.generate(p, n, timeout=600,
+                               adapter_id=LORA_CAP - 2).tolist()
+        assert removed == eng.generate(p, n, timeout=600).tolist()
+        st = eng.stats()
+        assert st["errors"] == 0 and st["kv_pages_leaked"] == 0, st
+        assert st["adapter_installs"] == LORA_CAP + 2
+        assert st["adapter_removals"] == 1
+        assert len(eng.adapters) == LORA_CAP - 1
+        log(f"A3: 3 hot edits with {len(hot)} requests in flight: no "
+            f"error, the removed slot serves the base tokens; adapters "
+            f"{len(eng.adapters)}, installs {st['adapter_installs']}, "
+            f"removals {st['adapter_removals']}")
+    peak = torch.cuda.max_memory_allocated()
+    compared = ties = 0
+    with torch.no_grad():
+        for (p, _, a), out in list(zip(reqs, outs))[:A_SAMPLE]:
+            ref = MergedModel(torch, model, adps[a] if a >= 0 else None)
+            c, t = greedy_margin_check(torch, ref, p, out, cfg.vocab_size)
+            compared += c
+            ties += t
+            del ref
+    log(f"A3: {compared} tokens of {A_SAMPLE} requests agree with uncached "
+        f"greedy of the merged model ({ties} near-tie divergences), peak "
+        f"device memory {peak / 2**20:.0f} MiB")
+    assert compared >= 40, compared
+    return {"requests": len(reqs), "calls": calls, "launches": launches[0],
+            "paged_launches": launches[1],
+            "tokens_per_s": sum(map(len, outs)) / wall,
+            "serial_equal": same, "greedy_tokens_compared": compared,
+            "adapted_requests_moved": moved, "peak_bytes": peak}
+
+
+def lora_tenancy(torch, gpu, model):
+    """Phase A4: a ``TenantScheduler`` (two weighted tenants and a metered
+    one) on A3's ``model``: a metered request preempted mid-decode by an
+    emptied budget regenerates its uncontended tokens bit for bit beside
+    the weighted tenants' requests, which equal serial; the dense-ring and
+    legacy engines with adapters give the tokens they give one request at
+    a time, kernel 10 96 launches a call; an int8 LoRA engine at batch 1
+    runs kernels 9 and 10 (48 and 96 a call)."""
+    from paddle_tpu_torch.ops import grouped_matmul
+    from paddle_tpu_torch.ops.paged_attention import paged_flash_decode
+    from paddle_tpu_torch.ops.quantized_matmul import quantized_linear
+    from paddle_tpu_torch.serving import (GenerationEngine, TenantScheduler,
+                                          TenantSpec)
+
+    cfg = model.gpt.cfg
+    per_call = 2 * len(LORA_SITES) * cfg.num_layers
+    adps = lora_adapters(model, 3, 0.05, SEED + 100)
+    reqs = lora_requests(cfg.vocab_size, n=12, seed=SEED + 64)
+    out = {}
+    ten = TenantScheduler([TenantSpec("gold", weight=2.0, adapter_id=0),
+                           TenantSpec("free", adapter_id=1),
+                           TenantSpec("metered", token_budget=50,
+                                      refill_per_s=500.0, adapter_id=2)])
+    with GenerationEngine(model, name="chip-smoke-A4", tenancy=ten,
+                          **ENGINE) as eng:
+        for s, a in enumerate(adps):
+            eng.install_adapter(s, a)
+        eng.warmup()
+        p_m = reqs[0][0]
+        ref_m = eng.generate(p_m, 40, timeout=600, adapter_id=2).tolist()
+        serial = [eng.generate(p, n, timeout=600, adapter_id=i % 2).tolist()
+                  for i, (p, n, _) in enumerate(reqs[1:])]
+        st0 = eng.stats()
+        fut = eng.submit(p_m, 40, tenant="metered")
+        futs = [eng.submit(p, n, tenant=("gold", "free")[i % 2])
+                for i, (p, n, _) in enumerate(reqs[1:])]
+        deadline = time.monotonic() + 60
+        while (time.monotonic() < deadline and
+               eng.stats()["decode_steps"] - st0["decode_steps"] < 3):
+            time.sleep(0.002)
+        ten.charge("metered", 200)  # empty the bucket: preempt the slot
+        got_m = fut.result(600).tolist()
+        got = [f.result(600).tolist() for f in futs]
+        st = eng.stats()
+    snap = ten.snapshot()
+    log(f"A4[{gpu}]: tenancy: metered request preempted "
+        f"{st['tenant_preempted']} time(s), regenerated its uncontended "
+        f"tokens bit for bit: {got_m == ref_m}; gold / free requests equal "
+        f"serial: {sum(a == b for a, b in zip(got, serial))} of "
+        f"{len(got)}; kv_pages_leaked {st['kv_pages_leaked']}; tenants "
+        f"{ {k: (v['admitted'], v['tokens'], v['preempted']) for k, v in snap.items()} } "
+        f"(admitted, tokens, preempted)")
+    assert got_m == ref_m and got == serial, "tenancy changed tokens"
+    assert st["tenant_preempted"] >= 1 and st["kv_pages_leaked"] == 0, st
+    out["tenancy"] = {"tenant_preempted": st["tenant_preempted"],
+                      "tenant_throttled_steps": st["tenant_throttled_steps"],
+                      "tenants": snap}
+    # the dense-ring and legacy engines with adapters
+    for kind, kw in (("dense", {}), ("legacy", dict(continuous=False))):
+        with GenerationEngine(model, prompt_buckets=[16, 48], batch_size=8,
+                              max_queue_delay_ms=20.0,
+                              name=f"chip-smoke-A4-{kind}", **kw) as eng:
+            for s, a in enumerate(adps):
+                eng.install_adapter(s, a)
+            eng.warmup()
+            st0 = eng.stats()
+            grouped_matmul.launches = paged_flash_decode.launches = 0
+            futs = [eng.submit(p, n, adapter_id=(i % 4) - 1)
+                    for i, (p, n, _) in enumerate(reqs)]
+            got = [f.result(600).tolist() for f in futs]
+            launches = grouped_matmul.launches
+            # the legacy batcher books a batch just after its futures
+            deadline = time.monotonic() + 30
+            while (eng.stats()["completed"] - st0["completed"] < len(reqs)
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
+            st = eng.stats()
+            alone = [eng.generate(p, n, timeout=600,
+                                  adapter_id=(i % 4) - 1).tolist()
+                     for i, (p, n, _) in enumerate(reqs)]
+        calls, want, _ = engine_counts(st, st0, per_call, cfg.num_layers)
+        same = sum(a == b for a, b in zip(got, alone))
+        log(f"A4[{gpu}]: {kind} engine with adapters: {same} of {len(reqs)} "
+            f"requests equal the same engine serving them alone; "
+            f"grouped_matmul launches {launches} (= {per_call} x {calls} "
+            f"calls: {launches == want}), paged_flash_decode "
+            f"{paged_flash_decode.launches}")
+        assert same == len(reqs) and launches == want, (same, launches)
+        assert paged_flash_decode.launches == 0
+        out[kind] = {"calls": calls, "launches": launches,
+                     "equal_alone": same}
+    # int8 + LoRA at batch 1 (quantized activation scales see the batch)
+    with GenerationEngine(model, name="chip-smoke-A4-int8",
+                          quantized="int8",
+                          **dict(ENGINE, batch_size=1)) as eng:
+        for s, a in enumerate(adps):
+            eng.install_adapter(s, a)
+        eng.warmup()
+        st0 = eng.stats()
+        grouped_matmul.launches = quantized_linear.launches = 0
+        paged_flash_decode.launches = 0
+        got = {a: [eng.generate(p, 12, timeout=600, adapter_id=a).tolist()
+                   for p, _, _ in reqs[:2]] for a in (-1, 0)}
+        launches = (grouped_matmul.launches, quantized_linear.launches,
+                    paged_flash_decode.launches)
+        st = eng.stats()
+    calls, want, want_paged = engine_counts(st, st0, per_call,
+                                            cfg.num_layers)
+    want_qmm = len(LORA_SITES) * cfg.num_layers * calls
+    log(f"A4[{gpu}]: int8 LoRA engine, batch 1: grouped_matmul {launches[0]}"
+        f" (= {per_call} x {calls} calls: {launches[0] == want}), "
+        f"quantized_matmul {launches[1]} (= {len(LORA_SITES) * cfg.num_layers}"
+        f" x calls: {launches[1] == want_qmm}), paged_flash_decode "
+        f"{launches[2]} (= {cfg.num_layers} x calls); the adapter changes "
+        f"tokens: {got[0] != got[-1]}")
+    assert launches == (want, want_qmm, want_paged), launches
+    out["int8"] = {"calls": calls, "launches": launches[0],
+                   "qmm_launches": launches[1]}
+    return out
+
+
+def lora_bench_model(torch, cap):
+    """bench.py's multi-LoRA model: its ``GPTConfig`` at ``cap`` slots,
+    rank 8, drawn after ``paddle_tpu_torch.seed(1234)``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+
+    paddle.seed(1234)
+    model = GPTForCausalLM(GPTConfig(**LORA_BENCH, lora_capacity=cap,
+                                     lora_rank=LORA_RANK))
+    return model.eval()
+
+
+def lora_bench_engine(model, cap):
+    """bench.py's engine for the multi-LoRA workload, the ``cap`` seeded
+    adapters installed (``random_adapter(..., rank=8, seed=100 + s)``)."""
+    from paddle_tpu_torch.lora import random_adapter
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    eng = GenerationEngine(model, prompt_buckets=[16, 48], batch_size=8,
+                           max_queue_delay_ms=1.0, continuous=True,
+                           paged=True, name=f"bench-gen-lora{cap}")
+    for s in range(cap):
+        eng.install_adapter(s, random_adapter(
+            model, f"bench-a{s}", rank=LORA_RANK, seed=100 + s))
+    return eng
+
+
+def lora_trace_pass(eng, trace, cap):
+    """One pass of ``RequestTrace.synthetic()``, requests round-robin over
+    the slots (one tenant a slot), as bench.py sends them: (tokens/s,
+    {tenant: p99 ms}, outputs)."""
+    import numpy as np
+
+    lat, futs = {}, []
+    t0 = time.perf_counter()
+    for i, (prompt, max_new) in enumerate(trace):
+        aid = (i % cap) if cap else -1
+        tn = f"tenant-{aid}" if aid >= 0 else "base"
+        ts = time.perf_counter()
+        f = eng.submit(prompt, max_new, **({"adapter_id": aid} if cap
+                                           else {}))
+        f.add_done_callback(lambda _, ts=ts, tn=tn: lat.setdefault(
+            tn, []).append(time.perf_counter() - ts))
+        futs.append(f)
+    outs = [f.result(600).tolist() for f in futs]
+    seconds = time.perf_counter() - t0
+    p99 = {tn: float(np.percentile(np.asarray(v) * 1e3, 99))
+           for tn, v in lat.items()}
+    return sum(map(len, outs)) / seconds, p99, outs
+
+
+def lora_gather_ms(torch):
+    """bench.py's microbench in the port: ``lora_delta`` at a decode-step
+    linear ([8, 256] rows, a 16-slot rank-8 table, ids arange(8) % 16)
+    against the base matmul ``x @ w`` [256, 256], by CUDA events."""
+    import numpy as np
+
+    from paddle_tpu_torch.lora.batched import lora_delta
+
+    B_, cap, hidden = 8, 16, LORA_BENCH["hidden_size"]
+    rng = np.random.RandomState(7)
+
+    def dev(a):
+        return torch.from_numpy(a.astype(np.float32)).to(DEVICE)
+
+    A = dev(rng.randn(cap, hidden, LORA_RANK) * 0.02)
+    Bw = dev(rng.randn(cap, LORA_RANK, hidden) * 0.02)
+    scale = torch.ones(cap, device=DEVICE)
+    ids = torch.from_numpy(np.arange(B_) % cap).to(DEVICE, torch.int32)
+    w = dev(rng.randn(hidden, hidden) * 0.02)
+    x = dev(rng.randn(B_, hidden))
+    with torch.no_grad():
+        gather = runs_ms(torch, lambda a: lora_delta(A, Bw, scale, a, ids)[0],
+                         [(x,)], 200)
+        base = runs_ms(torch, lambda a: a @ w, [(x,)], 200)
+    return gather, base
+
+
+def bench_multilora(torch, gpu):
+    """Phase A5: bench.py's ``bench_gpt_generate_multilora`` in the port —
+    its config at caps 0, 1, 4, 16 (``lora_bench_model``), its engine
+    (``lora_bench_engine``), ``RequestTrace.synthetic()`` round-robin over
+    the slots, ``A_PASSES`` passes a cap (tokens/s and the worst tenant's
+    p99 as the median and range of the passes), kernel 10 32 and kernel 1
+    4 launches a call at cap 16, the 16-adapter engine's tokens against
+    the same engine serving each request alone, its busy share, and
+    ``adapter_gather_ms`` / ``base_matmul_ms``.  Prints a line under
+    bench.py's names."""
+    from paddle_tpu_torch.ops import grouped_matmul
+    from paddle_tpu_torch.ops.paged_attention import paged_flash_decode
+    from paddle_tpu_torch.tuning import RequestTrace
+
+    trace = RequestTrace.synthetic()
+    by_cap, extra = {}, {}
+    for cap in A_CAPS:
+        model = lora_bench_model(torch, cap)
+        cfg = model.gpt.cfg
+        with lora_bench_engine(model, cap) as eng:
+            eng.warmup()
+            st0 = eng.stats()
+            grouped_matmul.launches = paged_flash_decode.launches = 0
+            passes = [lora_trace_pass(eng, trace, cap)
+                      for _ in range(A_PASSES)]
+            launches = (grouped_matmul.launches, paged_flash_decode.launches)
+            st = eng.stats()
+            calls, want, want_paged = engine_counts(
+                st, st0, 2 * len(LORA_SITES) * cfg.num_layers if cap else 0,
+                cfg.num_layers)
+            assert launches == (want, want_paged), (cap, launches, calls)
+            assert st["errors"] == 0 and st["kv_pages_leaked"] == 0, st
+            outs = passes[0][2]
+            repeat = sum(a == b for later in passes[1:]
+                         for a, b in zip(later[2], outs))
+            if cap == LORA_CAP:
+                alone = [eng.generate(p, n, timeout=600,
+                                      adapter_id=i % cap).tolist()
+                         for i, (p, n) in enumerate(trace)]
+                same = sum(a == b for a, b in zip(outs, alone))
+                busy, window = busy_share(torch, lambda: lora_trace_pass(
+                    eng, trace, cap))
+                extra = {"serial_equal": same, "busy_ms": busy,
+                         "window_ms": window, "busy_share": busy / window,
+                         "calls": calls, "launches": launches[0],
+                         "paged_launches": launches[1]}
+                log(f"A5: 16-adapter engine: {same} of {len(trace)} "
+                    f"requests bit-identical to the same engine serving "
+                    f"them alone; device busy {busy:.1f} ms of a "
+                    f"{window:.1f} ms profiled pass = "
+                    f"{100 * busy / window:.1f}%")
+                assert same == len(trace)
+        rates = sorted(p[0] for p in passes)
+        worst = sorted(max(p[1].values()) for p in passes)
+        by_cap[cap] = {"tokens_per_s": rates[len(rates) // 2],
+                       "tokens_per_s_range": [rates[0], rates[-1]],
+                       "p99_ms_worst": worst[len(worst) // 2],
+                       "p99_ms_worst_range": [worst[0], worst[-1]],
+                       "calls": calls, "grouped_matmul_launches": launches[0],
+                       "paged_launches": launches[1],
+                       "later_passes_equal_to_first": repeat}
+        log(f"A5[{gpu}]: cap {cap}: median {rates[len(rates) // 2]:.1f} "
+            f"tokens/s (range {rates[0]:.1f}-{rates[-1]:.1f}) over "
+            f"{A_PASSES} passes, worst tenant p99 median "
+            f"{worst[len(worst) // 2]:.1f} ms (range {worst[0]:.1f}-"
+            f"{worst[-1]:.1f}); {calls} calls, grouped_matmul {launches[0]} "
+            f"(= {2 * len(LORA_SITES) * cfg.num_layers if cap else 0} x "
+            f"calls), paged_flash_decode {launches[1]} (= {cfg.num_layers} x "
+            f"calls); later "
+            f"passes equal to the first in {repeat} of "
+            f"{len(trace) * (A_PASSES - 1)} requests")
+        del model
+        gc.collect()
+    gather, base = lora_gather_ms(torch)
+    tps = {c: by_cap[c]["tokens_per_s"] for c in A_CAPS}
+    line = {"metric": "gpt_generate_multilora_tokens_per_sec",
+            "value": round(tps[16], 1), "unit": "tok/s",
+            "vs_baseline": round(tps[16] / tps[0], 3),
+            "base_tokens_per_sec": round(tps[0], 1),
+            "tokens_per_sec_1": round(tps[1], 1),
+            "tokens_per_sec_4": round(tps[4], 1),
+            "tokens_per_sec_16": round(tps[16], 1),
+            "base_p99_ms": round(by_cap[0]["p99_ms_worst"], 1),
+            "tenant_p99_ms_worst_1": round(by_cap[1]["p99_ms_worst"], 1),
+            "tenant_p99_ms_worst_4": round(by_cap[4]["p99_ms_worst"], 1),
+            "tenant_p99_ms_worst_16": round(by_cap[16]["p99_ms_worst"], 1),
+            "adapter_gather_ms": round(gather[0], 4),
+            "base_matmul_ms": round(base[0], 4),
+            "adapter_gather_share": round(
+                gather[0] / max(gather[0] + base[0], 1e-9), 3),
+            "busy_share": round(extra["busy_share"], 4),
+            "passes": A_PASSES, "requests": len(trace),
+            "new_tokens": trace.total_new_tokens,
+            "method": "multilora_vs_base_same_trace", "device": gpu}
+    log(json.dumps(line))
+    log(f"A5: adapter_gather_ms {_spread(gather)}, base_matmul_ms "
+        f"{_spread(base)} (median (min-max) of {TIMING_RUNS} runs, eager)")
+    return dict(line, by_cap=by_cap, **extra)
+
+
+def timing_lora_gmm(torch, gpu):
+    """Kernel 10 at the LoRA hop shapes of the A phases' decode (N = 8)
+    and admission (N = 384) calls, gpt_small's and bench.py's widths, by
+    CUDA graph (device time; the eager call is Python-bound): kernel,
+    plain version and ``torch.bmm`` over the full buffers, median (min-
+    max) of 3 runs, beside the bound.  Group sizes: 8 distinct slots of
+    the 16, N / 8 rows each."""
+    import importlib
+
+    gmm = importlib.import_module("paddle_tpu_torch.ops.grouped_matmul")
+    gen = torch.Generator().manual_seed(SEED + 65)
+    cases = [("gpt_small_decode_hop1_qkv", LORA_CAP, 8, 768, 8),
+             ("gpt_small_decode_hop2_qkv", LORA_CAP, 8, 8, 2304),
+             ("gpt_small_decode_hop1_fc2", LORA_CAP, 8, 3072, 8),
+             ("gpt_small_decode_hop2_fc1", LORA_CAP, 8, 8, 3072),
+             ("gpt_small_admit384_hop1_qkv", LORA_CAP, 384, 768, 8),
+             ("gpt_small_admit384_hop2_qkv", LORA_CAP, 384, 8, 2304),
+             ("bench_decode_hop1_qkv", LORA_CAP, 8, 256, 8),
+             ("bench_decode_hop2_qkv", LORA_CAP, 8, 8, 768)]
+    rows = {}
+    with torch.no_grad():
+        for name, cap, n, D, F in cases:
+            gs = torch.zeros(cap, dtype=torch.int32)
+            gs[torch.arange(8) * 2 % cap] = n // 8
+            args = [gmm_inputs(torch, cap, n, D, F, gs, torch.float32, gen)
+                    for _ in range(2)]
+            b_ms, b_by, nbytes, flops = gmm_bound(gs, cap, n, D, F,
+                                                  "float32")
+            ms = graph_runs_ms(torch, gmm._forward_kernel, args, 50)
+            plain = graph_runs_ms(torch, gmm.grouped_matmul_ref, args, 20)
+            lib = graph_runs_ms(torch, lambda x, w, g: torch.bmm(x, w), args,
+                                50)
+            rows[name] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
+                              bound_ms=b_ms, bound_by=b_by,
+                              shape=f"[{cap}, {n}, {D}] x [{cap}, {D}, {F}]")
+            log(f"timing[{gpu}] grouped_matmul float32 LoRA {name} [{cap}, "
+                f"{n}, {D}] x [{cap}, {D}, {F}] gs={gs.tolist()}: kernel "
+                f"{_spread(ms)} ms, plain {_spread(plain)} ms, library "
+                f"(torch.bmm, full buffers) {_spread(lib)} ms, bound "
+                f"{b_ms:.5f} ms by {b_by} ({flops:.4g} flops, {nbytes} "
+                f"bytes) (device time, CUDA graph)")
+            del args
+    return rows
+
+
+def lora_phases(torch, gpu):
+    """A1-A5 in order, the path's kernel-10 shapes recorded in A2-A5 and
+    held against A1's; then the LoRA timing rows."""
+    a1 = check_lora_kernel(torch)
+    held = set(lora_hop_shapes())
+    path = {}
+    model = lora_model(torch)
+    with lora_path_shapes() as seen:
+        a2 = lora_math(torch, gpu, model)
+    path["A2"] = check_lora_path(torch, seen, held, "A2")
+    with lora_path_shapes() as seen:
+        a3 = lora_engine(torch, gpu, model)
+    path["A3"] = check_lora_path(torch, seen, held, "A3")
+    with lora_path_shapes() as seen:
+        a4 = lora_tenancy(torch, gpu, model)
+    path["A4"] = check_lora_path(torch, seen, held, "A4")
+    del model
+    gc.collect()
+    with lora_path_shapes() as seen:
+        a5 = bench_multilora(torch, gpu)
+    path["A5"] = check_lora_path(torch, seen, held, "A5")
+    rows = timing_lora_gmm(torch, gpu)
+    log(json.dumps({"multilora": {
+        "device": gpu, "A1": a1, "A2": a2, "A3": a3, "A4": a4,
+        "A5": a5, "path_shapes": path}}))
+    return {"A1": a1, "A2": a2, "A3": a3, "A4": a4, "A5": a5,
+            "path": path, "rows": rows}
+
+
 def main() -> int:
     import torch
 
@@ -5358,6 +6118,9 @@ def main() -> int:
         "device": gpu, "graph_vs_eager": k1, "sparse_ctr": k2,
         "resnet50": k3, "bert_base": k4, "resnet18_example": k5,
         "tensor_api": t1}}))
+    # batched multi-LoRA and multi-tenant serving (kernel 10 on both
+    # low-rank hops of every adapted linear)
+    lora = lora_phases(torch, gpu)
     paged = dict(name="paged_flash_decode", route="cuda",
                  source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
                  replaces="paddle_tpu/ops/paged_attention.py:155")
@@ -5506,7 +6269,17 @@ def main() -> int:
         launches=moe_train["launches"]["grouped_matmul"],
         max_abs_err=gmm_err, **mrows["train_fc1"],
         other_shapes={k: v for k, v in mrows.items() if k != "train_fc1"},
-        serving_launches=moe_served["gmm_launches"]))
+        serving_launches=moe_served["gmm_launches"],
+        # the LoRA slice: both hops of every adapted linear (A2-A5), its
+        # shapes held in A1 and by phase, timed at the decode / admission
+        # hops
+        lora_launches={
+            "A2": lora["A2"]["launches"], "A3": lora["A3"]["launches"],
+            "A4": {k: lora["A4"][k]["launches"]
+                   for k in ("dense", "legacy", "int8")},
+            "A5": lora["A5"]["launches"]},
+        lora_path_checks=dict(A1=lora["A1"], **lora["path"]),
+        lora_shapes=lora["rows"]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,8 +18,11 @@ Ported so far:
   (``role=``), hot weight swaps (``swap_weights`` / ``reload_weights``),
   also quantized (``quantized="int8" | "fp8"``: ``slim`` weight
   quantization and ``export_quantized``, int8 / fp8 KV pools, the
-  ``quantized_matmul`` CUDA kernel); ``tuning.RequestTrace`` / ``replay``
-  drive bench.py's serving workload;
+  ``quantized_matmul`` CUDA kernel), batched multi-LoRA adapters
+  (``lora``, ``GPTConfig.lora_capacity``; both low-rank hops through the
+  ``grouped_matmul`` CUDA kernel) with multi-tenant admission
+  (``serving.TenantScheduler``); ``tuning.RequestTrace`` / ``replay``
+  drive bench.py's serving workloads;
 * the training step through ``Model(net).prepare(optimizer, loss)`` /
   ``train_batch`` for BERT (``models.bert``: pretraining, QA and
   sequence-classification heads) and ``GPTForCausalLM``, with the

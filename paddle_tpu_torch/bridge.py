@@ -11,8 +11,9 @@ own dtype, so a bf16 model (JAX bf16 arrays arrive as
 ``buffers`` maps JAX dotted buffer names to numpy arrays —
 ``{k: np.asarray(b.value) for k, b in jax_model.named_buffers()}``.  A
 name that is a float buffer of the port model (BatchNorm's ``_mean`` and
-``_variance``) is copied into that buffer, in the buffer's own dtype, with
-a shape check; a name that is neither such a buffer nor the
+``_variance``, a LoRA model's ``lora_A`` / ``lora_B`` / ``lora_scale``
+tables) is copied into that buffer, in the buffer's own dtype, with a
+shape check; a name that is neither such a buffer nor the
 ``…weight_scale`` of a quantized weight in ``arrays`` raises.
 
 A JAX QUANTIZED tree (``slim.quantize_model_trees(model, mode)`` as

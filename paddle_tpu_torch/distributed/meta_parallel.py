@@ -10,9 +10,12 @@ float8_e4m3fn and cannot be a float ``nn.Parameter`` with a gradient: it
 is held as a buffer under the same dotted name ``weight``, with its
 per-output-channel float32 ``weight_scale`` buffer beside it, so names map
 1:1 onto the JAX package's quantized trees.  The forward dispatches on
-the weight dtype, as the JAX layers do.  Sharding over a ``model`` axis
-and the LoRA leg of the JAX layers come with the distributed and LoRA
-slices.
+the weight dtype, as the JAX layers do.  A layer that carries an adapter
+table (``lora.enable_lora``: ``lora_A`` / ``lora_B`` / ``lora_scale``
+buffers) adds the batched multi-LoRA delta after the float product plus
+bias, or after the quantized leg, when an ``adapter_scope`` is active
+(``_lora_leg``); a LoRA-free layer pays one membership check.  Sharding
+over a ``model`` axis comes with the distributed slice.
 """
 from __future__ import annotations
 
@@ -29,10 +32,22 @@ __all__ = ["ColumnParallelLinear", "RowParallelLinear",
 _QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 
+def _lora_leg(layer, x, y):
+    """Batched multi-LoRA delta shared by Column/RowParallelLinear: when
+    the layer carries an adapter table AND a per-slot id scope is active
+    (the serving step installs one), add the ragged grouped delta; rows
+    with id -1 keep the base output bitwise."""
+    if "lora_A" not in layer._buffers:
+        return y
+    from ..lora.batched import apply_lora
+
+    return apply_lora(layer, x, y)
+
+
 class _ParallelLinear(Linear):
     """What Column/RowParallelLinear share on one device: the float
     ``Linear`` forward, or the quantized leg when the weight arrived
-    int8/fp8."""
+    int8/fp8, then the LoRA leg."""
 
     def set_quantized(self, weight_q, weight_scale):
         """Replace the float ``weight`` parameter by the quantized
@@ -64,14 +79,15 @@ class _ParallelLinear(Linear):
                     f"codes were cast to a float dtype (Module.to(dtype) "
                     f"after slim.quantize_weights); quantize a float model "
                     f"after the cast instead")
-            return super().forward(x)
+            return _lora_leg(self, x, super().forward(x))
         if scale is None:
             raise InvalidArgumentError(
                 f"{type(self).__name__}: weight is {self.weight.dtype} but "
                 f"no weight_scale buffer is registered — quantize via "
                 f"slim.quantize_weights / slim.quantize_model, not a bare "
                 f"dtype cast")
-        return quantized_linear(x, self.weight, scale, self.bias)
+        return _lora_leg(self, x,
+                         quantized_linear(x, self.weight, scale, self.bias))
 
 
 class ColumnParallelLinear(_ParallelLinear):

@@ -36,11 +36,16 @@ into the whole ring and merges with ``jnp.where`` — the same values, since
 a one-hot product with 1.0 is exact.  Its attention is the JAX einsum /
 softmax (no kernel: it is plain XLA in JAX too).  The prefill→decode
 hand-off moves pages through :meth:`GPTModel.gather_pages` /
-:meth:`~GPTModel.scatter_pages` as one host array.  Not ported yet
-(ROADMAP queue A): LoRA, sequence/pipeline parallelism.
+:meth:`~GPTModel.scatter_pages` as one host array.  ``GPTConfig.lora_capacity
+> 0`` registers batched multi-LoRA adapter tables on every block projection
+(``lora.enable_lora``); ``forward_cached`` / ``forward_paged`` take per-row
+``adapter_ids`` and scope them around the block stack, each adapted linear
+adding its delta through two ``grouped_matmul`` launches on the card.  Not
+ported yet (ROADMAP queue A): sequence/pipeline parallelism.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -129,7 +134,7 @@ class GPTConfig:
                  sequence_parallel=None, moe_experts=0, moe_top_k=2,
                  moe_capacity_factor=1.25, moe_jitter=0.01,
                  moe_balance_weight=0.01, quantization="none",
-                 lora_capacity=0):
+                 lora_capacity=0, lora_rank=8, lora_alpha=16.0):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -161,7 +166,21 @@ class GPTConfig:
                 f"quantization must be 'none', 'int8' or 'fp8', got "
                 f"{quantization!r}")
         self.quantization = quantization
+        #: > 0 registers fixed-capacity batched multi-LoRA adapter tables
+        #: on every block projection (``lora.enable_lora``): that many
+        #: hot-swappable adapter slots a linear, of rank ``lora_rank`` and
+        #: scale ``lora_alpha / lora_rank``; per-slot adapter ids flow
+        #: through ``forward_cached`` / ``forward_paged`` and id -1 is
+        #: bitwise the base model.  0 = no LoRA.
+        if int(lora_capacity) < 0:
+            raise ValueError(
+                f"lora_capacity must be >= 0, got {lora_capacity!r}")
+        if int(lora_capacity) > 0 and int(lora_rank) < 1:
+            raise ValueError(
+                f"lora_rank must be >= 1, got {lora_rank!r}")
         self.lora_capacity = int(lora_capacity)
+        self.lora_rank = int(lora_rank)
+        self.lora_alpha = float(lora_alpha)
 
 
 def gpt_tiny(**kw):
@@ -177,13 +196,10 @@ def gpt_small(**kw):
 
 
 def _unported(cfg: GPTConfig):
-    for attr, default, item in (
-            ("sequence_parallel", None, "distributed execution"),
-            ("lora_capacity", 0, "MoE, LoRA and tenancy")):
-        if getattr(cfg, attr) != default:
-            raise UnimplementedError(
-                f"GPTConfig.{attr}={getattr(cfg, attr)!r} is not ported "
-                f"yet (ROADMAP queue A, {item})")
+    if cfg.sequence_parallel is not None:
+        raise UnimplementedError(
+            f"GPTConfig.sequence_parallel={cfg.sequence_parallel!r} is not "
+            f"ported yet (ROADMAP queue A, distributed execution)")
     if cfg.moe_experts and cfg.quantization != "none":
         raise UnimplementedError(
             f"GPTConfig.quantization={cfg.quantization!r} with moe_experts "
@@ -404,6 +420,29 @@ class GPTModel(nn.Layer):
             [GPTBlock(cfg) for _ in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size,
                                  epsilon=cfg.layer_norm_epsilon)
+        if cfg.lora_capacity > 0:
+            # zero-initialized adapter tables on every block projection
+            # (an MoE block's experts are not parallel linears: qkv / out
+            # only); zero tables + id -1 keep the model bitwise the base
+            from ..lora.batched import enable_lora
+
+            enable_lora(self, cfg.lora_capacity, cfg.lora_rank,
+                        cfg.lora_alpha, dtype=cfg.dtype)
+
+    def _lora_scope(self, adapter_ids):
+        """Scope the ``[B]`` per-slot adapter ids around the block stack
+        (a ``nullcontext`` when the caller passed none), uploaded to the
+        model's device once; the block projections pick them up through
+        ``lora.runtime``.  The embeddings, the final LN and the tied LM
+        head are outside the scope and never adapted."""
+        if adapter_ids is None:
+            return contextlib.nullcontext()
+        from ..lora.runtime import adapter_scope
+
+        if not isinstance(adapter_ids, torch.Tensor):
+            adapter_ids = upload(np.asarray(adapter_ids, np.int32),
+                                 self.wte.weight.device)
+        return adapter_scope(adapter_ids)
 
     def forward(self, input_ids, attn_mask=None):
         S = input_ids.shape[1]
@@ -476,7 +515,7 @@ class GPTModel(nn.Layer):
                 d[key].index_copy_(0, r, s_[key].index_select(0, r))
         return cache
 
-    def forward_cached(self, input_ids, positions, cache):
+    def forward_cached(self, input_ids, positions, cache, adapter_ids=None):
         """Prefill/decode forward over :meth:`init_cache` state.
 
         ``input_ids`` / ``positions`` are ``[B,T]``: ``T`` is the prompt
@@ -486,8 +525,10 @@ class GPTModel(nn.Layer):
         engines do, to keep the card's queue running; a card tensor costs
         a sync): the ring slots each token writes are resolved there and
         go to the card in one copy with the positions.  A call writes at
-        most ``C`` tokens a row.  The ring is updated in place.  Returns
-        ``(hidden [B,T,D], cache)``."""
+        most ``C`` tokens a row.  The ring is updated in place.
+        ``adapter_ids`` ``[B]`` (``-1`` = none) selects each row's LoRA
+        table slot for the block stack.  Returns ``(hidden [B,T,D],
+        cache)``."""
         pos = _host_ints(positions)
         B, T = pos.shape
         C = cache["pos"].shape[1]
@@ -511,8 +552,9 @@ class GPTModel(nn.Layer):
         # before (or at) the query, and not yet overwritten by the ring
         kp, q = cache["pos"][:, None, :], qp[:, :, None]
         mask = (kp >= 0) & (kp <= q) & (kp > q - C)  # [B,T,C]
-        for blk, kv in zip(self.blocks, cache["layers"]):
-            x, _ = blk.forward_cached(x, kv, write, mask)
+        with self._lora_scope(adapter_ids):
+            for blk, kv in zip(self.blocks, cache["layers"]):
+                x, _ = blk.forward_cached(x, kv, write, mask)
         return self.ln_f(x), cache
 
     # -- paged KV cache (vLLM-style PagedAttention; Kwon et al. 2023) -------
@@ -641,15 +683,17 @@ class GPTModel(nn.Layer):
                         0, to_d, sc[i, j].index_select(0, src_d))
         return cache
 
-    def forward_paged(self, input_ids, positions, pos_map, table, cache):
+    def forward_paged(self, input_ids, positions, pos_map, table, cache,
+                      adapter_ids=None):
         """Prefill/decode forward over :meth:`init_paged_cache` state.
 
         ``input_ids`` / ``positions`` are ``[B,T]`` with absolute positions
         and ``-1`` = padding; ``table`` ``[B,G]`` maps each slot's logical
         pages to physical pool pages (``-1`` = unmapped); ``pos_map``
         ``[B,C]`` (``C = G*page``) is the slot→absolute-position map
-        *after this call's writes*.  Returns ``(hidden [B,T,D], cache)``
-        with the pool updated in place.
+        *after this call's writes*.  ``adapter_ids`` ``[B]`` (``-1`` =
+        none) selects each row's LoRA table slot for the block stack.
+        Returns ``(hidden [B,T,D], cache)`` with the pool updated in place.
         """
         positions = positions.long()
         pos_map = pos_map.long()
@@ -671,9 +715,10 @@ class GPTModel(nn.Layer):
         kp, qp = pos_map[:, None, :], positions[:, :, None]
         mask = (kp >= 0) & (kp <= qp) & (kp > qp - C)  # [B,T,C]
         gather_tab = table.clamp_min(0).contiguous()  # unmapped → page 0
-        for blk, kv in zip(self.blocks, cache["layers"]):
-            x, _ = blk.forward_paged(x, kv, write_page, write_off,
-                                     gather_tab, mask)
+        with self._lora_scope(adapter_ids):
+            for blk, kv in zip(self.blocks, cache["layers"]):
+                x, _ = blk.forward_paged(x, kv, write_page, write_off,
+                                         gather_tab, mask)
         return self.ln_f(x), cache
 
 
@@ -698,7 +743,13 @@ class GPTForCausalLM(nn.Layer):
         for m in self.modules():
             if hasattr(m, "reset_parameters"):
                 m.reset_parameters(gen)
+        # the adapter scales stay float32 in every model dtype, as JAX's
+        scales = {n: b for n, b in self.named_buffers()
+                  if n.endswith(".lora_scale")}
         self.to(device=dev, dtype=_DTYPES[cfg.dtype])
+        for n, b in scales.items():
+            owner, _, leaf = n.rpartition(".")
+            self.get_submodule(owner)._buffers[leaf] = b.to(dev)
         if cfg.quantization != "none":
             # lazy import: slim imports the layers this module builds on
             from ..slim.quantization import quantize_weights
@@ -740,12 +791,14 @@ class GPTForCausalLM(nn.Layer):
             out = out + float(self.gpt.cfg.moe_balance_weight) * aux
         return out
 
-    def forward_cached(self, input_ids, positions, cache, gather_last=None):
+    def forward_cached(self, input_ids, positions, cache, gather_last=None,
+                       adapter_ids=None):
         """Ring KV forward (see :meth:`GPTModel.forward_cached`).  With
         ``gather_last`` (per-sequence prompt lengths ``[B]``) only the
         hidden state at ``length-1`` is projected: logits ``[B,V]``
         instead of ``[B,T,V]``."""
-        h, cache = self.gpt.forward_cached(input_ids, positions, cache)
+        h, cache = self.gpt.forward_cached(input_ids, positions, cache,
+                                           adapter_ids=adapter_ids)
         if gather_last is not None:
             idx = (upload(_host_ints(gather_last).reshape(-1), h.device)
                    - 1).clamp_min(0)
@@ -753,13 +806,14 @@ class GPTForCausalLM(nn.Layer):
         return self._logits(h), cache
 
     def forward_paged(self, input_ids, positions, pos_map, table, cache,
-                      gather_last=None):
+                      gather_last=None, adapter_ids=None):
         """Paged KV forward (see :meth:`GPTModel.forward_paged`).  With
         ``gather_last`` (per-sequence prompt lengths ``[B]``) only the
         hidden state at ``length-1`` is projected: logits ``[B,V]``
         instead of ``[B,T,V]``."""
         h, cache = self.gpt.forward_paged(input_ids, positions, pos_map,
-                                          table, cache)
+                                          table, cache,
+                                          adapter_ids=adapter_ids)
         if gather_last is not None:
             idx = (gather_last.long() - 1).clamp_min(0)
             h = h[torch.arange(h.shape[0], device=h.device), idx]  # [B,D]

@@ -57,11 +57,25 @@ engine serves its own copy of the model's tensors (as the JAX engine
 binds its own snapshot), so a swap reaches only the engine it is made
 on: the caller's model and other engines over it are untouched.
 
+A model with LoRA tables (``GPTConfig.lora_capacity > 0``) serves many
+adapters from one engine in every mode: each request carries an adapter
+slot (``submit(..., adapter_id=)``, ``-1`` = the base model, bitwise), the
+loops keep a per-slot id column and pass it on every call
+(``forward_cached`` / ``forward_paged``'s ``adapter_ids``), so each adapted
+linear runs two ``grouped_matmul`` launches a call even when every row is
+``-1``.  :meth:`~GenerationEngine.install_adapter` /
+:meth:`~GenerationEngine.remove_adapter` write a table slot of the
+engine's own copy in place, between device calls.  ``tenancy=`` (a
+:class:`~.tenancy.TenantScheduler`, paged only) orders admission
+weighted-fair over tenants, defers over-budget tenants' requests and
+preempts their live slots through the paged preemption path; requests
+tagged ``submit(..., tenant=)`` take the tenant's adapter slot by default.
+
 Engines follow the model's device: a model built on the card (the
 default) serves there, a ``device="cpu"`` model through the kernels'
-plain versions.  Not ported yet (ROADMAP queue A): tenancy / LoRA,
-quantized MoE engines, tracing spans and the event-bus snapshots,
-``from_tuned``, and a CUDA-graph decode step.
+plain versions.  Not ported yet (ROADMAP queue A): quantized MoE engines,
+tracing spans and the event-bus snapshots (the tenancy snapshot among
+them), ``from_tuned``, and a CUDA-graph decode step.
 """
 from __future__ import annotations
 
@@ -89,8 +103,9 @@ from ..resilience import CircuitBreaker, RetryPolicy, mark_warm
 from ..resilience.faults import fault_point
 from ..moe import stats as moe_stats
 from .batcher import MicroBatcher, Request
-from .metrics import (HANDOFF_COUNTERS, MOE_COUNTERS, PAGED_COUNTERS,
-                      SLOT_COUNTERS, ServingMetrics)
+from .metrics import (HANDOFF_COUNTERS, LORA_COUNTERS, MOE_COUNTERS,
+                      PAGED_COUNTERS, SLOT_COUNTERS, TENANCY_COUNTERS,
+                      ServingMetrics)
 from .paging import PagePool
 
 __all__ = ["GenerationEngine", "KVHandoff"]
@@ -197,7 +212,8 @@ class GenerationEngine:
     ``"any"`` (co-located), ``"prefill"`` or ``"decode"`` (see
     :class:`KVHandoff`).  ``quantized`` — ``None``, ``"int8"`` or
     ``"fp8"`` (see the module docstring); ``model`` itself is left
-    untouched.
+    untouched.  ``tenancy`` — a :class:`~.tenancy.TenantScheduler`
+    (paged only).
     """
 
     def __init__(self, model, *, prompt_buckets: Sequence[int],
@@ -234,9 +250,6 @@ class GenerationEngine:
             raise InvalidArgumentError(
                 f"quantized must be None, 'int8' or 'fp8', got "
                 f"{quantized!r}")
-        if tenancy is not None:
-            raise _unported("tenancy", "MoE, LoRA and tenancy")
-        # LoRA configs never get here: GPTModel rejects them
         cfg = model.gpt.cfg
         self._moe_experts = int(cfg.moe_experts or 0)
         if self._moe_experts and quantized is not None:
@@ -247,6 +260,16 @@ class GenerationEngine:
                             "(paged=False)", "MoE, LoRA and tenancy")
         # per-expert routed totals since warm-up (the dead-expert gauge)
         self._moe_routed_cum = np.zeros(max(self._moe_experts, 1), np.int64)
+        # batched multi-LoRA: capacity > 0 threads a per-slot adapter-id
+        # column through every device call (warm-up runs it at all -1)
+        self._lora_cap = int(cfg.lora_capacity or 0)
+        self._adapters: Dict[int, str] = {}       # slot -> adapter name
+        self._adapter_hits = np.zeros(max(self._lora_cap, 1), np.int64)
+        self._tenancy = tenancy
+        if tenancy is not None and not self._paged:
+            raise InvalidArgumentError(
+                "tenancy requires paged KV (budget preemption rides the "
+                "deterministic paged-pool release path)")
         if name is None:
             _gen_counter[0] += 1
             name = f"generate#{_gen_counter[0]}"
@@ -301,6 +324,10 @@ class GenerationEngine:
                  if self._paged else SLOT_COUNTERS)
         if self._moe_experts:
             extra = extra + MOE_COUNTERS
+        if self._lora_cap:
+            extra = extra + LORA_COUNTERS
+        if tenancy is not None:
+            extra = extra + TENANCY_COUNTERS
         self.metrics = ServingMetrics(name, extra_counters=extra)
         self.breaker = CircuitBreaker(name) if circuit_breaker else None
         self._retry_transient = bool(retry_transient)
@@ -345,21 +372,34 @@ class GenerationEngine:
                                                               self._C)
             return self._ring_cache
 
-    def _prefill(self, ids, positions, lens, cache):
+    def _aids_arg(self, aidsv: Optional[np.ndarray] = None):
+        """Per-slot adapter ids for a device call: ``None`` when the model
+        has no LoRA tables (the calls are then exactly the LoRA-free
+        ones), else a copy of ``aidsv`` (all ``-1`` when ``None``)."""
+        if not self._lora_cap:
+            return None
+        if aidsv is None:
+            aidsv = np.full((self._batch,), -1, np.int32)
+        return np.asarray(aidsv, np.int32).copy()
+
+    def _prefill(self, ids, positions, lens, cache, aids=None):
         """Prefill ``[B, Sb]`` prompts (``-1`` positions inert) into the
         ring; returns the ``[B]`` int32 greedy first tokens (on the
         device) and the ring."""
         with self._weights_lock:
             logits, cache = self._model.forward_cached(
-                ids, positions, cache, gather_last=lens)
+                ids, positions, cache, gather_last=lens,
+                adapter_ids=self._aids_arg(aids))
             return logits.argmax(-1).to(torch.int32), cache
 
-    def _decode(self, tok, pos, cache):
+    def _decode(self, tok, pos, cache, aids=None):
         """One ``[B, 1]`` decode step: ``tok`` the device tokens of the
-        last step, ``pos`` the host positions (``-1`` = free slot)."""
+        last step, ``pos`` the host positions (``-1`` = free slot),
+        ``aids`` the per-slot adapter ids."""
         with self._weights_lock:
             logits, cache = self._model.forward_cached(
-                tok[:, None], np.asarray(pos)[:, None], cache)
+                tok[:, None], np.asarray(pos)[:, None], cache,
+                adapter_ids=self._aids_arg(aids))
             return logits[:, 0].argmax(-1).to(torch.int32), cache
 
     def _clear_rows(self, cache, rows):
@@ -377,14 +417,14 @@ class GenerationEngine:
             for t in layer.values():
                 t.index_fill_(0, r, 0)
 
-    def _admit(self, ids, positions, lens, mask, cache, tok):
+    def _admit(self, ids, positions, lens, mask, cache, tok, aids=None):
         """Slot admission: clear the masked rows (positions -1, K/V zeros,
         as in a fresh cache), prefill the group straight into their ring
         rows (the other rows at ``-1``: nothing of theirs is written, so
         live slots stay bit-identical), and take the admitted rows' first
         tokens."""
         self._clear_rows(cache, np.nonzero(mask)[0])
-        first, cache = self._prefill(ids, positions, lens, cache)
+        first, cache = self._prefill(ids, positions, lens, cache, aids)
         m = upload(np.asarray(mask, bool), self._device)
         return torch.where(m, first, tok), cache
 
@@ -503,6 +543,56 @@ class GenerationEngine:
                     t.copy_(src[name])
         self.metrics.incr("weight_swaps")
 
+    # -- multi-LoRA adapter table --------------------------------------------
+    def _lora_tables(self) -> Dict[str, torch.Tensor]:
+        """The served adapter tables by dotted name (``….lora_A`` /
+        ``….lora_B`` / ``….lora_scale`` of the engine's own copy)."""
+        if not self._lora_cap:
+            raise InvalidArgumentError(
+                f"{self.name}: model has no LoRA tables "
+                f"(GPTConfig.lora_capacity == 0)")
+        return {n: t for n, t in self._model.named_buffers()
+                if n.rpartition(".")[2] in ("lora_A", "lora_B",
+                                            "lora_scale")}
+
+    def install_adapter(self, slot: int, adapter) -> None:
+        """Hot-add ``adapter`` into table slot ``slot``: every site is
+        validated first (``lora.write_adapter``'s rules), then the slot's
+        rows of the engine's own tables are written IN PLACE under the
+        weights lock, between two device calls, so no step sees a
+        half-written slot.  Shapes and dtypes are kept; requests already
+        decoding with this slot id take the new weights from their next
+        step."""
+        from ..lora.batched import _write_slot
+
+        tables = self._lora_tables()
+        with self._weights_lock, torch.no_grad():
+            _write_slot(tables, slot, adapter)
+        self._adapters[int(slot)] = adapter.name
+        self.metrics.incr("adapter_installs")
+
+    def remove_adapter(self, slot: int) -> None:
+        """Hot-remove the adapter in table slot ``slot`` (its A / B rows
+        zeroed in place, between device calls): slot id ``slot`` becomes a
+        zero delta, the base model's tokens."""
+        from ..lora.batched import _clear_slot
+
+        tables = self._lora_tables()
+        with self._weights_lock, torch.no_grad():
+            _clear_slot(tables, slot)
+        self._adapters.pop(int(slot), None)
+        # a step racing the removal can at worst lose one hit on a slot
+        # being cleared anyway; the counter never steers control flow
+        self._adapter_hits[int(slot)] = 0
+        self.metrics.incr("adapter_removals")
+
+    @property
+    def adapters(self) -> Dict[int, str]:
+        """Installed adapter names by table slot (host-side view; like the
+        JAX engine's, a ``swap_weights`` / ``reload_weights`` replaces the
+        tables but not this view)."""
+        return dict(self._adapters)
+
     # -- routing -------------------------------------------------------------
     def _route(self, inputs: Sequence) -> int:
         n = len(np.asarray(inputs[0]).reshape(-1))
@@ -604,6 +694,10 @@ class GenerationEngine:
         self.metrics.observe_span((s["t0"] - r.enqueue_t) * 1e3,
                                   (now - s["t0"]) * 1e3)
         self.metrics.observe_tokens(len(s["out"]), max(now - s["t0"], 1e-9))
+        tenant = s.get("tenant")
+        if tenant is not None:
+            self.metrics.observe_tenant(tenant, (now - r.enqueue_t) * 1e3,
+                                        len(s["out"]))
         if self.breaker is not None:
             self.breaker.record_success(0)
         if not r.future.done():
@@ -666,6 +760,36 @@ class GenerationEngine:
             q.sweep()
         return take, carry, blocked_wait
 
+    def _poll_tenants(self, ten, carry, idle_wait: bool):
+        """Weighted-fair candidates under a :class:`TenantScheduler`: ALL
+        waiting requests (carry plus a widened queue window of up to
+        ``2 B`` admissible ones), so the stride order can pass a tenant
+        that monopolises the FIFO; over-budget tenants' requests defer
+        back to carry with their arrival order kept.  An open circuit
+        defers as in :meth:`_poll_admissions`.  Returns ``(cand, carry,
+        blocked_wait)``; the caller admits at most one per free slot and
+        carries the rest."""
+        q = self._batcher
+        cand = carry
+        # the window bounds ADMISSIBLE work: a throttled tenant's deferred
+        # backlog must not stop new arrivals from being polled
+        n_adm = sum(1 for rc in cand
+                    if not ten.is_throttled(self._tenant_of(rc[0])))
+        want = max(2 * self._batch - n_adm, 0)
+        wait = 0.05 if idle_wait and not cand else 0.0
+        blocked_wait = wait > 0
+        if want > 0:
+            cand = cand + [(r, 0) for r in q.poll(want, wait_s=wait)]
+        cand, deferred = ten.schedule(
+            cand, tenant_of=lambda rc: self._tenant_of(rc[0]),
+            cost_of=lambda rc: max(int(rc[0].meta[0]), 1))
+        carry = deferred
+        if cand and self.breaker is not None and not self.breaker.allow(0):
+            carry = cand + carry
+            cand = []
+            q.sweep()
+        return cand, carry, blocked_wait
+
     # -- the dense continuous loop -------------------------------------------
     def _slot_loop(self):
         with torch.no_grad():
@@ -686,6 +810,7 @@ class GenerationEngine:
         slots: List[Optional[dict]] = [None] * B
         gens = [0] * B                       # guards stale in-flight tokens
         pos = np.full((B,), -1, np.int64)    # next decode position (-1 free)
+        aidsv = np.full((B,), -1, np.int32)  # per-slot adapter ids
         cache = tok = None                   # the ring and the last tokens
         pending: deque = deque()             # in-flight steps, oldest first
         carry: List[tuple] = []              # (Request, n_restarts)
@@ -738,13 +863,15 @@ class GenerationEngine:
                             mask[i] = True
                             gens[i] += 1
                             pos[i] = L
-                            slots[i] = {"req": r, "budget": int(r.meta[0]),
+                            budget, tenant, aid = r.meta
+                            aidsv[i] = aid
+                            slots[i] = {"req": r, "budget": int(budget),
                                         "out": [], "t0": now,
-                                        "restarts": nre}
+                                        "tenant": tenant, "restarts": nre}
                             targets.append((i, gens[i]))
                         fault_point("serving.decode")
                         tok, cache = self._admit(ids, pp, lens, mask, cache,
-                                                 tok)
+                                                 tok, aidsv)
                         pending.append((_Readback(tok), targets))
                         self.metrics.incr("admitted", len(take))
                         self.metrics.incr("batches")
@@ -759,7 +886,7 @@ class GenerationEngine:
                     # ---- decode dispatch (at most 2 steps in flight) ----
                     dispatched = bool(take)
                     if live and len(pending) < 2:
-                        tok, cache = self._decode(tok, pos, cache)
+                        tok, cache = self._decode(tok, pos, cache, aidsv)
                         pending.append((_Readback(tok),
                                         [(i, gens[i]) for i in live]))
                         for i in live:
@@ -787,6 +914,7 @@ class GenerationEngine:
                                 self._finish(s, now)
                                 slots[i] = None
                                 pos[i] = -1
+                                aidsv[i] = -1
                         if finished.any():
                             tok, cache = self._evict(tok, cache, finished)
                             self.metrics.incr("evicted",
@@ -803,6 +931,7 @@ class GenerationEngine:
                 except Exception as e:
                     carry = self._restart(e, slots) + carry
                     pos[:] = -1
+                    aidsv[:] = -1
                     pending.clear()
                     cache = tok = None
         finally:
@@ -824,16 +953,18 @@ class GenerationEngine:
             positions = np.full((B, Sb), -1, np.int32)
             lens = np.ones((B,), np.int32)  # dummy rows: 1 unread slot
             budgets = np.zeros((B,), np.int64)
+            aidsv = np.full((B,), -1, np.int32)
             for i, r in enumerate(requests):
                 prompt = np.asarray(r.inputs[0], np.int32).reshape(-1)
                 ids[i, :len(prompt)] = prompt
                 positions[i, :len(prompt)] = np.arange(len(prompt))
                 lens[i] = len(prompt)
                 budgets[i] = int(r.meta[0])
+                aidsv[i] = int(r.meta[2])
             t0 = time.monotonic()
             cache = self._ring()
             self._clear_rows(cache, np.arange(B))  # a fresh cache, as JAX's
-            tok, cache = self._prefill(ids, positions, lens, cache)
+            tok, cache = self._prefill(ids, positions, lens, cache, aidsv)
             out: List[List[int]] = [[] for _ in range(B)]
             done = np.array([i >= len(requests) for i in range(B)])
             n_tokens = 0
@@ -851,37 +982,43 @@ class GenerationEngine:
                         done[i] = True
                 if done.all():
                     break
-                tok, cache = self._decode(tok, lens + n_step, cache)
+                tok, cache = self._decode(tok, lens + n_step, cache, aidsv)
                 self.metrics.incr("decode_steps")
                 n_step += 1
             self.metrics.observe_tokens(n_tokens, time.monotonic() - t0)
             return [np.asarray(o, np.int32) for o in out[:len(requests)]]
 
     # -- the paged loop ------------------------------------------------------
-    def _padmit(self, ids, positions, pos_map, table, lens, cache):
+    def _padmit(self, ids, positions, pos_map, table, lens, cache,
+                aids=None):
         """Admission prefill straight into the pool: each slot writes only
         its own pages (padding rows land in the write-drop page).  Returns
         the first greedy token per slot (host) and the pool."""
+        aids = self._aids_arg(aids)
         with self._weights_lock:
             logits, cache = self._model.forward_paged(
                 self._to_dev(ids), self._to_dev(positions),
                 self._to_dev(pos_map), self._to_dev(table), cache,
-                gather_last=self._to_dev(lens))
+                gather_last=self._to_dev(lens),
+                adapter_ids=None if aids is None else self._to_dev(aids))
             return logits.argmax(-1).cpu().numpy(), cache
 
     def _step(self, packed: np.ndarray, cache):
-        """The unified decode/verify step over a ``[B, 2T + C + G]`` int32
-        pack (``ids | positions | pos_map | table``, one host→device
+        """The unified decode/verify step over a ``[B, 2T + C + G (+ 1)]``
+        int32 pack (``ids | positions | pos_map | table``, plus the
+        per-slot adapter-id column of a LoRA model: one host→device
         transfer).  ``out[:, j]`` is the greedy next token after consuming
         ``ids[:, :j+1]``."""
         C = self._C
         G = C // self._page
-        Tp = (packed.shape[1] - C - G) // 2
+        L = 1 if self._lora_cap else 0
+        Tp = (packed.shape[1] - C - G - L) // 2
         pk = self._to_dev(packed)
         with self._weights_lock, moe_stats.collect() as ms:
             logits, cache = self._model.forward_paged(
                 pk[:, :Tp], pk[:, Tp:2 * Tp], pk[:, 2 * Tp:2 * Tp + C],
-                pk[:, 2 * Tp + C:], cache)
+                pk[:, 2 * Tp + C:2 * Tp + C + G], cache,
+                adapter_ids=pk[:, -1].contiguous() if L else None)
             host = logits.argmax(-1).cpu().numpy()
         # an MoE model's routing counts; warm-up's dummy data is not counted
         if self._moe_experts and self._warm:
@@ -915,21 +1052,24 @@ class GenerationEngine:
 
     def _pack_step(self, ids: np.ndarray, positions: np.ndarray,
                    pos_map: Optional[np.ndarray] = None,
-                   table: Optional[np.ndarray] = None) -> np.ndarray:
+                   table: Optional[np.ndarray] = None,
+                   aids: Optional[np.ndarray] = None) -> np.ndarray:
         """One ``[B, 2T + C + G]`` int32 row per slot carrying every
-        per-step host input (``ids | positions | pos_map | table``);
-        ``None`` pos_map/table mean all ``-1``.  The concatenate also
-        snapshots the host-owned pool state."""
+        per-step host input (``ids | positions | pos_map | table``), plus
+        one trailing per-slot adapter-id column when the model has LoRA
+        tables; ``None`` pos_map / table / aids mean all ``-1``.  The
+        concatenate also snapshots the host-owned pool state."""
         B, C = self._batch, self._C
         G = C // self._page
         if pos_map is None:
             pos_map = np.full((B, C), -1, np.int32)
         if table is None:
             table = np.full((B, G), -1, np.int32)
-        return np.concatenate(
-            [np.asarray(ids, np.int32), np.asarray(positions, np.int32),
-             np.asarray(pos_map, np.int32), np.asarray(table, np.int32)],
-            axis=1)
+        cols = [np.asarray(ids, np.int32), np.asarray(positions, np.int32),
+                np.asarray(pos_map, np.int32), np.asarray(table, np.int32)]
+        if self._lora_cap:
+            cols.append(self._aids_arg(aids).reshape(B, 1))
+        return np.concatenate(cols, axis=1)
 
     @staticmethod
     def _ngram_drafts(hist: List[int], k: int, n: int = 2) -> List[int]:
@@ -946,13 +1086,27 @@ class GenerationEngine:
 
     @staticmethod
     def _unpack_paged(r: Request):
-        """Request meta: ``(prompt, prefix_key, prefix_len, budget,
-        handoff)`` — ``handoff`` is ``None`` for a plain request, ``True``
-        to produce a :class:`KVHandoff`, or one to adopt."""
-        budget, key, plen, hand = r.meta
+        """Paged request meta ``(budget, prefix_key, prefix_len, handoff,
+        tenant, adapter_id)`` as ``(prompt, prefix_key, prefix_len,
+        budget, handoff, tenant, adapter_id)`` — ``handoff`` is ``None``
+        for a plain request, ``True`` to produce a :class:`KVHandoff`, or
+        one to adopt (its adapter id is this request's, as in JAX)."""
+        budget, key, plen, hand, tenant, aid = r.meta
         prompt = np.asarray(r.inputs[0], np.int32).reshape(-1)
         return (prompt, key, min(int(plen), len(prompt)), int(budget),
-                hand)
+                hand, tenant, int(aid))
+
+    @staticmethod
+    def _tenant_of(r: Request) -> Optional[str]:
+        """Tenant name off a request's meta (paged 6-tuple or dense
+        3-tuple), ``None`` for untagged requests."""
+        m = r.meta
+        if isinstance(m, tuple):
+            if len(m) >= 6:
+                return m[4]
+            if len(m) == 3:
+                return m[1]
+        return None
 
     def _paged_loop(self):
         with torch.no_grad():
@@ -982,6 +1136,8 @@ class GenerationEngine:
         T = 1 + k_max
         slots: List[Optional[dict]] = [None] * B
         pos = np.full((B,), -1, np.int64)  # next write position (-1 = free)
+        aidsv = np.full((B,), -1, np.int32)  # per-slot adapter ids
+        ten = self._tenancy
         pool = self._pool
         cache = None                       # device pool (per-layer K/V)
         carry: List[tuple] = []            # (Request, n_restarts) to re-admit
@@ -1012,6 +1168,7 @@ class GenerationEngine:
             pool.release(v)
             slots[v] = None
             pos[v] = -1
+            aidsv[v] = -1
             # regeneration from the prompt is deterministic greedy
             carry.insert(0, (vs["req"], vs["restarts"]))
             self.metrics.incr("preempted")
@@ -1022,6 +1179,7 @@ class GenerationEngine:
             self._finish(slots[i], now)
             slots[i] = None
             pos[i] = -1
+            aidsv[i] = -1
 
         try:
             while True:
@@ -1039,19 +1197,59 @@ class GenerationEngine:
                             and q.queue_depth == 0):
                         return
 
-                    # ---- admission: FCFS, gated by the breaker AND the
-                    # page budget; neither sheds — deferred requests wait
-                    # in carry under the deadline sweep
+                    # ---- tenant budget enforcement: an over-budget
+                    # tenant's live slots preempt through the same
+                    # deterministic release path as pool exhaustion; the
+                    # requeued requests regenerate bit-identically once
+                    # the tenant is back in budget
+                    if ten is not None and live:
+                        over = ten.over_budget()
+                        if over:
+                            npre = 0
+                            for i in list(live):
+                                s = slots[i]
+                                if s is None or s.get("tenant") not in over:
+                                    continue
+                                pool.release(i)
+                                carry.insert(0, (s["req"], s["restarts"]))
+                                ten.note_preempted(s.get("tenant"))
+                                slots[i] = None
+                                pos[i] = -1
+                                aidsv[i] = -1
+                                npre += 1
+                            if npre:
+                                self.metrics.incr("preempted", npre)
+                                self.metrics.incr("tenant_preempted", npre)
+                                live = [i for i in range(B)
+                                        if slots[i] is not None]
+                                free = [i for i in range(B)
+                                        if slots[i] is None]
+
+                    # ---- admission: FCFS (or weighted-fair under a
+                    # TenantScheduler), gated by the breaker AND the page
+                    # budget; neither sheds — deferred requests wait in
+                    # carry under the deadline sweep
                     take: List[tuple] = []
                     blocked_wait = False
                     if carry:
                         carry = self._expire_carry(carry)
                     if free:
-                        cand, carry, blocked_wait = self._poll_admissions(
-                            free, carry, idle_wait=not live)
+                        if ten is None:
+                            cand, carry, blocked_wait = \
+                                self._poll_admissions(free, carry,
+                                                      idle_wait=not live)
+                        else:
+                            cand, carry, blocked_wait = self._poll_tenants(
+                                ten, carry, idle_wait=not live)
                         budget_pages = pool.free_pages
                         for ci, (r, nre) in enumerate(cand):
-                            prompt, key, _, _, hand = self._unpack_paged(r)
+                            if len(take) >= len(free):
+                                # widened tenancy window: surplus ordered
+                                # candidates wait their turn in carry
+                                carry = cand[ci:] + carry
+                                break
+                            prompt, key, _, _, hand, _, _ = \
+                                self._unpack_paged(r)
                             if isinstance(hand, KVHandoff):
                                 # adoption maps fresh private pages only
                                 need = -(-hand.length // page)
@@ -1081,7 +1279,7 @@ class GenerationEngine:
                         # position `length` as if prefilled here
                         n_adopted = n_done = 0
                         for (r, nre), i in zip(take, free):
-                            prompt, _, _, budget, hand = \
+                            prompt, _, _, budget, hand, tenant, aid = \
                                 self._unpack_paged(r)
                             if not isinstance(hand, KVHandoff):
                                 pre.append(((r, nre), i))
@@ -1094,10 +1292,13 @@ class GenerationEngine:
                             t = int(hand.first_token)
                             slots[i] = {"req": r, "budget": budget,
                                         "out": [t], "t0": now,
-                                        "restarts": nre,
+                                        "restarts": nre, "tenant": tenant,
                                         "hist": [int(x) for x in prompt]
                                         + [t]}
                             pos[i] = hand.length
+                            aidsv[i] = aid
+                            if ten is not None and tenant is not None:
+                                ten.charge(tenant, 1)
                             n_adopted += 1
                             if (hand.done or budget <= 1
                                     or (eos is not None and t == eos)):
@@ -1118,7 +1319,7 @@ class GenerationEngine:
                         to_register: List[tuple] = []
                         admitted: List[int] = []
                         for (r, nre), i in pre:
-                            prompt, key, plen, budget, hand = \
+                            prompt, key, plen, budget, hand, tenant, aid = \
                                 self._unpack_paged(r)
                             pairs, shared = pool.admit(i, prompt, key)
                             cow_pairs += [(s_, d_, i) for s_, d_ in pairs]
@@ -1127,9 +1328,10 @@ class GenerationEngine:
                             pp[i, :L - shared] = np.arange(shared, L)
                             lens[i] = L - shared
                             pos[i] = L
+                            aidsv[i] = aid
                             slots[i] = {"req": r, "budget": budget,
                                         "out": [], "t0": now,
-                                        "restarts": nre,
+                                        "restarts": nre, "tenant": tenant,
                                         "handoff": hand is True,
                                         "hist": [int(t) for t in prompt]}
                             admitted.append(i)
@@ -1142,7 +1344,8 @@ class GenerationEngine:
                         dispatch_cow(cow_pairs)
                         fault_point("serving.decode")
                         host_first, cache = self._padmit(
-                            ids, pp, pool.pos_map, pool.table, lens, cache)
+                            ids, pp, pool.pos_map, pool.table, lens, cache,
+                            aidsv)
                         for key, i, toks in to_register:
                             pool.register_prefix(key, i, toks)
                         now = time.monotonic()
@@ -1151,6 +1354,8 @@ class GenerationEngine:
                             s = slots[i]
                             t = int(host_first[i])
                             s["out"].append(t)
+                            if ten is not None and s.get("tenant"):
+                                ten.charge(s["tenant"], 1)
                             if s["handoff"]:
                                 # produce: export the prompt's pages while
                                 # they are still mapped and resolve with the
@@ -1180,12 +1385,41 @@ class GenerationEngine:
                             self.metrics.incr("evicted", n_evicted)
                     if take:
                         live = [i for i in range(B) if slots[i] is not None]
+                        if ten is not None:
+                            for r, _ in take:
+                                ten.note_admitted(self._tenant_of(r))
                     elif (free and not closing
                           and (carry or q.queue_depth > 0)):
-                        # free slots + waiting requests + nothing admitted
-                        self.metrics.incr("starved_steps")
-                        if self._warm:
-                            self.metrics.incr("starved_steps_after_warm")
+                        if (ten is not None and carry
+                                and q.queue_depth == 0
+                                and all(ten.is_throttled(self._tenant_of(r))
+                                        for r, _ in carry)):
+                            # every waiting request belongs to an
+                            # over-budget tenant: throttling by design,
+                            # not starvation
+                            self.metrics.incr("tenant_throttled_steps")
+                        else:
+                            # free slots + waiting requests + nothing
+                            # admitted
+                            self.metrics.incr("starved_steps")
+                            if self._warm:
+                                self.metrics.incr("starved_steps_after_warm")
+                    if (ten is not None and self._warm and carry
+                            and any(slots[i] is None for i in range(B))):
+                        # an IN-budget tenant still waiting while a slot
+                        # sits idle after this step's admission pass (a
+                        # full batch is contention, not starvation)
+                        seen_tn = set()
+                        for r, _ in carry:
+                            tn = self._tenant_of(r)
+                            if (tn is None or tn in seen_tn
+                                    or ten.is_throttled(tn)):
+                                continue
+                            seen_tn.add(tn)
+                            ten.note_starved(tn)
+                        if seen_tn:
+                            self.metrics.incr(
+                                "tenant_starved_steps_after_warm")
 
                     # ---- unified decode/verify step (serialized) ----
                     dispatched = bool(take)
@@ -1270,7 +1504,7 @@ class GenerationEngine:
                         t_step = time.monotonic()
                         host, cache = self._step(
                             self._pack_step(ids[:, :Td], pp[:, :Td],
-                                            pool.pos_map, pool.table),
+                                            pool.pos_map, pool.table, aidsv),
                             cache)
                         dt = (time.monotonic() - t_step) * 1e3
                         if Td == 1:
@@ -1282,6 +1516,10 @@ class GenerationEngine:
                         self.metrics.set_gauge("decode_step_ms", dt)
                         self.metrics.incr("decode_steps")
                         self.metrics.observe_occupancy(len(live) / B)
+                        if self._lora_cap:
+                            for i in live:
+                                if aidsv[i] >= 0:
+                                    self._adapter_hits[aidsv[i]] += 1
                         now = time.monotonic()
                         n_evicted = 0
                         for i in live:
@@ -1311,14 +1549,19 @@ class GenerationEngine:
                                     s["spec_fail"] = 0
                             pos[i] = p + a + 1
                             done = False
+                            n_out = 0
                             for j in range(a + 1):
                                 t = int(host[i, j])
                                 s["out"].append(t)
                                 s["hist"].append(t)
+                                n_out += 1
                                 if (len(s["out"]) >= s["budget"]
                                         or (eos is not None and t == eos)):
                                     done = True
                                     break
+                            if ten is not None and n_out and \
+                                    s.get("tenant"):
+                                ten.charge(s["tenant"], n_out)
                             if done:
                                 evict(i, now)
                                 n_evicted += 1
@@ -1338,6 +1581,7 @@ class GenerationEngine:
                     # page accounting for the requeued requests
                     carry = self._restart(e, slots) + carry
                     pos[:] = -1
+                    aidsv[:] = -1
                     cache = None
                     pool = self._pool = self._new_pool()
         finally:
@@ -1372,7 +1616,9 @@ class GenerationEngine:
     def submit(self, prompt_ids, max_new_tokens: int = 32,
                deadline_ms: Optional[float] = None,
                prefix_key: Optional[str] = None,
-               prefix_len: int = 0, handoff=None) -> Future:
+               prefix_len: int = 0, handoff=None,
+               tenant: Optional[str] = None,
+               adapter_id: Optional[int] = None) -> Future:
         """Async generation; resolves to the ``[<=max_new_tokens]`` int32
         array of greedily decoded tokens (stops after ``eos_token_id``).
 
@@ -1389,9 +1635,28 @@ class GenerationEngine:
         that :class:`KVHandoff` (with the same ``prompt_ids``) to a
         ``role="decode"`` engine adopts its pages and decodes the
         remaining ``max_new_tokens - 1`` tokens, bit-identical to a
-        co-located engine.  Plain submits work on every role."""
+        co-located engine.  Plain submits work on every role.
+
+        Multi-tenant serving (every mode): ``tenant`` tags the request for
+        the engine's :class:`~.tenancy.TenantScheduler` (weighted-fair
+        admission and token budgets, paged) and ``adapter_id`` selects a
+        LoRA table slot for every step of this request (``None`` resolves
+        through the tenant's registered spec when a scheduler is attached;
+        the default is ``-1``, the base model, bitwise).  A decode-role
+        engine adopting a hand-off uses the ``adapter_id`` of its own
+        submit."""
         if max_new_tokens < 1:
             raise InvalidArgumentError("max_new_tokens must be >= 1")
+        if adapter_id is not None:
+            aid = int(adapter_id)
+            if aid != -1 and not 0 <= aid < self._lora_cap:
+                raise InvalidArgumentError(
+                    f"{self.name}: adapter_id {aid} outside the adapter "
+                    f"table (capacity {self._lora_cap}; -1 = base model)")
+        elif tenant is not None and self._tenancy is not None:
+            aid = int(self._tenancy.adapter_id(tenant))
+        else:
+            aid = -1
         if handoff is not None:
             if not self._paged:
                 raise InvalidArgumentError(
@@ -1417,14 +1682,16 @@ class GenerationEngine:
                     f"handoff must be None, True, or a KVHandoff, got "
                     f"{type(handoff).__name__}")
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
-        meta = ((int(max_new_tokens), prefix_key, int(prefix_len), handoff)
-                if self._paged else (int(max_new_tokens),))
+        meta = ((int(max_new_tokens), prefix_key, int(prefix_len), handoff,
+                 tenant, aid)
+                if self._paged else (int(max_new_tokens), tenant, aid))
         return self._batcher.submit((prompt,), deadline_ms=deadline_ms,
                                     meta=meta)
 
     def generate(self, prompt_ids, max_new_tokens: int = 32,
                  timeout: Optional[float] = None, **kw) -> np.ndarray:
-        """Blocking :meth:`submit`."""
+        """Blocking :meth:`submit` (extra keywords — ``adapter_id``,
+        ``tenant``, ``prefix_key``… — pass through)."""
         return self.submit(prompt_ids, max_new_tokens, **kw).result(timeout)
 
     def stats(self) -> dict:

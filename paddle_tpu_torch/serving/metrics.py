@@ -17,6 +17,8 @@ Paged engines add the hand-off family (``HANDOFF_COUNTERS``), and every
 engine counts ``weight_swaps`` (``swap_weights`` / ``reload_weights``).
 The worker-mode batcher (legacy scheduler) records each batch through
 :meth:`~ServingMetrics.observe_batch` and counts ``circuit_shed``.
+Engines over a LoRA model add ``LORA_COUNTERS``, engines with a
+``TenantScheduler`` ``TENANCY_COUNTERS``.
 Publishing snapshots on an event bus and the Prometheus bridge come with
 the observability slice.
 """
@@ -29,7 +31,8 @@ from typing import Deque, Dict, Sequence
 from ..framework.locking import OrderedLock
 
 __all__ = ["ServingMetrics", "SLOT_COUNTERS", "PAGED_COUNTERS",
-           "HANDOFF_COUNTERS", "MOE_COUNTERS"]
+           "HANDOFF_COUNTERS", "MOE_COUNTERS", "LORA_COUNTERS",
+           "TENANCY_COUNTERS"]
 
 #: counter keys every snapshot carries (zero-initialized)
 _COUNTERS = ("requests", "completed", "shed", "expired", "errors",
@@ -57,6 +60,20 @@ HANDOFF_COUNTERS = ("handoffs_out", "handoffs_in")
 MOE_COUNTERS = ("moe_routed_tokens", "moe_dropped_tokens",
                 "moe_sampled_steps_after_warm",
                 "moe_overflow_steps_after_warm")
+
+#: batched multi-LoRA counters (``GPTConfig.lora_capacity > 0``): adapter
+#: table hot edits through ``install_adapter`` / ``remove_adapter``
+LORA_COUNTERS = ("adapter_installs", "adapter_removals")
+
+#: multi-tenant scheduler counters (``GenerationEngine(tenancy=...)``):
+#: slots preempted because their tenant ran over its token budget
+#: (``tenant_preempted``), steps where every waiting request belonged to an
+#: over-budget tenant (``tenant_throttled_steps`` — throttling by design,
+#: kept apart from starvation), and post-warmup steps where an IN-budget
+#: tenant waited with slots free (``tenant_starved_steps_after_warm``, the
+#: JAX package's rule S607 signal)
+TENANCY_COUNTERS = ("tenant_preempted", "tenant_throttled_steps",
+                    "tenant_starved_steps_after_warm")
 
 
 def _quantile(sorted_vals, q: float) -> float:
@@ -120,6 +137,15 @@ class ServingMetrics:
     def observe_latency_ms(self, ms: float):
         with self._lock:
             self._latency_ms.append(float(ms))
+
+    def observe_tenant(self, tenant: str, ms: float, tokens: int):
+        """Per-tenant completion observation.  In the JAX package it feeds
+        the ``(engine, tenant)``-labeled latency histogram and token
+        counter of the observability registry, behind its label-cardinality
+        cap, and does nothing while observability is off.  The port has no
+        observability registry yet (ROADMAP queue A, item 7), so it does
+        what the JAX method does when observability is off: nothing."""
+        return None
 
     def observe_tokens(self, n: int, seconds: float):
         with self._lock:

@@ -111,7 +111,10 @@ def quantize_weights(model, mode="int8"):
     (or fp8-e4m3) tensor plus a per-output-channel ``weight_scale``
     buffer, both under their float names (``….weight``,
     ``….weight_scale``).  Idempotent: already-quantized layers are left
-    alone.  Returns the model.
+    alone.  A LoRA model's adapter tables (``lora_A`` / ``lora_B`` /
+    ``lora_scale`` buffers) stay float and unquantized, as in the JAX
+    package: the LoRA leg runs after the quantized product.  Returns the
+    model.
 
     Cast the model to its float dtype BEFORE quantizing it:
     ``Module.to(dtype)`` casts float8_e4m3fn buffers too (an int8 one it

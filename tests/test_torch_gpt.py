@@ -191,5 +191,13 @@ def test_unported_configs_raise(kw):
         assert all(isinstance(b.mlp, MoELayer) for b in net.gpt.blocks)
         assert net.gpt.blocks[0].mlp.num_experts == 2
         return
+    if "lora_capacity" in kw:
+        # ported since the LoRA slice: the config registers adapter tables
+        # (capacity 2, the default rank 8) on every block projection
+        net = GPTForCausalLM(GPTConfig(**TINY, **kw), device="cpu")
+        tabs = [n for n, _ in net.named_buffers() if n.endswith(".lora_A")]
+        assert len(tabs) == 4 * TINY["num_layers"]
+        assert tuple(net.gpt.blocks[0].attn.qkv.lora_A.shape) == (2, 32, 8)
+        return
     with pytest.raises(UnimplementedError, match="ROADMAP"):
         GPTForCausalLM(GPTConfig(**TINY, **kw), device="cpu")

@@ -378,7 +378,13 @@ def test_unported_parts_keep_raising():
             eng.swap_weights("no-such-artifact.pdiparams")
     GenerationEngine(fm, prompt_buckets=[16], paged=True, quantized="int8",
                      role="prefill").close()
-    # tenancy is not ported yet
+    # tenancy is ported (the LoRA and tenancy slice): a quantized paged
+    # engine takes a scheduler; a quantized MoE engine still raises
+    from paddle_tpu_torch.serving import TenantScheduler
+
+    GenerationEngine(fm, prompt_buckets=[16], paged=True, quantized="int8",
+                     tenancy=TenantScheduler(["a"])).close()
     with pytest.raises(UnimplementedError, match="ROADMAP"):
-        GenerationEngine(fm, prompt_buckets=[16], paged=True,
-                         quantized="int8", tenancy=object())
+        GenerationEngine(GPTForCausalLM(GPTConfig(**TINY, moe_experts=2),
+                                        device="cpu"),
+                         prompt_buckets=[16], paged=True, quantized="int8")

@@ -25,8 +25,7 @@ from paddle_tpu.serving import GenerationEngine as JaxGenerationEngine
 from paddle_tpu_torch.bridge import load_jax_params
 from paddle_tpu_torch.framework.errors import (ExecutionTimeoutError,
                                                InvalidArgumentError,
-                                               UnavailableError,
-                                               UnimplementedError)
+                                               UnavailableError)
 from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_tiny
 from paddle_tpu_torch.resilience.faults import FaultPlan
 from paddle_tpu_torch.serving import GenerationEngine, MicroBatcher
@@ -202,9 +201,15 @@ def test_mode_validation_names_the_roadmap(models):
                dict(paged=True, role="both")):
         with pytest.raises(InvalidArgumentError):
             GenerationEngine(tm, prompt_buckets=[8], **kw)
-    with pytest.raises(UnimplementedError, match="ROADMAP"):
-        GenerationEngine(tm, prompt_buckets=[8], paged=True,
-                         tenancy=object())
+    # tenancy is ported (the LoRA and tenancy slice): a scheduler builds on
+    # a paged engine, and the JAX rule holds that it needs paged KV
+    from paddle_tpu_torch.serving import TenantScheduler
+
+    GenerationEngine(tm, prompt_buckets=[8], paged=True,
+                     tenancy=TenantScheduler(["a"])).close()
+    with pytest.raises(InvalidArgumentError, match="paged"):
+        GenerationEngine(tm, prompt_buckets=[8], paged=False,
+                         tenancy=TenantScheduler(["a"]))
     # quantized= is ported: only an unknown mode is rejected
     with pytest.raises(InvalidArgumentError, match="int4"):
         GenerationEngine(tm, prompt_buckets=[8], paged=True,

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the device time of the port's paged serving goes, on one card.
 
-    python3 tools/torch_serve_profile.py [--quantized int8|fp8 | --moe]
-                                         [--dense | --legacy]
+    python3 tools/torch_serve_profile.py [--quantized int8|fp8 | --moe |
+                                          --lora] [--dense | --legacy]
 
 Serves ``chip_smoke.py``'s workload (``GPTForCausalLM(gpt_small())``,
 seeded random weights, 16 requests through ``GenerationEngine`` with
@@ -12,7 +12,11 @@ through the int8 or fp8 engine; with ``--moe`` the MoE model of phase M4,
 ``--dense`` through the default engine, dense-ring continuous batching,
 as phase D1 builds it, with ``--legacy`` through the legacy scheduler as
 D2 does) once to warm up, then once more under ``torch.profiler`` (CPU +
-CUDA activities), and prints:
+CUDA activities).  ``--lora`` serves phase A5's 16-adapter engine
+instead: bench.py's multi-LoRA config (4 layers, hidden 256, 16 slots of
+rank 8, ``chip_smoke.lora_bench_model`` / ``lora_bench_engine``) with
+``RequestTrace.synthetic()``'s 48 requests round-robin over the slots.
+It prints:
 
 * the window's wall time and the device-busy share (summed device time of
   every kernel and copy over the wall time — one stream, so no overlap);
@@ -58,14 +62,16 @@ def main() -> int:
                        "float)")
     which.add_argument("--moe", action="store_true",
                        help="profile the MoE model's engine")
+    which.add_argument("--lora", action="store_true",
+                       help="profile phase A5's 16-adapter engine")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--dense", action="store_true",
                       help="the default engine (dense ring, continuous)")
     mode.add_argument("--legacy", action="store_true",
                       help="the legacy run-batch-to-completion scheduler")
     opts = ap.parse_args()
-    if opts.moe and (opts.dense or opts.legacy):
-        ap.error("an MoE model serves in the paged mode only")
+    if (opts.moe or opts.lora) and (opts.dense or opts.legacy):
+        ap.error("--moe and --lora profile paged engines only")
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -82,6 +88,8 @@ def main() -> int:
     if opts.moe:
         model = cs.moe_model(torch, "float32",
                              moe_capacity_factor=cs.MOE_SERVE_CF)
+    elif opts.lora:
+        model = cs.lora_bench_model(torch, cs.LORA_CAP)
     else:
         model = GPTForCausalLM(gpt_small(dropout=0.0), device="cuda",
                                generator=torch.Generator().manual_seed(
@@ -94,18 +102,30 @@ def main() -> int:
         if opts.legacy:
             engine["continuous"] = False
         reqs = [(p, n, {}) for p, n, _ in reqs]  # no shared prefixes
-    with GenerationEngine(model, name="profile", quantized=opts.quantized,
-                          **engine) as eng:
+    if opts.lora:
+        from paddle_tpu_torch.tuning import RequestTrace
+
+        eng = cs.lora_bench_engine(model, cs.LORA_CAP)
+        trace = RequestTrace.synthetic()
+
+        def run():
+            cs.lora_trace_pass(eng, trace, cs.LORA_CAP)
+    else:
+        eng = GenerationEngine(model, name="profile",
+                               quantized=opts.quantized, **engine)
+
+        def run():
+            for f in [eng.submit(p, n, **kw) for p, n, kw in reqs]:
+                f.result(600)
+    with eng:
         eng.warmup()
-        for f in [eng.submit(p, n, **kw) for p, n, kw in reqs]:
-            f.result(600)
+        run()
         st0 = eng.stats()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for f in [eng.submit(p, n, **kw) for p, n, kw in reqs]:
-                f.result(600)
+            run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         st = eng.stats()
@@ -123,7 +143,8 @@ def main() -> int:
         rows.append((float(us), e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    kind = "moe" if opts.moe else opts.quantized or "float"
+    kind = ("moe" if opts.moe else "lora16" if opts.lora
+            else opts.quantized or "float")
     print(f"profile[{gpu}]: engine {kind} {layout}, window "
           f"{wall_us / 1e3:.1f} ms, "
           f"{admits} {'batches' if opts.legacy else 'admission calls'} + "
