@@ -443,6 +443,42 @@ A5. ``bench.py``'s ``bench_gpt_generate_multilora`` in the port: its
     kernels line's kernel-10 entry gains ``lora_launches``,
     ``lora_path_checks`` and ``lora_shapes``.
 
+bench.py's configs 1-3 through the 1.x static graph (after T1, before
+A1; ``fluid.Program`` / ``program_guard`` / ``fluid.data`` /
+``layer_op`` / ``record_call`` / ``minimize`` / ``Executor``, written
+with the port's API line for line):
+
+ST1. config 1 (``bench_mnist``) exactly: the 784-128-64-10 MLP, 150 SGD
+     steps in one ``run_steps`` over 4096 synthetic rows (the signature's
+     first call, so eager), ``clone(for_test=True)`` on 2048: accuracy >=
+     ``MNIST_ACC_GATE`` (0.97), one dispatch for the chain;
+ST2. ``examples/static_graph_1x.py`` on ``Executor(CUDAPlace(0))``: 60
+     ``exe.run`` steps of its convnet with ``AdamOptimizer``; the loss
+     falls, the BatchNorm statistics move, a test clone leaves them;
+ST3. config 3 (``bench_bert``) exactly: BERT-base bf16 at 256 x 128, 20
+     masked, ``AdamW(multi_precision=True)``, ``run_steps(iterations=10,
+     fetch_every=10, constant_feeds=all)``: an eager window, a capture
+     window, 3 timed windows of one graph replay each (the counts zeroed
+     around each: kernel 2 240 + 240, kernel 3 10), final losses finite
+     and falling, float32 masters; then at dropout 0 a replayed window
+     against 10 ``exe.run`` steps from the same state, both under
+     ``torch.use_deterministic_algorithms`` (the embedding backward of a
+     table of few rows accumulates in a run-dependent order otherwise):
+     parameters, last loss and every optimizer-state tensor bit-equal;
+ST4. config 2 (``bench_resnet50``) exactly: ResNet-50 NHWC s2d bf16 at
+     128 x 224 x 224, ``Momentum(multi_precision=True)``,
+     ``run_steps(iterations=60)`` windows as ST3's (kernels 7 and 8 960
+     each a window), every BatchNorm buffer moved;
+ST5. a ``{"static_graph": ...}`` line under bench.py's names
+     (``mnist_mlp_smoke_accuracy``, ``bert_base_train_seq_per_sec_per_chip``,
+     ``resnet50_train_img_per_sec_per_chip``): the median and range of
+     the timed windows, bench.py's best window, ``achieved_tflops`` at its
+     84.5 / 12.3 GFLOP an item, the MFU against the H100's dense bf16 989
+     TFLOP/s, and ``Model.train_batch``'s (phases 7, R3) and
+     ``fit(steps_per_execution=4)``'s (K4, K3) step times beside.  The
+     kernels line's entries of kernels 2, 3, 7 and 8 carry
+     ``static_launches`` (one replayed window's).
+
 The line before last is the ``{"kernels": [...]}`` JSON record (kernel
 1's entries carry D4's launches by engine under ``handoff_launches`` and
 D3's paged run's under ``bench_paged_launches``, kernel 9's D5's quantized
@@ -5291,6 +5327,560 @@ def tensor_api_card(torch, gpu):
     return {"calls": n, "failed": len(failed)}
 
 
+# -- the 1.x static graph: bench.py's configs 1-3 through their entry point --
+# bench.py's constants (its configs' shapes and chain lengths, the accuracy
+# gate and the work per item its achieved_tflops divides by)
+MNIST_ACC_GATE = 0.97
+BERT_TRAIN_GFLOP_PER_SEQ = 84.5
+RESNET50_TRAIN_GFLOP_PER_IMG = 12.3
+H100_BF16_TFLOPS = 989.0       # H100 SXM dense bf16 (data sheet), 700 W
+ST_BERT_STEPS, ST_RESNET_STEPS, ST_WINDOWS = 10, 60, 3
+
+
+def _st_counts(counters):
+    return {f"{obj.__name__}{'' if a == 'launches' else '_backward'}":
+            getattr(obj, a) for obj, a in counters}
+
+
+def _st_zero(counters):
+    for obj, attr in counters:
+        setattr(obj, attr, 0)
+
+
+def _st_runner(exe):
+    """The GraphSteps of the Executor's most recent run_steps signature."""
+    return next(reversed(exe._cache._entries.values()))
+
+
+def st_windows(torch, exe, window, counters, label):
+    """bench.py's timing: a warm window (the first call of the signature
+    runs its steps eagerly), then — the port's second warm-up — the
+    window that captures the CUDA graph and replays it, then ST_WINDOWS
+    timed windows, each one replay; the counts zeroed just before each
+    timed window and read just after.  Returns the windows' seconds, final
+    losses and counts."""
+    out = {"final": [], "seconds": [], "counts": []}
+    for tag in ("eager", "capture"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = window()
+        out[f"{tag}_s"] = time.perf_counter() - t0
+        out[f"{tag}_final"] = final
+        assert math.isfinite(final), (label, tag, final)
+    for _ in range(ST_WINDOWS):
+        torch.cuda.synchronize()
+        _st_zero(counters)
+        d0 = exe.dispatches
+        t0 = time.perf_counter()
+        final = window()  # the fetch's host copy waits for the card
+        out["seconds"].append(time.perf_counter() - t0)
+        out["counts"].append(_st_counts(counters))
+        assert exe.dispatches == d0 + 1, (label, exe.dispatches, d0)
+        assert math.isfinite(final), (label, final)
+        out["final"].append(final)
+    g = _st_runner(exe)
+    assert g.captures == 1 and g.executions == 2 + ST_WINDOWS, (
+        label, g.captures, g.executions)
+    return out
+
+
+def _st_summary(per_window_s, items, gflop):
+    s = sorted(per_window_s)
+    med = s[len(s) // 2]
+    rate = items / med
+    return {"median": rate, "min": items / s[-1], "max": items / s[0],
+            "best": items / s[0], "window_s": per_window_s,
+            "achieved_tflops": rate * gflop / 1e3,
+            "mfu_vs_h100_dense_bf16_989": rate * gflop / 1e3
+            / H100_BF16_TFLOPS}
+
+
+def st_mnist(torch, gpu):
+    """Phase ST1: bench.py config 1 (``bench_mnist``) exactly, with the
+    port's API on the card: 150 SGD steps in one ``run_steps`` over 4096
+    synthetic rows, then ``clone(for_test=True)`` on 2048; accuracy >=
+    ``MNIST_ACC_GATE``, one dispatch for the chain."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.static.builders import layer_op
+    from paddle_tpu_torch.static.graph import record_call
+
+    paddle.seed(0)
+    rng = np.random.RandomState(0)
+    protos = rng.uniform(0, 1, (10, 784)).astype(np.float32)
+
+    def batch(n, seed):
+        r = np.random.RandomState(seed)
+        y = r.randint(0, 10, n).astype(np.int32)
+        x = protos[y] + r.normal(0, 0.35, (n, 784)).astype(np.float32)
+        return (x - 0.5).astype(np.float32), y
+
+    net = nn.Sequential(nn.Linear(784, 128), nn.ReLU(),
+                        nn.Linear(128, 64), nn.ReLU(), nn.Linear(64, 10))
+
+    def nll(logits, y):
+        lp = torch.log_softmax(logits, -1)
+        return -torch.take_along_dim(lp, y[:, None].long(), 1).mean()
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.data("x", [-1, 784])
+        y = fluid.data("y", [-1], "int32")
+        logits = layer_op(net, x, prefix="mlp")
+        loss = record_call(nll, logits, y, prefix="nll")
+        popt.SGD(learning_rate=0.05).minimize(loss)
+
+    xs, ys = batch(4096, 1)
+    exe = fluid.Executor()
+    exe.run(startup)
+    d0 = exe.dispatches
+    t0 = time.perf_counter()
+    out, = exe.run_steps(main, feed={"x": xs, "y": ys}, fetch_list=[loss],
+                         iterations=150, fetch_every=150,
+                         constant_feeds=("x", "y"))
+    chain_s = time.perf_counter() - t0
+    assert exe.dispatches == d0 + 1, (exe.dispatches, d0)
+    xt, yt = batch(2048, 2)
+    test_prog = main.clone(for_test=True)
+    pred, = exe.run(test_prog, feed={"x": xt, "y": yt}, fetch_list=[logits])
+    acc = float((np.asarray(pred).argmax(-1) == yt).mean())
+    assert all(t.device.type == "cuda" for t in main.scope.values())
+    log(f"ST1 bench_mnist[{gpu}]: 150 SGD steps in one run_steps (the "
+        f"signature's first call: eager) {chain_s:.3f} s, last loss "
+        f"{float(out[-1]):.4f}; test clone accuracy {acc:.4f} (gate "
+        f"{MNIST_ACC_GATE}: {acc >= MNIST_ACC_GATE})")
+    assert acc >= MNIST_ACC_GATE, acc
+    return {"mnist_mlp_smoke_accuracy": acc, "chain_s": chain_s,
+            "final_loss": float(out[-1])}
+
+
+def st_example(torch, gpu):
+    """Phase ST2: ``examples/static_graph_1x.py``'s flow on
+    ``Executor(CUDAPlace(0))``: conv2d → pool2d → batch_norm →
+    fc(softmax) → cross_entropy with ``AdamOptimizer(0.01)``, 60
+    ``exe.run`` steps on its seeded data.  Gates: the loss falls (the
+    last ten under half the first ten), the BatchNorm statistics move, a
+    test clone leaves them as they are."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.fluid as fluid
+
+    paddle.seed(0)
+    main_prog, startup_prog = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main_prog, startup_prog):
+        img = fluid.data("img", [-1, 1, 28, 28])
+        label = fluid.data("label", [-1, 1], dtype="int64")
+        conv = fluid.layers.conv2d(img, num_filters=8, filter_size=5,
+                                   act="relu")
+        pool = fluid.layers.pool2d(conv, pool_size=2, pool_stride=2)
+        bn = fluid.layers.batch_norm(pool)
+        pred = fluid.layers.fc(bn, size=10, act="softmax")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, label))
+        fluid.optimizer.AdamOptimizer(learning_rate=0.01).minimize(loss)
+
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup_prog)
+    bufs0 = {k: v.clone() for k, v in main_prog.buffers.items()}
+    rng = np.random.RandomState(0)
+    protos = rng.rand(10, 1, 28, 28).astype(np.float32)
+    losses = []
+    t0 = time.perf_counter()
+    for step in range(60):
+        y = rng.randint(0, 10, 64)
+        x = protos[y] + 0.1 * rng.randn(64, 1, 28, 28).astype(np.float32)
+        loss_v, = exe.run(main_prog,
+                          feed={"img": x,
+                                "label": y[:, None].astype(np.int64)},
+                          fetch_list=[loss])
+        losses.append(float(loss_v))
+    wall = time.perf_counter() - t0
+    assert all(t.device.type == "cuda" for t in main_prog.scope.values())
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    moved = [k for k, v in bufs0.items()
+             if not torch.equal(v, main_prog.buffers[k])]
+    clone = main_prog.clone(for_test=True)
+    before = {k: v.clone() for k, v in main_prog.buffers.items()}
+    exe.run(clone, feed={"img": x, "label": y[:, None].astype(np.int64)},
+            fetch_list=[pred])
+    frozen = all(torch.equal(v, main_prog.buffers[k])
+                 for k, v in before.items())
+    log(f"ST2 static_graph_1x[{gpu}]: 60 exe.run steps in {wall:.2f} s "
+        f"({wall / 60 * 1e3:.2f} ms a step), mean loss of the first / last "
+        f"ten {first:.4f} / {last:.4f}; BatchNorm buffers moved: "
+        f"{len(moved)} of {len(bufs0)}; a test clone left them: {frozen}")
+    assert last < 0.5 * first, (first, last)
+    assert len(moved) == len(bufs0), moved
+    assert frozen
+    return {"first_losses": first, "last_losses": last,
+            "step_ms": wall / 60 * 1e3}
+
+
+def _st_bert_program(torch, cfg, BATCH, SEQ, MAX_PRED):
+    """bench.py config 3's program (``bench_bert``, bench.py:151-222) with
+    the port's API, line for line."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.models import BertForPretraining
+    from paddle_tpu_torch.static.builders import layer_op
+    from paddle_tpu_torch.static.graph import record_call
+
+    net = BertForPretraining(cfg).astype("bfloat16")
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids_v = fluid.data("input_ids", [BATCH, SEQ], "int32")
+        tt_v = fluid.data("token_type_ids", [BATCH, SEQ], "int32")
+        am_v = fluid.data("attention_mask", [BATCH, SEQ], "int32")
+        mp_v = fluid.data("masked_positions", [BATCH, MAX_PRED], "int32")
+        mlm_y = fluid.data("mlm_labels", [BATCH, MAX_PRED], "int32")
+        nsp_y = fluid.data("nsp_labels", [BATCH, 1], "int32")
+        mlm_logits, nsp_logits = layer_op(
+            net, ids_v, prefix="bert", extra_args=(tt_v, am_v, mp_v))
+        loss = record_call(net.loss, mlm_logits, nsp_logits, mlm_y, nsp_y,
+                           prefix="bert_loss")
+        popt.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                   multi_precision=True).minimize(loss)
+    return net, main, startup, loss
+
+
+def _st_bert_feeds(cfg, BATCH, SEQ, MAX_PRED):
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, size=(BATCH, SEQ)).astype(np.int32)
+    positions = np.stack([
+        np.sort(rng.choice(SEQ, MAX_PRED, replace=False))
+        for _ in range(BATCH)]).astype(np.int32)
+    return {
+        "input_ids": ids,
+        "token_type_ids": (rng.uniform(size=(BATCH, SEQ)) < 0.5)
+        .astype(np.int32),
+        "attention_mask": np.ones((BATCH, SEQ), np.int32),
+        "masked_positions": positions,
+        "mlm_labels": np.take_along_axis(ids, positions, axis=1),
+        "nsp_labels": rng.randint(0, 2, size=(BATCH, 1)).astype(np.int32),
+    }
+
+
+def st_bert(torch, gpu, eager, k4):
+    """Phase ST3: bench.py config 3 exactly — BERT-base bf16 at 256 x 128,
+    20 masked positions, AdamW(multi_precision) — through
+    ``Executor.run_steps(iterations=10, fetch_every=10,
+    constant_feeds=all)`` on the card: the warm window (eager), the
+    capture window, 3 timed windows, each one graph replay.  Gates: kernel
+    2's forward / backward and kernel 3's counts of each timed window 24 /
+    24 / 1 x 10; final losses finite and falling; float32 masters.  Then,
+    with dropout 0 (``bert_base(dropout=0.0)``) and deterministic
+    algorithms, a replayed window against 10 ``exe.run`` steps from the
+    same state: parameters, the last loss and every optimizer-state tensor
+    bit-equal, and a second eager run bit-equal to the first."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import bert_base
+    from paddle_tpu_torch.ops import layernorm_residual, softmax_cross_entropy
+    from paddle_tpu_torch.static.graph import _copy_into
+
+    BATCH, SEQ, MAX_PRED, N_STEPS = BERT_B, BERT_S, BERT_P, ST_BERT_STEPS
+    counters = [(layernorm_residual, "launches"),
+                (layernorm_residual, "backward_launches"),
+                (softmax_cross_entropy, "launches")]
+    paddle.seed(0)
+    cfg = bert_base()
+    t0 = time.perf_counter()
+    net, main, startup, loss = _st_bert_program(torch, cfg, BATCH, SEQ,
+                                                MAX_PRED)
+    build_s = time.perf_counter() - t0
+    feeds = _st_bert_feeds(cfg, BATCH, SEQ, MAX_PRED)
+    exe = fluid.Executor()
+    exe.run(startup)
+
+    def window():
+        out, = exe.run_steps(main, feed=feeds, fetch_list=[loss],
+                             iterations=N_STEPS, fetch_every=N_STEPS,
+                             constant_feeds=tuple(feeds))
+        return float(np.asarray(out)[-1])
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    w = st_windows(torch, exe, window, counters, "ST3")
+    peak = torch.cuda.max_memory_allocated()
+    want = {"layernorm_residual": 2 * cfg.num_layers * N_STEPS,
+            "layernorm_residual_backward": 2 * cfg.num_layers * N_STEPS,
+            "softmax_cross_entropy": N_STEPS}
+    assert all(c == want for c in w["counts"]), w["counts"]
+    finals = [w["eager_final"], w["capture_final"]] + w["final"]
+    assert finals[-1] < finals[0], finals
+    slots = main._opt_state["slots"]
+    assert all(s["master"].dtype == torch.float32 for s in slots.values())
+    rate = _st_summary(w["seconds"], BATCH * N_STEPS,
+                       BERT_TRAIN_GFLOP_PER_SEQ)
+    step_ms = sorted(w["seconds"])[1] / N_STEPS * 1e3
+    log(f"ST3 bench_bert[{gpu}]: program built in {build_s:.1f} s (shapes "
+        f"on the meta device); windows of {N_STEPS} steps: eager "
+        f"{w['eager_s']:.3f} s, capture + replay {w['capture_s']:.3f} s, "
+        f"timed {[round(s, 4) for s in w['seconds']]} s; final losses "
+        f"{[round(v, 4) for v in finals]}; launches per timed window "
+        f"{w['counts'][0]} (= {want}); peak device memory "
+        f"{peak / 2**20:.0f} MiB")
+    log(f"ST3 bert_base_train_seq_per_sec_per_chip[{gpu}]: median "
+        f"{rate['median']:.2f} (range {rate['min']:.2f}-{rate['max']:.2f}, "
+        f"bench.py's best-window {rate['best']:.2f}) seq/s = {step_ms:.2f} "
+        f"ms a step; achieved {rate['achieved_tflops']:.1f} TFLOP/s at "
+        f"84.5 GFLOP/seq ({rate['mfu_vs_h100_dense_bf16_989']:.3f} of the "
+        f"H100's dense bf16 989 TFLOP/s); beside Model.train_batch "
+        f"(phase 7) {eager['step_ms']:.2f} ms a step and "
+        f"fit(steps_per_execution=4) (K4) {k4['step_ms']:.2f}")
+    out = {"rate": rate, "step_ms": step_ms,
+           "train_batch_step_ms": eager["step_ms"],
+           "k4_step_ms": k4["step_ms"], "windows": w, "peak_bytes": peak,
+           "launches": w["counts"][-1]}
+    del exe, main, startup, net, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # dropout 0: a replayed window against 10 exe.run steps, bit for bit.
+    # Deterministic algorithms on both sides, from the eager window on:
+    # without them torch's embedding backward sums a table of few rows
+    # (the 2 token types, the 128 positions) in an order that changes from
+    # run to run, and the token types' Adam moments differ in their last
+    # bits between two eager runs as often as between a replay and eager.
+    with _deterministic_algorithms(torch):
+        paddle.seed(0)
+        cfg0 = bert_base(dropout=0.0)
+        net, main, startup, loss = _st_bert_program(torch, cfg0, BATCH, SEQ,
+                                                    MAX_PRED)
+        exe = fluid.Executor()
+        exe.run(startup)
+        window()
+        window()  # eager, then the capture: the next call is a replay
+
+        def snapshot():
+            return ({n: t.detach().clone() for n, t in main.scope.items()},
+                    _clone_state(main._opt_state))
+
+        scope0, state0 = snapshot()
+        replay_final = window()
+        scope1, state1 = snapshot()
+
+        def eager_from_start():
+            with torch.no_grad():
+                for n, t in main.scope.items():
+                    t.copy_(scope0[n])
+            _copy_into(main._opt_state, _clone_state(state0))
+            losses = [float(exe.run(main, feed=feeds, fetch_list=[loss])[0])
+                      for _ in range(N_STEPS)]
+            return losses, snapshot()
+
+        eager_losses, (scope2, state2) = eager_from_start()
+        again_losses, (scope3, state3) = eager_from_start()
+    diff_params = _tree_diff(scope1, scope2)
+    diff_replay = _tree_diff(state1, state2)
+    diff_eager = _tree_diff(state3, state2)
+    diff_eager.update(_tree_diff(scope3, scope2))
+    log(f"ST3 dropout 0, deterministic algorithms: a replayed window against "
+        f"{N_STEPS} exe.run steps from the same state: last loss "
+        f"{replay_final!r} / {eager_losses[-1]!r} (a second eager run "
+        f"{again_losses[-1]!r}); tensors differing replay vs eager: "
+        f"parameters {len(diff_params)}, optimizer state {len(diff_replay)}; "
+        f"eager vs eager {len(diff_eager)}: "
+        f"{sorted({**diff_params, **diff_replay, **diff_eager})[:6]}")
+    assert not diff_params, ("ST3: replayed parameters differ from eager "
+                             "ones", sorted(diff_params.items())[:6])
+    assert replay_final == eager_losses[-1], (replay_final, eager_losses)
+    assert not diff_replay, ("ST3: replayed optimizer state differs from "
+                             "eager", sorted(diff_replay.items())[:6])
+    assert not diff_eager and again_losses == eager_losses, (
+        "ST3: two eager runs differ under deterministic algorithms",
+        sorted(diff_eager.items())[:6])
+    out["bit_equal"] = {"parameters": True, "last_loss": True,
+                        "optimizer_state": True,
+                        "deterministic_algorithms": True}
+    del exe, main, startup, net, scope0, scope1, scope2, scope3
+    del state0, state1, state2, state3
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _deterministic_algorithms(torch):
+    """``torch.use_deterministic_algorithms(True)`` for the block (an op
+    with no deterministic implementation raises), then as it was."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _clone_state(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_state(v) for k, v in tree.items()}
+    return tree.clone() if hasattr(tree, "clone") else tree
+
+
+def _tree_diff(a, b, prefix=""):
+    """``{path: max |a - b|}`` of the tensors (and other leaves, as inf) in
+    which two state trees of one layout differ."""
+    out = {}
+    if isinstance(a, dict):
+        for k in a:
+            out.update(_tree_diff(a[k], b[k], f"{prefix}{k}."))
+    elif hasattr(a, "dtype") and hasattr(a, "shape"):
+        import torch
+
+        if not torch.equal(a, b):
+            out[prefix[:-1]] = float((a.float() - b.float()).abs().max())
+    elif a != b:
+        out[prefix[:-1]] = float("inf")
+    return out
+
+
+def _st_resnet_program(torch, BATCH):
+    """bench.py config 2's program (``bench_resnet50``, bench.py:225-290)
+    with the port's API, line for line, and its feeds (bench.py's
+    ml_dtypes bf16 image: the same values, rounded to nearest even, as a
+    bf16 tensor)."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.static.builders import layer_op
+    from paddle_tpu_torch.static.graph import record_call
+    from paddle_tpu_torch.vision.models import resnet50
+
+    net = resnet50(data_format="NHWC",
+                   stem_space_to_depth=True).astype("bfloat16")
+    loss_layer = paddle.nn.CrossEntropyLoss()
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.data("image", [BATCH, 224, 224, 3], "bfloat16")
+        label = fluid.data("label", [BATCH, 1], "int32")
+        logits = layer_op(net, img, prefix="resnet50")
+        loss = record_call(
+            lambda o, y: loss_layer(o.to(torch.float32), y),
+            logits, label, prefix="xent")
+        popt.Momentum(learning_rate=0.1, momentum=0.9, multi_precision=True,
+                      weight_decay=1e-4).minimize(loss)
+
+    rng = np.random.RandomState(0)
+    feeds = {"image": torch.from_numpy(rng.uniform(
+        -1, 1, (BATCH, 224, 224, 3)).astype(np.float32)).to(torch.bfloat16),
+        "label": rng.randint(0, 1000, (BATCH, 1)).astype(np.int32)}
+    return net, main, startup, loss, feeds
+
+
+def st_resnet(torch, gpu, eager, k3):
+    """Phase ST4: bench.py config 2 exactly — ResNet-50 NHWC with the
+    space-to-depth stem in bf16 at 128 x 224 x 224, the loss on
+    ``logits.float()``, Momentum(0.1, 0.9, multi_precision, weight_decay
+    1e-4) — through ``run_steps(iterations=60, fetch_every=60,
+    constant_feeds=("image", "label"))``: the warm window, the capture
+    window, 3 timed windows of one replay each.  Gates: kernels 7 and 8
+    16 x 60 launches each a timed window, final losses finite, every
+    BatchNorm buffer moved."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.ops import bn_apply_relu, conv1x1_bn_stats
+
+    BATCH, N_STEPS = RESNET_B, ST_RESNET_STEPS
+    counters = [(conv1x1_bn_stats, "launches"), (bn_apply_relu, "launches")]
+    paddle.seed(0)
+    t0 = time.perf_counter()
+    net, main, startup, loss, feeds = _st_resnet_program(torch, BATCH)
+    build_s = time.perf_counter() - t0
+
+    exe = fluid.Executor()
+    exe.run(startup)
+    bufs0 = {k: v.clone() for k, v in main.buffers.items()}
+
+    def window():
+        out, = exe.run_steps(main, feed=feeds, fetch_list=[loss],
+                             iterations=N_STEPS, fetch_every=N_STEPS,
+                             constant_feeds=("image", "label"))
+        return float(np.asarray(out)[-1])
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    w = st_windows(torch, exe, window, counters, "ST4")
+    peak = torch.cuda.max_memory_allocated()
+    want = {"conv1x1_bn_stats": RESNET_BLOCKS * N_STEPS,
+            "bn_apply_relu": RESNET_BLOCKS * N_STEPS}
+    assert all(c == want for c in w["counts"]), w["counts"]
+    moved = [k for k, v in bufs0.items() if not torch.equal(v,
+                                                            main.buffers[k])]
+    assert len(moved) == len(bufs0), (len(moved), len(bufs0))
+    assert all(v.dtype == torch.bfloat16 for v in main.buffers.values())
+    rate = _st_summary(w["seconds"], BATCH * N_STEPS,
+                       RESNET50_TRAIN_GFLOP_PER_IMG)
+    step_ms = sorted(w["seconds"])[1] / N_STEPS * 1e3
+    finals = [w["eager_final"], w["capture_final"]] + w["final"]
+    log(f"ST4 bench_resnet50[{gpu}]: program built in {build_s:.1f} s; "
+        f"windows of {N_STEPS} steps: eager {w['eager_s']:.3f} s, capture "
+        f"+ replay {w['capture_s']:.3f} s, timed "
+        f"{[round(s, 4) for s in w['seconds']]} s; final losses "
+        f"{[round(v, 4) for v in finals]}; launches per timed window "
+        f"{w['counts'][0]} (= {want}); {len(moved)} of {len(bufs0)} "
+        f"BatchNorm buffers moved; peak device memory "
+        f"{peak / 2**20:.0f} MiB")
+    log(f"ST4 resnet50_train_img_per_sec_per_chip[{gpu}]: median "
+        f"{rate['median']:.1f} (range {rate['min']:.1f}-{rate['max']:.1f}, "
+        f"bench.py's best-window {rate['best']:.1f}) img/s = {step_ms:.2f} "
+        f"ms a step; achieved {rate['achieved_tflops']:.1f} TFLOP/s at "
+        f"12.3 GFLOP/img ({rate['mfu_vs_h100_dense_bf16_989']:.3f} of the "
+        f"H100's dense bf16 989 TFLOP/s); beside Model.train_batch (R3) "
+        f"{eager['step_ms']:.2f} ms a step and fit(steps_per_execution=4) "
+        f"(K3) {k3['step_ms']:.2f}")
+    out = {"rate": rate, "step_ms": step_ms,
+           "train_batch_step_ms": eager["step_ms"],
+           "k3_step_ms": k3["step_ms"], "windows": w, "peak_bytes": peak,
+           "launches": w["counts"][-1]}
+    del exe, main, startup, net, feeds
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def static_graph_phases(torch, gpu, bert, resnet, k3, k4):
+    """Phases ST1-ST5: bench.py's configs 1-3 through the 1.x static graph
+    (``fluid.Program`` / ``program_guard`` / ``layer_op`` /
+    ``record_call`` / ``minimize`` / ``Executor.run`` and ``run_steps``);
+    ST5 is the line of their numbers under bench.py's names."""
+    st1 = st_mnist(torch, gpu)
+    st2 = st_example(torch, gpu)
+    st3 = st_bert(torch, gpu, bert, k4)
+    st4 = st_resnet(torch, gpu, resnet, k3)
+    line = {"static_graph": {
+        "device": gpu,
+        "mnist_mlp_smoke_accuracy": st1["mnist_mlp_smoke_accuracy"],
+        "bert_base_train_seq_per_sec_per_chip": dict(
+            st3["rate"], unit="seq/s", step_ms=st3["step_ms"],
+            chain_len=ST_BERT_STEPS,
+            train_batch_step_ms=st3["train_batch_step_ms"],
+            k4_step_ms=st3["k4_step_ms"], peak_bytes=st3["peak_bytes"]),
+        "resnet50_train_img_per_sec_per_chip": dict(
+            st4["rate"], unit="img/s", step_ms=st4["step_ms"],
+            chain_len=ST_RESNET_STEPS,
+            train_batch_step_ms=st4["train_batch_step_ms"],
+            k3_step_ms=st4["k3_step_ms"], peak_bytes=st4["peak_bytes"]),
+        "example_static_graph_1x": st2, "mnist": st1}}
+    log(json.dumps(line))
+    return {"bert": st3, "resnet": st4}
+
+
 # -- batched multi-LoRA and multi-tenant serving (A1-A5) ----------------------
 LORA_CAP, LORA_RANK = 16, 8
 LORA_SITES = ("qkv", "out", "fc1", "fc2")  # two kernel-10 hops a site a call
@@ -6118,6 +6708,8 @@ def main() -> int:
         "device": gpu, "graph_vs_eager": k1, "sparse_ctr": k2,
         "resnet50": k3, "bert_base": k4, "resnet18_example": k5,
         "tensor_api": t1}}))
+    # bench.py's configs 1-3 through the 1.x static graph (ST1-ST5)
+    st = static_graph_phases(torch, gpu, bert, resnet, k3, k4)
     # batched multi-LoRA and multi-tenant serving (kernel 10 on both
     # low-rank hops of every adapted linear)
     lora = lora_phases(torch, gpu)
@@ -6183,6 +6775,11 @@ def main() -> int:
         # step, counted per replay
         graph_launches=k4["graph_launches"]["layernorm_residual"],
         graph_backward_launches=k4["graph_launches"][
+            "layernorm_residual_backward"],
+        # a replayed ST3 window (bench.py config 3 through run_steps, 10
+        # steps): 24 forward and 24 backward a step
+        static_launches=st["bert"]["launches"]["layernorm_residual"],
+        static_backward_launches=st["bert"]["launches"][
             "layernorm_residual_backward"]))
     kernels.append(dict(
         name="softmax_cross_entropy", route="cuda",
@@ -6199,7 +6796,8 @@ def main() -> int:
                  max_abs_err=errs[("softmax_cross_entropy", name)])
             for name, dtype, M, V in SX_SHAPES[1:]},
         fit_o1_launches=fit["launches"]["softmax_cross_entropy"],
-        graph_launches=k4["graph_launches"]["softmax_cross_entropy"]))
+        graph_launches=k4["graph_launches"]["softmax_cross_entropy"],
+        static_launches=st["bert"]["launches"]["softmax_cross_entropy"]))
     # the decode shape of the widest linear (fc1, M = 8), int8; launches
     # of the int8 and fp8 engines together; fp8 and fc2's decode and
     # admission shapes beside them
@@ -6236,6 +6834,8 @@ def main() -> int:
             replaces=f"paddle_tpu/ops/fused_conv1x1_bn.py:{line}",
             launches=resnet["launches"][name], max_abs_err=err,
             graph_launches=k3["graph_launches"][name],
+            # a replayed ST4 window (bench.py config 2, 60 steps)
+            static_launches=st["resnet"]["launches"][name],
             **rrows[(name, "layer1")],
             other_shapes={layer: rrows[(name, layer)]
                           for layer, _, _, _ in RESNET_TAILS[1:]}))

@@ -46,12 +46,19 @@ Ported so far:
   (``framework.selected_rows``), every optimizer of the JAX package with
   its sparse rule (``Adam(lazy_mode=True)`` updates touched rows only),
   ``models.WideDeep`` and the native ``io.InMemoryDataset``; plain
-  PyTorch, as the JAX path is plain XLA.
+  PyTorch, as the JAX path is plain XLA;
+* the 1.x static graph (``static``, ``fluid``): ``fluid.Program`` /
+  ``program_guard`` / ``data``, the builders and ``layer_op`` /
+  ``record_call``, ``optimizer.minimize``, ``Executor.run`` and
+  ``run_steps`` (N optimizer steps as one CUDA graph replay), so
+  bench.py's configs 1-3 run through their own entry point.
 """
 from .tensor import *  # noqa: F401,F403  (the tensor functions, as JAX's)
 from . import tensor  # noqa: F401
 from . import (amp, io, metric, nn, optimizer, regularizer, slim, tuning,
                vision)
+from .static.graph import disable_static, enable_static, in_dygraph_mode
+from . import static, fluid  # noqa: E402  (after nn / optimizer / io)
 from .framework.device import get_device, set_device
 from .framework.random import seed
 from .framework.serialization import load, save
@@ -60,7 +67,9 @@ from .nn import ParamAttr
 
 __version__ = "0.5.0"
 
+
 __all__ = ["seed", "set_device", "get_device", "Model", "ParamAttr", "save",
-           "load",
+           "load", "static", "fluid", "enable_static", "disable_static",
+           "in_dygraph_mode",
            "amp", "io", "metric", "nn", "optimizer", "regularizer", "slim",
            "tuning", "vision", "__version__"]

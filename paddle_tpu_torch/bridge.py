@@ -24,6 +24,14 @@ parallel-linear weights are int8 (numpy ``int8``) or fp8-e4m3 (either
 layers become quantized in the port model (``set_quantized``) with the
 very same codes and scales, so both packages compute from identical
 quantized weights.  Imports no JAX: only numpy crosses the boundary.
+
+``load_jax_program(program, scope, buffers)`` carries a JAX static-graph
+Program's scope and buffers (numpy, by scope name) into a port Program
+(``static.Program``).  Names match with their ``_{idx}_`` prefix stripped:
+both packages record the same builders in the same order, so the rest of
+a name (``fc.weight_2``) is the same.  The values go into the scope and
+into the initial values, so ``exe.run(startup)`` starts both packages
+from the same point.
 """
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ import torch
 
 from .framework.errors import InvalidArgumentError
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "load_jax_program"]
 
 
 def _quantized_tensor(a: np.ndarray) -> Optional[torch.Tensor]:
@@ -102,3 +110,42 @@ def load_jax_params(model: torch.nn.Module,
             layer.set_quantized(
                 q, torch.from_numpy(np.array(scale, np.float32)))
     return model
+
+
+def _program_key(name: str) -> str:
+    """A scope name without its program prefix: ``_3_fc.weight_2`` →
+    ``fc.weight_2``."""
+    return name.split("_", 2)[2] if name.startswith("_") else name
+
+
+def load_jax_program(program, scope: Mapping[str, np.ndarray],
+                     buffers: Optional[Mapping[str, np.ndarray]] = None):
+    """Copy a JAX Program's ``scope`` and ``buffers`` (name → numpy) into
+    the port ``program``'s parameters, buffers and initial values, each in
+    its target's dtype; every name of either side must match, with the
+    same shape."""
+    pairs = []
+    for mine, theirs in ((program.scope, scope),
+                         (program.buffers, buffers or {})):
+        by_key = {_program_key(n): n for n in mine}
+        keys = {_program_key(n): n for n in theirs}
+        missing = sorted(set(by_key) - set(keys))
+        extra = sorted(set(keys) - set(by_key))
+        if missing or extra:
+            raise InvalidArgumentError(
+                f"load_jax_program: missing {missing[:8]}, unexpected "
+                f"{extra[:8]}")
+        for k, n in by_key.items():
+            a = np.asarray(theirs[keys[k]])
+            if tuple(a.shape) != tuple(mine[n].shape):
+                raise InvalidArgumentError(
+                    f"load_jax_program: {k} has shape {tuple(a.shape)}, the "
+                    f"program expects {tuple(mine[n].shape)}")
+            pairs.append((n, mine[n], a))
+    with torch.no_grad():
+        for n, t, a in pairs:
+            v = (torch.from_numpy(np.array(a, np.float32))
+                 if t.is_floating_point() else torch.from_numpy(np.array(a)))
+            t.copy_(v.to(t.dtype))
+            program._init_values[n] = t.detach().to("cpu", copy=True)
+    return program

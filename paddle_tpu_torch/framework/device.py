@@ -5,10 +5,19 @@ explicitly: ``resolve_device(None)`` is ``cuda:0`` (or whatever
 :func:`set_device` chose) and raises :class:`UnavailableError` when no card
 is visible — it never falls back to the CPU quietly.  An explicit
 ``"cpu"`` passes through; that is how the tests run.
+
+Places (port of ``paddle_tpu.framework.device``'s ``Place``): the 1.x
+spelling of a device, which ``static.Executor(place)`` takes.
+``CPUPlace()`` is the CPU, ``CUDAPlace(i)`` card ``i``, and
+``CUDAPinnedPlace()`` pinned host memory (the CPU, for placement);
+``TPUPlace`` and ``XPUPlace`` raise ``UnavailableError``, as the JAX
+package raises for a device kind it does not have.
 """
 from __future__ import annotations
 
 from typing import Optional, Union
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -16,7 +25,8 @@ import torch
 from .errors import InvalidArgumentError, UnavailableError
 
 __all__ = ["set_device", "get_device", "default_device", "resolve_device",
-           "upload"]
+           "upload", "Place", "CPUPlace", "CUDAPlace", "CUDAPinnedPlace",
+           "TPUPlace", "XPUPlace", "place_device", "is_compiled_with_cuda"]
 
 #: the device :func:`set_device` chose; None = the card
 _chosen: Optional[torch.device] = None
@@ -90,3 +100,62 @@ def upload(a, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return a.pin_memory().to(device, non_blocking=True)
     return a.clone()
+
+
+@dataclasses.dataclass(frozen=True)
+class Place:
+    """Device identity: kind (``"cpu"``, ``"gpu"`` or ``"pinned"``) and
+    index (parity: ``platform::Place``, one dataclass for every kind)."""
+
+    kind: str
+    index: int = 0
+
+    def __str__(self):
+        return f"{self.kind}:{self.index}"
+
+    def torch_device(self) -> torch.device:
+        """The torch device of this place (pinned host memory is the
+        CPU's); a card that is not visible raises."""
+        if self.kind == "gpu":
+            return _parse(f"cuda:{self.index}")
+        return torch.device("cpu")
+
+
+def CPUPlace(index: int = 0) -> Place:
+    return Place("cpu", index)
+
+
+def CUDAPlace(index: int = 0) -> Place:
+    return Place("gpu", index)
+
+
+def CUDAPinnedPlace() -> Place:
+    return Place("pinned", 0)
+
+
+def _no_backend(kind: str):
+    raise UnavailableError(
+        f"{kind}: the port runs on CUDA cards and the CPU only — use "
+        f"CUDAPlace(i) or CPUPlace()")
+
+
+def TPUPlace(index: int = 0) -> Place:
+    _no_backend("TPUPlace")
+
+
+def XPUPlace(index: int = 0) -> Place:
+    _no_backend("XPUPlace")
+
+
+def place_device(place=None) -> torch.device:
+    """The torch device of ``place``: a :class:`Place`, a device string or
+    ``torch.device``, or None (the default device: the card)."""
+    if isinstance(place, Place):
+        return place.torch_device()
+    return resolve_device(place)
+
+
+def is_compiled_with_cuda() -> bool:
+    """Parity: ``paddle.is_compiled_with_cuda`` — whether this torch was
+    built with CUDA (a card need not be visible)."""
+    return bool(torch.backends.cuda.is_built())

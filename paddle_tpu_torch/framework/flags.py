@@ -110,6 +110,11 @@ define_flag("speculative_k", 4,
             "proposer (prompt-lookup) drafts up to k tokens per slot and "
             "one batched verify step accepts the longest matching prefix "
             "— token-identical to plain greedy. 0 disables speculation.")
+define_flag("executor_cache_capacity", 64,
+            "LRU capacity of each static.Executor's runner cache. Every "
+            "distinct (program, feed signature, fetch set) of run_steps "
+            "holds its captured CUDA graphs; unbounded growth is a slow "
+            "leak, a too-small cap captures again on every run.")
 define_flag("paddle_num_threads", 1,
             "Host-side worker threads for data feeding: the default "
             "thread count of InMemoryDataset.load_into_memory "

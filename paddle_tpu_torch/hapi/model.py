@@ -166,8 +166,13 @@ class Model:
             _unported("a fleet distributed optimizer",
                       "distributed execution")
         self._steps_per_execution = steps_per_execution
-        self._graph_steps = (GraphSteps(self, steps_per_execution)
-                             if steps_per_execution > 1 else None)
+        self._graph_steps = None
+        if steps_per_execution > 1:
+            self._graph_steps = GraphSteps(
+                steps_per_execution,
+                lambda batch, plan: (self._train_step(batch, plan)[0],),
+                self.device,
+                before_capture=lambda: self._optimizer.clear_grad())
         self._metrics = list(metrics or [])
         for m in self._metrics:
             if not isinstance(m, Metric):
@@ -301,25 +306,16 @@ class Model:
             raise InvalidArgumentError(
                 "call prepare(optimizer=..., loss=..., "
                 "steps_per_execution=k) with k > 1 first")
-        batches = [self._batch(*self._split(b)) for b in batches]
-        lr = self._optimizer.get_lr()
-        if self.device.type == "cuda":
-            return self._graph_steps.run(batches, lr)
+        # checked before the plans advance the optimizer's step count
         if len(batches) != self._steps_per_execution:
             raise InvalidArgumentError(
                 f"an execution takes {self._steps_per_execution} batches, "
                 f"got {len(batches)}")
-        return self._train_steps_eager(batches, lr)
-
-    def _train_steps_eager(self, batches, lr):
-        """The k steps one by one at one learning rate; the losses
-        stacked."""
+        batches = [self._batch(*self._split(b)) for b in batches]
         opt = self._optimizer
-        losses = []
-        for batch in batches:
-            plan = opt._plan(opt._ensure_state(), lr)
-            losses.append(self._train_step(batch, plan)[0])
-        return torch.stack(losses)
+        lr, state = opt.get_lr(), opt._ensure_state()
+        plans = [opt._plan(state, lr) for _ in batches]
+        return self._graph_steps.run(list(zip(*batches)), plans)[0]
 
     def eval_batch(self, inputs, labels=None):
         loss, metrics = self._eval_batch_device(inputs, labels)

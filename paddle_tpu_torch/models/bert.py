@@ -30,6 +30,7 @@ from ..framework.dtype import convert_dtype, promote
 from ..framework.errors import UnimplementedError
 from ..framework.random import default_generator
 from ..nn.functional import cross_entropy
+from ..nn.initializer import fills_its_layers
 from ..ops.fused_layernorm import layernorm_residual
 from ..ops.fused_softmax_xent import softmax_cross_entropy
 from .gpt import GPTConfig, ParallelMLP
@@ -189,6 +190,7 @@ class BertModel(nn.Layer):
     ``generator`` — the ``torch.Generator`` the weights are drawn from
     (default: the one :func:`paddle_tpu_torch.seed` reseeds)."""
 
+    @fills_its_layers
     def __init__(self, cfg: BertConfig, device=None,
                  generator: Optional[torch.Generator] = None, *,
                  _materialize_now: bool = True):
@@ -227,6 +229,7 @@ class BertModel(nn.Layer):
 class BertForPretraining(nn.Layer):
     """MLM (decoder tied to the word embedding, no bias) + NSP heads."""
 
+    @fills_its_layers
     def __init__(self, cfg: BertConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -276,6 +279,7 @@ class BertForPretraining(nn.Layer):
 class BertForQuestionAnswering(nn.Layer):
     """Extractive-QA (SQuAD) head: per-token start/end logits."""
 
+    @fills_its_layers
     def __init__(self, cfg: BertConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -304,6 +308,7 @@ class BertForQuestionAnswering(nn.Layer):
 
 
 class BertForSequenceClassification(nn.Layer):
+    @fills_its_layers
     def __init__(self, cfg: BertConfig, num_classes: int = 2, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()

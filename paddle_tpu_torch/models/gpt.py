@@ -63,6 +63,7 @@ from ..framework.dtype import RAW_BITS, promote
 from ..framework.errors import InvalidArgumentError, UnimplementedError
 from ..framework.random import default_generator
 from ..moe import MoELayer
+from ..nn.initializer import fills_its_layers
 from ..moe import stats as moe_stats
 from ..ops.fused_layernorm import layernorm_residual
 from ..ops.fused_softmax_xent import softmax_cross_entropy
@@ -733,6 +734,7 @@ class GPTForCausalLM(nn.Layer):
     device.
     """
 
+    @fills_its_layers
     def __init__(self, cfg: GPTConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()

@@ -20,6 +20,7 @@ from .. import nn
 from ..distributed.meta_parallel import VocabParallelEmbedding
 from ..framework.device import resolve_device
 from ..framework.random import default_generator
+from ..nn.initializer import fills_its_layers
 
 __all__ = ["WideDeep", "wide_deep_tiny"]
 
@@ -35,6 +36,7 @@ class WideDeep(nn.Layer):
     the CPU in module order (default: the one
     :func:`paddle_tpu_torch.seed` reseeds)."""
 
+    @fills_its_layers
     def __init__(self, num_fields: int = 26, vocab_size: int = 10000,
                  embed_dim: int = 16, dense_dim: int = 13,
                  hidden_sizes=(64, 32), sparse: bool = False, device=None,

@@ -1,9 +1,12 @@
 """Basic layers: Linear (paddle's ``[in, out]`` weight layout), Embedding,
 Dropout — ports of ``paddle_tpu.nn.common``.
 
-Parameters are allocated empty; :meth:`reset_parameters` fills them from
-an explicit ``torch.Generator`` (model constructors call it once, in
-module order, so a seed fixes every weight).  Dropout draws its keep-mask
+A layer fills its parameters at construction, drawing from the CPU
+generator that ``paddle_tpu_torch.seed`` reseeds, as a JAX layer draws
+from the global one; a model constructor (``fills_its_layers``) skips
+that and fills every layer once by :meth:`reset_parameters`, in module
+order from an explicit ``torch.Generator``, so a seed fixes every
+weight.  Dropout draws its keep-mask
 from the per-device generator of ``framework.random``, never from torch's
 global RNG.
 """
@@ -17,7 +20,7 @@ from ..framework.random import generator_for
 from ..framework.selected_rows import tap_lookup
 from .functional.common import embedding
 from .initializer import (Constant, Normal, XavierNormal, create_parameter,
-                          init_parameter)
+                          fill_at_construction, init_parameter)
 from .layer import Layer
 
 __all__ = ["Linear", "Embedding", "Dropout"]
@@ -39,6 +42,7 @@ class Linear(Layer):
         self.weight = create_parameter((in_features, out_features),
                                        weight_attr)
         self.bias = create_parameter((out_features,), bias_attr)
+        fill_at_construction(self)
 
     def reset_parameters(self, generator=None):
         init_parameter(self.weight, self._attrs[0], XavierNormal(),
@@ -81,6 +85,7 @@ class Embedding(Layer):
         self.weight = create_parameter((num_embeddings, embedding_dim),
                                        weight_attr)
         self.weight.sparse = self.sparse
+        fill_at_construction(self)
 
     def reset_parameters(self, generator=None):
         init_parameter(self.weight, self._weight_attr, Normal(0.0, self.std),

@@ -19,7 +19,9 @@ are; ROADMAP §C).
 """
 from __future__ import annotations
 
+import functools
 import math
+import threading
 from typing import Optional
 
 import numpy as np
@@ -274,6 +276,32 @@ def create_parameter(shape, attr=None) -> Optional[torch.nn.Parameter]:
     if isinstance(attr, ParamAttr):
         p.requires_grad_(bool(attr.trainable))
     return p
+
+
+_filling = threading.local()  # depth of fills_its_layers constructors
+
+
+def fills_its_layers(init):
+    """Decorate a model constructor that fills every layer itself, in
+    module order from its generator (``reset_parameters(generator)``):
+    the layers built inside it skip their construction-time fill, so each
+    weight is drawn once and the seed's stream is the constructor's."""
+    @functools.wraps(init)
+    def wrapped(*args, **kwargs):
+        _filling.depth = getattr(_filling, "depth", 0) + 1
+        try:
+            return init(*args, **kwargs)
+        finally:
+            _filling.depth -= 1
+    return wrapped
+
+
+def fill_at_construction(layer):
+    """``layer.reset_parameters()`` from the CPU generator, as a JAX layer
+    draws at construction; skipped inside a :func:`fills_its_layers`
+    constructor, which fills the layer itself."""
+    if not getattr(_filling, "depth", 0):
+        layer.reset_parameters()
 
 
 def init_parameter(param, attr, default: Initializer, generator=None):

@@ -18,7 +18,8 @@ import torch.nn.functional as F
 
 from ..framework.errors import UnimplementedError
 from . import functional as PF
-from .initializer import Constant, create_parameter, init_parameter
+from .initializer import (Constant, create_parameter, fill_at_construction,
+                          init_parameter)
 from .layer import Layer
 
 __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
@@ -39,6 +40,7 @@ class LayerNorm(Layer):
         self._attrs = (weight_attr, bias_attr)
         self.weight = create_parameter(self.normalized_shape, weight_attr)
         self.bias = create_parameter(self.normalized_shape, bias_attr)
+        fill_at_construction(self)
 
     def reset_parameters(self, generator=None):
         init_parameter(self.weight, self._attrs[0], Constant(1.0), generator)

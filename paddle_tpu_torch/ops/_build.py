@@ -22,13 +22,18 @@ from typing import Callable, Dict
 
 from ..framework.errors import UnavailableError
 
-__all__ = ["NVCC_FLAGS", "build", "entry", "library_path", "load", "nvcc",
-           "sm_count"]
+__all__ = ["NVCC_FLAGS", "PLAIN_DEVICES", "build", "entry", "library_path",
+           "load", "nvcc", "sm_count"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 OUT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+#: device types on which a wrapper runs its kernel's plain version: the
+#: CPU, and "meta" (the static graph's shape inference, which computes
+#: nothing: a meta tensor only carries the plain version's shapes)
+PLAIN_DEVICES = ("cpu", "meta")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()

@@ -287,7 +287,7 @@ def _backward(q, k, v, lse, do, delta, causal, scale, off):
     """``(dq, dk, dv)``: the plain version for CPU tensors, the two
     kernels for CUDA tensors."""
     S = q.shape[2]
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return flash_attention_bwd_ref(q, k, v, None, lse, do, causal,
                                        scale, off, delta)
     if q.device.type != "cuda":
@@ -312,7 +312,7 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, off):
-        if q.device.type == "cpu":
+        if q.device.type in _build.PLAIN_DEVICES:
             out, lse = flash_attention_fwd_lse_ref(q, k, v, causal, scale,
                                                    off)
         elif q.device.type == "cuda":

@@ -110,7 +110,7 @@ def _device_check(name, tensors, dtype_of):
     if dtype_of not in _DTYPES:
         raise InvalidArgumentError(
             f"{name}: the kernel takes float32 or bfloat16, got {dtype_of}")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in _build.PLAIN_DEVICES + ("cuda",):
         raise InvalidArgumentError(f"{name}: tensors on {dev} (cpu or cuda)")
     return dev
 
@@ -253,7 +253,7 @@ def conv1x1_bn_stats(x, w):
     carries the gradient.
     """
     dev = _check_stats(x, w)
-    if dev.type == "cpu":
+    if dev.type in _build.PLAIN_DEVICES:
         return conv1x1_bn_stats_ref(x, w)
     return _stats_kernel(x, w)
 
@@ -378,7 +378,7 @@ def bn_apply_relu(y, scale, shift, residual=None):
     to the plain version, and add one to ``bn_apply_relu.launches``.
     """
     dev = _check_apply(y, scale, shift, residual)
-    if dev.type == "cpu":
+    if dev.type in _build.PLAIN_DEVICES:
         return bn_apply_relu_ref(y, scale, shift, residual)
     return _apply_kernel(y, scale, shift, residual)
 

@@ -362,7 +362,7 @@ def _backward_kernel(s, mean, rstd, weight, ds_out, dy, design=None):
 class _LayerNormResidual(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, r2, weight, bias, epsilon):
-        if x2.device.type == "cpu":
+        if x2.device.type in _build.PLAIN_DEVICES:
             s, y, mean, rstd = _forward_ref(x2, r2, weight, bias, epsilon)
         elif x2.device.type == "cuda":
             s, y, mean, rstd = _forward_kernel(x2, r2, weight, bias, epsilon)
@@ -379,7 +379,7 @@ class _LayerNormResidual(torch.autograd.Function):
         s, mean, rstd, weight = ctx.saved_tensors
         if dy is None:  # only the residual stream was used
             return ds_out, ds_out, None, None, None
-        if s.device.type == "cpu":
+        if s.device.type in _build.PLAIN_DEVICES:
             ds, dg, db = _backward_ref(s, mean, rstd, weight, ds_out, dy)
         else:
             ds, dg, db = _backward_kernel(s, mean, rstd, weight, ds_out, dy)

@@ -118,7 +118,7 @@ def _forward_kernel(x2, lab2):
 class _SoftmaxCrossEntropy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, lab2):
-        if x2.device.type == "cpu":
+        if x2.device.type in _build.PLAIN_DEVICES:
             loss, lse = _forward_ref(x2, lab2)
         elif x2.device.type == "cuda":
             loss, lse = _forward_kernel(x2, lab2)

@@ -178,7 +178,7 @@ class _GroupedMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, group_sizes):
         ctx.save_for_backward(x, w, group_sizes)
-        if x.device.type == "cpu":
+        if x.device.type in _build.PLAIN_DEVICES:
             return _forward_ref(x, w, group_sizes)
         return _forward_kernel(x, w, group_sizes)
 
@@ -220,7 +220,7 @@ def grouped_matmul(x, w, group_sizes, *, block_m: Optional[int] = None,
     kernel does not take (dtype, device) raises instead of falling back.
     """
     _check(x, w, group_sizes)
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in _build.PLAIN_DEVICES + ("cuda",):
         raise InvalidArgumentError(
             f"grouped_matmul: tensors on {x.device} (cpu or cuda only)")
     return _GroupedMatmul.apply(x.contiguous(), w.contiguous(), group_sizes)

@@ -339,7 +339,7 @@ def paged_flash_decode(q, k_pool, v_pool, tables, mask,
     back.  Any page size is taken: a page too large for shared memory goes
     to the first design, staged in row chunks.
     """
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return paged_flash_decode_ref(q, k_pool, v_pool, tables, mask,
                                       k_scale, v_scale)
     B, H, T, hd, page, G = _check(q, k_pool, v_pool, tables, mask,

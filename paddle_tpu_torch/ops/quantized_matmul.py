@@ -192,7 +192,7 @@ def quantized_linear(x, w_q, weight_scale, bias=None):
     the kernel does not take (dtype, layout, device) raises instead of
     falling back.
     """
-    if x.device.type == "cpu":
+    if x.device.type in _build.PLAIN_DEVICES:
         return _linear(_matmul_ref, x, w_q, weight_scale, bias)
     if x.device.type != "cuda":
         raise InvalidArgumentError(

@@ -454,6 +454,35 @@ class Optimizer:
 
     clear_gradients = clear_grad
 
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        """Graph mode (ref: fluid/optimizer.py minimize): bind this
+        optimizer and the loss Variable to the loss's Program —
+        ``static.Executor.run`` then takes the gradient of the recorded
+        graph and applies this optimizer's step.  ``parameter_list`` /
+        ``no_grad_set`` (Variables or names) narrow the parameters it
+        updates.  Returns ``([], [(param, None), ...])`` like the 1.x
+        (ops, params_grads) pair.  The optimizer may be built without
+        ``parameters``: the Program's scope is what it updates."""
+        from ..static.graph import Variable as _GraphVar
+
+        if isinstance(loss, _GraphVar):
+            prog = loss.program
+            only = None
+            if parameter_list is not None:
+                only = {getattr(p, "name", p) for p in parameter_list}
+            if no_grad_set:
+                frozen = {getattr(p, "name", p) for p in no_grad_set}
+                only = (only or set(prog.scope)) - frozen
+            prog._bind_optimizer(self, loss.name, only)
+            updated = [v for v in prog.all_parameters()
+                       if only is None or v.name in only]
+            return [], [(v, None) for v in updated]
+        raise InvalidArgumentError(
+            "minimize() outside graph mode: call loss.backward() and "
+            "step() (or hapi.Model.prepare), or build a Program under "
+            "fluid.program_guard and pass its loss Variable")
+
     # -- state ---------------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
         d: Dict[str, Any] = {}

@@ -1,0 +1,272 @@
+"""1.x parameter-creating op builders over the recorded graph (port of
+``paddle_tpu.static.builders``).
+
+Each builder makes its eager Layer ONCE at build time, registers the
+Layer's parameters and buffers in the current Program's scope and records
+an op that runs the Layer with the scope's tensors in their place
+(``torch.func.functional_call``): the build-once / run-many split of the
+reference's ``fluid.layers`` builders.  ``layer_op`` is the shared
+machinery, and the way to put a whole model into a Program (bench.py's
+configs 2 and 3).
+
+The builders need graph mode (a symbolic Variable input); called with
+tensors they raise, naming the eager Layer.  Ported: ``fc``,
+``embedding``, ``conv2d``, ``pool2d`` (max and global pooling),
+``batch_norm``, ``layer_norm`` and ``layer_op``.  The other builders of
+the JAX module raise ``UnimplementedError`` naming the ROADMAP queue-A
+item that ports their layers.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..framework.errors import InvalidArgumentError, UnimplementedError
+from .graph import Variable, default_main_program, record_call
+
+__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
+           "layer_norm", "layer_op"]
+
+#: the activations a builder's ``act=`` names
+_ACTS = {
+    "relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+    "softmax": lambda t: torch.softmax(t, dim=-1),
+    "gelu": torch.nn.functional.gelu,
+    "relu6": lambda t: torch.clamp(t, 0.0, 6.0),
+    "leaky_relu": lambda t: torch.nn.functional.leaky_relu(t, 0.01),
+    "elu": torch.nn.functional.elu,
+}
+
+
+def _require_var(x, builder, eager):
+    if not isinstance(x, Variable):
+        raise InvalidArgumentError(
+            f"fluid.layers.{builder} creates parameters in a Program and "
+            f"needs graph mode: build under fluid.program_guard + run with "
+            f"fluid.Executor (static/graph.py), or use the eager {eager}")
+    return x
+
+
+def _act(out, act):
+    if not act:
+        return out
+    fn = _ACTS.get(act)
+    if fn is None:
+        raise InvalidArgumentError(f"unknown activation {act!r}")
+    return fn(out)
+
+
+def _register_layer_state(layer, prefix):
+    """Register a build-time Layer's parameters and buffers in the current
+    Program's scope; returns the (scope name → layer name) maps."""
+    prog = default_main_program()
+    pmap, bmap = {}, {}
+    for ln, p in layer.named_parameters():
+        sname = prog.unique_name(f"{prefix}.{ln.replace('.', '_')}")
+        prog.register_param(sname, p, trainable=p.requires_grad)
+        pmap[sname] = ln
+    for ln, b in layer.named_buffers():
+        sname = prog.unique_name(f"{prefix}.{ln.replace('.', '_')}")
+        prog.register_buffer(sname, b)
+        bmap[sname] = ln
+    return pmap, bmap
+
+
+@contextlib.contextmanager
+def _mode(modules, training: bool):
+    """Every module of ``modules`` in ``training`` mode for the call, its
+    own mode restored after."""
+    saved = [m.training for m in modules]
+    for m in modules:
+        m.training = training
+    try:
+        yield
+    finally:
+        for m, t in zip(modules, saved):
+            m.training = t
+
+
+def layer_op(layer, x, *, prefix: str, act: Optional[str] = None,
+             post=None, extra_args=(), force_training: Optional[bool] = None):
+    """Register ``layer``'s parameters and buffers in the current program
+    and record an op that runs it over them: ``layer(x, *extra_args)``,
+    then ``post``, then ``act``.  ``force_training`` pins the layer's mode
+    whatever the run's (``batch_norm(is_test=True)``).  The layer itself
+    keeps its values; its buffers' updates (BatchNorm statistics) land in
+    the scope's buffers."""
+    pmap, bmap = _register_layer_state(layer, prefix)
+    has_buf = bool(bmap)
+    modules = list(layer.modules())
+
+    def fn(pv, bv, xx, *extra, training=False):
+        if force_training is not None:
+            training = force_training
+        tensors = {pmap[n]: v for n, v in pv.items()}
+        tensors.update({bmap[n]: v for n, v in bv.items()})
+        with _mode(modules, training):
+            out = torch.func.functional_call(layer, tensors, (xx, *extra))
+        if post is not None:
+            out = post(out)
+        out = _act(out, act)
+        if has_buf:  # the buffers were written in place
+            return out, dict(bv)
+        return out
+
+    return record_call(fn, x, *extra_args, prefix=prefix,
+                       param_names=tuple(pmap), buffer_names=tuple(bmap),
+                       writes_buffers=has_buf)
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, name=None):
+    """ref: fluid/layers/nn.py:354 — flattens the dims from
+    ``num_flatten_dims`` on, applies xW+b, restores the leading dims."""
+    x = _require_var(input, "fc", "paddle.nn.Linear")
+    from .. import nn
+
+    k = num_flatten_dims if num_flatten_dims >= 0 \
+        else len(x.shape) + num_flatten_dims
+    tail = x.shape[k:]
+    if any(d is None for d in tail):
+        raise InvalidArgumentError(
+            f"fc: flattened feature dims {tail} must be static")
+    in_features = int(np.prod(tail)) if tail else 1
+    layer = nn.Linear(in_features, size, weight_attr=param_attr,
+                      bias_attr=bias_attr)
+
+    pre = record_call(lambda t: t.reshape(-1, in_features), x,
+                      prefix="fc_flat")
+    out = layer_op(layer, pre, prefix=name or "fc", act=act)
+    if k != 1:
+        out = record_call(
+            lambda t, orig: t.reshape(tuple(orig.shape[:k]) + (size,)),
+            out, x, prefix="fc_unflat")
+    return out
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32", name=None):
+    """ref: fluid/layers/nn.py:584 (lookup_table_v2)."""
+    x = _require_var(input, "embedding", "paddle.nn.Embedding")
+    from .. import nn
+
+    layer = nn.Embedding(size[0], size[1], padding_idx=padding_idx,
+                         sparse=is_sparse, weight_attr=param_attr)
+    return layer_op(layer, x, prefix=name or "embedding")
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """ref: fluid/layers/nn.py conv2d — creates the filter and bias."""
+    x = _require_var(input, "conv2d", "paddle.nn.Conv2D")
+    from .. import nn
+
+    in_channels = x.shape[1] if data_format == "NCHW" else x.shape[-1]
+    layer = nn.Conv2D(int(in_channels), num_filters, filter_size,
+                      stride=stride, padding=padding, dilation=dilation,
+                      groups=groups or 1, weight_attr=param_attr,
+                      bias_attr=bias_attr, data_format=data_format)
+    return layer_op(layer, x, prefix=name or "conv2d", act=act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True, data_format="NCHW"):
+    """ref: fluid/layers/nn.py pool2d — stateless; max pooling and global
+    (max or average) pooling.  A windowed average pool raises: the port's
+    ``avg_pool2d`` comes with ROADMAP queue A, vision."""
+    x = _require_var(input, "pool2d", "nn.functional.max_pool2d")
+    if pool_type not in ("max", "avg"):
+        raise InvalidArgumentError(f"pool2d: pool_type {pool_type!r}")
+    if pool_type == "avg" and not global_pooling:
+        raise UnimplementedError(
+            "fluid.layers.pool2d(pool_type='avg') is not ported yet "
+            "(ROADMAP queue A, vision)")
+    from ..nn import functional as F
+
+    def fn(xx):
+        if global_pooling:
+            axes = (2, 3) if data_format == "NCHW" else (1, 2)
+            if pool_type == "max":
+                return torch.amax(xx, dim=axes, keepdim=True)
+            return torch.mean(xx, dim=axes, keepdim=True)
+        return F.max_pool2d(xx, pool_size, stride=pool_stride,
+                            padding=pool_padding, ceil_mode=ceil_mode,
+                            data_format=data_format)
+
+    return record_call(fn, x, prefix=name or "pool2d")
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=True,
+               use_global_stats=False):
+    """ref: fluid/layers/nn.py batch_norm — the scale / shift parameters
+    and the moving mean / variance buffers; the statistics update on
+    training runs and stay on evaluation runs (``is_test`` /
+    ``use_global_stats`` pin evaluation mode)."""
+    x = _require_var(input, "batch_norm", "paddle.nn.BatchNorm2D")
+    from .. import nn
+
+    ch = x.shape[1] if data_layout == "NCHW" else x.shape[-1]
+    layer = nn.BatchNorm2D(int(ch), momentum=momentum, epsilon=epsilon,
+                           weight_attr=param_attr, bias_attr=bias_attr,
+                           data_format=data_layout)
+    frozen = True if (use_global_stats or is_test) else None
+    return layer_op(layer, x, prefix=name or "batch_norm", act=act,
+                    force_training=False if frozen else None)
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    """ref: fluid/layers/nn.py layer_norm — normalizes over the dims from
+    ``begin_norm_axis`` on."""
+    x = _require_var(input, "layer_norm", "paddle.nn.LayerNorm")
+    from .. import nn
+
+    normalized = [int(d) for d in x.shape[begin_norm_axis:]]
+    layer = nn.LayerNorm(normalized, epsilon=epsilon,
+                         weight_attr=param_attr if scale else False,
+                         bias_attr=bias_attr if shift else False)
+    return layer_op(layer, x, prefix=name or "layer_norm", act=act)
+
+
+#: the JAX module's other builders → the queue-A item that ports them
+UNPORTED = {
+    **{n: "vision" for n in (
+        "conv2d_transpose", "conv3d", "conv3d_transpose", "instance_norm",
+        "group_norm")},
+    **{n: "static graph and the long tail" for n in (
+        "spectral_norm", "prelu", "bilinear_tensor_product", "nce",
+        "center_loss", "sequence_conv", "inplace_abn", "hsigmoid", "lstm",
+        "data_norm", "multi_box_head", "deformable_conv", "gru_unit",
+        "lstm_unit", "dynamic_lstm", "dynamic_lstmp", "dynamic_gru")},
+}
+
+
+def unported(qualname: str, item: str):
+    """A function of the JAX package's name that raises
+    ``UnimplementedError`` naming the ROADMAP queue-A item that ports
+    it."""
+    name = qualname.rsplit(".", 1)[-1]
+
+    def shim(*args, **kwargs):
+        raise UnimplementedError(
+            f"{qualname} is not ported yet (ROADMAP queue A, {item})")
+
+    shim.__name__ = shim.__qualname__ = name
+    shim.__doc__ = f"Not ported yet: ROADMAP queue A, {item}."
+    shim.__shim__ = True
+    return shim
+
+
+for _name, _item in UNPORTED.items():
+    globals()[_name] = unported(f"paddle.static.nn.{_name}", _item)
+del _name, _item

@@ -42,6 +42,7 @@ from ...framework.device import resolve_device
 from ...framework.errors import InvalidArgumentError, UnimplementedError
 from ...framework.random import default_generator
 from ...nn import functional as F
+from ...nn.initializer import fills_its_layers
 from ...ops import fused_conv1x1_bn as _fcb
 
 __all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "resnet18",
@@ -182,6 +183,7 @@ class ResNet(nn.Layer):
         152: [3, 8, 36, 3],
     }
 
+    @fills_its_layers
     def __init__(self, block, depth, num_classes=1000, with_pool=True,
                  data_format="NCHW", stem_space_to_depth=False, device=None,
                  generator: Optional[torch.Generator] = None):

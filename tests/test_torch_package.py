@@ -25,6 +25,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_serve_profile.py",
     ROOT / "tools" / "torch_train_profile.py",
+    ROOT / "tools" / "torch_embedding_determinism.py",
     ROOT / "tools" / "torch_resnet_conditioning.py",
     ROOT / "tools" / "torch_flash_bwd_rounding.py",
     ROOT / "tools" / "torch_kernel_ab.py",

@@ -4,6 +4,7 @@
     python3 tools/torch_train_profile.py \
         [--model bert|gpt|both|resnet50|gpt_long|gpt_long_train|gpt_moe|
                  wide_deep] [--steps-per-execution K]
+    python3 tools/torch_train_profile.py --static
 
 Builds ``chip_smoke.py``'s training workloads — BERT-base bf16
 pretraining at batch 256 x 128 with 20 masked positions and
@@ -66,6 +67,16 @@ graph, later ones replay it.  After three executions the tool prints the
 mean synchronized execution time over ``--steps`` executions (and per
 step), then profiles one replayed execution: its device-busy share beside
 the eager step's, the groups and kernels as above.
+
+``--static`` profiles bench.py's configs 3 and 2 through the 1.x static
+graph instead (``chip_smoke.py`` phases ST3 and ST4: the same programs,
+built by ``_st_bert_program`` / ``_st_resnet_program``): an
+``Executor.run_steps`` window of 10 (BERT-base) or 60 (ResNet-50) steps,
+run twice to warm up (the signature's first call runs eagerly, the second
+captures the CUDA graph), then the mean of ``--steps`` synchronized
+replayed windows, then one replayed window under the profiler: its
+device-busy share and device time by group, the port's kernels 2 and 3
+(BERT) or 7 and 8 (ResNet) among them.
 
 Numbers under the profiler run slower than ``chip_smoke.py``'s; read the
 shares, not the absolute times.  Exits non-zero without a card.
@@ -367,6 +378,73 @@ def profile_step(torch, run, inputs, labels, ranges=False):
             host_ops)
 
 
+def build_static(torch, which):
+    """(label, run, steps) of ``chip_smoke.py`` ST3's (``bert``) or ST4's
+    (``resnet50``) program: ``run()`` is one ``run_steps`` window."""
+    import chip_smoke as cs
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import bert_base
+
+    paddle.seed(0)
+    if which == "bert":
+        cfg = bert_base()
+        _, main, startup, loss = cs._st_bert_program(
+            torch, cfg, cs.BERT_B, cs.BERT_S, cs.BERT_P)
+        feeds = cs._st_bert_feeds(cfg, cs.BERT_B, cs.BERT_S, cs.BERT_P)
+        n, const = cs.ST_BERT_STEPS, tuple(feeds)
+        label = "static bert_base bf16 (bench.py config 3)"
+    else:
+        _, main, startup, loss, feeds = cs._st_resnet_program(
+            torch, cs.RESNET_B)
+        n, const = cs.ST_RESNET_STEPS, ("image", "label")
+        label = "static resnet50 bf16 (bench.py config 2)"
+    exe = fluid.Executor()
+    exe.run(startup)
+
+    def run(_inputs=None, _labels=None):
+        return exe.run_steps(main, feed=feeds, fetch_list=[loss],
+                             iterations=n, fetch_every=n,
+                             constant_feeds=const)
+
+    run.__name__ = f"replayed run_steps window of {n} steps"
+    return label, run, n
+
+
+def print_profile(gpu, label, run_name, wall_us, rows):
+    busy = sum(r[0] for r in rows)
+    print(f"profile[{gpu}] {label}: one {run_name} under the profiler "
+          f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms = "
+          f"{100 * busy / wall_us:.1f}% of it")
+    groups = {}
+    for us, n, name in rows:
+        g = groups.setdefault(_group(name), [0.0, 0])
+        g[0] += us
+        g[1] += n
+    for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"profile[{gpu}] {label}: {g:22s} {us / 1e3:9.2f} ms "
+              f"device ({100 * us / busy:5.1f}% of busy), {n} launches")
+    for us, n, name in rows[:15]:
+        print(f"profile:   {us / 1e3:9.3f} ms  x{n:<6d} {name[:110]}")
+    return busy
+
+
+def main_static(torch, gpu, steps) -> int:
+    for which in ("bert", "resnet50"):
+        label, run, n = build_static(torch, which)
+        for _ in range(2):  # the eager window, then the capture
+            run()
+        ms = execution_ms(torch, run, None, None, steps)
+        print(f"phases[{gpu}] {label}: window {ms:.2f} ms = {ms / n:.3f} "
+              f"ms a step (one CUDA graph replay), mean of {steps} "
+              f"synchronized windows")
+        wall_us, rows, _, _ = profile_step(torch, run, None, None)
+        print_profile(gpu, label, run.__name__, wall_us, rows)
+        del run
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -380,6 +458,9 @@ def main() -> int:
     ap.add_argument("--steps-per-execution", type=int, default=1,
                     help="k > 1: time and profile executions of k steps "
                          "(each after the second a CUDA graph replay)")
+    ap.add_argument("--static", action="store_true",
+                    help="profile chip_smoke.py ST3's and ST4's replayed "
+                         "run_steps windows (bench.py configs 3 and 2)")
     args = ap.parse_args()
     k = args.steps_per_execution
     if k > 1 and args.model == "gpt_long":
@@ -392,6 +473,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu = cs.gpu_line()
+    if args.static:
+        return main_static(torch, gpu, args.steps)
     for which in (("bert", "gpt") if args.model == "both"
                   else (args.model,)):
         label, model, inputs, labels = build(torch, which)
@@ -437,25 +520,12 @@ def main() -> int:
             label_ranges()
         wall_us, rows, steps, host_ops = profile_step(
             torch, run, inputs, labels, ranges=which == "gpt_moe")
-        busy = sum(r[0] for r in rows)
-        print(f"profile[{gpu}] {label}: one {run.__name__} under the "
-              f"profiler {wall_us / 1e3:.1f} ms, device busy "
-              f"{busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% of it")
-        groups = {}
-        for us, n, name in rows:
-            g = groups.setdefault(_group(name), [0.0, 0])
-            g[0] += us
-            g[1] += n
-        for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-            print(f"profile[{gpu}] {label}: {g:22s} {us / 1e3:9.2f} ms "
-                  f"device ({100 * us / busy:5.1f}% of busy), {n} launches")
+        busy = print_profile(gpu, label, run.__name__, wall_us, rows)
         for g, (us, n) in sorted((steps or {}).items(),
                                  key=lambda kv: -kv[1][0]):
             print(f"profile[{gpu}] {label}: by step: {g:42s} "
                   f"{us / 1e3:9.2f} ms device ({100 * us / busy:5.1f}% of "
                   f"busy), {n} launches")
-        for us, n, name in rows[:15]:
-            print(f"profile:   {us / 1e3:9.3f} ms  x{n:<6d} {name[:110]}")
         if which == "wide_deep":
             launches = sum(n for _, n, _ in rows)
             print(f"profile[{gpu}] {label}: {launches} device kernels and "
