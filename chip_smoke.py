@@ -479,6 +479,52 @@ ST5. a ``{"static_graph": ...}`` line under bench.py's names
      kernels line's entries of kernels 2, 3, 7 and 8 carry
      ``static_launches`` (one replayed window's).
 
+The layer library (after A5; ``nn`` / ``nn.functional`` as a user builds
+models with them):
+
+N1. kernels 4, 5 and 6 non-causal at the long-document encoder's shape
+    ``[2, 8, 8192, 64]`` bf16 (q, k, v as ``MultiHeadAttention`` hands
+    them: strided views of ``[B, S, H, hd]``) and at ``[2, 4, 384, 64]``
+    float32 against their plain versions; timed by CUDA graph (median and
+    range of 3) beside the eager call, the plain versions and
+    ``F.scaled_dot_product_attention(is_causal=False)``'s forward and
+    backward, with each kernel's bound over all S x K pairs;
+N2. the long-document encoder (``Embedding(32768, 512)``,
+    ``TransformerEncoder(TransformerEncoderLayer(512, 8, 2048,
+    dropout=0.1, attn_dropout=0.0), 6)``: Transformer-base's encoder,
+    ``Linear(512, 32768)``, cross-entropy) over 2 x 8192 tokens under amp
+    O1 with AdamW through ``Model.train_batch``: 2 + 5 steps, losses
+    finite and falling, kernels 4, 5 and 6 6 launches a step each; step
+    time, tokens/s and peak memory;
+N3. the same model with ``apply_recompute(net,
+    ["TransformerEncoderLayer"])`` under
+    ``torch.use_deterministic_algorithms``, dropout active: one step's
+    loss and every gradient bit-equal to the step without recompute from
+    the same parameters and seed, kernel 4 12 launches a step (forward and
+    recomputation), 5 and 6 6 each, peak memory below; then
+    ``fit(steps_per_execution=2)`` (3 executions: a CUDA graph replayed
+    from the second) bit-equal to 6 eager ``fit`` steps;
+N4. ``nn.Transformer()`` at its defaults on a synthetic copy task (vocab
+    32768, 64 x 64 source and target tokens, ragged key-padding masks and
+    ``generate_square_subsequent_mask``) through ``train_batch``: the
+    loss falls and no flash kernel launches (the masks keep the dense
+    route); then a greedy decode of 16 tokens through the decoder layers'
+    caches, held to the uncached causal forward's argmax (a mismatch only
+    at a near-tie);
+N5. the medium LSTM language model of Zaremba et al. 2014 (2 x 650, vocab
+    10000, 35 steps, batch 20, dropout 0.5) with ``SGD(1.0,
+    grad_clip=ClipGradByGlobalNorm(5.0))`` over a seeded synthetic stream:
+    the loss falls, the step time; a bidirectional 2-layer LSTM and a GRU
+    with ragged ``sequence_length`` card vs CPU from the same weights;
+N6. the JAX test's GRU seq2seq (``tests/test_decode.py``) trained on its
+    copy task on the card, beam 3 accuracy > 0.9; then at H 512, vocab
+    32768, batch 64, beam 4, ``max_step_num`` 32 from seeded weights: ids,
+    parents and lengths on the card equal to the CPU's, scores within
+    1e-5;
+N7. a ``{"nn": ...}`` line with N1-N6's numbers; the kernels line's
+    entries of kernels 4-6 gain ``nn_launches`` (N2's, N3's step and
+    graph) and ``noncausal`` (N1's errors and times).
+
 The line before last is the ``{"kernels": [...]}`` JSON record (kernel
 1's entries carry D4's launches by engine under ``handoff_launches`` and
 D3's paged run's under ``bench_paged_launches``, kernel 9's D5's quantized
@@ -6591,6 +6637,763 @@ def lora_phases(torch, gpu):
             "path": path, "rows": rows}
 
 
+# -- the layer library: a long-document encoder (kernels 4-6), recompute, ----
+# nn.Transformer, the LSTM LM, beam search (phases N1-N7)
+# the long-document encoder: Transformer-base's encoder (Vaswani et al.
+# 2017; nn.Transformer's own defaults) over 2 x 8192 tokens, its attention
+# non-causal and unmasked with attn_dropout 0, so every layer takes the
+# flash kernels behind flash_eligible
+NN_B, NN_S, NN_V = 2, 8192, 32768
+NN_D, NN_HEADS, NN_FF, NN_LAYERS = 512, 8, 2048, 6
+NN_WARMUP, NN_STEPS = 2, 5
+NN_LR = 3e-4
+NN_F32_CASE = (2, 4, 384, 64)   # N1's small float32 non-causal shape
+# N4: nn.Transformer() on a copy task
+TR_B, TR_S, TR_V, TR_STEPS, TR_DECODE = 64, 64, 32768, 12, 16
+# N5: Zaremba et al. 2014's medium LSTM language model
+LM_LAYERS, LM_H, LM_V, LM_T, LM_B, LM_STEPS = 2, 650, 10000, 35, 20, 12
+# N6: the JAX test's GRU seq2seq (copy task), then at H 512 / vocab 32768
+S2S_V, S2S_H, S2S_T, S2S_N, S2S_STEPS = 12, 32, 5, 64, 120
+BEAM_H, BEAM_V, BEAM_B, BEAM_K, BEAM_MAX = 512, 32768, 64, 4, 32
+BEAM_SHARPEN = 30.0   # output weights scaled: top-k gaps well above rounding
+
+
+def _flash_bounds(B, H, S, K, hd):
+    """Non-causal: every (query, key) pair.  (forward, dq, dk / dv) as
+    (flops, bytes): 4, 6 and 8 flops a pair a head dim; q, k, v (and dO)
+    read and the outputs written once in bf16, lse / delta in float32."""
+    pairs = B * H * S * K
+    n = B * H * S * hd * 2
+    stats = B * H * S * 4
+    return {"fwd": (4.0 * pairs * hd, 4 * n + stats),
+            "dq": (6.0 * pairs * hd, 5 * n + 2 * stats),
+            "dkv": (8.0 * pairs * hd, 6 * n + 2 * stats)}
+
+
+def _bound_row(flops, nbytes):
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return dict(bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations")
+
+
+def nn_flash_noncausal(torch, gpu):
+    """Phase N1: kernels 4, 5 and 6 against their plain versions at the
+    encoder's non-causal shape [2, 8, 8192, 64] bf16 (q, k, v as
+    MultiHeadAttention hands them: contiguous [B, S, H, hd] viewed as [B,
+    H, S, hd]) and at a small float32 non-causal shape; then timed by CUDA
+    graph (median and range of 3) beside the eager call, the plain
+    versions and F.scaled_dot_product_attention(is_causal=False)'s forward
+    and backward, with each kernel's bound over all S x K pairs."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    gen = torch.Generator().manual_seed(SEED + 70)
+    B, H, S, hd = NN_B, NN_HEADS, NN_S, NN_D // NN_HEADS
+
+    def mha_views(dtype):
+        # [B, S, H, hd] contiguous, seen as [B, H, S, hd]: MHA's layout
+        return tuple(torch.randn(B, S, H, hd, generator=gen).to(
+            DEVICE, dtype).transpose(1, 2) for _ in range(3))
+
+    errs, ratios = {}, {}
+    q, k, v = mha_views(torch.bfloat16)
+    errs["fwd"], ratios["fwd"], _ = flash_check(torch, fa, q, k, v, False,
+                                                0, "bfloat16")
+    do = torch.randn(B, H, S, hd, generator=gen).to(DEVICE, torch.bfloat16)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, False)
+    berrs, bratio, _, _ = flash_bwd_check(
+        torch, fa, (q, k, v, do, out, lse), False, 0, "bfloat16")
+    errs.update(berrs)
+    ratios["bwd"] = bratio
+    log(f"N1 kernels 4-6 bf16 non-causal at the encoder's shape [{B}, {H}, "
+        f"{S}, {hd}] (strided MHA views): forward max_abs_err "
+        f"{errs['fwd']:.3e} ({ratios['fwd']:.3f} of {FLASH_TOL['bfloat16']}"
+        f"), dq {berrs['dq']:.3e} dk {berrs['dk']:.3e} dv {berrs['dv']:.3e} "
+        f"({bratio:.3f} of {FLASH_BWD_TOL['bfloat16']}); ok")
+    del q, k, v, do, out, lse
+    b2, h2, s2, d2 = NN_F32_CASE
+    qf, kf, vf, dof, outf, lsef = bwd_inputs(torch, fa, b2, h2, s2, s2, d2,
+                                             torch.float32, gen,
+                                             causal=False)
+    f32_fwd, _, _ = flash_check(torch, fa, qf, kf, vf, False, 0, "float32")
+    f32_bwd, _, _, _ = flash_bwd_check(torch, fa, (qf, kf, vf, dof, outf,
+                                                   lsef), False, 0,
+                                       "float32")
+    log(f"N1 kernels 4-6 float32 non-causal {list(NN_F32_CASE)}: forward "
+        f"{f32_fwd:.3e}, dq/dk/dv {f32_bwd}; ok")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # timing: two copies of the inputs (rotated), bf16, contiguous
+    scale = 1.0 / hd ** 0.5
+    copies = []
+    for _ in range(2):
+        q, k, v, do = (torch.randn(B, H, S, hd, generator=gen).to(
+            DEVICE, torch.bfloat16) for _ in range(4))
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, False)
+        delta = (do.float() * out.float()).sum(-1)
+        copies.append((q, k, v, do, out, lse, delta))
+    bounds = _flash_bounds(B, H, S, S, hd)
+    iters = 10
+    rows = {}
+    with torch.no_grad():
+        fwd = graph_runs_ms(torch, lambda q, k, v, *_:
+                            fa.flash_attention_fwd_lse(q, k, v, False),
+                            copies, iters)
+        fwd_eager = runs_ms(torch, lambda q, k, v, *_:
+                            fa.flash_attention_fwd_lse(q, k, v, False),
+                            copies, iters)
+        dq = graph_runs_ms(torch, lambda q, k, v, do, o, l, d:
+                           fa.flash_attention_bwd_dq(q, k, v, do, l, d,
+                                                     False, scale, 0),
+                           copies, iters)
+        dkv = graph_runs_ms(torch, lambda q, k, v, do, o, l, d:
+                            fa.flash_attention_bwd_dkv(q, k, v, do, l, d,
+                                                       False, scale, 0),
+                            copies, iters)
+        bwd_eager = runs_ms(torch, lambda q, k, v, do, o, l, d:
+                            fa.flash_attention_bwd_chunk(q, k, v, o, l, do,
+                                                         False), copies,
+                            iters)
+        plain_fwd = runs_ms(torch, lambda q, k, v, *_:
+                            fa.flash_attention_fwd_lse_ref(q, k, v, False),
+                            copies, 2)
+        plain_bwd = runs_ms(torch, lambda q, k, v, do, o, l, d:
+                            fa.flash_attention_bwd_ref(q, k, v, o, l, do,
+                                                       False, delta=d),
+                            copies, 2)
+        lib_fwd = runs_ms(torch, lambda q, k, v, *_:
+                          F.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=False),
+                          copies, iters)
+    graphs = []
+    for q, k, v, do, *_ in copies:
+        ins = tuple(t.detach().requires_grad_() for t in (q, k, v))
+        graphs.append((F.scaled_dot_product_attention(
+            *ins, is_causal=False), ins, do))
+    lib_bwd = runs_ms(torch, lambda o, ins, do: torch.autograd.grad(
+        o, ins, do, retain_graph=True), graphs, iters)
+    del graphs
+    for key, ms, plain, lib in (("fwd", fwd, plain_fwd, lib_fwd),
+                                ("dq", dq, plain_bwd, lib_bwd),
+                                ("dkv", dkv, plain_bwd, lib_bwd)):
+        flops, nbytes = bounds[key]
+        rows[key] = dict(ms=ms[0], ms_range=[ms[1], ms[2]],
+                         plain_ms=plain[0], library_ms=lib[0],
+                         **_bound_row(flops, nbytes),
+                         tflops=flops / ms[0] / 1e9)
+        log(f"N1 timing[{gpu}] {key} bf16 non-causal [{B}, {H}, {S}, {hd}]: "
+            f"kernel {_spread(ms)} ms (CUDA graph) = "
+            f"{rows[key]['tflops']:.1f} TFLOP/s, plain {_spread(plain)} ms"
+            f"{' (whole backward)' if key != 'fwd' else ''}, library "
+            f"(F.scaled_dot_product_attention{' backward' if key != 'fwd' else ''}"
+            f", is_causal=False) {_spread(lib)} ms, bound "
+            f"{rows[key]['bound_ms']:.4f} ms by {rows[key]['bound_by']} "
+            f"({flops:.4g} flops, {nbytes} bytes)")
+    rows["fwd"]["eager_ms"] = fwd_eager[0]
+    rows["bwd_eager_ms"] = bwd_eager[0]
+    log(f"N1 timing[{gpu}]: eager forward call {_spread(fwd_eager)} ms, the "
+        f"port's eager backward call (delta + dq + dk/dv) "
+        f"{_spread(bwd_eager)} ms")
+    del copies
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errs, "tolerance_share": ratios,
+            "float32": {"shape": list(NN_F32_CASE), "fwd": f32_fwd,
+                        "bwd": f32_bwd}, "timing": rows}
+
+
+def _long_doc_encoder(torch):
+    """Embedding(32768, 512), TransformerEncoder(TransformerEncoderLayer(
+    512, 8, 2048, dropout=0.1, attn_dropout=0.0), 6), Linear(512, 32768)
+    with seeded random weights (drawn on the CPU), float32; its loss is
+    cross-entropy over float32 logits."""
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.nn as nn
+
+    class LongDocEncoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(NN_V, NN_D)
+            self.encoder = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+                NN_D, NN_HEADS, NN_FF, dropout=0.1, attn_dropout=0.0),
+                NN_LAYERS)
+            self.head = nn.Linear(NN_D, NN_V)
+
+        def forward(self, ids):
+            return self.head(self.encoder(self.embedding(ids)))
+
+        def loss(self, logits, labels):
+            return nn.functional.cross_entropy(logits.float(), labels)
+
+    ptt.seed(SEED + 71)
+    return LongDocEncoder().to(DEVICE)
+
+
+def _nn_batch(seed=SEED + 72):
+    import numpy as np
+
+    ids = np.random.RandomState(seed).randint(
+        0, NN_V, size=(NN_B, NN_S)).astype(np.int64)
+    return ids, ids.copy()  # labels: the tokens themselves (learnable)
+
+
+def _flash_counters():
+    from paddle_tpu_torch.ops import flash_attention
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    return (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+
+
+def nn_encoder_train(torch, gpu):
+    """Phase N2: the long-document encoder through Model.train_batch under
+    amp O1 (prepare(amp_configs="O1"): MultiHeadAttention and the Linears
+    in bf16, the LayerNorms in float32; float32 parameters) with AdamW,
+    NN_WARMUP + NN_STEPS steps of one seeded batch; losses finite and
+    falling; kernels 4, 5 and 6 each launched once a layer a step."""
+    import paddle_tpu_torch as ptt
+
+    net = _long_doc_encoder(torch)
+    opt = ptt.optimizer.AdamW(learning_rate=NN_LR, weight_decay=0.01)
+    model = ptt.Model(net).prepare(optimizer=opt, loss=net.loss,
+                                   amp_configs="O1")
+    ids, labels = _nn_batch()
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall, (fa, dq, dkv) = train_steps(
+        torch, model, [ids], [labels], NN_WARMUP, NN_STEPS,
+        _flash_counters())
+    peak = torch.cuda.max_memory_allocated()
+    want = NN_LAYERS * NN_STEPS
+    log(f"N2 encoder (Transformer-base encoder, {NN_LAYERS} layers, "
+        f"{NN_B}x{NN_S} tokens, vocab {NN_V}) under amp O1, AdamW({NN_LR}): "
+        f"losses {[round(x, 4) for x in losses]}; launches over {NN_STEPS} "
+        f"steps: flash_attention {fa}, flash_attention_bwd_dq {dq}, "
+        f"flash_attention_bwd_dkv {dkv} (each = {want}: "
+        f"{fa == dq == dkv == want})")
+    assert fa == dq == dkv == want, (fa, dq, dkv, want)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], (losses[0], losses[-1])
+    tok = NN_B * NN_S
+    step_ms = wall / NN_STEPS * 1e3
+    log(f"N2 encoder[{gpu}]: {step_ms:.1f} ms/step, "
+        f"{tok * NN_STEPS / wall:.0f} tokens/s, peak device memory "
+        f"{peak / 2**20:.0f} MiB")
+    del model, opt, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {"flash_attention": fa,
+                         "flash_attention_bwd_dq": dq,
+                         "flash_attention_bwd_dkv": dkv},
+            "step_ms": step_ms, "tokens_per_s": tok * NN_STEPS / wall,
+            "peak_bytes": peak, "losses": losses}
+
+
+def _grad_step(torch, net, ids, labels, seed):
+    """One forward + backward under amp O1 from ``seed``: (loss, {name:
+    grad}, peak bytes, launches of kernels 4, 5, 6)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.amp import auto_cast
+
+    counters = _flash_counters()
+    for c in counters:
+        c.launches = 0
+    params = [p for p in net.parameters() if p.requires_grad]
+    names = [n for n, p in net.named_parameters() if p.requires_grad]
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net.train()
+    ptt.seed(seed)
+    with auto_cast(level="O1"):
+        loss = net.loss(net(ids), labels)
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = [c.launches for c in counters]
+    return loss.detach(), dict(zip(names, grads)), peak, launches
+
+
+def nn_encoder_recompute(torch, gpu, n2):
+    """Phase N3: the N2 model from the same seed, dropout 0.1 active,
+    under ``torch.use_deterministic_algorithms(True)``: one step without
+    recompute, then with ``apply_recompute(net,
+    ["TransformerEncoderLayer"])``, from the same parameters and generator
+    seed — loss and every gradient bit-equal, kernel 4 launched twice a
+    layer (forward and recomputation), kernels 5 and 6 once, peak memory
+    below the step without; then three executions of
+    ``fit(steps_per_execution=2)`` (a CUDA graph replayed from the second)
+    against six eager ``fit`` steps: parameters bit-equal."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+
+    ids_np, labels_np = _nn_batch()
+    ids = torch.as_tensor(ids_np, device=DEVICE)
+    labels = torch.as_tensor(labels_np, device=DEVICE)
+    out = {}
+    with _deterministic_algorithms(torch):
+        net = _long_doc_encoder(torch)
+        l0, g0, peak0, k0 = _grad_step(torch, net, ids, labels, SEED + 73)
+        wrapped = ptt.nn.apply_recompute(net, ["TransformerEncoderLayer"])
+        l1, g1, peak1, k1 = _grad_step(torch, net, ids, labels, SEED + 73)
+        diff = {n: float((g0[n].double() - g1[n].double()).abs().max())
+                for n in g0 if not torch.equal(g0[n], g1[n])}
+        log(f"N3 recompute ({wrapped} TransformerEncoderLayers marked): "
+            f"loss {float(l0):.6f} / {float(l1):.6f} (bit-equal: "
+            f"{torch.equal(l0, l1)}), {len(g0) - len(diff)} of {len(g0)} "
+            f"gradients bit-equal"
+            + (f"; largest differences {sorted(diff.items(), key=lambda kv: -kv[1])[:4]}"
+               if diff else ""))
+        assert torch.equal(l0, l1) and not diff, (float(l0), float(l1), diff)
+        want = [2 * NN_LAYERS, NN_LAYERS, NN_LAYERS]
+        log(f"N3 launches a step: without recompute {k0}, with {k1} "
+            f"(= {want}: {k1 == want}); peak device memory "
+            f"{peak0 / 2**20:.0f} MiB without, {peak1 / 2**20:.0f} MiB with "
+            f"({peak1 / peak0:.3f}x; N2's train_batch step "
+            f"{n2['peak_bytes'] / 2**20:.0f} MiB)")
+        assert k0 == [NN_LAYERS] * 3 and k1 == want, (k0, k1)
+        assert peak1 < peak0, (peak1, peak0)
+        out.update(loss=float(l0), launches_without=k0, launches_with=k1,
+                   peak_without_bytes=peak0, peak_with_bytes=peak1)
+        del net, g0, g1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        rng = np.random.RandomState(SEED + 74)
+        rows = 6 * NN_B  # six steps: three executions of two
+        data = [rng.randint(0, NN_V, size=(rows, NN_S)).astype(np.int64)]
+        data.append(data[0].copy())
+        runs = {}
+        for spe in (1, 2):
+            net = _long_doc_encoder(torch)
+            ptt.nn.apply_recompute(net, ["TransformerEncoderLayer"])
+            model = ptt.Model(net, inputs=1, labels=1)
+            model.prepare(optimizer=ptt.optimizer.AdamW(
+                learning_rate=NN_LR, weight_decay=0.01), loss=net.loss,
+                amp_configs="O1", steps_per_execution=spe)
+            counters = _flash_counters()
+            for c in counters:
+                c.launches = 0
+            ptt.seed(SEED + 75)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            model.fit(ptt.io.TensorDataset(data), batch_size=NN_B, epochs=1,
+                      shuffle=False, verbose=0)
+            torch.cuda.synchronize()
+            runs[spe] = dict(
+                wall=time.monotonic() - t0,
+                params={k: p.detach().clone()
+                        for k, p in net.named_parameters()},
+                launches=[c.launches for c in counters],
+                graph=model._graph_steps)
+            del model, net
+            gc.collect()
+            torch.cuda.empty_cache()
+        e, g = runs[1], runs[2]
+        unequal = {k: float((e["params"][k].double()
+                             - g["params"][k].double()).abs().max())
+                   for k in e["params"]
+                   if not torch.equal(e["params"][k], g["params"][k])}
+        gs = g["graph"]
+        log(f"N3 fit(steps_per_execution=2) with recompute: "
+            f"{gs.executions} executions, {gs.captures} capture(s); "
+            f"parameters after 6 steps: {len(e['params']) - len(unequal)} of "
+            f"{len(e['params'])} bit-equal to 6 eager fit steps"
+            + (f"; largest differences {sorted(unequal.items(), key=lambda kv: -kv[1])[:4]}"
+               if unequal else "")
+            + f"; launches (forward, dq, dk/dv): graph {g['launches']}, "
+            f"eager {e['launches']}")
+        assert gs.executions == 3 and gs.captures == 1, (gs.executions,
+                                                         gs.captures)
+        assert not unequal, unequal
+        assert g["launches"] == e["launches"] == [
+            12 * NN_LAYERS, 6 * NN_LAYERS, 6 * NN_LAYERS], (g["launches"],
+                                                           e["launches"])
+        out.update(graph_launches=g["launches"],
+                   graph_params_bit_equal=True)
+    return out
+
+
+def _copy_task_transformer(torch):
+    """nn.Transformer() at its defaults with token and learned position
+    embeddings for source and target and an output Linear to the
+    vocabulary."""
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.nn as nn
+
+    class CopyTransformer(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.src_embedding = nn.Embedding(TR_V, 512)
+            self.tgt_embedding = nn.Embedding(TR_V, 512)
+            self.position = nn.Embedding(TR_S + 1, 512)
+            self.transformer = nn.Transformer()
+            self.head = nn.Linear(512, TR_V)
+
+        def embed(self, table, ids, start=0):
+            pos = torch.arange(start, start + ids.shape[1], device=ids.device)
+            return table(ids) * 0.05 + self.position(pos) * 0.05
+
+        def forward(self, src, tgt_in, src_mask, tgt_mask, memory_mask):
+            out = self.transformer(self.embed(self.src_embedding, src),
+                                   self.embed(self.tgt_embedding, tgt_in),
+                                   src_mask=src_mask, tgt_mask=tgt_mask,
+                                   memory_mask=memory_mask)
+            return self.head(out)
+
+        def loss(self, logits, labels):
+            return nn.functional.cross_entropy(logits, labels)
+
+    ptt.seed(SEED + 76)
+    return CopyTransformer().to(DEVICE)
+
+
+def nn_transformer_copy(torch, gpu):
+    """Phase N4: nn.Transformer() (512, 8 heads, 6 + 6 layers, 2048,
+    dropout 0.1) on a synthetic copy task, vocab 32768, batch 64 x 64
+    source and 64 target tokens, ragged key-padding masks (bool) and
+    generate_square_subsequent_mask, through Model.train_batch: the loss
+    falls and the flash counters stay 0 (the masks keep the dense route,
+    as the gate says); then a greedy decode of TR_DECODE tokens through
+    the TransformerDecoderLayer caches, held to the uncached causal
+    forward's argmax at every position (a mismatch only at a near-tie)."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.nn as nn
+
+    net = _copy_task_transformer(torch)
+    rng = np.random.RandomState(SEED + 77)
+    src = rng.randint(2, TR_V, size=(TR_B, TR_S)).astype(np.int64)
+    lens = rng.randint(TR_S // 2, TR_S + 1, size=TR_B)
+    keep = np.arange(TR_S)[None, :] < lens[:, None]
+    src = np.where(keep, src, 0)
+    tgt_in = np.concatenate([np.ones((TR_B, 1), np.int64), src[:, :-1]], 1)
+    key_pad = keep[:, None, None, :]
+    src_mask = np.broadcast_to(key_pad, (TR_B, 1, TR_S, TR_S)).copy()
+    memory_mask = src_mask.copy()
+    tgt_mask = nn.Transformer.generate_square_subsequent_mask(TR_S).numpy()
+    model = ptt.Model(net, inputs=["src", "tgt_in", "src_mask", "tgt_mask",
+                                   "memory_mask"], labels=["label"]).prepare(
+        optimizer=ptt.optimizer.AdamW(learning_rate=1e-4), loss=net.loss)
+    counters = _flash_counters()
+    for c in counters:
+        c.launches = 0
+    inputs = [src, tgt_in, src_mask, tgt_mask, memory_mask]
+    losses = [model.train_batch(inputs, [src])[0] for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    losses += [model.train_batch(inputs, [src])[0]
+               for _ in range(TR_STEPS - 2)]
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) / (TR_STEPS - 2) * 1e3
+    launches = [c.launches for c in counters]
+    log(f"N4 nn.Transformer() copy task (vocab {TR_V}, {TR_B}x{TR_S}, "
+        f"ragged source lengths {int(lens.min())}-{int(lens.max())}): "
+        f"losses {[round(x, 4) for x in losses]}; {step_ms:.1f} ms/step; "
+        f"flash launches {launches} (0: the masks keep the dense route)")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], (losses[0], losses[-1])
+    assert launches == [0, 0, 0], launches
+
+    net.eval()
+    tr = net.transformer
+    with torch.no_grad():
+        s = torch.as_tensor(src, device=DEVICE)
+        mm = torch.as_tensor(memory_mask, device=DEVICE)
+        memory = tr.encoder(net.embed(net.src_embedding, s),
+                            src_mask=torch.as_tensor(src_mask,
+                                                     device=DEVICE))
+        cache = tr.decoder.gen_cache(memory)
+        tok = torch.ones(TR_B, 1, dtype=torch.int64, device=DEVICE)
+        seq = [tok]
+        for t in range(TR_DECODE):
+            x = net.embed(net.tgt_embedding, tok, start=t)
+            y, cache = tr.decoder(x, memory, memory_mask=mm[:, :, :1],
+                                  cache=cache)
+            tok = net.head(y).argmax(-1)
+            seq.append(tok)
+        cached = torch.cat(seq, 1)                     # [B, 1 + TR_DECODE]
+        full = tr.decoder(net.embed(net.tgt_embedding, cached[:, :-1]),
+                          memory, tgt_mask=nn.Transformer
+                          .generate_square_subsequent_mask(TR_DECODE),
+                          memory_mask=mm[:, :, :TR_DECODE])
+        logits = net.head(full)
+        top2 = logits.topk(2, -1).values
+        want = logits.argmax(-1)
+        miss = want != cached[:, 1:]
+        gaps = (top2[..., 0] - top2[..., 1])[miss]
+        scale = float(logits.abs().max())
+    n_miss = int(miss.sum())
+    log(f"N4 greedy decode of {TR_DECODE} tokens through the decoder "
+        f"caches: {miss.numel() - n_miss} of {miss.numel()} tokens equal "
+        f"to the uncached causal forward's argmax"
+        + (f"; the others at near-ties (top-2 gaps {gaps.tolist()} of "
+           f"max |logit| {scale:.3f})" if n_miss else ""))
+    assert n_miss == 0 or bool((gaps <= 1e-5 * scale).all()), gaps
+    del model, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms,
+            "decode_tokens_equal": miss.numel() - n_miss,
+            "decode_tokens": miss.numel(), "flash_launches": launches}
+
+
+def _lm_stream(n, seed):
+    """A seeded synthetic token stream with structure to learn: each token
+    is one of four successors of the previous one, the successors drawn
+    Zipf-distributed over the vocabulary (a skewed unigram, as text's)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    succ = (rng.zipf(1.3, size=(LM_V, 4)) - 1) % LM_V
+    out = np.empty(n, np.int64)
+    out[0] = 0
+    choice = rng.randint(0, 4, size=n)
+    for i in range(1, n):
+        out[i] = succ[out[i - 1], choice[i]]
+    return out
+
+
+def nn_lstm_lm(torch, gpu):
+    """Phase N5: the medium LSTM language model of Zaremba et al. 2014 (2 x
+    650, vocab 10000, 35 steps, batch 20, dropout 0.5) with SGD(1.0,
+    grad_clip=ClipGradByGlobalNorm(5.0)) over a seeded synthetic stream:
+    LM_STEPS train_batch steps, the loss falls, the step time; then a
+    bidirectional 2-layer LSTM and a GRU with ragged sequence_length on
+    the card and on the CPU from the same weights (float32, TF32 off): the
+    largest differences printed and held at 1e-4."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.nn as nn
+
+    class LSTMLM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(LM_V, LM_H)
+            self.dropout = nn.Dropout(0.5)
+            self.lstm = nn.LSTM(LM_H, LM_H, num_layers=LM_LAYERS,
+                                dropout=0.5)
+            self.head = nn.Linear(LM_H, LM_V)
+
+        def forward(self, ids):
+            out, _ = self.lstm(self.dropout(self.embedding(ids)))
+            return self.head(self.dropout(out))
+
+        def loss(self, logits, labels):
+            return nn.functional.cross_entropy(logits, labels)
+
+    ptt.seed(SEED + 78)
+    net = LSTMLM().to(DEVICE)
+    opt = ptt.optimizer.SGD(learning_rate=1.0,
+                            grad_clip=nn.ClipGradByGlobalNorm(5.0))
+    model = ptt.Model(net).prepare(optimizer=opt, loss=net.loss)
+    stream = _lm_stream(LM_B * (LM_T + 1) * LM_STEPS, SEED + 79).reshape(
+        LM_STEPS, LM_B, LM_T + 1)
+    losses = [model.train_batch([stream[0, :, :-1]], [stream[0, :, 1:]])[0]]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for i in range(1, LM_STEPS):
+        losses.append(model.train_batch([stream[i, :, :-1]],
+                                        [stream[i, :, 1:]])[0])
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) / (LM_STEPS - 1) * 1e3
+    log(f"N5 LSTM LM (Zaremba medium: {LM_LAYERS}x{LM_H}, vocab {LM_V}, "
+        f"{LM_T} steps, batch {LM_B}, dropout 0.5, SGD(1.0) + global-norm "
+        f"clip 5): losses {[round(x, 4) for x in losses]}; {step_ms:.1f} "
+        f"ms/step ({LM_B * LM_T / step_ms * 1e3:.0f} tokens/s)")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], (losses[0], losses[-1])
+
+    diffs = {}
+    x = np.random.RandomState(SEED + 80).randn(6, 24, 96).astype(np.float32)
+    lens = np.array([24, 17, 9, 1, 24, 12], np.int64)
+    for name, make in (("bilstm", lambda: nn.LSTM(
+            96, 128, num_layers=2, direction="bidirect")),
+            ("gru", lambda: nn.GRU(96, 128, num_layers=2))):
+        ptt.seed(SEED + 81)
+        cpu = make()
+        card = make().to(DEVICE)
+        card.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            oc, sc = cpu(torch.tensor(x), sequence_length=torch.tensor(lens))
+            og, sg = card(torch.tensor(x, device=DEVICE),
+                          sequence_length=torch.tensor(lens, device=DEVICE))
+        leaves = [(oc, og)] + (list(zip(sc, sg)) if isinstance(sc, tuple)
+                               else [(sc, sg)])
+        diffs[name] = max(float((a - b.cpu()).abs().max()) for a, b in leaves)
+        assert bool((og[3, 1:] == 0).all())  # past length 1: zeros
+    log(f"N5 card vs CPU from the same weights (ragged lengths "
+        f"{lens.tolist()}): largest |difference| {diffs} (<= 1e-4)")
+    assert max(diffs.values()) <= 1e-4, diffs
+    del model, opt, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms,
+            "tokens_per_s": LM_B * LM_T / step_ms * 1e3,
+            "card_vs_cpu_max_abs": diffs}
+
+
+def _seq2seq(torch, nn, V, H):
+    class Seq2Seq(nn.Layer):
+        """The JAX test's GRU encoder-decoder (tests/test_decode.py)."""
+
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(V, H)
+            self.enc = nn.GRU(H, H)
+            self.cell = nn.GRUCell(H, H)
+            self.out = nn.Linear(H, V)
+
+        def encode(self, s):
+            _, h = self.enc(self.emb(s))
+            return h[0]
+
+        def forward(self, s, t_in):
+            h = self.encode(s)
+            xs = self.emb(t_in)
+            outs = []
+            for t in range(xs.shape[1]):
+                o, h = self.cell(xs[:, t], h)
+                outs.append(o)
+            return self.out(torch.stack(outs, 1))
+
+        def loss(self, logits, labels):
+            return nn.functional.cross_entropy(logits, labels)
+
+    return Seq2Seq()
+
+
+def _beam_decode(torch, net, src, beam, max_steps, raw=False):
+    """BeamSearchDecoder + dynamic_decode over ``net``'s cell from its
+    encoding of ``src``; ``raw``: the per-step outputs (scores, ids,
+    parents) without the backtrace."""
+    import paddle_tpu_torch.nn as nn
+
+    dec = nn.BeamSearchDecoder(net.cell, start_token=0, end_token=1,
+                               beam_size=beam, embedding_fn=net.emb,
+                               output_fn=net.out)
+    if raw:
+        def finalize(outputs, states, lengths):
+            raise NotImplementedError
+        dec.finalize = finalize
+    with torch.no_grad():
+        return nn.dynamic_decode(dec, inits=net.encode(src),
+                                 max_step_num=max_steps, return_length=True)
+
+
+def nn_beam_search(torch, gpu):
+    """Phase N6: the JAX test's GRU seq2seq (tests/test_decode.py) trained
+    on its copy task on the card (V 12, H 32, 64 sequences of 5, Adam
+    0.02, S2S_STEPS steps), then beam 3 decodes it (top-beam accuracy >
+    0.9); then the same structure at H 512, vocab 32768, batch 64 from
+    seeded weights (output weights x BEAM_SHARPEN, so the top-k gaps stand
+    far above float32 rounding): BeamSearchDecoder(beam_size=4) +
+    dynamic_decode(max_step_num=32) on the card and on the CPU — ids,
+    parents and lengths equal, scores within 1e-5 relative, the same
+    number of steps."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.nn as nn
+
+    rng = np.random.RandomState(SEED + 82)
+    src = rng.randint(2, S2S_V, size=(S2S_N, S2S_T)).astype(np.int64)
+    t_in = np.concatenate([np.zeros((S2S_N, 1), np.int64), src[:, :-1]], 1)
+    ptt.seed(SEED + 83)
+    net = _seq2seq(torch, nn, S2S_V, S2S_H).to(DEVICE)
+    model = ptt.Model(net, inputs=["src", "t_in"], labels=["label"]).prepare(
+        optimizer=ptt.optimizer.Adam(learning_rate=0.02), loss=net.loss)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    losses = [model.train_batch([src, t_in], [src])[0]
+              for _ in range(S2S_STEPS)]
+    torch.cuda.synchronize()
+    train_s = time.monotonic() - t0
+    net.eval()
+    ids, _, lens = _beam_decode(torch, net, torch.as_tensor(
+        src[:8], device=DEVICE), 3, S2S_T - 1)
+    top = ids[:, :, 0].cpu().numpy()
+    acc = float((top[:, :S2S_T] == src[:8, :top.shape[1]]).mean())
+    log(f"N6 GRU seq2seq copy task on the card (V {S2S_V}, H {S2S_H}, "
+        f"{S2S_STEPS} Adam steps in {train_s:.2f}s): loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; beam 3 top-beam accuracy {acc:.3f} (> 0.9)")
+    assert acc > 0.9, acc
+    del model, net
+
+    ptt.seed(SEED + 84)
+    cpu = _seq2seq(torch, nn, BEAM_V, BEAM_H)
+    with torch.no_grad():
+        cpu.out.weight.mul_(BEAM_SHARPEN)
+    card = _seq2seq(torch, nn, BEAM_V, BEAM_H).to(DEVICE)
+    card.load_state_dict(cpu.state_dict())
+    cpu.eval()
+    card.eval()
+    src = np.random.RandomState(SEED + 85).randint(
+        2, BEAM_V, size=(BEAM_B, 12)).astype(np.int64)
+    res = {}
+    for name, net, dev in (("cpu", cpu, "cpu"), ("card", card, DEVICE)):
+        s = torch.as_tensor(src, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ids, states, lens = _beam_decode(torch, net, s, BEAM_K, BEAM_MAX)
+        raw, _, _ = _beam_decode(torch, net, s, BEAM_K, BEAM_MAX, raw=True)
+        torch.cuda.synchronize()
+        res[name] = dict(ids=ids.cpu(), lens=lens.cpu(),
+                         lengths=states.lengths.cpu(),
+                         scores=raw.scores.cpu(),
+                         step_ids=raw.predicted_ids.cpu(),
+                         parents=raw.parent_ids.cpu(),
+                         seconds=(time.monotonic() - t0) / 2)
+    c, g = res["cpu"], res["card"]
+    same = {k: torch.equal(c[k], g[k])
+            for k in ("ids", "lens", "lengths", "step_ids", "parents")}
+    score_rel = float(((c["scores"].double() - g["scores"].double()).abs()
+                       / c["scores"].double().abs().clamp_min(1.0)).max())
+    steps = int(g["parents"].shape[1])
+    finished_rows = int((g["lens"] < steps).all(-1).sum())
+    log(f"N6 beam search at H {BEAM_H}, vocab {BEAM_V}, batch {BEAM_B}, "
+        f"beam {BEAM_K}, max_step_num {BEAM_MAX}: {steps} steps on both "
+        f"({c['parents'].shape[1]} on the CPU); card vs CPU equal: {same}; "
+        f"scores' largest relative difference {score_rel:.2e}; "
+        f"{finished_rows} of {BEAM_B} rows finished every beam early; "
+        f"decode {g['seconds'] * 1e3:.1f} ms on the card, "
+        f"{c['seconds'] * 1e3:.1f} ms on the CPU")
+    assert all(same.values()) and score_rel <= 1e-5, (same, score_rel)
+    assert c["parents"].shape == g["parents"].shape
+    del cpu, card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"copy_task_accuracy": acc, "copy_task_losses": [losses[0],
+                                                            losses[-1]],
+            "beam_steps": steps, "card_equals_cpu": same,
+            "score_max_rel_diff": score_rel,
+            "decode_ms": {"card": g["seconds"] * 1e3,
+                          "cpu": c["seconds"] * 1e3}}
+
+
+def nn_phases(torch, gpu):
+    """Phases N1-N6 and the ``{"nn": ...}`` line (N7); returns what the
+    kernels line needs."""
+    n1 = nn_flash_noncausal(torch, gpu)
+    n2 = nn_encoder_train(torch, gpu)
+    n3 = nn_encoder_recompute(torch, gpu, n2)
+    n4 = nn_transformer_copy(torch, gpu)
+    n5 = nn_lstm_lm(torch, gpu)
+    n6 = nn_beam_search(torch, gpu)
+    log(json.dumps({"nn": {
+        "device": gpu,
+        "N1_noncausal_flash": n1,
+        "N2_long_document_encoder": {k: v for k, v in n2.items()},
+        "N3_recompute": n3, "N4_transformer_copy": n4,
+        "N5_lstm_lm": n5, "N6_beam_search": n6}}))
+    return {"N1": n1, "N2": n2, "N3": n3}
+
+
 def main() -> int:
     import torch
 
@@ -6713,6 +7516,9 @@ def main() -> int:
     # batched multi-LoRA and multi-tenant serving (kernel 10 on both
     # low-rank hops of every adapted linear)
     lora = lora_phases(torch, gpu)
+    # the layer library: the long-document encoder through kernels 4-6
+    # (non-causal), recompute, nn.Transformer, the LSTM LM, beam search
+    nn = nn_phases(torch, gpu)
     paged = dict(name="paged_flash_decode", route="cuda",
                  source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
                  replaces="paddle_tpu/ops/paged_attention.py:155")
@@ -6841,12 +7647,29 @@ def main() -> int:
                           for layer, _, _, _ in RESNET_TAILS[1:]}))
     # the long-context inference slice: launches of its eval_batch and
     # predict_batch calls, numbers at its shape, bf16, causal
+    # the layer library's encoder (N2: 5 train_batch steps; N3: one
+    # recomputed step and 3 fit executions of 2 steps) and the non-causal
+    # shape it runs (N1: errors, CUDA-graph times, bounds)
+    n1t = nn["N1"]["timing"]
+
+    def noncausal(key, err):
+        return dict(max_abs_err=err, **{k: n1t[key][k] for k in (
+            "ms", "ms_range", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")}, shape=[NN_B, NN_HEADS, NN_S, NN_D // NN_HEADS],
+            dtype="bfloat16")
+
+    def nn_launches(i):
+        return {"N2": list(nn["N2"]["launches"].values())[i],
+                "N3_recompute_step": nn["N3"]["launches_with"][i],
+                "N3_fit_graph": nn["N3"]["graph_launches"][i]}
+
     kernels.append(dict(
         name="flash_attention", route="cuda",
         source="paddle_tpu_torch/ops/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/flash_attention.py:193",
         launches=long["launches"], max_abs_err=flash_err,
-        **frows["slice"]))
+        **frows["slice"], nn_launches=nn_launches(0),
+        noncausal=noncausal("fwd", nn["N1"]["max_abs_err"]["fwd"])))
     # the long-context training slice: launches of its timed train_batch
     # steps, numbers at its shape, bf16, causal; plain_ms and library_ms
     # are whole backwards (dq, dk and dv together), for both kernels
@@ -6858,7 +7681,11 @@ def main() -> int:
             replaces=f"paddle_tpu/ops/flash_attention.py:{line}",
             launches=train_long["launches"][name],
             max_abs_err=bwd_errs[key], **brows["slice"][key],
-            whole_backward_ms=brows["slice"]["bwd_ms"]))
+            whole_backward_ms=brows["slice"]["bwd_ms"],
+            nn_launches=nn_launches(1 if key == "dq" else 2),
+            noncausal=noncausal(key, max(
+                nn["N1"]["max_abs_err"][g] for g in (
+                    ("dq",) if key == "dq" else ("dk", "dv"))))))
     # the MoE slice: launches of its timed train_batch steps, numbers at the
     # slice's fc1 shape (bf16, a real routing); fc2 and the serving decode
     # shapes (float32) beside them

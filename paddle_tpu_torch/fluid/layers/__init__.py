@@ -8,14 +8,20 @@ Three tiers, as in the JAX module:
   1.x calling-convention wrappers (``input`` / ``dim`` / ``keep_dim``
   argument names, ``elementwise_*``'s ``axis`` broadcast, ``act=``) over
   the port's implementations — no second implementation;
+* ``nn.functional``'s activations, losses and extension ops and ``nn``'s
+  RNN cells and decoders under the JAX module's names (``RNNCell`` is
+  ``RNNCellBase``; ``kldiv_loss``, ``huber_loss``, ``warpctc``, ``rnn``
+  and ``birnn`` are thin 1.x wrappers over them);
 * the parameter-creating builders of ``static.builders`` (``fc``,
-  ``embedding``, ``conv2d``, ``pool2d``, ``batch_norm``, ``layer_norm``)
+  ``embedding``, ``conv2d``, ``pool2d``, ``batch_norm``, ``layer_norm``,
+  ``instance_norm``, ``group_norm``, ``spectral_norm``, ``prelu``,
+  ``bilinear_tensor_product``, ``hsigmoid``)
   and ``data``, ``assign(output=)``, ``fill_constant`` and
   ``autoincreased_step_counter`` in graph mode;
 * every other name of the JAX module resolves to a function (or class)
   that raises ``UnimplementedError`` naming the ROADMAP queue-A item that
-  ports it: the detection, sequence, CRF, decoding, RNN and loss ops are
-  the rest of ``nn/`` (training step), the resize / crop / 3-D pooling
+  ports it: the detection, sequence, CRF and 1.x beam-search ops are
+  the rest of ``nn/`` (its tail), the resize / crop / 3-D pooling
   ops are vision, and the control flow (``control_flow.py``), the
   readers, the LoD machinery and the other Program-only names are static
   graph and the long tail — never a bare ``AttributeError``.
@@ -42,8 +48,9 @@ from ...nn.functional import cross_entropy as _cross_entropy
 from ...nn.functional.loss import softmax_with_cross_entropy  # noqa: F401
 from ...static import create_global_var, create_parameter  # noqa: F401
 from ...static.builders import (  # noqa: F401
-    UNPORTED as _BUILDERS_UNPORTED, _act, batch_norm, conv2d, embedding, fc,
-    layer_norm, pool2d, unported as _unported,
+    UNPORTED as _BUILDERS_UNPORTED, _act, batch_norm, bilinear_tensor_product,
+    conv2d, embedding, fc, group_norm, hsigmoid, instance_norm, layer_norm,
+    pool2d, prelu, spectral_norm, unported as _unported,
 )
 from ...static.graph import (
     Variable as _GraphVar, data as _graph_data, default_main_program as _dmp,
@@ -63,6 +70,22 @@ from ...tensor import (  # noqa: F401
     less_equal, greater_than, greater_equal,
     equal, not_equal, logical_and, logical_or, logical_xor, logical_not,
     is_empty, mean,
+)
+
+from ...nn.functional import (  # noqa: F401
+    selu, elu, relu6, swish, mish, leaky_relu, maxout, log_loss,
+    dice_loss, npair_loss, mse_loss, label_smooth, row_conv, gather_tree,
+    sequence_mask, pixel_shuffle, unfold, temporal_shift, sigmoid_focal_loss,
+)
+from ...nn import (  # noqa: F401
+    BeamSearchDecoder, Decoder, dynamic_decode, RNNCellBase as RNNCell,
+    GRUCell, LSTMCell, clip_by_norm, DecodeHelper, TrainingHelper,
+    GreedyEmbeddingHelper, SampleEmbeddingHelper, BasicDecoder,
+    RNN as _RNN, BiRNN as _BiRNN,
+)
+from ...nn.functional import (
+    ctc_loss as _ctc_loss, kl_div as _kl_div,
+    smooth_l1_loss as _smooth_l1_loss,
 )
 
 
@@ -297,6 +320,39 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
     if normalize:
         out = out / torch.clamp(mask.sum(), min=1)
     return out
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    return _kl_div(x, target, reduction=reduction)
+
+
+def huber_loss(input, label, delta):
+    return _smooth_l1_loss(input, label, reduction="none", delta=delta)
+
+
+def warpctc(input, label, blank=0, norm_by_times=False, input_length=None,
+            label_length=None):
+    """CTC loss over dense time-major logits ``[T, B, C]`` with explicit
+    lengths (``nn.functional.ctc_loss``, unreduced)."""
+    if input_length is None or label_length is None:
+        raise UnimplementedError(
+            "warpctc needs input_length / label_length (the dense padding "
+            "policy replaces LoD inputs)")
+    return _ctc_loss(input, label, input_length, label_length, blank=blank,
+                     reduction="none")
+
+
+def rnn(cell, inputs, initial_states=None, sequence_length=None,
+        time_major=False, is_reverse=False, **kwargs):
+    """A cell over a sequence (``nn.RNN``)."""
+    return _RNN(cell, is_reverse=is_reverse, time_major=time_major)(
+        inputs, initial_states, sequence_length)
+
+
+def birnn(cell_fw, cell_bw, inputs, initial_states=None,
+          sequence_length=None, time_major=False, **kwargs):
+    return _BiRNN(cell_fw, cell_bw, time_major=time_major)(
+        inputs, initial_states, sequence_length)
 
 
 def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
@@ -617,7 +673,9 @@ from ...framework.serialization import load  # noqa: E402,F401
 import types as _types  # noqa: E402
 
 _NO_WRAP = {"fc", "embedding", "conv2d", "batch_norm", "layer_norm",
-            "pool2d", "assign", "data", "load", "fill_constant",
+            "pool2d", "instance_norm", "group_norm", "spectral_norm",
+            "prelu", "bilinear_tensor_product", "hsigmoid", "assign", "data",
+            "load", "fill_constant",
             "autoincreased_step_counter", "create_parameter",
             "create_global_var", "accuracy"}
 for _n, _v in list(globals().items()):
@@ -631,33 +689,25 @@ _TRAINING = "training step"
 _VISION = "vision"
 _ITEM8 = "static graph and the long tail"
 UNPORTED = {
-    # nn/'s activations, losses, sequence / detection / CRF / decoding /
-    # RNN ops: the rest of nn/ (item 2)
+    # nn/'s sequence / detection / CRF ops and the 1.x beam-search ops:
+    # the rest of nn/ (item 2's tail)
     **{n: _TRAINING for n in (
-        "selu", "elu", "relu6", "swish", "mish", "prelu", "leaky_relu",
-        "maxout", "log_loss", "dice_loss", "npair_loss", "mse_loss",
-        "label_smooth", "kldiv_loss", "huber_loss", "warpctc",
-        "sampled_softmax_with_cross_entropy", "row_conv", "gather_tree",
+        "sampled_softmax_with_cross_entropy",
         "iou_similarity", "ssd_loss", "prior_box", "bipartite_match",
         "target_assign", "detection_output", "box_coder", "box_clip",
-        "multiclass_nms", "sequence_mask", "linear_chain_crf",
-        "crf_decoding", "temporal_shift", "sigmoid_focal_loss", "yolo_box",
+        "multiclass_nms", "linear_chain_crf", "crf_decoding", "yolo_box",
         "yolov3_loss", "matrix_nms", "density_prior_box",
         "anchor_generator", "generate_proposals", "box_decoder_and_assign",
         "distribute_fpn_proposals", "collect_fpn_proposals", "psroi_pool",
         "locality_aware_nms", "roi_align", "roi_pool",
         "retinanet_detection_output", "similarity_focus",
         "filter_by_instag", "beam_search", "beam_search_decode",
-        "BeamSearchDecoder", "Decoder", "dynamic_decode", "RNNCell",
-        "GRUCell", "LSTMCell", "clip_by_norm", "DecodeHelper",
-        "TrainingHelper", "GreedyEmbeddingHelper", "SampleEmbeddingHelper",
-        "BasicDecoder", "rnn", "birnn", "sequence_pool", "sequence_softmax",
+        "sequence_pool", "sequence_softmax",
         "sequence_reverse", "sequence_pad", "sequence_unpad",
         "sequence_first_step", "sequence_last_step", "sequence_expand",
         "sequence_expand_as", "sequence_enumerate", "sequence_concat",
         "sequence_slice", "sequence_scatter", "sequence_reshape",
-        "crop_tensor", "maxout_legacy", "warpctc_lod", "pixel_shuffle",
-        "unfold")},
+        "crop_tensor", "maxout_legacy", "warpctc_lod")},
     # resize, crop, grid sampling and 3-D pooling (item 5)
     **{n: _VISION for n in (
         "pad2d", "image_resize", "resize_bilinear", "resize_nearest",

@@ -15,7 +15,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["seed", "default_generator", "generator_for"]
+__all__ = ["seed", "default_generator", "generator_for", "generators"]
 
 _seed = 0
 _default = torch.Generator().manual_seed(_seed)
@@ -40,6 +40,12 @@ def generator_for(device) -> torch.Generator:
             gen = _by_device[dev] = torch.Generator(device=dev).manual_seed(
                 _seed)
         return gen
+
+
+def generators():
+    """Every generator made so far (the CPU one and one per device used)."""
+    with _lock:
+        return list(_by_device.values())
 
 
 def seed(seed_: int) -> torch.Generator:

@@ -12,7 +12,9 @@ configs 2 and 3).
 The builders need graph mode (a symbolic Variable input); called with
 tensors they raise, naming the eager Layer.  Ported: ``fc``,
 ``embedding``, ``conv2d``, ``pool2d`` (max and global pooling),
-``batch_norm``, ``layer_norm`` and ``layer_op``.  The other builders of
+``batch_norm``, ``layer_norm``, ``instance_norm``, ``group_norm``,
+``spectral_norm``, ``prelu``, ``bilinear_tensor_product``, ``hsigmoid``
+and ``layer_op``.  The other builders of
 the JAX module raise ``UnimplementedError`` naming the ROADMAP queue-A
 item that ports their layers.
 """
@@ -28,7 +30,8 @@ from ..framework.errors import InvalidArgumentError, UnimplementedError
 from .graph import Variable, default_main_program, record_call
 
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
-           "layer_norm", "layer_op"]
+           "layer_norm", "instance_norm", "group_norm", "spectral_norm",
+           "prelu", "bilinear_tensor_product", "hsigmoid", "layer_op"]
 
 #: the activations a builder's ``act=`` names
 _ACTS = {
@@ -238,14 +241,95 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
     return layer_op(layer, x, prefix=name or "layer_norm", act=act)
 
 
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    """ref: fluid/layers/nn.py instance_norm (4-D NCHW input)."""
+    x = _require_var(input, "instance_norm", "paddle.nn.InstanceNorm2D")
+    from .. import nn
+
+    layer = nn.InstanceNorm2D(int(x.shape[1]), epsilon=epsilon,
+                              weight_attr=param_attr, bias_attr=bias_attr)
+    return layer_op(layer, x, prefix=name or "instance_norm")
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    """ref: fluid/layers/nn.py group_norm."""
+    x = _require_var(input, "group_norm", "paddle.nn.GroupNorm")
+    from .. import nn
+
+    ch = x.shape[1] if data_layout == "NCHW" else x.shape[-1]
+    layer = nn.GroupNorm(groups, int(ch), epsilon=epsilon,
+                         weight_attr=param_attr, bias_attr=bias_attr,
+                         data_format=data_layout)
+    return layer_op(layer, x, prefix=name or "group_norm", act=act)
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    """ref: fluid/layers/nn.py spectral_norm: a weight Variable over its
+    largest singular value (power iteration)."""
+    x = _require_var(weight, "spectral_norm", "paddle.nn.SpectralNorm")
+    from .. import nn
+
+    layer = nn.SpectralNorm([int(d) for d in x.shape], dim=dim,
+                            power_iters=power_iters, eps=eps)
+    return layer_op(layer, x, prefix=name or "spectral_norm")
+
+
+def prelu(x, mode="all", param_attr=None, data_format="NCHW", name=None):
+    """ref: fluid/layers/nn.py prelu: a learnable negative slope, one
+    (``all``), one a channel (``channel``) or one an element
+    (``element``)."""
+    v = _require_var(x, "prelu", "paddle.nn.PReLU")
+    from .. import nn
+
+    if mode == "all":
+        num = 1
+    elif mode == "channel":
+        num = int(v.shape[1] if data_format == "NCHW" else v.shape[-1])
+    else:
+        num = int(np.prod(v.shape[1:]))
+    layer = nn.PReLU(num_parameters=num, weight_attr=param_attr,
+                     data_format=data_format)
+    return layer_op(layer, v, prefix=name or "prelu")
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    """ref: fluid/layers/nn.py bilinear_tensor_product."""
+    xv = _require_var(x, "bilinear_tensor_product",
+                      "paddle.nn.BilinearTensorProduct")
+    from .. import nn
+
+    layer = nn.BilinearTensorProduct(int(xv.shape[-1]), int(y.shape[-1]),
+                                     size, param_attr=param_attr,
+                                     bias_attr=bias_attr)
+    return layer_op(layer, xv, prefix=name or "bilinear_tensor_product",
+                    act=act, extra_args=(y,))
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, path_table=None, path_code=None, is_custom=False,
+             is_sparse=False):
+    """ref: fluid/layers/nn.py hsigmoid: the hierarchical sigmoid loss
+    over ``paddle.nn.HSigmoidLoss`` (which holds the tree's weights)."""
+    x = _require_var(input, "hsigmoid", "paddle.nn.HSigmoidLoss")
+    from .. import nn
+
+    layer = nn.HSigmoidLoss(int(x.shape[-1]), num_classes,
+                            weight_attr=param_attr, bias_attr=bias_attr,
+                            is_custom=is_custom, is_sparse=is_sparse)
+    extra = (label,) if path_table is None else (label, path_table,
+                                                 path_code)
+    return layer_op(layer, x, prefix=name or "hsigmoid", extra_args=extra)
+
+
 #: the JAX module's other builders → the queue-A item that ports them
 UNPORTED = {
     **{n: "vision" for n in (
-        "conv2d_transpose", "conv3d", "conv3d_transpose", "instance_norm",
-        "group_norm")},
+        "conv2d_transpose", "conv3d", "conv3d_transpose")},
     **{n: "static graph and the long tail" for n in (
-        "spectral_norm", "prelu", "bilinear_tensor_product", "nce",
-        "center_loss", "sequence_conv", "inplace_abn", "hsigmoid", "lstm",
+        "nce", "center_loss", "sequence_conv", "inplace_abn", "lstm",
         "data_norm", "multi_box_head", "deformable_conv", "gru_unit",
         "lstm_unit", "dynamic_lstm", "dynamic_lstmp", "dynamic_gru")},
 }

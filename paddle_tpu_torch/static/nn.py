@@ -1,6 +1,8 @@
 """paddle.static.nn — the op builders over the recorded graph (port of
 ``paddle_tpu.static.nn``): ``fc``, ``embedding``, ``conv2d``, ``pool2d``,
-``batch_norm`` and ``layer_norm`` are ported (``static/builders.py``);
+``batch_norm``, ``layer_norm``, ``instance_norm``, ``group_norm``,
+``spectral_norm``, ``prelu``, ``bilinear_tensor_product`` and ``hsigmoid``
+are ported (``static/builders.py``), ``row_conv`` is the functional op;
 ``create_parameter`` is ``static.create_parameter``.  Every other name of
 the JAX module raises ``UnimplementedError`` naming the ROADMAP queue-A
 item that ports it: the control flow (``cond``, ``while_loop``, ``case``,
@@ -12,13 +14,15 @@ from __future__ import annotations
 
 from . import create_parameter, py_func  # noqa: F401
 from .builders import (  # noqa: F401
-    UNPORTED, batch_norm, conv2d, embedding, fc, layer_norm, pool2d,
-    unported,
+    UNPORTED, batch_norm, bilinear_tensor_product, conv2d, embedding, fc,
+    group_norm, hsigmoid, instance_norm, layer_norm, pool2d, prelu,
+    spectral_norm, unported,
 )
+from ..nn.functional import row_conv  # noqa: F401  (stateless: eager is it)
 
 _ITEM8 = "static graph and the long tail"
 for _name in ("cond", "while_loop", "case", "switch_case", "crf_decoding",
-              "row_conv", "deform_conv2d", "sparse_embedding"):
+              "deform_conv2d", "sparse_embedding"):
     globals()[_name] = unported(f"paddle.static.nn.{_name}", _ITEM8)
 for _name in UNPORTED:
     globals()[_name] = unported(f"paddle.static.nn.{_name}", UNPORTED[_name])
@@ -26,6 +30,8 @@ del _name
 
 __all__ = sorted(
     ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
+     "instance_norm", "group_norm", "spectral_norm", "prelu",
+     "bilinear_tensor_product", "hsigmoid",
      "cond", "while_loop", "case", "switch_case", "crf_decoding",
      "row_conv", "deform_conv2d", "py_func", "create_parameter",
      "sparse_embedding"] + list(UNPORTED))

@@ -3,7 +3,8 @@
 
     python3 tools/torch_train_profile.py \
         [--model bert|gpt|both|resnet50|gpt_long|gpt_long_train|gpt_moe|
-                 wide_deep] [--steps-per-execution K]
+                 wide_deep|nn_encoder|nn_encoder_recompute]
+        [--steps-per-execution K]
     python3 tools/torch_train_profile.py --static
 
 Builds ``chip_smoke.py``'s training workloads — BERT-base bf16
@@ -49,6 +50,15 @@ model itself carries none) and charges each backward kernel to the range
 of the forward op its autograd node came from (the profiler's sequence
 numbers); the expert matmuls' backward (``_GroupedMatmulBackward``, the
 two masked products in plain PyTorch) and AdamW are groups of their own.
+
+``nn_encoder`` is ``chip_smoke.py`` phase N2's step: the long-document
+encoder (``nn.Embedding(32768, 512)``, six ``nn.TransformerEncoderLayer(
+512, 8, 2048, dropout=0.1, attn_dropout=0.0)``, ``nn.Linear(512,
+32768)``) over 2 x 8192 tokens under amp O1 with ``AdamW(3e-4,
+weight_decay=0.01)``, its attention through the flash forward and the dq
+and dk / dv backward kernels (non-causal); ``nn_encoder_recompute`` the
+same with ``nn.apply_recompute(net, ["TransformerEncoderLayer"])``
+(phase N3): phases and profile as for training.
 
 ``wide_deep`` is ``chip_smoke.py`` phase S2's step: ``WideDeep`` at a
 million ids (8 fields, dim 32, dense 8, MLP 64-32) with sparse tables and
@@ -135,6 +145,16 @@ def build(torch, which):
                                          gpt_small)
 
     ptt.seed(cs.SEED)
+    if which in ("nn_encoder", "nn_encoder_recompute"):
+        net = cs._long_doc_encoder(torch)
+        if which == "nn_encoder_recompute":
+            ptt.nn.apply_recompute(net, ["TransformerEncoderLayer"])
+        model = ptt.Model(net).prepare(
+            optimizer=ptt.optimizer.AdamW(cs.NN_LR, weight_decay=0.01),
+            loss=net.loss, amp_configs="O1")
+        ids, labels = cs._nn_batch()
+        return (f"{which} amp O1 {cs.NN_B}x{cs.NN_S}", model, [ids],
+                [labels])
     if which == "wide_deep":
         from paddle_tpu_torch.models import WideDeep
 
@@ -451,7 +471,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=("bert", "gpt", "both", "resnet50",
                                         "gpt_long", "gpt_long_train",
-                                        "gpt_moe", "wide_deep"),
+                                        "gpt_moe", "wide_deep", "nn_encoder",
+                                        "nn_encoder_recompute"),
                     default="both")
     ap.add_argument("--steps", type=int, default=5,
                     help="steps averaged by the phase timing")
