@@ -525,6 +525,71 @@ N7. a ``{"nn": ...}`` line with N1-N6's numbers; the kernels line's
     entries of kernels 4-6 gain ``nn_launches`` (N2's, N3's step and
     graph) and ``noncausal`` (N1's errors and times).
 
+MoE and quantization wherever the JAX package runs them (after N7):
+
+E1. M4's model (``gpt_small(moe_experts=8, moe_top_k=2,
+    moe_capacity_factor=8.0, moe_jitter=0.0)``, float32) behind the
+    default dense-ring engine (``prompt_buckets=[16, 48]``, batch 8) over
+    phase 4's requests, then the legacy scheduler: every request
+    completes, ``grouped_matmul`` 24 launches a call (admissions / batches
+    and decode steps), no kernel 1, no routed count from the warm-up,
+    ``moe_routed_tokens`` = layers x top_k x batch x decode steps (the
+    ring's inert rows route too), no dropped token; 4 requests' tokens
+    against uncached greedy (near-ties only), the legacy tokens against
+    the continuous ones; tokens/s, latency and peak beside D1's and M4's;
+E2. the same model at capacity factor 1.25: routed + dropped = layers x
+    top_k x batch x decode steps; tokens/s, overflow fraction, dead
+    experts (no token gate: capacity drops change tokens);
+E3. E1's model quantized, int8 and fp8, behind the paged engine (phase
+    4's settings) and the dense engine: kernel 9 24 launches a call (qkv
+    and out: the experts stay float), kernel 10 24, kernel 1 12 a paged
+    call; the margin rule of Q3, and the teacher-forced logits of the
+    quantized copy, routed by the float model's decisions, within 0.1
+    (int8) / 0.25 (fp8) x max|logit| of the float model's (routed freely,
+    the rows where quantization flipped a routing decision are counted and
+    the error printed);
+E4. ``BertForPretraining(bert_base(moe_experts=8, moe_top_k=2))`` in bf16
+    with ``AdamW(multi_precision=True)`` through ``train_batch`` at
+    bench.py config 3's shape cut to 64 x 128 (20 masked), 2 + 5 steps:
+    kernel 10 24 launches a step, kernel 2 24 forward and 24 backward,
+    kernel 3 one; losses finite and falling; seq/s, ms a step, peak and
+    the overflow fraction after the last step;
+E5. ``BertForSequenceClassification(bert_base(quantization=mode))`` in
+    eval through ``Model.predict_batch`` at 32 x 128, int8 and fp8: kernel
+    9 48 and kernel 2 24 launches a forward, logits within E3's tolerance
+    of the float model from the same seed; at 2 x 128 every quantized
+    linear on the card against its CPU copy on the same input (int8
+    bit-equal, fp8 rtol 1e-4), the logits card vs CPU within E3's
+    tolerance; ms a forward, seq/s;
+C1. kernel 9 on caller-quantized int8 codes (the int8 layers' route) at
+    BERT's four linears at M = 4096, ResNet-50's im2col products (the 7 x
+    7 stem, a 3 x 3 of each stage) and MobileNetV2's stem, pointwise
+    layers and classifier: bit-equal to the plain version, timed by CUDA
+    graph beside the eager call, the plain version, ``torch._int_mm``
+    (where it takes the shape) and the bound;
+C2. ``resnet50(data_format="NHWC")`` in bf16, eval, 128 x 224², through
+    ``PostTrainingQuantization`` over 4 seeded calibration batches and
+    ``quantize()``: 53 ``Int8Conv2D`` + 1 ``Int8Linear``, kernel 9 54
+    launches a forward, logits within 0.1 (relative L2) of the float
+    model's; at 2 x 128² every int8 layer on the card bit-equal to its CPU
+    copy on the same input, the logits card vs CPU within 0.1; img/s of
+    the int8 and the float forward, peak;
+C3. ``mobilenet_v2()`` in float32 under ``ImperativeQuantAware()``
+    (abs-max weights, moving-average activations) with ``Momentum(0.01,
+    0.9)`` through ``train_batch`` at 64 x 224², 2 + 5 steps: losses
+    finite, all 53 activation observers' ``_state`` at the value 7
+    updates give; ``convert()``: 36 layers through kernel 9, the 17
+    depthwise ones through the exact grouped route; the int8 logits
+    within 0.35 (relative L2) of the fake-quant eval's; on 2 images every
+    int8 layer on the card bit-equal to its CPU copy on the same input, the
+    logits card vs CPU within 0.1; img/s of the QAT step and the int8
+    forward.
+Every shape E1-E5 and C2-C3 hand kernels 9 and 10 is recorded and held to
+the plain version.  A ``{"compression": ...}`` line carries E1-C3's
+numbers; the kernels line's entries of kernels 9 and 10 gain
+``compression_launches`` and ``compression_path_checks`` (kernel 9 also
+C1's rows under ``compression_shapes``).
+
 The line before last is the ``{"kernels": [...]}`` JSON record (kernel
 1's entries carry D4's launches by engine under ``handoff_launches`` and
 D3's paged run's under ``bench_paged_launches``, kernel 9's D5's quantized
@@ -834,10 +899,12 @@ def fingerprint(torch, model):
 
 
 def serve(torch, gpu, model, quantized=None):
-    """Phases 4, Q3 and M4: GPT-2-small-width paged serving through the
-    kernels, float, (``quantized``) int8 / fp8, or an MoE model (its
-    expert FFNs through ``grouped_matmul``, 2 launches a layer a call, and
-    its routed-token counter held to the rows the decode steps routed)."""
+    """Phases 4, Q3, M4 and E3's paged half: GPT-2-small-width paged
+    serving through the kernels, float, (``quantized``) int8 / fp8, or an
+    MoE model (its expert FFNs through ``grouped_matmul``, 2 launches a
+    layer a call, and its routed-token counter held to the rows the decode
+    steps routed), quantized too (then only qkv / out are quantized: 2
+    ``quantized_matmul`` launches a layer a call, and E3's logit gate)."""
     from paddle_tpu_torch.ops import grouped_matmul
     from paddle_tpu_torch.ops.paged_attention import paged_flash_decode
     from paddle_tpu_torch.ops.quantized_matmul import quantized_linear
@@ -845,7 +912,8 @@ def serve(torch, gpu, model, quantized=None):
 
     cfg = model.gpt.cfg
     moe = bool(cfg.moe_experts)
-    kind = quantized or ("moe" if moe else "float")
+    kind = "-".join(k for k in ("moe" if moe else None, quantized) if k) \
+        or "float"
     tag = f"serve[{kind}]"
     reqs = requests()
     gc.collect()  # an earlier engine (a reference cycle) frees its model copy
@@ -889,7 +957,8 @@ def serve(torch, gpu, model, quantized=None):
         st = eng.stats()
     calls = ((st["batches"] - st0["batches"])
              + (st["decode_steps"] - st0["decode_steps"]))
-    want_qmm = 4 * cfg.num_layers * calls if quantized else 0
+    want_qmm = ((2 if moe else 4) * cfg.num_layers * calls if quantized
+                else 0)
     want_gmm = 2 * cfg.num_layers * calls if moe else 0
     log(f"{tag}: grouped_matmul launches {gmm_launches} (= {want_gmm}: "
         f"{gmm_launches == want_gmm})")
@@ -931,6 +1000,7 @@ def serve(torch, gpu, model, quantized=None):
         f"spec drafted/accepted {st['spec_drafted']}/{st['spec_accepted']}, "
         f"cow copies {st['cow_copies']}, peak device memory "
         f"{peak / 2**20:.0f} MiB")
+    logits = None
     if quantized is None:  # float and MoE models
         compared = ties = 0
         for (p, _, _), out in list(zip(reqs, outs))[:4]:
@@ -944,7 +1014,12 @@ def serve(torch, gpu, model, quantized=None):
             f"clear-margin flips)")
     else:
         quant_agreement(torch, model, quantized, reqs, outs)
+        if moe:
+            logits = moe_quant_logits(torch, model, quantized, [
+                [int(t) for t in p] + out.tolist()[:-1]
+                for (p, _, _), out in zip(reqs, outs)], tag)
     return {"launches": launches, "qmm_launches": qmm_launches,
+            "logits_vs_float": logits,
             "gmm_launches": gmm_launches,
             "gmm_launches_per_call": gmm_launches / calls,
             "launches_per_call": launches / calls,
@@ -7394,6 +7469,887 @@ def nn_phases(torch, gpu):
     return {"N1": n1, "N2": n2, "N3": n3}
 
 
+# -- MoE and quantization wherever the JAX package runs them (E1-E5, C1-C3)
+E_QTOL = {"int8": 0.1, "fp8": 0.25}  # logits x max|logit| (E3, E5)
+E_TIGHT_CF = 1.25                    # E2: GPTConfig's default factor
+BERT_MOE_B, BERT_MOE_S = 64, 128     # E4: config 3 cut to 64 x 128
+BERT_MOE_WARMUP, BERT_MOE_STEPS = 2, 5
+QBERT_B, QBERT_PARITY_B = 32, 2      # E5: the batch, card vs CPU
+QBERT_RUNS = 3
+C1_SHAPES = (                        # (name, M, K, N) of kernel 9's new uses
+    ("bert qkv", 4096, 768, 2304), ("bert out", 4096, 768, 768),
+    ("bert fc1", 4096, 768, 3072), ("bert fc2", 4096, 3072, 768),
+    ("resnet50 stem 7x7/2", 128 * 112 * 112, 147, 64),
+    ("resnet50 layer1 3x3", 128 * 56 * 56, 576, 64),
+    ("resnet50 layer2 3x3", 128 * 28 * 28, 1152, 128),
+    ("resnet50 layer3 3x3", 128 * 14 * 14, 2304, 256),
+    ("resnet50 layer4 3x3", 128 * 7 * 7, 4608, 512),
+    ("mobilenet_v2 stem 3x3/2", 64 * 112 * 112, 27, 32),
+    ("mobilenet_v2 expand 16-96", 64 * 112 * 112, 16, 96),
+    ("mobilenet_v2 project 96-24", 64 * 56 * 56, 96, 24),
+    ("mobilenet_v2 expand 160-960", 64 * 7 * 7, 160, 960),
+    ("mobilenet_v2 last 320-1280", 64 * 7 * 7, 320, 1280),
+    ("mobilenet_v2 classifier", 64, 1280, 1000))
+C2_B, C2_HW, C2_CALIB, C2_RUNS = 128, 224, 4, 3
+C2_REL_L2 = 0.1        # int8 vs float logits (0.0228 read on an H100)
+C2_CPU = dict(B=2, HW=128)
+C2_CPU_REL_L2 = 0.1    # card vs CPU, the same int8 model (layers exact)
+C3_B, C3_HW, C3_WARMUP, C3_STEPS, C3_RUNS = 64, 224, 2, 5, 3
+C3_REL_L2 = 0.35       # int8 vs the fake-quant eval (0.1162 on an H100)
+C3_CPU_B = 2
+C3_CPU_REL_L2 = 0.1    # card vs CPU, the same int8 model (layers exact)
+
+
+@contextlib.contextmanager
+def moe_routes(replay=None):
+    """Record every MoE layer's routing (``MoELayer._route``'s outputs:
+    probabilities, combine weights, experts, slots, kept) in call order;
+    with ``replay`` (such a record), return its entries in order instead
+    of routing, so a forward takes another forward's decisions."""
+    from paddle_tpu_torch.moe import layer as moe_layer
+
+    seen = []
+    route = moe_layer.MoELayer._route
+
+    def rec(self, xf, C):
+        out = (route(self, xf, C) if replay is None
+               else replay[len(seen)])
+        seen.append(out)
+        return out
+
+    moe_layer.MoELayer._route = rec
+    try:
+        yield seen
+    finally:
+        moe_layer.MoELayer._route = route
+
+
+def moe_quant_logits(torch, model, mode, hists, tag):
+    """E3's logit gate.  The quantized copy and the float model are
+    teacher-forced over each served history.  With the quantized copy
+    routed by the float model's decisions (``moe_routes(replay=...)``),
+    its logits must stay within ``E_QTOL[mode]`` x max|logit| of the float
+    model's at every row (tests/test_torch_quantized_serving.py's rule).
+    Routed freely, quantization flips some routing decisions, and a row
+    whose experts changed (or that attends to one) moves by another
+    expert's FFN: those errors are printed, not gated (on an H100 the
+    free rows with a flip reached 0.44-0.54 x max|logit|, the rows under
+    the float routing 0.03-0.10)."""
+    from paddle_tpu_torch import slim
+
+    qmodel = slim.quantize_model(model, mode)
+    forced = free = 0.0
+    rows = flipped = 0
+    with torch.no_grad():
+        for h in hists:
+            ids = torch.tensor([h], device=model.device)
+            with moe_routes() as rf:
+                lf = model(ids)[0]
+            with moe_routes(replay=rf):
+                lq = qmodel(ids)[0]
+            with moe_routes() as rq:
+                lq_free = qmodel(ids)[0]
+            top = max(float(lf.abs().max()), 1e-30)
+            forced = max(forced, float((lq - lf).abs().max()) / top)
+            free = max(free, float((lq_free - lf).abs().max()) / top)
+            ef = torch.stack([r[2].sort(-1).values for r in rf])
+            eq = torch.stack([r[2].sort(-1).values for r in rq])
+            flipped += int((ef != eq).any(-1).any(0).sum())
+            rows += lf.shape[0]
+    del qmodel
+    log(f"{tag}: teacher-forced logits of the {mode} copy vs the float "
+        f"model over {len(hists)} served histories ({rows} rows): routed "
+        f"by the float model's decisions, largest error {forced:.4f} x "
+        f"max|logit| (< {E_QTOL[mode]}: {forced < E_QTOL[mode]}); routed "
+        f"freely, {flipped} rows with a flipped routing decision, largest "
+        f"error {free:.4f} x max|logit| (not gated)")
+    assert forced < E_QTOL[mode], (mode, forced)
+    return {"rows": rows, "max_err_float_routing": forced,
+            "max_err_free_routing": free, "rows_flipped": flipped,
+            "tolerance": E_QTOL[mode]}
+
+
+@contextlib.contextmanager
+def compression_shapes():
+    """Record what the slice's paths hand kernels 9 and 10: (M, K, N,
+    codes dtype) at slim's ``quantized_product`` (the int8 layers) and
+    (x shape, w shape, dtype, group sizes) at the MoE layer's
+    ``grouped_matmul``.  Pass-throughs: nothing is launched or counted
+    here."""
+    from paddle_tpu_torch.moe import layer as moe_layer
+    from paddle_tpu_torch.slim import quantization as sq
+
+    seen = {"qp": set(), "gmm": {}}
+    qp, gmm = sq.quantized_product, moe_layer.grouped_matmul
+
+    def rec_qp(xq, wq, scale, bias):
+        seen["qp"].add((xq.shape[0], xq.shape[1], wq.shape[1], wq.dtype))
+        return qp(xq, wq, scale, bias)
+
+    def rec_gmm(x, w, gs, *a, **k):
+        key = (tuple(x.shape), tuple(w.shape), x.dtype)
+        if key not in seen["gmm"]:
+            seen["gmm"][key] = gs.detach().clone()
+        return gmm(x, w, gs, *a, **k)
+
+    sq.quantized_product, moe_layer.grouped_matmul = rec_qp, rec_gmm
+    try:
+        yield seen
+    finally:
+        sq.quantized_product, moe_layer.grouped_matmul = qp, gmm
+
+
+def qp_check(torch, M, K, N, gen):
+    """Kernel 9 on caller-quantized int8 codes at one shape (the int8
+    layers' route): random codes, scale and bias drawn on the card from
+    ``gen`` (a card generator); bit-equal to the plain version, and two
+    launches bit-equal."""
+    from paddle_tpu_torch.ops.quantized_matmul import (_matmul_kernel,
+                                                       _matmul_ref)
+
+    xq = torch.randint(-127, 128, (M, K), generator=gen, dtype=torch.int8,
+                       device=DEVICE)
+    wq = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8,
+                       device=DEVICE)
+    scale = torch.rand(N, generator=gen, device=DEVICE) * 1e-3
+    bias = torch.randn(N, generator=gen, device=DEVICE)
+    out = _matmul_kernel(xq, wq, scale, bias)
+    out2 = _matmul_kernel(xq, wq, scale, bias)
+    ref = _matmul_ref(xq, wq, scale, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and torch.equal(out, out2), \
+        f"kernel 9 differs from plain at [{M}, {K}] @ [{K}, {N}]"
+    del xq, wq, out, out2, ref
+
+
+def gmm_path_check(torch, gmm, x, w, gs, dtype_name, shape):
+    """Kernel 10 at one shape a path gave it, with that path's group sizes:
+    ``gmm_check``'s gates (two launches bit-equal, padding rows exactly 0,
+    ``GMM_TOL``), its rms taken over the valid rows: the paths' groups are
+    often far below C, and zero padding rows would shrink the rms.
+    Returns (max abs error, the largest share of the tolerance used)."""
+    C = x.shape[1]
+    valid = (torch.arange(C, device=DEVICE)[None, :]
+             < gs.clamp(0, C)[:, None])
+    x = x.clone()
+    x[~valid] = float("nan")
+    y = gmm.grouped_matmul(x, w, gs)
+    y2 = gmm.grouped_matmul(x, w, gs)
+    ref = gmm.grouped_matmul_ref(x, w, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2), f"two launches differ at {shape}"
+    assert not bool(y[~valid].any()), f"padding rows not 0 at {shape}"
+    if not bool(valid.any()):
+        return 0.0, 0.0
+    rel, floor = GMM_TOL[dtype_name]
+    yf, rf = y.float()[valid], ref.float()[valid]
+    err = (yf - rf).abs()
+    allowed = rel * rf.abs() + floor * float(rf.pow(2).mean().sqrt())
+    share = float((err / allowed.clamp_min(1e-30)).max())
+    assert bool((err <= allowed).all()), (shape, float(err.max()), share)
+    return float(err.max()), share
+
+
+def layer_parity(torch, net, types, args, label, exact=True):
+    """Every layer of ``net`` of ``types`` on the card against its copy on
+    the CPU fed the very input the card's forward handed it (forward
+    hooks): bit-equal for int8 (the activation codes come from IEEE
+    divisions on both devices, kernel 9 equals its plain version bit for
+    bit, the grouped route sums exact integers, the epilogue is one
+    float32 multiply and one add on both); ``exact=False`` (fp8: float32
+    sums in another order) within rtol 1e-4, atol 1e-4 x max|out|.
+    Returns the number of layer calls held."""
+    import copy
+
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: seen.append((mod, inp[0].detach(),
+                                           out.detach())))
+        for _, m in net.named_sublayers() if isinstance(m, types)]
+    try:
+        with torch.no_grad():
+            net(*args)
+    finally:
+        for h in hooks:
+            h.remove()
+    copies = {}
+    for mod, inp, out in seen:
+        cpu = copies.get(id(mod))
+        if cpu is None:
+            cpu = copies[id(mod)] = copy.deepcopy(mod).to("cpu")
+        with torch.no_grad():
+            want = cpu(inp.cpu())
+        got = out.cpu()
+        if exact:
+            assert torch.equal(got, want), (label, type(mod).__name__,
+                                            tuple(inp.shape))
+        else:
+            torch.testing.assert_close(
+                got.float(), want.float(), rtol=1e-4,
+                atol=1e-4 * float(want.float().abs().max()))
+    log(f"{label}: {len(seen)} quantized layer calls on the card equal "
+        f"their CPU copies' on the same inputs "
+        f"({'bit for bit' if exact else 'rtol 1e-4, atol 1e-4 x max|out|'})")
+    assert seen, label
+    return len(seen)
+
+
+def check_compression_shapes(torch, seen, label):
+    """Kernels 9 and 10 against their plain versions at every shape a
+    phase handed them (``compression_shapes``): kernel 9 bit-equal
+    (``qp_check``), kernel 10 with the group sizes the path gave it
+    (``gmm_check``, ``GMM_TOL``).  Returns what the kernels line keeps."""
+    import importlib
+
+    gmm = importlib.import_module("paddle_tpu_torch.ops.grouped_matmul")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 91)
+    out = {}
+    if seen["qp"]:
+        shapes = sorted(seen["qp"], key=str)
+        for M, K, N, dt in shapes:
+            assert dt == torch.int8, dt
+            qp_check(torch, M, K, N, gen)
+        out["quantized_matmul"] = {
+            "shapes": [f"[{M}, {K}] @ [{K}, {N}]" for M, K, N, _ in shapes],
+            "max_abs_err": 0.0}
+        log(f"{label}: kernel quantized_matmul bit-equal to plain (and two "
+            f"launches bit-equal) at the {len(shapes)} shapes the int8 "
+            f"layers gave it: {out['quantized_matmul']['shapes']}")
+    if seen["gmm"]:
+        worst, top, shapes = 0.0, 0.0, []
+        for (xs, ws, dt), gs in sorted(seen["gmm"].items(), key=str):
+            name = str(dt).replace("torch.", "")
+            x = torch.randn(*xs, generator=gen, device=DEVICE).to(dt)
+            w = (torch.randn(*ws, generator=gen, device=DEVICE)
+                 / ws[1] ** 0.5).to(dt)
+            err, share = gmm_path_check(torch, gmm, x, w, gs, name,
+                                        f"{list(xs)} x {list(ws)}")
+            worst, top = max(worst, err), max(top, share)
+            shapes.append(f"{name} {list(xs)} x {list(ws)} gs="
+                          f"{gs.tolist()}")
+            del x, w
+        log(f"{label}: kernel grouped_matmul at the {len(shapes)} shapes "
+            f"the path gave it (with its group sizes; the dense forwards "
+            f"the gates run included), e.g. {shapes[:2]} ... "
+            f"{shapes[-1:]}: max_abs_err={worst:.3e}, {top:.3f} of "
+            f"GMM_TOL at most, padding rows 0, two launches bit-equal; ok")
+        out["grouped_matmul"] = {"shapes": len(shapes),
+                                 "examples": shapes[:4],
+                                 "max_abs_err": worst,
+                                 "max_tolerance_share": top}
+    return out
+
+
+def moe_dense_engine(torch, gpu, model, tag, continuous=True,
+                     quantized=None, greedy=True, d1_outs=None):
+    """Phases E1 (``continuous`` and legacy), E2 and E3's dense half: an
+    MoE model behind the default dense-ring engine or the legacy
+    scheduler, over phase 4's requests.  Gates: every request completes,
+    ``grouped_matmul`` 2 a layer a call (and ``quantized_matmul`` 2 a
+    layer a call when quantized; never ``paged_flash_decode``), no routed
+    count from the warm-up, ``moe_routed_tokens`` + ``moe_dropped_tokens``
+    = layers x top_k x batch x decode steps (inert rows route too);
+    ``greedy``: no dropped token and 4 requests' tokens against uncached
+    greedy (near-ties only), or equal to ``d1_outs``."""
+    from paddle_tpu_torch.ops import grouped_matmul
+    from paddle_tpu_torch.ops.paged_attention import paged_flash_decode
+    from paddle_tpu_torch.ops.quantized_matmul import quantized_linear
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    cfg = model.gpt.cfg
+    L, k, Bn = cfg.num_layers, cfg.moe_top_k, 8
+    reqs = requests()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    kw = {} if continuous else dict(continuous=False)
+    with GenerationEngine(model, prompt_buckets=[16, 48], batch_size=Bn,
+                          quantized=quantized, name=f"chip-smoke-{tag}",
+                          **kw) as eng:
+        t0 = time.monotonic()
+        eng.warmup()
+        st0 = eng.stats()
+        assert not st0["paged"] and st0["continuous"] == continuous, st0
+        assert st0["moe_routed_tokens"] == 0, "warm-up steps were counted"
+        log(f"{tag}: warmup {time.monotonic() - t0:.2f}s (no routing count "
+            f"from it)")
+        grouped_matmul.launches = 0
+        quantized_linear.launches = 0
+        paged_flash_decode.launches = 0
+        t0 = time.monotonic()
+        outs = [f.result(600) for f in [eng.submit(p, n)
+                                        for p, n, _ in reqs]]
+        wall = time.monotonic() - t0
+    # read after close: every dispatched step has launched and been folded
+    st = eng.stats()
+    peak = torch.cuda.max_memory_allocated()
+    gm, qm = grouped_matmul.launches, quantized_linear.launches
+    calls = ((st["batches"] - st0["batches"])
+             + (st["decode_steps"] - st0["decode_steps"]))
+    steps = st["decode_steps"] - st0["decode_steps"]
+    routed, dropped = st["moe_routed_tokens"], st["moe_dropped_tokens"]
+    want_q = 2 * L * calls if quantized else 0
+    log(f"{tag}: {len(outs)} requests, {calls} MoE calls ({steps} decode "
+        f"steps); grouped_matmul {gm} (= 2 x {L} x {calls}: "
+        f"{gm == 2 * L * calls}), quantized_matmul {qm} (= {want_q}), "
+        f"paged_flash_decode {paged_flash_decode.launches}; routed "
+        f"{routed} + dropped {dropped} (= {L} x {k} x {Bn} x {steps}: "
+        f"{routed + dropped == L * k * Bn * steps}), overflow fraction "
+        f"{dropped / max(routed + dropped, 1):.4f}, dead experts "
+        f"{st.get('moe_dead_experts')}")
+    assert st["completed"] == NUM_REQUESTS and st["errors"] == 0, st
+    assert gm == 2 * L * calls and qm == want_q, (gm, qm, calls)
+    assert paged_flash_decode.launches == 0
+    assert routed + dropped == L * k * Bn * steps, (routed, dropped, steps)
+    assert st["moe_sampled_steps_after_warm"] == steps, st
+    n_tok = 0
+    for (p, n, _), out in zip(reqs, outs):
+        assert out.shape == (n,) and out.min() >= 0 \
+            and out.max() < cfg.vocab_size, (out.shape, n)
+        n_tok += n
+    r = {"tokens_per_s": n_tok / wall, "mean_ms": st["mean_ms"],
+         "p99_ms": st["p99_ms"], "peak_bytes": peak, "decode_steps": steps,
+         "moe_calls": calls, "grouped_matmul_launches": gm,
+         "quantized_matmul_launches": qm, "moe_routed_tokens": routed,
+         "moe_dropped_tokens": dropped,
+         "overflow_frac": dropped / max(routed + dropped, 1),
+         "dead_experts": st.get("moe_dead_experts")}
+    if greedy:
+        assert dropped == 0, dropped
+        if d1_outs is None:
+            compared = ties = 0
+            for (p, _, _), out in list(zip(reqs, outs))[:4]:
+                c, t = greedy_margin_check(torch, model, p, out.tolist(),
+                                           cfg.vocab_size)
+                compared += c
+                ties += t
+            assert compared >= 20, compared
+            r["greedy_tokens_compared"] = compared
+            log(f"{tag}: {compared} tokens of 4 requests agree with uncached "
+                f"greedy on the card ({ties} near-tie divergences)")
+        else:
+            same = sum(a.tolist() == b.tolist()
+                       for a, b in zip(outs, d1_outs))
+            for (p, _, _), a, b in zip(reqs, outs, d1_outs):
+                if a.tolist() != b.tolist():
+                    greedy_margin_check(torch, model, p, a.tolist(),
+                                        cfg.vocab_size)
+            r["requests_equal_to_continuous"] = same
+            log(f"{tag}: tokens equal the continuous engine's in {same} of "
+                f"{NUM_REQUESTS} requests (the others a near-tie of greedy)")
+    if quantized:
+        r["logits_vs_float"] = moe_quant_logits(
+            torch, model, quantized, [[int(t) for t in p]
+                                      + out.tolist()[:-1]
+                                      for (p, _, _), out in zip(reqs, outs)],
+            tag)
+    log(f"{tag}[{gpu}]: {n_tok} tokens in {wall:.3f}s = "
+        f"{n_tok / wall:.1f} tokens/s, mean request latency "
+        f"{st['mean_ms']:.1f} ms (p99 {st['p99_ms']:.1f} ms), peak device "
+        f"memory {peak / 2**20:.0f} MiB")
+    return r, outs
+
+
+def moe_serving_phases(torch, gpu, d1, m4):
+    """E1-E3: the MoE model of M4 (f32, capacity factor 8, jitter 0)
+    behind the dense engines, then at the default factor 1.25 (E2), then
+    quantized behind the paged and the dense engines (E3)."""
+    with compression_shapes() as seen:
+        model = moe_model(torch, "float32", moe_capacity_factor=MOE_SERVE_CF,
+                          moe_jitter=0.0)
+        model.eval()
+        e1, e1_outs = moe_dense_engine(torch, gpu, model, "E1")
+        e1l, _ = moe_dense_engine(torch, gpu, model, "E1[legacy]",
+                                  continuous=False, d1_outs=e1_outs)
+        for name, r in (("D1 float dense", d1), ("M4 MoE paged", m4),
+                        ("E1 MoE dense", e1), ("E1 MoE legacy", e1l)):
+            log(f"E1[{gpu}] beside: {name}: {r['tokens_per_s']:.1f} "
+                f"tokens/s, mean latency {r['mean_ms']:.1f} ms, p99 "
+                f"{r['p99_ms']:.1f} ms, peak {r['peak_bytes'] / 2**20:.0f} "
+                f"MiB")
+        e3 = {}
+        for mode in QUANT_MODES:
+            e3[f"paged_{mode}"] = serve(torch, gpu, model, quantized=mode)
+            e3[f"dense_{mode}"], _ = moe_dense_engine(
+                torch, gpu, model, f"E3[dense-{mode}]", quantized=mode,
+                greedy=False)
+        del model
+        tight = moe_model(torch, "float32", moe_capacity_factor=E_TIGHT_CF,
+                          moe_jitter=0.0)
+        tight.eval()
+        e2, _ = moe_dense_engine(torch, gpu, tight, "E2", greedy=False)
+        del tight
+    checked = check_compression_shapes(torch, seen, "E1-E3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"E1": e1, "E1_legacy": e1l, "E2": e2, "E3": e3,
+            "path_checks": checked}
+
+
+def bert_moe_train(torch, gpu):
+    """Phase E4: BERT-base MoE pretraining (every layer's MLP an 8-expert
+    top-2 ``MoELayer``) in bf16 with AdamW(multi_precision) through
+    ``Model.train_batch`` at 64 x 128, 20 masked."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import BertForPretraining, bert_base
+    from paddle_tpu_torch.moe import stats
+    from paddle_tpu_torch.ops import (grouped_matmul, layernorm_residual,
+                                      softmax_cross_entropy)
+
+    cfg = bert_base(moe_experts=MOE_E, moe_top_k=MOE_K)
+    L = cfg.num_layers
+    t0 = time.monotonic()
+    ptt.seed(SEED)
+    net = BertForPretraining(cfg, device=DEVICE).astype("bfloat16")
+    assert net.bert.layers[0].mlp.expert_fc1.dtype == torch.bfloat16
+    opt = ptt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                              multi_precision=True)
+    model = ptt.Model(net, ["input_ids", "token_type_ids", "attention_mask",
+                            "masked_positions"],
+                      ["mlm_labels", "nsp_labels"]).prepare(
+        optimizer=opt, loss=net.loss)
+    inputs, labels = bert_batch(cfg.vocab_size, BERT_MOE_B, BERT_MOE_S,
+                                BERT_P, seed=SEED + 93)
+    n_all = sum(p.numel() for p in net.parameters())
+    log(f"E4: bert_base(moe_experts={MOE_E}, moe_top_k={MOE_K}) bf16, "
+        f"{n_all} parameters, capacity factor {cfg.moe_capacity_factor}, "
+        f"jitter {cfg.moe_jitter}; batch {BERT_MOE_B}x{BERT_MOE_S}, "
+        f"{BERT_P} masked; built in {time.monotonic() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with compression_shapes() as seen:
+        losses, wall, (gm, ln, sx) = train_steps(
+            torch, model, inputs, labels, BERT_MOE_WARMUP, BERT_MOE_STEPS,
+            (grouped_matmul, layernorm_residual, softmax_cross_entropy))
+        peak = torch.cuda.max_memory_allocated()
+        net.train()  # the routing after the last step (train mode, jitter)
+        with torch.no_grad(), stats.collect() as ms:
+            net(*[torch.from_numpy(a).to(DEVICE) for a in inputs])
+        counts = ms.counts(MOE_E).cpu()
+    log(f"E4: losses {[round(x, 4) for x in losses]}; launches over "
+        f"{BERT_MOE_STEPS} steps: grouped_matmul {gm} (= 2 x {L} x "
+        f"{BERT_MOE_STEPS}: {gm == 2 * L * BERT_MOE_STEPS}), "
+        f"layernorm_residual {ln} (= 24 x {BERT_MOE_STEPS}), "
+        f"softmax_cross_entropy {sx}")
+    assert gm == 2 * L * BERT_MOE_STEPS, gm
+    assert ln == 2 * L * BERT_MOE_STEPS and sx == BERT_MOE_STEPS, (ln, sx)
+    lnb = ln_backward_gate(layernorm_residual, ln, "E4")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], (losses[0], losses[-1])
+    routed, dropped = int(counts[0].sum()), int(counts[1].sum())
+    assert routed + dropped == L * MOE_K * BERT_MOE_B * BERT_MOE_S
+    step_ms = wall / BERT_MOE_STEPS * 1e3
+    sps = BERT_MOE_B * BERT_MOE_STEPS / wall
+    log(f"E4[{gpu}]: {BERT_MOE_STEPS} steps in {wall:.3f}s = {step_ms:.1f} "
+        f"ms/step, {sps:.1f} seq/s, peak device memory {peak / 2**20:.0f} "
+        f"MiB; after the last step routed {routed}, dropped {dropped}: "
+        f"overflow fraction {dropped / (routed + dropped):.4f}")
+    del model, opt, net
+    checked = check_compression_shapes(torch, seen, "E4")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {"grouped_matmul": gm, "layernorm_residual": ln,
+                         "layernorm_residual_backward": lnb,
+                         "softmax_cross_entropy": sx},
+            "step_ms": step_ms, "seq_per_s": sps, "peak_bytes": peak,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "overflow_frac": dropped / (routed + dropped),
+            "path_checks": checked}
+
+
+def quantized_bert(torch, gpu):
+    """Phase E5: ``BertForSequenceClassification(bert_base(quantization=
+    mode))`` in eval through ``Model.predict_batch`` at 32 x 128: 48
+    ``quantized_matmul`` and 24 ``layernorm_residual`` launches a
+    forward, logits within ``E_QTOL`` x max|logit| of the float model from
+    the same seed; the card against the CPU's plain route at 2 x 128,
+    layer by layer (``layer_parity``) and end to end (float32 rounding
+    upstream flips activation codes: within ``E_QTOL``)."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        ColumnParallelLinear, RowParallelLinear)
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         bert_base)
+    from paddle_tpu_torch.ops import layernorm_residual
+    from paddle_tpu_torch.ops.quantized_matmul import quantized_linear
+
+    def build(mode, device):
+        cfg = bert_base(quantization=mode or "none")
+        return BertForSequenceClassification(
+            cfg, device=device,
+            generator=torch.Generator().manual_seed(SEED + 95)).eval()
+
+    rng = np.random.RandomState(SEED + 96)
+    ids = rng.randint(0, 30522, size=(QBERT_B, BERT_S)).astype(np.int32)
+    tt = (rng.uniform(size=(QBERT_B, BERT_S)) < 0.5).astype(np.int32)
+    am = np.ones((QBERT_B, BERT_S), np.int32)
+    am[1::2, 100:] = 0  # padded rows
+    batch = [ids, tt, am]
+
+    def predictor(net):
+        return ptt.Model(net, ["input_ids", "token_type_ids",
+                               "attention_mask"])
+
+    def run(net):
+        model = predictor(net)
+        out = model.predict_batch(batch)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(QBERT_RUNS):
+            t0 = time.monotonic()
+            model.predict_batch(batch)
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        return out, sorted(times)[len(times) // 2]
+
+    fnet = build(None, DEVICE)
+    ref, f_s = run(fnet)
+    del fnet
+    res = {"float": {"ms": f_s * 1e3, "seq_per_s": QBERT_B / f_s}}
+    with path_shapes() as seen:
+        for mode in QUANT_MODES:
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            net = build(mode, DEVICE)
+            quantized_linear.launches = 0
+            layernorm_residual.launches = 0
+            out = predictor(net).predict_batch(batch)
+            torch.cuda.synchronize()
+            qm, ln = quantized_linear.launches, layernorm_residual.launches
+            assert qm == 48 and ln == 24, (mode, qm, ln)
+            _, q_s = run(net)
+            peak = torch.cuda.max_memory_allocated()
+            err = float((out - ref).abs().max()) / float(ref.abs().max())
+            assert out.shape == (QBERT_B, 2) and bool(
+                torch.isfinite(out).all())
+            assert err < E_QTOL[mode], (mode, err)
+            # card vs the CPU's plain route: every quantized linear on the
+            # same input, then the same seeded model end to end (float32
+            # rounding upstream flips activation codes: within E3's rule)
+            sub = [a[:QBERT_PARITY_B] for a in batch]
+            held = layer_parity(
+                torch, net, (ColumnParallelLinear, RowParallelLinear),
+                [torch.as_tensor(a, device=DEVICE) for a in sub],
+                f"E5[{mode}]", exact=mode == "int8")
+            cpu = build(mode, "cpu")
+            want = predictor(cpu).predict_batch(sub)
+            got = predictor(net).predict_batch(sub).cpu()
+            cerr = float((got - want).abs().max()) / float(
+                want.abs().max())
+            assert cerr < E_QTOL[mode], (mode, cerr)
+            log(f"E5[{mode}]: one forward launched quantized_matmul {qm} "
+                f"(= 48) and layernorm_residual {ln} (= 24) times; logits "
+                f"within {err:.4f} x max|logit| of the float model's (< "
+                f"{E_QTOL[mode]}); card vs CPU at {QBERT_PARITY_B} x "
+                f"{BERT_S}: {held} layer calls equal, logits {cerr:.2e} x "
+                f"max|logit| apart (< {E_QTOL[mode]})")
+            log(f"E5[{mode}][{gpu}]: {q_s * 1e3:.2f} ms a forward = "
+                f"{QBERT_B / q_s:.1f} seq/s (float {f_s * 1e3:.2f} ms = "
+                f"{QBERT_B / f_s:.1f} seq/s), peak device memory "
+                f"{peak / 2**20:.0f} MiB")
+            res[mode] = {"launches": {"quantized_matmul": qm,
+                                      "layernorm_residual": ln},
+                         "ms": q_s * 1e3, "seq_per_s": QBERT_B / q_s,
+                         "logits_err_vs_float": err,
+                         "card_vs_cpu_layers": held,
+                         "card_vs_cpu_err": cerr, "peak_bytes": peak}
+            del net, cpu
+    res["path_checks"] = check_path_kernels(torch, seen, "E5")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def timing_compression(torch, gpu):
+    """Phase C1: kernel 9 on caller-quantized int8 codes at the slice's
+    new shapes (``C1_SHAPES``): bit-equal to the plain version, then
+    timed by CUDA graph beside the eager call, the plain version,
+    ``torch._int_mm`` (M > 16, K and N multiples of 8) and the bound."""
+    from paddle_tpu_torch.ops.quantized_matmul import (_matmul_kernel,
+                                                       _matmul_ref)
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 97)
+    rows = {}
+    for name, M, K, N in C1_SHAPES:
+        qp_check(torch, M, K, N, gen)
+        n_w = max(1, -(-64_000_000 // (K * N)))
+        xq = torch.randint(-127, 128, (M, K), generator=gen,
+                           dtype=torch.int8, device=DEVICE)
+        args = [(xq, torch.randint(-127, 128, (K, N), generator=gen,
+                                   dtype=torch.int8, device=DEVICE),
+                 torch.rand(N, generator=gen, device=DEVICE) * 1e-3,
+                 torch.randn(N, generator=gen, device=DEVICE))
+                for _ in range(min(n_w, 8))]
+        nbytes = M * K + K * N + 8 * N + 4 * M * N
+        ops = 2.0 * M * K * N
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / TENSOR_8BIT_OPS
+        b_ms = max(t_b, t_o) * 1e3
+        b_by = "bytes" if t_b >= t_o else "operations"
+        iters = max(10, min(100, int(5.0 / max(b_ms, 0.01))))
+        ms = graph_ms(torch, _matmul_kernel, args, iters)
+        call = time_ms(torch, _matmul_kernel, args, iters)
+        plain = time_ms(torch, _matmul_ref, args, 3)
+        lib, why = None, "none: torch._int_mm needs M > 16, K and N % 8 == 0"
+        if M > 16 and K % 8 == 0 and N % 8 == 0:
+            try:
+                lib = graph_ms(torch, lambda x, w, s, b: torch._int_mm(x, w),
+                               args, iters)
+            except RuntimeError as e:  # the yardstick, not the port
+                why = f"none: {str(e).splitlines()[0][:120]}"
+        lib_s = f"{lib:.4f} ms" if lib is not None else why
+        log(f"timing[{gpu}] quantized_matmul int8 {name} [{M}, {K}] @ [{K}, "
+            f"{N}]: kernel {ms:.4f} ms (graph; eager call {call:.4f} ms) = "
+            f"{nbytes / ms / 1e6:.1f} GB/s and {ops / ms / 1e9:.2f} TOP/s, "
+            f"plain {plain:.4f} ms, library (_int_mm, product only) "
+            f"{lib_s}, bound {b_ms:.5f} ms by {b_by} ({nbytes} bytes, "
+            f"{ops:.4g} ops); bit-equal to plain")
+        rows[name] = dict(M=M, K=K, N=N, ms=ms, call_ms=call,
+                          plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                          bound_by=b_by)
+        del xq, args
+    torch.cuda.synchronize()
+    getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def timed_forward(torch, net, x, runs):
+    """Median seconds of ``runs`` forwards without gradient (after one
+    untimed call)."""
+    times = []
+    with torch.no_grad():
+        net(x)
+        torch.cuda.synchronize()
+        for _ in range(runs):
+            t0 = time.monotonic()
+            net(x)
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+    return sorted(times)[len(times) // 2]
+
+
+def int8_layers(slim, net):
+    """(Int8Conv2D layers with groups 1, grouped ones, Int8Linear
+    layers) of ``net``."""
+    convs = [l for _, l in net.named_sublayers()
+             if isinstance(l, slim.Int8Conv2D)]
+    dense = [c for c in convs if c._cfg[3] == 1]
+    linears = [l for _, l in net.named_sublayers()
+               if isinstance(l, slim.Int8Linear)]
+    return dense, [c for c in convs if c._cfg[3] != 1], linears
+
+
+def resnet_ptq(torch, gpu):
+    """Phase C2: ResNet-50 (NHWC, bf16, eval, 128 x 224², the 7 x 7 stem)
+    through ``PostTrainingQuantization`` over ``C2_CALIB`` seeded
+    calibration batches, then ``quantize()``: every convolution and the
+    classifier an int8 layer, kernel 9 launched once for each a forward;
+    the int8 logits within ``C2_REL_L2`` (relative L2) of the float
+    model's; the int8 model on the card against its copy on the CPU, layer
+    by layer (bit-equal) and end to end."""
+    import copy
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import slim
+    from paddle_tpu_torch.ops.quantized_matmul import quantized_linear
+
+    net = ptt.vision.models.resnet50(
+        data_format="NHWC", device=DEVICE,
+        generator=torch.Generator().manual_seed(SEED)).astype(
+            "bfloat16").eval()
+    gdev = torch.Generator(device=DEVICE)
+
+    def images(seed, n=C2_B, hw=C2_HW):
+        gdev.manual_seed(seed)
+        return (torch.rand(n, hw, hw, 3, device=DEVICE, generator=gdev)
+                * 2 - 1).to(torch.bfloat16)
+
+    x = images(SEED + 98)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ref = net(x)
+    f_s = timed_forward(torch, net, x, C2_RUNS)
+    f_peak = torch.cuda.max_memory_allocated()
+    t0 = time.monotonic()
+    ptq = slim.PostTrainingQuantization(net)
+    for i in range(C2_CALIB):
+        ptq.collect(images(SEED + 100 + i))
+    qnet = ptq.quantize()
+    calib_s = time.monotonic() - t0
+    dense, grouped, linears = int8_layers(slim, qnet)
+    n9 = len(dense) + len(linears)
+    assert not grouped and n9 == 54, (len(dense), len(grouped), len(linears))
+    torch.cuda.reset_peak_memory_stats()
+    with compression_shapes() as seen, torch.no_grad():
+        quantized_linear.launches = 0
+        out = qnet(x)
+        torch.cuda.synchronize()
+        launches = quantized_linear.launches
+    q_s = timed_forward(torch, qnet, x, C2_RUNS)
+    q_peak = torch.cuda.max_memory_allocated()
+    assert launches == n9, (launches, n9)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all())
+    err = rel_l2(out, ref)
+    assert err < C2_REL_L2, err
+    # the same int8 model on the CPU (its plain route) on 2 images: each
+    # int8 layer on its card input, then end to end
+    x2 = images(SEED + 110, C2_CPU["B"], C2_CPU["HW"])
+    held = layer_parity(torch, qnet, (slim.Int8Conv2D, slim.Int8Linear),
+                        (x2,), "C2")
+    cpu = copy.deepcopy(qnet).to("cpu")
+    with torch.no_grad():
+        got, want = qnet(x2).cpu(), cpu(x2.cpu())
+    cerr = rel_l2(got, want)
+    assert cerr < C2_CPU_REL_L2, cerr
+    log(f"C2: {len(dense)} Int8Conv2D + {len(linears)} Int8Linear layers "
+        f"after {C2_CALIB} calibration batches of {C2_B} x {C2_HW}² "
+        f"({calib_s:.1f}s); one int8 forward launched kernel 9 {launches} "
+        f"times (= {n9}); logits' relative L2 error to the float model "
+        f"{err:.4f} (< {C2_REL_L2}); card vs CPU at {C2_CPU['B']} x "
+        f"{C2_CPU['HW']}²: {held} int8 layer calls bit-equal, logits "
+        f"{cerr:.2e} apart (< {C2_CPU_REL_L2})")
+    log(f"C2[{gpu}]: int8 forward {q_s * 1e3:.1f} ms = {C2_B / q_s:.1f} "
+        f"img/s (peak {q_peak / 2**20:.0f} MiB); float bf16 forward "
+        f"{f_s * 1e3:.1f} ms = {C2_B / f_s:.1f} img/s (peak "
+        f"{f_peak / 2**20:.0f} MiB)")
+    checked = check_compression_shapes(torch, seen, "C2")
+    del net, qnet, cpu, ptq, x, ref, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"int8_layers": n9, "launches": launches, "rel_l2_vs_float": err,
+            "card_vs_cpu_layers": held, "card_vs_cpu_rel_l2": cerr,
+            "int8_img_per_s": C2_B / q_s,
+            "float_img_per_s": C2_B / f_s, "int8_ms": q_s * 1e3,
+            "float_ms": f_s * 1e3, "int8_peak_bytes": q_peak,
+            "float_peak_bytes": f_peak, "path_checks": checked}
+
+
+def mobilenet_qat(torch, gpu):
+    """Phase C3: MobileNetV2 (f32, 1000 classes) under
+    ``ImperativeQuantAware()`` — abs-max weights, moving-average
+    activations — trained with Momentum(0.01, 0.9) through
+    ``Model.train_batch`` at 64 x 224², then ``convert()`` to int8 and
+    evaluated (the depthwise convolutions through the exact grouped
+    route, the others through kernel 9)."""
+    import copy
+
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import slim
+    from paddle_tpu_torch.ops.quantized_matmul import quantized_linear
+
+    net = ptt.vision.models.mobilenet_v2(
+        device=DEVICE, generator=torch.Generator().manual_seed(SEED))
+    slim.ImperativeQuantAware().quantize(net)
+    observers = [l for _, l in net.named_sublayers()
+                 if isinstance(l, slim.FakeQuantMovingAverage)]
+    opt = ptt.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
+    model = ptt.Model(net, inputs=1, labels=1).prepare(
+        optimizer=opt, loss=ptt.nn.CrossEntropyLoss())
+    rng = np.random.RandomState(SEED + 120)
+    xs = rng.uniform(-1, 1, (C3_B, 3, C3_HW, C3_HW)).astype(np.float32)
+    ys = rng.randint(0, 1000, (C3_B, 1)).astype(np.int64)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall, _ = train_steps(torch, model, [xs], [ys], C3_WARMUP,
+                                  C3_STEPS, ())
+    t_peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(v) for v in losses), losses
+    # every observer saw every training step: state_n = 0.9 state + 1
+    state = torch.ones(1)
+    for _ in range(C3_WARMUP + C3_STEPS):
+        state = state * 0.9 + 1.0
+    moved = [torch.allclose(o._state.cpu(), state, rtol=1e-6, atol=0)
+             for o in observers]
+    assert len(observers) == 53 and all(moved), (len(observers),
+                                                 sum(moved))
+    x = torch.from_numpy(xs).to(DEVICE)
+    net.eval()
+    with torch.no_grad():
+        fq = net(x)
+    slim.ImperativeQuantAware().convert(net)
+    dense, grouped, linears = int8_layers(slim, net)
+    n9 = len(dense) + len(linears)
+    torch.cuda.reset_peak_memory_stats()
+    with compression_shapes() as seen, torch.no_grad():
+        quantized_linear.launches = 0
+        out = net(x)
+        torch.cuda.synchronize()
+        launches = quantized_linear.launches
+    q_s = timed_forward(torch, net, x, C3_RUNS)
+    q_peak = torch.cuda.max_memory_allocated()
+    assert launches == n9 and len(grouped) == 17, (launches, n9,
+                                                   len(grouped))
+    assert bool(torch.isfinite(out).all())
+    err = rel_l2(out, fq)
+    assert err < C3_REL_L2, err
+    held = layer_parity(torch, net, (slim.Int8Conv2D, slim.Int8Linear),
+                        (x[:C3_CPU_B],), "C3")
+    cpu = copy.deepcopy(net).to("cpu")
+    with torch.no_grad():
+        got, want = net(x[:C3_CPU_B]).cpu(), cpu(x[:C3_CPU_B].cpu())
+    cerr = rel_l2(got, want)
+    assert cerr < C3_CPU_REL_L2, cerr
+    step_ms = wall / C3_STEPS * 1e3
+    log(f"C3: QAT losses {[round(v, 4) for v in losses]}; all "
+        f"{len(observers)} activation observers' _state = {float(state):.6f}"
+        f" after {C3_WARMUP + C3_STEPS} steps; convert: {len(dense)} "
+        f"Int8Conv2D through kernel 9, {len(grouped)} depthwise through "
+        f"the exact grouped route, {len(linears)} Int8Linear; one int8 "
+        f"forward launched kernel 9 {launches} times (= {n9}); int8 logits' "
+        f"relative L2 error to the fake-quant eval {err:.4f} (< "
+        f"{C3_REL_L2}); card vs CPU on {C3_CPU_B} images: {held} int8 layer "
+        f"calls bit-equal, logits {cerr:.2e} apart (< {C3_CPU_REL_L2})")
+    log(f"C3[{gpu}]: QAT step {step_ms:.1f} ms = "
+        f"{C3_B * C3_STEPS / wall:.1f} img/s (peak {t_peak / 2**20:.0f} "
+        f"MiB); int8 forward {q_s * 1e3:.1f} ms = {C3_B / q_s:.1f} img/s "
+        f"(peak {q_peak / 2**20:.0f} MiB)")
+    checked = check_compression_shapes(torch, seen, "C3")
+    del model, opt, net, cpu, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "observers": len(observers),
+            "qat_step_ms": step_ms, "qat_img_per_s": C3_B * C3_STEPS / wall,
+            "int8_img_per_s": C3_B / q_s, "int8_ms": q_s * 1e3,
+            "kernel9_layers": n9, "depthwise_layers": len(grouped),
+            "launches": launches, "rel_l2_vs_fake_quant": err,
+            "card_vs_cpu_layers": held, "card_vs_cpu_rel_l2": cerr,
+            "qat_peak_bytes": t_peak,
+            "int8_peak_bytes": q_peak, "path_checks": checked}
+
+
+def compression_phases(torch, gpu, d1, m4):
+    """E1-E5 and C1-C3, then the ``{"compression": ...}`` line; returns
+    what the kernels line needs."""
+    e13 = moe_serving_phases(torch, gpu, d1, m4)
+    e4 = bert_moe_train(torch, gpu)
+    e5 = quantized_bert(torch, gpu)
+    c1 = timing_compression(torch, gpu)
+    c2 = resnet_ptq(torch, gpu)
+    c3 = mobilenet_qat(torch, gpu)
+    log(json.dumps({"compression": {
+        "device": gpu, "E1_moe_dense": e13["E1"],
+        "E1_moe_legacy": e13["E1_legacy"], "E2_moe_dense_cf1.25": e13["E2"],
+        "E3_quantized_moe": e13["E3"], "E4_bert_moe": e4,
+        "E5_quantized_bert": e5, "C1_kernel9": c1, "C2_resnet50_ptq": c2,
+        "C3_mobilenet_v2_qat": c3}}, default=str))
+    return {"E": e13, "E4": e4, "E5": e5, "C1": c1, "C2": c2, "C3": c3}
+
+
 def main() -> int:
     import torch
 
@@ -7404,6 +8360,10 @@ def main() -> int:
 
     gpu = gpu_line()
     log(gpu)  # name, power limit: as nvidia-smi prints them
+    start = time.monotonic()
+
+    def mark(phases):
+        log(f"smoke: {phases} begin at {time.monotonic() - start:.1f}s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"device: torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -7422,6 +8382,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "C75" in line:
                 log(f"build[{name}]: {line.strip()}")
 
+    mark("serving (3-5, Q1-Q4, D1-D5)")
     max_err = check_kernels(torch)
     model = build_serve_model(torch)
     before = fingerprint(torch, model)
@@ -7456,25 +8417,30 @@ def main() -> int:
             f"device memory {r['peak_bytes'] / 2**20:.0f} MiB; launches per "
             f"call: paged_flash_decode {r['launches_per_call']:.0f}, "
             f"quantized_matmul {r['qmm_launches_per_call']:.0f}")
+    mark("training (6-10)")
     errs = check_train_kernels(torch)
     bert = train_bert(torch, gpu)
     train_gpt(torch, gpu)
     card_vs_cpu(torch)
     trows = timing_train(torch, gpu)
+    mark("ResNet-50 (R1-R5)")
     rerrs = check_resnet_kernels(torch)
     check_resnet_tail_grads(torch)
     resnet = train_resnet(torch, gpu)
     resnet_card_vs_cpu(torch)
     rrows = timing_resnet(torch, gpu)
+    mark("long context (L1-L4, W)")
     flash_err = check_flash_kernel(torch)
     long = long_context_inference(torch, gpu)
     long_context_card_vs_cpu(torch)
     frows = timing_flash(torch, gpu)
     wide = check_width_repairs(torch, gpu)
+    mark("long-context training (LT1-LT4)")
     bwd_errs = check_flash_bwd_kernels(torch)
     train_long = long_context_training(torch, gpu)
     long_context_train_card_vs_cpu(torch)
     brows = timing_flash_bwd(torch, gpu)
+    mark("MoE (M1-M5)")
     gmm_err, gs_train = check_grouped_matmul(torch)
     moe_train = train_moe(torch, gpu)
     moe_card_vs_cpu(torch)
@@ -7487,12 +8453,14 @@ def main() -> int:
             f"call: paged_flash_decode {r['launches_per_call']:.0f}, "
             f"grouped_matmul {r['gmm_launches_per_call']:.0f}")
     mrows = timing_gmm(torch, gpu, gs_train)
+    mark("training loop (F1-F4)")
     ln_mixed = check_ln_mixed(torch, gpu)
     fit = fit_bert(torch, gpu)
     fit_card_vs_cpu(torch)
     f16 = f16_scaler_loop(torch, gpu)
     # sparse CTR training: no kernel of ops/ is on this path (in the JAX
     # package it is plain XLA), so the kernels line below does not change
+    mark("sparse CTR (S1-S4)")
     sparse_rules_card_vs_cpu(torch)
     ctr = ctr_main_path(torch, gpu)
     ctr_bench_config5(torch, gpu)
@@ -7501,6 +8469,7 @@ def main() -> int:
         "device": gpu, "main_path": ctr, "vocab_independence": vocab}}))
     # k training steps an execution as one CUDA graph
     # (steps_per_execution), then the tensor API
+    mark("k-step graph (K1-K5, T1)")
     k1 = graph_vs_eager(torch, gpu)
     k2 = ctr_graph_main_path(torch, gpu, ctr)
     k3 = resnet_graph(torch, gpu, resnet)
@@ -7512,13 +8481,22 @@ def main() -> int:
         "resnet50": k3, "bert_base": k4, "resnet18_example": k5,
         "tensor_api": t1}}))
     # bench.py's configs 1-3 through the 1.x static graph (ST1-ST5)
+    mark("static graph (ST1-ST5)")
     st = static_graph_phases(torch, gpu, bert, resnet, k3, k4)
     # batched multi-LoRA and multi-tenant serving (kernel 10 on both
     # low-rank hops of every adapted linear)
+    mark("multi-LoRA (A1-A5)")
     lora = lora_phases(torch, gpu)
     # the layer library: the long-document encoder through kernels 4-6
     # (non-causal), recompute, nn.Transformer, the LSTM LM, beam search
+    mark("layer library (N1-N7)")
     nn = nn_phases(torch, gpu)
+    # MoE and quantization wherever the JAX package runs them: MoE in the
+    # dense engines, quantized MoE, BERT MoE, quantized BERT (kernels 9
+    # and 10 at new shapes), ResNet-50 PTQ and MobileNetV2 QAT (kernel 9
+    # under the int8 layers)
+    mark("MoE and quantization (E1-E5, C1-C3)")
+    comp = compression_phases(torch, gpu, d1, moe_served)
     paged = dict(name="paged_flash_decode", route="cuda",
                  source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
                  replaces="paddle_tpu/ops/paged_attention.py:155")
@@ -7626,7 +8604,24 @@ def main() -> int:
                       for mode, name, M in (
                           ("fp8", "fc1", 8), ("fp8", "fc2", 8),
                           ("fp8", "fc2", 384), ("int8", "fc2", 8),
-                          ("int8", "fc2", 384))}))
+                          ("int8", "fc2", 384))},
+        # the MoE / quantization slice: quantized MoE engines (E3: qkv and
+        # out, 24 a call), quantized BERT-base (E5: 48 a forward), the
+        # int8 layers of ResNet-50 PTQ (C2) and MobileNetV2 QAT (C3: the
+        # depthwise layers take the exact grouped route, not the kernel);
+        # C1's shapes timed, and every shape the paths gave it held
+        compression_launches={
+            **{f"E3[{k}]": (v["qmm_launches"] if k.startswith("paged")
+                            else v["quantized_matmul_launches"])
+               for k, v in comp["E"]["E3"].items()},
+            **{f"E5[{m}]": comp["E5"][m]["launches"]["quantized_matmul"]
+               for m in QUANT_MODES},
+            "C2": comp["C2"]["launches"], "C3": comp["C3"]["launches"]},
+        compression_path_checks={
+            "E5": comp["E5"]["path_checks"].get("quantized_matmul"),
+            "C2": comp["C2"]["path_checks"].get("quantized_matmul"),
+            "C3": comp["C3"]["path_checks"].get("quantized_matmul")},
+        compression_shapes=comp["C1"]))
     # ResNet-50 config 2: launches of the timed training steps, numbers at
     # layer1's conv3 shape (the largest), bf16, the Hopper designs' device
     # time; the other conv3 shapes beside them
@@ -7706,7 +8701,22 @@ def main() -> int:
                    for k in ("dense", "legacy", "int8")},
             "A5": lora["A5"]["launches"]},
         lora_path_checks=dict(A1=lora["A1"], **lora["path"]),
-        lora_shapes=lora["rows"]))
+        lora_shapes=lora["rows"],
+        # the MoE / quantization slice: the dense engines (E1, E2), the
+        # quantized MoE engines (E3) and BERT-base MoE training (E4: 24 a
+        # step), each shape the paths gave it held to the plain version
+        compression_launches={
+            "E1": comp["E"]["E1"]["grouped_matmul_launches"],
+            "E1[legacy]": comp["E"]["E1_legacy"]["grouped_matmul_launches"],
+            "E2": comp["E"]["E2"]["grouped_matmul_launches"],
+            **{f"E3[{k}]": (v["gmm_launches"] if k.startswith("paged")
+                            else v["grouped_matmul_launches"])
+               for k, v in comp["E"]["E3"].items()},
+            "E4": comp["E4"]["launches"]["grouped_matmul"]},
+        compression_path_checks={
+            "E1-E3": comp["E"]["path_checks"].get("grouped_matmul"),
+            "E4": comp["E4"]["path_checks"].get("grouped_matmul")}))
+    mark("the records")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

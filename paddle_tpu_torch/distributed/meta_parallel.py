@@ -70,9 +70,11 @@ class _ParallelLinear(Linear):
     def forward(self, x):
         scale = self._buffers.get("weight_scale")
         if self.weight.dtype not in _QUANT_DTYPES:
-            if scale is not None:
+            if "weight" in self._buffers:
                 # a dtype cast (Module.to) turned fp8 codes into floats:
-                # computing with them would ignore their scales
+                # computing with them would ignore their scales (a float
+                # weight PARAMETER may sit beside the unit weight_scale
+                # slim.quantize_model_trees registers: it is not read)
                 raise InvalidArgumentError(
                     f"{type(self).__name__}: a weight_scale buffer sits "
                     f"beside a {self.weight.dtype} weight — the quantized "

@@ -8,9 +8,14 @@ Post-LN layers run both residual adds + LayerNorms through the
 hand-written ``layernorm_residual`` CUDA kernel on the card, and the MLM
 loss through ``softmax_cross_entropy``; on the CPU both take their plain
 PyTorch versions.  The MLP is GPT's ``ParallelMLP`` at BERT's
-``intermediate_size``, as in the JAX package.  Not ported yet (ROADMAP
-queue A): the MoE layers and weight quantization (``BertConfig``
-``moe_experts`` / ``quantization`` raise ``UnimplementedError``).
+``intermediate_size``, as in the JAX package, or with
+``BertConfig.moe_experts > 0`` a ``moe.MoELayer`` built from the same
+``GPTConfig`` the JAX layer builds (its expert FFNs through the
+``grouped_matmul`` kernel on the card; the loss adds no balance term, as
+in JAX).  ``BertConfig.quantization="int8" | "fp8"`` quantizes the
+parallel linears (attention ``qkv`` / ``out``, the MLP's ``fc1`` /
+``fc2``) once the weights are drawn (``slim.quantize_weights``: the
+``quantized_matmul`` kernel on the card); the heads stay float.
 """
 from __future__ import annotations
 
@@ -27,12 +32,12 @@ from ..distributed.meta_parallel import (
 )
 from ..framework.device import resolve_device
 from ..framework.dtype import convert_dtype, promote
-from ..framework.errors import UnimplementedError
 from ..framework.random import default_generator
 from ..nn.functional import cross_entropy
 from ..nn.initializer import fills_its_layers
 from ..ops.fused_layernorm import layernorm_residual
 from ..ops.fused_softmax_xent import softmax_cross_entropy
+from ..moe import MoELayer
 from .gpt import GPTConfig, ParallelMLP
 
 __all__ = [
@@ -50,7 +55,9 @@ class BertConfig:
     def __init__(self, vocab_size=30522, hidden_size=768, num_layers=12,
                  num_heads=12, intermediate_size=3072, max_position=512,
                  type_vocab_size=2, dropout=0.1, layer_norm_epsilon=1e-12,
-                 dtype="float32", moe_experts=0, quantization="none"):
+                 dtype="float32", moe_experts=0, moe_top_k=2,
+                 moe_capacity_factor=1.25, moe_jitter=0.01,
+                 quantization="none"):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -61,9 +68,18 @@ class BertConfig:
         self.dropout = dropout
         self.layer_norm_epsilon = layer_norm_epsilon
         self.dtype = dtype
-        # accepted for signature parity; BertModel rejects non-defaults
-        # until their slices land
+        #: > 0 swaps each layer's dense MLP for a routed MoELayer with
+        #: that many experts (knobs as GPTConfig's)
         self.moe_experts = moe_experts
+        self.moe_top_k = moe_top_k
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_jitter = moe_jitter
+        #: "none" | "int8" | "fp8" — weight quantization of the parallel
+        #: linears (GPTConfig.quantization's contract)
+        if quantization not in ("none", "int8", "fp8"):
+            raise ValueError(
+                f"quantization must be 'none', 'int8' or 'fp8', got "
+                f"{quantization!r}")
         self.quantization = quantization
 
 
@@ -78,27 +94,24 @@ def bert_tiny(**kw):
     return BertConfig(**cfg)
 
 
-def _unported(cfg: BertConfig):
-    for attr, default, item in (
-            ("moe_experts", 0, "MoE, LoRA and tenancy"),
-            ("quantization", "none", "quantized serving")):
-        if getattr(cfg, attr) != default:
-            raise UnimplementedError(
-                f"BertConfig.{attr}={getattr(cfg, attr)!r} is not ported "
-                f"yet (ROADMAP queue A, {item})")
-
-
 def _materialize(model: torch.nn.Module, cfg: BertConfig, device,
                  generator: Optional[torch.Generator]):
     """Draw every weight from ``generator`` (default: the CPU generator
     :func:`paddle_tpu_torch.seed` reseeds) in module order on the CPU, then
-    move to ``device`` (``None`` = the card) in ``cfg.dtype``."""
+    move to ``device`` (``None`` = the card) in ``cfg.dtype``; quantize the
+    parallel linears when ``cfg.quantization`` asks (the JAX ``BertModel``
+    quantizes at init)."""
     dev = resolve_device(device)
     gen = generator if generator is not None else default_generator()
     for m in model.modules():
         if hasattr(m, "reset_parameters"):
             m.reset_parameters(gen)
     model.to(device=dev, dtype=convert_dtype(cfg.dtype))
+    if cfg.quantization != "none":
+        # lazy import: slim imports the layers this module builds on
+        from ..slim.quantization import quantize_weights
+
+        quantize_weights(model, cfg.quantization)
 
 
 class BertSelfAttention(nn.Layer):
@@ -134,11 +147,15 @@ class BertLayer(nn.Layer):
         super().__init__()
         gcfg = GPTConfig(hidden_size=cfg.hidden_size,
                          intermediate_size=cfg.intermediate_size,
-                         dropout=cfg.dropout)
+                         dropout=cfg.dropout,
+                         moe_experts=cfg.moe_experts,
+                         moe_top_k=cfg.moe_top_k,
+                         moe_capacity_factor=cfg.moe_capacity_factor,
+                         moe_jitter=cfg.moe_jitter)
         self.attn = BertSelfAttention(cfg)
         self.ln1 = nn.LayerNorm(cfg.hidden_size,
                                 epsilon=cfg.layer_norm_epsilon)
-        self.mlp = ParallelMLP(gcfg)
+        self.mlp = MoELayer(gcfg) if gcfg.moe_experts else ParallelMLP(gcfg)
         self.ln2 = nn.LayerNorm(cfg.hidden_size,
                                 epsilon=cfg.layer_norm_epsilon)
         self.drop = nn.Dropout(cfg.dropout)
@@ -195,7 +212,6 @@ class BertModel(nn.Layer):
                  generator: Optional[torch.Generator] = None, *,
                  _materialize_now: bool = True):
         super().__init__()
-        _unported(cfg)
         self.cfg = cfg
         self.embeddings = BertEmbeddings(cfg)
         self.layers = torch.nn.ModuleList(

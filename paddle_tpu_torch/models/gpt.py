@@ -13,7 +13,9 @@ KV pools (``init_paged_cache(dtype=)``: quantize on write, one scale per
 written token per head in ``[P+1, H, page]`` float32 planes, dequantize
 in the attention kernel), and mixture-of-experts blocks
 (``GPTConfig.moe_experts``: every block's MLP a ``moe.MoELayer``, its
-load-balance loss added by :meth:`GPTForCausalLM.loss`).  The
+load-balance loss added by :meth:`GPTForCausalLM.loss`; with
+``quantization`` too, only the attention's ``qkv`` / ``out`` are
+quantized and the experts stay float, as in the JAX package).  The
 hand-written CUDA kernels on the card: ``layernorm_residual`` (the
 attention residual add + ``ln2`` of every block's dense forward),
 ``softmax_cross_entropy`` (the loss), ``grouped_matmul`` (both expert
@@ -201,10 +203,6 @@ def _unported(cfg: GPTConfig):
         raise UnimplementedError(
             f"GPTConfig.sequence_parallel={cfg.sequence_parallel!r} is not "
             f"ported yet (ROADMAP queue A, distributed execution)")
-    if cfg.moe_experts and cfg.quantization != "none":
-        raise UnimplementedError(
-            f"GPTConfig.quantization={cfg.quantization!r} with moe_experts "
-            f"is not ported yet (ROADMAP queue A, MoE, LoRA and tenancy)")
     if cfg.dtype not in _DTYPES:
         raise UnimplementedError(
             f"GPTConfig.dtype={cfg.dtype!r}: the port runs float32 or "

@@ -22,7 +22,7 @@ from typing import List
 
 import torch
 
-__all__ = ["MoEStats", "collect", "record"]
+__all__ = ["MoEStats", "collect", "record", "active"]
 
 _local = threading.local()
 
@@ -84,3 +84,8 @@ def record(aux, routed, dropped):
     st = _stack()
     if st:
         st[-1].add(aux, routed, dropped)
+
+
+def active() -> bool:
+    """True while some :class:`collect` block of this thread is open."""
+    return bool(_stack())

@@ -304,6 +304,24 @@ def fill_at_construction(layer):
         layer.reset_parameters()
 
 
+def build_parameter(shape, dtype="float32", attr=None, is_bias=False,
+                    default_initializer=None):
+    """A filled parameter (paddle's ``create_parameter``, shared by
+    ``Layer.create_parameter`` and ``static.create_parameter``): ``shape``
+    and ``dtype``, drawn by ``attr``'s initializer, else
+    ``default_initializer``, else zeros for a bias and Xavier-normal
+    otherwise; ``None`` for ``attr=False``."""
+    from ..framework.dtype import convert_dtype
+
+    p = create_parameter(tuple(int(d) for d in shape), attr)
+    if p is None:
+        return None
+    init_parameter(p, attr, default_initializer or (
+        Constant(0.0) if is_bias else XavierNormal()))
+    p.data = p.data.to(convert_dtype(dtype or "float32"))
+    return p
+
+
 def init_parameter(param, attr, default: Initializer, generator=None):
     """Fill ``param`` by ``attr``'s initializer, else by ``default``."""
     if param is None:

@@ -10,6 +10,14 @@
   numpy leaves ``paddle_tpu_torch.load`` returns — casting each value to
   its target's dtype and device.
 * ``astype`` is paddle's spelling of a dtype cast.
+* paddle's own traversal and registration methods: ``named_sublayers`` /
+  ``sublayers`` (the JAX order: depth first in registration order, and a
+  layer shared at two paths is yielded at each, where torch's
+  ``named_modules`` yields it once), ``add_sublayer``, ``add_parameter``,
+  ``create_parameter`` and ``register_forward_post_hook`` (torch's forward
+  hook: a returned value replaces the output, as in JAX; torch's
+  ``register_forward_pre_hook`` already treats a returned value as JAX
+  does: a tuple replaces the arguments, anything else is wrapped in one).
 """
 from __future__ import annotations
 
@@ -26,6 +34,15 @@ from ..framework.errors import InvalidArgumentError
 __all__ = ["Layer"]
 
 
+def _walk(module: torch.nn.Module, prefix: str):
+    for name, sub in module._modules.items():
+        if sub is None:
+            continue
+        path = f"{prefix}.{name}" if prefix else name
+        yield path, sub
+        yield from _walk(sub, path)
+
+
 class Layer(torch.nn.Module):
     def __call__(self, *args, **kwargs):
         if _amp_state.enabled:
@@ -38,6 +55,44 @@ class Layer(torch.nn.Module):
         name such as ``"bfloat16"`` or a torch dtype), in place; returns
         ``self`` — ``BertForPretraining(cfg).astype("bfloat16")``."""
         return self.to(dtype=convert_dtype(dtype))
+
+    def named_sublayers(self, prefix: str = "", include_self: bool = False):
+        """``(dotted name, layer)`` of every sublayer, depth first in
+        registration order (``include_self``: ``(prefix, self)`` first);
+        a layer registered at two paths is yielded at each."""
+        if include_self:
+            yield prefix, self
+        yield from _walk(self, prefix)
+
+    def sublayers(self, include_self: bool = False) -> list:
+        return [m for _, m in self.named_sublayers(include_self=include_self)]
+
+    def add_sublayer(self, name: str, sublayer):
+        self.add_module(name, sublayer)
+        return sublayer
+
+    def add_parameter(self, name: str, param):
+        """Register ``param`` (a tensor is wrapped as a parameter; ``None``
+        registers the name empty); returns it."""
+        if param is not None and not isinstance(param, torch.nn.Parameter):
+            param = torch.nn.Parameter(torch.as_tensor(param))
+        self.register_parameter(name, param)
+        return param
+
+    def create_parameter(self, shape, dtype=None, attr=None, is_bias=False,
+                         default_initializer=None):
+        """A parameter of ``shape`` filled by ``attr``'s initializer, else
+        ``default_initializer``, else zeros for a bias and Xavier-normal
+        otherwise (not registered: assign it to an attribute)."""
+        from .initializer import build_parameter
+
+        return build_parameter(shape, dtype or "float32", attr, is_bias,
+                               default_initializer)
+
+    def register_forward_post_hook(self, hook):
+        """``hook(layer, inputs, output)`` after every forward; a value it
+        returns replaces the output.  Returns a handle with ``remove()``."""
+        return self.register_forward_hook(hook)
 
     def state_dict(self, *args, include_sublayers: bool = True, **kwargs):
         """``{dotted name: tensor}`` of the parameters and persistent

@@ -42,7 +42,8 @@ from ..framework.errors import InvalidArgumentError
 from . import _build
 
 __all__ = ["quantized_matmul", "fp8_matmul", "quantized_linear",
-           "quantized_linear_ref", "quantize_activations"]
+           "quantized_linear_ref", "quantize_activations",
+           "quantized_product"]
 
 #: largest finite float8_e4m3fn (no inf in e4m3fn — clip before casting)
 FP8_MAX = 448.0
@@ -202,6 +203,21 @@ def quantized_linear(x, w_q, weight_scale, bias=None):
 
 #: kernel launches so far (CUDA tensors only; the CPU path never counts)
 quantized_linear.launches = 0
+
+
+def quantized_product(xq, wq, scale, bias):
+    """The kernel's own function on codes the caller quantized (slim's
+    ``Int8Linear`` / ``Int8Conv2D``, which quantize activations by a
+    calibrated scale): ``[M, K] @ [K, N]`` int8 (or float8_e4m3fn) codes,
+    then ``acc * scale + bias`` in float32 (``scale`` / ``bias`` float32
+    ``[N]``).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel (counted in ``quantized_linear.launches``) or raise."""
+    if xq.device.type in _build.PLAIN_DEVICES:
+        return _matmul_ref(xq, wq, scale, bias)
+    if xq.device.type != "cuda":
+        raise InvalidArgumentError(
+            f"quantized_product: tensors on {xq.device} (cpu or cuda only)")
+    return _matmul_kernel(xq, wq, scale, bias)
 
 
 def quantized_matmul(x, w_q, weight_scale, bias=None):

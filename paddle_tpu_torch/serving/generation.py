@@ -46,8 +46,14 @@ on, token-identical to a co-located engine.
 four ``quantized_matmul`` kernel launches per layer per call; a paged
 engine stores int8 / float8_e4m3fn KV pages with float32 scale planes,
 the dense ring stays float (``cfg.dtype``), as in JAX.  A mixture-of-
-experts model serves in the paged mode, its expert FFNs through
-``grouped_matmul``, and reports its routing health (``MOE_COUNTERS``).
+experts model serves in every mode, its expert FFNs through
+``grouped_matmul`` (float experts beside quantized attention in a
+quantized engine, as in JAX), and reports its routing health
+(``MOE_COUNTERS``): every decode / verify step's ``[2, E]`` routed /
+dropped counts, from the step's inert rows too.  Steps run while warming
+up are not counted, in every mode (the JAX tap folds the token totals of
+all warm-up calls but the last); the dense loops bring a step's counts
+back with its tokens, in one pinned copy and one event.
 
 :meth:`GenerationEngine.swap_weights` hot-swaps a ``.pdiparams`` side-file
 (e.g. a ``slim.export_quantized`` artifact) into the served tensors IN
@@ -73,9 +79,9 @@ tagged ``submit(..., tenant=)`` take the tenant's adapter slot by default.
 
 Engines follow the model's device: a model built on the card (the
 default) serves there, a ``device="cpu"`` model through the kernels'
-plain versions.  Not ported yet (ROADMAP queue A): quantized MoE engines,
-tracing spans and the event-bus snapshots (the tenancy snapshot among
-them), ``from_tuned``, and a CUDA-graph decode step.
+plain versions.  Not ported yet (ROADMAP queue A): tracing spans and
+the event-bus snapshots (the tenancy snapshot among them),
+``from_tuned``, and a CUDA-graph decode step.
 """
 from __future__ import annotations
 
@@ -95,7 +101,6 @@ from ..framework.errors import (
     ExecutionTimeoutError,
     InvalidArgumentError,
     UnavailableError,
-    UnimplementedError,
     is_transient,
 )
 from ..framework.flags import flag
@@ -111,12 +116,6 @@ from .paging import PagePool
 __all__ = ["GenerationEngine", "KVHandoff"]
 
 _gen_counter = [0]
-
-
-def _unported(what: str, item: str):
-    return UnimplementedError(
-        f"GenerationEngine: {what} is not ported yet (ROADMAP queue A, "
-        f"{item})")
 
 
 class KVHandoff(NamedTuple):
@@ -142,23 +141,28 @@ class KVHandoff(NamedTuple):
 
 
 class _Readback:
-    """A step's ``[B]`` token tensor on its way to the host.  On the card:
-    a non-blocking copy into pinned memory and a CUDA event recorded
-    after it, so the host can queue the next step before this one ends
-    and wait only when it needs the tokens.  On the CPU: a copy."""
+    """A step's ``[B]`` token tensor (and an MoE step's ``[2, E]`` routing
+    counts) on its way to the host.  On the card: non-blocking copies into
+    pinned memory and a CUDA event recorded after them, so the host can
+    queue the next step before this one ends and wait only when it needs
+    the tokens.  On the CPU: copies."""
 
-    __slots__ = ("host", "event")
+    __slots__ = ("host", "counts", "event")
 
-    def __init__(self, tok: torch.Tensor):
+    def __init__(self, tok: torch.Tensor,
+                 counts: Optional[torch.Tensor] = None):
+        self.event = None
         if tok.is_cuda:
-            self.host = torch.empty(tok.shape, dtype=tok.dtype,
-                                    pin_memory=True)
-            self.host.copy_(tok, non_blocking=True)
+            self.host, self.counts = (
+                None if t is None else
+                torch.empty(t.shape, dtype=t.dtype,
+                            pin_memory=True).copy_(t, non_blocking=True)
+                for t in (tok, counts))
             self.event = torch.cuda.Event()
             self.event.record()
         else:
             self.host = tok.clone()
-            self.event = None
+            self.counts = None if counts is None else counts.clone()
 
     def numpy(self) -> np.ndarray:
         if self.event is not None:
@@ -252,12 +256,6 @@ class GenerationEngine:
                 f"{quantized!r}")
         cfg = model.gpt.cfg
         self._moe_experts = int(cfg.moe_experts or 0)
-        if self._moe_experts and quantized is not None:
-            raise _unported(f"quantized={quantized!r} for an MoE model",
-                            "MoE, LoRA and tenancy")
-        if self._moe_experts and not self._paged:
-            raise _unported("an MoE model in the dense ring mode "
-                            "(paged=False)", "MoE, LoRA and tenancy")
         # per-expert routed totals since warm-up (the dead-expert gauge)
         self._moe_routed_cum = np.zeros(max(self._moe_experts, 1), np.int64)
         # batched multi-LoRA: capacity > 0 threads a per-slot adapter-id
@@ -395,12 +393,24 @@ class GenerationEngine:
     def _decode(self, tok, pos, cache, aids=None):
         """One ``[B, 1]`` decode step: ``tok`` the device tokens of the
         last step, ``pos`` the host positions (``-1`` = free slot),
-        ``aids`` the per-slot adapter ids."""
-        with self._weights_lock:
+        ``aids`` the per-slot adapter ids.  Returns the step's tokens (on
+        the device) in a :class:`_Readback` — with an MoE model's routing
+        counts once the engine is warm — and the ring."""
+        with self._weights_lock, moe_stats.collect() as ms:
             logits, cache = self._model.forward_cached(
                 tok[:, None], np.asarray(pos)[:, None], cache,
                 adapter_ids=self._aids_arg(aids))
-            return logits[:, 0].argmax(-1).to(torch.int32), cache
+            tok = logits[:, 0].argmax(-1).to(torch.int32)
+        counts = (ms.counts(self._moe_experts)
+                  if self._moe_experts and self._warm else None)
+        return tok, _Readback(tok, counts), cache
+
+    def _fold_readback(self, rb: _Readback) -> np.ndarray:
+        """Wait for a step's tokens; fold its routing counts, if any."""
+        host = rb.numpy()
+        if rb.counts is not None:
+            self._moe_harvest(rb.counts.numpy())
+        return host
 
     def _clear_rows(self, cache, rows):
         """Ring rows ``rows`` (host indices) as a fresh cache holds them:
@@ -630,8 +640,8 @@ class GenerationEngine:
             tok, _ = self._admit(np.zeros((B, sb), np.int32),
                                  np.full((B, sb), -1, np.int32),
                                  np.ones((B,), np.int32), none, cache, tok)
-        tok, _ = self._decode(tok, np.full((B,), -1, np.int64), cache)
-        _Readback(tok).numpy()
+        _, rb, _ = self._decode(tok, np.full((B,), -1, np.int64), cache)
+        rb.numpy()
 
     def _warmup_paged(self):
         B, C = self._batch, self._C
@@ -886,9 +896,9 @@ class GenerationEngine:
                     # ---- decode dispatch (at most 2 steps in flight) ----
                     dispatched = bool(take)
                     if live and len(pending) < 2:
-                        tok, cache = self._decode(tok, pos, cache, aidsv)
-                        pending.append((_Readback(tok),
-                                        [(i, gens[i]) for i in live]))
+                        tok, rb, cache = self._decode(tok, pos, cache,
+                                                      aidsv)
+                        pending.append((rb, [(i, gens[i]) for i in live]))
                         for i in live:
                             pos[i] += 1
                         self.metrics.incr("decode_steps")
@@ -898,7 +908,7 @@ class GenerationEngine:
                     # ---- harvest the oldest in-flight step ----
                     if pending and (len(pending) >= 2 or not dispatched):
                         rb, targets = pending.popleft()
-                        host = rb.numpy()  # the one wait for the card
+                        host = self._fold_readback(rb)  # the one wait
                         finished = np.zeros((B,), bool)
                         now = time.monotonic()
                         for i, g in targets:
@@ -969,8 +979,9 @@ class GenerationEngine:
             done = np.array([i >= len(requests) for i in range(B)])
             n_tokens = 0
             n_step = 0  # decode offset past the prompt
+            rb = _Readback(tok)
             while True:
-                host_tok = _Readback(tok).numpy()
+                host_tok = self._fold_readback(rb)
                 for i in range(len(requests)):
                     if done[i]:
                         continue
@@ -982,7 +993,8 @@ class GenerationEngine:
                         done[i] = True
                 if done.all():
                     break
-                tok, cache = self._decode(tok, lens + n_step, cache, aidsv)
+                tok, rb, cache = self._decode(tok, lens + n_step, cache,
+                                              aidsv)
                 self.metrics.incr("decode_steps")
                 n_step += 1
             self.metrics.observe_tokens(n_tokens, time.monotonic() - t0)

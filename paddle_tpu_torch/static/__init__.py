@@ -231,19 +231,11 @@ def create_parameter(shape, dtype="float32", name=None, attr=None,
     ``torch.nn.Parameter`` of ``shape`` / ``dtype`` filled by ``attr``'s
     initializer, else ``default_initializer``, else zeros for a bias and
     Xavier-normal otherwise."""
-    from ..nn.initializer import (Constant, ParamAttr, XavierNormal,
-                                  create_parameter as _create,
-                                  init_parameter)
+    from ..nn.initializer import ParamAttr, build_parameter
 
     if attr is None and name is not None:
         attr = ParamAttr(name=name)
-    p = _create(tuple(int(d) for d in shape), attr)
-    if p is None:
-        return None
-    init_parameter(p, attr, default_initializer or (
-        Constant(0.0) if is_bias else XavierNormal()))
-    p.data = p.data.to(convert_dtype(dtype or "float32"))
-    return p
+    return build_parameter(shape, dtype, attr, is_bias, default_initializer)
 
 
 def create_global_var(shape, value, dtype, persistable=False,

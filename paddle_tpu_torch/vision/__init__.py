@@ -1,5 +1,5 @@
-"""Vision of the port: ``vision.models`` (the ResNet family so far; the
-other models, transforms and datasets wait in ROADMAP queue A,
+"""Vision of the port: ``vision.models`` (ResNet, VGG, MobileNet v1 / v2
+and LeNet; transforms, ops and datasets wait in ROADMAP queue A,
 vision)."""
 from . import models
 

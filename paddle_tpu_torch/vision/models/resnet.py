@@ -296,7 +296,9 @@ def _materialize(model: torch.nn.Module, device,
     model.to(device=dev)
 
 
-def _resnet(arch, Block, depth, pretrained, **kwargs):
+def _no_pretrained(arch, pretrained):
+    """Every model constructor's ``pretrained`` argument: a path is not
+    loaded yet, and nothing is downloaded."""
     if pretrained:
         if isinstance(pretrained, str):
             raise UnimplementedError(
@@ -306,6 +308,10 @@ def _resnet(arch, Block, depth, pretrained, **kwargs):
         raise InvalidArgumentError(
             "no pretrained-weight download in this environment: pass a "
             "local .pdparams path as `pretrained`")
+
+
+def _resnet(arch, Block, depth, pretrained, **kwargs):
+    _no_pretrained(arch, pretrained)
     return ResNet(Block, depth, **kwargs)
 
 

@@ -42,8 +42,7 @@ from paddle_tpu.serving import GenerationEngine as JaxGenerationEngine
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch import slim
 from paddle_tpu_torch.bridge import load_jax_params
-from paddle_tpu_torch.framework.errors import (InvalidArgumentError,
-                                               UnimplementedError)
+from paddle_tpu_torch.framework.errors import InvalidArgumentError
 from paddle_tpu_torch.framework.flags import set_flags
 from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_tiny
 from paddle_tpu_torch.resilience.faults import FaultPlan
@@ -447,9 +446,14 @@ def test_engine_takes_bench_keywords(models):
 
 
 def test_dense_mode_refuses_moe_and_oversized_buckets(models):
+    # an MoE model serves in the dense mode (tests/test_torch_moe_serving.py
+    # holds it to JAX); an oversized bucket is refused
     moe = GPTForCausalLM(gpt_tiny(**TINY, moe_experts=2), device="cpu")
-    with pytest.raises(UnimplementedError, match="ROADMAP"):
-        GenerationEngine(moe, prompt_buckets=[8])  # MoE serves paged only
+    with GenerationEngine(moe.eval(), prompt_buckets=[8]) as eng:
+        eng.warmup()
+        assert eng.generate(np.arange(1, 6), 3, timeout=60).tolist() == \
+            _ref_greedy(moe, np.arange(1, 6), 3)
+    assert eng.stats()["moe_routed_tokens"] > 0
     with pytest.raises(InvalidArgumentError):
         GenerationEngine(models[1], prompt_buckets=[128])  # > cache_len
 

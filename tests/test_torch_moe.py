@@ -437,16 +437,17 @@ def test_dense_engine_publishes_no_moe_keys():
 
 
 def test_quantized_moe_engine_is_not_ported():
-    from paddle_tpu_torch.framework.errors import UnimplementedError
-
+    # a quantized MoE engine serves and the config builds, its experts
+    # float (tests/test_torch_moe_serving.py holds the tokens to JAX's)
     _, tmodel = _engine_models(4)
-    with pytest.raises(UnimplementedError, match="ROADMAP"):
-        GenerationEngine(tmodel, prompt_buckets=[8], paged=True,
-                         quantized="int8")
-    with pytest.raises(UnimplementedError, match="ROADMAP"):
-        tgpt.GPTForCausalLM(tgpt.gpt_tiny(moe_experts=2,
-                                          quantization="int8"),
+    with GenerationEngine(tmodel, prompt_buckets=[8], paged=True,
+                          quantized="int8", kv_page_size=8) as eng:
+        out = eng.generate(PROMPTS[0], NEW, timeout=120)
+    assert len(out) == NEW and eng.quant_active
+    m = tgpt.GPTForCausalLM(tgpt.gpt_tiny(moe_experts=2, quantization="int8"),
                             device="cpu")
+    assert m.gpt.blocks[0].attn.qkv.weight.dtype == torch.int8
+    assert m.gpt.blocks[0].mlp.expert_fc1.dtype == torch.float32
 
 
 def test_stats_stack_is_thread_local():

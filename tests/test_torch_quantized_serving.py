@@ -31,8 +31,7 @@ from paddle_tpu.serving import GenerationEngine as JaxGenerationEngine
 from paddle_tpu_torch import slim
 from paddle_tpu_torch.bridge import load_jax_params
 from paddle_tpu_torch.framework.errors import (InvalidArgumentError,
-                                               NotFoundError,
-                                               UnimplementedError)
+                                               NotFoundError)
 from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
                                          _quantize_kv)
 from paddle_tpu_torch.serving import GenerationEngine
@@ -378,13 +377,14 @@ def test_unported_parts_keep_raising():
             eng.swap_weights("no-such-artifact.pdiparams")
     GenerationEngine(fm, prompt_buckets=[16], paged=True, quantized="int8",
                      role="prefill").close()
-    # tenancy is ported (the LoRA and tenancy slice): a quantized paged
-    # engine takes a scheduler; a quantized MoE engine still raises
+    # a quantized paged engine takes a scheduler; a quantized MoE engine
+    # builds
     from paddle_tpu_torch.serving import TenantScheduler
 
     GenerationEngine(fm, prompt_buckets=[16], paged=True, quantized="int8",
                      tenancy=TenantScheduler(["a"])).close()
-    with pytest.raises(UnimplementedError, match="ROADMAP"):
-        GenerationEngine(GPTForCausalLM(GPTConfig(**TINY, moe_experts=2),
-                                        device="cpu"),
-                         prompt_buckets=[16], paged=True, quantized="int8")
+    with GenerationEngine(GPTForCausalLM(GPTConfig(**TINY, moe_experts=2),
+                                         device="cpu").eval(),
+                          prompt_buckets=[16], paged=True,
+                          quantized="int8") as eng:
+        assert eng.quant_active

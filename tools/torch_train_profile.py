@@ -3,7 +3,8 @@
 
     python3 tools/torch_train_profile.py \
         [--model bert|gpt|both|resnet50|gpt_long|gpt_long_train|gpt_moe|
-                 wide_deep|nn_encoder|nn_encoder_recompute]
+                 wide_deep|nn_encoder|nn_encoder_recompute|bert_moe|
+                 bert_int8|resnet50_int8]
         [--steps-per-execution K]
     python3 tools/torch_train_profile.py --static
 
@@ -60,6 +61,18 @@ and dk / dv backward kernels (non-causal); ``nn_encoder_recompute`` the
 same with ``nn.apply_recompute(net, ["TransformerEncoderLayer"])``
 (phase N3): phases and profile as for training.
 
+``bert_moe`` is ``chip_smoke.py`` phase E4's step:
+``BertForPretraining(bert_base(moe_experts=8, moe_top_k=2))`` in bf16 at
+64 x 128 (20 masked) with ``AdamW(1e-4, multi_precision=True)``, with
+``gpt_moe``'s device time by model step (the attention range is
+``BertSelfAttention``'s).  ``bert_int8`` and ``resnet50_int8`` are
+inference: phase E5's forward (``BertForSequenceClassification(
+bert_base(quantization="int8"))`` at 32 x 128) and phase C2's int8
+forward (ResNet-50 NHWC bf16 at 128 x 224² after
+``PostTrainingQuantization`` over 4 seeded batches): the mean of
+``--steps`` synchronized forwards, then one forward under the profiler
+(kernel 9 is the ``quantized_matmul`` group).
+
 ``wide_deep`` is ``chip_smoke.py`` phase S2's step: ``WideDeep`` at a
 million ids (8 fields, dim 32, dense 8, MLP 64-32) with sparse tables and
 ``Adam(1e-3, lazy_mode=True)`` at batch 256 (numpy batches, as the ingest
@@ -102,6 +115,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
+    ("quantized_matmul", ("qmm_kernel",)),
     ("grouped_matmul", ("gmm_bf16_kernel", "gmm_bf16_wgmma_kernel",
                         "gmm_f32_kernel", "gmm_f32_small_kernel")),
     ("flash_attention", ("flash_fwd_",)),
@@ -145,6 +159,18 @@ def build(torch, which):
                                          gpt_small)
 
     ptt.seed(cs.SEED)
+    if which == "bert_moe":
+        net = BertForPretraining(bert_base(
+            moe_experts=cs.MOE_E, moe_top_k=cs.MOE_K), device="cuda").astype(
+                "bfloat16")
+        opt = ptt.optimizer.AdamW(1e-4, weight_decay=0.01,
+                                  multi_precision=True)
+        model = ptt.Model(net, [0] * 4, [0] * 2).prepare(optimizer=opt,
+                                                         loss=net.loss)
+        inputs, labels = cs.bert_batch(30522, cs.BERT_MOE_B, cs.BERT_MOE_S,
+                                       cs.BERT_P, seed=cs.SEED + 93)
+        return (f"bert_base moe {cs.MOE_E} experts top-{cs.MOE_K} bf16 "
+                f"{cs.BERT_MOE_B}x{cs.BERT_MOE_S}", model, inputs, labels)
     if which in ("nn_encoder", "nn_encoder_recompute"):
         net = cs._long_doc_encoder(torch)
         if which == "nn_encoder_recompute":
@@ -227,6 +253,55 @@ def build(torch, which):
     return f"gpt_small f32 {cs.GPT_B}x{cs.GPT_S}", model, [ids], [ids]
 
 
+def build_inference(torch, which):
+    """(label, run) of phase E5's int8 BERT forward or phase C2's int8
+    ResNet-50 forward: ``run(inputs, labels)`` is one forward without
+    gradient."""
+    import chip_smoke as cs
+    from paddle_tpu_torch import slim
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         bert_base)
+    from paddle_tpu_torch.vision.models import resnet50
+
+    if which == "bert_int8":
+        import numpy as np
+
+        net = BertForSequenceClassification(
+            bert_base(quantization="int8"), device="cuda",
+            generator=torch.Generator().manual_seed(cs.SEED + 95)).eval()
+        rng = np.random.RandomState(cs.SEED + 96)
+        x = [torch.from_numpy(a).to("cuda") for a in (
+            rng.randint(0, 30522, size=(cs.QBERT_B, cs.BERT_S)),
+            (rng.uniform(size=(cs.QBERT_B, cs.BERT_S)) < 0.5).astype(
+                np.int64), np.ones((cs.QBERT_B, cs.BERT_S), np.int64))]
+        label = f"bert_base int8 forward {cs.QBERT_B}x{cs.BERT_S}"
+    else:
+        net = resnet50(data_format="NHWC", device="cuda",
+                       generator=torch.Generator().manual_seed(cs.SEED)
+                       ).astype("bfloat16").eval()
+        gen = torch.Generator(device="cuda")
+
+        def images(seed):
+            gen.manual_seed(seed)
+            return (torch.rand(cs.C2_B, cs.C2_HW, cs.C2_HW, 3,
+                               device="cuda", generator=gen) * 2 - 1).to(
+                torch.bfloat16)
+
+        ptq = slim.PostTrainingQuantization(net)
+        for i in range(cs.C2_CALIB):
+            ptq.collect(images(cs.SEED + 100 + i))
+        net = ptq.quantize()
+        x = [images(cs.SEED + 98)]
+        label = f"resnet50 int8 (PTQ) forward {cs.C2_B}x{cs.C2_HW}²"
+
+    def run(_inputs=None, _labels=None):
+        with torch.no_grad():
+            return net(*x)
+
+    run.__name__ = "forward"
+    return label, run
+
+
 def phases(torch, model, inputs, labels, steps):
     """Mean ms of forward+loss, backward and optimizer step from CUDA
     events, in ``train_batch``'s order."""
@@ -293,7 +368,8 @@ RANGES = (("MoELayer", "_route", "moe: router"),
           ("MoELayer", "_dispatch", "moe: dispatch (one-hot products)"),
           ("MoELayer", "_expert_ffn", "moe: expert FFN (bias, GELU)"),
           ("MoELayer", "_combine", "moe: combine (one-hot product)"),
-          ("ParallelAttention", "forward", "attention"))
+          ("ParallelAttention", "forward", "attention"),
+          ("BertSelfAttention", "forward", "attention"))
 _BWD = "autograd::engine::evaluate_function: "
 
 
@@ -311,10 +387,12 @@ def label_ranges():
     """Wrap each of RANGES in a ``record_function`` of its label."""
     from torch.profiler import record_function
 
+    from paddle_tpu_torch.models.bert import BertSelfAttention
     from paddle_tpu_torch.models.gpt import ParallelAttention
     from paddle_tpu_torch.moe import MoELayer
 
-    owners = {"MoELayer": MoELayer, "ParallelAttention": ParallelAttention}
+    owners = {"MoELayer": MoELayer, "ParallelAttention": ParallelAttention,
+              "BertSelfAttention": BertSelfAttention}
     for owner, name, label in RANGES:
         cls = owners[owner]
         fn = getattr(cls, name)
@@ -472,7 +550,8 @@ def main() -> int:
     ap.add_argument("--model", choices=("bert", "gpt", "both", "resnet50",
                                         "gpt_long", "gpt_long_train",
                                         "gpt_moe", "wide_deep", "nn_encoder",
-                                        "nn_encoder_recompute"),
+                                        "nn_encoder_recompute", "bert_moe",
+                                        "bert_int8", "resnet50_int8"),
                     default="both")
     ap.add_argument("--steps", type=int, default=5,
                     help="steps averaged by the phase timing")
@@ -484,7 +563,7 @@ def main() -> int:
                          "run_steps windows (bench.py configs 3 and 2)")
     args = ap.parse_args()
     k = args.steps_per_execution
-    if k > 1 and args.model == "gpt_long":
+    if k > 1 and args.model in ("gpt_long", "bert_int8", "resnet50_int8"):
         ap.error("--steps-per-execution needs a training model")
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA card visible", file=sys.stderr)
@@ -496,6 +575,16 @@ def main() -> int:
     gpu = cs.gpu_line()
     if args.static:
         return main_static(torch, gpu, args.steps)
+    if args.model in ("bert_int8", "resnet50_int8"):
+        label, run = build_inference(torch, args.model)
+        for _ in range(3):
+            run()
+        ms = execution_ms(torch, run, None, None, args.steps)
+        print(f"phases[{gpu}] {label}: forward {ms:.2f} ms, mean of "
+              f"{args.steps} synchronized forwards")
+        wall_us, rows, _, _ = profile_step(torch, run, None, None)
+        print_profile(gpu, label, run.__name__, wall_us, rows)
+        return 0
     for which in (("bert", "gpt") if args.model == "both"
                   else (args.model,)):
         label, model, inputs, labels = build(torch, which)
@@ -537,10 +626,11 @@ def main() -> int:
                   f"backward {bwd:.2f} ({100 * bwd / step:.1f}%) + "
                   f"optimizer {opt:.2f} ({100 * opt / step:.1f}%), mean "
                   f"of {args.steps} steps")
-        if which == "gpt_moe":
+        moe = which in ("gpt_moe", "bert_moe")
+        if moe:
             label_ranges()
         wall_us, rows, steps, host_ops = profile_step(
-            torch, run, inputs, labels, ranges=which == "gpt_moe")
+            torch, run, inputs, labels, ranges=moe)
         busy = print_profile(gpu, label, run.__name__, wall_us, rows)
         for g, (us, n) in sorted((steps or {}).items(),
                                  key=lambda kv: -kv[1][0]):
