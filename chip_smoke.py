@@ -590,6 +590,40 @@ numbers; the kernels line's entries of kernels 9 and 10 gain
 ``compression_launches`` and ``compression_path_checks`` (kernel 9 also
 C1's rows under ``compression_shapes``).
 
+The vision slice (after C3):
+
+V1. every convolution and pool of the slice on the card against its copy
+    on the CPU, float32 (TF32 off), on one seeded input: DCGAN's generator
+    at batch 128 (``Conv2DTranspose`` 100 → 512 k4 s1, then k4 s2 p1 512
+    → 256 → 128 → 64 → 3, 4² → 64², with and without ``output_size``,
+    and cropped), C3D's ``Conv3D(64 → 128, k3, p1)`` on [8, 64, 16, 56,
+    56] with ``MaxPool3D(2, return_mask=True)``, ``Conv1D`` /
+    ``Conv1DTranspose`` at [32, 256, 1024], the convolutions in their
+    channels-last layouts, every average and max pool in both layouts at
+    ``ceil_mode`` and ``exclusive`` True and False, the adaptive pools
+    (the max pools' masks None, as JAX's): output and the gradients of
+    ``Σ out · c`` for the input and every parameter within 2e-3 of the
+    CPU result's rms, masks equal (unique window maxima: seeded
+    permutations);
+V2. ResNet-50 (NHWC, space-to-depth stem, bf16, 10 classes) with
+    Momentum(0.1, 0.9, multi_precision, wd 1e-4) through ``Model.fit``
+    from 512 seeded 256² uint8 ``.npy`` files in 10 class folders
+    (written under ``$TMPDIR``, removed after): ``DatasetFolder(loader=
+    numpy.load)``, ``RandomCrop(224)`` / ``RandomHorizontalFlip`` /
+    ``ToTensor("HWC")`` / ``Normalize``, ``DataLoader(batch_size=128,
+    shuffle, drop_last, num_workers=8)``; one warm-up ``train_batch``,
+    one epoch (4 steps): losses finite, kernels 7 and 8 16 launches each
+    step; img/s end to end beside ``train_batch``'s on a batch on the
+    card (no PIL anywhere on the path);
+V3. V2's network saved with ``paddle_tpu_torch.save`` and rebuilt with
+    ``resnet50(pretrained=path)``: eval logits bit for bit;
+V4. a ``fluid.Program`` of ``conv2d_transpose``, ``conv3d``,
+    ``conv3d_transpose``, ``pool2d(pool_type="avg")`` and ``pool3d``
+    through ``Executor.run`` on the card against the eager layers with
+    the program's parameters (1e-5 of the rms).
+A ``{"vision": ...}`` line carries V1-V4's numbers; kernels 7 and 8's
+entries in the kernels line gain ``vision_launches`` (V2, per step).
+
 The line before last is the ``{"kernels": [...]}`` JSON record (kernel
 1's entries carry D4's launches by engine under ``handoff_launches`` and
 D3's paged run's under ``bench_paged_launches``, kernel 9's D5's quantized
@@ -8350,6 +8384,454 @@ def compression_phases(torch, gpu, d1, m4):
     return {"E": e13, "E4": e4, "E5": e5, "C1": c1, "C2": c2, "C3": c3}
 
 
+# -- the vision slice: convolutions, pools and the image data path ----------
+V_TOL = 2e-3        # card vs CPU, float32: max |diff| / rms(CPU result)
+V_B = 128           # V2's batch; 512 images, 4 steps an epoch
+V_IMAGES, V_CLASSES, V_HW, V_CROP = 512, 10, 256, 224
+V_WORKERS = 8
+V_MEAN, V_STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+#: DCGAN's generator (nz 100 → 512 → 256 → 128 → 64 → 3, 4² → 64²) at
+#: batch 128: (C_in, C_out, input side) of its stride-2 transposed convs
+V_DCGAN = ((512, 256, 4), (256, 128, 8), (128, 64, 16), (64, 3, 32))
+V_DCGAN_B = 128
+V_C3D = dict(x=(8, 64, 16, 56, 56), cin=64, cout=128)
+V_CONV1D = (32, 256, 1024)
+#: the pools' inputs, channels-first, fewer than 2^24 elements each so a
+#: permutation of integers is exact in float32 (unique window maxima);
+#: the even sizes take ceil_mode's extra padding at k3 s2 p1
+V_POOL_SHAPES = {1: (32, 64, 1000), 2: (32, 64, 56, 57),
+                 3: (8, 32, 14, 29, 28)}
+V_ADAPTIVE = {1: 7, 2: (7, 5), 3: (4, 5, 6)}
+V_FORMATS = {1: ("NCL", "NLC"), 2: ("NCHW", "NHWC"), 3: ("NCDHW", "NDHWC")}
+
+
+def _v_err(torch, got, ref):
+    """max |got - ref| / rms(ref), on the CPU in float64."""
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    rms = float(ref.pow(2).mean().sqrt()) or 1.0
+    return float((got - ref).abs().max()) / rms
+
+
+def _v_unique(torch, shape, seed):
+    """A seeded permutation of the integers, centred: every value
+    distinct and exact in float32."""
+    n = math.prod(shape)
+    assert n < 2 ** 24, shape
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randperm(n, generator=g).float() - n / 2).reshape(shape)
+
+
+def _v_window_unique(torch, shape, seed):
+    """Values distinct inside every 2 x 2 x 2 window of a channels-first
+    3-D input (a window's 8 ranks are a seeded permutation over a seeded
+    base): MaxPool3D(2)'s maxima are unique at any size."""
+    B, C, D, H, W = shape
+    g = torch.Generator().manual_seed(seed)
+    cells = (B, C, D // 2, H // 2, W // 2)
+    ranks = torch.rand(cells + (8,), generator=g).argsort(-1).float()
+    base = torch.randint(0, 4096, cells + (1,), generator=g).float() * 8
+    return (base + ranks).reshape(cells + (2, 2, 2)).permute(
+        0, 1, 2, 5, 3, 6, 4, 7).reshape(shape)
+
+
+def _v_pair(torch, label, layer, x, seed, kwargs=None):
+    """``layer`` (on the CPU) and a copy on the card on one input:
+    the output, the mask (equal, or None in both) and the gradients of
+    ``Σ out · c`` for the input and every parameter; the largest error
+    of them, and the card's forward ms."""
+    import copy
+
+    kwargs = kwargs or {}
+    card = copy.deepcopy(layer).to(DEVICE)
+    xc = x.clone().requires_grad_(True)
+    xd = x.to(DEVICE).requires_grad_(True)
+    outs = []
+    for net, xx in ((layer, xc), (card, xd)):
+        out = net(xx, **kwargs)
+        outs.append(out if isinstance(out, tuple) else (out, None))
+    (oc, mc), (od, md) = outs
+    assert tuple(oc.shape) == tuple(od.shape), (label, oc.shape, od.shape)
+    cot = torch.randn(oc.shape, generator=torch.Generator().manual_seed(seed))
+    gc_ = torch.autograd.grad((oc * cot).sum(), [xc, *layer.parameters()])
+    gd = torch.autograd.grad((od * cot.to(DEVICE)).sum(),
+                             [xd, *card.parameters()])
+    errs = [_v_err(torch, od, oc)] + [_v_err(torch, d, c)
+                                      for d, c in zip(gd, gc_)]
+    if mc is None or md is None:
+        assert mc is None and md is None, label
+        mask = None
+    else:
+        mask = bool(torch.equal(mc, md.cpu()))
+        assert mask, f"V1 {label}: the card's mask differs from the CPU's"
+    err = max(errs)
+    assert err <= V_TOL, (label, errs)
+    with torch.no_grad():
+        ms = time_ms(torch, lambda t: card(t, **kwargs), [(xd.detach(),)], 5)
+    row = {"max_err": err, "mask_equal": mask, "shape": list(x.shape),
+           "ms": ms}
+    log(f"V1 {label}: out {list(oc.shape)} max err {err:.2e} (tol "
+        f"{V_TOL:.0e} x rms){'' if mask is None else ', mask equal'}; card "
+        f"forward {ms:.4f} ms")
+    return row
+
+
+def vision_ops_card_vs_cpu(torch):
+    """Phase V1: every op of the vision slice on the card against the
+    port's CPU result on one seeded float32 input (forward; gradients of
+    ``Σ out · c`` for the input and every parameter; all within V_TOL of
+    the CPU result's rms), masks equal."""
+    import paddle_tpu_torch.nn as nn
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def made(layer, seed):
+        layer.reset_parameters(gen(seed))
+        return layer
+
+    rows, seed = {}, SEED + 900
+    # DCGAN's generator: the k4 s1 p0 input layer, then the four k4 s2 p1
+    # layers with and without output_size, and the last one cropped
+    z = torch.randn((V_DCGAN_B, 100, 1, 1), generator=gen(seed))
+    rows["dcgan_input_100_512"] = _v_pair(torch, "ConvT2D 100->512 1->4", made(
+        nn.Conv2DTranspose(100, 512, 4), seed), z, seed)
+    for cin, cout, side in V_DCGAN:
+        seed += 1
+        x = torch.randn((V_DCGAN_B, cin, side, side), generator=gen(seed))
+        layer = made(nn.Conv2DTranspose(cin, cout, 4, stride=2, padding=1),
+                     seed)
+        for size in (None, [2 * side, 2 * side]) + (
+                ([2 * side - 1, 2 * side - 3],) if cout == 3 else ()):
+            tag = "" if size is None else f" output_size={size}"
+            rows[f"dcgan_{cin}_{cout}{tag}"] = _v_pair(
+                torch, f"ConvT2D k4s2p1 {cin}->{cout} {side}->"
+                f"{2 * side}{tag}", layer, x, seed,
+                {} if size is None else {"output_size": size})
+    # C3D: Conv3D(64 -> 128, k3, p1), then MaxPool3D(2) with its mask
+    seed += 1
+    x3 = torch.randn(V_C3D["x"], generator=gen(seed))
+    rows["c3d_conv3d"] = _v_pair(torch, "Conv3D 64->128 k3p1", made(
+        nn.Conv3D(V_C3D["cin"], V_C3D["cout"], 3, padding=1), seed), x3, seed)
+    seed += 1
+    xp = _v_window_unique(torch, (V_C3D["x"][0], V_C3D["cout"])
+                          + V_C3D["x"][2:], seed)
+    rows["c3d_maxpool3d_mask"] = _v_pair(
+        torch, "MaxPool3D(2, return_mask)", nn.MaxPool3D(2, return_mask=True),
+        xp, seed)
+    # Conv1D / Conv1DTranspose at [32, 256, 1024]
+    seed += 1
+    x1 = torch.randn(V_CONV1D, generator=gen(seed))
+    rows["conv1d"] = _v_pair(torch, "Conv1D 256->256 k3p1", made(
+        nn.Conv1D(256, 256, 3, padding=1), seed), x1, seed)
+    rows["conv1d_transpose"] = _v_pair(torch, "Conv1DTranspose k4s2p1", made(
+        nn.Conv1DTranspose(256, 256, 4, stride=2, padding=1), seed + 1), x1,
+        seed + 1)
+    # the channels-last layouts of the convolutions (NLC, NHWC, NDHWC)
+    x1l = x1.movedim(1, -1).contiguous()
+    rows["conv1d NLC"] = _v_pair(torch, "Conv1D NLC 256->256 k3p1", made(
+        nn.Conv1D(256, 256, 3, padding=1, data_format="NLC"), seed), x1l,
+        seed)
+    rows["conv1d_transpose NLC"] = _v_pair(
+        torch, "Conv1DTranspose NLC k4s2p1", made(nn.Conv1DTranspose(
+            256, 256, 4, stride=2, padding=1, data_format="NLC"), seed + 1),
+        x1l, seed + 1)
+    seed += 2
+    x2l = torch.randn((V_DCGAN_B, 512, 4, 4), generator=gen(
+        seed)).movedim(1, -1).contiguous()
+    rows["dcgan_512_256 NHWC"] = _v_pair(
+        torch, "ConvT2D NHWC k4s2p1 512->256", made(nn.Conv2DTranspose(
+            512, 256, 4, stride=2, padding=1, data_format="NHWC"), seed),
+        x2l, seed)
+    x3l = torch.randn((2, 64, 16, 56, 56), generator=gen(
+        seed)).movedim(1, -1).contiguous()
+    rows["conv3d NDHWC"] = _v_pair(torch, "Conv3D NDHWC 64->128 k3p1", made(
+        nn.Conv3D(64, 128, 3, padding=1, data_format="NDHWC"), seed), x3l,
+        seed)
+    rows["conv3d_transpose NDHWC"] = _v_pair(
+        torch, "Conv3DTranspose NDHWC k2s2", made(nn.Conv3DTranspose(
+            64, 32, 2, stride=2, data_format="NDHWC"), seed), x3l, seed)
+    # every pool in both layouts at ceil_mode and exclusive True / False
+    for n, shape in V_POOL_SHAPES.items():
+        seed += 1
+        base = _v_unique(torch, shape, seed)
+        for last, fmt in enumerate(V_FORMATS[n]):
+            x = base.movedim(1, -1).contiguous() if last else base
+            for ceil in (False, True):
+                for excl in (True, False):
+                    rows[f"avg_pool{n}d {fmt} ceil={ceil} excl={excl}"] = \
+                        _v_pair(torch, f"AvgPool{n}D {fmt} k3s2p1 ceil={ceil}"
+                                f" exclusive={excl}", getattr(
+                                    nn, f"AvgPool{n}D")(
+                                    3, 2, 1, ceil_mode=ceil, exclusive=excl,
+                                    data_format=fmt), x, seed)
+                rows[f"max_pool{n}d {fmt} ceil={ceil} mask"] = _v_pair(
+                    torch, f"MaxPool{n}D {fmt} k3s2p1 ceil={ceil} mask",
+                    getattr(nn, f"MaxPool{n}D")(
+                        3, 2, 1, ceil_mode=ceil, return_mask=True,
+                        data_format=fmt), x, seed)
+        # the adaptive pools at non-divisible sizes; the max pools' masks
+        # are None, as the JAX package's
+        size = V_ADAPTIVE[n]
+        rows[f"adaptive_max_pool{n}d mask"] = _v_pair(
+            torch, f"AdaptiveMaxPool{n}D {size} mask", getattr(
+                nn, f"AdaptiveMaxPool{n}D")(size, return_mask=True),
+            base, seed)
+        rows[f"adaptive_avg_pool{n}d"] = _v_pair(
+            torch, f"AdaptiveAvgPool{n}D {size}", getattr(
+                nn, f"AdaptiveAvgPool{n}D")(size), base, seed)
+    worst = max(r["max_err"] for r in rows.values())
+    masks = sum(1 for r in rows.values() if r["mask_equal"])
+    log(f"V1: {len(rows)} ops card vs CPU, float32, forward and backward: "
+        f"largest error {worst:.2e} x rms (tol {V_TOL:.0e}); {masks} masks "
+        f"equal")
+    return {"cases": rows, "max_err": worst, "masks_equal": masks,
+            "tol": V_TOL}
+
+
+def _v_write_images(np, root):
+    """V_IMAGES seeded uint8 HWC images as ``.npy`` files in V_CLASSES
+    folders (image i in class i % V_CLASSES)."""
+    rng = np.random.RandomState(SEED + 901)
+    for c in range(V_CLASSES):
+        os.makedirs(os.path.join(root, f"class_{c:02d}"))
+    for i in range(V_IMAGES):
+        np.save(os.path.join(root, f"class_{i % V_CLASSES:02d}",
+                             f"{i:04d}.npy"),
+                rng.randint(0, 256, (V_HW, V_HW, 3), dtype=np.uint8))
+
+
+def vision_data_path(torch, gpu):
+    """Phase V2: ResNet-50 (NHWC, space-to-depth stem, bf16, 10 classes)
+    trained from image files through ``Model.fit``: ``.npy`` class folders
+    read by ``DatasetFolder(loader=numpy.load)`` through ``RandomCrop`` /
+    ``RandomHorizontalFlip`` / ``ToTensor`` / ``Normalize`` in an 8-worker
+    ``DataLoader``, one warm-up ``train_batch`` and one epoch; kernels 7
+    and 8 counted each step.  Then the same model's ``train_batch`` on a
+    batch already on the card.  Returns the numbers and the trained
+    network, its save directory and one batch for V3."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import vision
+    from paddle_tpu_torch.ops import bn_apply_relu, conv1x1_bn_stats
+
+    T = vision.transforms
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vision_")
+    try:
+        t0 = time.monotonic()
+        _v_write_images(np, tmp)
+        written = time.monotonic() - t0
+        data = vision.datasets.DatasetFolder(
+            tmp, loader=np.load, extensions=(".npy",),
+            transform=T.Compose([
+                T.RandomCrop(V_CROP), T.RandomHorizontalFlip(),
+                T.ToTensor(data_format="HWC"),
+                T.Normalize(V_MEAN, V_STD, data_format="HWC")]))
+        assert len(data) == V_IMAGES and len(data.classes) == V_CLASSES
+        loader = ptt.io.DataLoader(data, batch_size=V_B, shuffle=True,
+                                   drop_last=True, num_workers=V_WORKERS,
+                                   places=DEVICE)
+        net = resnet_model(torch, "bfloat16", DEVICE,
+                           torch.Generator().manual_seed(SEED),
+                           num_classes=V_CLASSES)
+        model = resnet_trainer(torch, net)
+        # the warm-up step, on a batch read in this process
+        first = ptt.io.default_collate_fn([data[i] for i in range(V_B)])
+        xw = torch.from_numpy(first[0]).to(DEVICE)
+        yw = torch.from_numpy(first[1]).to(DEVICE)
+        model.train_batch([xw], [yw])
+        counts_cb, counts = _counts_per_execution(
+            [(conv1x1_bn_stats, "launches"), (bn_apply_relu, "launches")])
+        timer = ExecutionTimer(torch)
+        begins = []  # host clock at each step's begin
+
+        class _Begins(ptt.hapi.callbacks.Callback):
+            def on_train_batch_begin(self, step, logs=None):
+                begins.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(loader, epochs=1, verbose=0,
+                  callbacks=[_Begins(), counts_cb, timer.callback])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        begin_s = [b - t0 for b in begins]
+        steps = V_IMAGES // V_B
+        losses = timer.losses
+        assert len(counts) == steps, counts
+        want = RESNET_BLOCKS
+        assert all(c == (want, want) for c in counts), counts
+        assert all(math.isfinite(v) for v in losses), losses
+        # the same model's train_batch on a batch already on the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            model.train_batch([xw], [yw])
+        torch.cuda.synchronize()
+        tb_s = time.perf_counter() - t0
+        fit_ips = steps * V_B / fit_s
+        tb_ips = steps * V_B / tb_s
+        step_wall = sum(timer.wall)
+        out = {
+            "images": V_IMAGES, "classes": V_CLASSES, "image_hw": V_HW,
+            "crop": V_CROP, "batch": V_B, "workers": V_WORKERS,
+            "steps": steps, "write_s": written,
+            "launches_per_step": [list(c) for c in counts],
+            "losses": losses, "fit_s": fit_s, "fit_img_per_s": fit_ips,
+            "step_wall_s": step_wall,
+            "first_step_wall_s": timer.wall[0],
+            # fit's start to each step's begin: the worker pool's start
+            # and the first batch, then the later batches' waits
+            "step_begin_s": begin_s,
+            "train_batch_s": tb_s, "train_batch_img_per_s": tb_ips,
+            "input_pipeline_share": 1.0 - tb_s / fit_s}
+        log(f"V2 ResNet-50 bf16 from {V_IMAGES} .npy images (10 classes, "
+            f"{V_HW}^2 -> RandomCrop {V_CROP}, flip, ToTensor, Normalize; "
+            f"{V_WORKERS} workers)[{gpu}]: one epoch of {steps} steps through "
+            f"fit in {fit_s:.3f}s = {fit_ips:.1f} img/s end to end "
+            f"(worker start included: the steps began at "
+            f"{[round(b, 3) for b in out['step_begin_s']]} s; the steps' "
+            f"wall {step_wall} s, the first {out['first_step_wall_s']} s); "
+            f"train_batch on a batch on the "
+            f"card {tb_s / steps * 1e3:.2f} ms/step = {tb_ips:.1f} img/s; "
+            f"input pipeline share {out['input_pipeline_share']:.3f}; "
+            f"losses {losses}; launches per step (conv1x1_bn_stats, "
+            f"bn_apply_relu) {counts} (= {want} each)")
+        return out, net, xw
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def vision_pretrained(torch, gpu, net, x):
+    """Phase V3: V2's trained network saved with ``paddle_tpu_torch.save``
+    and rebuilt with ``resnet50(pretrained=path)``: eval logits on one
+    batch bit for bit."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as ptt
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pretrained_")
+    try:
+        path = os.path.join(tmp, "resnet50.pdparams")
+        t0 = time.monotonic()
+        ptt.save(net.state_dict(), path)
+        save_s = time.monotonic() - t0
+        size = os.path.getsize(path)
+        t0 = time.monotonic()
+        again = ptt.vision.models.resnet50(
+            pretrained=path, num_classes=V_CLASSES, data_format="NHWC",
+            stem_space_to_depth=True, device=DEVICE).astype("bfloat16")
+        load_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    net.eval()
+    again.eval()
+    with torch.no_grad():
+        want, got = net(x), again(x)
+    equal = bool(torch.equal(want, got))
+    log(f"V3 resnet50(pretrained=path)[{gpu}]: checkpoint {size} bytes, "
+        f"save {save_s:.2f}s, rebuild + load {load_s:.2f}s; eval logits "
+        f"{list(got.shape)} {got.dtype} bit-equal to the saved network's: "
+        f"{equal}")
+    assert equal, "V3: the reloaded network's logits differ"
+    return {"bytes": size, "save_s": save_s, "load_s": load_s,
+            "logits_bit_equal": equal}
+
+
+def vision_static(torch, gpu):
+    """Phase V4: a ``fluid.Program`` with ``conv2d_transpose``,
+    ``conv3d``, ``conv3d_transpose``, ``pool2d(pool_type="avg")`` and
+    ``pool3d`` (average and max) run by ``Executor.run`` on the card,
+    against the eager layers with the program's parameters on the card
+    (rtol 1e-5 of the result's rms: one device, the same kernels)."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.nn.functional as F
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x2 = fluid.data("x2", [-1, 64, 16, 16])
+        a = fluid.layers.conv2d_transpose(x2, num_filters=32, filter_size=4,
+                                          stride=2, padding=1)
+        a = fluid.layers.pool2d(a, pool_size=3, pool_type="avg",
+                                pool_stride=2, pool_padding=1,
+                                ceil_mode=True, exclusive=False)
+        x3 = fluid.data("x3", [-1, 16, 8, 28, 28])
+        b = fluid.layers.conv3d(x3, num_filters=32, filter_size=3,
+                                padding=1)
+        b = fluid.layers.conv3d_transpose(b, num_filters=16, filter_size=2,
+                                          stride=2)
+        c = fluid.layers.pool3d(b, 3, pool_type="avg", pool_stride=2,
+                                pool_padding=1)
+        d = fluid.layers.pool3d(b, 2, pool_type="max", pool_stride=2,
+                                ceil_mode=True)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup)
+    rng = np.random.RandomState(SEED + 902)
+    feed = {"x2": rng.randn(16, 64, 16, 16).astype(np.float32),
+            "x3": rng.randn(4, 16, 8, 28, 28).astype(np.float32)}
+    outs = exe.run(main, feed=feed, fetch_list=[a, c, d])
+    scope = {k.split("_", 2)[2].rsplit("_", 1)[0]: v
+             for k, v in main.scope.items()}
+
+    def eager(layer, prefix):
+        layer = layer.to(DEVICE)
+        with torch.no_grad():
+            layer.weight.copy_(scope[f"{prefix}.weight"])
+            layer.bias.copy_(scope[f"{prefix}.bias"])
+        return layer
+
+    with torch.no_grad():
+        t2 = torch.from_numpy(feed["x2"]).to(DEVICE)
+        t3 = torch.from_numpy(feed["x3"]).to(DEVICE)
+        ea = F.avg_pool2d(eager(nn.Conv2DTranspose(64, 32, 4, stride=2,
+                                                   padding=1),
+                                "conv2d_transpose")(t2),
+                          3, 2, 1, ceil_mode=True, exclusive=False)
+        eb = eager(nn.Conv3DTranspose(32, 16, 2, stride=2),
+                   "conv3d_transpose")(eager(nn.Conv3D(16, 32, 3, padding=1),
+                                             "conv3d")(t3))
+        ec = nn.AvgPool3D(3, 2, 1)(eb)
+        ed = nn.MaxPool3D(2, 2, ceil_mode=True)(eb)
+    errs = {}
+    for name, got, want in (("conv2d_transpose+pool2d_avg", outs[0], ea),
+                            ("conv3d+conv3d_transpose+pool3d_avg", outs[1],
+                             ec),
+                            ("pool3d_max", outs[2], ed)):
+        assert tuple(got.shape) == tuple(want.shape), (name, got.shape)
+        errs[name] = _v_err(torch, torch.from_numpy(np.asarray(got)), want)
+        assert errs[name] <= 1e-5, (name, errs[name])
+    log(f"V4 static vision builders through Executor.run[{gpu}]: outputs "
+        f"{[list(o.shape) for o in outs]} against the eager layers with "
+        f"the program's parameters: errors {errs} x rms (tol 1e-5)")
+    return {"errors": errs, "shapes": [list(o.shape) for o in outs]}
+
+
+def vision_phases(torch, gpu):
+    """V1-V4, then the ``{"vision": ...}`` line; returns what the kernels
+    line needs."""
+    v1 = vision_ops_card_vs_cpu(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    v2, net, x = vision_data_path(torch, gpu)
+    v3 = vision_pretrained(torch, gpu, net, x)
+    del net, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    v4 = vision_static(torch, gpu)
+    log(json.dumps({"vision": {
+        "device": gpu, "V1_ops_card_vs_cpu": v1, "V2_resnet50_from_files": v2,
+        "V3_pretrained": v3, "V4_static_builders": v4}}, default=str))
+    return {"V1": v1, "V2": v2, "V3": v3, "V4": v4}
+
+
+
 def main() -> int:
     import torch
 
@@ -8497,6 +8979,10 @@ def main() -> int:
     # under the int8 layers)
     mark("MoE and quantization (E1-E5, C1-C3)")
     comp = compression_phases(torch, gpu, d1, moe_served)
+    # the vision slice: the new convolutions and pools card vs CPU, and
+    # ResNet-50 trained from image files through fit (kernels 7 and 8)
+    mark("vision (V1-V4)")
+    vis = vision_phases(torch, gpu)
     paged = dict(name="paged_flash_decode", route="cuda",
                  source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
                  replaces="paddle_tpu/ops/paged_attention.py:155")
@@ -8627,8 +9113,8 @@ def main() -> int:
     # time; the other conv3 shapes beside them
     k7_err = max(e for (_, dt, design), e in rerrs.items()
                  if dt == "bfloat16" and design == "wgmma")
-    for name, line, err in (("conv1x1_bn_stats", 107, k7_err),
-                            ("bn_apply_relu", 203, 0.0)):
+    for i, (name, line, err) in enumerate((
+            ("conv1x1_bn_stats", 107, k7_err), ("bn_apply_relu", 203, 0.0))):
         kernels.append(dict(
             name=name, route="cuda",
             source="paddle_tpu_torch/ops/csrc/fused_conv1x1_bn.cu",
@@ -8637,6 +9123,8 @@ def main() -> int:
             graph_launches=k3["graph_launches"][name],
             # a replayed ST4 window (bench.py config 2, 60 steps)
             static_launches=st["resnet"]["launches"][name],
+            # V2: ResNet-50 from image files through fit, per step
+            vision_launches=[c[i] for c in vis["V2"]["launches_per_step"]],
             **rrows[(name, "layer1")],
             other_shapes={layer: rrows[(name, layer)]
                           for layer, _, _, _ in RESNET_TAILS[1:]}))

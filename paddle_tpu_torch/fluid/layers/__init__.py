@@ -13,7 +13,8 @@ Three tiers, as in the JAX module:
   ``RNNCellBase``; ``kldiv_loss``, ``huber_loss``, ``warpctc``, ``rnn``
   and ``birnn`` are thin 1.x wrappers over them);
 * the parameter-creating builders of ``static.builders`` (``fc``,
-  ``embedding``, ``conv2d``, ``pool2d``, ``batch_norm``, ``layer_norm``,
+  ``embedding``, ``conv2d``, ``conv2d_transpose``, ``conv3d``,
+  ``conv3d_transpose``, ``pool2d``, ``batch_norm``, ``layer_norm``,
   ``instance_norm``, ``group_norm``, ``spectral_norm``, ``prelu``,
   ``bilinear_tensor_product``, ``hsigmoid``)
   and ``data``, ``assign(output=)``, ``fill_constant`` and
@@ -21,7 +22,7 @@ Three tiers, as in the JAX module:
 * every other name of the JAX module resolves to a function (or class)
   that raises ``UnimplementedError`` naming the ROADMAP queue-A item that
   ports it: the detection, sequence, CRF and 1.x beam-search ops are
-  the rest of ``nn/`` (its tail), the resize / crop / 3-D pooling
+  the rest of ``nn/`` (its tail), the resize / crop / grid-sampling
   ops are vision, and the control flow (``control_flow.py``), the
   readers, the LoD machinery and the other Program-only names are static
   graph and the long tail — never a bare ``AttributeError``.
@@ -49,8 +50,9 @@ from ...nn.functional.loss import softmax_with_cross_entropy  # noqa: F401
 from ...static import create_global_var, create_parameter  # noqa: F401
 from ...static.builders import (  # noqa: F401
     UNPORTED as _BUILDERS_UNPORTED, _act, batch_norm, bilinear_tensor_product,
-    conv2d, embedding, fc, group_norm, hsigmoid, instance_norm, layer_norm,
-    pool2d, prelu, spectral_norm, unported as _unported,
+    conv2d, conv2d_transpose, conv3d, conv3d_transpose, embedding, fc,
+    group_norm, hsigmoid, instance_norm, layer_norm, pool2d, prelu,
+    spectral_norm, unported as _unported,
 )
 from ...static.graph import (
     Variable as _GraphVar, data as _graph_data, default_main_program as _dmp,
@@ -665,6 +667,29 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
                         scoped=True, prefix="step_counter")
 
 
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True, data_format="NCDHW"):
+    """ref: fluid/layers/nn.py pool3d: global max / mean over the spatial
+    axes (kept), else ``max_pool3d`` / ``avg_pool3d``."""
+    from ...nn import functional as _F
+    from ...tensor._common import t as _as_tensor
+
+    x = _as_tensor(input)
+    if global_pooling:
+        axes = (2, 3, 4) if data_format == "NCDHW" else (1, 2, 3)
+        if pool_type == "max":
+            return torch.amax(x, dim=axes, keepdim=True)
+        return torch.mean(x, dim=axes, keepdim=True)
+    if pool_type == "max":
+        return _F.max_pool3d(x, pool_size, stride=pool_stride,
+                             padding=pool_padding, ceil_mode=ceil_mode,
+                             data_format=data_format)
+    return _F.avg_pool3d(x, pool_size, stride=pool_stride,
+                         padding=pool_padding, ceil_mode=ceil_mode,
+                         exclusive=exclusive, data_format=data_format)
+
+
 from ...framework.serialization import load  # noqa: E402,F401
 
 # -- every public function is graph-capable: called with symbolic
@@ -672,7 +697,8 @@ from ...framework.serialization import load  # noqa: E402,F401
 # graph-mode names handle their own dispatch
 import types as _types  # noqa: E402
 
-_NO_WRAP = {"fc", "embedding", "conv2d", "batch_norm", "layer_norm",
+_NO_WRAP = {"fc", "embedding", "conv2d", "conv2d_transpose", "conv3d",
+            "conv3d_transpose", "batch_norm", "layer_norm",
             "pool2d", "instance_norm", "group_norm", "spectral_norm",
             "prelu", "bilinear_tensor_product", "hsigmoid", "assign", "data",
             "load", "fill_constant",
@@ -708,11 +734,11 @@ UNPORTED = {
         "sequence_expand_as", "sequence_enumerate", "sequence_concat",
         "sequence_slice", "sequence_scatter", "sequence_reshape",
         "crop_tensor", "maxout_legacy", "warpctc_lod")},
-    # resize, crop, grid sampling and 3-D pooling (item 5)
+    # resize, crop and grid sampling (item 5)
     **{n: _VISION for n in (
         "pad2d", "image_resize", "resize_bilinear", "resize_nearest",
         "resize_linear", "resize_trilinear", "image_resize_short",
-        "grid_sampler", "random_crop", "pool3d")},
+        "grid_sampler", "random_crop")},
     # control flow, readers, LoD and the other Program-only names (item 8)
     **{n: _ITEM8 for n in (
         "cond", "while_loop", "case", "switch_case", "While", "StaticRNN",

@@ -7,10 +7,15 @@ and stages them onto the device.  ``random_split`` permutes with an
 explicit ``torch.Generator`` (default: the CPU generator that
 ``paddle_tpu_torch.seed`` reseeds), where the JAX package draws a JAX key:
 the two packages split differently for the same seed.
+
+``DEFAULT_DATA_ROOT`` is where the vision datasets look for their files
+when no path is given: the JAX package's directory, so both packages read
+one copy.  Nothing is downloaded.
 """
 from __future__ import annotations
 
 import bisect
+import os
 from typing import Iterable, List, Sequence
 
 import numpy as np
@@ -19,6 +24,9 @@ import torch
 from ..framework.dtype import to_numpy
 from ..framework.errors import InvalidArgumentError
 from ..framework.random import default_generator
+
+#: the one on-disk root of every dataset family's files
+DEFAULT_DATA_ROOT = os.path.expanduser("~/.cache/paddle_tpu/datasets")
 
 __all__ = [
     "Dataset",

@@ -2,8 +2,7 @@
 whose call applies the amp policy) with the JAX package's class names,
 parameter names and layouts; the names the JAX ``nn`` exports, apart from
 ``layer_base``'s ``Parameter``, ``Buffer``, ``functional_call``,
-``rng_scope`` and ``current_rng_key`` and the layers of ``conv.py`` /
-``pooling.py`` still to port (ROADMAP queue A)."""
+``rng_scope`` and ``current_rng_key`` still to port (ROADMAP queue A)."""
 import torch
 
 from . import functional, initializer

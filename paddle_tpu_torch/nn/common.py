@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from ..framework.errors import InvalidArgumentError, UnimplementedError
+from ..framework.errors import InvalidArgumentError
 from ..framework.selected_rows import tap_lookup
 from ..tensor._common import t as _t
 from ..tensor.linalg import norm as _norm
@@ -29,7 +29,7 @@ from .functional import common as _C
 from .functional.common import embedding
 from .functional.extension import row_conv
 from .functional.loss import cosine_similarity
-from .functional.pooling import max_pool2d
+from .functional.pooling import avg_pool2d, max_pool2d
 from .initializer import (Constant, Normal, XavierNormal, create_parameter,
                           fill_at_construction, init_parameter)
 from .layer import Layer
@@ -400,8 +400,8 @@ class BilinearTensorProduct(Layer):
 
 class Pool2D(Layer):
     """The 1.x pooling layer: ``global_pooling`` (max or mean over the
-    spatial axes, kept), else ``max_pool2d``.  Windowed average pooling
-    comes with ``nn/pooling.py`` (ROADMAP queue A, vision) and raises."""
+    spatial axes, kept), else ``max_pool2d`` or ``avg_pool2d`` with the
+    layer's ``exclusive`` and ``ceil_mode``."""
 
     def __init__(self, pool_size=-1, pool_type="max", pool_stride=1,
                  pool_padding=0, global_pooling=False, use_cudnn=True,
@@ -432,6 +432,7 @@ class Pool2D(Layer):
                               padding=self.pool_padding,
                               ceil_mode=self.ceil_mode,
                               data_format=self.data_format)
-        raise UnimplementedError(
-            "Pool2D(pool_type='avg') without global_pooling is not ported "
-            "yet (ROADMAP queue A, vision: avg_pool2d)")
+        return avg_pool2d(x, self.pool_size, stride=self.pool_stride,
+                          padding=self.pool_padding, ceil_mode=self.ceil_mode,
+                          exclusive=self.exclusive,
+                          data_format=self.data_format)

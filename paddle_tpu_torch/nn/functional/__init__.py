@@ -1,6 +1,6 @@
 """Functional ops of the port: the names of the JAX package's
 ``nn.functional`` from its activation, common, conv, pooling, norm, loss,
-attention and extension modules (``conv`` and ``pooling`` in part) and
+attention and extension modules and
 detection's ``sigmoid_focal_loss``, which shadows loss.py's as in the JAX
 package (the rest of detection and the sequence, CRF, extras, ROI and
 deformable-conv modules are still to port, ROADMAP queue A)."""

@@ -1,31 +1,58 @@
-"""2-D convolution — port of ``paddle_tpu.nn.functional.conv.conv2d``.
+"""Convolutions — port of ``paddle_tpu.nn.functional.conv``: ``conv1d`` /
+``conv2d`` / ``conv3d`` and the three transposed convolutions.
 
-paddle's layouts at the surface: NCHW or NHWC activations, OIHW weights
-(torch's own weight layout).  Padding takes the JAX package's forms: an
-int, one int per spatial dim, the ``2n`` list ``[top, bottom, left,
-right]`` (asymmetric: ResNet's space-to-depth stem pads ``[2, 1, 2, 1]``),
+paddle's layouts at the surface: channels-first (``NCL`` / ``NCHW`` /
+``NCDHW``) or channels-last (``NLC`` / ``NHWC`` / ``NDHWC``) activations,
+``[Cout, Cin/groups, *k]`` weights (torch's own layout), and for the
+transposed convolutions ``[Cin, Cout/groups, *k]`` weights (torch's
+``conv_transpose`` layout too).  Padding takes the JAX package's forms:
+an int, one int per spatial dim, the ``2n`` list ``[d0 lo, d0 hi, d1 lo,
+…]`` (asymmetric: ResNet's space-to-depth stem pads ``[2, 1, 2, 1]``),
 the ``n + 2`` list of pairs including batch and channel, or ``"SAME"`` /
-``"VALID"`` as XLA reads them (SAME splits the total padding with the
-smaller half first).  Asymmetric pads are applied with ``F.pad``, the
-rest go to ``torch.nn.functional.conv2d``.
+``"VALID"`` as XLA reads them.
 
-NHWC: a contiguous ``[N, H, W, C]`` tensor permuted to NCHW is a
-channels_last tensor, so the convolution runs on that view and its
-channels_last result is permuted back — no layout copy either way.
+Forward convolutions: SAME splits the total padding with the smaller half
+first; asymmetric pads are applied with ``F.pad``, symmetric ones go to
+``torch.nn.functional.conv{n}d``.
 
-The convolution itself is cuDNN's on the card (the JAX package leaves it
-to XLA, outside any Pallas kernel).
+Transposed convolutions follow ``lax.conv_transpose(transpose_kernel=
+True)``, the JAX package's route: a convolution of the stride-dilated
+input with the flipped kernel and raw padding ``(lo, hi)`` per dim —
+paddle's padding ``p`` maps to ``dk - 1 - p`` (``dk`` the dilated kernel
+size) with ``output_padding`` added to the high side; ``"SAME"`` /
+``"VALID"`` map as ``lax._conv_transpose_padding`` maps them, and then
+``output_padding`` appends zeros.  ``torch.nn.functional.conv_transpose``
+computes that convolution with padding ``(dk - 1 - c)`` on both sides for
+its own ``padding=c``; the rest of each side is one ``F.pad`` of the
+result (negative widths crop, positive ones append zeros, which is what
+the extra raw padding yields).  Groups split the input channels, as in
+JAX.  ``output_size`` only crops (``[:t]`` per spatial dim), as in JAX.
+
+Channels-last: a contiguous channels-last tensor permuted to
+channels-first is a channels_last view, so the convolution runs on it and
+its result is permuted back — no layout copy either way.  A float input
+meeting bf16 / f16 weights is cast to the weights' dtype (the JAX
+package's AMP convention).  The convolutions themselves are cuDNN's on the
+card (the JAX package leaves them to XLA, outside any Pallas kernel).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ...framework.errors import InvalidArgumentError
 
-__all__ = ["conv2d"]
+__all__ = ["conv1d", "conv2d", "conv3d", "conv1d_transpose",
+           "conv2d_transpose", "conv3d_transpose"]
+
+#: the data formats of each rank: (channels-first, channels-last)
+_FORMATS = {1: ("NCL", "NLC"), 2: ("NCHW", "NHWC"), 3: ("NCDHW", "NDHWC")}
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
 
 
 def _norm_tuple(v, n, name):
@@ -69,42 +96,171 @@ def _same_pads(sizes, kernel, stride, dilation):
     return pads
 
 
-def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
-           data_format="NCHW", name=None):
-    """Parity: ``paddle.nn.functional.conv2d``.  ``x`` NCHW or NHWC,
-    ``weight`` OIHW ``[Cout, Cin/groups, kh, kw]``, ``bias`` ``[Cout]``."""
-    if data_format not in ("NCHW", "NHWC"):
+def _channel_last(data_format, n, op):
+    first, last = _FORMATS[n]
+    if data_format not in (first, last):
         raise InvalidArgumentError(
-            f"conv2d: data_format must be 'NCHW' or 'NHWC', got "
+            f"{op}: data_format must be {first!r} or {last!r}, got "
             f"{data_format!r}")
+    return data_format == last
+
+
+def _amp_cast(x, weight):
     if (x.dtype != weight.dtype and x.is_floating_point()
             and weight.dtype in (torch.bfloat16, torch.float16)):
         # the JAX package's AMP convention: a float input meeting
         # low-precision weights computes in the weights' dtype
-        x = x.to(weight.dtype)
-    stride = _norm_tuple(stride, 2, "stride")
-    dilation = _norm_tuple(dilation, 2, "dilation")
-    channel_last = data_format == "NHWC"
-    spatial = tuple(x.shape[1:3] if channel_last else x.shape[2:4])
-    pads = _padding(padding, 2)
+        return x.to(weight.dtype)
+    return x
+
+
+def _to_first(x, n):
+    """A channels-last tensor as its channels-first view."""
+    return x.permute(0, n + 1, *range(1, n + 1))
+
+
+def _to_last(x, n):
+    return x.permute(0, *range(2, n + 2), 1)
+
+
+def _pad_spatial(x, pads, value=0.0, channel_last=False):
+    """``F.pad`` of the spatial dims of ``x`` by ``pads`` (lo, hi) pairs
+    in dim order; negative widths crop."""
+    widths = [0, 0] if channel_last else []  # a channels-last C dim
+    for lo, hi in reversed(pads):  # F.pad's order: last dim first
+        widths += [lo, hi]
+    return F.pad(x, widths, value=value)
+
+
+def _add_bias(out, bias, channel_last):
+    if bias is None:
+        return out
+    shape = [1] * out.ndim
+    shape[-1 if channel_last else 1] = -1
+    return out + bias.to(out.dtype).reshape(shape)
+
+
+def _conv_nd(x, weight, bias, stride, padding, dilation, groups, n,
+             data_format, op):
+    channel_last = _channel_last(data_format, n, op)
+    x = _amp_cast(x, weight)
+    stride = _norm_tuple(stride, n, "stride")
+    dilation = _norm_tuple(dilation, n, "dilation")
+    spatial = x.shape[1:n + 1] if channel_last else x.shape[2:]
+    pads = _padding(padding, n)
     if pads == "VALID":
-        pads = [(0, 0), (0, 0)]
+        pads = [(0, 0)] * n
     elif pads == "SAME":
         pads = _same_pads(spatial, weight.shape[2:], stride, dilation)
     if all(lo == hi for lo, hi in pads):
         sym = tuple(lo for lo, _ in pads)
     else:
-        # F.pad's order is last dim first: (W lo, W hi, H lo, H hi), and
-        # for NHWC the channel dim comes before them
-        (ht, hb), (wl, wr) = pads
-        x = F.pad(x, ((0, 0) if channel_last else ()) + (wl, wr, ht, hb))
-        sym = (0, 0)
+        # padded before the permute: a channels-last input stays a
+        # contiguous channels-last tensor into the convolution
+        x = _pad_spatial(x, pads, channel_last=channel_last)
+        sym = (0,) * n
     if channel_last:
-        x = x.permute(0, 3, 1, 2)  # a channels_last NCHW view
-    out = F.conv2d(x, weight, None, stride, sym, dilation, groups)
+        x = _to_first(x, n)
+    out = _CONV[n](x, weight, None, stride, sym, dilation, groups)
     if channel_last:
-        out = out.permute(0, 2, 3, 1)
-    if bias is not None:
-        shape = [1, 1, 1, -1] if channel_last else [1, -1, 1, 1]
-        out = out + bias.to(out.dtype).reshape(shape)
-    return out
+        out = _to_last(out, n)
+    return _add_bias(out, bias, channel_last)
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL", name=None):
+    """Parity: ``paddle.nn.functional.conv1d``."""
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 1,
+                    data_format, "conv1d")
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", name=None):
+    """Parity: ``paddle.nn.functional.conv2d``.  ``x`` NCHW or NHWC,
+    ``weight`` OIHW ``[Cout, Cin/groups, kh, kw]``, ``bias`` ``[Cout]``."""
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 2,
+                    data_format, "conv2d")
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW", name=None):
+    """Parity: ``paddle.nn.functional.conv3d``."""
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 3,
+                    data_format, "conv3d")
+
+
+def _transpose_pads(mode, dk, s):
+    """``lax._conv_transpose_padding`` for a string padding: the raw
+    (lo, hi) padding of the dilated-input convolution."""
+    if mode == "SAME":
+        total = dk + s - 2
+        lo = dk - 1 if s > dk - 1 else int(np.ceil(total / 2))
+    else:  # VALID
+        total = dk + s - 2 + max(dk - s, 0)
+        lo = dk - 1
+    return lo, total - lo
+
+
+def _conv_transpose_nd(x, weight, bias, stride, padding, output_padding,
+                       dilation, groups, n, data_format, output_size, op):
+    channel_last = _channel_last(data_format, n, op)
+    x = _amp_cast(x, weight)
+    stride = _norm_tuple(stride, n, "stride")
+    dilation = _norm_tuple(dilation, n, "dilation")
+    opad = (_norm_tuple(output_padding, n, "output_padding")
+            if output_padding else (0,) * n)
+    dk = [d * (k - 1) + 1 for d, k in zip(dilation, weight.shape[2:])]
+    pads = _padding(padding, n)
+    if isinstance(pads, str):
+        raw = [_transpose_pads(pads, k, s) for k, s in zip(dk, stride)]
+        tail = opad  # zeros appended after the convolution
+    else:
+        raw = [(k - 1 - lo, k - 1 - hi + o)
+               for k, (lo, hi), o in zip(dk, pads, opad)]
+        tail = (0,) * n
+    if channel_last:
+        x = _to_first(x, n)
+    # F.conv_transpose's padding c is raw padding dk - 1 - c on both
+    # sides; the rest of each side (and output_padding's zeros) is F.pad's
+    adj = [(lo - (k - 1), hi - (k - 1)) for k, (lo, hi) in zip(dk, raw)]
+    common = [max(0, min(-lo, -hi)) for lo, hi in adj]
+    out = _CONV_T[n](x, weight, None, stride, tuple(common), 0, groups,
+                     dilation)
+    rest = [(lo + c, hi + c + t) for (lo, hi), c, t in zip(adj, common, tail)]
+    if output_size is not None:  # crop only, as the JAX package
+        sizes = out.shape[2:]
+        rest = [(lo, min(hi, int(t) - (size + lo)))
+                for (lo, hi), size, t in zip(rest, sizes, output_size)]
+    if any(lo or hi for lo, hi in rest):
+        out = _pad_spatial(out, rest)
+    if channel_last:
+        out = _to_last(out, n)
+    return _add_bias(out, bias, channel_last)
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCL", name=None):
+    """Parity: ``paddle.nn.functional.conv1d_transpose``."""
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, dilation, groups, 1,
+                              data_format, output_size, "conv1d_transpose")
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCHW", name=None):
+    """Parity: ``paddle.nn.functional.conv2d_transpose``; ``weight``
+    ``[Cin, Cout/groups, kh, kw]``."""
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, dilation, groups, 2,
+                              data_format, output_size, "conv2d_transpose")
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCDHW", name=None):
+    """Parity: ``paddle.nn.functional.conv3d_transpose``."""
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, dilation, groups, 3,
+                              data_format, output_size, "conv3d_transpose")

@@ -11,12 +11,12 @@ configs 2 and 3).
 
 The builders need graph mode (a symbolic Variable input); called with
 tensors they raise, naming the eager Layer.  Ported: ``fc``,
-``embedding``, ``conv2d``, ``pool2d`` (max and global pooling),
-``batch_norm``, ``layer_norm``, ``instance_norm``, ``group_norm``,
-``spectral_norm``, ``prelu``, ``bilinear_tensor_product``, ``hsigmoid``
-and ``layer_op``.  The other builders of
-the JAX module raise ``UnimplementedError`` naming the ROADMAP queue-A
-item that ports their layers.
+``embedding``, ``conv2d``, ``conv2d_transpose``, ``conv3d``,
+``conv3d_transpose``, ``pool2d``, ``batch_norm``, ``layer_norm``,
+``instance_norm``, ``group_norm``, ``spectral_norm``, ``prelu``,
+``bilinear_tensor_product``, ``hsigmoid`` and ``layer_op``.  The other
+builders of the JAX module raise ``UnimplementedError`` naming the
+ROADMAP queue-A item that ports their layers.
 """
 from __future__ import annotations
 
@@ -29,7 +29,8 @@ import torch
 from ..framework.errors import InvalidArgumentError, UnimplementedError
 from .graph import Variable, default_main_program, record_call
 
-__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
+__all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "conv3d",
+           "conv3d_transpose", "pool2d", "batch_norm",
            "layer_norm", "instance_norm", "group_norm", "spectral_norm",
            "prelu", "bilinear_tensor_product", "hsigmoid", "layer_op"]
 
@@ -161,34 +162,37 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return layer_op(layer, x, prefix=name or "embedding")
 
 
+def _conv_builder(cls, builder, input, num_filters, filter_size, stride,
+                  padding, dilation, groups, param_attr, bias_attr, act,
+                  name, data_format):
+    x = _require_var(input, builder, f"paddle.nn.{cls}")
+    from .. import nn
+
+    in_ch = x.shape[1] if data_format.startswith("NC") else x.shape[-1]
+    layer = getattr(nn, cls)(
+        int(in_ch), num_filters, filter_size, stride=stride, padding=padding,
+        dilation=dilation, groups=groups or 1, weight_attr=param_attr,
+        bias_attr=bias_attr, data_format=data_format)
+    return layer_op(layer, x, prefix=name or builder, act=act)
+
+
 def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
            groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
            act=None, name=None, data_format="NCHW"):
     """ref: fluid/layers/nn.py conv2d — creates the filter and bias."""
-    x = _require_var(input, "conv2d", "paddle.nn.Conv2D")
-    from .. import nn
-
-    in_channels = x.shape[1] if data_format == "NCHW" else x.shape[-1]
-    layer = nn.Conv2D(int(in_channels), num_filters, filter_size,
-                      stride=stride, padding=padding, dilation=dilation,
-                      groups=groups or 1, weight_attr=param_attr,
-                      bias_attr=bias_attr, data_format=data_format)
-    return layer_op(layer, x, prefix=name or "conv2d", act=act)
+    return _conv_builder("Conv2D", "conv2d", input, num_filters,
+                         filter_size, stride, padding, dilation, groups,
+                         param_attr, bias_attr, act, name, data_format)
 
 
 def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
            pool_padding=0, global_pooling=False, use_cudnn=True,
            ceil_mode=False, name=None, exclusive=True, data_format="NCHW"):
-    """ref: fluid/layers/nn.py pool2d — stateless; max pooling and global
-    (max or average) pooling.  A windowed average pool raises: the port's
-    ``avg_pool2d`` comes with ROADMAP queue A, vision."""
-    x = _require_var(input, "pool2d", "nn.functional.max_pool2d")
+    """ref: fluid/layers/nn.py pool2d — stateless, but kept here so the
+    classic conv → pool build chains stay in one import."""
+    x = _require_var(input, "pool2d", "nn.functional.max_pool2d/avg_pool2d")
     if pool_type not in ("max", "avg"):
         raise InvalidArgumentError(f"pool2d: pool_type {pool_type!r}")
-    if pool_type == "avg" and not global_pooling:
-        raise UnimplementedError(
-            "fluid.layers.pool2d(pool_type='avg') is not ported yet "
-            "(ROADMAP queue A, vision)")
     from ..nn import functional as F
 
     def fn(xx):
@@ -197,9 +201,13 @@ def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
             if pool_type == "max":
                 return torch.amax(xx, dim=axes, keepdim=True)
             return torch.mean(xx, dim=axes, keepdim=True)
-        return F.max_pool2d(xx, pool_size, stride=pool_stride,
+        if pool_type == "max":
+            return F.max_pool2d(xx, pool_size, stride=pool_stride,
+                                padding=pool_padding, ceil_mode=ceil_mode,
+                                data_format=data_format)
+        return F.avg_pool2d(xx, pool_size, stride=pool_stride,
                             padding=pool_padding, ceil_mode=ceil_mode,
-                            data_format=data_format)
+                            exclusive=exclusive, data_format=data_format)
 
     return record_call(fn, x, prefix=name or "pool2d")
 
@@ -324,10 +332,41 @@ def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
     return layer_op(layer, x, prefix=name or "hsigmoid", extra_args=extra)
 
 
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None, data_format="NCHW"):
+    """ref: fluid/layers/nn.py conv2d_transpose (``output_size`` unused,
+    as in the JAX builder)."""
+    return _conv_builder("Conv2DTranspose", "conv2d_transpose", input,
+                         num_filters, filter_size, stride, padding, dilation,
+                         groups, param_attr, bias_attr, act, name,
+                         data_format)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCDHW"):
+    """ref: fluid/layers/nn.py conv3d."""
+    return _conv_builder("Conv3D", "conv3d", input, num_filters,
+                         filter_size, stride, padding, dilation, groups,
+                         param_attr, bias_attr, act, name, data_format)
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None, data_format="NCDHW"):
+    """ref: fluid/layers/nn.py conv3d_transpose (``output_size`` unused,
+    as in the JAX builder)."""
+    return _conv_builder("Conv3DTranspose", "conv3d_transpose", input,
+                         num_filters, filter_size, stride, padding, dilation,
+                         groups, param_attr, bias_attr, act, name,
+                         data_format)
+
+
 #: the JAX module's other builders → the queue-A item that ports them
 UNPORTED = {
-    **{n: "vision" for n in (
-        "conv2d_transpose", "conv3d", "conv3d_transpose")},
     **{n: "static graph and the long tail" for n in (
         "nce", "center_loss", "sequence_conv", "inplace_abn", "lstm",
         "data_norm", "multi_box_head", "deformable_conv", "gru_unit",

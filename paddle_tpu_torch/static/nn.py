@@ -1,5 +1,6 @@
 """paddle.static.nn — the op builders over the recorded graph (port of
-``paddle_tpu.static.nn``): ``fc``, ``embedding``, ``conv2d``, ``pool2d``,
+``paddle_tpu.static.nn``): ``fc``, ``embedding``, ``conv2d``,
+``conv2d_transpose``, ``conv3d``, ``conv3d_transpose``, ``pool2d``,
 ``batch_norm``, ``layer_norm``, ``instance_norm``, ``group_norm``,
 ``spectral_norm``, ``prelu``, ``bilinear_tensor_product`` and ``hsigmoid``
 are ported (``static/builders.py``), ``row_conv`` is the functional op;
@@ -14,8 +15,8 @@ from __future__ import annotations
 
 from . import create_parameter, py_func  # noqa: F401
 from .builders import (  # noqa: F401
-    UNPORTED, batch_norm, bilinear_tensor_product, conv2d, embedding, fc,
-    group_norm, hsigmoid, instance_norm, layer_norm, pool2d, prelu,
+    UNPORTED, batch_norm, bilinear_tensor_product, conv2d, conv2d_transpose,
+    conv3d, conv3d_transpose, embedding, fc, group_norm, hsigmoid, instance_norm, layer_norm, pool2d, prelu,
     spectral_norm, unported,
 )
 from ..nn.functional import row_conv  # noqa: F401  (stateless: eager is it)
@@ -29,7 +30,8 @@ for _name in UNPORTED:
 del _name
 
 __all__ = sorted(
-    ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
+    ["fc", "embedding", "conv2d", "conv2d_transpose", "conv3d",
+     "conv3d_transpose", "pool2d", "batch_norm", "layer_norm",
      "instance_norm", "group_norm", "spectral_norm", "prelu",
      "bilinear_tensor_product", "hsigmoid",
      "cond", "while_loop", "case", "switch_case", "crf_decoding",

@@ -9,7 +9,7 @@ import torch
 
 from ... import nn
 from ...nn.initializer import fills_its_layers
-from .resnet import _materialize, _no_pretrained
+from .resnet import _materialize, _pretrained
 
 __all__ = ["MobileNetV1", "mobilenet_v1"]
 
@@ -99,5 +99,4 @@ class MobileNetV1(nn.Layer):
 
 
 def mobilenet_v1(pretrained=False, scale=1.0, **kwargs):
-    _no_pretrained("mobilenet_v1", pretrained)
-    return MobileNetV1(scale=scale, **kwargs)
+    return _pretrained(MobileNetV1, pretrained, dict(kwargs, scale=scale))

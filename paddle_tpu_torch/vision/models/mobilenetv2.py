@@ -10,7 +10,7 @@ import torch
 
 from ... import nn
 from ...nn.initializer import fills_its_layers
-from .resnet import _materialize, _no_pretrained
+from .resnet import _materialize, _pretrained
 
 __all__ = ["MobileNetV2", "mobilenet_v2"]
 
@@ -128,5 +128,4 @@ class MobileNetV2(nn.Layer):
 
 
 def mobilenet_v2(pretrained=False, scale=1.0, **kwargs):
-    _no_pretrained("mobilenet_v2", pretrained)
-    return MobileNetV2(scale=scale, **kwargs)
+    return _pretrained(MobileNetV2, pretrained, dict(kwargs, scale=scale))

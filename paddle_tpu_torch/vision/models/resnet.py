@@ -27,7 +27,7 @@ Two paths of the JAX model carry over as they are:
 Models are built on ``cuda:0`` unless ``device=`` says otherwise, with
 every weight drawn from ``generator`` (default: the CPU generator that
 ``paddle_tpu_torch.seed`` reseeds) on the CPU in module order.  No
-pretrained weights: serialization is not ported yet.
+``pretrained=<path>`` loads a local checkpoint (``_pretrained``).
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ import torch
 
 from ... import nn
 from ...framework.device import resolve_device
-from ...framework.errors import InvalidArgumentError, UnimplementedError
+from ...framework.errors import InvalidArgumentError
 from ...framework.random import default_generator
 from ...nn import functional as F
 from ...nn.initializer import fills_its_layers
@@ -296,46 +296,52 @@ def _materialize(model: torch.nn.Module, device,
     model.to(device=dev)
 
 
-def _no_pretrained(arch, pretrained):
-    """Every model constructor's ``pretrained`` argument: a path is not
-    loaded yet, and nothing is downloaded."""
-    if pretrained:
-        if isinstance(pretrained, str):
-            raise UnimplementedError(
-                f"{arch}(pretrained={pretrained!r}): loading a local "
-                f".pdparams file into the model is not ported yet (ROADMAP "
-                f"queue A, vision: pretrained=<path>)")
+def _pretrained(build, pretrained, kwargs):
+    """Every model constructor's ``pretrained`` argument, the JAX rule: a
+    path is a local checkpoint (``paddle_tpu_torch.load``, the JAX
+    package's format too) loaded with ``set_state_dict`` into the model
+    built on the CPU, which then moves to ``device`` (None = the card);
+    any other true value raises, since nothing is downloaded."""
+    if not pretrained:
+        return build(**kwargs)
+    if not isinstance(pretrained, str):
         raise InvalidArgumentError(
             "no pretrained-weight download in this environment: pass a "
             "local .pdparams path as `pretrained`")
+    from ...framework.serialization import load
+
+    device = kwargs.pop("device", None)
+    model = build(device="cpu", **kwargs)
+    model.set_state_dict(load(pretrained))
+    return model.to(device=resolve_device(device))
 
 
-def _resnet(arch, Block, depth, pretrained, **kwargs):
-    _no_pretrained(arch, pretrained)
-    return ResNet(Block, depth, **kwargs)
+def _resnet(Block, depth, pretrained, **kwargs):
+    return _pretrained(functools.partial(ResNet, Block, depth), pretrained,
+                       kwargs)
 
 
 def resnet18(pretrained=False, **kwargs):
     """ResNet-18."""
-    return _resnet("resnet18", BasicBlock, 18, pretrained, **kwargs)
+    return _resnet(BasicBlock, 18, pretrained, **kwargs)
 
 
 def resnet34(pretrained=False, **kwargs):
     """ResNet-34."""
-    return _resnet("resnet34", BasicBlock, 34, pretrained, **kwargs)
+    return _resnet(BasicBlock, 34, pretrained, **kwargs)
 
 
 def resnet50(pretrained=False, **kwargs):
     """ResNet-50 (``bench.py``'s config 2: ``resnet50(data_format="NHWC",
     stem_space_to_depth=True).astype("bfloat16")``)."""
-    return _resnet("resnet50", BottleneckBlock, 50, pretrained, **kwargs)
+    return _resnet(BottleneckBlock, 50, pretrained, **kwargs)
 
 
 def resnet101(pretrained=False, **kwargs):
     """ResNet-101."""
-    return _resnet("resnet101", BottleneckBlock, 101, pretrained, **kwargs)
+    return _resnet(BottleneckBlock, 101, pretrained, **kwargs)
 
 
 def resnet152(pretrained=False, **kwargs):
     """ResNet-152."""
-    return _resnet("resnet152", BottleneckBlock, 152, pretrained, **kwargs)
+    return _resnet(BottleneckBlock, 152, pretrained, **kwargs)

@@ -10,7 +10,7 @@ import torch
 
 from ... import nn
 from ...nn.initializer import fills_its_layers
-from .resnet import _materialize, _no_pretrained
+from .resnet import _materialize, _pretrained
 
 __all__ = ["VGG", "vgg11", "vgg13", "vgg16", "vgg19"]
 
@@ -78,10 +78,12 @@ _cfgs = {
 
 @fills_its_layers
 def _vgg(arch, cfg, batch_norm, pretrained, **kwargs):
-    _no_pretrained(arch, pretrained)
-    features = make_layers(_cfgs[cfg], batch_norm=batch_norm,
-                           data_format=kwargs.get("data_format", "NCHW"))
-    return VGG(features, **kwargs)
+    def build(**kw):
+        return VGG(make_layers(_cfgs[cfg], batch_norm=batch_norm,
+                               data_format=kw.get("data_format", "NCHW")),
+                   **kw)
+
+    return _pretrained(build, pretrained, kwargs)
 
 
 def vgg11(pretrained=False, batch_norm=False, **kwargs):

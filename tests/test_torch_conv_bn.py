@@ -39,8 +39,7 @@ import torch
 
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.ops import fused_conv1x1_bn as jfcb
-from paddle_tpu_torch.framework.errors import (InvalidArgumentError,
-                                               UnimplementedError)
+from paddle_tpu_torch.framework.errors import InvalidArgumentError
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops import fused_conv1x1_bn as fcb
 
@@ -157,8 +156,14 @@ def test_max_pool2d_matches_jax(case):
 
 
 def test_max_pool2d_return_mask_is_not_ported():
-    with pytest.raises(UnimplementedError):
-        TF.max_pool2d(torch.randn(1, 1, 4, 4), 2, return_mask=True)
+    """``return_mask`` is ported now: the mask is JAX's flat index into
+    the unpadded plane (unique window maxima: a seeded permutation)."""
+    x = np.random.RandomState(3).permutation(32).reshape(
+        1, 2, 4, 4).astype(np.float32)
+    want, wmask = JF.max_pool2d(jnp.asarray(x), 3, 2, 1, return_mask=True)
+    got, mask = TF.max_pool2d(_tt(x), 3, 2, 1, return_mask=True)
+    np.testing.assert_array_equal(_np(got), _np(want))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(wmask))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -134,8 +134,13 @@ def test_pool2d_errors():
         tnn.Pool2D(pool_type="min", pool_size=2)
     with pytest.raises(InvalidArgumentError):
         tnn.Pool2D()
-    with pytest.raises(UnimplementedError, match="queue A"):
-        tnn.Pool2D(2, pool_type="avg")(torch.zeros(1, 1, 4, 4))
+    # a windowed average pool is ported: avg_pool2d with the layer's
+    # exclusive and ceil_mode
+    x = torch.arange(25.0).reshape(1, 1, 5, 5)
+    torch.testing.assert_close(
+        tnn.Pool2D(2, pool_type="avg", pool_stride=2, ceil_mode=True,
+                   exclusive=False)(x),
+        tnn.functional.avg_pool2d(x, 2, 2, ceil_mode=True, exclusive=False))
 
 
 # -- norm layers -----------------------------------------------------------------

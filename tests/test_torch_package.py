@@ -29,6 +29,7 @@ PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / "torch_resnet_conditioning.py",
     ROOT / "tools" / "torch_flash_bwd_rounding.py",
     ROOT / "tools" / "torch_kernel_ab.py",
+    ROOT / "tools" / "torch_pool_channels_last_grad.py",
     ROOT / "tools" / "torch_serve_train_ab.py",
     ROOT / "tools" / "torch_sparse_step_ab.py",
     ROOT / "tools" / "torch_tensor_cases.py"]

@@ -44,8 +44,7 @@ from paddle_tpu import optimizer as jopt
 from paddle_tpu.vision.models import resnet as jres
 from paddle_tpu_torch.bridge import load_jax_params
 from paddle_tpu_torch.framework.errors import (InvalidArgumentError,
-                                               UnavailableError,
-                                               UnimplementedError)
+                                               NotFoundError, UnavailableError)
 from paddle_tpu_torch.ops import fused_conv1x1_bn as fcb
 from paddle_tpu_torch.vision.models import resnet as tres
 
@@ -295,8 +294,8 @@ def test_momentum_decays_bf16_batchnorm_params_through_f32_masters():
 
 
 def test_model_surface():
-    # serialization is ported: the message cites vision's own item
-    with pytest.raises(UnimplementedError, match="vision: pretrained=<path>"):
+    # pretrained=<path> loads a checkpoint: a missing one raises
+    with pytest.raises(NotFoundError, match="nonexistent"):
         tres.resnet50(pretrained="/nonexistent.pdparams", device="cpu")
     with pytest.raises(InvalidArgumentError):
         tres.resnet50(pretrained=True, device="cpu")

@@ -40,8 +40,7 @@ from paddle_tpu.static.graph import reset_default_programs as jreset
 from paddle_tpu_torch import static as tstatic
 from paddle_tpu_torch.bridge import load_jax_program
 from paddle_tpu_torch.framework import device as tdevice
-from paddle_tpu_torch.framework.errors import (InvalidArgumentError,
-                                               UnimplementedError)
+from paddle_tpu_torch.framework.errors import InvalidArgumentError
 from paddle_tpu_torch.static.graph import reset_default_programs as treset
 
 
@@ -568,9 +567,94 @@ def test_scope_lives_on_the_executors_place():
     assert main._placement["moves"] == 0
     for t in main.scope.values():
         assert t.device.type == "cpu" and t.requires_grad
-    with pytest.raises(UnimplementedError):
-        tfluid.layers.pool2d(tfluid.data("z", [-1, 1, 4, 4]), 2,
-                             pool_type="avg")
+    # a windowed average pool2d builds (the avg_pool2d of nn.functional)
+    pooled = tfluid.layers.pool2d(tfluid.data("z", [-1, 1, 4, 4]), 2,
+                                  pool_type="avg")
+    assert pooled.shape[1:] == (1, 3, 3)  # pool_stride 1
+
+
+# -- the vision builders ------------------------------------------------------
+#: (feed shape, build(fluid, x) -> output Variable)
+VISION_BUILDERS = {
+    "conv2d_transpose": ((2, 4, 5, 5), lambda f, x: f.layers.conv2d_transpose(
+        x, num_filters=6, filter_size=4, stride=2, padding=1, act="relu")),
+    "conv2d_transpose_nhwc_groups": ((2, 5, 5, 4), lambda f, x:
+                                     f.layers.conv2d_transpose(
+                                         x, num_filters=6, filter_size=3,
+                                         stride=2, groups=2,
+                                         data_format="NHWC")),
+    "conv3d": ((2, 3, 4, 5, 5), lambda f, x: f.layers.conv3d(
+        x, num_filters=4, filter_size=3, padding=1, stride=2, act="tanh")),
+    "conv3d_ndhwc_groups": ((2, 4, 5, 5, 4), lambda f, x: f.layers.conv3d(
+        x, num_filters=4, filter_size=[2, 3, 3], groups=2,
+        data_format="NDHWC")),
+    "conv3d_transpose": ((2, 3, 3, 4, 4), lambda f, x:
+                         f.layers.conv3d_transpose(
+                             x, num_filters=2, filter_size=2, stride=2,
+                             padding=[1, 0, 1])),
+    "pool2d_avg_ceil_inclusive": ((2, 3, 7, 7), lambda f, x: f.layers.pool2d(
+        f.layers.conv2d(x, num_filters=4, filter_size=3), pool_size=3,
+        pool_type="avg", pool_stride=2, pool_padding=1, ceil_mode=True,
+        exclusive=False)),
+    "pool2d_avg_nhwc": ((2, 7, 7, 3), lambda f, x: f.layers.pool2d(
+        f.layers.conv2d(x, num_filters=4, filter_size=3, data_format="NHWC"),
+        pool_size=2, pool_type="avg", pool_stride=2, ceil_mode=True,
+        data_format="NHWC")),
+    "pool3d_max": ((2, 3, 5, 5, 5), lambda f, x: f.layers.pool3d(
+        f.layers.conv3d(x, num_filters=4, filter_size=2), pool_size=2,
+        pool_stride=2, ceil_mode=True)),
+    "pool3d_avg": ((2, 3, 5, 5, 5), lambda f, x: f.layers.pool3d(
+        f.layers.conv3d(x, num_filters=4, filter_size=2), pool_size=3,
+        pool_type="avg", pool_stride=2, pool_padding=1, exclusive=True)),
+}
+
+
+@pytest.mark.parametrize("case", list(VISION_BUILDERS))
+def test_vision_builder_as_jax(case):
+    """Each builder of the vision slice in a Program with a mean loss and
+    SGD, both packages from one set of parameters: the output and loss of
+    3 training runs (rtol 1e-5 / atol 1e-5), then every parameter (atol
+    1e-5)."""
+    shape, body = VISION_BUILDERS[case]
+
+    def build(fluid):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            x = fluid.data("x", [-1] + list(shape[1:]))
+            out = body(fluid, x)
+            loss = fluid.layers.mean(out)
+            fluid.optimizer.SGD(learning_rate=0.5).minimize(loss)
+        return main, startup, out, loss
+
+    jmain, jstart, jout, jloss = build(jfluid)
+    tmain, tstart, tout, tloss = build(tfluid)
+    assert tout.shape[1:] == tuple(jout.shape[1:])
+    jexe, texe = _exe(jfluid), _exe(tfluid)
+    jexe.run(jstart)
+    texe.run(tstart)
+    _bridge(jmain, tmain)
+    feed = {"x": np.random.RandomState(len(case)).randn(*shape).astype(
+        np.float32)}
+    for _ in range(3):
+        jo, jl = jexe.run(jmain, feed=feed, fetch_list=[jout, jloss])
+        to, tl = texe.run(tmain, feed=feed, fetch_list=[tout, tloss])
+        np.testing.assert_allclose(to, jo, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=1e-5)
+    jp, tp = _by_key(jmain.scope), _by_key(tmain.scope)
+    assert sorted(tp) == sorted(jp)
+    for k in jp:
+        np.testing.assert_allclose(tp[k], jp[k], atol=1e-5, err_msg=k)
+
+
+def test_vision_builders_are_in_static_nn():
+    import paddle_tpu.static.nn as jsnn
+    import paddle_tpu_torch.static.nn as tsnn
+
+    for name in ("conv2d_transpose", "conv3d", "conv3d_transpose"):
+        assert not getattr(getattr(tsnn, name), "__shim__", False)
+        assert getattr(tsnn, name) is getattr(tfluid.layers, name)
+        assert name in tsnn.__all__ and name in jsnn.__all__
+    assert not getattr(tfluid.layers.pool3d, "__shim__", False)
 
 
 # -- on the card ---------------------------------------------------------------

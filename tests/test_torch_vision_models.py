@@ -17,10 +17,11 @@ import torch
 import jax.numpy as jnp
 
 import paddle_tpu as jpt
+from paddle_tpu.framework.errors import NotFoundError as JNotFoundError
 from paddle_tpu.vision import models as jvm
 from paddle_tpu_torch.bridge import load_jax_params
 from paddle_tpu_torch.framework.errors import (InvalidArgumentError,
-                                               UnimplementedError)
+                                               NotFoundError)
 from paddle_tpu_torch.vision import models as tvm
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -104,8 +105,11 @@ def test_train_mode_forward_and_running_stats_as_jax(name):
 @pytest.mark.parametrize("ctor", ["vgg11", "vgg16", "mobilenet_v1",
                                   "mobilenet_v2", "resnet18"])
 def test_pretrained_refusals(ctor):
-    with pytest.raises(UnimplementedError, match="vision"):
+    # a path is loaded now: a missing file raises as in JAX
+    with pytest.raises(NotFoundError, match="weights.pdparams"):
         getattr(tvm, ctor)(pretrained="weights.pdparams", device="cpu")
+    with pytest.raises(JNotFoundError):
+        getattr(jvm, ctor)(pretrained="weights.pdparams")
     with pytest.raises(InvalidArgumentError, match="download"):
         getattr(tvm, ctor)(pretrained=True, device="cpu")
 
@@ -123,3 +127,69 @@ def test_models_are_built_on_the_card_by_default():
 
     with pytest.raises(UnavailableError):
         tvm.LeNet()
+
+
+# -- pretrained=<path> -----------------------------------------------------------
+PRETRAINED = {
+    "resnet18": (lambda m, **k: m.resnet18(num_classes=10, **k), (3, 32, 32)),
+    "resnet50_nhwc_s2d": (lambda m, **k: m.resnet50(
+        num_classes=10, data_format="NHWC", stem_space_to_depth=True, **k),
+        (32, 32, 3)),
+    "vgg11_bn": (lambda m, **k: m.vgg11(batch_norm=True, num_classes=0, **k),
+                 (3, 32, 32)),
+    "mobilenet_v1": (lambda m, **k: m.mobilenet_v1(scale=0.5, num_classes=10,
+                                                   **k), (3, 32, 32)),
+    "mobilenet_v2": (lambda m, **k: m.mobilenet_v2(num_classes=10, **k),
+                     (3, 32, 32)),
+}
+
+
+@pytest.mark.parametrize("name", list(PRETRAINED))
+def test_pretrained_path_loads_a_jax_checkpoint(name, tmp_path):
+    """``ctor(pretrained=path)`` over a state dict the JAX package saved
+    with ``paddle_tpu.save``: every parameter and buffer bit-equal to the
+    JAX model's, and eval logits equal to those of JAX's own
+    ``ctor(pretrained=path)`` (rtol / atol 1e-4, float32 sums in other
+    orders)."""
+    build, shape = PRETRAINED[name]
+    jpt.seed(11)
+    donor = build(jvm)
+    path = str(tmp_path / f"{name}.pdparams")
+    jpt.save(donor.state_dict(), path)
+    jpt.seed(12)  # another init: the load must overwrite it
+    jm = build(jvm, pretrained=path)
+    tm = build(tvm, pretrained=path, device="cpu")
+    want = {k: np.asarray(v.value) for k, v in
+            list(jm.named_parameters()) + list(jm.named_buffers())}
+    got = dict(list(tm.named_parameters()) + list(tm.named_buffers()))
+    assert sorted(got) == sorted(want)
+    for k, v in got.items():
+        np.testing.assert_array_equal(v.detach().numpy(), want[k],
+                                      err_msg=k)
+    x = np.random.RandomState(13).uniform(-1, 1, (2,) + shape).astype(
+        np.float32)
+    jm.eval()
+    tm.eval()
+    with torch.no_grad():
+        logits = tm(torch.from_numpy(x))
+    np.testing.assert_allclose(logits.numpy(),
+                               np.asarray(jm(jnp.asarray(x))), **TOL)
+
+
+def test_pretrained_path_round_trips_the_ports_own_checkpoint(tmp_path):
+    """A network the port saved with ``paddle_tpu_torch.save`` rebuilt by
+    ``resnet18(pretrained=path)``: eval logits bit for bit."""
+    import paddle_tpu_torch as tpt
+
+    net = tvm.resnet18(num_classes=5, device="cpu",
+                       generator=torch.Generator().manual_seed(3))
+    path = str(tmp_path / "r18.pdparams")
+    tpt.save(net.state_dict(), path)
+    again = tvm.resnet18(num_classes=5, device="cpu", pretrained=path)
+    x = torch.from_numpy(np.random.RandomState(5).uniform(
+        -1, 1, (2, 3, 32, 32)).astype(np.float32))
+    net.eval()
+    again.eval()
+    with torch.no_grad():
+        assert torch.equal(again(x), net(x))
+

@@ -5,7 +5,7 @@ for an A/B of two whole trees in one call on the card::
     git archive <commit> | tar -x -C chip_scratch/parent   # a gitignored dir
     for t in parent . . parent; do
         (cd $t && python3 /path/to/repo/tools/torch_serve_train_ab.py \\
-            [serve] [bert] [long] [layernorm])
+            [serve] [bert] [long] [layernorm] [resnet])
     done
 
 ``serve``: phase 4 (gpt_small paged serving); ``bert``: phase 7
@@ -13,13 +13,16 @@ for an A/B of two whole trees in one call on the card::
 training step); ``layernorm``: ``layernorm_residual``'s forward and
 backward timed at phase 10's shapes and phase W's (``time_ln``: device
 time by CUDA graph, past the L2, beside the plain versions, the library
-calls and the bounds).  No phase named: ``serve bert``.
+calls and the bounds); ``resnet``: phases R3 (ResNet-50 bf16 eager
+``train_batch``) and K3 (the same through ``fit(steps_per_execution=4)``).
+No phase named: ``serve bert``.
 
 Builds the kernels the phases run (into the tree's own ``ops/_build/``),
 runs the phases with their gates, and prints one line ``AB <tree>
 {...}`` after the phases' own lines: ``tokens_per_s`` / ``mean_ms``,
-``bert_step_ms``, ``long_step_ms`` and ``layernorm`` (``{shape:
-[forward ms, backward ms]}``) for the phases run.  Exits non-zero
+``bert_step_ms``, ``long_step_ms``, ``layernorm`` (``{shape:
+[forward ms, backward ms]}``), ``resnet_step_ms`` and
+``resnet_fit_step_ms`` for the phases run.  Exits non-zero
 without a card or on an unknown phase.
 """
 import json
@@ -34,7 +37,8 @@ SOURCES = {"serve": ("paged_attention", "fused_layernorm",
            "bert": ("fused_layernorm", "fused_softmax_xent"),
            "long": ("flash_attention", "flash_attention_bwd",
                     "fused_layernorm", "fused_softmax_xent"),
-           "layernorm": ("fused_layernorm",)}
+           "layernorm": ("fused_layernorm",),
+           "resnet": ("fused_conv1x1_bn",)}
 
 
 def main() -> int:
@@ -80,6 +84,13 @@ def main() -> int:
                                              row["backward"]["ms"]]
                 torch.cuda.empty_cache()
         out["layernorm"] = ln
+    if "resnet" in phases:
+        eager = cs.train_resnet(torch, gpu)
+        torch.cuda.empty_cache()
+        out.update(resnet_step_ms=eager["step_ms"],
+                   resnet_fit_step_ms=cs.resnet_graph(
+                       torch, gpu, eager)["step_ms"])
+        torch.cuda.empty_cache()
     print("AB", os.path.basename(os.getcwd()), json.dumps(out), flush=True)
     return 0
 
