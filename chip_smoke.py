@@ -624,6 +624,48 @@ V4. a ``fluid.Program`` of ``conv2d_transpose``, ``conv3d``,
 A ``{"vision": ...}`` line carries V1-V4's numbers; kernels 7 and 8's
 entries in the kernels line gain ``vision_launches`` (V2, per step).
 
+Then the detection slice, after V4 (``detection_phases``):
+
+B1. every new detection op on the card against the port's CPU result on
+    one seeded float32 input, forward and (where JAX differentiates)
+    backward, within 1e-4 of the CPU result's rms, indices equal:
+    SSD300's priors over its six maps (8732) and ``ssd_loss`` (8 x 8732
+    x 21, G = 20); YOLOv3-608's ``yolov3_loss`` at [8, 255, 19 / 38 /
+    76] (80 classes, the published anchors and masks) and ``yolo_box``;
+    ``roi_align`` / ``roi_pool`` / ``psroi_pool`` at B2's C4 map with R =
+    1024 (the CPU reference on 128 of them, then forward and backward on
+    those 128 on both); ``deform_conv2d`` v1 / v2 at [2, 512, 50, 84],
+    3 x 3; the RoI extras, ``matrix_nms`` and ``locality_aware_nms``
+    small; then the greedy-sweep kernel against its plain loop on the
+    same IoU matrix (``nms`` at k = 12000 with eta 1 and 0.9,
+    ``multiclass_nms`` at 80 classes x 1000): every decision equal, or
+    whose largest IoU with a kept box lies within 1e-5 of the threshold
+    the loop held then; its time beside the loop's and a bytes bound;
+B2. Faster R-CNN R50-C4 at ``faster_rcnn_r50_1x``'s settings, 2 x 800 x
+    1344, seeded weights and boxes, Momentum(0.9, multi_precision, wd
+    1e-4) at the config's lr 0.01 for 8 images scaled to 2 in its linear
+    warm-up; its departures (RoI Align's sampling_ratio 0 taken as JAX's
+    fixed 2, BN trained on batch statistics where the config freezes it,
+    random weights) named in ``B_CONFIG``: one warm-up and 3 timed steps
+    with CUDA events around each stage, losses finite and no timed step's
+    total above 1.25 x the warm-up's, kernels 7 and 8 16 launches a step
+    each and the sweep 1; then a ``use_random=False`` step whose RPN
+    targets, proposals, sampled RoIs, labels and targets equal the CPU
+    route on the same tensors, and whose 16 + 16 calls of kernels 7 and 8
+    equal their plain versions on the inputs they got (R1's tolerances);
+B3. inference in eval mode on a fresh detector (6000 / 1000 proposals,
+    ``box_coder`` decode, ``multiclass_nms(0.05, 0.5, 100)``): ms an
+    image, the detections equal to the CPU route;
+B4. ``multi_box_head`` (SSD300's six maps), ``deformable_conv``,
+    ``fluid.layers.roi_align`` and ``multiclass_nms`` in a Program through
+    ``Executor.run`` on the card, against the eager ops and
+    ``vision.ops.MultiBoxHead`` with the program's parameters.
+A ``{"detection": ...}`` line carries B1-B4's numbers; kernels 7 and 8
+gain ``detection_launches`` (B2, per step) and ``detection_path_checks``
+(B2's check step, by shape), and the kernels line an ``nms_sweep`` entry
+(``max_abs_err`` over the keep masks as 0 / 1, with
+``differing_decisions`` and ``worst_distance``).
+
 The line before last is the ``{"kernels": [...]}`` JSON record (kernel
 1's entries carry D4's launches by engine under ``handoff_launches`` and
 D3's paged run's under ``bench_paged_launches``, kernel 9's D5's quantized
@@ -8832,6 +8874,942 @@ def vision_phases(torch, gpu):
 
 
 
+# -- the detection slice: Faster R-CNN R50-C4 and the detection ops (B1-B4)
+B_TOL = 1e-4        # card vs CPU, float32: max |diff| / rms(CPU result)
+B_IMAGES, B_HW = 2, (800, 1344)          # short side 800, padded to 32
+B_INFO = (800.0, 1333.0, 1.0)            # im_info: resized h, w, scale
+B_ANCHORS = dict(anchor_sizes=[32.0, 64.0, 128.0, 256.0, 512.0],
+                 aspect_ratios=[0.5, 1.0, 2.0], variances=[1.0] * 4,
+                 stride=[16.0, 16.0])
+B_GT, B_CLASSES = 20, 81
+B_RPN = dict(rpn_batch_size_per_im=256, rpn_straddle_thresh=0.0,
+             rpn_fg_fraction=0.5, rpn_positive_overlap=0.7,
+             rpn_negative_overlap=0.3)
+B_TRAIN_PROPOSALS = dict(pre_nms_top_n=12000, post_nms_top_n=2000,
+                         nms_thresh=0.7, min_size=0.0)
+B_TEST_PROPOSALS = dict(pre_nms_top_n=6000, post_nms_top_n=1000,
+                        nms_thresh=0.7, min_size=0.0)
+B_SAMPLING = dict(batch_size_per_im=512, fg_fraction=0.25, fg_thresh=0.5,
+                  bg_thresh_hi=0.5, bg_thresh_lo=0.0,
+                  bbox_reg_weights=(0.1, 0.1, 0.2, 0.2),
+                  class_nums=B_CLASSES, is_cls_agnostic=True)
+# the config's sampling_ratio 0 is JAX's fixed 2 x 2 grid (B2's departure)
+B_ROI = dict(pooled_height=14, pooled_width=14, spatial_scale=1.0 / 16,
+             sampling_ratio=2)
+B_BOX_VAR = [0.1, 0.1, 0.2, 0.2]
+B_NMS = dict(score_threshold=0.05, nms_top_k=-1, keep_top_k=100,
+             nms_threshold=0.5, normalized=False, background_label=0)
+B_WARMUP, B_STEPS = 1, 3
+# faster_rcnn_r50_1x's schedule: base lr 0.01 for 8 images a step, scaled
+# linearly to B_IMAGES, in its linear warm-up (500 iterations from a third
+# of the base lr), which every step of B2 lies in
+B_LR, B_LR_WARMUP = 0.01 * B_IMAGES / 8, 500
+# B2's divergence gate: no timed step's total loss above this multiple of
+# the warm-up step's (at a few ten-thousandths of lr, a step moves the
+# weights little; a run that diverges multiplies its loss)
+B_LOSS_RISE = 1.25
+B_CONFIG = ("faster_rcnn_r50_1x (R50-C4), 2 x 800 x 1344; departures: "
+            "roi_align sampling_ratio 2 for the config's 0 (JAX's fixed "
+            "grid); BN trains on batch statistics (kernels 7-8) where the "
+            "config freezes it as an affine layer over pretrained "
+            "statistics; random weights; lr 0.01 scaled linearly from 8 "
+            "images to 2, in the config's warm-up")
+B_STAGES = ("backbone", "rpn_targets", "proposals", "sampling", "roi_align",
+            "head", "backward", "optimizer")
+# SSD300 (VGG16, VOC: 21 classes): its six maps, channels and prior config
+B_SSD_MAPS = ((512, 38), (1024, 19), (512, 10), (256, 5), (256, 3),
+              (256, 1))
+B_SSD = dict(min_sizes=[30.0, 60.0, 111.0, 162.0, 213.0, 264.0],
+             max_sizes=[60.0, 111.0, 162.0, 213.0, 264.0, 315.0],
+             aspect_ratios=[[2.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0],
+                            [2.0], [2.0]],
+             steps=[8.0, 16.0, 32.0, 64.0, 100.0, 300.0])
+B_SSD_B = 8
+# YOLOv3-608 (COCO): the published anchors and masks, strides 32 / 16 / 8
+B_YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                  156, 198, 373, 326]
+B_YOLO_SCALES = (([6, 7, 8], 19, 32), ([3, 4, 5], 38, 16),
+                 ([0, 1, 2], 76, 8))
+B_YOLO_B, B_YOLO_GT = 8, 50
+B_ROIS = 1024
+# RoIs whose CPU reference B1 computes (the card runs all B_ROIS)
+B_ROI_CHECK = 128
+
+
+def _b_err(torch, got, ref):
+    """max |got - ref| / rms(ref), in float64 on the CPU."""
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    rms = float(ref.pow(2).mean().sqrt()) or 1.0
+    return float((got - ref).abs().max()) / rms
+
+
+def _b_leaves(x):
+    if isinstance(x, (tuple, list)):
+        return [v for part in x for v in _b_leaves(part)]
+    return [x]
+
+
+def _b_pair(torch, label, fn, arrays, grad=(), rows=None, cpu_arrays=None):
+    """``fn`` on the CPU and on the card on the same arrays: every float
+    output within B_TOL of the CPU result's rms, every integer output
+    equal; then the gradients of ``Σ out · c`` (its first output) for the
+    arrays in ``grad``.  ``rows`` / ``cpu_arrays``: the CPU computes only the output
+    rows ``rows`` (from ``cpu_arrays``), the card all of them."""
+    cpu = [a.detach().clone().requires_grad_(i in grad) for i, a in
+           enumerate(cpu_arrays or arrays)]
+    dev = [a.detach().to(DEVICE, copy=True).requires_grad_(i in grad)
+           for i, a in enumerate(arrays)]
+    out_c = fn(*cpu)
+    out_d = fn(*dev)
+    torch.cuda.synchronize()
+    errs = []
+    for c, d in zip(_b_leaves(out_c), _b_leaves(out_d)):
+        if rows is not None:
+            d = d[rows.to(d.device)]
+        if c.is_floating_point():
+            errs.append(_b_err(torch, d, c))
+        else:
+            assert torch.equal(d.cpu(), c), (label, "indices differ")
+    err = max(errs) if errs else 0.0
+    gerr = 0.0
+    if grad and rows is None:
+        pc, pd = _b_leaves(out_c)[0], _b_leaves(out_d)[0]
+        cot = torch.randn(pc.shape, generator=torch.Generator().manual_seed(
+            SEED + 7)).to(pc.dtype)
+        gc = torch.autograd.grad((pc * cot).sum(), [cpu[i] for i in grad])
+        gd = torch.autograd.grad((pd * cot.to(DEVICE)).sum(),
+                                 [dev[i] for i in grad])
+        gerr = max(_b_err(torch, d, c) for c, d in zip(gc, gd))
+    assert err <= B_TOL and gerr <= B_TOL, (label, err, gerr)
+    log(f"B1 {label}: card vs CPU {err:.2e} x rms, gradients "
+        f"{gerr:.2e} x rms (tol {B_TOL:.0e})")
+    return {"max_err": err, "grad_err": gerr}
+
+
+def _b_boxes(torch, gen, n, w, h, lo=0.02, hi=0.3):
+    """``n`` seeded pixel boxes inside a ``w x h`` image."""
+    xy = torch.rand((n, 2), generator=gen) * torch.tensor([w, h]) * 0.8
+    wh = (lo + (hi - lo) * torch.rand((n, 2), generator=gen)) \
+        * torch.tensor([w, h])
+    return torch.cat([xy, torch.minimum(xy + wh, torch.tensor(
+        [w - 1.0, h - 1.0]))], 1)
+
+
+def _sweep_inputs(torch, gen, instances, k, w, h):
+    """The sweep's inputs as NMS builds them: per instance, k seeded boxes
+    (in overlapping clusters) sorted by a seeded score, their IoU
+    matrix."""
+    import paddle_tpu_torch.nn.functional as F
+
+    base = _b_boxes(torch, gen, instances * k // 4, w, h).reshape(
+        instances, k // 4, 4)
+    jit = (torch.rand((instances, k // 4, 4, 4), generator=gen) - 0.5) * 8
+    boxes = (base[:, :, None, :] + jit).reshape(instances, k, 4)
+    boxes = torch.cat([boxes[..., :2], torch.maximum(
+        boxes[..., 2:], boxes[..., :2] + 1)], -1).to(DEVICE)
+    scores = torch.rand((instances, k), generator=gen).to(DEVICE)
+    s, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    sb = torch.gather(boxes, 1, order[..., None].expand(instances, k, 4))
+    return F.iou_similarity(sb, sb, False), s
+
+
+def _sweep_thresholds(torch, keep, thr, eta):
+    """The threshold each candidate of the plain loop was decided against:
+    ``thr`` (float32), times ``eta`` after each kept box while above 0.5,
+    from the loop's own keep mask ``[B, k]``."""
+    keep = keep.cpu()
+    B, k = keep.shape
+    t = torch.empty((B, k), dtype=torch.float32)
+    cur = torch.full((B,), float(thr), dtype=torch.float32)
+    for i in range(k):
+        t[:, i] = cur
+        if eta < 1.0:
+            cur = torch.where(keep[:, i] & (cur > 0.5), cur * eta, cur)
+    return t
+
+
+def _sweep_check(torch, label, iou, s, thr, eta):
+    """The kernel against the plain loop on the card, on one IoU matrix:
+    masks equal, or every differing decision's deciding quantity, the
+    largest IoU with a box the loop kept before it, within 1e-5 of the
+    threshold the loop held then (a candidate with no kept box before it
+    cannot differ).  Returns the count of differing decisions, the kept
+    count and the largest such distance."""
+    from paddle_tpu_torch.ops import nms_sweep, nms_sweep_ref
+
+    t0 = time.monotonic()
+    got = nms_sweep(iou, s, thr, eta)
+    torch.cuda.synchronize()
+    want = nms_sweep_ref(iou, s, thr, eta)
+    torch.cuda.synchronize()
+    diff = got != want
+    worst = 0.0
+    if bool(diff.any()):
+        t_at = _sweep_thresholds(torch, want, thr, eta)
+        for b, i in diff.nonzero().tolist():
+            kept = want[b, :i]
+            d = abs(float(iou[b, i, :i][kept].max()) - float(t_at[b, i])) \
+                if bool(kept.any()) else float("inf")
+            log(f"B1 sweep {label}: instance {b} candidate {i} differs; "
+                f"its largest IoU with a kept box is {d:.3e} from the "
+                f"threshold {float(t_at[b, i])}")
+            worst = max(worst, d)
+    assert worst <= 1e-5, (label, worst)
+    log(f"B1 sweep {label} [{iou.shape[0]} x {iou.shape[1]}] thr {thr} eta "
+        f"{eta}: kernel = plain loop ({int(diff.sum())} decisions differ), "
+        f"{int(want.sum())} kept; both in {time.monotonic() - t0:.1f}s")
+    return {"differ": int(diff.sum()), "kept": int(want.sum()),
+            "worst_distance": worst}
+
+
+def detection_ops_card_vs_cpu(torch):
+    """Phase B1: every new op on the card against the port's CPU result on
+    one seeded float32 input, forward and (where JAX differentiates)
+    backward, at SSD300's, YOLOv3-608's, B2's C4 map's and the DCN res5
+    shapes; then the sweep kernel against its plain loop at k = 12000 and
+    80 classes x 1000; its timing."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.ops import nms_sweep, nms_sweep_ref
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    out, seed = {}, SEED + 1000
+    # SSD300: the six maps' priors (8732) and the multibox loss
+    img = torch.zeros(1, 3, 300, 300)
+
+    def ssd_priors(im):
+        boxes = [F.prior_box(torch.zeros(1, c, s, s, device=im.device), im,
+                             [B_SSD["min_sizes"][i]],
+                             [B_SSD["max_sizes"][i]],
+                             B_SSD["aspect_ratios"][i], flip=True, clip=True,
+                             steps=[B_SSD["steps"][i]] * 2)
+                 for i, (c, s) in enumerate(B_SSD_MAPS)]
+        return (torch.cat([b.reshape(-1, 4) for b, _ in boxes]),
+                torch.cat([v.reshape(-1, 4) for _, v in boxes]))
+
+    out["ssd300_prior_box"] = _b_pair(torch, "prior_box SSD300 x 6 maps",
+                                      ssd_priors, [img])
+    prior, pvar = ssd_priors(img)
+    P = prior.shape[0]
+    assert P == 8732, P
+    g = gen(seed)
+    loc = torch.randn((B_SSD_B, P, 4), generator=g) * 0.2
+    conf = torch.randn((B_SSD_B, P, 21), generator=g)
+    gt = _b_boxes(torch, g, B_SSD_B * B_GT, 1.0, 1.0, 0.05, 0.5).reshape(
+        B_SSD_B, B_GT, 4)
+    gt[:, 15:] = 0                                     # padding rows
+    lab = torch.randint(1, 21, (B_SSD_B, B_GT, 1), generator=g)
+    out["ssd300_ssd_loss"] = _b_pair(
+        torch, f"ssd_loss [{B_SSD_B}, 8732, 21] G={B_GT}",
+        lambda l, c, gg, lb, p, v: F.ssd_loss(l, c, gg, lb, p, v),
+        [loc, conf, gt, lab, prior, pvar], grad=(0, 1))
+    # YOLOv3-608: the loss at its three scales and the box decode
+    g = gen(seed + 1)
+    ygt = torch.cat([0.1 + 0.8 * torch.rand((B_YOLO_B, B_YOLO_GT, 2),
+                                            generator=g),
+                     0.02 + 0.4 * torch.rand((B_YOLO_B, B_YOLO_GT, 2),
+                                             generator=g)], -1)
+    ygt[:, 40:] = 0
+    ylab = torch.randint(0, 80, (B_YOLO_B, B_YOLO_GT), generator=g)
+    for mask, side, ratio in B_YOLO_SCALES:
+        x = torch.randn((B_YOLO_B, 255, side, side), generator=g) * 0.5
+        out[f"yolov3_loss_{side}"] = _b_pair(
+            torch, f"yolov3_loss [{B_YOLO_B}, 255, {side}, {side}]",
+            lambda xx, gg, ll, m=mask, r=ratio: F.yolov3_loss(
+                xx, gg, ll, B_YOLO_ANCHORS, m, 80, 0.7, r),
+            [x, ygt, ylab], grad=(0,))
+    size = torch.full((B_YOLO_B, 2), 608, dtype=torch.int32)
+    out["yolo_box_19"] = _b_pair(
+        torch, "yolo_box [8, 255, 19, 19]", lambda xx, ss: F.yolo_box(
+            xx, ss, B_YOLO_ANCHORS[12:], 80, 0.005, 32),
+        [torch.randn((B_YOLO_B, 255, 19, 19), generator=g), size])
+    # the RoI ops at B2's C4 map, R = 1024 (CPU reference on 128 of them,
+    # then forward and backward on those 128 on both)
+    g = gen(seed + 2)
+    Hc, Wc = B_HW[0] // 16, B_HW[1] // 16
+    fmap = torch.randn((B_IMAGES, 1024, Hc, Wc), generator=g)
+    rois = _b_boxes(torch, g, B_ROIS, B_INFO[1], B_INFO[0], 0.02, 0.6)
+    num = torch.tensor([B_ROIS // 2, B_ROIS // 2])
+    sel = torch.arange(0, B_ROIS, B_ROIS // B_ROI_CHECK)
+    sub = torch.tensor([B_ROI_CHECK // 2, B_ROI_CHECK // 2])
+    roi_ops = {
+        "roi_align": (lambda f, r, n: F.roi_align(f, r, rois_num=n, **B_ROI),
+                      fmap, (0, 1)),
+        "roi_pool": (lambda f, r, n: F.roi_pool(f, r, 14, 14, 1 / 16,
+                                                rois_num=n), fmap, (0,)),
+        "psroi_pool": (lambda f, r, n: F.psroi_pool(f, r, 64, 1 / 16, 4, 4,
+                                                    rois_num=n), fmap, (0,))}
+    for name, (fn, f, grad) in roi_ops.items():
+        full = _b_pair(torch, f"{name} [2, 1024, {Hc}, {Wc}] R={B_ROIS} "
+                       f"(CPU on {B_ROI_CHECK})", fn, [f, rois, num],
+                       rows=sel, cpu_arrays=[f, rois[sel], sub])
+        small = _b_pair(torch, f"{name} R={B_ROI_CHECK} forward + backward",
+                        fn, [f, rois[sel], sub], grad=grad)
+        out[name] = {"R1024_rows": full, f"R{B_ROI_CHECK}": small}
+    # DCN at res5: [2, 512, 50, 84], 3 x 3, v1 and v2
+    g = gen(seed + 3)
+    x = torch.randn((B_IMAGES, 512, Hc, Wc), generator=g)
+    off = torch.randn((B_IMAGES, 18, Hc, Wc), generator=g) * 2.0
+    w = torch.randn((512, 512, 3, 3), generator=g) * 0.02
+    m = torch.rand((B_IMAGES, 9, Hc, Wc), generator=g)
+    out["deform_conv2d_v1"] = _b_pair(
+        torch, f"deform_conv2d v1 [2, 512, {Hc}, {Wc}] 3x3",
+        lambda a, o, ww: F.deform_conv2d(a, o, ww, padding=1), [x, off, w],
+        grad=(0, 1, 2))
+    out["deform_conv2d_v2"] = _b_pair(
+        torch, f"deform_conv2d v2 [2, 512, {Hc}, {Wc}] 3x3",
+        lambda a, o, ww, mm: F.deform_conv2d(a, o, ww, padding=1, mask=mm),
+        [x, off, w, m], grad=(0, 1, 2, 3))
+    # the roi_extra ops and matrix / locality-aware NMS at the JAX tests'
+    # shapes
+    g = gen(seed + 4)
+    fx = torch.randn((2, 18, 10, 12), generator=g)
+    r5 = _b_boxes(torch, g, 5, 20.0, 18.0, 0.1, 0.5)
+    n5 = torch.tensor([2, 3])
+    tr = torch.randn((5, 4, 3, 3), generator=g) * 0.5
+    quads = torch.tensor([[1, 1, 9, 2, 10, 8, 2, 7], [3, 3, 7, 3, 7, 7, 3, 7],
+                          [0, 0, 20, 0, 20, 4, 0, 4],
+                          [2, 5, 6, 1, 10, 5, 6, 9]], dtype=torch.float32)
+    for name, fn, arrays, grad in (
+            ("prroi_pool", lambda a, r, n: F.prroi_pool(
+                a, r, 0.5, 3, 2, batch_roi_nums=n), [fx, r5, n5], (0, 1)),
+            ("deformable_roi_pooling", lambda a, r, t, n:
+             F.deformable_roi_pooling(a, r, t, spatial_scale=0.5,
+                                      group_size=(3, 3), pooled_height=3,
+                                      pooled_width=3, sample_per_part=2,
+                                      position_sensitive=True, rois_num=n),
+             [fx, r5, tr, n5], (0, 2)),
+            ("roi_perspective_transform", lambda a, r, n:
+             F.roi_perspective_transform(a, r, 5, 6, 1.0, rois_num=n)[0],
+             [fx, quads, torch.tensor([2, 2])], (0,)),
+            ("polygon_box_transform", F.polygon_box_transform, [fx], (0,))):
+        out[name] = _b_pair(torch, name, fn, arrays, grad=grad)
+    nb = torch.stack([_b_boxes(torch, g, 16, 1.0, 1.0) for _ in range(2)])
+    out["matrix_nms"] = _b_pair(
+        torch, "matrix_nms [2, 3, 16]", lambda b, s: F.matrix_nms(
+            b, s, 0.1, 0.05, 12, 20, return_index=True,
+            return_rois_num=True), [nb, torch.rand((2, 3, 16), generator=g)],
+        grad=(0, 1))
+    out["locality_aware_nms"] = _b_pair(
+        torch, "locality_aware_nms [2, 1, 16]", lambda b, s:
+        F.locality_aware_nms(b, s, 0.2, -1, 8, 0.4),
+        [nb, torch.rand((2, 1, 16), generator=g)])
+    # the sweep kernel against its plain loop
+    sweeps = {}
+    iou, s = _sweep_inputs(torch, gen(seed + 5), B_IMAGES, 12000,
+                           B_INFO[1], B_INFO[0])
+    for thr, eta in ((0.7, 1.0), (0.95, 0.9)):
+        sweeps[f"nms k=12000 eta={eta}"] = _sweep_check(
+            torch, "nms k=12000", iou, s, thr, eta)
+    # timing at the proposals' shape (two images, k = 12000)
+    want = nms_sweep_ref(iou, s, 0.7, 1.0)
+    kb = (torch.cumsum(want.long(), 1) - want.long())[torch.isfinite(s)]
+    nbytes = 4 * int(kb.sum()) + s.numel() * 5
+    ms = time_ms(torch, lambda a, b: nms_sweep(a, b, 0.7, 1.0), [(iou, s)],
+                 10)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    nms_sweep_ref(iou, s, 0.7, 1.0)
+    t1.record()
+    torch.cuda.synchronize()
+    timing = {"ms": ms, "plain_ms": t0.elapsed_time(t1),
+              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+              "bound_by": "bytes", "library_ms": None,
+              "bound_bytes": nbytes, "shape": [B_IMAGES, 12000]}
+    del iou, s
+    iou, s = _sweep_inputs(torch, gen(seed + 6), 80, 1000, 1.0, 1.0)
+    sweeps["multiclass_nms 80 x 1000"] = _sweep_check(
+        torch, "multiclass_nms 80 classes x 1000", iou, s, 0.5, 1.0)
+    del iou, s
+    worst = max(v["max_err"] for v in _b_flat(out))
+    log(f"B1: {len(_b_flat(out))} op checks card vs CPU, largest error "
+        f"{worst:.2e} x rms (tol {B_TOL:.0e}); sweep kernel {timing['ms']:.3f}"
+        f" ms at [2, 12000] beside the plain loop's {timing['plain_ms']:.1f} "
+        f"ms and its {timing['bound_ms']:.4f} ms bound")
+    return {"ops": out, "sweeps": sweeps, "sweep_timing": timing,
+            "max_err": worst, "tol": B_TOL}
+
+
+def _b_flat(d):
+    return [v for v in d.values() if "max_err" in v] + [
+        w for v in d.values() if "max_err" not in v for w in v.values()]
+
+
+def detector(torch):
+    """Faster R-CNN R50-C4 (Detectron / PaddleDetection faster_rcnn_r50_1x)
+    on the port: ResNet-50 NHWC with the space-to-depth stem, bf16, its
+    layers 1-3 the C4 backbone and layer4 (res5) the RoI head; the RPN's
+    3 x 3 conv (1024 → 1024) and 1 x 1 heads (15 anchors: objectness,
+    deltas); the 81-class and class-agnostic 4-delta fcs.  Random weights
+    from the seed."""
+    import paddle_tpu_torch as ptt
+
+    nn = ptt.nn
+    ptt.seed(SEED)
+
+    class FasterRCNN(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.backbone = ptt.vision.models.resnet50(
+                data_format="NHWC", stem_space_to_depth=True, num_classes=0,
+                with_pool=False, device="cpu",
+                generator=torch.Generator().manual_seed(SEED))
+            A = len(B_ANCHORS["anchor_sizes"]) * len(
+                B_ANCHORS["aspect_ratios"])
+            self.rpn_conv = nn.Conv2D(1024, 1024, 3, padding=1,
+                                      data_format="NHWC")
+            self.rpn_cls = nn.Conv2D(1024, A, 1, data_format="NHWC")
+            self.rpn_box = nn.Conv2D(1024, 4 * A, 1, data_format="NHWC")
+            self.cls_fc = nn.Linear(2048, B_CLASSES)
+            self.box_fc = nn.Linear(2048, 4)
+            # Detectron's init of the heads: normal, std 0.01 (the box fc
+            # 0.001), zero bias
+            g = torch.Generator().manual_seed(SEED + 1101)
+            for layer, std in ((self.rpn_conv, 0.01), (self.rpn_cls, 0.01),
+                               (self.rpn_box, 0.01), (self.cls_fc, 0.01),
+                               (self.box_fc, 0.001)):
+                with torch.no_grad():
+                    layer.weight.copy_(torch.randn(
+                        layer.weight.shape, generator=g) * std)
+                    layer.bias.zero_()
+
+        def c4(self, x):
+            net = self.backbone
+            x = net.relu(net.bn1(net._stem_s2d(x)))
+            return net.layer3(net.layer2(net.layer1(net.maxpool(x))))
+
+        def rpn(self, feat):
+            t = torch.relu(self.rpn_conv(feat))
+            return self.rpn_cls(t), self.rpn_box(t)
+
+        def head(self, pooled):
+            x = self.backbone.layer4(pooled).mean((1, 2))
+            return self.cls_fc(x).float(), self.box_fc(x).float()
+
+    return FasterRCNN().to(DEVICE).astype("bfloat16")
+
+
+def detection_batch(torch):
+    """B2's seeded batch: 2 images 800 x 1344 (NHWC, bf16), im_info (800,
+    1333, 1), 20 ground-truth boxes an image of 16-512 px, classes
+    1-80."""
+    g = torch.Generator().manual_seed(SEED + 1100)
+    images = (torch.rand((B_IMAGES,) + B_HW + (3,), generator=g) * 2 - 1)
+    ih, iw = B_INFO[0], B_INFO[1]
+    side = 16 + 496 * torch.rand((B_IMAGES, B_GT, 2), generator=g)
+    xy = torch.rand((B_IMAGES, B_GT, 2), generator=g) * (
+        torch.tensor([iw, ih]) - side)
+    gt = torch.cat([xy, xy + side - 1], -1)
+    cls = torch.randint(1, B_CLASSES, (B_IMAGES, B_GT), generator=g,
+                        dtype=torch.int32)
+    info = torch.tensor([list(B_INFO)] * B_IMAGES)
+    return (images.to(DEVICE, torch.bfloat16), gt.to(DEVICE), cls.to(DEVICE),
+            torch.zeros((B_IMAGES, B_GT), dtype=torch.int32,
+                        device=DEVICE), info.to(DEVICE))
+
+
+def _smooth_l1(d, w, sigma=1.0):
+    """PaddleDetection's smooth_l1 (``sigma``) of ``d`` weighted by ``w``."""
+    s2 = sigma * sigma
+    a = d.abs()
+    return (w * (a.lt(1.0 / s2).float() * 0.5 * s2 * d * d
+                 + a.ge(1.0 / s2).float() * (a - 0.5 / s2))).sum()
+
+
+def detection_forward(torch, det, batch, anchors, var, use_random=True,
+                      gen=None, mark=lambda name: None, keep=None):
+    """One training forward of B2: backbone, RPN targets and losses,
+    proposals, RCNN sampling, RoI Align, head and its losses.  ``mark``
+    closes each stage; ``keep`` (a dict) receives the stages' outputs."""
+    import paddle_tpu_torch.nn.functional as F
+
+    images, gt, cls, crowd, info = batch
+    feat = det.c4(images)                                  # [N, 50, 84, 1024]
+    obj, dl = det.rpn(feat)
+    N, H, W, A = obj.shape
+    M = H * W * A
+    cls_logits = obj.float().reshape(N, M, 1)
+    bbox_pred = dl.float().reshape(N, M, 4)
+    mark("backbone")
+    pred_s, pred_l, lbl, tgt, inw = F.rpn_target_assign(
+        bbox_pred, cls_logits, anchors.reshape(-1, 4), var.reshape(-1, 4),
+        gt, crowd, info, use_random=use_random, key=gen, **B_RPN)
+    valid = (lbl >= 0).float()
+    rpn_cls = (valid * F.binary_cross_entropy_with_logits(
+        pred_s, lbl.float().clamp_min(0), reduction="none")).sum() \
+        / valid.sum().clamp_min(1.0)
+    rpn_reg = _smooth_l1(pred_l - tgt, inw, 3.0) / valid.sum().clamp_min(1.0)
+    mark("rpn_targets")
+    with torch.no_grad():
+        rois, probs, nums = F.generate_proposals(
+            torch.sigmoid(cls_logits).reshape(N, H, W, A).permute(0, 3, 1, 2),
+            bbox_pred.reshape(N, H, W, 4 * A).permute(0, 3, 1, 2), info,
+            anchors, var, return_rois_num=True, **B_TRAIN_PROPOSALS)
+    mark("proposals")
+    s_rois, labels, btgt, binw, _ = F.generate_proposal_labels(
+        rois, cls, crowd, gt, info, rois_num=nums, use_random=use_random,
+        key=gen, **B_SAMPLING)
+    mark("sampling")
+    per_im = B_SAMPLING["batch_size_per_im"]
+    pooled = F.roi_align(feat.permute(0, 3, 1, 2), s_rois,
+                         rois_num=torch.full((N,), per_im, device=DEVICE),
+                         **B_ROI)                          # [R, C, 14, 14]
+    mark("roi_align")
+    logits, deltas = det.head(pooled.permute(0, 2, 3, 1))
+    lab = labels.reshape(-1).long()
+    rcnn_cls = F.cross_entropy(logits, lab, ignore_index=-1,
+                               reduction="mean")
+    rcnn_reg = _smooth_l1(deltas - btgt[:, 4:8], binw[:, 4:8]) \
+        / (lab >= 0).sum().clamp_min(1)
+    loss = rpn_cls + rpn_reg + rcnn_cls + rcnn_reg
+    mark("head")
+    if keep is not None:
+        keep.update(cls_logits=cls_logits.detach(),
+                    bbox_pred=bbox_pred.detach(), rpn=(pred_s, pred_l, lbl,
+                                                       tgt, inw),
+                    proposals=(rois, probs, nums),
+                    sampled=(s_rois, labels, btgt, binw))
+    return loss, [float(v.detach())
+                  for v in (rpn_cls, rpn_reg, rcnn_cls, rcnn_reg)]
+
+
+def _b_close(torch, label, got, want, scale):
+    """Equal indices; floats within 1e-4 of ``scale``."""
+    for i, (g, w) in enumerate(zip(_b_leaves(got), _b_leaves(want))):
+        g = g.detach().cpu()
+        if w.is_floating_point():
+            err = float((g.double() - w.double()).abs().max()) \
+                if w.numel() else 0.0
+            assert err <= 1e-4 * scale, (label, i, err)
+        else:
+            assert torch.equal(g, w), (label, i)
+
+
+def detection_cpu_route(torch, keep, anchors, var, batch):
+    """B2's check step: RPN targets, proposals and RCNN sampling of the
+    card's RPN outputs recomputed on the CPU (use_random=False), held to
+    the card's: indices and counts equal, boxes within 1e-4 of their
+    scale, targets within 1e-4."""
+    import paddle_tpu_torch.nn.functional as F
+
+    gt, cls, crowd, info = [t.cpu() for t in batch[1:]]
+    cl, bp = keep["cls_logits"].cpu(), keep["bbox_pred"].cpu()
+    anchors, var = anchors.cpu(), var.cpu()
+    N = cl.shape[0]
+    H, W = B_HW[0] // 16, B_HW[1] // 16
+    A = anchors.shape[2]
+    rpn = F.rpn_target_assign(bp, cl, anchors.reshape(-1, 4),
+                              var.reshape(-1, 4), gt, crowd, info,
+                              use_random=False, **B_RPN)
+    _b_close(torch, "rpn targets", keep["rpn"], rpn, 1.0)
+    props = F.generate_proposals(
+        torch.sigmoid(cl).reshape(N, H, W, A).permute(0, 3, 1, 2),
+        bp.reshape(N, H, W, 4 * A).permute(0, 3, 1, 2), info, anchors, var,
+        return_rois_num=True, **B_TRAIN_PROPOSALS)
+    _b_close(torch, "proposals", keep["proposals"], props, B_INFO[1])
+    sampled = F.generate_proposal_labels(
+        props[0], cls, crowd, gt, info, rois_num=props[2], use_random=False,
+        **B_SAMPLING)[:4]
+    _b_close(torch, "sampled rois", keep["sampled"][0], sampled[0],
+             B_INFO[1])
+    _b_close(torch, "labels, targets, weights", keep["sampled"][1:],
+             sampled[1:], 1.0)
+    nums = props[2].tolist()
+    labels = sampled[1].reshape(-1)
+    return {"rois_num": nums, "fg": int((labels > 0).sum()),
+            "bg": int((labels == 0).sum()),
+            "rpn_fg": int((rpn[2] == 1).sum()),
+            "rpn_sampled": int((rpn[2] >= 0).sum())}
+
+
+@contextlib.contextmanager
+def recording_resnet_kernels(calls):
+    """While open, every launch of kernels 7 and 8 appends ``(name,
+    inputs, outputs)`` to ``calls``, copied at the launch (the launchers
+    are wrapped; the wrappers and their counters stay as they are)."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fcb
+
+    stats, apply = fcb._stats_kernel, fcb._apply_kernel
+
+    def copy(ts):
+        return tuple(None if t is None else t.detach().clone() for t in ts)
+
+    def rec_stats(x, w, *args, **kwargs):
+        out = stats(x, w, *args, **kwargs)
+        calls.append(("conv1x1_bn_stats", copy((x, w)), copy(out)))
+        return out
+
+    def rec_apply(y, scale, shift, residual, *args, **kwargs):
+        out = apply(y, scale, shift, residual, *args, **kwargs)
+        calls.append(("bn_apply_relu", copy((y, scale, shift, residual)),
+                      copy((out,))))
+        return out
+
+    fcb._stats_kernel, fcb._apply_kernel = rec_stats, rec_apply
+    try:
+        yield calls
+    finally:
+        fcb._stats_kernel, fcb._apply_kernel = stats, apply
+
+
+def check_path_resnet_kernels(torch, calls, label):
+    """Kernels 7 and 8 at every launch a path made (``calls`` from
+    :func:`recording_resnet_kernels`), their outputs against their plain
+    versions on the same inputs at R1's tolerances: kernel 7 by
+    :func:`stats_tolerance`, kernel 8 bit-equal.  Returns, per kernel, a
+    row per shape: calls and largest errors."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fcb
+
+    rows = {"conv1x1_bn_stats": {}, "bn_apply_relu": {}}
+    for name, args, out in calls:
+        if name == "conv1x1_bn_stats":
+            (x, w), (y, s, q) = args, out
+            (M, K), N = x.shape, w.shape[1]
+            dtype = str(x.dtype).replace("torch.", "")
+            y0, s0, q0 = fcb.conv1x1_bn_stats_ref(x, w)
+            yf_abs = (x.float() @ w.float()).abs().sum(0)
+            errs = stats_tolerance(torch, y, y0, s, s0, q, q0, yf_abs, dtype)
+            shape = f"{dtype} [{M}, {K}] @ [{K}, {N}]"
+        else:
+            (y, scale, shift, res), (got,) = args, out
+            want = fcb.bn_apply_relu_ref(y, scale, shift, res)
+            assert torch.equal(got, want), (
+                f"{label}: bn_apply_relu differs from plain at "
+                f"{list(y.shape)}: "
+                f"{float((got.float() - want.float()).abs().max())}")
+            errs = (0.0, 0.0, 0.0)
+            shape = (f"{str(y.dtype).replace('torch.', '')} {list(y.shape)}"
+                     f"{' + residual' if res is not None else ''}")
+        row = rows[name].setdefault(shape, {
+            "shape": shape, "calls": 0, "max_abs_err": 0.0,
+            **({"sum_err": 0.0, "sumsq_err": 0.0}
+               if name == "conv1x1_bn_stats" else {})})
+        row["calls"] += 1
+        for key, e in zip(("max_abs_err", "sum_err", "sumsq_err"), errs):
+            if key in row:
+                row[key] = max(row[key], e)
+    for name, by_shape in rows.items():
+        log(f"{label}: kernel {name} at the {len(by_shape)} shapes the path "
+            f"gave it, on its inputs: "
+            + "; ".join(f"{r['shape']} x {r['calls']}: max_abs_err "
+                        f"{r['max_abs_err']:.3e}"
+                        + (f", sum err {r['sum_err']:.2e}, sumsq err "
+                           f"{r['sumsq_err']:.2e}" if "sum_err" in r else "")
+                        for r in by_shape.values())
+            + (" (rtol 2**-7, atol 1e-5 x max|y|; sums <= 3e-5)"
+               if name == "conv1x1_bn_stats" else " (bit-equal)") + "; ok")
+    return {name: list(by_shape.values()) for name, by_shape in rows.items()}
+
+
+def train_faster_rcnn(torch, gpu):
+    """Phase B2: Faster R-CNN R50-C4 training on 2 x 800 x 1344 at
+    faster_rcnn_r50_1x's settings with the departures ``B_CONFIG`` names:
+    one warm-up and B_STEPS timed steps of Momentum(0.9, multi_precision,
+    weight_decay 1e-4) on the config's lr, linearly scaled and warming up,
+    CUDA events around each stage, kernels 7-8 and the sweep counted, the
+    loss held below ``B_LOSS_RISE`` x the warm-up step's; then a check
+    step with use_random=False against the CPU route, kernels 7 and 8 held
+    to their plain versions at each call it made."""
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.ops import bn_apply_relu, conv1x1_bn_stats, nms_sweep
+
+    t0 = time.monotonic()
+    det = detector(torch)
+    batch = detection_batch(torch)
+    Hc, Wc = B_HW[0] // 16, B_HW[1] // 16
+    anchors, var = F.anchor_generator(
+        torch.zeros(1, 1, Hc, Wc, device=DEVICE), **B_ANCHORS)
+    n_anchors = anchors.shape[:3].numel()   # 50 x 84 x 15 = 63000
+    assert n_anchors == Hc * Wc * 15, anchors.shape
+    lr = ptt.optimizer.lr.LinearWarmup(B_LR, B_LR_WARMUP, B_LR / 3, B_LR)
+    opt = ptt.optimizer.Momentum(learning_rate=lr, momentum=0.9,
+                                 parameters=det.parameters(),
+                                 multi_precision=True, weight_decay=1e-4)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    log(f"B2 Faster R-CNN R50-C4: {sum(p.numel() for p in det.parameters())}"
+        f" parameters (bf16), {B_IMAGES} x {B_HW[0]} x {B_HW[1]}, "
+        f"{n_anchors} anchors an image, built in "
+        f"{time.monotonic() - t0:.1f}s")
+
+    def step(mark=lambda name: None, use_random=True, keep=None):
+        loss, parts = detection_forward(torch, det, batch, anchors, var,
+                                        use_random, gen, mark, keep)
+        loss.backward()
+        mark("backward")
+        opt.step()
+        opt.clear_grad()
+        lr.step()
+        mark("optimizer")
+        return parts
+
+    warm = [step() for _ in range(B_WARMUP)]
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (conv1x1_bn_stats, bn_apply_relu, nms_sweep)
+    for c in counters:
+        c.launches = 0
+    stage_ms = {s: 0.0 for s in B_STAGES}
+    per_step, losses, walls = [], [], []
+    for _ in range(B_STEPS):
+        before = [c.launches for c in counters]
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+        names = []
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            names.append(name)
+
+        w0 = time.monotonic()
+        losses.append(step(mark))
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - w0)
+        for name, a, b in zip(names, events, events[1:]):
+            stage_ms[name] += a.elapsed_time(b) / B_STEPS
+        per_step.append([c.launches - b for c, b in zip(counters, before)])
+    peak = torch.cuda.max_memory_allocated()
+    k7, k8, sweep = (sum(s[i] for s in per_step) for i in range(3))
+    for parts in warm + losses:
+        assert all(math.isfinite(v) for v in parts), (warm, losses)
+    rise = max(sum(p) for p in losses) / sum(warm[-1])
+    assert rise <= B_LOSS_RISE, (warm, losses)
+    assert all(s[0] == 16 and s[1] == 16 for s in per_step), per_step
+    assert all(s[2] == 1 for s in per_step), per_step
+    step_ms = sum(walls) / B_STEPS * 1e3
+    log(f"B2 losses (rpn cls, rpn reg, rcnn cls, rcnn reg), warm-up then "
+        f"the timed steps: {[[round(v, 4) for v in p] for p in warm]} "
+        f"{[[round(v, 4) for v in p] for p in losses]}; the largest total "
+        f"{rise:.3f} x the warm-up's (<= {B_LOSS_RISE}); lr "
+        f"{opt.get_lr():.3e} after them")
+    log(f"B2 kernel launches a step (conv1x1_bn_stats, bn_apply_relu, "
+        f"nms_sweep): {per_step}")
+    log(f"B2 Faster R-CNN R50-C4 training[{gpu}]: {step_ms:.1f} ms a step, "
+        f"{B_IMAGES * 1e3 / step_ms:.2f} img/s, stages (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items())
+        + f"; peak device memory {peak / 2**20:.0f} MiB")
+    # the check step: use_random=False, the CPU route on the same tensors;
+    # kernels 7 and 8 at every call it makes against their plain versions
+    keep, calls = {}, []
+    with recording_resnet_kernels(calls):
+        step(use_random=False, keep=keep)
+    torch.cuda.synchronize()
+    assert [n for n, _, _ in calls].count("conv1x1_bn_stats") == 16 \
+        and [n for n, _, _ in calls].count("bn_apply_relu") == 16, \
+        [n for n, _, _ in calls]
+    path_checks = check_path_resnet_kernels(torch, calls, "B2 check step")
+    del calls
+    t1 = time.monotonic()
+    check = detection_cpu_route(torch, keep, anchors, var, batch)
+    log(f"B2 check step (use_random=False): RPN targets, proposals "
+        f"{check['rois_num']}, sampled RoIs ({check['fg']} fg, {check['bg']}"
+        f" bg), labels and targets equal to the CPU route (boxes within "
+        f"1e-4 of their scale; CPU route {time.monotonic() - t1:.1f}s)")
+    del keep
+    del det, opt
+    return {"batch": batch, "anchors": anchors, "var": var,
+            "result": {
+                "step_ms": step_ms, "img_per_s": B_IMAGES * 1e3 / step_ms,
+                "stage_ms": stage_ms, "losses": losses,
+                "warmup_losses": warm, "loss_rise": rise,
+                "launches_per_step": per_step, "peak_bytes": peak,
+                "check_step": check, "kernel_path_checks": path_checks,
+                "config": B_CONFIG}}
+
+
+def infer_faster_rcnn(torch, gpu, batch, anchors, var):
+    """Phase B3: inference in eval mode: test proposals (6000 / 1000),
+    RoI Align and the head, box_coder(decode_center_size) and
+    multiclass_nms(0.05, 0.5, keep_top_k 100); ms an image; the
+    detections against the CPU route on the same tensors.  The detector
+    is built afresh (the seed's weights), so B3 does not depend on B2's
+    random sampling."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.ops import nms_sweep
+
+    images, _, _, _, info = batch
+    det = detector(torch)
+    det.eval()
+
+    def infer(keep=None):
+        feat = det.c4(images)
+        obj, dl = det.rpn(feat)
+        N, H, W, A = obj.shape
+        rois, _, nums = F.generate_proposals(
+            torch.sigmoid(obj.float()).permute(0, 3, 1, 2),
+            dl.float().reshape(N, H, W, 4 * A).permute(0, 3, 1, 2), info,
+            anchors, var, return_rois_num=True, **B_TEST_PROPOSALS)
+        K = rois.shape[1]
+        pooled = F.roi_align(feat.permute(0, 3, 1, 2), rois.reshape(-1, 4),
+                             rois_num=torch.full((N,), K, device=DEVICE),
+                             **B_ROI)
+        logits, deltas = det.head(pooled.permute(0, 2, 3, 1))
+        probs = torch.softmax(logits, -1).reshape(N, K, -1)
+        boxes = F.box_coder(rois.reshape(-1, 4), B_BOX_VAR,
+                            deltas[:, None, :], "decode_center_size",
+                            box_normalized=False, axis=1).reshape(N, K, 4)
+        out = F.multiclass_nms(boxes, probs.transpose(1, 2),
+                               return_num=True, **B_NMS)
+        if keep is not None:
+            keep.update(rois=rois, deltas=deltas, probs=probs, out=out)
+        return out
+
+    with torch.no_grad():
+        infer()
+        torch.cuda.synchronize()
+        nms_sweep.launches = 0
+        t0 = time.monotonic()
+        for _ in range(B_STEPS):
+            infer()
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) / B_STEPS * 1e3
+        launches = nms_sweep.launches
+        keep = {}
+        dets, nums = infer(keep)
+        torch.cuda.synchronize()
+    del det
+    rois, deltas, probs = (keep[k].cpu() for k in ("rois", "deltas",
+                                                   "probs"))
+    N, K = rois.shape[:2]
+    boxes = F.box_coder(rois.reshape(-1, 4), B_BOX_VAR, deltas[:, None, :],
+                        "decode_center_size", box_normalized=False,
+                        axis=1).reshape(N, K, 4)
+    want, want_n = F.multiclass_nms(boxes, probs.transpose(1, 2),
+                                    return_num=True, **B_NMS)
+    assert torch.equal(nums.cpu(), want_n), (nums, want_n)
+    assert torch.equal(dets[..., 0].cpu(), want[..., 0])
+    err = float((dets.cpu() - want).abs().max()) if want.numel() else 0.0
+    assert err <= 1e-4 * B_INFO[1], err
+    assert launches == 2 * B_STEPS, launches   # proposals + class NMS
+    fg = probs[..., 1:]
+    log(f"B3 class scores: max {float(fg.max()):.4f}, "
+        f"{int((fg > B_NMS['score_threshold']).sum())} (RoI, class) pairs "
+        f"above {B_NMS['score_threshold']}")
+    log(f"B3 Faster R-CNN inference[{gpu}]: {ms / B_IMAGES:.1f} ms an image "
+        f"({ms:.1f} ms for {B_IMAGES}); detections kept {nums.tolist()} "
+        f"(keep_top_k {B_NMS['keep_top_k']}), equal to the CPU route "
+        f"(labels and counts exact, boxes / scores within {err:.1e}); "
+        f"{launches // B_STEPS} sweep launches a pass")
+    return {"ms_per_image": ms / B_IMAGES, "kept": nums.tolist(),
+            "max_abs_err_vs_cpu": err,
+            "sweep_launches_per_pass": launches // B_STEPS}
+
+
+def detection_static(torch, gpu):
+    """Phase B4: a ``fluid.Program`` with ``multi_box_head`` over SSD300's
+    six maps, ``deformable_conv``, ``fluid.layers.roi_align`` and
+    ``multiclass_nms`` through ``Executor.run`` on the card, against the
+    eager ops with the program's parameters (1e-5 of the result's rms;
+    one device, the same kernels), and ``vision.ops.MultiBoxHead`` with
+    the same parameters."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    import paddle_tpu_torch.nn.functional as F
+    import paddle_tpu_torch.vision.ops as vops
+
+    main, startup = fluid.Program(), fluid.Program()
+    L = fluid.layers
+    maps = [(f"m{i}", c, s) for i, (c, s) in enumerate(B_SSD_MAPS)]
+    with fluid.program_guard(main, startup):
+        feats = [fluid.data(n, [-1, c, s, s]) for n, c, s in maps]
+        img = fluid.data("img", [-1, 3, 300, 300])
+        locs, confs, boxes, var = L.multi_box_head(
+            feats, img, base_size=300, num_classes=21,
+            aspect_ratios=B_SSD["aspect_ratios"], min_ratio=20,
+            max_ratio=90, steps=B_SSD["steps"], flip=True, clip=True,
+            offset=0.5)
+        x = fluid.data("x", [-1, 256, 38, 38])
+        off = fluid.data("off", [-1, 18, 38, 38])
+        msk = fluid.data("msk", [-1, 9, 38, 38])
+        dcn = L.deformable_conv(x, off, msk, num_filters=256, filter_size=3,
+                                padding=1)
+        rois = fluid.data("rois", [-1, 4])
+        pooled = L.roi_align(dcn, rois, 7, 7, 1 / 8, 2)
+        scores = L.softmax(confs)
+        dets = L.multiclass_nms(
+            L.box_coder(boxes, var, locs, code_type="decode_center_size"),
+            L.transpose(scores, [0, 2, 1]), 0.01, 200, 50, 0.45)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup)
+    rng = np.random.RandomState(SEED + 1200)
+    feed = {n: rng.randn(2, c, s, s).astype(np.float32) for n, c, s in maps}
+    feed.update(img=rng.randn(2, 3, 300, 300).astype(np.float32),
+                x=rng.randn(2, 256, 38, 38).astype(np.float32),
+                off=(rng.randn(2, 18, 38, 38) * 2).astype(np.float32),
+                msk=rng.uniform(size=(2, 9, 38, 38)).astype(np.float32),
+                rois=(np.sort(rng.uniform(0, 300, (64, 2, 2)), 1)
+                      .transpose(0, 2, 1).reshape(64, 4)
+                      .astype(np.float32)))
+    outs = exe.run(main, feed=feed, fetch_list=[locs, confs, boxes, var,
+                                                dcn, pooled, dets])
+    scope = {k.split("_", 2)[2].rsplit("_", 1)[0]: v
+             for k, v in main.scope.items()}
+    t = {k: torch.from_numpy(v).to(DEVICE) for k, v in feed.items()}
+    head = vops.MultiBoxHead([c for _, c, _ in maps], 300, 21,
+                             B_SSD["aspect_ratios"], min_ratio=20,
+                             max_ratio=90, steps=B_SSD["steps"], flip=True,
+                             clip=True).to(DEVICE)
+    with torch.no_grad():
+        for i in range(len(maps)):
+            for kind, convs in (("loc", head.loc_convs),
+                                ("conf", head.conf_convs)):
+                convs[i].weight.copy_(scope[f"mbox_{kind}{i}.weight"])
+                convs[i].bias.copy_(scope[f"mbox_{kind}{i}.bias"])
+        mb = head([t[n] for n, _, _ in maps], t["img"])
+        ed = F.deform_conv2d(t["x"], t["off"],
+                             scope["deformable_conv.weight"],
+                             scope["deformable_conv.bias"], padding=1,
+                             mask=t["msk"])
+        ep = F.roi_align(ed, t["rois"], 7, 7, 1 / 8, 2)
+        edets = F.multiclass_nms(
+            F.box_coder(mb[2], mb[3], mb[0], "decode_center_size"),
+            torch.softmax(mb[1], -1).transpose(1, 2), 0.01, 200, 50, 0.45)
+    errs = {}
+    for name, got, want in zip(
+            ("mbox_locs", "mbox_confs", "boxes", "variances",
+             "deformable_conv", "roi_align", "multiclass_nms"),
+            outs, list(mb) + [ed, ep, edets]):
+        got = torch.from_numpy(np.asarray(got))
+        assert tuple(got.shape) == tuple(want.shape), (name, got.shape)
+        errs[name] = _b_err(torch, got, want)
+        assert errs[name] <= 1e-5, (name, errs[name])
+    log(f"B4 static detection names through Executor.run[{gpu}]: "
+        f"multi_box_head (SSD300's six maps, {outs[2].shape[0]} priors), "
+        f"deformable_conv, roi_align, multiclass_nms equal the eager ops and"
+        f" vision.ops.MultiBoxHead with the program's parameters: errors "
+        f"{errs} x rms (tol 1e-5)")
+    return {"errors": errs, "priors": int(outs[2].shape[0])}
+
+
+def detection_phases(torch, gpu):
+    """B1-B4, then the ``{"detection": ...}`` line; returns what the
+    kernels line needs."""
+    b1 = detection_ops_card_vs_cpu(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b2 = train_faster_rcnn(torch, gpu)
+    batch, anchors, var = b2["batch"], b2["anchors"], b2["var"]
+    b2 = b2["result"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    b3 = infer_faster_rcnn(torch, gpu, batch, anchors, var)
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    b4 = detection_static(torch, gpu)
+    log(json.dumps({"detection": {
+        "device": gpu, "B1_ops_card_vs_cpu": b1, "B2_faster_rcnn_train": b2,
+        "B3_faster_rcnn_infer": b3, "B4_static_names": b4}}, default=str))
+    return {"B1": b1, "B2": b2, "B3": b3, "B4": b4}
+
+
 def main() -> int:
     import torch
 
@@ -8983,6 +9961,11 @@ def main() -> int:
     # ResNet-50 trained from image files through fit (kernels 7 and 8)
     mark("vision (V1-V4)")
     vis = vision_phases(torch, gpu)
+    # the detection slice: the new ops card vs CPU and the sweep kernel,
+    # Faster R-CNN R50-C4 training (kernels 7 and 8 in its backbone and
+    # RoI head) and inference, the static names
+    mark("detection (B1-B4)")
+    dets = detection_phases(torch, gpu)
     paged = dict(name="paged_flash_decode", route="cuda",
                  source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
                  replaces="paddle_tpu/ops/paged_attention.py:155")
@@ -9125,6 +10108,12 @@ def main() -> int:
             static_launches=st["resnet"]["launches"][name],
             # V2: ResNet-50 from image files through fit, per step
             vision_launches=[c[i] for c in vis["V2"]["launches_per_step"]],
+            # B2: Faster R-CNN R50-C4 training (13 in the C4 backbone, 3 in
+            # the res5 RoI head), per step; each shape of its check step
+            # held to the plain version on the path's own inputs
+            detection_launches=[c[i] for c in
+                                dets["B2"]["launches_per_step"]],
+            detection_path_checks=dets["B2"]["kernel_path_checks"][name],
             **rrows[(name, "layer1")],
             other_shapes={layer: rrows[(name, layer)]
                           for layer, _, _, _ in RESNET_TAILS[1:]}))
@@ -9204,6 +10193,25 @@ def main() -> int:
         compression_path_checks={
             "E1-E3": comp["E"]["path_checks"].get("grouped_matmul"),
             "E4": comp["E4"]["path_checks"].get("grouped_matmul")}))
+    # the greedy NMS sweep (no TPU kernel behind it): B2's launches, its
+    # numbers at the training proposals' shape (2 images, k = 12000)
+    kernels.append(dict(
+        name="nms_sweep", route="cuda",
+        source="paddle_tpu_torch/ops/csrc/nms_sweep.cu",
+        replaces="none (paddle_tpu/nn/functional/detection.py:340, nms's "
+                 "lax.fori_loop; no Pallas kernel)",
+        launches=sum(c[2] for c in dets["B2"]["launches_per_step"]),
+        # the keep masks as 0 / 1: 0.0 where they are equal
+        max_abs_err=float(any(v["differ"] for v in
+                              dets["B1"]["sweeps"].values())),
+        differing_decisions=sum(v["differ"] for v in
+                                dets["B1"]["sweeps"].values()),
+        worst_distance=max(v["worst_distance"] for v in
+                           dets["B1"]["sweeps"].values()),
+        **{k: dets["B1"]["sweep_timing"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        shape=dets["B1"]["sweep_timing"]["shape"],
+        inference_launches_per_pass=dets["B3"]["sweep_launches_per_pass"]))
     mark("the records")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

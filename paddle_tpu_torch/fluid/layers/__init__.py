@@ -8,7 +8,9 @@ Three tiers, as in the JAX module:
   1.x calling-convention wrappers (``input`` / ``dim`` / ``keep_dim``
   argument names, ``elementwise_*``'s ``axis`` broadcast, ``act=``) over
   the port's implementations — no second implementation;
-* ``nn.functional``'s activations, losses and extension ops and ``nn``'s
+* ``nn.functional``'s activations, losses, extension and detection ops
+  (``retinanet_detection_output`` is the JAX package's eager host-side
+  post-processor) and ``nn``'s
   RNN cells and decoders under the JAX module's names (``RNNCell`` is
   ``RNNCellBase``; ``kldiv_loss``, ``huber_loss``, ``warpctc``, ``rnn``
   and ``birnn`` are thin 1.x wrappers over them);
@@ -16,12 +18,13 @@ Three tiers, as in the JAX module:
   ``embedding``, ``conv2d``, ``conv2d_transpose``, ``conv3d``,
   ``conv3d_transpose``, ``pool2d``, ``batch_norm``, ``layer_norm``,
   ``instance_norm``, ``group_norm``, ``spectral_norm``, ``prelu``,
-  ``bilinear_tensor_product``, ``hsigmoid``)
+  ``bilinear_tensor_product``, ``hsigmoid``, ``multi_box_head``,
+  ``deformable_conv``)
   and ``data``, ``assign(output=)``, ``fill_constant`` and
   ``autoincreased_step_counter`` in graph mode;
 * every other name of the JAX module resolves to a function (or class)
   that raises ``UnimplementedError`` naming the ROADMAP queue-A item that
-  ports it: the detection, sequence, CRF and 1.x beam-search ops are
+  ports it: the sequence, CRF and 1.x beam-search ops are
   the rest of ``nn/`` (its tail), the resize / crop / grid-sampling
   ops are vision, and the control flow (``control_flow.py``), the
   readers, the LoD machinery and the other Program-only names are static
@@ -34,7 +37,7 @@ Variable it records into the current Program (``static.graph
 from __future__ import annotations
 
 import math as _math
-from builtins import range as _range
+from builtins import range as _range, round as _round
 
 import numpy as np
 import torch
@@ -78,6 +81,12 @@ from ...nn.functional import (  # noqa: F401
     selu, elu, relu6, swish, mish, leaky_relu, maxout, log_loss,
     dice_loss, npair_loss, mse_loss, label_smooth, row_conv, gather_tree,
     sequence_mask, pixel_shuffle, unfold, temporal_shift, sigmoid_focal_loss,
+    iou_similarity, ssd_loss, prior_box, bipartite_match, target_assign,
+    detection_output, box_coder, box_clip, multiclass_nms, roi_align,
+    roi_pool, yolo_box, yolov3_loss, matrix_nms, density_prior_box,
+    anchor_generator, generate_proposals, box_decoder_and_assign,
+    distribute_fpn_proposals, collect_fpn_proposals, psroi_pool,
+    locality_aware_nms,
 )
 from ...nn import (  # noqa: F401
     BeamSearchDecoder, Decoder, dynamic_decode, RNNCellBase as RNNCell,
@@ -89,6 +98,7 @@ from ...nn.functional import (
     ctc_loss as _ctc_loss, kl_div as _kl_div,
     smooth_l1_loss as _smooth_l1_loss,
 )
+from ...nn.functional.detection import _nms_keep
 
 
 # -- 1.x calling-convention wrappers ------------------------------------
@@ -691,6 +701,9 @@ def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
 
 
 from ...framework.serialization import load  # noqa: E402,F401
+from ...static.builders import (  # noqa: E402,F401
+    deformable_conv, multi_box_head,
+)
 
 # -- every public function is graph-capable: called with symbolic
 # Variables it records into the current Program; the builders and the
@@ -700,7 +713,8 @@ import types as _types  # noqa: E402
 _NO_WRAP = {"fc", "embedding", "conv2d", "conv2d_transpose", "conv3d",
             "conv3d_transpose", "batch_norm", "layer_norm",
             "pool2d", "instance_norm", "group_norm", "spectral_norm",
-            "prelu", "bilinear_tensor_product", "hsigmoid", "assign", "data",
+            "prelu", "bilinear_tensor_product", "hsigmoid", "multi_box_head",
+            "deformable_conv", "assign", "data",
             "load", "fill_constant",
             "autoincreased_step_counter", "create_parameter",
             "create_global_var", "accuracy"}
@@ -710,24 +724,94 @@ for _n, _v in list(globals().items()):
         globals()[_n] = _maybe_record(_v)
 del _n, _v
 
+
+def retinanet_detection_output(bboxes, scores, anchors, im_info,
+                               score_threshold=0.05, nms_top_k=1000,
+                               keep_top_k=100, nms_threshold=0.3,
+                               nms_eta=1.0):
+    """ref: fluid/layers/detection.py:3100 retinanet_detection_output —
+    per FPN level: threshold (0.0 for the highest level), the nms_top_k
+    best (anchor, class) pairs, center-size decode against the level's
+    anchors (+1 pixel, / im_scale, clipped to the rounded original image);
+    then per-class greedy NMS with eta adaptation over the merged levels,
+    keep_top_k overall.
+
+    An eager host-side post-processor, as in the JAX package: a list of
+    per-image numpy arrays ``[No_i, 6]`` of ``[label (1-based), score, x1,
+    y1, x2, y2]`` (the dense replacement of the LoD output)."""
+    def host(a):
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().float().numpy()
+        return np.asarray(a, np.float32)
+
+    bboxes = [host(b) for b in bboxes]
+    scores = [host(s) for s in scores]
+    anchors = [host(a) for a in anchors]
+    im_info = host(im_info).reshape(-1, 3)
+    N = bboxes[0].shape[0]
+    C = scores[0].shape[-1]
+    L = len(scores)
+
+    out = []
+    for n in _range(N):
+        imh, imw, im_scale = im_info[n]
+        imh = _round(float(imh) / float(im_scale))
+        imw = _round(float(imw) / float(im_scale))
+        preds = {c: [] for c in _range(C)}
+        for lv in _range(L):
+            sc = scores[lv][n].reshape(-1)
+            thr = score_threshold if lv < L - 1 else 0.0
+            idx = np.nonzero(sc > thr)[0]
+            if nms_top_k >= 0 and idx.size > nms_top_k:
+                idx = idx[np.argsort(-sc[idx])[:int(nms_top_k)]]
+            for i in idx:
+                a_i, c_i = divmod(int(i), C)
+                anc = anchors[lv][a_i]
+                d = bboxes[lv][n, a_i]
+                aw = anc[2] - anc[0] + 1
+                ah = anc[3] - anc[1] + 1
+                cx = d[0] * aw + anc[0] + aw / 2
+                cy = d[1] * ah + anc[1] + ah / 2
+                w = np.exp(d[2]) * aw
+                h = np.exp(d[3]) * ah
+                box = np.array([cx - w / 2, cy - h / 2,
+                                cx + w / 2 - 1, cy + h / 2 - 1]) / im_scale
+                box[0::2] = np.clip(box[0::2], 0, imw - 1)
+                box[1::2] = np.clip(box[1::2], 0, imh - 1)
+                preds[c_i].append((float(sc[i]), box))
+        # per-class greedy NMS (+1-pixel IoU), the classes as the
+        # instances of one sweep, padded with -inf scores
+        width = max(len(cand) for cand in preds.values())
+        sc_c = torch.full((C, width), -_math.inf)
+        box_c = torch.zeros((C, width, 4))
+        for c_i, cand in preds.items():
+            for j, (s_v, b_v) in enumerate(cand):
+                sc_c[c_i, j] = s_v
+                box_c[c_i, j] = torch.from_numpy(b_v)
+        keep = (_nms_keep(box_c, sc_c, -_math.inf, -1, nms_threshold,
+                          nms_eta, False) if width else sc_c.isfinite())
+        order = torch.sort(sc_c, dim=1, descending=True, stable=True)[1]
+        dets = [(c_i, float(sc_c[c_i, j]), preds[c_i][j][1])
+                for c_i in _range(C) for j in order[c_i].tolist()
+                if bool(keep[c_i, j])]
+        dets.sort(key=lambda t_: -t_[1])
+        if keep_top_k >= 0:  # -1 = keep all (1.x convention)
+            dets = dets[:int(keep_top_k)]
+        out.append(np.array([[c_i + 1, s_v, *b_v] for c_i, s_v, b_v in dets],
+                            np.float32).reshape(-1, 6))
+    return out
+
+
 # -- the rest of the JAX module: not ported yet --------------------------
 _TRAINING = "training step"
 _VISION = "vision"
 _ITEM8 = "static graph and the long tail"
 UNPORTED = {
-    # nn/'s sequence / detection / CRF ops and the 1.x beam-search ops:
+    # nn/'s sequence / CRF ops and the 1.x beam-search ops:
     # the rest of nn/ (item 2's tail)
     **{n: _TRAINING for n in (
-        "sampled_softmax_with_cross_entropy",
-        "iou_similarity", "ssd_loss", "prior_box", "bipartite_match",
-        "target_assign", "detection_output", "box_coder", "box_clip",
-        "multiclass_nms", "linear_chain_crf", "crf_decoding", "yolo_box",
-        "yolov3_loss", "matrix_nms", "density_prior_box",
-        "anchor_generator", "generate_proposals", "box_decoder_and_assign",
-        "distribute_fpn_proposals", "collect_fpn_proposals", "psroi_pool",
-        "locality_aware_nms", "roi_align", "roi_pool",
-        "retinanet_detection_output", "similarity_focus",
-        "filter_by_instag", "beam_search", "beam_search_decode",
+        "sampled_softmax_with_cross_entropy", "linear_chain_crf",
+        "crf_decoding", "similarity_focus", "filter_by_instag", "beam_search", "beam_search_decode",
         "sequence_pool", "sequence_softmax",
         "sequence_reverse", "sequence_pad", "sequence_unpad",
         "sequence_first_step", "sequence_last_step", "sequence_expand",

@@ -1,9 +1,9 @@
 """Functional ops of the port: the names of the JAX package's
 ``nn.functional`` from its activation, common, conv, pooling, norm, loss,
-attention and extension modules and
-detection's ``sigmoid_focal_loss``, which shadows loss.py's as in the JAX
-package (the rest of detection and the sequence, CRF, extras, ROI and
-deformable-conv modules are still to port, ROADMAP queue A)."""
+attention, extension, detection, detection-target, RoI and
+deformable-conv modules, in the JAX package's import order, so that
+detection's ``sigmoid_focal_loss`` shadows loss.py's as there (the
+sequence, CRF and extras modules are still to port, ROADMAP queue A)."""
 from .activation import *  # noqa: F401,F403
 from .common import *  # noqa: F401,F403
 from .conv import *  # noqa: F401,F403
@@ -13,12 +13,18 @@ from .loss import *  # noqa: F401,F403
 from .attention import *  # noqa: F401,F403
 from .extension import *  # noqa: F401,F403
 from .detection import *  # noqa: F401,F403  (its sigmoid_focal_loss wins)
+from .detection_targets import *  # noqa: F401,F403
+from .roi_extra import *  # noqa: F401,F403
+from .deform_conv import *  # noqa: F401,F403
 from . import (activation as _activation, attention as _attention,
-               common as _common, conv as _conv, detection as _detection,
+               common as _common, conv as _conv,
+               deform_conv as _deform_conv, detection as _detection,
+               detection_targets as _detection_targets,
                extension as _extension, loss as _loss, norm as _norm,
-               pooling as _pooling)
+               pooling as _pooling, roi_extra as _roi_extra)
 from ...tensor.creation import assign  # noqa: F401  (re-exported, as paddle)
 
 __all__ = sorted({"assign"} | {
-    n for m in (_activation, _attention, _common, _conv, _detection,
-                _extension, _loss, _norm, _pooling) for n in m.__all__})
+    n for m in (_activation, _attention, _common, _conv, _deform_conv,
+                _detection, _detection_targets, _extension, _loss, _norm,
+                _pooling, _roi_extra) for n in m.__all__})

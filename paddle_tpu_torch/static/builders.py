@@ -14,7 +14,8 @@ tensors they raise, naming the eager Layer.  Ported: ``fc``,
 ``embedding``, ``conv2d``, ``conv2d_transpose``, ``conv3d``,
 ``conv3d_transpose``, ``pool2d``, ``batch_norm``, ``layer_norm``,
 ``instance_norm``, ``group_norm``, ``spectral_norm``, ``prelu``,
-``bilinear_tensor_product``, ``hsigmoid`` and ``layer_op``.  The other
+``bilinear_tensor_product``, ``hsigmoid``, ``multi_box_head``,
+``deformable_conv`` and ``layer_op``.  The other
 builders of the JAX module raise ``UnimplementedError`` naming the
 ROADMAP queue-A item that ports their layers.
 """
@@ -32,7 +33,8 @@ from .graph import Variable, default_main_program, record_call
 __all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "conv3d",
            "conv3d_transpose", "pool2d", "batch_norm",
            "layer_norm", "instance_norm", "group_norm", "spectral_norm",
-           "prelu", "bilinear_tensor_product", "hsigmoid", "layer_op"]
+           "prelu", "bilinear_tensor_product", "hsigmoid", "multi_box_head",
+           "deformable_conv", "layer_op"]
 
 #: the activations a builder's ``act=`` names
 _ACTS = {
@@ -365,12 +367,138 @@ def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
                          data_format)
 
 
+def multi_box_head(inputs, image, base_size, num_classes, aspect_ratios,
+                   min_ratio=None, max_ratio=None, min_sizes=None,
+                   max_sizes=None, steps=None, step_w=None, step_h=None,
+                   offset=0.5, variance=(0.1, 0.1, 0.2, 0.2), flip=True,
+                   clip=False, kernel_size=1, pad=0, stride=1, name=None,
+                   min_max_aspect_ratios_order=False):
+    """ref: fluid/layers/detection.py multi_box_head — the SSD head: one
+    location conv, one confidence conv and one prior_box per feature map,
+    gathered into (mbox_locs, mbox_confs, boxes, variances).  The convs
+    are ``conv2d`` builders; min / max sizes follow the reference's ratio
+    interpolation when not given."""
+    from ..nn import functional as F
+
+    if not isinstance(inputs, (list, tuple)):
+        inputs = [inputs]
+    for v in inputs:
+        _require_var(v, "multi_box_head", "compose nn.Conv2D + prior_box")
+    n_maps = len(inputs)
+    if min_sizes is None:
+        if n_maps < 3:
+            raise InvalidArgumentError(
+                "multi_box_head: the min/max-ratio interpolation needs at "
+                "least 3 feature maps (it divides by n_maps-2, "
+                "detection.py); pass explicit min_sizes/max_sizes for "
+                "fewer maps")
+        step_r = int((max_ratio - min_ratio) / (n_maps - 2))
+        min_sizes, max_sizes = [], []
+        for r in range(int(min_ratio), int(max_ratio) + 1, max(step_r, 1)):
+            min_sizes.append(base_size * r / 100.0)
+            max_sizes.append(base_size * (r + step_r) / 100.0)
+        min_sizes = [base_size * 0.10] + min_sizes
+        max_sizes = [base_size * 0.20] + max_sizes
+    min_sizes = [list(s) if isinstance(s, (list, tuple)) else [s]
+                 for s in min_sizes]
+    max_sizes = [list(s) if isinstance(s, (list, tuple)) else [s]
+                 for s in (max_sizes or [None] * n_maps)]
+
+    locs, confs, boxes_all, vars_all = [], [], [], []
+    for i, feat in enumerate(inputs):
+        ar = aspect_ratios[i]
+        ar = list(ar) if isinstance(ar, (list, tuple)) else [ar]
+        step = steps[i] if steps else 0.0
+        sw = step_w[i] if step_w else step
+        sh = step_h[i] if step_h else step
+
+        def prior(fv, img, i=i, ar=ar, sw=sw, sh=sh):
+            b, v = F.prior_box(
+                fv, img, min_sizes=min_sizes[i],
+                max_sizes=[m for m in max_sizes[i] if m] or None,
+                aspect_ratios=ar, variance=list(variance), flip=flip,
+                clip=clip, steps=[sw, sh], offset=offset,
+                min_max_aspect_ratios_order=min_max_aspect_ratios_order)
+            return b.reshape(-1, 4), v.reshape(-1, 4)
+
+        b, v = record_call(prior, feat, image, prefix="prior_box")
+        boxes_all.append(b)
+        vars_all.append(v)
+        # the per-position prior count from prior_box's recorded shape
+        n_priors = int(b.shape[0]) // (int(feat.shape[2])
+                                       * int(feat.shape[3]))
+        loc = conv2d(feat, n_priors * 4, kernel_size, stride=stride,
+                     padding=pad, name=f"{name or 'mbox'}_loc{i}")
+        conf = conv2d(feat, n_priors * num_classes, kernel_size,
+                      stride=stride, padding=pad,
+                      name=f"{name or 'mbox'}_conf{i}")
+
+        def to_last(t, ch):
+            return t.permute(0, 2, 3, 1).reshape(t.shape[0], -1, ch)
+
+        locs.append(record_call(to_last, loc, 4, prefix="mbox_reshape"))
+        confs.append(record_call(to_last, conf, num_classes,
+                                 prefix="mbox_reshape"))
+
+    def cat(vs, dim):
+        return record_call(lambda *ts: torch.cat(ts, dim=dim), *vs,
+                           prefix="mbox_cat")
+
+    return (cat(locs, 1), cat(confs, 1), cat(boxes_all, 0),
+            cat(vars_all, 0))
+
+
+def deformable_conv(input, offset, mask, num_filters, filter_size,
+                    stride=1, padding=0, dilation=1, groups=1,
+                    deformable_groups=1, im2col_step=1, param_attr=None,
+                    bias_attr=None, modulated=True, name=None):
+    """ref: fluid/layers/nn.py deformable_conv (DCN v1 / v2): creates the
+    filter (Xavier normal) and bias in the Program and runs
+    ``nn.functional.deform_conv2d``; ``modulated=False`` is v1 (no
+    mask)."""
+    x = _require_var(input, "deformable_conv",
+                     "paddle.nn.functional.deform_conv2d")
+    from .. import nn
+    from ..nn import initializer as I
+
+    in_ch = int(x.shape[1])
+    ks = (tuple(filter_size) if isinstance(filter_size, (list, tuple))
+          else (filter_size, filter_size))
+
+    class _DCN(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.weight = self.create_parameter(
+                (num_filters, in_ch // (groups or 1), ks[0], ks[1]),
+                attr=param_attr, default_initializer=I.XavierNormal())
+            self.bias = (self.create_parameter(
+                (num_filters,), attr=bias_attr, is_bias=True)
+                if bias_attr is not False else None)
+
+        def forward(self, xx, off, msk=None):
+            from ..nn import functional as F
+
+            return F.deform_conv2d(
+                xx, off, self.weight, bias=self.bias, stride=stride,
+                padding=padding, dilation=dilation,
+                deformable_groups=deformable_groups, groups=groups or 1,
+                mask=msk if modulated else None)
+
+    if modulated and mask is None:
+        raise InvalidArgumentError(
+            "deformable_conv(modulated=True) is DCNv2 and requires the "
+            "mask input; pass modulated=False for DCNv1")
+    extra = (offset, mask) if modulated else (offset,)
+    return layer_op(_DCN(), x, prefix=name or "deformable_conv",
+                    extra_args=extra)
+
+
 #: the JAX module's other builders → the queue-A item that ports them
 UNPORTED = {
     **{n: "static graph and the long tail" for n in (
         "nce", "center_loss", "sequence_conv", "inplace_abn", "lstm",
-        "data_norm", "multi_box_head", "deformable_conv", "gru_unit",
-        "lstm_unit", "dynamic_lstm", "dynamic_lstmp", "dynamic_gru")},
+        "data_norm", "gru_unit", "lstm_unit", "dynamic_lstm",
+        "dynamic_lstmp", "dynamic_gru")},
 }
 
 

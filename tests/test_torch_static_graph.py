@@ -691,3 +691,166 @@ def test_one_program_on_the_card_and_on_the_cpu():
     want = [cpu.run(ref, feed=feed, fetch_list=[rloss])[0]
             for _ in range(6)]
     np.testing.assert_allclose(np.ravel(got), np.ravel(want), rtol=1e-5)
+
+
+# -- the detection builders and names -----------------------------------------
+def _det_feeds(seed):
+    rng = np.random.RandomState(seed)
+    return {"f0": rng.randn(2, 4, 6, 6).astype(np.float32),
+            "f1": rng.randn(2, 6, 3, 3).astype(np.float32),
+            "f2": rng.randn(2, 5, 2, 2).astype(np.float32),
+            "img": rng.randn(2, 3, 48, 48).astype(np.float32)}
+
+
+def _mbox(f, feeds):
+    maps = [f.data(k, [-1] + list(feeds[k].shape[1:]))
+            for k in ("f0", "f1", "f2")]
+    img = f.data("img", [-1, 3, 48, 48])
+    locs, confs, boxes, var = f.layers.multi_box_head(
+        maps, img, base_size=48, num_classes=3,
+        aspect_ratios=[[2.0], [2.0, 3.0], [2.0]], min_ratio=20,
+        max_ratio=90, flip=True, clip=True)
+    return (locs, confs, boxes, var), (f.layers.mean(locs)
+                                       + f.layers.mean(confs))
+
+
+def _dcn(modulated):
+    def body(f, feeds):
+        x = f.data("x", [-1, 4, 7, 7])
+        off = f.data("off", [-1, 18, 7, 7])
+        m = f.data("m", [-1, 9, 7, 7]) if modulated else None
+        out = f.layers.deformable_conv(x, off, m, num_filters=5,
+                                       filter_size=3, padding=1,
+                                       modulated=modulated)
+        return (out,), f.layers.mean(out)
+    return body
+
+
+def _dcn_feeds(seed):
+    rng = np.random.RandomState(seed)
+    return {"x": rng.randn(2, 4, 7, 7).astype(np.float32),
+            "off": rng.randn(2, 18, 7, 7).astype(np.float32),
+            "m": rng.uniform(size=(2, 9, 7, 7)).astype(np.float32)}
+
+
+#: name: (feeds(seed), build(fluid, feeds) -> (outputs, loss))
+DETECTION_BUILDERS = {
+    "multi_box_head": (_det_feeds, _mbox),
+    "deformable_conv_v1": (_dcn_feeds, _dcn(False)),
+    "deformable_conv_v2": (_dcn_feeds, _dcn(True)),
+}
+
+
+@pytest.mark.parametrize("case", list(DETECTION_BUILDERS))
+def test_detection_builder_as_jax(case):
+    """multi_box_head / deformable_conv in a Program with a mean loss and
+    SGD, both packages from one set of parameters: every output and the
+    loss of 3 runs (rtol / atol 1e-5), then every parameter."""
+    make_feeds, body = DETECTION_BUILDERS[case]
+    feeds = make_feeds(len(case))
+    if case == "deformable_conv_v1":
+        feeds.pop("m")
+
+    def build(fluid):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            outs, loss = body(fluid, feeds)
+            fluid.optimizer.SGD(learning_rate=0.5).minimize(loss)
+        return main, startup, list(outs) + [loss]
+
+    jmain, jstart, jfetch = build(jfluid)
+    tmain, tstart, tfetch = build(tfluid)
+    jexe, texe = _exe(jfluid), _exe(tfluid)
+    jexe.run(jstart)
+    texe.run(tstart)
+    _bridge(jmain, tmain)
+    for _ in range(3):
+        jo = jexe.run(jmain, feed=feeds, fetch_list=jfetch)
+        to = texe.run(tmain, feed=feeds, fetch_list=tfetch)
+        for t, j in zip(to, jo):
+            np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-5)
+    jp, tp = _by_key(jmain.scope), _by_key(tmain.scope)
+    assert sorted(tp) == sorted(jp)
+    for k in jp:
+        np.testing.assert_allclose(tp[k], jp[k], atol=1e-5, err_msg=k)
+
+
+def test_detection_layers_record_as_jax():
+    """The 1.x detection names called with Variables record into the
+    Program (as in the JAX package) and run as JAX's do: proposals, their
+    RoI features, multi-class NMS of a box head."""
+    rng = np.random.RandomState(3)
+    A, H, W = 3, 5, 6
+    feeds = {
+        "scores": rng.uniform(size=(2, A, H, W)).astype(np.float32),
+        "deltas": (rng.randn(2, 4 * A, H, W) * 0.2).astype(np.float32),
+        "info": np.array([[80, 96, 1.0], [80, 96, 1.0]], np.float32),
+        "feat": rng.randn(2, 4, H, W).astype(np.float32),
+        "cls": rng.uniform(size=(2, 3, 20)).astype(np.float32)}
+
+    def build(fluid):
+        main, startup = fluid.Program(), fluid.Program()
+        L = fluid.layers
+        with fluid.program_guard(main, startup):
+            v = {k: fluid.data(k, [-1] + list(a.shape[1:]))
+                 for k, a in feeds.items()}
+            anchors, var = L.anchor_generator(
+                v["feat"], [16.0, 32.0, 48.0], [1.0], stride=[16.0, 16.0])
+            rois, probs, num = L.generate_proposals(
+                v["scores"], v["deltas"], v["info"], anchors, var,
+                pre_nms_top_n=50, post_nms_top_n=20, nms_thresh=0.6,
+                return_rois_num=True)
+            flat = L.reshape(rois, [-1, 4])
+            pooled = L.roi_align(v["feat"], flat, 2, 2, 1.0 / 16, 2,
+                                 rois_num=num)
+            dets = L.multiclass_nms(rois, v["cls"], 0.2, 15, 10, 0.5)
+        return main, [rois, probs, num, pooled, dets]
+
+    jmain, jf = build(jfluid)
+    tmain, tf = build(tfluid)
+    jo = _exe(jfluid).run(jmain, feed=feeds, fetch_list=jf)
+    to = _exe(tfluid).run(tmain, feed=feeds, fetch_list=tf)
+    for t, j in zip(to, jo):
+        np.testing.assert_allclose(np.asarray(t, np.float32),
+                                   np.asarray(j, np.float32), rtol=1e-5,
+                                   atol=1e-5)
+    assert all(not getattr(getattr(tfluid.layers, n), "__shim__", False)
+               for n in ("roi_align", "multiclass_nms", "generate_proposals",
+                         "retinanet_detection_output", "multi_box_head",
+                         "deformable_conv"))
+
+
+def test_retinanet_detection_output_as_jax():
+    rng = np.random.RandomState(4)
+    N, C = 2, 3
+    anchors = [np.asarray(jpt.nn.functional.anchor_generator(
+        np.zeros((1, 1, h, h), np.float32), [s], [1.0],
+        stride=[64 // h, 64 // h])[0]).reshape(-1, 4)
+        for h, s in ((4, 16.0), (2, 32.0))]
+    bboxes = [(rng.randn(N, len(a), 4) * 0.2).astype(np.float32)
+              for a in anchors]
+    scores = [rng.uniform(size=(N, len(a), C)).astype(np.float32)
+              for a in anchors]
+    info = np.array([[64, 64, 1.0], [64, 64, 0.5]], np.float32)
+    kw = dict(score_threshold=0.3, nms_top_k=12, keep_top_k=10,
+              nms_threshold=0.5, nms_eta=0.9)
+    want = jfluid.layers.retinanet_detection_output(bboxes, scores, anchors,
+                                                    info, **kw)
+    got = tfluid.layers.retinanet_detection_output(
+        [torch.from_numpy(b) for b in bboxes], scores, anchors, info, **kw)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_detection_builders_are_in_static_nn():
+    import paddle_tpu.static.nn as jsnn
+    import paddle_tpu_torch.static.nn as tsnn
+
+    for name in ("multi_box_head", "deformable_conv"):
+        assert getattr(tsnn, name) is getattr(tfluid.layers, name)
+        assert name in tsnn.__all__
+        assert not hasattr(getattr(tsnn, name), "__shim__")
+    assert tsnn.deform_conv2d is tpt.nn.functional.deform_conv2d
+    assert "multi_box_head" in jsnn.__all__
+    assert "deform_conv2d" in jsnn.__all__
