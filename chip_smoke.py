@@ -666,6 +666,51 @@ gain ``detection_launches`` (B2, per step) and ``detection_path_checks``
 (``max_abs_err`` over the keep masks as 0 / 1, with
 ``differing_decisions`` and ``worst_distance``).
 
+Then the sequence-tagging slice, after B4 (``tagging_phases``):
+
+SQ1. every new op on the card against the port's CPU result on one seeded
+    float32 input, forward and backward, within 1e-4 of the CPU result's
+    rms, integer outputs equal: the CRF loss, Viterbi and
+    ``crf_decoding`` at SQ2's [300, 64, 57] and SQ3's [32, 128, 7] with
+    ragged lengths including 1 and T (a differing Viterbi path passes only
+    where the CPU scores both paths within 1e-5 relative, each printed);
+    the 14 sequence ops at [300, 64, 128]; ``beam_search`` at 64 x 4 x 4
+    with finished beams; ``hash`` over the full int64 range bit-equal; the
+    extras ops and ``fluid.layers``' resize / pad / crop / grid-sampling /
+    ``similarity_focus`` names at the CPU tests' shapes; the random ops'
+    invariants on the card;
+SQ2. LAC's BiGRU-CRF (``lexical_analysis`` nets.py: embedding(20940,
+    128), 2 x BiGRU of 128, fc(57), ``linear_chain_crf`` and
+    ``crf_decoding`` on a ``create_parameter`` transition, Adam(1e-3))
+    through the 1.x static graph at batch 300 x 64 on seeded Markov-chain
+    data (departures in ``SQ2_CONFIG``): 2 warm-up and 5 timed
+    ``exe.run`` steps, then ``run_steps`` windows of 10 (eager, capture,
+    replay): losses finite and the last window's mean below the first
+    timed step's; a window under deterministic algorithms bit-equal to 10
+    ``exe.run`` steps from the same state; ``fluid.io`` persistables
+    reloaded into a fresh program decode bit-equal; the decoded paths
+    equal to the CPU route on the same scope (SQ1's tie rule); sentences/s
+    and tokens/s eager and replayed, kernels a step (``torch.profiler``),
+    the CRF's CUDA-event ms and share, ``ChunkEvaluator``'s P / R / F1;
+SQ3. a BERT-base CRF tagger (``BertModel(bert_base())`` bf16,
+    ``Linear(768, 7)``, a float32 ``[9, 7]`` transition) through
+    ``Model.train_batch`` at PaddleNLP msra_ner's 32 x 128, AdamW(2e-5,
+    wd 0.01, multi_precision), 3 warm-up and 10 timed steps: kernel 2 24
+    forward and 24 backward launches a step, no timed loss above 1.25x
+    the first step's, a check step whose 24 + 24 kernel-2 calls equal the
+    plain versions on their inputs (phase 6's tolerances), the decode
+    equal to the CPU route's; ms a step, seq/s, tokens/s, the CRF's ms
+    and share;
+SQ4. one Program of ``nce`` (seeded negatives), ``center_loss``,
+    ``sequence_conv``, ``data_norm``, ``inplace_abn``, ``lstm``,
+    ``lstm_unit``, ``gru_unit``, ``dynamic_lstm`` (peepholes),
+    ``dynamic_lstmp`` and ``dynamic_gru`` (both origin modes) through two
+    Adam ``exe.run`` steps on the card and on the CPU from one state:
+    fetches, parameters and buffers within 1e-4 of the rms.
+A ``{"tagging": ...}`` line carries SQ1-SQ4's numbers; kernel 2's entry in
+the kernels line gains ``tagging_launches`` and ``tagging_path_checks``
+(SQ3's).
+
 The line before last is the ``{"kernels": [...]}`` JSON record (kernel
 1's entries carry D4's launches by engine under ``handoff_launches`` and
 D3's paged run's under ``bench_paged_launches``, kernel 9's D5's quantized
@@ -708,7 +753,7 @@ QMM_KN = {"qkv": (768, 2304), "out": (768, 768), "fc1": (768, 3072),
 QMM_M = (8, 40, 384)
 MARGIN_K = 4.0                 # tools/quant_smoke.py's clear-margin factor
 NUM_REQUESTS = 16
-D_PASSES = 5                   # timed passes of the requests in D1 / D2
+D_PASSES = 3                   # timed passes of the requests in D1 / D2
 ENGINE = dict(prompt_buckets=[16, 48], batch_size=8, kv_page_size=16,
               speculative_k=4, paged=True)
 MARGIN_TIE = 1e-4
@@ -6083,7 +6128,7 @@ LORA_CAP, LORA_RANK = 16, 8
 LORA_SITES = ("qkv", "out", "fc1", "fc2")  # two kernel-10 hops a site a call
 A_REQUESTS = 34                # two a slot: the base (-1) and 16 adapters
 A_SAMPLE = 8                   # requests held against the merged model
-A_PASSES = 3                   # timed passes of the trace a capacity in A5
+A_PASSES = 2                   # timed passes of the trace a capacity in A5
 A_CAPS = (0, 1, 4, 16)
 LORA_BENCH = dict(vocab_size=8192, hidden_size=256, num_layers=4,
                   num_heads=8, max_position=512, dropout=0.0)
@@ -8949,12 +8994,15 @@ def _b_leaves(x):
     return [x]
 
 
-def _b_pair(torch, label, fn, arrays, grad=(), rows=None, cpu_arrays=None):
+def _b_pair(torch, label, fn, arrays, grad=(), rows=None, cpu_arrays=None,
+            phase="B1", tol=None):
     """``fn`` on the CPU and on the card on the same arrays: every float
-    output within B_TOL of the CPU result's rms, every integer output
-    equal; then the gradients of ``Σ out · c`` (its first output) for the
-    arrays in ``grad``.  ``rows`` / ``cpu_arrays``: the CPU computes only the output
-    rows ``rows`` (from ``cpu_arrays``), the card all of them."""
+    output within ``tol`` (default B_TOL) of the CPU result's rms, every
+    integer output equal; then the gradients of ``Σ out · c`` (its first
+    output) for the arrays in ``grad``.  ``rows`` / ``cpu_arrays``: the
+    CPU computes only the output rows ``rows`` (from ``cpu_arrays``), the
+    card all of them.  ``phase`` labels the log line."""
+    tol = B_TOL if tol is None else tol
     cpu = [a.detach().clone().requires_grad_(i in grad) for i, a in
            enumerate(cpu_arrays or arrays)]
     dev = [a.detach().to(DEVICE, copy=True).requires_grad_(i in grad)
@@ -8980,9 +9028,9 @@ def _b_pair(torch, label, fn, arrays, grad=(), rows=None, cpu_arrays=None):
         gd = torch.autograd.grad((pd * cot.to(DEVICE)).sum(),
                                  [dev[i] for i in grad])
         gerr = max(_b_err(torch, d, c) for c, d in zip(gc, gd))
-    assert err <= B_TOL and gerr <= B_TOL, (label, err, gerr)
-    log(f"B1 {label}: card vs CPU {err:.2e} x rms, gradients "
-        f"{gerr:.2e} x rms (tol {B_TOL:.0e})")
+    assert err <= tol and gerr <= tol, (label, err, gerr)
+    log(f"{phase} {label}: card vs CPU {err:.2e} x rms, gradients "
+        f"{gerr:.2e} x rms (tol {tol:.0e})")
     return {"max_err": err, "grad_err": gerr}
 
 
@@ -9810,6 +9858,948 @@ def detection_phases(torch, gpu):
     return {"B1": b1, "B2": b2, "B3": b3, "B4": b4}
 
 
+# -- the sequence-tagging slice: SQ1-SQ4 ----------------------------------
+SQ_TOL = 1e-4       # card vs CPU, float32: max |diff| / rms(CPU result)
+SQ_TIE = 1e-5       # a differing Viterbi path: the CPU scores both within it
+# SQ2: LAC's BiGRU-CRF (lexical_analysis nets.py) at its published widths
+SQ2_VOCAB, SQ2_EMB, SQ2_HID, SQ2_TAGS = 20940, 128, 128, 57
+SQ2_B, SQ2_T = 300, 64
+SQ2_WARMUP, SQ2_STEPS, SQ2_WINDOW, SQ2_BATCHES = 2, 5, 10, 4
+SQ2_CONFIG = ("LAC lexical_analysis nets.py: embedding(20940, 128), 2 x "
+              "BiGRU (fc(3 x 128) -> dynamic_gru(128) each way), fc(57), "
+              "linear_chain_crf + crf_decoding on a [59, 57] transition "
+              "from fluid.layers.create_parameter, Adam(1e-3), batch 300 x "
+              "max_seq_len 64; departures: the vocabulary 20940 is assumed "
+              "to be word.dic's size, LAC's emb / crf learning rates are not "
+              "applied (ParamAttr.learning_rate, ROADMAP C), the GRUs run "
+              "over the padding (the dense form); seeded data")
+# SQ3: a BERT-base CRF tagger at PaddleNLP msra_ner's shapes
+SQ3_B, SQ3_S, SQ3_TAGS, SQ3_LR = 32, 128, 7, 2e-5
+# three warm-up steps: Adam's third step from random weights overshoots
+# (1.29x the first step's loss on the card and on the CPU alike, then
+# falling), so the timed steps start after it
+SQ3_WARMUP, SQ3_STEPS = 3, 10
+SQ3_RISE = 1.25
+SQ3_CONFIG = ("PaddleNLP msra_ner: max_seq_length 128, batch 32, 7 BIO tags, "
+              "AdamW(2e-5, wd 0.01, multi_precision); BertModel(bert_base()) "
+              "bf16 -> Linear(768, 7) -> linear_chain_crf (float32, [9, 7] "
+              "transition); departures: vocabulary 30522 (bert_base's) for "
+              "msra_ner's multilingual one, a CRF head for its softmax head, "
+              "random weights, seeded tokens that name their tag's type")
+
+
+def _sq_path_scores(torch, e, tr, path, ln):
+    """The CPU score (float64) of each row's ``path`` under emissions
+    ``e [B, T, D]`` and transition ``tr`` over its ``ln`` valid steps."""
+    e, tr = e.detach().double().cpu(), tr.detach().double().cpu()
+    path, ln = path.cpu(), ln.cpu()
+    start, stop, trans = tr[0], tr[1], tr[2:]
+    T = e.shape[1]
+    mask = torch.arange(T)[None, :] < ln[:, None]
+    emit = torch.gather(e, 2, path[..., None])[..., 0]
+    s = start[path[:, 0]] + emit[:, 0]
+    if T > 1:
+        step = trans[path[:, :-1], path[:, 1:]] + emit[:, 1:]
+        s = s + torch.where(mask[:, 1:], step, torch.zeros_like(step)).sum(1)
+    last = torch.gather(path, 1, (ln - 1).clamp(min=0)[:, None])[:, 0]
+    return s + stop[last]
+
+
+def _sq_paths(torch, label, got, want, e, tr, ln):
+    """Card paths against CPU paths: equal, or a differing row whose two
+    paths the CPU scores within SQ_TIE relative of each other (a tie),
+    each such row printed.  Returns the number of tied rows."""
+    got, want = got.cpu(), want.cpu()
+    rows = (got != want).any(1).nonzero().flatten()
+    if len(rows):
+        sg = _sq_path_scores(torch, e[rows], tr, got[rows], ln.cpu()[rows])
+        sw = _sq_path_scores(torch, e[rows], tr, want[rows], ln.cpu()[rows])
+        for r, a, b in zip(rows.tolist(), sg.tolist(), sw.tolist()):
+            rel = abs(a - b) / max(abs(b), 1.0)
+            log(f"SQ {label}: row {r}'s path differs card vs CPU; the CPU "
+                f"scores them {a!r} / {b!r} (relative {rel:.2e}, tie rule "
+                f"{SQ_TIE:.0e})")
+            assert rel <= SQ_TIE, (label, r, a, b)
+    return len(rows)
+
+
+def _sq_lengths(torch, gen, B, T, lo=1):
+    ln = torch.randint(lo, T + 1, (B,), generator=gen)
+    ln[0], ln[1] = 1, T
+    return ln
+
+
+def _sq_crf_checks(torch, F, gen, B, T, D, label):
+    e = torch.randn(B, T, D, generator=gen)
+    tr = torch.randn(D + 2, D, generator=gen)
+    y = torch.randint(0, D, (B, T), generator=gen)
+    ln = _sq_lengths(torch, gen, B, T)
+    nll = _b_pair(torch, f"linear_chain_crf {label} [{B}, {T}, {D}]",
+                  F.linear_chain_crf, [e, tr, y, ln], grad=(0, 1),
+                  phase="SQ1", tol=SQ_TOL)
+    pd, sd = F.viterbi_decode(e.to(DEVICE), tr.to(DEVICE), ln.to(DEVICE))
+    pc, sc = F.viterbi_decode(e, tr, ln)
+    serr = _b_err(torch, sd, sc)
+    assert serr <= SQ_TOL, (label, serr)
+    ties = _sq_paths(torch, f"viterbi {label}", pd, pc, e, tr, ln)
+    agree = F.crf_decoding(e.to(DEVICE), tr.to(DEVICE), label=y.to(DEVICE),
+                           length=ln.to(DEVICE)).cpu()
+    mask = torch.arange(T)[None, :] < ln[:, None]
+    assert agree.dtype == torch.int64 and torch.equal(
+        agree, torch.where(mask, (pd.cpu() == y).long(), 0)), label
+    log(f"SQ1 viterbi / crf_decoding {label} [{B}, {T}, {D}]: scores "
+        f"{serr:.2e} x rms, paths equal but {ties} tied rows; the "
+        f"agreement mask = (path == label) within the lengths")
+    return {"nll": nll, "score_err": serr, "tied_rows": ties}
+
+
+def _sq_sequence_cases(torch, gen):
+    """(label, fn, arrays, grad) of every sequence op at [300, 64, 128]."""
+    from paddle_tpu_torch.nn import functional as F
+
+    B, T, D = SQ2_B, SQ2_T, SQ2_EMB
+    x = torch.randn(B, T, D, generator=gen)
+    ln = _sq_lengths(torch, gen, B, T)
+    ln2 = _sq_lengths(torch, gen, B, 32)
+    ids = torch.randint(1, 9, (B, T), generator=gen)
+    off = torch.randint(0, T - 16, (B,), generator=gen)
+    idx = torch.randint(0, T, (B, 16), generator=gen)
+    upd = torch.randn(B, 16, D, generator=gen)
+    k = torch.randint(0, 17, (B,), generator=gen)
+    cases = [(f"sequence_pool {p}", lambda x, ln, p=p: F.sequence_pool(
+        x, p, pad_value=-7.0, lengths=ln), [x, ln], (0,))
+        for p in ("sum", "average", "sqrt", "max", "first", "last")]
+    cases += [
+        ("sequence_first_step", F.sequence_first_step, [x, ln], (0,)),
+        ("sequence_last_step", F.sequence_last_step, [x, ln], (0,)),
+        ("sequence_softmax", lambda x, ln: F.sequence_softmax(
+            x[..., 0], lengths=ln), [x, ln], (0,)),
+        ("sequence_reverse", lambda x, ln: F.sequence_reverse(
+            x, lengths=ln), [x, ln], (0,)),
+        ("sequence_expand", lambda x, ln: F.sequence_expand(x[:, 0], ln),
+         [x, ln], (0,)),
+        ("sequence_expand_as", lambda x: F.sequence_expand_as(x[:, 0], x),
+         [x], (0,)),
+        ("sequence_enumerate", lambda i, ln: F.sequence_enumerate(
+            i, 3, pad_value=-1, lengths=ln), [ids, ln], ()),
+        ("sequence_pad extend", lambda x, ln: F.sequence_pad(
+            x, -1.0, maxlen=T + 8, lengths=ln), [x, ln], (0,)),
+        ("sequence_pad trim", lambda x, ln: F.sequence_pad(
+            x, 0.5, maxlen=40, lengths=ln), [x, ln], (0,)),
+        ("sequence_unpad", F.sequence_unpad, [x, ln], (0,)),
+        ("sequence_slice", lambda x, o: F.sequence_slice(x, o, 16),
+         [x, off], (0,)),
+        ("sequence_scatter", lambda x, i, u, k: F.sequence_scatter(
+            x, i, u, lengths=k), [x, idx, upd, k], (0, 2)),
+        ("sequence_reshape", lambda x, ln: F.sequence_reshape(
+            x, 64, lengths=ln), [x, ln], (0,)),
+        ("sequence_concat", lambda x, ln, ln2: F.sequence_concat(
+            [x, x[:, :32] * 2.0], lengths=[ln, ln2]), [x, ln, ln2], (0,)),
+    ]
+    return cases
+
+
+def _sq_small_cases(torch, gen):
+    """(label, fn, arrays, grad) of the extras ops and fluid.layers' resize
+    / pad / crop / grid-sampling / beam-search / hash / similarity names
+    at the CPU tests' shapes (beam search at 64 x 4 x 4)."""
+    from paddle_tpu_torch.fluid import layers as L
+    from paddle_tpu_torch.nn import functional as F
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    cases = [
+        ("add_position_encoding", lambda x: F.add_position_encoding(
+            x, 0.5, 2.0), [r(2, 5, 8)], (0,)),
+        ("affine_channel", lambda x, s, b: F.affine_channel(
+            x, s, b, act="relu"), [r(2, 3, 4, 4), r(3), r(3)], (0, 1, 2)),
+        ("bpr_loss", lambda x, y: F.bpr_loss(x, y),
+         [r(5, 4), torch.tensor([[0], [3], [1], [1], [2]])], (0,)),
+        ("rank_loss", lambda l, s, t: F.rank_loss(l, s, t),
+         [torch.rand(3, 1, generator=gen), r(3, 1), r(3, 1)], (1, 2)),
+        ("margin_rank_loss", lambda l, s, t: F.margin_rank_loss(
+            l, s, t, margin=0.2), [torch.tensor([[1.0], [-1.0], [1.0]]),
+                                   r(3, 1), r(3, 1)], (1, 2)),
+        ("shuffle_channel", lambda x: F.shuffle_channel(x, 2),
+         [r(2, 6, 3, 3)], (0,)),
+        ("space_to_depth", lambda x: F.space_to_depth(x, 2),
+         [r(2, 3, 4, 6)], (0,)),
+        ("fsp_matrix", F.fsp_matrix, [r(2, 3, 4, 5), r(2, 4, 4, 5)], (0, 1)),
+        ("continuous_value_model", lambda x: F.continuous_value_model(
+            x.abs(), None, True), [r(4, 5)], (0,)),
+        ("lrn", lambda x: F.lrn(x, n=5, k=2.0, alpha=1e-3),
+         [r(2, 7, 3, 3)], (0,)),
+        ("im2sequence", lambda x: F.im2sequence(
+            x, filter_size=3, stride=2, padding=[1, 0, 2, 1]),
+         [r(1, 2, 6, 5)], (0,)),
+        ("adaptive_pool2d avg", lambda x: F.adaptive_pool2d(x, 3, "avg"),
+         [r(2, 3, 7, 6)], (0,)),
+        ("adaptive_pool3d max", lambda x: F.adaptive_pool3d(x, 2, "max"),
+         [r(1, 2, 5, 4, 6)], (0,)),
+        ("fill_constant_batch_size_like", lambda x:
+         F.fill_constant_batch_size_like(x, [1, 4], "float32", 2.5),
+         [r(3, 7)], ()),
+        ("pad2d reflect", lambda x: L.pad2d(x, [1, 2, 2, 1], mode="reflect"),
+         [r(2, 3, 4, 5)], (0,)),
+        ("pad2d edge NHWC", lambda x: L.pad2d(
+            x, [1, 1, 0, 2], mode="edge", data_format="NHWC"),
+         [r(2, 4, 5, 3)], (0,)),
+        ("image_resize bilinear", lambda x: L.image_resize(
+            x, out_shape=[6, 7]), [r(2, 3, 4, 5)], (0,)),
+        ("image_resize nearest", lambda x: L.image_resize(
+            x, scale=2.0, resample="NEAREST"), [r(2, 3, 4, 5)], (0,)),
+        ("resize_bilinear", lambda x: L.resize_bilinear(
+            x, out_shape=[3, 9], align_corners=False, align_mode=0),
+         [r(1, 2, 5, 5)], (0,)),
+        ("resize_nearest", lambda x: L.resize_nearest(x, out_shape=[7, 3]),
+         [r(1, 2, 5, 5)], (0,)),
+        ("resize_linear", lambda x: L.resize_linear(x, out_shape=[9]),
+         [r(2, 3, 5)], (0,)),
+        ("resize_trilinear", lambda x: L.resize_trilinear(
+            x, out_shape=[3, 4, 5]), [r(1, 2, 2, 3, 4)], (0,)),
+        ("image_resize_short", lambda x: L.image_resize_short(x, 6),
+         [r(1, 2, 4, 7)], (0,)),
+        ("grid_sampler", L.grid_sampler,
+         [r(2, 3, 5, 6), torch.rand(2, 4, 3, 2, generator=gen) * 2.2 - 1.1],
+         (0, 1)),
+        ("crop_tensor", lambda x: L.crop_tensor(
+            x, shape=[2, 2, 3], offsets=[0, 1, 1]), [r(2, 4, 5)], (0,)),
+        ("similarity_focus", lambda x: L.similarity_focus(x, 2, [1, 3]),
+         [torch.rand(2, 3, 4, 5, generator=gen)], ()),
+    ]
+    # the 1.x beam search: 64 sentences x beam 4, K = 4, some beams done
+    W, K, end = 4, 4, 9
+    pre_ids = torch.randint(0, 8, (64 * W, 1), generator=gen)
+    pre_ids[::7] = end
+    pre = torch.randn(64 * W, 1, generator=gen)
+    ids = torch.randint(0, 8, (64 * W, K), generator=gen)
+    cases += [
+        (f"beam_search accumulated={acc}", lambda a, b, c, d, acc=acc:
+         L.beam_search(a, b, c, d, W, end, is_accumulated=acc,
+                       return_parent_idx=True),
+         [pre_ids, pre, ids, (torch.randn(64 * W, K, generator=gen) if acc
+                              else torch.rand(64 * W, K, generator=gen))],
+         ()) for acc in (True, False)]
+    # hash over int64 keys spanning the full range: bit-equal
+    keys = torch.randint(-2 ** 63, 2 ** 63 - 1, (1000, 4), generator=gen,
+                         dtype=torch.int64)
+    cases += [(f"hash size {m}", lambda k, m=m, n=n: L.hash(k, m, n),
+               [keys], ()) for m, n in ((1000, 2), (2 ** 40 + 7, 1))]
+    return cases
+
+
+def tagging_ops_card_vs_cpu(torch):
+    """Phase SQ1: every new op on the card against the port's CPU result
+    on one seeded float32 input (1e-4 of the rms; indices and integers
+    equal, Viterbi paths but for CPU-scored ties): the CRF at SQ2's and
+    SQ3's shapes, the sequence ops at [300, 64, 128], the extras and
+    fluid.layers' new names; the random ops' invariants on the card."""
+    from paddle_tpu_torch.fluid import layers as L
+    from paddle_tpu_torch.nn import functional as F
+
+    gen = torch.Generator().manual_seed(SEED + 24)
+    out = {"crf": {
+        "SQ2": _sq_crf_checks(torch, F, gen, SQ2_B, SQ2_T, SQ2_TAGS, "SQ2"),
+        "SQ3": _sq_crf_checks(torch, F, gen, SQ3_B, SQ3_S, SQ3_TAGS,
+                              "SQ3")}}
+    for group, cases in (("sequence", _sq_sequence_cases(torch, gen)),
+                         ("small", _sq_small_cases(torch, gen))):
+        out[group] = {label: _b_pair(torch, label, fn, arrays, grad=grad,
+                                     phase="SQ1", tol=SQ_TOL)
+                      for label, fn, arrays, grad in cases}
+    # filter_by_instag: eager, a data-dependent row count
+    ins = torch.randn(50, 8, generator=gen)
+    tags = torch.randint(0, 6, (50, 3), generator=gen)
+    for want in ([2, 5], [9]):
+        c = L.filter_by_instag(ins, tags, torch.tensor(want))
+        d = L.filter_by_instag(ins.to(DEVICE), tags.to(DEVICE),
+                               torch.tensor(want).to(DEVICE))
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(d, c)), want
+    # the random ops on the card: shapes, ranges, one seed repeats
+    dev = torch.device(DEVICE)
+    p = torch.full((4096, 8), 0.125, device=dev)
+    ids = F.sampling_id(p, seed=3)
+    assert torch.equal(ids, F.sampling_id(p, seed=3))
+    assert int(ids.min()) >= 0 and int(ids.max()) <= 7
+    u = F.uniform_random_batch_size_like(p, [1, 64], min=-2.0, max=0.5)
+    assert tuple(u.shape) == (4096, 64) and u.device == p.device
+    assert float(u.min()) >= -2.0 and float(u.max()) < 0.5
+    g = F.gaussian_random_batch_size_like(p, [1, 64], mean=1.0, std=0.5)
+    assert abs(float(g.mean()) - 1.0) < 0.01
+    img = torch.arange(4 * 3 * 9 * 9, dtype=torch.float32,
+                       device=dev).reshape(4, 3, 9, 9)
+    crop = L.random_crop(img, [5, 6], seed=5)
+    assert tuple(crop.shape) == (4, 3, 5, 6)
+    assert torch.equal(crop, L.random_crop(img, [5, 6], seed=5))
+    logits = torch.randn(512, 1000, device=dev)
+    label = torch.randint(0, 1000, (512, 1), device=dev)
+    ss = L.sampled_softmax_with_cross_entropy(logits, label, 64)
+    assert tuple(ss.shape) == (512, 1) and bool((ss > 0).all())
+    n_checks = sum(len(v) for k, v in out.items() if k != "crf") + 6
+    worst = max(max(r["max_err"], r["grad_err"]) for k, v in out.items()
+                if k != "crf" for r in v.values())
+    worst = max([worst] + [max(c["nll"]["max_err"], c["nll"]["grad_err"],
+                               c["score_err"]) for c in out["crf"].values()])
+    log(f"SQ1: {n_checks} checks card vs CPU, largest error {worst:.2e} x "
+        f"rms (tol {SQ_TOL:.0e}); filter_by_instag equal; the random ops' "
+        f"invariants on the card hold")
+    out["worst"] = worst
+    return out
+
+
+def _sq_profile_launches(torch, run):
+    """Kernels the card ran during ``run()`` by ``torch.profiler`` (None
+    when the profiler saw no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if "CUDA" in str(e.device_type)
+            and not e.name.startswith(("Memcpy", "Memset")))
+    return n or None
+
+
+def _sq_event_ms(torch, fn, reps=10):
+    """Median CUDA-event ms of ``fn()`` over ``reps`` calls (after one)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def _sq_crf_times(torch, F, em, tr, y, ln):
+    """The CRF loss's forward, its forward + backward and the Viterbi
+    decode on the path's tensors: CUDA-event ms of the eager calls, and
+    the device ms of a CUDA graph of each (what they cost inside a
+    replayed step)."""
+    em = em.detach().float()
+    tr = tr.detach().float()
+    emg = em.clone().requires_grad_(True)
+
+    def fwd():
+        with torch.no_grad():
+            return F.linear_chain_crf(em, tr, y, ln)
+
+    def fwd_bwd():
+        return torch.autograd.grad(
+            F.linear_chain_crf(emg, tr, y, ln).mean(), [emg])
+
+    def decode():
+        return F.crf_decoding(em, tr, length=ln)
+
+    out = {"forward_ms": _sq_event_ms(torch, fwd),
+           "forward_backward_ms": _sq_event_ms(torch, fwd_bwd),
+           "decode_ms": _sq_event_ms(torch, decode)}
+    out["forward_graph_ms"] = graph_ms(torch, lambda: fwd(), [()], 5)
+    out["forward_backward_graph_ms"] = graph_ms(torch, lambda: fwd_bwd(),
+                                                [()], 5)
+    out["decode_graph_ms"] = graph_ms(torch, lambda: decode(), [()], 5)
+    return out
+
+
+def _sq_markov(np, rng, B, T, n_tags, trans):
+    """``[B, T]`` tags from a Markov chain (first tag uniform)."""
+    cum = np.cumsum(trans, 1)
+    tags = np.zeros((B, T), np.int64)
+    cur = rng.randint(0, n_tags, B)
+    for t in range(T):
+        tags[:, t] = cur
+        u = rng.rand(B)
+        cur = np.minimum((cum[cur] < u[:, None]).sum(1), n_tags - 1)
+    return tags
+
+
+def lac_batches(np, n, seed):
+    """``n`` seeded LAC batches: tags from a Markov chain over the 57 tags
+    (B- / I- of 28 chunk types, then O); each word names its tag's chunk
+    type (B- and I- of a type aliased, so the transitions carry
+    information); lengths 8-64, word 0 and tag 0 past them."""
+    rng = np.random.RandomState(seed)
+    trans = rng.dirichlet(np.full(SQ2_TAGS, 0.3), SQ2_TAGS)
+    per_type = (SQ2_VOCAB - 1) // 29
+    out = []
+    for _ in range(n):
+        tags = _sq_markov(np, rng, SQ2_B, SQ2_T, SQ2_TAGS, trans)
+        words = 1 + (tags // 2) * per_type + rng.randint(0, per_type,
+                                                         tags.shape)
+        ln = rng.randint(8, SQ2_T + 1, SQ2_B).astype(np.int64)
+        pad = np.arange(SQ2_T)[None] >= ln[:, None]
+        out.append({"word": np.where(pad, 0, words).astype(np.int64),
+                    "target": np.where(pad, 0, tags).astype(np.int64),
+                    "length": ln})
+    return out
+
+
+def lac_program(fluid):
+    """LAC's network (lexical_analysis nets.py) in a Program: embedding, 2
+    x BiGRU (fc(3H) → dynamic_gru each way, concatenated), fc(57)
+    emissions, linear_chain_crf on a create_parameter transition, Viterbi
+    decoding, Adam(1e-3)."""
+    main, start = fluid.Program(), fluid.Program()
+    L = fluid.layers
+    with fluid.program_guard(main, start):
+        word = fluid.data("word", [-1, SQ2_T], dtype="int64")
+        target = fluid.data("target", [-1, SQ2_T], dtype="int64")
+        length = fluid.data("length", [-1], dtype="int64")
+        h = L.embedding(word, size=[SQ2_VOCAB, SQ2_EMB])
+        for _ in range(2):
+            fw = L.dynamic_gru(L.fc(h, 3 * SQ2_HID, num_flatten_dims=2),
+                               SQ2_HID)
+            bw = L.dynamic_gru(L.fc(h, 3 * SQ2_HID, num_flatten_dims=2),
+                               SQ2_HID, is_reverse=True)
+            h = L.concat([fw, bw], axis=2)
+        emission = L.fc(h, SQ2_TAGS, num_flatten_dims=2)
+        transition = L.create_parameter([SQ2_TAGS + 2, SQ2_TAGS], "float32",
+                                        name="crfw")
+        loss = L.mean(L.linear_chain_crf(emission, transition, target,
+                                         length))
+        decode = L.crf_decoding(emission, transition, length=length)
+        fluid.optimizer.Adam(1e-3).minimize(loss)
+    return main, start, {"loss": loss, "decode": decode,
+                         "emission": emission, "transition": transition}
+
+
+def _sq_chunks(torch, decode, feed):
+    """chunk_eval's counts (IOB, 28 chunk types) of a decoded batch."""
+    from paddle_tpu_torch.metric import chunk_eval
+
+    got = chunk_eval(decode.cpu(), torch.from_numpy(feed["target"]), "IOB",
+                     28, seq_length=torch.from_numpy(feed["length"]))
+    return [int(v) for v in got[3:]]
+
+
+def lac_static(torch, gpu):
+    """Phase SQ2: LAC's BiGRU-CRF through the 1.x static graph on the
+    card, at batch 300 x 64: eager ``exe.run`` steps, then
+    ``run_steps`` windows (eager, capture, replay); a deterministic window
+    against ``exe.run`` steps; the decoded paths against the CPU route;
+    ``fluid.io`` persistables reloaded into a fresh scope."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.static.graph import _copy_into
+
+    paddle.seed(SEED)
+    t0 = time.perf_counter()
+    main, start, v = lac_program(fluid)
+    build_s = time.perf_counter() - t0
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(start)
+    feeds = lac_batches(np, SQ2_BATCHES, SEED + 25)
+    fetch = [v["loss"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(SQ2_WARMUP):
+        losses.append(float(exe.run(main, feed=feeds[i % SQ2_BATCHES],
+                                    fetch_list=fetch)[0]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SQ2_STEPS):
+        losses.append(float(exe.run(main, feed=feeds[i % SQ2_BATCHES],
+                                    fetch_list=fetch)[0]))
+    eager_s = (time.perf_counter() - t0) / SQ2_STEPS
+    tokens = float(np.mean([f["length"].sum() for f in feeds]))
+    launches = _sq_profile_launches(torch, lambda: exe.run(
+        main, feed=feeds[0], fetch_list=fetch))
+    stacked = {k: np.stack([feeds[i % SQ2_BATCHES][k]
+                            for i in range(SQ2_WINDOW)]) for k in feeds[0]}
+
+    def window(ex):
+        out, = ex.run_steps(main, feed=stacked, fetch_list=fetch,
+                            iterations=SQ2_WINDOW)
+        return [float(x) for x in np.asarray(out).reshape(-1)]
+
+    windows, seconds = [], []
+    for _ in range(3):  # eager, capture, replay
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        windows.append(window(exe))
+        seconds.append(time.perf_counter() - t0)
+    replay_s = seconds[-1] / SQ2_WINDOW
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(math.isfinite(x) for x in losses + sum(windows, []))
+    assert finite, (losses, windows)
+    assert np.mean(windows[-1]) < losses[SQ2_WARMUP], (losses, windows)
+    log(f"SQ2 LAC BiGRU-CRF [{gpu}] ({SQ2_CONFIG}): program built in "
+        f"{build_s:.1f} s; losses eager {[round(x, 3) for x in losses]}, "
+        f"windows' last {[round(w[-1], 3) for w in windows]}; eager "
+        f"{eager_s * 1e3:.2f} ms a step ({SQ2_B / eager_s:.1f} sentences/s, "
+        f"{tokens / eager_s:.0f} tokens/s), replayed {replay_s * 1e3:.2f} "
+        f"ms a step ({SQ2_B / replay_s:.1f} sentences/s, "
+        f"{tokens / replay_s:.0f} tokens/s; windows {[round(s, 3) for s in seconds]} "
+        f"s: eager, capture, replay); kernels a step "
+        f"{launches if launches is not None else 'not measured'} "
+        f"(torch.profiler, one eager step); peak {peak / 2**20:.0f} MiB")
+
+    # the CRF on the step's own tensors, by CUDA events
+    check = feeds[0]
+    test = main.clone(for_test=True)
+    em, dec = exe.run(test, feed=check,
+                      fetch_list=[v["emission"], v["decode"]],
+                      return_numpy=False)
+    tr = main.scope[v["transition"].name]
+    y = torch.from_numpy(check["target"]).to(DEVICE)
+    ln = torch.from_numpy(check["length"]).to(DEVICE)
+    crf = _sq_crf_times(torch, F, em, tr, y, ln)
+    crf["share_of_eager_step"] = (crf["forward_backward_ms"]
+                                  + crf["decode_ms"]) / (eager_s * 1e3)
+    crf["share_of_replayed_step"] = (crf["forward_backward_graph_ms"]
+                                     + crf["decode_graph_ms"]) / (
+                                         replay_s * 1e3)
+    log(f"SQ2 CRF [{gpu}] at [{SQ2_B}, {SQ2_T}, {SQ2_TAGS}], eager (CUDA "
+        f"graph): loss forward {crf['forward_ms']:.3f} "
+        f"({crf['forward_graph_ms']:.3f}) ms, forward + backward "
+        f"{crf['forward_backward_ms']:.3f} "
+        f"({crf['forward_backward_graph_ms']:.3f}) ms, decode "
+        f"{crf['decode_ms']:.3f} ({crf['decode_graph_ms']:.3f}) ms; loss "
+        f"and decode {crf['share_of_eager_step']:.1%} of an eager step, "
+        f"their graphs {crf['share_of_replayed_step']:.1%} of a replayed "
+        f"one")
+    counts = [_sq_chunks(torch, dec, check)]
+    metric = fluid.metrics.ChunkEvaluator()
+    metric.update(*counts[0])
+    p, r, f1 = metric.eval()
+    log(f"SQ2 ChunkEvaluator on a training batch after "
+        f"{SQ2_WARMUP + SQ2_STEPS + 3 * SQ2_WINDOW} steps: precision "
+        f"{p:.4f}, recall {r:.4f}, F1 {f1:.4f} (counts {counts[0]})")
+
+    # fluid.io: the persistables into a fresh, identically built program
+    tmp = tempfile.mkdtemp(prefix="sq2_")
+    try:
+        fluid.io.save_persistables(exe, tmp, main)
+        paddle.seed(SEED + 1)
+        main2, start2, v2 = lac_program(fluid)
+        exe2 = fluid.Executor(fluid.CUDAPlace(0))
+        exe2.run(start2)
+        fluid.io.load_persistables(exe2, tmp, main2)
+        dec2, = exe2.run(main2.clone(for_test=True), feed=check,
+                         fetch_list=[v2["decode"]], return_numpy=False)
+        assert torch.equal(dec2, dec), "SQ2: reloaded persistables decode"
+        saved = sum(os.path.getsize(os.path.join(tmp, f))
+                    for f in os.listdir(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del exe2, main2, start2
+    log(f"SQ2 fluid.io: save_persistables ({saved / 2**20:.1f} MiB, "
+        f"{len(main.scope) + len(main.buffers)} variables) then "
+        f"load_persistables into a fresh scope decodes bit-equal")
+
+    # one window under deterministic algorithms against 10 exe.run steps
+    exe.close()
+    gc.collect()
+    with _deterministic_algorithms(torch):
+        exe3 = fluid.Executor(fluid.CUDAPlace(0))
+        window(exe3)
+        window(exe3)  # eager, then the capture: the next is a replay
+
+        def snapshot():
+            return ({n: t.detach().clone() for n, t in main.scope.items()},
+                    _clone_state(main._opt_state))
+
+        scope0, state0 = snapshot()
+        replayed = window(exe3)
+        scope1, state1 = snapshot()
+        with torch.no_grad():
+            for n, t in main.scope.items():
+                t.copy_(scope0[n])
+        _copy_into(main._opt_state, _clone_state(state0))
+        eager = [float(exe3.run(main, feed={k: a[i] for k, a in
+                                            stacked.items()},
+                                fetch_list=fetch)[0])
+                 for i in range(SQ2_WINDOW)]
+        scope2, state2 = snapshot()
+    diff = _tree_diff(scope1, scope2)
+    diff.update(_tree_diff(state1, state2))
+    log(f"SQ2 deterministic algorithms: a replayed window against "
+        f"{SQ2_WINDOW} exe.run steps from the same state: losses "
+        f"{replayed[-1]!r} / {eager[-1]!r}; tensors differing "
+        f"{len(diff)}: {sorted(diff)[:6]}")
+    assert replayed == eager and not diff, (replayed, eager,
+                                            sorted(diff.items())[:6])
+    exe3.close()
+    del scope0, scope1, scope2, state0, state1, state2
+    gc.collect()
+
+    # the decoded paths against the CPU route on the same scope (moved)
+    em, dec = exe3.run(test, feed=check,
+                       fetch_list=[v["emission"], v["decode"]],
+                       return_numpy=False)
+    emc, decc = fluid.Executor(fluid.CPUPlace()).run(
+        test, feed=check, fetch_list=[v["emission"], v["decode"]],
+        return_numpy=False)
+    e_err = _b_err(torch, em, emc)
+    assert e_err <= SQ_TOL, e_err
+    ties = _sq_paths(torch, "SQ2 decode", dec, decc, emc,
+                     test.scope[v["transition"].name],
+                     torch.from_numpy(check["length"]))
+    log(f"SQ2 card vs CPU route (scope copied to the CPU): emissions "
+        f"{e_err:.2e} x rms, decoded paths equal but {ties} tied rows")
+    out = {"config": SQ2_CONFIG, "build_s": build_s,
+           "eager_step_ms": eager_s * 1e3,
+           "replayed_step_ms": replay_s * 1e3,
+           "window_s": seconds, "sentences_per_s": {
+               "eager": SQ2_B / eager_s, "replayed": SQ2_B / replay_s},
+           "tokens_per_s": {"eager": tokens / eager_s,
+                            "replayed": tokens / replay_s},
+           "launches_per_step": launches, "crf": crf,
+           "chunk": {"precision": p, "recall": r, "f1": f1,
+                     "counts": counts[0]},
+           "losses": losses, "window_losses": windows,
+           "peak_bytes": peak, "emission_err": e_err, "tied_rows": ties,
+           "bit_equal_window": True, "persistables_bit_equal": True}
+    del exe, main, start, test
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def recording_ln_kernels(calls):
+    """While open, every launch of kernel 2 (forward and backward) appends
+    ``(kind, inputs, outputs)`` to ``calls``, copied at the launch (the
+    launchers are wrapped; the wrapper and its counters stay)."""
+    from paddle_tpu_torch.ops import fused_layernorm as fl
+
+    fwd, bwd = fl._forward_kernel, fl._backward_kernel
+
+    def copy(ts):
+        return tuple(None if t is None else t.detach().clone() for t in ts)
+
+    def rec_fwd(x2, r2, weight, bias, epsilon, design=None):
+        out = fwd(x2, r2, weight, bias, epsilon, design=design)
+        calls.append(("forward", copy((x2, r2, weight, bias)) + (epsilon,),
+                      copy(out)))
+        return out
+
+    def rec_bwd(s, mean, rstd, weight, ds_out, dy, design=None):
+        out = bwd(s, mean, rstd, weight, ds_out, dy, design=design)
+        calls.append(("backward", copy((s, mean, rstd, weight, ds_out, dy)),
+                      copy(out)))
+        return out
+
+    fl._forward_kernel, fl._backward_kernel = rec_fwd, rec_bwd
+    try:
+        yield calls
+    finally:
+        fl._forward_kernel, fl._backward_kernel = fwd, bwd
+
+
+def check_path_ln_kernels(torch, calls, label):
+    """Kernel 2 at every launch a path made (``calls`` from
+    :func:`recording_ln_kernels`) against its plain versions on the same
+    inputs at phase 6's tolerances: the forward's s exact, y within
+    ``ln_tol``, mean and rstd 1e-5; the backward's ds within ``ln_tol``,
+    dg and db within it after scaling by their largest magnitude.  Returns
+    a row per (direction, shape): calls and largest errors."""
+    from paddle_tpu_torch.ops import fused_layernorm as fl
+
+    rows = {}
+    for kind, args, out in calls:
+        if kind == "forward":
+            x2, r2, g, b, eps = args
+            dtype = str(x2.dtype).replace("torch.", "")
+            tol = ln_tol(dtype)
+            s0, y0, m0, rs0 = fl._forward_ref(x2, r2, g, b, eps)
+            s, y, m, rs = out
+            assert torch.equal(s, s0), (label, "s differs")
+            torch.testing.assert_close(y, y0, **tol)
+            torch.testing.assert_close(m, m0, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(rs, rs0, rtol=1e-5, atol=1e-5)
+            err = float((y.float() - y0.float()).abs().max())
+            shape = f"forward {dtype} {list(x2.shape)}"
+        else:
+            s, mean, rstd, g, ds_out, dy = args
+            dtype = str(s.dtype).replace("torch.", "")
+            tol = ln_tol(dtype)
+            want = fl._backward_ref(s, mean, rstd, g, ds_out, dy)
+            torch.testing.assert_close(out[0], want[0], **tol)
+            for a, w in zip(out[1:], want[1:]):
+                scale = max(1.0, float(w.float().abs().max()))
+                torch.testing.assert_close(a.float() / scale,
+                                           w.float() / scale, **tol)
+            err = float((out[0].float() - want[0].float()).abs().max())
+            shape = (f"backward {dtype} {list(s.shape)}"
+                     f"{' + s cotangent' if ds_out is not None else ''}")
+        row = rows.setdefault(shape, {"shape": shape, "calls": 0,
+                                      "max_abs_err": 0.0})
+        row["calls"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    log(f"{label}: kernel 2 at the {len(rows)} shapes the path gave it, on "
+        f"its inputs: " + "; ".join(
+            f"{r['shape']} x {r['calls']}: max_abs_err {r['max_abs_err']:.3e}"
+            for r in rows.values()) + " (phase 6's tolerances); ok")
+    return list(rows.values())
+
+
+def sq3_batch(np, vocab, seed):
+    """msra_ner-shaped seeded batch: BIO tags from a Markov chain over the
+    7 tags (B- / I- of 3 entity types, then O), token ids that name their
+    tag's entity type (B- and I- aliased, as SQ2's words), attention mask,
+    lengths 16-128 (one 1, one 128)."""
+    rng = np.random.RandomState(seed)
+    trans = rng.dirichlet(np.full(SQ3_TAGS, 0.5), SQ3_TAGS)
+    tags = _sq_markov(np, rng, SQ3_B, SQ3_S, SQ3_TAGS, trans)
+    ln = rng.randint(16, SQ3_S + 1, SQ3_B).astype(np.int64)
+    ln[0], ln[1] = 1, SQ3_S
+    pad = np.arange(SQ3_S)[None] >= ln[:, None]
+    per_type = (vocab - 1) // 4
+    ids = (1 + (tags // 2) * per_type
+           + rng.randint(0, per_type, tags.shape)).astype(np.int64)
+    return ([np.where(pad, 0, ids), (~pad).astype(np.int64)],
+            [np.where(pad, 0, tags).astype(np.int64), ln])
+
+
+def bert_crf_tagger(torch, cfg, device):
+    """``BertModel(cfg)`` (bf16) → ``Linear(768, tags)`` (bf16) emissions,
+    and a float32 ``[tags + 2, tags]`` CRF transition; the loss is
+    ``linear_chain_crf(...).mean()``."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models import BertModel
+    from paddle_tpu_torch.nn import functional as F
+
+    class BertCrfTagger(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.bert = BertModel(cfg, device=device).astype("bfloat16")
+            self.head = nn.Linear(cfg.hidden_size, SQ3_TAGS).astype(
+                "bfloat16")
+            self.transition = self.create_parameter(
+                [SQ3_TAGS + 2, SQ3_TAGS])
+            self.to(device)
+
+        def forward(self, ids, mask):
+            x, _ = self.bert(ids, attention_mask=mask)
+            return self.head(x), self.transition
+
+        @staticmethod
+        def loss(emissions, transition, labels, lengths):
+            return F.linear_chain_crf(emissions, transition, labels,
+                                      lengths).mean()
+
+    return BertCrfTagger()
+
+
+def bert_crf_train(torch, gpu):
+    """Phase SQ3: the BERT-base CRF tagger through ``Model.train_batch``
+    at msra_ner's 32 x 128: 2 warm-up and 10 timed steps, kernel 2 24 + 24
+    launches a step; a check step whose kernel-2 calls are held to plain;
+    ``crf_decoding`` on the card against the CPU route."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import bert_base
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import layernorm_residual
+
+    cfg = bert_base()
+    ptt.seed(SEED)
+    net = bert_crf_tagger(torch, cfg, DEVICE)
+    assert type(net.transition).__name__ == "Parameter"
+    opt = ptt.optimizer.AdamW(learning_rate=SQ3_LR, weight_decay=0.01,
+                              multi_precision=True)
+    model = ptt.Model(net, ["input_ids", "attention_mask"],
+                      ["labels", "lengths"]).prepare(optimizer=opt,
+                                                     loss=net.loss)
+    inputs, labels = sq3_batch(np, cfg.vocab_size, SEED + 26)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall, (ln,) = train_steps(torch, model, inputs, labels,
+                                      SQ3_WARMUP, SQ3_STEPS,
+                                      (layernorm_residual,))
+    peak = torch.cuda.max_memory_allocated()
+    want = 2 * cfg.num_layers * SQ3_STEPS
+    log(f"SQ3 BERT-base CRF tagger [{gpu}] ({SQ3_CONFIG}): losses "
+        f"{[round(x, 4) for x in losses]}; kernel 2 launches over "
+        f"{SQ3_STEPS} steps: forward {ln} (= {want}: {ln == want})")
+    assert ln == want, ln
+    lnb = ln_backward_gate(layernorm_residual, ln, "SQ3")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert max(losses[SQ3_WARMUP:]) <= SQ3_RISE * losses[0], losses
+    step_ms = wall / SQ3_STEPS * 1e3
+    tokens = float(labels[1].sum())
+    # the check step: every kernel-2 call held to plain on its inputs
+    calls = []
+    with recording_ln_kernels(calls):
+        model.train_batch(inputs, labels)
+        torch.cuda.synchronize()
+    n_fwd = sum(1 for c in calls if c[0] == "forward")
+    assert n_fwd == 2 * cfg.num_layers and len(calls) == 2 * n_fwd, (
+        n_fwd, len(calls))
+    path = check_path_ln_kernels(torch, calls, "SQ3 check step")
+    del calls
+    # the CRF on the step's emissions, and the decode against the CPU's
+    net.eval()
+    with torch.no_grad():
+        em, tr = net(*[torch.from_numpy(a).to(DEVICE) for a in inputs])
+    net.train()
+    em = em.float()
+    y = torch.from_numpy(labels[0]).to(DEVICE)
+    lens = torch.from_numpy(labels[1]).to(DEVICE)
+    crf = _sq_crf_times(torch, F, em, tr, y, lens)
+    crf["share_of_step"] = crf["forward_backward_ms"] / step_ms
+    dc = F.crf_decoding(em, tr.detach(), length=lens)
+    cc = F.crf_decoding(em.cpu(), tr.detach().cpu(), length=lens.cpu())
+    ties = _sq_paths(torch, "SQ3 decode", dc, cc, em.cpu(), tr.cpu(),
+                     lens.cpu())
+    log(f"SQ3 [{gpu}]: {step_ms:.2f} ms a step, "
+        f"{SQ3_B / (step_ms / 1e3):.1f} seq/s, "
+        f"{tokens / (step_ms / 1e3):.0f} tokens/s (the lengths' sum), peak "
+        f"{peak / 2**20:.0f} MiB; the CRF at [{SQ3_B}, {SQ3_S}, {SQ3_TAGS}], "
+        f"eager (CUDA graph): loss forward {crf['forward_ms']:.3f} "
+        f"({crf['forward_graph_ms']:.3f}) ms, forward + backward "
+        f"{crf['forward_backward_ms']:.3f} "
+        f"({crf['forward_backward_graph_ms']:.3f}) ms = "
+        f"{crf['share_of_step']:.1%} of a step, decode "
+        f"{crf['decode_ms']:.3f} ({crf['decode_graph_ms']:.3f}) ms; decode "
+        f"card vs CPU equal but {ties} tied rows")
+    out = {"config": SQ3_CONFIG, "step_ms": step_ms,
+           "seq_per_s": SQ3_B / (step_ms / 1e3),
+           "tokens_per_s": tokens / (step_ms / 1e3), "losses": losses,
+           "launches": {"layernorm_residual": ln,
+                        "layernorm_residual_backward": lnb},
+           "launches_per_step": {"forward": ln / SQ3_STEPS,
+                                 "backward": lnb / SQ3_STEPS},
+           "kernel_path_checks": path, "crf": crf, "tied_rows": ties,
+           "peak_bytes": peak}
+    del model, opt, net, em
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sq4_program(fluid):
+    """The 1.x builders in one Program: nce (seeded negatives),
+    center_loss, sequence_conv, data_norm, inplace_abn, lstm, lstm_unit,
+    gru_unit, dynamic_lstm (peepholes), dynamic_lstmp, dynamic_gru both
+    origin modes; Adam(1e-2) on the sum of their means."""
+    main, start = fluid.Program(), fluid.Program()
+    L = fluid.layers
+    with fluid.program_guard(main, start):
+        x = fluid.data("x", [-1, 16])
+        lbl = fluid.data("lbl", [-1, 1], dtype="int64")
+        seq = fluid.data("seq", [-1, 12, 16])
+        img = fluid.data("img", [-1, 8, 6, 6])
+        x3 = fluid.data("x3", [-1, 12, 24])
+        x4 = fluid.data("x4", [-1, 12, 32])
+        h = fluid.data("h", [-1, 8])
+        c = fluid.data("c", [-1, 8])
+        h0 = fluid.data("h0", [2, -1, 8])
+        c0 = fluid.data("c0", [2, -1, 8])
+        outs = [L.nce(x, lbl, num_total_classes=1000, num_neg_samples=16,
+                      seed=7),
+                L.center_loss(x, lbl, num_classes=1000, alpha=0.1),
+                L.sequence_conv(seq, num_filters=32, filter_size=3,
+                                act="relu"),
+                L.data_norm(x, enable_scale_and_shift=True),
+                L.inplace_abn(img, act="relu")]
+        outs += list(L.lstm(seq, h0, c0, 12, 8, 1, is_bidirec=True))
+        outs += list(L.lstm_unit(x, h, c, forget_bias=1.0))
+        outs += list(L.gru_unit(x3[:, 0], h, 24))
+        outs += list(L.dynamic_lstm(x4, 32, use_peepholes=True))
+        outs += list(L.dynamic_lstmp(x4, 32, proj_size=6))
+        outs += [L.dynamic_gru(x3, 8),
+                 L.dynamic_gru(x3, 8, origin_mode=True, is_reverse=True)]
+        loss = L.sums([L.mean(o) for o in outs])
+        fluid.optimizer.Adam(1e-2).minimize(loss)
+    return main, start, outs, loss
+
+
+def sq4_builders(torch, gpu):
+    """Phase SQ4: :func:`sq4_program` on the card and on the CPU from one
+    scope state, two ``exe.run`` Adam steps each: every output, the losses
+    and the updated parameters and buffers within 1e-4 of the CPU rms."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.bridge import load_jax_program
+
+    rng = np.random.RandomState(SEED + 27)
+    B = 64
+    f32 = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
+    feed = {"x": f32(B, 16), "seq": f32(B, 12, 16), "img": f32(B, 8, 6, 6),
+            "x3": f32(B, 12, 24), "x4": f32(B, 12, 32), "h": f32(B, 8),
+            "c": f32(B, 8), "h0": f32(2, B, 8) * 0.1,
+            "c0": f32(2, B, 8) * 0.1,
+            "lbl": rng.randint(0, 1000, (B, 1)).astype(np.int64)}
+    runs = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        paddle.seed(SEED)
+        main, start, outs, loss = sq4_program(fluid)
+        exe = fluid.Executor(place)
+        exe.run(start)
+        runs.append((main, exe, list(outs) + [loss]))
+    # one scope state: the card program's initial values into the CPU's
+    dm0 = runs[0][0]
+    load_jax_program(runs[1][0], dm0.parameters_numpy(),
+                     {n: b.detach().cpu().numpy()
+                      for n, b in dm0.buffers.items()})
+    for i, (main, exe, fetch) in enumerate(runs):
+        runs[i] = (main, [exe.run(main, feed=feed, fetch_list=fetch)
+                          for _ in range(2)])
+    (dm, dsteps), (cm, csteps) = runs
+    worst = 0.0
+    for ds, cs in zip(dsteps, csteps):
+        for a, b in zip(ds, cs):
+            worst = max(worst, _b_err(torch, torch.from_numpy(np.asarray(a)),
+                                      torch.from_numpy(np.asarray(b))))
+    state_worst = 0.0
+    for mine, theirs in ((dm.scope, cm.scope), (dm.buffers, cm.buffers)):
+        key = lambda n: n.split("_", 2)[2]  # noqa: E731
+        theirs = {key(n): t for n, t in theirs.items()}
+        for n, t in mine.items():
+            state_worst = max(state_worst, _b_err(
+                torch, t.detach().float(), theirs[key(n)].detach().float()))
+    log(f"SQ4 builders [{gpu}]: nce (seeded negatives), center_loss, "
+        f"sequence_conv, data_norm, inplace_abn, lstm, lstm_unit, gru_unit, "
+        f"dynamic_lstm (peepholes), dynamic_lstmp, dynamic_gru (both origin "
+        f"modes) in one Program, 2 Adam steps card vs CPU: {len(dsteps[0])} "
+        f"fetches a step within {worst:.2e} x rms, {len(dm.scope)} "
+        f"parameters and {len(dm.buffers)} buffers within "
+        f"{state_worst:.2e} (tol {SQ_TOL:.0e})")
+    assert worst <= SQ_TOL and state_worst <= SQ_TOL, (worst, state_worst)
+    return {"fetch_err": worst, "state_err": state_worst,
+            "parameters": len(dm.scope), "buffers": len(dm.buffers)}
+
+
+def tagging_phases(torch, gpu):
+    """SQ1-SQ4, then the ``{"tagging": ...}`` line; returns what the
+    kernels line needs."""
+    sq = {}
+    t0 = time.monotonic()
+    sq["SQ1"] = tagging_ops_card_vs_cpu(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sq["SQ2"] = lac_static(torch, gpu)
+    sq["SQ3"] = bert_crf_train(torch, gpu)
+    sq["SQ4"] = sq4_builders(torch, gpu)
+    sq["seconds"] = time.monotonic() - t0
+    log(json.dumps({"tagging": {"device": gpu, **{
+        k: v for k, v in sq.items() if k != "SQ1"},
+        "SQ1": {"worst": sq["SQ1"]["worst"], "crf": sq["SQ1"]["crf"]}}},
+        default=str))
+    return sq
+
+
 def main() -> int:
     import torch
 
@@ -9966,6 +10956,11 @@ def main() -> int:
     # RoI head) and inference, the static names
     mark("detection (B1-B4)")
     dets = detection_phases(torch, gpu)
+    # the sequence-tagging slice: the new ops card vs CPU, LAC's BiGRU-CRF
+    # through the static graph, a BERT-base CRF tagger (kernel 2 24 + 24
+    # a step), the 1.x builders
+    mark("sequence tagging (SQ1-SQ4)")
+    tags = tagging_phases(torch, gpu)
     paged = dict(name="paged_flash_decode", route="cuda",
                  source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
                  replaces="paddle_tpu/ops/paged_attention.py:155")
@@ -10033,7 +11028,11 @@ def main() -> int:
         # steps): 24 forward and 24 backward a step
         static_launches=st["bert"]["launches"]["layernorm_residual"],
         static_backward_launches=st["bert"]["launches"][
-            "layernorm_residual_backward"]))
+            "layernorm_residual_backward"],
+        # SQ3: the BERT-base CRF tagger's timed steps (24 + 24 a step), and
+        # each shape of its check step held to plain on the path's inputs
+        tagging_launches=tags["SQ3"]["launches"],
+        tagging_path_checks=tags["SQ3"]["kernel_path_checks"]))
     kernels.append(dict(
         name="softmax_cross_entropy", route="cuda",
         source="paddle_tpu_torch/ops/csrc/fused_softmax_xent.cu",

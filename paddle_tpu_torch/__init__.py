@@ -51,7 +51,12 @@ Ported so far:
   ``program_guard`` / ``data``, the builders and ``layer_op`` /
   ``record_call``, ``optimizer.minimize``, ``Executor.run`` and
   ``run_steps`` (N optimizer steps as one CUDA graph replay), so
-  bench.py's configs 1-3 run through their own entry point.
+  bench.py's configs 1-3 run through their own entry point;
+* sequence tagging: the linear-chain CRF and the dense ``sequence_*`` ops
+  (``nn.functional``), the 1.x RNN and loss builders, ``fluid.dygraph``,
+  ``fluid.metrics`` and ``fluid.io`` (the reference's binary
+  persistables), so a 1.x BiGRU-CRF tagger trains through the static
+  graph, and a BERT CRF tagger through ``Model.train_batch``.
 """
 from .tensor import *  # noqa: F401,F403  (the tensor functions, as JAX's)
 from . import tensor  # noqa: F401
@@ -68,8 +73,13 @@ from .nn import ParamAttr
 __version__ = "0.5.0"
 
 
+def crop_tensor(x, shape=None, offsets=None, name=None):
+    """Legacy alias of ``crop`` (``fluid.layers.crop_tensor``)."""
+    return tensor.crop(x, shape=shape, offsets=offsets)
+
+
 __all__ = ["seed", "set_device", "get_device", "Model", "ParamAttr", "save",
            "load", "static", "fluid", "enable_static", "disable_static",
-           "in_dygraph_mode",
+           "in_dygraph_mode", "crop_tensor",
            "amp", "io", "metric", "nn", "optimizer", "regularizer", "slim",
            "tuning", "vision", "__version__"]

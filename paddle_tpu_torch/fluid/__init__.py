@@ -5,20 +5,19 @@ graph feed slot, unlike ``static.data``'s InputSpec outside a guard),
 ``fluid.layers``' builders and functions, ``fluid.optimizer``'s 1.x
 spellings with ``minimize``, and ``Executor`` (``run``, ``run_steps``)
 over the places (``CPUPlace``, ``CUDAPlace``); ``ParamAttr``,
-``DataLoader``, ``InMemoryDataset``, ``save`` / ``load`` (the checkpoint
-format of both packages), ``enable_static`` / ``disable_static`` /
-``in_dygraph_mode``, ``core``, ``initializer``, ``regularizer``, ``clip``
-and ``unique_name``.
+``Parameter``, ``DataLoader``, ``InMemoryDataset``, ``save`` / ``load``
+(the checkpoint format of both packages), ``enable_static`` /
+``disable_static`` / ``in_dygraph_mode``, ``core``, ``initializer``,
+``regularizer``, ``clip``, ``unique_name``, ``io`` (the reference's
+binary persistables), ``dygraph`` (the 1.x layers; ``dygraph_guard``),
+``metrics`` (the 1.x accumulators) and ``contrib.slim``.
 
-Not ported yet: ``fluid.io``, ``fluid.dygraph``, ``fluid.metrics``,
-``fluid.contrib`` and ``fluid.profiler`` raise ``UnimplementedError`` on
+Not ported yet: ``fluid.profiler`` raises ``UnimplementedError`` on
 attribute access, naming ROADMAP queue A, static graph and the long tail;
 so do the LoD tensors, ``fluid.embedding`` (the builder is
 ``fluid.layers.embedding``) and the inference export.
 """
 from __future__ import annotations
-
-from torch.nn import Parameter  # noqa: F401
 
 from ..framework.device import (  # noqa: F401
     CPUPlace, CUDAPinnedPlace, CUDAPlace, TPUPlace, XPUPlace,
@@ -27,7 +26,7 @@ from ..framework.device import (  # noqa: F401
 from ..framework.flags import get_flags, set_flags  # noqa: F401
 from ..framework.serialization import load, save  # noqa: F401
 from ..io import DataLoader, InMemoryDataset  # noqa: F401
-from ..nn import ParamAttr  # noqa: F401
+from ..nn import ParamAttr, Parameter  # noqa: F401
 from ..static import (  # noqa: F401
     BuildStrategy, CompiledProgram, ExecutionStrategy, Executor,
     ParallelExecutor, Program, Scope, Variable, WeightNormParamAttr,
@@ -42,6 +41,8 @@ from ..static.graph import (  # noqa: F401
 )
 from . import clip, core, initializer, layers, optimizer  # noqa: F401
 from . import param_attr, regularizer, unique_name  # noqa: F401
+from . import contrib, dygraph, io, metrics  # noqa: F401
+from .dygraph import guard as dygraph_guard  # noqa: F401
 
 def is_compiled_with_tpu() -> bool:
     return False
@@ -62,14 +63,13 @@ def one_hot(input, depth, allow_out_of_range=False):
 
 _ITEM8 = "static graph and the long tail"
 embedding = _unported("fluid.embedding", _ITEM8)
-dygraph_guard = _unported("fluid.dygraph_guard", _ITEM8)
 LoDTensor = _unported("fluid.LoDTensor", _ITEM8)
 create_lod_tensor = _unported("fluid.create_lod_tensor", _ITEM8)
 create_random_int_lodtensor = _unported("fluid.create_random_int_lodtensor",
                                         _ITEM8)
 
 #: the 1.x submodules still to port
-_UNPORTED_MODULES = ("io", "dygraph", "metrics", "contrib", "profiler")
+_UNPORTED_MODULES = ("profiler",)
 
 
 class _UnportedModule:

@@ -22,13 +22,27 @@ Three tiers, as in the JAX module:
   ``deformable_conv``)
   and ``data``, ``assign(output=)``, ``fill_constant`` and
   ``autoincreased_step_counter`` in graph mode;
+* the sequence tagging family: ``linear_chain_crf`` / ``crf_decoding``,
+  the fourteen dense ``sequence_*`` ops, the 1.x RNN and loss builders
+  (``dynamic_gru``, ``dynamic_lstm``, ``dynamic_lstmp``, ``gru_unit``,
+  ``lstm_unit``, ``lstm``, ``nce``, ``center_loss``, ``data_norm``,
+  ``inplace_abn``, ``sequence_conv``), the 1.x beam-search ops
+  (``beam_search`` records only with a static ``batch·beam`` dim,
+  ``beam_search_decode`` takes the parents in the scores slot),
+  ``filter_by_instag`` (eager only: a data-dependent row count),
+  ``similarity_focus``, ``sampled_softmax_with_cross_entropy``, ``hash``
+  (JAX's uint64 splitmix mix, bit for bit, on int64 tensors) and
+  ``crop_tensor``; the resize names (``image_resize``, ``resize_*``,
+  ``image_resize_short``), ``pad2d``, ``grid_sampler`` and
+  ``random_crop`` over ``interpolate`` / ``grid_sample`` / ``pad``.  The
+  random ops draw from a ``torch.Generator`` seeded with a nonzero
+  ``seed``, else from the device's (``framework.random``): they cannot
+  reproduce ``jax.random``'s bits;
 * every other name of the JAX module resolves to a function (or class)
   that raises ``UnimplementedError`` naming the ROADMAP queue-A item that
-  ports it: the sequence, CRF and 1.x beam-search ops are
-  the rest of ``nn/`` (its tail), the resize / crop / grid-sampling
-  ops are vision, and the control flow (``control_flow.py``), the
-  readers, the LoD machinery and the other Program-only names are static
-  graph and the long tail — never a bare ``AttributeError``.
+  ports it: the control flow (``control_flow.py``), the readers, the LoD
+  machinery and the other Program-only names are static graph and the
+  long tail — never a bare ``AttributeError``.
 
 Every public function here is graph-capable: called with a symbolic
 Variable it records into the current Program (``static.graph
@@ -52,10 +66,11 @@ from ...nn.functional import cross_entropy as _cross_entropy
 from ...nn.functional.loss import softmax_with_cross_entropy  # noqa: F401
 from ...static import create_global_var, create_parameter  # noqa: F401
 from ...static.builders import (  # noqa: F401
-    UNPORTED as _BUILDERS_UNPORTED, _act, batch_norm, bilinear_tensor_product,
-    conv2d, conv2d_transpose, conv3d, conv3d_transpose, embedding, fc,
-    group_norm, hsigmoid, instance_norm, layer_norm, pool2d, prelu,
-    spectral_norm, unported as _unported,
+    _act, batch_norm, bilinear_tensor_product, center_loss, conv2d,
+    conv2d_transpose, conv3d, conv3d_transpose, data_norm, dynamic_gru,
+    dynamic_lstm, dynamic_lstmp, embedding, fc, group_norm, gru_unit,
+    hsigmoid, inplace_abn, instance_norm, layer_norm, lstm, lstm_unit, nce,
+    pool2d, prelu, sequence_conv, spectral_norm, unported as _unported,
 )
 from ...static.graph import (
     Variable as _GraphVar, data as _graph_data, default_main_program as _dmp,
@@ -86,7 +101,11 @@ from ...nn.functional import (  # noqa: F401
     roi_pool, yolo_box, yolov3_loss, matrix_nms, density_prior_box,
     anchor_generator, generate_proposals, box_decoder_and_assign,
     distribute_fpn_proposals, collect_fpn_proposals, psroi_pool,
-    locality_aware_nms,
+    locality_aware_nms, linear_chain_crf, crf_decoding, sequence_pool,
+    sequence_softmax, sequence_reverse, sequence_pad, sequence_unpad,
+    sequence_first_step, sequence_last_step, sequence_expand,
+    sequence_expand_as, sequence_enumerate, sequence_concat, sequence_slice,
+    sequence_scatter, sequence_reshape,
 )
 from ...nn import (  # noqa: F401
     BeamSearchDecoder, Decoder, dynamic_decode, RNNCellBase as RNNCell,
@@ -95,10 +114,12 @@ from ...nn import (  # noqa: F401
     RNN as _RNN, BiRNN as _BiRNN,
 )
 from ...nn.functional import (
-    ctc_loss as _ctc_loss, kl_div as _kl_div,
-    smooth_l1_loss as _smooth_l1_loss,
+    ctc_loss as _ctc_loss, gather_tree as _gather_tree,
+    grid_sample as _grid_sample, interpolate as _interpolate,
+    kl_div as _kl_div, smooth_l1_loss as _smooth_l1_loss,
 )
 from ...nn.functional.detection import _nms_keep
+from ...nn.functional.extras import _generator as _seeded_generator
 
 
 # -- 1.x calling-convention wrappers ------------------------------------
@@ -631,6 +652,323 @@ def linear_lr_warmup(learning_rate, warmup_steps, start_lr, end_lr):
     return _lr.LinearWarmup(learning_rate, warmup_steps, start_lr, end_lr)
 
 
+# -- resize, crop and grid sampling (over interpolate / grid_sample / pad)
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    t, b, l, r = [int(p) for p in paddings]
+    pad = ([0, 0, 0, 0, t, b, l, r] if data_format == "NCHW"
+           else [0, 0, t, b, l, r, 0, 0])
+    return _t.pad(input, pad, mode="replicate" if mode == "edge" else mode,
+                  value=pad_value)
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", actual_shape=None, align_corners=True,
+                 align_mode=1, data_format="NCHW"):
+    mode = {"BILINEAR": "bilinear", "NEAREST": "nearest",
+            "TRILINEAR": "trilinear", "LINEAR": "linear",
+            "BICUBIC": "bicubic"}[resample]
+    return _interpolate(input, size=out_shape, scale_factor=scale,
+                        mode=mode, align_corners=align_corners,
+                        align_mode=align_mode, data_format=data_format)
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    actual_shape=None, align_corners=True, align_mode=1,
+                    data_format="NCHW"):
+    return image_resize(input, out_shape, scale, name, "BILINEAR",
+                        actual_shape, align_corners, align_mode, data_format)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   actual_shape=None, align_corners=True,
+                   data_format="NCHW"):
+    return image_resize(input, out_shape, scale, name, "NEAREST",
+                        actual_shape, align_corners, 1, data_format)
+
+
+def resize_linear(input, out_shape=None, scale=None, name=None,
+                  actual_shape=None, align_corners=True, align_mode=1,
+                  data_format="NCW"):
+    return _interpolate(input, size=out_shape, scale_factor=scale,
+                        mode="linear", align_corners=align_corners,
+                        align_mode=align_mode, data_format=data_format)
+
+
+def resize_trilinear(input, out_shape=None, scale=None, name=None,
+                     actual_shape=None, align_corners=True, align_mode=1,
+                     data_format="NCDHW"):
+    return _interpolate(input, size=out_shape, scale_factor=scale,
+                        mode="trilinear", align_corners=align_corners,
+                        align_mode=align_mode, data_format=data_format)
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """Resize keeping the aspect ratio so that the SHORT side is
+    ``out_short_len``."""
+    h, w = input.shape[2], input.shape[3]
+    short, long_ = (h, w) if h < w else (w, h)
+    ratio = out_short_len / float(short)
+    out_shape = ([out_short_len, int(long_ * ratio)] if h < w
+                 else [int(long_ * ratio), out_short_len])
+    return image_resize(input, out_shape=out_shape, resample=resample)
+
+
+def grid_sampler(x, grid, name=None):
+    return _grid_sample(x, grid)
+
+
+def crop_tensor(x, shape=None, offsets=None, name=None):
+    """Legacy alias of ``crop``."""
+    return _t.crop(x, shape=shape, offsets=offsets)
+
+
+def random_crop(x, shape, seed=None):
+    """An independent random crop offset for each leading-dim instance,
+    cropping the trailing ``len(shape)`` dims to ``shape``."""
+    shape = tuple(int(s) for s in shape)
+    k = len(shape)
+    single = x.dim() == k
+    flat = x.reshape((-1,) + tuple(x.shape[-k:]))
+    n, dev = flat.shape[0], flat.device
+    gen = _seeded_generator(seed, dev)
+    out = flat
+    for i in _range(k):
+        axis = 1 + i
+        hi = int(flat.shape[axis]) - shape[i] + 1
+        start = torch.randint(0, hi, (n,), generator=gen, device=dev)
+        idx = start[:, None] + torch.arange(shape[i], device=dev)[None]
+        view = [n] + [1] * k
+        view[axis] = shape[i]
+        want = list(out.shape)
+        want[axis] = shape[i]
+        out = torch.gather(out, axis, idx.reshape(view).expand(want))
+    return out[0] if single else out.reshape(tuple(x.shape[:-k]) + shape)
+
+
+# -- hashing and sampled losses ---------------------------------------------
+_U64 = (1 << 64) - 1
+
+
+def _s64(c):
+    """The int64 with the bits of the uint64 ``c``."""
+    c &= _U64
+    return c - (1 << 64) if c >> 63 else c
+
+
+def _shr(v, k):
+    """Logical right shift of int64 bits."""
+    return (v >> k) & ((1 << (64 - k)) - 1)
+
+
+def _mix(v, seed):
+    v = v ^ _s64(seed * 0x9E3779B97F4A7C15)
+    v = (v ^ _shr(v, 30)) * _s64(0xBF58476D1CE4E5B9)
+    v = (v ^ _shr(v, 27)) * _s64(0x94D049BB133111EB)
+    return v ^ _shr(v, 31)
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    """The JAX package's hash (a splitmix64-style mix in place of the
+    reference's XXH64): the last dim's elements folded into one key a row,
+    then mixed ``num_hash`` times with different seeds, ``% hash_size``.
+    uint64 arithmetic on int64 bits (wrapping products, logical shifts, an
+    unsigned remainder): the ids equal JAX's bit for bit, keys above 2^63
+    (given as uint64 arrays or as their int64 bits) too."""
+    from ...tensor._common import t as _as_tensor
+
+    if isinstance(input, np.ndarray) and input.dtype == np.uint64:
+        input = input.view(np.int64)
+    x = _as_tensor(input)
+    if x.dtype == torch.uint64:
+        x = x.view(torch.int64)
+    x = x.to(torch.int64)
+    key = x.reshape(tuple(x.shape[:-1]) + (-1,))
+    row = key[..., 0]
+    for j in _range(1, key.shape[-1]):
+        row = _mix(row, 1) + key[..., j]
+    m = int(hash_size)
+    wrap = (1 << 64) % m  # 2^64 mod m: a negative int64 is that much more
+    outs = []
+    for s in _range(num_hash):
+        v = _mix(row, s + 1)
+        r = torch.remainder(v, m)
+        outs.append(torch.where(v < 0, torch.remainder(r + wrap, m), r))
+    return torch.stack(outs, dim=-1)
+
+
+def sampled_softmax_with_cross_entropy(logits, label, num_samples,
+                                       num_true=1, remove_accidental_hits=True,
+                                       use_customized_samples=False,
+                                       customized_samples=None,
+                                       customized_probabilities=None,
+                                       seed=0):
+    """Softmax cross-entropy over the true classes and ``num_samples``
+    uniform negatives (the sampled-softmax estimator); an accidental hit
+    of a true class moves to ``(id + 1) % classes``.  ``[B, num_true]``."""
+    B, n_cls = logits.shape[0], logits.shape[-1]
+    label = label.reshape(B, num_true).to(torch.int64)
+    gen = _seeded_generator(seed, logits.device)
+    neg = torch.randint(0, n_cls, (B, int(num_samples)), generator=gen,
+                        device=logits.device)
+    if remove_accidental_hits:
+        hit = (neg[..., None] == label[:, None, :]).any(-1)
+        neg = torch.where(hit, (neg + 1) % n_cls, neg)
+    picked = torch.gather(logits, 1, torch.cat([label, neg], dim=1))
+    lse = torch.logsumexp(picked, dim=1, keepdim=True)
+    return (lse - picked[:, :num_true]).reshape(B, num_true)
+
+
+# -- the 1.x beam-search ops -------------------------------------------------
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
+                level=0, is_accumulated=True, name=None,
+                return_parent_idx=False):
+    """One pruning step: from each batch's ``beam_size × K`` candidates
+    keep the top ``beam_size`` (ties: the lower position first, as
+    ``lax.top_k``).  ``ids`` / ``scores`` ``[batch·beam, K]``; returns
+    ``(selected_ids, selected_scores[, parent_idx])``, each
+    ``[batch·beam, 1]`` (``parent_idx`` ``[batch·beam]``, global across
+    the batch).  A finished beam (``pre_ids == end_id``) keeps its score
+    and re-emits ``end_id``; ``is_accumulated=False`` takes
+    ``log(clip(scores, 1e-20)) + pre_scores``."""
+    from ...tensor._common import t as _as_tensor
+
+    ids = _as_tensor(ids)
+    scores = _as_tensor(scores, ids)
+    pre_ids = _as_tensor(pre_ids, ids).reshape(-1)
+    pre_scores = _as_tensor(pre_scores, ids).reshape(-1)
+    if ids.dim() != 2 or scores.dim() != 2 or ids.shape != scores.shape:
+        raise UnimplementedError(
+            "beam_search(dense) expects matching ids/scores "
+            "[batch*beam, K]")
+    BK, K = scores.shape
+    W = int(beam_size)
+    if BK % W:
+        raise UnimplementedError(
+            f"beam_search: leading dim {BK} is not a multiple of "
+            f"beam_size {beam_size} — in graph mode declare the "
+            f"batch*beam dim statically (not -1)")
+    batch = BK // W
+    if not is_accumulated:
+        scores = torch.log(torch.clamp(scores, min=1e-20)) \
+            + pre_scores[:, None]
+    finished = (pre_ids == end_id)[:, None]
+    first = torch.zeros((BK, K), dtype=torch.bool, device=scores.device)
+    first[:, 0] = True
+    kept = torch.where(first, pre_scores[:, None].to(scores.dtype),
+                       torch.full((), -float("inf"), dtype=scores.dtype,
+                                  device=scores.device))
+    scores = torch.where(finished, kept, scores)
+    ids = torch.where(finished, torch.full_like(ids, end_id), ids)
+    flat_s = scores.reshape(batch, W * K)
+    order = torch.sort(flat_s, dim=1, descending=True, stable=True)[1]
+    top_pos = order[:, :W]
+    top_s = torch.gather(flat_s, 1, top_pos)
+    sel = torch.gather(ids.reshape(batch, W * K), 1, top_pos)
+    parent = (top_pos // K + torch.arange(batch, device=ids.device)[:, None]
+              * W).reshape(-1)
+    out = (sel.reshape(-1, 1).to(torch.int64), top_s.reshape(-1, 1))
+    return out + (parent,) if return_parent_idx else out
+
+
+def beam_search_decode(ids, scores, beam_size=None, end_id=0, name=None):
+    """Back-trace per-step ``[T, batch, beam]`` ids through the parent
+    indices passed in the scores slot (ints: float scores carry no
+    ancestry in the dense form) with ``gather_tree``; returns
+    ``(sequences, scores)``."""
+    ids = torch.stack(list(ids)) if isinstance(ids, (list, tuple)) else ids
+    scores = (torch.stack(list(scores)) if isinstance(scores, (list, tuple))
+              else scores)
+    if ids.dim() != 3:
+        raise UnimplementedError(
+            "beam_search_decode expects dense [T, batch, beam] step ids "
+            "(collect them from the decode loop; LoD beams are replaced "
+            "by dense padding here)")
+    if scores.is_floating_point():
+        raise UnimplementedError(
+            "beam_search_decode(dense): pass the per-step PARENT indices "
+            "(int) in the scores argument, or use "
+            "paddle.nn.functional.gather_tree(ids, parents) / "
+            "paddle.nn.BeamSearchDecoder which track ancestry explicitly")
+    return _gather_tree(ids, scores.to(torch.int64)), scores
+
+
+def filter_by_instag(ins, ins_tag, filter_tag, is_lod=True,
+                     out_val_if_empty=0):
+    """Keep the rows of ``ins`` whose tags meet ``filter_tag``
+    (``ins_tag`` ``[N]`` or ``[N, K]`` padded with -1): ``(rows, kept
+    indices, loss weights)``.  An empty match gives one placeholder row of
+    ``out_val_if_empty`` with loss weight 0.  Eager only: the row count is
+    data-dependent."""
+    if any(isinstance(a, _GraphVar) for a in (ins, ins_tag, filter_tag)):
+        raise UnimplementedError(
+            "filter_by_instag produces a data-dependent row count and "
+            "cannot record into a Program; call it eagerly on host arrays "
+            "(e.g. at feed time) and feed the filtered batch")
+    from ...tensor._common import t as _as_tensor
+
+    ins = _as_tensor(ins)
+    tags = _as_tensor(ins_tag, ins)
+    if tags.dim() == 1:
+        tags = tags[:, None]
+    want = _as_tensor(filter_tag, ins).reshape(-1).to(tags.device)
+    keep = (tags[..., None] == want[None, None, :]).any(-1).any(-1)
+    idx = torch.nonzero(keep).reshape(-1)
+    out = ins[idx]
+    if out.shape[0] == 0:
+        out = torch.full((1,) + tuple(ins.shape[1:]), out_val_if_empty,
+                         dtype=ins.dtype, device=ins.device)
+        idx = torch.zeros(1, dtype=torch.int64, device=ins.device)
+        weight = torch.zeros((1, 1), dtype=torch.float32, device=ins.device)
+    else:
+        weight = torch.ones((out.shape[0], 1), dtype=torch.float32,
+                            device=ins.device)
+    return out, idx.to(torch.int64), weight
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    """For each index slice along ``axis`` (1, 2 or 3 of a 4-D tensor),
+    mark ``min(B, C)`` maxima greedily — each round the first maximum of
+    the slice's rows and columns not yet used — OR the masks over
+    ``indexes`` and broadcast them along ``axis``.  The rounds run on the
+    device, every instance and index at once."""
+    from ...tensor._common import t as _as_tensor
+
+    input = _as_tensor(input)
+    if input.dim() != 4:
+        raise UnimplementedError(
+            "similarity_focus expects a 4-D tensor (ref op constraint)")
+    if axis not in (1, 2, 3):
+        raise UnimplementedError("similarity_focus: axis must be 1, 2 or 3")
+    if not len(indexes):
+        raise UnimplementedError(
+            "similarity_focus: indexes must be non-empty")
+    A = input.shape[axis]
+    for i in indexes:
+        if not 0 <= int(i) < A:
+            raise UnimplementedError(
+                f"similarity_focus: index {i} out of range for axis {axis} "
+                f"with size {A}")
+    perm = [0, axis] + [d for d in _range(1, 4) if d != axis]
+    xt = input.permute(perm)  # [N, A, B, C]
+    N, _, Bd, Cd = xt.shape
+    sel = xt[:, [int(i) for i in indexes]].to(torch.float32)  # [N, I, B, C]
+    dev = input.device
+    mask = torch.zeros_like(sel)
+    used_r = torch.zeros(sel.shape[:3], dtype=torch.bool, device=dev)
+    used_c = torch.zeros(sel.shape[:2] + (Cd,), dtype=torch.bool, device=dev)
+    ninf = torch.full((), -float("inf"), device=dev)
+    for _ in _range(min(Bd, Cd)):
+        blocked = used_r[..., :, None] | used_c[..., None, :]
+        f = torch.argmax(torch.where(blocked, ninf, sel).flatten(2), dim=-1)
+        r, c = f // Cd, f % Cd
+        mask.flatten(2).scatter_(2, f[..., None], 1.0)
+        used_r.scatter_(2, r[..., None], True)
+        used_c.scatter_(2, c[..., None], True)
+    out = mask.amax(dim=1)[:, None].expand(N, A, Bd, Cd)
+    return out.permute([perm.index(i) for i in _range(4)]).to(input.dtype)
+
+
 # -- graph mode ---------------------------------------------------------
 def data(name, shape, append_batch_size=True, dtype="float32", lod_level=0,
          type=None, stop_gradient=True):
@@ -715,7 +1053,10 @@ _NO_WRAP = {"fc", "embedding", "conv2d", "conv2d_transpose", "conv3d",
             "pool2d", "instance_norm", "group_norm", "spectral_norm",
             "prelu", "bilinear_tensor_product", "hsigmoid", "multi_box_head",
             "deformable_conv", "assign", "data",
-            "load", "fill_constant",
+            "load", "fill_constant", "nce", "center_loss", "sequence_conv",
+            "inplace_abn", "lstm", "data_norm", "gru_unit", "lstm_unit",
+            "dynamic_lstm", "dynamic_lstmp", "dynamic_gru", "beam_search",
+            "filter_by_instag",
             "autoincreased_step_counter", "create_parameter",
             "create_global_var", "accuracy"}
 for _n, _v in list(globals().items()):
@@ -802,37 +1143,45 @@ def retinanet_detection_output(bboxes, scores, anchors, im_info,
     return out
 
 
+def _beam_search_graph_dispatch(fn):
+    """``beam_search`` records into a Program only with a static
+    ``batch·beam`` leading dim (the pruning factorizes it; the shape probe
+    would see 1)."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapped(pre_ids, pre_scores, ids, scores, beam_size, end_id, **kw):
+        from ...static.graph import in_graph_mode
+
+        if in_graph_mode(pre_ids, pre_scores, ids, scores):
+            for v in (ids, scores):
+                if isinstance(v, _GraphVar) and v.shape[0] is None:
+                    raise UnimplementedError(
+                        "beam_search in graph mode needs a STATIC "
+                        "batch*beam leading dim (declare it instead of "
+                        "-1: the pruning factorizes that dim)")
+            return _record_call(fn, pre_ids, pre_scores, ids, scores,
+                                beam_size, end_id, **kw)
+        return fn(pre_ids, pre_scores, ids, scores, beam_size, end_id, **kw)
+
+    return wrapped
+
+
+beam_search = _beam_search_graph_dispatch(beam_search)
+
+
 # -- the rest of the JAX module: not ported yet --------------------------
-_TRAINING = "training step"
-_VISION = "vision"
 _ITEM8 = "static graph and the long tail"
 UNPORTED = {
-    # nn/'s sequence / CRF ops and the 1.x beam-search ops:
-    # the rest of nn/ (item 2's tail)
-    **{n: _TRAINING for n in (
-        "sampled_softmax_with_cross_entropy", "linear_chain_crf",
-        "crf_decoding", "similarity_focus", "filter_by_instag", "beam_search", "beam_search_decode",
-        "sequence_pool", "sequence_softmax",
-        "sequence_reverse", "sequence_pad", "sequence_unpad",
-        "sequence_first_step", "sequence_last_step", "sequence_expand",
-        "sequence_expand_as", "sequence_enumerate", "sequence_concat",
-        "sequence_slice", "sequence_scatter", "sequence_reshape",
-        "crop_tensor", "maxout_legacy", "warpctc_lod")},
-    # resize, crop and grid sampling (item 5)
-    **{n: _VISION for n in (
-        "pad2d", "image_resize", "resize_bilinear", "resize_nearest",
-        "resize_linear", "resize_trilinear", "image_resize_short",
-        "grid_sampler", "random_crop")},
     # control flow, readers, LoD and the other Program-only names (item 8)
-    **{n: _ITEM8 for n in (
+    n: _ITEM8 for n in (
         "cond", "while_loop", "case", "switch_case", "While", "StaticRNN",
         "increment", "less_than", "array_write", "array_read",
         "array_length", "create_array", "tensor_array_to_tensor", "Assert",
         "Switch", "IfElse", "DynamicRNN", "reorder_lod_tensor_by_rank",
         "lod_reset", "lod_append", "Send", "Recv", "py_reader",
-        "create_py_reader_by_data", "read_file", "double_buffer", "hash",
-        "Print", "py_func")},
-    **_BUILDERS_UNPORTED,
+        "create_py_reader_by_data", "read_file", "double_buffer", "Print",
+        "py_func", "maxout_legacy", "warpctc_lod")
 }
 for _n, _item in UNPORTED.items():
     globals()[_n] = _unported(f"fluid.layers.{_n}", _item)

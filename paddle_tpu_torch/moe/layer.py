@@ -76,11 +76,11 @@ class MoELayer(nn.Layer):
         self.capacity_factor = float(getattr(cfg, "moe_capacity_factor",
                                              1.25))
         self.jitter = float(getattr(cfg, "moe_jitter", 0.0))
-        self.gate = torch.nn.Parameter(torch.empty(D, E))
-        self.expert_fc1 = torch.nn.Parameter(torch.empty(E, D, F))
-        self.expert_b1 = torch.nn.Parameter(torch.empty(E, F))
-        self.expert_fc2 = torch.nn.Parameter(torch.empty(E, F, D))
-        self.expert_b2 = torch.nn.Parameter(torch.empty(E, D))
+        self.gate = nn.Parameter(torch.empty(D, E))
+        self.expert_fc1 = nn.Parameter(torch.empty(E, D, F))
+        self.expert_b1 = nn.Parameter(torch.empty(E, F))
+        self.expert_fc2 = nn.Parameter(torch.empty(E, F, D))
+        self.expert_b2 = nn.Parameter(torch.empty(E, D))
         self.act = nn.GELU()
         self.drop = nn.Dropout(cfg.dropout)
 

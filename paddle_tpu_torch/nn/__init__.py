@@ -1,13 +1,14 @@
 """Layers of the port: ``nn.Layer`` subclasses (``torch.nn.Module``\\ s
 whose call applies the amp policy) with the JAX package's class names,
-parameter names and layouts; the names the JAX ``nn`` exports, apart from
+parameter names and layouts, and every name the JAX ``nn`` exports,
 ``layer_base``'s ``Parameter``, ``Buffer``, ``functional_call``,
-``rng_scope`` and ``current_rng_key`` still to port (ROADMAP queue A)."""
+``rng_scope`` and ``current_rng_key`` among them (``nn/layer.py``)."""
 import torch
 
 from . import functional, initializer
 from .initializer import ParamAttr
-from .layer import Layer
+from .layer import (Buffer, Layer, Parameter, current_rng_key,
+                    functional_call, rng_scope)
 from .recompute import (apply_recompute, mark_recompute, recompute,
                         unmark_recompute)
 from .common import *  # noqa: F401,F403
@@ -43,7 +44,8 @@ def clip_by_norm(x, max_norm, name=None):
     return x * (max_norm / torch.clamp_min(norm, max_norm))
 
 __all__ = sorted(
-    {"Layer", "ParamAttr", "functional", "initializer", "recompute",
+    {"Layer", "Parameter", "Buffer", "functional_call", "rng_scope",
+     "current_rng_key", "ParamAttr", "functional", "initializer", "recompute",
      "mark_recompute", "unmark_recompute", "apply_recompute",
      "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm", "utils",
      "weight_norm_hook", "weight_norm", "remove_weight_norm", "extension",

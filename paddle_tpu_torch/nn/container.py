@@ -137,9 +137,12 @@ class LayerDict(Layer):
 
 
 def _as_parameter(p):
-    if isinstance(p, torch.nn.Parameter):
+    from .layer import Parameter
+
+    if isinstance(p, Parameter):
         return p
-    return torch.nn.Parameter(torch.as_tensor(p))
+    return Parameter(torch.as_tensor(p),
+                     trainable=getattr(p, "requires_grad", True))
 
 
 class ParameterList(Layer):

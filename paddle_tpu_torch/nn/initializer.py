@@ -254,28 +254,17 @@ class ParamAttr:
         self.need_clip = need_clip
 
 
-class NamedParameter(torch.nn.Parameter):
-    """A parameter named by its ``ParamAttr`` (paddle's ``param.name``;
-    a torch tensor's own ``name`` is read-only)."""
+def create_parameter(shape, attr=None):
+    """An (unfilled) ``nn.Parameter`` of ``shape`` under ``attr``:
+    ``None`` for ``attr=False``; ``trainable`` and ``name`` applied."""
+    from .layer import Parameter
 
-    @property
-    def name(self):
-        return self.__dict__.get("_attr_name")
-
-
-def create_parameter(shape, attr=None) -> Optional[torch.nn.Parameter]:
-    """An (unfilled) parameter of ``shape`` under ``attr``: ``None`` for
-    ``attr=False``; ``trainable`` and ``name`` applied."""
     if attr is False:
         return None
     named = isinstance(attr, ParamAttr) and attr.name is not None
-    p = (NamedParameter if named else torch.nn.Parameter)(
-        torch.empty(tuple(shape)))
-    if named:
-        p.__dict__["_attr_name"] = attr.name
-    if isinstance(attr, ParamAttr):
-        p.requires_grad_(bool(attr.trainable))
-    return p
+    trainable = bool(attr.trainable) if isinstance(attr, ParamAttr) else True
+    return Parameter(torch.empty(tuple(shape)),
+                     name=attr.name if named else "", trainable=trainable)
 
 
 _filling = threading.local()  # depth of fills_its_layers constructors

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..framework.errors import InvalidArgumentError
-from .layer import Layer
+from .layer import Layer, Parameter
 
 __all__ = ["weight_norm", "remove_weight_norm", "WeightNorm"]
 
@@ -68,8 +68,8 @@ class WeightNorm:
             dim %= ndim
         fn = WeightNorm(name, dim)
         with torch.no_grad():
-            v = torch.nn.Parameter(w.detach().clone())
-            g = torch.nn.Parameter(_norm_except_dim(w.detach(), dim))
+            v = Parameter(w.detach().clone())
+            g = Parameter(_norm_except_dim(w.detach(), dim))
         del layer._parameters[name]
         layer.register_parameter(name + "_v", v)
         layer.register_parameter(name + "_g", g)
@@ -84,7 +84,7 @@ class WeightNorm:
         del layer._buffers[self.name]
         del layer._parameters[self.name + "_g"]
         del layer._parameters[self.name + "_v"]
-        layer.register_parameter(self.name, torch.nn.Parameter(w))
+        layer.register_parameter(self.name, Parameter(w))
         self._handle.remove()
 
     def __call__(self, layer, inputs):

@@ -227,15 +227,24 @@ def CompiledProgram(program, build_strategy=None):
 
 def create_parameter(shape, dtype="float32", name=None, attr=None,
                      is_bias=False, default_initializer=None):
-    """An eager parameter (ref: fluid/layers/tensor.py:75): a
-    ``torch.nn.Parameter`` of ``shape`` / ``dtype`` filled by ``attr``'s
-    initializer, else ``default_initializer``, else zeros for a bias and
-    Xavier-normal otherwise."""
+    """A parameter (ref: fluid/layers/tensor.py:75) of ``shape`` /
+    ``dtype`` filled by ``attr``'s initializer, else
+    ``default_initializer``, else zeros for a bias and Xavier-normal
+    otherwise: an ``nn.Parameter``, or under ``program_guard`` a trainable
+    parameter of the Program's scope (its Variable), as 1.x builds one
+    (the JAX package returns the eager box there, which its graph holds as
+    a constant)."""
     from ..nn.initializer import ParamAttr, build_parameter
+    from .graph import default_main_program, in_program_guard
 
     if attr is None and name is not None:
         attr = ParamAttr(name=name)
-    return build_parameter(shape, dtype, attr, is_bias, default_initializer)
+    p = build_parameter(shape, dtype, attr, is_bias, default_initializer)
+    if p is None or not in_program_guard():
+        return p
+    prog = default_main_program()
+    return prog.register_param(prog.unique_name(name or "create_parameter"),
+                               p, trainable=p.requires_grad)
 
 
 def create_global_var(shape, value, dtype, persistable=False,
@@ -244,7 +253,9 @@ def create_global_var(shape, value, dtype, persistable=False,
     ``value`` (ref: fluid/layers/tensor.py create_global_var)."""
     t = torch.full(tuple(int(d) for d in shape), value,
                    dtype=convert_dtype(dtype))
-    return torch.nn.Parameter(t, requires_grad=False)
+    from ..nn.layer import Parameter
+
+    return Parameter(t, name=name or "", trainable=False)
 
 
 def save(program, model_path, protocol=4, **configs):

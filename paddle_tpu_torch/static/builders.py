@@ -10,14 +10,25 @@ machinery, and the way to put a whole model into a Program (bench.py's
 configs 2 and 3).
 
 The builders need graph mode (a symbolic Variable input); called with
-tensors they raise, naming the eager Layer.  Ported: ``fc``,
-``embedding``, ``conv2d``, ``conv2d_transpose``, ``conv3d``,
-``conv3d_transpose``, ``pool2d``, ``batch_norm``, ``layer_norm``,
-``instance_norm``, ``group_norm``, ``spectral_norm``, ``prelu``,
-``bilinear_tensor_product``, ``hsigmoid``, ``multi_box_head``,
-``deformable_conv`` and ``layer_op``.  The other
-builders of the JAX module raise ``UnimplementedError`` naming the
-ROADMAP queue-A item that ports their layers.
+tensors they raise, naming the eager Layer.  Every builder of the JAX
+module is here: ``fc``, ``embedding``, ``conv2d``, ``conv2d_transpose``,
+``conv3d``, ``conv3d_transpose``, ``pool2d``, ``batch_norm``,
+``layer_norm``, ``instance_norm``, ``group_norm``, ``spectral_norm``,
+``prelu``, ``bilinear_tensor_product``, ``hsigmoid``, ``multi_box_head``,
+``deformable_conv``, the CTR / loss builders ``nce``, ``center_loss``,
+``data_norm`` and ``inplace_abn``, ``sequence_conv``, and the 1.x RNN
+builders ``lstm`` (``nn.LSTM`` through ``nn.functional_call``),
+``gru_unit`` / ``dynamic_gru`` (``fluid.dygraph.GRUUnit``), ``lstm_unit``,
+``dynamic_lstm`` and ``dynamic_lstmp``; and ``layer_op``.
+
+The 1.x RNN builders take pre-projected input and run over all T steps
+with no lengths, as the JAX dense form does: a reverse direction starts in
+the padding (a standing difference from 1.x LoD).  Their recurrences are
+time loops on the device, a few launches a step.  ``center_loss`` and
+``data_norm`` update their buffers on training runs, in place.  ``nce``
+draws its negatives from the device's generator; a nonzero ``seed`` draws
+them from a CPU generator of that seed instead (the same ids on every
+device, in eager runs: under a CUDA graph capture it raises).
 """
 from __future__ import annotations
 
@@ -28,13 +39,16 @@ import numpy as np
 import torch
 
 from ..framework.errors import InvalidArgumentError, UnimplementedError
+from ..framework.random import generator_for
 from .graph import Variable, default_main_program, record_call
 
 __all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "conv3d",
            "conv3d_transpose", "pool2d", "batch_norm",
            "layer_norm", "instance_norm", "group_norm", "spectral_norm",
            "prelu", "bilinear_tensor_product", "hsigmoid", "multi_box_head",
-           "deformable_conv", "layer_op"]
+           "deformable_conv", "nce", "center_loss", "sequence_conv",
+           "inplace_abn", "lstm", "data_norm", "gru_unit", "lstm_unit",
+           "dynamic_lstm", "dynamic_lstmp", "dynamic_gru", "layer_op"]
 
 #: the activations a builder's ``act=`` names
 _ACTS = {
@@ -493,13 +507,495 @@ def deformable_conv(input, offset, mask, num_filters, filter_size,
                     extra_args=extra)
 
 
-#: the JAX module's other builders → the queue-A item that ports them
-UNPORTED = {
-    **{n: "static graph and the long tail" for n in (
-        "nce", "center_loss", "sequence_conv", "inplace_abn", "lstm",
-        "data_norm", "gru_unit", "lstm_unit", "dynamic_lstm",
-        "dynamic_lstmp", "dynamic_gru")},
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=5, name=None,
+        sampler="uniform", custom_dist=None, seed=0, is_sparse=False):
+    """ref: fluid/layers/nn.py nce — noise-contrastive estimation over
+    ``num_neg_samples`` uniform negatives: a sample's loss is
+    ``softplus(−s_pos) + Σ softplus(s_neg)`` (``[B, 1]``), with the
+    ``[num_classes, D]`` weight and ``[num_classes]`` bias in the Program.
+    Only ``sampler='uniform'`` (as in JAX)."""
+    x = _require_var(input, "nce", "sampled softmax "
+                     "(fluid.layers.sampled_softmax_with_cross_entropy)")
+    if sampler != "uniform" or custom_dist is not None:
+        raise InvalidArgumentError(
+            "nce: only sampler='uniform' is implemented (log-uniform / "
+            "custom_dist sampling is a documented deviation)")
+    from .. import nn
+
+    D = int(x.shape[-1])
+    host_gen = torch.Generator().manual_seed(int(seed)) if seed else None
+
+    class _NCE(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.weight = self.create_parameter(
+                (num_total_classes, D), attr=param_attr)
+            self.bias = self.create_parameter(
+                (num_total_classes,), attr=bias_attr, is_bias=True)
+
+        def _negatives(self, B, device):
+            shape = (B, int(num_neg_samples))
+            if device.type == "meta":
+                return torch.zeros(shape, dtype=torch.int64, device=device)
+            if host_gen is None:
+                return torch.randint(0, num_total_classes, shape,
+                                     generator=generator_for(device),
+                                     device=device)
+            if device.type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise InvalidArgumentError(
+                    "nce(seed=...) draws its negatives on the host: a "
+                    "captured run would replay one draw; use seed=0 (the "
+                    "device generator) under run_steps")
+            return torch.randint(0, num_total_classes, shape,
+                                 generator=host_gen).to(device)
+
+        def forward(self, xx, lbl):
+            lbl = lbl.reshape(-1).to(torch.int64)
+            s_pos = (xx * self.weight[lbl]).sum(-1) + self.bias[lbl]
+            neg = self._negatives(xx.shape[0], xx.device)
+            s_neg = torch.einsum("bd,bsd->bs", xx, self.weight[neg]) \
+                + self.bias[neg]
+            loss = torch.nn.functional.softplus(-s_pos) \
+                + torch.nn.functional.softplus(s_neg).sum(-1)
+            return loss[:, None]
+
+    return layer_op(_NCE(), x, prefix=name or "nce", extra_args=(label,))
+
+
+def center_loss(input, label, num_classes, alpha, param_attr=None,
+                update_center=True, name=None):
+    """ref: fluid/layers/loss.py center_loss — ``0.5·||x − c[label]||²``
+    (``[B, 1]``); training runs move the touched centers by
+    ``c ← c − α·Σ(c − x)/(1 + n)`` (the ``[num_classes, D]`` centers
+    buffer, updated in place)."""
+    x = _require_var(input, "center_loss",
+                     "a Layer holding a centers buffer")
+    from .. import nn
+
+    D = int(x.shape[-1])
+
+    class _CenterLoss(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.register_buffer("centers", torch.zeros(num_classes, D))
+
+        def forward(self, xx, lbl):
+            lbl = lbl.reshape(-1).to(torch.int64)
+            c = self.centers
+            diff = xx.to(torch.float32) - c[lbl]
+            loss = 0.5 * diff.square().sum(-1, keepdim=True)
+            if self.training and update_center:
+                with torch.no_grad():
+                    d = diff.detach()
+                    counts = torch.zeros(num_classes, dtype=torch.float32,
+                                         device=c.device).index_add_(
+                        0, lbl, torch.ones_like(d[:, 0]))
+                    sums = torch.zeros_like(c).index_add_(0, lbl, -d)
+                    c.sub_(alpha * sums / (1.0 + counts)[:, None])
+            return loss
+
+    return layer_op(_CenterLoss(), x, prefix=name or "center_loss",
+                    extra_args=(label,))
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=True, padding_start=None, bias_attr=None,
+                  param_attr=None, act=None, name=None):
+    """ref: fluid/layers/nn.py sequence_conv — a context-window projection
+    over the time dim of ``[B, T, D]``: each position projects the concat
+    of its ``filter_size`` context rows (zeros past either end) through a
+    ``[filter_size·D, num_filters]`` weight."""
+    x = _require_var(input, "sequence_conv",
+                     "conv1d over padded batches with sequence_mask")
+    from .. import nn
+
+    D = int(x.shape[-1])
+    start = (-(filter_size // 2) if padding_start is None
+             else int(padding_start))
+
+    class _SeqConv(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.weight = self.create_parameter(
+                (filter_size * D, num_filters), attr=param_attr)
+            self.bias = (self.create_parameter(
+                (num_filters,), attr=bias_attr, is_bias=True)
+                if bias_attr is not False else None)
+
+        def forward(self, xx):
+            T = xx.shape[1]
+            t = torch.arange(T, device=xx.device)
+            cols = []
+            for j in range(filter_size):
+                off = start + j
+                rolled = torch.roll(xx, -off, dims=1)
+                inside = ((t + off >= 0) & (t + off < T))[None, :, None]
+                cols.append(torch.where(inside, rolled,
+                                        torch.zeros_like(rolled)))
+            out = torch.cat(cols, dim=-1) @ self.weight
+            return out if self.bias is None else out + self.bias
+
+    return layer_op(_SeqConv(), x, prefix=name or "sequence_conv", act=act)
+
+
+def inplace_abn(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+                param_attr=None, bias_attr=None, data_layout="NCHW",
+                name=None, act_alpha=1.0, **kw):
+    """ref: fluid/layers/nn.py inplace_abn — ``batch_norm`` with its
+    activation (the in-place memory trick is the allocator's business)."""
+    return batch_norm(input, act=act, is_test=is_test, momentum=momentum,
+                      epsilon=epsilon, param_attr=param_attr,
+                      bias_attr=bias_attr, data_layout=data_layout,
+                      name=name or "inplace_abn")
+
+
+def lstm(input, init_h, init_c, max_len, hidden_size, num_layers,
+         dropout_prob=0.0, is_bidirec=False, is_test=False, name=None,
+         default_initializer=None, seed=-1):
+    """ref: fluid/layers/rnn.py lstm (the cudnn-style multi-layer LSTM):
+    ``nn.LSTM`` on dense ``[B, T, D]`` input run through
+    ``nn.functional_call`` over the scope's parameters; returns
+    ``(out, last_h, last_c)``."""
+    x = _require_var(input, "lstm", "paddle.nn.LSTM")
+    from .. import nn
+
+    if x.shape[-1] is None:
+        raise InvalidArgumentError(
+            "lstm: the input feature dim must be static (it sizes the "
+            "gate weights); declare it instead of -1")
+    layer = nn.LSTM(int(x.shape[-1]), hidden_size, num_layers=num_layers,
+                    direction="bidirect" if is_bidirec else "forward",
+                    dropout=dropout_prob)
+    pmap, _ = _register_layer_state(layer, name or "lstm")
+
+    def fn(pv, bv, xx, h0, c0, *, training=False):
+        if is_test:  # evaluation whatever the run's mode
+            training = False
+        params = {pmap[n]: v for n, v in pv.items()}
+        out, (h, c) = nn.functional_call(layer, params, xx, (h0, c0),
+                                         training=training)
+        return out, h, c
+
+    return record_call(fn, x, init_h, init_c, prefix=name or "lstm",
+                       param_names=tuple(pmap), scoped=True)
+
+
+def data_norm(input, act=None, epsilon=1e-5, param_attr=None,
+              data_layout="NCHW", in_place=False, name=None,
+              moving_mean_name=None, moving_variance_name=None,
+              do_model_average_for_mean_and_var=True, slot_dim=-1,
+              sync_stats=False, summary_decay_rate=0.9999999,
+              enable_scale_and_shift=False):
+    """ref: fluid/layers/nn.py:3220 data_norm — global-statistics
+    normalization of ``[batch, C]`` CTR features: ``mean = batch_sum /
+    batch_size``, ``scale = sqrt(batch_size / batch_square_sum)``; the
+    three summaries (started at 1e4, 0, 1e4: an initial scale of 1) are
+    buffers that training runs decay and accumulate in place."""
+    x = _require_var(input, "data_norm", "paddle.nn.BatchNorm1D")
+    from .. import nn
+
+    if len(x.shape) != 2:
+        raise InvalidArgumentError(
+            "data_norm normalizes 2-D [batch, C] CTR feature slots (the "
+            "reference's primary use); for image tensors use batch_norm")
+    C = int(x.shape[-1])
+
+    class _DataNorm(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.register_buffer("batch_size", torch.full((C,), 1e4))
+            self.register_buffer("batch_sum", torch.zeros(C))
+            self.register_buffer("batch_square_sum", torch.full((C,), 1e4))
+            if enable_scale_and_shift:
+                self.scale_w = self.create_parameter((C,), attr=param_attr)
+                self.bias = self.create_parameter((C,), is_bias=True)
+
+        def forward(self, xx):
+            xf = xx.to(torch.float32).reshape(-1, C)
+            size = self.batch_size
+            mean = self.batch_sum / size
+            scale = torch.sqrt(size / self.batch_square_sum)
+            out = (xf - mean) * scale
+            if enable_scale_and_shift:
+                out = out * self.scale_w + self.bias
+            if self.training:
+                with torch.no_grad():
+                    d = summary_decay_rate
+                    xd = xf.detach()
+                    self.batch_sum.mul_(d).add_(xd.sum(0))
+                    self.batch_square_sum.mul_(d).add_(xd.square().sum(0))
+                    self.batch_size.mul_(d).add_(float(xf.shape[0]))
+            return out.reshape(xx.shape).to(xx.dtype)
+
+    return layer_op(_DataNorm(), x, prefix=name or "data_norm", act=act)
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid",
+             origin_mode=False):
+    """ref: fluid/layers/nn.py gru_unit — one GRU step over pre-projected
+    input ``[B, 3·hidden]`` (``size`` = 3 × hidden, the fused width);
+    returns ``(new_hidden, reset_hidden_prev, gate)``, over
+    ``fluid.dygraph.GRUUnit``."""
+    x = _require_var(input, "gru_unit", "paddle.nn.GRUCell")
+    if size % 3:
+        raise InvalidArgumentError(
+            f"gru_unit: size ({size}) is the FUSED gate width and must be "
+            f"3 x hidden (1.x convention)")
+    if x.shape[-1] is not None and int(x.shape[-1]) != int(size):
+        raise InvalidArgumentError(
+            f"gru_unit: input width {x.shape[-1]} must equal size {size} "
+            f"(the input arrives pre-projected to the fused 3*hidden "
+            f"layout)")
+    from ..fluid.dygraph import GRUUnit
+
+    layer = GRUUnit(size, param_attr=param_attr, bias_attr=bias_attr,
+                    activation=activation, gate_activation=gate_activation,
+                    origin_mode=origin_mode)
+    return layer_op(layer, x, prefix="gru_unit", extra_args=(hidden,))
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """ref: fluid/layers/nn.py lstm_unit — gates {i, f (+forget_bias), o,
+    g} from ``fc([x, h]) → 4·D``: ``c' = f·c + i·g``, ``h' = o·tanh(c')``;
+    returns ``(hidden, cell)``."""
+    x = _require_var(x_t, "lstm_unit", "paddle.nn.LSTMCell")
+    from .. import nn
+
+    if len(x.shape) != 2 or len(hidden_t_prev.shape) != 2 \
+            or len(cell_t_prev.shape) != 2:
+        raise InvalidArgumentError(
+            "lstm_unit expects rank-2 x_t/hidden_t_prev/cell_t_prev "
+            "(reference constraint)")
+    if hidden_t_prev.shape[-1] != cell_t_prev.shape[-1]:
+        raise InvalidArgumentError(
+            f"lstm_unit: hidden dim {hidden_t_prev.shape[-1]} != cell "
+            f"dim {cell_t_prev.shape[-1]}")
+    Dx, Dh = int(x.shape[-1]), int(hidden_t_prev.shape[-1])
+
+    class _LSTMUnit(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.weight = self.create_parameter((Dx + Dh, 4 * Dh),
+                                                attr=param_attr)
+            self.bias = (self.create_parameter((4 * Dh,), attr=bias_attr,
+                                               is_bias=True)
+                         if bias_attr is not False else None)
+
+        def forward(self, xx, h, c):
+            z = torch.cat([xx, h], dim=-1) @ self.weight
+            if self.bias is not None:
+                z = z + self.bias
+            i = torch.sigmoid(z[:, :Dh])
+            f = torch.sigmoid(z[:, Dh:2 * Dh] + forget_bias)
+            o = torch.sigmoid(z[:, 2 * Dh:3 * Dh])
+            g = torch.tanh(z[:, 3 * Dh:])
+            c_new = f * c + i * g
+            return o * torch.tanh(c_new), c_new
+
+    return layer_op(_LSTMUnit(), x, prefix=name or "lstm_unit",
+                    extra_args=(hidden_t_prev, cell_t_prev))
+
+
+#: the 1.x RNN builders' activations (``hard_sigmoid`` is JAX's
+#: ``relu6(x + 3) / 6``, not paddle's ``0.2x + 0.5``)
+_RNN_ACTS = {
+    "sigmoid": torch.sigmoid, "tanh": torch.tanh, "relu": torch.relu,
+    "hard_sigmoid": lambda v: torch.clamp(v + 3.0, 0.0, 6.0) / 6.0,
+    "identity": lambda v: v,
 }
+
+
+def _rnn_act(name):
+    if name not in _RNN_ACTS:
+        raise InvalidArgumentError(
+            f"dynamic_lstm/lstmp: unsupported activation {name!r} "
+            f"(supported: {sorted(_RNN_ACTS)})")
+    return _RNN_ACTS[name]
+
+
+def _lstm_scan(x_seq, w, b_gates, peep, h0, c0, gate_act, cell_act,
+               cand_act, is_reverse, proj=None, proj_act=None,
+               cell_clip=None, proj_clip=None):
+    """The recurrence of dynamic_lstm / dynamic_lstmp over pre-projected
+    ``[B, T, 4H]``: gate chunks {c, i, f, o} (the 1.x fused layout),
+    ``peep`` = (W_ic, W_fc, W_oc) or None, ``proj`` ``[H, P]`` or None
+    (lstmp: the recurrent state is the projection).  Returns the hidden
+    and cell sequences ``[B, T, ·]``."""
+    H = w.shape[1] // 4
+    ga, ca, cda = _rnn_act(gate_act), _rnn_act(cell_act), _rnn_act(cand_act)
+    pa = _rnn_act(proj_act) if proj_act else None
+    T = x_seq.shape[1]
+    h, c = h0, c0
+    hs, cs = [], []
+    for t in (range(T - 1, -1, -1) if is_reverse else range(T)):
+        z = x_seq[:, t] + h @ w + b_gates
+        zc, zi, zf, zo = (z[:, :H], z[:, H:2 * H], z[:, 2 * H:3 * H],
+                          z[:, 3 * H:])
+        if peep is not None:
+            i, f = ga(zi + peep[0] * c), ga(zf + peep[1] * c)
+        else:
+            i, f = ga(zi), ga(zf)
+        c = f * c + i * cda(zc)
+        if cell_clip is not None:
+            c = torch.clamp(c, -cell_clip, cell_clip)
+        o = ga(zo + peep[2] * c) if peep is not None else ga(zo)
+        h = o * ca(c)
+        if proj is not None:
+            h = h @ proj
+            if pa is not None:
+                h = pa(h)
+            if proj_clip is not None:
+                h = torch.clamp(h, -proj_clip, proj_clip)
+        hs.append(h)
+        cs.append(c)
+    if is_reverse:
+        hs, cs = hs[::-1], cs[::-1]
+    return torch.stack(hs, dim=1), torch.stack(cs, dim=1)
+
+
+def _check_fused(x, size, builder, gates):
+    if size % gates:
+        raise InvalidArgumentError(
+            f"{builder}: size ({size}) must be {gates} x hidden")
+    if x.shape[-1] is not None and int(x.shape[-1]) != int(size):
+        raise InvalidArgumentError(
+            f"{builder}: input width {x.shape[-1]} must equal size "
+            f"{size} (pre-projected fused layout)")
+
+
+def _lstm_inits(builder, h_0, c_0):
+    if (h_0 is None) != (c_0 is None):
+        raise InvalidArgumentError(
+            f"{builder}: h_0 and c_0 must be given together (the "
+            f"reference allows None only for both)")
+    return (h_0, c_0) if h_0 is not None else ()
+
+
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                 bias_attr=None, use_peepholes=True, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype="float32", name=None):
+    """ref: fluid/layers/rnn.py dynamic_lstm — the fused LSTM over
+    pre-projected ``[B, T, 4·hidden]``: recurrent weight ``[hidden,
+    4·hidden]`` in the {c, i, f, o} chunk order, bias ``[1, 4H]`` (``[1,
+    7H]`` with the peepholes in its tail).  Returns (hidden, cell), each
+    ``[B, T, H]``, over all T steps."""
+    x = _require_var(input, "dynamic_lstm", "paddle.nn.LSTM")
+    _check_fused(x, size, "dynamic_lstm", 4)
+    H = size // 4
+    from .. import nn
+
+    class _DynLSTM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.weight = self.create_parameter((H, 4 * H), attr=param_attr,
+                                                dtype=dtype)
+            self.bias = self.create_parameter(
+                (1, 7 * H if use_peepholes else 4 * H), attr=bias_attr,
+                dtype=dtype, is_bias=True)
+
+        def forward(self, xx, *inits):
+            B = xx.shape[0]
+            h0 = inits[0] if inits else xx.new_zeros((B, H))
+            c0 = inits[1] if len(inits) > 1 else xx.new_zeros((B, H))
+            b = self.bias[0]
+            peep = ((b[4 * H:5 * H], b[5 * H:6 * H], b[6 * H:])
+                    if use_peepholes else None)
+            return _lstm_scan(xx, self.weight, b[:4 * H], peep, h0, c0,
+                              gate_activation, cell_activation,
+                              candidate_activation, is_reverse)
+
+    return layer_op(_DynLSTM(), x, prefix=name or "dynamic_lstm",
+                    extra_args=_lstm_inits("dynamic_lstm", h_0, c_0))
+
+
+def dynamic_lstmp(input, size, proj_size, h_0=None, c_0=None,
+                  param_attr=None, bias_attr=None, use_peepholes=True,
+                  is_reverse=False, gate_activation="sigmoid",
+                  cell_activation="tanh", candidate_activation="tanh",
+                  proj_activation="tanh", dtype="float32", name=None,
+                  cell_clip=None, proj_clip=None):
+    """ref: fluid/layers/rnn.py dynamic_lstmp — the projected LSTM: the
+    recurrent state is ``proj_act(h @ W_proj)`` with ``W_proj [hidden,
+    proj_size]`` and a recurrent weight ``[proj_size, 4H]``.  Returns
+    (projection ``[B, T, P]``, cell ``[B, T, H]``)."""
+    x = _require_var(input, "dynamic_lstmp", "paddle.nn.LSTM")
+    _check_fused(x, size, "dynamic_lstmp", 4)
+    H, P = size // 4, int(proj_size)
+    from .. import nn
+
+    class _DynLSTMP(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.weight = self.create_parameter((P, 4 * H), attr=param_attr,
+                                                dtype=dtype)
+            self.proj_weight = self.create_parameter((H, P),
+                                                     attr=param_attr,
+                                                     dtype=dtype)
+            self.bias = self.create_parameter(
+                (1, 7 * H if use_peepholes else 4 * H), attr=bias_attr,
+                dtype=dtype, is_bias=True)
+
+        def forward(self, xx, *inits):
+            B = xx.shape[0]
+            h0 = inits[0] if inits else xx.new_zeros((B, P))
+            c0 = inits[1] if len(inits) > 1 else xx.new_zeros((B, H))
+            b = self.bias[0]
+            peep = ((b[4 * H:5 * H], b[5 * H:6 * H], b[6 * H:])
+                    if use_peepholes else None)
+            return _lstm_scan(xx, self.weight, b[:4 * H], peep, h0, c0,
+                              gate_activation, cell_activation,
+                              candidate_activation, is_reverse,
+                              proj=self.proj_weight,
+                              proj_act=proj_activation,
+                              cell_clip=cell_clip, proj_clip=proj_clip)
+
+    return layer_op(_DynLSTMP(), x, prefix=name or "dynamic_lstmp",
+                    extra_args=_lstm_inits("dynamic_lstmp", h_0, c_0))
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", h_0=None,
+                origin_mode=False, name=None):
+    """ref: fluid/layers/rnn.py dynamic_gru — the fused GRU over
+    pre-projected ``[B, T, 3·hidden]`` (``size`` is the HIDDEN width
+    here, unlike ``gru_unit``'s), stepping ``fluid.dygraph.GRUUnit``'s
+    parameters (``[hidden, 3·hidden]``: update | reset, then the
+    candidate).  Returns the hidden sequence ``[B, T, H]``."""
+    x = _require_var(input, "dynamic_gru", "paddle.nn.GRU")
+    H = int(size)
+    if x.shape[-1] is not None and int(x.shape[-1]) != 3 * H:
+        raise InvalidArgumentError(
+            f"dynamic_gru: input width {x.shape[-1]} must be 3*size "
+            f"({3 * H}; size is the HIDDEN width here, unlike gru_unit)")
+    from .. import nn
+    from ..fluid.dygraph import GRUUnit
+
+    class _DynGRU(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.unit = GRUUnit(3 * H, param_attr=param_attr,
+                                bias_attr=bias_attr,
+                                activation=candidate_activation,
+                                gate_activation=gate_activation,
+                                origin_mode=origin_mode)
+
+        def forward(self, xx, *inits):
+            T = xx.shape[1]
+            h = inits[0] if inits else xx.new_zeros((xx.shape[0], H))
+            hs = []
+            for t in (range(T - 1, -1, -1) if is_reverse else range(T)):
+                h = self.unit.step(xx[:, t], h)
+                hs.append(h)
+            return torch.stack(hs[::-1] if is_reverse else hs, dim=1)
+
+    return layer_op(_DynGRU(), x, prefix=name or "dynamic_gru",
+                    extra_args=(h_0,) if h_0 is not None else ())
 
 
 def unported(qualname: str, item: str):
@@ -516,8 +1012,3 @@ def unported(qualname: str, item: str):
     shim.__doc__ = f"Not ported yet: ROADMAP queue A, {item}."
     shim.__shim__ = True
     return shim
-
-
-for _name, _item in UNPORTED.items():
-    globals()[_name] = unported(f"paddle.static.nn.{_name}", _item)
-del _name, _item

@@ -361,9 +361,12 @@ class Program:
         array; copied: the caller's tensor is never the scope's)."""
         t = value.detach() if isinstance(value, torch.Tensor) \
             else numpy_to_tensor(value)
+        from ..nn.layer import Parameter
+
         self._init_values[name] = t.to("cpu", copy=True)
-        self.scope[name] = t.clone().requires_grad_(
-            bool(trainable) and t.is_floating_point())
+        self.scope[name] = Parameter(
+            t.clone(), name=name,
+            trainable=bool(trainable) and t.is_floating_point())
         self._param_trainable[name] = bool(trainable)
         self._placement["device"] = None
         v = Variable(self, name, tuple(t.shape), t.dtype, is_param=True,
@@ -493,12 +496,17 @@ class Program:
         pl = self._placement
         if pl["device"] != device:
             moved = False
-            for d in (self.scope, self.buffers):
-                for n, t in d.items():
-                    if t.device != device:
-                        d[n] = t.detach().to(device).requires_grad_(
-                            t.requires_grad)
-                        moved = True
+            from ..nn.layer import Parameter
+
+            for n, t in self.scope.items():
+                if t.device != device:
+                    self.scope[n] = Parameter(t.detach().to(device), name=n,
+                                              trainable=t.requires_grad)
+                    moved = True
+            for n, t in self.buffers.items():
+                if t.device != device:
+                    self.buffers[n] = t.detach().to(device)
+                    moved = True
             pl["device"] = device
             pl["moves"] += moved
         if self._opt_state is not None and self._opt_device != device:

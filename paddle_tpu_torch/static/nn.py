@@ -1,37 +1,38 @@
 """paddle.static.nn — the op builders over the recorded graph (port of
-``paddle_tpu.static.nn``): ``fc``, ``embedding``, ``conv2d``,
-``conv2d_transpose``, ``conv3d``, ``conv3d_transpose``, ``pool2d``,
-``batch_norm``, ``layer_norm``, ``instance_norm``, ``group_norm``,
-``spectral_norm``, ``prelu``, ``bilinear_tensor_product``, ``hsigmoid``,
-``multi_box_head`` and ``deformable_conv`` are ported
-(``static/builders.py``), ``row_conv`` and ``deform_conv2d`` are the
-functional ops;
-``create_parameter`` is ``static.create_parameter``.  Every other name of
-the JAX module raises ``UnimplementedError`` naming the ROADMAP queue-A
-item that ports it: the control flow (``cond``, ``while_loop``, ``case``,
-``switch_case``), ``py_func`` and the eager-only functionals are static
-graph and the long tail; the builders over layers still to port name
-their items (``builders.UNPORTED``).
+``paddle_tpu.static.nn``): every builder of ``static/builders.py`` (the
+JAX module's and the 1.x RNN / loss builders ``center_loss``,
+``inplace_abn``, ``lstm``, ``gru_unit``, ``lstm_unit``, ``dynamic_lstm``,
+``dynamic_lstmp`` and ``dynamic_gru``), the stateless functionals
+``row_conv``, ``deform_conv2d`` and ``crf_decoding`` (eager is the
+implementation; ``crf_decoding`` records when given symbolic Variables),
+and ``create_parameter`` (``static.create_parameter``).  The control flow
+(``cond``, ``while_loop``, ``case``, ``switch_case``), ``py_func`` and
+``sparse_embedding`` raise ``UnimplementedError`` naming ROADMAP queue A's
+static graph and the long tail.
 """
 from __future__ import annotations
 
 from . import create_parameter, py_func  # noqa: F401
 from .builders import (  # noqa: F401
-    UNPORTED, batch_norm, bilinear_tensor_product, conv2d, conv2d_transpose,
-    conv3d, conv3d_transpose, deformable_conv, embedding, fc, group_norm,
-    hsigmoid, instance_norm, layer_norm, multi_box_head, pool2d, prelu,
+    batch_norm, bilinear_tensor_product, center_loss, conv2d,
+    conv2d_transpose, conv3d, conv3d_transpose, data_norm, deformable_conv,
+    dynamic_gru, dynamic_lstm, dynamic_lstmp, embedding, fc, group_norm,
+    gru_unit, hsigmoid, inplace_abn, instance_norm, layer_norm, lstm,
+    lstm_unit, multi_box_head, nce, pool2d, prelu, sequence_conv,
     spectral_norm, unported,
 )
+from .graph import maybe_record as _maybe_record
 from ..nn.functional import (  # noqa: F401  (stateless: eager is it)
     deform_conv2d, row_conv,
 )
+from ..nn.functional import crf_decoding as _crf_decoding
+
+crf_decoding = _maybe_record(_crf_decoding)
 
 _ITEM8 = "static graph and the long tail"
-for _name in ("cond", "while_loop", "case", "switch_case", "crf_decoding",
+for _name in ("cond", "while_loop", "case", "switch_case",
               "sparse_embedding"):
     globals()[_name] = unported(f"paddle.static.nn.{_name}", _ITEM8)
-for _name in UNPORTED:
-    globals()[_name] = unported(f"paddle.static.nn.{_name}", UNPORTED[_name])
 del _name
 
 __all__ = sorted(
@@ -40,5 +41,7 @@ __all__ = sorted(
      "instance_norm", "group_norm", "spectral_norm", "prelu",
      "bilinear_tensor_product", "hsigmoid", "multi_box_head",
      "deformable_conv", "cond", "while_loop", "case", "switch_case",
-     "crf_decoding", "row_conv", "deform_conv2d", "py_func", "create_parameter",
-     "sparse_embedding"] + list(UNPORTED))
+     "crf_decoding", "row_conv", "deform_conv2d", "py_func",
+     "create_parameter", "sparse_embedding", "nce", "center_loss",
+     "sequence_conv", "inplace_abn", "lstm", "data_norm", "gru_unit",
+     "lstm_unit", "dynamic_lstm", "dynamic_lstmp", "dynamic_gru"])
