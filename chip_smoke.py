@@ -116,7 +116,8 @@ D3. ``bench.py``'s ``bench_gpt_generate`` with ``paddle_tpu_torch`` for
     trace's tokens of legacy and paged against continuous (near-ties
     only);
 D4. prefill/decode hand-off at phase 4's shape, float and int8
-    (``speculative_k=0``, one request at a time): tokens bit-identical to
+    (``speculative_k=0``, phase 4's first ``D4_REQUESTS`` requests, one at
+    a time): tokens bit-identical to
     a co-located paged engine, kernel 1 (and 9) launches counted on the
     prefill and the decode engine against their calls, payload bytes and
     ms per export / import;
@@ -711,6 +712,43 @@ A ``{"tagging": ...}`` line carries SQ1-SQ4's numbers; kernel 2's entry in
 the kernels line gains ``tagging_launches`` and ``tagging_path_checks``
 (SQ3's).
 
+Distributed execution (after SQ4; ``distributed_phases``).  One card: the
+multi-rank legs are ranks sharing cuda:0 over a gloo group (NCCL refuses
+two ranks on one card), every collective staged through pinned host
+buffers, so their times measure kernels and host copies, never an
+interconnect.  The single-rank references (DX2's and DX3's models
+through the plain ``train_batch``) run first in this process, then one
+4-rank world runs DX1-DX3:
+
+DX1. every collective of ``distributed.collective`` on card tensors, each
+    rank's result = its slot of the stacked result JAX's semantics give
+    (float sums within 1e-6 x ranks of the largest magnitude, bf16 sums
+    within 2^-7);
+DX2. ``gpt_small`` f32, dropout 0, ``fleet`` sharding 2 x model 2,
+    AdamW(1e-4, wd 0.01, multi_precision), global batch 8 x 1024, 3
+    steps: losses within 1e-4 (relative) of one rank's, the gathered
+    parameters within 1e-4 of their rms in L2; qkv / fc1 / the table hold
+    half their columns / rows, qkv's ZeRO slots half of that; kernels 2 /
+    3 12 + 12 / 1 a step on every rank;
+DX3. the long-context model in bf16 with ``sequence_parallel="ring"``,
+    sep 2 x model 2, 2 x 8192, 3 steps: losses within 2e-2 of the LT2
+    path's; kernels 4, 5, 6 12 x the ring schedule's chunks a step on
+    every rank; the first step's ring chunks recorded and each held to
+    its plain version on its own inputs (out within ``FLASH_TOL``, the
+    gradients within 2e-2 of theirs in L2); a Ulysses forward of the block
+    stack against the ring's (2e-2 in L2);
+
+then DX4, ``DataParallel`` over a conv net with ``SyncBatchNorm`` at 2
+ranks (gradients and statistics = the whole batch's on one rank), DX0,
+the NCCL route at world size 1 in this process (every collective on card
+tensors, no staging; ``fleet.init`` with every degree 1 training
+``gpt_small`` f32 2 steps bit for bit the plain path), and kernels 4-6
+timed at DX3's chunk shape.  Each leg prints its seconds, steps/s, peak
+memory per rank and ``collective_stats()``; a ``{"distributed": ...}``
+line carries them, and kernels 2-6 gain their DX launches
+(``distributed_launches_per_step``, ``ring_launches_per_step``) and the
+chunk's numbers (``ring_chunk``).
+
 The line before last is the ``{"kernels": [...]}`` JSON record (kernel
 1's entries carry D4's launches by engine under ``handoff_launches`` and
 D3's paged run's under ``bench_paged_launches``, kernel 9's D5's quantized
@@ -753,7 +791,8 @@ QMM_KN = {"qkv": (768, 2304), "out": (768, 768), "fc1": (768, 3072),
 QMM_M = (8, 40, 384)
 MARGIN_K = 4.0                 # tools/quant_smoke.py's clear-margin factor
 NUM_REQUESTS = 16
-D_PASSES = 3                   # timed passes of the requests in D1 / D2
+D_PASSES = 2                   # timed passes of the requests in D1 / D2
+D4_REQUESTS = 8                # phase 4's first requests, one at a time
 ENGINE = dict(prompt_buckets=[16, 48], batch_size=8, kv_page_size=16,
               speculative_k=4, paged=True)
 MARGIN_TIE = 1e-4
@@ -768,6 +807,15 @@ PARITY_B = 4
 
 def log(*a):
     print(*a, flush=True)
+
+
+_START = [time.monotonic()]
+
+
+def submark(name):
+    """A line with the seconds since the smoke began, between sub-phases
+    (where a slow run lost its time)."""
+    log(f"smoke:   {name} at {time.monotonic() - _START[0]:.1f}s")
 
 
 def gpu_line() -> str:
@@ -1492,7 +1540,7 @@ def handoff(torch, gpu, model, quantized=None):
 
     tag = f"D4[{quantized or 'float'}]"
     L = model.gpt.cfg.num_layers
-    reqs = requests()
+    reqs = requests()[:D4_REQUESTS]
     kw = dict(ENGINE, speculative_k=0, quantized=quantized)
     # one request at a time on every engine: the same shapes for the same
     # request (and, quantized, the same rows under each per-tensor
@@ -1527,8 +1575,8 @@ def handoff(torch, gpu, model, quantized=None):
             assert paged_flash_decode.launches == L * calls > 0, counts
             assert quantized_linear.launches == (
                 4 * L * calls if quantized else 0), counts
-        assert pre.stats()["handoffs_out"] == NUM_REQUESTS
-        assert dec.stats()["handoffs_in"] == NUM_REQUESTS
+        assert pre.stats()["handoffs_out"] == len(reqs)
+        assert dec.stats()["handoffs_in"] == len(reqs)
         assert pre.stats()["decode_steps"] == 0
         # the transfers at the payload's full width (largest bucket)
         cache = pre._new_cache()
@@ -1553,7 +1601,7 @@ def handoff(torch, gpu, model, quantized=None):
     assert all(isinstance(h, KVHandoff) for h in hands)
     assert got == want, [i for i, (a, b) in enumerate(zip(got, want))
                          if a != b]
-    log(f"{tag}[{gpu}]: {NUM_REQUESTS} hand-offs, tokens bit-identical to "
+    log(f"{tag}[{gpu}]: {len(reqs)} hand-offs, tokens bit-identical to "
         f"the co-located engine; launches prefill {counts['prefill']}, "
         f"decode {counts['decode']}; payload {nbytes} bytes, export "
         f"{export_ms:.3f} ms, import {import_ms:.3f} ms")
@@ -2896,10 +2944,11 @@ FLASH_BWD_TOL = {"float32": dict(rtol=1e-4, row_rms=1e-4, tensor_rms=1e-4),
                  "bfloat16": dict(rtol=2e-2, row_rms=2e-2, tensor_rms=1e-3)}
 
 
-def grad_close(torch, got, ref, dtype_name):
-    """Assert a gradient within FLASH_BWD_TOL of the plain one; returns
-    (largest abs error, its largest share of the allowance: <= 1 passes)."""
-    tol = FLASH_BWD_TOL[dtype_name]
+def grad_close(torch, got, ref, dtype_name, tol=None):
+    """Assert a gradient within FLASH_BWD_TOL (or ``tol``) of the plain
+    one; returns (largest abs error, its largest share of the allowance:
+    <= 1 passes)."""
+    tol = tol or FLASH_BWD_TOL[dtype_name]
     g, r = got.float(), ref.float()
     err = (g - r).abs()
     if not err.numel():
@@ -5576,7 +5625,7 @@ MNIST_ACC_GATE = 0.97
 BERT_TRAIN_GFLOP_PER_SEQ = 84.5
 RESNET50_TRAIN_GFLOP_PER_IMG = 12.3
 H100_BF16_TFLOPS = 989.0       # H100 SXM dense bf16 (data sheet), 700 W
-ST_BERT_STEPS, ST_RESNET_STEPS, ST_WINDOWS = 10, 60, 3
+ST_BERT_STEPS, ST_RESNET_STEPS, ST_WINDOWS = 10, 60, 2
 
 
 def _st_counts(counters):
@@ -6102,8 +6151,11 @@ def static_graph_phases(torch, gpu, bert, resnet, k3, k4):
     ``record_call`` / ``minimize`` / ``Executor.run`` and ``run_steps``);
     ST5 is the line of their numbers under bench.py's names."""
     st1 = st_mnist(torch, gpu)
+    submark("ST2")
     st2 = st_example(torch, gpu)
+    submark("ST3")
     st3 = st_bert(torch, gpu, bert, k4)
+    submark("ST4")
     st4 = st_resnet(torch, gpu, resnet, k3)
     line = {"static_graph": {
         "device": gpu,
@@ -6128,7 +6180,7 @@ LORA_CAP, LORA_RANK = 16, 8
 LORA_SITES = ("qkv", "out", "fc1", "fc2")  # two kernel-10 hops a site a call
 A_REQUESTS = 34                # two a slot: the base (-1) and 16 adapters
 A_SAMPLE = 8                   # requests held against the merged model
-A_PASSES = 2                   # timed passes of the trace a capacity in A5
+A_PASSES = 1                   # timed passes of the trace a capacity in A5
 A_CAPS = (0, 1, 4, 16)
 LORA_BENCH = dict(vocab_size=8192, hidden_size=256, num_layers=4,
                   num_heads=8, max_position=512, dropout=0.0)
@@ -6811,20 +6863,25 @@ def lora_phases(torch, gpu):
     held = set(lora_hop_shapes())
     path = {}
     model = lora_model(torch)
+    submark("A2")
     with lora_path_shapes() as seen:
         a2 = lora_math(torch, gpu, model)
     path["A2"] = check_lora_path(torch, seen, held, "A2")
+    submark("A3")
     with lora_path_shapes() as seen:
         a3 = lora_engine(torch, gpu, model)
     path["A3"] = check_lora_path(torch, seen, held, "A3")
+    submark("A4")
     with lora_path_shapes() as seen:
         a4 = lora_tenancy(torch, gpu, model)
     path["A4"] = check_lora_path(torch, seen, held, "A4")
     del model
     gc.collect()
+    submark("A5")
     with lora_path_shapes() as seen:
         a5 = bench_multilora(torch, gpu)
     path["A5"] = check_lora_path(torch, seen, held, "A5")
+    submark("A timing")
     rows = timing_lora_gmm(torch, gpu)
     log(json.dumps({"multilora": {
         "device": gpu, "A1": a1, "A2": a2, "A3": a3, "A4": a4,
@@ -8457,10 +8514,15 @@ def compression_phases(torch, gpu, d1, m4):
     """E1-E5 and C1-C3, then the ``{"compression": ...}`` line; returns
     what the kernels line needs."""
     e13 = moe_serving_phases(torch, gpu, d1, m4)
+    submark("E4")
     e4 = bert_moe_train(torch, gpu)
+    submark("E5")
     e5 = quantized_bert(torch, gpu)
+    submark("C1")
     c1 = timing_compression(torch, gpu)
+    submark("C2")
     c2 = resnet_ptq(torch, gpu)
+    submark("C3")
     c3 = mobilenet_qat(torch, gpu)
     log(json.dumps({"compression": {
         "device": gpu, "E1_moe_dense": e13["E1"],
@@ -10800,6 +10862,751 @@ def tagging_phases(torch, gpu):
     return sq
 
 
+# -- distributed execution (DX0-DX4) ----------------------------------------
+# One card: the multi-rank legs run as ranks that share cuda:0 over a gloo
+# group (NCCL refuses two ranks on one card), their collectives staged
+# through pinned host buffers; the NCCL route runs at world size 1 (DX0).
+# Their times measure the kernels and the host, never an interconnect.
+DX_LR = 1e-4                   # AdamW's rate in DX2 / DX3
+# DX3's ring chunks against the plain backward on their own inputs: each
+# of dq, dk, dv within 2e-2 of the plain one's L2 norm (the port's bf16
+# tolerance).  LT1's per-element FLASH_BWD_TOL holds on random inputs; on
+# the model's chunks it did not (1.8x its 1e-3 tensor floor, then 1.18x a
+# 1e-2 floor, first card runs): at init attention is near uniform and a
+# chunk's partial dk sums p (dp - delta) q over rows whose ds cancel (a
+# softmax row's ds sum to 0), so the result is far smaller than its terms
+# and the kernels' bf16 rounding of p and ds is large beside it
+RING_CHUNK_REL_L2 = 2e-2
+DX_TIMEOUT = 900               # spawn's join deadline, seconds
+DX_RANKS = 4
+
+
+def dx_conf():
+    """What the ranks run (passed to them: a spawned rank imports this
+    module afresh, so module globals changed by a caller do not reach
+    it).  DX2: gpt_small f32 (dropout 0: a mask is drawn per rank, so
+    with dropout the ranks cannot equal one device), sharding 2 x model 2,
+    global batch 8 x 1024, 3 steps; DX3: the long-context slice's model in
+    bf16, sep 2 x model 2, ring attention, 2 x 8192, 3 steps; DX4: a conv
+    net with SyncBatchNorm under DataParallel at 2 ranks."""
+    return {
+        "device": DEVICE,
+        "dx1": dict(rows=1000, cols=257),
+        "dx2": dict(cfg=dict(dropout=0.0), B=GPT_B, S=GPT_S, steps=3,
+                    lr=DX_LR),
+        "dx3": dict(cfg=dict(max_position=LC_S, dropout=0.0), B=LC_B,
+                    S=LC_S, steps=3, lr=DX_LR),
+        "dx4": dict(B=16, C=3, HW=32, F=16, steps=3),
+    }
+
+
+def _dx_gpt(torch, cfg, dtype, device, **kw):
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_small
+
+    net = GPTForCausalLM(gpt_small(**cfg, **kw), device=device,
+                         generator=torch.Generator().manual_seed(SEED))
+    return net.astype(dtype) if dtype != "float32" else net
+
+
+def _dx_ids(np, cfg, B, S, seed):
+    vocab = cfg.get("vocab_size", 50304)
+    return np.random.RandomState(seed).randint(
+        0, vocab, size=(B, S)).astype(np.int32)
+
+
+def dx_references(torch, gpu, conf, workdir):
+    """The single-rank runs the ranks are held to, on this process's card:
+    DX2's model through the plain ``train_batch`` (losses; final
+    parameters saved to ``workdir`` for the ranks to compare), DX3's
+    through the LT2 path (kernels 4-6 over the whole sequence)."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+
+    out = {}
+    for leg, dtype in (("dx2", "float32"), ("dx3", "bfloat16")):
+        c = conf[leg]
+        net = _dx_gpt(torch, c["cfg"], dtype, conf["device"])
+        opt = ptt.optimizer.AdamW(learning_rate=c["lr"], weight_decay=0.01,
+                                  multi_precision=True)
+        model = ptt.Model(net).prepare(optimizer=opt, loss=net.loss)
+        ids = _dx_ids(np, c["cfg"], c["B"], c["S"], SEED + 91)
+        t0 = time.monotonic()
+        losses = [model.train_batch([ids], [ids])[0]
+                  for _ in range(c["steps"])]
+        if conf["device"].startswith("cuda"):
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        out[leg] = dict(losses=losses, seconds=wall)
+        if leg == "dx2":
+            path = os.path.join(workdir, "dx2_reference.pt")
+            torch.save({k: p.detach().cpu() for k, p in
+                        net.named_parameters()}, path)
+            out[leg]["path"] = path
+        log(f"DX ref[{leg}][{gpu}]: one rank, plain train_batch, "
+            f"{c['steps']} steps in {wall:.3f}s, losses {losses}")
+        del model, opt, net
+        gc.collect()
+        if conf["device"].startswith("cuda"):
+            torch.cuda.empty_cache()
+    return out
+
+
+def dx_collectives(torch, conf):
+    """DX1 (and DX0 at world size 1): every collective of
+    ``distributed.collective`` on this rank's slot of seeded stacked
+    inputs, held to the stacked result JAX's semantics give, computed
+    here from the whole stacked input on the CPU."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed.mesh import build_mesh, set_mesh
+
+    dev = conf["device"]
+    n, r = dist.get_world_size(), dist.get_rank()
+    set_mesh(build_mesh())
+    gen = torch.Generator().manual_seed(SEED + 90)
+    rows, cols = conf["dx1"]["rows"], conf["dx1"]["cols"]
+    a = torch.randn(n, rows, cols, generator=gen)
+    m = torch.randn(n, n, 64, 33, generator=gen)
+    c = torch.randn(n, n * 8, 129, generator=gen)
+    errs = {}
+
+    def check(name, got, want, rtol=0.0):
+        got = got.float().cpu() if isinstance(got, torch.Tensor) \
+            else torch.stack([g.float().cpu() for g in got])
+        assert got.device.type == "cpu" and got.shape == want.shape, name
+        err = float((got - want).abs().max()) if want.numel() else 0.0
+        allow = rtol * float(want.abs().max()) if rtol else 0.0
+        assert err <= allow, f"DX collective {name}: error {err} > {allow}"
+        errs[name] = err
+
+    # a copy: the in-place collectives must not write the stacked input
+    mine = lambda t: t[r].to(dev, copy=True)  # noqa: E731
+    sum_tol = 1e-6 * n
+    check("all_reduce_sum", dist.all_reduce(mine(a)), a.sum(0), sum_tol)
+    check("all_reduce_max", dist.all_reduce(mine(a), op="max"), a.amax(0))
+    check("all_reduce_min", dist.all_reduce(mine(a), op="min"), a.amin(0))
+    check("all_reduce_prod", dist.all_reduce(mine(a), op="prod"),
+          a.prod(0), sum_tol)
+    check("bf16_all_reduce", dist.all_reduce(mine(a).bfloat16()),
+          a.sum(0).bfloat16().float(), 2 ** -7)
+    check("all_gather", dist.all_gather(mine(a)), a)
+    dst = min(1, n - 1)
+    check("reduce", dist.reduce(mine(a), dst=dst),
+          a.sum(0) if r == dst else a[r], sum_tol)
+    src = min(2, n - 1)
+    check("broadcast", dist.broadcast(mine(a), src=src), a[src])
+    check("scatter", dist.scatter(
+        torch.zeros(rows, cols, device=dev),
+        [t.to(dev, copy=True) for t in a] if r == 0 else None, src=0), a[r])
+    check("alltoall", dist.alltoall([t.to(dev, copy=True) for t in m[r]]),
+          m[:, r])
+    check("psum", dist.psum(mine(a), "data"), a.sum(0), sum_tol)
+    check("pmean", dist.pmean(mine(a), "data"), a.mean(0), sum_tol)
+    check("pmax", dist.pmax(mine(a), "data"), a.amax(0))
+    check("pmin", dist.pmin(mine(a), "data"), a.amin(0))
+    check("ppermute", dist.ppermute(
+        mine(a), "data", [(j, (j + 1) % n) for j in range(n)]),
+        a[(r - 1) % n])
+    check("all_to_all_single", dist.all_to_all_single(
+        mine(c), "data", split_axis=0, concat_axis=1),
+        torch.cat([c[j].chunk(n, 0)[r] for j in range(n)], 1))
+    h = dist.collective.all_reduce_start(mine(a), "data")
+    check("all_reduce_start_finish", dist.collective.all_reduce_finish(h),
+          a.sum(0), sum_tol)
+    dist.barrier()
+    return {"errors": errs, "ranks": n}
+
+
+def _dx_counters():
+    from paddle_tpu_torch.ops import (flash_attention, layernorm_residual,
+                                      softmax_cross_entropy)
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq)
+
+    return {"flash_attention": flash_attention,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+            "layernorm_residual": layernorm_residual,
+            "softmax_cross_entropy": softmax_cross_entropy}
+
+
+def _dx_zero(counters):
+    for c in counters.values():
+        c.launches = 0
+        if hasattr(c, "backward_launches"):
+            c.backward_launches = 0
+
+
+def _dx_read(counters):
+    out = {k: c.launches for k, c in counters.items()}
+    out["layernorm_residual_backward"] = \
+        counters["layernorm_residual"].backward_launches
+    return out
+
+
+def _dx_steps(torch, model, ids, steps, cuda, first=None):
+    """``steps`` train_batch calls on ``ids`` (the first one through
+    ``first``, when given); the counters are zeroed after the first step
+    and read after the last.  Returns (losses, seconds and launches of
+    steps 2..)."""
+    counters = _dx_counters()
+    losses = [first() if first else model.train_batch([ids], [ids])[0]]
+    if cuda:
+        torch.cuda.synchronize()
+    _dx_zero(counters)
+    t0 = time.monotonic()
+    for _ in range(steps - 1):
+        losses.append(model.train_batch([ids], [ids])[0])
+    if cuda:
+        torch.cuda.synchronize()
+    return losses, time.monotonic() - t0, _dx_read(counters)
+
+
+def dx_hybrid(torch, conf):
+    """DX2: the dryrun's first leg, sharding 2 x model 2 on 4 ranks."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+
+    c, dev = conf["dx2"], conf["device"]
+    cuda = dev.startswith("cuda")
+    fleet.init(is_collective=True, strategy=fleet.DistributedStrategy(
+        sharding_degree=2, mp_degree=2))
+    net = _dx_gpt(torch, c["cfg"], "float32", dev)
+    cfg = net.gpt.cfg
+    opt = fleet.distributed_optimizer(ptt.optimizer.AdamW(
+        learning_rate=c["lr"], weight_decay=0.01, multi_precision=True))
+    model = ptt.Model(net).prepare(optimizer=opt, loss=net.loss)
+    ids = _dx_ids(np, c["cfg"], c["B"], c["S"], SEED + 91)
+    losses, wall, launches = _dx_steps(torch, model, ids, c["steps"], cuda)
+    D, L = cfg.hidden_size, cfg.num_layers
+    blk = net.gpt.blocks[0]
+    shapes = {"qkv": list(blk.attn.qkv.weight.shape),
+              "fc1": list(blk.mlp.fc1.weight.shape),
+              "wte": list(net.gpt.wte.weight.shape),
+              "qkv_moment1": list(opt._state["slots"][
+                  "gpt.blocks.0.attn.qkv.weight"]["moment1"].shape)}
+    # the TP weights hold out/2 columns (qkv's 3 fused blocks of D/2), the
+    # table half the vocabulary; ZeRO: the slots half of that on dim 0
+    assert shapes["qkv"] == [D, 3 * D // 2] and \
+        shapes["fc1"] == [D, cfg.intermediate_size // 2], shapes
+    assert shapes["wte"] == [cfg.vocab_size // 2, D], shapes
+    assert shapes["qkv_moment1"] == [D // 2, 3 * D // 2], shapes
+    steps = c["steps"] - 1
+    if cuda:  # the CPU takes the plain versions: no launch
+        assert launches["layernorm_residual"] == L * steps, launches
+        assert launches["layernorm_residual_backward"] == L * steps, \
+            launches
+        assert launches["softmax_cross_entropy"] == steps, launches
+    full = model._plan.gather_parameters()
+    ref = torch.load(c["ref_path"])
+    # the gathered parameters within 1e-4 of their rms, in L2 over all of
+    # them (a zero-initialized bias alone is Adam's rounding noise: a
+    # gradient that changes sign between steps turns a 1e-6 difference
+    # into 1e-3 of its movement, on one rank or four); the worst tensor
+    # and the key third of the qkv biases (zero gradient in exact
+    # arithmetic) are reported beside it
+    sq_err = sq_ref = 0.0
+    worst, worst_name, key_bias = 0.0, "", 0.0
+    for k, want in ref.items():
+        got = full[k].float().cpu()
+        d2, r2 = float((got - want).pow(2).sum()), float(want.pow(2).sum())
+        sq_err, sq_ref = sq_err + d2, sq_ref + r2
+        if r2 and (d2 / r2) ** 0.5 > worst:
+            worst, worst_name = (d2 / r2) ** 0.5, k
+        if k.endswith("attn.qkv.bias"):
+            third = want.shape[0] // 3
+            key_bias = max(key_bias, float(
+                (got - want)[third:2 * third].abs().max()))
+    param_err = (sq_err / sq_ref) ** 0.5
+    assert param_err <= 1e-4, (param_err, worst_name, worst)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, c["ref_losses"])]
+    assert max(rel) <= 1e-4, (losses, c["ref_losses"])
+    del model, opt, net, full, ref
+    return {"losses": losses, "loss_rel_err": max(rel),
+            "param_rms_err": param_err, "worst_tensor_rms_err": worst,
+            "worst_tensor": worst_name, "key_bias_max_err": key_bias, "shapes": shapes,
+            "launches_per_step": {k: v / steps for k, v in launches.items()},
+            "timed_steps": steps, "timed_seconds": wall,
+            "steps_per_s": steps / wall, "mesh": dict(dist.get_mesh().shape)}
+
+
+def dx_ring(torch, conf):
+    """DX3: the sep leg, sep 2 x model 2, ring attention on 4 ranks; the
+    first step's ring chunks recorded and held to their plain versions;
+    then a Ulysses forward against the ring's."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import sequence_parallel as sp
+    import importlib
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    c, dev = conf["dx3"], conf["device"]
+    cuda = dev.startswith("cuda")
+    fleet.init(is_collective=True, strategy=fleet.DistributedStrategy(
+        sep_degree=2, mp_degree=2))
+    mesh = dist.get_mesh()
+    net = _dx_gpt(torch, c["cfg"], "bfloat16", dev,
+                  sequence_parallel="ring")
+    L = net.gpt.cfg.num_layers
+    opt = fleet.distributed_optimizer(ptt.optimizer.AdamW(
+        learning_rate=c["lr"], weight_decay=0.01, multi_precision=True))
+    model = ptt.Model(net).prepare(optimizer=opt, loss=net.loss)
+    ids = _dx_ids(np, c["cfg"], c["B"], c["S"], SEED + 91)
+    calls = {"fwd": [], "bwd": []}
+    fwd, bwd = sp.flash_attention_fwd_lse, sp.flash_attention_bwd_chunk
+
+    def rec_fwd(q, k, v, causal=False, sm_scale=None):
+        out = fwd(q, k, v, causal=causal, sm_scale=sm_scale)
+        calls["fwd"].append((q, k, v, causal, sm_scale, out))
+        return out
+
+    def rec_bwd(q, k, v, out, lse, do, causal=False, sm_scale=None,
+                delta=None):
+        got = bwd(q, k, v, out, lse, do, causal=causal, sm_scale=sm_scale,
+                  delta=delta)
+        calls["bwd"].append((q, k, v, out, lse, do, causal, sm_scale, delta,
+                             got))
+        return got
+
+    def check_step():
+        sp.flash_attention_fwd_lse, sp.flash_attention_bwd_chunk = (
+            rec_fwd, rec_bwd)
+        try:
+            return model.train_batch([ids], [ids])[0]
+        finally:
+            sp.flash_attention_fwd_lse, sp.flash_attention_bwd_chunk = (
+                fwd, bwd)
+
+    losses, wall, launches = _dx_steps(torch, model, ids, c["steps"], cuda,
+                                       first=check_step)
+    # every chunk of the check step against the plain version on its own
+    # inputs (out and lse; dq, dk, dv with the merged out / lse / delta)
+    chunk_err = {"out": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    chunk_rel = 0.0
+    with torch.no_grad():
+        for q, k, v, causal, scale, (out, lse) in calls["fwd"]:
+            ref, ref_lse = fa.flash_attention_fwd_lse_ref(q, k, v, causal,
+                                                          scale)
+            e, _ = flash_out_close(torch, out, ref, "bfloat16")
+            torch.testing.assert_close(lse, ref_lse,
+                                       **FLASH_LSE_TOL["bfloat16"])
+            chunk_err["out"] = max(chunk_err["out"], e)
+        for (q, k, v, out, lse, do, causal, scale, delta,
+             got) in calls["bwd"]:
+            ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                             scale, delta=delta)
+            for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                g, r = g.float(), r.float()
+                rel = float((g - r).pow(2).sum().sqrt() / r.pow(2).sum().sqrt())
+                assert rel <= RING_CHUNK_REL_L2 and bool(
+                    torch.isfinite(g).all()), (name, rel)
+                chunk_err[name] = max(chunk_err[name],
+                                      float((g - r).abs().max()))
+                chunk_rel = max(chunk_rel, rel)
+    n_chunks = len(sp.ring_schedule(mesh.shape["sep"],
+                                    mesh.axis_index("sep"), True))
+    assert len(calls["fwd"]) == len(calls["bwd"]) == L * n_chunks, (
+        len(calls["fwd"]), len(calls["bwd"]), L, n_chunks)
+    del calls
+    steps = c["steps"] - 1
+    want = L * n_chunks * steps
+    for k in ("flash_attention", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        # on the card each chunk is one launch; the CPU takes plain versions
+        assert launches[k] == (want if cuda else 0), (k, launches[k], want)
+    if cuda:
+        assert launches["layernorm_residual"] == L * steps, launches
+        assert launches["layernorm_residual_backward"] == L * steps, launches
+        assert launches["softmax_cross_entropy"] == steps, launches
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, c["ref_losses"])]
+    assert max(rel) <= 2e-2, (losses, c["ref_losses"])
+    # Ulysses against the ring, on the trained weights, one forward of
+    # the block stack each (the hidden states the LM head reads)
+    net.eval()
+    with torch.no_grad():
+        x = torch.as_tensor(ids, device=dev)
+        ring_logits = net.gpt(x)
+        for blk in net.gpt.blocks:
+            blk.attn.sequence_parallel = "ulysses"
+        uly_logits = net.gpt(x)
+    for blk in net.gpt.blocks:
+        blk.attn.sequence_parallel = "ring"
+    # two bf16 models that round their attention differently: the hidden
+    # states' error in L2 within 2e-2 of their rms (the port's bf16
+    # tolerance)
+    e_uly, sq_err, sq_ref = 0.0, 0.0, 0.0
+    for s in range(0, ring_logits.shape[1], 1024):  # bounded temporaries
+        u, g = (t[:, s:s + 1024].float() for t in (uly_logits, ring_logits))
+        e_uly = max(e_uly, float((u - g).abs().max()))
+        sq_err += float((u - g).pow(2).sum())
+        sq_ref += float(g.pow(2).sum())
+    share = (sq_err / sq_ref) ** 0.5
+    assert share <= 2e-2, share
+    del ring_logits, uly_logits, model, opt, net
+    return {"losses": losses, "loss_rel_err": max(rel),
+            "chunks_a_layer": n_chunks, "sep_index": mesh.axis_index("sep"),
+            "chunk_max_abs_err": chunk_err,
+            "chunk_grad_rel_l2": chunk_rel,
+            "ulysses_vs_ring_max_abs_err": e_uly,
+            "ulysses_vs_ring_rel_l2": share,
+            "launches_per_step": {k: v / steps for k, v in launches.items()},
+            "timed_steps": steps, "timed_seconds": wall,
+            "steps_per_s": steps / wall, "mesh": dict(mesh.shape)}
+
+
+def dx_rank(conf):
+    """One rank of the 4-rank world: DX1, DX2, DX3 in turn, each with its
+    seconds, collective counts and this rank's peak device memory."""
+    import torch
+
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.distributed as dist
+
+    dev = conf["device"]
+    cuda = dev.startswith("cuda")
+    ptt.set_device(dev)
+    if cuda:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for leg, fn in (("DX1", dx_collectives), ("DX2", dx_hybrid),
+                    ("DX3", dx_ring)):
+        dist.reset_collective_stats()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        res = fn(torch, conf)
+        if cuda:
+            torch.cuda.synchronize()
+        res["seconds"] = time.monotonic() - t0
+        res["collective_stats"] = dist.collective_stats()
+        res["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
+        out[leg] = res
+        if dist.get_rank() == 0:
+            log(f"{leg} rank 0: {res['seconds']:.1f}s")
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def dx_data_parallel(conf):
+    """DX4, one of 2 ranks: a conv net with SyncBatchNorm under
+    DataParallel on this rank's half of a seeded global batch; its first
+    step's gradients and batch-norm statistics against the same net (with
+    BatchNorm2D) on the whole batch in this process; then timed steps."""
+    import torch
+
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.mesh import build_mesh, set_mesh
+
+    dev, c = conf["device"], conf["dx4"]
+    cuda = dev.startswith("cuda")
+    ptt.set_device(dev)
+    if cuda:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    set_mesh(build_mesh())
+    dist.reset_collective_stats()
+    n, r = dist.get_world_size(), dist.get_rank()
+    gen = torch.Generator().manual_seed(SEED + 93)
+    x = torch.randn(c["B"], c["C"], c["HW"], c["HW"], generator=gen)
+    x += torch.arange(c["B"], dtype=torch.float32)[:, None, None, None] / 4
+    y = torch.randint(0, 10, (c["B"],), generator=gen)
+
+    def build(norm):
+        ptt.seed(SEED)
+        return nn.Sequential(nn.Conv2D(c["C"], c["F"], 3, padding=1),
+                             norm(c["F"]), nn.ReLU(), nn.Flatten(),
+                             nn.Linear(c["F"] * c["HW"] ** 2, 10)).to(dev)
+
+    ref = build(nn.BatchNorm2D)
+    F = torch.nn.functional
+    F.cross_entropy(ref(x.to(dev)), y.to(dev)).backward()
+    rows = slice(r * c["B"] // n, (r + 1) * c["B"] // n)
+    t0 = time.monotonic()
+    net = dist.DataParallel(build(nn.SyncBatchNorm))
+    F.cross_entropy(net(x[rows].to(dev)), y[rows].to(dev)).backward()
+    # against the largest gradient of all: the conv bias feeds a batch
+    # norm, so its exact gradient is 0 and only rounding noise is left
+    top = max(float(q.grad.abs().max()) for q in ref.parameters())
+    errs = {k: float((p.grad - q.grad).abs().max()) / top
+            for (k, p), (_, q) in zip(net._layers.named_parameters(),
+                                      ref.named_parameters())}
+    worst = max(errs.values())
+    bn, bn_ref = net._layers[1], ref[1]
+    stats = max(float((bn._mean - bn_ref._mean).abs().max()),
+                float((bn._variance - bn_ref._variance).abs().max()))
+    assert worst <= 1e-4, errs
+    assert stats <= 1e-5, stats
+    opt = ptt.optimizer.Momentum(learning_rate=0.01,
+                                 parameters=list(net.parameters()))
+    opt.step()
+    opt.clear_grad()
+    if cuda:
+        torch.cuda.synchronize()
+    t1 = time.monotonic()
+    for _ in range(c["steps"]):
+        F.cross_entropy(net(x[rows].to(dev)), y[rows].to(dev)).backward()
+        opt.step()
+        opt.clear_grad()
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t1
+    return {"grad_rel_err": worst, "bn_stats_err": stats,
+            "timed_steps": c["steps"], "timed_seconds": wall,
+            "steps_per_s": c["steps"] / wall,
+            "seconds": time.monotonic() - t0,
+            "collective_stats": dist.collective_stats(),
+            "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+
+
+def dx_nccl(torch, gpu, conf):
+    """DX0: the NCCL route at world size 1 on this process's card: every
+    collective on card tensors, then ``fleet.init`` with every degree 1
+    training gpt_small f32 (dropout 0.1) for 2 steps through
+    ``train_batch``, bit for bit the plain ``train_batch``'s."""
+    import numpy as np
+    import torch.distributed as tdist
+
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.mesh import build_mesh, set_mesh
+
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    env = dist.init_parallel_env(backend="nccl")
+    assert tdist.get_backend() == "nccl" and env.world_size == 1
+    dist.reset_collective_stats()
+    try:
+        coll = dx_collectives(torch, conf)
+        stats = dist.collective_stats()
+        assert all(v["staged_bytes"] == 0 for v in stats.values()), stats
+        ids = np.random.RandomState(SEED + 92).randint(
+            0, 50304, size=(4, GPT_S)).astype(np.int32)
+        runs = {}
+        for route in ("plain", "fleet"):
+            ptt.seed(SEED)
+            net = _dx_gpt(torch, {}, "float32", conf["device"])
+            opt = ptt.optimizer.AdamW(learning_rate=1e-3, weight_decay=0.01,
+                                      multi_precision=True)
+            if route == "fleet":
+                fleet.init(is_collective=True,
+                           strategy=fleet.DistributedStrategy())
+                opt = fleet.distributed_optimizer(opt)
+            model = ptt.Model(net).prepare(optimizer=opt, loss=net.loss)
+            ptt.seed(SEED + 1)
+            t1 = time.monotonic()
+            losses = [model.train_batch([ids], [ids])[0] for _ in range(2)]
+            torch.cuda.synchronize()
+            runs[route] = dict(losses=losses, wall=time.monotonic() - t1,
+                               params=[p.detach().clone() for p in
+                                       net.parameters()],
+                               plan=model._plan is not None)
+            del model, opt, net
+        assert runs["fleet"]["plan"] and not runs["plain"]["plan"]
+        assert runs["fleet"]["losses"] == runs["plain"]["losses"], runs
+        assert all(torch.equal(a, b) for a, b in zip(
+            runs["fleet"]["params"], runs["plain"]["params"]))
+        stats = dist.collective_stats()
+    finally:
+        fleet._initialized, fleet._strategy = False, None
+        tdist.destroy_process_group()
+        set_mesh(build_mesh())
+    res = {"collective_errors": coll["errors"],
+           "losses": runs["fleet"]["losses"], "bit_equal": True,
+           "steps_per_s": 2 / runs["fleet"]["wall"],
+           "seconds": time.monotonic() - t0, "collective_stats": stats,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"DX0[{gpu}]: nccl world 1: {len(coll['errors'])} collectives on "
+        f"card tensors equal the stacked semantics (largest error "
+        f"{max(coll['errors'].values()):.3e}); fleet.init(all degrees 1) "
+        f"gpt_small f32 2 train_batch steps bit-equal to the plain path "
+        f"(losses {runs['fleet']['losses']}); {res['seconds']:.1f}s, "
+        f"{res['steps_per_s']:.2f} steps/s, peak "
+        f"{res['peak_bytes'] / 2**20:.0f} MiB; collective_stats "
+        f"{json.dumps(stats)}")
+    return res
+
+
+def dx_chunk_timing(torch, gpu, conf):
+    """Kernels 4-6 at DX3's chunk shape ``[B, H/2, S/2, 64]`` bf16: a
+    full (non-causal) ring chunk's forward, dq and dk / dv kernels beside
+    the plain versions, the library (``scaled_dot_product_attention``,
+    forward; its backward through ``autograd.grad``) and the bound,
+    median (min-max) of 3 runs from CUDA events."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    c = conf["dx3"]
+    B, H, S, hd = c["B"], 12 // 2, c["S"] // 2, 64
+    gen = torch.Generator().manual_seed(SEED + 94)
+    scale = 1.0 / hd ** 0.5
+    copies = []
+    for _ in range(2):
+        q, k, v, do, out, lse = bwd_inputs(torch, fa, B, H, S, S, hd,
+                                           torch.bfloat16, gen,
+                                           causal=False)
+        copies.append((q, k, v, do, out, lse,
+                       (do.float() * out.float()).sum(-1)))
+    pairs = B * H * S * S
+    n_qkv = B * H * S * hd * 2
+    stats = 2 * B * H * S * 4
+    iters = max(3, int(2e13 // (4.0 * pairs * hd)))
+    with torch.no_grad():
+        fwd = runs_ms(torch, lambda q, k, v, *_: fa.flash_attention_fwd_lse(
+            q, k, v, False), copies, iters)
+        fwd_plain = runs_ms(torch, lambda q, k, v, *_:
+                            fa.flash_attention_fwd_lse_ref(q, k, v, False),
+                            copies, max(2, iters // 10))
+        fwd_lib = runs_ms(torch, lambda q, k, v, *_:
+                          F.scaled_dot_product_attention(q, k, v), copies,
+                          iters)
+        dq = runs_ms(torch, lambda q, k, v, do, o, l, d:
+                     fa.flash_attention_bwd_dq(q, k, v, do, l, d, False,
+                                               scale, 0), copies, iters)
+        dkv = runs_ms(torch, lambda q, k, v, do, o, l, d:
+                      fa.flash_attention_bwd_dkv(q, k, v, do, l, d, False,
+                                                 scale, 0), copies, iters)
+        bwd_plain = runs_ms(torch, lambda q, k, v, do, o, l, d:
+                            fa.flash_attention_bwd_ref(
+                                q, k, v, o, l, do, False, delta=d),
+                            copies, max(2, iters // 20))
+    graphs = []
+    for q, k, v, do, *_ in copies:
+        ins = tuple(t.detach().requires_grad_() for t in (q, k, v))
+        graphs.append((F.scaled_dot_product_attention(*ins), ins, do))
+    bwd_lib = runs_ms(torch, lambda o, ins, do: torch.autograd.grad(
+        o, ins, do, retain_graph=True), graphs, iters)
+    rows = {}
+    for key, ms, plain, lib, flops, nbytes in (
+            ("fwd", fwd, fwd_plain, fwd_lib, 4.0 * pairs * hd,
+             4 * n_qkv + B * H * S * 4),
+            ("dq", dq, bwd_plain, bwd_lib, 6.0 * pairs * hd,
+             5 * n_qkv + stats),
+            ("dkv", dkv, bwd_plain, bwd_lib, 8.0 * pairs * hd,
+             6 * n_qkv + stats)):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        rows[key] = dict(ms=ms[0], ms_range=[ms[1], ms[2]],
+                         plain_ms=plain[0], library_ms=lib[0],
+                         bound_ms=max(t_b, t_o) * 1e3,
+                         bound_by="bytes" if t_b >= t_o else "operations",
+                         shape=[B, H, S, hd], dtype="bfloat16",
+                         causal=False)
+        log(f"timing[{gpu}] DX3 ring chunk {key} bf16 non-causal "
+            f"[{B}, {H}, {S}, {hd}]: kernel {_spread(ms)} ms = "
+            f"{flops / ms[0] / 1e9:.1f} TFLOP/s, plain {_spread(plain)} ms, "
+            f"library {_spread(lib)} ms, bound {rows[key]['bound_ms']:.4f} "
+            f"ms by {rows[key]['bound_by']}")
+    del copies, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _dx_line(gpu, leg, per_rank):
+    mb = [round(r["peak_bytes"] / 2**20) for r in per_rank]
+    log(f"{leg}[{gpu}]: {len(per_rank)} ranks sharing the card over gloo "
+        f"(times measure kernels and host, no interconnect): seconds "
+        f"{[round(r['seconds'], 2) for r in per_rank]}, steps/s "
+        f"{[round(r.get('steps_per_s', 0.0), 3) for r in per_rank]}, peak "
+        f"MiB per rank {mb}; collective_stats rank 0 "
+        f"{json.dumps(per_rank[0]['collective_stats'])}")
+
+
+def dx_launches(dx, name, legs=("DX2", "DX3")):
+    """``{leg: [launches a timed step, rank by rank]}`` of one kernel."""
+    return {leg: [r["launches_per_step"][name] for r in dx[leg]]
+            for leg in legs}
+
+
+def distributed_phases(torch, gpu, conf=None):
+    """DX0-DX4 (see the module docstring); returns their records for the
+    kernels line and the ``{"distributed": ...}`` line."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed import spawn
+
+    conf = conf or dx_conf()
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share this card
+    log(f"DX: this process holds {torch.cuda.memory_allocated() / 2**20:.0f}"
+        f" MiB of the card before the ranks start")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dx_")
+    try:
+        t0 = time.monotonic()
+        refs = dx_references(torch, gpu, conf, workdir)
+        conf["dx2"].update(ref_path=refs["dx2"]["path"],
+                           ref_losses=refs["dx2"]["losses"])
+        conf["dx3"]["ref_losses"] = refs["dx3"]["losses"]
+        world = spawn(dx_rank, (conf,), nprocs=DX_RANKS, backend="gloo",
+                      timeout=DX_TIMEOUT).results
+        log(f"DX1-DX3: the 4-rank world in {time.monotonic() - t0:.1f}s "
+            f"(references included)")
+    finally:
+        import shutil
+
+        shutil.rmtree(workdir, ignore_errors=True)
+    dx1 = [w["DX1"] for w in world]
+    _dx_line(gpu, "DX1", dx1)
+    log(f"DX1[{gpu}]: {len(dx1[0]['errors'])} collectives on card tensors, "
+        f"each rank's slot = the stacked result; largest error "
+        f"{max(max(d['errors'].values()) for d in dx1):.3e}")
+    dx2 = [w["DX2"] for w in world]
+    _dx_line(gpu, "DX2", dx2)
+    log(f"DX2[{gpu}]: gpt_small f32 sharding 2 x model 2, "
+        f"{conf['dx2']['B']}x{conf['dx2']['S']}: losses {dx2[0]['losses']} "
+        f"(one rank {conf['dx2']['ref_losses']}, rel err "
+        f"{max(d['loss_rel_err'] for d in dx2):.2e}); gathered parameters "
+        f"rms err {max(d['param_rms_err'] for d in dx2):.2e} of the rms; "
+        f"local shapes {dx2[0]['shapes']}; launches a step "
+        f"{dx2[0]['launches_per_step']}")
+    dx3 = [w["DX3"] for w in world]
+    _dx_line(gpu, "DX3", dx3)
+    log(f"DX3[{gpu}]: sep 2 x model 2 ring, {conf['dx3']['B']}x"
+        f"{conf['dx3']['S']} bf16: losses {dx3[0]['losses']} (one rank "
+        f"{conf['dx3']['ref_losses']}, rel err "
+        f"{max(d['loss_rel_err'] for d in dx3):.2e}); chunks a layer per "
+        f"rank {[d['chunks_a_layer'] for d in dx3]}; launches a step per "
+        f"rank {[d['launches_per_step'] for d in dx3]}; chunk errors vs "
+        f"plain {[d['chunk_max_abs_err'] for d in dx3]} (gradients' L2 "
+        f"{max(d['chunk_grad_rel_l2'] for d in dx3):.2e} of the plain "
+        f"ones'); Ulysses vs ring "
+        f"hidden states max err "
+        f"{max(d['ulysses_vs_ring_max_abs_err'] for d in dx3):.3e}, L2 "
+        f"{max(d['ulysses_vs_ring_rel_l2'] for d in dx3):.2e} of theirs")
+    dx4 = spawn(dx_data_parallel, (conf,), nprocs=2, backend="gloo",
+                timeout=DX_TIMEOUT).results
+    _dx_line(gpu, "DX4", dx4)
+    log(f"DX4[{gpu}]: DataParallel + SyncBatchNorm, 2 ranks: gradients "
+        f"{max(d['grad_rel_err'] for d in dx4):.2e} of the largest from the "
+        f"whole batch's, statistics err "
+        f"{max(d['bn_stats_err'] for d in dx4):.2e}")
+    dx0 = dx_nccl(torch, gpu, conf)
+    chunk = dx_chunk_timing(torch, gpu, conf)
+    rec = {"device": gpu, "DX0": dx0, "DX1": dx1, "DX2": dx2, "DX3": dx3,
+           "DX4": dx4, "ring_chunk_timing": chunk,
+           "references": {k: {"losses": v["losses"],
+                              "seconds": v["seconds"]}
+                          for k, v in refs.items()}}
+    log(json.dumps({"distributed": rec}, default=float))
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -10810,7 +11617,7 @@ def main() -> int:
 
     gpu = gpu_line()
     log(gpu)  # name, power limit: as nvidia-smi prints them
-    start = time.monotonic()
+    start = _START[0] = time.monotonic()
 
     def mark(phases):
         log(f"smoke: {phases} begin at {time.monotonic() - start:.1f}s")
@@ -10836,12 +11643,16 @@ def main() -> int:
     max_err = check_kernels(torch)
     model = build_serve_model(torch)
     before = fingerprint(torch, model)
+    submark("served")
     served = serve(torch, gpu, model)
+    submark("rows")
     rows = timing(torch, gpu)
     log(f"serve[{gpu}]: launches per decode step / admission = "
         f"{served['launches_per_call']:.0f}")
+    submark("qmm_errs")
     qmm_errs = check_quantized_matmul(torch)
     qpaged_err = check_kernels_quantized(torch)
+    submark("qserved")
     qserved = {mode: serve(torch, gpu, model, quantized=mode)
                for mode in QUANT_MODES}
     assert fingerprint(torch, model) == before, \
@@ -10849,17 +11660,23 @@ def main() -> int:
     log("serve: the float model is bit-identical after both quantized "
         "engines")
     # the default serving engines, the hand-off and the swaps
+    submark("d1")
     d1, d1_outs = serve_dense(torch, gpu, model)
+    submark("d2")
     d2, _ = serve_dense(torch, gpu, model, continuous=False,
                         d1_outs=d1_outs)
+    submark("d3")
     d3 = bench_generate(torch, gpu)
+    submark("d4")
     d4 = {mode or "float": handoff(torch, gpu, model, quantized=mode)
           for mode in (None, "int8")}
+    submark("d5")
     d5 = weight_swaps(torch, gpu)
     log(json.dumps({"serving_engines": {
         "device": gpu, "dense_continuous": d1, "legacy": d2,
         "bench_gpt_generate": d3, "handoff": d4, "weight_swaps": d5}}))
     del model
+    submark("qrows")
     qrows = timing_quantized(torch, gpu)
     for name, r in (("float", served), *qserved.items()):
         log(f"engines[{gpu}] {name}: {r['tokens_per_s']:.1f} tokens/s, mean "
@@ -10961,6 +11778,12 @@ def main() -> int:
     # a step), the 1.x builders
     mark("sequence tagging (SQ1-SQ4)")
     tags = tagging_phases(torch, gpu)
+    # the distributed slice: collectives, DataParallel + SyncBatchNorm,
+    # gpt_small at sharding 2 x model 2 and the sep leg's ring attention
+    # (kernels 4-6 per chunk) as ranks sharing the card over gloo; the NCCL
+    # route at world size 1
+    mark("distributed (DX0-DX4)")
+    dx = distributed_phases(torch, gpu)
     paged = dict(name="paged_flash_decode", route="cuda",
                  source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
                  replaces="paddle_tpu/ops/paged_attention.py:155")
@@ -11032,7 +11855,9 @@ def main() -> int:
         # SQ3: the BERT-base CRF tagger's timed steps (24 + 24 a step), and
         # each shape of its check step held to plain on the path's inputs
         tagging_launches=tags["SQ3"]["launches"],
-        tagging_path_checks=tags["SQ3"]["kernel_path_checks"]))
+        tagging_path_checks=tags["SQ3"]["kernel_path_checks"],
+        # DX2 / DX3: every rank's GPT step, forward (backward the same)
+        distributed_launches_per_step=dx_launches(dx, "layernorm_residual")))
     kernels.append(dict(
         name="softmax_cross_entropy", route="cuda",
         source="paddle_tpu_torch/ops/csrc/fused_softmax_xent.cu",
@@ -11049,7 +11874,9 @@ def main() -> int:
             for name, dtype, M, V in SX_SHAPES[1:]},
         fit_o1_launches=fit["launches"]["softmax_cross_entropy"],
         graph_launches=k4["graph_launches"]["softmax_cross_entropy"],
-        static_launches=st["bert"]["launches"]["softmax_cross_entropy"]))
+        static_launches=st["bert"]["launches"]["softmax_cross_entropy"],
+        distributed_launches_per_step=dx_launches(
+            dx, "softmax_cross_entropy")))
     # the decode shape of the widest linear (fc1, M = 8), int8; launches
     # of the int8 and fp8 engines together; fp8 and fc2's decode and
     # admission shapes beside them
@@ -11140,7 +11967,12 @@ def main() -> int:
         replaces="paddle_tpu/ops/flash_attention.py:193",
         launches=long["launches"], max_abs_err=flash_err,
         **frows["slice"], nn_launches=nn_launches(0),
-        noncausal=noncausal("fwd", nn["N1"]["max_abs_err"]["fwd"])))
+        noncausal=noncausal("fwd", nn["N1"]["max_abs_err"]["fwd"]),
+        # DX3: the ring's launches a step per rank (the non-skipped chunks
+        # of JAX's schedule x 12 layers) and a full chunk's numbers
+        ring_launches_per_step=dx_launches(dx, "flash_attention", ("DX3",)),
+        ring_chunk=dict(dx["ring_chunk_timing"]["fwd"], max_abs_err=max(
+            d["chunk_max_abs_err"]["out"] for d in dx["DX3"]))))
     # the long-context training slice: launches of its timed train_batch
     # steps, numbers at its shape, bf16, causal; plain_ms and library_ms
     # are whole backwards (dq, dk and dv together), for both kernels
@@ -11156,7 +11988,11 @@ def main() -> int:
             nn_launches=nn_launches(1 if key == "dq" else 2),
             noncausal=noncausal(key, max(
                 nn["N1"]["max_abs_err"][g] for g in (
-                    ("dq",) if key == "dq" else ("dk", "dv"))))))
+                    ("dq",) if key == "dq" else ("dk", "dv")))),
+            ring_launches_per_step=dx_launches(dx, name, ("DX3",)),
+            ring_chunk=dict(dx["ring_chunk_timing"][key], max_abs_err=max(
+                d["chunk_max_abs_err"][g] for d in dx["DX3"]
+                for g in (("dq",) if key == "dq" else ("dk", "dv"))))))
     # the MoE slice: launches of its timed train_batch steps, numbers at the
     # slice's fc1 shape (bf16, a real routing); fc2 and the serving decode
     # shapes (float32) beside them

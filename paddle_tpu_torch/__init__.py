@@ -56,7 +56,12 @@ Ported so far:
   (``nn.functional``), the 1.x RNN and loss builders, ``fluid.dygraph``,
   ``fluid.metrics`` and ``fluid.io`` (the reference's binary
   persistables), so a 1.x BiGRU-CRF tagger trains through the static
-  graph, and a BERT CRF tagger through ``Model.train_batch``.
+  graph, and a BERT CRF tagger through ``Model.train_batch``;
+* distributed execution, one process per rank on ``torch.distributed``
+  (``distributed``): the rank mesh, the collectives, ``DataParallel``,
+  ``spawn`` / ``launch``, ``fleet`` with data parallelism x ZeRO-1 x
+  tensor parallelism through ``Model.prepare``, and ring / Ulysses
+  sequence parallelism on the flash-attention kernels.
 """
 from .tensor import *  # noqa: F401,F403  (the tensor functions, as JAX's)
 from . import tensor  # noqa: F401
@@ -69,6 +74,8 @@ from .framework.random import seed
 from .framework.serialization import load, save
 from .hapi import Model
 from .nn import ParamAttr
+from . import distributed  # noqa: E402
+from .distributed import DataParallel  # noqa: E402
 
 __version__ = "0.5.0"
 
@@ -80,6 +87,6 @@ def crop_tensor(x, shape=None, offsets=None, name=None):
 
 __all__ = ["seed", "set_device", "get_device", "Model", "ParamAttr", "save",
            "load", "static", "fluid", "enable_static", "disable_static",
-           "in_dygraph_mode", "crop_tensor",
+           "in_dygraph_mode", "crop_tensor", "distributed", "DataParallel",
            "amp", "io", "metric", "nn", "optimizer", "regularizer", "slim",
            "tuning", "vision", "__version__"]

@@ -9,9 +9,10 @@ port's 2.0 layers: ``Linear``, ``Conv2D``, ``BatchNorm``, ``Embedding``,
 ``origin_mode`` swapping the update formula) and ``NCE`` (uniform
 negatives from the device generator, or an ``nn.rng_scope``).  The
 re-exported jit names (``declarative``, ``ProgramTranslator``,
-``TracedLayer``, ``jit``), ``no_grad`` / ``grad`` / ``to_variable`` and
-the data-parallel names raise ``UnimplementedError`` naming their ROADMAP
-queue-A items.
+``TracedLayer``, ``jit``) and ``no_grad`` / ``grad`` / ``to_variable``
+raise ``UnimplementedError`` naming their ROADMAP queue-A item; the
+data-parallel names are ``distributed``'s ``DataParallel``,
+``ParallelEnv`` and ``prepare_context``.
 """
 from __future__ import annotations
 
@@ -39,7 +40,6 @@ __all__ = [
 ]
 
 _ITEM8 = "static graph and the long tail"
-_DIST = "distributed execution"
 jit = _unported("fluid.dygraph.jit", _ITEM8)
 declarative = _unported("fluid.dygraph.declarative", _ITEM8)
 ProgramTranslator = _unported("fluid.dygraph.ProgramTranslator", _ITEM8)
@@ -47,9 +47,8 @@ TracedLayer = _unported("fluid.dygraph.TracedLayer", _ITEM8)
 no_grad = _unported("fluid.dygraph.no_grad", _ITEM8)
 grad = _unported("fluid.dygraph.grad", _ITEM8)
 to_variable = _unported("fluid.dygraph.to_variable", _ITEM8)
-DataParallel = _unported("fluid.dygraph.DataParallel", _DIST)
-ParallelEnv = _unported("fluid.dygraph.ParallelEnv", _DIST)
-prepare_context = _unported("fluid.dygraph.prepare_context", _DIST)
+from ...distributed import (DataParallel, ParallelEnv,  # noqa: E402
+                            prepare_context)
 
 
 @contextlib.contextmanager

@@ -113,7 +113,8 @@ def _strategy_shim(name, field, instead):
             raise UnimplementedError(
                 f"fluid.optimizer.{name} rewrote the Program; here the "
                 f"capability is a fleet strategy toggle: set "
-                f"DistributedStrategy().{field} (see {instead}; fleet is "
+                f"DistributedStrategy().{field} and pass the optimizer "
+                f"through fleet.distributed_optimizer (see {instead}; "
                 f"ROADMAP queue A, distributed execution)")
 
     Shim.__name__ = name

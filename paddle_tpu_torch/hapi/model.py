@@ -38,10 +38,22 @@ On a CUDA device an execution after the first is one CUDA graph replay
 (``hapi/_graph_step.py``); on the CPU the k steps run eagerly in a loop
 with the same semantics.  ``train_batch`` stays one step.
 
-Not ported yet, each raising ``UnimplementedError``: fleet (distributed)
-optimizers (ROADMAP queue A, distributed execution) and
+With an optimizer from ``fleet.distributed_optimizer``, ``prepare``
+builds the strategy's ``distributed.fleet.ShardingPlan`` (``recompute``
+and ``sequence_parallel`` applied to the network first), as the JAX
+``prepare`` does: every rank runs the same program on the same global
+batch; the plan keeps this rank's rows, averages the gradients over the
+data axes, steps the optimizer (ZeRO-1 over ``sharding``) and the
+returned loss is the global mean.  Metrics, ``eval_batch`` and
+``predict_batch`` see every rank's rows; ``fit`` / ``evaluate`` drop a
+final batch that cannot split over the data shards (warning), ``predict``
+pads it and slices the padding off.  A plan does not compose with
+``steps_per_execution > 1`` (JAX's error).
+
+Not ported yet, each raising ``UnimplementedError``:
 ``save(training=False)``, the inference export (queue A, static graph and
-the long tail).
+the long tail), and ``save`` / ``load`` of a plan whose parameters or
+optimizer slots are sharded (queue A, distributed execution).
 """
 from __future__ import annotations
 
@@ -111,6 +123,14 @@ def _grouped(loader, spe: int):
         yield "single", b
 
 
+def _pad_rows(b, pad: int):
+    """``b`` with its last row repeated ``pad`` more times."""
+    if isinstance(b, torch.Tensor):
+        return torch.cat([b, b[-1:].expand(pad, *b.shape[1:])])
+    b = np.asarray(b)
+    return np.concatenate([b, np.repeat(b[-1:], pad, axis=0)])
+
+
 def _unported(what: str, item: str):
     raise UnimplementedError(
         f"Model: {what} is not ported yet (ROADMAP queue A, {item})")
@@ -137,6 +157,7 @@ class Model:
         self._sparse: Dict[int, str] = {}
         self._steps_per_execution = 1
         self._graph_steps: Optional[GraphSteps] = None
+        self._plan = None
         self._prepared = False
         self.stop_training = False
         self._save_dir = None
@@ -162,9 +183,12 @@ class Model:
                 f"{steps_per_execution} optimizer steps), not per step — "
                 "matching Keras. Scale the scheduler's step granularity "
                 "accordingly.", UserWarning)
-        if getattr(optimizer, "_fleet_strategy", None) is not None:
-            _unported("a fleet distributed optimizer",
-                      "distributed execution")
+        strategy = getattr(optimizer, "_fleet_strategy", None)
+        if strategy is not None and steps_per_execution > 1:
+            raise InvalidArgumentError(
+                "steps_per_execution > 1 does not yet compose with "
+                "fleet strategies (the plan wraps the single-step "
+                "executable); run with the default strategy")
         self._steps_per_execution = steps_per_execution
         self._graph_steps = None
         if steps_per_execution > 1:
@@ -182,13 +206,57 @@ class Model:
         amp = {k: v for k, v in dict(amp_configs or {}).items()
                if k in _AMP_KEYS}
         self._amp = amp if amp and amp.get("level", "O1") != "O0" else {}
-        if optimizer is not None and optimizer._params is None:
+        self._plan = None
+        if strategy is not None:
+            self._plan = self._fleet_plan(optimizer, strategy)
+        elif optimizer is not None and optimizer._params is None:
             optimizer._bind(self.network.named_parameters())
         self._sparse = sparse_param_names(self.network)
+        if self._sparse and self._plan is not None \
+                and self._plan.n_data_shards > 1:
+            _unported("sparse tables under data parallelism (the "
+                      "cross-replica SelectedRows reduction, "
+                      "all_gather_rows)", "distributed execution")
         self._optimizer = optimizer
         self._loss = loss
         self._prepared = True
         return self
+
+    def _fleet_plan(self, optimizer, strategy):
+        """The fleet path of ``prepare`` (the JAX ``prepare``'s): apply
+        ``recompute`` and ``sequence_parallel`` to the network, build the
+        ShardingPlan, place the network and bind the optimizer."""
+        from ..distributed.fleet.plan import ShardingPlan
+
+        net = self.network
+        if strategy.recompute:
+            from ..nn.recompute import apply_recompute
+
+            rc_cfg = strategy.recompute_configs or {}
+            if apply_recompute(net, rc_cfg.get("layer_classes"),
+                               rc_cfg.get("policy")) == 0:
+                warnings.warn(
+                    "strategy.recompute matched no block sublayers — "
+                    "pass recompute_configs={'layer_classes': [...]}",
+                    RuntimeWarning)
+        if strategy.sequence_parallel:
+            # route attention through ring/Ulysses over the sep axis
+            method = (strategy.sequence_parallel_configs or {}).get(
+                "method", "ring")
+            hits = 0
+            for sub in net.modules():
+                if hasattr(sub, "sequence_parallel") and hasattr(sub, "qkv"):
+                    sub.sequence_parallel = method
+                    hits += 1
+            if hits == 0:
+                warnings.warn(
+                    "strategy.sequence_parallel found no attention "
+                    "layers exposing a `sequence_parallel` knob",
+                    RuntimeWarning)
+        plan = ShardingPlan(net, optimizer, strategy)
+        plan.place_network()
+        plan.bind_optimizer()
+        return plan
 
     @property
     def device(self) -> torch.device:
@@ -202,6 +270,9 @@ class Model:
         dev = self.device
         batch = _tuplize(inputs) + (_tuplize(labels) if labels is not None
                                     else ())
+        if self._plan is not None:  # this rank's rows of the global batch
+            batch = self._plan.shard_batch(tuple(
+                b if hasattr(b, "shape") else np.asarray(b) for b in batch))
         return tuple(numpy_to_tensor(b, dev) if isinstance(
             b, (np.ndarray, np.generic, torch.Tensor))
             else torch.as_tensor(b, device=dev) for b in batch)
@@ -223,6 +294,10 @@ class Model:
 
     def _update_metrics(self, out, labels):
         results = []
+        if self._metrics and self._plan is not None:
+            # metrics see the global batch, as the JAX step's outputs are
+            out, labels = (self._plan.gather_batch(out),
+                           self._plan.gather_batch(tuple(labels)))
         outs = _tuplize(out)
         for m in self._metrics:
             computed = m.compute(outs[0], *labels)
@@ -255,6 +330,14 @@ class Model:
         execution's).  Returns the detached loss, the outputs and the
         labels."""
         self.network.train()
+        if self._plan is not None:
+            loss, out, labels = self._forward_loss(batch)
+            loss.backward()
+            self._plan.sync_gradients()
+            self._plan.step(plan)
+            for p in self.network.parameters():
+                p.grad = None
+            return self._plan.mean_loss(loss.detach()), out, labels
         if self._sparse:
             loss, out, labels = self._sparse_step(batch, plan)
         else:
@@ -328,6 +411,8 @@ class Model:
         self.network.eval()
         with torch.no_grad():
             loss, out, labels = self._forward_loss(batch)
+        if self._plan is not None:
+            loss = self._plan.mean_loss(loss)
         return loss, self._update_metrics(out, labels)
 
     def predict_batch(self, inputs):
@@ -336,16 +421,30 @@ class Model:
         batch = self._batch(inputs, None)
         self.network.eval()
         with torch.no_grad():
-            return self.network(*batch)
+            out = self.network(*batch)
+        if self._plan is not None:  # every rank's rows, in batch order
+            out = self._plan.gather_batch(out)
+        return out
 
     # -- loops ---------------------------------------------------------------
-    def _as_loader(self, data, batch_size, shuffle, drop_last, num_workers):
+    def _as_loader(self, data, batch_size, shuffle, drop_last, num_workers,
+                   allow_partial=False):
         """A Dataset becomes a DataLoader that stages batches onto the
         network's device; a DataLoader or any iterable of batches is used
-        as it is."""
+        as it is.  Under a plan a final batch that cannot split over the
+        data shards is dropped (with a warning) unless ``allow_partial``."""
         from ..io import DataLoader, Dataset
 
         if isinstance(data, Dataset):
+            if self._plan is not None and not allow_partial \
+                    and not drop_last:
+                if len(data) % batch_size:
+                    warnings.warn(
+                        f"dropping the final partial batch "
+                        f"({len(data) % batch_size} samples) — it cannot "
+                        f"split across {self._plan.n_data_shards} data "
+                        f"shards", RuntimeWarning)
+                drop_last = True
             return DataLoader(data, batch_size=batch_size, shuffle=shuffle,
                               drop_last=drop_last, num_workers=num_workers,
                               places=self.device)
@@ -470,12 +569,23 @@ class Model:
         batch (numpy; bf16 outputs as float32), or with
         ``stack_outputs=True`` the batches concatenated along axis 0."""
         loader = self._as_loader(test_data, batch_size, False, False,
-                                 num_workers)
+                                 num_workers, allow_partial=True)
         outputs = []
         for batch in loader:
             inputs, _ = self._split(batch, with_labels=False)
-            outputs.append(serialization._to_host(
-                self.predict_batch(inputs)))
+            pad = 0
+            if self._plan is not None:
+                # pad the partial final batch to shardability, slice it off
+                # after: predictions stay 1:1 with the dataset
+                n = int(inputs[0].shape[0])
+                pad = (-n) % self._plan.n_data_shards
+                if pad:
+                    inputs = tuple(_pad_rows(b, pad) for b in inputs)
+            out = serialization._to_host(self.predict_batch(inputs))
+            if pad:
+                out = (type(out)(o[:-pad] for o in out)
+                       if isinstance(out, (tuple, list)) else out[:-pad])
+            outputs.append(out)
         if stack_outputs and outputs:
             first = outputs[0]
             if isinstance(first, (tuple, list)):
@@ -495,6 +605,7 @@ class Model:
         if not training:
             _unported("save(training=False), the inference export",
                       "static graph and the long tail")
+        self._check_unsharded("save")
         serialization.save(self.network.state_dict(), path + ".pdparams")
         if self._optimizer is not None:
             st = self._optimizer._state
@@ -513,6 +624,7 @@ class Model:
         parameter's dtype and device) and, unless ``reset_optimizer``,
         ``path.pdopt`` into the prepared optimizer (slots, count, and the
         scheduler or learning rate)."""
+        self._check_unsharded("load")
         state = serialization.load(path + ".pdparams")
         missing = self.network.set_state_dict(state)
         if missing and not skip_mismatch:
@@ -532,6 +644,11 @@ class Model:
                     opt.set_lr(float(opt_state["lr"]))
                 opt.set_state_dict(flat)
         return self
+
+    def _check_unsharded(self, what):
+        if self._plan is not None and self._plan.sharded:
+            _unported(f"{what} of a plan with sharded parameters or "
+                      f"optimizer slots", "distributed execution")
 
     # -- misc ----------------------------------------------------------------
     def parameters(self):

@@ -9,9 +9,9 @@ Orders are host numpy, as in the JAX package: an epoch's permutation is
 is given, ``RandomSampler`` draws one from the port's CPU generator
 (``framework.random``, reseeded by ``paddle_tpu_torch.seed``) — the JAX
 package draws a JAX key there, so default shuffles differ between the
-packages.  ``DistributedBatchSampler`` needs ``num_replicas`` and ``rank``
-from the caller until the distributed environment is ported (ROADMAP
-queue A, distributed execution).
+packages.  ``DistributedBatchSampler`` takes ``num_replicas`` and
+``rank`` from the distributed environment unless the caller passes
+them.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..framework.errors import InvalidArgumentError, UnimplementedError
+from ..framework.errors import InvalidArgumentError
 from ..framework.random import default_generator
 
 __all__ = [
@@ -244,8 +244,9 @@ class BatchSampler(Sampler):
 class DistributedBatchSampler(BatchSampler):
     """Per-rank disjoint shard of the dataset (ref: batch_sampler.py:169).
 
-    ``num_replicas`` / ``rank`` are the caller's (the distributed
-    environment they default from is not ported yet).
+    ``num_replicas`` / ``rank`` default from the distributed environment
+    (the process group once joined, else ``PADDLE_TRAINERS_NUM`` /
+    ``PADDLE_TRAINER_ID``).
     ``set_epoch(e)`` reseeds the shuffle so every rank permutes identically.
     """
 
@@ -258,10 +259,12 @@ class DistributedBatchSampler(BatchSampler):
         self.shuffle = shuffle
         self.drop_last = drop_last
         if num_replicas is None or rank is None:
-            raise UnimplementedError(
-                "DistributedBatchSampler: num_replicas and rank default "
-                "from the distributed environment, which is not ported yet "
-                "(ROADMAP queue A, distributed execution); pass both")
+            from ..distributed import env as _denv
+
+            # the launch env / process group carries rank and world
+            num_replicas = (num_replicas if num_replicas is not None
+                            else _denv.process_count())
+            rank = rank if rank is not None else _denv.process_index()
         if rank >= num_replicas or rank < 0:
             raise InvalidArgumentError(f"rank {rank} out of range for {num_replicas} replicas")
         self.nranks = self.num_replicas = num_replicas

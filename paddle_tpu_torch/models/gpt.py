@@ -42,8 +42,20 @@ hand-off moves pages through :meth:`GPTModel.gather_pages` /
 > 0`` registers batched multi-LoRA adapter tables on every block projection
 (``lora.enable_lora``); ``forward_cached`` / ``forward_paged`` take per-row
 ``adapter_ids`` and scope them around the block stack, each adapted linear
-adding its delta through two ``grouped_matmul`` launches on the card.  Not
-ported yet (ROADMAP queue A): sequence/pipeline parallelism.
+adding its delta through two ``grouped_matmul`` launches on the card.
+
+Tensor parallelism (a ``model`` mesh axis, ``fleet.ShardingPlan``
+placing the weights): ``qkv`` is column-parallel over 3 fused blocks, so
+a rank computes its ``H / mp`` heads; ``out`` and ``fc2`` are
+row-parallel (one all-reduce each); the tied LM head multiplies by this
+rank's vocabulary rows and gathers the logits to the whole vocabulary
+before the loss, so ``softmax_cross_entropy`` sees whole rows.
+``GPTConfig.sequence_parallel`` ("ring" / "ulysses") runs each block's
+attention on this rank's sequence chunk over the ``sep`` axis
+(``distributed.sequence_parallel``: kernel 4 forward and kernels 5-6
+backward per ring chunk on the card); the rest of the block runs on the
+whole sequence, as the JAX package's GSPMD step leaves it.  Not ported
+yet (ROADMAP queue A): pipeline parallelism, and serving at ``mp > 1``.
 """
 from __future__ import annotations
 
@@ -147,8 +159,8 @@ class GPTConfig:
         self.dropout = dropout
         self.layer_norm_epsilon = layer_norm_epsilon
         self.dtype = dtype
-        # accepted for signature parity; GPTModel rejects non-defaults
-        # until their slices land
+        #: "ring" / "ulysses": attention over the ``sep`` mesh axis
+        #: (see distributed/sequence_parallel.py)
         self.sequence_parallel = sequence_parallel
         #: > 0 swaps every block's dense ParallelMLP for a
         #: ``moe.MoELayer`` with that many experts (top ``moe_top_k``
@@ -199,10 +211,6 @@ def gpt_small(**kw):
 
 
 def _unported(cfg: GPTConfig):
-    if cfg.sequence_parallel is not None:
-        raise UnimplementedError(
-            f"GPTConfig.sequence_parallel={cfg.sequence_parallel!r} is not "
-            f"ported yet (ROADMAP queue A, distributed execution)")
     if cfg.dtype not in _DTYPES:
         raise UnimplementedError(
             f"GPTConfig.dtype={cfg.dtype!r}: the port runs float32 or "
@@ -238,8 +246,18 @@ def _gather_attend(q, kv, gather_tab, mask):
     return torch.einsum("bhqc,bhcd->bhqd", probs, vview)
 
 
+def _mesh_degree(axis: str) -> int:
+    from ..distributed.mesh import get_mesh
+
+    return get_mesh().shape.get(axis, 1)
+
+
 class ParallelAttention(nn.Layer):
-    """Causal multi-head self-attention (single device: heads unsharded)."""
+    """Causal multi-head self-attention; over a ``model`` axis each rank
+    holds ``H / mp`` heads.  With ``sequence_parallel`` set
+    ("ring"/"ulysses") and a ``sep`` axis of size > 1, attention runs on
+    this rank's sequence chunk through ring attention or Ulysses (the
+    built-in causal mask only)."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -248,14 +266,19 @@ class ParallelAttention(nn.Layer):
             raise ValueError(f"hidden {d} % heads {h} != 0")
         self.num_heads = h
         self.head_dim = d // h
-        self.qkv = ColumnParallelLinear(d, 3 * d)
-        self.out = RowParallelLinear(d, d)
+        self.qkv = ColumnParallelLinear(d, 3 * d, gather_output=False,
+                                        partition_groups=3)
+        self.out = RowParallelLinear(d, d, input_is_parallel=True)
         self.drop = nn.Dropout(cfg.dropout)
+        self.sequence_parallel = cfg.sequence_parallel
 
     def _heads(self, x):
-        """qkv projection → per-head ``[B,H,S,hd]`` triples."""
+        """qkv projection → per-head ``[B,H,S,hd]`` triples (this rank's
+        heads)."""
         B, S, _ = x.shape
-        qkv = self.qkv(x).reshape(B, S, 3, self.num_heads, self.head_dim)
+        qkv = self.qkv(x)
+        qkv = qkv.reshape(B, S, 3, qkv.shape[-1] // (3 * self.head_dim),
+                          self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # [B,S,H,hd]
         return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
@@ -263,9 +286,12 @@ class ParallelAttention(nn.Layer):
         """Causal attention: the flash kernel where :meth:`_use_flash`
         admits it (long context on the card), else the dense einsum path
         of the JAX package."""
-        B, S, D = x.shape
+        B, S, _ = x.shape
         q, k, v = self._heads(x)
-        if self._use_flash(S, attn_mask, x):
+        if (self.sequence_parallel and attn_mask is None
+                and _mesh_degree("sep") > 1):
+            ctx = self._sp_attention(q, k, v)  # [B,H,S,hd]
+        elif self._use_flash(S, attn_mask, x):
             # O(S) attention memory: the [B, H, S, S] scores never exist
             ctx = flash_attention(q, k, v, causal=True)
         else:
@@ -279,18 +305,35 @@ class ParallelAttention(nn.Layer):
                 scores = scores + attn_mask.to(scores.dtype)
             probs = self.drop(torch.softmax(scores, dim=-1))
             ctx = torch.einsum("bhqk,bhkd->bhqd", probs, v)
-        return self.out(ctx.transpose(1, 2).reshape(B, S, D))
+        return self.out(ctx.transpose(1, 2).reshape(B, S, -1))
 
     def _use_flash(self, S, attn_mask, x) -> bool:
         """The JAX gate (``paddle_tpu/models/gpt.py`` ``_use_flash``) with
         "the activation is on CUDA" for "the backend is TPU": no extra
         mask, S >= 4096, S % 128 == 0, head_dim in {64, 128, 256}, no
-        probs-dropout in effect (p 0 or eval mode).  Training takes it
-        too: the flash backward kernels are the VJP."""
+        probs-dropout in effect (p 0 or eval mode), and no ``model`` /
+        ``sep`` sharding (JAX's clauses).  Training takes it too: the
+        flash backward kernels are the VJP."""
         return (attn_mask is None and S >= 4096 and S % 128 == 0
                 and self.head_dim in FLASH_HEAD_DIMS
                 and (self.drop.p == 0.0 or not self.training)
+                and _mesh_degree("model") == 1
+                and _mesh_degree("sep") == 1
                 and x.device.type == "cuda")
+
+    def _sp_attention(self, q, k, v):
+        """This rank's sequence chunk through ring attention or Ulysses
+        over ``sep``; the chunks are joined again (the JAX ``shard_map``
+        over ``P(batch, model, "sep", None)``)."""
+        from ..distributed.sequence_parallel import (
+            ring_attention_sharded,
+            ulysses_attention_sharded,
+        )
+
+        fn = (ulysses_attention_sharded
+              if self.sequence_parallel == "ulysses"
+              else ring_attention_sharded)
+        return fn(q, k, v, axis="sep", causal=True)
 
     def forward_cached(self, x, kv, write, mask):
         """One attention step over a ring KV cache (``GPTModel.init_cache``)
@@ -361,8 +404,10 @@ class ParallelMLP(nn.Layer):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         self.fc1 = ColumnParallelLinear(cfg.hidden_size,
-                                        cfg.intermediate_size)
-        self.fc2 = RowParallelLinear(cfg.intermediate_size, cfg.hidden_size)
+                                        cfg.intermediate_size,
+                                        gather_output=False)
+        self.fc2 = RowParallelLinear(cfg.intermediate_size, cfg.hidden_size,
+                                     input_is_parallel=True)
         self.act = nn.GELU()
         self.drop = nn.Dropout(cfg.dropout)
 
@@ -763,7 +808,18 @@ class GPTForCausalLM(nn.Layer):
     def _logits(self, h):
         # jnp.einsum promotes: under amp O2 the table is bf16 beside ln_f's
         # float32 output
-        return torch.matmul(*promote(h, self.gpt.wte.weight.t()))
+        wte = self.gpt.wte
+        parts = wte.num_embeddings // wte.weight.shape[0]
+        if parts == 1:
+            return torch.matmul(*promote(h, wte.weight.t()))
+        # a vocabulary-sharded table: this rank's logit columns, gathered
+        # to the whole vocabulary (the JAX constrain to replicated)
+        from ..distributed.meta_parallel import (_model_group, copy_to,
+                                                 gather_from)
+
+        g = _model_group(parts, wte)
+        local = torch.matmul(*promote(copy_to(h, g), wte.weight.t()))
+        return gather_from(local, g, -1)
 
     def forward(self, input_ids, attn_mask=None):
         # the MoE blocks' load-balance losses (None for a dense model);

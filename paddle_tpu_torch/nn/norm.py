@@ -10,7 +10,7 @@ maps them 1:1.  In training the layer writes the statistics that
 buffers in place (rounded to the buffers' dtype); the JAX package assigns
 them functionally.  ``weight_attr`` / ``bias_attr`` are ``ParamAttr`` objects
 (initializer, trainable, name), ``False`` for none.  ``SyncBatchNorm``
-raises: it comes with distributed execution (ROADMAP queue A).
+averages the batch statistics over the mesh's data axes.
 
 ``SpectralNorm`` keeps its power-iteration vectors in the non-persistent
 buffers ``weight_u`` ``[h]`` and ``weight_v`` ``[w]``, as in the JAX
@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..framework.errors import UnimplementedError
+from ..framework.errors import InvalidArgumentError
 from ..tensor._common import t as _t
 from . import functional as PF
 from .functional import activation as _A
@@ -140,19 +140,80 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """Cross-replica batch norm: comes with distributed execution (ROADMAP
-    queue A) and raises until then."""
+    """Cross-replica batch norm (ref: operators/sync_batch_norm_op.cu —
+    NCCL partial sums across ranks).  In training the per-channel mean and
+    mean of squares of this rank's batch are averaged over the mesh's
+    data axes (``data`` / ``sharding``; ``axis_name=`` names others), so
+    every rank normalizes with the global batch's statistics, as the JAX
+    layer's ``pmean`` does; the averages are differentiable.  One rank
+    (or eval mode): the plain batch norm."""
 
-    def __init__(self, *args, **kwargs):
-        raise UnimplementedError(
-            "SyncBatchNorm is not ported yet (ROADMAP queue A, distributed "
-            "execution)")
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, axis_name=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, None, name)
+        self.axis_name = axis_name
+
+    def _sync_group(self):
+        from ..distributed.mesh import data_axes, get_mesh
+
+        mesh = get_mesh()
+        axes = (data_axes(mesh) if self.axis_name is None
+                else (self.axis_name,) if isinstance(self.axis_name, str)
+                else tuple(self.axis_name))
+        for a in axes:
+            if a not in mesh.shape:
+                raise InvalidArgumentError(
+                    f"SyncBatchNorm(axis_name={self.axis_name!r}): axis "
+                    f"{a!r} is not a mesh axis (have {mesh.axis_names})")
+        g = mesh.group(tuple(axes))
+        return g if g.size > 1 else None
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        from ..distributed.collective import pmean
+
+        ch_axis = x.dim() - 1 if self.data_format in (
+            "NHWC", "NLC", "NDHWC") else 1
+        axes = tuple(i for i in range(x.dim()) if i != ch_axis)
+        xf = x.float()
+        mean = xf.mean(dim=axes)
+        meansq = xf.square().mean(dim=axes)
+        g = self._sync_group()
+        if g is not None:
+            mean = pmean(mean, g)
+            meansq = pmean(meansq, g)
+        var = meansq - mean.square()
+        with torch.no_grad():
+            m = self.momentum
+            self._mean.copy_(m * self._mean + (1 - m) * mean)
+            self._variance.copy_(m * self._variance + (1 - m) * var)
+        shape = [1] * x.dim()
+        shape[ch_axis] = x.shape[ch_axis]
+        out = (xf - mean.reshape(shape)) * torch.rsqrt(
+            var + self.epsilon).reshape(shape)
+        if self.weight is not None:
+            out = out * self.weight.reshape(shape)
+        if self.bias is not None:
+            out = out + self.bias.reshape(shape)
+        return out.to(x.dtype)
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):
-        raise UnimplementedError(
-            "SyncBatchNorm.convert_sync_batchnorm is not ported yet (ROADMAP "
-            "queue A, distributed execution)")
+        """Parity: paddle.nn.SyncBatchNorm.convert_sync_batchnorm — every
+        batch norm of ``layer`` (itself included) becomes a SyncBatchNorm
+        holding its state."""
+        if isinstance(layer, _BatchNormBase) and not isinstance(
+                layer, SyncBatchNorm):
+            new = cls(layer.num_features, layer.momentum, layer.epsilon,
+                      data_format=layer.data_format)
+            new.set_state_dict(layer.state_dict())
+            return new.to(layer._mean.device)
+        for name, sub in list(layer._modules.items()):
+            layer._modules[name] = cls.convert_sync_batchnorm(sub)
+        return layer
 
 
 class _Affine(Layer):

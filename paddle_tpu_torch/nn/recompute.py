@@ -184,11 +184,14 @@ def unmark_recompute(layer: Layer) -> Layer:
 
 
 def _repeated_blocks(network: Layer):
-    """The children of any ``LayerList`` / ``Sequential`` whose class
-    repeats there (transformer blocks, ResNet stages, ...)."""
+    """The children of any ``LayerList`` / ``Sequential`` — or the torch
+    containers a port model holds its blocks in, as GPT's
+    ``torch.nn.ModuleList`` — whose class repeats there (transformer
+    blocks, ResNet stages, ...)."""
     blocks = []
     for sub in network.modules():
-        if isinstance(sub, (LayerList, Sequential)):
+        if isinstance(sub, (LayerList, Sequential, torch.nn.ModuleList,
+                            torch.nn.Sequential)):
             children = list(sub)
             counts = Counter(type(c) for c in children)
             blocks += [c for c in children

@@ -21,8 +21,7 @@ from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
 from paddle_tpu.models.gpt import gpt_small as jax_gpt_small
 from paddle_tpu.models.gpt import gpt_tiny as jax_gpt_tiny
 from paddle_tpu_torch.bridge import load_jax_params
-from paddle_tpu_torch.framework.errors import (InvalidArgumentError,
-                                               UnimplementedError)
+from paddle_tpu_torch.framework.errors import InvalidArgumentError
 from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
                                          gpt_small, gpt_tiny)
 
@@ -199,5 +198,16 @@ def test_unported_configs_raise(kw):
         assert len(tabs) == 4 * TINY["num_layers"]
         assert tuple(net.gpt.blocks[0].attn.qkv.lora_A.shape) == (2, 32, 8)
         return
-    with pytest.raises(UnimplementedError, match="ROADMAP"):
-        GPTForCausalLM(GPTConfig(**TINY, **kw), device="cpu")
+    # ported since the distributed slice: every attention carries the
+    # knob; without a sep axis > 1 the model is the dense one (the sep
+    # cases: tests/test_torch_sequence_parallel.py)
+    from paddle_tpu_torch import seed
+
+    seed(0)
+    net = GPTForCausalLM(GPTConfig(**TINY, **kw), device="cpu").eval()
+    seed(0)
+    dense = GPTForCausalLM(GPTConfig(**TINY), device="cpu").eval()
+    assert all(b.attn.sequence_parallel == "ring" for b in net.gpt.blocks)
+    ids = torch.from_numpy(
+        np.random.RandomState(0).randint(0, TINY["vocab_size"], (2, 8)))
+    torch.testing.assert_close(net(ids), dense(ids), rtol=0, atol=0)

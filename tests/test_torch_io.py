@@ -20,8 +20,7 @@ import torch
 import paddle_tpu.io as jio
 import paddle_tpu_torch as tpt
 import paddle_tpu_torch.io as tio
-from paddle_tpu_torch.framework.errors import (InvalidArgumentError,
-                                               UnimplementedError)
+from paddle_tpu_torch.framework.errors import InvalidArgumentError
 
 
 def _arrays(n=23, seed=0):
@@ -198,8 +197,15 @@ def test_distributed_batch_sampler_matches_jax(rank, shuffle):
         t.set_epoch(epoch)
         j.set_epoch(epoch)
         assert list(t) == list(j) and len(t) == len(j)
-    with pytest.raises(UnimplementedError, match="distributed execution"):
-        tio.DistributedBatchSampler(tio.TensorDataset(_arrays()), 4)
+    # num_replicas / rank default from the distributed environment, as
+    # JAX's: one process before a group is joined (a joined world's
+    # defaults: tests/test_torch_distributed_training.py)
+    t = tio.DistributedBatchSampler(tio.TensorDataset(_arrays()), 4,
+                                    shuffle=shuffle)
+    j = jio.DistributedBatchSampler(jio.TensorDataset(_arrays()), 4,
+                                    shuffle=shuffle)
+    assert (t.num_replicas, t.rank) == (j.num_replicas, j.rank) == (1, 0)
+    assert list(t) == list(j)
 
 
 def _loader(io, **kw):

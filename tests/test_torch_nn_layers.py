@@ -20,8 +20,7 @@ import paddle_tpu.nn as jnn
 from paddle_tpu.nn import functional_call
 import paddle_tpu_torch as tpt
 import paddle_tpu_torch.nn as tnn
-from paddle_tpu_torch.framework.errors import (InvalidArgumentError,
-                                               UnimplementedError)
+from paddle_tpu_torch.framework.errors import InvalidArgumentError
 from paddle_tpu_torch.nn.initializer import fills_its_layers
 from torch_nn_pairs import bridged, check_pair, jax_params
 
@@ -193,8 +192,29 @@ def test_spectral_norm_as_jax(dim, iters):
 
 
 def test_sync_batch_norm_raises_naming_its_item():
-    with pytest.raises(UnimplementedError, match="distributed execution"):
-        tnn.SyncBatchNorm(4)
+    """Ported since the distributed slice: on one rank SyncBatchNorm is
+    JAX's (its statistics are the whole batch's) in training and eval,
+    and ``convert_sync_batchnorm`` swaps every batch norm keeping its
+    state.  Ranks that share a batch: tests/test_torch_distributed_training.py."""
+    rng = np.random.RandomState(4)
+    x = (rng.randn(6, 4, 3, 3) * 2 + 1).astype(np.float32)
+    tl, jl = tnn.SyncBatchNorm(4), jnn.SyncBatchNorm(4)
+    for training in (True, False):
+        tl.train(training)
+        jl.train() if training else jl.eval()
+        got = tl(torch.from_numpy(x)).detach().numpy()
+        want = np.asarray(jl(jnp.asarray(x)))
+        np.testing.assert_allclose(got, want, **TOL)
+        np.testing.assert_allclose(tl._mean.numpy(),
+                                   np.asarray(jl._mean.value), **TOL)
+        np.testing.assert_allclose(tl._variance.numpy(),
+                                   np.asarray(jl._variance.value), **TOL)
+    net = tnn.Sequential(tnn.Conv2D(3, 4, 1), tnn.BatchNorm2D(4))
+    with torch.no_grad():
+        net[1]._mean.fill_(0.5)
+    conv = tnn.SyncBatchNorm.convert_sync_batchnorm(net)
+    assert isinstance(conv[1], tnn.SyncBatchNorm)
+    assert float(conv[1]._mean[0]) == 0.5
 
 
 # -- loss layers -------------------------------------------------------------------

@@ -211,14 +211,24 @@ def test_unported_model_features_raise(tmp_path):
     (``amp_configs`` and ``fit`` are ported since the training-loop
     slice: tests/test_torch_hapi.py and test_torch_amp.py;
     ``steps_per_execution > 1`` since the k-step slice:
-    tests/test_torch_steps_per_execution.py)."""
-    net = tgpt.GPTForCausalLM(tgpt.gpt_tiny(), device="cpu")
+    tests/test_torch_steps_per_execution.py).  A fleet optimizer is
+    ported since the distributed slice: on one rank its plan trains
+    exactly as the plain step (more ranks:
+    tests/test_torch_distributed_training.py)."""
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+
+    losses = {}
+    for tagged in (False, True):
+        tpt.seed(0)
+        net = tgpt.GPTForCausalLM(tgpt.gpt_tiny(), device="cpu")
+        opt = tpt.optimizer.AdamW(1e-3, weight_decay=0.01)
+        if tagged:
+            opt._fleet_strategy = DistributedStrategy()
+        m = tpt.Model(net).prepare(optimizer=opt, loss=net.loss)
+        assert (m._plan is not None) == tagged
+        losses[tagged] = [m.train_batch(*b)[0] for b in _gpt_batches()]
+    assert losses[True] == losses[False]
     m = tpt.Model(net)
-    fleet = tpt.optimizer.SGD(0.1)
-    fleet._fleet_strategy = object()
-    with pytest.raises(UnimplementedError,
-                       match="ROADMAP.*distributed execution"):
-        m.prepare(optimizer=fleet, loss=net.loss)
     m.prepare(optimizer=tpt.optimizer.SGD(0.1), loss=net.loss,
               amp_configs="O1")
     with pytest.raises(UnimplementedError, match="ROADMAP.*static graph"):
