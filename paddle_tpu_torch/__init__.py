@@ -60,8 +60,11 @@ Ported so far:
 * distributed execution, one process per rank on ``torch.distributed``
   (``distributed``): the rank mesh, the collectives, ``DataParallel``,
   ``spawn`` / ``launch``, ``fleet`` with data parallelism x ZeRO-1 x
-  tensor parallelism through ``Model.prepare``, and ring / Ulysses
-  sequence parallelism on the flash-attention kernels.
+  tensor parallelism through ``Model.prepare``, ring / Ulysses sequence
+  parallelism on the flash-attention kernels, pipeline parallelism
+  (GPipe and 1F1B), the fp16_allreduce / LocalSGD / Geo-SGD / DGC plans,
+  sparse tables under data parallelism, the ``expert`` axis, and each
+  rank's own dropout streams.
 """
 from .tensor import *  # noqa: F401,F403  (the tensor functions, as JAX's)
 from . import tensor  # noqa: F401

@@ -4,8 +4,11 @@ layers (port of ``paddle_tpu.distributed``).
 One process per rank on ``torch.distributed`` (NCCL between cards, gloo
 on the CPU or for ranks sharing a card); the JAX package's stacked
 single-controller collectives become per-rank calls that return this
-rank's slot (``collective``).  Not ported yet (ROADMAP queue A): the
-gang / heartbeat supervisor (fault tolerance) and pipeline parallelism.
+rank's slot (``collective``).  Pipeline parallelism runs an explicit
+per-rank schedule over the ``pipe`` axis (``pipeline_parallel``).  Not
+ported yet (ROADMAP queue A, control plane and operations): the gang /
+heartbeat supervisor (fault tolerance); of ``gang`` only ``mean_trees``
+is here.
 """
 from .env import (  # noqa: F401
     ParallelEnv,
@@ -79,6 +82,14 @@ from ..nn.recompute import recompute  # noqa: F401,E402
 from . import launch  # noqa: F401,E402
 from . import fleet  # noqa: F401,E402
 from . import meta_parallel  # noqa: F401,E402
+from . import pipeline_parallel  # noqa: F401,E402
+from .gang import mean_trees  # noqa: F401,E402
+from .pipeline_parallel import (  # noqa: F401,E402
+    pipeline_blocks,
+    pipeline_degree,
+    pipeline_train_step,
+    ring_buffer_slots,
+)
 from .sequence_parallel import (  # noqa: F401,E402
     ring_attention,
     ulysses_attention,

@@ -8,14 +8,16 @@ package's four lines, run on every rank:
     model = paddle_tpu_torch.Model(net); model.prepare(opt, loss); model.fit(...)
 
 ``init`` joins the process group (``init_parallel_env``) and builds the
-hybrid rank mesh; ``distributed_optimizer`` composes the strategy's
-optimizer-level features and tags the optimizer; ``Model.prepare`` turns
-the tag into a :class:`ShardingPlan`.  Parameter-server mode is rejected
-as in JAX.  Toggles whose plans are not ported yet — ``pipeline`` /
-``pp_degree > 1``, ``expert_parallel`` / ``ep_degree > 1``,
-``localsgd``, ``adaptive_localsgd``, Geo-SGD (``a_sync`` with
-``k_steps``), ``dgc`` and ``fp16_allreduce`` — raise
-``UnimplementedError`` citing distributed execution (ROADMAP queue A).
+hybrid rank mesh (``pipe``, ``data``, ``sharding``, ``sep``, ``expert``,
+``model``); ``distributed_optimizer`` composes the strategy's
+optimizer-level features (``lamb``, ``lars``, ``gradient_merge``, the DGC
+swap of a ``Momentum`` for ``DGCMomentum``) and tags the optimizer;
+``Model.prepare`` turns the tag into the strategy's plan: Geo-SGD
+(``a_sync`` with ``k_steps``), adaptive LocalSGD, LocalSGD, DGC,
+fp16_allreduce, else the :class:`ShardingPlan` (with a pipeline over
+``pipe``).  Parameter-server mode, and ``a_sync`` with ``k_steps=0``, are
+rejected as in JAX.  ``fleet.metrics``, ``fleet.utils`` and
+``fleet.data_generator`` are the JAX package's host modules.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from typing import Optional
 
 from ...framework.errors import InvalidArgumentError, UnimplementedError
 from .. import env as _env
+from . import data_generator, metrics, utils  # noqa: F401
+from .utils import HDFSClient, LocalFS  # noqa: F401  (ref fleet/utils)
 from ..mesh import build_mesh, get_mesh, set_mesh
 from .plan import ShardingPlan
 from .strategy import DistributedStrategy
@@ -30,6 +34,7 @@ from .strategy import DistributedStrategy
 __all__ = [
     "DistributedStrategy",
     "ShardingPlan",
+    "metrics",
     "init",
     "distributed_optimizer",
     "distributed_model",
@@ -46,11 +51,6 @@ _strategy: Optional[DistributedStrategy] = None
 _initialized = False
 
 
-def _unported(what: str):
-    raise UnimplementedError(
-        f"{what} is not ported yet (ROADMAP queue A, distributed execution)")
-
-
 def init(role_maker=None, is_collective: bool = True,
          strategy: Optional[DistributedStrategy] = None, devices=None):
     """Join the process group, build the hybrid mesh from the strategy
@@ -64,10 +64,6 @@ def init(role_maker=None, is_collective: bool = True,
             "covered by sharded arrays (see SURVEY §7 translation table)"
         )
     strategy = strategy or DistributedStrategy()
-    if strategy.pipeline or strategy.pp_degree > 1:
-        _unported("strategy.pipeline (pipeline parallelism)")
-    if strategy.expert_parallel or strategy.ep_degree > 1:
-        _unported("strategy.expert_parallel (the expert mesh axis)")
     _env.init_parallel_env()
     devices = (list(devices) if devices is not None
                else list(range(_env.get_world_size())))
@@ -113,8 +109,8 @@ def get_strategy() -> Optional[DistributedStrategy]:
 def distributed_optimizer(optimizer,
                           strategy: Optional[DistributedStrategy] = None):
     """Compose the strategy's optimizer-level features (``lamb``,
-    ``lars``, ``gradient_merge``) and tag the result for distributed
-    execution; ``Model.prepare`` builds the :class:`ShardingPlan` from the
+    ``lars``, ``gradient_merge``, the DGC swap) and tag the result for
+    distributed execution; ``Model.prepare`` builds the plan from the
     tag."""
     global _strategy
     if not _initialized:
@@ -131,6 +127,44 @@ def distributed_optimizer(optimizer,
         raise InvalidArgumentError(
             "pick ONE of strategy.localsgd / strategy.adaptive_localsgd "
             "(the reference meta-optimizers black-list each other)")
+    if st.dgc:
+        # reference: the DGC meta-optimizer applies only to Momentum
+        # (fleet/meta_optimizers/dgc_optimizer.py _can_apply); swap it for
+        # DGCMomentum, which compresses inside the DGCPlan's step
+        from ...optimizer.dgc import DGCMomentum
+        from ...optimizer.optimizer import Momentum as _Momentum
+
+        for other in ("localsgd", "adaptive_localsgd", "lamb", "lars",
+                      "gradient_merge"):
+            if getattr(st, other):
+                raise InvalidArgumentError(
+                    f"strategy.dgc does not compose with {other} (the "
+                    "reference meta-optimizers are mutually exclusive too)")
+        if not isinstance(optimizer, (DGCMomentum, _Momentum)):
+            raise InvalidArgumentError(
+                "strategy.dgc applies to a Momentum optimizer (reference "
+                "dgc_optimizer.py _can_apply)")
+        if not isinstance(optimizer, DGCMomentum):
+            if optimizer._multi_precision:
+                raise InvalidArgumentError(
+                    "strategy.dgc has no multi_precision support (the u/v "
+                    "accumulators are f32 already); construct the Momentum "
+                    "with multi_precision=False")
+            cfg = st.dgc_configs or {}
+            optimizer = DGCMomentum(
+                learning_rate=optimizer._learning_rate,
+                momentum=optimizer._momentum,
+                parameters=optimizer._params,
+                rampup_begin_step=int(cfg.get("rampup_begin_step", 0)),
+                rampup_step=int(cfg.get("rampup_step", 1)),
+                sparsity=cfg.get("sparsity", [0.999]),
+                use_nesterov=optimizer._nesterov,
+                # a regularizer object lives in _regularizer with
+                # _weight_decay zeroed — forward whichever is active
+                weight_decay=(optimizer._regularizer
+                              or optimizer._weight_decay),
+                grad_clip=optimizer._grad_clip,
+            )
     if st.a_sync and int((st.a_sync_configs or {}).get("k_steps", 0)) <= 0:
         raise UnimplementedError(
             "strategy.a_sync with k_steps=0 is PURE parameter-server async "
@@ -142,13 +176,6 @@ def distributed_optimizer(optimizer,
             "strategy.localsgd for periodic model averaging, and "
             "paddle.incubate.HostEmbeddingTable for beyond-HBM tables "
             "(the PS role's big-table job)")
-    for flag, what in (("localsgd", "strategy.localsgd"),
-                       ("adaptive_localsgd", "strategy.adaptive_localsgd"),
-                       ("a_sync", "strategy.a_sync Geo-SGD"),
-                       ("dgc", "strategy.dgc (DGCMomentum)"),
-                       ("fp16_allreduce", "strategy.fp16_allreduce")):
-        if getattr(st, flag):
-            _unported(what)
 
     from ...optimizer.optimizer import Lamb, Lars, Momentum
 
@@ -207,6 +234,12 @@ def distributed_model(model):
     if not isinstance(net, torch.nn.Module):
         raise InvalidArgumentError(
             "distributed_model expects a Layer or Model")
+    if _strategy is not None and (_strategy.localsgd
+                                  or _strategy.adaptive_localsgd):
+        raise InvalidArgumentError(
+            "strategy.localsgd only runs through Model.prepare/fit (the "
+            "per-replica state and sync schedule live in the Model's plan); "
+            "manual training loops would silently skip the averaging")
     plan = ShardingPlan(net, optimizer=None, strategy=_strategy,
                         mesh=get_mesh())
     plan.place_network()

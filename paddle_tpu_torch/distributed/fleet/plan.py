@@ -24,10 +24,22 @@ rank, so the plan does each step itself:
 * **clipping** (:meth:`_clip`): the norms of tensor-parallel gradient
   shards are summed over their axes before the scale is taken, so
   ``ClipGradByNorm`` / ``ClipGradByGlobalNorm`` see the whole
-  parameters.
+  parameters;
+* **sparse tables** (``Embedding(sparse=True)``): their SelectedRows
+  gradients are gathered over the data axes (``all_gather_rows``, scaled
+  by ``1/n``) where the dense leaves are averaged
+  (:meth:`reduce_gradients`), the reference's sparse all-reduce;
+* **pipeline** (``pipe`` > 1): stage ``s`` owns the blocks
+  ``pipeline_parallel.stage_bounds`` gives it; the optimizer is bound to
+  them and to the parameters outside the block stack (the embedding and
+  the head, which every stage keeps equal), and the other stages' blocks
+  on this rank are left as placed.
 
 ``gather_parameters`` returns the whole parameters on every rank (what
-the JAX package's arrays hold).
+the JAX package's arrays hold): tensor-parallel shards joined, each
+pipelined block from the stage that owns it.  :meth:`train_step` is the
+step ``Model.train_batch`` runs; the meta-optimizer plans
+(``fp16_allreduce``, ``localsgd``, ``geosgd``, ``dgc``) override it.
 """
 from __future__ import annotations
 
@@ -74,6 +86,59 @@ class ShardingPlan:
         #: ZeRO: name -> (dim, this rank's slice of the parameter)
         self._zero_shards: Dict[str, Tuple[int, torch.Tensor]] = {}
         self._placed = False
+        #: pipeline: block parameter name -> the stage that owns it
+        self.stage_of: Dict[str, int] = self._pipeline_owners()
+
+    def _pipeline_owners(self) -> Dict[str, int]:
+        pp = self.mesh.shape.get("pipe", 1)
+        if pp == 1:
+            return {}
+        from ..pipeline_parallel import stage_bounds
+
+        net = self.network
+        blocks = None
+        if hasattr(net, "pipeline_decompose"):
+            blocks = net.pipeline_decompose()["blocks"]
+        else:
+            for mod in net.modules():
+                if hasattr(mod, "pipeline_microbatches") and \
+                        hasattr(mod, "blocks"):
+                    blocks = list(mod.blocks)
+                    break
+        if not blocks:
+            return {}
+        names = {id(p): n for n, p in net.named_parameters()}
+        out = {}
+        for s in range(pp):
+            lo, hi = stage_bounds(len(blocks), pp, s)
+            for blk in blocks[lo:hi]:
+                for p in blk.parameters():
+                    out[names[id(p)]] = s
+        return out
+
+    @property
+    def pipe_index(self) -> int:
+        return self.mesh.group("pipe").index \
+            if self.mesh.shape.get("pipe", 1) > 1 else 0
+
+    def owns(self, name: str) -> bool:
+        """Whether this rank updates parameter ``name`` (under a pipeline,
+        another stage's block is not)."""
+        return self.stage_of.get(name, self.pipe_index) == self.pipe_index
+
+    def _require_pure_dp(self, feature: str):
+        """Plans that replace the gradient mean with their own exchange
+        compose only with pure data parallelism (the reference
+        meta-optimizers' ``_can_apply``; JAX's error)."""
+        for ax in ("model", "pipe", "sep", "sharding"):
+            if self.mesh.shape.get(ax, 1) > 1:
+                raise InvalidArgumentError(
+                    f"strategy.{feature} composes only with pure data "
+                    f"parallelism (mesh axis {ax!r} has size > 1)")
+
+    def opt_state(self):
+        """The optimizer state as ``Model._opt_state`` shows it."""
+        return self.optimizer._state if self.optimizer is not None else None
 
     @property
     def n_data_shards(self) -> int:
@@ -83,11 +148,17 @@ class ShardingPlan:
         return n
 
     @property
-    def sharded(self) -> bool:
-        """Whether a rank holds part of some parameter or optimizer slot
-        (tensor parallelism or ZeRO)."""
+    def sliced(self) -> bool:
+        """Whether a rank holds a slice of some parameter or optimizer
+        slot (tensor parallelism or ZeRO)."""
         return self._zero or any(self._sharded_axes(s)
                                  for s in self.param_specs.values())
+
+    @property
+    def sharded(self) -> bool:
+        """Whether a rank holds part of the parameters or optimizer slots
+        (a slice, or under a pipeline its stage's blocks only)."""
+        return self.sliced or bool(self.stage_of)
 
     def _sharded_axes(self, spec) -> List[Tuple[int, str]]:
         return [(d, a) for d, a in enumerate(spec)
@@ -134,6 +205,9 @@ class ShardingPlan:
                 g = self.mesh.group(a)
                 t = unshard(C._gather_list(g, t.contiguous(), "all_gather"),
                             d, getattr(p, "partition_groups", 1))
+            if name in self.stage_of:  # the owning stage's copy
+                t = C.broadcast(t.contiguous().clone(),
+                                src=self.stage_of[name], group="pipe")
             out[name] = t
         return out
 
@@ -183,12 +257,13 @@ class ShardingPlan:
         opt = self.optimizer
         from ...optimizer.optimizer import Lamb, Lars
 
-        if self.sharded and isinstance(opt, (Lamb, Lars)):
+        if self.sliced and isinstance(opt, (Lamb, Lars)):
             raise UnimplementedError(
                 f"{type(opt).__name__} takes whole-parameter norms; on "
                 f"sharded parameters it is not ported yet (ROADMAP queue A, "
                 f"distributed execution)")
-        params = dict(self.network.named_parameters())
+        params = {n: p for n, p in self.network.named_parameters()
+                  if self.owns(n)}
         if not self._zero:
             opt._bind(params)
             return
@@ -217,6 +292,53 @@ class ShardingPlan:
         C._all_reduce_coalesced(grads, self.data_group())
         inv = 1.0 / self.n_data_shards
         torch._foreach_mul_(grads, inv)
+
+    def reduce_gradients(self, grads: Dict[str, object]) -> Dict[str, object]:
+        """A ``{name: gradient}`` dict averaged over the data axes: the
+        dense leaves in one all-reduce per dtype, each SelectedRows leaf
+        gathered with its values scaled by ``1/n`` (``all_gather_rows``)."""
+        from ...framework.selected_rows import SelectedRows, all_gather_rows
+
+        n = self.n_data_shards
+        if n == 1:
+            return grads
+        dense = [g for g in grads.values()
+                 if g is not None and not isinstance(g, SelectedRows)]
+        C._all_reduce_coalesced(dense, self.data_group())
+        torch._foreach_mul_(dense, 1.0 / n)
+        return {k: (all_gather_rows(g, self.data_group(), scale=1.0 / n)
+                    if isinstance(g, SelectedRows) else g)
+                for k, g in grads.items()}
+
+    def sync_pipe_gradients(self):
+        """Sum the gradients of the parameters outside the block stack
+        over ``pipe`` (the 1F1B step: the embedding's on the first stage,
+        the head's on the last; the tied table gets both)."""
+        grads = []
+        for n, p in self.network.named_parameters():
+            if n in self.stage_of or not p.requires_grad:
+                continue
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        C._all_reduce_coalesced(grads, "pipe")
+
+    def train_step(self, model, batch, step_plan=None):
+        """One step of ``Model.train_batch`` on this rank's ``batch``
+        rows: forward, backward, the gradients averaged over the data
+        axes, the optimizer step.  Returns the global mean loss, the
+        outputs and the labels."""
+        if model._sparse:
+            loss, out, labels, grads = model._sparse_grads(batch)
+            self.step(step_plan, self.reduce_gradients(grads))
+        else:
+            loss, out, labels = model._forward_loss(batch)
+            loss.backward()
+            self.sync_gradients()
+            self.step(step_plan)
+        for p in self.network.parameters():
+            p.grad = None
+        return self.mean_loss(loss.detach()), out, labels
 
     def _clip(self, grads):
         """The optimizer's clip over whole parameters: the squared norms
@@ -248,17 +370,26 @@ class ShardingPlan:
         scale = clip.clip_norm / gnorm.clamp_min(clip.clip_norm)
         return {n: _scaled(g, scale) for n, g in grads.items()}
 
-    def step(self, plan=None):
+    def step(self, plan=None, grads=None):
         """The optimizer step on this rank's share, then the ZeRO
         all-gather of the updated slices.  ``plan``: the step's host half
-        (``Optimizer._plan``), where one was taken."""
+        (``Optimizer._plan``), where one was taken; ``grads``: a ``{name:
+        gradient}`` dict to step with (the parameters' ``.grad`` by
+        default)."""
         opt = self.optimizer
-        params = dict(self.network.named_parameters())
-        if not self.sharded:
-            opt.step() if plan is None else opt.step(_plan=plan)
+        params = {n: p for n, p in self.network.named_parameters()
+                  if self.owns(n)}
+        if not self.sliced:
+            args = () if grads is None else (
+                {n: grads.get(n) for n in opt._bound()},)
+            opt.step(*args) if plan is None else opt.step(*args, _plan=plan)
             return
-        grads = {n: p.grad for n, p in params.items()
-                 if p.requires_grad and p.grad is not None}
+        if grads is None:
+            grads = {n: p.grad for n, p in params.items()
+                     if p.requires_grad and p.grad is not None}
+        else:
+            grads = {n: g for n, g in grads.items()
+                     if n in params and g is not None}
         if opt._grad_clip is not None:
             grads = self._clip(grads)
         for n, (d, piece) in self._zero_shards.items():

@@ -247,9 +247,25 @@ def build_mesh(
     return mesh
 
 
+def _seed_streams(mesh: Mesh):
+    """Hand this rank's data x sharding and model coordinates to the
+    random streams (``framework.random.set_rank_coords``): a mesh over
+    the joined world gives every rank streams of its own."""
+    from ..framework import random as _random
+
+    if not dist.is_initialized() or dist.get_world_size() != mesh.size \
+            or mesh.size == 1:
+        _random.set_rank_coords()
+        return
+    c = mesh.coords(dist.get_rank())
+    data = c["data"] * mesh.shape["sharding"] + c["sharding"]
+    _random.set_rank_coords(data, c["model"], mesh.shape["model"])
+
+
 def set_mesh(mesh: Mesh):
     global _global_mesh
     _global_mesh = mesh
+    _seed_streams(mesh)
     return mesh
 
 
@@ -258,7 +274,7 @@ def get_mesh() -> Mesh:
     ranks (every rank in the ``data`` axis)."""
     global _global_mesh
     if _global_mesh is None:
-        _global_mesh = build_mesh()
+        set_mesh(build_mesh())
     return _global_mesh
 
 

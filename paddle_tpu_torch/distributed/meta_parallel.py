@@ -47,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from ..framework.errors import InvalidArgumentError, UnimplementedError
+from ..framework.selected_rows import current_tape, take_rows
 from ..nn.common import Embedding, Linear
 from ..nn.functional import embedding
 from ..ops.quantized_matmul import quantized_linear
@@ -347,20 +348,16 @@ class VocabParallelEmbedding(Embedding):
     (zeros elsewhere) and the lookups are summed over the group.
     N(0, 0.02²) init as in the JAX package.  ``sparse=True`` gives the
     table SelectedRows gradients inside a sparse-aware train step, as
-    ``nn.Embedding(sparse=True)`` does (on one model rank)."""
+    ``nn.Embedding(sparse=True)`` does; on a sharded table they hold this
+    rank's rows (local ids; an id another rank holds is the sentinel and
+    updates nothing), so a lazy rule touches this rank's looked-up rows
+    only."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  weight_attr=None, sparse: bool = False, name=None):
         super().__init__(num_embeddings, embedding_dim, sparse=sparse,
                          weight_attr=weight_attr, std=0.02)
         self.weight.partition_spec = PartitionSpec("model", None)
-
-    def shardable(self):
-        if self.sparse:
-            raise UnimplementedError(
-                "VocabParallelEmbedding(sparse=True) runs on one model rank "
-                "(SelectedRows over a sharded table: ROADMAP queue A, "
-                "distributed execution)")
 
     def forward(self, ids):
         rows = self.weight.shape[0]
@@ -372,6 +369,15 @@ class VocabParallelEmbedding(Embedding):
         ids = torch.as_tensor(ids, device=self.weight.device)
         off = ids - start
         miss = (off < 0) | (off >= rows)
+        tape = current_tape() if self.sparse else None
+        if tape is not None:
+            # this rank's rows through the tape; another rank's id is the
+            # sentinel `rows` (gathers zeros, its delta masked off)
+            local = off.masked_fill(miss, rows)
+            out = tape.tap(self.weight, self.weight, local,
+                           take_rows(self.weight.detach(), local, 0.0),
+                           ~miss)
+            return reduce_from(out, g)
         out = embedding(off.masked_fill(miss, 0), self.weight)
         out = out.masked_fill(miss[..., None], 0.0)
         return reduce_from(out, g)

@@ -107,25 +107,30 @@ class LookaheadOptimizer(_opt.Lookahead):
         super().__init__(inner_optimizer, alpha=alpha, k=k)
 
 
-def _strategy_shim(name, field, instead):
+def _strategy_shim(name, field, instead, ported=False):
+    """A 1.x optimizer that rewrote the Program: it raises, pointing at the
+    fleet strategy toggle that carries the capability (``ported``: the
+    toggle works in the port, so the error cites no ROADMAP item)."""
+    where = "" if ported else "; ROADMAP queue A, distributed execution"
+
     class Shim:
         def __init__(self, *a, **k):
             raise UnimplementedError(
                 f"fluid.optimizer.{name} rewrote the Program; here the "
                 f"capability is a fleet strategy toggle: set "
                 f"DistributedStrategy().{field} and pass the optimizer "
-                f"through fleet.distributed_optimizer (see {instead}; "
-                f"ROADMAP queue A, distributed execution)")
+                f"through fleet.distributed_optimizer (see {instead}"
+                f"{where})")
 
     Shim.__name__ = name
     Shim.__qualname__ = name
-    Shim.__shim__ = True
+    Shim.__shim__ = not ported
     return Shim
 
 
 PipelineOptimizer = _strategy_shim(
     "PipelineOptimizer", "pipeline=True, pipeline_configs={...}",
-    "distributed/pipeline_parallel.py")
+    "distributed/pipeline_parallel.py", ported=True)
 RecomputeOptimizer = _strategy_shim(
     "RecomputeOptimizer", "recompute=True, recompute_configs={...}",
     "nn/recompute.py")
@@ -134,7 +139,7 @@ GradientMergeOptimizer = _strategy_shim(
     "optimizer/gradient_merge.py")
 DGCMomentumOptimizer = _strategy_shim(
     "DGCMomentumOptimizer", "dgc=True, dgc_configs={...}",
-    "distributed/fleet/dgc.py")
+    "distributed/fleet/dgc.py", ported=True)
 DpsgdOptimizer = _strategy_shim(
     "DpsgdOptimizer", "(differential privacy not implemented)",
     "paddle.optimizer")

@@ -33,8 +33,9 @@ device assert), so :func:`safe_rows` maps every sentinel or out-of-range
 slot onto a copy of a valid slot — same id, same value, so the duplicate
 write carries the same bits — and says whether any valid slot exists.
 
-``all_gather_rows`` (the cross-replica sparse reduction) belongs to
-distributed execution and raises ``UnimplementedError``.
+:func:`all_gather_rows` is the cross-replica sparse reduction the data
+axes of a fleet plan run (``distributed.fleet``): each rank's rows,
+gathered.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .errors import InvalidArgumentError, UnimplementedError
+from .errors import InvalidArgumentError
 
 __all__ = ["SelectedRows", "sparse_tape", "current_tape", "tap_lookup",
            "sparse_param_names", "build_sparse_step", "all_gather_rows",
@@ -278,13 +279,34 @@ def tap_lookup(box, table, ids, num_embeddings: int,
     return tape.tap(box, table, ids, rows, valid)
 
 
-def all_gather_rows(sr: SelectedRows, axis_name: str, scale=1.0,
+def all_gather_rows(sr: SelectedRows, axis_name, scale=1.0,
                     wire_dtype=None) -> SelectedRows:
-    """The cross-replica SelectedRows reduction of the JAX package's
-    ``shard_map`` bodies."""
-    raise UnimplementedError(
-        "all_gather_rows is not ported yet (ROADMAP queue A, distributed "
-        "execution)")
+    """The cross-replica SelectedRows reduction (the reference's sparse
+    all-reduce, details/sparse_all_reduce_op_handle.cc): every rank's
+    ``(ids, values)`` over the group ``axis_name`` (a mesh axis name, a
+    tuple of them, or an ``AxisGroup``), joined in rank order — the rows
+    are gathered, never densified.  Duplicate ids across ranks merge by
+    sum downstream, so ``scale=1/n`` gives the dense mean.  ``wire_dtype``
+    sends the values in a reduced precision (the fp16_allreduce
+    composition; ids stay integers); they come back in ``sr``'s dtype.
+    Ranks whose row counts differ pad theirs with the sentinel id and
+    zero values (dropped by every update)."""
+    from ..distributed.collective import _gather_list, _group
+
+    g = _group(axis_name)
+    vals = sr.values * scale if scale != 1.0 else sr.values
+    wire = vals.to(wire_dtype) if wire_dtype is not None else vals
+    ids = sr.ids
+    if g.size > 1:
+        k = torch.tensor([ids.shape[0]], dtype=torch.int64, device=ids.device)
+        ks = [int(v) for v in torch.cat(_gather_list(g, k, "all_gather"))]
+        pad = max(ks) - ids.shape[0]
+        if pad:
+            ids = torch.cat([ids, ids.new_full((pad,), sr.height)])
+            wire = torch.cat([wire, wire.new_zeros((pad, wire.shape[1]))])
+    got_ids = torch.cat(_gather_list(g, ids.contiguous(), "all_gather"))
+    got = torch.cat(_gather_list(g, wire.contiguous(), "all_gather"))
+    return SelectedRows(got_ids, got.to(sr.values.dtype), sr.height)
 
 
 def sparse_param_names(layer) -> Dict[int, str]:

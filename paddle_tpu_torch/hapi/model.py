@@ -39,12 +39,19 @@ On a CUDA device an execution after the first is one CUDA graph replay
 with the same semantics.  ``train_batch`` stays one step.
 
 With an optimizer from ``fleet.distributed_optimizer``, ``prepare``
-builds the strategy's ``distributed.fleet.ShardingPlan`` (``recompute``
-and ``sequence_parallel`` applied to the network first), as the JAX
-``prepare`` does: every rank runs the same program on the same global
-batch; the plan keeps this rank's rows, averages the gradients over the
-data axes, steps the optimizer (ZeRO-1 over ``sharding``) and the
-returned loss is the global mean.  Metrics, ``eval_batch`` and
+builds the strategy's plan (``recompute``, ``pipeline`` and
+``sequence_parallel`` applied to the network first), as the JAX
+``prepare`` does — Geo-SGD, adaptive LocalSGD, LocalSGD, DGC,
+fp16_allreduce or the ``distributed.fleet.ShardingPlan``: every rank
+runs the same program on the same global batch; the plan keeps this
+rank's rows, reduces the gradients over the data axes its way (sparse
+tables' SelectedRows gathered, ``all_gather_rows``), steps the optimizer
+(ZeRO-1 over ``sharding``) and the returned loss is the global mean (a
+LocalSGD / Geo-SGD step between syncs returns this rank's: it makes no
+collective).  ``pipeline_configs={"schedule": "1f1b"}`` makes the train
+step the interleaved schedule over the network's ``pipeline_decompose()``
+(``accumulate_steps`` microbatches, ``distributed.pipeline_parallel``);
+GPipe runs the pipelined forward.  Metrics, ``eval_batch`` and
 ``predict_batch`` see every rank's rows; ``fit`` / ``evaluate`` drop a
 final batch that cannot split over the data shards (warning), ``predict``
 pads it and slices the padding off.  A plan does not compose with
@@ -131,6 +138,45 @@ def _pad_rows(b, pad: int):
     return np.concatenate([b, np.repeat(b[-1:], pad, axis=0)])
 
 
+class _PipelineRows:
+    """The per-metric ``compute()`` rows of a 1F1B step, one tuple a
+    metric (every stage holds them; ``Model._update_metrics`` feeds them
+    to ``update``)."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+
+def _select_plan(strategy):
+    """The plan class of a strategy, in the JAX ``prepare``'s order:
+    Geo-SGD (``a_sync`` with ``k_steps``), adaptive LocalSGD, LocalSGD,
+    DGC, fp16_allreduce, else the ShardingPlan."""
+    from ..distributed.fleet.plan import ShardingPlan
+
+    if strategy.a_sync and int(
+            (strategy.a_sync_configs or {}).get("k_steps", 0)) > 0:
+        from ..distributed.fleet.geosgd import GeoSgdPlan
+
+        return GeoSgdPlan
+    if strategy.adaptive_localsgd:
+        from ..distributed.fleet.localsgd import AdaptiveLocalSGDPlan
+
+        return AdaptiveLocalSGDPlan
+    if strategy.localsgd:
+        from ..distributed.fleet.localsgd import LocalSGDPlan
+
+        return LocalSGDPlan
+    if strategy.dgc:
+        from ..distributed.fleet.dgc import DGCPlan
+
+        return DGCPlan
+    if strategy.fp16_allreduce:
+        from ..distributed.fleet.fp16_allreduce import Fp16AllReducePlan
+
+        return Fp16AllReducePlan
+    return ShardingPlan
+
+
 def _unported(what: str, item: str):
     raise UnimplementedError(
         f"Model: {what} is not ported yet (ROADMAP queue A, {item})")
@@ -207,16 +253,13 @@ class Model:
                if k in _AMP_KEYS}
         self._amp = amp if amp and amp.get("level", "O1") != "O0" else {}
         self._plan = None
+        self._pipe_1f1b = None
+        self._pipeline_stats = {}
         if strategy is not None:
             self._plan = self._fleet_plan(optimizer, strategy)
         elif optimizer is not None and optimizer._params is None:
             optimizer._bind(self.network.named_parameters())
         self._sparse = sparse_param_names(self.network)
-        if self._sparse and self._plan is not None \
-                and self._plan.n_data_shards > 1:
-            _unported("sparse tables under data parallelism (the "
-                      "cross-replica SelectedRows reduction, "
-                      "all_gather_rows)", "distributed execution")
         self._optimizer = optimizer
         self._loss = loss
         self._prepared = True
@@ -224,10 +267,9 @@ class Model:
 
     def _fleet_plan(self, optimizer, strategy):
         """The fleet path of ``prepare`` (the JAX ``prepare``'s): apply
-        ``recompute`` and ``sequence_parallel`` to the network, build the
-        ShardingPlan, place the network and bind the optimizer."""
-        from ..distributed.fleet.plan import ShardingPlan
-
+        ``recompute``, ``pipeline`` and ``sequence_parallel`` to the
+        network, build the strategy's plan, place the network and bind the
+        optimizer."""
         net = self.network
         if strategy.recompute:
             from ..nn.recompute import apply_recompute
@@ -253,10 +295,52 @@ class Model:
                     "strategy.sequence_parallel found no attention "
                     "layers exposing a `sequence_parallel` knob",
                     RuntimeWarning)
-        plan = ShardingPlan(net, optimizer, strategy)
+        if strategy.pipeline or strategy.pp_degree > 1:
+            self._pipeline_prepare(strategy)
+        plan = _select_plan(strategy)(net, optimizer, strategy)
         plan.place_network()
         plan.bind_optimizer()
         return plan
+
+    def _pipeline_prepare(self, strategy):
+        """The pipeline branch of the JAX ``prepare``: the microbatch
+        count (``accumulate_steps``) reaches every pipeline-capable
+        sublayer (the GPipe schedule of the forward); ``"1f1b"`` makes
+        the train step the interleaved schedule over the network's
+        ``pipeline_decompose()``."""
+        net = self.network
+        pc = strategy.pipeline_configs or {}
+        micro = int(pc.get("accumulate_steps", 0)) or None
+        sched = str(pc.get("schedule", "gpipe")).lower()
+        if sched not in ("gpipe", "f-then-b", "1f1b"):
+            # the paddle idiom assigns pipeline_configs after construction,
+            # past DistributedStrategy.__post_init__
+            raise InvalidArgumentError(
+                "pipeline_configs['schedule'] must be 'gpipe'/'F-then-B'/"
+                f"'1F1B', got {sched!r}")
+        if sched == "1f1b":
+            if not hasattr(net, "pipeline_decompose"):
+                raise InvalidArgumentError(
+                    "pipeline schedule '1f1b' needs the network to "
+                    "implement pipeline_decompose() -> {'pre', 'blocks', "
+                    "'post'} (GPTForCausalLM does); in-forward pipelining "
+                    "supports GPipe only")
+            if list(net.named_buffers()):
+                raise InvalidArgumentError(
+                    "1F1B pipeline sections must be buffer-free "
+                    "(running-stat updates cannot cross the interleaved "
+                    "schedule)")
+            self._pipe_1f1b = micro or strategy.pp_degree
+        hits = 0
+        for sub in net.modules():
+            if hasattr(sub, "pipeline_microbatches"):
+                sub.pipeline_microbatches = micro
+                hits += 1
+        if hits == 0:
+            warnings.warn(
+                "strategy.pipeline: no sublayer exposes a "
+                "`pipeline_microbatches` knob — the model will not pipeline "
+                "(GPTModel-style block stacks do)", RuntimeWarning)
 
     @property
     def device(self) -> torch.device:
@@ -294,6 +378,13 @@ class Model:
 
     def _update_metrics(self, out, labels):
         results = []
+        if isinstance(out, _PipelineRows):
+            # 1F1B: compute() ran a microbatch at a time on the last stage
+            for m, rows in zip(self._metrics, out.rows):
+                rows = tuple(self._plan.gather_batch(r).cpu().numpy()
+                             for r in rows)
+                results.append(m.update(*rows))
+            return results
         if self._metrics and self._plan is not None:
             # metrics see the global batch, as the JAX step's outputs are
             out, labels = (self._plan.gather_batch(out),
@@ -330,14 +421,10 @@ class Model:
         execution's).  Returns the detached loss, the outputs and the
         labels."""
         self.network.train()
+        if self._pipe_1f1b is not None:
+            return self._pipeline_step(batch, plan)
         if self._plan is not None:
-            loss, out, labels = self._forward_loss(batch)
-            loss.backward()
-            self._plan.sync_gradients()
-            self._plan.step(plan)
-            for p in self.network.parameters():
-                p.grad = None
-            return self._plan.mean_loss(loss.detach()), out, labels
+            return self._plan.train_step(self, batch, plan)
         if self._sparse:
             loss, out, labels = self._sparse_step(batch, plan)
         else:
@@ -357,12 +444,10 @@ class Model:
         else:
             self._optimizer.step(*args, _plan=plan)
 
-    def _sparse_step(self, batch, plan=None):
-        """The step of a network with sparse tables: gradients from
-        ``build_sparse_step`` (SelectedRows for the tables), handed to the
-        optimizer by the names it is bound to."""
-        opt = self._optimizer
-        bound = opt._bound()
+    def _sparse_grads(self, batch):
+        """The forward and the differentiation of a network with sparse
+        tables (``build_sparse_step``): ``(loss, out, labels, grads)``,
+        ``grads`` by parameter name, SelectedRows for the tables."""
         params = dict(self.network.named_parameters())
         shapes = {n: tuple(params[n].shape) for n in self._sparse.values()
                   if params[n].requires_grad}
@@ -373,10 +458,75 @@ class Model:
 
         (loss, (out, labels)), grads = build_sparse_step(
             forward_loss, self._sparse, shapes)(params)
+        return loss, out, labels, grads
+
+    def _sparse_step(self, batch, plan=None):
+        """The step of a network with sparse tables: gradients from
+        ``build_sparse_step`` (SelectedRows for the tables), handed to the
+        optimizer by the names it is bound to."""
+        bound = self._optimizer._bound()
+        params = dict(self.network.named_parameters())
+        loss, out, labels, grads = self._sparse_grads(batch)
         by_id = {id(params[n]): g for n, g in grads.items()}
         self._step_optimizer({n: by_id.get(id(p)) for n, p in bound.items()},
                              plan)
         return loss, out, labels
+
+    def _pipeline_step(self, batch, plan=None):
+        """The 1F1B train step (the JAX ``prepare``'s interleaved
+        schedule): the first stage embeds and its ``pre`` backward takes
+        the schedule's input cotangent; the last stage runs the head and
+        the loss a microbatch at a time (and a metric's ``compute``); the
+        gradients of the parameters outside the block stack are summed
+        over ``pipe``, then averaged over the data axes and stepped.
+        ``_pipeline_stats`` holds the last step's schedule figures
+        (``pipeline_train_step``'s ``stats``)."""
+        from ..distributed.pipeline_parallel import pipeline_train_step
+
+        pl, net = self._plan, self.network
+        d = net.pipeline_decompose()
+        inputs, labels = self._split_batch(batch)
+        first = pl.pipe_index == 0
+        with self._amp_ctx():
+            if first:
+                x = d["pre"](*inputs)
+            else:  # read for its shape, dtype and device only
+                shape, dtype = d["act"](*inputs)
+                x = torch.empty(shape, dtype=dtype, device=self.device)
+
+            def head(y, lbl, _hp):
+                logits = d["post"](y)
+                return self._loss(*(_tuplize(logits) + tuple(lbl)))
+
+            def head_aux(y, lbl):
+                logits = _tuplize(d["post"](y))[0]
+                return tuple(_tuplize(m.compute(logits, *lbl))
+                             for m in self._metrics)
+
+            res = pipeline_train_step(
+                d["blocks"], x, tuple(labels), num_microbatches=
+                self._pipe_1f1b, schedule="1f1b", head_loss_fn=head,
+                head_aux_fn=head_aux if self._metrics else None,
+                return_dx=first, stats=self._pipeline_stats)
+        loss, dx = res[0], res[1]
+        if first:
+            x.backward(dx.to(x.dtype))
+        pl.sync_pipe_gradients()
+        pl.sync_gradients()
+        pl.step(plan)
+        for p in net.parameters():
+            p.grad = None
+        out = _PipelineRows(res[2]) if self._metrics else loss
+        return pl.mean_loss(loss.detach()), out, labels
+
+    @property
+    def _opt_state(self):
+        """The optimizer state (the JAX ``Model``'s): a plan's view where
+        the plan keeps per-rank replicas (``localsgd``, ``dgc``), else the
+        optimizer's ``{"count", "slots"}``."""
+        if self._plan is not None:
+            return self._plan.opt_state()
+        return self._optimizer._state if self._optimizer else None
 
     def _train_batches_device(self, batches):
         """Run ``len(batches) == steps_per_execution`` train steps in one

@@ -54,8 +54,12 @@ before the loss, so ``softmax_cross_entropy`` sees whole rows.
 attention on this rank's sequence chunk over the ``sep`` axis
 (``distributed.sequence_parallel``: kernel 4 forward and kernels 5-6
 backward per ring chunk on the card); the rest of the block runs on the
-whole sequence, as the JAX package's GSPMD step leaves it.  Not ported
-yet (ROADMAP queue A): pipeline parallelism, and serving at ``mp > 1``.
+whole sequence, as the JAX package's GSPMD step leaves it.  Pipeline
+parallelism (a ``pipe`` axis): the block stack runs as a GPipe schedule
+(``distributed.pipeline_parallel.pipeline_blocks``) between the
+replicated embedding and head, and :meth:`GPTForCausalLM.pipeline_decompose`
+hands ``Model.prepare``'s 1F1B step its sections.  Not ported yet
+(ROADMAP queue A): serving at ``mp > 1``.
 """
 from __future__ import annotations
 
@@ -75,7 +79,7 @@ from ..distributed.meta_parallel import (
 from ..framework.device import resolve_device, upload
 from ..framework.dtype import RAW_BITS, promote
 from ..framework.errors import InvalidArgumentError, UnimplementedError
-from ..framework.random import default_generator
+from ..framework.random import default_generator, model_parallel_rng
 from ..moe import MoELayer
 from ..nn.initializer import fills_its_layers
 from ..moe import stats as moe_stats
@@ -303,7 +307,9 @@ class ParallelAttention(nn.Layer):
                                         torch.finfo(scores.dtype).min)
             if attn_mask is not None:
                 scores = scores + attn_mask.to(scores.dtype)
-            probs = self.drop(torch.softmax(scores, dim=-1))
+            # this rank's heads: a column-parallel shard's mask
+            with model_parallel_rng():
+                probs = self.drop(torch.softmax(scores, dim=-1))
             ctx = torch.einsum("bhqk,bhkd->bhqd", probs, v)
         return self.out(ctx.transpose(1, 2).reshape(B, S, -1))
 
@@ -464,6 +470,9 @@ class GPTModel(nn.Layer):
             [GPTBlock(cfg) for _ in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size,
                                  epsilon=cfg.layer_norm_epsilon)
+        #: microbatch count for the pipeline schedule (None → pp); set by
+        #: Model.prepare from strategy.pipeline_configs["accumulate_steps"]
+        self.pipeline_microbatches = None
         if cfg.lora_capacity > 0:
             # zero-initialized adapter tables on every block projection
             # (an MoE block's experts are not parallel linears: qkv / out
@@ -489,11 +498,28 @@ class GPTModel(nn.Layer):
         return adapter_scope(adapter_ids)
 
     def forward(self, input_ids, attn_mask=None):
+        from ..distributed.pipeline_parallel import (pipeline_blocks,
+                                                     pipeline_degree)
+
         S = input_ids.shape[1]
         pos = torch.arange(S, device=input_ids.device)[None, :]
         x = self.drop(self.wte(input_ids) + self.wpe(pos))
-        for blk in self.blocks:
-            x = blk(x, attn_mask)
+        if pipeline_degree() > 1:
+            # embedding / head run replicated over `pipe`; the block stack
+            # is the pipelined section (distributed/pipeline_parallel.py)
+            if attn_mask is not None:
+                raise ValueError(
+                    "pipeline parallelism supports the built-in causal mask "
+                    "only (a per-batch attn_mask cannot microbatch-split)")
+            if any(b.attn.sequence_parallel for b in self.blocks):
+                raise ValueError(
+                    "pipeline (pp>1) and sequence parallelism cannot combine "
+                    "yet — ring/Ulysses attention opens its own schedule")
+            x = pipeline_blocks(self.blocks, x,
+                                num_microbatches=self.pipeline_microbatches)
+        else:
+            for blk in self.blocks:
+                x = blk(x, attn_mask)
         return self.ln_f(x)
 
     # -- ring KV cache (the default serving engine) ----------------------
@@ -829,6 +855,31 @@ class GPTForCausalLM(nn.Layer):
             h = self.gpt(input_ids, attn_mask)  # [B,S,D]
         self._moe_aux = ms.total_aux()
         return self._logits(h)  # [B,S,V]
+
+    # -- pipeline sections (the 1F1B train step, hapi/model.py) -------------
+    def pipeline_pre(self, input_ids):
+        """Embedding prologue — the first stage's section."""
+        S = input_ids.shape[1]
+        pos = torch.arange(S, device=input_ids.device)[None, :]
+        return self.gpt.drop(self.gpt.wte(input_ids) + self.gpt.wpe(pos))
+
+    def pipeline_post(self, h):
+        """Final norm + tied LM head — the last stage's section (the loss
+        composes outside)."""
+        return self._logits(self.gpt.ln_f(h))
+
+    def pipeline_decompose(self):
+        """(pre, blocks, post) for the interleaved 1F1B train step:
+        ``pre`` runs on the first stage, ``post`` on the last; ``blocks``
+        is the homogeneous pipelined section.  ``act(input_ids)`` gives
+        the section's activation shape and dtype, which the later stages
+        allocate without running ``pre`` (a key of the port's)."""
+        wte = self.gpt.wte.weight
+        return {"pre": self.pipeline_pre,
+                "blocks": list(self.gpt.blocks),
+                "post": self.pipeline_post,
+                "act": lambda ids: (tuple(ids.shape) + (wte.shape[1],),
+                                    wte.dtype)}
 
     def loss(self, logits, labels):
         """Shifted next-token cross entropy (labels = input_ids): the mean

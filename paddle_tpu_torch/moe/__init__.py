@@ -8,8 +8,9 @@
   balance loss and routed / dropped counters to whoever owns the call
   (stats.py).
 
-Single device: the ``expert`` mesh axis (expert-parallel all-to-alls)
-comes with distributed execution (ROADMAP queue A).
+Under ``fleet`` the layer routes the global batch, and an ``expert``
+mesh axis spreads the experts over ranks: an autograd all-to-all out,
+an all-gather back (layer.py).
 """
 from . import stats  # noqa: F401
 from .layer import MoELayer  # noqa: F401

@@ -37,6 +37,28 @@ card (counts stay device tensors):
   P_e`` (≈ 1 when balanced).  It and the per-expert routed / dropped
   counts ride :mod:`paddle_tpu_torch.moe.stats`.
 
+Under a fleet mesh the layer routes the GLOBAL batch, as the JAX
+package's GSPMD step does: the data ranks' tokens are all-gathered over
+the data axes (backward: the gradient summed over them, this rank's rows
+taken), so capacity, slot order and drops are one rank's over the whole
+batch, and each rank keeps its own rows of the output.  With an
+``expert`` axis of size ``ep`` (``strategy.expert_parallel``), the expert
+weights carry ``("expert", ...)`` specs and a rank holds ``E / ep``
+experts; every rank of an expert group routes the same tokens the same
+way (the routing counters are one rank's, on every rank), and:
+
+* the router's differentiable part runs a rank's ``1/ep`` share of the
+  tokens, its probabilities all-gathered; the gate is the Megatron ``f``
+  of the group (gradient summed over it), as is the layer's input;
+* a rank dispatches its share of the tokens into the ``[E, C, D]``
+  buffer, and the autograd all-to-all (``collective.all_to_all_single``)
+  brings each rank its experts' slots from every rank (summed: the slots
+  are disjoint);
+* kernel 10 computes the local experts' two products;
+* an all-gather over the group brings every rank every expert's output
+  (its backward sums the gradient over the group); a rank combines its
+  share of the tokens and the shares are all-gathered.
+
 Dense equivalence: with identical experts, ``top_k=1`` and capacity at
 least the token count, the combine weight is the constant 1 and dispatch
 and combine move each row unchanged, so the routed model computes the
@@ -52,6 +74,8 @@ import torch
 from .. import nn
 from ..framework.dtype import promote
 from ..framework.random import generator_for
+from ..distributed.mesh import PartitionSpec
+from ..framework.errors import InvalidArgumentError
 from ..nn.initializer import XavierNormal
 from ..ops.grouped_matmul import grouped_matmul
 from . import stats as moe_stats
@@ -81,6 +105,10 @@ class MoELayer(nn.Layer):
         self.expert_b1 = nn.Parameter(torch.empty(E, F))
         self.expert_fc2 = nn.Parameter(torch.empty(E, F, D))
         self.expert_b2 = nn.Parameter(torch.empty(E, D))
+        for w in (self.expert_fc1, self.expert_fc2):
+            w.partition_spec = PartitionSpec("expert", None, None)
+        for b in (self.expert_b1, self.expert_b2):
+            b.partition_spec = PartitionSpec("expert", None)
         self.act = nn.GELU()
         self.drop = nn.Dropout(cfg.dropout)
 
@@ -127,19 +155,20 @@ class MoELayer(nn.Layer):
         runs, as the JAX package's does off the TPU."""
         return xe.device.type == "cuda"
 
-    def _route(self, xf, C):
-        """The router: ``(probs [N, E] float32, combine_w [N, k] float32,
-        top_e [N, k], slot [N, k], kept [N, k])`` for the ``[N, D]`` rows
-        ``xf`` and ``C`` slots an expert."""
-        N, E, k = xf.shape[0], self.num_experts, self.top_k
-        gate_in = xf
+    def _gate_input(self, xf):
+        """The router's input: ``xf``, times uniform jitter in training."""
         if self.training and self.jitter > 0.0:
             eps = self.jitter
             noise = torch.empty_like(xf).uniform_(
                 1.0 - eps, 1.0 + eps, generator=generator_for(xf.device))
-            gate_in = xf * noise
-        logits = torch.matmul(*promote(gate_in, self.gate))
-        probs = torch.softmax(logits.float(), dim=-1)
+            return xf * noise
+        return xf
+
+    def _route(self, probs, C):
+        """The router's decisions from its ``[N, E]`` float32
+        probabilities: ``(probs, combine_w [N, k] float32, top_e [N, k],
+        slot [N, k], kept [N, k])`` with ``C`` slots an expert."""
+        N, E, k = probs.shape[0], self.num_experts, self.top_k
         # jax.lax.top_k: ties go to the lower expert index
         sorted_p, order = torch.sort(probs, dim=-1, descending=True,
                                      stable=True)
@@ -163,9 +192,9 @@ class MoELayer(nn.Layer):
         return probs, combine_w, top_e, slot, kept
 
     def _dispatch(self, xf, top_e, slot, kept, combine_w, C):
-        """The one-hot dispatch: ``(xe [E, C, D], comb [N, E, C] float32,
-        selected [E])`` — each kept (token, choice) row copied into its
-        expert's slot, and the combine weights that bring them back."""
+        """The one-hot dispatch: ``(xe [E, C, D], comb [N, E, C] float32)``
+        — each kept (token, choice) row copied into its expert's slot, and
+        the combine weights that bring them back."""
         N, D = xf.shape
         E = self.num_experts
         onehot = torch.nn.functional.one_hot(top_e, E)       # [N, k, E]
@@ -181,7 +210,7 @@ class MoELayer(nn.Layer):
                             cap_oh.float())                   # float32
         # xe = einsum("nec,nd->ecd", disp, xf): one product over n
         xe = torch.matmul(disp.reshape(N, E * C).t(), xf).reshape(E, C, D)
-        return xe, comb, onehot.sum((0, 1))
+        return xe, comb
 
     def _combine(self, comb, ye):
         """``y = einsum("nec,ecd->nd", comb, ye)``, comb in ye's dtype."""
@@ -191,20 +220,104 @@ class MoELayer(nn.Layer):
                             ye.reshape(E * C, D))
 
     def forward(self, x):
-        lead = x.shape[:-1]
-        D = x.shape[-1]
+        """The layer on this rank's rows; under a fleet mesh (the module
+        docstring) with the data-axes group and the expert group, each
+        ``None`` where of size 1, so one device runs the same steps with
+        no collective: its share is every token and it holds every
+        expert."""
+        from ..distributed.collective import all_to_all_single
+        from ..distributed.meta_parallel import copy_to, gather_from
+
+        lead, D = x.shape[:-1], x.shape[-1]
         E, k = self.num_experts, self.top_k
+        dg, eg = _groups()
         xf = x.reshape(-1, D)
+        n_local = xf.shape[0]
+        gin = self._gate_input(xf)
+        jittered = gin is not xf
+        if dg is not None:  # the global batch, in data-rank order
+            xf = _GatherRows.apply(xf, dg)
+            gin = _GatherRows.apply(gin, dg) if jittered else xf
         N = xf.shape[0]
         C = self.capacity(N)
-        probs, combine_w, top_e, slot, kept = self._route(xf, C)
-        xe, comb, selected = self._dispatch(xf, top_e, slot, kept,
-                                            combine_w, C)
+        ep, r = (eg.size, eg.index) if eg is not None else (1, 0)
+        if E % ep:
+            raise InvalidArgumentError(
+                f"MoELayer: {E} experts do not split over an expert axis "
+                f"of {ep} ranks")
+        gate = self.gate
+        if eg is not None:  # the Megatron f: gradients summed over eg
+            xf = copy_to(xf, eg)
+            gin = copy_to(gin, eg) if jittered else xf
+            gate = copy_to(gate, eg)
+        # the router's differentiable part on this rank's token share
+        share = slice(N * r // ep, N * (r + 1) // ep)
+        probs = torch.softmax(
+            torch.matmul(*promote(gin[share], gate)).float(), dim=-1)
+        if eg is not None:
+            probs = gather_from(probs, eg, 0)
+        probs, combine_w, top_e, slot, kept = self._route(probs, C)
+        xe, comb = self._dispatch(xf[share], top_e[share], slot[share],
+                                  kept[share], combine_w[share], C)
+        selected = torch.nn.functional.one_hot(top_e, E).sum((0, 1))
         routed = torch.clamp(selected, max=C).to(torch.int32)
-        y = self._combine(comb, self._expert_ffn(xe, routed))
+        El = E // ep
+        if eg is not None:
+            # each rank's slots of this rank's experts, summed (disjoint)
+            xe = all_to_all_single(xe, eg, 0, 0).reshape(
+                ep, El, C, D).sum(0)
+        ye = self._expert_ffn(xe, routed[r * El:(r + 1) * El])
+        if eg is not None:  # every expert's output on every rank
+            ye = _GatherRows.apply(ye, eg)
+        y = self._combine(comb, ye)
+        if eg is not None:
+            y = gather_from(y, eg, 0)
+        if dg is not None:
+            y = y[dg.index * n_local:(dg.index + 1) * n_local]
 
         # Switch load-balance loss: E * sum_e f_e * P_e  (≈ 1 balanced)
         f = selected.float() / float(N * k)
         aux = float(E) * torch.sum(f * probs.mean(0))
         moe_stats.record(aux, routed, (selected - routed).to(torch.int32))
         return self.drop(y.reshape(*lead, D))
+
+
+def _groups():
+    """``(data-axes group, expert group)`` of the active fleet mesh, each
+    ``None`` where of size 1 (or outside ``fleet.init``: a one-process run
+    or a ``DataParallel`` wrapper routes its own rows)."""
+    from ..distributed import fleet
+    from ..distributed.mesh import data_axes, get_mesh
+
+    if not fleet.is_initialized():
+        return None, None
+    mesh = get_mesh()
+    axes = tuple(data_axes(mesh))
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    dg = mesh.group(axes) if n > 1 else None
+    eg = mesh.group("expert") if mesh.shape.get("expert", 1) > 1 else None
+    return dg, eg
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows of group ``g`` joined in rank order; the backward
+    sums the gradient over the ranks and takes this rank's rows (each
+    rank's loss reaches every row: the data ranks' through the routing,
+    the expert ranks' through their shares' combine)."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        from ..distributed.collective import _gather_cat
+
+        ctx.g, ctx.n = g, x.shape[0]
+        return _gather_cat(x.contiguous(), g, 0)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from ..distributed.collective import all_reduce
+
+        dy = all_reduce(dy.contiguous().clone(), group=ctx.g)
+        i = ctx.g.index
+        return dy[i * ctx.n:(i + 1) * ctx.n], None

@@ -2,8 +2,8 @@
 schedulers and gradient clipping (port of ``paddle_tpu.optimizer``; see
 optimizer.py for the rules and their SelectedRows modes).
 ``GradientMergeOptimizer`` is in ``optimizer.gradient_merge``, as in the
-JAX package; ``DGCMomentum`` raises ``UnimplementedError`` (distributed
-execution)."""
+JAX package; ``DGCMomentum`` (optimizer/dgc.py) steps inside the fleet
+``DGCPlan`` (``strategy.dgc``)."""
 from . import lr
 from .averaging import ExponentialMovingAverage, Lookahead, ModelAverage
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue

@@ -372,6 +372,12 @@ def test_review_regressions(world4):
         for what, (kind, msg) in got["unported"].items():
             assert kind == "UnimplementedError", what
             assert "distributed execution" in msg, what
+        assert sorted(got["unported"]) == ["lamb_mp2", "lora_mp2"]
+        assert got["built"]["localsgd"] == "Momentum"
+        assert got["built"]["dgc"] == "DGCMomentum"
+        assert got["built"]["fp16_allreduce"] == "Momentum"
+        assert got["built"]["{'pp_degree': 2}"]["pipe"] == 2
+        assert got["built"]["{'ep_degree': 2}"]["expert"] == 2
 
 
 def test_predict_returns_all_samples_under_plan(world4):
@@ -447,3 +453,55 @@ def test_data_parallel_wrapper_averages_gradients(world4, inputs):
         for k in p:
             np.testing.assert_allclose(got[k], np.asarray(g[k]), rtol=1e-5,
                                        atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("n", [2, 4], ids=lambda n: f"{n}ranks")
+def test_each_rank_draws_its_own_dropout_masks(inputs, n):
+    """ROADMAP §C's fault, fixed: under a dp 2 plan (2 ranks) and a dp 2 x
+    mp 2 plan (4 ranks) at dropout 0.5 the masks differ between data
+    ranks and between local heads, are equal across model ranks on the
+    replicated activations (the embedding's and the MLP's), the keep
+    fraction over the global batch is 0.5 within 4 binomial standard
+    deviations, and seeding before or after ``fleet.init`` gives the same
+    streams."""
+    results = _world(n, inputs)
+    got = [_ok(results[r]["dropout_masks"]) for r in range(n)]
+    for g in got:
+        for k in ("embedding", "probs", "mlp"):
+            np.testing.assert_array_equal(g["before"][k], g["after"][k])
+    by_data = {}
+    for g in got:
+        by_data.setdefault(g["data"], []).append(g)
+    assert sorted(by_data) == [0, 1]
+    for k in ("embedding", "mlp", "probs"):
+        assert not np.array_equal(by_data[0][0]["after"][k],
+                                  by_data[1][0]["after"][k]), k
+    for group in by_data.values():
+        for g in group[1:]:  # model ranks of one data coordinate
+            for k in ("embedding", "mlp"):
+                np.testing.assert_array_equal(g["after"][k],
+                                              group[0]["after"][k])
+            # their heads are other heads: other masks
+            assert not np.array_equal(g["after"]["probs"],
+                                      group[0]["after"]["probs"])
+    for g in got:  # the local heads of one rank differ
+        probs = g["after"]["probs"]
+        assert not np.array_equal(probs[:, 0], probs[:, 1])
+    keep = np.concatenate([by_data[d][0]["after"]["embedding"].ravel()
+                           for d in (0, 1)]).astype(np.float64)
+    bound = 4 * np.sqrt(0.25 / keep.size)
+    assert abs(keep.mean() - 0.5) <= bound, (keep.mean(), bound)
+
+
+@pytest.mark.parametrize("n", [2, 4], ids=lambda n: f"{n}ranks")
+def test_fleet_init_keeps_the_cpu_generator_in_step(inputs, n):
+    """New mesh coordinates reseed a rank's device streams, never the CPU
+    generator of initialization and samplers: after a CPU draw between
+    ``seed`` and ``fleet.init``, a ``RandomSampler`` gives the same order
+    on every rank under a mesh that moves all ranks but rank 0 (sep = the
+    world) and under one that moves them back (data = the world)."""
+    results = _world(n, inputs)
+    got = [_ok(results[r]["cpu_stream"]) for r in range(n)]
+    for g in got[1:]:
+        assert g == got[0], (g, got[0])
+    assert got[0][0] != got[0][1]  # the sampler drew anew under the second

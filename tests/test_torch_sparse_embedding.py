@@ -37,7 +37,6 @@ from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch import regularizer as treg
 from paddle_tpu_torch.bridge import load_jax_params
 from paddle_tpu_torch.framework import selected_rows as tsr
-from paddle_tpu_torch.framework.errors import UnimplementedError
 from paddle_tpu_torch.framework.selected_rows import SelectedRows as TSR
 
 VOCAB, DIM, B, F = 200, 8, 16, 3
@@ -502,11 +501,14 @@ def test_embedding_default_init_is_standard_normal_in_both_packages():
 
 
 def test_distributed_names_raise_citing_distributed_execution():
-    with pytest.raises(UnimplementedError, match="distributed execution"):
-        tsr.all_gather_rows(TSR(torch.tensor([0]), torch.ones(1, 2), 3),
-                            "data")
-    with pytest.raises(UnimplementedError, match="distributed execution"):
-        topt.DGCMomentum(0.1)
+    # ported since: all_gather_rows over a one-rank data axis is the rows
+    # scaled, and DGCMomentum builds but refuses the eager step, as JAX's
+    got = tsr.all_gather_rows(TSR(torch.tensor([0, 2]), torch.ones(2, 2), 3),
+                              "data", scale=0.5)
+    np.testing.assert_array_equal(got.ids.numpy(), [0, 2])
+    np.testing.assert_array_equal(got.values.numpy(), np.full((2, 2), 0.5))
+    with pytest.raises(Exception, match="only runs through Model.prepare"):
+        topt.DGCMomentum(0.1).step()
     # ParamAttr is ported (the k-step slice): an Embedding honors its
     # initializer instead of raising
     emb = tnn.Embedding(4, 2, sparse=True, weight_attr=tnn.ParamAttr(

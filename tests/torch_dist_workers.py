@@ -403,24 +403,20 @@ def training_world(inp):
         except Exception as e:  # noqa: BLE001
             out["oversubscribed"] = str(e)
         unported = {}
+        # the meta-optimizer flags and the pipe / expert axes build now
+        built = {}
         for flag in ("localsgd", "dgc", "fp16_allreduce"):
             _reset_fleet()
             fleet.init(is_collective=True)
-            try:
-                fleet.distributed_optimizer(
-                    topt.Momentum(learning_rate=0.1),
-                    strategy=fleet.DistributedStrategy(**{flag: True}))
-                unported[flag] = "no error"
-            except Exception as e:  # noqa: BLE001
-                unported[flag] = [type(e).__name__, str(e)]
+            built[flag] = type(fleet.distributed_optimizer(
+                topt.Momentum(learning_rate=0.1),
+                strategy=fleet.DistributedStrategy(**{flag: True}))).__name__
         for kw in ({"pp_degree": 2}, {"ep_degree": 2}):
             _reset_fleet()
-            try:
-                fleet.init(is_collective=True,
-                           strategy=fleet.DistributedStrategy(**kw))
-                unported[str(kw)] = "no error"
-            except Exception as e:  # noqa: BLE001
-                unported[str(kw)] = [type(e).__name__, str(e)]
+            built[str(kw)] = dict(fleet.init(
+                is_collective=True,
+                strategy=fleet.DistributedStrategy(**kw)).shape)
+        out["built"] = built
         # single-model-rank legs: a LoRA table at mp 2, Lamb on shards
         _reset_fleet()
         fleet.init(is_collective=True,
@@ -512,9 +508,77 @@ def training_world(inp):
         return {"plain": out[False], "recompute": out[True],
                 "wrapped": [out["wrapped_False"], out["wrapped_True"]]}
 
+    def dropout_masks():
+        """The masks of a gpt_tiny block at dropout 0.5 under a dp 2 plan
+        (2 ranks) or a dp 2 x mp 2 plan (4 ranks), seeded before and
+        after ``fleet.init``: the embedding's and the MLP's (replicated
+        activations) and the attention probabilities' (this rank's
+        heads)."""
+        from paddle_tpu_torch.models import gpt as tgpt
+
+        out = {}
+        for order in ("before", "after"):
+            _reset_fleet()
+            if order == "before":
+                tpt.seed(7)
+            fleet.init(is_collective=True, strategy=fleet.DistributedStrategy(
+                dp_degree=2, mp_degree=n // 2))
+            if order == "after":
+                tpt.seed(7)
+            net = tgpt.GPTForCausalLM(tgpt.gpt_tiny(dropout=0.5),
+                                      device="cpu")
+            model = tpt.Model(net)
+            model.prepare(optimizer=fleet.distributed_optimizer(
+                topt.SGD(learning_rate=0.0)), loss=net.loss)
+            masks = {}
+            blk = net.gpt.blocks[0]
+            def keep(key):
+                def hook(mod, args, out):
+                    masks.setdefault(key, (out != 0).to(torch.uint8))
+                return hook
+
+            hooks = [m.register_forward_hook(keep(k)) for k, m in (("embedding", net.gpt.drop),
+                             ("probs", blk.attn.drop),
+                             ("mlp", blk.mlp.drop))]
+            ids = np.random.RandomState(0).randint(0, 128, (8, 16))
+            local = model._plan.shard_batch((ids,))[0]
+            net.train()
+            with torch.no_grad():
+                net(torch.as_tensor(local))
+            for h in hooks:
+                h.remove()
+            out[order] = masks
+        mesh = dist.get_mesh()
+        out["data"] = mesh.axis_index("data")
+        out["model"] = mesh.axis_index("model")
+        return out
+
+    def cpu_stream():
+        """A shuffled sampler's order on each rank after a CPU draw that
+        follows ``seed`` and precedes ``fleet.init``: first under a mesh
+        that moves every rank but rank 0 to new coordinates (sep = the
+        world: every rank at data 0), then under one that moves them
+        back (data = the world)."""
+        from paddle_tpu_torch import io as tio
+        from paddle_tpu_torch.framework.random import default_generator
+
+        _reset_fleet()
+        tpt.seed(11)
+        torch.rand(3, generator=default_generator())
+        orders = []
+        for kw in (dict(sep_degree=n), dict(dp_degree=n)):
+            fleet._initialized = False
+            fleet.init(is_collective=True,
+                       strategy=fleet.DistributedStrategy(**kw))
+            orders.append([int(i) for i in tio.RandomSampler(
+                tio.TensorDataset([inp["X"][:23]]))])
+        return orders
+
     cases = [("requires_init", requires_init), ("ps_rejected", ps_rejected),
              ("worker_info", worker_info), ("dp", dp), ("zero", zero),
              ("sampler", sampler), ("recompute", recompute)]
+    if n in (2, 4):
+        cases += [("dropout_masks", dropout_masks), ("cpu_stream", cpu_stream)]
     if n == 4:
         cases += [("tp", tp), ("col_row", col_row), ("vocab", vocab),
                   ("gpt_hybrid", gpt_hybrid), ("regressions", regressions),
@@ -641,3 +705,518 @@ def card_world():
             "stats": dist.collective_stats(), "launches": launches,
             "out_err": rel(out, ref),
             "grad_errs": [rel(t.grad, g) for t, g in zip(ins, grads)]}
+
+
+# -- pipeline parallelism --------------------------------------------------------
+def _gpt_model(inp, strategy, cfg_kw=None, opt=None):
+    from paddle_tpu_torch.bridge import load_jax_params
+    from paddle_tpu_torch.models import gpt as tgpt
+
+    _reset_fleet()
+    fleet.init(is_collective=True, strategy=strategy)
+    cfg = dict(inp.get("cfg", {}), **(cfg_kw or {}))
+    net = tgpt.GPTForCausalLM(tgpt.gpt_tiny(**cfg), device="cpu")
+    load_jax_params(net, inp["init"])
+    opt = fleet.distributed_optimizer(
+        opt if opt is not None else topt.Adam(learning_rate=1e-3))
+    model = tpt.Model(net)
+    model.prepare(optimizer=opt, loss=net.loss)
+    return model, net
+
+
+def pipeline_world(inp):
+    """``inp``: ``init`` (a JAX gpt_tiny(num_layers=4) tree), ``batches``
+    (int32 ids) and ``configs`` ({case: strategy kwargs})."""
+    from paddle_tpu_torch.distributed import pipeline_parallel as pipe
+
+    tpt.set_device("cpu")
+    torch.set_num_threads(1)  # ranks share the host's cores
+
+    def train(kw, cfg_kw=None):
+        model, net = _gpt_model(inp, fleet.DistributedStrategy(**kw),
+                                cfg_kw)
+        tpt.seed(3)
+        losses = [model.train_batch([ids], [ids])[0]
+                  for ids in inp["batches"]]
+        return {"losses": np.asarray(losses),
+                "params": _gathered(model),
+                "max_live": model._pipeline_stats.get("max_live", 0),
+                "owned": sorted(n for n in model._optimizer._bound()
+                                if ".blocks." in n)}
+
+    def refusals():
+        out = {}
+        _reset_fleet()
+        fleet.init(is_collective=True, strategy=fleet.DistributedStrategy(
+            pp_degree=dist.get_world_size()))
+        blocks = [nn.Linear(4, 4) for _ in range(3)]
+        for name, call in (
+                ("blocks", lambda: pipe.pipeline_blocks(
+                    blocks, torch.zeros(4, 4))),
+                ("batch", lambda: pipe.pipeline_blocks(
+                    blocks[:2], torch.zeros(3, 4), num_microbatches=2)),
+                ("buffers", lambda: pipe.pipeline_blocks(
+                    [nn.BatchNorm1D(4), nn.BatchNorm1D(4)],
+                    torch.zeros(4, 4))),
+                ("structure", lambda: pipe.pipeline_blocks(
+                    [nn.Linear(4, 4), nn.Linear(4, 4, bias_attr=False)],
+                    torch.zeros(4, 4))),
+                ("schedule", lambda: pipe.pipeline_train_step(
+                    blocks[:2], torch.zeros(4, 4), torch.zeros(4),
+                    lambda y, lbl: y.sum(), schedule="zigzag"))):
+            try:
+                call()
+                out[name] = "no error"
+            except Exception as e:  # noqa: BLE001
+                out[name] = [type(e).__name__, str(e)]
+        from paddle_tpu_torch.models import gpt as tgpt
+
+        net = tgpt.GPTForCausalLM(tgpt.gpt_tiny(num_layers=4), device="cpu")
+        mask = torch.zeros(16, 16)
+        for name, call in (
+                ("mask", lambda: net(torch.zeros(2, 16, dtype=torch.long),
+                                     mask)),
+                ("prepare_1f1b", lambda: tpt.Model(nn.Linear(4, 4)).prepare(
+                    optimizer=fleet.distributed_optimizer(topt.SGD(0.1),
+                                                          fleet.DistributedStrategy(
+                        pp_degree=dist.get_world_size(), pipeline=True,
+                        pipeline_configs={"schedule": "1f1b"})),
+                    loss=nn.MSELoss()))):
+            try:
+                call()
+                out[name] = "no error"
+            except Exception as e:  # noqa: BLE001
+                out[name] = [type(e).__name__, str(e)]
+        return out
+
+    def dropout_schedules():
+        # at dropout 0.1 both schedules draw the same masks
+        got = {}
+        for sched in ("gpipe", "1f1b"):
+            kw = dict(inp["configs"]["pp2"])
+            kw["pipeline_configs"] = {"accumulate_steps": 2,
+                                      "schedule": sched}
+            model, net = _gpt_model(inp, fleet.DistributedStrategy(**kw),
+                                    {"dropout": 0.1})
+            tpt.seed(5)
+            got[sched] = np.asarray([model.train_batch([ids], [ids])[0]
+                                     for ids in inp["batches"]])
+        return got
+
+    def eval_forward():
+        kw = dict(inp["configs"]["pp2"])
+        model, net = _gpt_model(inp, fleet.DistributedStrategy(**kw))
+        ids = inp["batches"][0]
+        return {"loss": model.eval_batch([ids], [ids])[0],
+                "logits": model.predict_batch([ids])[0]}
+
+    def metrics_1f1b():
+        # a metric's compute() a microbatch on the last stage, update()
+        # on every rank: the flat step's accumulate()
+        from paddle_tpu_torch import metric as tmetric
+        from paddle_tpu_torch.bridge import load_jax_params
+        from paddle_tpu_torch.models import gpt as tgpt
+
+        class _TokenAccuracy(tmetric.Metric):
+            """Next-token accuracy a row (compute), averaged (update)."""
+
+            def __init__(self):
+                super().__init__()
+                self.reset()
+
+            def reset(self):
+                self.hits, self.rows = 0.0, 0
+
+            def compute(self, pred, label):
+                label = torch.as_tensor(label, device=pred.device).long()
+                return (pred[:, :-1].argmax(-1) == label[:, 1:]).float() \
+                    .mean(-1)
+
+            def update(self, rows):
+                rows = np.asarray(rows, np.float64)
+                self.hits += float(rows.sum())
+                self.rows += rows.size
+                return float(rows.mean())
+
+            def accumulate(self):
+                return self.hits / max(self.rows, 1)
+
+            def name(self):
+                return "token_acc"
+
+        out = {}
+        for name in ("flat", "pp"):
+            _reset_fleet()
+            net = tgpt.GPTForCausalLM(tgpt.gpt_tiny(**inp["cfg"]),
+                                      device="cpu")
+            load_jax_params(net, inp["init"])
+            opt = topt.Adam(learning_rate=1e-3)
+            if name == "pp":
+                kw = dict(inp["configs"]["pp2_1f1b"])
+                fleet.init(is_collective=True,
+                           strategy=fleet.DistributedStrategy(**kw))
+                opt = fleet.distributed_optimizer(opt)
+            model = tpt.Model(net)
+            model.prepare(optimizer=opt, loss=net.loss,
+                          metrics=[_TokenAccuracy()])
+            for ids in inp["batches"]:
+                model.train_batch([ids], [ids])
+            out[name] = model._metrics[0].accumulate()
+        return out
+
+    cases = [(name, lambda kw=kw: train(kw))
+             for name, kw in inp["configs"].items()
+             if int(np.prod([kw.get(k, 1) for k in (
+                 "pp_degree", "dp_degree", "mp_degree")])) ==
+             dist.get_world_size()]
+    if dist.get_world_size() == 2:
+        cases += [("refusals", refusals),
+                  ("dropout_schedules", dropout_schedules),
+                  ("metrics_1f1b", metrics_1f1b),
+                  ("eval_forward", eval_forward)]
+    return _run(cases)
+
+
+# -- the fleet meta-optimizer plans -----------------------------------------------
+def RegNet():
+    """The dryrun's regression net."""
+    return nn.Sequential(nn.Linear(8, 16), nn.ReLU(), nn.Linear(16, 1))
+
+
+class SparseNet(nn.Layer):
+    """``tests/test_sparse_embedding.py``'s ``make_net``."""
+
+    def __init__(self, sparse, vocab=200, dim=8):
+        super().__init__()
+        self.emb = nn.Embedding(vocab, dim, sparse=sparse)
+        self.fc = nn.Linear(dim, 1)
+
+    def forward(self, ids):
+        return self.fc(self.emb(ids).mean(axis=1))
+
+
+def _mse(out, y):
+    return ((out - y) ** 2).mean()
+
+
+def _opt(kind):
+    if kind == "sgd":
+        return topt.SGD(learning_rate=0.05)
+    return topt.Momentum(learning_rate=0.05, momentum=0.9)
+
+
+def meta_world(inp):
+    """``inp``: ``reg`` (the regression net's init), ``sparse_init``
+    (SparseNet's), the batches ``x`` / ``y`` / ``ids`` / ``ys`` and
+    ``cases`` ({case: (strategy kwargs, optimizer kind, steps)})."""
+    tpt.set_device("cpu")
+    torch.set_num_threads(1)  # ranks share the host's cores
+    r = dist.get_rank()
+
+    def trace(kw, kind, steps, sparse=None):
+        _reset_fleet()
+        fleet.init(is_collective=True,
+                   strategy=fleet.DistributedStrategy(**kw))
+        if sparse is None:
+            net = _load(RegNet(), inp["reg"])
+            batch, lbl, loss = inp["x"], inp["y"], _mse
+        else:
+            net = _load(SparseNet(sparse), inp["sparse_init"])
+            batch, lbl, loss = inp["ids"], inp["ys"], _mse
+        model = tpt.Model(net, inputs=["x"], labels=["y"])
+        model.prepare(optimizer=fleet.distributed_optimizer(_opt(kind)),
+                      loss=loss)
+        rows = []
+        for _ in range(steps):
+            dist.reset_collective_stats()
+            loss_v, _ = model.train_batch([batch], [lbl])
+            st = model._opt_state
+            rec = {"loss": loss_v,
+                   "params": {k: p.detach().clone()
+                              for k, p in net.named_parameters()},
+                   "calls": {k: v["calls"] for k, v in
+                             dist.collective_stats().items()}}
+            if isinstance(st, dict) and "local" in st:
+                rec["local"] = {k: v.clone()
+                                for k, v in st["local"]["params"].items()}
+                inner = (st["local"]["inner"] or {}).get("slots", {})
+                rec["inner"] = {k: {s: t.clone() for s, t in v.items()}
+                                for k, v in inner.items()}
+                if "snapshot" in st["local"]:
+                    rec["snapshot"] = {k: v.clone() for k, v in
+                                       st["local"]["snapshot"].items()}
+            if isinstance(st, dict) and "u" in st:
+                rec.update({s: {k: v.clone() for k, v in st[s].items()}
+                            for s in ("velocity", "u", "v")})
+            if hasattr(model._plan, "k_steps"):
+                rec["k"] = model._plan.k_steps
+            rows.append(rec)
+        return rows
+
+    def gather_rows():
+        from paddle_tpu_torch.framework.selected_rows import (SelectedRows,
+                                                             all_gather_rows)
+
+        _reset_fleet()
+        k = 3 + r  # unequal row counts: the shorter rank pads
+        ids = torch.arange(k) * (r + 1)
+        vals = torch.arange(k * 2, dtype=torch.float32).reshape(k, 2) + r
+        sr = all_gather_rows(SelectedRows(ids, vals, 10), "data", scale=0.5)
+        wire = all_gather_rows(SelectedRows(ids, vals / 3, 10), "data",
+                               wire_dtype=torch.float16)
+        return {"ids": sr.ids, "values": sr.values,
+                "merged": sr.merged().to_dense(), "wire": wire.values}
+
+    def builds():
+        out = {}
+        for kw in (dict(localsgd=True), dict(adaptive_localsgd=True),
+                   dict(a_sync=True, a_sync_configs={"k_steps": 2}),
+                   dict(dgc=True), dict(fp16_allreduce=True)):
+            _reset_fleet()
+            fleet.init(is_collective=True,
+                       strategy=fleet.DistributedStrategy(**kw))
+            opt = fleet.distributed_optimizer(_opt("momentum"))
+            model = tpt.Model(RegNet(), inputs=["x"], labels=["y"])
+            model.prepare(optimizer=opt, loss=_mse)
+            out[next(iter(kw))] = [type(opt).__name__,
+                                   type(model._plan).__name__]
+        for kw in (dict(dgc=True, lamb=True), dict(a_sync=True),
+                   dict(localsgd=True, adaptive_localsgd=True),
+                   dict(localsgd=True, gradient_merge=True)):
+            _reset_fleet()
+            fleet.init(is_collective=True)
+            try:
+                fleet.distributed_optimizer(
+                    _opt("momentum"), strategy=fleet.DistributedStrategy(**kw))
+                out[str(sorted(kw))] = "no error"
+            except Exception as e:  # noqa: BLE001
+                out[str(sorted(kw))] = [type(e).__name__, str(e)]
+        _reset_fleet()
+        fleet.init(is_collective=True)
+        try:
+            fleet.distributed_optimizer(
+                topt.Adam(), strategy=fleet.DistributedStrategy(dgc=True))
+            out["dgc_adam"] = "no error"
+        except Exception as e:  # noqa: BLE001
+            out["dgc_adam"] = [type(e).__name__, str(e)]
+        return out
+
+    cases = [(name, lambda c=c: trace(*c)) for name, c in
+             inp["cases"].items()]
+    cases += [("gather_rows", gather_rows), ("builds", builds)]
+    return _run(cases)
+
+
+# -- the expert axis ------------------------------------------------------------
+def expert_world(inp):
+    """``inp``: ``init`` (a JAX MoE gpt_tiny tree), ``dense_init`` (the
+    dense model's), ``batches``, ``cfg`` (the MoE config) and ``meshes``
+    ({case: strategy kwargs})."""
+    from paddle_tpu_torch.moe import stats as moe_stats
+
+    tpt.set_device("cpu")
+    torch.set_num_threads(1)  # ranks share the host's cores
+
+    def train(kw, opt):
+        model, net = _gpt_model(inp, fleet.DistributedStrategy(**kw),
+                                opt=opt)
+        losses = [model.train_batch([ids], [ids])[0]
+                  for ids in inp["batches"]]
+        ids_local = model._plan.shard_batch((inp["batches"][0],))[0]
+        net.eval()
+        with torch.no_grad(), moe_stats.collect() as ms:
+            net.gpt(torch.as_tensor(ids_local))
+        return {"losses": np.asarray(losses), "params": _gathered(model),
+                "counts": ms.counts(inp["cfg"]["moe_experts"]),
+                "local_fc1": list(net.gpt.blocks[0].mlp.expert_fc1.shape)}
+
+    def dense_equivalence():
+        from paddle_tpu_torch.bridge import load_jax_params
+        from paddle_tpu_torch.models import gpt as tgpt
+
+        _reset_fleet()
+        kw = inp["meshes"]["ep4"]
+        fleet.init(is_collective=True,
+                   strategy=fleet.DistributedStrategy(**kw))
+        E = 4
+        out = {}
+        ids = torch.as_tensor(inp["batches"][0])
+        for name, cfg, init in (
+                ("dense", {}, inp["dense_init"]),
+                ("moe", dict(moe_experts=E, moe_top_k=1,
+                             moe_capacity_factor=8.0, moe_jitter=0.0,
+                             moe_balance_weight=0.0), inp["equiv_init"])):
+            net = tgpt.GPTForCausalLM(tgpt.gpt_tiny(**cfg), device="cpu")
+            load_jax_params(net, init)
+            model = tpt.Model(net)
+            model.prepare(optimizer=fleet.distributed_optimizer(
+                topt.SGD(learning_rate=0.0)), loss=net.loss)
+            loss = net.loss(net(ids), ids)
+            loss.backward()
+            grads = {}
+            for k, p in net.named_parameters():
+                g = p.grad
+                if k.endswith(("expert_fc1", "expert_b1", "expert_fc2",
+                               "expert_b2")):
+                    g = torch.cat(dist.all_gather(g.contiguous(),
+                                                  group="expert"))
+                grads[k] = g
+            out[name] = {"loss": loss.detach(), "grads": grads}
+        return out
+
+    def sparse_ctr():
+        """The dryrun's sparse CTR leg at dp 2 x mp 2: wide_deep_tiny with
+        vocabulary-sharded sparse tables and lazy Adam, two steps."""
+        from paddle_tpu_torch.bridge import load_jax_params
+        from paddle_tpu_torch.models import wide_deep_tiny
+
+        _reset_fleet()
+        fleet.init(is_collective=True, strategy=fleet.DistributedStrategy(
+            dp_degree=2, tensor_parallel=True,
+            tensor_parallel_configs={"tensor_parallel_degree": 2}))
+        c = inp["ctr"]
+        net = wide_deep_tiny(vocab_size=512, sparse=True, device="cpu")
+        load_jax_params(net, c["init"])
+        model = tpt.Model(net, inputs=["sparse", "dense"], labels=["label"])
+        model.prepare(optimizer=fleet.distributed_optimizer(
+            topt.Adam(learning_rate=1e-2, lazy_mode=True)), loss=net.loss)
+        local0 = net.embedding.weight.detach().clone()
+        losses = [model.train_batch([c["ids"], c["dense"]], [c["y"]])[0]
+                  for _ in range(2)]
+        return {"losses": np.asarray(losses), "params": _gathered(model),
+                "local_rows": net.embedding.weight.shape[0],
+                "local_before": local0,
+                "local_after": net.embedding.weight.detach()}
+
+    cases = [(name, lambda kw=kw: train(kw, topt.Adam(learning_rate=1e-3)))
+             for name, kw in inp["meshes"].items()]
+    cases.append(("sparse_ctr", sparse_ctr))
+    cases += [(name + "_sgd", lambda kw=kw: train(
+        kw, topt.SGD(learning_rate=0.1)))
+        for name, kw in inp["meshes"].items()]
+    cases.append(("dense_equivalence", dense_equivalence))
+    return _run(cases)
+
+
+# -- fleet's host modules ---------------------------------------------------------
+def metrics_world(inp):
+    """``fleet.metrics`` over the world: ``inp[name]`` holds one value a
+    rank (stacked)."""
+    from paddle_tpu_torch.distributed.fleet import metrics as fm
+
+    r = dist.get_rank()
+    x = {k: v[r] for k, v in inp.items()}
+    return _run([
+        ("sum", lambda: fm.sum(x["a"])),
+        ("max", lambda: fm.max(x["a"])),
+        ("min", lambda: fm.min(torch.from_numpy(x["a"]))),
+        ("auc", lambda: fm.auc(x["pos"], x["neg"])),
+        ("mae", lambda: fm.mae(x["abserr"], x["n"])),
+        ("mse", lambda: fm.mse(x["sqrerr"], x["n"])),
+        ("rmse", lambda: fm.rmse(x["sqrerr"], x["n"])),
+        ("acc", lambda: fm.acc(x["correct"], x["n"])),
+    ])
+
+
+def _first_step_grads(model):
+    """Make the first optimizer step of ``model`` (its plan's, where it
+    has one) first copy the gradients it is handed, by parameter name, into
+    the returned dict (this rank's shards; a parameter without a gradient
+    is left out)."""
+    grads = {}
+    owner = model._plan if model._plan is not None else model._optimizer
+    step = owner.step
+
+    def recording(*a, **k):
+        if not grads:
+            grads.update({n: p.grad.detach().float().cpu().clone()
+                          for n, p in model.network.named_parameters()
+                          if p.grad is not None})
+        return step(*a, **k)
+
+    owner.step = recording
+    return grads
+
+
+def _shard_grad_rel_l2(plan, grads, ref):
+    """This rank's gradient shards against the same shards of ``ref``
+    (whole tensors): relative L2 over all of them."""
+    from paddle_tpu_torch.distributed.meta_parallel import shard
+
+    params = dict(plan.network.named_parameters())
+    num = den = 0.0
+    for k, g in grads.items():
+        want = ref[k]
+        for d, a in plan._sharded_axes(plan.param_specs[k]):
+            grp = plan.mesh.group(a)
+            want = shard(want, d, grp.index, grp.size,
+                         getattr(params[k], "partition_groups", 1))
+        num += float((g - want).pow(2).sum())
+        den += float(want.pow(2).sum())
+    return (num / den) ** 0.5
+
+
+def card_parallel_world(kind):
+    """On cuda:0 (ranks sharing the card over gloo): one rank's plain step
+    of a narrow f32 GPT, then the same step under ``kind`` — ``"pipeline"``
+    (pipe = the world, 1F1B over 4 microbatches) or ``"expert"`` (an MoE
+    GPT, expert = the world) — from the same seed; returns both losses,
+    the parameters' relative L2 difference, that of the gradients the
+    optimizer is handed (this rank's, against the same slices of the
+    plain step's), and the kernel launches of the distributed step."""
+    import importlib
+
+    from paddle_tpu_torch.models import gpt as tgpt
+    from paddle_tpu_torch.ops import layernorm_residual, softmax_cross_entropy
+
+    gmm = importlib.import_module("paddle_tpu_torch.ops.grouped_matmul")
+    tpt.set_device("cuda:0")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = dist.get_world_size()
+    cfg = dict(num_layers=4, hidden_size=128, num_heads=4,
+               max_position=64, vocab_size=256)
+    if kind == "expert":
+        cfg.update(moe_experts=2 * n, moe_top_k=2, moe_jitter=0.0)
+    ids = np.random.RandomState(3).randint(0, 256, (8, 64)).astype(np.int32)
+
+    def build():
+        net = tgpt.GPTForCausalLM(tgpt.gpt_tiny(**cfg), device="cuda:0",
+                                  generator=torch.Generator().manual_seed(0))
+        return net
+
+    _reset_fleet()
+    net = build()
+    model = tpt.Model(net).prepare(optimizer=topt.Adam(learning_rate=1e-3),
+                                   loss=net.loss)
+    ref_grads = _first_step_grads(model)
+    ref_loss = model.train_batch([ids], [ids])[0]
+    ref = {k: p.detach().float().cpu() for k, p in net.named_parameters()}
+    del model, net
+    kw = (dict(pp_degree=n, pipeline=True, pipeline_configs={
+        "accumulate_steps": 4, "schedule": "1f1b"}) if kind == "pipeline"
+        else dict(expert_parallel=True, expert_parallel_configs={
+            "expert_parallel_degree": n}))
+    _reset_fleet()
+    fleet.init(is_collective=True, strategy=fleet.DistributedStrategy(**kw))
+    net = build()
+    model = tpt.Model(net).prepare(optimizer=fleet.distributed_optimizer(
+        topt.Adam(learning_rate=1e-3)), loss=net.loss)
+    grads = _first_step_grads(model)
+    for c in (layernorm_residual, softmax_cross_entropy, gmm.grouped_matmul):
+        c.launches = 0
+    loss = model.train_batch([ids], [ids])[0]
+    full = model._plan.gather_parameters()
+    num = sum(float((full[k].float().cpu() - v).pow(2).sum())
+              for k, v in ref.items())
+    den = sum(float(v.pow(2).sum()) for v in ref.values())
+    return {"ref_loss": ref_loss, "loss": loss, "param_rel_l2":
+            (num / den) ** 0.5, "grad_rel_l2": _shard_grad_rel_l2(
+                model._plan, grads, ref_grads),
+            "grads_held": len(grads),
+            "stage": dist.get_mesh().axis_index(
+                "pipe" if kind == "pipeline" else "expert"),
+            "launches": {"layernorm_residual": layernorm_residual.launches,
+                         "softmax_cross_entropy":
+                         softmax_cross_entropy.launches,
+                         "grouped_matmul": gmm.grouped_matmul.launches}}
