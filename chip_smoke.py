@@ -784,6 +784,32 @@ line carries them, and kernels 2-6 gain their DX launches
 (``distributed_launches_per_step``, ``ring_launches_per_step``) and the
 chunk's numbers (``ring_chunk``).
 
+The inference export (after the distributed phases; ``inference_phases``):
+
+I1. ``BertForSequenceClassification(bert_base(), 2)`` f32 exported by
+    ``jit.save`` (``InputSpec([None, 128], int64)``) and reloaded through
+    ``inference.create_predictor`` on ``cuda:0``: at batch 4 and 16 kernel
+    2 launches 24 times a call (its operator inside the exported graph),
+    each launch held to plain, logits = the eager model's within 1e-5;
+    the ``.pdmodel`` holds no weights; ``jit.load`` and
+    ``Model.save(training=False)`` give the same outputs; Predictor ms;
+I2. ``serving.InferenceEngine`` on I1's artifact, buckets of 4 and 16 rows
+    (CUDA graphs): ``warmup() == 2 == compile_count`` after 32 requests of
+    1-16 rows, each answer = the direct Predictor's, a replay bit-equal to
+    the uncaptured module, ``swap_weights`` without a rebuild;
+    requests/s, p50 / p99;
+I3. L2's gpt_small 8192 bf16 exported: kernel 4 12 and kernel 2 12 launches
+    a Predictor call at batch 1 and 2, logits within 1e-2 (relative L2) of
+    the eager model's, and of the card's on the CPU at one sequence;
+I4. the int8 LeNet (PTQ) exported and reloaded: kernel 9 5 launches a
+    call, each bit-equal to plain, outputs = the live quantized model's;
+I5. ``native/capi_example.c`` built with gcc against
+    ``native.c_api_path()`` serves an exported MLP on the card with the
+    Python Predictor's numbers;
+
+then an ``{"inference": ...}`` line; kernels 2, 4 and 9 carry their
+``custom_op`` and ``inference_launches_per_call``.
+
 The line before last is the ``{"kernels": [...]}`` JSON record (kernel
 1's entries carry D4's launches by engine under ``handoff_launches`` and
 D3's paged run's under ``bench_paged_launches``, kernel 9's D5's quantized
@@ -799,6 +825,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib
 import gc
 import json
@@ -12449,6 +12476,458 @@ def distributed_phases(torch, gpu, conf=None):
     return rec
 
 
+# -- the inference export (I1-I5) --------------------------------------------
+INF_S = 128                    # BERT-base classification's sequence
+INF_ROWS = (4, 16)             # the engine's buckets' rows (I2) and the
+                               # Predictor's timed batches (I1)
+INF_REQUESTS = 32              # I2's mixed requests, 1-16 rows each
+INF_TIMED = 10                 # timed Predictor calls a batch
+INF_GPT_BATCHES = (1, 2)       # I3's Predictor batches at 8192 tokens
+
+
+@contextlib.contextmanager
+def recording_launches(module, name, calls):
+    """While open, every call of ``module.name`` (a kernel launcher that
+    the custom operators call at run time) appends ``(inputs, outputs)``,
+    copied at the call, to ``calls``; the launcher and its counter stay."""
+    fn = getattr(module, name)
+
+    def copy(ts):
+        return tuple(t.detach().clone() if hasattr(t, "detach") else t
+                     for t in ts)
+
+    def rec(*args, **kw):
+        out = fn(*args, **kw)
+        calls.append((copy(args), copy(out if isinstance(out, tuple)
+                                       else (out,))))
+        return out
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def _inf_ms(torch, fn, runs=INF_TIMED):
+    """Median, min and max wall ms of ``fn()`` over ``runs`` calls, each
+    ended by a synchronise (what a caller of the Predictor waits)."""
+    fn()
+    torch.cuda.synchronize()
+    vals = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        vals.append((time.perf_counter() - t0) * 1e3)
+    vals.sort()
+    return vals[len(vals) // 2], vals[0], vals[-1]
+
+
+def _inf_bert(torch, seed):
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         bert_base)
+
+    return BertForSequenceClassification(
+        bert_base(), num_classes=2,
+        generator=torch.Generator().manual_seed(seed)).eval()
+
+
+def _param_bytes(net):
+    return sum(p.numel() * p.element_size() for p in net.parameters())
+
+
+def _no_param_bytes(torch, net, path):
+    """The ``.pdmodel`` holds no weights: it is under 1% of them, and the
+    bytes of no drawn parameter's first 16 values (those 16 values all
+    distinct: a constant init such as a zero bias says nothing) occur in
+    it."""
+    blob = open(path, "rb").read()
+    for name, p in net.named_parameters():
+        head = p.detach().reshape(-1)[:16]
+        if head.numel() < 16 or int(head.unique().numel()) < 16:
+            continue
+        raw = head.contiguous().cpu().view(torch.uint8).numpy().tobytes()
+        assert raw not in blob, f"{path} holds {name}'s bytes"
+    assert len(blob) < 0.01 * _param_bytes(net), (len(blob),
+                                                  _param_bytes(net))
+    return len(blob)
+
+
+def inf_bert_export(torch, gpu, workdir):
+    """Phase I1: ``BertForSequenceClassification(bert_base(), 2)`` f32 on
+    the card, exported by ``jit.save`` with ``InputSpec([None, 128],
+    int64)``, reloaded through ``inference.create_predictor(Config(...))``
+    on ``cuda:0``: at batch 4 and 16 kernel 2 launches exactly 24 times a
+    call and the logits equal the eager model's within 1e-5; every launch
+    held to kernel 2's plain version; the ``.pdmodel`` holds no weights;
+    ``jit.load``'s ``TranslatedLayer`` and ``Model.save(training=False)``
+    give the same outputs; Predictor ms a call at each batch."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.ops import fused_layernorm as fl
+    from paddle_tpu_torch.static import InputSpec
+
+    net = _inf_bert(torch, SEED)
+    spec = [InputSpec([None, INF_S], "int64", "input_ids")]
+    prefix = os.path.join(workdir, "bert")
+    t0 = time.monotonic()
+    jit.save(net, prefix, input_spec=spec)
+    export_s = time.monotonic() - t0
+    size = _no_param_bytes(torch, net, prefix + ".pdmodel")
+    cfg = inference.Config(prefix + ".pdmodel", prefix + ".pdiparams")
+    cfg.enable_use_gpu(device_id=0)
+    t0 = time.monotonic()
+    pred = inference.create_predictor(cfg)
+    load_s = time.monotonic() - t0
+    assert pred.device == torch.device("cuda", 0)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 91)
+    vocab = net.bert.cfg.vocab_size
+    rows, err, calls = {}, 0.0, []
+    for B in INF_ROWS:
+        ids = torch.randint(0, vocab, (B, INF_S), generator=gen,
+                            device=DEVICE)
+        fl.layernorm_residual.launches = 0
+        with recording_ln_kernels(calls):
+            (got,) = pred.run_tensors([ids])
+            torch.cuda.synchronize()
+        launches = fl.layernorm_residual.launches
+        assert launches == 24, launches
+        with torch.no_grad():
+            want = net(ids)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        err = max(err, float((got - want).abs().max()))
+        ms = _inf_ms(torch, lambda: pred.run_tensors([ids]))
+        with torch.no_grad():  # as the Predictor runs
+            eager = _inf_ms(torch, lambda: net(ids))
+        rows[B] = {"predictor_ms": ms, "eager_ms": eager,
+                   "launches_per_call": launches}
+        log(f"I1[{gpu}]: Predictor batch {B} x {INF_S}: "
+            f"{_spread(ms)} ms a call (eager forward {_spread(eager)}), "
+            f"kernel 2 launches {launches} (= 24), logits vs eager "
+            f"max_abs_err {float((got - want).abs().max()):.3e} "
+            f"(rtol 1e-5, atol 1e-5) ok")
+    ln_rows = check_path_ln_kernels(torch, calls, "I1 (exported BERT-base)")
+    ids = torch.randint(0, vocab, (INF_ROWS[0], INF_S), generator=gen,
+                        device=DEVICE)
+    (ref,) = pred.run_tensors([ids])
+    loaded = jit.load(prefix)
+    assert torch.equal(loaded(ids), ref), "jit.load differs"
+    prefix2 = os.path.join(workdir, "bert_model_save")
+    t0 = time.monotonic()
+    ptt.Model(net, inputs=spec).save(prefix2, training=False)
+    export2_s = time.monotonic() - t0
+    (via_model,) = inference.Predictor(prefix2).run_tensors([ids])
+    assert torch.equal(via_model, ref), "Model.save(training=False) differs"
+    log(f"I1[{gpu}]: jit.save {export_s:.1f} s, Model.save(training=False) "
+        f"{export2_s:.1f} s, .pdmodel {size} bytes against "
+        f"{_param_bytes(net)} bytes of weights (none of them in it), "
+        f"Predictor load {load_s:.1f} s; jit.load's TranslatedLayer and "
+        f"Model.save(training=False)'s artifact bit-equal to the Predictor")
+    return {"export_s": export_s, "model_save_s": export2_s,
+            "load_s": load_s, "pdmodel_bytes": size,
+            "param_bytes": _param_bytes(net), "max_abs_err": err,
+            "batches": {str(k): v for k, v in rows.items()},
+            "kernel_path_checks": ln_rows}, prefix, net
+
+
+def inf_engine(torch, gpu, prefix, net, workdir):
+    """Phase I2: ``serving.InferenceEngine`` on I1's artifact with buckets
+    of 4 and 16 rows x 128 (``max_batch_size=16``): ``warmup() == 2``,
+    32 requests of 1-16 rows, ``compile_count`` still 2, every answer
+    equal to the direct Predictor's on its unpadded rows (1e-5), a
+    replayed bucket bit-equal to the uncaptured exported module,
+    ``swap_weights`` to a second ``.pdiparams`` builds nothing and matches
+    the eager model under the new weights; requests/s, p50 / p99."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.serving import Bucket, InferenceEngine
+
+    vocab = net.bert.cfg.vocab_size
+    rng = np.random.RandomState(SEED + 92)
+    reqs = [rng.randint(0, vocab, (int(n), INF_S)).astype(np.int64)
+            for n in rng.randint(1, 17, INF_REQUESTS)]
+    buckets = [Bucket(((r, INF_S),)) for r in INF_ROWS]
+    with InferenceEngine(prefix, buckets, max_batch_size=16,
+                         max_queue_delay_ms=1.0) as eng:
+        t0 = time.monotonic()
+        built = eng.warmup()
+        warm_s = time.monotonic() - t0
+        assert built == 2, built
+        t0 = time.monotonic()
+        outs = [f.result(600) for f in [eng.submit([x]) for x in reqs]]
+        wall = time.monotonic() - t0
+        assert eng.compile_count == 2, eng.compile_count
+        st = eng.stats()
+        pred = eng._pred
+        err = 0.0
+        for x, (o,) in zip(reqs, outs):
+            (want,) = pred.run([x])
+            assert o.shape == want.shape == (len(x), 2)
+            np.testing.assert_allclose(o, want, rtol=1e-5, atol=1e-5)
+            err = max(err, float(np.abs(o - want).max()))
+        x16 = torch.from_numpy(reqs[0]).to(DEVICE)
+        x16 = torch.cat([x16] * 16)[:16]
+        exe = eng._executable(1)
+        (replay,) = pred.run_compiled_tensors(exe, [x16])
+        (direct,) = pred.run_tensors([x16])
+        assert torch.equal(replay, direct), "replay differs from the module"
+        replay_ms = {
+            r: _inf_ms(torch, lambda r=r, i=i: pred.run_compiled_tensors(
+                eng._executable(i), [x16[:r]]))
+            for i, r in enumerate(INF_ROWS)}
+        net2 = _inf_bert(torch, SEED + 1)
+        side = os.path.join(workdir, "bert_seed1.pdiparams")
+        ptt.save({"params": dict(net2.named_parameters()),
+                  "buffers": dict(net2.named_buffers())}, side)
+        eng.swap_weights(side)
+        (after,) = eng.infer([reqs[0]], timeout=600)
+        with torch.no_grad():
+            want2 = net2(torch.from_numpy(reqs[0]).to(DEVICE)).cpu().numpy()
+        np.testing.assert_allclose(after, want2, rtol=1e-5, atol=1e-5)
+        assert not np.allclose(after, outs[0][0], atol=1e-3)
+        assert eng.compile_count == 2, eng.compile_count
+        del net2
+    rps = INF_REQUESTS / wall
+    log(f"I2[{gpu}]: InferenceEngine buckets {[b.shapes for b in buckets]}"
+        f" (CUDA graphs, built in {warm_s:.1f} s): {INF_REQUESTS} requests "
+        f"of 1-16 rows in {wall * 1e3:.1f} ms = {rps:.1f} requests/s, "
+        f"latency p50 {st['p50_ms']:.2f} ms, p99 {st['p99_ms']:.2f} ms; "
+        f"compile_count {eng.compile_count} (= warmup 2); answers vs the "
+        f"direct Predictor max_abs_err {err:.3e}; replay bit-equal to the "
+        f"module; replay ms " + ", ".join(
+            f"{r} rows {_spread(v)}" for r, v in replay_ms.items())
+        + "; swap_weights: no new executable, eager seed-1 model matched")
+    return {"requests_per_s": rps, "p50_ms": st["p50_ms"],
+            "p99_ms": st["p99_ms"], "compile_count": 2, "warmup_s": warm_s,
+            "max_abs_err": err,
+            "replay_ms": {str(k): v for k, v in replay_ms.items()}}
+
+
+def inf_gpt_export(torch, gpu, workdir):
+    """Phase I3: L2's ``gpt_small(max_position=8192, dropout=0.0)`` bf16
+    (12 layers) exported with ``InputSpec([None, 8192], int64)`` — the
+    flash gate opens inside the exported program — and run through a
+    Predictor at batch 1 and 2: kernel 4 launches 12 times a call and
+    kernel 2 12 (once a block), each shape held to its plain version, the
+    logits within L2's tolerance of the eager model (relative L2 <= 1e-2);
+    the same artifact on the CPU at one sequence (the plain versions)
+    matches the card's logits too."""
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.ops import flash_attention as fa_fn
+    from paddle_tpu_torch.ops import fused_layernorm as fl
+    from paddle_tpu_torch.static import InputSpec
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    net = long_context_model(torch, "bfloat16").eval()
+    layers = net.gpt.cfg.num_layers
+    prefix = os.path.join(workdir, "gpt8192")
+    t0 = time.monotonic()
+    jit.save(net, prefix,
+             input_spec=[InputSpec([None, LC_S], "int64", "input_ids")])
+    export_s = time.monotonic() - t0
+    size = _no_param_bytes(torch, net, prefix + ".pdmodel")
+    pred = inference.Predictor(prefix)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 93)
+    out = {"export_s": export_s, "pdmodel_bytes": size, "batches": {}}
+    first = None
+    for B in INF_GPT_BATCHES:
+        ids = torch.randint(0, net.gpt.cfg.vocab_size, (B, LC_S),
+                            generator=gen, device=DEVICE)
+        fa_fn.launches = fl.layernorm_residual.launches = 0
+        fcalls, lcalls = [], []
+        with recording_launches(fa, "_forward_kernel", fcalls), \
+                recording_ln_kernels(lcalls):
+            (got,) = pred.run_tensors([ids])
+            torch.cuda.synchronize()
+        nf, nl = fa_fn.launches, fl.layernorm_residual.launches
+        assert nf == layers and nl == layers, (nf, nl)
+        with torch.no_grad():
+            want = net(ids)
+        rel = float((got.float() - want.float()).norm()
+                    / want.float().norm())
+        assert rel <= 1e-2, rel
+        (q, k, v, causal, scale, off), (o, lse) = fcalls[0]
+        ref, ref_lse = fa.flash_attention_fwd_lse_ref(q, k, v, causal,
+                                                      scale, off)
+        ferr, fratio = flash_out_close(torch, o, ref, "bfloat16")
+        torch.testing.assert_close(lse, ref_lse,
+                                   **FLASH_LSE_TOL["bfloat16"])
+        ln_rows = check_path_ln_kernels(torch, lcalls, f"I3 batch {B}")
+        qshape = list(q.shape)
+        del fcalls, lcalls, q, k, v, o, lse, ref, ref_lse
+        ms = _inf_ms(torch, lambda: pred.run_tensors([ids]), runs=3)
+        out["batches"][str(B)] = {
+            "predictor_ms": ms, "flash_launches": nf, "ln_launches": nl,
+            "logits_rel_l2": rel, "flash_max_abs_err": ferr,
+            "ln_check": ln_rows}
+        log(f"I3[{gpu}]: exported gpt_small 8192 bf16 batch {B}: kernel 4 "
+            f"{nf} launches, kernel 2 {nl} (= {layers} each), logits vs "
+            f"eager rel L2 {rel:.3e} (<= 1e-2); kernel 4 at {qshape} "
+            f"vs plain max_abs_err {ferr:.3e} ({fratio:.3f} of its "
+            f"tolerance); Predictor {_spread(ms)} ms a call")
+        if first is None:
+            first = (ids[:1].cpu(), got[:1].float().cpu())
+        del got, want
+    log(f"I3[{gpu}]: export {export_s:.1f} s, .pdmodel {size} bytes")
+    del net, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, functools.partial(inf_gpt_on_cpu, torch, gpu, prefix,
+                                  *first)
+
+
+def inf_gpt_on_cpu(torch, gpu, prefix, ids, card_logits):
+    """I3's CPU half: the same artifact on the CPU at one sequence (the
+    operators' plain versions), its logits within 1e-2 (relative L2) of
+    the card's (~70 s of the card machine's CPU: bf16 matmuls; it runs
+    alone, since an export traced in another thread meanwhile would trace
+    its operations too)."""
+    from paddle_tpu_torch import inference
+
+    t0 = time.monotonic()
+    cpu = inference.Predictor(prefix, device="cpu")
+    (on_cpu,) = cpu.run_tensors([ids])
+    cpu_s = time.monotonic() - t0
+    rel = float((on_cpu.float() - card_logits).norm() / card_logits.norm())
+    assert rel <= 1e-2, rel
+    log(f"I3[{gpu}]: the same artifact on the CPU at 1 x {LC_S} (plain "
+        f"versions) in {cpu_s:.1f} s: logits vs the card's rel L2 "
+        f"{rel:.3e} (<= 1e-2)")
+    return {"cpu_s": cpu_s, "cpu_rel_l2": rel}
+
+
+def inf_int8_export(torch, gpu, workdir):
+    """Phase I4: examples/quantize_int8.py's flow in the port on the card:
+    ``PostTrainingQuantization`` of ``vision.models.LeNet`` (4 seeded
+    calibration batches of 16), ``static.save_inference_model``, a reload
+    through a Predictor: kernel 9 launches inside the reloaded program (5
+    a call: two int8 convolutions, three int8 linears), each launch bit
+    equal to its plain version, outputs equal to the live quantized
+    model's."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.slim import PostTrainingQuantization
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.vision.models import LeNet
+
+    qmm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
+    net = LeNet(generator=torch.Generator().manual_seed(SEED)).eval()
+    rng = np.random.RandomState(SEED)
+    calib = [torch.from_numpy(rng.uniform(0, 1, (16, 1, 28, 28)).astype(
+        np.float32)).to(DEVICE) for _ in range(4)]
+    ptq = PostTrainingQuantization(net)
+    for batch in calib:
+        ptq.collect(batch)
+    qnet = ptq.quantize().eval()
+    prefix = os.path.join(workdir, "lenet_int8")
+    t0 = time.monotonic()
+    ptt.static.save_inference_model(
+        prefix, qnet, [InputSpec([None, 1, 28, 28], "float32")])
+    export_s = time.monotonic() - t0
+    pred = ptt.static.load_inference_model(prefix)
+    qmm.quantized_linear.launches = 0
+    calls = []
+    with recording_launches(qmm, "_matmul_kernel", calls):
+        (got,) = pred.run_tensors([calib[0]])
+        torch.cuda.synchronize()
+    launches = qmm.quantized_linear.launches
+    assert launches == 5, launches
+    for (xq, wq, scale, bias), (o,) in calls:
+        assert torch.equal(o, qmm._matmul_ref(xq, wq, scale, bias)), \
+            f"kernel 9 differs from plain at {list(xq.shape)} @ {list(wq.shape)}"
+    shapes = [[int(a[0].shape[0]), int(a[0].shape[1]), int(a[1].shape[1])]
+              for a, _ in calls]
+    with torch.no_grad():
+        want = qnet(calib[0])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    err = float((got - want).abs().max())
+    log(f"I4[{gpu}]: int8 LeNet (PTQ) exported in {export_s:.1f} s and "
+        f"reloaded: kernel 9 {launches} launches a call at (M, K, N) "
+        f"{shapes}, each bit-equal to plain; outputs vs the live quantized "
+        f"model max_abs_err {err:.3e} ok")
+    return {"launches_per_call": launches, "shapes": shapes,
+            "max_abs_err": err, "export_s": export_s}
+
+
+def inf_capi(torch, gpu, workdir):
+    """Phase I5: ``native/capi_example.c`` compiled with gcc against
+    ``native.c_api_path()`` (the embedded CPython of this interpreter:
+    ``sysconfig``'s LIBDIR / LDVERSION) serves a small exported MLP on the
+    card and prints the Python Predictor's numbers on the same inputs."""
+    import numpy as np
+    import sysconfig
+
+    from paddle_tpu_torch import inference, nn
+    from paddle_tpu_torch.native import run_capi_example
+    from paddle_tpu_torch.static import InputSpec
+
+    gen = torch.Generator().manual_seed(SEED + 95)
+    net = nn.Sequential(nn.Linear(8, 16), nn.ReLU(), nn.Linear(16, 4))
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen))
+    net = net.to(DEVICE).eval()
+    prefix = os.path.join(workdir, "capi_mlp")
+    inference.save_inference_model(prefix, net,
+                                   [InputSpec([None, 8], "float32")])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p]))
+    env.pop("PADDLE_TPU_TORCH_C_DEVICE", None)
+    t0 = time.monotonic()
+    run = run_capi_example(prefix, workdir, env=env)
+    c_s = time.monotonic() - t0
+    assert run.returncode == 0, (run.returncode, run.stdout[-2000:],
+                                 run.stderr[-4000:])
+    lines = run.stdout.strip().splitlines()
+    ndim = int(lines[0])
+    shape = tuple(int(v) for v in lines[1:1 + ndim])
+    vals = np.array([float(v) for v in lines[1 + ndim:]],
+                    np.float32).reshape(shape)
+    x = (np.arange(16, dtype=np.float32) / 16.0 - 0.5).reshape(2, 8)
+    (ref,) = inference.Predictor(prefix).run([x])
+    assert vals.shape == ref.shape
+    np.testing.assert_array_equal(vals, ref)
+    log(f"I5[{gpu}]: the C program (gcc, libpython"
+        f"{sysconfig.get_config_var('LDVERSION')} from "
+        f"{sysconfig.get_config_var('LIBDIR')}) served the MLP on the card "
+        f"in {c_s:.1f} s (build, interpreter start, load, run): {shape} "
+        f"outputs equal to the Python Predictor's")
+    return {"seconds": c_s, "shape": list(shape)}
+
+
+def inference_phases(torch, gpu):
+    """Phases I1-I5 (see the functions); the artifacts go to a temporary
+    directory under ``$TMPDIR``, removed after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as workdir:
+        submark("I1")
+        i1, prefix, net = inf_bert_export(torch, gpu, workdir)
+        submark("I2")
+        i2 = inf_engine(torch, gpu, prefix, net, workdir)
+        del net
+        gc.collect()
+        torch.cuda.empty_cache()
+        submark("I3")
+        i3, on_cpu = inf_gpt_export(torch, gpu, workdir)
+        submark("I3 on the CPU")
+        i3.update(on_cpu())
+        submark("I4")
+        i4 = inf_int8_export(torch, gpu, workdir)
+        submark("I5")
+        i5 = inf_capi(torch, gpu, workdir)
+    out = {"I1": i1, "I2": i2, "I3": i3, "I4": i4, "I5": i5}
+    log(json.dumps({"inference": dict(device=gpu, **out)}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -12627,6 +13106,11 @@ def main() -> int:
     # route at world size 1
     mark("distributed (DX0-DX8)")
     dx = distributed_phases(torch, gpu)
+    # the inference export: BERT-base exported and served (Predictor,
+    # InferenceEngine), the long-context GPT exported (kernel 4's gate
+    # inside the graph), the int8 LeNet export (kernel 9), the C ABI
+    mark("inference export (I1-I5)")
+    inf = inference_phases(torch, gpu)
     paged = dict(name="paged_flash_decode", route="cuda",
                  source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
                  replaces="paddle_tpu/ops/paged_attention.py:155")
@@ -12704,7 +13188,17 @@ def main() -> int:
         distributed_launches_per_step=dx_launches(
             dx, "layernorm_residual", ("DX2", "DX3", "DX5")),
         distributed_backward_launches_per_step=dx_launches(
-            dx, "layernorm_residual_backward", ("DX2", "DX3", "DX5"))))
+            dx, "layernorm_residual_backward", ("DX2", "DX3", "DX5")),
+        # the inference export: the operator the exported graphs keep, its
+        # launches a Predictor call (I1: BERT-base at batch 4 / 16; I3:
+        # gpt_small 8192 at batch 1 / 2) and each launch held to plain
+        custom_op="paddle_tpu_torch::layernorm_residual_fwd",
+        inference_launches_per_call={
+            **{f"I1 batch {b}": r["launches_per_call"]
+               for b, r in inf["I1"]["batches"].items()},
+            **{f"I3 batch {b}": r["ln_launches"]
+               for b, r in inf["I3"]["batches"].items()}},
+        inference_path_checks=inf["I1"]["kernel_path_checks"]))
     kernels.append(dict(
         name="softmax_cross_entropy", route="cuda",
         source="paddle_tpu_torch/ops/csrc/fused_softmax_xent.cu",
@@ -12764,7 +13258,12 @@ def main() -> int:
             "E5": comp["E5"]["path_checks"].get("quantized_matmul"),
             "C2": comp["C2"]["path_checks"].get("quantized_matmul"),
             "C3": comp["C3"]["path_checks"].get("quantized_matmul")},
-        compression_shapes=comp["C1"]))
+        compression_shapes=comp["C1"],
+        # I4: the exported int8 LeNet's reloaded program, a call (each
+        # launch bit-equal to plain)
+        custom_op="paddle_tpu_torch::quantized_matmul",
+        inference_launches_per_call=inf["I4"]["launches_per_call"],
+        inference_shapes=inf["I4"]["shapes"]))
     # ResNet-50 config 2: launches of the timed training steps, numbers at
     # layer1's conv3 shape (the largest), bf16, the Hopper designs' device
     # time; the other conv3 shapes beside them
@@ -12820,7 +13319,14 @@ def main() -> int:
         # of JAX's schedule x DX3's 6 layers) and a full chunk's numbers
         ring_launches_per_step=dx_launches(dx, "flash_attention", ("DX3",)),
         ring_chunk=dict(dx["ring_chunk_timing"]["fwd"], max_abs_err=max(
-            d["chunk_max_abs_err"]["out"] for d in dx["DX3"]))))
+            d["chunk_max_abs_err"]["out"] for d in dx["DX3"])),
+        # I3: the exported gpt_small 8192's Predictor call at batch 1 / 2
+        custom_op="paddle_tpu_torch::flash_attention_fwd",
+        inference_launches_per_call={
+            f"I3 batch {b}": r["flash_launches"]
+            for b, r in inf["I3"]["batches"].items()},
+        inference_max_abs_err=max(
+            r["flash_max_abs_err"] for r in inf["I3"]["batches"].values())))
     # the long-context training slice: launches of its timed train_batch
     # steps, numbers at its shape, bf16, causal; plain_ms and library_ms
     # are whole backwards (dq, dk and dv together), for both kernels

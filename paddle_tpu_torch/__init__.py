@@ -64,7 +64,12 @@ Ported so far:
   parallelism on the flash-attention kernels, pipeline parallelism
   (GPipe and 1F1B), the fp16_allreduce / LocalSGD / Geo-SGD / DGC plans,
   sparse tables under data parallelism, the ``expert`` axis, and each
-  rank's own dropout streams.
+  rank's own dropout streams;
+* the inference export: ``inference.save_inference_model`` / ``jit.save``
+  / ``Model.save(training=False)`` write a ``torch.export`` graph that
+  keeps kernels 2, 4 and 9 as custom operators, served by
+  ``inference.Predictor`` (one CUDA graph per geometry) and
+  ``serving.InferenceEngine``, and from C through ``native.c_api_path``.
 """
 from .tensor import *  # noqa: F401,F403  (the tensor functions, as JAX's)
 from . import tensor  # noqa: F401
@@ -79,6 +84,7 @@ from .hapi import Model
 from .nn import ParamAttr
 from . import distributed  # noqa: E402
 from .distributed import DataParallel  # noqa: E402
+from . import inference, jit, serving  # noqa: E402
 
 __version__ = "0.5.0"
 
@@ -92,4 +98,4 @@ __all__ = ["seed", "set_device", "get_device", "Model", "ParamAttr", "save",
            "load", "static", "fluid", "enable_static", "disable_static",
            "in_dygraph_mode", "crop_tensor", "distributed", "DataParallel",
            "amp", "io", "metric", "nn", "optimizer", "regularizer", "slim",
-           "tuning", "vision", "__version__"]
+           "tuning", "vision", "inference", "jit", "serving", "__version__"]

@@ -8,11 +8,11 @@ port's 2.0 layers: ``Linear``, ``Conv2D``, ``BatchNorm``, ``Embedding``,
 ``LayerNorm``, ``Dropout``, ``PRelu``, ``GRUUnit`` (the fused 1.x GRU step,
 ``origin_mode`` swapping the update formula) and ``NCE`` (uniform
 negatives from the device generator, or an ``nn.rng_scope``).  The
-re-exported jit names (``declarative``, ``ProgramTranslator``,
-``TracedLayer``, ``jit``) and ``no_grad`` / ``grad`` / ``to_variable``
-raise ``UnimplementedError`` naming their ROADMAP queue-A item; the
-data-parallel names are ``distributed``'s ``DataParallel``,
-``ParallelEnv`` and ``prepare_context``.
+jit names are the port's ``jit`` (``declarative`` is ``jit.to_static``,
+``ProgramTranslator``, ``TracedLayer``); ``no_grad`` / ``grad`` /
+``to_variable`` raise ``UnimplementedError`` naming their ROADMAP
+queue-A item; the data-parallel names are ``distributed``'s
+``DataParallel``, ``ParallelEnv`` and ``prepare_context``.
 """
 from __future__ import annotations
 
@@ -39,11 +39,11 @@ __all__ = [
     "declarative", "ProgramTranslator", "TracedLayer",
 ]
 
+from ... import jit  # noqa: E402,F401
+from ...jit import ProgramTranslator, TracedLayer  # noqa: E402,F401
+from ...jit import to_static as declarative  # noqa: E402,F401
+
 _ITEM8 = "static graph and the long tail"
-jit = _unported("fluid.dygraph.jit", _ITEM8)
-declarative = _unported("fluid.dygraph.declarative", _ITEM8)
-ProgramTranslator = _unported("fluid.dygraph.ProgramTranslator", _ITEM8)
-TracedLayer = _unported("fluid.dygraph.TracedLayer", _ITEM8)
 no_grad = _unported("fluid.dygraph.no_grad", _ITEM8)
 grad = _unported("fluid.dygraph.grad", _ITEM8)
 to_variable = _unported("fluid.dygraph.to_variable", _ITEM8)

@@ -11,6 +11,8 @@ packages read.
   it, or with ``filename`` ONE stream of the tensors in SORTED name order
   (``fluid/io.py:344``), beside a ``__model__`` ProgramDesc that declares
   the persistables (their names, program order, dtypes, shapes).
+* ``save_inference_model``'s layout (``save_reference_inference_model``):
+  the same ``__model__`` with the feed / fetch plumbing, and the params.
 
 The protobuf wire format is walked and emitted directly (varints and
 length-delimited fields with ``framework.proto``'s field numbers).  A
@@ -33,7 +35,8 @@ import torch
 from .errors import InvalidArgumentError
 
 __all__ = ["write_lod_tensor_stream", "build_program_desc",
-           "save_reference_state", "read_lod_tensor_stream",
+           "save_reference_state", "save_reference_inference_model",
+           "read_lod_tensor_stream",
            "parse_program_persistables", "load_reference_state_dict",
            "adapt_state_dict"]
 
@@ -205,12 +208,20 @@ def save_reference_state(state, dirname: str,
     ``filename`` is given, beside a ``__model__`` ProgramDesc naming the
     variables in ``state``'s order."""
     os.makedirs(dirname, exist_ok=True)
+    with open(os.path.join(dirname, model_filename), "wb") as f:
+        f.write(build_program_desc(_state_specs(state)))
+    _write_params(state, dirname, filename)
+
+
+def _state_specs(state):
     specs = []
     for n, v in state.items():
         dtype, shape, _ = _host(v)
         specs.append({"name": n, "shape": shape, "dtype": dtype})
-    with open(os.path.join(dirname, model_filename), "wb") as f:
-        f.write(build_program_desc(specs))
+    return specs
+
+
+def _write_params(state, dirname: str, filename: Optional[str]) -> None:
     if filename is None:
         for name, v in state.items():
             if os.sep in name or (os.altsep and os.altsep in name):
@@ -223,6 +234,24 @@ def save_reference_state(state, dirname: str,
         with open(os.path.join(dirname, filename), "wb") as f:
             for name in sorted(state):  # fluid/io.py:344 sorted-name order
                 write_lod_tensor_stream(f, state[name])
+
+
+def save_reference_inference_model(
+        dirname: str, feed_names: Sequence[str],
+        fetch_names: Sequence[str], state,
+        model_filename: str = "__model__",
+        params_filename: Optional[str] = None) -> None:
+    """The reference's ``save_inference_model`` layout (``fluid/io.py:
+    1164``): ``__model__`` declaring the persistables with the feed /
+    fetch plumbing (the ``feed`` / ``fetch`` variables and one op a
+    name), and the params per variable or combined (``params_filename``,
+    sorted-name order)."""
+    os.makedirs(dirname, exist_ok=True)
+    with open(os.path.join(dirname, model_filename), "wb") as f:
+        f.write(build_program_desc(_state_specs(state),
+                                   feed_names=feed_names,
+                                   fetch_names=fetch_names))
+    _write_params(state, dirname, params_filename)
 
 
 # framework.proto:105 VarType.Type → numpy dtype (22: BF16)

@@ -185,15 +185,23 @@ def _unported(what: str, item: str):
 class Model:
     """Wrap a network with train / eval / predict conveniences.
 
-    ``inputs`` / ``labels`` may be specs (lists); only their count matters
-    here: it says how a batch splits into network inputs and loss
-    labels.
+    ``inputs`` / ``labels`` may be specs (lists): their count says how a
+    batch splits into network inputs and loss labels, and inputs that all
+    carry shapes (InputSpecs or example tensors) are what
+    ``save(training=False)`` exports with.
     """
 
     def __init__(self, network: torch.nn.Module, inputs=None, labels=None):
         self.network = network
         self._n_inputs = (len(_tuplize(inputs)) if inputs is not None
                           else None)
+        # all or nothing: a partial spec list would export the wrong arity
+        self._input_specs = None
+        if inputs is not None:
+            ins = _tuplize(inputs)
+            if all(hasattr(s, "shape") and hasattr(s, "dtype")
+                   for s in ins):
+                self._input_specs = list(ins)
         self._n_labels = (len(_tuplize(labels)) if labels is not None
                           else 1)
         self._optimizer: Optional[Optimizer] = None
@@ -751,10 +759,22 @@ class Model:
         dict) and, with an optimizer, ``path.pdopt`` (``{"state": {"count",
         "slots": {param: {slot: array}}}, "LR_Scheduler" | "lr"}``, the JAX
         package's layout; a ``Lookahead``'s state is its ``{"inner",
-        "slow", "count"}`` tree).  Parent directories are created."""
+        "slow", "count"}`` tree).  ``training=False``: export the network
+        for inference (``path.pdmodel`` + ``path.pdiparams``, through
+        ``jit.save``; reference: hapi/model.py:1004) with ``input_spec``
+        or the ``Model(inputs=...)`` specs.  Parent directories are
+        created."""
         if not training:
-            _unported("save(training=False), the inference export",
-                      "static graph and the long tail")
+            from .. import jit
+
+            spec = input_spec or self._input_specs
+            if spec is None:
+                raise InvalidArgumentError(
+                    "save(training=False) needs input shapes: pass "
+                    "input_spec=[InputSpec(...)] here or declare them in "
+                    "Model(inputs=[InputSpec(...)])")
+            jit.save(self.network, path, input_spec=spec)
+            return
         self._check_unsharded("save")
         serialization.save(self.network.state_dict(), path + ".pdparams")
         if self._optimizer is not None:

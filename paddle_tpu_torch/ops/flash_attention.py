@@ -35,6 +35,12 @@ so that the card can run them as a yardstick at S = 32768 without an
 ``[S, S]`` score tensor).  They are the CPU path; a CUDA tensor always
 goes to the kernels, and what the kernels do not take raises.
 
+The forward launch is the custom operator
+``paddle_tpu_torch::flash_attention_fwd`` (``torch.library``): a graph
+that ``torch.export`` traces keeps it whole (its fake implementation
+gives only shapes and dtypes), and the operands' contiguity and 16-byte
+alignment are settled inside it at run time.
+
 :func:`flash_attention` is differentiable (a ``torch.autograd.Function``);
 :func:`flash_attention_fwd_lse` is forward-only, as the JAX one is, and
 :func:`flash_attention_bwd_chunk` is the backward of one (q, kv-chunk)
@@ -305,22 +311,50 @@ def _backward(q, k, v, lse, do, delta, causal, scale, off):
     return dq, dk, dv
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=())
+def _forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, scale: float, offset: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one operator that ``torch.export`` keeps whole:
+    ``(out, lse)``.  A CPU tensor takes :func:`flash_attention_fwd_lse_ref`,
+    a CUDA tensor launches the kernel (the contiguous, 16-byte aligned
+    operands are made here, at run time, so an exported graph holds no
+    choice that depends on an address or a batch size), a meta or fake
+    tensor gets :func:`_forward_fake`'s shapes, anything else raises."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_lse_ref(q, k, v, causal, scale, offset)
+    if q.device.type == "cuda":
+        q, k, v = _kernel_inputs(q, k, v)
+        return _forward_kernel(q, k, v, causal, scale, offset)
+    raise InvalidArgumentError(
+        f"flash_attention: tensors on {q.device} (cpu or cuda only)")
+
+
+@_forward_op.register_fake
+def _forward_fake(q, k, v, causal, scale, offset):
+    B, H, S, hd = q.shape
+    return q.new_empty(B, H, S, hd), q.new_empty(B, H, S,
+                                                 dtype=torch.float32)
+
+
+def _forward(q, k, v, causal, scale, off):
+    """``(out, lse)``: through :class:`_Flash` where autograd needs the
+    backward, else the operator alone (inference, ``torch.export``)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, causal, scale, off)
+    return _forward_op(q, k, v, causal, scale, off)
+
+
 class _Flash(torch.autograd.Function):
-    """The forward kernel, with the two backward kernels as its VJP (the
+    """The forward operator, with the two backward kernels as its VJP (the
     JAX ``_flash`` custom VJP).  No gradient reaches lse, the causal flag,
     the scale or the offset."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, off):
-        if q.device.type in _build.PLAIN_DEVICES:
-            out, lse = flash_attention_fwd_lse_ref(q, k, v, causal, scale,
-                                                   off)
-        elif q.device.type == "cuda":
-            q, k, v = _kernel_inputs(q, k, v)
-            out, lse = _forward_kernel(q, k, v, causal, scale, off)
-        else:
-            raise InvalidArgumentError(
-                f"flash_attention: tensors on {q.device} (cpu or cuda only)")
+        out, lse = _forward_op(q, k, v, causal, scale, off)
         ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, scale, off)
@@ -360,8 +394,8 @@ def flash_attention_fwd_lse(q, k, v, causal: bool = False, sm_scale=None,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise UnimplementedError(_FWD_ONLY)
-    return _Flash.apply(q, k, v, bool(causal), _scale(q, sm_scale),
-                        int(q_position_offset))
+    return _forward_op(q, k, v, bool(causal), _scale(q, sm_scale),
+                       int(q_position_offset))
 
 
 def flash_attention_bwd_chunk(q, k, v, out, lse, do, causal: bool = False,
@@ -407,8 +441,8 @@ def flash_attention(q, k, v, causal: bool = False, sm_scale=None,
     backward runs :func:`flash_attention_bwd_ref` for CPU tensors and the
     dq and dk / dv kernels for CUDA tensors (one launch each)."""
     _check(q, k, v)
-    return _Flash.apply(q, k, v, bool(causal), _scale(q, sm_scale),
-                        int(q_position_offset))[0]
+    return _forward(q, k, v, bool(causal), _scale(q, sm_scale),
+                    int(q_position_offset))[0]
 
 
 #: kernel launches so far (CUDA tensors only; the CPU path never counts)

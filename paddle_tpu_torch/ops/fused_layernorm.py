@@ -40,6 +40,13 @@ rows are whole vectors and aligned, element loads elsewhere), counted in
 MAX_REGISTER_FEATURES``, plan ``"plain"``) take :func:`_backward_ref`'s
 arithmetic on the card, with no launch counted.
 
+The forward launch is the custom operator
+``paddle_tpu_torch::layernorm_residual_fwd`` (``torch.library``): a graph
+that ``torch.export`` traces keeps it whole, its fake implementation
+gives only shapes and dtypes, and the design, alignment and grid choices
+are made inside it at run time, so one exported graph serves every batch.
+The autograd Function calls it, so training is unchanged.
+
 :func:`layernorm_residual_ref` is the plain PyTorch version, differentiable
 by autograd, and :func:`_backward_ref` the plain backward.  They are the
 CPU path and the yardsticks the kernels are held to on the card; a CUDA
@@ -359,17 +366,40 @@ def _backward_kernel(s, mean, rstd, weight, ds_out, dy, design=None):
     return ds, dg, db
 
 
+@torch.library.custom_op("paddle_tpu_torch::layernorm_residual_fwd",
+                         mutates_args=())
+def _forward_op(x2: torch.Tensor, r2: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor, epsilon: float
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """The forward as one operator that ``torch.export`` keeps whole:
+    ``(s, y, mean, rstd)`` of ``[M, D]`` rows.  A CPU tensor takes
+    :func:`_forward_ref`, a CUDA tensor launches the kernel
+    (:func:`_forward_kernel`: the design, the alignment and the grid are
+    chosen here, at run time, so one exported graph serves every M), a
+    meta or fake tensor gets :func:`_forward_fake`'s shapes, anything else
+    raises."""
+    if x2.device.type == "cpu":
+        return tuple(t.contiguous() for t in _forward_ref(
+            x2, r2, weight, bias, epsilon))
+    if x2.device.type == "cuda":
+        return _forward_kernel(x2, r2, weight, bias, epsilon)
+    raise InvalidArgumentError(
+        f"layernorm_residual: tensors on {x2.device} (cpu or cuda only)")
+
+
+@_forward_op.register_fake
+def _forward_fake(x2, r2, weight, bias, epsilon):
+    M, D = x2.shape
+    return (x2.new_empty(M, D), x2.new_empty(M, D),
+            x2.new_empty(M, dtype=torch.float32),
+            x2.new_empty(M, dtype=torch.float32))
+
+
 class _LayerNormResidual(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, r2, weight, bias, epsilon):
-        if x2.device.type in _build.PLAIN_DEVICES:
-            s, y, mean, rstd = _forward_ref(x2, r2, weight, bias, epsilon)
-        elif x2.device.type == "cuda":
-            s, y, mean, rstd = _forward_kernel(x2, r2, weight, bias, epsilon)
-        else:
-            raise InvalidArgumentError(
-                f"layernorm_residual: tensors on {x2.device} (cpu or cuda "
-                f"only)")
+        s, y, mean, rstd = _forward_op(x2, r2, weight, bias, epsilon)
         ctx.save_for_backward(s, mean, rstd, weight)
         ctx.set_materialize_grads(False)
         return s, y
@@ -404,9 +434,13 @@ def layernorm_residual(x, residual, weight, bias, *, epsilon: float = 1e-5):
     ``layernorm_residual.backward_launches``; anything else raises.
     """
     D = _check(x, residual, weight, bias)
-    s, y = _LayerNormResidual.apply(x.reshape(-1, D),
-                                    residual.reshape(-1, D), weight, bias,
-                                    float(epsilon))
+    args = (x.reshape(-1, D), residual.reshape(-1, D), weight, bias,
+            float(epsilon))
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, residual, weight, bias)):
+        s, y = _LayerNormResidual.apply(*args)
+    else:  # inference (and torch.export): the operator alone
+        s, y, _, _ = _forward_op(*args)
     return s.reshape(x.shape), y.reshape(x.shape)
 
 

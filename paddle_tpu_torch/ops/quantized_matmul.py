@@ -18,7 +18,9 @@ On the card the product and the epilogue are the hand-written CUDA kernel
 use, bound with ctypes): mma.sync tensor-core products for both branches,
 a 4-stage cp.async ring of 128-deep K tiles, and at small M a split over K
 across a thread-block cluster whose partial sums are added in a fixed
-order (so two runs give the same bits in fp8 too); the activation quantization, the scale folding
+order (so two runs give the same bits in fp8 too) — the custom operator
+``paddle_tpu_torch::quantized_matmul`` (``torch.library``), which a
+``torch.export`` graph keeps whole; the activation quantization, the scale folding
 and the cast back to ``x.dtype`` stay PyTorch ops, as they sit outside
 the kernel in the JAX package too.  :func:`quantized_linear_ref` is the
 plain PyTorch version of the same function — the CPU path and the
@@ -147,6 +149,29 @@ def _matmul_kernel(xq, wq, scale, bias):
     return out
 
 
+@torch.library.custom_op("paddle_tpu_torch::quantized_matmul",
+                         mutates_args=())
+def _matmul_op(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """The kernel's function as one operator that ``torch.export`` keeps
+    whole: float32 ``[M, N]``.  A CPU tensor takes :func:`_matmul_ref`, a
+    CUDA tensor launches the kernel (:func:`_matmul_kernel`; its split over
+    K by M is chosen inside the launch, so one exported graph serves every
+    M), a meta or fake tensor gets :func:`_matmul_fake`'s shape, anything
+    else raises."""
+    if xq.device.type == "cpu":
+        return _matmul_ref(xq, wq, scale, bias)
+    if xq.device.type == "cuda":
+        return _matmul_kernel(xq, wq, scale, bias)
+    raise InvalidArgumentError(
+        f"quantized_linear: tensors on {xq.device} (cpu or cuda only)")
+
+
+@_matmul_op.register_fake
+def _matmul_fake(xq, wq, scale, bias):
+    return xq.new_empty(xq.shape[0], wq.shape[1], dtype=torch.float32)
+
+
 def _linear(matmul, x, w_q, weight_scale, bias):
     mode = _MODES.get(getattr(w_q, "dtype", None))
     if mode is None:
@@ -193,12 +218,7 @@ def quantized_linear(x, w_q, weight_scale, bias=None):
     the kernel does not take (dtype, layout, device) raises instead of
     falling back.
     """
-    if x.device.type in _build.PLAIN_DEVICES:
-        return _linear(_matmul_ref, x, w_q, weight_scale, bias)
-    if x.device.type != "cuda":
-        raise InvalidArgumentError(
-            f"quantized_linear: tensors on {x.device} (cpu or cuda only)")
-    return _linear(_matmul_kernel, x, w_q, weight_scale, bias)
+    return _linear(_matmul_op, x, w_q, weight_scale, bias)
 
 
 #: kernel launches so far (CUDA tensors only; the CPU path never counts)
@@ -212,12 +232,7 @@ def quantized_product(xq, wq, scale, bias):
     then ``acc * scale + bias`` in float32 (``scale`` / ``bias`` float32
     ``[N]``).  CPU tensors take the plain version; CUDA tensors launch the
     kernel (counted in ``quantized_linear.launches``) or raise."""
-    if xq.device.type in _build.PLAIN_DEVICES:
-        return _matmul_ref(xq, wq, scale, bias)
-    if xq.device.type != "cuda":
-        raise InvalidArgumentError(
-            f"quantized_product: tensors on {xq.device} (cpu or cuda only)")
-    return _matmul_kernel(xq, wq, scale, bias)
+    return _matmul_op(xq, wq, scale, bias)
 
 
 def quantized_matmul(x, w_q, weight_scale, bias=None):

@@ -11,12 +11,15 @@ builders of ``static.nn``, ``optimizer.minimize``, ``Executor.run`` /
 ``load_program_state`` / ``set_program_state`` in the JAX package's file
 format (``framework/serialization.py``).
 
+``save_inference_model`` / ``load_inference_model`` are the eager forms
+over ``paddle_tpu_torch.inference`` (a ``torch.export`` artifact), and
+``make_symbols`` gives an export's dynamic dims as ``torch.export.Dim``s
+of one scope.
+
 Not ported yet, each raising ``UnimplementedError`` naming ROADMAP queue
-A, static graph and the long tail: the inference export
-(``save_inference_model`` / ``load_inference_model``), ``py_func``,
-``Print``, ``ParallelExecutor``, ``append_backward`` / ``gradients``,
-``WeightNormParamAttr`` and ``make_symbols`` (the JAX export's symbolic
-shapes).
+A, static graph and the long tail: ``py_func``, ``Print``,
+``ParallelExecutor``, ``append_backward`` / ``gradients`` and
+``WeightNormParamAttr``.
 """
 from __future__ import annotations
 
@@ -82,6 +85,36 @@ class InputSpec:
             elif d is None:
                 out.append(f"d_{self.name or 'in'}_{i}".replace("-", "_"))
         return out
+
+    def dynamic_shape(self, symbols=None) -> dict:
+        """``{axis: torch.export.Dim}`` of the dynamic dims — the export's
+        ``dynamic_shapes`` entry of this input (the JAX ``shape_dtype``'s
+        symbolic half).  ``symbols`` maps symbol name → Dim; every dynamic
+        dim of a multi-input export must come from ONE :func:`make_symbols`
+        call, so that two specs reusing a name share that size.  With
+        ``symbols=None`` a private scope is made for this spec alone."""
+        if symbols is None:
+            symbols = make_symbols([self])
+        names = iter(self.symbol_names())
+        return {i: symbols[next(names)] for i, d in enumerate(self.shape)
+                if not isinstance(d, int)}
+
+
+def make_symbols(specs) -> dict:
+    """Every dynamic dim of ``specs`` as a ``torch.export.Dim`` of one
+    shared scope: ``{symbol name: Dim}``, one Dim per distinct name, so two
+    specs that reuse a name share that size (the JAX package's
+    ``jax.export.symbolic_shape`` scope).  A dynamic size is at least 1."""
+    names = []
+    for s in specs:
+        for n in s.symbol_names():
+            if n not in names:
+                names.append(n)
+    for n in names:
+        if not n.isidentifier():
+            raise InvalidArgumentError(
+                f"symbolic dim name {n!r} is not an identifier")
+    return {n: torch.export.Dim(n, min=1) for n in names}
 
 
 def data(name, shape, dtype="float32", lod_level=0):
@@ -302,15 +335,39 @@ def load(program, model_path, executor=None, var_list=None):
     set_program_state(program, state)
 
 
+def save_inference_model(path_prefix, feed_vars, fetch_vars=None,
+                         executor=None, **kwargs):
+    """Ref: fluid/io.py:1164.  Eager form: ``feed_vars`` is the Layer and
+    ``fetch_vars`` its InputSpecs (the Program / Executor arguments of the
+    reference have no meaning here), or the two the other way round —
+    delegates to :func:`paddle_tpu_torch.inference.save_inference_model`
+    (``kwargs`` may carry its ``platforms``)."""
+    from ..inference import save_inference_model as _save
+
+    if isinstance(feed_vars, torch.nn.Module):
+        return _save(path_prefix, feed_vars, fetch_vars, **kwargs)
+    if isinstance(fetch_vars, torch.nn.Module):  # (specs, layer) order
+        return _save(path_prefix, fetch_vars, feed_vars, **kwargs)
+    raise InvalidArgumentError(
+        "static.save_inference_model(path, layer, input_specs): pass the "
+        "eager Layer to export (no Program exists to save)")
+
+
+def load_inference_model(path_prefix, executor=None, **kwargs):
+    """Ref: fluid/io.py:1374 — the loaded ``inference.Predictor`` (the
+    eager counterpart of (program, feed_names, fetch_names)); ``kwargs``
+    may carry its ``device`` / ``params_file``."""
+    from ..inference import Predictor
+
+    return Predictor(path_prefix, **kwargs)
+
+
 _ITEM8 = "static graph and the long tail"
-save_inference_model = unported("paddle.static.save_inference_model", _ITEM8)
-load_inference_model = unported("paddle.static.load_inference_model", _ITEM8)
 py_func = unported("paddle.static.py_func", _ITEM8)
 Print = unported("paddle.static.Print", _ITEM8)
 ParallelExecutor = unported("paddle.static.ParallelExecutor", _ITEM8)
 append_backward = unported("paddle.static.append_backward", _ITEM8)
 gradients = unported("paddle.static.gradients", _ITEM8)
-make_symbols = unported("paddle.static.make_symbols", _ITEM8)
 WeightNormParamAttr = unported("paddle.static.WeightNormParamAttr", _ITEM8)
 
 from . import nn  # noqa: E402,F401  (the builders)

@@ -69,7 +69,8 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
     for mod in ("framework.selected_rows", "models.wide_deep", "native",
                 "io.in_memory_dataset", "optimizer.averaging",
                 "optimizer.gradient_merge", "optimizer.dgc",
-                "nn.functional.common", "tuning", "tuning.trace"):
+                "nn.functional.common", "tuning", "tuning.trace",
+                "inference", "jit", "serving.engine", "serving.bucketing"):
         assert f"paddle_tpu_torch.{mod}" in mods, mod
     assert [m for m in mods if _forbidden(m)] == []
 

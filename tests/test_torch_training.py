@@ -41,7 +41,7 @@ from paddle_tpu import optimizer as jopt
 from paddle_tpu.models import bert as jbert
 from paddle_tpu.models import gpt as jgpt
 from paddle_tpu_torch.bridge import load_jax_params
-from paddle_tpu_torch.framework.errors import UnimplementedError
+from paddle_tpu_torch.framework.errors import InvalidArgumentError
 from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.nn import Dropout
@@ -211,7 +211,8 @@ def test_unported_model_features_raise(tmp_path):
     (``amp_configs`` and ``fit`` are ported since the training-loop
     slice: tests/test_torch_hapi.py and test_torch_amp.py;
     ``steps_per_execution > 1`` since the k-step slice:
-    tests/test_torch_steps_per_execution.py).  A fleet optimizer is
+    tests/test_torch_steps_per_execution.py; ``save(training=False)``
+    since the inference-export slice).  A fleet optimizer is
     ported since the distributed slice: on one rank its plan trains
     exactly as the plain step (more ranks:
     tests/test_torch_distributed_training.py)."""
@@ -231,7 +232,9 @@ def test_unported_model_features_raise(tmp_path):
     m = tpt.Model(net)
     m.prepare(optimizer=tpt.optimizer.SGD(0.1), loss=net.loss,
               amp_configs="O1")
-    with pytest.raises(UnimplementedError, match="ROADMAP.*static graph"):
+    # save(training=False) is ported since the inference-export slice
+    # (tests/test_torch_inference.py); without input shapes it says so
+    with pytest.raises(InvalidArgumentError, match="input shapes"):
         m.save(str(tmp_path / "inference"), training=False)
 
 
